@@ -5,27 +5,31 @@
 Phases, each of which raises (non-zero exit) on failure:
 
 1. the device and ``nvidia-smi``'s name and power limit;
-2. the hand-written kernel built from ``flowgnn_tpu_torch/csrc`` (build time
-   and the compiler's register / shared-memory report);
-3. the kernel against its plain torch version on the card, at the main
-   path's shapes (a real bucket's slot layout, D=100, H=200, L=5) with
-   seeded random operands: f32 at rtol = atol = 1e-4 (summation order only),
-   bf16 at 5e-2, with and without the analytic-VN column (tolerances as in
-   ``agree``);
-4. the main path: GIN and GIN-VN over the 4113-graph synthetic molhiv stream
-   at full width with seeded synthetic weights, f32 and bf16, through
-   ``registry`` → ``pack_dataset`` → ``as_batches_uniform(local_slots)`` →
-   ``gin.forward``. The kernel's launch count must rise by exactly one per
-   bucket, and each bucket's predictions must match the port's plain
-   edge-list path in f32 on the card (f32 1e-4, bf16 5e-2, see
+2. the hand-written kernels built from ``flowgnn_tpu_torch/csrc``, one
+   ``nvcc`` per source, all started together (build time and each
+   compiler's register / shared-memory report);
+3. each kernel against its plain torch version on the card, at the main
+   path's shapes (a real bucket's slot layout at full width: GIN D=100,
+   H=200, L=5, with and without the analytic-VN column; GCN D=100, L=5;
+   PNA D=80, L=4, T=40) with seeded random operands: f32 at
+   rtol = atol = 1e-4 (summation order only), bf16 at 5e-2 (tolerances as
+   in ``agree``);
+4. the main path: GIN, GIN-VN, GCN and PNA, each over the 4113-graph
+   synthetic molhiv stream at full width with seeded synthetic weights, f32
+   and bf16, through ``registry`` → ``pack_dataset`` →
+   ``as_batches_uniform(local_slots)`` → ``registry.get(name).forward``.
+   Every kernel's launch count is set to 0 just before each run and read
+   just after: the model's kernel must have run exactly once per bucket and
+   no other kernel at all. Each bucket's predictions must match the port's
+   plain edge-list path in f32 on the card (f32 1e-4, bf16 5e-2, see
    ``run_main_path``);
-5. CUDA-event timings after warm-up: µs/graph over the whole stream for the
-   kernel path and for the plain edge-list path, and the kernel alone
-   against its plain version on the same operands.
+5. CUDA-event timings after warm-up, per model and dtype: µs/graph over the
+   whole stream for the kernel path and for the plain edge-list path, and
+   the kernel alone against its plain version on the same operands.
 
-The line before the last is a JSON object with the kernel's record; the last
-line is ``{"ok": true, "device": {...}}``. Without a CUDA device, or outside
-the repository, it exits non-zero before printing either.
+The line before the last is a JSON object with one record per kernel; the
+last line is ``{"ok": true, "device": {...}}``. Without a CUDA device, or
+outside the repository, it exits non-zero before printing either.
 """
 
 from __future__ import annotations
@@ -38,8 +42,23 @@ import time
 SEED = 0
 NODE_CAP, GRAPH_CAP = 32768, 2048  # the JAX bench's bucket capacities
 STREAM_GRAPHS = 4113  # molhiv's graph count
-KERNEL_SOURCE = "flowgnn_tpu_torch/csrc/gin_local_model_slots.cu"
-TPU_KERNEL = "flowgnn_tpu/ops/pallas/local_layer.py:944"
+MODELS = ("gin", "gin-vn", "gcn", "pna")
+# Kernel → (source, the TPU kernel it replaces, the models whose main path
+# runs it). The first model's bf16 stream gives the record's times.
+KERNELS = {
+    "gin_local_model_slots": (
+        "flowgnn_tpu_torch/csrc/gin_local_model_slots.cu",
+        "flowgnn_tpu/ops/pallas/local_layer.py:944", ("gin", "gin-vn"),
+    ),
+    "gcn_local_model_slots": (
+        "flowgnn_tpu_torch/csrc/gcn_local_model_slots.cu",
+        "flowgnn_tpu/ops/pallas/local_layer.py:1178", ("gcn",),
+    ),
+    "pna_local_model": (
+        "flowgnn_tpu_torch/csrc/pna_local_model.cu",
+        "flowgnn_tpu/ops/pallas/local_layer.py:2062", ("pna",),
+    ),
+}
 
 
 def check(cond: bool, msg: str) -> None:
@@ -62,6 +81,25 @@ def cuda_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def kernel_of(name: str) -> str:
+    return next(k for k, (_, _, models) in KERNELS.items() if name in models)
+
+
+def model_module(name: str):
+    from flowgnn_tpu_torch.models import gcn, gin, pna
+
+    return {"gin": gin, "gin-vn": gin, "gcn": gcn, "pna": pna}[name]
+
+
+def synthetic_params(name: str, seed: int) -> dict:
+    from flowgnn_tpu_torch.params import loaders
+
+    return {
+        "gin": loaders.synthetic_gin_params, "gin-vn": loaders.synthetic_gin_params,
+        "gcn": loaders.synthetic_gcn_params, "pna": loaders.synthetic_pna_params,
+    }[name](seed)
 
 
 def make_stream(name: str, num_graphs: int, device):
@@ -89,9 +127,9 @@ def make_stream(name: str, num_graphs: int, device):
     )
 
 
-def random_operands(batch: dict, vn: bool, dtype, device, seed: int) -> dict:
-    """Kernel operands at full width on a real bucket's slot layout, with
-    seeded random h0 and weights."""
+def gin_random_operands(batch: dict, vn: bool, dtype, device, seed: int) -> dict:
+    """GIN kernel operands at full width on a real bucket's slot layout,
+    with seeded random h0 and weights."""
     import numpy as np
     import torch
 
@@ -113,6 +151,19 @@ def random_operands(batch: dict, vn: bool, dtype, device, seed: int) -> dict:
     )
 
 
+def random_operands(name: str, batch: dict, prec, device, seed: int) -> dict:
+    """Kernel operands at full width on a real bucket's slot layout: GIN's
+    from seeded random tensors, GCN's and PNA's from the model's own
+    operand builder over seeded synthetic weights (so the degree norms and
+    scalers are the bucket's own)."""
+    from flowgnn_tpu_torch.params.loaders import params_from_numpy
+
+    if name in ("gin", "gin-vn"):
+        return gin_random_operands(batch, name == "gin-vn", prec.compute_dtype, device, seed)
+    params = params_from_numpy(synthetic_params(name, seed), prec, device)
+    return model_module(name).slot_kernel_operands(params, batch, prec)
+
+
 def agree(got, want, tol: float) -> float:
     """Max abs error of ``got`` against ``want``; raises unless
     |got − want| ≤ tol·scale + tol·|want| elementwise, where scale is the
@@ -128,38 +179,40 @@ def agree(got, want, tol: float) -> float:
     return (got - want).abs().max().item()
 
 
-def check_kernel(streams: dict, device) -> float:
-    """Phase 3: the kernel against its plain version on random operands.
-    Returns the largest f32 error."""
-    import torch
-
+def check_kernels(streams: dict, device) -> dict:
+    """Phase 3: each kernel against its plain version on random operands.
+    Returns each kernel's largest f32 error."""
+    from flowgnn_tpu_torch.core.numerics import BF16, FLOAT32
     from flowgnn_tpu_torch.ops import local_layer
 
-    max_err = 0.0
-    for name in ("gin", "gin-vn"):
-        for dtype, tol in ((torch.float32, 1e-4), (torch.bfloat16, 5e-2)):
-            ops = random_operands(streams[name][1][0], name == "gin-vn", dtype, device, SEED + 1)
-            got = local_layer.gin_local_model_slots(**ops)
-            want = local_layer.gin_local_model_slots_ref(**ops)
+    max_err = dict.fromkeys(KERNELS, 0.0)
+    for name in MODELS:
+        kname = kernel_of(name)
+        kernel = getattr(local_layer, kname)
+        ref = getattr(local_layer, f"{kname}_ref")
+        for prec, tol in ((FLOAT32, 1e-4), (BF16, 5e-2)):
+            ops = random_operands(name, streams[name][1][0], prec, device, SEED + 1)
+            got = kernel(**ops)
+            want = ref(**ops)
             err = agree(got, want, tol)
-            print(f"# kernel vs plain, {name} {dtype}: max abs err {err:.3e} "
+            print(f"# kernel vs plain, {name} {prec.compute_dtype}: max abs err {err:.3e} "
                   f"(max |out| {want.abs().max().item():.3e})")
-            if dtype == torch.float32:
-                max_err = max(max_err, err)
+            if prec is FLOAT32:
+                max_err[kname] = max(max_err[kname], err)
     return max_err
 
 
-def run_main_path(streams: dict, params_np: dict, device) -> int:
-    """Phase 4: both models over the whole stream in f32 and bf16; returns
-    the kernel launches counted in these runs.
+def run_main_path(streams: dict, device) -> dict:
+    """Phase 4: every model over the whole stream in f32 and bf16; returns
+    each kernel's launches counted in these runs.
 
     The reference is the port's plain edge-list path in f32 on the same
     device (``agree``). The f32 kernel path differs from it in summation
     order only: 1e-4. bf16 keeps about three significant digits, and a
     prediction is a mean of node outputs that partly cancel, so single
-    graphs move by a few percent of the largest prediction: 5e-2. The
-    bf16 plain path's own error against the same reference is printed
-    beside."""
+    graphs move by a few percent of the largest prediction: 5e-2, for all
+    four models. The bf16 plain path's own error against the same
+    reference is printed beside."""
     import torch
 
     from flowgnn_tpu_torch.core.numerics import BF16, FLOAT32
@@ -167,32 +220,70 @@ def run_main_path(streams: dict, params_np: dict, device) -> int:
     from flowgnn_tpu_torch.ops import local_layer
     from flowgnn_tpu_torch.params.loaders import params_from_numpy
 
-    kernel = local_layer.gin_local_model_slots
-    launches = 0
+    kernels = {k: getattr(local_layer, k) for k in KERNELS}
+    launches = dict.fromkeys(KERNELS, 0)
     for name, (buckets, slot, plain) in streams.items():
         forward = registry.get(name).forward
+        params_np = synthetic_params(name, SEED)
         p32 = params_from_numpy(params_np, FLOAT32, device)
         want = [forward(p32, pb, FLOAT32)[: b.num_graphs] for b, pb in zip(buckets, plain)]
+        kname = kernel_of(name)
         for prec, tol in ((FLOAT32, 1e-4), (BF16, 5e-2)):
             params = params_from_numpy(params_np, prec, device)
-            kernel.launches = 0
+            for k in kernels.values():
+                k.launches = 0
             outs = [forward(params, b, prec) for b in slot]
             torch.cuda.synchronize()
-            count = kernel.launches
-            launches += count
-            check(count == len(slot), f"{name}: {count} launches for {len(slot)} buckets")
+            counts = {k: f.launches for k, f in kernels.items()}
+            launches[kname] += counts[kname]
+            check(counts[kname] == len(slot),
+                  f"{name}: {counts[kname]} launches of {kname} for {len(slot)} buckets")
+            check(all(c == 0 for k, c in counts.items() if k != kname),
+                  f"{name}: other kernels launched: {counts}")
             for i, (packed, out, pb, w) in enumerate(zip(buckets, outs, plain, want)):
                 k = packed.num_graphs
                 check(tuple(out.shape) == (packed.n_node.shape[0], 1), f"{name}: shape {tuple(out.shape)}")
                 check(bool(out[:k].isfinite().all()), f"{name}: non-finite output")
                 err = agree(out[:k], w, tol)
                 line = (f"# main path {name} {prec.compute_dtype} bucket {i}: {k} graphs, "
-                        f"{count} launches, max abs err vs f32 plain path {err:.3e}")
+                        f"{counts[kname]} launches, max abs err vs f32 plain path {err:.3e}")
                 if prec is BF16:
                     plain_err = (forward(params, pb, prec)[:k].float() - w).abs().max().item()
                     line += f" (bf16 plain path: {plain_err:.3e})"
                 print(f"{line}; max |out| {w.abs().max().item():.3e}")
     return launches
+
+
+def time_paths(streams: dict, device) -> dict:
+    """Phase 5: per model and dtype, (kernel alone ms, its plain version
+    ms) per stream, with the end-to-end µs/graph of both paths printed."""
+    from flowgnn_tpu_torch.core.numerics import BF16, FLOAT32
+    from flowgnn_tpu_torch.models import registry
+    from flowgnn_tpu_torch.ops import local_layer
+    from flowgnn_tpu_torch.params.loaders import params_from_numpy
+
+    record = {}
+    for name, (buckets, slot, plain) in streams.items():
+        forward = registry.get(name).forward
+        kname = kernel_of(name)
+        kernel = getattr(local_layer, kname)
+        ref = getattr(local_layer, f"{kname}_ref")
+        graphs = sum(b.num_graphs for b in buckets)
+        params_np = synthetic_params(name, SEED)
+        for prec in (BF16, FLOAT32):
+            params = params_from_numpy(params_np, prec, device)
+            ops = [model_module(name).slot_kernel_operands(params, b, prec) for b in slot]
+            tag = f"{name} {str(prec.compute_dtype).replace('torch.', '')}"
+            e2e = cuda_ms(lambda: [forward(params, b, prec) for b in slot])
+            e2e_plain = cuda_ms(lambda: [forward(params, b, prec) for b in plain])
+            k_ms = cuda_ms(lambda: [kernel(**o) for o in ops])
+            ref_ms = cuda_ms(lambda: [ref(**o) for o in ops])
+            print(f"# time {tag}: kernel path {e2e * 1e3 / graphs:.4f} us/graph, "
+                  f"plain edge-list path {e2e_plain * 1e3 / graphs:.4f} us/graph; "
+                  f"kernel alone {k_ms:.4f} ms/stream, its plain version {ref_ms:.4f} "
+                  f"ms/stream ({graphs} graphs, {len(slot)} launches)")
+            record[(name, prec)] = (k_ms, ref_ms)
+    return record
 
 
 def main() -> int:
@@ -201,10 +292,8 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
-    from flowgnn_tpu_torch.core.numerics import BF16, FLOAT32
-    from flowgnn_tpu_torch.models import gin, registry
+    from flowgnn_tpu_torch.core.numerics import BF16
     from flowgnn_tpu_torch.ops import build, local_layer
-    from flowgnn_tpu_torch.params.loaders import params_from_numpy, synthetic_gin_params
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -220,57 +309,43 @@ def main() -> int:
           f"{torch.__version__}, CUDA {torch.version.cuda}")
     print(smi)
 
-    # 2. Build.
+    # 2. Build, all sources at once.
     t0 = time.perf_counter()
-    so = build.build_library(local_layer.LIBRARY)
-    local_layer._library()
-    print(f"# build: {so.name} in {time.perf_counter() - t0:.1f} s")
-    for line in so.with_suffix(".log").read_text().splitlines():
-        print(f"#   {line}")
+    libs = build.build_libraries(local_layer.LIBRARIES)
+    for name in local_layer.LIBRARIES:
+        local_layer._library(name)
+    print(f"# build of {len(libs)} kernels: {time.perf_counter() - t0:.1f} s")
+    for so in libs:
+        print(f"# {so.name}:")
+        for line in so.with_suffix(".log").read_text().splitlines():
+            print(f"#   {line}")
 
     # The main path's host half (phase 3 runs on a real bucket's layout).
     t0 = time.perf_counter()
-    params_np = synthetic_gin_params(SEED)
-    streams = {name: make_stream(name, STREAM_GRAPHS, dev) for name in ("gin", "gin-vn")}
+    streams = {name: make_stream(name, STREAM_GRAPHS, dev) for name in MODELS}
     for name, (buckets, slot, _) in streams.items():
         w, s = slot[0]["slot_geom"].shape
         nw = -(-slot[0]["node_feat"].shape[0] // w)
         print(f"# {name}: {len(buckets)} buckets, {sum(b.num_graphs for b in buckets)} "
               f"graphs, window {w}, slots {s}, prefix lanes per window "
               f"{slot[0]['slot_meta'].shape[0] // nw}")
-    print(f"# host pack of both streams: {time.perf_counter() - t0:.1f} s")
+    print(f"# host pack of {len(streams)} streams: {time.perf_counter() - t0:.1f} s")
 
-    # 3. Kernel against its plain version; 4. the main path.
-    max_err = check_kernel(streams, dev)
-    launches = run_main_path(streams, params_np, dev)
+    # 3. Kernels against their plain versions; 4. the main path; 5. timings.
+    max_err = check_kernels(streams, dev)
+    launches = run_main_path(streams, dev)
+    record = time_paths(streams, dev)
 
-    # 5. Timings.
-    kernel = local_layer.gin_local_model_slots
-    record = {}
-    for name, (buckets, slot, plain) in streams.items():
-        forward = registry.get(name).forward
-        graphs = sum(b.num_graphs for b in buckets)
-        for prec in (BF16, FLOAT32):
-            params = params_from_numpy(params_np, prec, dev)
-            ops = [gin.slot_kernel_operands(params, b, prec) for b in slot]
-            tag = f"{name} {str(prec.compute_dtype).replace('torch.', '')}"
-            e2e = cuda_ms(lambda: [forward(params, b, prec) for b in slot])
-            e2e_plain = cuda_ms(lambda: [forward(params, b, prec) for b in plain])
-            k_ms = cuda_ms(lambda: [kernel(**o) for o in ops])
-            ref_ms = cuda_ms(lambda: [local_layer.gin_local_model_slots_ref(**o) for o in ops])
-            print(f"# time {tag}: kernel path {e2e * 1e3 / graphs:.4f} us/graph, "
-                  f"plain edge-list path {e2e_plain * 1e3 / graphs:.4f} us/graph; "
-                  f"kernel alone {k_ms:.4f} ms/stream, its plain version {ref_ms:.4f} "
-                  f"ms/stream ({graphs} graphs, {len(slot)} launches)")
-            record[(name, prec)] = (k_ms, ref_ms)
-
-    k_ms, ref_ms = record[("gin", BF16)]  # the bench default: GIN in bf16
     print(smi)
-    print(json.dumps({"kernels": [{
-        "name": "gin_local_model_slots", "route": "cuda", "source": KERNEL_SOURCE,
-        "replaces": TPU_KERNEL, "launches": launches, "max_abs_err": max_err,
-        "ms": k_ms, "plain_ms": ref_ms,
-    }]}))
+    kernels = []
+    for kname, (source, replaces, models) in KERNELS.items():
+        k_ms, ref_ms = record[(models[0], BF16)]
+        kernels.append({
+            "name": kname, "route": "cuda", "source": source, "replaces": replaces,
+            "launches": launches[kname], "max_abs_err": max_err[kname],
+            "ms": k_ms, "plain_ms": ref_ms,
+        })
+    print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count(),
     }}))

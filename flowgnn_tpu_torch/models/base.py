@@ -40,6 +40,8 @@ from ..ops.segment import segment_sum
 GEOMETRY_DEFAULTS: dict[str, tuple[int, int]] = {
     "gin": (128, 384),
     "gin-vn": (128, 384),
+    "gcn": (128, 384),
+    "pna": (128, 384),
 }
 MAX_SLOTS = 8  # deepest slot axis; deeper in-degrees would spill
 POOL_GMAX = 64  # graph slots per window in the in-kernel pooling layout
@@ -355,6 +357,24 @@ def gather_sources(h: torch.Tensor, batch: dict) -> torch.Tensor:
 def edge_segment_sum(vals: torch.Tensor, batch: dict) -> torch.Tensor:
     """Per-receiver message sum over the plain edge list."""
     return segment_sum(vals, batch["receivers"], num_nodes_static(batch))
+
+
+def out_degree(batch: dict) -> torch.Tensor:
+    """Edges-with-source-u count per node (degree_table[u]++,
+    GIN/src/load_inputs.cc:130), pad node included. Slot batches carry it
+    precomputed on the host (``_attach_degrees``)."""
+    if "out_deg" in batch:
+        return batch["out_deg"]
+    ones = torch.ones_like(batch["senders"], dtype=torch.int32)
+    return segment_sum(ones, batch["senders"], num_nodes_static(batch))
+
+
+def in_degree(batch: dict) -> torch.Tensor:
+    """Edges-with-dest-v count per node, pad node included."""
+    if "in_deg" in batch:
+        return batch["in_deg"]
+    ones = torch.ones_like(batch["receivers"], dtype=torch.int32)
+    return segment_sum(ones, batch["receivers"], num_nodes_static(batch))
 
 
 def mean_pool(h: torch.Tensor, batch: dict) -> torch.Tensor:

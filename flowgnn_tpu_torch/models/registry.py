@@ -1,7 +1,7 @@
 """Model registry: name → (forward fn, loader, graph transforms).
 
 The counterpart of ``flowgnn_tpu.models.registry`` for the models the port
-runs so far: GIN and GIN-VN. GCN, GAT, PNA and DGN join with their slices
+runs so far: GIN, GIN-VN, GCN and PNA. DGN and GAT join with their slices
 (ROADMAP queue 1 item 7).
 """
 
@@ -12,7 +12,7 @@ from typing import Callable, Sequence
 
 from ..core import graphs as G
 from ..params import loaders
-from . import gin
+from . import gcn, gin, pna
 
 
 @dataclasses.dataclass(frozen=True)
@@ -35,6 +35,14 @@ MODELS: dict[str, ModelSpec] = {
     "gin-vn": ModelSpec(
         "gin-vn", gin.forward, loaders.load_gin, dim=100, num_layers=5,
         transforms=(G.add_virtual_node_analytic,), reference_dir="GIN-VN",
+    ),
+    "gcn": ModelSpec(
+        "gcn", gcn.forward, loaders.load_gcn, dim=100, num_layers=5,
+        reference_dir="GCN",
+    ),
+    "pna": ModelSpec(
+        "pna", pna.forward, loaders.load_pna, dim=80, num_layers=4,
+        reference_dir="PNA",
     ),
 }
 

@@ -5,7 +5,8 @@ Each ``csrc/<name>.cu`` exposes a plain C interface and compiles with
 by a hash of the source and the flags, so an edited source rebuilds. The
 compiler's output (``-Xptxas -v``: registers, shared memory, spills) is kept
 beside the library as ``<name>-<hash>.log``. A failed build raises.
-Nothing is built when the package is imported.
+``build_libraries`` compiles several sources in parallel. Nothing is built
+when the package is imported.
 """
 
 from __future__ import annotations
@@ -46,31 +47,40 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"{name}-{digest[:16]}.so"
 
 
-def build_library(name: str) -> Path:
-    """Compile ``csrc/<name>.cu`` unless its library is already built."""
-    so = library_path(name)
-    if so.exists():
-        return so
+def build_libraries(names) -> list[Path]:
+    """Compile every ``csrc/<name>.cu`` of ``names`` whose library is not
+    built yet, one ``nvcc`` per source, all started together; returns the
+    libraries' paths in the order of ``names``. Raises if any build fails."""
+    names = list(names)
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp, str(CSRC_DIR / f"{name}.cu")]
-    try:
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        so.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}) for {name}.cu:\n"
-                f"{proc.stdout}{proc.stderr}"
-            )
-        os.replace(tmp, so)  # atomic: a concurrent builder sees all or nothing
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
-    return so
+    jobs = []
+    for name in names:
+        so = library_path(name)
+        if so.exists():
+            continue
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+        os.close(fd)
+        cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp, str(CSRC_DIR / f"{name}.cu")]
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        jobs.append((name, so, tmp, proc))
+    failed = []
+    for name, so, tmp, proc in jobs:
+        try:
+            log, _ = proc.communicate()
+            so.with_suffix(".log").write_text(log)
+            if proc.returncode != 0:
+                failed.append(f"nvcc failed ({proc.returncode}) for {name}.cu:\n{log}")
+            else:
+                os.replace(tmp, so)  # atomic: a concurrent builder sees all or nothing
+        finally:
+            if os.path.exists(tmp):
+                os.unlink(tmp)
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return [library_path(name) for name in names]
 
 
 @functools.cache
 def load_library(name: str) -> ctypes.CDLL:
     """Build (if needed) and load ``csrc/<name>.cu``; one handle per process."""
-    return ctypes.CDLL(str(build_library(name)))
+    return ctypes.CDLL(str(build_libraries([name])[0]))

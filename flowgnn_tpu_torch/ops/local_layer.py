@@ -1,18 +1,23 @@
-"""Graph-local whole-model kernels.
+"""Graph-local whole-model kernels over the degree-sorted slot layout.
 
-``gin_local_model_slots`` is the counterpart of the TPU kernel
-``flowgnn_tpu/ops/pallas/local_layer.py:gin_local_model_slots``: the whole
-GIN / GIN-VN model (L layers of slot gather, bond embedding, prefix
-accumulation and update MLP, then the pool finalize) over the degree-sorted
-dest-major slot layout, in one launch per bucket. On a CUDA tensor it
-launches the hand-written kernel ``csrc/gin_local_model_slots.cu``; on a CPU
-tensor it runs ``gin_local_model_slots_ref``, the same function in plain
-torch, which the CPU tests hold against the JAX kernel.
+Each wrapper here is the counterpart of one TPU kernel of
+``flowgnn_tpu/ops/pallas/local_layer.py`` and runs a whole model (L layers
+plus the pooled prediction head) in one launch per bucket:
 
-The TPU kernel's ``wps`` (windows per grid step), its ``_pad_slot_operands``
-and its ``_ablate`` stage stubs are not carried over: they batch TPU grid
-steps to amortize MXU weight loads, or attribute TPU time, and the Hopper
-kernel runs one block per window.
+- ``gin_local_model_slots``: GIN / GIN-VN (``csrc/gin_local_model_slots.cu``);
+- ``gcn_local_model_slots``: GCN (``csrc/gcn_local_model_slots.cu``);
+- ``pna_local_model``: PNA's conv stack and readout MLP-1
+  (``csrc/pna_local_model.cu``).
+
+On a CUDA tensor a wrapper launches its hand-written kernel, or raises; on a
+CPU tensor it runs its ``_ref``, the same function in plain torch, which the
+CPU tests hold against the JAX kernel. Each launch adds one to the wrapper's
+``launches`` count.
+
+The TPU kernels' ``wps`` (windows per grid step), ``_pad_slot_operands`` and
+``_ablate`` stage stubs are not carried over: they batch TPU grid steps to
+amortize MXU weight loads, or attribute TPU time, and the Hopper kernels run
+one block per window.
 """
 
 from __future__ import annotations
@@ -25,7 +30,7 @@ import torch
 
 from .build import load_library
 
-LIBRARY = "gin_local_model_slots"
+LIBRARIES = ("gin_local_model_slots", "gcn_local_model_slots", "pna_local_model")
 
 
 def _slot_prefix_geom(prefix_caps, window: int, slots: int):
@@ -41,6 +46,68 @@ def _slot_prefix_geom(prefix_caps, window: int, slots: int):
 def _center(window: int) -> int:
     """The offset slot_meta subtracts from in-window source indices."""
     return window // 2 if window <= 512 else 0
+
+
+def _acc_dtype(dt: torch.dtype) -> torch.dtype:
+    return torch.float64 if dt == torch.float64 else torch.float32
+
+
+def _padded(x: torch.Tensor, rows: int) -> torch.Tensor:
+    """``x`` zero-padded along its first axis to ``rows`` rows."""
+    out = torch.zeros((rows,) + tuple(x.shape[1:]), dtype=x.dtype, device=x.device)
+    out[: x.shape[0]] = x
+    return out
+
+
+def _meta_lanes(slot_meta, nw: int, sw: int, window: int, vocab: int):
+    """Per prefix lane of ``slot_meta``: (the window-row gather index over
+    the padded node axis, the bool valid mask [NW·Σc, 1], the three bond
+    table rows with −1 mapped to the zero row ``vocab``)."""
+    meta = slot_meta.reshape(nw, sw, 4).long()
+    src = meta[..., 0] + _center(window)
+    valid = ((src >= 0) & (src < window)).reshape(-1, 1)
+    win = torch.arange(nw, device=slot_meta.device)[:, None]
+    gather = (win * window + src.clamp(0, window - 1)).reshape(-1)
+    attrs = meta[..., 1:].reshape(-1, 3)
+    return gather, valid, torch.where(attrs >= 0, attrs, vocab)
+
+
+def _accumulate(msg: torch.Tensor, caps, offs, nw: int, window: int) -> torch.Tensor:
+    """Per-lane messages [NW·Σc, D] → per-row sums [NW·W, D], slot by slot
+    (row r of slot k is lane offs[k] + r): the order the kernels sum in."""
+    d = msg.shape[-1]
+    msg = msg.reshape(nw, -1, d)
+    acc = torch.zeros(nw, window, d, dtype=msg.dtype, device=msg.device)
+    for k, c in enumerate(caps):
+        acc[:, :c] += msg[:, offs[k] : offs[k] + c]
+    return acc.reshape(nw * window, d)
+
+
+def _pool_index(pool_gl: torch.Tensor, nw: int, window: int, gmax: int) -> torch.Tensor:
+    """Each padded row's slot in a [NW·(GMAX+1)] per-window graph table
+    whose last slot per window is a sink for padding rows."""
+    win = torch.arange(nw, device=pool_gl.device)[:, None]
+    gl = pool_gl.long().reshape(nw, window).clamp(max=gmax)
+    return (win * (gmax + 1) + gl).reshape(-1)
+
+
+def _pool_sums(p: torch.Tensor, pool_gl: torch.Tensor, nw: int, window: int,
+               gmax: int) -> torch.Tensor:
+    """Per-row head outputs [NW·W, T] → [NW·GMAX, T] per-window graph sums
+    (``_pool_epilogue``)."""
+    t_out = p.shape[1]
+    pool = torch.zeros(nw * (gmax + 1), t_out, dtype=p.dtype, device=p.device)
+    pool.index_add_(0, _pool_index(pool_gl, nw, window, gmax), p)
+    return pool.reshape(nw, gmax + 1, t_out)[:, :gmax].reshape(nw * gmax, t_out)
+
+
+def _relu(x: torch.Tensor) -> torch.Tensor:
+    return torch.clamp_min(x, 0)
+
+
+# ---------------------------------------------------------------------------
+# Plain versions.
+# ---------------------------------------------------------------------------
 
 
 def gin_local_model_slots_ref(
@@ -67,31 +134,21 @@ def gin_local_model_slots_ref(
     are rounded to h0's dtype where the kernel rounds them. The result is
     f32, or f64 for f64 inputs (the kernel has no f64 mode)."""
     cdt = h0.dtype
-    acc = torch.float64 if cdt == torch.float64 else torch.float32
+    acc = _acc_dtype(cdt)
     dev = h0.device
     n, d = h0.shape
     nw = -(-n // window)
     caps, offs, sw = _slot_prefix_geom(prefix_caps, window, slots)
     vocab = ee_tables.shape[0] // num_layers
     hid = w1_all.shape[0] // num_layers
-    relu = lambda x: torch.clamp_min(x, 0)
 
-    h = torch.zeros(nw * window, d, dtype=cdt, device=dev)
-    h[:n] = h0
-    meta = slot_meta.reshape(nw, sw, 4).long()
-    src = meta[..., 0] + _center(window)
-    valid = ((src >= 0) & (src < window)).reshape(-1, 1).to(acc)
-    win = torch.arange(nw, device=dev)[:, None]
-    gather = (win * window + src.clamp(0, window - 1)).reshape(-1)
-    attrs = meta[..., 1:].reshape(-1, 3)
-    attr_rows = torch.where(attrs >= 0, attrs, vocab)  # row `vocab` is zero
-    gl = pool_gl.long().reshape(nw, window).clamp(max=gmax)
-    # Per-window graph slots plus one sink row (index gmax) for padding.
-    pool_idx = (win * (gmax + 1) + gl).reshape(-1)
+    h = _padded(h0, nw * window)
+    gather, valid, attr_rows = _meta_lanes(slot_meta, nw, sw, window, vocab)
+    valid = valid.to(acc)
+    pool_idx = _pool_index(pool_gl, nw, window, gmax)
     vnc = None
     if vn_col is not None:
-        vnc = torch.zeros(nw * window, 1, dtype=acc, device=dev)
-        vnc[:n, 0] = vn_col.to(acc)
+        vnc = _padded(vn_col.to(acc)[:, None], nw * window)
 
     for l in range(num_layers):
         tab = torch.cat([
@@ -100,15 +157,11 @@ def gin_local_model_slots_ref(
         ])
         hf = h.to(acc)
         ee = tab[attr_rows[:, 0]] + tab[attr_rows[:, 1]] + tab[attr_rows[:, 2]]
-        msg = relu(hf[gather] + ee).to(cdt).to(acc) * valid
-        msg = msg.reshape(nw, sw, d)
-        agg = torch.zeros(nw, window, d, dtype=acc, device=dev)
-        for k, c in enumerate(caps):
-            agg[:, :c] += msg[:, offs[k] : offs[k] + c]
-        agg = agg.reshape(nw * window, d)
+        msg = _relu(hf[gather] + ee).to(cdt).to(acc) * valid
+        agg = _accumulate(msg, caps, offs, nw, window)
         if vnc is not None:
             e0 = tab[0] + tab[5] + tab[11]  # the (0, 0, 0)-attr bond embedding
-            r = relu(hf + e0).to(cdt).to(acc)
+            r = _relu(hf + e0).to(cdt).to(acc)
             rcat = torch.cat([r * (1 - vnc), r * vnc], dim=1)
             pooled = torch.zeros(nw * (gmax + 1), 2 * d, dtype=acc, device=dev)
             pooled.index_add_(0, pool_idx, rcat)
@@ -118,38 +171,177 @@ def gin_local_model_slots_ref(
         act = (agg + eps_all[l, 0].to(acc) * hf).to(cdt)
         w1 = w1_all[l * hid : (l + 1) * hid].to(acc)
         w2 = w2_all[l * d : (l + 1) * d].to(acc)
-        z = relu(act.to(acc) @ w1.T + b1_all[l].to(acc)).to(cdt)
+        z = _relu(act.to(acc) @ w1.T + b1_all[l].to(acc)).to(cdt)
         out = z.to(acc) @ w2.T + b2_all[l].to(acc)
         if l != num_layers - 1:
-            out = relu(out)
+            out = _relu(out)
         h = out.to(cdt)
 
-    p = h.to(acc) @ pred_w.to(acc)
-    t_out = pred_w.shape[1]
-    pool = torch.zeros(nw * (gmax + 1), t_out, dtype=acc, device=dev)
-    pool.index_add_(0, pool_idx, p)
-    return pool.reshape(nw, gmax + 1, t_out)[:, :gmax].reshape(nw * gmax, t_out)
+    return _pool_sums(h.to(acc) @ pred_w.to(acc), pool_gl, nw, window, gmax)
+
+
+def gcn_local_model_slots_ref(
+    slot_meta: torch.Tensor,  # [NW·Σc, 4] int (src − W/2 ‖ attrs+offsets)
+    h0: torch.Tensor,  # [n, D] conv-0 output
+    dis: torch.Tensor,  # [n] 1/sqrt(out_deg + 1), in h0's dtype
+    pool_gl: torch.Tensor,  # [NW·W] int graph-local ids (GMAX = padding)
+    ee_tables: torch.Tensor,  # [L·13, D] stacked bond-embedding tables
+    roots: torch.Tensor,  # [L, D] root embeddings
+    alphas: torch.Tensor,  # [L, D] folded-BN scale
+    betas: torch.Tensor,  # [L, D] folded-BN shift
+    wn_all: torch.Tensor,  # [(L-1)·D, D] next conv weights, [in, out] blocks
+    bn_all: torch.Tensor,  # [L-1, D] next conv biases
+    pred_w: torch.Tensor,  # [D, T]
+    window: int,
+    slots: int,
+    num_layers: int,
+    gmax: int,
+    prefix_caps: tuple | None = None,
+) -> torch.Tensor:
+    """Plain-torch ``gcn_local_model_slots``: [NW·GMAX, T] pool sums.
+
+    Per layer l: msg = rnd(dis_u·relu(h_u + ee_l)) per slot lane, acc = the
+    slot-ordered sum of msg per row, a = acc·dis_v + relu(h_v + root_l)·
+    dis_v², x = alpha_l·a + beta_l; between layers h = rnd(rnd(relu(x))·wn_l
+    + bn_l); the head pools rnd(x)·pred_w of the last layer (no relu).
+    ``rnd`` rounds to h0's dtype; products and sums run in f32 (f64 for f64
+    inputs)."""
+    cdt = h0.dtype
+    acc = _acc_dtype(cdt)
+    dev = h0.device
+    n, d = h0.shape
+    nw = -(-n // window)
+    caps, offs, sw = _slot_prefix_geom(prefix_caps, window, slots)
+    vocab = ee_tables.shape[0] // num_layers
+
+    h = _padded(h0, nw * window)
+    dis_v = _padded(dis.to(acc)[:, None], nw * window)
+    gather, valid, attr_rows = _meta_lanes(slot_meta, nw, sw, window, vocab)
+    dis_u = dis_v[gather] * valid.to(acc)  # layer-invariant source norm
+    zero_row = torch.zeros(1, d, dtype=acc, device=dev)
+    for l in range(num_layers):
+        tab = torch.cat([ee_tables[l * vocab : (l + 1) * vocab].to(acc), zero_row])
+        hf = h.to(acc)
+        ee = tab[attr_rows[:, 0]] + tab[attr_rows[:, 1]] + tab[attr_rows[:, 2]]
+        msg = (dis_u * _relu(hf[gather] + ee)).to(cdt).to(acc)
+        a = (_accumulate(msg, caps, offs, nw, window) * dis_v
+             + _relu(hf + roots[l].to(acc)) * (dis_v * dis_v))
+        x = alphas[l].to(acc) * a + betas[l].to(acc)
+        if l == num_layers - 1:
+            break
+        wn = wn_all[l * d : (l + 1) * d].to(acc)
+        h = (_relu(x).to(cdt).to(acc) @ wn + bn_all[l].to(acc)).to(cdt)
+
+    p = x.to(cdt).to(acc) @ pred_w.to(acc)
+    return _pool_sums(p, pool_gl, nw, window, gmax)
+
+
+def pna_local_model_ref(
+    slot_src: torch.Tensor,  # [NW·W, S] int in-window sources (sentinel W)
+    h0: torch.Tensor,  # [n, D] embedded input features
+    inv_deg: torch.Tensor,  # [n] 1/max(in_deg, 1)
+    t: torch.Tensor,  # [n] log(out_deg + 1)/avg_deg scaler
+    scale: torch.Tensor,  # [n] avg_deg/log(out_deg + 1) scaler
+    w_all: torch.Tensor,  # [L·4D, 3D] per layer [w_noneᵀ ‖ w_tᵀ ‖ w_scaleᵀ]
+    b_all: torch.Tensor,  # [L, D]
+    pool_gl: torch.Tensor,  # [NW·W] int graph-local ids (GMAX = padding)
+    mlp1_w: torch.Tensor,  # [D, T] readout MLP-1 (right-multiplied)
+    window: int,
+    slots: int,
+    num_layers: int,
+    gmax: int,
+    min_init: float,  # seed of the running min (the upper ap_fixed extreme)
+    max_init: float,  # seed of the running max (the lower extreme)
+    prefix_caps: tuple | None = None,
+) -> torch.Tensor:
+    """Plain-torch ``pna_local_model``: [NW·GMAX, T] pool sums of h·mlp1_w.
+
+    Per layer, per row: the sum, sum of squares, min and max of h over the
+    row's valid slot sources (slot k counts for rows below caps[k]; min/max
+    start at their seeds, so a row with no source keeps them), mean =
+    s·invd, std = sqrt(max(q·invd − mean², 0)), the tower y = [mean | min |
+    max | std]·w_l with each part rounded to h0's dtype, acc = y_none +
+    t·y_t + scale·y_scale + b_l, and h = rnd(h + relu(acc)). Products and
+    sums run in f32 (f64 for f64 inputs)."""
+    cdt = h0.dtype
+    acc = _acc_dtype(cdt)
+    dev = h0.device
+    n, d = h0.shape
+    nw = -(-n // window)
+    caps, _, _ = _slot_prefix_geom(prefix_caps, window, slots)
+    rows = nw * window
+
+    h = _padded(h0, rows)
+    invd, t_w, sc_w = (_padded(v.to(acc)[:, None], rows) for v in (inv_deg, t, scale))
+    src = slot_src.long()
+    row_in_win = torch.arange(rows, device=dev) % window
+    win_base = torch.arange(rows, device=dev) - row_in_win
+    lanes = []  # per slot: (gather index, valid mask [rows, 1])
+    for k in range(slots):
+        sk = src[:, k]
+        ok = (sk < window) & (row_in_win < min(caps[k], window))
+        lanes.append((win_base + sk.clamp(max=window - 1), ok[:, None]))
+    for l in range(num_layers):
+        hf = h.to(acc)
+        s = torch.zeros(rows, d, dtype=acc, device=dev)
+        q = torch.zeros_like(s)
+        mn = torch.full_like(s, min_init)
+        mx = torch.full_like(s, max_init)
+        for gather, ok in lanes:
+            x = hf[gather]
+            s = s + torch.where(ok, x, 0.0)
+            q = q + torch.where(ok, x * x, 0.0)
+            mn = torch.minimum(mn, torch.where(ok, x, min_init))
+            mx = torch.maximum(mx, torch.where(ok, x, max_init))
+        mean = s * invd
+        std = torch.sqrt(_relu(q * invd - mean * mean))
+        stats = torch.cat([mean, mn, mx, std], dim=1).to(cdt).to(acc)
+        y = stats @ w_all[l * 4 * d : (l + 1) * 4 * d].to(acc)
+        a = y[:, :d] + t_w * y[:, d : 2 * d] + sc_w * y[:, 2 * d :] + b_all[l].to(acc)
+        h = (hf + _relu(a)).to(cdt)
+
+    return _pool_sums(h.to(acc) @ mlp1_w.to(acc), pool_gl, nw, window, gmax)
+
+
+# ---------------------------------------------------------------------------
+# The kernels: build, bind, check, launch.
+# ---------------------------------------------------------------------------
+
+_PTR, _I32, _I64, _F32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
+_INT_P = ctypes.POINTER(ctypes.c_int)
 
 
 @functools.cache
-def _library() -> ctypes.CDLL:
-    """The built kernel library with its C signatures declared."""
-    lib = load_library(LIBRARY)
-    ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    int_p = ctypes.POINTER(ctypes.c_int)
-    lib.gin_slots_max_d.restype = i32
-    lib.gin_slots_max_slots.restype = i32
-    lib.gin_slots_smem_optin.argtypes = [i32]
-    lib.gin_slots_smem_optin.restype = i64
-    lib.gin_slots_smem_bytes.argtypes = [i32] * 5 + [int_p, i32]
-    lib.gin_slots_smem_bytes.restype = i64
-    lib.gin_slots_launch.argtypes = (
-        [i32] + [ptr] * 12 + [i32] * 10 + [int_p, i32, i32, ptr]
-    )
-    lib.gin_slots_launch.restype = i32
-    lib.gin_slots_error_string.argtypes = [i32]
-    lib.gin_slots_error_string.restype = ctypes.c_char_p
-    return lib
+def _library(name: str) -> dict:
+    """The C functions of ``csrc/<name>.cu``'s built library, signatures
+    declared, by suffix: every library exports ``<prefix>_max_d``,
+    ``_max_slots``, ``_smem_optin``, ``_smem_bytes``, ``_launch`` and
+    ``_error_string``."""
+    prefix, smem_args, launch_args = {
+        "gin_local_model_slots": (
+            "gin_slots", [_I32] * 5 + [_INT_P, _I32],
+            [_I32] + [_PTR] * 12 + [_I32] * 10 + [_INT_P, _I32, _I32, _PTR],
+        ),
+        "gcn_local_model_slots": (
+            "gcn_slots", [_I32] * 5 + [_INT_P, _I32],
+            [_I32] + [_PTR] * 12 + [_I32] * 9 + [_INT_P, _I32, _I32, _PTR],
+        ),
+        "pna_local_model": (
+            "pna_model", [_I32] * 5,
+            [_I32] + [_PTR] * 10 + [_I32] * 7 + [_F32, _F32, _INT_P, _I32, _I32, _PTR],
+        ),
+    }[name]
+    lib = load_library(name)
+    fns = {}
+    for suffix, args, res in (
+        ("max_d", [], _I32), ("max_slots", [], _I32), ("smem_optin", [_I32], _I64),
+        ("smem_bytes", smem_args, _I64), ("launch", launch_args, _I32),
+        ("error_string", [_I32], ctypes.c_char_p),
+    ):
+        f = getattr(lib, f"{prefix}_{suffix}")
+        f.argtypes, f.restype = args, res
+        fns[suffix] = f
+    return fns
 
 
 def _check(name: str, t: torch.Tensor, dtype, shape, device) -> None:
@@ -163,12 +355,50 @@ def _check(name: str, t: torch.Tensor, dtype, shape, device) -> None:
         raise ValueError(f"{name}: not contiguous")
 
 
-def _launch(slot_meta, h0, pool_gl, ee_tables, w1_all, b1_all, w2_all, b2_all,
-            eps_all, pred_w, window, slots, num_layers, gmax, prefix_caps,
-            vn_col) -> torch.Tensor:
-    dt = h0.dtype
+def _check_geometry(lib, d: int, slots: int, caps, window: int, smem: int, dev) -> None:
+    """Raise before launch on what the kernel's tile or the card's shared
+    memory cannot take."""
+    if any(c > window for c in caps):
+        raise ValueError(f"prefix caps {caps} exceed the window {window}")
+    if d > lib["max_d"]():
+        raise ValueError(f"D={d} exceeds the kernel's tile ({lib['max_d']()})")
+    if not 1 <= slots <= lib["max_slots"]():
+        raise ValueError(f"slots={slots} outside 1..{lib['max_slots']()}")
+    limit = lib["smem_optin"](dev.index)
+    if limit < 0:
+        raise RuntimeError(lib["error_string"](int(-limit)).decode())
+    if smem > limit:
+        raise ValueError(
+            f"window {window} × D {d} needs {smem} B of shared memory per "
+            f"block; this card allows {limit} B"
+        )
+
+
+def _raise_on(lib, rc: int, kernel: str) -> None:
+    if rc != 0:
+        raise RuntimeError(f"{kernel} launch failed: {lib['error_string'](rc).decode()}")
+
+
+def _dtype_code(dt: torch.dtype) -> int:
     if dt not in (torch.float32, torch.bfloat16):
         raise TypeError(f"h0: dtype {dt}; the kernel takes float32 or bfloat16")
+    return 0 if dt == torch.float32 else 1
+
+
+def _dispatch(h0: torch.Tensor, ref, launch, args):
+    """The plain version for a CPU tensor, the kernel for a CUDA one."""
+    if h0.device.type == "cpu":
+        return ref(*args)
+    if h0.device.type != "cuda":
+        raise ValueError(f"no kernel for device {h0.device}")
+    return launch(*args)
+
+
+def _launch_gin(slot_meta, h0, pool_gl, ee_tables, w1_all, b1_all, w2_all, b2_all,
+                eps_all, pred_w, window, slots, num_layers, gmax, prefix_caps,
+                vn_col) -> torch.Tensor:
+    dt = h0.dtype
+    code = _dtype_code(dt)
     dev = h0.device
     n, d = h0.shape
     nw = -(-n // window)
@@ -191,28 +421,14 @@ def _launch(slot_meta, h0, pool_gl, ee_tables, w1_all, b1_all, w2_all, b2_all,
         _check("vn_col", vn_col, dt, (n,), dev)
         if vocab != 13:
             raise ValueError("the analytic VN stage needs the 13-row bond vocabulary")
-    if any(c > window for c in caps):
-        raise ValueError(f"prefix caps {caps} exceed the window {window}")
 
-    lib = _library()
-    if d > lib.gin_slots_max_d():
-        raise ValueError(f"D={d} exceeds the kernel's tile ({lib.gin_slots_max_d()})")
-    if not 1 <= slots <= lib.gin_slots_max_slots():
-        raise ValueError(f"slots={slots} outside 1..{lib.gin_slots_max_slots()}")
+    lib = _library("gin_local_model_slots")
     caps_arr = (ctypes.c_int * len(caps))(*caps)
-    smem = lib.gin_slots_smem_bytes(window, d, vocab, gmax, t_out, caps_arr, slots)
-    limit = lib.gin_slots_smem_optin(dev.index)
-    if limit < 0:
-        raise RuntimeError(lib.gin_slots_error_string(int(-limit)).decode())
-    if smem > limit:
-        raise ValueError(
-            f"window {window} × D {d} needs {smem} B of shared memory per "
-            f"block; this card allows {limit} B"
-        )
-
+    smem = lib["smem_bytes"](window, d, vocab, gmax, t_out, caps_arr, slots)
+    _check_geometry(lib, d, slots, caps, window, smem, dev)
     out = torch.empty((nw * gmax, t_out), dtype=torch.float32, device=dev)
-    rc = lib.gin_slots_launch(
-        0 if dt == torch.float32 else 1,
+    rc = lib["launch"](
+        code,
         slot_meta.data_ptr(), h0.data_ptr(), pool_gl.data_ptr(),
         ee_tables.data_ptr(), w1_all.data_ptr(), b1_all.data_ptr(),
         w2_all.data_ptr(), b2_all.data_ptr(), eps_all.data_ptr(),
@@ -221,11 +437,7 @@ def _launch(slot_meta, h0, pool_gl, ee_tables, w1_all, b1_all, w2_all, b2_all,
         nw, n, window, _center(window), d, hid, L, vocab, gmax, t_out,
         caps_arr, slots, dev.index, torch.cuda.current_stream(dev).cuda_stream,
     )
-    if rc != 0:
-        raise RuntimeError(
-            f"gin_local_model_slots launch failed: "
-            f"{lib.gin_slots_error_string(rc).decode()}"
-        )
+    _raise_on(lib, rc, "gin_local_model_slots")
     gin_local_model_slots.launches += 1
     return out
 
@@ -258,11 +470,151 @@ def gin_local_model_slots(
     ``gin_local_model_slots.launches``."""
     args = (slot_meta, h0, pool_gl, ee_tables, w1_all, b1_all, w2_all, b2_all,
             eps_all, pred_w, window, slots, num_layers, gmax, prefix_caps, vn_col)
-    if h0.device.type == "cpu":
-        return gin_local_model_slots_ref(*args)
-    if h0.device.type != "cuda":
-        raise ValueError(f"no kernel for device {h0.device}")
-    return _launch(*args)
+    return _dispatch(h0, gin_local_model_slots_ref, _launch_gin, args)
 
 
 gin_local_model_slots.launches = 0
+
+
+def _launch_gcn(slot_meta, h0, dis, pool_gl, ee_tables, roots, alphas, betas,
+                wn_all, bn_all, pred_w, window, slots, num_layers, gmax,
+                prefix_caps) -> torch.Tensor:
+    dt = h0.dtype
+    code = _dtype_code(dt)
+    dev = h0.device
+    n, d = h0.shape
+    nw = -(-n // window)
+    caps, _, sw = _slot_prefix_geom(prefix_caps, window, slots)
+    L = num_layers
+    vocab = ee_tables.shape[0] // L
+    t_out = pred_w.shape[1]
+    _check("slot_meta", slot_meta, torch.int32, (nw * sw, 4), dev)
+    _check("h0", h0, dt, (n, d), dev)
+    _check("dis", dis, dt, (n,), dev)
+    _check("pool_gl", pool_gl, torch.int32, (nw * window,), dev)
+    _check("ee_tables", ee_tables, dt, (L * vocab, d), dev)
+    for name, x in (("roots", roots), ("alphas", alphas), ("betas", betas)):
+        _check(name, x, dt, (L, d), dev)
+    _check("wn_all", wn_all, dt, ((L - 1) * d, d), dev)
+    _check("bn_all", bn_all, dt, (L - 1, d), dev)
+    _check("pred_w", pred_w, dt, (d, t_out), dev)
+
+    lib = _library("gcn_local_model_slots")
+    caps_arr = (ctypes.c_int * len(caps))(*caps)
+    smem = lib["smem_bytes"](window, d, vocab, gmax, t_out, caps_arr, slots)
+    _check_geometry(lib, d, slots, caps, window, smem, dev)
+    out = torch.empty((nw * gmax, t_out), dtype=torch.float32, device=dev)
+    rc = lib["launch"](
+        code,
+        slot_meta.data_ptr(), h0.data_ptr(), dis.data_ptr(), pool_gl.data_ptr(),
+        ee_tables.data_ptr(), roots.data_ptr(), alphas.data_ptr(),
+        betas.data_ptr(), wn_all.data_ptr(), bn_all.data_ptr(),
+        pred_w.data_ptr(), out.data_ptr(),
+        nw, n, window, _center(window), d, L, vocab, gmax, t_out,
+        caps_arr, slots, dev.index, torch.cuda.current_stream(dev).cuda_stream,
+    )
+    _raise_on(lib, rc, "gcn_local_model_slots")
+    gcn_local_model_slots.launches += 1
+    return out
+
+
+def gcn_local_model_slots(
+    slot_meta: torch.Tensor,
+    h0: torch.Tensor,
+    dis: torch.Tensor,
+    pool_gl: torch.Tensor,
+    ee_tables: torch.Tensor,
+    roots: torch.Tensor,
+    alphas: torch.Tensor,
+    betas: torch.Tensor,
+    wn_all: torch.Tensor,
+    bn_all: torch.Tensor,
+    pred_w: torch.Tensor,
+    window: int,
+    slots: int,
+    num_layers: int,
+    gmax: int,
+    prefix_caps: tuple | None = None,
+) -> torch.Tensor:
+    """GCN whole-model slot megakernel: [NW·GMAX, T] f32 per-window pool
+    sums. Operands as in ``gcn_local_model_slots_ref``; a CPU tensor runs
+    the plain version, a CUDA tensor launches the kernel (float32 or
+    bfloat16 activations, norms and weights, int32 ``slot_meta`` /
+    ``pool_gl``) or raises. Each launch adds one to
+    ``gcn_local_model_slots.launches``."""
+    args = (slot_meta, h0, dis, pool_gl, ee_tables, roots, alphas, betas,
+            wn_all, bn_all, pred_w, window, slots, num_layers, gmax, prefix_caps)
+    return _dispatch(h0, gcn_local_model_slots_ref, _launch_gcn, args)
+
+
+gcn_local_model_slots.launches = 0
+
+
+def _launch_pna(slot_src, h0, inv_deg, t, scale, w_all, b_all, pool_gl, mlp1_w,
+                window, slots, num_layers, gmax, min_init, max_init,
+                prefix_caps) -> torch.Tensor:
+    dt = h0.dtype
+    code = _dtype_code(dt)
+    dev = h0.device
+    n, d = h0.shape
+    nw = -(-n // window)
+    caps, _, _ = _slot_prefix_geom(prefix_caps, window, slots)
+    L = num_layers
+    t_out = mlp1_w.shape[1]
+    _check("slot_src", slot_src, torch.int32, (nw * window, slots), dev)
+    _check("h0", h0, dt, (n, d), dev)
+    for name, x in (("inv_deg", inv_deg), ("t", t), ("scale", scale)):
+        _check(name, x, dt, (n,), dev)
+    _check("w_all", w_all, dt, (L * 4 * d, 3 * d), dev)
+    _check("b_all", b_all, dt, (L, d), dev)
+    _check("pool_gl", pool_gl, torch.int32, (nw * window,), dev)
+    _check("mlp1_w", mlp1_w, dt, (d, t_out), dev)
+
+    lib = _library("pna_local_model")
+    smem = lib["smem_bytes"](window, d, gmax, t_out, slots)
+    _check_geometry(lib, d, slots, caps, window, smem, dev)
+    caps_arr = (ctypes.c_int * len(caps))(*caps)
+    out = torch.empty((nw * gmax, t_out), dtype=torch.float32, device=dev)
+    rc = lib["launch"](
+        code,
+        slot_src.data_ptr(), h0.data_ptr(), inv_deg.data_ptr(), t.data_ptr(),
+        scale.data_ptr(), w_all.data_ptr(), b_all.data_ptr(),
+        pool_gl.data_ptr(), mlp1_w.data_ptr(), out.data_ptr(),
+        nw, n, window, d, L, gmax, t_out, float(min_init), float(max_init),
+        caps_arr, slots, dev.index, torch.cuda.current_stream(dev).cuda_stream,
+    )
+    _raise_on(lib, rc, "pna_local_model")
+    pna_local_model.launches += 1
+    return out
+
+
+def pna_local_model(
+    slot_src: torch.Tensor,
+    h0: torch.Tensor,
+    inv_deg: torch.Tensor,
+    t: torch.Tensor,
+    scale: torch.Tensor,
+    w_all: torch.Tensor,
+    b_all: torch.Tensor,
+    pool_gl: torch.Tensor,
+    mlp1_w: torch.Tensor,
+    window: int,
+    slots: int,
+    num_layers: int,
+    gmax: int,
+    min_init: float,
+    max_init: float,
+    prefix_caps: tuple | None = None,
+) -> torch.Tensor:
+    """PNA whole-model slot megakernel (conv stack + readout MLP-1):
+    [NW·GMAX, T] f32 per-window pool sums. Operands as in
+    ``pna_local_model_ref``; a CPU tensor runs the plain version, a CUDA
+    tensor launches the kernel (float32 or bfloat16 activations, scalers
+    and weights, int32 ``slot_src`` / ``pool_gl``) or raises. Each launch
+    adds one to ``pna_local_model.launches``."""
+    args = (slot_src, h0, inv_deg, t, scale, w_all, b_all, pool_gl, mlp1_w,
+            window, slots, num_layers, gmax, min_init, max_init, prefix_caps)
+    return _dispatch(h0, pna_local_model_ref, _launch_pna, args)
+
+
+pna_local_model.launches = 0

@@ -1,8 +1,7 @@
 """Segment primitives over a packed edge or node axis.
 
-``segment_sum`` is the counterpart of ``flowgnn_tpu.ops.segment.segment_sum``
-on one device. ``segment_max`` / ``segment_min`` come with the PNA slice, and
-the cross-device ``axis_name`` variants with ``parallel/`` (ROADMAP queue 1
+The counterparts of ``flowgnn_tpu.ops.segment`` on one device; the
+cross-device ``axis_name`` variants come with ``parallel/`` (ROADMAP queue 1
 item 13).
 """
 
@@ -21,3 +20,30 @@ def segment_sum(
         (num_segments,) + tuple(data.shape[1:]), dtype=data.dtype, device=data.device
     )
     return out.index_add_(0, segment_ids.long(), data)
+
+
+def _segment_reduce(data, segment_ids, num_segments, init, reduce):
+    out = torch.full(
+        (num_segments,) + tuple(data.shape[1:]), init, dtype=data.dtype,
+        device=data.device,
+    )
+    idx = segment_ids.long().reshape((-1,) + (1,) * (data.dim() - 1)).expand_as(data)
+    return out.scatter_reduce_(0, idx, data, reduce=reduce, include_self=True)
+
+
+def segment_min(
+    data: torch.Tensor, segment_ids: torch.Tensor, num_segments: int, init: float
+) -> torch.Tensor:
+    """Running min with a finite seed, as the reference's fixed-point
+    accumulator starts (PNA/src/message_passing.cc reset_message):
+    out[s] = min(init, min over segment s); an empty segment stays at
+    ``init`` (rounded to ``data``'s dtype)."""
+    return _segment_reduce(data, segment_ids, num_segments, init, "amin")
+
+
+def segment_max(
+    data: torch.Tensor, segment_ids: torch.Tensor, num_segments: int, init: float
+) -> torch.Tensor:
+    """out[s] = max(init, max over segment s); empty segments stay at
+    ``init``."""
+    return _segment_reduce(data, segment_ids, num_segments, init, "amax")

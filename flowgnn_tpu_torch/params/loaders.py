@@ -1,8 +1,11 @@
-"""GIN parameters: the reference weight parser, a seeded synthetic set, and
+"""Model parameters: the reference weight parsers, seeded synthetic sets, and
 the conversion of a numpy parameter dict to the port's tensors.
 
-Linear weights keep the reference's [out, in] convention; apply as
-``x @ w.T + b``.
+GIN reads per-file weights (GIN/src/host_load.cc:18-98); GCN and PNA read
+hard-coded ``fseek`` float-offset maps into one ``*.weights.all.bin``
+(GCN/src/host_load.cc:31-190, PNA/src/host_load.cc:22-68), as
+``flowgnn_tpu.params.loaders`` does. Linear weights keep the reference's
+[out, in] convention; apply as ``x @ w.T + b``.
 """
 
 from __future__ import annotations
@@ -66,8 +69,130 @@ def synthetic_gin_params(
     }
 
 
+def _gcn_shapes(dim: int, layers: int) -> dict:
+    """Key → shape of a GCN parameter dict, in the loader's key order."""
+    return {
+        "node_embedding": (ATOM_FEATURE_TOTAL, dim),
+        "edge_embedding": (layers, BOND_FEATURE_TOTAL, dim),
+        "conv_w": (layers, dim, dim),
+        "conv_b": (layers, dim),
+        "root_emb": (layers, dim),
+        "bn_weight": (layers, dim),
+        "bn_bias": (layers, dim),
+        "bn_mean": (layers, dim),
+        "bn_var": (layers, dim),
+        "pred_w": (1, dim),
+        "pred_b": (1,),
+    }
+
+
+def load_gcn(model_dir: str, dim: int = 100) -> dict:
+    """GCN fseek-offset map into gcn_ep1_dim100.weights.all.bin
+    (GCN/src/host_load.cc:31-190). Per layer l: conv_w at 17300+11500*l,
+    conv_b +10000, root_emb +10100, edge_emb +10200; BN blocks at 74800+401*l
+    (the +1 stride skips torch's num_batches_tracked counter)."""
+    f = os.path.join(model_dir, f"gcn_ep1_dim{dim}.weights.all.bin")
+    out = {k: np.zeros(s, np.float32) for k, s in _gcn_shapes(dim, 5).items()}
+    out["node_embedding"] = _read(f, ATOM_FEATURE_TOTAL * dim).reshape(-1, dim)
+    for l in range(5):
+        base = 17300 + 11500 * l
+        out["conv_w"][l] = _read(f, dim * dim, base).reshape(dim, dim)
+        out["conv_b"][l] = _read(f, dim, base + 10000)
+        out["root_emb"][l] = _read(f, dim, base + 10100)
+        out["edge_embedding"][l] = _read(f, BOND_FEATURE_TOTAL * dim, base + 10200).reshape(-1, dim)
+        bn = 74800 + 401 * l
+        for i, key in enumerate(("bn_weight", "bn_bias", "bn_mean", "bn_var")):
+            out[key][l] = _read(f, dim, bn + 100 * i)
+    out["pred_w"] = _read(f, dim, 76805).reshape(1, dim)
+    out["pred_b"] = _read(f, 1, 76905)
+    return out
+
+
+def synthetic_gcn_params(seed: int, dim: int = 100, layers: int = 5) -> dict:
+    """Seeded stand-in for the reference GCN weights, with the keys and
+    shapes of ``load_gcn``: every entry from N(0, 0.1²) as float32, except
+    the BatchNorm's ``bn_var`` = 1 + |N(0, 0.1²)|, which it divides by the
+    root of and so must stay positive, and ``bn_weight`` = 1 + N(0, 0.1²),
+    near the identity as trained BatchNorm scales are (at 0.1 each layer
+    would shrink h tenfold)."""
+    rng = np.random.default_rng(seed)
+    out = {
+        k: rng.normal(0, 0.1, s).astype(np.float32)
+        for k, s in _gcn_shapes(dim, layers).items()
+    }
+    out["bn_var"] = (1 + np.abs(out["bn_var"])).astype(np.float32)
+    out["bn_weight"] = (1 + out["bn_weight"]).astype(np.float32)
+    return out
+
+
+# The host-side average log-degree constant of the reference PNA
+# (PNA/src/host_load.cc:127).
+PNA_AVG_DEG = 6.885701656341553
+
+
+def _pna_shapes(dim: int, layers: int) -> dict:
+    """Key → shape of a PNA parameter dict, in the loader's key order.
+    conv_w is [l][dim_out][scaler][aggr][dim_in] with scalers (none, t,
+    scale) and aggregators (mean, min, max, std), PNA/src/dcl.h:29-42."""
+    return {
+        "node_embedding": (ATOM_FEATURE_TOTAL, dim),
+        "conv_w": (layers, dim, 3, 4, dim),
+        "conv_b": (layers, dim),
+        "mlp1_w": (40, dim),
+        "mlp1_b": (40,),
+        "mlp2_w": (20, 40),
+        "mlp2_b": (20,),
+        "mlp3_w": (1, 20),
+        "mlp3_b": (1,),
+    }
+
+
+def load_pna(model_dir: str, dim: int = 80) -> dict:
+    """PNA fseek map into pna_ep1_noBN_dim80.weights.all.bin
+    (PNA/src/host_load.cc:22-68): 4 layers of conv_w and conv_b from float
+    13840, the readout MLP from 321360, and the host constant ``avg_deg``."""
+    f = os.path.join(model_dir, f"pna_ep1_noBN_dim{dim}.weights.all.bin")
+    shapes = _pna_shapes(dim, 4)
+    conv_w = np.zeros(shapes["conv_w"], np.float32)
+    conv_b = np.zeros(shapes["conv_b"], np.float32)
+    block = dim * 3 * 4 * dim
+    for l in range(4):
+        base = 13840 + (block + dim) * l
+        conv_w[l] = _read(f, block, base).reshape(conv_w.shape[1:])
+        conv_b[l] = _read(f, dim, base + block)
+    out = {"node_embedding": _read(f, ATOM_FEATURE_TOTAL * dim).reshape(-1, dim),
+           "conv_w": conv_w, "conv_b": conv_b}
+    offsets = {"mlp1_w": 321360, "mlp1_b": 324560, "mlp2_w": 324600,
+               "mlp2_b": 325400, "mlp3_w": 325420, "mlp3_b": 325440}
+    for k, off in offsets.items():
+        out[k] = _read(f, int(np.prod(shapes[k])), off).reshape(shapes[k])
+    out["avg_deg"] = np.asarray(PNA_AVG_DEG, np.float32)
+    return out
+
+
+def synthetic_pna_params(seed: int, dim: int = 80, layers: int = 4) -> dict:
+    """Seeded stand-in for the reference PNA weights, with the keys and
+    shapes of ``load_pna``: every entry from N(0, 0.1²) as float32, except
+    the conv tower ``conv_w`` from N(0, 0.01²), and ``avg_deg`` the
+    reference constant. Each layer adds relu(tower) to h, and the ``scale``
+    scaler (avg_deg / log(out_deg + 1), ~6 on molecules) multiplies a third
+    of the tower, so h grows with the tower's scale: at 0.02 it doubles per
+    layer and crosses the ap_fixed ±32 that seeds min / max by layer 4 on
+    the full 4113-graph synthetic molhiv stream; at 0.01 it stays within
+    ±8.4 there (seed 0, D=80), so the data, not the seeds, sets the
+    aggregates."""
+    rng = np.random.default_rng(seed)
+    out = {
+        k: rng.normal(0, 0.01 if k == "conv_w" else 0.1, s).astype(np.float32)
+        for k, s in _pna_shapes(dim, layers).items()
+    }
+    out["avg_deg"] = np.asarray(PNA_AVG_DEG, np.float32)
+    return out
+
+
 def params_from_numpy(params: dict, prec: Precision, device) -> dict:
-    """Numpy parameter dict → tensors of ``prec.compute_dtype`` on ``device``.
+    """Numpy parameter dict → tensors of ``prec.compute_dtype`` on ``device``
+    (a 0-d array, PNA's ``avg_deg``, becomes a 0-d tensor).
 
     The counterpart of ``flowgnn_tpu.models.base.prepare_params`` in the
     float modes: weights pass through float32 first, exactly as the JAX

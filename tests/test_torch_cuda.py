@@ -1,8 +1,9 @@
-"""The hand-written CUDA kernel against its plain torch version, on a card.
+"""The hand-written CUDA kernels against their plain torch versions, on a
+card.
 
 These tests skip without a CUDA device. The file imports no jax, so it runs
 on a machine without it: ``python -m pytest --noconftest tests/test_torch_cuda.py -m cuda``.
-Its operand builder also serves ``test_torch_local_layer.py``.
+Its operand builders also serve ``test_torch_local_layer.py``.
 """
 
 import numpy as np
@@ -15,16 +16,22 @@ from flowgnn_tpu_torch.models import base, registry
 from flowgnn_tpu_torch.ops import local_layer
 
 L, D, H, W = 2, 32, 64, 128
+T_PNA = 8  # readout MLP-1 width of the small PNA operands
 
 
-def _operands(vn: bool, seed: int = 11) -> dict:
-    """Slot layout of 8 synthetic graphs plus seeded random h0 and weights,
-    as numpy arrays."""
-    spec = registry.get("gin-vn" if vn else "gin")
+def _slot_batch(name: str, seed: int) -> dict:
+    """Slot layout of 8 synthetic graphs for model ``name`` (numpy)."""
+    spec = registry.get(name)
     graphs = registry.apply_transforms(spec, synthetic_molhiv(8, seed=seed))
     packed = pack_graphs_aligned(graphs, window=W, node_capacity=511,
                                  edge_capacity=1024, graph_capacity=16)
-    batch = base.as_batch(packed, blocked="local_slots", window=W)
+    return base.as_batch(packed, blocked="local_slots", window=W)
+
+
+def _operands(vn: bool, seed: int = 11) -> dict:
+    """GIN operands: slot layout of 8 synthetic graphs plus seeded random
+    h0 and weights, as numpy arrays."""
+    batch = _slot_batch("gin-vn" if vn else "gin", seed)
     rng = np.random.default_rng(seed)
     f32 = lambda *s: rng.normal(0, 0.2, s).astype(np.float32)
     n = batch["node_feat"].shape[0]
@@ -37,6 +44,49 @@ def _operands(vn: bool, seed: int = 11) -> dict:
         window=W, slots=slots, num_layers=L, gmax=base.POOL_GMAX,
         prefix_caps=base.slot_prefix_caps(batch, slots),
         vn_col=batch["vn_mask"].astype(np.float32) if vn else None,
+    )
+
+
+def _gcn_operands(seed: int = 12) -> dict:
+    """GCN operands: slot layout of 8 synthetic graphs, the layout's own
+    degree norms, seeded random h0 and weights, as numpy arrays."""
+    batch = _slot_batch("gcn", seed)
+    rng = np.random.default_rng(seed)
+    f32 = lambda *s: rng.normal(0, 0.2, s).astype(np.float32)
+    n = batch["node_feat"].shape[0]
+    slots = batch["slot_geom"].shape[-1]
+    return dict(
+        slot_meta=batch["slot_meta"], h0=f32(n, D),
+        dis=(1 / np.sqrt(batch["out_deg"] + 1.0)).astype(np.float32),
+        pool_gl=batch["pool_gl"], ee_tables=f32(L * 13, D),
+        roots=f32(L, D), alphas=(1 + f32(L, D)).astype(np.float32), betas=f32(L, D),
+        wn_all=f32((L - 1) * D, D), bn_all=f32(L - 1, D), pred_w=f32(D, 1),
+        window=W, slots=slots, num_layers=L, gmax=base.POOL_GMAX,
+        prefix_caps=base.slot_prefix_caps(batch, slots),
+    )
+
+
+def _pna_operands(seed: int = 13) -> dict:
+    """PNA operands: slot layout of 8 synthetic graphs, the layout's own
+    degree scalers, seeded random h0 and weights, as numpy arrays."""
+    from flowgnn_tpu_torch.models.pna import MAX_INIT, MIN_INIT
+    from flowgnn_tpu_torch.params.loaders import PNA_AVG_DEG
+
+    batch = _slot_batch("pna", seed)
+    rng = np.random.default_rng(seed)
+    f32 = lambda *s: rng.normal(0, 0.1, s).astype(np.float32)
+    n = batch["node_feat"].shape[0]
+    slots = batch["slot_geom"].shape[-1]
+    log_deg = np.log(batch["out_deg"] + 1.0)
+    scale = np.where(log_deg > 0, PNA_AVG_DEG / np.where(log_deg > 0, log_deg, 1), 1.0)
+    return dict(
+        slot_src=batch["slot_src"], h0=f32(n, D),
+        inv_deg=(1 / np.maximum(batch["in_deg"], 1)).astype(np.float32),
+        t=(log_deg / PNA_AVG_DEG).astype(np.float32), scale=scale.astype(np.float32),
+        w_all=f32(L * 4 * D, 3 * D), b_all=f32(L, D), pool_gl=batch["pool_gl"],
+        mlp1_w=f32(D, T_PNA), window=W, slots=slots, num_layers=L,
+        gmax=base.POOL_GMAX, min_init=MAX_INIT, max_init=MIN_INIT,
+        prefix_caps=base.slot_prefix_caps(batch, slots),
     )
 
 
@@ -96,3 +146,53 @@ def test_slots_cuda_kernel_rejects_oversized_window(cuda_device):
     with pytest.raises(ValueError, match="shared memory"):
         local_layer.gin_local_model_slots(**ops)
     assert local_layer.gin_local_model_slots.launches == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel,operands", [
+    ("gcn_local_model_slots", _gcn_operands), ("pna_local_model", _pna_operands),
+], ids=["gcn", "pna"])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 5e-2)],
+                         ids=["f32", "bf16"])
+def test_gcn_pna_cuda_kernels_match_plain(kernel, operands, dtype, tol, cuda_device):
+    """f32: the kernel and the plain version differ in summation order only;
+    bf16: a rounding flip at one stage propagates through later layers."""
+    ops = _port(operands(), cuda_device, dtype)
+    fn = getattr(local_layer, kernel)
+    before = fn.launches
+    got = fn(**ops)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 1
+    expect = getattr(local_layer, f"{kernel}_ref")(**ops)
+    assert expect.abs().max() > 1e-2  # the pool is not trivially zero
+    torch.testing.assert_close(got, expect.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+def test_gcn_pna_cuda_kernels_reject_oversized_window(cuda_device):
+    """W=256 at the published widths (GCN D=100, PNA D=80) does not fit one
+    block's shared memory: both wrappers raise before launch."""
+    window, n = 256, 256
+    rng = np.random.default_rng(0)
+    t = lambda *s: torch.from_numpy(rng.normal(0, 0.1, s).astype(np.float32)).to(cuda_device)
+    i32 = lambda *s, fill=0: torch.full(s, fill, dtype=torch.int32, device=cuda_device)
+    d = 100
+    gcn = dict(
+        slot_meta=i32(window, 4, fill=-1), h0=t(n, d), dis=t(n), pool_gl=i32(window),
+        ee_tables=t(L * 13, d), roots=t(L, d), alphas=t(L, d), betas=t(L, d),
+        wn_all=t((L - 1) * d, d), bn_all=t(L - 1, d), pred_w=t(d, 1),
+        window=window, slots=1, num_layers=L, gmax=base.POOL_GMAX, prefix_caps=(window,),
+    )
+    d = 80
+    pna = dict(
+        slot_src=i32(window, 1, fill=window), h0=t(n, d), inv_deg=t(n), t=t(n),
+        scale=t(n), w_all=t(L * 4 * d, 3 * d), b_all=t(L, d), pool_gl=i32(window),
+        mlp1_w=t(d, 40), window=window, slots=1, num_layers=L, gmax=base.POOL_GMAX,
+        min_init=32.0, max_init=-32.0, prefix_caps=(window,),
+    )
+    for kernel, ops in (("gcn_local_model_slots", gcn), ("pna_local_model", pna)):
+        fn = getattr(local_layer, kernel)
+        before = fn.launches
+        with pytest.raises(ValueError, match="shared memory"):
+            fn(**ops)
+        assert fn.launches == before
