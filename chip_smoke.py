@@ -11,12 +11,12 @@ Phases, each of which raises (non-zero exit) on failure:
 3. each kernel against its plain torch version on the card, at the main
    path's shapes (a real bucket's slot layout at full width: GIN D=100,
    H=200, L=5, with and without the analytic-VN column; GCN D=100, L=5;
-   PNA D=80, L=4, T=40) with seeded random operands: f32 at
-   rtol = atol = 1e-4 (summation order only), bf16 at 5e-2 (tolerances as
-   in ``agree``);
-4. the main path: GIN, GIN-VN, GCN and PNA, each over the 4113-graph
-   synthetic molhiv stream at full width with seeded synthetic weights, f32
-   and bf16, through ``registry`` → ``pack_dataset`` →
+   PNA D=80, L=4, T=40; DGN D=100, L=4, T=50; GAT 4 heads × 16, L=5, T=1)
+   with seeded random operands: f32 at rtol = atol = 1e-4 (summation order
+   only), bf16 at 5e-2 (tolerances as in ``agree``);
+4. the main path: GIN, GIN-VN, GCN, PNA, DGN and GAT, each over the
+   4113-graph synthetic molhiv stream at full width with seeded synthetic
+   weights, f32 and bf16, through ``registry`` → ``pack_dataset`` →
    ``as_batches_uniform(local_slots)`` → ``registry.get(name).forward``.
    Every kernel's launch count is set to 0 just before each run and read
    just after: the model's kernel must have run exactly once per bucket and
@@ -42,7 +42,7 @@ import time
 SEED = 0
 NODE_CAP, GRAPH_CAP = 32768, 2048  # the JAX bench's bucket capacities
 STREAM_GRAPHS = 4113  # molhiv's graph count
-MODELS = ("gin", "gin-vn", "gcn", "pna")
+MODELS = ("gin", "gin-vn", "gcn", "pna", "dgn", "gat")
 # Kernel → (source, the TPU kernel it replaces, the models whose main path
 # runs it). The first model's bf16 stream gives the record's times.
 KERNELS = {
@@ -57,6 +57,16 @@ KERNELS = {
     "pna_local_model": (
         "flowgnn_tpu_torch/csrc/pna_local_model.cu",
         "flowgnn_tpu/ops/pallas/local_layer.py:2062", ("pna",),
+    ),
+    "dgn_local_model": (
+        "flowgnn_tpu_torch/csrc/dgn_local_model.cu",
+        "flowgnn_tpu/ops/pallas/local_layer.py:3104", ("dgn",),
+    ),
+    # One kernel for the three GAT megakernels, which compute one function.
+    "gat_local_model_slots": (
+        "flowgnn_tpu_torch/csrc/gat_local_model_slots.cu",
+        "flowgnn_tpu/ops/pallas/local_layer.py:2567 (gat_local_model_pairs), "
+        ":2350 (gat_local_model_slots), :2835 (gat_local_model_dense)", ("gat",),
     ),
 }
 
@@ -88,9 +98,9 @@ def kernel_of(name: str) -> str:
 
 
 def model_module(name: str):
-    from flowgnn_tpu_torch.models import gcn, gin, pna
+    from flowgnn_tpu_torch.models import dgn, gat, gcn, gin, pna
 
-    return {"gin": gin, "gin-vn": gin, "gcn": gcn, "pna": pna}[name]
+    return {"gin": gin, "gin-vn": gin, "gcn": gcn, "pna": pna, "dgn": dgn, "gat": gat}[name]
 
 
 def synthetic_params(name: str, seed: int) -> dict:
@@ -99,6 +109,7 @@ def synthetic_params(name: str, seed: int) -> dict:
     return {
         "gin": loaders.synthetic_gin_params, "gin-vn": loaders.synthetic_gin_params,
         "gcn": loaders.synthetic_gcn_params, "pna": loaders.synthetic_pna_params,
+        "dgn": loaders.synthetic_dgn_params, "gat": loaders.synthetic_gat_params,
     }[name](seed)
 
 
@@ -117,7 +128,7 @@ def make_stream(name: str, num_graphs: int, device):
     buckets = list(pack_dataset(
         graphs, node_capacity=NODE_CAP,
         edge_capacity=auto_edge_capacity(graphs, NODE_CAP),
-        graph_capacity=GRAPH_CAP, align_window=window,
+        graph_capacity=GRAPH_CAP, with_eigen=spec.needs_eigen, align_window=window,
     ))
     slot = base.as_batches_uniform(buckets, blocked="local_slots", window=window)
     return (
@@ -153,9 +164,9 @@ def gin_random_operands(batch: dict, vn: bool, dtype, device, seed: int) -> dict
 
 def random_operands(name: str, batch: dict, prec, device, seed: int) -> dict:
     """Kernel operands at full width on a real bucket's slot layout: GIN's
-    from seeded random tensors, GCN's and PNA's from the model's own
-    operand builder over seeded synthetic weights (so the degree norms and
-    scalers are the bucket's own)."""
+    from seeded random tensors, the other models' from the model's own
+    operand builder over seeded synthetic weights (so the degree norms,
+    scalers and eigenvector terms are the bucket's own)."""
     from flowgnn_tpu_torch.params.loaders import params_from_numpy
 
     if name in ("gin", "gin-vn"):
@@ -211,7 +222,7 @@ def run_main_path(streams: dict, device) -> dict:
     order only: 1e-4. bf16 keeps about three significant digits, and a
     prediction is a mean of node outputs that partly cancel, so single
     graphs move by a few percent of the largest prediction: 5e-2, for all
-    four models. The bf16 plain path's own error against the same
+    six models. The bf16 plain path's own error against the same
     reference is printed beside."""
     import torch
 

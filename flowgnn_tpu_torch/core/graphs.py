@@ -1,11 +1,10 @@
 """Graph containers and the static-shape packer (numpy only).
 
-A copy of the parts of ``flowgnn_tpu.core.graphs`` that the GIN / GIN-VN
-slice runs. The JAX package's module cannot be imported here: importing
-anything under ``flowgnn_tpu`` imports ``jax``. ``tests/test_torch_host.py``
-holds the two copies' outputs equal. DGN's Laplacian eigenvectors and the
-materialized transforms (``add_virtual_node``, ``add_self_loops``) come with
-the slices that use them.
+A copy of the parts of ``flowgnn_tpu.core.graphs`` that the slot main path
+runs. The JAX package's module cannot be imported here: importing anything
+under ``flowgnn_tpu`` imports ``jax``. ``tests/test_torch_host.py`` holds the
+two copies' outputs equal. The materialized virtual node
+(``add_virtual_node``) is not copied: the port runs GIN-VN's analytic one.
 
 ``PackedGraphs`` is the jraph-style flat packing: all nodes of all graphs on
 one axis of capacity ``node_capacity`` plus one trailing pad node, all edges
@@ -30,6 +29,7 @@ class Graph:
     node_feat: np.ndarray  # [num_nodes, 9] int32 categorical atom features
     edge_index: np.ndarray  # [num_edges, 2] int32 (u, v) = (source, dest)
     edge_attr: Optional[np.ndarray] = None  # [num_edges, 3] int32 bond features
+    node_eigen: Optional[np.ndarray] = None  # [num_nodes, 4] float32 (DGN)
     node_vn: Optional[np.ndarray] = None  # [num_nodes] bool — analytic-VN marker
 
     @property
@@ -58,7 +58,46 @@ def add_virtual_node_analytic(g: Graph) -> Graph:
     vn[n] = True
     if g.node_vn is not None:
         vn[:n] = g.node_vn
-    return Graph(node_feat, g.edge_index, g.edge_attr, vn)
+    return Graph(node_feat, g.edge_index, g.edge_attr, g.node_eigen, vn)
+
+
+def add_self_loops(g: Graph) -> Graph:
+    """Prepend one self edge per node, with zero bond attributes: GAT seeds
+    each node's in-list with it, self edge *first*
+    (GAT/src/load_inputs.cc:144-149)."""
+    loops = np.stack([np.arange(g.num_nodes)] * 2, axis=1).astype(g.edge_index.dtype)
+    edge_index = np.concatenate([loops, g.edge_index])
+    edge_attr = None
+    if g.edge_attr is not None:
+        edge_attr = np.concatenate(
+            [
+                np.zeros((g.num_nodes, g.edge_attr.shape[1]), g.edge_attr.dtype),
+                g.edge_attr,
+            ]
+        )
+    return Graph(g.node_feat, edge_index, edge_attr, g.node_eigen, g.node_vn)
+
+
+def laplacian_eigenvectors(g: Graph, k: int = 4) -> Graph:
+    """Attach the first ``k`` eigenvectors of L_sym = I − D^-1/2 A D^-1/2
+    (ascending eigenvalues, dense ``eigh``, float32), which stand in for the
+    reference's precomputed DGN ``eig/g%d.txt`` (DGN/src/host_load.cc:
+    154-216); DGN reads component [1]. Eigenvectors are unique only up to
+    sign and basis within a degenerate eigenvalue, so this is the JAX
+    package's code line for line: the same LAPACK calls in the same order
+    give the same vectors."""
+    n = g.num_nodes
+    a = np.zeros((n, n), dtype=np.float64)
+    if g.num_edges:
+        a[g.edge_index[:, 0], g.edge_index[:, 1]] = 1.0
+    a = np.maximum(a, a.T)
+    deg = a.sum(axis=1)
+    dinv = np.where(deg > 0, 1.0 / np.sqrt(np.maximum(deg, 1e-12)), 0.0)
+    lap = np.eye(n) - dinv[:, None] * a * dinv[None, :]
+    _, vecs = np.linalg.eigh(lap)
+    eig = np.zeros((n, k), dtype=np.float32)
+    eig[:, : min(k, n)] = vecs[:, : min(k, n)]
+    return Graph(g.node_feat, g.edge_index, g.edge_attr, eig, g.node_vn)
 
 
 @dataclasses.dataclass
@@ -77,6 +116,7 @@ class PackedGraphs:
     edge_attr: np.ndarray  # [E, 3]  int32 (zeros when model has none)
     n_node: np.ndarray  # [G+1]   int32 per-graph node counts (pad graph last)
     n_edge: np.ndarray  # [G+1]   int32
+    node_eigen: Optional[np.ndarray] = None  # [N+1, 4] float32 (DGN)
     node_vn: Optional[np.ndarray] = None  # [N+1] bool — analytic virtual nodes
 
     @property
@@ -90,8 +130,9 @@ class PackedGraphs:
 
 
 def _fill(graphs: Sequence[Graph], offsets: Sequence[int], node_capacity: int,
-          edge_capacity: int, graph_capacity: int) -> PackedGraphs:
-    """Scatter ``graphs`` into fresh capacity-shaped arrays at ``offsets``."""
+          edge_capacity: int, graph_capacity: int, with_eigen: bool) -> PackedGraphs:
+    """Scatter ``graphs`` into fresh capacity-shaped arrays at ``offsets``;
+    ``with_eigen`` packs each graph's first 4 eigenvector columns."""
     node_feat = np.zeros((node_capacity + 1, NUM_ATOM_FEATURES), np.int32)
     node_graph = np.full(node_capacity + 1, graph_capacity, np.int32)
     senders = np.full(edge_capacity, node_capacity, np.int32)
@@ -99,6 +140,7 @@ def _fill(graphs: Sequence[Graph], offsets: Sequence[int], node_capacity: int,
     edge_attr = np.zeros((edge_capacity, NUM_BOND_FEATURES), np.int32)
     n_node = np.zeros(graph_capacity + 1, np.int32)
     n_edge = np.zeros(graph_capacity + 1, np.int32)
+    node_eigen = np.zeros((node_capacity + 1, 4), np.float32) if with_eigen else None
     with_vn = any(g.node_vn is not None for g in graphs)
     node_vn = np.zeros(node_capacity + 1, bool) if with_vn else None
 
@@ -113,6 +155,11 @@ def _fill(graphs: Sequence[Graph], offsets: Sequence[int], node_capacity: int,
         receivers[edge_off : edge_off + e] = g.edge_index[:, 1] + node_off
         if g.edge_attr is not None:
             edge_attr[edge_off : edge_off + e] = g.edge_attr
+        if with_eigen:
+            if g.node_eigen is None:
+                raise ValueError("with_eigen=True but graph has no node_eigen")
+            k = min(4, g.node_eigen.shape[1])
+            node_eigen[node_off : node_off + n, :k] = g.node_eigen[:, :k]
         n_node[i] = n
         n_edge[i] = e
         edge_off += e
@@ -123,7 +170,7 @@ def _fill(graphs: Sequence[Graph], offsets: Sequence[int], node_capacity: int,
     n_edge[graph_capacity] = edge_capacity - edge_off
     return PackedGraphs(
         node_feat, node_graph, senders, receivers, edge_attr, n_node, n_edge,
-        node_vn,
+        node_eigen, node_vn,
     )
 
 
@@ -140,6 +187,7 @@ def pack_graphs(
     node_capacity: int,
     edge_capacity: int,
     graph_capacity: int,
+    with_eigen: bool = False,
 ) -> PackedGraphs:
     """Pack ``graphs`` into one static-shape batch. Raises if capacity exceeded."""
     total_nodes = sum(g.num_nodes for g in graphs)
@@ -147,7 +195,7 @@ def pack_graphs(
         raise ValueError(f"node capacity {node_capacity} < {total_nodes}")
     _check_capacity(graphs, node_capacity, edge_capacity, graph_capacity)
     offsets = np.cumsum([0] + [g.num_nodes for g in graphs[:-1]]).tolist()
-    return _fill(graphs, offsets, node_capacity, edge_capacity, graph_capacity)
+    return _fill(graphs, offsets, node_capacity, edge_capacity, graph_capacity, with_eigen)
 
 
 def pack_graphs_aligned(
@@ -156,6 +204,7 @@ def pack_graphs_aligned(
     edge_capacity: int,
     graph_capacity: int,
     window: int = 128,
+    with_eigen: bool = False,
 ) -> PackedGraphs:
     """Window-aligned packing: no graph smaller than ``window`` straddles a
     ``window``-node boundary, so all of its edges stay inside one window
@@ -178,7 +227,7 @@ def pack_graphs_aligned(
         offsets.append(off)
         off += n
     _check_capacity(graphs, node_capacity, edge_capacity, graph_capacity)
-    return _fill(graphs, offsets, node_capacity, edge_capacity, graph_capacity)
+    return _fill(graphs, offsets, node_capacity, edge_capacity, graph_capacity, with_eigen)
 
 
 def auto_edge_capacity(graphs: Sequence[Graph], node_capacity: int) -> int:
@@ -195,6 +244,7 @@ def pack_dataset(
     node_capacity: int,
     edge_capacity: int,
     graph_capacity: int,
+    with_eigen: bool = False,
     align_window: Optional[int] = None,
 ) -> Iterator[PackedGraphs]:
     """Greedy first-fit streaming packer: yields full buckets of fixed shape.
@@ -213,9 +263,11 @@ def pack_dataset(
         if align_window:
             return pack_graphs_aligned(
                 bucket, node_capacity, edge_capacity, graph_capacity,
-                align_window,
+                align_window, with_eigen,
             )
-        return pack_graphs(bucket, node_capacity, edge_capacity, graph_capacity)
+        return pack_graphs(
+            bucket, node_capacity, edge_capacity, graph_capacity, with_eigen
+        )
 
     bucket: list[Graph] = []
     nodes = edges = 0

@@ -5,7 +5,8 @@ A copy of ``flowgnn_tpu.core.synthetic``: the same seed gives the same graphs
 shape statistics pinned in the reference's analysis constants
 (GIN/src/dcl.h:37-55: 4113 graphs, nodes min/avg/max = 6/25/183, edges stored
 directed with both directions present); features are uniform draws from the
-OGB vocab sizes. DGN's eigenvector option comes with the DGN slice.
+OGB vocab sizes. DGN's eigenvectors are attached by
+``models.registry.apply_transforms``.
 """
 
 from __future__ import annotations

@@ -9,7 +9,8 @@ kernels.
 A batch is the dict-of-arrays view of ``core.graphs.PackedGraphs``:
 
   node_feat  [N+1, 9] i32   node_graph [N+1] i32   senders/receivers [E] i32
-  edge_attr  [E, 3]   i32   n_node/n_edge [G+1] i32   vn_mask [N+1] bool?
+  edge_attr  [E, 3]   i32   n_node/n_edge [G+1] i32   node_eigen [N+1, 4] f32?
+  vn_mask    [N+1] bool?
 
 with one trailing pad node (index N) that every padded edge points at and one
 trailing pad graph that owns every pad node. ``blocked="local_slots"`` adds
@@ -36,12 +37,15 @@ from ..ops.segment import segment_sum
 # Window and ELL block per model. The slot megakernel reads only the window;
 # the block is the ELL lane capacity and is carried for the ELL slice. Both
 # are the port's own: W=128 keeps a window's f32 state inside one Hopper
-# block's shared memory (the JAX package's v5e table puts GIN-VN at W=256).
+# block's shared memory (the JAX package's v5e table puts GIN-VN at W=256
+# and GAT at W=384, figures of that chip's 128-lane tiles).
 GEOMETRY_DEFAULTS: dict[str, tuple[int, int]] = {
     "gin": (128, 384),
     "gin-vn": (128, 384),
     "gcn": (128, 384),
+    "gat": (128, 384),
     "pna": (128, 384),
+    "dgn": (128, 384),
 }
 MAX_SLOTS = 8  # deepest slot axis; deeper in-degrees would spill
 POOL_GMAX = 64  # graph slots per window in the in-kernel pooling layout
@@ -150,9 +154,21 @@ def _attach_pool_layout(batch: dict, packed: PackedGraphs, window: int, ids) -> 
 
 
 def _attach_degrees(batch: dict, n: int) -> None:
-    """Host-precomputed in/out degree tables (graph constants)."""
+    """Host-precomputed in/out degree tables (graph constants), and with
+    eigenvectors DGN's per-node sums of eig_u − eig_v and |eig_u − eig_v|
+    over in-edges, in float32 as the reference's load stage computes them
+    (DGN/src/load_inputs.cc:105-110)."""
     batch["out_deg"] = np.bincount(batch["senders"], minlength=n).astype(np.int32)
     batch["in_deg"] = np.bincount(batch["receivers"], minlength=n).astype(np.int32)
+    if "node_eigen" in batch:
+        eig = batch["node_eigen"][:, 1].astype(np.float32)
+        ew = eig[batch["senders"]] - eig[batch["receivers"]]
+        s = np.zeros(n, np.float32)
+        np.add.at(s, batch["receivers"], ew)
+        a = np.zeros(n, np.float32)
+        np.add.at(a, batch["receivers"], np.abs(ew))
+        batch["eigw_sum"] = s
+        batch["eig_abssum"] = a
 
 
 def as_batch(
@@ -181,6 +197,8 @@ def as_batch(
         "n_node": packed.n_node,
         "n_edge": packed.n_edge,
     }
+    if packed.node_eigen is not None:
+        batch["node_eigen"] = packed.node_eigen
     if packed.node_vn is not None:
         batch["vn_mask"] = packed.node_vn
     if not blocked:
@@ -203,6 +221,8 @@ def as_batch(
     batch["node_graph"] = _pad_rows(
         packed.node_graph, nw_rows, fill=int(packed.n_node.shape[0] - 1)
     )[node_perm][:n]
+    if packed.node_eigen is not None:
+        batch["node_eigen"] = _pad_rows(packed.node_eigen, nw_rows)[node_perm][:n]
     if packed.node_vn is not None:
         batch["vn_mask"] = _pad_rows(packed.node_vn, nw_rows)[node_perm][:n]
     senders = inv[senders].astype(np.int32)
@@ -267,6 +287,21 @@ def as_batch(
     _attach_pool_layout(batch, packed, w, batch["node_graph"])
     _attach_degrees(batch, n)
     return batch
+
+
+# Batch keys of the ELL and blocked layouts, not ported yet (ROADMAP queue 1
+# item 9).
+UNPORTED_LAYOUT_KEYS = ("loc_ulocal", "loc_ell", "blk_vlocal", "spill_blk_vlocal")
+
+
+def reject_unported_layouts(batch: dict) -> None:
+    """Raise ``NotImplementedError`` on a batch in a layout the port does
+    not run yet."""
+    for key in UNPORTED_LAYOUT_KEYS:
+        if key in batch:
+            raise NotImplementedError(
+                f"batch layout with {key!r} is not ported yet (ROADMAP queue 1 item 9)"
+            )
 
 
 def batch_signature(batch: dict):

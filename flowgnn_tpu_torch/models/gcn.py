@@ -39,9 +39,6 @@ from .base import (
 # Device BatchNorm uses sqrt(var + ap_fixed ulp) (GCN/src/load_inputs.cc:33).
 BN_EPS = 1.0 / 1024
 
-# Batch keys of layouts the port does not run yet (ROADMAP queue 1 item 9).
-_UNPORTED_LAYOUT_KEYS = ("loc_ulocal", "loc_ell", "blk_vlocal", "spill_blk_vlocal")
-
 
 def _folded_bn(params: dict, prec: Precision):
     """(alphas, betas) [L, D]: BatchNorm folded to x·alpha + beta. The JAX
@@ -72,7 +69,7 @@ def slot_kernel_operands(params: dict, batch: dict, prec: Precision = FLOAT32) -
         pool_gl=batch["pool_gl"],
         ee_tables=params["edge_embedding"].reshape(-1, d).to(dt),
         roots=params["root_emb"], alphas=alphas, betas=betas,
-        wn_all=params["conv_w"][1:].transpose(1, 2).reshape((L - 1) * d, d),
+        wn_all=params["conv_w"][1:].transpose(1, 2).reshape((L - 1) * d, d).contiguous(),
         bn_all=params["conv_b"][1:],
         pred_w=params["pred_w"].T.to(dt).contiguous(),
         window=window, slots=n_slots, num_layers=L, gmax=_base.POOL_GMAX,
@@ -89,12 +86,7 @@ def forward(
     """[G+1, 1] predictions (the last row is the pad graph's). ``params``
     as made by ``params.loaders.params_from_numpy``; ``batch`` as made by
     ``models.base.to_device``."""
-    for key in _UNPORTED_LAYOUT_KEYS:
-        if key in batch:
-            raise NotImplementedError(
-                f"batch layout with {key!r} is not ported yet "
-                "(ROADMAP queue 1 item 9)"
-            )
+    _base.reject_unported_layouts(batch)
     if "slot_src" in batch and (
         "slot_meta" not in batch or batch["slot_spill"].shape[-1]
     ):

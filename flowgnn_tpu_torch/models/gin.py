@@ -39,9 +39,6 @@ from .base import (
     relu,
 )
 
-# Batch keys of layouts the port does not run yet (ROADMAP queue 1 item 9).
-_UNPORTED_LAYOUT_KEYS = ("loc_ulocal", "loc_ell", "blk_vlocal", "spill_blk_vlocal")
-
 
 def _vn_message(h: torch.Tensor, table_l: torch.Tensor, batch: dict,
                 prec: Precision) -> torch.Tensor:
@@ -101,12 +98,7 @@ def forward(
     """[G+1, T] predictions (the last row is the pad graph's). ``params``
     as made by ``params.loaders.params_from_numpy``; ``batch`` as made by
     ``models.base.to_device``."""
-    for key in _UNPORTED_LAYOUT_KEYS:
-        if key in batch:
-            raise NotImplementedError(
-                f"batch layout with {key!r} is not ported yet "
-                "(ROADMAP queue 1 item 9)"
-            )
+    _base.reject_unported_layouts(batch)
     if "slot_src" in batch:
         if "slot_meta" not in batch:
             raise NotImplementedError(

@@ -1,8 +1,9 @@
 """Model registry: name → (forward fn, loader, graph transforms).
 
-The counterpart of ``flowgnn_tpu.models.registry`` for the models the port
-runs so far: GIN, GIN-VN, GCN and PNA. DGN and GAT join with their slices
-(ROADMAP queue 1 item 7).
+The counterpart of ``flowgnn_tpu.models.registry`` for the six models: GIN,
+GIN-VN, GCN, GAT, PNA and DGN. Host-side graph transforms stand in for what
+the reference does in host code (GIN-VN's virtual node), on the device at
+load time (GAT's self edges) or ships precomputed (DGN's eigenvectors).
 """
 
 from __future__ import annotations
@@ -12,7 +13,7 @@ from typing import Callable, Sequence
 
 from ..core import graphs as G
 from ..params import loaders
-from . import gcn, gin, pna
+from . import dgn, gat, gcn, gin, pna
 
 
 @dataclasses.dataclass(frozen=True)
@@ -23,6 +24,7 @@ class ModelSpec:
     dim: int
     num_layers: int
     transforms: tuple[Callable, ...] = ()
+    needs_eigen: bool = False
     reference_dir: str = ""  # subdirectory name in the reference tree
 
 
@@ -40,9 +42,17 @@ MODELS: dict[str, ModelSpec] = {
         "gcn", gcn.forward, loaders.load_gcn, dim=100, num_layers=5,
         reference_dir="GCN",
     ),
+    "gat": ModelSpec(
+        "gat", gat.forward, loaders.load_gat, dim=16, num_layers=5,
+        transforms=(G.add_self_loops,), reference_dir="GAT",
+    ),
     "pna": ModelSpec(
         "pna", pna.forward, loaders.load_pna, dim=80, num_layers=4,
         reference_dir="PNA",
+    ),
+    "dgn": ModelSpec(
+        "dgn", dgn.forward, loaders.load_dgn, dim=100, num_layers=4,
+        needs_eigen=True, reference_dir="DGN",
     ),
 }
 
@@ -54,6 +64,8 @@ def get(name: str) -> ModelSpec:
 def apply_transforms(spec: ModelSpec, gs: Sequence[G.Graph]) -> list[G.Graph]:
     out = []
     for g in gs:
+        if spec.needs_eigen and g.node_eigen is None:
+            g = G.laplacian_eigenvectors(g)
         for t in spec.transforms:
             g = t(g)
         out.append(g)

@@ -7,7 +7,14 @@ plus the pooled prediction head) in one launch per bucket:
 - ``gin_local_model_slots``: GIN / GIN-VN (``csrc/gin_local_model_slots.cu``);
 - ``gcn_local_model_slots``: GCN (``csrc/gcn_local_model_slots.cu``);
 - ``pna_local_model``: PNA's conv stack and readout MLP-1
-  (``csrc/pna_local_model.cu``).
+  (``csrc/pna_local_model.cu``);
+- ``dgn_local_model``: DGN's conv stack and readout MLP-1
+  (``csrc/dgn_local_model.cu``);
+- ``gat_local_model_slots``: GAT (``csrc/gat_local_model_slots.cu``), the
+  one kernel behind the JAX package's three GAT megakernels
+  (``gat_local_model_pairs``, ``gat_local_model_slots``,
+  ``gat_local_model_dense``), which compute the same function; it follows
+  the numerics of the default, ``gat_local_model_pairs``.
 
 On a CUDA tensor a wrapper launches its hand-written kernel, or raises; on a
 CPU tensor it runs its ``_ref``, the same function in plain torch, which the
@@ -30,7 +37,10 @@ import torch
 
 from .build import load_library
 
-LIBRARIES = ("gin_local_model_slots", "gcn_local_model_slots", "pna_local_model")
+LIBRARIES = (
+    "gin_local_model_slots", "gcn_local_model_slots", "pna_local_model",
+    "dgn_local_model", "gat_local_model_slots",
+)
 
 
 def _slot_prefix_geom(prefix_caps, window: int, slots: int):
@@ -103,6 +113,22 @@ def _pool_sums(p: torch.Tensor, pool_gl: torch.Tensor, nw: int, window: int,
 
 def _relu(x: torch.Tensor) -> torch.Tensor:
     return torch.clamp_min(x, 0)
+
+
+def _slot_lanes(slot_src: torch.Tensor, caps, window: int, slots: int) -> list:
+    """Per slot k of a [NW·W, S] ``slot_src``: (each row's source row over
+    the padded node axis, the bool valid mask [NW·W, 1]). Slot k counts for
+    the rows below caps[k] whose source is not the sentinel W."""
+    rows = slot_src.shape[0]
+    row_in_win = torch.arange(rows, device=slot_src.device) % window
+    win_base = torch.arange(rows, device=slot_src.device) - row_in_win
+    src = slot_src.long()
+    lanes = []
+    for k in range(slots):
+        sk = src[:, k]
+        ok = (sk < window) & (row_in_win < min(caps[k], window))
+        lanes.append((win_base + sk.clamp(max=window - 1), ok[:, None]))
+    return lanes
 
 
 # ---------------------------------------------------------------------------
@@ -273,14 +299,7 @@ def pna_local_model_ref(
 
     h = _padded(h0, rows)
     invd, t_w, sc_w = (_padded(v.to(acc)[:, None], rows) for v in (inv_deg, t, scale))
-    src = slot_src.long()
-    row_in_win = torch.arange(rows, device=dev) % window
-    win_base = torch.arange(rows, device=dev) - row_in_win
-    lanes = []  # per slot: (gather index, valid mask [rows, 1])
-    for k in range(slots):
-        sk = src[:, k]
-        ok = (sk < window) & (row_in_win < min(caps[k], window))
-        lanes.append((win_base + sk.clamp(max=window - 1), ok[:, None]))
+    lanes = _slot_lanes(slot_src, caps, window, slots)
     for l in range(num_layers):
         hf = h.to(acc)
         s = torch.zeros(rows, d, dtype=acc, device=dev)
@@ -301,6 +320,122 @@ def pna_local_model_ref(
         h = (hf + _relu(a)).to(cdt)
 
     return _pool_sums(h.to(acc) @ mlp1_w.to(acc), pool_gl, nw, window, gmax)
+
+
+def dgn_local_model_ref(
+    slot_src: torch.Tensor,  # [NW·W, S] int in-window sources (sentinel W)
+    h0: torch.Tensor,  # [n, D] embedded input features
+    eig: torch.Tensor,  # [n] Fiedler-vector entry, in h0's dtype
+    inv_deg: torch.Tensor,  # [n] 1/max(out_deg, 1)
+    eigw_sum: torch.Tensor,  # [n] Σ over in-edges of eig_u − eig_v
+    inv_abssum: torch.Tensor,  # [n] 1/Σ|eig_u − eig_v| (zero → 1/EIG_EPS)
+    w_all: torch.Tensor,  # [L·2D, D] per layer [mean rows ‖ directional rows]
+    b_all: torch.Tensor,  # [L, D]
+    pool_gl: torch.Tensor,  # [NW·W] int graph-local ids (GMAX = padding)
+    mlp1_w: torch.Tensor,  # [D, T] readout MLP-1 (right-multiplied)
+    window: int,
+    slots: int,
+    num_layers: int,
+    gmax: int,
+    prefix_caps: tuple | None = None,
+) -> torch.Tensor:
+    """Plain-torch ``dgn_local_model``: [NW·GMAX, T] pool sums of h·mlp1_w.
+
+    Per layer, per row v over its valid slot sources u, in slot order:
+    m1 = Σ h_u and m2 = Σ e_u·h_u − e_v·m1 (the TPU kernel's factoring of
+    Σ (e_u − e_v)·h_u), a1 = m1·inv_deg, a2 = |m2 − eigw_sum·h_v|·
+    inv_abssum, y = [rnd(a1) | rnd(a2)]·w_l + b_l and h = rnd(h + relu(y)).
+    ``rnd`` rounds to h0's dtype; products and sums run in f32 (f64 for f64
+    inputs)."""
+    cdt = h0.dtype
+    acc = _acc_dtype(cdt)
+    n, d = h0.shape
+    nw = -(-n // window)
+    caps, _, _ = _slot_prefix_geom(prefix_caps, window, slots)
+    rows = nw * window
+
+    h = _padded(h0, rows)
+    e_v, invd, ews, inva = (
+        _padded(v.to(acc)[:, None], rows) for v in (eig, inv_deg, eigw_sum, inv_abssum)
+    )
+    lanes = [(gather, ok, e_v[gather]) for gather, ok in _slot_lanes(slot_src, caps, window, slots)]
+    for l in range(num_layers):
+        hf = h.to(acc)
+        m1 = torch.zeros(rows, d, dtype=acc, device=h0.device)
+        m2 = torch.zeros_like(m1)
+        for gather, ok, e_u in lanes:
+            x = torch.where(ok, hf[gather], 0.0)
+            m1 = m1 + x
+            m2 = m2 + e_u * x
+        m2 = m2 - e_v * m1
+        a = torch.cat([m1 * invd, (m2 - ews * hf).abs() * inva], dim=1)
+        y = a.to(cdt).to(acc) @ w_all[l * 2 * d : (l + 1) * 2 * d].to(acc)
+        h = (hf + _relu(y + b_all[l].to(acc))).to(cdt)
+
+    return _pool_sums(h.to(acc) @ mlp1_w.to(acc), pool_gl, nw, window, gmax)
+
+
+def gat_local_model_slots_ref(
+    slot_pstack: torch.Tensor,  # [NW·Σc] int prefix-compacted sources (sentinel W)
+    h0: torch.Tensor,  # [n, H·D] layer-0 projection, head-major
+    skip0: torch.Tensor,  # [n, H·D] layer-0 skip term, in h0's dtype
+    proj_w: torch.Tensor,  # [(L-1)·HD, HD] right-mul projections, layers 1..L-1
+    skip_w: torch.Tensor,  # [(L-1)·HD, HD] right-mul skip weights, layers 1..L-1
+    a_all: torch.Tensor,  # [L·HD, 2H] per-layer score maps [a_src ‖ a_tgt]
+    pool_gl: torch.Tensor,  # [NW·W] int graph-local ids (GMAX = padding)
+    pred_hd: torch.Tensor,  # [HD, T] head average ∘ prediction head
+    window: int,
+    slots: int,
+    num_heads: int,
+    num_layers: int,
+    gmax: int,
+    prefix_caps: tuple | None = None,
+) -> torch.Tensor:
+    """Plain-torch ``gat_local_model_slots``: [NW·GMAX, T] pool sums.
+
+    Per layer: [s_src ‖ s_tgt] = h·a_l from the rounded h (f32, not
+    rounded); per valid lane (u → v) and head k, score = exp(leaky(s_src[v]
+    + s_tgt[u], 0.2)) with no max subtraction (a sentinel lane contributes
+    nothing, whatever its score); msg = rnd(Σ score·h_u / Σ score), a zero
+    denominator taken as 1. Between layers feat = rnd(ELU(msg + skip)),
+    h = rnd(feat·proj_{l+1}) and skip = feat·skip_{l+1} (kept unrounded);
+    the head pools rnd(msg + skip)·pred_hd. ``rnd`` rounds to h0's dtype;
+    products and sums run in f32 (f64 for f64 inputs)."""
+    cdt = h0.dtype
+    acc = _acc_dtype(cdt)
+    dev = h0.device
+    n, hd = h0.shape
+    nh = num_heads
+    nw = -(-n // window)
+    caps, offs, sw = _slot_prefix_geom(prefix_caps, window, slots)
+    rows = nw * window
+    rnd = lambda x: x.to(cdt).to(acc)
+    per_head = lambda x: x.repeat_interleave(hd // nh, dim=1)  # [., H] → [., HD]
+
+    h = _padded(h0, rows).to(acc)
+    skip = _padded(skip0, rows).to(acc)
+    src = slot_pstack.long().reshape(nw, sw)
+    win = torch.arange(nw, device=dev)[:, None] * window
+    # Per lane: its destination row (lane offs[k] + r is row r) and source row.
+    dest = torch.cat([torch.arange(c, device=dev) for c in caps]).expand(nw, sw)
+    dest = (win + dest).reshape(-1)
+    gather = (win + src.clamp(max=window - 1)).reshape(-1)
+    valid = (src < window).reshape(-1, 1)
+    for l in range(num_layers):
+        s = h @ a_all[l * hd : (l + 1) * hd].to(acc)
+        raw = s[dest, :nh] + s[gather, nh:]
+        score = torch.where(valid, torch.exp(torch.where(raw < 0, raw * 0.2, raw)), 0.0)
+        num = _accumulate(per_head(score) * h[gather], caps, offs, nw, window)
+        den = _accumulate(score, caps, offs, nw, window)
+        msg = rnd(num / per_head(torch.where(den == 0, 1.0, den)))
+        if l == num_layers - 1:
+            break
+        x = msg + skip
+        feat = rnd(torch.where(x <= 0, torch.exp(x) - 1, x))
+        h = rnd(feat @ proj_w[l * hd : (l + 1) * hd].to(acc))
+        skip = feat @ skip_w[l * hd : (l + 1) * hd].to(acc)
+
+    return _pool_sums(rnd(msg + skip) @ pred_hd.to(acc), pool_gl, nw, window, gmax)
 
 
 # ---------------------------------------------------------------------------
@@ -329,6 +464,14 @@ def _library(name: str) -> dict:
         "pna_local_model": (
             "pna_model", [_I32] * 5,
             [_I32] + [_PTR] * 10 + [_I32] * 7 + [_F32, _F32, _INT_P, _I32, _I32, _PTR],
+        ),
+        "dgn_local_model": (
+            "dgn_model", [_I32] * 5,
+            [_I32] + [_PTR] * 11 + [_I32] * 7 + [_INT_P, _I32, _I32, _PTR],
+        ),
+        "gat_local_model_slots": (
+            "gat_slots", [_I32] * 6,
+            [_I32] + [_PTR] * 9 + [_I32] * 8 + [_INT_P, _I32, _I32, _PTR],
         ),
     }[name]
     lib = load_library(name)
@@ -618,3 +761,142 @@ def pna_local_model(
 
 
 pna_local_model.launches = 0
+
+
+def _launch_dgn(slot_src, h0, eig, inv_deg, eigw_sum, inv_abssum, w_all, b_all,
+                pool_gl, mlp1_w, window, slots, num_layers, gmax,
+                prefix_caps) -> torch.Tensor:
+    dt = h0.dtype
+    code = _dtype_code(dt)
+    dev = h0.device
+    n, d = h0.shape
+    nw = -(-n // window)
+    caps, _, _ = _slot_prefix_geom(prefix_caps, window, slots)
+    L = num_layers
+    t_out = mlp1_w.shape[1]
+    _check("slot_src", slot_src, torch.int32, (nw * window, slots), dev)
+    _check("h0", h0, dt, (n, d), dev)
+    for name, x in (("eig", eig), ("inv_deg", inv_deg), ("eigw_sum", eigw_sum),
+                    ("inv_abssum", inv_abssum)):
+        _check(name, x, dt, (n,), dev)
+    _check("w_all", w_all, dt, (L * 2 * d, d), dev)
+    _check("b_all", b_all, dt, (L, d), dev)
+    _check("pool_gl", pool_gl, torch.int32, (nw * window,), dev)
+    _check("mlp1_w", mlp1_w, dt, (d, t_out), dev)
+
+    lib = _library("dgn_local_model")
+    smem = lib["smem_bytes"](window, d, gmax, t_out, slots)
+    _check_geometry(lib, d, slots, caps, window, smem, dev)
+    caps_arr = (ctypes.c_int * len(caps))(*caps)
+    out = torch.empty((nw * gmax, t_out), dtype=torch.float32, device=dev)
+    rc = lib["launch"](
+        code,
+        slot_src.data_ptr(), h0.data_ptr(), eig.data_ptr(), inv_deg.data_ptr(),
+        eigw_sum.data_ptr(), inv_abssum.data_ptr(), w_all.data_ptr(),
+        b_all.data_ptr(), pool_gl.data_ptr(), mlp1_w.data_ptr(), out.data_ptr(),
+        nw, n, window, d, L, gmax, t_out,
+        caps_arr, slots, dev.index, torch.cuda.current_stream(dev).cuda_stream,
+    )
+    _raise_on(lib, rc, "dgn_local_model")
+    dgn_local_model.launches += 1
+    return out
+
+
+def dgn_local_model(
+    slot_src: torch.Tensor,
+    h0: torch.Tensor,
+    eig: torch.Tensor,
+    inv_deg: torch.Tensor,
+    eigw_sum: torch.Tensor,
+    inv_abssum: torch.Tensor,
+    w_all: torch.Tensor,
+    b_all: torch.Tensor,
+    pool_gl: torch.Tensor,
+    mlp1_w: torch.Tensor,
+    window: int,
+    slots: int,
+    num_layers: int,
+    gmax: int,
+    prefix_caps: tuple | None = None,
+) -> torch.Tensor:
+    """DGN whole-model slot megakernel (conv stack + readout MLP-1):
+    [NW·GMAX, T] f32 per-window pool sums. Operands as in
+    ``dgn_local_model_ref``; a CPU tensor runs the plain version, a CUDA
+    tensor launches the kernel (float32 or bfloat16 activations, per-node
+    terms and weights, int32 ``slot_src`` / ``pool_gl``) or raises. Each
+    launch adds one to ``dgn_local_model.launches``."""
+    args = (slot_src, h0, eig, inv_deg, eigw_sum, inv_abssum, w_all, b_all,
+            pool_gl, mlp1_w, window, slots, num_layers, gmax, prefix_caps)
+    return _dispatch(h0, dgn_local_model_ref, _launch_dgn, args)
+
+
+dgn_local_model.launches = 0
+
+
+def _launch_gat(slot_pstack, h0, skip0, proj_w, skip_w, a_all, pool_gl, pred_hd,
+                window, slots, num_heads, num_layers, gmax,
+                prefix_caps) -> torch.Tensor:
+    dt = h0.dtype
+    code = _dtype_code(dt)
+    dev = h0.device
+    n, hd = h0.shape
+    nw = -(-n // window)
+    caps, _, sw = _slot_prefix_geom(prefix_caps, window, slots)
+    L, nh = num_layers, num_heads
+    t_out = pred_hd.shape[1]
+    if hd % nh:
+        raise ValueError(f"H·D={hd} is not a multiple of the {nh} heads")
+    _check("slot_pstack", slot_pstack, torch.int32, (nw * sw,), dev)
+    _check("h0", h0, dt, (n, hd), dev)
+    _check("skip0", skip0, dt, (n, hd), dev)
+    _check("proj_w", proj_w, dt, ((L - 1) * hd, hd), dev)
+    _check("skip_w", skip_w, dt, ((L - 1) * hd, hd), dev)
+    _check("a_all", a_all, dt, (L * hd, 2 * nh), dev)
+    _check("pool_gl", pool_gl, torch.int32, (nw * window,), dev)
+    _check("pred_hd", pred_hd, dt, (hd, t_out), dev)
+
+    lib = _library("gat_local_model_slots")
+    smem = lib["smem_bytes"](window, hd, nh, gmax, t_out, sw)
+    _check_geometry(lib, hd, slots, caps, window, smem, dev)
+    caps_arr = (ctypes.c_int * len(caps))(*caps)
+    out = torch.empty((nw * gmax, t_out), dtype=torch.float32, device=dev)
+    rc = lib["launch"](
+        code,
+        slot_pstack.data_ptr(), h0.data_ptr(), skip0.data_ptr(), proj_w.data_ptr(),
+        skip_w.data_ptr(), a_all.data_ptr(), pool_gl.data_ptr(),
+        pred_hd.data_ptr(), out.data_ptr(),
+        nw, n, window, hd, nh, L, gmax, t_out,
+        caps_arr, slots, dev.index, torch.cuda.current_stream(dev).cuda_stream,
+    )
+    _raise_on(lib, rc, "gat_local_model_slots")
+    gat_local_model_slots.launches += 1
+    return out
+
+
+def gat_local_model_slots(
+    slot_pstack: torch.Tensor,
+    h0: torch.Tensor,
+    skip0: torch.Tensor,
+    proj_w: torch.Tensor,
+    skip_w: torch.Tensor,
+    a_all: torch.Tensor,
+    pool_gl: torch.Tensor,
+    pred_hd: torch.Tensor,
+    window: int,
+    slots: int,
+    num_heads: int,
+    num_layers: int,
+    gmax: int,
+    prefix_caps: tuple | None = None,
+) -> torch.Tensor:
+    """GAT whole-model slot megakernel: [NW·GMAX, T] f32 per-window pool
+    sums. Operands as in ``gat_local_model_slots_ref``; a CPU tensor runs
+    the plain version, a CUDA tensor launches the kernel (float32 or
+    bfloat16 activations and weights, int32 ``slot_pstack`` / ``pool_gl``)
+    or raises. Each launch adds one to ``gat_local_model_slots.launches``."""
+    args = (slot_pstack, h0, skip0, proj_w, skip_w, a_all, pool_gl, pred_hd,
+            window, slots, num_heads, num_layers, gmax, prefix_caps)
+    return _dispatch(h0, gat_local_model_slots_ref, _launch_gat, args)
+
+
+gat_local_model_slots.launches = 0

@@ -16,7 +16,8 @@ from flowgnn_tpu_torch.models import base, registry
 from flowgnn_tpu_torch.ops import local_layer
 
 L, D, H, W = 2, 32, 64, 128
-T_PNA = 8  # readout MLP-1 width of the small PNA operands
+T_PNA = 8  # readout MLP-1 width of the small PNA and DGN operands
+GAT_L, GAT_HEADS, GAT_D = 3, 2, 16  # the small GAT operands: 3 layers of 2 × 16
 
 
 def _slot_batch(name: str, seed: int) -> dict:
@@ -24,7 +25,8 @@ def _slot_batch(name: str, seed: int) -> dict:
     spec = registry.get(name)
     graphs = registry.apply_transforms(spec, synthetic_molhiv(8, seed=seed))
     packed = pack_graphs_aligned(graphs, window=W, node_capacity=511,
-                                 edge_capacity=1024, graph_capacity=16)
+                                 edge_capacity=2048, graph_capacity=16,
+                                 with_eigen=spec.needs_eigen)
     return base.as_batch(packed, blocked="local_slots", window=W)
 
 
@@ -90,6 +92,88 @@ def _pna_operands(seed: int = 13) -> dict:
     )
 
 
+def _dgn_operands(seed: int = 14) -> dict:
+    """DGN operands: slot layout of 8 synthetic graphs, the layout's own
+    eigenvector terms and out-degrees, seeded random h0 and weights, as
+    numpy arrays."""
+    from flowgnn_tpu_torch.models.dgn import EIG_EPS
+
+    batch = _slot_batch("dgn", seed)
+    rng = np.random.default_rng(seed)
+    f32 = lambda *s: rng.normal(0, 0.1, s).astype(np.float32)
+    n = batch["node_feat"].shape[0]
+    slots = batch["slot_geom"].shape[-1]
+    abssum = batch["eig_abssum"]
+    return dict(
+        slot_src=batch["slot_src"], h0=f32(n, D),
+        eig=batch["node_eigen"][:, 1].copy(),
+        inv_deg=(1 / np.maximum(batch["out_deg"], 1)).astype(np.float32),
+        eigw_sum=batch["eigw_sum"],
+        inv_abssum=(1 / np.where(abssum == 0, EIG_EPS, abssum)).astype(np.float32),
+        w_all=f32(L * 2 * D, D), b_all=f32(L, D), pool_gl=batch["pool_gl"],
+        mlp1_w=f32(D, T_PNA), window=W, slots=slots, num_layers=L,
+        gmax=base.POOL_GMAX, prefix_caps=base.slot_prefix_caps(batch, slots),
+    )
+
+
+def _gat_score_maps(a_src: np.ndarray, a_tgt: np.ndarray) -> np.ndarray:
+    """Per-layer [a_src, a_tgt] ([L, H, D] each) → the [L·HD, 2H]
+    block-diagonal score maps h → [s_src ‖ s_tgt]."""
+    layers, heads, d = a_src.shape
+    eye = np.eye(heads, dtype=np.float32)
+    amap = lambda a: (a[:, :, :, None] * eye[None, :, None, :]).reshape(layers, heads * d, heads)
+    return np.concatenate([amap(a_src), amap(a_tgt)], axis=2).reshape(-1, 2 * heads)
+
+
+def _gat_operands(seed: int = 15) -> dict:
+    """GAT operands: slot layout of 8 synthetic graphs with self loops,
+    seeded random h0, skip0 and weights, as numpy arrays."""
+    batch = _slot_batch("gat", seed)
+    rng = np.random.default_rng(seed)
+    f32 = lambda *s, sd=0.3: rng.normal(0, sd, s).astype(np.float32)
+    n = batch["node_feat"].shape[0]
+    slots = batch["slot_geom"].shape[-1]
+    hd = GAT_HEADS * GAT_D
+    return dict(
+        slot_pstack=batch["slot_pstack"], h0=f32(n, hd), skip0=f32(n, hd),
+        proj_w=f32((GAT_L - 1) * hd, hd), skip_w=f32((GAT_L - 1) * hd, hd),
+        a_all=_gat_score_maps(f32(GAT_L, GAT_HEADS, GAT_D), f32(GAT_L, GAT_HEADS, GAT_D)),
+        pool_gl=batch["pool_gl"], pred_hd=f32(hd, 1), window=W, slots=slots,
+        num_heads=GAT_HEADS, num_layers=GAT_L, gmax=base.POOL_GMAX,
+        prefix_caps=base.slot_prefix_caps(batch, slots),
+    )
+
+
+def _gat_overflow_operands(hot: bool) -> dict:
+    """One window holding a ring over nodes 0..7 (slot 0) and nothing else;
+    layer 0's score maps read h's first column, so s_src[v] = s_tgt[v] =
+    h0[v, 0]. ``hot`` puts 100 at nodes 20 (no in-edge) and 30 (no
+    out-edge): the non-edge pair (20 ← 30) scores raw 200 and every empty
+    lane of row 20 raw 100, both past float32 exp's overflow at 88.7.
+    Neither node reaches another's output, so the hot run must equal the
+    cold one, where both are 0."""
+    slots, heads, hd, layers, caps = 2, 1, 16, 2, (W, 64)
+    rng = np.random.default_rng(3)
+    pstack = np.full(sum(caps), W, np.int32)
+    pstack[:8] = (np.arange(8) - 1) % 8
+    h0 = (rng.normal(size=(W, hd)) * 0.1).astype(np.float32)
+    h0[[20, 30], 0] = 100.0 if hot else 0.0
+    a_first = np.zeros((1, heads, hd), np.float32)
+    a_first[0, 0, 0] = 1.0
+    a_next = lambda: (rng.normal(size=(layers - 1, heads, hd)) * 0.01).astype(np.float32)
+    return dict(
+        slot_pstack=pstack, h0=h0,
+        skip0=(rng.normal(size=(W, hd)) * 0.1).astype(np.float32),
+        proj_w=np.eye(hd, dtype=np.float32), skip_w=np.eye(hd, dtype=np.float32) * 0.1,
+        a_all=_gat_score_maps(np.concatenate([a_first, a_next()]),
+                              np.concatenate([a_first, a_next()])),
+        pool_gl=np.zeros(W, np.int32),
+        pred_hd=rng.normal(size=(hd, 1)).astype(np.float32),
+        window=W, slots=slots, num_heads=heads, num_layers=layers,
+        gmax=base.POOL_GMAX, prefix_caps=caps,
+    )
+
+
 def _port(ops: dict, device, dtype=torch.float32) -> dict:
     out = {}
     for k, v in ops.items():
@@ -151,7 +235,8 @@ def test_slots_cuda_kernel_rejects_oversized_window(cuda_device):
 @pytest.mark.cuda
 @pytest.mark.parametrize("kernel,operands", [
     ("gcn_local_model_slots", _gcn_operands), ("pna_local_model", _pna_operands),
-], ids=["gcn", "pna"])
+    ("dgn_local_model", _dgn_operands), ("gat_local_model_slots", _gat_operands),
+], ids=["gcn", "pna", "dgn", "gat"])
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 5e-2)],
                          ids=["f32", "bf16"])
 def test_gcn_pna_cuda_kernels_match_plain(kernel, operands, dtype, tol, cuda_device):
@@ -196,3 +281,45 @@ def test_gcn_pna_cuda_kernels_reject_oversized_window(cuda_device):
         with pytest.raises(ValueError, match="shared memory"):
             fn(**ops)
         assert fn.launches == before
+
+
+@pytest.mark.cuda
+def test_dgn_gat_cuda_kernels_reject_oversized_window(cuda_device):
+    """W=256 at the published widths (DGN D=100, GAT 4 × 16 with 7 full
+    slots) does not fit one block's shared memory: both wrappers raise
+    before launch."""
+    window, n = 256, 256
+    rng = np.random.default_rng(0)
+    t = lambda *s: torch.from_numpy(rng.normal(0, 0.1, s).astype(np.float32)).to(cuda_device)
+    i32 = lambda *s, fill=0: torch.full(s, fill, dtype=torch.int32, device=cuda_device)
+    d = 100
+    dgn = dict(
+        slot_src=i32(window, 1, fill=window), h0=t(n, d), eig=t(n), inv_deg=t(n),
+        eigw_sum=t(n), inv_abssum=t(n), w_all=t(L * 2 * d, d), b_all=t(L, d),
+        pool_gl=i32(window), mlp1_w=t(d, 50), window=window, slots=1, num_layers=L,
+        gmax=base.POOL_GMAX, prefix_caps=(window,),
+    )
+    hd, heads, slots = 64, 4, 7
+    gat = dict(
+        slot_pstack=i32(slots * window, fill=window), h0=t(n, hd), skip0=t(n, hd),
+        proj_w=t((L - 1) * hd, hd), skip_w=t((L - 1) * hd, hd), a_all=t(L * hd, 2 * heads),
+        pool_gl=i32(window), pred_hd=t(hd, 1), window=window, slots=slots,
+        num_heads=heads, num_layers=L, gmax=base.POOL_GMAX, prefix_caps=(window,) * slots,
+    )
+    for kernel, ops in (("dgn_local_model", dgn), ("gat_local_model_slots", gat)):
+        fn = getattr(local_layer, kernel)
+        before = fn.launches
+        with pytest.raises(ValueError, match="shared memory"):
+            fn(**ops)
+        assert fn.launches == before
+
+
+@pytest.mark.cuda
+def test_gat_cuda_kernel_overflowing_non_edge_stays_finite(cuda_device):
+    """A non-edge pair whose raw score overflows exp contributes nothing:
+    the kernel's output is finite and equals the benign run's."""
+    hot = local_layer.gat_local_model_slots(**_port(_gat_overflow_operands(True), cuda_device))
+    cold = local_layer.gat_local_model_slots(**_port(_gat_overflow_operands(False), cuda_device))
+    torch.cuda.synchronize()
+    assert bool(hot.isfinite().all())
+    torch.testing.assert_close(hot, cold, rtol=1e-6, atol=1e-6)

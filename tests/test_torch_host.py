@@ -21,9 +21,11 @@ def _assert_graphs_equal(a, b):
         assert np.array_equal(x.node_feat, y.node_feat)
         assert np.array_equal(x.edge_index, y.edge_index)
         assert np.array_equal(x.edge_attr, y.edge_attr)
-        assert (x.node_vn is None) == (y.node_vn is None)
-        if x.node_vn is not None:
-            assert np.array_equal(x.node_vn, y.node_vn)
+        for f in ("node_eigen", "node_vn"):
+            a, b = getattr(x, f), getattr(y, f)
+            assert (a is None) == (b is None), f
+            if a is not None:
+                assert a.dtype == b.dtype and np.array_equal(a, b), f
 
 
 def _assert_batches_equal(jax_batch: dict, port_batch: dict):
@@ -33,6 +35,8 @@ def _assert_batches_equal(jax_batch: dict, port_batch: dict):
         b = np.asarray(port_batch[k]).astype(np.float64)
         assert a.shape == b.shape, k
         assert np.array_equal(a, b), k
+        if np.asarray(v).dtype == np.float32:  # eigenvectors and their sums
+            assert np.asarray(port_batch[k]).dtype == np.float32, k
 
 
 def test_synthetic_streams_equal():
@@ -43,15 +47,22 @@ def test_synthetic_streams_equal():
     )
 
 
-@pytest.mark.parametrize("name", ["gin", "gin-vn"])
+@pytest.mark.parametrize("name", ["gin", "gin-vn", "dgn", "gat"])
 def test_packing_and_slot_layouts_equal(name):
+    """DGN's eigenvectors (with their per-node eig sums) and GAT's self
+    loops, first in each graph's edge list, come out equal too."""
     jspec, tspec = jr.get(name), tr.get(name)
+    assert tspec.needs_eigen == jspec.needs_eigen
     jgs = jr.apply_transforms(jspec, js.synthetic_dataset("molhiv", seed=5, num_graphs=40))
     tgs = tr.apply_transforms(tspec, ts.synthetic_dataset("molhiv", seed=5, num_graphs=40))
     _assert_graphs_equal(jgs, tgs)
+    if name == "gat":  # one self edge per node, before the graph's own edges
+        for g in tgs:
+            loops = np.repeat(np.arange(g.num_nodes)[:, None], 2, axis=1)
+            assert np.array_equal(g.edge_index[: g.num_nodes], loops)
 
     w = 128
-    caps = dict(node_capacity=383, graph_capacity=16)
+    caps = dict(node_capacity=383, graph_capacity=16, with_eigen=jspec.needs_eigen)
     edge_cap = jg.auto_edge_capacity(jgs, caps["node_capacity"])
     assert tg.auto_edge_capacity(tgs, caps["node_capacity"]) == edge_cap
     jbuckets = list(jg.pack_dataset(jgs, edge_capacity=edge_cap, align_window=w, **caps))
@@ -59,13 +70,14 @@ def test_packing_and_slot_layouts_equal(name):
     assert len(jbuckets) == len(tbuckets) >= 3
     for a, b in zip(jbuckets, tbuckets):
         for f in ("node_feat", "node_graph", "senders", "receivers", "edge_attr",
-                  "n_node", "n_edge", "node_vn"):
+                  "n_node", "n_edge", "node_eigen", "node_vn"):
             x, y = getattr(a, f), getattr(b, f)
             assert (x is None) == (y is None), f
             if x is not None:
                 assert np.array_equal(x, y), f
 
-    small = dict(node_capacity=511, edge_capacity=1024, graph_capacity=16)
+    small = dict(node_capacity=511, edge_capacity=2048, graph_capacity=16,
+                 with_eigen=jspec.needs_eigen)
     _assert_batches_equal(
         jb.as_batch(jg.pack_graphs(jgs[:8], **small)),
         tb.as_batch(tg.pack_graphs(tgs[:8], **small)),
@@ -82,6 +94,7 @@ def test_packing_and_slot_layouts_equal(name):
     assert len({tb.batch_signature(b) for b in tbatches}) == 1
     for a, b in zip(jbatches, tbatches):
         _assert_batches_equal(a, b)
+        assert ("eigw_sum" in b) == jspec.needs_eigen
     # to_device keeps the marker shapes that carry static geometry.
     dev = tb.to_device(tbatches[0], "cpu")
     s = dev["slot_geom"].shape[-1]

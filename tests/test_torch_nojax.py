@@ -1,6 +1,6 @@
 """The port runs without jax: in a fresh interpreter where ``import jax`` and
 ``import ml_dtypes`` fail, every module of flowgnn_tpu_torch imports and
-GIN, GIN-VN, GCN and PNA run on the CPU."""
+all six models (GIN, GIN-VN, GCN, GAT, PNA, DGN) run on the CPU."""
 
 import os
 import subprocess
@@ -29,13 +29,16 @@ small = {
     "gin": lambda: loaders.synthetic_gin_params(0, dim=16, hidden=32, layers=2),
     "gcn": lambda: loaders.synthetic_gcn_params(0, dim=16, layers=2),
     "pna": lambda: loaders.synthetic_pna_params(0, dim=16, layers=2),
+    "gat": lambda: loaders.synthetic_gat_params(0, dim=16, heads=2, layers=2),
+    "dgn": lambda: loaders.synthetic_dgn_params(0, dim=16, layers=2),
 }
-for name in ("gin", "gin-vn", "gcn", "pna"):
+for name in ("gin", "gin-vn", "gcn", "gat", "pna", "dgn"):
     spec = registry.get(name)
     graphs = registry.apply_transforms(spec, synthetic_dataset("molhiv", seed=0, num_graphs=24))
     w, _ = base.choose_geometry(name, max(g.num_nodes for g in graphs))
-    buckets = list(pack_dataset(graphs, node_capacity=255, edge_capacity=1024,
-                                graph_capacity=16, align_window=w))
+    buckets = list(pack_dataset(graphs, node_capacity=255, edge_capacity=1536,
+                                graph_capacity=16, with_eigen=spec.needs_eigen,
+                                align_window=w))
     batches = base.as_batches_uniform(buckets, blocked="local_slots", window=w)
     params = loaders.params_from_numpy(small[name.split("-")[0]](), FLOAT32, "cpu")
     for packed, batch in zip(buckets, batches):
@@ -55,4 +58,4 @@ def test_port_runs_without_jax():
     )
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.startswith("ok "), proc.stdout
-    assert int(proc.stdout.split()[1]) >= 16  # every module was walked
+    assert int(proc.stdout.split()[1]) >= 18  # every module was walked
