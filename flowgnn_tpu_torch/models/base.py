@@ -14,10 +14,12 @@ A batch is the dict-of-arrays view of ``core.graphs.PackedGraphs``:
 
 with one trailing pad node (index N) that every padded edge points at and one
 trailing pad graph that owns every pad node. ``blocked="local_slots"`` adds
-the degree-sorted dest-major slot layout of the slot megakernels. Its arrays
-hold the same values as ``flowgnn_tpu.models.base.as_batch`` builds, stored
-as int32 where the JAX package stores bfloat16; static geometry rides in the
-shapes of the marker arrays ``slot_pcap_k`` and ``slot_geom``.
+the degree-sorted dest-major slot layout of the slot megakernels, and
+``blocked="local_ell"`` the ELL layout of the whole-model ELL kernels. Their
+arrays hold the same values as ``flowgnn_tpu.models.base.as_batch`` builds,
+stored as int32 where the JAX package stores bfloat16; static geometry rides
+in the shapes of the marker arrays ``slot_pcap_k``, ``slot_geom`` and
+``loc_ell``.
 """
 
 from __future__ import annotations
@@ -34,11 +36,12 @@ from ..core.graphs import PackedGraphs
 from ..core.numerics import Precision
 from ..ops.segment import segment_sum
 
-# Window and ELL block per model. The slot megakernel reads only the window;
-# the block is the ELL lane capacity and is carried for the ELL slice. Both
-# are the port's own: W=128 keeps a window's f32 state inside one Hopper
-# block's shared memory (the JAX package's v5e table puts GIN-VN at W=256
-# and GAT at W=384, figures of that chip's 128-lane tiles).
+# Window and ELL block per model. The slot megakernels read only the window;
+# the block is the ELL lanes per window. Both are the port's own: W=128 keeps
+# a window's f32 state inside one Hopper block's shared memory (the JAX
+# package's v5e table puts GIN-VN at W=256 and GAT at W=384, figures of that
+# chip's 128-lane tiles); the ELL kernels span larger windows with a cluster
+# of 128-row blocks.
 GEOMETRY_DEFAULTS: dict[str, tuple[int, int]] = {
     "gin": (128, 384),
     "gin-vn": (128, 384),
@@ -173,7 +176,7 @@ def _attach_degrees(batch: dict, n: int) -> None:
 
 def as_batch(
     packed: PackedGraphs, blocked=False, window: int | None = None,
-    *, slots: int | None = None, prefix_caps=None,
+    block: int | None = None, *, slots: int | None = None, prefix_caps=None,
 ) -> dict:
     """PackedGraphs → dict of numpy arrays.
 
@@ -184,9 +187,13 @@ def as_batch(
     bond attrs with their vocabulary offsets); empty lanes carry src = W − W/2
     and attrs −1. ``slots`` / ``prefix_caps`` pin the slot depth and per-slot
     caps so that every bucket of a stream shares one layout
-    (``as_batches_uniform``). Buckets whose edges spill (window-crossing
-    edges or in-degree above the slot depth) raise: the spill tail is
-    ROADMAP queue 1 item 9, as are the ELL and blocked layouts.
+    (``as_batches_uniform``). ``blocked="local_ell"`` (window-aligned
+    packing too) keeps the node order and attaches the ELL layout of
+    ``window`` rows and ``block`` lanes per edge block (see
+    ``_attach_ell_layout``). Buckets whose edges spill (window-crossing
+    edges, in-degree above the slot depth, or more local edges than a
+    window's ELL lanes) raise: the spill tail is not ported, nor are the
+    legacy ``"local"`` and edge-block layouts (ROADMAP queue 2).
     """
     batch = {
         "node_feat": packed.node_feat,
@@ -203,9 +210,13 @@ def as_batch(
         batch["vn_mask"] = packed.node_vn
     if not blocked:
         return batch
+    if blocked == "local_ell":
+        gw, gb = GEOMETRY_DEFAULTS["gin"]
+        _attach_ell_layout(batch, packed, window or gw, block or gb)
+        return batch
     if blocked != "local_slots":
         raise NotImplementedError(
-            f"blocked={blocked!r} is not ported yet (ROADMAP queue 1 item 9)"
+            f"blocked={blocked!r} is not ported yet (ROADMAP queue 2 C)"
         )
     from ..core.blocking import build_local_slots
 
@@ -241,7 +252,7 @@ def as_batch(
     if count:
         raise NotImplementedError(
             f"{count} edges spill out of the slot layout; the spill tail is "
-            "not ported yet (ROADMAP queue 1 item 9)"
+            "not ported yet (ROADMAP queue 2 B)"
         )
     batch["slot_src"] = slot_src  # [NW·W, S]
     nw = slot_src.shape[0] // w
@@ -289,18 +300,99 @@ def as_batch(
     return batch
 
 
-# Batch keys of the ELL and blocked layouts, not ported yet (ROADMAP queue 1
-# item 9).
+def _attach_ell_layout(batch: dict, packed: PackedGraphs, window: int, block: int) -> None:
+    """The no-spill ELL layout of ``flowgnn_tpu.models.base.as_batch``:
+    ``senders`` / ``receivers`` / ``edge_attr`` re-ordered into the
+    NW·k·block lanes (pad lanes point at the pad node, attrs 0),
+    ``loc_ulocal`` / ``loc_vlocal`` the lanes' in-window endpoints, the
+    ``loc_ell`` marker whose shape (window, k) carries the geometry, the
+    pooling layout over the un-permuted ``node_graph``, and the degree
+    tables."""
+    from ..core.blocking import build_local_blocks_ell
+
+    n = packed.node_capacity + 1
+    lb = build_local_blocks_ell(packed.senders, packed.receivers, n, window=window, block=block)
+    if lb.spill_count:
+        raise NotImplementedError(
+            f"{lb.spill_count} edges spill out of the ELL layout; the spill tail "
+            "(_attach_spill_blocks and kernel table rows 13 / 15 / 24) is not "
+            "ported yet (ROADMAP queue 2 B)"
+        )
+    lanes = lb.u_local.shape[0]
+    s = np.full(lanes, n - 1, np.int32)
+    r = np.full(lanes, n - 1, np.int32)
+    a = np.zeros((lanes, packed.edge_attr.shape[1]), np.int32)
+    take = lb.edge_perm[lb.valid]
+    s[lb.valid] = packed.senders[take]
+    r[lb.valid] = packed.receivers[take]
+    a[lb.valid] = packed.edge_attr[take]
+    batch["senders"], batch["receivers"], batch["edge_attr"] = s, r, a
+    batch["loc_ulocal"] = lb.u_local
+    batch["loc_vlocal"] = lb.v_local
+    batch["loc_ell"] = np.zeros((lb.window, lb.k_blocks), np.int32)
+    _attach_pool_layout(batch, packed, lb.window, packed.node_graph)
+    _attach_degrees(batch, n)
+
+
+def ell_geometry(batch: dict) -> tuple[int, int]:
+    """(window, k_blocks) of an ELL batch, from the ``loc_ell`` marker's
+    trailing two dims."""
+    m = batch["loc_ell"]
+    return int(m.shape[-2]), int(m.shape[-1])
+
+
+def require_ell_megakernel(batch: dict, return_intermediates: bool, layer_row: int) -> None:
+    """Pass an ELL batch that a whole-model ELL kernel takes: one edge block
+    per window, no spill lanes, the pooling layout, no intermediates. Every
+    other ELL batch raises ``NotImplementedError`` naming the kernel-table
+    rows it needs (``layer_row``, the model's per-layer ELL kernel; row 24
+    for the spill tail)."""
+    _, k = ell_geometry(batch)
+    spill = batch["senders"].shape[0] - batch["loc_ulocal"].shape[0]
+    why, rows = None, f"row {layer_row}"
+    if k != 1:
+        why = f"k={k} edge blocks per window"
+    elif spill:
+        why, rows = f"{spill} spill lanes", f"rows {layer_row} and 24"
+    elif "pool_gl" not in batch:
+        why = f"more than POOL_GMAX={POOL_GMAX} graphs in a window"
+    elif return_intermediates:
+        why = "return_intermediates (the whole-model kernel keeps h on chip)"
+    if why:
+        raise NotImplementedError(
+            f"ELL batch with {why}: runs the per-layer ELL path (kernel table "
+            f"{rows}), not ported yet (ROADMAP queue 2 B)"
+        )
+
+
+def ell_meta(batch: dict) -> torch.Tensor:
+    """[P, 5] int32 per ELL lane: (u_local, v_local, the three bond attrs
+    with their vocabulary offsets), the lane operand of the whole-model ELL
+    kernels."""
+    p = batch["loc_ulocal"].shape[0]
+    offs = torch.as_tensor(BOND_FEATURE_OFFSETS, device=batch["edge_attr"].device)
+    return torch.cat([
+        batch["loc_ulocal"][:, None].int(), batch["loc_vlocal"][:, None].int(),
+        (batch["edge_attr"][:p] + offs).int(),
+    ], dim=1)
+
+
+# Batch keys of the layouts not ported yet (ROADMAP queue 2): the legacy
+# dynamic-window layout (``loc_ulocal`` without ``loc_ell``), the edge-block
+# and spill-block layouts, and the ELL layout for the models without ELL
+# kernels.
 UNPORTED_LAYOUT_KEYS = ("loc_ulocal", "loc_ell", "blk_vlocal", "spill_blk_vlocal")
 
 
-def reject_unported_layouts(batch: dict) -> None:
+def reject_unported_layouts(batch: dict, ell: bool = False) -> None:
     """Raise ``NotImplementedError`` on a batch in a layout the port does
-    not run yet."""
+    not run yet. ``ell=True`` (GIN, GCN) lets the ELL layout through."""
+    ell = ell and "loc_ell" in batch
     for key in UNPORTED_LAYOUT_KEYS:
-        if key in batch:
+        if key in batch and not (ell and key in ("loc_ulocal", "loc_ell")):
             raise NotImplementedError(
-                f"batch layout with {key!r} is not ported yet (ROADMAP queue 1 item 9)"
+                f"batch layout with {key!r} is not ported yet for this model "
+                "(ROADMAP queue 2)"
             )
 
 
@@ -310,11 +402,15 @@ def batch_signature(batch: dict):
     return tuple(sorted((k, v.shape, str(v.dtype)) for k, v in batch.items()))
 
 
-def as_batches_uniform(buckets, blocked=False, window: int | None = None) -> list:
+def as_batches_uniform(
+    buckets, blocked=False, window: int | None = None, block: int | None = None,
+) -> list:
     """as_batch over a bucket stream, with the slot depth and prefix caps
     reconciled to stream-wide maxima so that every bucket shares one
-    layout signature."""
-    mk = lambda b, **kw: as_batch(b, blocked=blocked, window=window, **kw)
+    layout signature. ELL buckets need nothing reconciled: the one
+    stream-wide parameter the JAX package pins for them is the spill-tail
+    length, and a bucket that spills raises here."""
+    mk = lambda b, **kw: as_batch(b, blocked=blocked, window=window, block=block, **kw)
     batches = [mk(b) for b in buckets]
     if (
         blocked != "local_slots" or len(batches) < 2

@@ -9,12 +9,14 @@ into pooling; messages are norm-scaled relu(h_u + ee_l) with norm_uv =
 GCN/src/message_passing.cc:148-167). Like the JAX package, a node that is
 never a source gets 1/√(0+1) = 1, where the reference leaves 0.
 
-Two branches: a slot batch (``as_batch(blocked="local_slots")``) runs all L
-layers and the pooled head in one ``gcn_local_model_slots`` launch after
-the conv-0 matmul; every other batch, and a slot batch the kernel does not
-take (``return_intermediates``, no ``pool_gl``), runs the plain edge-list
-loop, as the JAX package's dispatch falls through to it. ELL and spill
-layouts raise ``NotImplementedError`` naming their ROADMAP item.
+Three branches: a slot batch (``as_batch(blocked="local_slots")``) runs all
+L layers and the pooled head in one ``gcn_local_model_slots`` launch after
+the conv-0 matmul, an ELL batch (``blocked="local_ell"``) in one
+``gcn_local_model`` launch; every other batch, and a slot batch the kernel
+does not take (``return_intermediates``, no ``pool_gl``), runs the plain
+edge-list loop, as the JAX package's dispatch falls through to it. An ELL
+batch the ELL kernel does not take, and a slot spill tail, raise
+``NotImplementedError`` naming what they need.
 """
 
 from __future__ import annotations
@@ -22,7 +24,7 @@ from __future__ import annotations
 import torch
 
 from ..core.numerics import FLOAT32, Precision
-from ..ops.local_layer import gcn_local_model_slots
+from ..ops.local_layer import gcn_local_model, gcn_local_model_slots
 from . import base as _base
 from .base import (
     acc_dtype,
@@ -52,18 +54,15 @@ def _folded_bn(params: dict, prec: Precision):
     return alphas, betas
 
 
-def slot_kernel_operands(params: dict, batch: dict, prec: Precision = FLOAT32) -> dict:
-    """The keyword operands the slot branch hands ``gcn_local_model_slots``
-    for a slot batch (also used to time the kernel on its own). The conv-0
+def _model_operands(params: dict, batch: dict, prec: Precision) -> dict:
+    """The whole-model kernels' operands other than the layout's. The conv-0
     matmul, the degree norms and the folded BatchNorm are plain torch, as
     the JAX package computes them outside Pallas."""
     dt = prec.compute_dtype
     L, d, _ = params["conv_w"].shape
-    window, n_slots = (int(x) for x in batch["slot_geom"].shape[-2:])
     h = atom_embed(params["node_embedding"], batch["node_feat"], prec)
     alphas, betas = _folded_bn(params, prec)
     return dict(
-        slot_meta=batch["slot_meta"],
         h0=linear(h, params["conv_w"][0], params["conv_b"][0], prec),
         dis=1.0 / torch.sqrt(out_degree(batch).to(dt) + 1),
         pool_gl=batch["pool_gl"],
@@ -72,8 +71,27 @@ def slot_kernel_operands(params: dict, batch: dict, prec: Precision = FLOAT32) -
         wn_all=params["conv_w"][1:].transpose(1, 2).reshape((L - 1) * d, d).contiguous(),
         bn_all=params["conv_b"][1:],
         pred_w=params["pred_w"].T.to(dt).contiguous(),
-        window=window, slots=n_slots, num_layers=L, gmax=_base.POOL_GMAX,
+        num_layers=L, gmax=_base.POOL_GMAX,
+    )
+
+
+def slot_kernel_operands(params: dict, batch: dict, prec: Precision = FLOAT32) -> dict:
+    """The keyword operands the slot branch hands ``gcn_local_model_slots``
+    for a slot batch (also used to time the kernel on its own)."""
+    window, n_slots = (int(x) for x in batch["slot_geom"].shape[-2:])
+    return dict(
+        slot_meta=batch["slot_meta"], window=window, slots=n_slots,
         prefix_caps=_base.slot_prefix_caps(batch, n_slots),
+        **_model_operands(params, batch, prec),
+    )
+
+
+def ell_kernel_operands(params: dict, batch: dict, prec: Precision = FLOAT32) -> dict:
+    """The keyword operands the ELL branch hands ``gcn_local_model`` for an
+    ELL batch (also used to time the kernel on its own)."""
+    return dict(
+        ell_meta=_base.ell_meta(batch), window=_base.ell_geometry(batch)[0],
+        **_model_operands(params, batch, prec),
     )
 
 
@@ -86,7 +104,11 @@ def forward(
     """[G+1, 1] predictions (the last row is the pad graph's). ``params``
     as made by ``params.loaders.params_from_numpy``; ``batch`` as made by
     ``models.base.to_device``."""
-    _base.reject_unported_layouts(batch)
+    _base.reject_unported_layouts(batch, ell=True)
+    if "loc_ell" in batch:
+        _base.require_ell_megakernel(batch, return_intermediates, layer_row=15)
+        pool = gcn_local_model(**ell_kernel_operands(params, batch, prec))
+        return _base.pool_finish(pool, batch, params["pred_b"], prec)
     if "slot_src" in batch and (
         "slot_meta" not in batch or batch["slot_spill"].shape[-1]
     ):

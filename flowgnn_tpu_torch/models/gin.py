@@ -11,10 +11,12 @@ GIN-VN runs the same program over graphs with an analytic virtual node
 per-graph pooled sum plus a per-graph broadcast (``_vn_message`` here, the
 VN stage inside the slot megakernel).
 
-Two branches: a slot batch (``as_batch(blocked="local_slots")``) runs the
-whole model in one ``gin_local_model_slots`` launch, and a plain edge-list
-batch runs the plain torch path, the port's own end-to-end oracle. Every
-other case raises ``NotImplementedError`` naming its ROADMAP item.
+Three branches: a slot batch (``as_batch(blocked="local_slots")``) runs the
+whole model in one ``gin_local_model_slots`` launch, an ELL batch
+(``blocked="local_ell"``) in one ``gin_local_model`` launch, and a plain
+edge-list batch runs the plain torch path, the port's own end-to-end
+oracle. Every other case raises ``NotImplementedError`` naming what it
+needs.
 
 The FPGA drops ε (GIN/src/host.cc:185-200), so ``fpga_eps=True`` (default)
 zeroes it for device parity; ``False`` uses the trained value.
@@ -25,7 +27,7 @@ from __future__ import annotations
 import torch
 
 from ..core.numerics import FLOAT32, Precision
-from ..ops.local_layer import gin_local_model_slots
+from ..ops.local_layer import gin_local_model, gin_local_model_slots
 from ..ops.segment import segment_sum
 from . import base as _base
 from .base import (
@@ -64,15 +66,11 @@ def _eps(params: dict, prec: Precision, fpga_eps: bool) -> torch.Tensor:
     return params["eps"]
 
 
-def slot_kernel_operands(params: dict, batch: dict, prec: Precision = FLOAT32,
-                         fpga_eps: bool = True) -> dict:
-    """The keyword operands the slot branch hands ``gin_local_model_slots``
-    for a slot batch (also used to time the kernel on its own)."""
+def _model_operands(params: dict, batch: dict, prec: Precision, fpga_eps: bool) -> dict:
+    """The whole-model kernels' operands other than the layout's."""
     dt = prec.compute_dtype
     L, hid, d = params["mlp1_w"].shape
-    window, n_slots = (int(x) for x in batch["slot_geom"].shape[-2:])
     return dict(
-        slot_meta=batch["slot_meta"],
         h0=atom_embed(params["node_embedding"], batch["node_feat"], prec),
         pool_gl=batch["pool_gl"],
         ee_tables=params["edge_embedding"].reshape(-1, d).to(dt),
@@ -82,9 +80,30 @@ def slot_kernel_operands(params: dict, batch: dict, prec: Precision = FLOAT32,
         b2_all=params["mlp2_b"],
         eps_all=(1.0 + _eps(params, prec, fpga_eps)).to(acc_dtype(prec)).reshape(L, 1),
         pred_w=params["pred_w"].T.to(dt).contiguous(),
-        window=window, slots=n_slots, num_layers=L, gmax=_base.POOL_GMAX,
-        prefix_caps=_base.slot_prefix_caps(batch, n_slots),
+        num_layers=L, gmax=_base.POOL_GMAX,
         vn_col=batch["vn_mask"].to(dt) if "vn_mask" in batch else None,
+    )
+
+
+def slot_kernel_operands(params: dict, batch: dict, prec: Precision = FLOAT32,
+                         fpga_eps: bool = True) -> dict:
+    """The keyword operands the slot branch hands ``gin_local_model_slots``
+    for a slot batch (also used to time the kernel on its own)."""
+    window, n_slots = (int(x) for x in batch["slot_geom"].shape[-2:])
+    return dict(
+        slot_meta=batch["slot_meta"], window=window, slots=n_slots,
+        prefix_caps=_base.slot_prefix_caps(batch, n_slots),
+        **_model_operands(params, batch, prec, fpga_eps),
+    )
+
+
+def ell_kernel_operands(params: dict, batch: dict, prec: Precision = FLOAT32,
+                        fpga_eps: bool = True) -> dict:
+    """The keyword operands the ELL branch hands ``gin_local_model`` for an
+    ELL batch (also used to time the kernel on its own)."""
+    return dict(
+        ell_meta=_base.ell_meta(batch), window=_base.ell_geometry(batch)[0],
+        **_model_operands(params, batch, prec, fpga_eps),
     )
 
 
@@ -98,7 +117,11 @@ def forward(
     """[G+1, T] predictions (the last row is the pad graph's). ``params``
     as made by ``params.loaders.params_from_numpy``; ``batch`` as made by
     ``models.base.to_device``."""
-    _base.reject_unported_layouts(batch)
+    _base.reject_unported_layouts(batch, ell=True)
+    if "loc_ell" in batch:
+        _base.require_ell_megakernel(batch, return_intermediates, layer_row=13)
+        pool = gin_local_model(**ell_kernel_operands(params, batch, prec, fpga_eps))
+        return _base.pool_finish(pool, batch, params["pred_b"], prec)
     if "slot_src" in batch:
         if "slot_meta" not in batch:
             raise NotImplementedError(

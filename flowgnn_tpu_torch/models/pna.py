@@ -84,6 +84,7 @@ def forward(
     """[G+1, 1] predictions (the last row is the pad graph's). ``params``
     as made by ``params.loaders.params_from_numpy``; ``batch`` as made by
     ``models.base.to_device``."""
+    _base.reject_unported_layouts(batch)
     if "slot_src" in batch:
         if batch["slot_spill"].shape[-1]:
             raise NotImplementedError(

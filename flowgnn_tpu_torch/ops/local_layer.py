@@ -1,8 +1,9 @@
-"""Graph-local whole-model kernels over the degree-sorted slot layout.
+"""Graph-local whole-model kernels over the slot and ELL layouts.
 
 Each wrapper here is the counterpart of one TPU kernel of
 ``flowgnn_tpu/ops/pallas/local_layer.py`` and runs a whole model (L layers
-plus the pooled prediction head) in one launch per bucket:
+plus the pooled prediction head) in one launch per bucket. Over the
+degree-sorted slot layout, one block per window of 128 rows:
 
 - ``gin_local_model_slots``: GIN / GIN-VN (``csrc/gin_local_model_slots.cu``);
 - ``gcn_local_model_slots``: GCN (``csrc/gcn_local_model_slots.cu``);
@@ -16,6 +17,12 @@ plus the pooled prediction head) in one launch per bucket:
   ``gat_local_model_dense``), which compute the same function; it follows
   the numerics of the default, ``gat_local_model_pairs``.
 
+Over the k=1 ELL layout, one thread-block cluster per window of 128 to 1024
+rows (128 rows per block):
+
+- ``gin_local_model``: GIN / GIN-VN (``csrc/gin_local_model.cu``);
+- ``gcn_local_model``: GCN (``csrc/gcn_local_model.cu``).
+
 On a CUDA tensor a wrapper launches its hand-written kernel, or raises; on a
 CPU tensor it runs its ``_ref``, the same function in plain torch, which the
 CPU tests hold against the JAX kernel. Each launch adds one to the wrapper's
@@ -24,7 +31,9 @@ CPU tests hold against the JAX kernel. Each launch adds one to the wrapper's
 The TPU kernels' ``wps`` (windows per grid step), ``_pad_slot_operands`` and
 ``_ablate`` stage stubs are not carried over: they batch TPU grid steps to
 amortize MXU weight loads, or attribute TPU time, and the Hopper kernels run
-one block per window.
+one block, or one cluster, per window. Nor is ``_ell_meta``'s recentred
+bfloat16 lane metadata: it halves the TPU's index tiles, and the ELL kernels
+here take int32 (u, v, three bond rows) per lane.
 """
 
 from __future__ import annotations
@@ -39,7 +48,8 @@ from .build import load_library
 
 LIBRARIES = (
     "gin_local_model_slots", "gcn_local_model_slots", "pna_local_model",
-    "dgn_local_model", "gat_local_model_slots",
+    "dgn_local_model", "gat_local_model_slots", "gin_local_model",
+    "gcn_local_model",
 )
 
 
@@ -136,6 +146,88 @@ def _slot_lanes(slot_src: torch.Tensor, caps, window: int, slots: int) -> list:
 # ---------------------------------------------------------------------------
 
 
+def _slot_lanes_of_meta(slot_meta, nw: int, window: int, vocab: int, caps, offs, acc):
+    """The slot layout as lanes (see ``_gin_model_ref``): every prefix lane
+    of ``slot_meta``; an empty lane reads a zero source and its message is
+    dropped; row r of slot k is lane offs[k] + r."""
+    gather, valid, attr_rows = _meta_lanes(slot_meta, nw, sum(caps), window, vocab)
+    valid = valid.to(acc)
+    return gather, valid, attr_rows, lambda msg: _accumulate(msg * valid, caps, offs, nw, window)
+
+
+def _ell_lanes(ell_meta, nw: int, window: int, vocab: int, acc):
+    """The ELL layout as lanes (see ``_gin_model_ref``): ``ell_meta``
+    [NW·B, 5] holds per lane (u, v, three bond-table rows), both endpoints
+    in-window. As in the TPU kernel's one-hot gather and scatter, a lane
+    whose u lies outside [0, W) reads a zero source and one whose v does
+    lands nowhere; messages are summed per destination row in lane order."""
+    meta = ell_meta.long().reshape(nw, -1, 5)
+    base = torch.arange(nw, device=ell_meta.device)[:, None] * window
+    u, v = meta[..., 0], meta[..., 1]
+    u_ok = ((u >= 0) & (u < window)).reshape(-1, 1).to(acc)
+    gather = (base + u.clamp(0, window - 1)).reshape(-1)
+    v_ok = ((v >= 0) & (v < window)).reshape(-1)
+    dest = (base + v.clamp(0, window - 1)).reshape(-1)[v_ok]
+    attrs = meta[..., 2:].reshape(-1, 3)
+    attrs = torch.where((attrs >= 0) & (attrs < vocab), attrs, vocab)
+
+    def accumulate(msg: torch.Tensor) -> torch.Tensor:
+        out = torch.zeros(nw * window, msg.shape[1], dtype=msg.dtype, device=msg.device)
+        return out.index_add_(0, dest, msg[v_ok])
+
+    return gather, u_ok, attrs, accumulate
+
+
+def _gin_model_ref(lanes, h0, pool_gl, ee_tables, w1_all, b1_all, w2_all, b2_all,
+                   eps_all, pred_w, window, num_layers, gmax, vn_col) -> torch.Tensor:
+    """GIN / GIN-VN over a layout's ``lanes`` = (per lane: the source's row
+    over the padded node axis, the source's validity [lanes, 1], the three
+    bond-table rows with the zero row ``vocab`` for none; and the function
+    that sums per-lane messages into per-row sums [NW·W, D])."""
+    gather, u_ok, attr_rows, accumulate = lanes
+    cdt = h0.dtype
+    acc = _acc_dtype(cdt)
+    dev = h0.device
+    n, d = h0.shape
+    nw = -(-n // window)
+    vocab = ee_tables.shape[0] // num_layers
+    hid = w1_all.shape[0] // num_layers
+
+    h = _padded(h0, nw * window)
+    pool_idx = _pool_index(pool_gl, nw, window, gmax)
+    vnc = None
+    if vn_col is not None:
+        vnc = _padded(vn_col.to(acc)[:, None], nw * window)
+
+    for l in range(num_layers):
+        tab = torch.cat([
+            ee_tables[l * vocab : (l + 1) * vocab].to(acc),
+            torch.zeros(1, d, dtype=acc, device=dev),
+        ])
+        hf = h.to(acc)
+        ee = tab[attr_rows[:, 0]] + tab[attr_rows[:, 1]] + tab[attr_rows[:, 2]]
+        agg = accumulate(_relu(hf[gather] * u_ok + ee).to(cdt).to(acc))
+        if vnc is not None:
+            e0 = tab[0] + tab[5] + tab[11]  # the (0, 0, 0)-attr bond embedding
+            r = _relu(hf + e0).to(cdt).to(acc)
+            rcat = torch.cat([r * (1 - vnc), r * vnc], dim=1)
+            pooled = torch.zeros(nw * (gmax + 1), 2 * d, dtype=acc, device=dev)
+            pooled.index_add_(0, pool_idx, rcat)
+            pooled[gmax :: gmax + 1] = 0  # padding rows pool nothing
+            back = pooled[pool_idx]
+            agg = agg + back[:, d:] * (1 - vnc) + back[:, :d] * vnc
+        act = (agg + eps_all[l, 0].to(acc) * hf).to(cdt)
+        w1 = w1_all[l * hid : (l + 1) * hid].to(acc)
+        w2 = w2_all[l * d : (l + 1) * d].to(acc)
+        z = _relu(act.to(acc) @ w1.T + b1_all[l].to(acc)).to(cdt)
+        out = z.to(acc) @ w2.T + b2_all[l].to(acc)
+        if l != num_layers - 1:
+            out = _relu(out)
+        h = out.to(cdt)
+
+    return _pool_sums(h.to(acc) @ pred_w.to(acc), pool_gl, nw, window, gmax)
+
+
 def gin_local_model_slots_ref(
     slot_meta: torch.Tensor,  # [NW·Σc, 4] int (src − W/2 ‖ attrs+offsets)
     h0: torch.Tensor,  # [n, D] embedded input features
@@ -159,51 +251,69 @@ def gin_local_model_slots_ref(
     Products and sums run in f32 (f64 when h0 is f64) and the activations
     are rounded to h0's dtype where the kernel rounds them. The result is
     f32, or f64 for f64 inputs (the kernel has no f64 mode)."""
+    caps, offs, _ = _slot_prefix_geom(prefix_caps, window, slots)
+    lanes = _slot_lanes_of_meta(slot_meta, -(-h0.shape[0] // window), window,
+                                ee_tables.shape[0] // num_layers, caps, offs,
+                                _acc_dtype(h0.dtype))
+    return _gin_model_ref(lanes, h0, pool_gl, ee_tables, w1_all, b1_all, w2_all,
+                          b2_all, eps_all, pred_w, window, num_layers, gmax, vn_col)
+
+
+def gin_local_model_ref(
+    ell_meta: torch.Tensor,  # [NW·B, 5] int (u_local, v_local, attrs+offsets)
+    h0: torch.Tensor,  # [n, D] embedded input features
+    pool_gl: torch.Tensor,  # [NW·W] int graph-local ids (GMAX = padding)
+    ee_tables: torch.Tensor,  # [L·13, D] stacked bond-embedding tables
+    w1_all: torch.Tensor,  # [L·H, D]
+    b1_all: torch.Tensor,  # [L, H]
+    w2_all: torch.Tensor,  # [L·D, H]
+    b2_all: torch.Tensor,  # [L, D]
+    eps_all: torch.Tensor,  # [L, 1] (1+ε per layer)
+    pred_w: torch.Tensor,  # [D, T]
+    window: int,
+    num_layers: int,
+    gmax: int,
+    vn_col: Optional[torch.Tensor] = None,  # [n] analytic-VN flag (GIN-VN)
+) -> torch.Tensor:
+    """Plain-torch ``gin_local_model`` (the k=1 ELL layout, B lanes per
+    window): [NW·GMAX, T] pool sums. Numerics as in
+    ``gin_local_model_slots_ref``; messages are summed per destination row
+    in lane order."""
+    lanes = _ell_lanes(ell_meta, -(-h0.shape[0] // window), window,
+                       ee_tables.shape[0] // num_layers, _acc_dtype(h0.dtype))
+    return _gin_model_ref(lanes, h0, pool_gl, ee_tables, w1_all, b1_all, w2_all,
+                          b2_all, eps_all, pred_w, window, num_layers, gmax, vn_col)
+
+
+def _gcn_model_ref(lanes, h0, dis, pool_gl, ee_tables, roots, alphas, betas,
+                   wn_all, bn_all, pred_w, window, num_layers, gmax) -> torch.Tensor:
+    """GCN after conv 0 over a layout's ``lanes`` (as in ``_gin_model_ref``)."""
+    gather, u_ok, attr_rows, accumulate = lanes
     cdt = h0.dtype
     acc = _acc_dtype(cdt)
     dev = h0.device
     n, d = h0.shape
     nw = -(-n // window)
-    caps, offs, sw = _slot_prefix_geom(prefix_caps, window, slots)
     vocab = ee_tables.shape[0] // num_layers
-    hid = w1_all.shape[0] // num_layers
 
     h = _padded(h0, nw * window)
-    gather, valid, attr_rows = _meta_lanes(slot_meta, nw, sw, window, vocab)
-    valid = valid.to(acc)
-    pool_idx = _pool_index(pool_gl, nw, window, gmax)
-    vnc = None
-    if vn_col is not None:
-        vnc = _padded(vn_col.to(acc)[:, None], nw * window)
-
+    dis_v = _padded(dis.to(acc)[:, None], nw * window)
+    dis_u = dis_v[gather] * u_ok  # layer-invariant source norm
+    zero_row = torch.zeros(1, d, dtype=acc, device=dev)
     for l in range(num_layers):
-        tab = torch.cat([
-            ee_tables[l * vocab : (l + 1) * vocab].to(acc),
-            torch.zeros(1, d, dtype=acc, device=dev),
-        ])
+        tab = torch.cat([ee_tables[l * vocab : (l + 1) * vocab].to(acc), zero_row])
         hf = h.to(acc)
         ee = tab[attr_rows[:, 0]] + tab[attr_rows[:, 1]] + tab[attr_rows[:, 2]]
-        msg = _relu(hf[gather] + ee).to(cdt).to(acc) * valid
-        agg = _accumulate(msg, caps, offs, nw, window)
-        if vnc is not None:
-            e0 = tab[0] + tab[5] + tab[11]  # the (0, 0, 0)-attr bond embedding
-            r = _relu(hf + e0).to(cdt).to(acc)
-            rcat = torch.cat([r * (1 - vnc), r * vnc], dim=1)
-            pooled = torch.zeros(nw * (gmax + 1), 2 * d, dtype=acc, device=dev)
-            pooled.index_add_(0, pool_idx, rcat)
-            pooled[gmax :: gmax + 1] = 0  # padding rows pool nothing
-            back = pooled[pool_idx]
-            agg = agg + back[:, d:] * (1 - vnc) + back[:, :d] * vnc
-        act = (agg + eps_all[l, 0].to(acc) * hf).to(cdt)
-        w1 = w1_all[l * hid : (l + 1) * hid].to(acc)
-        w2 = w2_all[l * d : (l + 1) * d].to(acc)
-        z = _relu(act.to(acc) @ w1.T + b1_all[l].to(acc)).to(cdt)
-        out = z.to(acc) @ w2.T + b2_all[l].to(acc)
-        if l != num_layers - 1:
-            out = _relu(out)
-        h = out.to(cdt)
+        msg = (dis_u * _relu(hf[gather] + ee)).to(cdt).to(acc)
+        a = accumulate(msg) * dis_v + _relu(hf + roots[l].to(acc)) * (dis_v * dis_v)
+        x = alphas[l].to(acc) * a + betas[l].to(acc)
+        if l == num_layers - 1:
+            break
+        wn = wn_all[l * d : (l + 1) * d].to(acc)
+        h = (_relu(x).to(cdt).to(acc) @ wn + bn_all[l].to(acc)).to(cdt)
 
-    return _pool_sums(h.to(acc) @ pred_w.to(acc), pool_gl, nw, window, gmax)
+    p = x.to(cdt).to(acc) @ pred_w.to(acc)
+    return _pool_sums(p, pool_gl, nw, window, gmax)
 
 
 def gcn_local_model_slots_ref(
@@ -232,34 +342,37 @@ def gcn_local_model_slots_ref(
     + bn_l); the head pools rnd(x)·pred_w of the last layer (no relu).
     ``rnd`` rounds to h0's dtype; products and sums run in f32 (f64 for f64
     inputs)."""
-    cdt = h0.dtype
-    acc = _acc_dtype(cdt)
-    dev = h0.device
-    n, d = h0.shape
-    nw = -(-n // window)
-    caps, offs, sw = _slot_prefix_geom(prefix_caps, window, slots)
-    vocab = ee_tables.shape[0] // num_layers
+    caps, offs, _ = _slot_prefix_geom(prefix_caps, window, slots)
+    lanes = _slot_lanes_of_meta(slot_meta, -(-h0.shape[0] // window), window,
+                                ee_tables.shape[0] // num_layers, caps, offs,
+                                _acc_dtype(h0.dtype))
+    return _gcn_model_ref(lanes, h0, dis, pool_gl, ee_tables, roots, alphas, betas,
+                          wn_all, bn_all, pred_w, window, num_layers, gmax)
 
-    h = _padded(h0, nw * window)
-    dis_v = _padded(dis.to(acc)[:, None], nw * window)
-    gather, valid, attr_rows = _meta_lanes(slot_meta, nw, sw, window, vocab)
-    dis_u = dis_v[gather] * valid.to(acc)  # layer-invariant source norm
-    zero_row = torch.zeros(1, d, dtype=acc, device=dev)
-    for l in range(num_layers):
-        tab = torch.cat([ee_tables[l * vocab : (l + 1) * vocab].to(acc), zero_row])
-        hf = h.to(acc)
-        ee = tab[attr_rows[:, 0]] + tab[attr_rows[:, 1]] + tab[attr_rows[:, 2]]
-        msg = (dis_u * _relu(hf[gather] + ee)).to(cdt).to(acc)
-        a = (_accumulate(msg, caps, offs, nw, window) * dis_v
-             + _relu(hf + roots[l].to(acc)) * (dis_v * dis_v))
-        x = alphas[l].to(acc) * a + betas[l].to(acc)
-        if l == num_layers - 1:
-            break
-        wn = wn_all[l * d : (l + 1) * d].to(acc)
-        h = (_relu(x).to(cdt).to(acc) @ wn + bn_all[l].to(acc)).to(cdt)
 
-    p = x.to(cdt).to(acc) @ pred_w.to(acc)
-    return _pool_sums(p, pool_gl, nw, window, gmax)
+def gcn_local_model_ref(
+    ell_meta: torch.Tensor,  # [NW·B, 5] int (u_local, v_local, attrs+offsets)
+    h0: torch.Tensor,  # [n, D] conv-0 output
+    dis: torch.Tensor,  # [n] 1/sqrt(out_deg + 1), in h0's dtype
+    pool_gl: torch.Tensor,  # [NW·W] int graph-local ids (GMAX = padding)
+    ee_tables: torch.Tensor,  # [L·13, D] stacked bond-embedding tables
+    roots: torch.Tensor,  # [L, D] root embeddings
+    alphas: torch.Tensor,  # [L, D] folded-BN scale
+    betas: torch.Tensor,  # [L, D] folded-BN shift
+    wn_all: torch.Tensor,  # [(L-1)·D, D] next conv weights, [in, out] blocks
+    bn_all: torch.Tensor,  # [L-1, D] next conv biases
+    pred_w: torch.Tensor,  # [D, T]
+    window: int,
+    num_layers: int,
+    gmax: int,
+) -> torch.Tensor:
+    """Plain-torch ``gcn_local_model`` (the k=1 ELL layout): [NW·GMAX, T]
+    pool sums. Numerics as in ``gcn_local_model_slots_ref``, with dis_u
+    gathered once; messages are summed per destination row in lane order."""
+    lanes = _ell_lanes(ell_meta, -(-h0.shape[0] // window), window,
+                       ee_tables.shape[0] // num_layers, _acc_dtype(h0.dtype))
+    return _gcn_model_ref(lanes, h0, dis, pool_gl, ee_tables, roots, alphas, betas,
+                          wn_all, bn_all, pred_w, window, num_layers, gmax)
 
 
 def pna_local_model_ref(
@@ -450,36 +563,46 @@ _INT_P = ctypes.POINTER(ctypes.c_int)
 def _library(name: str) -> dict:
     """The C functions of ``csrc/<name>.cu``'s built library, signatures
     declared, by suffix: every library exports ``<prefix>_max_d``,
-    ``_max_slots``, ``_smem_optin``, ``_smem_bytes``, ``_launch`` and
-    ``_error_string``."""
-    prefix, smem_args, launch_args = {
+    ``_smem_optin``, ``_smem_bytes``, ``_launch`` and ``_error_string``; a
+    slot library ``_max_slots``, an ELL library ``_rows_per_block`` and
+    ``_max_cluster``."""
+    slot_getters, ell_getters = ("max_slots",), ("rows_per_block", "max_cluster")
+    prefix, getters, smem_args, launch_args = {
         "gin_local_model_slots": (
-            "gin_slots", [_I32] * 5 + [_INT_P, _I32],
+            "gin_slots", slot_getters, [_I32] * 5 + [_INT_P, _I32],
             [_I32] + [_PTR] * 12 + [_I32] * 10 + [_INT_P, _I32, _I32, _PTR],
         ),
         "gcn_local_model_slots": (
-            "gcn_slots", [_I32] * 5 + [_INT_P, _I32],
+            "gcn_slots", slot_getters, [_I32] * 5 + [_INT_P, _I32],
             [_I32] + [_PTR] * 12 + [_I32] * 9 + [_INT_P, _I32, _I32, _PTR],
         ),
         "pna_local_model": (
-            "pna_model", [_I32] * 5,
+            "pna_model", slot_getters, [_I32] * 5,
             [_I32] + [_PTR] * 10 + [_I32] * 7 + [_F32, _F32, _INT_P, _I32, _I32, _PTR],
         ),
         "dgn_local_model": (
-            "dgn_model", [_I32] * 5,
+            "dgn_model", slot_getters, [_I32] * 5,
             [_I32] + [_PTR] * 11 + [_I32] * 7 + [_INT_P, _I32, _I32, _PTR],
         ),
         "gat_local_model_slots": (
-            "gat_slots", [_I32] * 6,
+            "gat_slots", slot_getters, [_I32] * 6,
             [_I32] + [_PTR] * 9 + [_I32] * 8 + [_INT_P, _I32, _I32, _PTR],
+        ),
+        "gin_local_model": (
+            "gin_ell", ell_getters, [_I32] * 4,
+            [_I32] + [_PTR] * 12 + [_I32] * 10 + [_I32, _PTR],
+        ),
+        "gcn_local_model": (
+            "gcn_ell", ell_getters, [_I32] * 4,
+            [_I32] + [_PTR] * 12 + [_I32] * 9 + [_I32, _PTR],
         ),
     }[name]
     lib = load_library(name)
     fns = {}
     for suffix, args, res in (
-        ("max_d", [], _I32), ("max_slots", [], _I32), ("smem_optin", [_I32], _I64),
-        ("smem_bytes", smem_args, _I64), ("launch", launch_args, _I32),
-        ("error_string", [_I32], ctypes.c_char_p),
+        ("max_d", [], _I32), *((g, [], _I32) for g in getters),
+        ("smem_optin", [_I32], _I64), ("smem_bytes", smem_args, _I64),
+        ("launch", launch_args, _I32), ("error_string", [_I32], ctypes.c_char_p),
     ):
         f = getattr(lib, f"{prefix}_{suffix}")
         f.argtypes, f.restype = args, res
@@ -499,14 +622,30 @@ def _check(name: str, t: torch.Tensor, dtype, shape, device) -> None:
 
 
 def _check_geometry(lib, d: int, slots: int, caps, window: int, smem: int, dev) -> None:
-    """Raise before launch on what the kernel's tile or the card's shared
-    memory cannot take."""
+    """Raise before launch on what a slot kernel's tile or the card's
+    shared memory cannot take."""
     if any(c > window for c in caps):
         raise ValueError(f"prefix caps {caps} exceed the window {window}")
-    if d > lib["max_d"]():
-        raise ValueError(f"D={d} exceeds the kernel's tile ({lib['max_d']()})")
     if not 1 <= slots <= lib["max_slots"]():
         raise ValueError(f"slots={slots} outside 1..{lib['max_slots']()}")
+    _check_smem(lib, d, window, smem, dev)
+
+
+def _check_ell_geometry(lib, d: int, window: int, smem: int, dev) -> None:
+    """Raise before launch on a window an ELL kernel's cluster cannot span
+    (whole blocks of ``rows_per_block`` rows, at most ``max_cluster`` of
+    them) or what its tile or the card's shared memory cannot take."""
+    rows, most = lib["rows_per_block"](), lib["max_cluster"]()
+    if window % rows or not 1 <= window // rows <= most:
+        raise ValueError(
+            f"window {window} is not 1..{most} whole blocks of {rows} rows"
+        )
+    _check_smem(lib, d, window, smem, dev)
+
+
+def _check_smem(lib, d: int, window: int, smem: int, dev) -> None:
+    if d > lib["max_d"]():
+        raise ValueError(f"D={d} exceeds the kernel's tile ({lib['max_d']()})")
     limit = lib["smem_optin"](dev.index)
     if limit < 0:
         raise RuntimeError(lib["error_string"](int(-limit)).decode())
@@ -537,22 +676,17 @@ def _dispatch(h0: torch.Tensor, ref, launch, args):
     return launch(*args)
 
 
-def _launch_gin(slot_meta, h0, pool_gl, ee_tables, w1_all, b1_all, w2_all, b2_all,
-                eps_all, pred_w, window, slots, num_layers, gmax, prefix_caps,
-                vn_col) -> torch.Tensor:
-    dt = h0.dtype
-    code = _dtype_code(dt)
-    dev = h0.device
+def _check_gin(h0, pool_gl, ee_tables, w1_all, b1_all, w2_all, b2_all, eps_all,
+               pred_w, vn_col, window, num_layers) -> tuple[int, int, int]:
+    """Check the GIN kernels' common operands; returns (vocab, H, T)."""
+    dt, dev = h0.dtype, h0.device
     n, d = h0.shape
-    nw = -(-n // window)
-    caps, _, sw = _slot_prefix_geom(prefix_caps, window, slots)
     L = num_layers
     vocab = ee_tables.shape[0] // L
     hid = w1_all.shape[0] // L
     t_out = pred_w.shape[1]
-    _check("slot_meta", slot_meta, torch.int32, (nw * sw, 4), dev)
     _check("h0", h0, dt, (n, d), dev)
-    _check("pool_gl", pool_gl, torch.int32, (nw * window,), dev)
+    _check("pool_gl", pool_gl, torch.int32, (-(-n // window) * window,), dev)
     _check("ee_tables", ee_tables, dt, (L * vocab, d), dev)
     _check("w1_all", w1_all, dt, (L * hid, d), dev)
     _check("b1_all", b1_all, dt, (L, hid), dev)
@@ -564,6 +698,21 @@ def _launch_gin(slot_meta, h0, pool_gl, ee_tables, w1_all, b1_all, w2_all, b2_al
         _check("vn_col", vn_col, dt, (n,), dev)
         if vocab != 13:
             raise ValueError("the analytic VN stage needs the 13-row bond vocabulary")
+    return vocab, hid, t_out
+
+
+def _launch_gin(slot_meta, h0, pool_gl, ee_tables, w1_all, b1_all, w2_all, b2_all,
+                eps_all, pred_w, window, slots, num_layers, gmax, prefix_caps,
+                vn_col) -> torch.Tensor:
+    code = _dtype_code(h0.dtype)
+    dev = h0.device
+    n, d = h0.shape
+    nw = -(-n // window)
+    caps, _, sw = _slot_prefix_geom(prefix_caps, window, slots)
+    L = num_layers
+    vocab, hid, t_out = _check_gin(h0, pool_gl, ee_tables, w1_all, b1_all, w2_all,
+                                   b2_all, eps_all, pred_w, vn_col, window, L)
+    _check("slot_meta", slot_meta, torch.int32, (nw * sw, 4), dev)
 
     lib = _library("gin_local_model_slots")
     caps_arr = (ctypes.c_int * len(caps))(*caps)
@@ -619,28 +768,38 @@ def gin_local_model_slots(
 gin_local_model_slots.launches = 0
 
 
-def _launch_gcn(slot_meta, h0, dis, pool_gl, ee_tables, roots, alphas, betas,
-                wn_all, bn_all, pred_w, window, slots, num_layers, gmax,
-                prefix_caps) -> torch.Tensor:
-    dt = h0.dtype
-    code = _dtype_code(dt)
-    dev = h0.device
+def _check_gcn(h0, dis, pool_gl, ee_tables, roots, alphas, betas, wn_all, bn_all,
+               pred_w, window, num_layers) -> tuple[int, int]:
+    """Check the GCN kernels' common operands; returns (vocab, T)."""
+    dt, dev = h0.dtype, h0.device
     n, d = h0.shape
-    nw = -(-n // window)
-    caps, _, sw = _slot_prefix_geom(prefix_caps, window, slots)
     L = num_layers
     vocab = ee_tables.shape[0] // L
     t_out = pred_w.shape[1]
-    _check("slot_meta", slot_meta, torch.int32, (nw * sw, 4), dev)
     _check("h0", h0, dt, (n, d), dev)
     _check("dis", dis, dt, (n,), dev)
-    _check("pool_gl", pool_gl, torch.int32, (nw * window,), dev)
+    _check("pool_gl", pool_gl, torch.int32, (-(-n // window) * window,), dev)
     _check("ee_tables", ee_tables, dt, (L * vocab, d), dev)
     for name, x in (("roots", roots), ("alphas", alphas), ("betas", betas)):
         _check(name, x, dt, (L, d), dev)
     _check("wn_all", wn_all, dt, ((L - 1) * d, d), dev)
     _check("bn_all", bn_all, dt, (L - 1, d), dev)
     _check("pred_w", pred_w, dt, (d, t_out), dev)
+    return vocab, t_out
+
+
+def _launch_gcn(slot_meta, h0, dis, pool_gl, ee_tables, roots, alphas, betas,
+                wn_all, bn_all, pred_w, window, slots, num_layers, gmax,
+                prefix_caps) -> torch.Tensor:
+    code = _dtype_code(h0.dtype)
+    dev = h0.device
+    n, d = h0.shape
+    nw = -(-n // window)
+    caps, _, sw = _slot_prefix_geom(prefix_caps, window, slots)
+    L = num_layers
+    vocab, t_out = _check_gcn(h0, dis, pool_gl, ee_tables, roots, alphas, betas,
+                              wn_all, bn_all, pred_w, window, L)
+    _check("slot_meta", slot_meta, torch.int32, (nw * sw, 4), dev)
 
     lib = _library("gcn_local_model_slots")
     caps_arr = (ctypes.c_int * len(caps))(*caps)
@@ -691,6 +850,134 @@ def gcn_local_model_slots(
 
 
 gcn_local_model_slots.launches = 0
+
+
+def _ell_block(ell_meta: torch.Tensor, nw: int, dev) -> int:
+    """Checks ``ell_meta``; returns its lanes per window (k=1: one block)."""
+    lanes = ell_meta.shape[0]
+    if lanes % nw:
+        raise ValueError(f"ell_meta: {lanes} lanes are not {nw} equal window blocks")
+    _check("ell_meta", ell_meta, torch.int32, (lanes, 5), dev)
+    return lanes // nw
+
+
+def _launch_gin_ell(ell_meta, h0, pool_gl, ee_tables, w1_all, b1_all, w2_all, b2_all,
+                    eps_all, pred_w, window, num_layers, gmax, vn_col) -> torch.Tensor:
+    code = _dtype_code(h0.dtype)
+    dev = h0.device
+    n, d = h0.shape
+    nw = -(-n // window)
+    L = num_layers
+    vocab, hid, t_out = _check_gin(h0, pool_gl, ee_tables, w1_all, b1_all, w2_all,
+                                   b2_all, eps_all, pred_w, vn_col, window, L)
+    block = _ell_block(ell_meta, nw, dev)
+
+    lib = _library("gin_local_model")
+    _check_ell_geometry(lib, d, window, lib["smem_bytes"](d, vocab, gmax, t_out), dev)
+    out = torch.empty((nw * gmax, t_out), dtype=torch.float32, device=dev)
+    rc = lib["launch"](
+        code,
+        ell_meta.data_ptr(), h0.data_ptr(), pool_gl.data_ptr(),
+        ee_tables.data_ptr(), w1_all.data_ptr(), b1_all.data_ptr(),
+        w2_all.data_ptr(), b2_all.data_ptr(), eps_all.data_ptr(),
+        pred_w.data_ptr(), None if vn_col is None else vn_col.data_ptr(),
+        out.data_ptr(),
+        nw, n, window, block, d, hid, L, vocab, gmax, t_out,
+        dev.index, torch.cuda.current_stream(dev).cuda_stream,
+    )
+    _raise_on(lib, rc, "gin_local_model")
+    gin_local_model.launches += 1
+    return out
+
+
+def gin_local_model(
+    ell_meta: torch.Tensor,
+    h0: torch.Tensor,
+    pool_gl: torch.Tensor,
+    ee_tables: torch.Tensor,
+    w1_all: torch.Tensor,
+    b1_all: torch.Tensor,
+    w2_all: torch.Tensor,
+    b2_all: torch.Tensor,
+    eps_all: torch.Tensor,
+    pred_w: torch.Tensor,
+    window: int,
+    num_layers: int,
+    gmax: int,
+    vn_col: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """GIN / GIN-VN whole-model ELL kernel: [NW·GMAX, T] f32 per-window
+    pool sums over the k=1 ELL layout, at windows of 128 up to 1024 rows.
+
+    Operands as in ``gin_local_model_ref``. A CPU tensor runs the plain
+    version; a CUDA tensor launches the kernel (float32 or bfloat16
+    activations and weights, int32 ``ell_meta`` / ``pool_gl``, float32
+    ``eps_all``) or raises. Each launch adds one to
+    ``gin_local_model.launches``."""
+    args = (ell_meta, h0, pool_gl, ee_tables, w1_all, b1_all, w2_all, b2_all,
+            eps_all, pred_w, window, num_layers, gmax, vn_col)
+    return _dispatch(h0, gin_local_model_ref, _launch_gin_ell, args)
+
+
+gin_local_model.launches = 0
+
+
+def _launch_gcn_ell(ell_meta, h0, dis, pool_gl, ee_tables, roots, alphas, betas,
+                    wn_all, bn_all, pred_w, window, num_layers, gmax) -> torch.Tensor:
+    code = _dtype_code(h0.dtype)
+    dev = h0.device
+    n, d = h0.shape
+    nw = -(-n // window)
+    L = num_layers
+    vocab, t_out = _check_gcn(h0, dis, pool_gl, ee_tables, roots, alphas, betas,
+                              wn_all, bn_all, pred_w, window, L)
+    block = _ell_block(ell_meta, nw, dev)
+
+    lib = _library("gcn_local_model")
+    _check_ell_geometry(lib, d, window, lib["smem_bytes"](d, vocab, gmax, t_out), dev)
+    out = torch.empty((nw * gmax, t_out), dtype=torch.float32, device=dev)
+    rc = lib["launch"](
+        code,
+        ell_meta.data_ptr(), h0.data_ptr(), dis.data_ptr(), pool_gl.data_ptr(),
+        ee_tables.data_ptr(), roots.data_ptr(), alphas.data_ptr(),
+        betas.data_ptr(), wn_all.data_ptr(), bn_all.data_ptr(),
+        pred_w.data_ptr(), out.data_ptr(),
+        nw, n, window, block, d, L, vocab, gmax, t_out,
+        dev.index, torch.cuda.current_stream(dev).cuda_stream,
+    )
+    _raise_on(lib, rc, "gcn_local_model")
+    gcn_local_model.launches += 1
+    return out
+
+
+def gcn_local_model(
+    ell_meta: torch.Tensor,
+    h0: torch.Tensor,
+    dis: torch.Tensor,
+    pool_gl: torch.Tensor,
+    ee_tables: torch.Tensor,
+    roots: torch.Tensor,
+    alphas: torch.Tensor,
+    betas: torch.Tensor,
+    wn_all: torch.Tensor,
+    bn_all: torch.Tensor,
+    pred_w: torch.Tensor,
+    window: int,
+    num_layers: int,
+    gmax: int,
+) -> torch.Tensor:
+    """GCN whole-model ELL kernel (after conv 0): [NW·GMAX, T] f32
+    per-window pool sums over the k=1 ELL layout, at windows of 128 up to
+    1024 rows. Operands as in ``gcn_local_model_ref``; a CPU tensor runs the
+    plain version, a CUDA tensor launches the kernel (float32 or bfloat16
+    activations, norms and weights, int32 ``ell_meta`` / ``pool_gl``) or
+    raises. Each launch adds one to ``gcn_local_model.launches``."""
+    args = (ell_meta, h0, dis, pool_gl, ee_tables, roots, alphas, betas,
+            wn_all, bn_all, pred_w, window, num_layers, gmax)
+    return _dispatch(h0, gcn_local_model_ref, _launch_gcn_ell, args)
+
+
+gcn_local_model.launches = 0
 
 
 def _launch_pna(slot_src, h0, inv_deg, t, scale, w_all, b_all, pool_gl, mlp1_w,

@@ -11,7 +11,7 @@ import pytest
 import torch
 
 from flowgnn_tpu_torch.core.graphs import pack_graphs_aligned
-from flowgnn_tpu_torch.core.synthetic import synthetic_molhiv
+from flowgnn_tpu_torch.core.synthetic import random_molecule_graph, synthetic_molhiv
 from flowgnn_tpu_torch.models import base, registry
 from flowgnn_tpu_torch.ops import local_layer
 
@@ -174,6 +174,52 @@ def _gat_overflow_operands(hot: bool) -> dict:
     )
 
 
+# The largest graph of each ELL test bucket, one per window the port's
+# geometry picks for it: 128, 256, 384 and 512 rows, i.e. clusters of 1-4
+# blocks of 128 rows; the 400-node graph's rows span four blocks.
+ELL_BIG = (120, 250, 380, 400)
+
+
+def _ell_batch(name: str, big: int, seed: int) -> dict:
+    """ELL layout (numpy) of 6 synthetic graphs and one of ``big`` nodes for
+    model ``name``, at the window and block ``choose_geometry`` gives."""
+    spec = registry.get(name)
+    rng = np.random.default_rng(seed)
+    graphs = registry.apply_transforms(
+        spec, synthetic_molhiv(6, seed=seed) + [random_molecule_graph(rng, num_nodes=big)])
+    window, block = base.choose_geometry(name, max(g.num_nodes for g in graphs))
+    packed = pack_graphs_aligned(graphs, window=window, node_capacity=4 * window - 1,
+                                 edge_capacity=4096, graph_capacity=16)
+    return base.as_batch(packed, blocked="local_ell", window=window, block=block)
+
+
+def _ell_operands(name: str, big: int, seed: int = 16) -> dict:
+    """Operands of the GIN / GIN-VN (``gin_local_model``) or GCN
+    (``gcn_local_model``) ELL kernel: the ELL layout of ``_ell_batch``, the
+    layout's own degree norms for GCN, seeded random h0 and weights, as
+    numpy arrays."""
+    batch = _ell_batch(name, big, seed)
+    rng = np.random.default_rng(seed)
+    f32 = lambda *s: rng.normal(0, 0.2, s).astype(np.float32)
+    n = batch["node_feat"].shape[0]
+    common = dict(
+        ell_meta=base.ell_meta(base.to_device(batch, "cpu")).numpy(), h0=f32(n, D),
+        pool_gl=batch["pool_gl"], ee_tables=f32(L * 13, D), pred_w=f32(D, 1),
+        window=base.ell_geometry(batch)[0], num_layers=L, gmax=base.POOL_GMAX,
+    )
+    if name == "gcn":
+        return dict(
+            common, dis=(1 / np.sqrt(batch["out_deg"] + 1.0)).astype(np.float32),
+            roots=f32(L, D), alphas=(1 + f32(L, D)).astype(np.float32), betas=f32(L, D),
+            wn_all=f32((L - 1) * D, D), bn_all=f32(L - 1, D),
+        )
+    return dict(
+        common, w1_all=f32(L * H, D), b1_all=f32(L, H), w2_all=f32(L * D, H),
+        b2_all=f32(L, D), eps_all=(1 + f32(L, 1)).astype(np.float32),
+        vn_col=batch["vn_mask"].astype(np.float32) if name == "gin-vn" else None,
+    )
+
+
 def _port(ops: dict, device, dtype=torch.float32) -> dict:
     out = {}
     for k, v in ops.items():
@@ -323,3 +369,27 @@ def test_gat_cuda_kernel_overflowing_non_edge_stays_finite(cuda_device):
     torch.cuda.synchronize()
     assert bool(hot.isfinite().all())
     torch.testing.assert_close(hot, cold, rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["gin", "gin-vn", "gcn"])
+@pytest.mark.parametrize("big", ELL_BIG, ids=[f"W{w}" for w in (128, 256, 384, 512)])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 5e-2)],
+                         ids=["f32", "bf16"])
+def test_ell_cuda_kernels_match_plain(name, big, dtype, tol, cuda_device):
+    """Each ELL kernel against its plain version at every window the
+    geometry gives graphs of up to 400 nodes, the largest graph's rows
+    spanning all the blocks of its window's cluster. f32: summation order
+    only (the cross-block pools among it); bf16: a rounding flip at one
+    stage propagates through later layers."""
+    kernel = "gcn_local_model" if name == "gcn" else "gin_local_model"
+    ops = _port(_ell_operands(name, big), cuda_device, dtype)
+    fn = getattr(local_layer, kernel)
+    before = fn.launches
+    got = fn(**ops)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 1
+    expect = getattr(local_layer, f"{kernel}_ref")(**ops)
+    assert expect.abs().max() > 1e-2  # the pool is not trivially zero
+    scale = max(1.0, expect.abs().max().item())
+    torch.testing.assert_close(got / scale, expect.float() / scale, rtol=tol, atol=tol)

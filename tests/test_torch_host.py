@@ -104,11 +104,14 @@ def test_packing_and_slot_layouts_equal(name):
 
 def test_spill_and_unported_layouts_raise():
     """A graph larger than the window spills edges: the port refuses the
-    slot layout instead of dropping them (spill tail: ROADMAP)."""
+    slot and ELL layouts instead of dropping them (spill tail: ROADMAP),
+    and the legacy dynamic-window layout is not ported."""
     g = ts.random_molecule_graph(np.random.default_rng(0), num_nodes=150)
     packed = tg.pack_graphs_aligned([g], window=128, node_capacity=255,
                                     edge_capacity=1024, graph_capacity=2)
     with pytest.raises(NotImplementedError, match="spill"):
         tb.as_batch(packed, blocked="local_slots", window=128)
+    with pytest.raises(NotImplementedError, match="spill"):
+        tb.as_batch(packed, blocked="local_ell", window=128, block=384)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tb.as_batch(packed, blocked="local_ell", window=128)
+        tb.as_batch(packed, blocked="local")

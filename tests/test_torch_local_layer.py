@@ -14,8 +14,8 @@ from flowgnn_tpu_torch.models import base, dgn, gat, gcn, gin, pna
 from flowgnn_tpu_torch.ops import local_layer
 from flowgnn_tpu_torch.params import loaders
 from test_torch_cuda import (
-    _dgn_operands, _gat_operands, _gat_overflow_operands, _gcn_operands, _operands,
-    _pna_operands, _port, _slot_batch,
+    _dgn_operands, _ell_batch, _gat_operands, _gat_overflow_operands, _gcn_operands,
+    _operands, _pna_operands, _port, _slot_batch,
 )
 
 
@@ -83,26 +83,38 @@ def test_gat_overflowing_non_edge_stays_finite():
     np.testing.assert_allclose(hot.numpy(), cold.numpy(), rtol=1e-6, atol=1e-6)
 
 
-@pytest.mark.parametrize("name,model,params", [
-    ("gin-vn", gin, lambda: loaders.synthetic_gin_params(0, dim=16, hidden=32, layers=2)),
-    ("gcn", gcn, lambda: loaders.synthetic_gcn_params(0, dim=16, layers=2)),
-    ("pna", pna, lambda: loaders.synthetic_pna_params(0, dim=16, layers=2)),
-    ("dgn", dgn, lambda: loaders.synthetic_dgn_params(0, dim=16, layers=2)),
-    ("gat", gat, lambda: loaders.synthetic_gat_params(0, dim=16, heads=2, layers=2)),
-], ids=["gin-vn", "gcn", "pna", "dgn", "gat"])
+_GIN_SMALL = lambda: loaders.synthetic_gin_params(0, dim=16, hidden=32, layers=2)
+_GCN_SMALL = lambda: loaders.synthetic_gcn_params(0, dim=16, layers=2)
+
+
+@pytest.mark.parametrize("name,model,params,layout", [
+    ("gin-vn", gin, _GIN_SMALL, "slot"),
+    ("gcn", gcn, _GCN_SMALL, "slot"),
+    ("pna", pna, lambda: loaders.synthetic_pna_params(0, dim=16, layers=2), "slot"),
+    ("dgn", dgn, lambda: loaders.synthetic_dgn_params(0, dim=16, layers=2), "slot"),
+    ("gat", gat, lambda: loaders.synthetic_gat_params(0, dim=16, heads=2, layers=2), "slot"),
+    ("gin", gin, _GIN_SMALL, "ell"),
+    ("gin-vn", gin, _GIN_SMALL, "ell"),
+    ("gcn", gcn, _GCN_SMALL, "ell"),
+], ids=["gin-vn", "gcn", "pna", "dgn", "gat", "gin-ell", "gin-vn-ell", "gcn-ell"])
 @pytest.mark.parametrize("prec", [FLOAT32, BF16], ids=["f32", "bf16"])
-def test_model_operands_meet_the_kernel_contract(name, model, params, prec):
-    """What a model's slot branch hands its kernel is what the CUDA wrapper
-    accepts (it checks before launch, on the card only): every tensor
-    contiguous, int32 indices, activations and weights in the compute
-    dtype (GIN's eps_all in float32)."""
-    batch = base.to_device(_slot_batch(name, 11), "cpu")
-    ops = model.slot_kernel_operands(loaders.params_from_numpy(params(), prec, "cpu"), batch, prec)
+def test_model_operands_meet_the_kernel_contract(name, model, params, layout, prec):
+    """What a model's slot or ELL branch hands its kernel is what the CUDA
+    wrapper accepts (it checks before launch, on the card only): every
+    tensor contiguous, int32 indices, activations and weights in the
+    compute dtype (GIN's eps_all in float32). The ELL batch's largest graph
+    has 400 nodes (W=512)."""
+    params = loaders.params_from_numpy(params(), prec, "cpu")
+    if layout == "slot":
+        ops = model.slot_kernel_operands(params, base.to_device(_slot_batch(name, 11), "cpu"), prec)
+    else:
+        ops = model.ell_kernel_operands(params, base.to_device(_ell_batch(name, 400, 11), "cpu"), prec)
+        assert ops["window"] == 512
     for k, v in ops.items():
         if not torch.is_tensor(v):
             continue
         assert v.is_contiguous(), k
-        if k in ("slot_meta", "slot_src", "slot_pstack", "pool_gl"):
+        if k in ("slot_meta", "slot_src", "slot_pstack", "ell_meta", "pool_gl"):
             assert v.dtype == torch.int32, k
         else:
             assert v.dtype == (torch.float32 if k == "eps_all" else prec.compute_dtype), k

@@ -1,6 +1,7 @@
 """The port runs without jax: in a fresh interpreter where ``import jax`` and
-``import ml_dtypes`` fail, every module of flowgnn_tpu_torch imports and
-all six models (GIN, GIN-VN, GCN, GAT, PNA, DGN) run on the CPU."""
+``import ml_dtypes`` fail, every module of flowgnn_tpu_torch imports, all
+six models (GIN, GIN-VN, GCN, GAT, PNA, DGN) run their slot branch on the
+CPU, and GIN, GIN-VN and GCN their ELL branch."""
 
 import os
 import subprocess
@@ -32,20 +33,26 @@ small = {
     "gat": lambda: loaders.synthetic_gat_params(0, dim=16, heads=2, layers=2),
     "dgn": lambda: loaders.synthetic_dgn_params(0, dim=16, layers=2),
 }
+runs = 0
 for name in ("gin", "gin-vn", "gcn", "gat", "pna", "dgn"):
     spec = registry.get(name)
     graphs = registry.apply_transforms(spec, synthetic_dataset("molhiv", seed=0, num_graphs=24))
-    w, _ = base.choose_geometry(name, max(g.num_nodes for g in graphs))
+    w, b = base.choose_geometry(name, max(g.num_nodes for g in graphs))
     buckets = list(pack_dataset(graphs, node_capacity=255, edge_capacity=1536,
                                 graph_capacity=16, with_eigen=spec.needs_eigen,
                                 align_window=w))
-    batches = base.as_batches_uniform(buckets, blocked="local_slots", window=w)
+    layouts = [base.as_batches_uniform(buckets, blocked="local_slots", window=w)]
+    if name in ("gin", "gin-vn", "gcn"):
+        layouts.append(base.as_batches_uniform(buckets, blocked="local_ell", window=w, block=b))
     params = loaders.params_from_numpy(small[name.split("-")[0]](), FLOAT32, "cpu")
-    for packed, batch in zip(buckets, batches):
-        out = spec.forward(params, base.to_device(batch, "cpu"), FLOAT32)
-        assert out.shape == (packed.n_node.shape[0], 1) and bool(out.isfinite().all())
-        plain = spec.forward(params, base.to_device(base.as_batch(packed), "cpu"), FLOAT32)
-        assert torch.allclose(out[: packed.num_graphs], plain[: packed.num_graphs], atol=1e-5)
+    for batches in layouts:
+        for packed, batch in zip(buckets, batches):
+            out = spec.forward(params, base.to_device(batch, "cpu"), FLOAT32)
+            assert out.shape == (packed.n_node.shape[0], 1) and bool(out.isfinite().all())
+            plain = spec.forward(params, base.to_device(base.as_batch(packed), "cpu"), FLOAT32)
+            assert torch.allclose(out[: packed.num_graphs], plain[: packed.num_graphs], atol=1e-5)
+    runs += len(layouts)
+assert runs == 9, runs
 print("ok", len(mods))
 """
 
