@@ -14,12 +14,14 @@ A batch is the dict-of-arrays view of ``core.graphs.PackedGraphs``:
 
 with one trailing pad node (index N) that every padded edge points at and one
 trailing pad graph that owns every pad node. ``blocked="local_slots"`` adds
-the degree-sorted dest-major slot layout of the slot megakernels, and
-``blocked="local_ell"`` the ELL layout of the whole-model ELL kernels. Their
-arrays hold the same values as ``flowgnn_tpu.models.base.as_batch`` builds,
-stored as int32 where the JAX package stores bfloat16; static geometry rides
-in the shapes of the marker arrays ``slot_pcap_k``, ``slot_geom`` and
-``loc_ell``.
+the degree-sorted dest-major slot layout of the slot kernels, with the
+blocked spill tail of the edges that leave it (``_attach_spill_blocks``),
+and ``blocked="local_ell"`` the ELL layout of the whole-model ELL kernels.
+Their arrays hold the same values as ``flowgnn_tpu.models.base.as_batch``
+builds, stored as int32 where the JAX package stores bfloat16 (the TPU's
+one-hot ``spill_gblk_onehot`` is left out); static geometry rides in the
+shapes of the marker arrays ``slot_pcap_k``, ``slot_geom``,
+``spill_blk_geom``, ``spill_blk_compact`` (the port's own) and ``loc_ell``.
 """
 
 from __future__ import annotations
@@ -35,6 +37,7 @@ from ..core.features import BOND_FEATURE_OFFSETS
 from ..core.graphs import PackedGraphs
 from ..core.numerics import Precision
 from ..ops.segment import segment_sum
+from ..ops.spmm import windowed_segment_sum
 
 # Window and ELL block per model. The slot megakernels read only the window;
 # the block is the ELL lanes per window. Both are the port's own: W=128 keeps
@@ -50,8 +53,10 @@ GEOMETRY_DEFAULTS: dict[str, tuple[int, int]] = {
     "pna": (128, 384),
     "dgn": (128, 384),
 }
-MAX_SLOTS = 8  # deepest slot axis; deeper in-degrees would spill
+MAX_SLOTS = 8  # deepest slot axis; deeper in-degrees spill
 POOL_GMAX = 64  # graph slots per window in the in-kernel pooling layout
+PALLAS_BLOCK = 128  # spill lanes per block of the spill tail's blocked layout
+SPILL_SCATTER_WINDOW = 512  # receiver window of the spill tail's scatter
 
 
 def choose_window(model: str, max_graph_nodes: int, default_w: int) -> int:
@@ -174,25 +179,104 @@ def _attach_degrees(batch: dict, n: int) -> None:
         batch["eig_abssum"] = a
 
 
+def _attach_spill_blocks(
+    batch: dict, sp_recv: np.ndarray, n: int, sp_send: Optional[np.ndarray] = None,
+):
+    """Pair-blocked layout of the spill tail (``flowgnn_tpu.models.base.
+    _attach_spill_blocks``). Real spill lanes are sorted by (receiver
+    window, sender window, lane) over windows of SPILL_SCATTER_WINDOW rows
+    and padded to PALLAS_BLOCK-lane blocks per pair, so one lane order serves
+    the scatter (``spill_segment_sum``: blocks of one receiver window are
+    consecutive, and only the T windows that receive spill lanes are
+    computed) and the gather (each block reads one sender window).
+
+    Attaches ``spill_blk_vlocal`` [NB·128] (each lane's receiver row in its
+    window, sentinel 512 on pad lanes), ``spill_blk_window`` [NB] (each
+    block's compact window 0..T−1, non-decreasing), ``spill_blk_winmap``
+    [⌈n/512⌉] (each window's compact index, sentinel T), the
+    ``spill_blk_geom`` marker whose shape carries the window, the
+    ``spill_blk_compact`` marker whose shape carries T (the port's own: the
+    JAX package reads T off ``spill_blk_window`` on the host, which on the
+    card would wait for the device), and, when ``sp_send`` is given and
+    every sender lies in a full window, ``spill_gblk_src`` [NB] (each
+    block's sender window). The JAX package's ``spill_gblk_onehot`` is left
+    out: it feeds the TPU's MXU a one-hot, and ``spill_gather`` here gathers
+    by index. Returns (perm, valid), the caller's re-ordering of the spill
+    lanes."""
+    w = SPILL_SCATTER_WINDOW
+    nw = -(-n // w)
+    sp_recv = np.asarray(sp_recv)
+    real = np.nonzero(sp_recv < n - 1)[0]
+    rw = sp_recv[real] // w
+    srcw = (
+        np.asarray(sp_send)[real] // w if sp_send is not None
+        else np.zeros(real.shape[0], np.int64)
+    )
+    order = np.lexsort((real, srcw, rw))
+    real, rw, srcw = real[order], rw[order], srcw[order]
+    blocks: list = []
+    i = 0
+    while i < real.shape[0]:
+        j = i
+        while j < real.shape[0] and rw[j] == rw[i] and srcw[j] == srcw[i]:
+            j += 1
+        seg = real[i:j]
+        for b in range(-(-seg.shape[0] // PALLAS_BLOCK)):
+            blocks.append(
+                (int(rw[i]), int(srcw[i]), seg[b * PALLAS_BLOCK : (b + 1) * PALLAS_BLOCK])
+            )
+        i = j
+    if not blocks:
+        blocks = [(0, 0, np.zeros(0, np.int64))]
+    nb = len(blocks)
+    perm = np.zeros(nb * PALLAS_BLOCK, np.int64)
+    valid = np.zeros(nb * PALLAS_BLOCK, bool)
+    for bi, (_, _, lanes) in enumerate(blocks):
+        perm[bi * PALLAS_BLOCK : bi * PALLAS_BLOCK + lanes.shape[0]] = lanes
+        valid[bi * PALLAS_BLOCK : bi * PALLAS_BLOCK + lanes.shape[0]] = True
+    vloc = np.full(nb * PALLAS_BLOCK, w, np.int32)
+    vloc[valid] = sp_recv[perm[valid]] % w
+    recw = np.array([b[0] for b in blocks], np.int64)
+    uniq, t_ids = np.unique(recw, return_inverse=True)
+    winmap = np.full(nw, uniq.shape[0], np.int32)  # sentinel = T
+    winmap[uniq] = np.arange(uniq.shape[0], dtype=np.int32)
+    batch["spill_blk_vlocal"] = vloc
+    batch["spill_blk_window"] = t_ids.astype(np.int32)
+    batch["spill_blk_winmap"] = winmap
+    batch["spill_blk_geom"] = np.zeros((w,), np.int8)  # window in the shape
+    batch["spill_blk_compact"] = np.zeros((uniq.shape[0],), np.int8)  # T in the shape
+    if sp_send is not None:
+        src_ids = np.array([b[1] for b in blocks], np.int32)
+        # The JAX gather slices h to its full windows: a sender in the
+        # partial trailing window leaves the gather-side layout out.
+        if int(src_ids.max(initial=0)) < n // w:
+            batch["spill_gblk_src"] = src_ids
+    return perm, valid
+
+
 def as_batch(
     packed: PackedGraphs, blocked=False, window: int | None = None,
     block: int | None = None, *, slots: int | None = None, prefix_caps=None,
+    spill_capacity: int | None = None,
 ) -> dict:
     """PackedGraphs → dict of numpy arrays.
 
     ``blocked=False`` gives the plain edge-list batch. ``blocked=
     "local_slots"`` (needs window-aligned packing) re-orders each window's
-    rows by local in-degree and attaches the dest-major slot layout:
-    ``slot_meta`` [NW·Σc, 4] holds, per prefix lane, (src − W/2, the three
-    bond attrs with their vocabulary offsets); empty lanes carry src = W − W/2
-    and attrs −1. ``slots`` / ``prefix_caps`` pin the slot depth and per-slot
-    caps so that every bucket of a stream shares one layout
-    (``as_batches_uniform``). ``blocked="local_ell"`` (window-aligned
+    rows by local in-degree and attaches the dest-major slot layout. Edges
+    that cross a window, or exceed a row's slot depth, go to the spill tail:
+    ``slot_spill`` holds their edge indices in the blocked order of
+    ``_attach_spill_blocks`` and ``slot_spill_mask`` marks the real lanes.
+    A bucket with no spill tail also gets the prefix layout of the
+    whole-model kernels: ``slot_meta`` [NW·Σc, 4] holds, per prefix lane,
+    (src − W/2, the three bond attrs with their vocabulary offsets); empty
+    lanes carry src = W − W/2 and attrs −1. ``slots`` / ``prefix_caps`` /
+    ``spill_capacity`` pin the slot depth, the per-slot caps and the spill
+    tail's lanes so that the buckets of a stream share one layout where they
+    can (``as_batches_uniform``). ``blocked="local_ell"`` (window-aligned
     packing too) keeps the node order and attaches the ELL layout of
     ``window`` rows and ``block`` lanes per edge block (see
-    ``_attach_ell_layout``). Buckets whose edges spill (window-crossing
-    edges, in-degree above the slot depth, or more local edges than a
-    window's ELL lanes) raise: the spill tail is not ported, nor are the
+    ``_attach_ell_layout``); an ELL bucket that spills raises, as do the
     legacy ``"local"`` and edge-block layouts (ROADMAP queue 2).
     """
     batch = {
@@ -247,20 +331,41 @@ def as_batch(
     ) if loc.any() else 1
     s_slots = slots or max(1, min(s_needed, MAX_SLOTS))
     slot_src, spill, count, slot_edge = build_local_slots(
-        senders, receivers, n, window=w, slots=s_slots,
+        senders, receivers, n, window=w, slots=s_slots, spill_capacity=spill_capacity,
     )
-    if count:
-        raise NotImplementedError(
-            f"{count} edges spill out of the slot layout; the spill tail is "
-            "not ported yet (ROADMAP queue 2 B)"
-        )
     batch["slot_src"] = slot_src  # [NW·W, S]
     nw = slot_src.shape[0] // w
     slot3 = slot_src.reshape(nw, w, s_slots)
     batch["slot_stack"] = np.ascontiguousarray(slot3.transpose(0, 2, 1)).reshape(-1)
-    # Prefix-compacted layout: slot k's real lanes are rows [0, c_k) of each
-    # window; the static caps are the max occupancy over windows, rounded
-    # up to 64 rows (the JAX package's floor, kept for equal layouts).
+    if count == 0:
+        _attach_prefix_layout(batch, slot3, slot_edge, w, prefix_caps)
+    batch["slot_spill"] = spill
+    batch["slot_spill_mask"] = np.arange(spill.shape[0]) < count
+    if count:
+        # The spill lanes in blocked order, masked lanes → edge 0, flagged
+        # off (the models route them at the pad node).
+        mask = batch["slot_spill_mask"]
+        perm, valid = _attach_spill_blocks(
+            batch, np.where(mask, receivers[spill], n - 1), n,
+            sp_send=np.where(mask, senders[spill], n - 1),
+        )
+        batch["slot_spill"] = np.where(valid, spill[perm], 0).astype(spill.dtype)
+        batch["slot_spill_mask"] = valid
+    # Shape carries (window, slots) to the model.
+    batch["slot_geom"] = np.zeros((w, s_slots), np.int32)
+    _attach_pool_layout(batch, packed, w, batch["node_graph"])
+    _attach_degrees(batch, n)
+    return batch
+
+
+def _attach_prefix_layout(batch: dict, slot3: np.ndarray, slot_edge: np.ndarray,
+                          w: int, prefix_caps) -> None:
+    """The prefix-compacted layout of a bucket with no spill tail: slot k's
+    real lanes are rows [0, c_k) of each window (``slot_pstack``, the
+    ``slot_pcap_k`` markers and ``slot_meta``). The static caps are the max
+    occupancy over windows, rounded up to 64 rows (the JAX package's floor,
+    kept for equal layouts)."""
+    nw, _, s_slots = slot3.shape
     occ = (slot3 < w).sum(axis=1)  # [NW, S]
     caps = np.minimum(-(-occ.max(axis=0) // 64) * 64, w)
     caps = np.maximum(caps, 64)
@@ -291,13 +396,6 @@ def as_batch(
     for k in range(s_slots):
         batch[f"slot_pcap_{k}"] = np.zeros((int(caps[k]), 1), np.int8)
     batch["slot_meta"] = meta.reshape(-1, 4)
-    batch["slot_spill"] = spill
-    batch["slot_spill_mask"] = np.zeros(0, bool)
-    # Shape carries (window, slots) to the model.
-    batch["slot_geom"] = np.zeros((w, s_slots), np.int32)
-    _attach_pool_layout(batch, packed, w, batch["node_graph"])
-    _attach_degrees(batch, n)
-    return batch
 
 
 def _attach_ell_layout(batch: dict, packed: PackedGraphs, window: int, block: int) -> None:
@@ -314,9 +412,9 @@ def _attach_ell_layout(batch: dict, packed: PackedGraphs, window: int, block: in
     lb = build_local_blocks_ell(packed.senders, packed.receivers, n, window=window, block=block)
     if lb.spill_count:
         raise NotImplementedError(
-            f"{lb.spill_count} edges spill out of the ELL layout; the spill tail "
-            "(_attach_spill_blocks and kernel table rows 13 / 15 / 24) is not "
-            "ported yet (ROADMAP queue 2 B)"
+            f"{lb.spill_count} edges spill out of the ELL layout; an ELL spill "
+            "tail runs the per-layer ELL kernels (kernel table rows 13 / 15, "
+            "with the spill scatter of row 24), not ported yet (ROADMAP queue 2 B)"
         )
     lanes = lb.u_local.shape[0]
     s = np.full(lanes, n - 1, np.int32)
@@ -379,17 +477,20 @@ def ell_meta(batch: dict) -> torch.Tensor:
 
 # Batch keys of the layouts not ported yet (ROADMAP queue 2): the legacy
 # dynamic-window layout (``loc_ulocal`` without ``loc_ell``), the edge-block
-# and spill-block layouts, and the ELL layout for the models without ELL
-# kernels.
+# layout, the spill blocks of an ELL batch, and the ELL layout for the
+# models without ELL kernels.
 UNPORTED_LAYOUT_KEYS = ("loc_ulocal", "loc_ell", "blk_vlocal", "spill_blk_vlocal")
 
 
 def reject_unported_layouts(batch: dict, ell: bool = False) -> None:
     """Raise ``NotImplementedError`` on a batch in a layout the port does
-    not run yet. ``ell=True`` (GIN, GCN) lets the ELL layout through."""
-    ell = ell and "loc_ell" in batch
+    not run yet. ``ell=True`` (GIN, GCN) lets the ELL layout through; the
+    spill blocks of a slot batch always pass."""
+    ok = {"spill_blk_vlocal"} if "slot_src" in batch else set()
+    if ell and "loc_ell" in batch:
+        ok |= {"loc_ulocal", "loc_ell"}
     for key in UNPORTED_LAYOUT_KEYS:
-        if key in batch and not (ell and key in ("loc_ulocal", "loc_ell")):
+        if key in batch and key not in ok:
             raise NotImplementedError(
                 f"batch layout with {key!r} is not ported yet for this model "
                 "(ROADMAP queue 2)"
@@ -405,9 +506,11 @@ def batch_signature(batch: dict):
 def as_batches_uniform(
     buckets, blocked=False, window: int | None = None, block: int | None = None,
 ) -> list:
-    """as_batch over a bucket stream, with the slot depth and prefix caps
-    reconciled to stream-wide maxima so that every bucket shares one
-    layout signature. ELL buckets need nothing reconciled: the one
+    """as_batch over a bucket stream, with the slot depth, and the prefix
+    caps when no bucket spills or the spill-tail capacity when every bucket
+    does, reconciled to stream-wide maxima, so that the buckets share one
+    layout signature where they can (the blocked spill layout depends on
+    each bucket's content). ELL buckets need nothing reconciled: the one
     stream-wide parameter the JAX package pins for them is the spill-tail
     length, and a bucket that spills raises here."""
     mk = lambda b, **kw: as_batch(b, blocked=blocked, window=window, block=block, **kw)
@@ -417,19 +520,16 @@ def as_batches_uniform(
         or len({batch_signature(b) for b in batches}) == 1
     ):
         return batches
-    caps = [
-        tuple(
-            b[f"slot_pcap_{k}"].shape[-2] for k in range(b["slot_geom"].shape[-1])
-        )
-        for b in batches
-    ]
-    kw = dict(
-        slots=max(b["slot_geom"].shape[-1] for b in batches),
+    kw = dict(slots=max(b["slot_geom"].shape[-1] for b in batches))
+    if all("slot_pcap_0" in b for b in batches):
+        caps = [
+            tuple(b[f"slot_pcap_{k}"].shape[-2] for k in range(b["slot_geom"].shape[-1]))
+            for b in batches
+        ]
         # Missing deeper slots contribute the 64-row floor.
-        prefix_caps=tuple(
-            max(c) for c in itertools.zip_longest(*caps, fillvalue=64)
-        ),
-    )
+        kw["prefix_caps"] = tuple(max(c) for c in itertools.zip_longest(*caps, fillvalue=64))
+    elif all(b["slot_spill_mask"].any() for b in batches):
+        kw["spill_capacity"] = max(b["slot_spill"].shape[-1] for b in batches)
     return [mk(b, **kw) for b in buckets]
 
 
@@ -488,6 +588,53 @@ def gather_sources(h: torch.Tensor, batch: dict) -> torch.Tensor:
 def edge_segment_sum(vals: torch.Tensor, batch: dict) -> torch.Tensor:
     """Per-receiver message sum over the plain edge list."""
     return segment_sum(vals, batch["receivers"], num_nodes_static(batch))
+
+
+def spill_lanes(batch: dict) -> tuple[torch.Tensor, torch.Tensor]:
+    """(sender, receiver) of each lane of a slot batch's spill tail, both
+    the pad node on masked lanes, whose results nothing reads."""
+    pad = num_nodes_static(batch) - 1
+    sp = batch["slot_spill"].long()
+    mask = batch["slot_spill_mask"]
+    return (
+        torch.where(mask, batch["senders"].long()[sp], pad),
+        torch.where(mask, batch["receivers"].long()[sp], pad),
+    )
+
+
+def spill_gather(h: torch.Tensor, u_tail: torch.Tensor) -> torch.Tensor:
+    """h of each spill lane's sender, by index (the JAX package's one-hot
+    gather over ``spill_gblk_src`` is the same exact gather). A pad lane
+    reads the pad node's row; its receiver is the sentinel, so no sum
+    takes it."""
+    return h[u_tail]
+
+
+def spill_segment_operands(vals: torch.Tensor, batch: dict) -> dict:
+    """The operands ``spill_segment_sum`` hands ``ops.spmm.
+    windowed_segment_sum`` for spill lane values [P, D'] in blocked order:
+    the T compact windows that receive spill lanes (``spill_blk_compact``'s
+    length)."""
+    return dict(
+        values=vals, v_local=batch["spill_blk_vlocal"][:, None],
+        block_window=batch["spill_blk_window"],
+        window=int(batch["spill_blk_geom"].shape[0]),
+        num_windows=int(batch["spill_blk_compact"].shape[0]),
+    )
+
+
+def spill_segment_sum(vals: torch.Tensor, batch: dict) -> torch.Tensor:
+    """Per-node sum [n, D'] of the spill lane values [P, D'] of a slot batch
+    with a spill tail: the windowed segment sum (kernel table row 24) over
+    the compact windows of the blocked layout, each window then taken to
+    its rows by ``spill_blk_winmap`` (windows with no spill lane read a zero
+    window)."""
+    n = num_nodes_static(batch)
+    ops = spill_segment_operands(vals, batch)
+    w, t, d = ops["window"], ops["num_windows"], vals.shape[1]
+    compact = windowed_segment_sum(**ops).reshape(t, w, d)
+    out3 = torch.cat([compact, compact.new_zeros(1, w, d)])
+    return out3[batch["spill_blk_winmap"].long()].reshape(-1, d)[:n]
 
 
 def out_degree(batch: dict) -> torch.Tensor:

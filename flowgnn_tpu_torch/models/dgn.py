@@ -9,12 +9,15 @@ eigw_sum·h| / eig_abssum (zero → the ap_fixed<16,3> ulp); a [dim, 2, dim]
 posttrans linear; residual h + relu(acc) (DGN/src/node_embedding.cc:
 107-160); readout MLP dim → 50 → 25 → 1 (DGN/src/finalize.cc:35-52).
 
-Two branches: a slot batch runs the whole conv stack and readout MLP-1 in one
-``dgn_local_model`` launch, then MLP-2/3 in plain torch; a plain edge-list
-batch runs the plain loop, the port's own oracle. A slot batch the
-megakernel does not take would go to the per-layer kernel
-``dgn_local_layer_slots`` in the JAX package (kernel table row 22, not
-ported yet) and raises ``NotImplementedError``, as do the ELL layouts.
+Three branches: a slot batch with no spill tail runs the whole conv stack
+and readout MLP-1 in one ``dgn_local_model`` launch, then MLP-2/3 in plain
+torch; any other slot batch (a spill tail, ``return_intermediates``, no
+``pool_gl``) runs the per-layer slot path, as the JAX package does: per
+layer one ``dgn_local_layer_slots`` launch (kernel table row 22), which takes
+the spill tail's two channels pre-reduced through ``base.spill_segment_sum``
+(row 24), then ``mean_pool`` and the readout in plain torch; a plain
+edge-list batch runs the plain loop, the port's own oracle. The ELL layouts
+raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -23,7 +26,7 @@ import torch
 
 from ..core.features import ATOM_FEATURE_DIMS
 from ..core.numerics import FLOAT32, Precision
-from ..ops.local_layer import dgn_local_model
+from ..ops.local_layer import dgn_local_layer_slots, dgn_local_model
 from ..ops.segment import segment_sum
 from . import base as _base
 from .base import edge_segment_sum, gather_sources, linear, mean_pool, out_degree, relu
@@ -87,6 +90,49 @@ def slot_kernel_operands(params: dict, batch: dict, prec: Precision = FLOAT32) -
     )
 
 
+def spill_values(h: torch.Tensor, batch: dict, eig: torch.Tensor, lanes) -> torch.Tensor:
+    """The spill lanes' two channels [h_u ‖ (eig_u − eig_v)·h_u] (pad lanes
+    weigh 0: both their ends are the pad node)."""
+    sp_u, sp_v = lanes
+    x = _base.spill_gather(h, sp_u)
+    return torch.cat([x, (eig[sp_u] - eig[sp_v])[:, None] * x], dim=1)
+
+
+def layer_operands(params: dict, batch: dict, l: int, h: torch.Tensor, terms, lanes) -> dict:
+    """The keyword operands the per-layer slot path hands
+    ``dgn_local_layer_slots`` for layer ``l`` and its input ``h``
+    (``terms`` as ``_node_terms`` gives them); with a spill tail (``lanes``
+    as ``base.spill_lanes`` gives them, else None), ``m_spill`` is the
+    tail's two channels summed per node (``base.spill_segment_sum``)."""
+    eig, _, eigw_sum, eig_abssum, deg = terms
+    window, n_slots = (int(x) for x in batch["slot_geom"].shape[-2:])
+    d = h.shape[1]
+    m_spill = None
+    if lanes is not None:
+        m_spill = _base.spill_segment_sum(spill_values(h, batch, eig, lanes), batch)
+    return dict(
+        slot_src=batch["slot_src"], h=h, eig=eig.contiguous(), inv_deg=(1.0 / deg)[:, 0],
+        eigw_sum=eigw_sum, inv_abssum=1.0 / eig_abssum,
+        # [2D, D]: the [dim_out, 2·dim_in] posttrans, right-multiplied.
+        w_post=params["posttrans_w"][l].reshape(d, 2 * d).T.contiguous(),
+        b_post=params["posttrans_b"][l][None, :], window=window, slots=n_slots,
+        m_spill=m_spill,
+    )
+
+
+def layer_kernel_operands(params: dict, batch: dict, prec: Precision = FLOAT32) -> dict:
+    """Layer 0's keyword operands of the kernels the per-layer slot path
+    runs on a slot batch with a spill tail, by wrapper name (also used to
+    check and time the kernels on their own)."""
+    h = _atom_embed_dgn(params["atom_tables"], batch["node_feat"], prec)
+    terms, lanes = _node_terms(batch, prec), _base.spill_lanes(batch)
+    return {
+        "dgn_local_layer_slots": layer_operands(params, batch, 0, h, terms, lanes),
+        "windowed_segment_sum": _base.spill_segment_operands(
+            spill_values(h, batch, terms[0], lanes), batch),
+    }
+
+
 def _readout_tail(z: torch.Tensor, params: dict, prec: Precision) -> torch.Tensor:
     """ReLU, then readout MLP-2 and MLP-3."""
     z = relu(linear(relu(z), params["mlp2_w"], params["mlp2_b"], prec))
@@ -103,27 +149,25 @@ def forward(
     as made by ``params.loaders.params_from_numpy``; ``batch`` as made by
     ``models.base.to_device`` from a packing with ``with_eigen=True``."""
     _base.reject_unported_layouts(batch)
-    if "slot_src" in batch:
-        if batch["slot_spill"].shape[-1]:
-            raise NotImplementedError(
-                "slot batch with a spill tail: dgn_local_layer_slots (kernel table "
-                "row 22) is not ported yet (ROADMAP queue 1 item 9)"
-            )
-        if return_intermediates or "pool_gl" not in batch:
-            raise NotImplementedError(
-                "a slot batch without the megakernel (return_intermediates, or "
-                f"more than POOL_GMAX={_base.POOL_GMAX} graphs in a window) runs "
-                "dgn_local_layer_slots (kernel table row 22), not ported yet "
-                "(ROADMAP queue 1 item 9)"
-            )
+    slots = "slot_src" in batch
+    if (
+        slots and not batch["slot_spill"].shape[-1] and not return_intermediates
+        and "pool_gl" in batch
+    ):
         pool = dgn_local_model(**slot_kernel_operands(params, batch, prec))
         return _readout_tail(_base.pool_finish(pool, batch, params["mlp1_b"], prec), params, prec)
 
     L = params["posttrans_w"].shape[0]
-    eig, eig_w, eigw_sum, eig_abssum, deg = _node_terms(batch, prec)
+    terms = _node_terms(batch, prec)
+    eig, eig_w, eigw_sum, eig_abssum, deg = terms
     h = _atom_embed_dgn(params["atom_tables"], batch["node_feat"], prec)
+    lanes = _base.spill_lanes(batch) if slots and batch["slot_spill"].shape[-1] else None
     inter = [h]
     for l in range(L):
+        if slots:
+            h = dgn_local_layer_slots(**layer_operands(params, batch, l, h, terms, lanes))
+            inter.append(h)
+            continue
         x = gather_sources(h, batch)
         d = x.shape[1]
         mm = edge_segment_sum(torch.cat([x, eig_w[:, None] * x], dim=1), batch)

@@ -11,15 +11,19 @@ reference; skip projection and ELU between layers
 (GAT/src/finalize.cc:90-110). Self edges must already be in the batch
 (``core.graphs.add_self_loops``).
 
-Two branches: a slot batch runs the whole model in one
+Three branches: a slot batch with no spill tail runs the whole model in one
 ``gat_local_model_slots`` launch, after the layer-0 projection and skip
-matmuls in plain torch; a plain edge-list batch runs the plain loop, the
-port's own oracle. The JAX package picks one of three GAT megakernels by
-environment (``FLOWGNN_GAT_PAIRS``, ``FLOWGNN_GAT_DENSE``); they compute the
-same function, and the port has one kernel for all three. A slot batch the
-megakernel does not take would go to ``gat_local_message_slots`` (kernel
-table row 21, not ported yet) and raises ``NotImplementedError``, as do the
-ELL layouts.
+matmuls in plain torch; any other slot batch (a spill tail,
+``return_intermediates``, no ``pool_gl``) runs the per-layer slot path, as
+the JAX package does: per layer one ``gat_local_message_slots`` launch
+(kernel table row 21) for the softmax over the slots, with the spill tail's
+numerators and denominators summed through ``base.spill_segment_sum`` (row
+24) and the divide, skip projection, ELU and next projection in plain
+torch; a plain edge-list batch runs the plain loop, the port's own oracle.
+The JAX package picks one of three GAT megakernels by environment
+(``FLOWGNN_GAT_PAIRS``, ``FLOWGNN_GAT_DENSE``); they compute the same
+function, and the port has one kernel for all three. The ELL layouts raise
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -27,7 +31,7 @@ from __future__ import annotations
 import torch
 
 from ..core.numerics import FLOAT32, Precision
-from ..ops.local_layer import gat_local_model_slots
+from ..ops.local_layer import gat_local_message_slots, gat_local_model_slots
 from . import base as _base
 from .base import acc_dtype, edge_segment_sum, linear, mean_pool
 
@@ -93,6 +97,76 @@ def slot_kernel_operands(params: dict, batch: dict, prec: Precision = FLOAT32) -
     )
 
 
+def _leaky_exp(raw: torch.Tensor) -> torch.Tensor:
+    return torch.exp(torch.where(raw < 0, raw * LEAKY_SLOPE, raw))
+
+
+def _scored(h_u: torch.Tensor, score: torch.Tensor) -> torch.Tensor:
+    """Per edge [score·h_u ‖ score]: h_u [E, H·D], score [E, H]."""
+    e, nh = score.shape
+    return torch.cat([(score[:, :, None] * h_u.reshape(e, nh, -1)).reshape(e, -1), score], dim=1)
+
+
+def _softmax_message(both: torch.Tensor, num_heads: int) -> torch.Tensor:
+    """Per-node [Σ score·h_u ‖ Σ score] [n, H·D + H] → the messages [n, H,
+    D]; pad nodes receive no edges, so a zero denominator is taken as 1."""
+    n, hd = both.shape[0], both.shape[1] - num_heads
+    den = both[:, hd:]
+    return both[:, :hd].reshape(n, num_heads, -1) / torch.where(den == 0, 1, den)[:, :, None]
+
+
+def message_operands(h: torch.Tensor, s_src: torch.Tensor, s_tgt: torch.Tensor,
+                     batch: dict) -> dict:
+    """The keyword operands the per-layer slot path hands
+    ``gat_local_message_slots`` for one layer's h [n, H, D] and scores; the
+    kernel divides only when there is no spill tail to merge."""
+    window, n_slots = (int(x) for x in batch["slot_geom"].shape[-2:])
+    return dict(
+        slot_stack=batch["slot_stack"], h=h.reshape(h.shape[0], -1), s_src=s_src.contiguous(),
+        s_tgt=s_tgt.contiguous(), window=window, slots=n_slots, num_heads=s_src.shape[1],
+        divide=not batch["slot_spill"].shape[-1],
+    )
+
+
+def spill_values(h: torch.Tensor, s_src: torch.Tensor, s_tgt: torch.Tensor, batch: dict,
+                 lanes) -> torch.Tensor:
+    """The spill lanes' [score·h_u ‖ score], score = exp(leaky(s_src[v] +
+    s_tgt[u])). A masked lane's score is masked before the exp, so it adds
+    0 whatever its raw score (the JAX package multiplies exp(raw) by the
+    mask, which turns an overflowing masked lane into NaN)."""
+    sp_u, sp_v = lanes
+    real = batch["slot_spill_mask"][:, None]
+    score = torch.where(real, _leaky_exp(torch.where(real, s_src[sp_v] + s_tgt[sp_u], 0)), 0)
+    return _scored(_base.spill_gather(h.reshape(h.shape[0], -1), sp_u), score)
+
+
+def _slot_message(h: torch.Tensor, s_src: torch.Tensor, s_tgt: torch.Tensor, batch: dict,
+                  lanes) -> torch.Tensor:
+    """One layer's messages [n, H, D] over a slot batch: the slot softmax of
+    ``gat_local_message_slots``, divided in the kernel, or with a spill tail
+    its sums merged with the tail's (``base.spill_segment_sum``) and then
+    divided."""
+    ops = message_operands(h, s_src, s_tgt, batch)
+    out = gat_local_message_slots(**ops)
+    if ops["divide"]:
+        return out.reshape(h.shape)
+    sp_sums = _base.spill_segment_sum(spill_values(h, s_src, s_tgt, batch, lanes), batch)
+    return _softmax_message(out + sp_sums, s_src.shape[1])
+
+
+def layer_kernel_operands(params: dict, batch: dict, prec: Precision = FLOAT32) -> dict:
+    """Layer 0's keyword operands of the kernels the per-layer slot path
+    runs on a slot batch with a spill tail, by wrapper name (also used to
+    check and time the kernels on their own)."""
+    h = _project(params["proj_w"][0], _raw_features(params, batch, prec), prec)
+    s_src, s_tgt = _scores(h, params["a_src"][0]), _scores(h, params["a_tgt"][0])
+    vals = spill_values(h, s_src, s_tgt, batch, _base.spill_lanes(batch))
+    return {
+        "gat_local_message_slots": message_operands(h, s_src, s_tgt, batch),
+        "windowed_segment_sum": _base.spill_segment_operands(vals, batch),
+    }
+
+
 def forward(
     params: dict,
     batch: dict,
@@ -103,38 +177,29 @@ def forward(
     as made by ``params.loaders.params_from_numpy``; ``batch`` as made by
     ``models.base.to_device``."""
     _base.reject_unported_layouts(batch)
-    if "slot_src" in batch:
-        if batch["slot_spill"].shape[-1] or "slot_pstack" not in batch:
-            raise NotImplementedError(
-                "slot batch with a spill tail: gat_local_message_slots (kernel "
-                "table row 21) is not ported yet (ROADMAP queue 1 item 9)"
-            )
-        if return_intermediates or "pool_gl" not in batch:
-            raise NotImplementedError(
-                "a slot batch without the megakernel (return_intermediates, or "
-                f"more than POOL_GMAX={_base.POOL_GMAX} graphs in a window) runs "
-                "gat_local_message_slots (kernel table row 21), not ported yet "
-                "(ROADMAP queue 1 item 9)"
-            )
+    slots = "slot_src" in batch
+    if (
+        slots and not batch["slot_spill"].shape[-1] and not return_intermediates
+        and "pool_gl" in batch
+    ):
         pool = gat_local_model_slots(**slot_kernel_operands(params, batch, prec))
         return _base.pool_finish(pool, batch, params["pred_b"], prec)
 
-    L, H, D = params["proj_w"].shape[:3]
-    u, v = batch["senders"].long(), batch["receivers"].long()
+    L, H = params["proj_w"].shape[:2]
     prev = _raw_features(params, batch, prec)
     h = _project(params["proj_w"][0], prev, prec)  # [n, head, dim]
+    lanes = _base.spill_lanes(batch) if slots and batch["slot_spill"].shape[-1] else None
+    u, v = batch["senders"].long(), batch["receivers"].long()
     inter = [h]
     for l in range(L):
         s_src = _scores(h, params["a_src"][l])
         s_tgt = _scores(h, params["a_tgt"][l])
-        raw = s_src[v] + s_tgt[u]  # [E, H]
-        score = torch.exp(torch.where(raw < 0, raw * LEAKY_SLOPE, raw))
-        scored = (score[:, :, None] * h[u]).reshape(-1, H * D)
-        both = edge_segment_sum(torch.cat([scored, score], dim=1), batch)
-        msg = both[:, : H * D].reshape(-1, H, D)
-        denom = both[:, H * D :]
-        # Pad nodes receive no edges; keep the division defined.
-        msg = msg / torch.where(denom == 0, 1, denom)[:, :, None]
+        if slots:
+            msg = _slot_message(h, s_src, s_tgt, batch, lanes)
+        else:
+            score = _leaky_exp(s_src[v] + s_tgt[u])  # [E, H]
+            both = edge_segment_sum(_scored(h.reshape(h.shape[0], -1)[u], score), batch)
+            msg = _softmax_message(both, H)
         skip = _project(params["skip_w"][l], prev, prec)
         if l != L - 1:
             feat = msg + skip

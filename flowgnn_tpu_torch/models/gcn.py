@@ -13,10 +13,10 @@ Three branches: a slot batch (``as_batch(blocked="local_slots")``) runs all
 L layers and the pooled head in one ``gcn_local_model_slots`` launch after
 the conv-0 matmul, an ELL batch (``blocked="local_ell"``) in one
 ``gcn_local_model`` launch; every other batch, and a slot batch the kernel
-does not take (``return_intermediates``, no ``pool_gl``), runs the plain
-edge-list loop, as the JAX package's dispatch falls through to it. An ELL
-batch the ELL kernel does not take, and a slot spill tail, raise
-``NotImplementedError`` naming what they need.
+does not take (a spill tail, ``return_intermediates``, no ``pool_gl``), runs
+the plain edge-list loop, as the JAX package's dispatch falls through to
+it. An ELL batch the ELL kernel does not take raises
+``NotImplementedError`` naming what it needs.
 """
 
 from __future__ import annotations
@@ -109,12 +109,6 @@ def forward(
         _base.require_ell_megakernel(batch, return_intermediates, layer_row=15)
         pool = gcn_local_model(**ell_kernel_operands(params, batch, prec))
         return _base.pool_finish(pool, batch, params["pred_b"], prec)
-    if "slot_src" in batch and (
-        "slot_meta" not in batch or batch["slot_spill"].shape[-1]
-    ):
-        raise NotImplementedError(
-            "slot batch with a spill tail: not ported yet (ROADMAP queue 1 item 9)"
-        )
     if "slot_meta" in batch and "pool_gl" in batch and not return_intermediates:
         pool = gcn_local_model_slots(**slot_kernel_operands(params, batch, prec))
         return _base.pool_finish(pool, batch, params["pred_b"], prec)

@@ -15,8 +15,11 @@ Three branches: a slot batch (``as_batch(blocked="local_slots")``) runs the
 whole model in one ``gin_local_model_slots`` launch, an ELL batch
 (``blocked="local_ell"``) in one ``gin_local_model`` launch, and a plain
 edge-list batch runs the plain torch path, the port's own end-to-end
-oracle. Every other case raises ``NotImplementedError`` naming what it
-needs.
+oracle. A slot batch the megakernel does not take (a spill tail, no
+``pool_gl``, ``return_intermediates``) runs the plain path on its own edge
+list, as the JAX package's dispatch falls through to its plain loop; an ELL
+batch the ELL kernel does not take raises ``NotImplementedError`` naming
+what it needs.
 
 The FPGA drops ε (GIN/src/host.cc:185-200), so ``fpga_eps=True`` (default)
 zeroes it for device parity; ``False`` uses the trained value.
@@ -122,21 +125,7 @@ def forward(
         _base.require_ell_megakernel(batch, return_intermediates, layer_row=13)
         pool = gin_local_model(**ell_kernel_operands(params, batch, prec, fpga_eps))
         return _base.pool_finish(pool, batch, params["pred_b"], prec)
-    if "slot_src" in batch:
-        if "slot_meta" not in batch:
-            raise NotImplementedError(
-                "slot batch with a spill tail: not ported yet (ROADMAP queue 1 item 9)"
-            )
-        if "pool_gl" not in batch:
-            raise NotImplementedError(
-                f"a window holds more than POOL_GMAX={_base.POOL_GMAX} graphs; "
-                "the per-layer fallback is not ported yet (ROADMAP queue 1 item 9)"
-            )
-        if return_intermediates:
-            raise NotImplementedError(
-                "return_intermediates on a slot batch: the megakernel keeps h "
-                "on chip; use a plain batch (ROADMAP queue 1 item 9)"
-            )
+    if "slot_meta" in batch and "pool_gl" in batch and not return_intermediates:
         pool = gin_local_model_slots(**slot_kernel_operands(params, batch, prec, fpga_eps))
         return _base.pool_finish(pool, batch, params["pred_b"], prec)
 

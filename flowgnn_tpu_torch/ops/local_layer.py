@@ -1,9 +1,10 @@
-"""Graph-local whole-model kernels over the slot and ELL layouts.
+"""Graph-local kernels over the slot and ELL layouts.
 
 Each wrapper here is the counterpart of one TPU kernel of
-``flowgnn_tpu/ops/pallas/local_layer.py`` and runs a whole model (L layers
-plus the pooled prediction head) in one launch per bucket. Over the
-degree-sorted slot layout, one block per window of 128 rows:
+``flowgnn_tpu/ops/pallas/local_layer.py``. The whole-model kernels run a
+whole model (L layers plus the pooled prediction head) in one launch per
+bucket. Over the degree-sorted slot layout, one block per window of 128
+rows:
 
 - ``gin_local_model_slots``: GIN / GIN-VN (``csrc/gin_local_model_slots.cu``);
 - ``gcn_local_model_slots``: GCN (``csrc/gcn_local_model_slots.cu``);
@@ -22,6 +23,19 @@ rows (128 rows per block):
 
 - ``gin_local_model``: GIN / GIN-VN (``csrc/gin_local_model.cu``);
 - ``gcn_local_model``: GCN (``csrc/gcn_local_model.cu``).
+
+The per-layer slot kernels run one layer per launch, over a slot batch with
+a spill tail (or one the whole-model kernel does not take), one block per
+window of 128 rows:
+
+- ``pna_local_stats_ell``: PNA's four aggregates
+  (``csrc/pna_local_stats_slots.cu``);
+- ``dgn_local_layer_slots``: a whole DGN layer, with the spill tail's
+  pre-reduced channels (``csrc/dgn_local_layer_slots.cu``);
+- ``gat_local_message_slots``: GAT's softmax sums or messages
+  (``csrc/gat_local_message_slots.cu``).
+
+The spill tail's scatter is ``ops.spmm.windowed_segment_sum``.
 
 On a CUDA tensor a wrapper launches its hand-written kernel, or raises; on a
 CPU tensor it runs its ``_ref``, the same function in plain torch, which the
@@ -46,10 +60,13 @@ import torch
 
 from .build import load_library
 
+# Every CUDA source of the port (``csrc/<name>.cu``), this module's kernels
+# and ``ops.spmm``'s.
 LIBRARIES = (
     "gin_local_model_slots", "gcn_local_model_slots", "pna_local_model",
     "dgn_local_model", "gat_local_model_slots", "gin_local_model",
-    "gcn_local_model",
+    "gcn_local_model", "pna_local_stats_slots", "dgn_local_layer_slots",
+    "gat_local_message_slots", "windowed_segment_sum",
 )
 
 
@@ -551,6 +568,127 @@ def gat_local_model_slots_ref(
     return _pool_sums(rnd(msg + skip) @ pred_hd.to(acc), pool_gl, nw, window, gmax)
 
 
+def pna_local_stats_ell_ref(
+    slot_src: torch.Tensor,  # [NW·W, S] int in-window sources (sentinel W)
+    h: torch.Tensor,  # [n, D]
+    window: int,
+    slots: int,
+    min_init: float,  # seed of the running min (the upper ap_fixed extreme)
+    max_init: float,  # seed of the running max (the lower extreme)
+) -> torch.Tensor:
+    """Plain-torch ``pna_local_stats_ell``: [n, 4D] per destination row, over
+    its valid slot sources u in slot order, [Σ h_u ‖ Σ h_u² ‖ min ‖ max] in
+    h's dtype. An empty slot adds nothing to the sums and leaves min / max at
+    their seeds. Sums run in f32 (f64 for f64 inputs)."""
+    acc = _acc_dtype(h.dtype)
+    n, d = h.shape
+    rows = -(-n // window) * window
+    hf = _padded(h, rows).to(acc)
+    s = torch.zeros(rows, d, dtype=acc, device=h.device)
+    q = torch.zeros_like(s)
+    mn = torch.full_like(s, min_init)
+    mx = torch.full_like(s, max_init)
+    for gather, ok in _slot_lanes(slot_src, (window,) * slots, window, slots):
+        x = hf[gather]
+        s = s + torch.where(ok, x, 0.0)
+        q = q + torch.where(ok, x * x, 0.0)
+        mn = torch.minimum(mn, torch.where(ok, x, min_init))
+        mx = torch.maximum(mx, torch.where(ok, x, max_init))
+    return torch.cat([s, q, mn, mx], dim=1)[:n].to(h.dtype)
+
+
+def dgn_local_layer_slots_ref(
+    slot_src: torch.Tensor,  # [NW·W, S] int in-window sources (sentinel W)
+    h: torch.Tensor,  # [n, D]
+    eig: torch.Tensor,  # [n] Fiedler-vector entry
+    inv_deg: torch.Tensor,  # [n] 1/max(out_deg, 1)
+    eigw_sum: torch.Tensor,  # [n] Σ over in-edges of eig_u − eig_v
+    inv_abssum: torch.Tensor,  # [n] 1/Σ|eig_u − eig_v| (zero → 1/EIG_EPS)
+    w_post: torch.Tensor,  # [2D, D] posttrans, right-multiplied
+    b_post: torch.Tensor,  # [1, D]
+    window: int,
+    slots: int,
+    m_spill: Optional[torch.Tensor] = None,  # [n, 2D] spill tail's [m1 ‖ m2]
+) -> torch.Tensor:
+    """Plain-torch ``dgn_local_layer_slots``: the next h [n, D] in h's dtype.
+
+    Per row v over its valid slot sources u, in slot order: m1 = Σ h_u and
+    m2 = Σ e_u·h_u − e_v·m1; then ``m_spill``'s halves are added (its m2
+    half is already weighted), a1 = m1·inv_deg, a2 = |m2 − eigw_sum·h_v|·
+    inv_abssum, y = rnd([a1 ‖ a2])·w_post + b_post and h' = rnd(h +
+    relu(y)). The four node terms are rounded to h's dtype first, as the
+    TPU kernel's feature tile carries them. ``rnd`` rounds to h's dtype;
+    products and sums run in f32 (f64 for f64 inputs)."""
+    cdt = h.dtype
+    acc = _acc_dtype(cdt)
+    n, d = h.shape
+    rows = -(-n // window) * window
+    hf = _padded(h, rows).to(acc)
+    e_v, invd, ews, inva = (
+        _padded(v.to(cdt).to(acc)[:, None], rows) for v in (eig, inv_deg, eigw_sum, inv_abssum)
+    )
+    m1 = torch.zeros(rows, d, dtype=acc, device=h.device)
+    m2 = torch.zeros_like(m1)
+    for gather, ok in _slot_lanes(slot_src, (window,) * slots, window, slots):
+        x = torch.where(ok, hf[gather], 0.0)
+        m1 = m1 + x
+        m2 = m2 + e_v[gather] * x
+    m2 = m2 - e_v * m1
+    if m_spill is not None:
+        sp = _padded(m_spill.to(acc), rows)
+        m1 = m1 + sp[:, :d]
+        m2 = m2 + sp[:, d:]
+    a = torch.cat([m1 * invd, (m2 - ews * hf).abs() * inva], dim=1)
+    y = a.to(cdt).to(acc) @ w_post.to(acc) + b_post.to(acc)
+    return (hf + _relu(y)).to(cdt)[:n]
+
+
+def gat_local_message_slots_ref(
+    slot_stack: torch.Tensor,  # [NW·S·W] int dest-major sources (sentinel W)
+    h: torch.Tensor,  # [n, H·D] projected features, head-major
+    s_src: torch.Tensor,  # [n, H] destination scores
+    s_tgt: torch.Tensor,  # [n, H] source scores
+    window: int,
+    slots: int,
+    num_heads: int,
+    divide: bool = True,
+) -> torch.Tensor:
+    """Plain-torch ``gat_local_message_slots``: per destination row v and
+    head k, over its valid slot sources u in slot order, score =
+    exp(leaky(s_src[v] + s_tgt[u], 0.2)) with s_tgt rounded to h's dtype,
+    num = Σ score·h_u and den = Σ score. An empty slot adds nothing, whatever
+    its score would be (the TPU kernel multiplies exp(raw) by the slot's
+    validity, which turns an overflowing empty lane into NaN). ``divide``:
+    [n, H·D] num / den, a zero den taken as 1; else [n, H·D + H] [num ‖
+    den]; both in h's dtype. Sums run in f32 (f64 for f64 inputs)."""
+    acc = _acc_dtype(h.dtype)
+    n, hd = h.shape
+    dh = hd // num_heads
+    nw = -(-n // window)
+    rows = nw * window
+    hf = _padded(h, rows).to(acc)
+    st = _padded(s_tgt.to(h.dtype), rows).to(acc)
+    ss = _padded(s_src, rows).to(acc)
+    src = slot_stack.long().reshape(nw, slots, window)
+    gather = torch.arange(nw, device=h.device)[:, None, None] * window + src.clamp(max=window - 1)
+    valid = src < window
+    num = torch.zeros(rows, hd, dtype=acc, device=h.device)
+    den = torch.zeros(rows, num_heads, dtype=acc, device=h.device)
+    for k in range(slots):
+        g = gather[:, k].reshape(-1)
+        raw = ss + st[g]
+        score = torch.where(
+            valid[:, k].reshape(-1, 1), torch.exp(torch.where(raw < 0, raw * 0.2, raw)), 0.0
+        )
+        num = num + score.repeat_interleave(dh, dim=1) * hf[g]
+        den = den + score
+    if divide:
+        out = num / torch.where(den == 0, 1.0, den).repeat_interleave(dh, dim=1)
+    else:
+        out = torch.cat([num, den], dim=1)
+    return out[:n].to(h.dtype)
+
+
 # ---------------------------------------------------------------------------
 # The kernels: build, bind, check, launch.
 # ---------------------------------------------------------------------------
@@ -562,11 +700,12 @@ _INT_P = ctypes.POINTER(ctypes.c_int)
 @functools.cache
 def _library(name: str) -> dict:
     """The C functions of ``csrc/<name>.cu``'s built library, signatures
-    declared, by suffix: every library exports ``<prefix>_max_d``,
-    ``_smem_optin``, ``_smem_bytes``, ``_launch`` and ``_error_string``; a
-    slot library ``_max_slots``, an ELL library ``_rows_per_block`` and
-    ``_max_cluster``."""
-    slot_getters, ell_getters = ("max_slots",), ("rows_per_block", "max_cluster")
+    declared, by suffix: every library exports ``<prefix>_smem_optin``,
+    ``_smem_bytes``, ``_launch`` and ``_error_string``; a slot library
+    ``_max_d`` and ``_max_slots``, an ELL library ``_max_d``,
+    ``_rows_per_block`` and ``_max_cluster``."""
+    slot_getters = ("max_d", "max_slots")
+    ell_getters = ("max_d", "rows_per_block", "max_cluster")
     prefix, getters, smem_args, launch_args = {
         "gin_local_model_slots": (
             "gin_slots", slot_getters, [_I32] * 5 + [_INT_P, _I32],
@@ -596,11 +735,27 @@ def _library(name: str) -> dict:
             "gcn_ell", ell_getters, [_I32] * 4,
             [_I32] + [_PTR] * 12 + [_I32] * 9 + [_I32, _PTR],
         ),
+        "pna_local_stats_slots": (
+            "pna_stats", slot_getters, [_I32] * 3,
+            [_I32] + [_PTR] * 3 + [_I32] * 5 + [_F32, _F32, _I32, _PTR],
+        ),
+        "dgn_local_layer_slots": (
+            "dgn_layer", slot_getters, [_I32] * 3,
+            [_I32] + [_PTR] * 10 + [_I32] * 5 + [_I32, _PTR],
+        ),
+        "gat_local_message_slots": (
+            "gat_msg", slot_getters, [_I32] * 4,
+            [_I32] + [_PTR] * 5 + [_I32] * 7 + [_I32, _PTR],
+        ),
+        "windowed_segment_sum": (
+            "wss", (), [_I32],
+            [_I32] + [_PTR] * 4 + [_I32] * 5 + [_I32, _PTR],
+        ),
     }[name]
     lib = load_library(name)
     fns = {}
     for suffix, args, res in (
-        ("max_d", [], _I32), *((g, [], _I32) for g in getters),
+        *((g, [], _I32) for g in getters),
         ("smem_optin", [_I32], _I64), ("smem_bytes", smem_args, _I64),
         ("launch", launch_args, _I32), ("error_string", [_I32], ctypes.c_char_p),
     ):
@@ -644,7 +799,7 @@ def _check_ell_geometry(lib, d: int, window: int, smem: int, dev) -> None:
 
 
 def _check_smem(lib, d: int, window: int, smem: int, dev) -> None:
-    if d > lib["max_d"]():
+    if "max_d" in lib and d > lib["max_d"]():
         raise ValueError(f"D={d} exceeds the kernel's tile ({lib['max_d']()})")
     limit = lib["smem_optin"](dev.index)
     if limit < 0:
@@ -1187,3 +1342,157 @@ def gat_local_model_slots(
 
 
 gat_local_model_slots.launches = 0
+
+
+def _launch_pna_stats(slot_src, h, window, slots, min_init, max_init) -> torch.Tensor:
+    code = _dtype_code(h.dtype)
+    dev = h.device
+    n, d = h.shape
+    nw = -(-n // window)
+    _check("slot_src", slot_src, torch.int32, (nw * window, slots), dev)
+    _check("h", h, h.dtype, (n, d), dev)
+
+    lib = _library("pna_local_stats_slots")
+    _check_geometry(lib, d, slots, (window,), window, lib["smem_bytes"](window, d, slots), dev)
+    out = torch.empty((n, 4 * d), dtype=h.dtype, device=dev)
+    rc = lib["launch"](
+        code, slot_src.data_ptr(), h.data_ptr(), out.data_ptr(),
+        nw, n, window, d, slots, float(min_init), float(max_init),
+        dev.index, torch.cuda.current_stream(dev).cuda_stream,
+    )
+    _raise_on(lib, rc, "pna_local_stats_ell")
+    pna_local_stats_ell.launches += 1
+    return out
+
+
+def pna_local_stats_ell(
+    slot_src: torch.Tensor,
+    h: torch.Tensor,
+    window: int,
+    slots: int,
+    min_init: float,
+    max_init: float,
+) -> torch.Tensor:
+    """PNA's four slot aggregates of one layer: [n, 4D] [sum ‖ sum² ‖ min ‖
+    max] in h's dtype (``csrc/pna_local_stats_slots.cu``, the counterpart of
+    the TPU kernel ``pna_local_stats_ell``, which also runs over the slot
+    layout). Operands as in ``pna_local_stats_ell_ref``; note the order of
+    the seeds: the PNA model passes (MAX_INIT, MIN_INIT), the min's seed
+    first. A CPU tensor runs the plain version; a CUDA tensor launches the
+    kernel (float32 or bfloat16 h, int32 ``slot_src``) or raises. Each
+    launch adds one to ``pna_local_stats_ell.launches``."""
+    args = (slot_src, h, window, slots, min_init, max_init)
+    return _dispatch(h, pna_local_stats_ell_ref, _launch_pna_stats, args)
+
+
+pna_local_stats_ell.launches = 0
+
+
+def _launch_dgn_layer(slot_src, h, eig, inv_deg, eigw_sum, inv_abssum, w_post, b_post,
+                      window, slots, m_spill) -> torch.Tensor:
+    dt = h.dtype
+    code = _dtype_code(dt)
+    dev = h.device
+    n, d = h.shape
+    nw = -(-n // window)
+    _check("slot_src", slot_src, torch.int32, (nw * window, slots), dev)
+    _check("h", h, dt, (n, d), dev)
+    for name, x in (("eig", eig), ("inv_deg", inv_deg), ("eigw_sum", eigw_sum),
+                    ("inv_abssum", inv_abssum)):
+        _check(name, x, dt, (n,), dev)
+    _check("w_post", w_post, dt, (2 * d, d), dev)
+    _check("b_post", b_post, dt, (1, d), dev)
+    if m_spill is not None:
+        _check("m_spill", m_spill, dt, (n, 2 * d), dev)
+
+    lib = _library("dgn_local_layer_slots")
+    _check_geometry(lib, d, slots, (window,), window, lib["smem_bytes"](window, d, slots), dev)
+    out = torch.empty((n, d), dtype=dt, device=dev)
+    rc = lib["launch"](
+        code, slot_src.data_ptr(), h.data_ptr(), eig.data_ptr(), inv_deg.data_ptr(),
+        eigw_sum.data_ptr(), inv_abssum.data_ptr(), w_post.data_ptr(), b_post.data_ptr(),
+        None if m_spill is None else m_spill.data_ptr(), out.data_ptr(),
+        nw, n, window, d, slots, dev.index, torch.cuda.current_stream(dev).cuda_stream,
+    )
+    _raise_on(lib, rc, "dgn_local_layer_slots")
+    dgn_local_layer_slots.launches += 1
+    return out
+
+
+def dgn_local_layer_slots(
+    slot_src: torch.Tensor,
+    h: torch.Tensor,
+    eig: torch.Tensor,
+    inv_deg: torch.Tensor,
+    eigw_sum: torch.Tensor,
+    inv_abssum: torch.Tensor,
+    w_post: torch.Tensor,
+    b_post: torch.Tensor,
+    window: int,
+    slots: int,
+    m_spill: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """One whole DGN layer over the slot layout: the next h [n, D] in h's
+    dtype (``csrc/dgn_local_layer_slots.cu``). Operands as in
+    ``dgn_local_layer_slots_ref``; a CPU tensor runs the plain version, a
+    CUDA tensor launches the kernel (float32 or bfloat16 h, node terms,
+    weights and ``m_spill``, int32 ``slot_src``) or raises. Each launch adds
+    one to ``dgn_local_layer_slots.launches``."""
+    args = (slot_src, h, eig, inv_deg, eigw_sum, inv_abssum, w_post, b_post,
+            window, slots, m_spill)
+    return _dispatch(h, dgn_local_layer_slots_ref, _launch_dgn_layer, args)
+
+
+dgn_local_layer_slots.launches = 0
+
+
+def _launch_gat_message(slot_stack, h, s_src, s_tgt, window, slots, num_heads,
+                        divide) -> torch.Tensor:
+    dt = h.dtype
+    code = _dtype_code(dt)
+    dev = h.device
+    n, hd = h.shape
+    nw = -(-n // window)
+    if hd % num_heads:
+        raise ValueError(f"H·D={hd} is not a multiple of the {num_heads} heads")
+    _check("slot_stack", slot_stack, torch.int32, (nw * slots * window,), dev)
+    _check("h", h, dt, (n, hd), dev)
+    _check("s_src", s_src, dt, (n, num_heads), dev)
+    _check("s_tgt", s_tgt, dt, (n, num_heads), dev)
+
+    lib = _library("gat_local_message_slots")
+    smem = lib["smem_bytes"](window, hd, num_heads, slots)
+    _check_geometry(lib, hd, slots, (window,), window, smem, dev)
+    out = torch.empty((n, hd if divide else hd + num_heads), dtype=dt, device=dev)
+    rc = lib["launch"](
+        code, slot_stack.data_ptr(), h.data_ptr(), s_src.data_ptr(), s_tgt.data_ptr(),
+        out.data_ptr(), nw, n, window, hd, num_heads, slots, int(bool(divide)),
+        dev.index, torch.cuda.current_stream(dev).cuda_stream,
+    )
+    _raise_on(lib, rc, "gat_local_message_slots")
+    gat_local_message_slots.launches += 1
+    return out
+
+
+def gat_local_message_slots(
+    slot_stack: torch.Tensor,
+    h: torch.Tensor,
+    s_src: torch.Tensor,
+    s_tgt: torch.Tensor,
+    window: int,
+    slots: int,
+    num_heads: int,
+    divide: bool = True,
+) -> torch.Tensor:
+    """GAT's edge softmax of one layer over the slot layout: [n, H·D]
+    (``divide``) or [n, H·D + H] in h's dtype
+    (``csrc/gat_local_message_slots.cu``). Operands as in
+    ``gat_local_message_slots_ref``; a CPU tensor runs the plain version, a
+    CUDA tensor launches the kernel (float32 or bfloat16 h and scores, int32
+    ``slot_stack``) or raises. Each launch adds one to
+    ``gat_local_message_slots.launches``."""
+    args = (slot_stack, h, s_src, s_tgt, window, slots, num_heads, divide)
+    return _dispatch(h, gat_local_message_slots_ref, _launch_gat_message, args)
+
+
+gat_local_message_slots.launches = 0

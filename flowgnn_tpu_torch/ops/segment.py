@@ -14,12 +14,16 @@ def segment_sum(
     data: torch.Tensor, segment_ids: torch.Tensor, num_segments: int
 ) -> torch.Tensor:
     """out[s] = Σ_{i: segment_ids[i] = s} data[i], in ``data``'s dtype.
-    Ids must lie in [0, num_segments); on CUDA the order of the sum varies
-    from run to run (atomics)."""
-    out = torch.zeros(
-        (num_segments,) + tuple(data.shape[1:]), dtype=data.dtype, device=data.device
-    )
-    return out.index_add_(0, segment_ids.long(), data)
+    Ids must lie in [0, num_segments). Floats narrower than f32 are summed
+    in f32 and rounded once, as the CPU's ``index_add_`` does: on CUDA its
+    atomics round every add to the data's dtype, so a bf16 sum of a few
+    hundred rows stops growing. On CUDA the order of the sum varies from
+    run to run (atomics)."""
+    acc = data.dtype
+    if data.is_floating_point() and torch.finfo(acc).bits < 32:
+        acc = torch.float32
+    out = torch.zeros((num_segments,) + tuple(data.shape[1:]), dtype=acc, device=data.device)
+    return out.index_add_(0, segment_ids.long(), data.to(acc)).to(data.dtype)
 
 
 def _segment_reduce(data, segment_ids, num_segments, init, reduce):

@@ -13,7 +13,7 @@ import torch
 from flowgnn_tpu_torch.core.graphs import pack_graphs_aligned
 from flowgnn_tpu_torch.core.synthetic import random_molecule_graph, synthetic_molhiv
 from flowgnn_tpu_torch.models import base, registry
-from flowgnn_tpu_torch.ops import local_layer
+from flowgnn_tpu_torch.ops import local_layer, spmm
 
 L, D, H, W = 2, 32, 64, 128
 T_PNA = 8  # readout MLP-1 width of the small PNA and DGN operands
@@ -220,6 +220,74 @@ def _ell_operands(name: str, big: int, seed: int = 16) -> dict:
     )
 
 
+def _spill_batch(name: str, seed: int) -> dict:
+    """Slot layout at W=128 (numpy) of 8 synthetic graphs and two of 230 and
+    280 nodes for model ``name``: a real spill tail, in blocked order."""
+    spec = registry.get(name)
+    rng = np.random.default_rng(seed)
+    graphs = registry.apply_transforms(spec, synthetic_molhiv(8, seed=seed) + [
+        random_molecule_graph(rng, num_nodes=k) for k in (230, 280)])
+    packed = pack_graphs_aligned(graphs, window=W, node_capacity=1023, edge_capacity=4096,
+                                 graph_capacity=16, with_eigen=spec.needs_eigen)
+    return base.as_batch(packed, blocked="local_slots", window=W)
+
+
+def _layer_operands(kernel: str, seed: int = 17, **kw) -> dict:
+    """Seeded operands of one per-layer slot kernel on a spilling batch's
+    layout, as numpy arrays: ``pna_local_stats_ell`` (D=80),
+    ``dgn_local_layer_slots`` (D=100; ``spill`` adds m_spill),
+    ``gat_local_message_slots`` (4 heads × 16; ``divide``) and
+    ``windowed_segment_sum`` (D'=200 over the blocked spill lanes)."""
+    from flowgnn_tpu_torch.models.dgn import EIG_EPS
+    from flowgnn_tpu_torch.models.pna import MAX_INIT, MIN_INIT
+
+    name = {"pna_local_stats_ell": "pna", "dgn_local_layer_slots": "dgn",
+            "gat_local_message_slots": "gat", "windowed_segment_sum": "pna"}[kernel]
+    batch = _spill_batch(name, seed)
+    rng = np.random.default_rng(seed)
+    f32 = lambda *s, sd=0.5: rng.normal(0, sd, s).astype(np.float32)
+    n = batch["node_feat"].shape[0]
+    slots = batch["slot_geom"].shape[-1]
+    if kernel == "windowed_segment_sum":
+        vloc = batch["spill_blk_vlocal"]
+        return dict(values=f32(vloc.shape[0], 200), v_local=vloc[:, None].copy(),
+                    block_window=batch["spill_blk_window"], window=512,
+                    num_windows=batch["spill_blk_compact"].shape[0])
+    if kernel == "pna_local_stats_ell":
+        return dict(slot_src=batch["slot_src"], h=f32(n, 80, sd=2.0), window=W, slots=slots,
+                    min_init=MAX_INIT, max_init=MIN_INIT)
+    if kernel == "dgn_local_layer_slots":
+        d = 100
+        abssum = batch["eig_abssum"]
+        return dict(
+            slot_src=batch["slot_src"], h=f32(n, d), eig=batch["node_eigen"][:, 1].copy(),
+            inv_deg=(1 / np.maximum(batch["out_deg"], 1)).astype(np.float32),
+            eigw_sum=batch["eigw_sum"],
+            inv_abssum=(1 / np.where(abssum == 0, EIG_EPS, abssum)).astype(np.float32),
+            w_post=f32(2 * d, d, sd=0.1), b_post=f32(1, d), window=W, slots=slots,
+            m_spill=f32(n, 2 * d) if kw.get("spill") else None,
+        )
+    heads, hd = 4, 64
+    return dict(slot_stack=batch["slot_stack"], h=f32(n, hd), s_src=f32(n, heads, sd=2.0),
+                s_tgt=f32(n, heads, sd=2.0), window=W, slots=slots, num_heads=heads,
+                divide=kw.get("divide", True))
+
+
+def _gat_message_overflow_operands(hot: bool) -> dict:
+    """One window with a ring over rows 0..7 in slot 0 and every other slot
+    empty; ``hot`` puts raw scores of 100 (past float32 exp's 88.7) at rows 20
+    and 30, which have no source and no reader: their empty slots must add
+    nothing, so the hot run equals the cold one."""
+    slots, heads, hd = 3, 2, 8
+    rng = np.random.default_rng(2)
+    stack = np.full((slots, W), W, np.int32)
+    stack[0, :8] = (np.arange(8) + 1) % 8
+    s = np.zeros((W, heads), np.float32)
+    s[[20, 30]] = 100.0 if hot else 0.0
+    return dict(slot_stack=stack.reshape(-1), h=rng.normal(size=(W, hd)).astype(np.float32),
+                s_src=s, s_tgt=s.copy(), window=W, slots=slots, num_heads=heads)
+
+
 def _port(ops: dict, device, dtype=torch.float32) -> dict:
     out = {}
     for k, v in ops.items():
@@ -393,3 +461,47 @@ def test_ell_cuda_kernels_match_plain(name, big, dtype, tol, cuda_device):
     assert expect.abs().max() > 1e-2  # the pool is not trivially zero
     scale = max(1.0, expect.abs().max().item())
     torch.testing.assert_close(got / scale, expect.float() / scale, rtol=tol, atol=tol)
+
+
+_LAYER_CASES = [
+    ("windowed_segment_sum", {}), ("pna_local_stats_ell", {}),
+    ("dgn_local_layer_slots", {}), ("dgn_local_layer_slots", {"spill": True}),
+    ("gat_local_message_slots", {"divide": True}), ("gat_local_message_slots", {"divide": False}),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel,kw", _LAYER_CASES,
+                         ids=["row24", "row19", "row22", "row22-spill", "row21-divide", "row21-sums"])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 5e-2)],
+                         ids=["f32", "bf16"])
+def test_layer_cuda_kernels_match_plain(kernel, kw, dtype, tol, cuda_device):
+    """Kernel table rows 24, 19, 22 and 21 against their plain versions on a
+    spilling batch's layout at full width. f32: summation order only; bf16:
+    the output rounds to bf16 (a rounding flip is one bf16 ulp of the
+    output, within 5e-2 of its scale)."""
+    fn = getattr(spmm if kernel == "windowed_segment_sum" else local_layer, kernel)
+    ops = _port(_layer_operands(kernel, **kw), cuda_device, dtype)
+    before = fn.launches
+    got = fn(**ops)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 1
+    expect = getattr(spmm if kernel == "windowed_segment_sum" else local_layer, f"{kernel}_ref")(**ops)
+    assert got.dtype == dtype and got.shape == expect.shape
+    scale = max(1.0, expect.abs().max().item())
+    torch.testing.assert_close(got.float() / scale, expect.float() / scale, rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+def test_gat_message_cuda_kernel_overflowing_empty_slot_stays_finite(cuda_device):
+    """Row 21 on the card: empty slots whose score overflows exp add
+    nothing; the output is finite and equals the benign run's."""
+    for divide in (True, False):
+        outs = [
+            local_layer.gat_local_message_slots(
+                **_port(_gat_message_overflow_operands(hot), cuda_device), divide=divide)
+            for hot in (False, True)
+        ]
+        torch.cuda.synchronize()
+        assert bool(outs[1].isfinite().all())
+        torch.testing.assert_close(outs[1], outs[0], rtol=0, atol=0)

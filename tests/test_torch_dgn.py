@@ -107,22 +107,21 @@ def test_dgn_slot_src_is_live(setup):
 
 
 def test_dgn_unported_cases_raise(setup):
-    """A slot batch the megakernel does not take reaches the per-layer
-    kernel (kernel table row 22), not ported yet; so do the ELL layouts,
-    and the port has no fixed-point mode."""
+    """A slot batch the megakernel does not take (``return_intermediates``,
+    no ``pool_gl``) runs the per-layer slot path, ``dgn_local_layer_slots``
+    (kernel table row 22), as the JAX package does, and gives the
+    megakernel's predictions; the ELL layouts are not ported for DGN and
+    raise, and the port has no fixed-point mode."""
     fwd, _, params, b = setup
     p = tl.params_from_numpy(params, tn.FLOAT32, "cpu")
+    whole = fwd(p, b["slot"], tn.FLOAT32)
+    per_layer, inter = fwd(p, b["slot"], tn.FLOAT32, return_intermediates=True)
+    assert len(inter["layers"]) == 3
     no_pool = {k: v for k, v in b["slot"].items() if k != "pool_gl"}
-    spill = dict(b["slot"], slot_spill=torch.zeros(1024, dtype=torch.int32))
-    ell = dict(b["plain"], loc_ell=torch.zeros(1))
-    for batch, kw, match in (
-        (b["slot"], dict(return_intermediates=True), "row 22"),
-        (no_pool, {}, "row 22"),
-        (spill, {}, "row 22"),
-        (ell, {}, "loc_ell"),
-    ):
-        with pytest.raises(NotImplementedError, match=match):
-            fwd(p, batch, tn.FLOAT32, **kw)
+    for got in (per_layer, fwd(p, no_pool, tn.FLOAT32)):
+        np.testing.assert_allclose(got[:G].numpy(), whole[:G].numpy(), rtol=1e-5, atol=1e-5)
+    with pytest.raises(NotImplementedError, match="loc_ell"):
+        fwd(p, dict(b["plain"], loc_ell=torch.zeros(1)), tn.FLOAT32)
     with pytest.raises(NotImplementedError, match="ap_fixed"):
         tn.Precision(fixed=object())
     out, inter = fwd(p, b["plain"], tn.FLOAT32, return_intermediates=True)

@@ -91,9 +91,6 @@ def test_gcn_dispatch(setup):
         np.testing.assert_allclose(got[:G].numpy(), kernel[:G].numpy(), rtol=1e-9, atol=1e-9)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         fwd(p, dict(b["plain"], loc_ulocal=b["plain"]["senders"]), tn.FLOAT64)
-    spill = dict(b["slot"], slot_spill=torch.zeros(1024, dtype=torch.int32))
-    with pytest.raises(NotImplementedError, match="spill"):
-        fwd(p, spill, tn.FLOAT64)
 
 
 def test_load_gcn_matches_jax(tmp_path):

@@ -81,13 +81,18 @@ def test_slot_meta_is_live():
 
 
 def test_unported_cases_raise():
+    """A slot batch the megakernel does not take (no ``pool_gl``,
+    ``return_intermediates``) runs the plain loop on its own edge list, as
+    the JAX package's dispatch does, and gives the kernel's predictions;
+    the legacy layout and the fixed-point mode raise."""
     fwd, _, params, b = _setup("gin")
     p = params_from_numpy(params, tn.FLOAT32, "cpu")
+    kernel = fwd(p, b["slot"], tn.FLOAT32)
     no_pool = {k: v for k, v in b["slot"].items() if k != "pool_gl"}
-    with pytest.raises(NotImplementedError, match="POOL_GMAX"):
-        fwd(p, no_pool, tn.FLOAT32)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        fwd(p, b["slot"], tn.FLOAT32, return_intermediates=True)
+    out, inter = fwd(p, b["slot"], tn.FLOAT32, return_intermediates=True)
+    assert len(inter["layers"]) == params["mlp1_w"].shape[0] + 1
+    for got in (out, fwd(p, no_pool, tn.FLOAT32)):
+        np.testing.assert_allclose(got[:G].numpy(), kernel[:G].numpy(), rtol=1e-5, atol=1e-5)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         fwd(p, dict(b["plain"], loc_ulocal=b["plain"]["senders"]), tn.FLOAT32)
     with pytest.raises(NotImplementedError, match="ap_fixed"):

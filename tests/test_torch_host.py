@@ -29,6 +29,13 @@ def _assert_graphs_equal(a, b):
 
 
 def _assert_batches_equal(jax_batch: dict, port_batch: dict):
+    """Equal keys, shapes and values; the port's own marker of the spill
+    tail's compact window count T must equal the count the JAX package
+    reads off ``spill_blk_window``."""
+    port_batch = dict(port_batch)
+    if "spill_blk_window" in jax_batch:
+        t = int(np.asarray(jax_batch["spill_blk_window"]).max()) + 1
+        assert port_batch.pop("spill_blk_compact").shape == (t,)
     assert set(jax_batch) == set(port_batch)
     for k, v in jax_batch.items():
         a = np.asarray(v).astype(np.float64)  # bf16 upcasts exactly
@@ -103,14 +110,18 @@ def test_packing_and_slot_layouts_equal(name):
 
 
 def test_spill_and_unported_layouts_raise():
-    """A graph larger than the window spills edges: the port refuses the
-    slot and ELL layouts instead of dropping them (spill tail: ROADMAP),
-    and the legacy dynamic-window layout is not ported."""
-    g = ts.random_molecule_graph(np.random.default_rng(0), num_nodes=150)
-    packed = tg.pack_graphs_aligned([g], window=128, node_capacity=255,
-                                    edge_capacity=1024, graph_capacity=2)
-    with pytest.raises(NotImplementedError, match="spill"):
-        tb.as_batch(packed, blocked="local_slots", window=128)
+    """A graph larger than the window spills edges: the slot layout carries
+    them in its blocked spill tail, equal to the JAX package's (a bucket of
+    256 rows has no full scatter window of 512, so neither side attaches the
+    gather-side blocks); the ELL layout refuses them (its spill tail needs
+    kernel table rows 13 / 15 / 24), and the legacy dynamic-window layout is
+    not ported."""
+    caps = dict(window=128, node_capacity=255, edge_capacity=1024, graph_capacity=2)
+    jpacked = jg.pack_graphs_aligned([js.random_molecule_graph(np.random.default_rng(0), num_nodes=150)], **caps)
+    packed = tg.pack_graphs_aligned([ts.random_molecule_graph(np.random.default_rng(0), num_nodes=150)], **caps)
+    slot = tb.as_batch(packed, blocked="local_slots", window=128)
+    assert slot["slot_spill_mask"].any() and "spill_gblk_src" not in slot
+    _assert_batches_equal(jb.as_batch(jpacked, blocked="local_slots", window=128), slot)
     with pytest.raises(NotImplementedError, match="spill"):
         tb.as_batch(packed, blocked="local_ell", window=128, block=384)
     with pytest.raises(NotImplementedError, match="ROADMAP"):

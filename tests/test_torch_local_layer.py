@@ -14,8 +14,9 @@ from flowgnn_tpu_torch.models import base, dgn, gat, gcn, gin, pna
 from flowgnn_tpu_torch.ops import local_layer
 from flowgnn_tpu_torch.params import loaders
 from test_torch_cuda import (
-    _dgn_operands, _ell_batch, _gat_operands, _gat_overflow_operands, _gcn_operands,
-    _operands, _pna_operands, _port, _slot_batch,
+    _dgn_operands, _ell_batch, _gat_message_overflow_operands, _gat_operands,
+    _gat_overflow_operands, _gcn_operands, _operands, _pna_operands, _port, _slot_batch,
+    _spill_batch,
 )
 
 
@@ -83,6 +84,22 @@ def test_gat_overflowing_non_edge_stays_finite():
     np.testing.assert_allclose(hot.numpy(), cold.numpy(), rtol=1e-6, atol=1e-6)
 
 
+def test_gat_message_overflowing_empty_slot_stays_finite():
+    """The sibling for row 21's plain version: empty slots of rows whose raw
+    score overflows exp (100 against float32's 88.7) add nothing, with and
+    without the divide; the output is finite and equals the benign run's.
+    (The JAX ``gat_local_message_slots`` multiplies exp(raw) by the slot's
+    validity and returns NaN there; ROADMAP queue 3.)"""
+    for divide in (True, False):
+        hot, cold = (
+            local_layer.gat_local_message_slots(**_port(_gat_message_overflow_operands(h), "cpu"),
+                                                divide=divide)
+            for h in (True, False)
+        )
+        assert bool(hot.isfinite().all())
+        torch.testing.assert_close(hot, cold, rtol=0, atol=0)
+
+
 _GIN_SMALL = lambda: loaders.synthetic_gin_params(0, dim=16, hidden=32, layers=2)
 _GCN_SMALL = lambda: loaders.synthetic_gcn_params(0, dim=16, layers=2)
 
@@ -118,3 +135,38 @@ def test_model_operands_meet_the_kernel_contract(name, model, params, layout, pr
             assert v.dtype == torch.int32, k
         else:
             assert v.dtype == (torch.float32 if k == "eps_all" else prec.compute_dtype), k
+
+
+@pytest.mark.parametrize("model", [pna, dgn, gat], ids=["pna", "dgn", "gat"])
+@pytest.mark.parametrize("prec", [FLOAT32, BF16], ids=["f32", "bf16"])
+def test_layer_operands_meet_the_kernel_contract(model, prec):
+    """What the per-layer slot path of PNA, DGN and GAT hands its kernels
+    (rows 19, 22, 21 and the spill scatter, row 24) on a spilling slot batch
+    is what the CUDA wrappers accept: every tensor contiguous, int32
+    indices, values in the compute dtype, the shapes the wrappers check."""
+    name = model.__name__.rsplit(".", 1)[-1]
+    small = {"pna": lambda: loaders.synthetic_pna_params(0, dim=16, layers=2),
+             "dgn": lambda: loaders.synthetic_dgn_params(0, dim=16, layers=2),
+             "gat": lambda: loaders.synthetic_gat_params(0, dim=16, heads=2, layers=2)}[name]
+    params = loaders.params_from_numpy(small(), prec, "cpu")
+    batch = base.to_device(_spill_batch(name, 11), "cpu")
+    kernels = model.layer_kernel_operands(params, batch, prec)
+    n = batch["node_feat"].shape[0]
+    for kname, ops in kernels.items():
+        for k, v in ops.items():
+            if not torch.is_tensor(v):
+                continue
+            assert v.is_contiguous(), (kname, k)
+            if k in ("slot_src", "slot_stack", "v_local", "block_window"):
+                assert v.dtype == torch.int32, (kname, k)
+            else:
+                assert v.dtype == prec.compute_dtype, (kname, k)
+    seg = kernels["windowed_segment_sum"]
+    p = seg["values"].shape[0]
+    assert seg["v_local"].shape == (p, 1) and p == seg["block_window"].shape[0] * 128
+    assert seg["window"] * seg["num_windows"] >= n
+    if name == "dgn":
+        assert kernels["dgn_local_layer_slots"]["m_spill"].shape == (n, 32)
+        assert kernels["dgn_local_layer_slots"]["b_post"].shape == (1, 16)
+    if name == "gat":
+        assert kernels["gat_local_message_slots"]["divide"] is False

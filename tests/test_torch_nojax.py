@@ -1,7 +1,8 @@
 """The port runs without jax: in a fresh interpreter where ``import jax`` and
 ``import ml_dtypes`` fail, every module of flowgnn_tpu_torch imports, all
 six models (GIN, GIN-VN, GCN, GAT, PNA, DGN) run their slot branch on the
-CPU, and GIN, GIN-VN and GCN their ELL branch."""
+CPU, with and without a spill tail (a 200-node graph at W=128), and GIN,
+GIN-VN and GCN their ELL branch."""
 
 import os
 import subprocess
@@ -18,10 +19,11 @@ for m in mods:
     importlib.import_module(m)
 assert not any(k == "flowgnn_tpu" or k.startswith("flowgnn_tpu.") for k in sys.modules)
 
+import numpy as np
 import torch
 from flowgnn_tpu_torch.core.graphs import pack_dataset
 from flowgnn_tpu_torch.core.numerics import FLOAT32
-from flowgnn_tpu_torch.core.synthetic import synthetic_dataset
+from flowgnn_tpu_torch.core.synthetic import random_molecule_graph, synthetic_dataset
 from flowgnn_tpu_torch.models import base, registry
 from flowgnn_tpu_torch.ops import local_layer
 from flowgnn_tpu_torch.params import loaders
@@ -38,21 +40,27 @@ for name in ("gin", "gin-vn", "gcn", "gat", "pna", "dgn"):
     spec = registry.get(name)
     graphs = registry.apply_transforms(spec, synthetic_dataset("molhiv", seed=0, num_graphs=24))
     w, b = base.choose_geometry(name, max(g.num_nodes for g in graphs))
-    buckets = list(pack_dataset(graphs, node_capacity=255, edge_capacity=1536,
-                                graph_capacity=16, with_eigen=spec.needs_eigen,
-                                align_window=w))
-    layouts = [base.as_batches_uniform(buckets, blocked="local_slots", window=w)]
+    pack = lambda gs: list(pack_dataset(gs, node_capacity=255, edge_capacity=1536,
+                                        graph_capacity=16, with_eigen=spec.needs_eigen,
+                                        align_window=w))
+    buckets = pack(graphs)
+    layouts = [(buckets, base.as_batches_uniform(buckets, blocked="local_slots", window=w))]
     if name in ("gin", "gin-vn", "gcn"):
-        layouts.append(base.as_batches_uniform(buckets, blocked="local_ell", window=w, block=b))
+        layouts.append((buckets, base.as_batches_uniform(buckets, blocked="local_ell", window=w, block=b)))
+    big = pack(graphs[:4] + registry.apply_transforms(
+        spec, [random_molecule_graph(np.random.default_rng(1), num_nodes=200)]))
+    spill = base.as_batches_uniform(big, blocked="local_slots", window=w)
+    assert any(x["slot_spill_mask"].any() for x in spill)
+    layouts.append((big, spill))
     params = loaders.params_from_numpy(small[name.split("-")[0]](), FLOAT32, "cpu")
-    for batches in layouts:
+    for buckets, batches in layouts:
         for packed, batch in zip(buckets, batches):
             out = spec.forward(params, base.to_device(batch, "cpu"), FLOAT32)
             assert out.shape == (packed.n_node.shape[0], 1) and bool(out.isfinite().all())
             plain = spec.forward(params, base.to_device(base.as_batch(packed), "cpu"), FLOAT32)
             assert torch.allclose(out[: packed.num_graphs], plain[: packed.num_graphs], atol=1e-5)
     runs += len(layouts)
-assert runs == 9, runs
+assert runs == 15, runs
 print("ok", len(mods))
 """
 

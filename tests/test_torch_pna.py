@@ -107,18 +107,18 @@ def test_pna_slot_src_is_live(setup):
 
 
 def test_pna_unported_cases_raise(setup):
-    """A slot batch the megakernel does not take reaches the per-layer
-    kernels (kernel table rows 19-20), not ported yet; so does the ELL
-    layout (PNA has no ELL kernel in the port)."""
+    """A slot batch with no spill tail that the megakernel does not take
+    reaches ``pna_local_layer`` (kernel table row 20), not ported yet; so
+    does the ELL layout (PNA has no ELL kernel in the port). A slot batch
+    with a spill tail runs the per-layer slot path (row 19;
+    tests/test_torch_spill.py holds it against the JAX package)."""
     fwd, _, params, b = setup
     p = tl.params_from_numpy(params, tn.FLOAT32, "cpu")
     no_pool = {k: v for k, v in b["slot"].items() if k != "pool_gl"}
-    spill = dict(b["slot"], slot_spill=torch.zeros(1024, dtype=torch.int32))
     ell = dict(b["plain"], loc_ell=torch.zeros(1))
     for batch, kw, match in (
         (b["slot"], dict(return_intermediates=True), "row 20"),
         (no_pool, {}, "row 20"),
-        (spill, {}, "row 19"),
         (ell, {}, "loc_ell"),
     ):
         with pytest.raises(NotImplementedError, match=match):
