@@ -1,10 +1,11 @@
 """Smoke run of the PyTorch / CUDA port (flowgnn_tpu_torch) on one NVIDIA GPU.
 
     python3 chip_smoke.py            # the phases below
-    python3 chip_smoke.py --profile  # profile the spill path
+    python3 chip_smoke.py --profile  # profile the spill paths
 
 ``--profile`` runs no phase: it builds the hep10k W=128 streams of PNA, DGN
-and GAT, warms each path up, traces ``PROFILE_PASSES`` bf16 passes over the
+and GAT (slot spill tail) and of GIN, GIN-VN and GCN (ELL spill tail), warms
+each path up, traces ``PROFILE_PASSES`` bf16 passes over the
 whole stream with ``torch.profiler`` and prints per path the wall time and the
 device's busy time per pass (the sum of the device kernels' own times; one
 stream, so they do not overlap), the idle share 1 − busy / wall, the kernel
@@ -15,7 +16,7 @@ shares are upper bounds.
 Phases, each of which raises (non-zero exit) on failure:
 
 1. the device and ``nvidia-smi``'s name and power limit;
-2. the eleven hand-written kernels built from ``flowgnn_tpu_torch/csrc``,
+2. the fourteen hand-written kernels built from ``flowgnn_tpu_torch/csrc``,
    one ``nvcc`` per source, all started together (build time and each
    compiler's register / shared-memory report);
 3. each slot kernel against its plain torch version on the card, at the
@@ -33,6 +34,12 @@ Phases, each of which raises (non-zero exit) on failure:
    spill scatter ``windowed_segment_sum`` against its plain version on
    layer 0's operands of the hep10k W=128 bucket with the longest spill
    tail, f32 and bf16;
+3d. each per-layer ELL kernel (``gin_local_layer_ell``, row 13, for GIN and
+   GIN-VN; ``gcn_local_message_ell``, row 14, and ``gcn_local_layer_ell``,
+   row 15, for GCN) and the spill scatter against its plain version on layer
+   0's operands of the hep10k W=128 ELL bucket with the longest spill tail
+   (rows 13, 14, 24) and of a molhiv W=128 ELL bucket (rows 13, 15), f32 and
+   bf16;
 4. the main path: GIN, GIN-VN, GCN, PNA, DGN and GAT, each over the
    4113-graph synthetic molhiv stream at full width with seeded synthetic
    weights, f32 and bf16, through ``registry`` → ``pack_dataset`` →
@@ -52,6 +59,13 @@ Phases, each of which raises (non-zero exit) on failure:
    ``--ell-window 128``), whose window-crossing edges ride the spill tail:
    per layer the model's per-layer slot kernel and the spill scatter,
    counted and checked as in phase 4;
+4d. the per-layer ELL path: GIN, GIN-VN and GCN over the hep10k sample at
+   W=128 in ``local_ell`` (block 384, as the JAX bench derives it from
+   ``--ell-window 128``), whose crossing edges ride the ELL spill tail: per
+   layer row 13 (GCN: row 14) and the spill scatter; and GIN and GCN over the
+   molhiv ELL stream with ``return_intermediates``: per layer row 13 or row
+   15. Counted and checked as in phase 4, every intermediate too (the rows
+   of real nodes);
 5. CUDA-event timings after warm-up, per model and dtype: µs/graph over the
    whole stream for the kernel path and for the plain edge-list path, and
    each kernel alone against its plain version on the same operands (a
@@ -60,9 +74,10 @@ Phases, each of which raises (non-zero exit) on failure:
    its bytes over the memory rate) and, for the spill scatter, PyTorch's
    ``index_add_`` of the same values;
 5b. the same for the hep10k ELL path, the molhiv stream through the ELL
-   kernels at W=128, and the hep10k spill path.
+   kernels at W=128, and the hep10k spill path;
+5c. the same for the per-layer ELL paths of phase 4d.
 
-No phase runs at a cut depth: the whole run takes about two minutes on an
+No phase runs at a cut depth: the whole run takes about two and a half minutes on an
 H100. The line before the last is a JSON object with one record per
 kernel; the last line is ``{"ok": true, "device": {...}}``. Without a CUDA
 device, or outside the repository, it exits non-zero before printing
@@ -86,6 +101,10 @@ MODELS = ("gin", "gin-vn", "gcn", "pna", "dgn", "gat")
 ELL_MODELS = ("gin", "gin-vn", "gcn")
 SPILL_MODELS = ("pna", "dgn", "gat")
 SLOTS, ELL = "local_slots", "local_ell"
+# The per-layer ELL paths' stream keys: hep10k at W=128 with an ELL spill
+# tail, and molhiv's ELL stream run with return_intermediates.
+ELL_LAYER, ELL_INTER = "local_ell W=128", "local_ell intermediates"
+INTER_MODELS = ("gin", "gcn")
 # H100 SXM peaks (NVIDIA's data sheet): dense bf16 on the tensor cores,
 # float32 outside them, and the HBM3 rate.
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
@@ -100,9 +119,15 @@ MODEL_KERNELS = {
     "dgn": ("dgn_local_model", None, "dgn_local_layer_slots"),
     "gat": ("gat_local_model_slots", None, "gat_local_message_slots"),
 }
+# Each ELL model's per-layer ELL kernel: (without a spill tail, with one).
+ELL_LAYER_KERNELS = {
+    "gin": ("gin_local_layer_ell",) * 2, "gin-vn": ("gin_local_layer_ell",) * 2,
+    "gcn": ("gcn_local_layer_ell", "gcn_local_message_ell"),
+}
 SCATTER = "windowed_segment_sum"  # the spill tail's, beside every per-layer kernel
 PROFILE_PASSES = 3  # traced passes per path (--profile)
-PER_LAYER = {"pna_local_stats_ell", "dgn_local_layer_slots", "gat_local_message_slots", SCATTER}
+PER_LAYER = {"pna_local_stats_ell", "dgn_local_layer_slots", "gat_local_message_slots", SCATTER,
+             "gin_local_layer_ell", "gcn_local_message_ell", "gcn_local_layer_ell"}
 LL = "flowgnn_tpu/ops/pallas/local_layer.py"
 # Kernel → (its module in flowgnn_tpu_torch.ops, source, the TPU kernel it
 # replaces, the (model, profile, layout) path whose bf16 stream gives the
@@ -135,6 +160,16 @@ KERNELS = {
                                 f"{LL}:2250", ("gat", "hep10k", SLOTS)),
     SCATTER: ("spmm", "flowgnn_tpu_torch/csrc/windowed_segment_sum.cu",
               "flowgnn_tpu/ops/pallas/spmm.py:62", ("pna", "hep10k", SLOTS)),
+    # Row 13 with its GIN epilogue; row 11 (wps windows per step) merged in.
+    "gin_local_layer_ell": (
+        "local_layer", "flowgnn_tpu_torch/csrc/gin_local_layer_ell.cu",
+        f"{LL}:385 (local_scatter_apply_ell_attr, gin_local_layer_ell epilogue :506), "
+        ":165 (_local_scatter_apply_ell_wps)", ("gin", "hep10k", ELL_LAYER),
+    ),
+    "gcn_local_message_ell": ("local_layer", "flowgnn_tpu_torch/csrc/gcn_local_message_ell.cu",
+                              f"{LL}:1333", ("gcn", "hep10k", ELL_LAYER)),
+    "gcn_local_layer_ell": ("local_layer", "flowgnn_tpu_torch/csrc/gcn_local_layer_ell.cu",
+                            f"{LL}:1417", ("gcn", "molhiv", ELL_INTER)),
 }
 
 
@@ -180,13 +215,32 @@ def num_layers(name: str) -> int:
     return registry.get(name).num_layers
 
 
-def bucket_launches(name: str, batch: dict) -> dict:
-    """The launches one bucket's forward must make, by kernel: the model's
-    whole-model ELL or slot kernel once, or, for a slot batch with a spill
-    tail, its per-layer slot kernel and the spill scatter once per layer."""
+def forward_kw(key: tuple) -> dict:
+    """The forward's keyword arguments on a path: intermediates on ELL_INTER."""
+    return dict(return_intermediates=True) if key[2] == ELL_INTER else {}
+
+
+def bucket_launches(name: str, batch: dict, inter: bool = False) -> dict:
+    """The launches one bucket's forward (``inter``: with
+    return_intermediates) must make, by kernel: the model's whole-model ELL
+    or slot kernel once; for an ELL batch that kernel does not take, its
+    per-layer ELL kernel once per layer, and with a spill tail the spill
+    scatter too; for a slot batch with a spill tail, its per-layer slot
+    kernel and the spill scatter once per layer."""
+    from flowgnn_tpu_torch.models import base
+
     slot, ell, layer = MODEL_KERNELS[name]
     if "loc_ell" in batch:
-        return {ell: 1}
+        if base.ell_megakernel(batch, inter):
+            return {ell: 1}
+        plain_k, spill_k = ELL_LAYER_KERNELS[name]
+        if not base.ell_spill_lanes(batch):
+            return {plain_k: num_layers(name)}
+        # A tail of pad lanes only has no blocked layout and no scatter.
+        out = {spill_k: num_layers(name)}
+        if "spill_blk_vlocal" in batch:
+            out[SCATTER] = num_layers(name)
+        return out
     if not batch["slot_spill"].shape[-1]:
         return {slot: 1}
     return {layer: num_layers(name), SCATTER: num_layers(name)}
@@ -218,7 +272,8 @@ def make_stream(name: str, profile: str, num_graphs: int, layout: str, device,
                 window: int | None = None):
     """The main path's host half for one model: (packed buckets, kernel
     batches in ``layout``, plain batches), the batches on ``device``. The
-    window is ``choose_geometry``'s unless given."""
+    window is ``choose_geometry``'s unless given; the ELL block is scaled
+    to the window."""
     from flowgnn_tpu_torch.core.graphs import auto_edge_capacity, pack_dataset
     from flowgnn_tpu_torch.core.synthetic import synthetic_dataset
     from flowgnn_tpu_torch.models import base, registry
@@ -227,8 +282,9 @@ def make_stream(name: str, profile: str, num_graphs: int, layout: str, device,
     graphs = registry.apply_transforms(
         spec, synthetic_dataset(profile, seed=SEED, num_graphs=num_graphs)
     )
-    gw, block = base.choose_geometry(name, max(g.num_nodes for g in graphs))
-    window = window or gw
+    # A window given is paired with the block scaled to it, as the JAX bench
+    # re-derives the block from --ell-window (bench.py:147-158).
+    window, block = base.choose_geometry(name, window or max(g.num_nodes for g in graphs))
     buckets = list(pack_dataset(
         graphs, node_capacity=NODE_CAP,
         edge_capacity=auto_edge_capacity(graphs, NODE_CAP),
@@ -323,6 +379,13 @@ def agree(got, want, tol: float) -> float:
     return (got - want).abs().max().item()
 
 
+def needed_tol(got, want) -> float:
+    """The least tol at which ``agree(got, want, tol)`` passes."""
+    got, want = got.float(), want.float()
+    scale = max(1.0, want.abs().max().item())
+    return ((got - want).abs() / (scale + want.abs())).max().item()
+
+
 def compare(kname: str, ops: dict, what: str, tol: float) -> float:
     """One kernel launch against its plain version on ``ops``; prints and
     returns the max abs error."""
@@ -402,9 +465,76 @@ def check_layer_kernels(streams: dict, device, max_err: dict) -> None:
                     max_err[kname] = max(max_err[kname], err)
 
 
+def real_spill_lanes(batch: dict) -> int:
+    """The spill lanes of an ELL batch that carry an edge."""
+    p, n = batch["loc_ulocal"].shape[0], batch["node_feat"].shape[0]
+    return int((batch["receivers"][p:] < n - 1).sum())
+
+
+def check_ell_layer_kernels(streams: dict, device, max_err: dict) -> None:
+    """Phase 3d: each per-layer ELL kernel and the spill scatter against its
+    plain version on layer 0's operands of the hep10k W=128 ELL bucket with
+    the longest spill tail (rows 13, 14 and 24) and of the first molhiv
+    W=128 ELL bucket (rows 13 and 15), f32 (1e-4) and bf16 (5e-2), seeded
+    synthetic weights."""
+    from flowgnn_tpu_torch.core.numerics import BF16, FLOAT32
+    from flowgnn_tpu_torch.params.loaders import params_from_numpy
+
+    for name in ELL_MODELS:
+        _, hep, _ = streams[name, "hep10k", ELL_LAYER]
+        i = max(range(len(hep)), key=lambda j: real_spill_lanes(hep[j]))
+        cases = ((hep[i], f"hep10k W=128 bucket {i}"),
+                 (streams[name, "molhiv", ELL][1][0], "molhiv W=128 bucket 0"))
+        for batch, what in cases:
+            for prec, tol in ((FLOAT32, 1e-4), (BF16, 5e-2)):
+                params = params_from_numpy(synthetic_params(name, SEED + 1), prec, device)
+                kernels = model_module(name).layer_kernel_operands(params, batch, prec)
+                for kname, ops in kernels.items():
+                    err = compare(kname, ops, f"{name} {what} layer 0 {prec.compute_dtype}", tol)
+                    if prec is FLOAT32:
+                        max_err[kname] = max(max_err[kname], err)
+
+
+def check_outputs(key: tuple, i: int, packed, out, want, tol: float, plain=None):
+    """One bucket's forward output against the reference's (``agree``); on
+    an intermediates path every layer's rows of real nodes and the pooled h
+    too. ``plain``, the bf16 plain path's output on the bucket, widens each
+    comparison's tol to 1.5× the tol that path itself needs, where that is
+    larger: bf16 GIN errs by up to ~5% of the largest prediction on either
+    path (PERF.md §2). Returns (the predictions' max abs error, their tol)."""
+    k = packed.num_graphs
+    pairs = [(out, want, plain)]
+    if isinstance(out, tuple):
+        import torch
+
+        real = torch.as_tensor(packed.node_graph < k, device=out[0].device)
+        (out, inter), (want, want_inter) = out, want
+        plain_inter = plain[1] if plain is not None else None
+        check(len(inter["layers"]) == len(want_inter["layers"]), f"{key}: intermediates")
+        pairs = [(out[:k], want[:k], None if plain is None else plain[0][:k])]
+        for j, (a, b) in enumerate(zip(inter["layers"], want_inter["layers"])):
+            pairs.append((a[real], b[real], None if plain is None else plain_inter["layers"][j][real]))
+        pairs.append((inter["h_graph"][:k], want_inter["h_graph"][:k],
+                      None if plain is None else plain_inter["h_graph"][:k]))
+    else:
+        pairs = [(out[:k], want[:k], None if plain is None else plain[:k])]
+    check(tuple(out.shape) == (packed.n_node.shape[0], 1), f"{key}: shape {tuple(out.shape)}")
+    check(bool(out[:k].isfinite().all()), f"{key}: non-finite output")
+    errs, tols = [], []
+    for got, ref, pl in pairs:
+        t = tol if pl is None else max(tol, 1.5 * needed_tol(pl, ref))
+        errs.append(agree(got, ref, t))
+        tols.append(t)
+    if len(pairs) > 1:
+        print(f"# intermediates {' '.join(key)} bucket {i}: max abs err per layer "
+              f"{', '.join(f'{e:.3e}' for e in errs[1:-1])}; pooled h {errs[-1]:.3e}; "
+              f"tol {max(tols):.3e}")
+    return errs[0], tols[0]
+
+
 def run_main_path(streams: dict, device, keys) -> dict:
-    """Phases 4, 4b and 4c: each (model, profile, layout) of ``keys`` over
-    its whole stream in f32 and bf16; returns each kernel's launches
+    """Phases 4, 4b, 4c and 4d: each (model, profile, layout) of ``keys``
+    over its whole stream in f32 and bf16; returns each kernel's launches
     counted in these runs.
 
     The reference is the port's plain edge-list path in f32 on the same
@@ -412,7 +542,9 @@ def run_main_path(streams: dict, device, keys) -> dict:
     order only: 1e-4. bf16 keeps about three significant digits, and a
     prediction is a mean of node outputs that partly cancel, so single
     graphs move by a few percent of the largest prediction: 5e-2. The bf16
-    plain path's own error against the same reference is printed beside."""
+    plain path's own error against the same reference is printed beside, and
+    where that path needs more than 5e-2 itself (GIN), the gate is 1.5×
+    what it needs (``check_outputs``)."""
     import collections
 
     import torch
@@ -429,15 +561,17 @@ def run_main_path(streams: dict, device, keys) -> dict:
         forward = registry.get(name).forward
         params_np = synthetic_params(name, SEED)
         p32 = params_from_numpy(params_np, FLOAT32, device)
-        want = [forward(p32, pb, FLOAT32)[: b.num_graphs] for b, pb in zip(buckets, plain)]
+        kw = forward_kw(key)
+        inter = bool(kw)
+        want = [forward(p32, pb, FLOAT32, **kw) for pb in plain]
         expect = collections.Counter()
         for b in batches:
-            expect.update(bucket_launches(name, b))
+            expect.update(bucket_launches(name, b, inter))
         for prec, tol in ((FLOAT32, 1e-4), (BF16, 5e-2)):
             params = params_from_numpy(params_np, prec, device)
             for k in kernels.values():
                 k.launches = 0
-            outs = [forward(params, b, prec) for b in batches]
+            outs = [forward(params, b, prec, **kw) for b in batches]
             torch.cuda.synchronize()
             counts = {k: f.launches for k, f in kernels.items()}
             check(counts == {k: expect.get(k, 0) for k in KERNELS},
@@ -446,16 +580,16 @@ def run_main_path(streams: dict, device, keys) -> dict:
                 launches[k] += c
             for i, (packed, out, pb, w) in enumerate(zip(buckets, outs, plain, want)):
                 k = packed.num_graphs
-                check(tuple(out.shape) == (packed.n_node.shape[0], 1), f"{key}: shape {tuple(out.shape)}")
-                check(bool(out[:k].isfinite().all()), f"{key}: non-finite output")
-                err = agree(out[:k], w, tol)
+                pl = forward(params, pb, prec, **kw) if prec is BF16 else None
+                err, t = check_outputs(key, i, packed, out, w, tol, pl)
+                w, pl = (w[0], pl[0] if pl is not None else None) if inter else (w, pl)
                 line = (f"# main path {name} {profile} {layout} {prec.compute_dtype} bucket {i}: "
-                        f"{k} graphs, launches {dict(bucket_launches(name, batches[i]))}, "
+                        f"{k} graphs, launches {dict(bucket_launches(name, batches[i], inter))}, "
                         f"max abs err vs f32 plain path {err:.3e}")
-                if prec is BF16:
-                    plain_err = (forward(params, pb, prec)[:k].float() - w).abs().max().item()
-                    line += f" (bf16 plain path: {plain_err:.3e})"
-                print(f"{line}; max |out| {w.abs().max().item():.3e}")
+                if pl is not None:
+                    plain_err = (pl[:k].float() - w[:k]).abs().max().item()
+                    line += f" (bf16 plain path: {plain_err:.3e}; tol {t:.3e})"
+                print(f"{line}; max |out| {w[:k].abs().max().item():.3e}")
     return launches
 
 
@@ -495,6 +629,24 @@ def describe_spill(streams: dict) -> None:
                   f"{real} of {b['senders'].shape[0]} edges, {b['slot_spill'].shape[0]} blocked "
                   f"lanes in {b['spill_blk_window'].shape[0]} blocks, compact windows T={t} "
                   f"of {b['spill_blk_winmap'].shape[0]}")
+
+
+def describe_ell_spill(streams: dict) -> None:
+    """Phase 4d's geometry: per hep10k W=128 ELL stream and bucket, W, k, the
+    ELL lanes, the spill tail's real and blocked lanes and the compact
+    scatter windows T; every bucket must spill."""
+    from flowgnn_tpu_torch.models import base
+
+    for name in ELL_MODELS:
+        buckets, batches, _ = streams[name, "hep10k", ELL_LAYER]
+        for i, b in enumerate(batches):
+            w, k = base.ell_geometry(b)
+            real = real_spill_lanes(b)
+            check(real > 0 and "spill_blk_vlocal" in b, f"{name} hep10k W=128 bucket {i}: no spill")
+            print(f"# ELL spill {name} hep10k bucket {i}: {buckets[i].num_graphs} graphs, W={w}, "
+                  f"k={k}, {b['loc_ulocal'].shape[0]} ELL lanes, spill lanes {real} of "
+                  f"{base.ell_spill_lanes(b)} blocked, compact windows "
+                  f"T={b['spill_blk_compact'].shape[0]} of {b['spill_blk_winmap'].shape[0]}")
 
 
 def check_ell_matches_slots(streams: dict, device) -> dict:
@@ -581,9 +733,24 @@ def work(kname: str, ops: dict, out) -> tuple[float, float]:
         ops_ = 3 * e * d + 4 * n * d * d
     elif kname == "gat_local_message_slots":
         ops_ = e * (2 * d + 4 * ops["num_heads"])
+    elif kname == "gin_local_layer_ell":
+        ops_ = 4 * e * d + 4 * n * d * ops["w1"].shape[0]
+    elif kname == "gcn_local_message_ell":
+        ops_ = 5 * e * d
+    elif kname == "gcn_local_layer_ell":
+        ops_ = 5 * e * d + (0 if ops["w_next"] is None else 2 * n * d * d)
     else:  # the spill scatter: one add per lane and column
         ops_ = e * d
     return float(ops_), float(byts)
+
+
+def spill_receivers(batch: dict):
+    """Each spill lane's receiver, of a slot or an ELL batch."""
+    from flowgnn_tpu_torch.models import base
+
+    if "loc_ell" in batch:
+        return batch["receivers"][batch["loc_ulocal"].shape[0] :].long()
+    return base.spill_lanes(batch)[1]
 
 
 def time_paths(streams: dict, device, keys) -> dict:
@@ -606,13 +773,14 @@ def time_paths(streams: dict, device, keys) -> dict:
         forward = registry.get(name).forward
         graphs = sum(b.num_graphs for b in buckets)
         params_np = synthetic_params(name, SEED)
-        kernels = sorted(bucket_launches(name, batches[0]))
+        kw = forward_kw(key)
+        kernels = sorted(bucket_launches(name, batches[0], bool(kw)))
         for prec in (BF16, FLOAT32):
             dt = str(prec.compute_dtype).replace("torch.", "")
             params = params_from_numpy(params_np, prec, device)
             tag = f"{name} {profile} {layout} {dt}"
-            e2e = cuda_ms(lambda: [forward(params, b, prec) for b in batches])
-            e2e_plain = cuda_ms(lambda: [forward(params, b, prec) for b in plain])
+            e2e = cuda_ms(lambda: [forward(params, b, prec, **kw) for b in batches])
+            e2e_plain = cuda_ms(lambda: [forward(params, b, prec, **kw) for b in plain])
             print(f"# time {tag}: kernel path {e2e * 1e3 / graphs:.4f} us/graph, "
                   f"plain edge-list path {e2e_plain * 1e3 / graphs:.4f} us/graph ({graphs} graphs)")
             for kname in kernels:
@@ -631,7 +799,7 @@ def time_paths(streams: dict, device, keys) -> dict:
                 if kname == SCATTER:
                     # The same sums as one PyTorch call: the spill values
                     # index-added at their receivers into [n, D'].
-                    lib = [(b["node_feat"].shape[0], base.spill_lanes(b)[1], o["values"])
+                    lib = [(b["node_feat"].shape[0], spill_receivers(b), o["values"])
                            for b, o in zip(batches, calls[:: num_layers(name)])]
                     lib = [x for x in lib for _ in range(num_layers(name))]
                     rec["library_ms"] = cuda_ms(lambda: [
@@ -693,7 +861,8 @@ def main() -> int:
     import torch
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--profile", action="store_true", help="profile the hep10k spill paths only")
+    ap.add_argument("--profile", action="store_true",
+                    help="profile the hep10k slot and ELL spill paths only")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -712,9 +881,11 @@ def main() -> int:
     ).stdout.strip()
     if args.profile:
         print(smi)
-        for name in SPILL_MODELS:
-            key = (name, "hep10k", SLOTS)
-            streams = {key: make_stream(name, "hep10k", HEP_GRAPHS, SLOTS, dev, window=SPILL_WINDOW)}
+        paths = [(name, SLOTS, SLOTS) for name in SPILL_MODELS]
+        paths += [(name, ELL_LAYER, ELL) for name in ELL_MODELS]
+        for name, label, layout in paths:
+            key = (name, "hep10k", label)
+            streams = {key: make_stream(name, "hep10k", HEP_GRAPHS, layout, dev, window=SPILL_WINDOW)}
             profile_path(key, streams, dev)
         return 0
     kind = torch.cuda.get_device_name(0)
@@ -743,6 +914,11 @@ def main() -> int:
     for name in SPILL_MODELS:
         streams[name, "hep10k", SLOTS] = make_stream(name, "hep10k", HEP_GRAPHS, SLOTS, dev,
                                                      window=SPILL_WINDOW)
+    for name in ELL_MODELS:
+        streams[name, "hep10k", ELL_LAYER] = make_stream(name, "hep10k", HEP_GRAPHS, ELL, dev,
+                                                         window=SPILL_WINDOW)
+    for name in INTER_MODELS:  # the molhiv ELL stream, run with intermediates
+        streams[name, "molhiv", ELL_INTER] = streams[name, "molhiv", ELL]
     for (name, profile, layout), (buckets, batches, _) in streams.items():
         if layout == SLOTS and profile == "molhiv":
             w, s = batches[0]["slot_geom"].shape
@@ -752,21 +928,27 @@ def main() -> int:
                   f"{batches[0]['slot_meta'].shape[0] // nw}")
     describe_ell(streams)
     describe_spill(streams)
-    print(f"# host pack of {len(streams)} streams: {time.perf_counter() - t0:.1f} s")
+    describe_ell_spill(streams)
+    print(f"# host pack of {len(streams) - len(INTER_MODELS)} streams: "
+          f"{time.perf_counter() - t0:.1f} s")
 
     # 3. Kernels against their plain versions; 4. the main paths; 5. timings.
     slot_keys = [(name, "molhiv", SLOTS) for name in MODELS]
     hep_keys = [(name, "hep10k", ELL) for name in ELL_MODELS]
     spill_keys = [(name, "hep10k", SLOTS) for name in SPILL_MODELS]
+    layer_keys = [(name, "hep10k", ELL_LAYER) for name in ELL_MODELS]
+    layer_keys += [(name, "molhiv", ELL_INTER) for name in INTER_MODELS]
     max_err = dict.fromkeys(KERNELS, 0.0)
     check_kernels(streams, dev, max_err)
     check_ell_kernels(streams, dev, max_err)
     check_layer_kernels(streams, dev, max_err)
-    launches = run_main_path(streams, dev, slot_keys + hep_keys + spill_keys)
+    check_ell_layer_kernels(streams, dev, max_err)
+    launches = run_main_path(streams, dev, slot_keys + hep_keys + spill_keys + layer_keys)
     for k, n in check_ell_matches_slots(streams, dev).items():
         launches[k] += n
     molhiv_ell_keys = [(name, "molhiv", ELL) for name in ELL_MODELS]
-    record = time_paths(streams, dev, slot_keys + hep_keys + molhiv_ell_keys + spill_keys)
+    record = time_paths(streams, dev,
+                        slot_keys + hep_keys + molhiv_ell_keys + spill_keys + layer_keys)
 
     print(smi)
     kernels = []

@@ -16,7 +16,8 @@ with one trailing pad node (index N) that every padded edge points at and one
 trailing pad graph that owns every pad node. ``blocked="local_slots"`` adds
 the degree-sorted dest-major slot layout of the slot kernels, with the
 blocked spill tail of the edges that leave it (``_attach_spill_blocks``),
-and ``blocked="local_ell"`` the ELL layout of the whole-model ELL kernels.
+and ``blocked="local_ell"`` the ELL layout of the ELL kernels, with the same
+blocked spill tail appended after its lanes.
 Their arrays hold the same values as ``flowgnn_tpu.models.base.as_batch``
 builds, stored as int32 where the JAX package stores bfloat16 (the TPU's
 one-hot ``spill_gblk_onehot`` is left out); static geometry rides in the
@@ -53,6 +54,9 @@ GEOMETRY_DEFAULTS: dict[str, tuple[int, int]] = {
     "pna": (128, 384),
     "dgn": (128, 384),
 }
+# The ELL layout's window and block when ``as_batch`` is given none: the JAX
+# package's PALLAS_ELL_WINDOW / PALLAS_ELL_BLOCK.
+ELL_DEFAULT_GEOMETRY = (512, 1536)
 MAX_SLOTS = 8  # deepest slot axis; deeper in-degrees spill
 POOL_GMAX = 64  # graph slots per window in the in-kernel pooling layout
 PALLAS_BLOCK = 128  # spill lanes per block of the spill tail's blocked layout
@@ -275,9 +279,15 @@ def as_batch(
     tail's lanes so that the buckets of a stream share one layout where they
     can (``as_batches_uniform``). ``blocked="local_ell"`` (window-aligned
     packing too) keeps the node order and attaches the ELL layout of
-    ``window`` rows and ``block`` lanes per edge block (see
-    ``_attach_ell_layout``); an ELL bucket that spills raises, as do the
-    legacy ``"local"`` and edge-block layouts (ROADMAP queue 2).
+    ``window`` rows and ``block`` lanes per edge block, with its spill tail
+    (see ``_attach_ell_layout``); ``spill_capacity`` pins that tail's
+    length before blocking. The legacy ``"local"`` and edge-block layouts
+    raise (ROADMAP queue 2).
+
+    Without a window, the ELL layout takes the JAX package's (512, 1536)
+    (``ELL_DEFAULT_GEOMETRY``), and the slot layout W=128, where the JAX
+    package takes 512: the port's slot kernels hold a window in one block's
+    shared memory and refuse windows above 128 (ROADMAP queue 3).
     """
     batch = {
         "node_feat": packed.node_feat,
@@ -295,8 +305,8 @@ def as_batch(
     if not blocked:
         return batch
     if blocked == "local_ell":
-        gw, gb = GEOMETRY_DEFAULTS["gin"]
-        _attach_ell_layout(batch, packed, window or gw, block or gb)
+        gw, gb = ELL_DEFAULT_GEOMETRY
+        _attach_ell_layout(batch, packed, window or gw, block or gb, spill_capacity)
         return batch
     if blocked != "local_slots":
         raise NotImplementedError(
@@ -398,33 +408,55 @@ def _attach_prefix_layout(batch: dict, slot3: np.ndarray, slot_edge: np.ndarray,
     batch["slot_meta"] = meta.reshape(-1, 4)
 
 
-def _attach_ell_layout(batch: dict, packed: PackedGraphs, window: int, block: int) -> None:
-    """The no-spill ELL layout of ``flowgnn_tpu.models.base.as_batch``:
-    ``senders`` / ``receivers`` / ``edge_attr`` re-ordered into the
-    NW·k·block lanes (pad lanes point at the pad node, attrs 0),
-    ``loc_ulocal`` / ``loc_vlocal`` the lanes' in-window endpoints, the
-    ``loc_ell`` marker whose shape (window, k) carries the geometry, the
-    pooling layout over the un-permuted ``node_graph``, and the degree
-    tables."""
+def _attach_ell_layout(batch: dict, packed: PackedGraphs, window: int, block: int,
+                       spill_capacity: int | None = None) -> None:
+    """The ELL layout of ``flowgnn_tpu.models.base.as_batch``: ``senders`` /
+    ``receivers`` / ``edge_attr`` re-ordered into the P = NW·k·block lanes
+    (pad lanes point at the pad node, attrs 0), then the spill tail
+    appended after them: the edges that cross a window or overflow their
+    window's lanes, in the blocked order of ``_attach_spill_blocks`` (pad
+    lanes point at the pad node, attrs 0; a tail of pad lanes only, from a
+    pinned ``spill_capacity``, stays unblocked). Also ``loc_ulocal`` /
+    ``loc_vlocal``, the ELL lanes' in-window endpoints, the ``loc_ell``
+    marker whose shape (window, k) carries the geometry, the pooling layout
+    over the un-permuted ``node_graph``, and the degree tables over every
+    lane."""
     from ..core.blocking import build_local_blocks_ell
 
     n = packed.node_capacity + 1
-    lb = build_local_blocks_ell(packed.senders, packed.receivers, n, window=window, block=block)
-    if lb.spill_count:
-        raise NotImplementedError(
-            f"{lb.spill_count} edges spill out of the ELL layout; an ELL spill "
-            "tail runs the per-layer ELL kernels (kernel table rows 13 / 15, "
-            "with the spill scatter of row 24), not ported yet (ROADMAP queue 2 B)"
+    pad = n - 1
+    lb = build_local_blocks_ell(packed.senders, packed.receivers, n, window=window,
+                                block=block, spill_capacity=spill_capacity)
+    if lb.k_blocks > 1:
+        warnings.warn(
+            f"ELL grid k={lb.k_blocks} (the densest window exceeds block={lb.block}): "
+            f"every window runs {lb.k_blocks} blocks of lanes; consider a block of at "
+            f"least {lb.k_blocks * lb.block}",
+            stacklevel=3,
         )
     lanes = lb.u_local.shape[0]
-    s = np.full(lanes, n - 1, np.int32)
-    r = np.full(lanes, n - 1, np.int32)
+    s = np.full(lanes, pad, np.int32)
+    r = np.full(lanes, pad, np.int32)
     a = np.zeros((lanes, packed.edge_attr.shape[1]), np.int32)
     take = lb.edge_perm[lb.valid]
     s[lb.valid] = packed.senders[take]
     r[lb.valid] = packed.receivers[take]
     a[lb.valid] = packed.edge_attr[take]
-    batch["senders"], batch["receivers"], batch["edge_attr"] = s, r, a
+    sp_s = packed.senders[lb.spill].copy()
+    sp_r = packed.receivers[lb.spill].copy()
+    sp_a = packed.edge_attr[lb.spill].copy()
+    # Spill slots past the real ones hold edge 0: neutralise them.
+    sp_s[lb.spill_count :] = pad
+    sp_r[lb.spill_count :] = pad
+    sp_a[lb.spill_count :] = 0
+    if lb.spill_count:
+        perm, valid = _attach_spill_blocks(batch, sp_r, n, sp_send=sp_s)
+        sp_s = np.where(valid, sp_s[perm], pad)
+        sp_r = np.where(valid, sp_r[perm], pad)
+        sp_a = np.where(valid[:, None], sp_a[perm], 0)
+    batch["senders"] = np.concatenate([s, sp_s])
+    batch["receivers"] = np.concatenate([r, sp_r])
+    batch["edge_attr"] = np.concatenate([a, sp_a])
     batch["loc_ulocal"] = lb.u_local
     batch["loc_vlocal"] = lb.v_local
     batch["loc_ell"] = np.zeros((lb.window, lb.k_blocks), np.int32)
@@ -439,34 +471,26 @@ def ell_geometry(batch: dict) -> tuple[int, int]:
     return int(m.shape[-2]), int(m.shape[-1])
 
 
-def require_ell_megakernel(batch: dict, return_intermediates: bool, layer_row: int) -> None:
-    """Pass an ELL batch that a whole-model ELL kernel takes: one edge block
-    per window, no spill lanes, the pooling layout, no intermediates. Every
-    other ELL batch raises ``NotImplementedError`` naming the kernel-table
-    rows it needs (``layer_row``, the model's per-layer ELL kernel; row 24
-    for the spill tail)."""
+def ell_spill_lanes(batch: dict) -> int:
+    """The lanes of an ELL batch's spill tail (after its P ELL lanes)."""
+    return batch["senders"].shape[0] - batch["loc_ulocal"].shape[0]
+
+
+def ell_megakernel(batch: dict, return_intermediates: bool) -> bool:
+    """Whether an ELL batch runs its model's whole-model ELL kernel: one
+    edge block per window, no spill lanes, the pooling layout and no
+    intermediates (the JAX package's dispatch, ``flowgnn_tpu/models/
+    gin.py:154-162`` and ``gcn.py:118-132``, which also needs ``wps`` = 1;
+    the port has no ``wps``). Every other ELL batch runs the per-layer ELL
+    path."""
     _, k = ell_geometry(batch)
-    spill = batch["senders"].shape[0] - batch["loc_ulocal"].shape[0]
-    why, rows = None, f"row {layer_row}"
-    if k != 1:
-        why = f"k={k} edge blocks per window"
-    elif spill:
-        why, rows = f"{spill} spill lanes", f"rows {layer_row} and 24"
-    elif "pool_gl" not in batch:
-        why = f"more than POOL_GMAX={POOL_GMAX} graphs in a window"
-    elif return_intermediates:
-        why = "return_intermediates (the whole-model kernel keeps h on chip)"
-    if why:
-        raise NotImplementedError(
-            f"ELL batch with {why}: runs the per-layer ELL path (kernel table "
-            f"{rows}), not ported yet (ROADMAP queue 2 B)"
-        )
+    return (k == 1 and not ell_spill_lanes(batch) and "pool_gl" in batch
+            and not return_intermediates)
 
 
 def ell_meta(batch: dict) -> torch.Tensor:
     """[P, 5] int32 per ELL lane: (u_local, v_local, the three bond attrs
-    with their vocabulary offsets), the lane operand of the whole-model ELL
-    kernels."""
+    with their vocabulary offsets), the lane operand of the ELL kernels."""
     p = batch["loc_ulocal"].shape[0]
     offs = torch.as_tensor(BOND_FEATURE_OFFSETS, device=batch["edge_attr"].device)
     return torch.cat([
@@ -477,18 +501,18 @@ def ell_meta(batch: dict) -> torch.Tensor:
 
 # Batch keys of the layouts not ported yet (ROADMAP queue 2): the legacy
 # dynamic-window layout (``loc_ulocal`` without ``loc_ell``), the edge-block
-# layout, the spill blocks of an ELL batch, and the ELL layout for the
-# models without ELL kernels.
+# layout, and the ELL layout with its spill blocks for the models that do not
+# run it yet (DGN, GAT).
 UNPORTED_LAYOUT_KEYS = ("loc_ulocal", "loc_ell", "blk_vlocal", "spill_blk_vlocal")
 
 
 def reject_unported_layouts(batch: dict, ell: bool = False) -> None:
     """Raise ``NotImplementedError`` on a batch in a layout the port does
-    not run yet. ``ell=True`` (GIN, GCN) lets the ELL layout through; the
-    spill blocks of a slot batch always pass."""
+    not run yet. ``ell=True`` (GIN, GCN, PNA) lets the ELL layout and its
+    spill blocks through; the spill blocks of a slot batch always pass."""
     ok = {"spill_blk_vlocal"} if "slot_src" in batch else set()
     if ell and "loc_ell" in batch:
-        ok |= {"loc_ulocal", "loc_ell"}
+        ok |= {"loc_ulocal", "loc_ell", "spill_blk_vlocal"}
     for key in UNPORTED_LAYOUT_KEYS:
         if key in batch and key not in ok:
             raise NotImplementedError(
@@ -510,26 +534,30 @@ def as_batches_uniform(
     caps when no bucket spills or the spill-tail capacity when every bucket
     does, reconciled to stream-wide maxima, so that the buckets share one
     layout signature where they can (the blocked spill layout depends on
-    each bucket's content). ELL buckets need nothing reconciled: the one
-    stream-wide parameter the JAX package pins for them is the spill-tail
-    length, and a bucket that spills raises here."""
+    each bucket's content). ELL buckets reconcile the spill tail's
+    capacity, when every bucket spills."""
     mk = lambda b, **kw: as_batch(b, blocked=blocked, window=window, block=block, **kw)
     batches = [mk(b) for b in buckets]
-    if (
-        blocked != "local_slots" or len(batches) < 2
-        or len({batch_signature(b) for b in batches}) == 1
-    ):
+    if len(batches) < 2 or len({batch_signature(b) for b in batches}) == 1:
         return batches
-    kw = dict(slots=max(b["slot_geom"].shape[-1] for b in batches))
-    if all("slot_pcap_0" in b for b in batches):
-        caps = [
-            tuple(b[f"slot_pcap_{k}"].shape[-2] for k in range(b["slot_geom"].shape[-1]))
-            for b in batches
-        ]
-        # Missing deeper slots contribute the 64-row floor.
-        kw["prefix_caps"] = tuple(max(c) for c in itertools.zip_longest(*caps, fillvalue=64))
-    elif all(b["slot_spill_mask"].any() for b in batches):
-        kw["spill_capacity"] = max(b["slot_spill"].shape[-1] for b in batches)
+    kw = {}
+    if blocked == "local_slots":
+        kw["slots"] = max(b["slot_geom"].shape[-1] for b in batches)
+        if all("slot_pcap_0" in b for b in batches):
+            caps = [
+                tuple(b[f"slot_pcap_{k}"].shape[-2] for k in range(b["slot_geom"].shape[-1]))
+                for b in batches
+            ]
+            # Missing deeper slots contribute the 64-row floor.
+            kw["prefix_caps"] = tuple(max(c) for c in itertools.zip_longest(*caps, fillvalue=64))
+        elif all(b["slot_spill_mask"].any() for b in batches):
+            kw["spill_capacity"] = max(b["slot_spill"].shape[-1] for b in batches)
+    elif blocked == "local_ell":
+        tails = [ell_spill_lanes(b) for b in batches]
+        if min(tails) > 0:
+            kw["spill_capacity"] = max(tails)
+    if not kw:
+        return batches
     return [mk(b, **kw) for b in buckets]
 
 
@@ -574,10 +602,32 @@ def atom_embed(table: torch.Tensor, node_feat: torch.Tensor, prec: Precision) ->
     return _embed_sum(table, node_feat.long() + offs, prec)
 
 
+def bond_rows(edge_attr: torch.Tensor) -> torch.Tensor:
+    """[E, 3] bond-table rows: the attrs with their vocabulary offsets."""
+    return edge_attr.long() + torch.as_tensor(BOND_FEATURE_OFFSETS, device=edge_attr.device)
+
+
 def bond_embed(table_l: torch.Tensor, edge_attr: torch.Tensor, prec: Precision) -> torch.Tensor:
     """ee[e] = Σ_f BondTable_l[offset_f + attr_f[e]] (GIN/src/message_passing.cc:136-146)."""
-    offs = torch.as_tensor(BOND_FEATURE_OFFSETS, device=edge_attr.device)
-    return _embed_sum(table_l, edge_attr.long() + offs, prec)
+    return _embed_sum(table_l, bond_rows(edge_attr), prec)
+
+
+def ell_spill(batch: dict) -> Optional[tuple]:
+    """An ELL batch's spill tail as the per-layer ELL paths use it,
+    computed once per forward: (each lane's sender, its receiver, its
+    ``bond_rows``), or None without a tail."""
+    if not ell_spill_lanes(batch):
+        return None
+    p = batch["loc_ulocal"].shape[0]
+    return (batch["senders"][p:].long(), batch["receivers"][p:].long(),
+            bond_rows(batch["edge_attr"][p:]))
+
+
+def spill_messages(h: torch.Tensor, table_l: torch.Tensor, spill: tuple,
+                   prec: Precision) -> torch.Tensor:
+    """relu(h_u + ee) per lane of an ELL batch's spill tail (``spill`` as
+    ``ell_spill`` gives it)."""
+    return relu(spill_gather(h, spill[0]) + _embed_sum(table_l, spill[2], prec))
 
 
 def gather_sources(h: torch.Tensor, batch: dict) -> torch.Tensor:
@@ -624,8 +674,9 @@ def spill_segment_operands(vals: torch.Tensor, batch: dict) -> dict:
 
 
 def spill_segment_sum(vals: torch.Tensor, batch: dict) -> torch.Tensor:
-    """Per-node sum [n, D'] of the spill lane values [P, D'] of a slot batch
-    with a spill tail: the windowed segment sum (kernel table row 24) over
+    """Per-node sum [n, D'] of the spill lane values [P, D'] of a batch
+    whose spill tail is blocked (a slot or an ELL batch): the windowed
+    segment sum (kernel table row 24) over
     the compact windows of the blocked layout, each window then taken to
     its rows by ``spill_blk_winmap`` (windows with no spill lane read a zero
     window)."""
@@ -635,6 +686,19 @@ def spill_segment_sum(vals: torch.Tensor, batch: dict) -> torch.Tensor:
     compact = windowed_segment_sum(**ops).reshape(t, w, d)
     out3 = torch.cat([compact, compact.new_zeros(1, w, d)])
     return out3[batch["spill_blk_winmap"].long()].reshape(-1, d)[:n]
+
+
+def ell_spill_segment_sum(vals: torch.Tensor, batch: dict) -> torch.Tensor:
+    """Per-node sum [n, D'] of the values [S, D'] of an ELL batch's spill
+    lanes: ``spill_segment_sum`` (row 24) over the tail's blocked layout. A
+    tail of pad lanes only (a pinned ``spill_capacity`` on a bucket that
+    spills nothing) has no blocked layout and sums by receiver in plain
+    torch, as the JAX package's ``spill_segment_sum`` falls back to its XLA
+    segment sum."""
+    if "spill_blk_vlocal" in batch:
+        return spill_segment_sum(vals, batch)
+    p = batch["loc_ulocal"].shape[0]
+    return segment_sum(vals, batch["receivers"][p:], num_nodes_static(batch))
 
 
 def out_degree(batch: dict) -> torch.Tensor:

@@ -11,15 +11,24 @@ GIN-VN runs the same program over graphs with an analytic virtual node
 per-graph pooled sum plus a per-graph broadcast (``_vn_message`` here, the
 VN stage inside the slot megakernel).
 
-Three branches: a slot batch (``as_batch(blocked="local_slots")``) runs the
+Four branches: a slot batch (``as_batch(blocked="local_slots")``) runs the
 whole model in one ``gin_local_model_slots`` launch, an ELL batch
-(``blocked="local_ell"``) in one ``gin_local_model`` launch, and a plain
-edge-list batch runs the plain torch path, the port's own end-to-end
-oracle. A slot batch the megakernel does not take (a spill tail, no
-``pool_gl``, ``return_intermediates``) runs the plain path on its own edge
-list, as the JAX package's dispatch falls through to its plain loop; an ELL
-batch the ELL kernel does not take raises ``NotImplementedError`` naming
-what it needs.
+(``blocked="local_ell"``) with one edge block per window, no spill tail and
+the pooling layout in one ``gin_local_model`` launch, every other ELL batch
+(k > 1, a spill tail, no ``pool_gl``, ``return_intermediates``) the
+per-layer ELL path, and a plain edge-list batch the plain torch path, the
+port's own end-to-end oracle. A slot batch the megakernel does not take (a
+spill tail, no ``pool_gl``, ``return_intermediates``) runs the plain path on
+its own edge list, as the JAX package's dispatch falls through to its plain
+loop.
+
+The per-layer ELL path (``flowgnn_tpu/models/gin.py:192-268``, without its
+halo branch): per layer the spill tail's messages relu(h_u + ee) are
+gathered by index (``base.spill_gather``) and summed per node by the spill
+scatter (``base.ell_spill_segment_sum``, kernel table row 24), GIN-VN adds
+its VN messages, and one ``gin_local_layer_ell`` launch (row 13) runs the
+window-local messages and the MLP; ``mean_pool`` and the readout are plain
+torch.
 
 The FPGA drops ε (GIN/src/host.cc:185-200), so ``fpga_eps=True`` (default)
 zeroes it for device parity; ``False`` uses the trained value.
@@ -27,10 +36,12 @@ zeroes it for device parity; ``False`` uses the trained value.
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 from ..core.numerics import FLOAT32, Precision
-from ..ops.local_layer import gin_local_model, gin_local_model_slots
+from ..ops.local_layer import gin_local_layer_ell, gin_local_model, gin_local_model_slots
 from ..ops.segment import segment_sum
 from . import base as _base
 from .base import (
@@ -110,6 +121,47 @@ def ell_kernel_operands(params: dict, batch: dict, prec: Precision = FLOAT32,
     )
 
 
+def _ell_layer_operands(params: dict, batch: dict, prec: Precision, l: int, h: torch.Tensor,
+                        meta: torch.Tensor, spill: Optional[tuple],
+                        eps_all: torch.Tensor) -> dict:
+    """The keyword operands the per-layer ELL path hands
+    ``gin_local_layer_ell`` for layer ``l`` and its input ``h``: ``meta`` is
+    ``base.ell_meta(batch)``, ``spill`` is ``base.ell_spill(batch)``,
+    ``eps_all`` the [L, 1] 1+ε. ``m_spill`` is the spill tail's messages
+    summed per node plus GIN-VN's VN messages, or None when there are
+    neither."""
+    table = params["edge_embedding"][l]
+    m_spill = None
+    if spill is not None:
+        m_spill = _base.ell_spill_segment_sum(_base.spill_messages(h, table, spill, prec), batch)
+    if "vn_mask" in batch:
+        vn = _vn_message(h, table, batch, prec)
+        m_spill = vn if m_spill is None else (m_spill + vn).to(h.dtype)
+    return dict(
+        ell_meta=meta, h=h, m_spill=m_spill, ee_table=table.to(prec.compute_dtype),
+        w1=params["mlp1_w"][l], b1=params["mlp1_b"][l], w2=params["mlp2_w"][l],
+        b2=params["mlp2_b"][l], eps1=eps_all[l : l + 1], window=_base.ell_geometry(batch)[0],
+        final_relu=l != params["mlp1_w"].shape[0] - 1,
+    )
+
+
+def layer_kernel_operands(params: dict, batch: dict, prec: Precision = FLOAT32,
+                          fpga_eps: bool = True) -> dict:
+    """Layer 0's keyword operands of the kernels the per-layer ELL path runs
+    on an ELL batch, by wrapper name: ``gin_local_layer_ell``, and the spill
+    scatter ``windowed_segment_sum`` when the batch has a blocked spill tail
+    (also used to check and time the kernels on their own)."""
+    h = atom_embed(params["node_embedding"], batch["node_feat"], prec)
+    spill = _base.ell_spill(batch)
+    eps_all = (1.0 + _eps(params, prec, fpga_eps)).to(acc_dtype(prec)).reshape(-1, 1)
+    out = {"gin_local_layer_ell": _ell_layer_operands(
+        params, batch, prec, 0, h, _base.ell_meta(batch), spill, eps_all)}
+    if spill is not None and "spill_blk_vlocal" in batch:
+        msg = _base.spill_messages(h, params["edge_embedding"][0], spill, prec)
+        out["windowed_segment_sum"] = _base.spill_segment_operands(msg, batch)
+    return out
+
+
 def forward(
     params: dict,
     batch: dict,
@@ -121,8 +173,8 @@ def forward(
     as made by ``params.loaders.params_from_numpy``; ``batch`` as made by
     ``models.base.to_device``."""
     _base.reject_unported_layouts(batch, ell=True)
-    if "loc_ell" in batch:
-        _base.require_ell_megakernel(batch, return_intermediates, layer_row=13)
+    ell = "loc_ell" in batch
+    if ell and _base.ell_megakernel(batch, return_intermediates):
         pool = gin_local_model(**ell_kernel_operands(params, batch, prec, fpga_eps))
         return _base.pool_finish(pool, batch, params["pred_b"], prec)
     if "slot_meta" in batch and "pool_gl" in batch and not return_intermediates:
@@ -134,7 +186,15 @@ def forward(
     h = atom_embed(params["node_embedding"], batch["node_feat"], prec)
     inter = [h]
     vn = "vn_mask" in batch
+    if ell:
+        meta, spill = _base.ell_meta(batch), _base.ell_spill(batch)
+        eps_all = (1.0 + eps).to(acc_dtype(prec)).reshape(L, 1)
     for l in range(L):
+        if ell:
+            h = gin_local_layer_ell(**_ell_layer_operands(params, batch, prec, l, h, meta,
+                                                          spill, eps_all))
+            inter.append(h)
+            continue
         ee = bond_embed(params["edge_embedding"][l], batch["edge_attr"], prec)
         msg = relu(gather_sources(h, batch) + ee)
         agg = edge_segment_sum(msg, batch)

@@ -16,11 +16,12 @@ JAX package does: per layer ``pna_local_stats_ell`` (kernel table row 19)
 gives the slot aggregates, the spill tail adds its sums through
 ``base.spill_segment_sum`` (row 24) and its min / max through
 ``segment_min`` / ``segment_max``, and the tower, ``mean_pool`` and the
-readout are plain torch; a plain edge-list batch runs the plain loop, the
-port's own oracle. A slot batch with no spill tail that the megakernel does
-not take (``return_intermediates``, or no ``pool_gl``) would go to
-``pna_local_layer`` (row 20, not ported yet) and raises
-``NotImplementedError``.
+readout are plain torch; a plain edge-list batch, and an ELL batch (spill
+tail included: PNA has no ELL kernel, ``flowgnn_tpu/models/pna.py:56-58``),
+runs the plain loop, the port's own oracle. A slot batch with no spill tail
+that the megakernel does not take (``return_intermediates``, or no
+``pool_gl``) would go to ``pna_local_layer`` (row 20, not ported yet) and
+raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -144,7 +145,7 @@ def forward(
     """[G+1, 1] predictions (the last row is the pad graph's). ``params``
     as made by ``params.loaders.params_from_numpy``; ``batch`` as made by
     ``models.base.to_device``."""
-    _base.reject_unported_layouts(batch)
+    _base.reject_unported_layouts(batch, ell=True)
     slots = "slot_src" in batch
     if slots and not batch["slot_spill"].shape[-1]:
         if return_intermediates or "pool_gl" not in batch:

@@ -35,6 +35,21 @@ window of 128 rows:
 - ``gat_local_message_slots``: GAT's softmax sums or messages
   (``csrc/gat_local_message_slots.cu``).
 
+The per-layer ELL kernels run one layer per launch over the ELL layout with
+any number k of edge blocks per window (the k·B lanes of a window are one
+run sorted by destination row), at windows of 128 up to 1024 rows, one block
+per 128 rows; h stays in device memory between layers:
+
+- ``gin_local_layer_ell``: a whole GIN / GIN-VN layer, messages, the spill
+  tail's pre-summed ``m_spill`` and the MLP (``csrc/gin_local_layer_ell.cu``,
+  TPU ``local_scatter_apply_ell_attr`` with the ``gin_local_layer_ell``
+  epilogue; ``_local_scatter_apply_ell_wps``, its ``wps`` > 1 form, computes
+  the same function and is merged into it);
+- ``gcn_local_message_ell``: GCN's norm-scaled message sum
+  (``csrc/gcn_local_message_ell.cu``);
+- ``gcn_local_layer_ell``: a whole GCN layer after its conv, up to the next
+  conv's output (``csrc/gcn_local_layer_ell.cu``).
+
 The spill tail's scatter is ``ops.spmm.windowed_segment_sum``.
 
 On a CUDA tensor a wrapper launches its hand-written kernel, or raises; on a
@@ -66,7 +81,8 @@ LIBRARIES = (
     "gin_local_model_slots", "gcn_local_model_slots", "pna_local_model",
     "dgn_local_model", "gat_local_model_slots", "gin_local_model",
     "gcn_local_model", "pna_local_stats_slots", "dgn_local_layer_slots",
-    "gat_local_message_slots", "windowed_segment_sum",
+    "gat_local_message_slots", "windowed_segment_sum", "gin_local_layer_ell",
+    "gcn_local_message_ell", "gcn_local_layer_ell",
 )
 
 
@@ -689,6 +705,111 @@ def gat_local_message_slots_ref(
     return out[:n].to(h.dtype)
 
 
+def _ell_layer_inputs(ell_meta, h, ee_table, window):
+    """The per-layer ELL kernels' common start: (lanes as ``_ell_lanes``
+    gives them, h padded to NW·W rows in the accumulation dtype, each lane's
+    bond embedding summed from its three table rows, the accumulation
+    dtype)."""
+    acc = _acc_dtype(h.dtype)
+    nw = -(-h.shape[0] // window)
+    vocab, d = ee_table.shape
+    lanes = _ell_lanes(ell_meta, nw, window, vocab, acc)
+    tab = torch.cat([ee_table.to(acc), torch.zeros(1, d, dtype=acc, device=h.device)])
+    attrs = lanes[2]
+    ee = tab[attrs[:, 0]] + tab[attrs[:, 1]] + tab[attrs[:, 2]]
+    return lanes, _padded(h, nw * window).to(acc), ee, acc
+
+
+def gin_local_layer_ell_ref(
+    ell_meta: torch.Tensor,  # [NW·k·B, 5] int (u_local, v_local, attrs+offsets)
+    h: torch.Tensor,  # [n, D] layer input
+    m_spill: Optional[torch.Tensor],  # [n, D] spill tail's (and VN) messages, or None
+    ee_table: torch.Tensor,  # [13, D] this layer's bond-embedding table
+    w1: torch.Tensor,  # [H, D]
+    b1: torch.Tensor,  # [H]
+    w2: torch.Tensor,  # [D, H]
+    b2: torch.Tensor,  # [D]
+    eps1: torch.Tensor,  # [1, 1] 1+ε, float32 (float64 for f64 h)
+    window: int,
+    final_relu: bool,
+) -> torch.Tensor:
+    """Plain-torch ``gin_local_layer_ell``: the next h [n, D] in h's dtype.
+
+    Per window row v over its lanes u → v, in lane order: acc = Σ rnd(relu(
+    h_u + ee)), ee the sum of the lane's three table rows; act = rnd(acc +
+    m_spill + (1+ε)·h), z = rnd(relu(act·w1ᵀ + b1)), out = z·w2ᵀ + b2, with
+    a ReLU when ``final_relu`` (every layer but the last). A lane whose u
+    lies outside [0, W) reads a zero source and one whose v does lands
+    nowhere, as the TPU kernel's one-hot gather and scatter give. ``rnd``
+    rounds to h's dtype; products and sums run in f32 (f64 for f64 inputs).
+    ``m_spill=None`` adds nothing."""
+    cdt = h.dtype
+    n = h.shape[0]
+    (gather, u_ok, _, accumulate), hf, ee, acc = _ell_layer_inputs(ell_meta, h, ee_table, window)
+    agg = accumulate(_relu(hf[gather] * u_ok + ee).to(cdt).to(acc))
+    if m_spill is not None:
+        agg = agg + _padded(m_spill.to(acc), hf.shape[0])
+    act = (agg + eps1.reshape(()).to(acc) * hf).to(cdt).to(acc)
+    z = _relu(act @ w1.to(acc).T + b1.to(acc)).to(cdt).to(acc)
+    out = z @ w2.to(acc).T + b2.to(acc)
+    if final_relu:
+        out = _relu(out)
+    return out[:n].to(cdt)
+
+
+def _gcn_ell_message(ell_meta, h, dis, ee_table, window):
+    """(Σ rnd(dis_u·relu(h_u + ee)) per window row, h and dis_v padded to
+    NW·W rows, the accumulation dtype) of rows 14 and 15. dis is rounded to
+    h's dtype, as it rides the TPU kernels' gather."""
+    (gather, u_ok, _, accumulate), hf, ee, acc = _ell_layer_inputs(ell_meta, h, ee_table, window)
+    dis_v = _padded(dis.to(h.dtype).to(acc)[:, None], hf.shape[0])
+    dis_u = dis_v[gather] * u_ok
+    msg = (dis_u * _relu(hf[gather] + ee)).to(h.dtype).to(acc)
+    return accumulate(msg), hf, dis_v, acc
+
+
+def gcn_local_message_ell_ref(
+    ell_meta: torch.Tensor,  # [NW·k·B, 5] int (u_local, v_local, attrs+offsets)
+    h: torch.Tensor,  # [n, D] this layer's conv output
+    dis: torch.Tensor,  # [n] 1/sqrt(out_deg + 1)
+    ee_table: torch.Tensor,  # [13, D] this layer's bond-embedding table
+    window: int,
+) -> torch.Tensor:
+    """Plain-torch ``gcn_local_message_ell``: m [n, D] in h's dtype, per
+    window row v over its lanes u → v in lane order m[v] = rnd(dis_v · Σ
+    rnd(dis_u·relu(h_u + ee))). A lane whose u lies outside [0, W) has
+    dis_u = 0 and one whose v does lands nowhere. Products and sums run in
+    f32 (f64 for f64 inputs)."""
+    s, _, dis_v, _ = _gcn_ell_message(ell_meta, h, dis, ee_table, window)
+    return (s * dis_v)[: h.shape[0]].to(h.dtype)
+
+
+def gcn_local_layer_ell_ref(
+    ell_meta: torch.Tensor,  # [NW·k·B, 5] int (u_local, v_local, attrs+offsets)
+    h: torch.Tensor,  # [n, D] this layer's conv output
+    dis: torch.Tensor,  # [n] 1/sqrt(out_deg + 1)
+    ee_table: torch.Tensor,  # [13, D] this layer's bond-embedding table
+    root: torch.Tensor,  # [D] root embedding
+    alpha: torch.Tensor,  # [D] folded-BN scale
+    beta: torch.Tensor,  # [D] folded-BN shift
+    w_next: Optional[torch.Tensor],  # [D, D] next conv weight as [in, out], None on the last layer
+    b_next: Optional[torch.Tensor],  # [D] next conv bias, None on the last layer
+    window: int,
+) -> torch.Tensor:
+    """Plain-torch ``gcn_local_layer_ell``: [n, D] in h's dtype. Per window
+    row v: a = dis_v·Σ rnd(dis_u·relu(h_u + ee)) + relu(h_v + root)·dis_v²
+    (the TPU kernel's dis², where the plain path divides by deg + 1), x =
+    alpha·a + beta; the last layer (``w_next`` None) returns rnd(x), every
+    other rnd(rnd(relu(x))·w_next + b_next), the next conv's output.
+    Products and sums run in f32 (f64 for f64 inputs)."""
+    s, hf, dis_v, acc = _gcn_ell_message(ell_meta, h, dis, ee_table, window)
+    a = s * dis_v + _relu(hf + root.to(acc)) * (dis_v * dis_v)
+    x = alpha.to(acc) * a + beta.to(acc)
+    if w_next is not None:
+        x = _relu(x).to(h.dtype).to(acc) @ w_next.to(acc) + b_next.to(acc)
+    return x[: h.shape[0]].to(h.dtype)
+
+
 # ---------------------------------------------------------------------------
 # The kernels: build, bind, check, launch.
 # ---------------------------------------------------------------------------
@@ -702,10 +823,12 @@ def _library(name: str) -> dict:
     """The C functions of ``csrc/<name>.cu``'s built library, signatures
     declared, by suffix: every library exports ``<prefix>_smem_optin``,
     ``_smem_bytes``, ``_launch`` and ``_error_string``; a slot library
-    ``_max_d`` and ``_max_slots``, an ELL library ``_max_d``,
-    ``_rows_per_block`` and ``_max_cluster``."""
+    ``_max_d`` and ``_max_slots``, a whole-model ELL library ``_max_d``,
+    ``_rows_per_block`` and ``_max_cluster``, a per-layer ELL library
+    ``_max_d``, ``_rows_per_block`` and ``_max_window_blocks``."""
     slot_getters = ("max_d", "max_slots")
     ell_getters = ("max_d", "rows_per_block", "max_cluster")
+    layer_getters = ("max_d", "rows_per_block", "max_window_blocks")
     prefix, getters, smem_args, launch_args = {
         "gin_local_model_slots": (
             "gin_slots", slot_getters, [_I32] * 5 + [_INT_P, _I32],
@@ -751,6 +874,18 @@ def _library(name: str) -> dict:
             "wss", (), [_I32],
             [_I32] + [_PTR] * 4 + [_I32] * 5 + [_I32, _PTR],
         ),
+        "gin_local_layer_ell": (
+            "gin_layer_ell", layer_getters, [_I32] * 2,
+            [_I32] + [_PTR] * 10 + [_I32] * 8 + [_I32, _PTR],
+        ),
+        "gcn_local_message_ell": (
+            "gcn_msg_ell", layer_getters, [_I32] * 2,
+            [_I32] + [_PTR] * 5 + [_I32] * 6 + [_I32, _PTR],
+        ),
+        "gcn_local_layer_ell": (
+            "gcn_layer_ell", layer_getters, [_I32] * 2,
+            [_I32] + [_PTR] * 10 + [_I32] * 6 + [_I32, _PTR],
+        ),
     }[name]
     lib = load_library(name)
     fns = {}
@@ -787,10 +922,12 @@ def _check_geometry(lib, d: int, slots: int, caps, window: int, smem: int, dev) 
 
 
 def _check_ell_geometry(lib, d: int, window: int, smem: int, dev) -> None:
-    """Raise before launch on a window an ELL kernel's cluster cannot span
-    (whole blocks of ``rows_per_block`` rows, at most ``max_cluster`` of
-    them) or what its tile or the card's shared memory cannot take."""
-    rows, most = lib["rows_per_block"](), lib["max_cluster"]()
+    """Raise before launch on a window an ELL kernel cannot span (whole
+    blocks of ``rows_per_block`` rows, at most ``max_cluster`` or
+    ``max_window_blocks`` of them) or what its tile or the card's shared
+    memory cannot take."""
+    rows = lib["rows_per_block"]()
+    most = lib["max_cluster" if "max_cluster" in lib else "max_window_blocks"]()
     if window % rows or not 1 <= window // rows <= most:
         raise ValueError(
             f"window {window} is not 1..{most} whole blocks of {rows} rows"
@@ -1008,7 +1145,8 @@ gcn_local_model_slots.launches = 0
 
 
 def _ell_block(ell_meta: torch.Tensor, nw: int, dev) -> int:
-    """Checks ``ell_meta``; returns its lanes per window (k=1: one block)."""
+    """Checks ``ell_meta``; returns its lanes per window (k·B; k=1: one
+    block)."""
     lanes = ell_meta.shape[0]
     if lanes % nw:
         raise ValueError(f"ell_meta: {lanes} lanes are not {nw} equal window blocks")
@@ -1496,3 +1634,163 @@ def gat_local_message_slots(
 
 
 gat_local_message_slots.launches = 0
+
+
+def _check_ell_layer(ell_meta, h, ee_table, window, library: str):
+    """Check the per-layer ELL kernels' common operands and geometry;
+    returns (the library, lanes per window, NW, vocab)."""
+    dev = h.device
+    n, d = h.shape
+    nw = -(-n // window)
+    vocab = ee_table.shape[0]
+    _check("h", h, h.dtype, (n, d), dev)
+    _check("ee_table", ee_table, h.dtype, (vocab, d), dev)
+    lanes = _ell_block(ell_meta, nw, dev)
+    lib = _library(library)
+    _check_ell_geometry(lib, d, window, lib["smem_bytes"](d, vocab), dev)
+    return lib, lanes, nw, vocab
+
+
+def _launch_gin_layer_ell(ell_meta, h, m_spill, ee_table, w1, b1, w2, b2, eps1, window,
+                          final_relu) -> torch.Tensor:
+    dt = h.dtype
+    code = _dtype_code(dt)
+    dev = h.device
+    n, d = h.shape
+    hid = w1.shape[0]
+    if m_spill is not None:
+        _check("m_spill", m_spill, dt, (n, d), dev)
+    _check("w1", w1, dt, (hid, d), dev)
+    _check("b1", b1, dt, (hid,), dev)
+    _check("w2", w2, dt, (d, hid), dev)
+    _check("b2", b2, dt, (d,), dev)
+    _check("eps1", eps1, torch.float32, (1, 1), dev)
+    lib, lanes, nw, vocab = _check_ell_layer(ell_meta, h, ee_table, window, "gin_local_layer_ell")
+    out = torch.empty((n, d), dtype=dt, device=dev)
+    rc = lib["launch"](
+        code, ell_meta.data_ptr(), h.data_ptr(),
+        None if m_spill is None else m_spill.data_ptr(), ee_table.data_ptr(),
+        w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), b2.data_ptr(), eps1.data_ptr(),
+        out.data_ptr(), nw, n, window, lanes, d, hid, vocab, int(bool(final_relu)),
+        dev.index, torch.cuda.current_stream(dev).cuda_stream,
+    )
+    _raise_on(lib, rc, "gin_local_layer_ell")
+    gin_local_layer_ell.launches += 1
+    return out
+
+
+def gin_local_layer_ell(
+    ell_meta: torch.Tensor,
+    h: torch.Tensor,
+    m_spill: Optional[torch.Tensor],
+    ee_table: torch.Tensor,
+    w1: torch.Tensor,
+    b1: torch.Tensor,
+    w2: torch.Tensor,
+    b2: torch.Tensor,
+    eps1: torch.Tensor,
+    window: int,
+    final_relu: bool,
+) -> torch.Tensor:
+    """One whole GIN / GIN-VN layer over the ELL layout: the next h [n, D]
+    in h's dtype (``csrc/gin_local_layer_ell.cu``). Operands as in
+    ``gin_local_layer_ell_ref``; a CPU tensor runs the plain version, a
+    CUDA tensor launches the kernel (float32 or bfloat16 h, ``m_spill``,
+    table and weights, int32 ``ell_meta``, float32 ``eps1``) or raises. Each
+    launch adds one to ``gin_local_layer_ell.launches``."""
+    args = (ell_meta, h, m_spill, ee_table, w1, b1, w2, b2, eps1, window, final_relu)
+    return _dispatch(h, gin_local_layer_ell_ref, _launch_gin_layer_ell, args)
+
+
+gin_local_layer_ell.launches = 0
+
+
+def _launch_gcn_message_ell(ell_meta, h, dis, ee_table, window) -> torch.Tensor:
+    code = _dtype_code(h.dtype)
+    dev = h.device
+    n, d = h.shape
+    _check("dis", dis, h.dtype, (n,), dev)
+    lib, lanes, nw, vocab = _check_ell_layer(ell_meta, h, ee_table, window, "gcn_local_message_ell")
+    out = torch.empty((n, d), dtype=h.dtype, device=dev)
+    rc = lib["launch"](
+        code, ell_meta.data_ptr(), h.data_ptr(), dis.data_ptr(), ee_table.data_ptr(),
+        out.data_ptr(), nw, n, window, lanes, d, vocab,
+        dev.index, torch.cuda.current_stream(dev).cuda_stream,
+    )
+    _raise_on(lib, rc, "gcn_local_message_ell")
+    gcn_local_message_ell.launches += 1
+    return out
+
+
+def gcn_local_message_ell(
+    ell_meta: torch.Tensor,
+    h: torch.Tensor,
+    dis: torch.Tensor,
+    ee_table: torch.Tensor,
+    window: int,
+) -> torch.Tensor:
+    """GCN's message sum over the ELL layout: [n, D] in h's dtype
+    (``csrc/gcn_local_message_ell.cu``). Operands as in
+    ``gcn_local_message_ell_ref``; a CPU tensor runs the plain version, a
+    CUDA tensor launches the kernel (float32 or bfloat16 h, dis and table,
+    int32 ``ell_meta``) or raises. Each launch adds one to
+    ``gcn_local_message_ell.launches``."""
+    args = (ell_meta, h, dis, ee_table, window)
+    return _dispatch(h, gcn_local_message_ell_ref, _launch_gcn_message_ell, args)
+
+
+gcn_local_message_ell.launches = 0
+
+
+def _launch_gcn_layer_ell(ell_meta, h, dis, ee_table, root, alpha, beta, w_next, b_next,
+                          window) -> torch.Tensor:
+    dt = h.dtype
+    code = _dtype_code(dt)
+    dev = h.device
+    n, d = h.shape
+    _check("dis", dis, dt, (n,), dev)
+    for name, x in (("root", root), ("alpha", alpha), ("beta", beta)):
+        _check(name, x, dt, (d,), dev)
+    if (w_next is None) != (b_next is None):
+        raise ValueError("w_next and b_next: both or neither")
+    if w_next is not None:
+        _check("w_next", w_next, dt, (d, d), dev)
+        _check("b_next", b_next, dt, (d,), dev)
+    lib, lanes, nw, vocab = _check_ell_layer(ell_meta, h, ee_table, window, "gcn_local_layer_ell")
+    out = torch.empty((n, d), dtype=dt, device=dev)
+    rc = lib["launch"](
+        code, ell_meta.data_ptr(), h.data_ptr(), dis.data_ptr(), ee_table.data_ptr(),
+        root.data_ptr(), alpha.data_ptr(), beta.data_ptr(),
+        None if w_next is None else w_next.data_ptr(),
+        None if b_next is None else b_next.data_ptr(), out.data_ptr(),
+        nw, n, window, lanes, d, vocab, dev.index, torch.cuda.current_stream(dev).cuda_stream,
+    )
+    _raise_on(lib, rc, "gcn_local_layer_ell")
+    gcn_local_layer_ell.launches += 1
+    return out
+
+
+def gcn_local_layer_ell(
+    ell_meta: torch.Tensor,
+    h: torch.Tensor,
+    dis: torch.Tensor,
+    ee_table: torch.Tensor,
+    root: torch.Tensor,
+    alpha: torch.Tensor,
+    beta: torch.Tensor,
+    w_next: Optional[torch.Tensor],
+    b_next: Optional[torch.Tensor],
+    window: int,
+) -> torch.Tensor:
+    """One whole GCN layer over the ELL layout after its conv: the next
+    conv's output, or on the last layer (``w_next`` None) the pre-pool
+    tail, [n, D] in h's dtype (``csrc/gcn_local_layer_ell.cu``). Operands
+    as in ``gcn_local_layer_ell_ref``; a CPU tensor runs the plain version,
+    a CUDA tensor launches the kernel (float32 or bfloat16 h, dis, table,
+    root / alpha / beta and weights, int32 ``ell_meta``) or raises. Each
+    launch adds one to ``gcn_local_layer_ell.launches``."""
+    args = (ell_meta, h, dis, ee_table, root, alpha, beta, w_next, b_next, window)
+    return _dispatch(h, gcn_local_layer_ell_ref, _launch_gcn_layer_ell, args)
+
+
+gcn_local_layer_ell.launches = 0

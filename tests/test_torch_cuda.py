@@ -6,6 +6,8 @@ on a machine without it: ``python -m pytest --noconftest tests/test_torch_cuda.p
 Its operand builders also serve ``test_torch_local_layer.py``.
 """
 
+import warnings
+
 import numpy as np
 import pytest
 import torch
@@ -220,6 +222,53 @@ def _ell_operands(name: str, big: int, seed: int = 16) -> dict:
     )
 
 
+# Geometries of the per-layer ELL kernels' test buckets, by id: (the largest
+# graph's nodes, the ELL block or None for ``choose_geometry``'s, k). W128
+# and W512 have one edge block per window; k2 packs molhiv-shaped graphs at
+# W=128 into blocks of 192 lanes, so the densest windows need two.
+ELL_LAYER_GEOMETRY = {"W128": (120, None, 1), "W512": (400, None, 1), "k2": (120, 192, 2)}
+
+
+def _ell_layer_batch(geometry: str, seed: int) -> dict:
+    """ELL layout (numpy) of 6 synthetic graphs and one large one at a
+    geometry of ``ELL_LAYER_GEOMETRY``."""
+    big, block, k = ELL_LAYER_GEOMETRY[geometry]
+    if block is None:
+        batch = _ell_batch("gin", big, seed)
+    else:
+        rng = np.random.default_rng(seed)
+        graphs = synthetic_molhiv(6, seed=seed) + [random_molecule_graph(rng, num_nodes=big)]
+        packed = pack_graphs_aligned(graphs, window=W, node_capacity=511, edge_capacity=4096,
+                                     graph_capacity=16)
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")  # the k > 1 note
+            batch = base.as_batch(packed, blocked="local_ell", window=W, block=block)
+    assert base.ell_geometry(batch)[1] == k
+    return batch
+
+
+def _ell_layer_operands(kernel: str, geometry: str, final: bool = False, seed: int = 18) -> dict:
+    """Seeded operands of one per-layer ELL kernel (``gin_local_layer_ell``
+    with a nonzero ``m_spill``, ``gcn_local_message_ell``,
+    ``gcn_local_layer_ell``) on the layout of ``_ell_layer_batch``, the
+    layout's own degree norms for GCN, as numpy arrays; ``final`` takes the
+    last layer's form (no ReLU for GIN, no next conv for GCN)."""
+    batch = _ell_layer_batch(geometry, seed)
+    rng = np.random.default_rng(seed)
+    f32 = lambda *s: rng.normal(0, 0.2, s).astype(np.float32)
+    n = batch["node_feat"].shape[0]
+    ops = dict(ell_meta=base.ell_meta(base.to_device(batch, "cpu")).numpy(), h=f32(n, D),
+               ee_table=f32(13, D), window=base.ell_geometry(batch)[0])
+    if kernel == "gin_local_layer_ell":
+        return dict(ops, m_spill=f32(n, D), w1=f32(H, D), b1=f32(H), w2=f32(D, H), b2=f32(D),
+                    eps1=(1 + f32(1, 1)).astype(np.float32), final_relu=not final)
+    ops["dis"] = (1 / np.sqrt(batch["out_deg"] + 1.0)).astype(np.float32)
+    if kernel == "gcn_local_message_ell":
+        return ops
+    return dict(ops, root=f32(D), alpha=(1 + f32(D)).astype(np.float32), beta=f32(D),
+                w_next=None if final else f32(D, D), b_next=None if final else f32(D))
+
+
 def _spill_batch(name: str, seed: int) -> dict:
     """Slot layout at W=128 (numpy) of 8 synthetic graphs and two of 230 and
     280 nodes for model ``name``: a real spill tail, in blocked order."""
@@ -293,7 +342,7 @@ def _port(ops: dict, device, dtype=torch.float32) -> dict:
     for k, v in ops.items():
         if isinstance(v, np.ndarray):
             t = torch.from_numpy(v).to(device)
-            out[k] = t.to(dtype) if t.is_floating_point() and k != "eps_all" else t
+            out[k] = t.to(dtype) if t.is_floating_point() and k not in ("eps_all", "eps1") else t
         else:
             out[k] = v
     return out
@@ -505,3 +554,60 @@ def test_gat_message_cuda_kernel_overflowing_empty_slot_stays_finite(cuda_device
         torch.cuda.synchronize()
         assert bool(outs[1].isfinite().all())
         torch.testing.assert_close(outs[1], outs[0], rtol=0, atol=0)
+
+
+_ELL_LAYER_CASES = [
+    ("gin_local_layer_ell", False), ("gin_local_layer_ell", True),
+    ("gcn_local_message_ell", False), ("gcn_local_layer_ell", False),
+    ("gcn_local_layer_ell", True),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel,final", _ELL_LAYER_CASES,
+                         ids=["row13", "row13-final", "row14", "row15", "row15-final"])
+@pytest.mark.parametrize("geometry", list(ELL_LAYER_GEOMETRY))
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 5e-2)],
+                         ids=["f32", "bf16"])
+def test_ell_layer_cuda_kernels_match_plain(kernel, final, geometry, dtype, tol, cuda_device):
+    """Kernel table rows 13, 14 and 15 against their plain versions at W=128,
+    at W=512 (four blocks per window) and at k=2, one launch per call. f32:
+    summation order only; bf16: the output rounds to bf16, and a rounding
+    flip of act or z moves it by a few bf16 ulps of its scale."""
+    fn = getattr(local_layer, kernel)
+    ops = _port(_ell_layer_operands(kernel, geometry, final), cuda_device, dtype)
+    before = fn.launches
+    got = fn(**ops)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 1
+    expect = getattr(local_layer, f"{kernel}_ref")(**ops)
+    assert got.dtype == dtype and got.shape == expect.shape
+    assert expect.abs().max() > 1e-2
+    scale = max(1.0, expect.abs().max().item())
+    torch.testing.assert_close(got.float() / scale, expect.float() / scale, rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("window", [192, 1152])
+def test_ell_layer_cuda_kernels_reject_window(window, cuda_device):
+    """A window that is not whole 128-row tiles (192) or spans more than 8
+    of them (1152) raises before launch, for each per-layer ELL kernel."""
+    ops = _port(_ell_layer_operands("gin_local_layer_ell", "W128"), cuda_device)
+    n = -(-ops["h"].shape[0] // window) * window
+    lanes = torch.full((n // window * 8, 5), window, dtype=torch.int32, device=cuda_device)
+    rng = np.random.default_rng(0)
+    t = lambda *s: torch.from_numpy(rng.normal(0, 0.1, s).astype(np.float32)).to(cuda_device)
+    common = dict(ell_meta=lanes, h=t(n, D), ee_table=t(13, D), window=window)
+    cases = {
+        "gin_local_layer_ell": dict(common, m_spill=None, w1=ops["w1"], b1=ops["b1"], w2=ops["w2"],
+                                    b2=ops["b2"], eps1=ops["eps1"], final_relu=True),
+        "gcn_local_message_ell": dict(common, dis=t(n)),
+        "gcn_local_layer_ell": dict(common, dis=t(n), root=t(D), alpha=t(D), beta=t(D),
+                                    w_next=t(D, D), b_next=t(D)),
+    }
+    for kernel, kw in cases.items():
+        fn = getattr(local_layer, kernel)
+        before = fn.launches
+        with pytest.raises(ValueError, match="whole blocks"):
+            fn(**kw)
+        assert fn.launches == before

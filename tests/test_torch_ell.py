@@ -2,8 +2,9 @@
 layout (the JAX side through its numpy packer, ``FLOWGNN_NO_NATIVE=1``),
 the whole-model ELL kernels' plain versions against the Pallas kernels in
 interpret mode, the GIN / GIN-VN / GCN ELL branches against the JAX forward
-and against the port's own plain path, and the ELL batches the kernels do
-not take, at W=128 and at W=512 with a 400-node graph."""
+and against the port's own plain path, at W=128 and at W=512 with a 400-node
+graph, and the ELL batches the whole-model kernels do not take, which run
+the per-layer ELL path (tests/test_torch_ell_layer.py holds it in full)."""
 
 import numpy as np
 import pytest
@@ -126,24 +127,19 @@ def test_ell_forward_matches_jax_and_plain(name, big, monkeypatch):
 
 @pytest.mark.parametrize("name,row", [("gin", 13), ("gcn", 15)])
 @pytest.mark.parametrize("case", ["k2", "spill", "no_pool", "intermediates"])
-def test_ell_batches_without_the_kernel_raise(name, row, case):
-    """An ELL batch the whole-model kernel does not take (two edge blocks per
-    window, spill lanes, more than POOL_GMAX graphs in a window, or
-    intermediates asked for) needs the model's per-layer ELL kernel, and
-    row 24 for a spill tail: not ported, so it raises naming them."""
-    fwd, _, params, b = _model_setup(name, 120)
-    p = loaders.params_from_numpy(params, tn.FLOAT32, "cpu")
-    batch, kw, match = b["ell"], {}, f"row {row}"
-    if case == "k2":
-        batch = dict(batch, loc_ell=torch.zeros((128, 2), dtype=torch.int32))
-    elif case == "spill":
-        batch = dict(batch, senders=torch.cat([batch["senders"], batch["senders"][:8]]))
-        match = f"rows {row} and 24"
-    elif case == "no_pool":
-        batch = {k: v for k, v in batch.items() if k != "pool_gl"}
-    else:
-        kw = dict(return_intermediates=True)
+def test_ell_batches_without_the_kernel_raise(name, row, case, monkeypatch):
+    """An ELL batch the whole-model kernel does not take (two edge blocks
+    per window, a real spill tail, more than POOL_GMAX graphs in a window,
+    or intermediates asked for) no longer raises: it runs the per-layer ELL
+    path (GIN row 13; GCN row 15, or row 14 with the spill scatter, row 24,
+    on a spill tail) and matches the JAX forward, f32 to 1e-5, predictions
+    and every intermediate; no whole-model kernel launches."""
+    from test_torch_ell_layer import case_batches, check_forward_matches_jax
+
+    monkeypatch.setenv("FLOWGNN_PALLAS_INTERPRET", "1")
+    monkeypatch.setenv("FLOWGNN_NO_NATIVE", "1")
+    b = case_batches(name, case)
+    assert not tb.ell_megakernel(b["ell"], case == "intermediates")
     before = (local_layer.gin_local_model.launches, local_layer.gcn_local_model.launches)
-    with pytest.raises(NotImplementedError, match=match):
-        fwd(p, batch, tn.FLOAT32, **kw)
+    check_forward_matches_jax(name, case, b)
     assert (local_layer.gin_local_model.launches, local_layer.gcn_local_model.launches) == before

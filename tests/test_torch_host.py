@@ -113,16 +113,33 @@ def test_spill_and_unported_layouts_raise():
     """A graph larger than the window spills edges: the slot layout carries
     them in its blocked spill tail, equal to the JAX package's (a bucket of
     256 rows has no full scatter window of 512, so neither side attaches the
-    gather-side blocks); the ELL layout refuses them (its spill tail needs
-    kernel table rows 13 / 15 / 24), and the legacy dynamic-window layout is
-    not ported."""
+    gather-side blocks); so does the ELL layout, after its lanes (it raised
+    before the per-layer ELL kernels were ported); the legacy dynamic-window
+    layout is not ported."""
     caps = dict(window=128, node_capacity=255, edge_capacity=1024, graph_capacity=2)
     jpacked = jg.pack_graphs_aligned([js.random_molecule_graph(np.random.default_rng(0), num_nodes=150)], **caps)
     packed = tg.pack_graphs_aligned([ts.random_molecule_graph(np.random.default_rng(0), num_nodes=150)], **caps)
     slot = tb.as_batch(packed, blocked="local_slots", window=128)
     assert slot["slot_spill_mask"].any() and "spill_gblk_src" not in slot
     _assert_batches_equal(jb.as_batch(jpacked, blocked="local_slots", window=128), slot)
-    with pytest.raises(NotImplementedError, match="spill"):
-        tb.as_batch(packed, blocked="local_ell", window=128, block=384)
+    ell = tb.as_batch(packed, blocked="local_ell", window=128, block=384)
+    assert tb.ell_spill_lanes(ell) > 0 and "spill_gblk_src" not in ell
+    _assert_batches_equal(jb.as_batch(jpacked, blocked="local_ell", window=128, block=384), ell)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tb.as_batch(packed, blocked="local")
+
+
+def test_default_geometries():
+    """Without a window, the ELL layout packs the JAX package's (512, 1536),
+    where the port once packed (128, 384); the slot layout keeps W=128 where
+    the JAX package packs 512, because the port's slot kernels refuse wider
+    windows (the divergence ``as_batch`` states)."""
+    caps = dict(window=512, node_capacity=1023, edge_capacity=4096, graph_capacity=16)
+    jpacked = jg.pack_graphs_aligned(js.synthetic_molhiv(12, seed=4), **caps)
+    packed = tg.pack_graphs_aligned(ts.synthetic_molhiv(12, seed=4), **caps)
+    ell = tb.as_batch(packed, blocked="local_ell")
+    assert tb.ell_geometry(ell) == (512, 1) and ell["loc_ulocal"].shape[0] == 2 * 1536
+    assert tb.ELL_DEFAULT_GEOMETRY == (jb.PALLAS_ELL_WINDOW, jb.PALLAS_ELL_BLOCK)
+    _assert_batches_equal(jb.as_batch(jpacked, blocked="local_ell"), ell)
+    assert tb.as_batch(packed, blocked="local_slots")["slot_geom"].shape[0] == 128
+    assert jb.as_batch(jpacked, blocked="local_slots")["slot_geom"].shape[0] == 512

@@ -9,8 +9,10 @@ import numpy as np
 import pytest
 import torch
 
+from flowgnn_tpu_torch.core.graphs import pack_graphs_aligned
 from flowgnn_tpu_torch.core.numerics import BF16, FLOAT32
-from flowgnn_tpu_torch.models import base, dgn, gat, gcn, gin, pna
+from flowgnn_tpu_torch.core.synthetic import random_molecule_graph, synthetic_molhiv
+from flowgnn_tpu_torch.models import base, dgn, gat, gcn, gin, pna, registry
 from flowgnn_tpu_torch.ops import local_layer
 from flowgnn_tpu_torch.params import loaders
 from test_torch_cuda import (
@@ -170,3 +172,45 @@ def test_layer_operands_meet_the_kernel_contract(model, prec):
         assert kernels["dgn_local_layer_slots"]["b_post"].shape == (1, 16)
     if name == "gat":
         assert kernels["gat_local_message_slots"]["divide"] is False
+
+
+@pytest.mark.parametrize("name,model,params,big", [
+    ("gin", gin, _GIN_SMALL, 300), ("gin-vn", gin, _GIN_SMALL, 300),
+    ("gcn", gcn, _GCN_SMALL, 300), ("gcn", gcn, _GCN_SMALL, 120),
+], ids=["gin-spill", "gin-vn-spill", "gcn-spill", "gcn"])
+@pytest.mark.parametrize("prec", [FLOAT32, BF16], ids=["f32", "bf16"])
+def test_ell_layer_operands_meet_the_kernel_contract(name, model, params, big, prec):
+    """What the per-layer ELL path of GIN, GIN-VN and GCN hands its kernels
+    (rows 13, 14 or 15, and the spill scatter on a spill tail) is what the
+    CUDA wrappers accept: every tensor contiguous, int32 lanes, values in
+    the compute dtype (GIN's eps1 in float32), the shapes the wrappers
+    check. A graph of 300 nodes at W=128 spills; one of 120 does not."""
+    spec = registry.get(name)
+    rng = np.random.default_rng(11)
+    graphs = registry.apply_transforms(
+        spec, synthetic_molhiv(6, seed=11) + [random_molecule_graph(rng, num_nodes=big)])
+    packed = pack_graphs_aligned(graphs, window=128, node_capacity=1023, edge_capacity=4096,
+                                 graph_capacity=16)
+    batch = base.to_device(base.as_batch(packed, blocked="local_ell", window=128, block=384), "cpu")
+    kernels = model.layer_kernel_operands(loaders.params_from_numpy(params(), prec, "cpu"), batch, prec)
+    spill = big > 128
+    want = {"gin": "gin_local_layer_ell", "gcn": "gcn_local_message_ell" if spill
+            else "gcn_local_layer_ell"}[name.split("-")[0]]
+    assert set(kernels) == ({want, "windowed_segment_sum"} if spill else {want})
+    n, d = batch["node_feat"].shape[0], 16
+    for kname, ops in kernels.items():
+        for k, v in ops.items():
+            if not torch.is_tensor(v):
+                continue
+            assert v.is_contiguous(), (kname, k)
+            if k in ("ell_meta", "v_local", "block_window"):
+                assert v.dtype == torch.int32, (kname, k)
+            else:
+                assert v.dtype == (torch.float32 if k == "eps1" else prec.compute_dtype), (kname, k)
+    ops = kernels[want]
+    assert ops["ell_meta"].shape == (batch["loc_ulocal"].shape[0], 5) and ops["h"].shape == (n, d)
+    if name.startswith("gin"):
+        assert ops["eps1"].shape == (1, 1) and ops["b1"].shape == (32,)
+        assert (ops["m_spill"] is None) == (name == "gin" and not spill)
+    elif not spill:
+        assert ops["w_next"].shape == (d, d) and ops["root"].shape == (d,)

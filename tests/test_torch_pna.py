@@ -108,21 +108,23 @@ def test_pna_slot_src_is_live(setup):
 
 def test_pna_unported_cases_raise(setup):
     """A slot batch with no spill tail that the megakernel does not take
-    reaches ``pna_local_layer`` (kernel table row 20), not ported yet; so
-    does the ELL layout (PNA has no ELL kernel in the port). A slot batch
-    with a spill tail runs the per-layer slot path (row 19;
-    tests/test_torch_spill.py holds it against the JAX package)."""
+    reaches ``pna_local_layer`` (kernel table row 20), not ported yet. An ELL
+    batch no longer raises: PNA has no ELL kernel in either package, so it
+    runs the plain loop, as the JAX package does
+    (tests/test_torch_ell_layer.py holds it against JAX). A slot batch with a
+    spill tail runs the per-layer slot path (row 19; tests/test_torch_spill.py
+    holds it against the JAX package)."""
     fwd, _, params, b = setup
     p = tl.params_from_numpy(params, tn.FLOAT32, "cpu")
     no_pool = {k: v for k, v in b["slot"].items() if k != "pool_gl"}
-    ell = dict(b["plain"], loc_ell=torch.zeros(1))
     for batch, kw, match in (
         (b["slot"], dict(return_intermediates=True), "row 20"),
         (no_pool, {}, "row 20"),
-        (ell, {}, "loc_ell"),
     ):
         with pytest.raises(NotImplementedError, match=match):
             fwd(p, batch, tn.FLOAT32, **kw)
+    ell = dict(b["plain"], loc_ell=torch.zeros((W, 1), dtype=torch.int32))
+    torch.testing.assert_close(fwd(p, ell, tn.FLOAT32), fwd(p, b["plain"], tn.FLOAT32))
     out, inter = fwd(p, b["plain"], tn.FLOAT32, return_intermediates=True)
     assert len(inter["layers"]) == 3 and out.shape == (CAPS["graph_capacity"] + 1, 1)
 

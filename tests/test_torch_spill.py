@@ -244,8 +244,9 @@ def test_spill_tail_is_live(name, batches):
 
 
 def test_what_still_raises(batches):
-    """PNA's no-spill per-layer batch needs ``pna_local_layer`` (row 20), and
-    a spilling ELL bucket rows 13, 15 and 24: both raise."""
+    """PNA's no-spill per-layer batch needs ``pna_local_layer`` (row 20) and
+    raises; a spilling ELL bucket no longer does: it packs, with its spill
+    tail in blocked order, equal to the JAX package's."""
     jp, tp = _packed("pna")
     params = tl.params_from_numpy(SMALL_PARAMS["pna"](), tn.FLOAT32, "cpu")
     small = tg.pack_graphs_aligned(tr.apply_transforms(tr.get("pna"), ts.synthetic_molhiv(8, seed=1)),
@@ -254,5 +255,6 @@ def test_what_still_raises(batches):
     assert not no_spill["slot_spill"].shape[-1]
     with pytest.raises(NotImplementedError, match="row 20"):
         tr.get("pna").forward(params, no_spill, tn.FLOAT32, return_intermediates=True)
-    with pytest.raises(NotImplementedError, match="rows 13 / 15.*row 24"):
-        tb.as_batch(tp, blocked="local_ell", window=W, block=384)
+    ell = tb.as_batch(tp, blocked="local_ell", window=W, block=384)
+    assert tb.ell_spill_lanes(ell) > 0 and "spill_gblk_src" in ell
+    _assert_batches_equal(jb.as_batch(jp, blocked="local_ell", window=W, block=384), ell)
