@@ -4,7 +4,8 @@
     python3 chip_smoke.py --profile  # profile the spill paths
 
 ``--profile`` runs no phase: it builds the hep10k W=128 streams of PNA, DGN
-and GAT (slot spill tail) and of GIN, GIN-VN and GCN (ELL spill tail), warms
+and GAT (slot spill tail) and of GIN, GIN-VN, GCN, DGN and GAT (ELL spill
+tail), warms
 each path up, traces ``PROFILE_PASSES`` bf16 passes over the
 whole stream with ``torch.profiler`` and prints per path the wall time and the
 device's busy time per pass (the sum of the device kernels' own times; one
@@ -16,9 +17,10 @@ shares are upper bounds.
 Phases, each of which raises (non-zero exit) on failure:
 
 1. the device and ``nvidia-smi``'s name and power limit;
-2. the fourteen hand-written kernels built from ``flowgnn_tpu_torch/csrc``,
-   one ``nvcc`` per source, all started together (build time and each
-   compiler's register / shared-memory report);
+2. the eighteen hand-written kernels built from the seventeen sources of
+   ``flowgnn_tpu_torch/csrc`` (rows 16 and 18 share one), one ``nvcc`` per
+   source, all started together (build time and each compiler's register /
+   shared-memory report);
 3. each slot kernel against its plain torch version on the card, at the
    main path's shapes (a real bucket's slot layout at full width: GIN D=100,
    H=200, L=5, with and without the analytic-VN column; GCN D=100, L=5;
@@ -40,6 +42,13 @@ Phases, each of which raises (non-zero exit) on failure:
    0's operands of the hep10k W=128 ELL bucket with the longest spill tail
    (rows 13, 14, 24) and of a molhiv W=128 ELL bucket (rows 13, 15), f32 and
    bf16;
+3e. rows 20 (``pna_local_layer``), 18 (``dgn_local_layer_ell``), 16
+   (``dgn_local_message_ell``) and 17 (``gat_local_message_ell``) against
+   their plain versions on layer 0's operands at full width, f32 and bf16:
+   row 20 on a PNA molhiv slot bucket, row 18 on a DGN molhiv ELL bucket
+   (W=128, block 512), rows 16 and 24 on the DGN hep10k W=128 ELL bucket with
+   the longest spill tail, row 17 on a GAT molhiv ELL bucket and on the GAT
+   hep10k W=128 ELL bucket with the longest tail (with row 24);
 4. the main path: GIN, GIN-VN, GCN, PNA, DGN and GAT, each over the
    4113-graph synthetic molhiv stream at full width with seeded synthetic
    weights, f32 and bf16, through ``registry`` → ``pack_dataset`` →
@@ -66,6 +75,13 @@ Phases, each of which raises (non-zero exit) on failure:
    molhiv ELL stream with ``return_intermediates``: per layer row 13 or row
    15. Counted and checked as in phase 4, every intermediate too (the rows
    of real nodes);
+4e. PNA over the molhiv slot stream with ``return_intermediates``: per
+   layer row 20, every intermediate checked (the slot layout's rows mapped
+   back to the plain batch's); DGN and GAT over the molhiv ELL stream at
+   W=128 / block 512: per layer row 18 or row 17, and their predictions
+   against the slot path's too (f32 1e-4); DGN and GAT over the hep10k
+   sample in ``local_ell`` at W=128 / block 512 with the ELL spill tail: per
+   layer rows 16 + 24 or 17 + 24. Counted and checked as in phase 4;
 5. CUDA-event timings after warm-up, per model and dtype: µs/graph over the
    whole stream for the kernel path and for the plain edge-list path, and
    each kernel alone against its plain version on the same operands (a
@@ -75,10 +91,11 @@ Phases, each of which raises (non-zero exit) on failure:
    ``index_add_`` of the same values;
 5b. the same for the hep10k ELL path, the molhiv stream through the ELL
    kernels at W=128, and the hep10k spill path;
-5c. the same for the per-layer ELL paths of phase 4d.
+5c. the same for the per-layer ELL paths of phase 4d;
+5d. the same for the paths of phase 4e.
 
-No phase runs at a cut depth: the whole run takes about two and a half minutes on an
-H100. The line before the last is a JSON object with one record per
+No phase runs at a cut depth: the whole run takes about three and a half
+minutes on an H100. The line before the last is a JSON object with one record per
 kernel; the last line is ``{"ok": true, "device": {...}}``. Without a CUDA
 device, or outside the repository, it exits non-zero before printing
 either.
@@ -87,6 +104,7 @@ either.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import subprocess
 import sys
@@ -102,32 +120,49 @@ ELL_MODELS = ("gin", "gin-vn", "gcn")
 SPILL_MODELS = ("pna", "dgn", "gat")
 SLOTS, ELL = "local_slots", "local_ell"
 # The per-layer ELL paths' stream keys: hep10k at W=128 with an ELL spill
-# tail, and molhiv's ELL stream run with return_intermediates.
+# tail, and molhiv's ELL stream run with return_intermediates; and molhiv's
+# slot stream run with return_intermediates (PNA's row 20).
 ELL_LAYER, ELL_INTER = "local_ell W=128", "local_ell intermediates"
+SLOT_INTER = "local_slots intermediates"
 INTER_MODELS = ("gin", "gcn")
+# The models with an ELL path: GIN, GIN-VN and GCN through their whole-model
+# or per-layer ELL kernels, DGN and GAT through their per-layer ones.
+LAYER_MODELS = ELL_MODELS + ("dgn", "gat")
 # H100 SXM peaks (NVIDIA's data sheet): dense bf16 on the tensor cores,
 # float32 outside them, and the HBM3 rate.
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 MEM_BYTES_PER_S = 3.35e12
 # Each model's kernels: its whole-model slot kernel, its whole-model ELL
-# kernel, its per-layer slot kernel (a slot batch with a spill tail).
+# kernel, its per-layer slot kernel with a spill tail and without one (a
+# slot batch the whole-model kernel does not take; None: the plain loop).
 MODEL_KERNELS = {
-    "gin": ("gin_local_model_slots", "gin_local_model", None),
-    "gin-vn": ("gin_local_model_slots", "gin_local_model", None),
-    "gcn": ("gcn_local_model_slots", "gcn_local_model", None),
-    "pna": ("pna_local_model", None, "pna_local_stats_ell"),
-    "dgn": ("dgn_local_model", None, "dgn_local_layer_slots"),
-    "gat": ("gat_local_model_slots", None, "gat_local_message_slots"),
+    "gin": ("gin_local_model_slots", "gin_local_model", None, None),
+    "gin-vn": ("gin_local_model_slots", "gin_local_model", None, None),
+    "gcn": ("gcn_local_model_slots", "gcn_local_model", None, None),
+    "pna": ("pna_local_model", None, "pna_local_stats_ell", "pna_local_layer"),
+    "dgn": ("dgn_local_model", None, "dgn_local_layer_slots", "dgn_local_layer_slots"),
+    "gat": ("gat_local_model_slots", None, "gat_local_message_slots", "gat_local_message_slots"),
 }
-# Each ELL model's per-layer ELL kernel: (without a spill tail, with one).
+# Each model's per-layer ELL kernel: (without a spill tail, with one).
 ELL_LAYER_KERNELS = {
     "gin": ("gin_local_layer_ell",) * 2, "gin-vn": ("gin_local_layer_ell",) * 2,
     "gcn": ("gcn_local_layer_ell", "gcn_local_message_ell"),
+    "dgn": ("dgn_local_layer_ell", "dgn_local_message_ell"),
+    "gat": ("gat_local_message_ell",) * 2,
 }
 SCATTER = "windowed_segment_sum"  # the spill tail's, beside every per-layer kernel
+# Paths whose TPU kernels round where the plain edge-list path does not: DGN's
+# ELL rows 16 and 18 round each lane's eig_u·h_u to bf16 before the factored
+# m2 = Σ eig_u·h_u − eig_v·Σ h_u, which cancels, and |m2 − ews·h|·inva
+# multiplies the residual by up to 8192. In bf16 their gate also takes 1.5×
+# what the path needs with every kernel replaced by its plain version, and
+# the kernel path is held to that path at 5e-2 (``run_main_path``).
+KERNEL_ROUNDING = {("dgn", "molhiv", ELL), ("dgn", "hep10k", ELL_LAYER)}
 PROFILE_PASSES = 3  # traced passes per path (--profile)
 PER_LAYER = {"pna_local_stats_ell", "dgn_local_layer_slots", "gat_local_message_slots", SCATTER,
-             "gin_local_layer_ell", "gcn_local_message_ell", "gcn_local_layer_ell"}
+             "gin_local_layer_ell", "gcn_local_message_ell", "gcn_local_layer_ell",
+             "pna_local_layer", "dgn_local_layer_ell", "dgn_local_message_ell",
+             "gat_local_message_ell"}
 LL = "flowgnn_tpu/ops/pallas/local_layer.py"
 # Kernel → (its module in flowgnn_tpu_torch.ops, source, the TPU kernel it
 # replaces, the (model, profile, layout) path whose bf16 stream gives the
@@ -170,6 +205,15 @@ KERNELS = {
                               f"{LL}:1333", ("gcn", "hep10k", ELL_LAYER)),
     "gcn_local_layer_ell": ("local_layer", "flowgnn_tpu_torch/csrc/gcn_local_layer_ell.cu",
                             f"{LL}:1417", ("gcn", "molhiv", ELL_INTER)),
+    "pna_local_layer": ("local_layer", "flowgnn_tpu_torch/csrc/pna_local_layer_slots.cu",
+                        f"{LL}:1968", ("pna", "molhiv", SLOT_INTER)),
+    # Rows 18 and 16: two kernels of one source.
+    "dgn_local_layer_ell": ("local_layer", "flowgnn_tpu_torch/csrc/dgn_local_layer_ell.cu",
+                            f"{LL}:1737", ("dgn", "molhiv", ELL)),
+    "dgn_local_message_ell": ("local_layer", "flowgnn_tpu_torch/csrc/dgn_local_layer_ell.cu",
+                              f"{LL}:1539", ("dgn", "hep10k", ELL_LAYER)),
+    "gat_local_message_ell": ("local_layer", "flowgnn_tpu_torch/csrc/gat_local_message_ell.cu",
+                              f"{LL}:1612", ("gat", "hep10k", ELL_LAYER)),
 }
 
 
@@ -195,6 +239,23 @@ def cuda_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / reps
 
 
+@contextlib.contextmanager
+def plain_versions():
+    """Every kernel wrapper the models call replaced by its plain version,
+    which runs on the card as plain torch (no launch is counted)."""
+    from flowgnn_tpu_torch.models import base, dgn, gat, gcn, gin, pna
+
+    saved = [(mod, k, getattr(mod, k)) for mod in (base, dgn, gat, gcn, gin, pna)
+             for k in KERNELS if hasattr(mod, k)]
+    for mod, k, _ in saved:
+        setattr(mod, k, kernel_fn(k, plain=True))
+    try:
+        yield
+    finally:
+        for mod, k, fn in saved:
+            setattr(mod, k, fn)
+
+
 def kernel_fn(kname: str, plain: bool = False):
     """A kernel's wrapper, or its plain version."""
     import importlib
@@ -216,22 +277,25 @@ def num_layers(name: str) -> int:
 
 
 def forward_kw(key: tuple) -> dict:
-    """The forward's keyword arguments on a path: intermediates on ELL_INTER."""
-    return dict(return_intermediates=True) if key[2] == ELL_INTER else {}
+    """The forward's keyword arguments on a path: intermediates on ELL_INTER
+    and SLOT_INTER."""
+    return dict(return_intermediates=True) if key[2] in (ELL_INTER, SLOT_INTER) else {}
 
 
 def bucket_launches(name: str, batch: dict, inter: bool = False) -> dict:
     """The launches one bucket's forward (``inter``: with
     return_intermediates) must make, by kernel: the model's whole-model ELL
-    or slot kernel once; for an ELL batch that kernel does not take, its
-    per-layer ELL kernel once per layer, and with a spill tail the spill
-    scatter too; for a slot batch with a spill tail, its per-layer slot
-    kernel and the spill scatter once per layer."""
+    or slot kernel once; for an ELL batch that kernel does not take (or a
+    model without one), its per-layer ELL kernel once per layer, and with a
+    spill tail the spill scatter too; for a slot batch with a spill tail,
+    its per-layer slot kernel and the spill scatter once per layer; for one
+    without a tail that the whole-model kernel does not take, its no-spill
+    per-layer slot kernel once per layer (GIN and GCN: the plain loop)."""
     from flowgnn_tpu_torch.models import base
 
-    slot, ell, layer = MODEL_KERNELS[name]
+    slot, ell, layer, layer0 = MODEL_KERNELS[name]
     if "loc_ell" in batch:
-        if base.ell_megakernel(batch, inter):
+        if ell is not None and base.ell_megakernel(batch, inter):
             return {ell: 1}
         plain_k, spill_k = ELL_LAYER_KERNELS[name]
         if not base.ell_spill_lanes(batch):
@@ -242,7 +306,9 @@ def bucket_launches(name: str, batch: dict, inter: bool = False) -> dict:
             out[SCATTER] = num_layers(name)
         return out
     if not batch["slot_spill"].shape[-1]:
-        return {slot: 1}
+        if not inter and "pool_gl" in batch:
+            return {slot: 1}
+        return {layer0: num_layers(name)} if layer0 else {}
     return {layer: num_layers(name), SCATTER: num_layers(name)}
 
 
@@ -360,7 +426,7 @@ def random_operands(name: str, batch: dict, prec, device, seed: int) -> dict:
 
 
 def whole_kernel(name: str, batch: dict) -> str:
-    slot, ell, _ = MODEL_KERNELS[name]
+    slot, ell = MODEL_KERNELS[name][:2]
     return ell if "loc_ell" in batch else slot
 
 
@@ -477,43 +543,95 @@ def check_ell_layer_kernels(streams: dict, device, max_err: dict) -> None:
     the longest spill tail (rows 13, 14 and 24) and of the first molhiv
     W=128 ELL bucket (rows 13 and 15), f32 (1e-4) and bf16 (5e-2), seeded
     synthetic weights."""
+    cases = []
+    for name in ELL_MODELS:
+        cases += [(name, *longest_ell_spill(streams, name)),
+                  (name, streams[name, "molhiv", ELL][1][0], "molhiv W=128 bucket 0")]
+    check_layer_cases(cases, device, max_err)
+
+
+def longest_ell_spill(streams: dict, name: str) -> tuple:
+    """(the hep10k W=128 ELL bucket with the longest spill tail, its name)."""
+    _, hep, _ = streams[name, "hep10k", ELL_LAYER]
+    i = max(range(len(hep)), key=lambda j: real_spill_lanes(hep[j]))
+    return hep[i], f"hep10k W=128 bucket {i}"
+
+
+def check_layer_cases(cases, device, max_err: dict) -> None:
+    """Each per-layer kernel a (model, batch, name) case's layer 0 runs
+    against its plain version, f32 (1e-4) and bf16 (5e-2), seeded synthetic
+    weights."""
     from flowgnn_tpu_torch.core.numerics import BF16, FLOAT32
     from flowgnn_tpu_torch.params.loaders import params_from_numpy
 
-    for name in ELL_MODELS:
-        _, hep, _ = streams[name, "hep10k", ELL_LAYER]
-        i = max(range(len(hep)), key=lambda j: real_spill_lanes(hep[j]))
-        cases = ((hep[i], f"hep10k W=128 bucket {i}"),
-                 (streams[name, "molhiv", ELL][1][0], "molhiv W=128 bucket 0"))
-        for batch, what in cases:
-            for prec, tol in ((FLOAT32, 1e-4), (BF16, 5e-2)):
-                params = params_from_numpy(synthetic_params(name, SEED + 1), prec, device)
-                kernels = model_module(name).layer_kernel_operands(params, batch, prec)
-                for kname, ops in kernels.items():
-                    err = compare(kname, ops, f"{name} {what} layer 0 {prec.compute_dtype}", tol)
-                    if prec is FLOAT32:
-                        max_err[kname] = max(max_err[kname], err)
+    for name, batch, what in cases:
+        for prec, tol in ((FLOAT32, 1e-4), (BF16, 5e-2)):
+            params = params_from_numpy(synthetic_params(name, SEED + 1), prec, device)
+            kernels = model_module(name).layer_kernel_operands(params, batch, prec)
+            for kname, ops in kernels.items():
+                err = compare(kname, ops, f"{name} {what} layer 0 {prec.compute_dtype}", tol)
+                if prec is FLOAT32:
+                    max_err[kname] = max(max_err[kname], err)
 
 
-def check_outputs(key: tuple, i: int, packed, out, want, tol: float, plain=None):
+def check_new_layer_kernels(streams: dict, device, max_err: dict) -> None:
+    """Phase 3e: row 20 on layer 0 of the first PNA molhiv slot bucket; row
+    18 on the first DGN molhiv ELL bucket (W=128, block 512); rows 16 and 24
+    on the DGN hep10k W=128 ELL bucket with the longest spill tail; row 17 on
+    the first GAT molhiv ELL bucket and on the GAT hep10k W=128 ELL bucket
+    with the longest tail (with row 24); f32 and bf16."""
+    check_layer_cases([
+        ("pna", streams["pna", "molhiv", SLOTS][1][0], "molhiv W=128 slot bucket 0"),
+        ("dgn", streams["dgn", "molhiv", ELL][1][0], "molhiv W=128 ELL bucket 0"),
+        ("dgn", *longest_ell_spill(streams, "dgn")),
+        ("gat", streams["gat", "molhiv", ELL][1][0], "molhiv W=128 ELL bucket 0"),
+        ("gat", *longest_ell_spill(streams, "gat")),
+    ], device, max_err)
+
+
+def plain_rows(batch: dict, packed):
+    """Each node row of a kernel batch's row in the plain batch of the same
+    bucket: the slot layout sorts each window's rows by in-degree
+    (``base._window_degree_perm``), the ELL layout keeps them."""
+    import numpy as np
+    import torch
+
+    from flowgnn_tpu_torch.models import base
+
+    n = packed.node_capacity + 1
+    if "slot_src" not in batch:
+        return torch.arange(n, device=batch["node_feat"].device)
+    perm = base._window_degree_perm(np.asarray(packed.senders), np.asarray(packed.receivers), n,
+                                    int(batch["slot_geom"].shape[0]))
+    return torch.as_tensor(perm[:n], device=batch["node_feat"].device)
+
+
+def check_outputs(key: tuple, i: int, packed, out, want, tol: float, plain=None, rows=None,
+                  rounded=None):
     """One bucket's forward output against the reference's (``agree``); on
-    an intermediates path every layer's rows of real nodes and the pooled h
-    too. ``plain``, the bf16 plain path's output on the bucket, widens each
-    comparison's tol to 1.5× the tol that path itself needs, where that is
-    larger: bf16 GIN errs by up to ~5% of the largest prediction on either
-    path (PERF.md §2). Returns (the predictions' max abs error, their tol)."""
+    an intermediates path every layer's rows of real nodes (``rows``: each
+    kernel row's row in the reference, as ``plain_rows`` gives it) and the
+    pooled h too. ``plain``, the bf16 plain path's output on the bucket,
+    widens each comparison's tol to 1.5× the tol that path itself needs,
+    where that is larger: bf16 GIN errs by up to ~5% of the largest
+    prediction on either path (PERF.md §2). ``rounded``, the bf16 output of
+    the path with its kernels replaced by their plain versions
+    (``KERNEL_ROUNDING``), widens the predictions' tol the same way. Returns
+    (the predictions' max abs error, their tol)."""
     k = packed.num_graphs
     pairs = [(out, want, plain)]
     if isinstance(out, tuple):
         import torch
 
-        real = torch.as_tensor(packed.node_graph < k, device=out[0].device)
+        real = torch.as_tensor(packed.node_graph < k, device=out[0].device)[rows]
+        ref_rows = rows[real]
         (out, inter), (want, want_inter) = out, want
         plain_inter = plain[1] if plain is not None else None
         check(len(inter["layers"]) == len(want_inter["layers"]), f"{key}: intermediates")
         pairs = [(out[:k], want[:k], None if plain is None else plain[0][:k])]
         for j, (a, b) in enumerate(zip(inter["layers"], want_inter["layers"])):
-            pairs.append((a[real], b[real], None if plain is None else plain_inter["layers"][j][real]))
+            pairs.append((a[real], b[ref_rows],
+                          None if plain is None else plain_inter["layers"][j][ref_rows]))
         pairs.append((inter["h_graph"][:k], want_inter["h_graph"][:k],
                       None if plain is None else plain_inter["h_graph"][:k]))
     else:
@@ -521,8 +639,10 @@ def check_outputs(key: tuple, i: int, packed, out, want, tol: float, plain=None)
     check(tuple(out.shape) == (packed.n_node.shape[0], 1), f"{key}: shape {tuple(out.shape)}")
     check(bool(out[:k].isfinite().all()), f"{key}: non-finite output")
     errs, tols = [], []
-    for got, ref, pl in pairs:
+    for j, (got, ref, pl) in enumerate(pairs):
         t = tol if pl is None else max(tol, 1.5 * needed_tol(pl, ref))
+        if j == 0 and rounded is not None:
+            t = max(t, 1.5 * needed_tol(rounded[:k], ref))
         errs.append(agree(got, ref, t))
         tols.append(t)
     if len(pairs) > 1:
@@ -533,7 +653,7 @@ def check_outputs(key: tuple, i: int, packed, out, want, tol: float, plain=None)
 
 
 def run_main_path(streams: dict, device, keys) -> dict:
-    """Phases 4, 4b, 4c and 4d: each (model, profile, layout) of ``keys``
+    """Phases 4, 4b, 4c, 4d and 4e: each (model, profile, layout) of ``keys``
     over its whole stream in f32 and bf16; returns each kernel's launches
     counted in these runs.
 
@@ -544,7 +664,10 @@ def run_main_path(streams: dict, device, keys) -> dict:
     graphs move by a few percent of the largest prediction: 5e-2. The bf16
     plain path's own error against the same reference is printed beside, and
     where that path needs more than 5e-2 itself (GIN), the gate is 1.5×
-    what it needs (``check_outputs``)."""
+    what it needs (``check_outputs``). On the ``KERNEL_ROUNDING`` paths the
+    gate also takes 1.5× what the path with its kernels' plain versions
+    needs, printed beside, and the kernel path must match that path at
+    5e-2."""
     import collections
 
     import torch
@@ -581,14 +704,25 @@ def run_main_path(streams: dict, device, keys) -> dict:
             for i, (packed, out, pb, w) in enumerate(zip(buckets, outs, plain, want)):
                 k = packed.num_graphs
                 pl = forward(params, pb, prec, **kw) if prec is BF16 else None
-                err, t = check_outputs(key, i, packed, out, w, tol, pl)
+                rows = plain_rows(batches[i], packed) if inter else None
+                rounded = None
+                if pl is not None and key in KERNEL_ROUNDING:
+                    with plain_versions():
+                        rounded = forward(params, batches[i], prec, **kw)
+                    held = agree(out[:k], rounded[:k], tol)
+                err, t = check_outputs(key, i, packed, out, w, tol, pl, rows, rounded)
                 w, pl = (w[0], pl[0] if pl is not None else None) if inter else (w, pl)
                 line = (f"# main path {name} {profile} {layout} {prec.compute_dtype} bucket {i}: "
                         f"{k} graphs, launches {dict(bucket_launches(name, batches[i], inter))}, "
                         f"max abs err vs f32 plain path {err:.3e}")
                 if pl is not None:
                     plain_err = (pl[:k].float() - w[:k]).abs().max().item()
-                    line += f" (bf16 plain path: {plain_err:.3e}; tol {t:.3e})"
+                    line += f" (bf16 plain path: {plain_err:.3e}"
+                    if rounded is not None:
+                        r_err = (rounded[:k].float() - w[:k]).abs().max().item()
+                        line += (f"; bf16 plain versions' path: {r_err:.3e}, the kernel path "
+                                 f"against it {held:.3e}")
+                    line += f"; tol {t:.3e})"
                 print(f"{line}; max |out| {w[:k].abs().max().item():.3e}")
     return launches
 
@@ -632,12 +766,12 @@ def describe_spill(streams: dict) -> None:
 
 
 def describe_ell_spill(streams: dict) -> None:
-    """Phase 4d's geometry: per hep10k W=128 ELL stream and bucket, W, k, the
-    ELL lanes, the spill tail's real and blocked lanes and the compact
-    scatter windows T; every bucket must spill."""
+    """Phases 4d and 4e's geometry: per hep10k W=128 ELL stream and bucket,
+    W, k, the ELL lanes, the spill tail's real and blocked lanes and the
+    compact scatter windows T; every bucket must spill."""
     from flowgnn_tpu_torch.models import base
 
-    for name in ELL_MODELS:
+    for name in LAYER_MODELS:
         buckets, batches, _ = streams[name, "hep10k", ELL_LAYER]
         for i, b in enumerate(batches):
             w, k = base.ell_geometry(b)
@@ -650,9 +784,13 @@ def describe_ell_spill(streams: dict) -> None:
 
 
 def check_ell_matches_slots(streams: dict, device) -> dict:
-    """Phase 4b, molhiv at W=128: the ELL path's f32 predictions against the
-    slot path's (both kernel paths; summation order only: 1e-4). Returns the
-    ELL kernels' launches, counted as in ``run_main_path``."""
+    """Phases 4b and 4e, molhiv at W=128: the ELL path's f32 predictions
+    against the slot path's (both kernel paths; summation order only:
+    1e-4), for GIN, GIN-VN and GCN (their whole-model ELL kernel) and DGN and
+    GAT (rows 18 and 17, once per layer). Returns the ELL kernels' launches,
+    counted as in ``run_main_path``."""
+    import collections
+
     import torch
 
     from flowgnn_tpu_torch.core.numerics import FLOAT32
@@ -661,21 +799,24 @@ def check_ell_matches_slots(streams: dict, device) -> dict:
 
     kernels = {k: kernel_fn(k) for k in KERNELS}
     launches = dict.fromkeys(KERNELS, 0)
-    for name in ELL_MODELS:
+    for name in LAYER_MODELS:
         forward = registry.get(name).forward
         params = params_from_numpy(synthetic_params(name, SEED), FLOAT32, device)
         buckets, ell, _ = streams[name, "molhiv", ELL]
         slot = streams[name, "molhiv", SLOTS][1]
         want = [forward(params, b, FLOAT32) for b in slot]
-        kname = MODEL_KERNELS[name][1]
+        expect = collections.Counter()
+        for b in ell:
+            expect.update(bucket_launches(name, b))
         for k in kernels.values():
             k.launches = 0
         outs = [forward(params, b, FLOAT32) for b in ell]
         torch.cuda.synchronize()
         counts = {k: f.launches for k, f in kernels.items()}
-        check(counts[kname] == len(ell) and sum(counts.values()) == len(ell),
-              f"{name} molhiv ELL: launches {counts}")
-        launches[kname] += counts[kname]
+        check(counts == {k: expect.get(k, 0) for k in KERNELS},
+              f"{name} molhiv ELL: launches {counts}, expected {dict(expect)}")
+        for k, c in counts.items():
+            launches[k] += c
         for i, (packed, out, w) in enumerate(zip(buckets, outs, want)):
             k = packed.num_graphs
             err = agree(out[:k], w[:k], 1e-4)
@@ -739,6 +880,14 @@ def work(kname: str, ops: dict, out) -> tuple[float, float]:
         ops_ = 5 * e * d
     elif kname == "gcn_local_layer_ell":
         ops_ = 5 * e * d + (0 if ops["w_next"] is None else 2 * n * d * d)
+    elif kname == "pna_local_layer":
+        ops_ = 5 * e * d + 24 * n * d * d
+    elif kname == "dgn_local_layer_ell":
+        ops_ = 3 * e * d + 4 * n * d * d
+    elif kname == "dgn_local_message_ell":
+        ops_ = 3 * e * d
+    elif kname == "gat_local_message_ell":
+        ops_ = e * (2 * d + 4 * ops["num_heads"])
     else:  # the spill scatter: one add per lane and column
         ops_ = e * d
     return float(ops_), float(byts)
@@ -754,7 +903,7 @@ def spill_receivers(batch: dict):
 
 
 def time_paths(streams: dict, device, keys) -> dict:
-    """Phases 5 and 5b: per (model, profile, layout) of ``keys`` and dtype,
+    """Phases 5 to 5d: per (model, profile, layout) of ``keys`` and dtype,
     the end-to-end µs/graph of the kernel path and of the plain edge-list
     path, and per kernel of the path its ms per stream alone, its plain
     version's, its bound, and for the spill scatter PyTorch's
@@ -882,7 +1031,7 @@ def main() -> int:
     if args.profile:
         print(smi)
         paths = [(name, SLOTS, SLOTS) for name in SPILL_MODELS]
-        paths += [(name, ELL_LAYER, ELL) for name in ELL_MODELS]
+        paths += [(name, ELL_LAYER, ELL) for name in LAYER_MODELS]
         for name, label, layout in paths:
             key = (name, "hep10k", label)
             streams = {key: make_stream(name, "hep10k", HEP_GRAPHS, layout, dev, window=SPILL_WINDOW)}
@@ -909,16 +1058,19 @@ def main() -> int:
     streams = {(name, "molhiv", SLOTS): make_stream(name, "molhiv", STREAM_GRAPHS, SLOTS, dev)
                for name in MODELS}
     for name in ELL_MODELS:
-        for profile, count in (("hep10k", HEP_GRAPHS), ("molhiv", STREAM_GRAPHS)):
-            streams[name, profile, ELL] = make_stream(name, profile, count, ELL, dev)
+        streams[name, "hep10k", ELL] = make_stream(name, "hep10k", HEP_GRAPHS, ELL, dev)
+    for name in LAYER_MODELS:
+        streams[name, "molhiv", ELL] = make_stream(name, "molhiv", STREAM_GRAPHS, ELL, dev)
     for name in SPILL_MODELS:
         streams[name, "hep10k", SLOTS] = make_stream(name, "hep10k", HEP_GRAPHS, SLOTS, dev,
                                                      window=SPILL_WINDOW)
-    for name in ELL_MODELS:
+    for name in LAYER_MODELS:
         streams[name, "hep10k", ELL_LAYER] = make_stream(name, "hep10k", HEP_GRAPHS, ELL, dev,
                                                          window=SPILL_WINDOW)
     for name in INTER_MODELS:  # the molhiv ELL stream, run with intermediates
         streams[name, "molhiv", ELL_INTER] = streams[name, "molhiv", ELL]
+    # PNA's molhiv slot stream, run with intermediates (row 20).
+    streams["pna", "molhiv", SLOT_INTER] = streams["pna", "molhiv", SLOTS]
     for (name, profile, layout), (buckets, batches, _) in streams.items():
         if layout == SLOTS and profile == "molhiv":
             w, s = batches[0]["slot_geom"].shape
@@ -929,7 +1081,7 @@ def main() -> int:
     describe_ell(streams)
     describe_spill(streams)
     describe_ell_spill(streams)
-    print(f"# host pack of {len(streams) - len(INTER_MODELS)} streams: "
+    print(f"# host pack of {len(streams) - len(INTER_MODELS) - 1} streams: "
           f"{time.perf_counter() - t0:.1f} s")
 
     # 3. Kernels against their plain versions; 4. the main paths; 5. timings.
@@ -938,17 +1090,22 @@ def main() -> int:
     spill_keys = [(name, "hep10k", SLOTS) for name in SPILL_MODELS]
     layer_keys = [(name, "hep10k", ELL_LAYER) for name in ELL_MODELS]
     layer_keys += [(name, "molhiv", ELL_INTER) for name in INTER_MODELS]
+    # Phase 4e's paths: PNA's row 20, DGN's and GAT's ELL paths.
+    new_keys = [("pna", "molhiv", SLOT_INTER), ("dgn", "molhiv", ELL), ("gat", "molhiv", ELL),
+                ("dgn", "hep10k", ELL_LAYER), ("gat", "hep10k", ELL_LAYER)]
     max_err = dict.fromkeys(KERNELS, 0.0)
     check_kernels(streams, dev, max_err)
     check_ell_kernels(streams, dev, max_err)
     check_layer_kernels(streams, dev, max_err)
     check_ell_layer_kernels(streams, dev, max_err)
-    launches = run_main_path(streams, dev, slot_keys + hep_keys + spill_keys + layer_keys)
+    check_new_layer_kernels(streams, dev, max_err)
+    launches = run_main_path(streams, dev,
+                             slot_keys + hep_keys + spill_keys + layer_keys + new_keys)
     for k, n in check_ell_matches_slots(streams, dev).items():
         launches[k] += n
     molhiv_ell_keys = [(name, "molhiv", ELL) for name in ELL_MODELS]
-    record = time_paths(streams, dev,
-                        slot_keys + hep_keys + molhiv_ell_keys + spill_keys + layer_keys)
+    record = time_paths(streams, dev, slot_keys + hep_keys + molhiv_ell_keys + spill_keys
+                        + layer_keys + new_keys)
 
     print(smi)
     kernels = []

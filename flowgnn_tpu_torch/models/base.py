@@ -41,18 +41,22 @@ from ..ops.segment import segment_sum
 from ..ops.spmm import windowed_segment_sum
 
 # Window and ELL block per model. The slot megakernels read only the window;
-# the block is the ELL lanes per window. Both are the port's own: W=128 keeps
-# a window's f32 state inside one Hopper block's shared memory (the JAX
-# package's v5e table puts GIN-VN at W=256 and GAT at W=384, figures of that
-# chip's 128-lane tiles); the ELL kernels span larger windows with a cluster
-# of 128-row blocks.
+# the block is the ELL lanes per window and feeds only the ELL layout. The
+# windows are the port's own: W=128 keeps a window's f32 state inside one
+# Hopper block's shared memory (the JAX package's v5e table puts GIN-VN at
+# W=256 and GAT at W=384, figures of that chip's 128-lane tiles); the ELL
+# kernels span larger windows with 128-row blocks. DGN and GAT take the block
+# the JAX bench derives at --ell-window 128 (bench.py:147-158 over its
+# ELL_GEOMETRY_DEFAULTS): 512. GAT needs it: its self loops add up to 128
+# lanes to a window whose fullest holds 286 on molhiv, which would push a
+# block of 384 to two blocks per window.
 GEOMETRY_DEFAULTS: dict[str, tuple[int, int]] = {
     "gin": (128, 384),
     "gin-vn": (128, 384),
     "gcn": (128, 384),
-    "gat": (128, 384),
+    "gat": (128, 512),
     "pna": (128, 384),
-    "dgn": (128, 384),
+    "dgn": (128, 512),
 }
 # The ELL layout's window and block when ``as_batch`` is given none: the JAX
 # package's PALLAS_ELL_WINDOW / PALLAS_ELL_BLOCK.
@@ -499,19 +503,19 @@ def ell_meta(batch: dict) -> torch.Tensor:
     ], dim=1)
 
 
-# Batch keys of the layouts not ported yet (ROADMAP queue 2): the legacy
-# dynamic-window layout (``loc_ulocal`` without ``loc_ell``), the edge-block
-# layout, and the ELL layout with its spill blocks for the models that do not
-# run it yet (DGN, GAT).
+# Batch keys of the layouts not ported yet (ROADMAP queue 2 C): the legacy
+# dynamic-window layout (``loc_ulocal`` without ``loc_ell``) and the
+# edge-block layout with its spill blocks. Every model runs the slot and the
+# ELL layout, spill blocks included.
 UNPORTED_LAYOUT_KEYS = ("loc_ulocal", "loc_ell", "blk_vlocal", "spill_blk_vlocal")
 
 
-def reject_unported_layouts(batch: dict, ell: bool = False) -> None:
+def reject_unported_layouts(batch: dict) -> None:
     """Raise ``NotImplementedError`` on a batch in a layout the port does
-    not run yet. ``ell=True`` (GIN, GCN, PNA) lets the ELL layout and its
-    spill blocks through; the spill blocks of a slot batch always pass."""
+    not run yet. The slot layout and the ELL layout pass, each with its
+    spill blocks."""
     ok = {"spill_blk_vlocal"} if "slot_src" in batch else set()
-    if ell and "loc_ell" in batch:
+    if "loc_ell" in batch:
         ok |= {"loc_ulocal", "loc_ell", "spill_blk_vlocal"}
     for key in UNPORTED_LAYOUT_KEYS:
         if key in batch and key not in ok:

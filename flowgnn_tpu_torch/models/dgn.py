@@ -9,15 +9,19 @@ eigw_sum·h| / eig_abssum (zero → the ap_fixed<16,3> ulp); a [dim, 2, dim]
 posttrans linear; residual h + relu(acc) (DGN/src/node_embedding.cc:
 107-160); readout MLP dim → 50 → 25 → 1 (DGN/src/finalize.cc:35-52).
 
-Three branches: a slot batch with no spill tail runs the whole conv stack
+Four branches: a slot batch with no spill tail runs the whole conv stack
 and readout MLP-1 in one ``dgn_local_model`` launch, then MLP-2/3 in plain
 torch; any other slot batch (a spill tail, ``return_intermediates``, no
 ``pool_gl``) runs the per-layer slot path, as the JAX package does: per
 layer one ``dgn_local_layer_slots`` launch (kernel table row 22), which takes
 the spill tail's two channels pre-reduced through ``base.spill_segment_sum``
-(row 24), then ``mean_pool`` and the readout in plain torch; a plain
-edge-list batch runs the plain loop, the port's own oracle. The ELL layouts
-raise ``NotImplementedError``.
+(row 24), then ``mean_pool`` and the readout in plain torch; an ELL batch
+runs the per-layer ELL path (``flowgnn_tpu/models/dgn.py:166-214``): with no
+spill tail one ``dgn_local_layer_ell`` launch per layer (row 18), with one
+per layer ``dgn_local_message_ell`` (row 16) for the window-local channels,
+the tail's channels through ``base.ell_spill_segment_sum`` (row 24), and
+a1, a2, the posttrans and the residual in plain torch; a plain edge-list
+batch runs the plain loop, the port's own oracle.
 """
 
 from __future__ import annotations
@@ -26,7 +30,9 @@ import torch
 
 from ..core.features import ATOM_FEATURE_DIMS
 from ..core.numerics import FLOAT32, Precision
-from ..ops.local_layer import dgn_local_layer_slots, dgn_local_model
+from ..ops.local_layer import (
+    dgn_local_layer_ell, dgn_local_layer_slots, dgn_local_message_ell, dgn_local_model,
+)
 from ..ops.segment import segment_sum
 from . import base as _base
 from .base import edge_segment_sum, gather_sources, linear, mean_pool, out_degree, relu
@@ -98,39 +104,70 @@ def spill_values(h: torch.Tensor, batch: dict, eig: torch.Tensor, lanes) -> torc
     return torch.cat([x, (eig[sp_u] - eig[sp_v])[:, None] * x], dim=1)
 
 
+def _layer_terms(params: dict, l: int, d: int, terms) -> dict:
+    """Layer ``l``'s node terms and posttrans as the per-layer kernels take
+    them (``terms`` as ``_node_terms`` gives them)."""
+    eig, _, eigw_sum, eig_abssum, deg = terms
+    return dict(
+        eig=eig.contiguous(), inv_deg=(1.0 / deg)[:, 0], eigw_sum=eigw_sum,
+        inv_abssum=1.0 / eig_abssum,
+        # [2D, D]: the [dim_out, 2·dim_in] posttrans, right-multiplied.
+        w_post=params["posttrans_w"][l].reshape(d, 2 * d).T.contiguous(),
+        b_post=params["posttrans_b"][l][None, :],
+    )
+
+
 def layer_operands(params: dict, batch: dict, l: int, h: torch.Tensor, terms, lanes) -> dict:
     """The keyword operands the per-layer slot path hands
     ``dgn_local_layer_slots`` for layer ``l`` and its input ``h``
     (``terms`` as ``_node_terms`` gives them); with a spill tail (``lanes``
     as ``base.spill_lanes`` gives them, else None), ``m_spill`` is the
     tail's two channels summed per node (``base.spill_segment_sum``)."""
-    eig, _, eigw_sum, eig_abssum, deg = terms
     window, n_slots = (int(x) for x in batch["slot_geom"].shape[-2:])
-    d = h.shape[1]
     m_spill = None
     if lanes is not None:
-        m_spill = _base.spill_segment_sum(spill_values(h, batch, eig, lanes), batch)
-    return dict(
-        slot_src=batch["slot_src"], h=h, eig=eig.contiguous(), inv_deg=(1.0 / deg)[:, 0],
-        eigw_sum=eigw_sum, inv_abssum=1.0 / eig_abssum,
-        # [2D, D]: the [dim_out, 2·dim_in] posttrans, right-multiplied.
-        w_post=params["posttrans_w"][l].reshape(d, 2 * d).T.contiguous(),
-        b_post=params["posttrans_b"][l][None, :], window=window, slots=n_slots,
-        m_spill=m_spill,
-    )
+        m_spill = _base.spill_segment_sum(spill_values(h, batch, terms[0], lanes), batch)
+    return dict(slot_src=batch["slot_src"], h=h, window=window, slots=n_slots, m_spill=m_spill,
+                **_layer_terms(params, l, h.shape[1], terms))
+
+
+def ell_layer_operands(params: dict, batch: dict, l: int, h: torch.Tensor, terms, meta,
+                       spill) -> dict:
+    """The keyword operands the per-layer ELL path hands
+    ``dgn_local_layer_ell`` (no spill tail: ``spill`` None) or
+    ``dgn_local_message_ell`` (a spill tail) for layer ``l`` and its input
+    ``h``; ``meta`` is ``base.ell_meta(batch)``."""
+    ops = dict(ell_meta=meta, h=h, eig=terms[0].contiguous(),
+               window=_base.ell_geometry(batch)[0])
+    if spill is not None:
+        return ops
+    return dict(ops, **_layer_terms(params, l, h.shape[1], terms))
 
 
 def layer_kernel_operands(params: dict, batch: dict, prec: Precision = FLOAT32) -> dict:
-    """Layer 0's keyword operands of the kernels the per-layer slot path
-    runs on a slot batch with a spill tail, by wrapper name (also used to
-    check and time the kernels on their own)."""
+    """Layer 0's keyword operands of the kernels the per-layer paths run, by
+    wrapper name (also used to check and time the kernels on their own):
+    ``dgn_local_layer_slots`` (and the spill scatter with a spill tail) on a
+    slot batch; on an ELL batch ``dgn_local_layer_ell`` with no spill tail,
+    ``dgn_local_message_ell`` and the spill scatter with a blocked one."""
     h = _atom_embed_dgn(params["atom_tables"], batch["node_feat"], prec)
-    terms, lanes = _node_terms(batch, prec), _base.spill_lanes(batch)
-    return {
-        "dgn_local_layer_slots": layer_operands(params, batch, 0, h, terms, lanes),
-        "windowed_segment_sum": _base.spill_segment_operands(
-            spill_values(h, batch, terms[0], lanes), batch),
-    }
+    terms = _node_terms(batch, prec)
+    if "loc_ell" in batch:
+        spill = _base.ell_spill(batch)
+        ops = ell_layer_operands(params, batch, 0, h, terms, _base.ell_meta(batch), spill)
+        if spill is None:
+            return {"dgn_local_layer_ell": ops}
+        out = {"dgn_local_message_ell": ops}
+        if "spill_blk_vlocal" in batch:
+            out["windowed_segment_sum"] = _base.spill_segment_operands(
+                spill_values(h, batch, terms[0], spill[:2]), batch)
+        return out
+    lanes = _base.spill_lanes(batch) if batch["slot_spill"].shape[-1] else None
+    out = {"dgn_local_layer_slots": layer_operands(params, batch, 0, h, terms, lanes)}
+    if lanes is not None:
+        out["windowed_segment_sum"] = _base.spill_segment_operands(
+            spill_values(h, batch, terms[0], lanes), batch)
+    return out
 
 
 def _readout_tail(z: torch.Tensor, params: dict, prec: Precision) -> torch.Tensor:
@@ -162,16 +199,29 @@ def forward(
     eig, eig_w, eigw_sum, eig_abssum, deg = terms
     h = _atom_embed_dgn(params["atom_tables"], batch["node_feat"], prec)
     lanes = _base.spill_lanes(batch) if slots and batch["slot_spill"].shape[-1] else None
+    ell = "loc_ell" in batch
+    if ell:
+        meta, spill = _base.ell_meta(batch), _base.ell_spill(batch)
     inter = [h]
     for l in range(L):
         if slots:
             h = dgn_local_layer_slots(**layer_operands(params, batch, l, h, terms, lanes))
             inter.append(h)
             continue
-        x = gather_sources(h, batch)
-        d = x.shape[1]
-        mm = edge_segment_sum(torch.cat([x, eig_w[:, None] * x], dim=1), batch)
-        m1, m2 = mm[:, :d], mm[:, d:]
+        d = h.shape[1]
+        if ell:
+            ops = ell_layer_operands(params, batch, l, h, terms, meta, spill)
+            if spill is None:
+                h = dgn_local_layer_ell(**ops)
+                inter.append(h)
+                continue
+            m_loc = dgn_local_message_ell(**ops)
+            m_spill = _base.ell_spill_segment_sum(spill_values(h, batch, eig, spill[:2]), batch)
+            m1, m2 = m_loc[:, :d] + m_spill[:, :d], m_loc[:, d:] + m_spill[:, d:]
+        else:
+            x = gather_sources(h, batch)
+            mm = edge_segment_sum(torch.cat([x, eig_w[:, None] * x], dim=1), batch)
+            m1, m2 = mm[:, :d], mm[:, d:]
         a1 = m1 / deg
         a2 = (m2 - eigw_sum[:, None] * h).abs() / eig_abssum[:, None]
         # One linear over both channels: the [dim_out, 2·dim_in] posttrans.

@@ -11,7 +11,7 @@ reference; skip projection and ELU between layers
 (GAT/src/finalize.cc:90-110). Self edges must already be in the batch
 (``core.graphs.add_self_loops``).
 
-Three branches: a slot batch with no spill tail runs the whole model in one
+Four branches: a slot batch with no spill tail runs the whole model in one
 ``gat_local_model_slots`` launch, after the layer-0 projection and skip
 matmuls in plain torch; any other slot batch (a spill tail,
 ``return_intermediates``, no ``pool_gl``) runs the per-layer slot path, as
@@ -19,11 +19,23 @@ the JAX package does: per layer one ``gat_local_message_slots`` launch
 (kernel table row 21) for the softmax over the slots, with the spill tail's
 numerators and denominators summed through ``base.spill_segment_sum`` (row
 24) and the divide, skip projection, ELU and next projection in plain
-torch; a plain edge-list batch runs the plain loop, the port's own oracle.
-The JAX package picks one of three GAT megakernels by environment
-(``FLOWGNN_GAT_PAIRS``, ``FLOWGNN_GAT_DENSE``); they compute the same
-function, and the port has one kernel for all three. The ELL layouts raise
-``NotImplementedError``.
+torch; an ELL batch runs the per-layer ELL path
+(``flowgnn_tpu/models/gat.py:355-393, 428-448``): per layer one
+``gat_local_message_ell`` launch (row 17) for the window-local sums, the
+spill tail's through ``base.ell_spill_segment_sum`` (row 24), and the same
+plain-torch glue; a plain edge-list batch runs the plain loop, the port's
+own oracle. The JAX package picks one of three GAT megakernels by
+environment (``FLOWGNN_GAT_PAIRS``, ``FLOWGNN_GAT_DENSE``); they compute the
+same function, and the port has one kernel for all three.
+
+The port reads neither ``FLOWGNN_GAT_FUSE`` nor ``FLOWGNN_GAT_RAWSCORES``.
+Under ``FLOWGNN_GAT_FUSE=1`` the JAX package runs every ELL layer but the
+last through ``gat_local_layer_ell`` (kernel table row 23, not ported yet),
+which moves the divide, skip, ELU, next projection and scores into its
+epilogue: the same function as the port's row 17 and glue, up to rounding.
+``FLOWGNN_GAT_RAWSCORES=1`` hands row 17 per-lane logits computed outside
+the kernel and rounded to the compute dtype; the port computes the scores
+in the kernel, so the two differ by that bf16 rounding only.
 """
 
 from __future__ import annotations
@@ -31,7 +43,9 @@ from __future__ import annotations
 import torch
 
 from ..core.numerics import FLOAT32, Precision
-from ..ops.local_layer import gat_local_message_slots, gat_local_model_slots
+from ..ops.local_layer import (
+    gat_local_message_ell, gat_local_message_slots, gat_local_model_slots,
+)
 from . import base as _base
 from .base import acc_dtype, edge_segment_sum, linear, mean_pool
 
@@ -128,16 +142,26 @@ def message_operands(h: torch.Tensor, s_src: torch.Tensor, s_tgt: torch.Tensor,
     )
 
 
-def spill_values(h: torch.Tensor, s_src: torch.Tensor, s_tgt: torch.Tensor, batch: dict,
-                 lanes) -> torch.Tensor:
+def spill_values(h: torch.Tensor, s_src: torch.Tensor, s_tgt: torch.Tensor, lanes,
+                 real: torch.Tensor) -> torch.Tensor:
     """The spill lanes' [score·h_u ‖ score], score = exp(leaky(s_src[v] +
-    s_tgt[u])). A masked lane's score is masked before the exp, so it adds
-    0 whatever its raw score (the JAX package multiplies exp(raw) by the
-    mask, which turns an overflowing masked lane into NaN)."""
+    s_tgt[u])), ``lanes`` the tail's (senders, receivers) and ``real`` its
+    lanes that carry an edge. A pad lane's score is masked before the exp,
+    so it adds 0 whatever its raw score (the JAX package multiplies
+    exp(raw) by the mask, which turns an overflowing pad lane into NaN)."""
     sp_u, sp_v = lanes
-    real = batch["slot_spill_mask"][:, None]
+    real = real[:, None]
     score = torch.where(real, _leaky_exp(torch.where(real, s_src[sp_v] + s_tgt[sp_u], 0)), 0)
     return _scored(_base.spill_gather(h.reshape(h.shape[0], -1), sp_u), score)
+
+
+def ell_spill_lanes(batch: dict):
+    """(the tail's (senders, receivers), its lanes that carry an edge) of an
+    ELL batch's spill tail, or None without one."""
+    spill = _base.ell_spill(batch)
+    if spill is None:
+        return None
+    return spill[:2], spill[1] < _base.num_nodes_static(batch) - 1
 
 
 def _slot_message(h: torch.Tensor, s_src: torch.Tensor, s_tgt: torch.Tensor, batch: dict,
@@ -150,21 +174,53 @@ def _slot_message(h: torch.Tensor, s_src: torch.Tensor, s_tgt: torch.Tensor, bat
     out = gat_local_message_slots(**ops)
     if ops["divide"]:
         return out.reshape(h.shape)
-    sp_sums = _base.spill_segment_sum(spill_values(h, s_src, s_tgt, batch, lanes), batch)
-    return _softmax_message(out + sp_sums, s_src.shape[1])
+    vals = spill_values(h, s_src, s_tgt, lanes, batch["slot_spill_mask"])
+    return _softmax_message(out + _base.spill_segment_sum(vals, batch), s_src.shape[1])
+
+
+def ell_message_operands(h: torch.Tensor, s_src: torch.Tensor, s_tgt: torch.Tensor,
+                         batch: dict, meta: torch.Tensor) -> dict:
+    """The keyword operands the per-layer ELL path hands
+    ``gat_local_message_ell`` for one layer's h [n, H, D] and scores;
+    ``meta`` is ``base.ell_meta(batch)``."""
+    return dict(ell_meta=meta, h=h.reshape(h.shape[0], -1), s_src=s_src.contiguous(),
+                s_tgt=s_tgt.contiguous(), window=_base.ell_geometry(batch)[0],
+                num_heads=s_src.shape[1])
+
+
+def _ell_message(h: torch.Tensor, s_src: torch.Tensor, s_tgt: torch.Tensor, batch: dict,
+                 meta: torch.Tensor, spill) -> torch.Tensor:
+    """One layer's messages [n, H, D] over an ELL batch: the window-local
+    sums of ``gat_local_message_ell``, with a spill tail (``spill`` as
+    ``ell_spill_lanes`` gives it) merged with the tail's
+    (``base.ell_spill_segment_sum``), then divided."""
+    both = gat_local_message_ell(**ell_message_operands(h, s_src, s_tgt, batch, meta))
+    if spill is not None:
+        both = both + _base.ell_spill_segment_sum(spill_values(h, s_src, s_tgt, *spill), batch)
+    return _softmax_message(both, s_src.shape[1])
 
 
 def layer_kernel_operands(params: dict, batch: dict, prec: Precision = FLOAT32) -> dict:
-    """Layer 0's keyword operands of the kernels the per-layer slot path
-    runs on a slot batch with a spill tail, by wrapper name (also used to
-    check and time the kernels on their own)."""
+    """Layer 0's keyword operands of the kernels the per-layer paths run, by
+    wrapper name (also used to check and time the kernels on their own):
+    ``gat_local_message_slots`` on a slot batch, ``gat_local_message_ell``
+    on an ELL batch, each with the spill scatter when the batch has a
+    blocked spill tail."""
     h = _project(params["proj_w"][0], _raw_features(params, batch, prec), prec)
     s_src, s_tgt = _scores(h, params["a_src"][0]), _scores(h, params["a_tgt"][0])
-    vals = spill_values(h, s_src, s_tgt, batch, _base.spill_lanes(batch))
-    return {
-        "gat_local_message_slots": message_operands(h, s_src, s_tgt, batch),
-        "windowed_segment_sum": _base.spill_segment_operands(vals, batch),
-    }
+    if "loc_ell" in batch:
+        out = {"gat_local_message_ell": ell_message_operands(h, s_src, s_tgt, batch,
+                                                             _base.ell_meta(batch))}
+        spill = ell_spill_lanes(batch)
+    else:
+        out = {"gat_local_message_slots": message_operands(h, s_src, s_tgt, batch)}
+        spill = None
+        if batch["slot_spill"].shape[-1]:
+            spill = _base.spill_lanes(batch), batch["slot_spill_mask"]
+    if spill is not None and "spill_blk_vlocal" in batch:
+        out["windowed_segment_sum"] = _base.spill_segment_operands(
+            spill_values(h, s_src, s_tgt, *spill), batch)
+    return out
 
 
 def forward(
@@ -189,6 +245,9 @@ def forward(
     prev = _raw_features(params, batch, prec)
     h = _project(params["proj_w"][0], prev, prec)  # [n, head, dim]
     lanes = _base.spill_lanes(batch) if slots and batch["slot_spill"].shape[-1] else None
+    ell = "loc_ell" in batch
+    if ell:
+        meta, spill = _base.ell_meta(batch), ell_spill_lanes(batch)
     u, v = batch["senders"].long(), batch["receivers"].long()
     inter = [h]
     for l in range(L):
@@ -196,6 +255,8 @@ def forward(
         s_tgt = _scores(h, params["a_tgt"][l])
         if slots:
             msg = _slot_message(h, s_src, s_tgt, batch, lanes)
+        elif ell:
+            msg = _ell_message(h, s_src, s_tgt, batch, meta, spill)
         else:
             score = _leaky_exp(s_src[v] + s_tgt[u])  # [E, H]
             both = edge_segment_sum(_scored(h.reshape(h.shape[0], -1)[u], score), batch)

@@ -204,7 +204,7 @@ def forward(
     """[G+1, 1] predictions (the last row is the pad graph's). ``params``
     as made by ``params.loaders.params_from_numpy``; ``batch`` as made by
     ``models.base.to_device``."""
-    _base.reject_unported_layouts(batch, ell=True)
+    _base.reject_unported_layouts(batch)
     ell = "loc_ell" in batch
     if ell and _base.ell_megakernel(batch, return_intermediates):
         pool = gcn_local_model(**ell_kernel_operands(params, batch, prec))

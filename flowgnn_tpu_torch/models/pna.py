@@ -9,19 +9,20 @@ log(out_deg + 1)/avg_deg (PNA/src/node_embedding.cc:123-214); one
 [4D → D] tower per scaler; residual h + relu(acc); readout MLP
 dim → 40 → 20 → 1 (PNA/src/finalize.cc:34-52).
 
-Three branches: a slot batch with no spill tail runs the whole conv stack
+Four branches: a slot batch with no spill tail runs the whole conv stack
 and readout MLP-1 in one ``pna_local_model`` launch, then MLP-2/3 in plain
-torch; a slot batch with a spill tail runs the per-layer slot path, as the
-JAX package does: per layer ``pna_local_stats_ell`` (kernel table row 19)
+torch; a slot batch with no spill tail that the megakernel does not take
+(``return_intermediates``, or no ``pool_gl``) runs one ``pna_local_layer``
+launch per layer (kernel table row 20: aggregates, tower and residual), as
+the JAX package does (``flowgnn_tpu/models/pna.py:113-136``), then
+``mean_pool`` and the readout in plain torch; a slot batch with a spill tail
+runs the per-layer slot path: per layer ``pna_local_stats_ell`` (row 19)
 gives the slot aggregates, the spill tail adds its sums through
 ``base.spill_segment_sum`` (row 24) and its min / max through
 ``segment_min`` / ``segment_max``, and the tower, ``mean_pool`` and the
 readout are plain torch; a plain edge-list batch, and an ELL batch (spill
 tail included: PNA has no ELL kernel, ``flowgnn_tpu/models/pna.py:56-58``),
-runs the plain loop, the port's own oracle. A slot batch with no spill tail
-that the megakernel does not take (``return_intermediates``, or no
-``pool_gl``) would go to ``pna_local_layer`` (row 20, not ported yet) and
-raises ``NotImplementedError``.
+runs the plain loop, the port's own oracle.
 """
 
 from __future__ import annotations
@@ -29,7 +30,7 @@ from __future__ import annotations
 import torch
 
 from ..core.numerics import FLOAT32, Precision
-from ..ops.local_layer import pna_local_model, pna_local_stats_ell
+from ..ops.local_layer import pna_local_layer, pna_local_model, pna_local_stats_ell
 from ..ops.segment import segment_max, segment_min
 from . import base as _base
 from .base import edge_segment_sum, gather_sources, in_degree, linear, mean_pool, out_degree, relu
@@ -124,11 +125,33 @@ def _slot_aggregates(h: torch.Tensor, batch: dict, lanes):
     )
 
 
+def layer_operands(params: dict, batch: dict, l: int, h: torch.Tensor, terms) -> dict:
+    """The keyword operands the per-layer path of a slot batch with no spill
+    tail hands ``pna_local_layer`` for layer ``l`` and its input ``h``
+    (``terms`` as ``_degree_terms`` gives them)."""
+    in_deg, t, scale = terms
+    d = h.shape[1]
+    window, n_slots = (int(x) for x in batch["slot_geom"].shape[-2:])
+    # [4D, 3D] = [w_noneᵀ ‖ w_tᵀ ‖ w_scaleᵀ] (flowgnn_tpu pna.py:122-126).
+    w_cat = params["conv_w"][l].reshape(d, 3, 4 * d).permute(2, 1, 0).reshape(4 * d, 3 * d)
+    return dict(
+        slot_src=batch["slot_src"], h=h, inv_deg=(1.0 / in_deg)[:, 0], t=t[:, 0],
+        scale=scale[:, 0], w_cat=w_cat.contiguous(), b=params["conv_b"][l][None, :],
+        window=window, slots=n_slots,
+        # Kernel argument order: (min-accumulator seed, max-accumulator seed).
+        min_init=MAX_INIT, max_init=MIN_INIT,
+    )
+
+
 def layer_kernel_operands(params: dict, batch: dict, prec: Precision = FLOAT32) -> dict:
     """Layer 0's keyword operands of the kernels the per-layer slot path
-    runs on a slot batch with a spill tail, by wrapper name (also used to
-    check and time the kernels on their own)."""
+    runs, by wrapper name (also used to check and time the kernels on their
+    own): ``pna_local_layer`` on a slot batch with no spill tail,
+    ``pna_local_stats_ell`` and the spill scatter on one with a tail."""
     h = _base.atom_embed(params["node_embedding"], batch["node_feat"], prec)
+    if not batch["slot_spill"].shape[-1]:
+        return {"pna_local_layer": layer_operands(params, batch, 0, h,
+                                                  _degree_terms(params, batch, prec))}
     sums = spill_values(h, batch, _base.spill_lanes(batch))[1]
     return {
         "pna_local_stats_ell": stats_operands(h, batch),
@@ -145,25 +168,24 @@ def forward(
     """[G+1, 1] predictions (the last row is the pad graph's). ``params``
     as made by ``params.loaders.params_from_numpy``; ``batch`` as made by
     ``models.base.to_device``."""
-    _base.reject_unported_layouts(batch, ell=True)
+    _base.reject_unported_layouts(batch)
     slots = "slot_src" in batch
-    if slots and not batch["slot_spill"].shape[-1]:
-        if return_intermediates or "pool_gl" not in batch:
-            raise NotImplementedError(
-                "a slot batch without the megakernel (return_intermediates, or "
-                f"more than POOL_GMAX={_base.POOL_GMAX} graphs in a window) runs "
-                "pna_local_layer (kernel table row 20), not ported yet "
-                "(ROADMAP queue 2 B)"
-            )
+    no_spill = slots and not batch["slot_spill"].shape[-1]
+    if no_spill and not return_intermediates and "pool_gl" in batch:
         pool = pna_local_model(**slot_kernel_operands(params, batch, prec))
         return _readout_tail(_base.pool_finish(pool, batch, params["mlp1_b"], prec), params, prec)
 
     L = params["conv_w"].shape[0]
-    in_deg, t, scale = _degree_terms(params, batch, prec)
+    terms = _degree_terms(params, batch, prec)
+    in_deg, t, scale = terms
     h = _base.atom_embed(params["node_embedding"], batch["node_feat"], prec)
-    lanes = _base.spill_lanes(batch) if slots else None
+    lanes = _base.spill_lanes(batch) if slots and not no_spill else None
     inter = [h]
     for l in range(L):
+        if no_spill:
+            h = pna_local_layer(**layer_operands(params, batch, l, h, terms))
+            inter.append(h)
+            continue
         s, s2, mn, mx = _slot_aggregates(h, batch, lanes) if slots else _aggregates(h, batch)
         mean = s / in_deg
         std = torch.sqrt(relu(s2 / in_deg - mean * mean))

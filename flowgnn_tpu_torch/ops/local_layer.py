@@ -33,7 +33,9 @@ window of 128 rows:
 - ``dgn_local_layer_slots``: a whole DGN layer, with the spill tail's
   pre-reduced channels (``csrc/dgn_local_layer_slots.cu``);
 - ``gat_local_message_slots``: GAT's softmax sums or messages
-  (``csrc/gat_local_message_slots.cu``).
+  (``csrc/gat_local_message_slots.cu``);
+- ``pna_local_layer``: a whole PNA layer over a slot batch with no spill
+  tail (``csrc/pna_local_layer_slots.cu``).
 
 The per-layer ELL kernels run one layer per launch over the ELL layout with
 any number k of edge blocks per window (the k·B lanes of a window are one
@@ -48,7 +50,12 @@ per 128 rows; h stays in device memory between layers:
 - ``gcn_local_message_ell``: GCN's norm-scaled message sum
   (``csrc/gcn_local_message_ell.cu``);
 - ``gcn_local_layer_ell``: a whole GCN layer after its conv, up to the next
-  conv's output (``csrc/gcn_local_layer_ell.cu``).
+  conv's output (``csrc/gcn_local_layer_ell.cu``);
+- ``dgn_local_layer_ell``: a whole DGN layer with no spill tail, and
+  ``dgn_local_message_ell``: DGN's two message channels, for the caller to
+  merge a spill tail (two kernels of ``csrc/dgn_local_layer_ell.cu``);
+- ``gat_local_message_ell``: GAT's softmax sums, for the caller to merge a
+  spill tail and divide (``csrc/gat_local_message_ell.cu``).
 
 The spill tail's scatter is ``ops.spmm.windowed_segment_sum``.
 
@@ -82,7 +89,8 @@ LIBRARIES = (
     "dgn_local_model", "gat_local_model_slots", "gin_local_model",
     "gcn_local_model", "pna_local_stats_slots", "dgn_local_layer_slots",
     "gat_local_message_slots", "windowed_segment_sum", "gin_local_layer_ell",
-    "gcn_local_message_ell", "gcn_local_layer_ell",
+    "gcn_local_message_ell", "gcn_local_layer_ell", "pna_local_layer_slots",
+    "dgn_local_layer_ell", "gat_local_message_ell",
 )
 
 
@@ -437,7 +445,6 @@ def pna_local_model_ref(
     sums run in f32 (f64 for f64 inputs)."""
     cdt = h0.dtype
     acc = _acc_dtype(cdt)
-    dev = h0.device
     n, d = h0.shape
     nw = -(-n // window)
     caps, _, _ = _slot_prefix_geom(prefix_caps, window, slots)
@@ -447,25 +454,36 @@ def pna_local_model_ref(
     invd, t_w, sc_w = (_padded(v.to(acc)[:, None], rows) for v in (inv_deg, t, scale))
     lanes = _slot_lanes(slot_src, caps, window, slots)
     for l in range(num_layers):
-        hf = h.to(acc)
-        s = torch.zeros(rows, d, dtype=acc, device=dev)
-        q = torch.zeros_like(s)
-        mn = torch.full_like(s, min_init)
-        mx = torch.full_like(s, max_init)
-        for gather, ok in lanes:
-            x = hf[gather]
-            s = s + torch.where(ok, x, 0.0)
-            q = q + torch.where(ok, x * x, 0.0)
-            mn = torch.minimum(mn, torch.where(ok, x, min_init))
-            mx = torch.maximum(mx, torch.where(ok, x, max_init))
-        mean = s * invd
-        std = torch.sqrt(_relu(q * invd - mean * mean))
-        stats = torch.cat([mean, mn, mx, std], dim=1).to(cdt).to(acc)
-        y = stats @ w_all[l * 4 * d : (l + 1) * 4 * d].to(acc)
-        a = y[:, :d] + t_w * y[:, d : 2 * d] + sc_w * y[:, 2 * d :] + b_all[l].to(acc)
-        h = (hf + _relu(a)).to(cdt)
+        h = _pna_layer(h.to(acc), lanes, invd, t_w, sc_w, w_all[l * 4 * d : (l + 1) * 4 * d],
+                       b_all[l], min_init, max_init, cdt)
 
     return _pool_sums(h.to(acc) @ mlp1_w.to(acc), pool_gl, nw, window, gmax)
+
+
+def _pna_layer(hf, lanes, invd, t_w, sc_w, w, b, min_init, max_init, cdt) -> torch.Tensor:
+    """One PNA layer over slot ``lanes`` (as ``_slot_lanes`` gives them) of
+    the padded h ``hf`` in the accumulation dtype: the four aggregates, mean
+    and std, the tower y = rnd([mean | min | max | std])·w, acc = y_none +
+    t·y_t + scale·y_scale + b and the next h rnd(h + relu(acc)), ``rnd``
+    rounding to ``cdt``."""
+    acc = hf.dtype
+    d = hf.shape[1]
+    s = torch.zeros_like(hf)
+    q = torch.zeros_like(s)
+    mn = torch.full_like(s, min_init)
+    mx = torch.full_like(s, max_init)
+    for gather, ok in lanes:
+        x = hf[gather]
+        s = s + torch.where(ok, x, 0.0)
+        q = q + torch.where(ok, x * x, 0.0)
+        mn = torch.minimum(mn, torch.where(ok, x, min_init))
+        mx = torch.maximum(mx, torch.where(ok, x, max_init))
+    mean = s * invd
+    std = torch.sqrt(_relu(q * invd - mean * mean))
+    stats = torch.cat([mean, mn, mx, std], dim=1).to(cdt).to(acc)
+    y = stats @ w.to(acc)
+    a = y[:, :d] + t_w * y[:, d : 2 * d] + sc_w * y[:, 2 * d :] + b.to(acc)
+    return (hf + _relu(a)).to(cdt)
 
 
 def dgn_local_model_ref(
@@ -611,6 +629,38 @@ def pna_local_stats_ell_ref(
         mn = torch.minimum(mn, torch.where(ok, x, min_init))
         mx = torch.maximum(mx, torch.where(ok, x, max_init))
     return torch.cat([s, q, mn, mx], dim=1)[:n].to(h.dtype)
+
+
+def pna_local_layer_ref(
+    slot_src: torch.Tensor,  # [NW·W, S] int in-window sources (sentinel W)
+    h: torch.Tensor,  # [n, D]
+    inv_deg: torch.Tensor,  # [n] 1/max(in_deg, 1)
+    t: torch.Tensor,  # [n] log(out_deg + 1)/avg_deg scaler
+    scale: torch.Tensor,  # [n] avg_deg/log(out_deg + 1) scaler
+    w_cat: torch.Tensor,  # [4D, 3D] [w_noneᵀ ‖ w_tᵀ ‖ w_scaleᵀ]
+    b: torch.Tensor,  # [1, D]
+    window: int,
+    slots: int,
+    min_init: float,  # seed of the running min (the upper ap_fixed extreme)
+    max_init: float,  # seed of the running max (the lower extreme)
+) -> torch.Tensor:
+    """Plain-torch ``pna_local_layer``: one whole PNA layer over the slot
+    layout, the next h [n, D] in h's dtype. One layer of
+    ``pna_local_model_ref`` over every slot (no prefix caps), with the TPU
+    kernel's rounding points: inv_deg, t and scale are rounded to h's dtype
+    (they ride its feature tile), the aggregates are exact f32 sums of h_u,
+    mean = s·invd, std = sqrt(max(q·invd − mean², 0)), the stats are rounded
+    to h's dtype before the tower, acc = y₀ + t·y₁ + scale·y₂ + b in f32,
+    and h' = rnd(h + relu(acc)). Products and sums run in f32 (f64 for f64
+    inputs)."""
+    cdt = h.dtype
+    acc = _acc_dtype(cdt)
+    rows = -(-h.shape[0] // window) * window
+    invd, t_w, sc_w = (_padded(v.to(cdt).to(acc)[:, None], rows) for v in (inv_deg, t, scale))
+    lanes = _slot_lanes(slot_src, (window,) * slots, window, slots)
+    out = _pna_layer(_padded(h, rows).to(acc), lanes, invd, t_w, sc_w, w_cat, b, min_init,
+                     max_init, cdt)
+    return out[: h.shape[0]]
 
 
 def dgn_local_layer_slots_ref(
@@ -810,6 +860,104 @@ def gcn_local_layer_ell_ref(
     return x[: h.shape[0]].to(h.dtype)
 
 
+def _dgn_ell_channels(ell_meta, h, eig, window):
+    """(m1, m2, h padded to NW·W rows, the accumulation dtype) of rows 16
+    and 18: per window row v over its lanes u → v in lane order, acc =
+    Σ rnd([h_u ‖ eig_u·h_u]) in f32, eig rounded to h's dtype (it rides the
+    TPU kernels' gather); m1 = acc₁ and m2 = acc₂ − eig_v·m1, the TPU
+    kernels' factoring of Σ (eig_u − eig_v)·h_u. A lane whose u lies outside
+    [0, W) reads a zero source and one whose v does lands nowhere."""
+    cdt = h.dtype
+    acc = _acc_dtype(cdt)
+    d = h.shape[1]
+    rows = -(-h.shape[0] // window) * window
+    gather, u_ok, _, accumulate = _ell_lanes(ell_meta, rows // window, window, 0, acc)
+    hf = _padded(h, rows).to(acc)
+    e_v = _padded(eig.to(cdt).to(acc)[:, None], rows)
+    x = hf[gather] * u_ok
+    s = accumulate(torch.cat([x, e_v[gather] * x], dim=1).to(cdt).to(acc))
+    m1 = s[:, :d]
+    return m1, s[:, d:] - e_v * m1, hf, acc
+
+
+def dgn_local_message_ell_ref(
+    ell_meta: torch.Tensor,  # [NW·k·B, 5] int (u_local, v_local, attrs+offsets)
+    h: torch.Tensor,  # [n, D]
+    eig: torch.Tensor,  # [n] Fiedler-vector entry
+    window: int,
+) -> torch.Tensor:
+    """Plain-torch ``dgn_local_message_ell``: [n, 2D] [m1 ‖ m2] in h's
+    dtype, m1 = Σ h_u and m2 = Σ (eig_u − eig_v)·h_u over each row's lanes,
+    factored and rounded as ``_dgn_ell_channels`` says (the JAX kernel
+    returns the two halves as a pair). Sums run in f32 (f64 for f64
+    inputs)."""
+    m1, m2, _, _ = _dgn_ell_channels(ell_meta, h, eig, window)
+    return torch.cat([m1, m2], dim=1)[: h.shape[0]].to(h.dtype)
+
+
+def dgn_local_layer_ell_ref(
+    ell_meta: torch.Tensor,  # [NW·k·B, 5] int (u_local, v_local, attrs+offsets)
+    h: torch.Tensor,  # [n, D]
+    eig: torch.Tensor,  # [n] Fiedler-vector entry
+    inv_deg: torch.Tensor,  # [n] 1/max(out_deg, 1)
+    eigw_sum: torch.Tensor,  # [n] Σ over in-edges of eig_u − eig_v
+    inv_abssum: torch.Tensor,  # [n] 1/Σ|eig_u − eig_v| (zero → 1/EIG_EPS)
+    w_post: torch.Tensor,  # [2D, D] posttrans, right-multiplied
+    b_post: torch.Tensor,  # [1, D]
+    window: int,
+) -> torch.Tensor:
+    """Plain-torch ``dgn_local_layer_ell``: one whole DGN layer over the
+    ELL layout with no spill tail, the next h [n, D] in h's dtype. The
+    channels as in ``dgn_local_message_ell_ref``; the four node terms are
+    rounded to h's dtype (they ride the TPU kernel's feature tile); a =
+    rnd([m1·invd ‖ |m2 − ews·h|·inva]), y = a·w_post + b_post and h' =
+    rnd(h + relu(y)). Products and sums run in f32 (f64 for f64 inputs)."""
+    cdt = h.dtype
+    m1, m2, hf, acc = _dgn_ell_channels(ell_meta, h, eig, window)
+    invd, ews, inva = (
+        _padded(v.to(cdt).to(acc)[:, None], hf.shape[0]) for v in (inv_deg, eigw_sum, inv_abssum)
+    )
+    a = torch.cat([m1 * invd, (m2 - ews * hf).abs() * inva], dim=1).to(cdt).to(acc)
+    y = a @ w_post.to(acc) + b_post.to(acc)
+    return (hf + _relu(y)).to(cdt)[: h.shape[0]]
+
+
+def gat_local_message_ell_ref(
+    ell_meta: torch.Tensor,  # [NW·k·B, 5] int (u_local, v_local, attrs+offsets)
+    h: torch.Tensor,  # [n, H·D] projected features, head-major
+    s_src: torch.Tensor,  # [n, H] destination scores
+    s_tgt: torch.Tensor,  # [n, H] source scores
+    window: int,
+    num_heads: int,
+) -> torch.Tensor:
+    """Plain-torch ``gat_local_message_ell``: [n, H·D + H] [Σ score·h_u ‖
+    Σ score] in h's dtype, per window row v and head k over its lanes u → v
+    in lane order, score = exp(leaky(s_src[v] + s_tgt[u], 0.2)) in f32 with
+    s_tgt rounded to h's dtype (it rides h's gather). Each lane's [score·h_u
+    ‖ score] is rounded to h's dtype before the f32 sum; the caller adds the
+    spill tail and divides. A lane whose u lies outside [0, W) reads a zero
+    source and zero score term; a lane whose v does (a sentinel lane) adds
+    nothing, whatever its score: it is skipped, where the TPU kernel
+    multiplies its exp by the lane's validity. Sums run in f32 (f64 for f64
+    inputs)."""
+    cdt = h.dtype
+    acc = _acc_dtype(cdt)
+    n, hd = h.shape
+    nw = -(-n // window)
+    rows = nw * window
+    gather, u_ok, _, accumulate = _ell_lanes(ell_meta, nw, window, 0, acc)
+    v = ell_meta.long().reshape(nw, -1, 5)[..., 1].clamp(0, window - 1)
+    dest = (torch.arange(nw, device=h.device)[:, None] * window + v).reshape(-1)
+    hf = _padded(h, rows).to(acc)
+    st = _padded(s_tgt.to(cdt), rows).to(acc)
+    ss = _padded(s_src, rows).to(acc)
+    raw = ss[dest] + st[gather] * u_ok
+    score = torch.exp(torch.where(raw < 0, raw * 0.2, raw))
+    both = torch.cat([score.repeat_interleave(hd // num_heads, dim=1) * hf[gather] * u_ok, score],
+                     dim=1)
+    return accumulate(both.to(cdt).to(acc))[:n].to(cdt)
+
+
 # ---------------------------------------------------------------------------
 # The kernels: build, bind, check, launch.
 # ---------------------------------------------------------------------------
@@ -825,7 +973,8 @@ def _library(name: str) -> dict:
     ``_smem_bytes``, ``_launch`` and ``_error_string``; a slot library
     ``_max_d`` and ``_max_slots``, a whole-model ELL library ``_max_d``,
     ``_rows_per_block`` and ``_max_cluster``, a per-layer ELL library
-    ``_max_d``, ``_rows_per_block`` and ``_max_window_blocks``."""
+    ``_max_d``, ``_rows_per_block`` and ``_max_window_blocks`` (GAT's also
+    ``_max_heads``)."""
     slot_getters = ("max_d", "max_slots")
     ell_getters = ("max_d", "rows_per_block", "max_cluster")
     layer_getters = ("max_d", "rows_per_block", "max_window_blocks")
@@ -885,6 +1034,19 @@ def _library(name: str) -> dict:
         "gcn_local_layer_ell": (
             "gcn_layer_ell", layer_getters, [_I32] * 2,
             [_I32] + [_PTR] * 10 + [_I32] * 6 + [_I32, _PTR],
+        ),
+        "pna_local_layer_slots": (
+            "pna_layer", slot_getters, [_I32] * 3,
+            [_I32] + [_PTR] * 8 + [_I32] * 5 + [_F32, _F32, _I32, _PTR],
+        ),
+        # One library, two kernels: the whole layer and the message channels.
+        "dgn_local_layer_ell": (
+            "dgn_layer_ell", layer_getters, [_I32] * 2,
+            [_I32] * 2 + [_PTR] * 9 + [_I32] * 5 + [_I32, _PTR],
+        ),
+        "gat_local_message_ell": (
+            "gat_msg_ell", layer_getters + ("max_heads",), [_I32] * 2,
+            [_I32] + [_PTR] * 5 + [_I32] * 6 + [_I32, _PTR],
         ),
     }[name]
     lib = load_library(name)
@@ -1636,19 +1798,82 @@ def gat_local_message_slots(
 gat_local_message_slots.launches = 0
 
 
-def _check_ell_layer(ell_meta, h, ee_table, window, library: str):
-    """Check the per-layer ELL kernels' common operands and geometry;
-    returns (the library, lanes per window, NW, vocab)."""
+def _launch_pna_layer(slot_src, h, inv_deg, t, scale, w_cat, b, window, slots, min_init,
+                      max_init) -> torch.Tensor:
+    dt = h.dtype
+    code = _dtype_code(dt)
     dev = h.device
     n, d = h.shape
     nw = -(-n // window)
+    _check("slot_src", slot_src, torch.int32, (nw * window, slots), dev)
+    _check("h", h, dt, (n, d), dev)
+    for name, x in (("inv_deg", inv_deg), ("t", t), ("scale", scale)):
+        _check(name, x, dt, (n,), dev)
+    _check("w_cat", w_cat, dt, (4 * d, 3 * d), dev)
+    _check("b", b, dt, (1, d), dev)
+
+    lib = _library("pna_local_layer_slots")
+    _check_geometry(lib, d, slots, (window,), window, lib["smem_bytes"](window, d, slots), dev)
+    out = torch.empty((n, d), dtype=dt, device=dev)
+    rc = lib["launch"](
+        code, slot_src.data_ptr(), h.data_ptr(), inv_deg.data_ptr(), t.data_ptr(),
+        scale.data_ptr(), w_cat.data_ptr(), b.data_ptr(), out.data_ptr(),
+        nw, n, window, d, slots, float(min_init), float(max_init),
+        dev.index, torch.cuda.current_stream(dev).cuda_stream,
+    )
+    _raise_on(lib, rc, "pna_local_layer")
+    pna_local_layer.launches += 1
+    return out
+
+
+def pna_local_layer(
+    slot_src: torch.Tensor,
+    h: torch.Tensor,
+    inv_deg: torch.Tensor,
+    t: torch.Tensor,
+    scale: torch.Tensor,
+    w_cat: torch.Tensor,
+    b: torch.Tensor,
+    window: int,
+    slots: int,
+    min_init: float,
+    max_init: float,
+) -> torch.Tensor:
+    """One whole PNA layer over a slot batch with no spill tail: the next h
+    [n, D] in h's dtype (``csrc/pna_local_layer_slots.cu``). Operands as in
+    ``pna_local_layer_ref``; the seeds in the order of
+    ``pna_local_stats_ell`` (the min's first). A CPU tensor runs the plain
+    version; a CUDA tensor launches the kernel (float32 or bfloat16 h,
+    scalers and weights, int32 ``slot_src``) or raises. Each launch adds one
+    to ``pna_local_layer.launches``."""
+    args = (slot_src, h, inv_deg, t, scale, w_cat, b, window, slots, min_init, max_init)
+    return _dispatch(h, pna_local_layer_ref, _launch_pna_layer, args)
+
+
+pna_local_layer.launches = 0
+
+
+def _check_ell_layer(ell_meta, h, ee_table, window, library: str):
+    """Check the per-layer ELL kernels' common operands and geometry;
+    returns (the library, lanes per window, NW, vocab)."""
     vocab = ee_table.shape[0]
+    _check("ee_table", ee_table, h.dtype, (vocab, h.shape[1]), h.device)
+    lib, lanes, nw = _check_ell_lanes(ell_meta, h, window, library, (h.shape[1], vocab))
+    return lib, lanes, nw, vocab
+
+
+def _check_ell_lanes(ell_meta, h, window, library: str, smem_args):
+    """Check h, the lanes and the geometry of a per-layer ELL kernel whose
+    shared memory ``smem_bytes(*smem_args)`` gives; returns (the library,
+    lanes per window, NW)."""
+    dev = h.device
+    n, d = h.shape
+    nw = -(-n // window)
     _check("h", h, h.dtype, (n, d), dev)
-    _check("ee_table", ee_table, h.dtype, (vocab, d), dev)
     lanes = _ell_block(ell_meta, nw, dev)
     lib = _library(library)
-    _check_ell_geometry(lib, d, window, lib["smem_bytes"](d, vocab), dev)
-    return lib, lanes, nw, vocab
+    _check_ell_geometry(lib, d, window, lib["smem_bytes"](*smem_args), dev)
+    return lib, lanes, nw
 
 
 def _launch_gin_layer_ell(ell_meta, h, m_spill, ee_table, w1, b1, w2, b2, eps1, window,
@@ -1794,3 +2019,129 @@ def gcn_local_layer_ell(
 
 
 gcn_local_layer_ell.launches = 0
+
+
+def _launch_dgn_ell(full: bool, ell_meta, h, eig, inv_deg, eigw_sum, inv_abssum, w_post,
+                    b_post, window) -> torch.Tensor:
+    dt = h.dtype
+    code = _dtype_code(dt)
+    dev = h.device
+    n, d = h.shape
+    _check("eig", eig, dt, (n,), dev)
+    if full:
+        for name, x in (("inv_deg", inv_deg), ("eigw_sum", eigw_sum), ("inv_abssum", inv_abssum)):
+            _check(name, x, dt, (n,), dev)
+        _check("w_post", w_post, dt, (2 * d, d), dev)
+        _check("b_post", b_post, dt, (1, d), dev)
+    lib, lanes, nw = _check_ell_lanes(ell_meta, h, window, "dgn_local_layer_ell", (d, int(full)))
+    out = torch.empty((n, d if full else 2 * d), dtype=dt, device=dev)
+    ptr = lambda x: None if x is None else x.data_ptr()
+    rc = lib["launch"](
+        code, int(full), ell_meta.data_ptr(), h.data_ptr(), eig.data_ptr(), ptr(inv_deg),
+        ptr(eigw_sum), ptr(inv_abssum), ptr(w_post), ptr(b_post), out.data_ptr(),
+        nw, n, window, lanes, d, dev.index, torch.cuda.current_stream(dev).cuda_stream,
+    )
+    kernel = dgn_local_layer_ell if full else dgn_local_message_ell
+    _raise_on(lib, rc, kernel.__name__)
+    kernel.launches += 1
+    return out
+
+
+def _launch_dgn_layer_ell(ell_meta, h, eig, inv_deg, eigw_sum, inv_abssum, w_post, b_post,
+                          window) -> torch.Tensor:
+    return _launch_dgn_ell(True, ell_meta, h, eig, inv_deg, eigw_sum, inv_abssum, w_post,
+                           b_post, window)
+
+
+def dgn_local_layer_ell(
+    ell_meta: torch.Tensor,
+    h: torch.Tensor,
+    eig: torch.Tensor,
+    inv_deg: torch.Tensor,
+    eigw_sum: torch.Tensor,
+    inv_abssum: torch.Tensor,
+    w_post: torch.Tensor,
+    b_post: torch.Tensor,
+    window: int,
+) -> torch.Tensor:
+    """One whole DGN layer over an ELL batch with no spill tail: the next h
+    [n, D] in h's dtype (``csrc/dgn_local_layer_ell.cu``). Operands as in
+    ``dgn_local_layer_ell_ref``; a CPU tensor runs the plain version, a CUDA
+    tensor launches the kernel (float32 or bfloat16 h, node terms and
+    weights, int32 ``ell_meta``) or raises. Each launch adds one to
+    ``dgn_local_layer_ell.launches``."""
+    args = (ell_meta, h, eig, inv_deg, eigw_sum, inv_abssum, w_post, b_post, window)
+    return _dispatch(h, dgn_local_layer_ell_ref, _launch_dgn_layer_ell, args)
+
+
+dgn_local_layer_ell.launches = 0
+
+
+def _launch_dgn_message_ell(ell_meta, h, eig, window) -> torch.Tensor:
+    return _launch_dgn_ell(False, ell_meta, h, eig, None, None, None, None, None, window)
+
+
+def dgn_local_message_ell(
+    ell_meta: torch.Tensor,
+    h: torch.Tensor,
+    eig: torch.Tensor,
+    window: int,
+) -> torch.Tensor:
+    """DGN's two message channels over the ELL layout: [n, 2D] [m1 ‖ m2] in
+    h's dtype (``csrc/dgn_local_layer_ell.cu``, its message kernel), for the
+    caller to merge a spill tail. Operands as in
+    ``dgn_local_message_ell_ref``; a CPU tensor runs the plain version, a
+    CUDA tensor launches the kernel (float32 or bfloat16 h and eig, int32
+    ``ell_meta``) or raises. Each launch adds one to
+    ``dgn_local_message_ell.launches``."""
+    args = (ell_meta, h, eig, window)
+    return _dispatch(h, dgn_local_message_ell_ref, _launch_dgn_message_ell, args)
+
+
+dgn_local_message_ell.launches = 0
+
+
+def _launch_gat_message_ell(ell_meta, h, s_src, s_tgt, window, num_heads) -> torch.Tensor:
+    dt = h.dtype
+    code = _dtype_code(dt)
+    dev = h.device
+    n, hd = h.shape
+    if hd % num_heads:
+        raise ValueError(f"H·D={hd} is not a multiple of the {num_heads} heads")
+    _check("s_src", s_src, dt, (n, num_heads), dev)
+    _check("s_tgt", s_tgt, dt, (n, num_heads), dev)
+    lib, lanes, nw = _check_ell_lanes(ell_meta, h, window, "gat_local_message_ell",
+                                      (hd, num_heads))
+    if not 1 <= num_heads <= lib["max_heads"]():
+        raise ValueError(f"num_heads={num_heads} outside 1..{lib['max_heads']()}")
+    out = torch.empty((n, hd + num_heads), dtype=dt, device=dev)
+    rc = lib["launch"](
+        code, ell_meta.data_ptr(), h.data_ptr(), s_src.data_ptr(), s_tgt.data_ptr(),
+        out.data_ptr(), nw, n, window, lanes, hd, num_heads,
+        dev.index, torch.cuda.current_stream(dev).cuda_stream,
+    )
+    _raise_on(lib, rc, "gat_local_message_ell")
+    gat_local_message_ell.launches += 1
+    return out
+
+
+def gat_local_message_ell(
+    ell_meta: torch.Tensor,
+    h: torch.Tensor,
+    s_src: torch.Tensor,
+    s_tgt: torch.Tensor,
+    window: int,
+    num_heads: int,
+) -> torch.Tensor:
+    """GAT's edge-softmax sums of one layer over the ELL layout: [n, H·D +
+    H] [Σ score·h_u ‖ Σ score] in h's dtype (``csrc/gat_local_message_ell.cu``),
+    for the caller to merge a spill tail and divide. Operands as in
+    ``gat_local_message_ell_ref``; a CPU tensor runs the plain version, a
+    CUDA tensor launches the kernel (float32 or bfloat16 h and scores, int32
+    ``ell_meta``) or raises. Each launch adds one to
+    ``gat_local_message_ell.launches``."""
+    args = (ell_meta, h, s_src, s_tgt, window, num_heads)
+    return _dispatch(h, gat_local_message_ell_ref, _launch_gat_message_ell, args)
+
+
+gat_local_message_ell.launches = 0

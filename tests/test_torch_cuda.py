@@ -269,6 +269,65 @@ def _ell_layer_operands(kernel: str, geometry: str, final: bool = False, seed: i
                 w_next=None if final else f32(D, D), b_next=None if final else f32(D))
 
 
+def _dgn_gat_ell_operands(kernel: str, geometry: str, seed: int = 19) -> dict:
+    """Seeded operands at full width of row 16 (``dgn_local_message_ell``,
+    D=100), row 18 (``dgn_local_layer_ell``) or row 17
+    (``gat_local_message_ell``, 4 heads × 16) on the layout of
+    ``_ell_layer_batch``, as numpy arrays. DGN's eigenvector entries are
+    random; its node terms are the layout's own sums of them over every
+    lane (a zero absolute sum → 1/EIG_EPS = 8192, as the model guards it)."""
+    from flowgnn_tpu_torch.models.dgn import EIG_EPS
+
+    batch = _ell_layer_batch(geometry, seed)
+    rng = np.random.default_rng(seed)
+    f32 = lambda *s, sd=0.5: rng.normal(0, sd, s).astype(np.float32)
+    n = batch["node_feat"].shape[0]
+    ops = dict(ell_meta=base.ell_meta(base.to_device(batch, "cpu")).numpy(),
+               window=base.ell_geometry(batch)[0])
+    if kernel == "gat_local_message_ell":
+        heads = 4
+        return dict(ops, h=f32(n, heads * 16), s_src=f32(n, heads, sd=2.0),
+                    s_tgt=f32(n, heads, sd=2.0), num_heads=heads)
+    d = 100
+    eig = f32(n, sd=0.3)
+    ops.update(h=f32(n, d), eig=eig)
+    if kernel == "dgn_local_message_ell":
+        return ops
+    u, v = batch["senders"], batch["receivers"]
+    ew = eig[u] - eig[v]
+    ews, abssum = np.zeros(n, np.float32), np.zeros(n, np.float32)
+    np.add.at(ews, v, ew)
+    np.add.at(abssum, v, np.abs(ew))
+    return dict(
+        ops, inv_deg=(1 / np.maximum(batch["out_deg"], 1)).astype(np.float32), eigw_sum=ews,
+        inv_abssum=(1 / np.where(abssum == 0, EIG_EPS, abssum)).astype(np.float32),
+        w_post=f32(2 * d, d, sd=0.1), b_post=f32(1, d),
+    )
+
+
+def _pna_layer_operands(seed: int = 20) -> dict:
+    """Seeded operands of row 20 (``pna_local_layer``) at full width (D=80)
+    on the slot layout of 8 synthetic graphs, with the layout's own degree
+    scalers, as numpy arrays."""
+    from flowgnn_tpu_torch.models.pna import MAX_INIT, MIN_INIT
+    from flowgnn_tpu_torch.params.loaders import PNA_AVG_DEG
+
+    batch = _slot_batch("pna", seed)
+    rng = np.random.default_rng(seed)
+    f32 = lambda *s, sd=0.1: rng.normal(0, sd, s).astype(np.float32)
+    d = 80
+    n = batch["node_feat"].shape[0]
+    log_deg = np.log(batch["out_deg"] + 1.0)
+    scale = np.where(log_deg > 0, PNA_AVG_DEG / np.where(log_deg > 0, log_deg, 1), 1.0)
+    return dict(
+        slot_src=batch["slot_src"], h=f32(n, d, sd=2.0),
+        inv_deg=(1 / np.maximum(batch["in_deg"], 1)).astype(np.float32),
+        t=(log_deg / PNA_AVG_DEG).astype(np.float32), scale=scale.astype(np.float32),
+        w_cat=f32(4 * d, 3 * d), b=f32(1, d), window=W, slots=batch["slot_geom"].shape[-1],
+        min_init=MAX_INIT, max_init=MIN_INIT,
+    )
+
+
 def _spill_batch(name: str, seed: int) -> dict:
     """Slot layout at W=128 (numpy) of 8 synthetic graphs and two of 230 and
     280 nodes for model ``name``: a real spill tail, in blocked order."""
@@ -335,6 +394,24 @@ def _gat_message_overflow_operands(hot: bool) -> dict:
     s[[20, 30]] = 100.0 if hot else 0.0
     return dict(slot_stack=stack.reshape(-1), h=rng.normal(size=(W, hd)).astype(np.float32),
                 s_src=s, s_tgt=s.copy(), window=W, slots=slots, num_heads=heads)
+
+
+def _gat_ell_overflow_operands(hot: bool) -> dict:
+    """Row 17's operands over one window of W=128 rows and 16 lanes: a ring
+    over rows 0..7, then a sentinel lane (v = W) from row 20, then pad lanes.
+    ``hot`` puts scores of 100 at row 20, so the sentinel lane's raw score
+    (its s_tgt: the TPU kernel's one-hot gives it s_src 0) passes float32
+    exp's overflow at 88.7. Row 20 has no lane of its own and feeds no real
+    lane: the hot run must equal the cold one."""
+    heads, hd = 2, 16
+    rng = np.random.default_rng(4)
+    meta = np.full((16, 5), W, np.int32)
+    meta[:8, 0], meta[:8, 1] = (np.arange(8) + 1) % 8, np.arange(8)
+    meta[8, 0] = 20
+    s = (rng.normal(size=(W, heads)) * 0.5).astype(np.float32)
+    s[20] = 100.0 if hot else 0.0
+    return dict(ell_meta=meta, h=rng.normal(size=(W, hd)).astype(np.float32), s_src=s,
+                s_tgt=s.copy(), window=W, num_heads=heads)
 
 
 def _port(ops: dict, device, dtype=torch.float32) -> dict:
@@ -611,3 +688,93 @@ def test_ell_layer_cuda_kernels_reject_window(window, cuda_device):
         with pytest.raises(ValueError, match="whole blocks"):
             fn(**kw)
         assert fn.launches == before
+
+
+_NEW_LAYER_CASES = [
+    ("pna_local_layer", "W128"), *(
+        (k, g) for k in ("dgn_local_message_ell", "dgn_local_layer_ell", "gat_local_message_ell")
+        for g in ELL_LAYER_GEOMETRY),
+]
+
+
+def _new_layer_operands(kernel: str, geometry: str) -> dict:
+    return (_pna_layer_operands() if kernel == "pna_local_layer"
+            else _dgn_gat_ell_operands(kernel, geometry))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel,geometry", _NEW_LAYER_CASES,
+                         ids=[f"{k}-{g}" for k, g in _NEW_LAYER_CASES])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 5e-2)],
+                         ids=["f32", "bf16"])
+def test_rows_16_to_20_cuda_kernels_match_plain(kernel, geometry, dtype, tol, cuda_device):
+    """Kernel table rows 20 (slot layout, W=128), 16, 18 and 17 (ELL at
+    W=128, at W=512, four blocks per window, and at k=2) against their plain
+    versions at full width, one launch per call. f32: summation order only;
+    bf16: the output rounds to bf16, and a rounding flip of a stat, a
+    channel or a lane's product moves it by a few bf16 ulps of its scale."""
+    fn = getattr(local_layer, kernel)
+    ops = _port(_new_layer_operands(kernel, geometry), cuda_device, dtype)
+    before = fn.launches
+    got = fn(**ops)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 1
+    expect = getattr(local_layer, f"{kernel}_ref")(**ops)
+    assert got.dtype == dtype and got.shape == expect.shape
+    assert expect.abs().max() > 1e-2
+    scale = max(1.0, expect.abs().max().item())
+    torch.testing.assert_close(got.float() / scale, expect.float() / scale, rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+def test_rows_16_to_20_cuda_kernels_reject_geometry(cuda_device):
+    """Each new wrapper raises before launch on what its kernel cannot take:
+    rows 16, 17 and 18 a window that is not whole 128-row tiles (192) or
+    spans more than 8 (1152), row 18 a D past its tile (128 > 112), row 17
+    more than 32 heads; row 20 a window whose state does not fit one block's
+    shared memory (W=512 at D=80)."""
+    rng = np.random.default_rng(0)
+    t = lambda *s: torch.from_numpy(rng.normal(0, 0.1, s).astype(np.float32)).to(cuda_device)
+    cases = []
+    for window in (192, 1152):
+        n = 2 * window
+        lanes = torch.full((2 * 8, 5), window, dtype=torch.int32, device=cuda_device)
+        common = dict(ell_meta=lanes, window=window)
+        cases += [
+            ("dgn_local_message_ell", dict(common, h=t(n, 100), eig=t(n)), "whole blocks"),
+            ("dgn_local_layer_ell", dict(common, h=t(n, 100), eig=t(n), inv_deg=t(n),
+                                         eigw_sum=t(n), inv_abssum=t(n), w_post=t(200, 100),
+                                         b_post=t(1, 100)), "whole blocks"),
+            ("gat_local_message_ell", dict(common, h=t(n, 64), s_src=t(n, 4), s_tgt=t(n, 4),
+                                           num_heads=4), "whole blocks"),
+        ]
+    n, d = 256, 128
+    lanes = torch.full((2 * 8, 5), 128, dtype=torch.int32, device=cuda_device)
+    cases += [
+        ("dgn_local_layer_ell", dict(ell_meta=lanes, window=128, h=t(n, d), eig=t(n),
+                                     inv_deg=t(n), eigw_sum=t(n), inv_abssum=t(n),
+                                     w_post=t(2 * d, d), b_post=t(1, d)), "tile"),
+        ("gat_local_message_ell", dict(ell_meta=lanes, window=128, h=t(n, 128), s_src=t(n, 64),
+                                       s_tgt=t(n, 64), num_heads=64), "num_heads"),
+        ("pna_local_layer", dict(
+            slot_src=torch.full((512, 1), 512, dtype=torch.int32, device=cuda_device),
+            h=t(512, 80), inv_deg=t(512), t=t(512), scale=t(512), w_cat=t(320, 240),
+            b=t(1, 80), window=512, slots=1, min_init=32.0, max_init=-32.0), "shared memory"),
+    ]
+    for kernel, kw, match in cases:
+        fn = getattr(local_layer, kernel)
+        before = fn.launches
+        with pytest.raises(ValueError, match=match):
+            fn(**kw)
+        assert fn.launches == before
+
+
+@pytest.mark.cuda
+def test_gat_ell_cuda_kernel_overflowing_sentinel_lane_stays_finite(cuda_device):
+    """Row 17 on the card: a sentinel lane whose source score overflows exp
+    adds nothing; the output is finite and equals the benign run's."""
+    outs = [local_layer.gat_local_message_ell(**_port(_gat_ell_overflow_operands(hot), cuda_device))
+            for hot in (False, True)]
+    torch.cuda.synchronize()
+    assert bool(outs[1].isfinite().all())
+    torch.testing.assert_close(outs[1], outs[0], rtol=0, atol=0)

@@ -45,7 +45,13 @@ SMALL = {
     "gin": lambda: loaders.synthetic_gin_params(4, dim=32, hidden=64, layers=2),
     "gcn": lambda: loaders.synthetic_gcn_params(4, dim=32, layers=2),
     "pna": lambda: loaders.synthetic_pna_params(4, dim=32, layers=2),
+    "dgn": lambda: loaders.synthetic_dgn_params(4, dim=32, layers=2),
+    "gat": lambda: loaders.synthetic_gat_params(4, dim=16, heads=2, layers=3),
 }
+# DGN and GAT take blocks of 512 lanes where the others take 384
+# (``base.GEOMETRY_DEFAULTS``): GAT's self loops fill a window's lanes. Their
+# cases scale each block by 4/3, so each keeps its k.
+BLOCK_SCALE = {"dgn": (4, 3), "gat": (4, 3)}
 
 
 def _quiet(fn, *args, **kw):
@@ -60,10 +66,13 @@ def case_batches(name: str, case: str) -> dict:
     of the same packing (same node rows), of one forward case, with the
     case's property checked."""
     big, window, block, capacity = CASES[case]
+    num, den = BLOCK_SCALE.get(name, (1, 1))
+    block = block * num // den
     graph = lambda mod: mod.random_molecule_graph(np.random.default_rng(3), num_nodes=big)
     jgs = jr.apply_transforms(jr.get(name), js.synthetic_molhiv(G - 1, seed=2) + [graph(js)])
     tgs = tr.apply_transforms(tr.get(name), ts.synthetic_molhiv(G - 1, seed=2) + [graph(ts)])
-    caps = dict(node_capacity=1023, edge_capacity=4096, graph_capacity=16)
+    caps = dict(node_capacity=1023, edge_capacity=4096, graph_capacity=16,
+                with_eigen=tr.get(name).needs_eigen)
     ell = dict(blocked="local_ell", window=window, block=block, spill_capacity=capacity)
     packed = tg.pack_graphs_aligned(tgs, window=window, **caps)
     jbatch = _quiet(jb.as_batch, jg.pack_graphs_aligned(jgs, window=window, **caps), **ell)

@@ -104,18 +104,23 @@ def test_gat_unported_cases_raise(setup):
     """A slot batch the megakernel does not take (``return_intermediates``,
     no ``pool_gl``) runs the per-layer slot path, ``gat_local_message_slots``
     (kernel table row 21), as the JAX package does, and gives the
-    megakernel's predictions; the ELL layouts are not ported for GAT and
-    raise."""
+    megakernel's predictions; so does an ELL batch, which raised before the
+    per-layer ELL kernels were ported and now runs
+    ``gat_local_message_ell`` (row 17); the legacy dynamic-window layout
+    still raises."""
     fwd, _, params, b = setup
     p = tl.params_from_numpy(params, tn.FLOAT32, "cpu")
     whole = fwd(p, b["slot"], tn.FLOAT32)
     per_layer, inter = fwd(p, b["slot"], tn.FLOAT32, return_intermediates=True)
     assert len(inter["layers"]) == 3
     no_pool = {k: v for k, v in b["slot"].items() if k != "pool_gl"}
-    for got in (per_layer, fwd(p, no_pool, tn.FLOAT32)):
+    ell = tb.to_device(tb.as_batch(tg.pack_graphs_aligned(
+        tr.apply_transforms(tr.get("gat"), _graphs(ts)), window=W, **CAPS),
+        blocked="local_ell", window=W, block=512), "cpu")
+    for got in (per_layer, fwd(p, no_pool, tn.FLOAT32), fwd(p, ell, tn.FLOAT32)):
         np.testing.assert_allclose(got[:G].numpy(), whole[:G].numpy(), rtol=1e-5, atol=1e-5)
-    with pytest.raises(NotImplementedError, match="loc_ell"):
-        fwd(p, dict(b["plain"], loc_ell=torch.zeros(1)), tn.FLOAT32)
+    with pytest.raises(NotImplementedError, match="loc_ulocal"):
+        fwd(p, dict(b["plain"], loc_ulocal=torch.zeros(1)), tn.FLOAT32)
     out, inter = fwd(p, b["plain"], tn.FLOAT32, return_intermediates=True)
     assert len(inter["layers"]) == 3 and out.shape == (CAPS["graph_capacity"] + 1, 1)
 

@@ -1,9 +1,9 @@
 """The port runs without jax: in a fresh interpreter where ``import jax`` and
 ``import ml_dtypes`` fail, every module of flowgnn_tpu_torch imports, all
 six models (GIN, GIN-VN, GCN, GAT, PNA, DGN) run their slot branch on the
-CPU, with and without a spill tail (a 200-node graph at W=128), GIN,
-GIN-VN and GCN their ELL branch, and GIN, GIN-VN, GCN and PNA an ELL batch
-with a spill tail (the per-layer ELL path; PNA's plain loop)."""
+CPU, with and without a spill tail (a 200-node graph at W=128), and an ELL
+batch, with and without a spill tail (the whole-model or per-layer ELL
+path; PNA's plain loop)."""
 
 import os
 import subprocess
@@ -46,17 +46,15 @@ for name in ("gin", "gin-vn", "gcn", "gat", "pna", "dgn"):
                                         align_window=w))
     buckets = pack(graphs)
     layouts = [(buckets, base.as_batches_uniform(buckets, blocked="local_slots", window=w))]
-    if name in ("gin", "gin-vn", "gcn"):
-        layouts.append((buckets, base.as_batches_uniform(buckets, blocked="local_ell", window=w, block=b)))
+    layouts.append((buckets, base.as_batches_uniform(buckets, blocked="local_ell", window=w, block=b)))
     big = pack(graphs[:4] + registry.apply_transforms(
         spec, [random_molecule_graph(np.random.default_rng(1), num_nodes=200)]))
     spill = base.as_batches_uniform(big, blocked="local_slots", window=w)
     assert any(x["slot_spill_mask"].any() for x in spill)
     layouts.append((big, spill))
-    if name in ("gin", "gin-vn", "gcn", "pna"):
-        ell_spill = base.as_batches_uniform(big, blocked="local_ell", window=w, block=b)
-        assert any(base.ell_spill_lanes(x) for x in ell_spill)
-        layouts.append((big, ell_spill))
+    ell_spill = base.as_batches_uniform(big, blocked="local_ell", window=w, block=b)
+    assert any(base.ell_spill_lanes(x) for x in ell_spill)
+    layouts.append((big, ell_spill))
     params = loaders.params_from_numpy(small[name.split("-")[0]](), FLOAT32, "cpu")
     for buckets, batches in layouts:
         for packed, batch in zip(buckets, batches):
@@ -65,7 +63,7 @@ for name in ("gin", "gin-vn", "gcn", "gat", "pna", "dgn"):
             plain = spec.forward(params, base.to_device(base.as_batch(packed), "cpu"), FLOAT32)
             assert torch.allclose(out[: packed.num_graphs], plain[: packed.num_graphs], atol=1e-5)
     runs += len(layouts)
-assert runs == 19, runs
+assert runs == 24, runs
 print("ok", len(mods))
 """
 

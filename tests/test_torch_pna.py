@@ -108,25 +108,55 @@ def test_pna_slot_src_is_live(setup):
 
 def test_pna_unported_cases_raise(setup):
     """A slot batch with no spill tail that the megakernel does not take
-    reaches ``pna_local_layer`` (kernel table row 20), not ported yet. An ELL
-    batch no longer raises: PNA has no ELL kernel in either package, so it
-    runs the plain loop, as the JAX package does
+    (intermediates asked for, no ``pool_gl``) raised before
+    ``pna_local_layer`` (kernel table row 20) was ported; it now runs one
+    row-20 launch per layer and gives the megakernel's predictions. An ELL
+    batch runs the plain loop: PNA has no ELL kernel in either package
     (tests/test_torch_ell_layer.py holds it against JAX). A slot batch with a
     spill tail runs the per-layer slot path (row 19; tests/test_torch_spill.py
-    holds it against the JAX package)."""
+    holds it against the JAX package). The legacy dynamic-window layout
+    still raises."""
     fwd, _, params, b = setup
     p = tl.params_from_numpy(params, tn.FLOAT32, "cpu")
+    whole = fwd(p, b["slot"], tn.FLOAT32)
     no_pool = {k: v for k, v in b["slot"].items() if k != "pool_gl"}
-    for batch, kw, match in (
-        (b["slot"], dict(return_intermediates=True), "row 20"),
-        (no_pool, {}, "row 20"),
-    ):
-        with pytest.raises(NotImplementedError, match=match):
-            fwd(p, batch, tn.FLOAT32, **kw)
+    per_layer, inter = fwd(p, b["slot"], tn.FLOAT32, return_intermediates=True)
+    assert len(inter["layers"]) == 3
+    for got in (per_layer, fwd(p, no_pool, tn.FLOAT32)):
+        np.testing.assert_allclose(got[:G].numpy(), whole[:G].numpy(), rtol=1e-5, atol=1e-5)
+    with pytest.raises(NotImplementedError, match="loc_ulocal"):
+        fwd(p, dict(b["plain"], loc_ulocal=torch.zeros(1)), tn.FLOAT32)
     ell = dict(b["plain"], loc_ell=torch.zeros((W, 1), dtype=torch.int32))
     torch.testing.assert_close(fwd(p, ell, tn.FLOAT32), fwd(p, b["plain"], tn.FLOAT32))
     out, inter = fwd(p, b["plain"], tn.FLOAT32, return_intermediates=True)
     assert len(inter["layers"]) == 3 and out.shape == (CAPS["graph_capacity"] + 1, 1)
+
+
+@pytest.mark.parametrize("no_pool", [False, True], ids=["intermediates", "no_pool"])
+def test_pna_layer_path_matches_jax(setup, no_pool, monkeypatch):
+    """The no-spill per-layer slot path (one ``pna_local_layer`` launch per
+    layer, row 20) against the JAX forward on the same batch, which runs its
+    ``pna_local_layer`` in interpret mode: f32 to 1e-5 of each output's
+    scale, predictions, every layer's h and the pooled h, with intermediates
+    asked for and on a batch without ``pool_gl``; the whole-model kernel
+    does not run."""
+    from flowgnn_tpu_torch.ops import local_layer
+    from test_torch_ell_layer import _close
+
+    monkeypatch.setenv("FLOWGNN_PALLAS_INTERPRET", "1")
+    fwd, jfwd, params, b = setup
+    drop = lambda batch: {k: v for k, v in batch.items() if not (no_pool and k == "pool_gl")}
+    before = local_layer.pna_local_model.launches, local_layer.pna_local_layer.launches
+    out, inter = fwd(tl.params_from_numpy(params, tn.FLOAT32, "cpu"), drop(b["slot"]),
+                     tn.FLOAT32, return_intermediates=True)
+    want, want_inter = jfwd(jb.prepare_params(params, jn.FLOAT32), drop(b["jax_slot"]),
+                            jn.FLOAT32, return_intermediates=True)
+    assert local_layer.pna_local_model.launches == before[0]
+    _close(out[:G].numpy(), np.asarray(want)[:G], 1e-5)
+    assert len(inter["layers"]) == len(want_inter["layers"]) == 3
+    for got_l, want_l in zip(inter["layers"], want_inter["layers"]):
+        _close(got_l.numpy(), np.asarray(want_l), 1e-5)
+    _close(inter["h_graph"][:G].numpy(), np.asarray(want_inter["h_graph"])[:G], 1e-5)
 
 
 @pytest.mark.parametrize("dtype", [np.float64, np.float32])

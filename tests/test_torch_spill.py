@@ -244,17 +244,22 @@ def test_spill_tail_is_live(name, batches):
 
 
 def test_what_still_raises(batches):
-    """PNA's no-spill per-layer batch needs ``pna_local_layer`` (row 20) and
-    raises; a spilling ELL bucket no longer does: it packs, with its spill
-    tail in blocked order, equal to the JAX package's."""
+    """Nothing on these paths raises any more. PNA's no-spill per-layer
+    batch, which raised before ``pna_local_layer`` (row 20) was ported, runs
+    it once per layer and gives the megakernel's predictions; a spilling ELL
+    bucket packs, with its spill tail in blocked order, equal to the JAX
+    package's."""
     jp, tp = _packed("pna")
     params = tl.params_from_numpy(SMALL_PARAMS["pna"](), tn.FLOAT32, "cpu")
     small = tg.pack_graphs_aligned(tr.apply_transforms(tr.get("pna"), ts.synthetic_molhiv(8, seed=1)),
                                    window=W, **CAPS)
     no_spill = tb.to_device(tb.as_batch(small, blocked="local_slots", window=W), "cpu")
     assert not no_spill["slot_spill"].shape[-1]
-    with pytest.raises(NotImplementedError, match="row 20"):
-        tr.get("pna").forward(params, no_spill, tn.FLOAT32, return_intermediates=True)
+    fwd = tr.get("pna").forward
+    per_layer, inter = fwd(params, no_spill, tn.FLOAT32, return_intermediates=True)
+    assert len(inter["layers"]) == 4
+    np.testing.assert_allclose(per_layer[:8].numpy(), fwd(params, no_spill, tn.FLOAT32)[:8].numpy(),
+                               rtol=1e-5, atol=1e-5)
     ell = tb.as_batch(tp, blocked="local_ell", window=W, block=384)
     assert tb.ell_spill_lanes(ell) > 0 and "spill_gblk_src" in ell
     _assert_batches_equal(jb.as_batch(jp, blocked="local_ell", window=W, block=384), ell)
