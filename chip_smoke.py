@@ -5,9 +5,10 @@
 
 ``--profile`` runs no phase: it builds the hep10k W=128 streams of PNA, DGN
 and GAT (slot spill tail) and of GIN, GIN-VN, GCN, DGN and GAT (ELL spill
-tail), warms
-each path up, traces ``PROFILE_PASSES`` bf16 passes over the
-whole stream with ``torch.profiler`` and prints per path the wall time and the
+tail; GAT also with its fused layer), GIN's molhiv edge-block (plain and
+fused) and legacy local streams and PNA's molhiv edge-block stream beside
+the plain edge-list batches of the same packing, warms each path up, traces
+``PROFILE_PASSES`` bf16 passes over the whole stream with ``torch.profiler`` and prints per path the wall time and the
 device's busy time per pass (the sum of the device kernels' own times; one
 stream, so they do not overlap), the idle share 1 − busy / wall, the kernel
 launches per pass, the largest device items and the host operators with the
@@ -17,9 +18,9 @@ shares are upper bounds.
 Phases, each of which raises (non-zero exit) on failure:
 
 1. the device and ``nvidia-smi``'s name and power limit;
-2. the eighteen hand-written kernels built from the seventeen sources of
-   ``flowgnn_tpu_torch/csrc`` (rows 16 and 18 share one), one ``nvcc`` per
-   source, all started together (build time and each compiler's register /
+2. the twenty-two hand-written kernels built from the twenty sources of
+   ``flowgnn_tpu_torch/csrc`` (rows 16 and 18 share one, rows 10 and 12 are
+   one kernel), one ``nvcc`` per source, all started together (build time and each compiler's register /
    shared-memory report);
 3. each slot kernel against its plain torch version on the card, at the
    main path's shapes (a real bucket's slot layout at full width: GIN D=100,
@@ -49,6 +50,12 @@ Phases, each of which raises (non-zero exit) on failure:
    (W=128, block 512), rows 16 and 24 on the DGN hep10k W=128 ELL bucket with
    the longest spill tail, row 17 on a GAT molhiv ELL bucket and on the GAT
    hep10k W=128 ELL bucket with the longest tail (with row 24);
+3f. rows 10 (``gin_local_layer``), 12 (``gin_local_layer_ell_lanes``) and 25
+   (``gin_layer_fused``) on layer 0's operands of a GIN molhiv bucket in the
+   legacy local, ELL and edge-block layout, row 23 (``gat_local_layer_ell``)
+   on a GAT molhiv ELL bucket and on the GAT hep10k W=128 ELL bucket with the
+   longest spill tail (with row 24), and row 24 on an edge-block bucket at
+   each reduction width (GAT 68, GIN 100, PNA 160, DGN 200), f32 and bf16;
 4. the main path: GIN, GIN-VN, GCN, PNA, DGN and GAT, each over the
    4113-graph synthetic molhiv stream at full width with seeded synthetic
    weights, f32 and bf16, through ``registry`` → ``pack_dataset`` →
@@ -82,20 +89,36 @@ Phases, each of which raises (non-zero exit) on failure:
    against the slot path's too (f32 1e-4); DGN and GAT over the hep10k
    sample in ``local_ell`` at W=128 / block 512 with the ELL spill tail: per
    layer rows 16 + 24 or 17 + 24. Counted and checked as in phase 4;
+4f. the edge-block layout (``--layout blocked``): all six models over the
+   molhiv stream in unaligned packing through ``as_batches_uniform(
+   blocked=True)``: per layer the windowed scatter (row 24) over every
+   128-row window and nothing else; GIN with ``fused=True``: row 25 per layer
+   and row 24 never. The legacy local layout: GIN and GIN-VN over the aligned
+   W=128 molhiv stream in ``blocked="local"``, and over one bucket with four
+   300-node graphs whose crossing edges ride the 8192-lane tail: row 10 per
+   layer. Row 12 through ``gin_local_layer_ell(ee=...)`` layer by layer over
+   GIN's molhiv ELL stream, every layer's h against the row-13 path's too.
+   GAT with ``fuse_layers`` over the molhiv ELL stream and the hep10k W=128
+   ELL spill stream: row 23 for every layer but the last, row 17 for the
+   last, row 24 per layer on a spill tail; its predictions against the
+   unfused ELL path's too. Counted and checked as in phase 4;
 5. CUDA-event timings after warm-up, per model and dtype: µs/graph over the
    whole stream for the kernel path and for the plain edge-list path, and
    each kernel alone against its plain version on the same operands (a
    per-layer kernel on each bucket's layer-0 operands, once per layer), with
    its bound (the larger of its FLOPs over the card's peak for the dtype and
-   its bytes over the memory rate) and, for the spill scatter, PyTorch's
+   its bytes over the memory rate; the rows of a pad lane, which no kernel
+   reads, are not counted) and, for the spill scatter, PyTorch's
    ``index_add_`` of the same values;
 5b. the same for the hep10k ELL path, the molhiv stream through the ELL
    kernels at W=128, and the hep10k spill path;
 5c. the same for the per-layer ELL paths of phase 4d;
-5d. the same for the paths of phase 4e.
+5d. the same for the paths of phase 4e;
+5e. the same for the paths of phase 4f; the windowed scatter on the
+   edge-block layout beside ``index_add_`` of the same values.
 
-No phase runs at a cut depth: the whole run takes about three and a half
-minutes on an H100. The line before the last is a JSON object with one record per
+No phase runs at a cut depth: the whole run takes about five minutes on an
+H100. The line before the last is a JSON object with one record per
 kernel; the last line is ``{"ok": true, "device": {...}}``. Without a CUDA
 device, or outside the repository, it exits non-zero before printing
 either.
@@ -124,6 +147,15 @@ SLOTS, ELL = "local_slots", "local_ell"
 # slot stream run with return_intermediates (PNA's row 20).
 ELL_LAYER, ELL_INTER = "local_ell W=128", "local_ell intermediates"
 SLOT_INTER = "local_slots intermediates"
+# The edge-block layout (as_batch(blocked=True), unaligned packing), the
+# same with GIN's fused layer, the legacy local layout, GIN's ELL stream
+# driven layer by layer with per-lane bond embeddings (row 12), and GAT's
+# ELL streams with its fused layer (row 23).
+BLOCKED, FUSED, LOCAL = "blocked", "blocked fused", "local"
+ELL_EE = "local_ell ee"
+ELL_FUSED, ELL_LAYER_FUSED = "local_ell fused", "local_ell W=128 fused"
+PLAIN = "plain edge list"  # --profile: a stream's plain batches, beside its layout's
+BIG = "molhiv + 300-node graphs"  # one bucket whose large graphs cross windows
 INTER_MODELS = ("gin", "gcn")
 # The models with an ELL path: GIN, GIN-VN and GCN through their whole-model
 # or per-layer ELL kernels, DGN and GAT through their per-layer ones.
@@ -162,7 +194,9 @@ PROFILE_PASSES = 3  # traced passes per path (--profile)
 PER_LAYER = {"pna_local_stats_ell", "dgn_local_layer_slots", "gat_local_message_slots", SCATTER,
              "gin_local_layer_ell", "gcn_local_message_ell", "gcn_local_layer_ell",
              "pna_local_layer", "dgn_local_layer_ell", "dgn_local_message_ell",
-             "gat_local_message_ell"}
+             "gat_local_message_ell", "gin_local_layer", "gin_local_layer_ell_lanes",
+             "gin_layer_fused", "gat_local_layer_ell"}
+ROW12 = "gin_local_layer_ell_lanes"
 LL = "flowgnn_tpu/ops/pallas/local_layer.py"
 # Kernel → (its module in flowgnn_tpu_torch.ops, source, the TPU kernel it
 # replaces, the (model, profile, layout) path whose bf16 stream gives the
@@ -214,6 +248,20 @@ KERNELS = {
                               f"{LL}:1539", ("dgn", "hep10k", ELL_LAYER)),
     "gat_local_message_ell": ("local_layer", "flowgnn_tpu_torch/csrc/gat_local_message_ell.cu",
                               f"{LL}:1612", ("gat", "hep10k", ELL_LAYER)),
+    # Rows 10 and 12: one kernel behind two wrappers.
+    "gin_local_layer": (
+        "local_layer", "flowgnn_tpu_torch/csrc/gin_local_layer_blocks.cu",
+        f"{LL}:40 (local_scatter_apply, gin_local_layer epilogue :118)", ("gin", "molhiv", LOCAL),
+    ),
+    ROW12: ("local_layer", "flowgnn_tpu_torch/csrc/gin_local_layer_blocks.cu",
+            f"{LL}:305 (local_scatter_apply_ell)", ("gin", "molhiv", ELL_EE)),
+    "gat_local_layer_ell": ("local_layer", "flowgnn_tpu_torch/csrc/gat_local_layer_ell.cu",
+                            f"{LL}:3284", ("gat", "hep10k", ELL_LAYER_FUSED)),
+    "gin_layer_fused": (
+        "fused_layer", "flowgnn_tpu_torch/csrc/gin_layer_fused.cu",
+        "flowgnn_tpu/ops/pallas/fused_layer.py:26 (windowed_scatter_apply, gin_layer_fused "
+        "epilogue :97)", ("gin", "molhiv", FUSED),
+    ),
 }
 
 
@@ -277,49 +325,129 @@ def num_layers(name: str) -> int:
 
 
 def forward_kw(key: tuple) -> dict:
-    """The forward's keyword arguments on a path: intermediates on ELL_INTER
-    and SLOT_INTER."""
-    return dict(return_intermediates=True) if key[2] in (ELL_INTER, SLOT_INTER) else {}
+    """The forward's keyword arguments on a path: intermediates on ELL_INTER,
+    SLOT_INTER and ELL_EE (whose layer loop returns them), GIN's fused layer on
+    FUSED, GAT's on ELL_FUSED and ELL_LAYER_FUSED."""
+    if key[2] in (ELL_INTER, SLOT_INTER, ELL_EE):
+        return dict(return_intermediates=True)
+    if key[2] == FUSED:
+        return dict(fused=True)
+    return dict(fuse_layers=True) if key[2] in (ELL_FUSED, ELL_LAYER_FUSED) else {}
 
 
-def bucket_launches(name: str, batch: dict, inter: bool = False) -> dict:
-    """The launches one bucket's forward (``inter``: with
-    return_intermediates) must make, by kernel: the model's whole-model ELL
-    or slot kernel once; for an ELL batch that kernel does not take (or a
+def path_forward(key: tuple):
+    """The entry a path drives: the model's ``forward``, or on ELL_EE the
+    layer-by-layer loop over row 12."""
+    from flowgnn_tpu_torch.models import registry
+
+    return row12_forward if key[2] == ELL_EE else registry.get(key[0]).forward
+
+
+def row12_forward(params: dict, batch: dict, prec, return_intermediates: bool = True):
+    """GIN over an ELL batch, layer by layer through
+    ``gin_local_layer_ell(ee=...)`` (row 12): each ELL lane's bond embedding
+    from ``bond_embed``, where row 13 sums the table rows inside the kernel,
+    as the JAX ``gin_local_layer_ell`` without ``edge_attr`` is driven;
+    returns the predictions and the intermediates, as ``gin.forward`` does."""
+    from flowgnn_tpu_torch.models import base, gin
+    from flowgnn_tpu_torch.ops.local_layer import gin_local_layer_ell
+
+    eps_all = gin.eps1_all(params, prec)
+    meta, spill = base.ell_meta(batch), base.ell_spill(batch)
+    h = base.atom_embed(params["node_embedding"], batch["node_feat"], prec)
+    inter = [h]
+    for l in range(params["mlp1_w"].shape[0]):
+        h = gin_local_layer_ell(**gin.ell_layer_operands(params, batch, prec, l, h, meta, spill,
+                                                         eps_all, lane_ee=True))
+        inter.append(h)
+    h_graph = base.mean_pool(h, batch)
+    out = base.linear(h_graph, params["pred_w"], params["pred_b"], prec)
+    return out, {"layers": inter, "h_graph": h_graph}
+
+
+def bucket_launches(name: str, batch: dict, kw: dict | None = None) -> dict:
+    """The launches one bucket's forward (``kw``: its keyword arguments, as
+    ``forward_kw`` gives them) must make, by kernel: the model's whole-model
+    ELL or slot kernel once; for an ELL batch that kernel does not take (or a
     model without one), its per-layer ELL kernel once per layer, and with a
-    spill tail the spill scatter too; for a slot batch with a spill tail,
-    its per-layer slot kernel and the spill scatter once per layer; for one
-    without a tail that the whole-model kernel does not take, its no-spill
-    per-layer slot kernel once per layer (GIN and GCN: the plain loop)."""
+    spill tail the spill scatter too (GAT with ``fuse_layers``: row 23 for
+    every layer but the last, row 17 for the last); for a slot batch with a
+    spill tail, its per-layer slot kernel and the spill scatter once per
+    layer; for one without a tail that the whole-model kernel does not take,
+    its no-spill per-layer slot kernel once per layer (GIN and GCN: the plain
+    loop); for an edge-block batch the windowed scatter once per layer (GIN
+    with ``fused``: row 25 instead); for a legacy local batch GIN's and
+    GIN-VN's row 10 once per layer, the other models nothing."""
     from flowgnn_tpu_torch.models import base
 
+    kw = kw or {}
+    inter = bool(kw.get("return_intermediates"))
     slot, ell, layer, layer0 = MODEL_KERNELS[name]
+    L = num_layers(name)
+    if "blk_vlocal" in batch:
+        return {"gin_layer_fused" if kw.get("fused") and name == "gin" else SCATTER: L}
+    if "loc_window" in batch:
+        return {"gin_local_layer": L} if name in ("gin", "gin-vn") else {}
     if "loc_ell" in batch:
         if ell is not None and base.ell_megakernel(batch, inter):
             return {ell: 1}
         plain_k, spill_k = ELL_LAYER_KERNELS[name]
-        if not base.ell_spill_lanes(batch):
-            return {plain_k: num_layers(name)}
+        tail = bool(base.ell_spill_lanes(batch))
+        out = {spill_k if tail else plain_k: L}
+        if kw.get("fuse_layers") and name == "gat":
+            out = {"gat_local_layer_ell": L - 1, "gat_local_message_ell": 1}
         # A tail of pad lanes only has no blocked layout and no scatter.
-        out = {spill_k: num_layers(name)}
-        if "spill_blk_vlocal" in batch:
-            out[SCATTER] = num_layers(name)
+        if tail and "spill_blk_vlocal" in batch:
+            out[SCATTER] = L
         return out
     if not batch["slot_spill"].shape[-1]:
         if not inter and "pool_gl" in batch:
             return {slot: 1}
-        return {layer0: num_layers(name)} if layer0 else {}
-    return {layer: num_layers(name), SCATTER: num_layers(name)}
+        return {layer0: L} if layer0 else {}
+    return {layer: L, SCATTER: L}
 
 
-def kernel_calls(kname: str, name: str, params: dict, batches: list, prec) -> list:
+def layer_operands(kname: str, name: str, params: dict, batch: dict, prec, kw: dict) -> dict:
+    """Layer 0's keyword operands of the per-layer kernel ``kname`` on a
+    path whose forward takes ``kw``: the model's ``layer_kernel_operands``
+    with the path's ``fused`` / ``fuse_layers`` (the fused GAT path's last
+    layer runs row 17, whose operands the unfused path gives); row 12's are
+    row 13's with the bond embedding per lane and no table."""
+    from flowgnn_tpu_torch.models import base, gin
+
+    if kname == ROW12:
+        h = base.atom_embed(params["node_embedding"], batch["node_feat"], prec)
+        ops = gin.ell_layer_operands(params, batch, prec, 0, h, base.ell_meta(batch),
+                                     base.ell_spill(batch), gin.eps1_all(params, prec),
+                                     lane_ee=True)
+        return {k: v for k, v in ops.items() if k != "ee_table"}
+    mod = model_module(name)
+    op_kw = {k: v for k, v in kw.items() if k in ("fused", "fuse_layers")}
+    ops = mod.layer_kernel_operands(params, batch, prec, **op_kw)
+    return ops[kname] if kname in ops else mod.layer_kernel_operands(params, batch, prec)[kname]
+
+
+def path_launches(key: tuple, batch: dict) -> dict:
+    """``bucket_launches`` of one bucket on a path; ELL_EE's layer loop launches
+    row 12 once per layer."""
+    if key[2] == ELL_EE:
+        return {ROW12: num_layers(key[0])}
+    return bucket_launches(key[0], batch, forward_kw(key))
+
+
+def kernel_calls(kname: str, name: str, params: dict, batches: list, prec,
+                 key: tuple | None = None) -> list:
     """The keyword operands of every launch of ``kname`` over a stream: a
     whole-model kernel's per bucket, a per-layer kernel's layer-0 operands
-    per bucket, repeated once per layer."""
+    per bucket, repeated as often as the path (``key``; None: the model's
+    plain ``forward``) launches it on that bucket."""
     mod = model_module(name)
     if kname in PER_LAYER:
-        ops = [mod.layer_kernel_operands(params, b, prec)[kname] for b in batches]
-        return [o for o in ops for _ in range(num_layers(name))]
+        key = key or (name, None, None)
+        kw = forward_kw(key)
+        return [o for b in batches
+                for o in [layer_operands(kname, name, params, b, prec, kw)]
+                for _ in range(path_launches(key, b)[kname])]
     return [(mod.ell_kernel_operands if "loc_ell" in b else mod.slot_kernel_operands)(
         params, b, prec) for b in batches]
 
@@ -334,34 +462,65 @@ def synthetic_params(name: str, seed: int) -> dict:
     }[name](seed)
 
 
-def make_stream(name: str, profile: str, num_graphs: int, layout: str, device,
+_GRAPHS: dict = {}  # (model, profile, graphs) -> the transformed graphs
+_PACKED: dict = {}  # (model, profile, graphs, packing window) -> (buckets, plain batches)
+
+
+def make_stream(name: str, profile: str, num_graphs: int, layout, device,
                 window: int | None = None):
     """The main path's host half for one model: (packed buckets, kernel
     batches in ``layout``, plain batches), the batches on ``device``. The
     window is ``choose_geometry``'s unless given; the ELL block is scaled
-    to the window."""
+    to the window. The edge-block layout (``layout`` True) packs without
+    window alignment, as the JAX bench's ``--layout blocked`` does. A
+    packing two layouts share is made once."""
     from flowgnn_tpu_torch.core.graphs import auto_edge_capacity, pack_dataset
     from flowgnn_tpu_torch.core.synthetic import synthetic_dataset
     from flowgnn_tpu_torch.models import base, registry
 
     spec = registry.get(name)
-    graphs = registry.apply_transforms(
-        spec, synthetic_dataset(profile, seed=SEED, num_graphs=num_graphs)
-    )
+    gkey = (name, profile, num_graphs)
+    if gkey not in _GRAPHS:
+        _GRAPHS[gkey] = registry.apply_transforms(
+            spec, synthetic_dataset(profile, seed=SEED, num_graphs=num_graphs))
+    graphs = _GRAPHS[gkey]
     # A window given is paired with the block scaled to it, as the JAX bench
     # re-derives the block from --ell-window (bench.py:147-158).
     window, block = base.choose_geometry(name, window or max(g.num_nodes for g in graphs))
-    buckets = list(pack_dataset(
-        graphs, node_capacity=NODE_CAP,
-        edge_capacity=auto_edge_capacity(graphs, NODE_CAP),
-        graph_capacity=GRAPH_CAP, with_eigen=spec.needs_eigen, align_window=window,
-    ))
+    align = None if layout is True else window
+    if gkey + (align,) not in _PACKED:
+        buckets = list(pack_dataset(
+            graphs, node_capacity=NODE_CAP,
+            edge_capacity=auto_edge_capacity(graphs, NODE_CAP),
+            graph_capacity=GRAPH_CAP, with_eigen=spec.needs_eigen, align_window=align,
+        ))
+        _PACKED[gkey + (align,)] = (
+            buckets, [base.to_device(base.as_batch(b), device) for b in buckets])
+    buckets, plain = _PACKED[gkey + (align,)]
     batches = base.as_batches_uniform(buckets, blocked=layout, window=window, block=block)
-    return (
-        buckets,
-        [base.to_device(b, device) for b in batches],
-        [base.to_device(base.as_batch(b), device) for b in buckets],
-    )
+    return buckets, [base.to_device(b, device) for b in batches], plain
+
+
+def big_local_stream(name: str, device) -> tuple:
+    """A one-bucket stream in the legacy local layout: 200 molhiv-shaped
+    graphs and four of 300 nodes at W=128, whose crossing edges ride the
+    layout's 8192-lane spill tail. (packed buckets, batches, plain batches)
+    as ``make_stream`` gives them."""
+    import numpy as np
+
+    from flowgnn_tpu_torch.core.graphs import pack_graphs_aligned
+    from flowgnn_tpu_torch.core.synthetic import random_molecule_graph, synthetic_dataset
+    from flowgnn_tpu_torch.models import base, registry
+
+    rng = np.random.default_rng(SEED + 300)
+    graphs = registry.apply_transforms(registry.get(name), (
+        synthetic_dataset("molhiv", seed=SEED, num_graphs=200)
+        + [random_molecule_graph(rng, num_nodes=300) for _ in range(4)]
+    ))
+    packed = pack_graphs_aligned(graphs, node_capacity=8191, edge_capacity=32768,
+                                 graph_capacity=256, window=base.PALLAS_WINDOW)
+    return ([packed], [base.to_device(base.as_batch(packed, blocked=LOCAL), device)],
+            [base.to_device(base.as_batch(packed), device)])
 
 
 def big_graph_bucket(name: str, big: int, device) -> dict:
@@ -558,16 +717,21 @@ def longest_ell_spill(streams: dict, name: str) -> tuple:
 
 
 def check_layer_cases(cases, device, max_err: dict) -> None:
-    """Each per-layer kernel a (model, batch, name) case's layer 0 runs
-    against its plain version, f32 (1e-4) and bf16 (5e-2), seeded synthetic
-    weights."""
+    """Each per-layer kernel a (model, batch, name[, operand keywords]) case's
+    layer 0 runs against its plain version, f32 (1e-4) and bf16 (5e-2),
+    seeded synthetic weights. The keywords are ``layer_kernel_operands``'s
+    (``fused``, ``fuse_layers``); ``row12`` takes row 12's operands."""
     from flowgnn_tpu_torch.core.numerics import BF16, FLOAT32
     from flowgnn_tpu_torch.params.loaders import params_from_numpy
 
-    for name, batch, what in cases:
+    for name, batch, what, *rest in cases:
+        kw = rest[0] if rest else {}
         for prec, tol in ((FLOAT32, 1e-4), (BF16, 5e-2)):
             params = params_from_numpy(synthetic_params(name, SEED + 1), prec, device)
-            kernels = model_module(name).layer_kernel_operands(params, batch, prec)
+            if kw.get("row12"):
+                kernels = {ROW12: layer_operands(ROW12, name, params, batch, prec, {})}
+            else:
+                kernels = model_module(name).layer_kernel_operands(params, batch, prec, **kw)
             for kname, ops in kernels.items():
                 err = compare(kname, ops, f"{name} {what} layer 0 {prec.compute_dtype}", tol)
                 if prec is FLOAT32:
@@ -586,6 +750,25 @@ def check_new_layer_kernels(streams: dict, device, max_err: dict) -> None:
         ("dgn", *longest_ell_spill(streams, "dgn")),
         ("gat", streams["gat", "molhiv", ELL][1][0], "molhiv W=128 ELL bucket 0"),
         ("gat", *longest_ell_spill(streams, "gat")),
+    ], device, max_err)
+
+
+def check_block_layer_kernels(streams: dict, device, max_err: dict) -> None:
+    """Phase 3f: rows 10, 12 and 25 on layer 0 of the first GIN molhiv bucket
+    in the legacy local, ELL and edge-block layout; row 23 on the first GAT
+    molhiv ELL bucket and on the GAT hep10k W=128 ELL bucket with the longest
+    spill tail (with row 24); row 24 on the first edge-block bucket of GAT,
+    GIN, PNA and DGN (widths 68, 100, 160, 200); f32 and bf16."""
+    first = lambda name, layout: streams[name, "molhiv", layout][1][0]
+    fuse = dict(fuse_layers=True)
+    check_layer_cases([
+        ("gin", first("gin", LOCAL), "molhiv legacy local bucket 0"),
+        ("gin", first("gin", ELL), "molhiv W=128 ELL bucket 0, per-lane ee", dict(row12=True)),
+        ("gin", first("gin", BLOCKED), "molhiv edge-block bucket 0, fused", dict(fused=True)),
+        ("gat", first("gat", ELL), "molhiv W=128 ELL bucket 0, fused", fuse),
+        ("gat", *longest_ell_spill(streams, "gat"), fuse),
+        *((name, first(name, BLOCKED), "molhiv edge-block bucket 0")
+          for name in ("gat", "gin", "pna", "dgn")),
     ], device, max_err)
 
 
@@ -652,6 +835,28 @@ def check_outputs(key: tuple, i: int, packed, out, want, tol: float, plain=None,
     return errs[0], tols[0]
 
 
+def check_sibling(key: tuple, packed, out, params: dict, batch: dict, prec, tol: float) -> str:
+    """A path held to the kernel path it is a variant of, on the same bucket
+    and dtype, at the path's own tol (``agree``): GAT's fused ELL path
+    against its unfused one (predictions; the two round at different
+    points), row 12's layer loop against the row-13 path (predictions and every
+    layer's h; row 12's bond embeddings arrive rounded to the compute
+    dtype). Returns what to print, or nothing for a path with no sibling."""
+    from flowgnn_tpu_torch.models import registry
+
+    k = packed.num_graphs
+    forward = registry.get(key[0]).forward
+    if key[2] in (ELL_FUSED, ELL_LAYER_FUSED):
+        err = agree(out[:k], forward(params, batch, prec)[:k], tol)
+        return f", vs the unfused ELL path {err:.3e}"
+    if key[2] != ELL_EE:
+        return ""
+    ref, ref_inter = forward(params, batch, prec, return_intermediates=True)
+    errs = [agree(out[0][:k], ref[:k], tol)]
+    errs += [agree(a, b, tol) for a, b in zip(out[1]["layers"], ref_inter["layers"])]
+    return f", vs the row-13 path {errs[0]:.3e} (layers: {max(errs[1:]):.3e})"
+
+
 def run_main_path(streams: dict, device, keys) -> dict:
     """Phases 4, 4b, 4c, 4d and 4e: each (model, profile, layout) of ``keys``
     over its whole stream in f32 and bf16; returns each kernel's launches
@@ -667,7 +872,8 @@ def run_main_path(streams: dict, device, keys) -> dict:
     what it needs (``check_outputs``). On the ``KERNEL_ROUNDING`` paths the
     gate also takes 1.5× what the path with its kernels' plain versions
     needs, printed beside, and the kernel path must match that path at
-    5e-2."""
+    5e-2. A path with a sibling kernel path (``check_sibling``) is held to
+    it too."""
     import collections
 
     import torch
@@ -681,15 +887,16 @@ def run_main_path(streams: dict, device, keys) -> dict:
     for key in keys:
         name, profile, layout = key
         buckets, batches, plain = streams[key]
-        forward = registry.get(name).forward
+        forward, plain_forward = path_forward(key), registry.get(name).forward
         params_np = synthetic_params(name, SEED)
         p32 = params_from_numpy(params_np, FLOAT32, device)
         kw = forward_kw(key)
-        inter = bool(kw)
-        want = [forward(p32, pb, FLOAT32, **kw) for pb in plain]
+        inter = bool(kw.get("return_intermediates"))
+        plain_kw = dict(return_intermediates=True) if inter else {}
+        want = [plain_forward(p32, pb, FLOAT32, **plain_kw) for pb in plain]
         expect = collections.Counter()
         for b in batches:
-            expect.update(bucket_launches(name, b, inter))
+            expect.update(path_launches(key, b))
         for prec, tol in ((FLOAT32, 1e-4), (BF16, 5e-2)):
             params = params_from_numpy(params_np, prec, device)
             for k in kernels.values():
@@ -703,7 +910,7 @@ def run_main_path(streams: dict, device, keys) -> dict:
                 launches[k] += c
             for i, (packed, out, pb, w) in enumerate(zip(buckets, outs, plain, want)):
                 k = packed.num_graphs
-                pl = forward(params, pb, prec, **kw) if prec is BF16 else None
+                pl = plain_forward(params, pb, prec, **plain_kw) if prec is BF16 else None
                 rows = plain_rows(batches[i], packed) if inter else None
                 rounded = None
                 if pl is not None and key in KERNEL_ROUNDING:
@@ -711,10 +918,11 @@ def run_main_path(streams: dict, device, keys) -> dict:
                         rounded = forward(params, batches[i], prec, **kw)
                     held = agree(out[:k], rounded[:k], tol)
                 err, t = check_outputs(key, i, packed, out, w, tol, pl, rows, rounded)
+                sibling = check_sibling(key, packed, out, params, batches[i], prec, tol)
                 w, pl = (w[0], pl[0] if pl is not None else None) if inter else (w, pl)
                 line = (f"# main path {name} {profile} {layout} {prec.compute_dtype} bucket {i}: "
-                        f"{k} graphs, launches {dict(bucket_launches(name, batches[i], inter))}, "
-                        f"max abs err vs f32 plain path {err:.3e}")
+                        f"{k} graphs, launches {dict(path_launches(key, batches[i]))}, "
+                        f"max abs err vs f32 plain path {err:.3e}{sibling}")
                 if pl is not None:
                     plain_err = (pl[:k].float() - w[:k]).abs().max().item()
                     line += f" (bf16 plain path: {plain_err:.3e}"
@@ -763,6 +971,30 @@ def describe_spill(streams: dict) -> None:
                   f"{real} of {b['senders'].shape[0]} edges, {b['slot_spill'].shape[0]} blocked "
                   f"lanes in {b['spill_blk_window'].shape[0]} blocks, compact windows T={t} "
                   f"of {b['spill_blk_winmap'].shape[0]}")
+
+
+def describe_blocks(streams: dict) -> None:
+    """Phase 4f's geometry: per edge-block stream and bucket the blocks, the
+    lanes that carry an edge and the all-sentinel blocks parked on the last
+    window; per legacy local stream and bucket the blocked lanes and the
+    crossing edges in the 8192-lane tail."""
+    for (name, profile, layout), (buckets, batches, _) in streams.items():
+        for i, b in enumerate(batches):
+            n = b["node_feat"].shape[0]
+            if layout == BLOCKED:
+                real = b["blk_vlocal"].reshape(-1, 128) < 128
+                used = int(real.any(1).sum())
+                print(f"# edge blocks {name} {profile} bucket {i}: {buckets[i].num_graphs} "
+                      f"graphs, {real.shape[0]} blocks over {-(-n // 128)} windows, "
+                      f"{int(real.sum())} lanes carry an edge, {real.shape[0] - used} blocks "
+                      f"hold none")
+            elif layout == LOCAL:
+                p = b["loc_ulocal"].shape[0]
+                tail = b["receivers"][p:]
+                print(f"# legacy local {name} {profile} bucket {i}: {buckets[i].num_graphs} "
+                      f"graphs, {p} blocked lanes in {b['loc_window'].shape[0]} blocks, "
+                      f"{int((b['loc_vlocal'] < 128).sum())} carry an edge, spill tail "
+                      f"{int((tail < n - 1).sum())} of {tail.shape[0]} lanes")
 
 
 def describe_ell_spill(streams: dict) -> None:
@@ -843,15 +1075,26 @@ def valid_lanes(ops: dict) -> int:
     return int((ops[key] < w).sum())
 
 
+# Operands with one row per lane of a layout whose pad lanes close each
+# window's run (the ELL and block layouts, the blocked spill tail): the
+# kernels stop at a run's last lane with an edge, so this data's work is
+# the rows of the lanes that carry one, not the padded tensor.
+LANE_OPERANDS = ("ee", "vals", "values", "u_local", "v_local", "ell_meta")
+
+
 def work(kname: str, ops: dict, out) -> tuple[float, float]:
     """(operations, bytes) of one launch on ``ops``: each input read once
-    and the output written once; operations count a multiply-add as two,
-    over the lanes that carry an edge (E) and the rows of h (n), for the
-    dominant terms (PERF.md gives the formulas)."""
+    and the output written once, a per-lane operand of a run layout
+    (``LANE_OPERANDS``) counted over the lanes that carry an edge only;
+    operations count a multiply-add as two, over the lanes that carry an
+    edge (E) and the rows of h (n), for the dominant terms (PERF.md gives
+    the formulas)."""
     import torch
 
-    byts = sum(nbytes(v) for v in ops.values() if torch.is_tensor(v)) + nbytes(out)
     e = valid_lanes(ops)
+    byts = nbytes(out) + sum(
+        e * nbytes(v[0]) if k in LANE_OPERANDS else nbytes(v)
+        for k, v in ops.items() if torch.is_tensor(v))
     L = ops.get("num_layers", 1)
     h = ops["h0"] if "h0" in ops else ops.get("h", ops.get("values"))
     n, d = h.shape
@@ -888,15 +1131,25 @@ def work(kname: str, ops: dict, out) -> tuple[float, float]:
         ops_ = 3 * e * d
     elif kname == "gat_local_message_ell":
         ops_ = e * (2 * d + 4 * ops["num_heads"])
-    else:  # the spill scatter: one add per lane and column
+    elif kname in ("gin_local_layer", ROW12):
+        ops_ = 2 * e * d + 4 * n * d * ops["w1"].shape[0]
+    elif kname == "gin_layer_fused":
+        ops_ = e * d + 4 * n * d * ops["w1"].shape[0]
+    elif kname == "gat_local_layer_ell":
+        nh = ops["num_heads"]
+        ops_ = e * (2 * d + 4 * nh) + 4 * n * d * d + 4 * n * d * nh
+    else:  # the windowed scatter: one add per lane and column
         ops_ = e * d
     return float(ops_), float(byts)
 
 
 def spill_receivers(batch: dict):
-    """Each spill lane's receiver, of a slot or an ELL batch."""
+    """Each scattered lane's receiver: the spill lanes' of a slot or an ELL
+    batch, every lane's of an edge-block batch."""
     from flowgnn_tpu_torch.models import base
 
+    if "blk_vlocal" in batch:
+        return batch["receivers"].long()
     if "loc_ell" in batch:
         return batch["receivers"][batch["loc_ulocal"].shape[0] :].long()
     return base.spill_lanes(batch)[1]
@@ -919,21 +1172,22 @@ def time_paths(streams: dict, device, keys) -> dict:
     for key in keys:
         name, profile, layout = key
         buckets, batches, plain = streams[key]
-        forward = registry.get(name).forward
+        forward, plain_forward = path_forward(key), registry.get(name).forward
         graphs = sum(b.num_graphs for b in buckets)
         params_np = synthetic_params(name, SEED)
         kw = forward_kw(key)
-        kernels = sorted(bucket_launches(name, batches[0], bool(kw)))
+        plain_kw = {k: v for k, v in kw.items() if k == "return_intermediates"}
+        kernels = sorted(path_launches(key, batches[0]))
         for prec in (BF16, FLOAT32):
             dt = str(prec.compute_dtype).replace("torch.", "")
             params = params_from_numpy(params_np, prec, device)
             tag = f"{name} {profile} {layout} {dt}"
             e2e = cuda_ms(lambda: [forward(params, b, prec, **kw) for b in batches])
-            e2e_plain = cuda_ms(lambda: [forward(params, b, prec, **kw) for b in plain])
+            e2e_plain = cuda_ms(lambda: [plain_forward(params, b, prec, **plain_kw) for b in plain])
             print(f"# time {tag}: kernel path {e2e * 1e3 / graphs:.4f} us/graph, "
                   f"plain edge-list path {e2e_plain * 1e3 / graphs:.4f} us/graph ({graphs} graphs)")
             for kname in kernels:
-                calls = kernel_calls(kname, name, params, batches, prec)
+                calls = kernel_calls(kname, name, params, batches, prec, key)
                 kernel, ref = kernel_fn(kname), kernel_fn(kname, plain=True)
                 outs = [kernel(**o) for o in calls]
                 flops, byts = map(sum, zip(*(work(kname, o, out) for o, out in zip(calls, outs))))
@@ -946,7 +1200,7 @@ def time_paths(streams: dict, device, keys) -> dict:
                 )
                 line = ""
                 if kname == SCATTER:
-                    # The same sums as one PyTorch call: the spill values
+                    # The same sums as one PyTorch call: the lane values
                     # index-added at their receivers into [n, D'].
                     lib = [(b["node_feat"].shape[0], spill_receivers(b), o["values"])
                            for b, o in zip(batches, calls[:: num_layers(name)])]
@@ -975,10 +1229,11 @@ def profile_path(key: tuple, streams: dict, device) -> None:
     from flowgnn_tpu_torch.params.loaders import params_from_numpy
 
     name, passes = key[0], PROFILE_PASSES
-    _, batches, _ = streams[key]
-    forward = registry.get(name).forward
+    # PLAIN: the plain edge-list batches of the stream's packing.
+    batches = streams[key][2 if key[2] == PLAIN else 1]
+    forward, kw = registry.get(name).forward, forward_kw(key)
     params = params_from_numpy(synthetic_params(name, SEED), BF16, device)
-    run = lambda: [forward(params, b, BF16) for b in batches]
+    run = lambda: [forward(params, b, BF16, **kw) for b in batches]
     for _ in range(3):
         run()
     torch.cuda.synchronize()
@@ -1011,7 +1266,7 @@ def main() -> int:
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--profile", action="store_true",
-                    help="profile the hep10k slot and ELL spill paths only")
+                    help="profile the per-layer paths only")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1030,12 +1285,16 @@ def main() -> int:
     ).stdout.strip()
     if args.profile:
         print(smi)
-        paths = [(name, SLOTS, SLOTS) for name in SPILL_MODELS]
-        paths += [(name, ELL_LAYER, ELL) for name in LAYER_MODELS]
-        for name, label, layout in paths:
-            key = (name, "hep10k", label)
-            streams = {key: make_stream(name, "hep10k", HEP_GRAPHS, layout, dev, window=SPILL_WINDOW)}
-            profile_path(key, streams, dev)
+        hep = lambda layout: ("hep10k", HEP_GRAPHS, layout, dev, SPILL_WINDOW)
+        mol = lambda layout: ("molhiv", STREAM_GRAPHS, layout, dev)
+        paths = [((name, "hep10k", SLOTS), hep(SLOTS)) for name in SPILL_MODELS]
+        paths += [((name, "hep10k", ELL_LAYER), hep(ELL)) for name in LAYER_MODELS]
+        paths += [(("gat", "hep10k", ELL_LAYER_FUSED), hep(ELL)),
+                  (("gin", "molhiv", BLOCKED), mol(True)), (("gin", "molhiv", FUSED), mol(True)),
+                  (("gin", "molhiv", LOCAL), mol(LOCAL)),
+                  (("pna", "molhiv", BLOCKED), mol(True)), (("pna", "molhiv", PLAIN), mol(True))]
+        for key, stream in paths:
+            profile_path(key, {key: make_stream(key[0], *stream)}, dev)
         return 0
     kind = torch.cuda.get_device_name(0)
     print(f"# device: {kind}, count {torch.cuda.device_count()}, torch "
@@ -1071,6 +1330,19 @@ def main() -> int:
         streams[name, "molhiv", ELL_INTER] = streams[name, "molhiv", ELL]
     # PNA's molhiv slot stream, run with intermediates (row 20).
     streams["pna", "molhiv", SLOT_INTER] = streams["pna", "molhiv", SLOTS]
+    # The edge-block layout for every model, GIN's also with its fused layer.
+    for name in MODELS:
+        streams[name, "molhiv", BLOCKED] = make_stream(name, "molhiv", STREAM_GRAPHS, True, dev)
+    streams["gin", "molhiv", FUSED] = streams["gin", "molhiv", BLOCKED]
+    # The legacy local layout: the aligned molhiv stream, and one bucket whose
+    # 300-node graphs cross windows.
+    for name in ("gin", "gin-vn"):
+        streams[name, "molhiv", LOCAL] = make_stream(name, "molhiv", STREAM_GRAPHS, LOCAL, dev)
+        streams[name, BIG, LOCAL] = big_local_stream(name, dev)
+    # Streams there already, driven through row 12 and through GAT's row 23.
+    streams["gin", "molhiv", ELL_EE] = streams["gin", "molhiv", ELL]
+    streams["gat", "molhiv", ELL_FUSED] = streams["gat", "molhiv", ELL]
+    streams["gat", "hep10k", ELL_LAYER_FUSED] = streams["gat", "hep10k", ELL_LAYER]
     for (name, profile, layout), (buckets, batches, _) in streams.items():
         if layout == SLOTS and profile == "molhiv":
             w, s = batches[0]["slot_geom"].shape
@@ -1081,7 +1353,8 @@ def main() -> int:
     describe_ell(streams)
     describe_spill(streams)
     describe_ell_spill(streams)
-    print(f"# host pack of {len(streams) - len(INTER_MODELS) - 1} streams: "
+    describe_blocks(streams)
+    print(f"# host pack of {len({id(v) for v in streams.values()})} streams: "
           f"{time.perf_counter() - t0:.1f} s")
 
     # 3. Kernels against their plain versions; 4. the main paths; 5. timings.
@@ -1093,19 +1366,27 @@ def main() -> int:
     # Phase 4e's paths: PNA's row 20, DGN's and GAT's ELL paths.
     new_keys = [("pna", "molhiv", SLOT_INTER), ("dgn", "molhiv", ELL), ("gat", "molhiv", ELL),
                 ("dgn", "hep10k", ELL_LAYER), ("gat", "hep10k", ELL_LAYER)]
+    # Phase 4f's paths: the edge-block and legacy local layouts, row 12's
+    # layer loop, GAT's fused layer. The one-bucket local streams are not timed.
+    block_keys = [(name, "molhiv", BLOCKED) for name in MODELS] + [("gin", "molhiv", FUSED)]
+    block_keys += [(name, "molhiv", LOCAL) for name in ("gin", "gin-vn")]
+    block_keys += [("gin", "molhiv", ELL_EE), ("gat", "molhiv", ELL_FUSED),
+                   ("gat", "hep10k", ELL_LAYER_FUSED)]
+    big_keys = [(name, BIG, LOCAL) for name in ("gin", "gin-vn")]
     max_err = dict.fromkeys(KERNELS, 0.0)
     check_kernels(streams, dev, max_err)
     check_ell_kernels(streams, dev, max_err)
     check_layer_kernels(streams, dev, max_err)
     check_ell_layer_kernels(streams, dev, max_err)
     check_new_layer_kernels(streams, dev, max_err)
-    launches = run_main_path(streams, dev,
-                             slot_keys + hep_keys + spill_keys + layer_keys + new_keys)
+    check_block_layer_kernels(streams, dev, max_err)
+    launches = run_main_path(streams, dev, slot_keys + hep_keys + spill_keys + layer_keys
+                             + new_keys + block_keys + big_keys)
     for k, n in check_ell_matches_slots(streams, dev).items():
         launches[k] += n
     molhiv_ell_keys = [(name, "molhiv", ELL) for name in ELL_MODELS]
     record = time_paths(streams, dev, slot_keys + hep_keys + molhiv_ell_keys + spill_keys
-                        + layer_keys + new_keys)
+                        + layer_keys + new_keys + block_keys)
 
     print(smi)
     kernels = []

@@ -124,6 +124,10 @@ class PackedGraphs:
         return int(self.node_feat.shape[0]) - 1
 
     @property
+    def edge_capacity(self) -> int:
+        return int(self.senders.shape[0])
+
+    @property
     def num_graphs(self) -> int:
         """Number of real (non-pad) graphs."""
         return int(np.sum(self.n_node[:-1] > 0))

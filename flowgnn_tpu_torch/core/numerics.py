@@ -27,7 +27,7 @@ class Precision:
     def __post_init__(self):
         if self.fixed is not None:
             raise NotImplementedError(
-                "ap_fixed emulation is not ported yet (ROADMAP queue 1 item 10)"
+                "ap_fixed emulation is not ported yet (ROADMAP queue 1 item 6)"
             )
         if self.compute_dtype not in (torch.float32, torch.float64, torch.bfloat16):
             raise ValueError(f"unsupported compute dtype {self.compute_dtype}")

@@ -6,7 +6,10 @@
 // lanes), block_window [NB] each block's output window, non-decreasing; out
 // [num_windows * window, D] in the values' type, row t*window + v the sum of
 // the lanes of window t's blocks whose v_local is v. A window with no block
-// comes out zero (the TPU kernel leaves such a window unwritten).
+// comes out zero (the TPU kernel leaves such a window unwritten). Two layouts
+// feed it: the spill tail's (windows of 512 rows, only the T windows that
+// receive a lane) and the edge-block layout's (every window of 128 rows; the
+// blocks left over are parked on the last window, all sentinel lanes).
 //
 // The TPU kernel walks the blocks in order on one core and carries a window's
 // f32 accumulator from one grid step to the next, flushing it at the window's
@@ -17,9 +20,14 @@
 // writes the tile once, cast to the values' type. A whole window of D = 200
 // f32 columns (400 KB at window 512) does not fit one block's shared memory;
 // the column chunk does (64 KB). No atomics: warp j owns the rows v with
-// v % 8 == j and walks every lane of the run in order, lane k of the warp on
-// column k, so each sum has the TPU kernel's lane order and is deterministic.
-// Sentinel lanes add nothing.
+// v % 8 == j and walks the run in order, 32 lanes at a step: each thread reads
+// one lane's v, a ballot marks the lanes that are the warp's, and the warp
+// adds those in ascending order, thread k on column k, so each sum has the
+// TPU kernel's lane order and is deterministic. Sentinel lanes add nothing.
+// The edge-block layout parks hundreds of all-sentinel blocks on its last
+// window (about 100,000 lanes on a molhiv bucket, 0.2 ms of serial steps), so
+// before the walk the block's 256 threads scan the run's v once, in parallel,
+// for its last lane that carries a value, and the walk stops there.
 //
 // What bounds it on this card: the bytes. Each lane's values are read once
 // and each output row written once (most rows of a window receive no lane and
@@ -65,18 +73,33 @@ wss_kernel(const T* __restrict__ values, const int* __restrict__ vloc,
            const int* __restrict__ block_window, T* __restrict__ out, int nb,
            int block, int d, int window) {
   extern __shared__ float acc[];  // [window][kCols]
+  __shared__ int live_s;          // lanes of the run up to its last valued one
   const int t = blockIdx.x, c0 = blockIdx.y * kCols;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   for (int i = tid; i < window * kCols; i += kThreads) acc[i] = 0.f;
+  if (tid == 0) live_s = 0;
   const long p0 = long(bound(block_window, nb, t, false)) * block;
-  const long p1 = long(bound(block_window, nb, t, true)) * block;
+  const int run = int(long(bound(block_window, nb, t, true)) * block - p0);
   __syncthreads();
+  int live = 0;
+  for (int i = tid; i < run; i += kThreads)
+    if (unsigned(__ldg(vloc + p0 + i)) < unsigned(window)) live = i + 1;
+  if (live) atomicMax(&live_s, live);
+  __syncthreads();
+  const long p1 = p0 + live_s;
 
   const int c = c0 + lane;
-  for (long p = p0; p < p1; ++p) {
-    const int v = __ldg(vloc + p);  // the same for the whole warp
-    if (unsigned(v) >= unsigned(window) || v % kWarps != warp) continue;
-    if (c < d) acc[v * kCols + lane] += ld(values + p * d + c);
+  for (long pb = p0; pb < p1; pb += 32) {
+    const long p = pb + lane;
+    const int v = p < p1 ? __ldg(vloc + p) : -1;
+    unsigned mine = __ballot_sync(
+        0xffffffffu, unsigned(v) < unsigned(window) && v % kWarps == warp);
+    while (mine) {  // the warp's lanes of this step, in ascending order
+      const int k = __ffs(mine) - 1;
+      mine &= mine - 1;
+      const int vk = __shfl_sync(0xffffffffu, v, k);
+      if (c < d) acc[vk * kCols + lane] += ld(values + (pb + k) * d + c);
+    }
   }
   __syncthreads();
 

@@ -16,8 +16,12 @@ with one trailing pad node (index N) that every padded edge points at and one
 trailing pad graph that owns every pad node. ``blocked="local_slots"`` adds
 the degree-sorted dest-major slot layout of the slot kernels, with the
 blocked spill tail of the edges that leave it (``_attach_spill_blocks``),
-and ``blocked="local_ell"`` the ELL layout of the ELL kernels, with the same
-blocked spill tail appended after its lanes.
+``blocked="local_ell"`` the ELL layout of the ELL kernels, with the same
+blocked spill tail appended after its lanes, ``blocked=True`` the edge-block
+layout (the edge axis in block order, ``blk_vlocal`` / ``blk_window``) whose
+message sums run through ``edge_segment_sum``'s windowed scatter, and
+``blocked="local"`` the legacy dynamic-window local layout (``loc_ulocal`` /
+``loc_vlocal`` / ``loc_window`` and an un-blocked spill tail).
 Their arrays hold the same values as ``flowgnn_tpu.models.base.as_batch``
 builds, stored as int32 where the JAX package stores bfloat16 (the TPU's
 one-hot ``spill_gblk_onehot`` is left out); static geometry rides in the
@@ -38,7 +42,7 @@ from ..core.features import BOND_FEATURE_OFFSETS
 from ..core.graphs import PackedGraphs
 from ..core.numerics import Precision
 from ..ops.segment import segment_sum
-from ..ops.spmm import windowed_segment_sum
+from ..ops.spmm import segment_sum_blocked, windowed_segment_sum
 
 # Window and ELL block per model. The slot megakernels read only the window;
 # the block is the ELL lanes per window and feeds only the ELL layout. The
@@ -63,7 +67,9 @@ GEOMETRY_DEFAULTS: dict[str, tuple[int, int]] = {
 ELL_DEFAULT_GEOMETRY = (512, 1536)
 MAX_SLOTS = 8  # deepest slot axis; deeper in-degrees spill
 POOL_GMAX = 64  # graph slots per window in the in-kernel pooling layout
-PALLAS_BLOCK = 128  # spill lanes per block of the spill tail's blocked layout
+PALLAS_WINDOW = 128  # node window of the edge-block and legacy local layouts
+PALLAS_BLOCK = 128  # lanes per block of those layouts and of the spill tail's blocked layout
+LOCAL_SPILL_CAPACITY = 8192  # lanes of the legacy local layout's spill tail, fixed
 SPILL_SCATTER_WINDOW = 512  # receiver window of the spill tail's scatter
 
 
@@ -285,8 +291,13 @@ def as_batch(
     packing too) keeps the node order and attaches the ELL layout of
     ``window`` rows and ``block`` lanes per edge block, with its spill tail
     (see ``_attach_ell_layout``); ``spill_capacity`` pins that tail's
-    length before blocking. The legacy ``"local"`` and edge-block layouts
-    raise (ROADMAP queue 2).
+    length before blocking. ``blocked=True`` replaces the edge arrays by
+    their edge-block order (``core.blocking.build_edge_blocks`` at
+    PALLAS_WINDOW / PALLAS_BLOCK; any packing) and attaches ``blk_vlocal``
+    and ``blk_window``, no degrees and no pool layout. ``blocked="local"``
+    (window-aligned packing at PALLAS_WINDOW) is the legacy dynamic-window
+    local layout (``_attach_local_layout``); it ignores ``window``,
+    ``block`` and ``spill_capacity``.
 
     Without a window, the ELL layout takes the JAX package's (512, 1536)
     (``ELL_DEFAULT_GEOMETRY``), and the slot layout W=128, where the JAX
@@ -312,10 +323,12 @@ def as_batch(
         gw, gb = ELL_DEFAULT_GEOMETRY
         _attach_ell_layout(batch, packed, window or gw, block or gb, spill_capacity)
         return batch
+    if blocked == "local":
+        _attach_local_layout(batch, packed)
+        return batch
     if blocked != "local_slots":
-        raise NotImplementedError(
-            f"blocked={blocked!r} is not ported yet (ROADMAP queue 2 C)"
-        )
+        _attach_edge_blocks(batch, packed)
+        return batch
     from ..core.blocking import build_local_slots
 
     n = packed.node_capacity + 1
@@ -412,6 +425,14 @@ def _attach_prefix_layout(batch: dict, slot3: np.ndarray, slot_edge: np.ndarray,
     batch["slot_meta"] = meta.reshape(-1, 4)
 
 
+def _edges_at(packed: PackedGraphs, idx: np.ndarray, ok: np.ndarray, pad: int):
+    """``packed``'s (senders, receivers, edge_attr) at the edges ``idx``
+    where ``ok``; elsewhere the pad node with attrs 0."""
+    return (np.where(ok, packed.senders[idx], pad).astype(np.int32),
+            np.where(ok, packed.receivers[idx], pad).astype(np.int32),
+            np.where(ok[:, None], packed.edge_attr[idx], 0).astype(np.int32))
+
+
 def _attach_ell_layout(batch: dict, packed: PackedGraphs, window: int, block: int,
                        spill_capacity: int | None = None) -> None:
     """The ELL layout of ``flowgnn_tpu.models.base.as_batch``: ``senders`` /
@@ -438,21 +459,10 @@ def _attach_ell_layout(batch: dict, packed: PackedGraphs, window: int, block: in
             f"least {lb.k_blocks * lb.block}",
             stacklevel=3,
         )
-    lanes = lb.u_local.shape[0]
-    s = np.full(lanes, pad, np.int32)
-    r = np.full(lanes, pad, np.int32)
-    a = np.zeros((lanes, packed.edge_attr.shape[1]), np.int32)
-    take = lb.edge_perm[lb.valid]
-    s[lb.valid] = packed.senders[take]
-    r[lb.valid] = packed.receivers[take]
-    a[lb.valid] = packed.edge_attr[take]
-    sp_s = packed.senders[lb.spill].copy()
-    sp_r = packed.receivers[lb.spill].copy()
-    sp_a = packed.edge_attr[lb.spill].copy()
+    s, r, a = _edges_at(packed, lb.edge_perm, lb.valid, pad)
     # Spill slots past the real ones hold edge 0: neutralise them.
-    sp_s[lb.spill_count :] = pad
-    sp_r[lb.spill_count :] = pad
-    sp_a[lb.spill_count :] = 0
+    sp_s, sp_r, sp_a = _edges_at(packed, lb.spill, np.arange(lb.spill.shape[0]) < lb.spill_count,
+                                 pad)
     if lb.spill_count:
         perm, valid = _attach_spill_blocks(batch, sp_r, n, sp_send=sp_s)
         sp_s = np.where(valid, sp_s[perm], pad)
@@ -466,6 +476,54 @@ def _attach_ell_layout(batch: dict, packed: PackedGraphs, window: int, block: in
     batch["loc_ell"] = np.zeros((lb.window, lb.k_blocks), np.int32)
     _attach_pool_layout(batch, packed, lb.window, packed.node_graph)
     _attach_degrees(batch, n)
+
+
+def _attach_local_layout(batch: dict, packed: PackedGraphs) -> None:
+    """The legacy dynamic-window local layout of ``flowgnn_tpu.models.base.
+    as_batch(blocked="local")``: ``senders`` / ``receivers`` / ``edge_attr``
+    re-ordered into the P = NB·128 lanes of ``core.blocking.
+    build_local_blocks`` (pad lanes point at the pad node, attrs 0), then
+    the un-blocked spill tail of LOCAL_SPILL_CAPACITY lanes: the edges that
+    cross a window in edge order, the lanes past them neutralised to the pad
+    node. Also ``loc_ulocal`` / ``loc_vlocal``, the lanes' in-window
+    endpoints, ``loc_window``, each block's window, and the degree tables
+    over every lane. More crossing edges than the tail holds raise
+    ``ValueError``."""
+    from ..core.blocking import build_local_blocks
+
+    n = packed.node_capacity + 1
+    pad = n - 1
+    lb = build_local_blocks(packed.senders, packed.receivers, n, packed.edge_capacity,
+                            window=PALLAS_WINDOW, block=PALLAS_BLOCK,
+                            spill_capacity=LOCAL_SPILL_CAPACITY)
+    s, r, a = _edges_at(packed, lb.edge_perm, lb.valid, pad)
+    # Spill slots past the real ones hold edge 0: neutralise them.
+    sp_s, sp_r, sp_a = _edges_at(packed, lb.spill, np.arange(lb.spill.shape[0]) < lb.spill_count,
+                                 pad)
+    batch["senders"] = np.concatenate([s, sp_s])
+    batch["receivers"] = np.concatenate([r, sp_r])
+    batch["edge_attr"] = np.concatenate([a, sp_a])
+    batch["loc_ulocal"] = lb.u_local
+    batch["loc_vlocal"] = lb.v_local
+    batch["loc_window"] = lb.block_window
+    _attach_degrees(batch, n)
+
+
+def _attach_edge_blocks(batch: dict, packed: PackedGraphs) -> None:
+    """The edge-block layout of ``flowgnn_tpu.models.base.as_batch(
+    blocked=True)``: the edge arrays replaced by their block order (a
+    re-ordering and padding of the edge axis, pad lanes at the pad node),
+    ``blk_vlocal`` each lane's receiver row in its window (sentinel
+    PALLAS_WINDOW on pads) and ``blk_window`` each block's window."""
+    from ..core.blocking import apply_blocking, build_edge_blocks
+
+    n = packed.node_capacity + 1  # with the pad node's row
+    blocks = build_edge_blocks(packed.receivers, n, packed.edge_capacity,
+                               window=PALLAS_WINDOW, block=PALLAS_BLOCK)
+    batch["senders"], batch["receivers"], batch["edge_attr"] = apply_blocking(
+        blocks, packed.senders, packed.receivers, packed.edge_attr, n - 1)
+    batch["blk_vlocal"] = blocks.v_local
+    batch["blk_window"] = blocks.block_window
 
 
 def ell_geometry(batch: dict) -> tuple[int, int]:
@@ -503,28 +561,6 @@ def ell_meta(batch: dict) -> torch.Tensor:
     ], dim=1)
 
 
-# Batch keys of the layouts not ported yet (ROADMAP queue 2 C): the legacy
-# dynamic-window layout (``loc_ulocal`` without ``loc_ell``) and the
-# edge-block layout with its spill blocks. Every model runs the slot and the
-# ELL layout, spill blocks included.
-UNPORTED_LAYOUT_KEYS = ("loc_ulocal", "loc_ell", "blk_vlocal", "spill_blk_vlocal")
-
-
-def reject_unported_layouts(batch: dict) -> None:
-    """Raise ``NotImplementedError`` on a batch in a layout the port does
-    not run yet. The slot layout and the ELL layout pass, each with its
-    spill blocks."""
-    ok = {"spill_blk_vlocal"} if "slot_src" in batch else set()
-    if "loc_ell" in batch:
-        ok |= {"loc_ulocal", "loc_ell", "spill_blk_vlocal"}
-    for key in UNPORTED_LAYOUT_KEYS:
-        if key in batch and key not in ok:
-            raise NotImplementedError(
-                f"batch layout with {key!r} is not ported yet for this model "
-                "(ROADMAP queue 2)"
-            )
-
-
 def batch_signature(batch: dict):
     """Static layout signature of a batch: the sorted (key, shape, dtype)
     tuple."""
@@ -539,7 +575,11 @@ def as_batches_uniform(
     does, reconciled to stream-wide maxima, so that the buckets share one
     layout signature where they can (the blocked spill layout depends on
     each bucket's content). ELL buckets reconcile the spill tail's
-    capacity, when every bucket spills."""
+    capacity, when every bucket spills. The edge-block and legacy local
+    layouts have nothing to reconcile: their shapes follow the packing's
+    capacities alone (the JAX package re-runs ``as_batch`` on legacy local
+    buckets with the tail's fixed capacity pinned, which that layout
+    ignores: the same batches)."""
     mk = lambda b, **kw: as_batch(b, blocked=blocked, window=window, block=block, **kw)
     batches = [mk(b) for b in buckets]
     if len(batches) < 2 or len({batch_signature(b) for b in batches}) == 1:
@@ -640,8 +680,26 @@ def gather_sources(h: torch.Tensor, batch: dict) -> torch.Tensor:
 
 
 def edge_segment_sum(vals: torch.Tensor, batch: dict) -> torch.Tensor:
-    """Per-receiver message sum over the plain edge list."""
-    return segment_sum(vals, batch["receivers"], num_nodes_static(batch))
+    """Per-receiver message sum [n, D'] of the per-edge values [E, D']: the
+    windowed scatter (kernel table row 24) when the batch carries the
+    edge-block layout, whose edge axis is already in block order; a plain
+    segment sum otherwise."""
+    n = num_nodes_static(batch)
+    if "blk_vlocal" in batch:
+        return segment_sum_blocked(vals, batch["blk_vlocal"], batch["blk_window"], n,
+                                   PALLAS_WINDOW)
+    return segment_sum(vals, batch["receivers"], n)
+
+
+def blocked_segment_operands(vals: torch.Tensor, batch: dict) -> dict:
+    """The operands ``edge_segment_sum`` hands ``ops.spmm.
+    windowed_segment_sum`` (through ``segment_sum_blocked``) for the edge
+    values [P, D'] of an edge-block batch: every window of PALLAS_WINDOW
+    rows."""
+    return dict(
+        values=vals, v_local=batch["blk_vlocal"][:, None], block_window=batch["blk_window"],
+        window=PALLAS_WINDOW, num_windows=-(-num_nodes_static(batch) // PALLAS_WINDOW),
+    )
 
 
 def spill_lanes(batch: dict) -> tuple[torch.Tensor, torch.Tensor]:

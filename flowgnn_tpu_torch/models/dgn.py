@@ -149,9 +149,15 @@ def layer_kernel_operands(params: dict, batch: dict, prec: Precision = FLOAT32) 
     wrapper name (also used to check and time the kernels on their own):
     ``dgn_local_layer_slots`` (and the spill scatter with a spill tail) on a
     slot batch; on an ELL batch ``dgn_local_layer_ell`` with no spill tail,
-    ``dgn_local_message_ell`` and the spill scatter with a blocked one."""
+    ``dgn_local_message_ell`` and the spill scatter with a blocked one; on
+    an edge-block batch (``as_batch(blocked=True)``) the windowed scatter of
+    the plain loop's [h_u ‖ (eig_u − eig_v)·h_u]."""
     h = _atom_embed_dgn(params["atom_tables"], batch["node_feat"], prec)
     terms = _node_terms(batch, prec)
+    if "blk_vlocal" in batch:
+        x = gather_sources(h, batch)
+        return {"windowed_segment_sum": _base.blocked_segment_operands(
+            torch.cat([x, terms[1][:, None] * x], dim=1), batch)}
     if "loc_ell" in batch:
         spill = _base.ell_spill(batch)
         ops = ell_layer_operands(params, batch, 0, h, terms, _base.ell_meta(batch), spill)
@@ -185,7 +191,6 @@ def forward(
     """[G+1, 1] predictions (the last row is the pad graph's). ``params``
     as made by ``params.loaders.params_from_numpy``; ``batch`` as made by
     ``models.base.to_device`` from a packing with ``with_eigen=True``."""
-    _base.reject_unported_layouts(batch)
     slots = "slot_src" in batch
     if (
         slots and not batch["slot_spill"].shape[-1] and not return_intermediates

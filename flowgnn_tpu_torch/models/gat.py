@@ -23,33 +23,43 @@ torch; an ELL batch runs the per-layer ELL path
 (``flowgnn_tpu/models/gat.py:355-393, 428-448``): per layer one
 ``gat_local_message_ell`` launch (row 17) for the window-local sums, the
 spill tail's through ``base.ell_spill_segment_sum`` (row 24), and the same
-plain-torch glue; a plain edge-list batch runs the plain loop, the port's
-own oracle. The JAX package picks one of three GAT megakernels by
-environment (``FLOWGNN_GAT_PAIRS``, ``FLOWGNN_GAT_DENSE``); they compute the
-same function, and the port has one kernel for all three.
+plain-torch glue; a plain edge-list batch, and a legacy local batch
+(``blocked="local"``), runs the plain loop, the port's own oracle, and an
+edge-block batch (``blocked=True``) the same loop with its [scored ‖ score]
+sum through the windowed scatter (``base.edge_segment_sum``, row 24). The
+JAX package picks one of three GAT megakernels by environment
+(``FLOWGNN_GAT_PAIRS``, ``FLOWGNN_GAT_DENSE``); they compute the same
+function, and the port has one kernel for all three.
 
-The port reads neither ``FLOWGNN_GAT_FUSE`` nor ``FLOWGNN_GAT_RAWSCORES``.
-Under ``FLOWGNN_GAT_FUSE=1`` the JAX package runs every ELL layer but the
-last through ``gat_local_layer_ell`` (kernel table row 23, not ported yet),
-which moves the divide, skip, ELU, next projection and scores into its
-epilogue: the same function as the port's row 17 and glue, up to rounding.
-``FLOWGNN_GAT_RAWSCORES=1`` hands row 17 per-lane logits computed outside
-the kernel and rounded to the compute dtype; the port computes the scores
-in the kernel, so the two differ by that bf16 rounding only.
+With ``fuse_layers`` (default ``FUSE_LAYERS``, read from
+``FLOWGNN_GAT_FUSE`` when the module is imported, as the JAX module reads
+it) every ELL layer but the last runs ``gat_local_layer_ell`` (row 23)
+instead of row 17 and the glue: the sums, the spill tail's pre-reduced sums,
+the divide, skip projection, ELU and the next layer's projection and scores
+in one launch, in f32 with one rounding at the end, where the unfused path
+rounds at every step, so the two agree to rounding only; the last layer runs
+row 17. The port does not read ``FLOWGNN_GAT_RAWSCORES``, which hands the
+JAX row 17 per-lane logits computed outside the kernel and rounded to the
+compute dtype; the port computes the scores in the kernel, so the two differ
+by that bf16 rounding only.
 """
 
 from __future__ import annotations
+
+import os
 
 import torch
 
 from ..core.numerics import FLOAT32, Precision
 from ..ops.local_layer import (
-    gat_local_message_ell, gat_local_message_slots, gat_local_model_slots,
+    gat_local_layer_ell, gat_local_message_ell, gat_local_message_slots, gat_local_model_slots,
 )
 from . import base as _base
 from .base import acc_dtype, edge_segment_sum, linear, mean_pool
 
 LEAKY_SLOPE = 0.2
+# The default of ``forward``'s ``fuse_layers``: the fused ELL layer (row 23).
+FUSE_LAYERS = os.environ.get("FLOWGNN_GAT_FUSE", "0") == "1"
 
 
 def _project(w_l: torch.Tensor, x: torch.Tensor, prec: Precision) -> torch.Tensor:
@@ -92,10 +102,7 @@ def slot_kernel_operands(params: dict, batch: dict, prec: Precision = FLOAT32) -
     prev = _raw_features(params, batch, prec)
     right = lambda w: w.reshape(-1, hd, hd).transpose(1, 2).reshape(-1, hd).contiguous()
     skip0 = prev.reshape(n, hd).to(acc_dtype(prec)) @ right(params["skip_w"][0]).to(acc_dtype(prec))
-    # Per layer the block-diagonal [HD, 2H] maps h → [s_src ‖ s_tgt].
-    eye = torch.eye(H, dtype=dt, device=prev.device)
-    amap = lambda a: (a[:, :, :, None] * eye[None, :, None, :]).reshape(L, hd, H)
-    a_all = torch.cat([amap(params["a_src"]), amap(params["a_tgt"])], dim=2)
+    a_all = _score_maps(params, dt)
     return dict(
         slot_pstack=batch["slot_pstack"],
         h0=_project(params["proj_w"][0], prev, prec).reshape(n, hd),
@@ -109,6 +116,14 @@ def slot_kernel_operands(params: dict, batch: dict, prec: Precision = FLOAT32) -
         window=window, slots=n_slots, num_heads=H, num_layers=L,
         gmax=_base.POOL_GMAX, prefix_caps=_base.slot_prefix_caps(batch, n_slots),
     )
+
+
+def _score_maps(params: dict, dt: torch.dtype) -> torch.Tensor:
+    """[L, H·D, 2H]: per layer the block-diagonal map h → [s_src ‖ s_tgt]."""
+    L, H, D = params["proj_w"].shape[:3]
+    eye = torch.eye(H, dtype=dt, device=params["a_src"].device)
+    amap = lambda a: (a[:, :, :, None] * eye[None, :, None, :]).reshape(L, H * D, H)
+    return torch.cat([amap(params["a_src"]), amap(params["a_tgt"])], dim=2)
 
 
 def _leaky_exp(raw: torch.Tensor) -> torch.Tensor:
@@ -200,18 +215,50 @@ def _ell_message(h: torch.Tensor, s_src: torch.Tensor, s_tgt: torch.Tensor, batc
     return _softmax_message(both, s_src.shape[1])
 
 
-def layer_kernel_operands(params: dict, batch: dict, prec: Precision = FLOAT32) -> dict:
+def fused_layer_operands(params: dict, batch: dict, l: int, h: torch.Tensor,
+                         s_src: torch.Tensor, s_tgt: torch.Tensor, prev: torch.Tensor,
+                         meta: torch.Tensor, spill, a_all: torch.Tensor) -> dict:
+    """The keyword operands the fused ELL path hands ``gat_local_layer_ell``
+    for the non-final layer ``l``: h, ``prev`` [n, H, D] and the scores of
+    this layer, ``meta`` and ``spill`` as in ``_ell_message``, ``a_all`` as
+    ``_score_maps`` gives it. ``spill_both`` is the spill tail's [Σ score·h_u
+    ‖ Σ score] per node, or None without a tail."""
+    n = h.shape[0]
+    hd = h.shape[1] * h.shape[2]
+    sp_both = None
+    if spill is not None:
+        sp_both = _base.ell_spill_segment_sum(spill_values(h, s_src, s_tgt, *spill), batch)
+    return dict(
+        ell_meta=meta, h=h.reshape(n, hd), s_src=s_src.contiguous(), s_tgt=s_tgt.contiguous(),
+        prev=prev.reshape(n, hd), spill_both=sp_both,
+        w_skip=params["skip_w"][l].reshape(hd, hd), w_proj=params["proj_w"][l + 1].reshape(hd, hd),
+        a_mat=a_all[l + 1], window=_base.ell_geometry(batch)[0], num_heads=s_src.shape[1],
+    )
+
+
+def layer_kernel_operands(params: dict, batch: dict, prec: Precision = FLOAT32,
+                          fuse_layers: bool = False) -> dict:
     """Layer 0's keyword operands of the kernels the per-layer paths run, by
     wrapper name (also used to check and time the kernels on their own):
     ``gat_local_message_slots`` on a slot batch, ``gat_local_message_ell``
-    on an ELL batch, each with the spill scatter when the batch has a
-    blocked spill tail."""
-    h = _project(params["proj_w"][0], _raw_features(params, batch, prec), prec)
+    on an ELL batch (``gat_local_layer_ell`` with ``fuse_layers``), each
+    with the spill scatter when the batch has a blocked spill tail; the
+    windowed scatter of [scored ‖ score] on an edge-block batch."""
+    prev = _raw_features(params, batch, prec)
+    h = _project(params["proj_w"][0], prev, prec)
     s_src, s_tgt = _scores(h, params["a_src"][0]), _scores(h, params["a_tgt"][0])
+    if "blk_vlocal" in batch:
+        u, v = batch["senders"].long(), batch["receivers"].long()
+        vals = _scored(h.reshape(h.shape[0], -1)[u], _leaky_exp(s_src[v] + s_tgt[u]))
+        return {"windowed_segment_sum": _base.blocked_segment_operands(vals, batch)}
     if "loc_ell" in batch:
-        out = {"gat_local_message_ell": ell_message_operands(h, s_src, s_tgt, batch,
-                                                             _base.ell_meta(batch))}
-        spill = ell_spill_lanes(batch)
+        meta, spill = _base.ell_meta(batch), ell_spill_lanes(batch)
+        if fuse_layers:
+            out = {"gat_local_layer_ell": fused_layer_operands(
+                params, batch, 0, h, s_src, s_tgt, prev, meta, spill,
+                _score_maps(params, prec.compute_dtype))}
+        else:
+            out = {"gat_local_message_ell": ell_message_operands(h, s_src, s_tgt, batch, meta)}
     else:
         out = {"gat_local_message_slots": message_operands(h, s_src, s_tgt, batch)}
         spill = None
@@ -228,11 +275,15 @@ def forward(
     batch: dict,
     prec: Precision = FLOAT32,
     return_intermediates: bool = False,
+    fuse_layers: bool | None = None,
 ):
     """[G+1, 1] predictions (the last row is the pad graph's). ``params``
     as made by ``params.loaders.params_from_numpy``; ``batch`` as made by
-    ``models.base.to_device``."""
-    _base.reject_unported_layouts(batch)
+    ``models.base.to_device``. ``fuse_layers`` (None: the module's
+    ``FUSE_LAYERS``) runs every layer but the last of an ELL batch through
+    ``gat_local_layer_ell``; any other batch ignores it."""
+    if fuse_layers is None:
+        fuse_layers = FUSE_LAYERS
     slots = "slot_src" in batch
     if (
         slots and not batch["slot_spill"].shape[-1] and not return_intermediates
@@ -241,18 +292,33 @@ def forward(
         pool = gat_local_model_slots(**slot_kernel_operands(params, batch, prec))
         return _base.pool_finish(pool, batch, params["pred_b"], prec)
 
-    L, H = params["proj_w"].shape[:2]
+    L, H, D = params["proj_w"].shape[:3]
+    hd = H * D
     prev = _raw_features(params, batch, prec)
     h = _project(params["proj_w"][0], prev, prec)  # [n, head, dim]
     lanes = _base.spill_lanes(batch) if slots and batch["slot_spill"].shape[-1] else None
     ell = "loc_ell" in batch
+    fuse = ell and fuse_layers
     if ell:
         meta, spill = _base.ell_meta(batch), ell_spill_lanes(batch)
+    if fuse:
+        a_all = _score_maps(params, prec.compute_dtype)
     u, v = batch["senders"].long(), batch["receivers"].long()
     inter = [h]
+    scores = None  # the fused layer's scores of the next layer
     for l in range(L):
-        s_src = _scores(h, params["a_src"][l])
-        s_tgt = _scores(h, params["a_tgt"][l])
+        if scores is None:
+            scores = _scores(h, params["a_src"][l]), _scores(h, params["a_tgt"][l])
+        (s_src, s_tgt), scores = scores, None
+        if fuse and l != L - 1:
+            n = h.shape[0]
+            out = gat_local_layer_ell(**fused_layer_operands(
+                params, batch, l, h, s_src, s_tgt, prev, meta, spill, a_all))
+            h = out[:, :hd].contiguous().reshape(n, H, D)
+            prev = out[:, hd : 2 * hd].contiguous().reshape(n, H, D)
+            scores = out[:, 2 * hd : 2 * hd + H].contiguous(), out[:, 2 * hd + H :].contiguous()
+            inter.append(h)
+            continue
         if slots:
             msg = _slot_message(h, s_src, s_tgt, batch, lanes)
         elif ell:

@@ -158,10 +158,18 @@ def layer_kernel_operands(params: dict, batch: dict, prec: Precision = FLOAT32) 
     on an ELL batch, by wrapper name: ``gcn_local_layer_ell`` with no spill
     tail, ``gcn_local_message_ell`` and the spill scatter
     ``windowed_segment_sum`` with a blocked one (also used to check and time
-    the kernels on their own)."""
-    terms = _ell_terms(params, batch, prec)
+    the kernels on their own). On an edge-block batch
+    (``as_batch(blocked=True)``): the windowed scatter of the plain loop's
+    normalised messages."""
     h = linear(atom_embed(params["node_embedding"], batch["node_feat"], prec),
                params["conv_w"][0], params["conv_b"][0], prec)
+    if "blk_vlocal" in batch:
+        dis = 1.0 / torch.sqrt(out_degree(batch).to(prec.compute_dtype) + 1)
+        norm = (dis[batch["senders"].long()] * dis[batch["receivers"].long()])[:, None]
+        ee = bond_embed(params["edge_embedding"][0], batch["edge_attr"], prec)
+        return {"windowed_segment_sum": _base.blocked_segment_operands(
+            norm * relu(gather_sources(h, batch) + ee), batch)}
+    terms = _ell_terms(params, batch, prec)
     ops = _layer_operands(params, batch, prec, 0, h, terms)
     if terms["spill"] is None:
         return {"gcn_local_layer_ell": ops}
@@ -204,7 +212,6 @@ def forward(
     """[G+1, 1] predictions (the last row is the pad graph's). ``params``
     as made by ``params.loaders.params_from_numpy``; ``batch`` as made by
     ``models.base.to_device``."""
-    _base.reject_unported_layouts(batch)
     ell = "loc_ell" in batch
     if ell and _base.ell_megakernel(batch, return_intermediates):
         pool = gcn_local_model(**ell_kernel_operands(params, batch, prec))

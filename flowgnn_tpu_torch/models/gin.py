@@ -11,16 +11,28 @@ GIN-VN runs the same program over graphs with an analytic virtual node
 per-graph pooled sum plus a per-graph broadcast (``_vn_message`` here, the
 VN stage inside the slot megakernel).
 
-Four branches: a slot batch (``as_batch(blocked="local_slots")``) runs the
+Six branches: a slot batch (``as_batch(blocked="local_slots")``) runs the
 whole model in one ``gin_local_model_slots`` launch, an ELL batch
 (``blocked="local_ell"``) with one edge block per window, no spill tail and
 the pooling layout in one ``gin_local_model`` launch, every other ELL batch
 (k > 1, a spill tail, no ``pool_gl``, ``return_intermediates``) the
-per-layer ELL path, and a plain edge-list batch the plain torch path, the
-port's own end-to-end oracle. A slot batch the megakernel does not take (a
-spill tail, no ``pool_gl``, ``return_intermediates``) runs the plain path on
-its own edge list, as the JAX package's dispatch falls through to its plain
-loop.
+per-layer ELL path, a legacy local batch (``blocked="local"``) one
+``gin_local_layer`` launch per layer (kernel table row 10), an edge-block
+batch (``blocked=True``) the plain loop with its message sum through the
+windowed scatter (``base.edge_segment_sum``, row 24) or, with ``fused=True``
+and no virtual node, one ``gin_layer_fused`` launch per layer (row 25: the
+sum and the MLP in one kernel), and a plain edge-list batch the plain torch
+path, the port's own end-to-end oracle. A slot batch the megakernel does
+not take (a spill tail, no ``pool_gl``, ``return_intermediates``) runs the
+plain path on its own edge list, as the JAX package's dispatch falls
+through to its plain loop.
+
+The legacy local path (``flowgnn_tpu/models/gin.py:269-290``): per layer the
+bond embeddings of every lane (``bond_embed`` over the blocked edge order),
+the un-blocked spill tail's messages summed per node by a plain
+``segment_sum``, even when nothing spills, GIN-VN's VN messages folded into
+that sum, and one ``gin_local_layer`` launch for the window-local messages
+and the MLP.
 
 The per-layer ELL path (``flowgnn_tpu/models/gin.py:192-268``, without its
 halo branch): per layer the spill tail's messages relu(h_u + ee) are
@@ -41,7 +53,10 @@ from typing import Optional
 import torch
 
 from ..core.numerics import FLOAT32, Precision
-from ..ops.local_layer import gin_local_layer_ell, gin_local_model, gin_local_model_slots
+from ..ops.fused_layer import gin_layer_fused
+from ..ops.local_layer import (
+    gin_local_layer, gin_local_layer_ell, gin_local_model, gin_local_model_slots,
+)
 from ..ops.segment import segment_sum
 from . import base as _base
 from .base import (
@@ -80,6 +95,12 @@ def _eps(params: dict, prec: Precision, fpga_eps: bool) -> torch.Tensor:
     return params["eps"]
 
 
+def eps1_all(params: dict, prec: Precision, fpga_eps: bool = True) -> torch.Tensor:
+    """[L, 1] 1 + ε per layer in the accumulation dtype, as the kernels take
+    it."""
+    return (1.0 + _eps(params, prec, fpga_eps)).to(acc_dtype(prec)).reshape(-1, 1)
+
+
 def _model_operands(params: dict, batch: dict, prec: Precision, fpga_eps: bool) -> dict:
     """The whole-model kernels' operands other than the layout's."""
     dt = prec.compute_dtype
@@ -92,7 +113,7 @@ def _model_operands(params: dict, batch: dict, prec: Precision, fpga_eps: bool) 
         b1_all=params["mlp1_b"],
         w2_all=params["mlp2_w"].reshape(L * d, hid),
         b2_all=params["mlp2_b"],
-        eps_all=(1.0 + _eps(params, prec, fpga_eps)).to(acc_dtype(prec)).reshape(L, 1),
+        eps_all=eps1_all(params, prec, fpga_eps),
         pred_w=params["pred_w"].T.to(dt).contiguous(),
         num_layers=L, gmax=_base.POOL_GMAX,
         vn_col=batch["vn_mask"].to(dt) if "vn_mask" in batch else None,
@@ -121,15 +142,17 @@ def ell_kernel_operands(params: dict, batch: dict, prec: Precision = FLOAT32,
     )
 
 
-def _ell_layer_operands(params: dict, batch: dict, prec: Precision, l: int, h: torch.Tensor,
-                        meta: torch.Tensor, spill: Optional[tuple],
-                        eps_all: torch.Tensor) -> dict:
+def ell_layer_operands(params: dict, batch: dict, prec: Precision, l: int, h: torch.Tensor,
+                       meta: torch.Tensor, spill: Optional[tuple],
+                       eps_all: torch.Tensor, lane_ee: bool = False) -> dict:
     """The keyword operands the per-layer ELL path hands
     ``gin_local_layer_ell`` for layer ``l`` and its input ``h``: ``meta`` is
     ``base.ell_meta(batch)``, ``spill`` is ``base.ell_spill(batch)``,
-    ``eps_all`` the [L, 1] 1+ε. ``m_spill`` is the spill tail's messages
-    summed per node plus GIN-VN's VN messages, or None when there are
-    neither."""
+    ``eps_all`` the [L, 1] 1+ε as ``eps1_all`` gives it. ``m_spill`` is the
+    spill tail's messages summed per node plus GIN-VN's VN messages, or None
+    when there are neither. With ``lane_ee`` the bond embedding goes in per
+    ELL lane (``ee``, from ``bond_embed``, rounded to the compute dtype) and
+    not as the layer's table, so the layer runs the per-lane kernel."""
     table = params["edge_embedding"][l]
     m_spill = None
     if spill is not None:
@@ -137,24 +160,77 @@ def _ell_layer_operands(params: dict, batch: dict, prec: Precision, l: int, h: t
     if "vn_mask" in batch:
         vn = _vn_message(h, table, batch, prec)
         m_spill = vn if m_spill is None else (m_spill + vn).to(h.dtype)
-    return dict(
+    ops = dict(
         ell_meta=meta, h=h, m_spill=m_spill, ee_table=table.to(prec.compute_dtype),
+        window=_base.ell_geometry(batch)[0], **_mlp_operands(params, l, eps_all),
+    )
+    if lane_ee:
+        lanes = batch["loc_ulocal"].shape[0]
+        ops.update(ee_table=None, ee=bond_embed(table, batch["edge_attr"][:lanes], prec))
+    return ops
+
+
+def _mlp_operands(params: dict, l: int, eps_all: torch.Tensor) -> dict:
+    """Layer ``l``'s MLP operands of the per-layer GIN kernels."""
+    return dict(
         w1=params["mlp1_w"][l], b1=params["mlp1_b"][l], w2=params["mlp2_w"][l],
-        b2=params["mlp2_b"][l], eps1=eps_all[l : l + 1], window=_base.ell_geometry(batch)[0],
+        b2=params["mlp2_b"][l], eps1=eps_all[l : l + 1],
         final_relu=l != params["mlp1_w"].shape[0] - 1,
     )
 
 
+def _local_layer_operands(params: dict, batch: dict, prec: Precision, l: int, h: torch.Tensor,
+                          ee: torch.Tensor, eps_all: torch.Tensor) -> dict:
+    """The keyword operands the legacy local path hands ``gin_local_layer``
+    for layer ``l`` and its input ``h``; ``ee`` is the layer's bond
+    embedding of every lane, the spill tail's included. ``m_spill`` is the
+    tail's messages summed per node (a plain segment sum; pad lanes sit at
+    the pad node, whose row nothing reads) plus GIN-VN's VN messages."""
+    p = batch["loc_ulocal"].shape[0]
+    u, v = batch["senders"][p:].long(), batch["receivers"][p:]
+    m_spill = segment_sum(relu(h[u] + ee[p:]), v, _base.num_nodes_static(batch))
+    if "vn_mask" in batch:
+        m_spill = (m_spill + _vn_message(h, params["edge_embedding"][l], batch, prec)).to(h.dtype)
+    return dict(
+        ee=ee[:p], u_local=batch["loc_ulocal"], v_local=batch["loc_vlocal"],
+        block_window=batch["loc_window"], h=h, m_spill=m_spill, window=_base.PALLAS_WINDOW,
+        **_mlp_operands(params, l, eps_all),
+    )
+
+
+def _fused_layer_operands(params: dict, batch: dict, l: int, h: torch.Tensor, msg: torch.Tensor,
+                          eps_all: torch.Tensor) -> dict:
+    """The keyword operands the fused edge-block path hands
+    ``gin_layer_fused`` for layer ``l``: ``msg`` is relu(h_u + ee) per lane
+    of the blocked edge order."""
+    return dict(
+        vals=msg, v_local=batch["blk_vlocal"], block_window=batch["blk_window"], h=h,
+        window=_base.PALLAS_WINDOW, **_mlp_operands(params, l, eps_all),
+    )
+
+
 def layer_kernel_operands(params: dict, batch: dict, prec: Precision = FLOAT32,
-                          fpga_eps: bool = True) -> dict:
-    """Layer 0's keyword operands of the kernels the per-layer ELL path runs
-    on an ELL batch, by wrapper name: ``gin_local_layer_ell``, and the spill
-    scatter ``windowed_segment_sum`` when the batch has a blocked spill tail
-    (also used to check and time the kernels on their own)."""
+                          fpga_eps: bool = True, fused: bool = False) -> dict:
+    """Layer 0's keyword operands of the kernels a per-layer path runs, by
+    wrapper name (also used to check and time the kernels on their own): on
+    an ELL batch ``gin_local_layer_ell``, and the spill scatter
+    ``windowed_segment_sum`` when the batch has a blocked spill tail; on a
+    legacy local batch ``gin_local_layer``; on an edge-block batch the
+    windowed scatter of the messages, or with ``fused`` (and no virtual
+    node) ``gin_layer_fused``."""
     h = atom_embed(params["node_embedding"], batch["node_feat"], prec)
+    eps_all = eps1_all(params, prec, fpga_eps)
+    if "loc_ell" not in batch:
+        ee = bond_embed(params["edge_embedding"][0], batch["edge_attr"], prec)
+        if "loc_ulocal" in batch:
+            return {"gin_local_layer": _local_layer_operands(params, batch, prec, 0, h, ee,
+                                                             eps_all)}
+        msg = relu(gather_sources(h, batch) + ee)
+        if fused and "vn_mask" not in batch:
+            return {"gin_layer_fused": _fused_layer_operands(params, batch, 0, h, msg, eps_all)}
+        return {"windowed_segment_sum": _base.blocked_segment_operands(msg, batch)}
     spill = _base.ell_spill(batch)
-    eps_all = (1.0 + _eps(params, prec, fpga_eps)).to(acc_dtype(prec)).reshape(-1, 1)
-    out = {"gin_local_layer_ell": _ell_layer_operands(
+    out = {"gin_local_layer_ell": ell_layer_operands(
         params, batch, prec, 0, h, _base.ell_meta(batch), spill, eps_all)}
     if spill is not None and "spill_blk_vlocal" in batch:
         msg = _base.spill_messages(h, params["edge_embedding"][0], spill, prec)
@@ -168,12 +244,16 @@ def forward(
     prec: Precision = FLOAT32,
     fpga_eps: bool = True,
     return_intermediates: bool = False,
+    fused: bool = False,
 ):
     """[G+1, T] predictions (the last row is the pad graph's). ``params``
     as made by ``params.loaders.params_from_numpy``; ``batch`` as made by
-    ``models.base.to_device``."""
-    _base.reject_unported_layouts(batch)
+    ``models.base.to_device``. ``fused`` runs each layer's message sum and
+    MLP in one kernel on an edge-block batch without a virtual node (the JAX
+    package's predicate; any other batch ignores it)."""
     ell = "loc_ell" in batch
+    local = "loc_ulocal" in batch and not ell
+    fused = fused and "blk_vlocal" in batch and "vn_mask" not in batch
     if ell and _base.ell_megakernel(batch, return_intermediates):
         pool = gin_local_model(**ell_kernel_operands(params, batch, prec, fpga_eps))
         return _base.pool_finish(pool, batch, params["pred_b"], prec)
@@ -186,17 +266,26 @@ def forward(
     h = atom_embed(params["node_embedding"], batch["node_feat"], prec)
     inter = [h]
     vn = "vn_mask" in batch
+    if ell or local or fused:
+        eps_all = eps1_all(params, prec, fpga_eps)
     if ell:
         meta, spill = _base.ell_meta(batch), _base.ell_spill(batch)
-        eps_all = (1.0 + eps).to(acc_dtype(prec)).reshape(L, 1)
     for l in range(L):
         if ell:
-            h = gin_local_layer_ell(**_ell_layer_operands(params, batch, prec, l, h, meta,
-                                                          spill, eps_all))
+            h = gin_local_layer_ell(**ell_layer_operands(params, batch, prec, l, h, meta,
+                                                         spill, eps_all))
             inter.append(h)
             continue
         ee = bond_embed(params["edge_embedding"][l], batch["edge_attr"], prec)
+        if local:
+            h = gin_local_layer(**_local_layer_operands(params, batch, prec, l, h, ee, eps_all))
+            inter.append(h)
+            continue
         msg = relu(gather_sources(h, batch) + ee)
+        if fused:
+            h = gin_layer_fused(**_fused_layer_operands(params, batch, l, h, msg, eps_all))
+            inter.append(h)
+            continue
         agg = edge_segment_sum(msg, batch)
         if vn:
             agg = agg + _vn_message(h, params["edge_embedding"][l], batch, prec)

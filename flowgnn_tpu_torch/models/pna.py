@@ -147,8 +147,14 @@ def layer_kernel_operands(params: dict, batch: dict, prec: Precision = FLOAT32) 
     """Layer 0's keyword operands of the kernels the per-layer slot path
     runs, by wrapper name (also used to check and time the kernels on their
     own): ``pna_local_layer`` on a slot batch with no spill tail,
-    ``pna_local_stats_ell`` and the spill scatter on one with a tail."""
+    ``pna_local_stats_ell`` and the spill scatter on one with a tail; on an
+    edge-block batch (``as_batch(blocked=True)``) the windowed scatter of
+    the plain loop's [h_u ‖ h_u²]."""
     h = _base.atom_embed(params["node_embedding"], batch["node_feat"], prec)
+    if "blk_vlocal" in batch:
+        x = gather_sources(h, batch)
+        return {"windowed_segment_sum": _base.blocked_segment_operands(
+            torch.cat([x, x * x], dim=1), batch)}
     if not batch["slot_spill"].shape[-1]:
         return {"pna_local_layer": layer_operands(params, batch, 0, h,
                                                   _degree_terms(params, batch, prec))}
@@ -168,7 +174,6 @@ def forward(
     """[G+1, 1] predictions (the last row is the pad graph's). ``params``
     as made by ``params.loaders.params_from_numpy``; ``batch`` as made by
     ``models.base.to_device``."""
-    _base.reject_unported_layouts(batch)
     slots = "slot_src" in batch
     no_spill = slots and not batch["slot_spill"].shape[-1]
     if no_spill and not return_intermediates and "pool_gl" in batch:

@@ -2,7 +2,8 @@
 
 Each ``csrc/<name>.cu`` exposes a plain C interface and compiles with
 ``nvcc`` for sm_90a into ``flowgnn_tpu_torch/_build/<name>-<hash>.so``, keyed
-by a hash of the source and the flags, so an edited source rebuilds. The
+by a hash of the source, the shared headers (``csrc/*.cuh``) and the flags,
+so an edited source rebuilds. The
 compiler's output (``-Xptxas -v``: registers, shared memory, spills) is kept
 beside the library as ``<name>-<hash>.log``. A failed build raises.
 ``build_libraries`` compiles several sources in parallel. Nothing is built
@@ -43,6 +44,8 @@ def nvcc_path() -> str:
 def library_path(name: str) -> Path:
     """Where ``csrc/<name>.cu`` builds to under the current source and flags."""
     src = (CSRC_DIR / f"{name}.cu").read_bytes()
+    for header in sorted(CSRC_DIR.glob("*.cuh")):
+        src += header.read_bytes()
     digest = hashlib.sha256(src + "\0".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"{name}-{digest[:16]}.so"
 

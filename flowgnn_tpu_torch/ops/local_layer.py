@@ -55,9 +55,28 @@ per 128 rows; h stays in device memory between layers:
   ``dgn_local_message_ell``: DGN's two message channels, for the caller to
   merge a spill tail (two kernels of ``csrc/dgn_local_layer_ell.cu``);
 - ``gat_local_message_ell``: GAT's softmax sums, for the caller to merge a
-  spill tail and divide (``csrc/gat_local_message_ell.cu``).
+  spill tail and divide (``csrc/gat_local_message_ell.cu``);
+- ``gat_local_layer_ell``: a whole non-final GAT layer, the softmax sums,
+  the spill tail's pre-reduced ``spill_both``, the divide, skip projection,
+  ELU and the next layer's projection and scores
+  (``csrc/gat_local_layer_ell.cu``);
+- ``gin_local_layer_ell_lanes``: ``gin_local_layer_ell`` with each lane's
+  bond embedding given from outside instead of summed from the table in the
+  kernel (TPU ``local_scatter_apply_ell``; ``gin_local_layer_ell(ee=...)``
+  reaches it).
 
-The spill tail's scatter is ``ops.spmm.windowed_segment_sum``.
+Over the legacy dynamic-window local layout (``as_batch(blocked="local")``:
+a window owns as many 128-lane blocks as its edges need, ``block_window``
+names each block's window):
+
+- ``gin_local_layer``: a whole GIN / GIN-VN layer with per-lane bond
+  embeddings (TPU ``local_scatter_apply`` with the ``gin_local_layer``
+  epilogue). It and ``gin_local_layer_ell_lanes`` are one kernel
+  (``csrc/gin_local_layer_blocks.cu``): the same function, and the ELL grid
+  is the case where every window owns the same number of lanes.
+
+The spill tail's scatter is ``ops.spmm.windowed_segment_sum``; the fused
+edge-block layer ``gin_layer_fused`` is in ``ops.fused_layer``.
 
 On a CUDA tensor a wrapper launches its hand-written kernel, or raises; on a
 CPU tensor it runs its ``_ref``, the same function in plain torch, which the
@@ -90,7 +109,8 @@ LIBRARIES = (
     "gcn_local_model", "pna_local_stats_slots", "dgn_local_layer_slots",
     "gat_local_message_slots", "windowed_segment_sum", "gin_local_layer_ell",
     "gcn_local_message_ell", "gcn_local_layer_ell", "pna_local_layer_slots",
-    "dgn_local_layer_ell", "gat_local_message_ell",
+    "dgn_local_layer_ell", "gat_local_message_ell", "gin_local_layer_blocks",
+    "gin_layer_fused", "gat_local_layer_ell",
 )
 
 
@@ -794,9 +814,17 @@ def gin_local_layer_ell_ref(
     rounds to h's dtype; products and sums run in f32 (f64 for f64 inputs).
     ``m_spill=None`` adds nothing."""
     cdt = h.dtype
-    n = h.shape[0]
     (gather, u_ok, _, accumulate), hf, ee, acc = _ell_layer_inputs(ell_meta, h, ee_table, window)
     agg = accumulate(_relu(hf[gather] * u_ok + ee).to(cdt).to(acc))
+    return gin_epilogue(agg, hf, m_spill, w1, b1, w2, b2, eps1, final_relu, cdt)[: h.shape[0]]
+
+
+def gin_epilogue(agg, hf, m_spill, w1, b1, w2, b2, eps1, final_relu, cdt) -> torch.Tensor:
+    """The per-layer GIN kernels' epilogue over the padded rows: ``agg`` the
+    f32 message sums, ``hf`` the layer input, both [NW·W, D] in the
+    accumulation dtype; act = rnd(agg + m_spill + (1+ε)·h), z = rnd(relu(
+    act·w1ᵀ + b1)), out = rnd(z·w2ᵀ + b2) with a ReLU when ``final_relu``."""
+    acc = agg.dtype
     if m_spill is not None:
         agg = agg + _padded(m_spill.to(acc), hf.shape[0])
     act = (agg + eps1.reshape(()).to(acc) * hf).to(cdt).to(acc)
@@ -804,7 +832,89 @@ def gin_local_layer_ell_ref(
     out = z @ w2.to(acc).T + b2.to(acc)
     if final_relu:
         out = _relu(out)
-    return out[:n].to(cdt)
+    return out.to(cdt)
+
+
+def lane_rows(local: torch.Tensor, lane_window: torch.Tensor, window: int):
+    """(each lane's row over the padded node axis, whether its in-window
+    index lies in [0, W)) for in-window indices ``local`` [P] of lanes whose
+    windows are ``lane_window`` [P]."""
+    local = local.long()
+    ok = (local >= 0) & (local < window)
+    return lane_window * window + local.clamp(0, window - 1), ok
+
+
+def _gin_layer_lanes(ee, u_local, v_local, lane_window, h, m_spill, w1, b1, w2, b2, eps1,
+                     window, final_relu) -> torch.Tensor:
+    """One GIN layer over lanes that carry their bond embedding ``ee`` [P,
+    D], their in-window endpoints and their window ``lane_window`` [P]: per
+    window row v over its lanes u → v in lane order, acc = Σ rnd(relu(h_u +
+    ee)) in f32, then ``gin_epilogue``. A lane whose u lies outside [0, W)
+    reads a zero source and one whose v does lands nowhere."""
+    cdt = h.dtype
+    acc = _acc_dtype(cdt)
+    rows = -(-h.shape[0] // window) * window
+    hf = _padded(h, rows).to(acc)
+    gather, u_ok = lane_rows(u_local, lane_window, window)
+    dest, v_ok = lane_rows(v_local, lane_window, window)
+    msg = _relu(hf[gather] * u_ok[:, None].to(acc) + ee.to(acc)).to(cdt).to(acc)
+    agg = torch.zeros(rows, h.shape[1], dtype=acc, device=h.device)
+    agg.index_add_(0, dest[v_ok], msg[v_ok])
+    return gin_epilogue(agg, hf, m_spill, w1, b1, w2, b2, eps1, final_relu, cdt)[: h.shape[0]]
+
+
+def block_lane_windows(block_window: torch.Tensor, lanes: int) -> torch.Tensor:
+    """Each lane's window, for ``lanes`` lanes in equal blocks whose windows
+    are ``block_window`` [NB]."""
+    return block_window.long().repeat_interleave(lanes // block_window.shape[0])
+
+
+def gin_local_layer_ref(
+    ee: torch.Tensor,  # [P, D] per-lane bond embeddings, P = NB·block
+    u_local: torch.Tensor,  # [P] int in-window source (sentinel ``window`` on pads)
+    v_local: torch.Tensor,  # [P] int in-window destination (sentinel on pads)
+    block_window: torch.Tensor,  # [NB] int each block's window, non-decreasing
+    h: torch.Tensor,  # [n, D] layer input
+    m_spill: Optional[torch.Tensor],  # [n, D] spill tail's (and VN) messages, or None
+    w1: torch.Tensor,  # [H, D]
+    b1: torch.Tensor,  # [H]
+    w2: torch.Tensor,  # [D, H]
+    b2: torch.Tensor,  # [D]
+    eps1: torch.Tensor,  # [1, 1] 1+ε, float32 (float64 for f64 h)
+    window: int,
+    final_relu: bool,
+) -> torch.Tensor:
+    """Plain-torch ``gin_local_layer``: one whole GIN / GIN-VN layer over the
+    legacy dynamic-window local layout, the next h [n, D] in h's dtype. As
+    ``gin_local_layer_ell_ref``, with each lane's bond embedding given (in
+    h's dtype, where that kernel sums the table rows in f32) and each
+    block's window named by ``block_window``."""
+    lane_window = block_lane_windows(block_window, ee.shape[0])
+    return _gin_layer_lanes(ee, u_local, v_local, lane_window, h, m_spill, w1, b1, w2, b2, eps1,
+                            window, final_relu)
+
+
+def gin_local_layer_ell_lanes_ref(
+    ee: torch.Tensor,  # [NW·k·B, D] per-lane bond embeddings
+    ell_meta: torch.Tensor,  # [NW·k·B, 5] int (u_local, v_local, three unused)
+    h: torch.Tensor,  # [n, D] layer input
+    m_spill: Optional[torch.Tensor],
+    w1: torch.Tensor,
+    b1: torch.Tensor,
+    w2: torch.Tensor,
+    b2: torch.Tensor,
+    eps1: torch.Tensor,
+    window: int,
+    final_relu: bool,
+) -> torch.Tensor:
+    """Plain-torch ``gin_local_layer_ell_lanes``: ``gin_local_layer_ell_ref``
+    with each lane's bond embedding given in h's dtype instead of summed
+    from the table (the JAX ``gin_local_layer_ell`` without ``edge_attr``).
+    Every window owns the same number of lanes."""
+    nw = -(-h.shape[0] // window)
+    lane_window = block_lane_windows(torch.arange(nw, device=h.device), ee.shape[0])
+    return _gin_layer_lanes(ee, ell_meta[:, 0], ell_meta[:, 1], lane_window, h, m_spill, w1, b1,
+                            w2, b2, eps1, window, final_relu)
 
 
 def _gcn_ell_message(ell_meta, h, dis, ee_table, window):
@@ -940,6 +1050,12 @@ def gat_local_message_ell_ref(
     nothing, whatever its score: it is skipped, where the TPU kernel
     multiplies its exp by the lane's validity. Sums run in f32 (f64 for f64
     inputs)."""
+    return _gat_ell_sums(ell_meta, h, s_src, s_tgt, window, num_heads)[: h.shape[0]].to(h.dtype)
+
+
+def _gat_ell_sums(ell_meta, h, s_src, s_tgt, window, num_heads) -> torch.Tensor:
+    """The f32 sums [NW·W, H·D + H] of rows 17 and 23, before any rounding
+    of the sums themselves (see ``gat_local_message_ell_ref``)."""
     cdt = h.dtype
     acc = _acc_dtype(cdt)
     n, hd = h.shape
@@ -955,7 +1071,43 @@ def gat_local_message_ell_ref(
     score = torch.exp(torch.where(raw < 0, raw * 0.2, raw))
     both = torch.cat([score.repeat_interleave(hd // num_heads, dim=1) * hf[gather] * u_ok, score],
                      dim=1)
-    return accumulate(both.to(cdt).to(acc))[:n].to(cdt)
+    return accumulate(both.to(cdt).to(acc))
+
+
+def gat_local_layer_ell_ref(
+    ell_meta: torch.Tensor,  # [NW·k·B, 5] int (u_local, v_local, attrs+offsets)
+    h: torch.Tensor,  # [n, H·D] projected features, head-major
+    s_src: torch.Tensor,  # [n, H] destination scores
+    s_tgt: torch.Tensor,  # [n, H] source scores
+    prev: torch.Tensor,  # [n, H·D] the previous layer's features (skip input)
+    spill_both: Optional[torch.Tensor],  # [n, H·D + H] spill tail's sums, or None
+    w_skip: torch.Tensor,  # [H·D, H·D] this layer's skip projection, [out, in]
+    w_proj: torch.Tensor,  # [H·D, H·D] the next layer's projection, [out, in]
+    a_mat: torch.Tensor,  # [H·D, 2H] block-diagonal (a_src ‖ a_tgt) of the next layer
+    window: int,
+    num_heads: int,
+) -> torch.Tensor:
+    """Plain-torch ``gat_local_layer_ell``: one whole non-final GAT layer
+    over the ELL layout, [n, 2·H·D + 2H] = (h_next ‖ feat ‖ s_src' ‖ s_tgt')
+    in h's dtype. The sums as in ``gat_local_message_ell_ref`` (each lane's
+    [score·h_u ‖ score] rounded to h's dtype before the f32 sum), then all
+    in f32 with no rounding in between: tot = sums + spill_both, msg =
+    tot[:H·D] / den with a zero den taken as 1, x = msg + prev·w_skipᵀ, feat
+    = ELU(x) = x where x > 0 else exp(min(x, 0)) − 1, h_next = feat·w_projᵀ,
+    scores = h_next·a_mat; the output is rounded once. The unfused path
+    rounds at each of these steps, so the two agree to rounding only."""
+    cdt = h.dtype
+    acc = _acc_dtype(cdt)
+    n, hd = h.shape
+    tot = _gat_ell_sums(ell_meta, h, s_src, s_tgt, window, num_heads)
+    if spill_both is not None:
+        tot = tot + _padded(spill_both.to(acc), tot.shape[0])
+    den = tot[:, hd:]
+    den = torch.where(den == 0, 1.0, den).repeat_interleave(hd // num_heads, dim=1)
+    x = tot[:, :hd] / den + _padded(prev, tot.shape[0]).to(acc) @ w_skip.to(acc).T
+    feat = torch.where(x > 0, x, torch.exp(torch.clamp_max(x, 0.0)) - 1.0)
+    h_next = feat @ w_proj.to(acc).T
+    return torch.cat([h_next, feat, h_next @ a_mat.to(acc)], dim=1)[:n].to(cdt)
 
 
 # ---------------------------------------------------------------------------
@@ -974,7 +1126,7 @@ def _library(name: str) -> dict:
     ``_max_d`` and ``_max_slots``, a whole-model ELL library ``_max_d``,
     ``_rows_per_block`` and ``_max_cluster``, a per-layer ELL library
     ``_max_d``, ``_rows_per_block`` and ``_max_window_blocks`` (GAT's also
-    ``_max_heads``)."""
+    ``_max_heads``), as do the legacy local and fused edge-block layers."""
     slot_getters = ("max_d", "max_slots")
     ell_getters = ("max_d", "rows_per_block", "max_cluster")
     layer_getters = ("max_d", "rows_per_block", "max_window_blocks")
@@ -1047,6 +1199,20 @@ def _library(name: str) -> dict:
         "gat_local_message_ell": (
             "gat_msg_ell", layer_getters + ("max_heads",), [_I32] * 2,
             [_I32] + [_PTR] * 5 + [_I32] * 6 + [_I32, _PTR],
+        ),
+        # One kernel behind two wrappers: the legacy local layer and the ELL
+        # layer with per-lane bond embeddings.
+        "gin_local_layer_blocks": (
+            "gin_layer_blocks", layer_getters, [_I32],
+            [_I32] + [_PTR] * 12 + [_I32] * 9 + [_I32, _PTR],
+        ),
+        "gin_layer_fused": (
+            "gin_fused", layer_getters, [_I32],
+            [_I32] + [_PTR] * 10 + [_I32] * 8 + [_I32, _PTR],
+        ),
+        "gat_local_layer_ell": (
+            "gat_layer_ell", layer_getters + ("max_heads",), [_I32] * 2,
+            [_I32] + [_PTR] * 10 + [_I32] * 6 + [_I32, _PTR],
         ),
     }[name]
     lib = load_library(name)
@@ -1882,14 +2048,7 @@ def _launch_gin_layer_ell(ell_meta, h, m_spill, ee_table, w1, b1, w2, b2, eps1, 
     code = _dtype_code(dt)
     dev = h.device
     n, d = h.shape
-    hid = w1.shape[0]
-    if m_spill is not None:
-        _check("m_spill", m_spill, dt, (n, d), dev)
-    _check("w1", w1, dt, (hid, d), dev)
-    _check("b1", b1, dt, (hid,), dev)
-    _check("w2", w2, dt, (d, hid), dev)
-    _check("b2", b2, dt, (d,), dev)
-    _check("eps1", eps1, torch.float32, (1, 1), dev)
+    hid = check_gin_mlp(h, m_spill, w1, b1, w2, b2, eps1)
     lib, lanes, nw, vocab = _check_ell_layer(ell_meta, h, ee_table, window, "gin_local_layer_ell")
     out = torch.empty((n, d), dtype=dt, device=dev)
     rc = lib["launch"](
@@ -1908,7 +2067,109 @@ def gin_local_layer_ell(
     ell_meta: torch.Tensor,
     h: torch.Tensor,
     m_spill: Optional[torch.Tensor],
-    ee_table: torch.Tensor,
+    ee_table: Optional[torch.Tensor],
+    w1: torch.Tensor,
+    b1: torch.Tensor,
+    w2: torch.Tensor,
+    b2: torch.Tensor,
+    eps1: torch.Tensor,
+    window: int,
+    final_relu: bool,
+    ee: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """One whole GIN / GIN-VN layer over the ELL layout: the next h [n, D]
+    in h's dtype (``csrc/gin_local_layer_ell.cu``). Operands as in
+    ``gin_local_layer_ell_ref``; a CPU tensor runs the plain version, a
+    CUDA tensor launches the kernel (float32 or bfloat16 h, ``m_spill``,
+    table and weights, int32 ``ell_meta``, float32 ``eps1``) or raises. Each
+    launch adds one to ``gin_local_layer_ell.launches``. With ``ee`` [P, D],
+    each lane's bond embedding, ``ee_table`` is not read (pass None) and the
+    layer runs ``gin_local_layer_ell_lanes``, as the JAX function without
+    ``edge_attr`` runs ``local_scatter_apply_ell``; one of the two must be
+    given."""
+    if ee is None and ee_table is None:
+        raise ValueError("gin_local_layer_ell: neither ee_table nor ee given")
+    if ee is not None:
+        return gin_local_layer_ell_lanes(ee, ell_meta, h, m_spill, w1, b1, w2, b2, eps1, window,
+                                         final_relu)
+    args = (ell_meta, h, m_spill, ee_table, w1, b1, w2, b2, eps1, window, final_relu)
+    return _dispatch(h, gin_local_layer_ell_ref, _launch_gin_layer_ell, args)
+
+
+gin_local_layer_ell.launches = 0
+
+
+def check_gin_mlp(h, m_spill, w1, b1, w2, b2, eps1) -> int:
+    """Check a per-layer GIN kernel's h, ``m_spill`` and MLP operands;
+    returns the hidden width."""
+    dt, dev = h.dtype, h.device
+    n, d = h.shape
+    hid = w1.shape[0]
+    _check("h", h, dt, (n, d), dev)
+    if m_spill is not None:
+        _check("m_spill", m_spill, dt, (n, d), dev)
+    _check("w1", w1, dt, (hid, d), dev)
+    _check("b1", b1, dt, (hid,), dev)
+    _check("w2", w2, dt, (d, hid), dev)
+    _check("b2", b2, dt, (d,), dev)
+    _check("eps1", eps1, torch.float32, (1, 1), dev)
+    return hid
+
+
+def _launch_gin_layer_blocks(counted, ee, u_local, v_local, block_window, blocks, h, m_spill,
+                             w1, b1, w2, b2, eps1, window, final_relu) -> torch.Tensor:
+    """Launch ``csrc/gin_local_layer_blocks.cu`` for the wrapper ``counted``:
+    ``u_local`` / ``v_local`` may be strided columns (int32, ``stride``
+    elements apart); ``block_window`` None means ``blocks`` equal windows'
+    worth of lanes in window order."""
+    dt = h.dtype
+    code = _dtype_code(dt)
+    dev = h.device
+    n, d = h.shape
+    p = ee.shape[0]
+    hid = check_gin_mlp(h, m_spill, w1, b1, w2, b2, eps1)
+    _check("ee", ee, dt, (p, d), dev)
+    if blocks < 1 or p % blocks:
+        raise ValueError(f"ee: {p} lanes are not {blocks} equal blocks")
+    for name, x in (("u_local", u_local), ("v_local", v_local)):
+        if x.dtype != torch.int32 or x.device != dev or tuple(x.shape) != (p,):
+            raise ValueError(f"{name}: the kernel takes int32 [{p}] on {dev}")
+    stride = u_local.stride(0)
+    if v_local.stride(0) != stride:
+        raise ValueError("u_local and v_local: different strides")
+    if block_window is not None:
+        _check("block_window", block_window, torch.int32, (blocks,), dev)
+    nw = -(-n // window)
+    lib = _library("gin_local_layer_blocks")
+    _check_ell_geometry(lib, d, window, lib["smem_bytes"](d), dev)
+    out = torch.empty((n, d), dtype=dt, device=dev)
+    rc = lib["launch"](
+        code, ee.data_ptr(), u_local.data_ptr(), v_local.data_ptr(),
+        None if block_window is None else block_window.data_ptr(), h.data_ptr(),
+        None if m_spill is None else m_spill.data_ptr(),
+        w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), b2.data_ptr(), eps1.data_ptr(),
+        out.data_ptr(), nw, n, window, blocks, p // blocks, stride, d, hid,
+        int(bool(final_relu)), dev.index, torch.cuda.current_stream(dev).cuda_stream,
+    )
+    _raise_on(lib, rc, counted.__name__)
+    counted.launches += 1
+    return out
+
+
+def _launch_gin_local_layer(ee, u_local, v_local, block_window, h, m_spill, w1, b1, w2, b2,
+                            eps1, window, final_relu) -> torch.Tensor:
+    return _launch_gin_layer_blocks(gin_local_layer, ee, u_local, v_local, block_window,
+                                    block_window.shape[0], h, m_spill, w1, b1, w2, b2, eps1,
+                                    window, final_relu)
+
+
+def gin_local_layer(
+    ee: torch.Tensor,
+    u_local: torch.Tensor,
+    v_local: torch.Tensor,
+    block_window: torch.Tensor,
+    h: torch.Tensor,
+    m_spill: Optional[torch.Tensor],
     w1: torch.Tensor,
     b1: torch.Tensor,
     w2: torch.Tensor,
@@ -1917,17 +2178,53 @@ def gin_local_layer_ell(
     window: int,
     final_relu: bool,
 ) -> torch.Tensor:
-    """One whole GIN / GIN-VN layer over the ELL layout: the next h [n, D]
-    in h's dtype (``csrc/gin_local_layer_ell.cu``). Operands as in
-    ``gin_local_layer_ell_ref``; a CPU tensor runs the plain version, a
-    CUDA tensor launches the kernel (float32 or bfloat16 h, ``m_spill``,
-    table and weights, int32 ``ell_meta``, float32 ``eps1``) or raises. Each
-    launch adds one to ``gin_local_layer_ell.launches``."""
-    args = (ell_meta, h, m_spill, ee_table, w1, b1, w2, b2, eps1, window, final_relu)
-    return _dispatch(h, gin_local_layer_ell_ref, _launch_gin_layer_ell, args)
+    """One whole GIN / GIN-VN layer over the legacy dynamic-window local
+    layout: the next h [n, D] in h's dtype (``csrc/gin_local_layer_blocks.cu``).
+    Operands as in ``gin_local_layer_ref``; a CPU tensor runs the plain
+    version, a CUDA tensor launches the kernel (float32 or bfloat16 ``ee``,
+    h, ``m_spill`` and weights, int32 lanes and ``block_window``, float32
+    ``eps1``) or raises. Each launch adds one to ``gin_local_layer.launches``."""
+    args = (ee, u_local, v_local, block_window, h, m_spill, w1, b1, w2, b2, eps1, window,
+            final_relu)
+    return _dispatch(h, gin_local_layer_ref, _launch_gin_local_layer, args)
 
 
-gin_local_layer_ell.launches = 0
+gin_local_layer.launches = 0
+
+
+def _launch_gin_layer_ell_lanes(ee, ell_meta, h, m_spill, w1, b1, w2, b2, eps1, window,
+                                final_relu) -> torch.Tensor:
+    nw = -(-h.shape[0] // window)
+    _ell_block(ell_meta, nw, h.device)
+    return _launch_gin_layer_blocks(gin_local_layer_ell_lanes, ee, ell_meta[:, 0], ell_meta[:, 1],
+                                    None, nw, h, m_spill, w1, b1, w2, b2, eps1, window,
+                                    final_relu)
+
+
+def gin_local_layer_ell_lanes(
+    ee: torch.Tensor,
+    ell_meta: torch.Tensor,
+    h: torch.Tensor,
+    m_spill: Optional[torch.Tensor],
+    w1: torch.Tensor,
+    b1: torch.Tensor,
+    w2: torch.Tensor,
+    b2: torch.Tensor,
+    eps1: torch.Tensor,
+    window: int,
+    final_relu: bool,
+) -> torch.Tensor:
+    """One whole GIN / GIN-VN layer over the ELL layout with each lane's
+    bond embedding given: the next h [n, D] in h's dtype (the kernel of
+    ``csrc/gin_local_layer_blocks.cu`` on its static grid). Operands as in
+    ``gin_local_layer_ell_lanes_ref``; a CPU tensor runs the plain version,
+    a CUDA tensor launches the kernel or raises. Each launch adds one to
+    ``gin_local_layer_ell_lanes.launches``."""
+    args = (ee, ell_meta, h, m_spill, w1, b1, w2, b2, eps1, window, final_relu)
+    return _dispatch(h, gin_local_layer_ell_lanes_ref, _launch_gin_layer_ell_lanes, args)
+
+
+gin_local_layer_ell_lanes.launches = 0
 
 
 def _launch_gcn_message_ell(ell_meta, h, dis, ee_table, window) -> torch.Tensor:
@@ -2145,3 +2442,64 @@ def gat_local_message_ell(
 
 
 gat_local_message_ell.launches = 0
+
+
+def _launch_gat_layer_ell(ell_meta, h, s_src, s_tgt, prev, spill_both, w_skip, w_proj, a_mat,
+                          window, num_heads) -> torch.Tensor:
+    dt = h.dtype
+    code = _dtype_code(dt)
+    dev = h.device
+    n, hd = h.shape
+    if hd % num_heads:
+        raise ValueError(f"H·D={hd} is not a multiple of the {num_heads} heads")
+    _check("s_src", s_src, dt, (n, num_heads), dev)
+    _check("s_tgt", s_tgt, dt, (n, num_heads), dev)
+    _check("prev", prev, dt, (n, hd), dev)
+    if spill_both is not None:
+        _check("spill_both", spill_both, dt, (n, hd + num_heads), dev)
+    _check("w_skip", w_skip, dt, (hd, hd), dev)
+    _check("w_proj", w_proj, dt, (hd, hd), dev)
+    _check("a_mat", a_mat, dt, (hd, 2 * num_heads), dev)
+    lib, lanes, nw = _check_ell_lanes(ell_meta, h, window, "gat_local_layer_ell",
+                                      (hd, num_heads))
+    if not 1 <= num_heads <= lib["max_heads"]():
+        raise ValueError(f"num_heads={num_heads} outside 1..{lib['max_heads']()}")
+    out = torch.empty((n, 2 * hd + 2 * num_heads), dtype=dt, device=dev)
+    rc = lib["launch"](
+        code, ell_meta.data_ptr(), h.data_ptr(), s_src.data_ptr(), s_tgt.data_ptr(),
+        prev.data_ptr(), None if spill_both is None else spill_both.data_ptr(),
+        w_skip.data_ptr(), w_proj.data_ptr(), a_mat.data_ptr(), out.data_ptr(),
+        nw, n, window, lanes, hd, num_heads,
+        dev.index, torch.cuda.current_stream(dev).cuda_stream,
+    )
+    _raise_on(lib, rc, "gat_local_layer_ell")
+    gat_local_layer_ell.launches += 1
+    return out
+
+
+def gat_local_layer_ell(
+    ell_meta: torch.Tensor,
+    h: torch.Tensor,
+    s_src: torch.Tensor,
+    s_tgt: torch.Tensor,
+    prev: torch.Tensor,
+    spill_both: Optional[torch.Tensor],
+    w_skip: torch.Tensor,
+    w_proj: torch.Tensor,
+    a_mat: torch.Tensor,
+    window: int,
+    num_heads: int,
+) -> torch.Tensor:
+    """One whole non-final GAT layer over the ELL layout: [n, 2·H·D + 2H]
+    (h_next ‖ feat ‖ s_src' ‖ s_tgt') in h's dtype
+    (``csrc/gat_local_layer_ell.cu``). Operands as in
+    ``gat_local_layer_ell_ref``; a CPU tensor runs the plain version, a CUDA
+    tensor launches the kernel (float32 or bfloat16 h, scores, ``prev``,
+    ``spill_both`` and weights, int32 ``ell_meta``) or raises. Each launch
+    adds one to ``gat_local_layer_ell.launches``."""
+    args = (ell_meta, h, s_src, s_tgt, prev, spill_both, w_skip, w_proj, a_mat, window,
+            num_heads)
+    return _dispatch(h, gat_local_layer_ell_ref, _launch_gat_layer_ell, args)
+
+
+gat_local_layer_ell.launches = 0

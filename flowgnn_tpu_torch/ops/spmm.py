@@ -1,13 +1,19 @@
-"""The spill tail's windowed segment sum.
+"""The windowed segment sum of blocked lane values.
 
 ``windowed_segment_sum`` is the counterpart of the TPU kernel
 ``flowgnn_tpu/ops/pallas/spmm.py:windowed_segment_sum``: it sums blocked
 lane values into dense windows of output rows. The lanes come in blocks of
 equal length, each block bound to one output window, and the blocks of one
-window are consecutive (``models.base._attach_spill_blocks``). On a CUDA
-tensor the wrapper launches ``csrc/windowed_segment_sum.cu``, or raises; on
-a CPU tensor it runs ``windowed_segment_sum_ref``, the same function in plain
-torch. Each launch adds one to ``windowed_segment_sum.launches``.
+window are consecutive. Two layouts feed it: the spill tail's
+(``models.base._attach_spill_blocks``: windows of 512 rows, only the T
+windows that receive a lane) and the edge-block layout's
+(``core.blocking.build_edge_blocks``: every window of 128 rows, the blocks
+left over parked on the last window as pure padding), the latter through
+``segment_sum_blocked``, every model's message reduction on an
+``as_batch(blocked=True)`` batch. On a CUDA tensor the wrapper launches
+``csrc/windowed_segment_sum.cu``, or raises; on a CPU tensor it runs
+``windowed_segment_sum_ref``, the same function in plain torch. Each launch
+adds one to ``windowed_segment_sum.launches``.
 """
 
 from __future__ import annotations
@@ -79,3 +85,20 @@ def windowed_segment_sum(
 
 
 windowed_segment_sum.launches = 0
+
+
+def segment_sum_blocked(
+    vals: torch.Tensor,  # [P, D] edge values already in block order
+    v_local: torch.Tensor,  # [P] int lane's receiver row in its window (sentinel ``window``)
+    block_window: torch.Tensor,  # [NB] int each block's window, non-decreasing
+    num_nodes: int,
+    window: int,
+) -> torch.Tensor:
+    """Per-node sum [num_nodes, D] of edge values in the edge-block order
+    (``flowgnn_tpu/ops/pallas/spmm.py:segment_sum_blocked``): one
+    ``windowed_segment_sum`` over all ⌈num_nodes / window⌉ windows, cut to
+    the node rows. Pad lanes carry the sentinel and add nothing, so the
+    values need no mask."""
+    num_windows = -(-num_nodes // window)
+    out = windowed_segment_sum(vals, v_local[:, None], block_window, window, num_windows)
+    return out[:num_nodes]

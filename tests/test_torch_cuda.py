@@ -15,7 +15,7 @@ import torch
 from flowgnn_tpu_torch.core.graphs import pack_graphs_aligned
 from flowgnn_tpu_torch.core.synthetic import random_molecule_graph, synthetic_molhiv
 from flowgnn_tpu_torch.models import base, registry
-from flowgnn_tpu_torch.ops import local_layer, spmm
+from flowgnn_tpu_torch.ops import fused_layer, local_layer, spmm
 
 L, D, H, W = 2, 32, 64, 128
 T_PNA = 8  # readout MLP-1 width of the small PNA and DGN operands
@@ -414,6 +414,106 @@ def _gat_ell_overflow_operands(hot: bool) -> dict:
                 s_tgt=s.copy(), window=W, num_heads=heads)
 
 
+def _local_batch(name: str = "gin", big=(), seed: int = 21) -> dict:
+    """Legacy local layout (``blocked="local"``, numpy) of 8 synthetic graphs
+    and one of each size in ``big`` for model ``name``: a graph above 128
+    nodes crosses windows, so its crossing edges ride the spill tail."""
+    spec = registry.get(name)
+    rng = np.random.default_rng(seed)
+    graphs = registry.apply_transforms(spec, synthetic_molhiv(8, seed=seed) + [
+        random_molecule_graph(rng, num_nodes=k) for k in big])
+    packed = pack_graphs_aligned(graphs, window=W, node_capacity=1023, edge_capacity=4096,
+                                 graph_capacity=16, with_eigen=spec.needs_eigen)
+    return base.as_batch(packed, blocked="local")
+
+
+def _edge_block_batch(name: str = "gin", seed: int = 22) -> dict:
+    """Edge-block layout (``blocked=True``, numpy) of 8 synthetic graphs in
+    unaligned packing: graphs straddle windows, and the trailing windows of
+    the 1024-row bucket hold no edge."""
+    from flowgnn_tpu_torch.core.graphs import pack_graphs
+
+    spec = registry.get(name)
+    graphs = registry.apply_transforms(spec, synthetic_molhiv(8, seed=seed))
+    packed = pack_graphs(graphs, node_capacity=1023, edge_capacity=2048, graph_capacity=16,
+                         with_eigen=spec.needs_eigen)
+    return base.as_batch(packed, blocked=True)
+
+
+def _gin_blocks_operands(kernel: str, geometry: str = "W128", final: bool = False,
+                         seed: int = 23) -> dict:
+    """Seeded operands of ``gin_local_layer`` (row 10: the legacy local
+    layout of ``_local_batch``, ``geometry`` "spill" adds a 300-node graph),
+    ``gin_local_layer_ell_lanes`` (row 12: the ELL layout of
+    ``_ell_layer_batch`` at ``geometry``) or ``gin_layer_fused`` (row 25: the
+    edge-block layout of ``_edge_block_batch``; pad lanes carry values too,
+    which the sentinel must keep out), as numpy arrays."""
+    rng = np.random.default_rng(seed)
+    f32 = lambda *s: rng.normal(0, 0.2, s).astype(np.float32)
+    mlp = lambda: dict(w1=f32(H, D), b1=f32(H), w2=f32(D, H), b2=f32(D),
+                       eps1=(1 + f32(1, 1)).astype(np.float32), final_relu=not final)
+    if kernel == "gin_local_layer":
+        batch = _local_batch(big=(300,) if geometry == "spill" else (), seed=seed)
+        n, p = batch["node_feat"].shape[0], batch["loc_ulocal"].shape[0]
+        return dict(ee=f32(p, D), u_local=batch["loc_ulocal"], v_local=batch["loc_vlocal"],
+                    block_window=batch["loc_window"], h=f32(n, D), m_spill=f32(n, D), window=W,
+                    **mlp())
+    if kernel == "gin_local_layer_ell_lanes":
+        batch = _ell_layer_batch(geometry, seed)
+        n, p = batch["node_feat"].shape[0], batch["loc_ulocal"].shape[0]
+        return dict(ee=f32(p, D), ell_meta=base.ell_meta(base.to_device(batch, "cpu")).numpy(),
+                    h=f32(n, D), m_spill=f32(n, D), window=base.ell_geometry(batch)[0], **mlp())
+    batch = _edge_block_batch(seed=seed)
+    n, p = batch["node_feat"].shape[0], batch["blk_vlocal"].shape[0]
+    return dict(vals=f32(p, D), v_local=batch["blk_vlocal"], block_window=batch["blk_window"],
+                h=f32(n, D), window=W, **mlp())
+
+
+def _gat_layer_operands(geometry: str, spill: bool = True, seed: int = 24) -> dict:
+    """Seeded operands at full width (4 heads × 16) of row 23
+    (``gat_local_layer_ell``) on the layout of ``_ell_layer_batch``, as numpy
+    arrays; ``spill`` adds a ``spill_both`` with non-negative score sums."""
+    ops = _dgn_gat_ell_operands("gat_local_message_ell", geometry, seed)
+    rng = np.random.default_rng(seed + 1)
+    f32 = lambda *s, sd=0.5: rng.normal(0, sd, s).astype(np.float32)
+    n, hd = ops["h"].shape
+    heads = ops["num_heads"]
+    spill_both = None
+    if spill:
+        spill_both = np.concatenate([f32(n, hd), np.abs(f32(n, heads))], axis=1)
+    return dict(
+        ops, prev=f32(n, hd), spill_both=spill_both, w_skip=f32(hd, hd, sd=0.2),
+        w_proj=f32(hd, hd, sd=0.2),
+        a_mat=_gat_score_maps(f32(1, heads, hd // heads), f32(1, heads, hd // heads)),
+    )
+
+
+def _gat_layer_overflow_operands(hot: bool) -> dict:
+    """Row 23's operands over ``_gat_ell_overflow_operands``'s window: the
+    sentinel lane from row 20, whose score overflows exp when ``hot``, must
+    add nothing, so every row but row 20's own (whose s_src and s_tgt differ
+    between the runs, and which nothing reads) equals the cold run's."""
+    ops = _gat_ell_overflow_operands(hot)
+    rng = np.random.default_rng(5)
+    f32 = lambda *s: (rng.normal(size=s) * 0.3).astype(np.float32)
+    hd, heads = ops["h"].shape[1], ops["num_heads"]
+    return dict(ops, prev=f32(W, hd), spill_both=None, w_skip=f32(hd, hd), w_proj=f32(hd, hd),
+                a_mat=_gat_score_maps(f32(1, heads, hd // heads), f32(1, heads, hd // heads)))
+
+
+def _blocked_wss_operands(width: int, seed: int = 25) -> dict:
+    """Row 24's operands on the edge-block layout of ``_edge_block_batch`` at
+    a model's reduction width (GAT 68, GIN / GCN 100, PNA 160, DGN 200):
+    every window of 128 rows, the blocks left over parked on the last one;
+    pad lanes carry values, which the sentinel must keep out."""
+    batch = _edge_block_batch(seed=seed)
+    rng = np.random.default_rng(seed)
+    vloc = batch["blk_vlocal"]
+    return dict(values=rng.normal(0, 0.5, (vloc.shape[0], width)).astype(np.float32),
+                v_local=vloc[:, None].copy(), block_window=batch["blk_window"], window=W,
+                num_windows=-(-batch["node_feat"].shape[0] // W))
+
+
 def _port(ops: dict, device, dtype=torch.float32) -> dict:
     out = {}
     for k, v in ops.items():
@@ -778,3 +878,120 @@ def test_gat_ell_cuda_kernel_overflowing_sentinel_lane_stays_finite(cuda_device)
     torch.cuda.synchronize()
     assert bool(outs[1].isfinite().all())
     torch.testing.assert_close(outs[1], outs[0], rtol=0, atol=0)
+
+
+_BLOCK_LAYER_CASES = [
+    ("gin_local_layer", "W128", False), ("gin_local_layer", "spill", False),
+    ("gin_local_layer", "W128", True),
+    *(("gin_local_layer_ell_lanes", g, g == "k2") for g in ELL_LAYER_GEOMETRY),
+    ("gin_layer_fused", "W128", False), ("gin_layer_fused", "W128", True),
+    *(("gat_local_layer_ell", g, sp) for g in ELL_LAYER_GEOMETRY for sp in (True, False)),
+    *(("windowed_segment_sum", w, False) for w in (68, 100, 160, 200)),
+]
+
+
+def _block_layer_case(kernel: str, geometry, flag: bool):
+    """(the wrapper, its plain version, numpy operands) of one case of
+    ``_BLOCK_LAYER_CASES``; ``flag`` is the last layer's form for the GIN
+    kernels and ``spill_both`` for GAT's."""
+    if kernel == "gat_local_layer_ell":
+        return (local_layer.gat_local_layer_ell, local_layer.gat_local_layer_ell_ref,
+                _gat_layer_operands(geometry, spill=flag))
+    if kernel == "windowed_segment_sum":
+        return (spmm.windowed_segment_sum, spmm.windowed_segment_sum_ref,
+                _blocked_wss_operands(geometry))
+    mod = fused_layer if kernel == "gin_layer_fused" else local_layer
+    return (getattr(mod, kernel), getattr(mod, f"{kernel}_ref"),
+            _gin_blocks_operands(kernel, geometry, final=flag))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel,geometry,flag", _BLOCK_LAYER_CASES,
+                         ids=[f"{k}-{g}-{int(f)}" for k, g, f in _BLOCK_LAYER_CASES])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 5e-2)],
+                         ids=["f32", "bf16"])
+def test_rows_10_12_23_25_cuda_kernels_match_plain(kernel, geometry, flag, dtype, tol, cuda_device):
+    """Kernel table rows 10 (legacy local layout, with and without crossing
+    edges, a layer and the last layer), 12 (ELL at W=128, W=512 and k=2), 25
+    (edge-block layout, unaligned packing, empty trailing windows) and 23
+    (ELL at the same geometries, with and without ``spill_both``), and row 24
+    on the edge-block layout at the four reduction widths, against their plain
+    versions, one launch per call. f32: summation order only; bf16: the
+    output rounds to bf16."""
+    fn, ref, ops = _block_layer_case(kernel, geometry, flag)
+    ops = _port(ops, cuda_device, dtype)
+    before = fn.launches
+    got = fn(**ops)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 1
+    expect = ref(**ops)
+    assert got.dtype == dtype and got.shape == expect.shape
+    assert expect.abs().max() > 1e-2 and bool(got.isfinite().all())
+    scale = max(1.0, expect.abs().max().item())
+    torch.testing.assert_close(got.float() / scale, expect.float() / scale, rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+def test_gin_layer_ell_ee_keyword_runs_row_12(cuda_device):
+    """``gin_local_layer_ell(ee=...)`` launches row 12's kernel, not row 13's,
+    and equals row 13 on the embeddings summed from the table (f32 1e-4)."""
+    ops = _port(_ell_layer_operands("gin_local_layer_ell", "W128"), cuda_device)
+    want = local_layer.gin_local_layer_ell(**ops)
+    rows = ops["ell_meta"][:, 2:].long().clamp(0, 12)
+    ee = ops["ee_table"][rows].sum(1)
+    counts = (local_layer.gin_local_layer_ell.launches,
+              local_layer.gin_local_layer_ell_lanes.launches)
+    got = local_layer.gin_local_layer_ell(**dict(ops, ee_table=None), ee=ee)
+    torch.cuda.synchronize()
+    assert (local_layer.gin_local_layer_ell.launches,
+            local_layer.gin_local_layer_ell_lanes.launches) == (counts[0], counts[1] + 1)
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_rows_10_23_25_cuda_kernels_reject_geometry(cuda_device):
+    """Each new wrapper raises before launch on what its kernel cannot take:
+    a window that is not whole 128-row tiles, row 23 an H·D past its tile
+    (128 > 64), rows 10 and 25 a D past theirs (128 > 112)."""
+    rng = np.random.default_rng(0)
+    t = lambda *s: torch.from_numpy(rng.normal(0, 0.1, s).astype(np.float32)).to(cuda_device)
+    i32 = lambda *s: torch.full(s, 128, dtype=torch.int32, device=cuda_device)
+    mlp = lambda d: dict(w1=t(8, d), b1=t(8), w2=t(d, 8), b2=t(d), eps1=t(1, 1), final_relu=True)
+    gat = lambda hd, window: dict(
+        ell_meta=i32(16, 5), h=t(256, hd), s_src=t(256, 4), s_tgt=t(256, 4), prev=t(256, hd),
+        spill_both=None, w_skip=t(hd, hd), w_proj=t(hd, hd), a_mat=t(hd, 8), window=window,
+        num_heads=4)
+    local = lambda d, window: dict(ee=t(256, d), u_local=i32(256), v_local=i32(256),
+                                   block_window=torch.zeros(2, dtype=torch.int32,
+                                                            device=cuda_device),
+                                   h=t(256, d), m_spill=None, window=window, **mlp(d))
+    fused = lambda d, window: dict(vals=t(256, d), v_local=i32(256),
+                                   block_window=torch.zeros(2, dtype=torch.int32,
+                                                            device=cuda_device),
+                                   h=t(256, d), window=window, **mlp(d))
+    cases = [
+        (local_layer.gat_local_layer_ell, gat(64, 192), "whole blocks"),
+        (local_layer.gat_local_layer_ell, gat(128, 128), "tile"),
+        (local_layer.gin_local_layer, local(32, 192), "whole blocks"),
+        (local_layer.gin_local_layer, local(128, 128), "tile"),
+        (fused_layer.gin_layer_fused, fused(32, 192), "whole blocks"),
+        (fused_layer.gin_layer_fused, fused(128, 128), "tile"),
+    ]
+    for fn, kw, match in cases:
+        before = fn.launches
+        with pytest.raises(ValueError, match=match):
+            fn(**kw)
+        assert fn.launches == before
+
+
+@pytest.mark.cuda
+def test_gat_layer_ell_cuda_kernel_overflowing_sentinel_lane_stays_finite(cuda_device):
+    """Row 23 on the card: a sentinel lane whose source score overflows exp
+    adds nothing; the rows it does not own are finite and equal the benign
+    run's."""
+    outs = [local_layer.gat_local_layer_ell(**_port(_gat_layer_overflow_operands(hot), cuda_device))
+            for hot in (False, True)]
+    torch.cuda.synchronize()
+    keep = torch.arange(W, device=cuda_device) != 20
+    assert bool(outs[1][keep].isfinite().all())
+    torch.testing.assert_close(outs[1][keep], outs[0][keep], rtol=0, atol=0)

@@ -106,8 +106,9 @@ def test_gat_unported_cases_raise(setup):
     (kernel table row 21), as the JAX package does, and gives the
     megakernel's predictions; so does an ELL batch, which raised before the
     per-layer ELL kernels were ported and now runs
-    ``gat_local_message_ell`` (row 17); the legacy dynamic-window layout
-    still raises."""
+    ``gat_local_message_ell`` (row 17); the legacy dynamic-window and
+    edge-block layouts, which raised before they were ported, run the plain
+    loop (the latter through the windowed scatter, row 24)."""
     fwd, _, params, b = setup
     p = tl.params_from_numpy(params, tn.FLOAT32, "cpu")
     whole = fwd(p, b["slot"], tn.FLOAT32)
@@ -119,8 +120,13 @@ def test_gat_unported_cases_raise(setup):
         blocked="local_ell", window=W, block=512), "cpu")
     for got in (per_layer, fwd(p, no_pool, tn.FLOAT32), fwd(p, ell, tn.FLOAT32)):
         np.testing.assert_allclose(got[:G].numpy(), whole[:G].numpy(), rtol=1e-5, atol=1e-5)
-    with pytest.raises(NotImplementedError, match="loc_ulocal"):
-        fwd(p, dict(b["plain"], loc_ulocal=torch.zeros(1)), tn.FLOAT32)
+    packed = tg.pack_graphs_aligned(tr.apply_transforms(tr.get("gat"), _graphs(ts)), window=W,
+                                    **CAPS)
+    for layout, key in (("local", "loc_window"), (True, "blk_window")):
+        batch = tb.to_device(tb.as_batch(packed, blocked=layout), "cpu")
+        assert key in batch
+        np.testing.assert_allclose(fwd(p, batch, tn.FLOAT32)[:G].numpy(), whole[:G].numpy(),
+                                   rtol=1e-5, atol=1e-5)
     out, inter = fwd(p, b["plain"], tn.FLOAT32, return_intermediates=True)
     assert len(inter["layers"]) == 3 and out.shape == (CAPS["graph_capacity"] + 1, 1)
 

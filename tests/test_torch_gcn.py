@@ -80,7 +80,9 @@ def test_gcn_slot_meta_is_live(setup):
 
 def test_gcn_dispatch(setup):
     """A slot batch the kernel does not take runs the plain loop on its own
-    edge list, as the JAX package's dispatch does; unported layouts raise."""
+    edge list, as the JAX package's dispatch does; the legacy local and
+    edge-block layouts, which raised before they were ported, run the plain
+    loop (the latter through the windowed scatter, row 24)."""
     fwd, _, params, b = setup
     p = tl.params_from_numpy(params, tn.FLOAT64, "cpu")
     kernel = fwd(p, b["slot"], tn.FLOAT64)
@@ -89,8 +91,13 @@ def test_gcn_dispatch(setup):
     no_pool = {k: v for k, v in b["slot"].items() if k != "pool_gl"}
     for got in (out, fwd(p, no_pool, tn.FLOAT64)):
         np.testing.assert_allclose(got[:G].numpy(), kernel[:G].numpy(), rtol=1e-9, atol=1e-9)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        fwd(p, dict(b["plain"], loc_ulocal=b["plain"]["senders"]), tn.FLOAT64)
+    packed = tg.pack_graphs_aligned(
+        tr.apply_transforms(tr.get("gcn"), ts.synthetic_molhiv(G, seed=2)), window=W, **CAPS)
+    for layout, key in (("local", "loc_window"), (True, "blk_window")):
+        batch = tb.to_device(tb.as_batch(packed, blocked=layout), "cpu")
+        assert key in batch
+        np.testing.assert_allclose(fwd(p, batch, tn.FLOAT64)[:G].numpy(), kernel[:G].numpy(),
+                                   rtol=1e-9, atol=1e-9)
 
 
 def test_load_gcn_matches_jax(tmp_path):

@@ -84,7 +84,9 @@ def test_unported_cases_raise():
     """A slot batch the megakernel does not take (no ``pool_gl``,
     ``return_intermediates``) runs the plain loop on its own edge list, as
     the JAX package's dispatch does, and gives the kernel's predictions;
-    the legacy layout and the fixed-point mode raise."""
+    the legacy local and edge-block layouts, which raised before they were
+    ported, run (rows 10 and 24) and give them too; the fixed-point mode
+    raises."""
     fwd, _, params, b = _setup("gin")
     p = params_from_numpy(params, tn.FLOAT32, "cpu")
     kernel = fwd(p, b["slot"], tn.FLOAT32)
@@ -93,7 +95,13 @@ def test_unported_cases_raise():
     assert len(inter["layers"]) == params["mlp1_w"].shape[0] + 1
     for got in (out, fwd(p, no_pool, tn.FLOAT32)):
         np.testing.assert_allclose(got[:G].numpy(), kernel[:G].numpy(), rtol=1e-5, atol=1e-5)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        fwd(p, dict(b["plain"], loc_ulocal=b["plain"]["senders"]), tn.FLOAT32)
+    packed = tg.pack_graphs_aligned(
+        tr.apply_transforms(tr.get("gin"), ts.synthetic_molhiv(G, seed=2)), window=W, **CAPS)
+    for layout, key in (("local", "loc_window"), (True, "blk_window")):
+        batch = tb.to_device(tb.as_batch(packed, blocked=layout), "cpu")
+        assert key in batch
+        for kw in ({}, dict(fused=True)):
+            np.testing.assert_allclose(fwd(p, batch, tn.FLOAT32, **kw)[:G].numpy(),
+                                       kernel[:G].numpy(), rtol=1e-5, atol=1e-5)
     with pytest.raises(NotImplementedError, match="ap_fixed"):
         tn.Precision(fixed=object())

@@ -114,8 +114,9 @@ def test_spill_and_unported_layouts_raise():
     them in its blocked spill tail, equal to the JAX package's (a bucket of
     256 rows has no full scatter window of 512, so neither side attaches the
     gather-side blocks); so does the ELL layout, after its lanes (it raised
-    before the per-layer ELL kernels were ported); the legacy dynamic-window
-    layout is not ported."""
+    before the per-layer ELL kernels were ported); so does the legacy
+    dynamic-window layout, in its un-blocked tail of 8192 lanes (it raised
+    before it was ported)."""
     caps = dict(window=128, node_capacity=255, edge_capacity=1024, graph_capacity=2)
     jpacked = jg.pack_graphs_aligned([js.random_molecule_graph(np.random.default_rng(0), num_nodes=150)], **caps)
     packed = tg.pack_graphs_aligned([ts.random_molecule_graph(np.random.default_rng(0), num_nodes=150)], **caps)
@@ -125,8 +126,10 @@ def test_spill_and_unported_layouts_raise():
     ell = tb.as_batch(packed, blocked="local_ell", window=128, block=384)
     assert tb.ell_spill_lanes(ell) > 0 and "spill_gblk_src" not in ell
     _assert_batches_equal(jb.as_batch(jpacked, blocked="local_ell", window=128, block=384), ell)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tb.as_batch(packed, blocked="local")
+    local = tb.as_batch(packed, blocked="local")
+    p = local["loc_ulocal"].shape[0]
+    assert (local["receivers"][p:] < 255).any() and local["senders"].shape[0] - p == 8192
+    _assert_batches_equal(jb.as_batch(jpacked, blocked="local"), local)
 
 
 def test_default_geometries():

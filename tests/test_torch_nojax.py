@@ -3,7 +3,10 @@
 six models (GIN, GIN-VN, GCN, GAT, PNA, DGN) run their slot branch on the
 CPU, with and without a spill tail (a 200-node graph at W=128), and an ELL
 batch, with and without a spill tail (the whole-model or per-layer ELL
-path; PNA's plain loop)."""
+path; PNA's plain loop), an edge-block batch (the windowed scatter; GIN's
+fused layer), a legacy local batch whose 200-node graph crosses windows
+(GIN's and GIN-VN's row 10, the other models' plain loop) and GAT's fused
+ELL layer."""
 
 import os
 import subprocess
@@ -45,25 +48,35 @@ for name in ("gin", "gin-vn", "gcn", "gat", "pna", "dgn"):
                                         graph_capacity=16, with_eigen=spec.needs_eigen,
                                         align_window=w))
     buckets = pack(graphs)
-    layouts = [(buckets, base.as_batches_uniform(buckets, blocked="local_slots", window=w))]
-    layouts.append((buckets, base.as_batches_uniform(buckets, blocked="local_ell", window=w, block=b)))
+    layouts = [(buckets, base.as_batches_uniform(buckets, blocked="local_slots", window=w), {})]
+    layouts.append((buckets, base.as_batches_uniform(buckets, blocked="local_ell", window=w, block=b), {}))
     big = pack(graphs[:4] + registry.apply_transforms(
         spec, [random_molecule_graph(np.random.default_rng(1), num_nodes=200)]))
     spill = base.as_batches_uniform(big, blocked="local_slots", window=w)
     assert any(x["slot_spill_mask"].any() for x in spill)
-    layouts.append((big, spill))
+    layouts.append((big, spill, {}))
     ell_spill = base.as_batches_uniform(big, blocked="local_ell", window=w, block=b)
     assert any(base.ell_spill_lanes(x) for x in ell_spill)
-    layouts.append((big, ell_spill))
+    layouts.append((big, ell_spill, {}))
+    blocked = base.as_batches_uniform(big, blocked=True)
+    assert all("blk_window" in x for x in blocked)
+    layouts.append((big, blocked, {}))
+    local = base.as_batches_uniform(big, blocked="local")
+    assert any((x["receivers"][x["loc_ulocal"].shape[0]:] < 255).any() for x in local)
+    layouts.append((big, local, {}))
+    if name == "gin":
+        layouts.append((big, blocked, dict(fused=True)))
+    if name == "gat":
+        layouts.append((big, ell_spill, dict(fuse_layers=True)))
     params = loaders.params_from_numpy(small[name.split("-")[0]](), FLOAT32, "cpu")
-    for buckets, batches in layouts:
+    for buckets, batches, kw in layouts:
         for packed, batch in zip(buckets, batches):
-            out = spec.forward(params, base.to_device(batch, "cpu"), FLOAT32)
+            out = spec.forward(params, base.to_device(batch, "cpu"), FLOAT32, **kw)
             assert out.shape == (packed.n_node.shape[0], 1) and bool(out.isfinite().all())
             plain = spec.forward(params, base.to_device(base.as_batch(packed), "cpu"), FLOAT32)
             assert torch.allclose(out[: packed.num_graphs], plain[: packed.num_graphs], atol=1e-5)
     runs += len(layouts)
-assert runs == 24, runs
+assert runs == 38, runs
 print("ok", len(mods))
 """
 

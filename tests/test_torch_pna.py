@@ -114,8 +114,9 @@ def test_pna_unported_cases_raise(setup):
     batch runs the plain loop: PNA has no ELL kernel in either package
     (tests/test_torch_ell_layer.py holds it against JAX). A slot batch with a
     spill tail runs the per-layer slot path (row 19; tests/test_torch_spill.py
-    holds it against the JAX package). The legacy dynamic-window layout
-    still raises."""
+    holds it against the JAX package). The legacy dynamic-window and
+    edge-block layouts, which raised before they were ported, run the plain
+    loop (the latter through the windowed scatter, row 24)."""
     fwd, _, params, b = setup
     p = tl.params_from_numpy(params, tn.FLOAT32, "cpu")
     whole = fwd(p, b["slot"], tn.FLOAT32)
@@ -124,8 +125,13 @@ def test_pna_unported_cases_raise(setup):
     assert len(inter["layers"]) == 3
     for got in (per_layer, fwd(p, no_pool, tn.FLOAT32)):
         np.testing.assert_allclose(got[:G].numpy(), whole[:G].numpy(), rtol=1e-5, atol=1e-5)
-    with pytest.raises(NotImplementedError, match="loc_ulocal"):
-        fwd(p, dict(b["plain"], loc_ulocal=torch.zeros(1)), tn.FLOAT32)
+    packed = tg.pack_graphs_aligned(tr.apply_transforms(tr.get("pna"), _graphs(ts)), window=W,
+                                    **CAPS)
+    for layout, key in (("local", "loc_window"), (True, "blk_window")):
+        batch = tb.to_device(tb.as_batch(packed, blocked=layout), "cpu")
+        assert key in batch
+        np.testing.assert_allclose(fwd(p, batch, tn.FLOAT32)[:G].numpy(), whole[:G].numpy(),
+                                   rtol=1e-5, atol=1e-5)
     ell = dict(b["plain"], loc_ell=torch.zeros((W, 1), dtype=torch.int32))
     torch.testing.assert_close(fwd(p, ell, tn.FLOAT32), fwd(p, b["plain"], tn.FLOAT32))
     out, inter = fwd(p, b["plain"], tn.FLOAT32, return_intermediates=True)
