@@ -18,10 +18,11 @@ shares are upper bounds.
 Phases, each of which raises (non-zero exit) on failure:
 
 1. the device and ``nvidia-smi``'s name and power limit;
-2. the twenty-two hand-written kernels built from the twenty sources of
+2. the twenty-four hand-written kernels built from the twenty-two sources of
    ``flowgnn_tpu_torch/csrc`` (rows 16 and 18 share one, rows 10 and 12 are
-   one kernel), one ``nvcc`` per source, all started together (build time and each compiler's register /
-   shared-memory report);
+   one kernel, rows 27-30 one), one ``nvcc`` per source, all started
+   together (build time and each compiler's register / shared-memory
+   report);
 3. each slot kernel against its plain torch version on the card, at the
    main path's shapes (a real bucket's slot layout at full width: GIN D=100,
    H=200, L=5, with and without the analytic-VN column; GCN D=100, L=5;
@@ -115,7 +116,19 @@ Phases, each of which raises (non-zero exit) on failure:
 5c. the same for the per-layer ELL paths of phase 4d;
 5d. the same for the paths of phase 4e;
 5e. the same for the paths of phase 4f; the windowed scatter on the
-   edge-block layout beside ``index_add_`` of the same values.
+   edge-block layout beside ``index_add_`` of the same values;
+6. the bench tools (``flowgnn_tpu_torch.bench``). 6a: row 26
+   (``chained_matmul``) on every ``matmul_shapes.SHAPES`` row at full size
+   in its dtype, equal to layers·K on all-ones operands and to its plain
+   version on seeded ones (int8 exactly, bf16 at 1e-4). 6b: rows 27-30
+   (``gat_mega_ablate``) on the 1028-graph molhiv GAT bucket at full width,
+   every (form, variant) against its plain version (f32 1e-4, bf16 5e-2, or
+   1.5× what the plain version needs against its f64 run), each form's
+   ``full`` against row 5's kernel (f32 1e-4). Then each tool's ``main`` as
+   a user runs it, counted (``run_bench_tools``): ``matmul_shapes``'s table
+   and the ablation table over every variant in bf16; then per shape the
+   kernel, its plain version and cuBLAS (TF/s, share of the peak), and the
+   ablation record's kernel and plain times.
 
 No phase runs at a cut depth: the whole run takes about five minutes on an
 H100. The line before the last is a JSON object with one record per
@@ -198,6 +211,7 @@ PER_LAYER = {"pna_local_stats_ell", "dgn_local_layer_slots", "gat_local_message_
              "gin_layer_fused", "gat_local_layer_ell"}
 ROW12 = "gin_local_layer_ell_lanes"
 LL = "flowgnn_tpu/ops/pallas/local_layer.py"
+BENCH = "flowgnn_tpu_torch.bench"
 # Kernel → (its module in flowgnn_tpu_torch.ops, source, the TPU kernel it
 # replaces, the (model, profile, layout) path whose bf16 stream gives the
 # record's times and bound).
@@ -262,7 +276,18 @@ KERNELS = {
         "flowgnn_tpu/ops/pallas/fused_layer.py:26 (windowed_scatter_apply, gin_layer_fused "
         "epilogue :97)", ("gin", "molhiv", FUSED),
     ),
+    # The bench tools' kernels (phase 6): a module path, and no model path.
+    "chained_matmul": (f"{BENCH}.matmul_shapes", "flowgnn_tpu_torch/csrc/chained_matmul.cu",
+                       "flowgnn_tpu/bench/matmul_shapes.py:49", None),
+    "gat_mega_ablate": (f"{BENCH}.ablate_gat_mega", "flowgnn_tpu_torch/csrc/gat_mega_ablate.cu",
+                        "flowgnn_tpu/bench/ablate_gat_mega.py:50, :224, :428, :558", None),
 }
+# Phase 6: the matmul-shape record's SHAPES row, the ablation's bucket and its
+# record's (form, variant), and the timing reps of the two tools' main runs.
+CHAIN_RECORD = 0  # "gin gather/scatter [896,384]@[384,128]", bf16
+ABLATION_GRAPHS = 1028  # the JAX tool's default bucket
+ABLATION_RECORD = ("v3", "full")
+TOOL_REPS, TOOL_TRIALS = 20, 2
 
 
 def check(cond: bool, msg: str) -> None:
@@ -308,7 +333,8 @@ def kernel_fn(kname: str, plain: bool = False):
     """A kernel's wrapper, or its plain version."""
     import importlib
 
-    mod = importlib.import_module(f"flowgnn_tpu_torch.ops.{KERNELS[kname][0]}")
+    mod = KERNELS[kname][0]
+    mod = importlib.import_module(mod if "." in mod else f"flowgnn_tpu_torch.ops.{mod}")
     return getattr(mod, f"{kname}_ref" if plain else kname)
 
 
@@ -1071,7 +1097,8 @@ def valid_lanes(ops: dict) -> int:
     if "ell_meta" in ops:
         m = ops["ell_meta"]
         return int(((m[:, 0] >= 0) & (m[:, 0] < w) & (m[:, 1] >= 0) & (m[:, 1] < w)).sum())
-    key = next(k for k in ("slot_pstack", "slot_src", "slot_stack", "v_local") if k in ops)
+    key = next(k for k in ("slot_pstack", "slot_src", "slot_stack", "v_local", "stack")
+               if k in ops)
     return int((ops[key] < w).sum())
 
 
@@ -1107,7 +1134,7 @@ def work(kname: str, ops: dict, out) -> tuple[float, float]:
         ops_ = L * (5 * e * d + 24 * n * d * d) + 2 * n * d * ops["mlp1_w"].shape[1]
     elif kname == "dgn_local_model":
         ops_ = L * (3 * e * d + 4 * n * d * d) + 2 * n * d * ops["mlp1_w"].shape[1]
-    elif kname == "gat_local_model_slots":
+    elif kname in ("gat_local_model_slots", "gat_mega_ablate"):
         nh = ops["num_heads"]
         ops_ = (L * (4 * n * d * nh + e * (2 * d + 4 * nh)) + (L - 1) * 4 * n * d * d
                 + 2 * n * d * ops["pred_hd"].shape[1])
@@ -1261,6 +1288,177 @@ def profile_path(key: tuple, streams: dict, device) -> None:
               f"{e.count // passes:5d}x  {e.key}")
 
 
+def check_chained_matmul(device, max_err: dict) -> None:
+    """Phase 6a's checks: row 26 on every SHAPES row at full size, in the
+    row's dtype, against the closed form layers·K on all-ones operands
+    (exactly) and against its plain version on seeded operands: int8
+    exactly (integer products, the f32 sums in layer order), bf16 at 1e-4
+    (``agree``; the K-sum order of the tensor cores against cuBLAS's)."""
+    import numpy as np
+    import torch
+
+    from flowgnn_tpu_torch.bench import matmul_shapes as ms
+
+    for i, (label, m, k, n, layers, grid, dtype) in enumerate(ms.SHAPES):
+        a, b = ms.operands(m, k, n, grid, dtype, device)
+        ones = ms.chained_matmul(a, b, layers, grid)
+        torch.cuda.synchronize()
+        check(bool((ones == layers * k).all()), f"{label}: all-ones output is not {layers * k}")
+        rng = np.random.default_rng(SEED + i)
+        if dtype == "int8":
+            draw = lambda *sh: torch.from_numpy(rng.integers(-127, 128, sh).astype(np.int8))
+        else:
+            draw = lambda *sh: torch.from_numpy(rng.normal(0, 1, sh).astype(np.float32)).to(
+                torch.bfloat16)
+        a, b = draw(grid * m, k).to(device), draw(k, n).to(device)
+        got = ms.chained_matmul(a, b, layers, grid)
+        want = ms.chained_matmul_ref(a, b, layers, grid)
+        torch.cuda.synchronize()
+        if dtype == "int8":
+            check(torch.equal(got, want), f"{label}: int8 kernel differs from its plain version")
+            err = 0.0
+        else:
+            err = agree(got, want, 1e-4)
+        max_err["chained_matmul"] = max(max_err["chained_matmul"], err)
+        print(f"# kernel vs plain, chained_matmul {label} ({dtype}): all-ones == {layers * k}; "
+              f"seeded max abs err {err:.3e} (max |out| {want.abs().max().item():.3e})")
+
+
+def check_ablation(device, max_err: dict):
+    """Phase 6b's checks on the 1028-graph molhiv GAT bucket at full width
+    (seeded synthetic weights): every (form, variant) of rows 27-30 against
+    its plain version, f32 at 1e-4 and bf16 at 5e-2 (``agree``), or 1.5×
+    what the plain version itself needs against its f64 run where that is
+    more (``noexp`` divides by sums of signed raw scores that can cancel);
+    each form's ``full`` against row 5's kernel in f32 at 1e-4. Returns the
+    bucket."""
+    import torch
+
+    from flowgnn_tpu_torch.bench import ablate_gat_mega as abl
+    from flowgnn_tpu_torch.core.numerics import BF16, FLOAT32
+    from flowgnn_tpu_torch.models import base, gat
+    from flowgnn_tpu_torch.ops.local_layer import gat_local_model_slots
+    from flowgnn_tpu_torch.params.loaders import params_from_numpy, synthetic_gat_params
+
+    batch = abl.molhiv_bucket(ABLATION_GRAPHS, None, device)
+    w, s = batch["slot_geom"].shape
+    print(f"# ablation bucket: {ABLATION_GRAPHS} graphs, {batch['node_feat'].shape[0]} rows, "
+          f"W={w}, S={s}, prefix caps {base.slot_prefix_caps(batch, s)}")
+    for prec, tol in ((FLOAT32, 1e-4), (BF16, 5e-2)):
+        params = params_from_numpy(synthetic_gat_params(SEED), prec, device)
+        c = abl.ablation_operands(params, batch, prec)
+        for form, (names, _) in abl.FORMS.items():
+            ops = abl.form_operands(form, c)
+            f64 = {k: v.double() if torch.is_tensor(v) and v.is_floating_point() else v
+                   for k, v in ops.items()}
+            for v in names:
+                got = abl.gat_mega_ablate(form, v, **ops)
+                want = abl.gat_mega_ablate_ref(form, v, **ops)
+                exact = abl.gat_mega_ablate_ref(form, v, **f64)
+                torch.cuda.synchronize()
+                # A knockout can overflow (nodivide: the numerators grow layer
+                # by layer past exp's range), as on the TPU: the kernel must
+                # overflow where the plain version does, and agree elsewhere.
+                fin = want.isfinite()
+                kind = lambda x: x[~fin].nan_to_num(nan=0.0, posinf=1.0, neginf=-1.0)
+                check(torch.equal(got.isfinite(), fin) and torch.equal(kind(got), kind(want)),
+                      f"{form} {v}: non-finite outputs differ from the plain version's")
+                both = fin & exact.isfinite()
+                t = max(tol, 1.5 * needed_tol(want[both], exact[both]))
+                err = agree(got[fin], want[fin], t)
+                if prec is FLOAT32:
+                    max_err["gat_mega_ablate"] = max(max_err["gat_mega_ablate"], err)
+                print(f"# kernel vs plain, gat_mega_ablate {form} {v} {prec.compute_dtype}: max "
+                      f"abs err {err:.3e}, tol {t:.1e} (the plain version vs its f64 run "
+                      f"{needed_tol(want[both], exact[both]):.1e}), {int((~fin).sum())} of "
+                      f"{fin.numel()} outputs not finite; max finite |out| "
+                      f"{want[fin].abs().max().item():.3e}")
+            if prec is FLOAT32:
+                row5 = gat_local_model_slots(**gat.slot_kernel_operands(params, batch, prec))
+                err = agree(abl.gat_mega_ablate(form, "full", **ops), row5, 1e-4)
+                print(f"# gat_mega_ablate {form} full vs row 5's kernel, float32: max abs err "
+                      f"{err:.3e}")
+    return batch
+
+
+def run_bench_tools(device) -> dict:
+    """Phase 6's main path: the two tools' ``main`` as a user runs them,
+    ``matmul_shapes`` over every SHAPES row and ``ablate_gat_mega`` over
+    noop, slots, dense and every (form, variant), bf16, with every launch
+    count set to 0 before and read after. Returns the counts."""
+    import torch
+
+    from flowgnn_tpu_torch.bench import ablate_gat_mega as abl
+    from flowgnn_tpu_torch.bench import matmul_shapes as ms
+
+    names = ["slots", "dense"] + [v if form == "v1" else (form if v == "full" else f"{form}:{v}")
+                                  for form, (vs, _) in abl.FORMS.items() for v in vs]
+    reps = ["--reps", str(TOOL_REPS), "--trials", str(TOOL_TRIALS)]
+    kernels = {k: kernel_fn(k) for k in KERNELS}
+    for f in kernels.values():
+        f.launches = 0
+    ms.main(reps)
+    abl.main(reps + ["--graphs", str(ABLATION_GRAPHS), "--variants", ",".join(names)])
+    torch.cuda.synchronize()
+    counts = {k: f.launches for k, f in kernels.items()}
+    expect = {"chained_matmul", "gat_mega_ablate", "gat_local_model_slots"}
+    check(all(counts[k] > 0 for k in expect) and not any(
+        c for k, c in counts.items() if k not in expect), f"phase 6 launches {counts}")
+    print(f"# phase 6 launches: {dict((k, counts[k]) for k in sorted(expect))}")
+    return counts
+
+
+def time_bench_kernels(device, batch: dict) -> dict:
+    """Phase 6's timings: per SHAPES row row 26, its plain version and
+    cuBLAS (``layers`` products of the same operands: bf16 ``torch.matmul``,
+    int8 ``torch._int_mm``; timed here, used nowhere in the port), TF/s and
+    the share of the dtype's peak; the ablation's record (``ABLATION_RECORD``,
+    bf16) alone and its plain version. Returns the two records."""
+    import torch
+
+    from flowgnn_tpu_torch.bench import ablate_gat_mega as abl
+    from flowgnn_tpu_torch.bench import matmul_shapes as ms
+    from flowgnn_tpu_torch.core.numerics import BF16
+    from flowgnn_tpu_torch.params.loaders import params_from_numpy, synthetic_gat_params
+
+    record = {}
+    for i, (label, m, k, n, layers, grid, dtype) in enumerate(ms.SHAPES):
+        a, b = ms.operands(m, k, n, grid, dtype, device)
+        lib = torch._int_mm if dtype == "int8" else torch.matmul
+        peak = PEAK_FLOPS["bfloat16"] * (2 if dtype == "int8" else 1)
+        ops = 2.0 * m * k * n * layers * grid
+        byts = float(nbytes(a) + nbytes(b) + grid * m * n * 4)
+        rec = dict(ms=cuda_ms(lambda: ms.chained_matmul(a, b, layers, grid)),
+                   plain_ms=cuda_ms(lambda: ms.chained_matmul_ref(a, b, layers, grid), reps=5),
+                   library_ms=cuda_ms(lambda: [lib(a, b) for _ in range(layers)]))
+        t_ops, t_bytes = ops / peak * 1e3, byts / MEM_BYTES_PER_S * 1e3
+        rec.update(bound_ms=max(t_ops, t_bytes), bound_by="operations" if t_ops > t_bytes else "bytes")
+        tf = lambda ms_: ops / ms_ / 1e9
+        print(f"# time chained_matmul {label} ({dtype}): kernel {rec['ms']:.4f} ms "
+              f"{tf(rec['ms']):.1f} TF/s ({tf(rec['ms']) * 1e12 / peak:.1%} of {peak / 1e12:.0f}), "
+              f"cuBLAS {rec['library_ms']:.4f} ms {tf(rec['library_ms']):.1f} TF/s "
+              f"({tf(rec['library_ms']) * 1e12 / peak:.1%}), plain version {rec['plain_ms']:.4f} "
+              f"ms; bound {rec['bound_ms']:.4f} ms by {rec['bound_by']}")
+        if i == CHAIN_RECORD:
+            record["chained_matmul"] = rec
+    params = params_from_numpy(synthetic_gat_params(SEED), BF16, device)
+    form, variant = ABLATION_RECORD
+    ops = abl.form_operands(form, abl.ablation_operands(params, batch, BF16))
+    out = abl.gat_mega_ablate(form, variant, **ops)
+    flops, byts = work("gat_mega_ablate", ops, out)
+    t_ops, t_bytes = flops / PEAK_FLOPS["bfloat16"] * 1e3, byts / MEM_BYTES_PER_S * 1e3
+    record["gat_mega_ablate"] = dict(
+        ms=cuda_ms(lambda: abl.gat_mega_ablate(form, variant, **ops)),
+        plain_ms=cuda_ms(lambda: abl.gat_mega_ablate_ref(form, variant, **ops), reps=5),
+        bound_ms=max(t_ops, t_bytes), bound_by="operations" if t_ops > t_bytes else "bytes",
+        library_ms=None)
+    r = record["gat_mega_ablate"]
+    print(f"# time gat_mega_ablate {form} {variant} bfloat16: {r['ms']:.4f} ms, its plain version "
+          f"{r['plain_ms']:.4f} ms; bound {r['bound_ms']:.4f} ms by {r['bound_by']} "
+          f"({flops:.4g} operations, {byts:.4g} bytes)")
+    return record
+
+
 def main() -> int:
     import torch
 
@@ -1271,6 +1469,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
+    from flowgnn_tpu_torch.bench import ablate_gat_mega, matmul_shapes
     from flowgnn_tpu_torch.core.numerics import BF16
     from flowgnn_tpu_torch.ops import build, local_layer
 
@@ -1303,9 +1502,12 @@ def main() -> int:
 
     # 2. Build, all sources at once.
     t0 = time.perf_counter()
-    libs = build.build_libraries(local_layer.LIBRARIES)
+    libs = build.build_libraries(local_layer.LIBRARIES + matmul_shapes.LIBRARIES
+                                 + ablate_gat_mega.LIBRARIES)
     for name in local_layer.LIBRARIES:
         local_layer._library(name)
+    matmul_shapes._library()
+    ablate_gat_mega._library()
     print(f"# build of {len(libs)} kernels: {time.perf_counter() - t0:.1f} s")
     for so in libs:
         print(f"# {so.name}:")
@@ -1387,6 +1589,14 @@ def main() -> int:
     molhiv_ell_keys = [(name, "molhiv", ELL) for name in ELL_MODELS]
     record = time_paths(streams, dev, slot_keys + hep_keys + molhiv_ell_keys + spill_keys
                         + layer_keys + new_keys + block_keys)
+
+    # 6. The bench tools: checks, their main runs (counted), timings.
+    check_chained_matmul(dev, max_err)
+    batch = check_ablation(dev, max_err)
+    for k, n in run_bench_tools(dev).items():
+        launches[k] += n
+    for kname, rec in time_bench_kernels(dev, batch).items():
+        record[(kname, None, BF16)] = rec
 
     print(smi)
     kernels = []

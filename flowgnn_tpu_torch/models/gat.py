@@ -118,6 +118,46 @@ def slot_kernel_operands(params: dict, batch: dict, prec: Precision = FLOAT32) -
     )
 
 
+def megakernel_operands(params: dict, prec: Precision = FLOAT32) -> dict:
+    """The weight operands of the GAT megakernel ablation
+    (``bench.ablate_gat_mega``), each equal to the JAX package's
+    ``megakernel_operands`` key of the same name: ``skip_w`` [L·HD, HD] and
+    ``proj_w`` [(L−1)·HD, HD] right-multiplied (``proj_w`` from layer 1),
+    ``a_next`` [(L−1)·HD, 2H] the score maps [a_src ‖ a_tgt] of layers
+    1..L−1, ``pred_hd`` [HD, T] the head average composed with the
+    prediction head, ``skip0_w`` layer 0's skip weight and ``glue_w``
+    [(L−1)·HD, PAY+HD+H] per layer l the fused right-multiplication
+    [proj_{l+1} ‖ s_tgt map ‖ 0 ‖ skip_{l+1} ‖ s_src map], PAY = max(128,
+    HD+H), the score maps pre-composed with the projection in f32 and
+    rounded. The JAX package's block-diagonal pair forms (``glue2_w``,
+    ``ab_w``, ``pred2_w``) belong to its two-window TPU kernel and are not
+    built: row 5's kernel takes ``slot_kernel_operands``."""
+    L, H, D = params["proj_w"].shape[:3]
+    hd = H * D
+    cdt = prec.compute_dtype
+    right = lambda w: w.reshape(-1, hd, hd).transpose(1, 2).reshape(-1, hd).to(cdt)
+    skip_w = right(params["skip_w"])
+    proj_w = right(params["proj_w"][1:])
+    eye = torch.eye(H, dtype=cdt, device=params["a_src"].device)
+    amat = lambda a: (a[:, :, :, None] * eye[None, :, None, :]).reshape(-1, H).to(cdt)
+    a_next = torch.cat([amat(params["a_src"][1:]), amat(params["a_tgt"][1:])], dim=1)
+    pay = max(128, hd + H)
+    glue = []
+    for l in range(L - 1):
+        p_l = proj_w[l * hd : (l + 1) * hd]
+        scat_w = (p_l.float() @ a_next[l * hd : (l + 1) * hd].float()).to(cdt)
+        glue.append(torch.cat([
+            p_l, scat_w[:, H:], torch.zeros(hd, pay - hd - H, dtype=cdt, device=p_l.device),
+            skip_w[(l + 1) * hd : (l + 2) * hd], scat_w[:, :H],
+        ], dim=1))
+    return dict(
+        skip_w=skip_w.contiguous(), proj_w=proj_w.contiguous(), a_next=a_next.contiguous(),
+        pred_hd=(params["pred_w"].T / H).repeat(H, 1).to(cdt), skip0_w=skip_w[:hd].contiguous(),
+        glue_w=torch.cat(glue, dim=0) if glue else torch.zeros(
+            0, pay + hd + H, dtype=cdt, device=skip_w.device),
+    )
+
+
 def _score_maps(params: dict, dt: torch.dtype) -> torch.Tensor:
     """[L, H·D, 2H]: per layer the block-diagonal map h → [s_src ‖ s_tgt]."""
     L, H, D = params["proj_w"].shape[:3]

@@ -15,6 +15,7 @@ import torch
 from flowgnn_tpu_torch.core.graphs import pack_graphs_aligned
 from flowgnn_tpu_torch.core.synthetic import random_molecule_graph, synthetic_molhiv
 from flowgnn_tpu_torch.models import base, registry
+from flowgnn_tpu_torch.bench import ablate_gat_mega, matmul_shapes
 from flowgnn_tpu_torch.ops import fused_layer, local_layer, spmm
 
 L, D, H, W = 2, 32, 64, 128
@@ -514,6 +515,58 @@ def _blocked_wss_operands(width: int, seed: int = 25) -> dict:
                 num_windows=-(-batch["node_feat"].shape[0] // W))
 
 
+# The GAT megakernel ablation's small operands: two windows of 128 rows (the
+# last padded), 2 heads × 8, 2 layers, prefix caps (128, 64, 32).
+ABL_W, ABL_NW, ABL_N = 128, 2, 250
+ABL_HEADS, ABL_L, ABL_T = 2, 2, 1
+ABL_CAPS = (128, 64, 32)
+
+
+def _ablation_operands(seed: int = 0, positive: bool = False) -> dict:
+    """Seeded numpy operands of every ablation form: random sources (a
+    quarter of the lanes empty), prefix stacks with ``ABL_CAPS``, graph ids
+    per row, v4's one-hot tiles and v5's expanded scores. With ``positive``
+    every float operand is |N(0, sd)|: then every score, h and feat stays
+    nonnegative, which ``noexp`` needs to be well conditioned (it divides by
+    the sum of the raw, signed scores, which otherwise cancels towards zero
+    and multiplies the f32 rounding of the glue products by up to ~1e3)."""
+    w, nw, n, heads, layers = ABL_W, ABL_NW, ABL_N, ABL_HEADS, ABL_L
+    hd = heads * 8
+    pay = max(128, hd + heads)
+    rng = np.random.default_rng(seed)
+    sign = np.abs if positive else (lambda x: x)
+    f = lambda *s, sd=0.5: sign(rng.normal(0, sd, s)).astype(np.float32)
+    src = lambda *s: np.where(rng.random(s) < 0.75, rng.integers(0, w, s), w).astype(np.int32)
+    pstack = np.full((nw, sum(ABL_CAPS)), w, np.int32)
+    off = 0
+    for c in ABL_CAPS:
+        pstack[:, off : off + c] = src(nw, c)
+        off += c
+    glue_w = f((layers - 1) * hd, pay + hd + heads, sd=0.3)
+    glue_w[:, hd + heads : pay] = 0
+    gl = np.full(nw * w, base.POOL_GMAX, np.int32)
+    gl[:n] = np.sort(rng.integers(0, 20, n))
+    ops = dict(
+        slot_stack=src(nw * len(ABL_CAPS) * w), slot_pstack=pstack.reshape(-1), h0=f(n, hd),
+        prev0=f(n, hd), skip0=f(n, hd), s0=f(n, 2 * heads), skip_w=f(layers * hd, hd, sd=0.3),
+        proj_w=f((layers - 1) * hd, hd, sd=0.3), a_next=f((layers - 1) * hd, 2 * heads, sd=0.3),
+        glue_w=glue_w, pool_gl=gl, pred_hd=f(hd, ABL_T),
+    )
+    ops["onehot_tiles"] = ablate_gat_mega.onehot_tiles(
+        torch.from_numpy(ops["slot_pstack"]), w, sum(ABL_CAPS), torch.float32).numpy()
+    gx, sx = ablate_gat_mega.expand_score_operands(torch.from_numpy(glue_w),
+                                                   torch.from_numpy(ops["s0"]), hd, heads)
+    ops["glue_wx"], ops["s0x"] = gx.numpy(), sx.numpy()
+    return ops
+
+
+def _ablation_call(form: str, ops: dict) -> dict:
+    """``gat_mega_ablate``'s keyword operands of ``form`` (numpy)."""
+    c = dict(ops, window=ABL_W, slots=len(ABL_CAPS), num_heads=ABL_HEADS, num_layers=ABL_L,
+             gmax=base.POOL_GMAX, prefix_caps=ABL_CAPS, caps_v4=ABL_CAPS)
+    return ablate_gat_mega.form_operands(form, c)
+
+
 def _port(ops: dict, device, dtype=torch.float32) -> dict:
     out = {}
     for k, v in ops.items():
@@ -995,3 +1048,128 @@ def test_gat_layer_ell_cuda_kernel_overflowing_sentinel_lane_stays_finite(cuda_d
     keep = torch.arange(W, device=cuda_device) != 20
     assert bool(outs[1][keep].isfinite().all())
     torch.testing.assert_close(outs[1][keep], outs[0][keep], rtol=0, atol=0)
+
+
+# The chained matmul (row 26): (M, K, N, layers, grid, dtype), the CPU
+# test's shapes and two of SHAPES at full size.
+_CHAIN_CASES = [(8, 64, 128, 1, 2, "bf16"), (64, 128, 136, 3, 2, "bf16"),
+                (8, 64, 136, 3, 2, "int8"), (64, 128, 128, 1, 2, "int8"),
+                matmul_shapes.SHAPES[0][1:], matmul_shapes.SHAPES[6][1:]]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n,layers,grid,dtype", _CHAIN_CASES,
+                         ids=["-".join(map(str, c)) for c in _CHAIN_CASES])
+@pytest.mark.parametrize("ones", [True, False], ids=["ones", "seeded"])
+def test_chained_matmul_cuda_kernel_matches_plain(m, k, n, layers, grid, dtype, ones, cuda_device):
+    """All-ones: layers·K exactly. Seeded: int8 exact (integer products,
+    the f32 sums in layer order), bf16 at 1e-4 of the largest output (the
+    K-sum order of the tensor cores against cuBLAS's)."""
+    if ones:
+        a, b = matmul_shapes.operands(m, k, n, grid, dtype, cuda_device)
+    else:
+        rng = np.random.default_rng(m + k + n)
+        if dtype == "int8":
+            draw = lambda *s: torch.from_numpy(rng.integers(-127, 128, s).astype(np.int8))
+        else:
+            draw = lambda *s: torch.from_numpy(rng.normal(0, 1, s).astype(np.float32)).to(
+                torch.bfloat16)
+        a, b = draw(grid * m, k).to(cuda_device), draw(k, n).to(cuda_device)
+    before = matmul_shapes.chained_matmul.launches
+    got = matmul_shapes.chained_matmul(a, b, layers, grid)
+    torch.cuda.synchronize()
+    assert matmul_shapes.chained_matmul.launches == before + 1
+    want = matmul_shapes.chained_matmul_ref(a, b, layers, grid)
+    if ones:
+        assert bool((got == layers * k).all())
+    elif dtype == "int8":
+        assert torch.equal(got, want)
+    else:
+        scale = want.abs().max()
+        torch.testing.assert_close(got / scale, want / scale, rtol=0, atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_chained_matmul_cuda_kernel_rejects(cuda_device):
+    """A wrong dtype, a non-contiguous operand, K not a multiple of 32, N
+    past 256: raises before launch."""
+    bf = lambda *s: torch.ones(*s, dtype=torch.bfloat16, device=cuda_device)
+    cases = [
+        ((bf(16, 64).float(), bf(64, 128).float()), TypeError),
+        ((bf(64, 16).T, bf(64, 128)), ValueError),
+        ((bf(16, 48), bf(48, 128)), ValueError),
+        ((bf(16, 64), bf(64, 264)), ValueError),
+    ]
+    before = matmul_shapes.chained_matmul.launches
+    for (a, b), err in cases:
+        with pytest.raises(err):
+            matmul_shapes.chained_matmul(a, b, 1, 1)
+    assert matmul_shapes.chained_matmul.launches == before
+
+
+_ABL_PAIRS = [(f, v) for f, (names, _) in ablate_gat_mega.FORMS.items() for v in names]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form,variant", _ABL_PAIRS, ids=[f"{f}-{v}" for f, v in _ABL_PAIRS])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 5e-2)],
+                         ids=["f32", "bf16"])
+def test_gat_mega_ablate_cuda_kernel_matches_plain(form, variant, dtype, tol, cuda_device):
+    """Every (form, variant) of rows 27-30 against its plain version, one
+    launch each. f32: summation order only; bf16: a rounding flip at one
+    stage propagates through the later layer. ``noexp`` on nonnegative
+    operands (``_ablation_operands``)."""
+    ops = _port(_ablation_call(form, _ablation_operands(positive=variant == "noexp")),
+                cuda_device, dtype)
+    before = ablate_gat_mega.gat_mega_ablate.launches
+    got = ablate_gat_mega.gat_mega_ablate(form, variant, **ops)
+    torch.cuda.synchronize()
+    assert ablate_gat_mega.gat_mega_ablate.launches == before + 1
+    want = ablate_gat_mega.gat_mega_ablate_ref(form, variant, **ops)
+    assert bool(got.isfinite().all()) and want.abs().max() > 1e-2
+    scale = max(1.0, want.abs().max().item())
+    torch.testing.assert_close(got / scale, want / scale, rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form", list(ablate_gat_mega.FORMS))
+def test_gat_mega_ablate_cuda_full_width(form, cuda_device):
+    """Each form's ``full`` at full width (4 heads × 16, L=5) on a 256-graph
+    molhiv bucket, f32: against its plain version and against row 5's
+    kernel, 1e-4 (summation order, and v3-v5's composed score maps)."""
+    from flowgnn_tpu_torch.core.numerics import FLOAT32
+    from flowgnn_tpu_torch.models import gat
+    from flowgnn_tpu_torch.params import loaders
+
+    batch = ablate_gat_mega.molhiv_bucket(256, None, cuda_device)
+    params = loaders.params_from_numpy(loaders.synthetic_gat_params(0), FLOAT32, cuda_device)
+    ops = ablate_gat_mega.form_operands(
+        form, ablate_gat_mega.ablation_operands(params, batch, FLOAT32))
+    got = ablate_gat_mega.gat_mega_ablate(form, "full", **ops)
+    row5 = local_layer.gat_local_model_slots(**gat.slot_kernel_operands(params, batch, FLOAT32))
+    want = ablate_gat_mega.gat_mega_ablate_ref(form, "full", **ops)
+    torch.cuda.synchronize()
+    scale = max(1.0, want.abs().max().item())
+    for ref in (want, row5):
+        torch.testing.assert_close(got / scale, ref / scale, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_gat_mega_ablate_cuda_kernel_rejects(cuda_device):
+    """A wrong dtype, a non-contiguous operand, W > 128, nopool past the
+    window's rows: raises before launch."""
+    fn = ablate_gat_mega.gat_mega_ablate
+    ops = _port(_ablation_call("v3", _ablation_operands()), cuda_device)
+    wide = dict(ops, window=256, h0=ops["h0"])
+    cases = [
+        (dict(ops, h0=ops["h0"].double()), "full", TypeError),
+        (dict(ops, x0=ops["x0"].T.contiguous().T), "full", ValueError),
+        (wide, "full", ValueError),
+        (dict(ops, gmax=ABL_W + 1), "nopool", ValueError),
+        (dict(ops, stack=ops["stack"].float()), "full", TypeError),
+    ]
+    before = fn.launches
+    for kw, variant, err in cases:
+        with pytest.raises(err):
+            fn("v3", variant, **kw)
+    assert fn.launches == before

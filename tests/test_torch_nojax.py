@@ -6,7 +6,8 @@ batch, with and without a spill tail (the whole-model or per-layer ELL
 path; PNA's plain loop), an edge-block batch (the windowed scatter; GIN's
 fused layer), a legacy local batch whose 200-node graph crosses windows
 (GIN's and GIN-VN's row 10, the other models' plain loop) and GAT's fused
-ELL layer."""
+ELL layer; the bench tools (``bench.matmul_shapes``, ``bench.ablate_gat_mega``)
+run their plain versions."""
 
 import os
 import subprocess
@@ -77,6 +78,13 @@ for name in ("gin", "gin-vn", "gcn", "gat", "pna", "dgn"):
             assert torch.allclose(out[: packed.num_graphs], plain[: packed.num_graphs], atol=1e-5)
     runs += len(layouts)
 assert runs == 38, runs
+import contextlib, io
+from flowgnn_tpu_torch.bench import ablate_gat_mega, matmul_shapes
+assert matmul_shapes.measure(8, 64, 128, 2, 2, "int8", reps=1, trials=1, device="cpu") > 0
+with contextlib.redirect_stdout(io.StringIO()) as table:
+    ablate_gat_mega.main(["--device", "cpu", "--graphs", "24", "--reps", "1", "--trials", "1",
+                          "--variants", "full,v3,v4,v5"])
+assert len(table.getvalue().splitlines()) == 6, table.getvalue()
 print("ok", len(mods))
 """
 
@@ -89,4 +97,4 @@ def test_port_runs_without_jax():
     )
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.startswith("ok "), proc.stdout
-    assert int(proc.stdout.split()[1]) >= 18  # every module was walked
+    assert int(proc.stdout.split()[1]) >= 21  # every module was walked, bench's too
