@@ -20,9 +20,13 @@ Phases, each of which raises (non-zero exit) on failure:
 1. the device and ``nvidia-smi``'s name and power limit;
 2. the twenty-four hand-written kernels built from the twenty-two sources of
    ``flowgnn_tpu_torch/csrc`` (rows 16 and 18 share one, rows 10 and 12 are
-   one kernel, rows 27-30 one), one ``nvcc`` per source, all started
-   together (build time and each compiler's register / shared-memory
-   report);
+   one kernel, rows 27-30 one) and their headers (``hopper.cuh`` holds the
+   wgmma, mbarrier and bulk-copy blocks of rows 8 and 26), one ``nvcc`` per
+   source, all started together (build time and each compiler's register /
+   shared-memory report); each library's count of tensor-core (HGMMA,
+   HMMA, IMMA), bulk-copy / TMA (UBLKCP, UTMALDG) and FFMA instructions in
+   its SASS (``cuobjdump -sass``), rows 8 and 26 required to hold HGMMA and
+   row 26 a bulk copy or TMA load;
 3. each slot kernel against its plain torch version on the card, at the
    main path's shapes (a real bucket's slot layout at full width: GIN D=100,
    H=200, L=5, with and without the analytic-VN column; GCN D=100, L=5;
@@ -117,6 +121,9 @@ Phases, each of which raises (non-zero exit) on failure:
 5d. the same for the paths of phase 4e;
 5e. the same for the paths of phase 4f; the windowed scatter on the
    edge-block layout beside ``index_add_`` of the same values;
+5f. row 8 alone on its four cells (GIN / GIN-VN over the hep10k ELL W=512
+   and the molhiv ELL streams), its bf16 form (the wgmma MLP) and its f32
+   form (the FMA MLP) in turns: bf16, f32, f32, bf16;
 6. the bench tools (``flowgnn_tpu_torch.bench``). 6a: row 26
    (``chained_matmul``) on every ``matmul_shapes.SHAPES`` row at full size
    in its dtype, equal to layers·K on all-ones operands and to its plain
@@ -288,6 +295,60 @@ CHAIN_RECORD = 0  # "gin gather/scatter [896,384]@[384,128]", bf16
 ABLATION_GRAPHS = 1028  # the JAX tool's default bucket
 ABLATION_RECORD = ("v3", "full")
 TOOL_REPS, TOOL_TRIALS = 20, 2
+
+
+# Phase 2: the libraries whose SASS must hold tensor-core (HGMMA) and, for
+# row 26, bulk-copy or TMA instructions (UBLKCP / UTMALDG), and the
+# instructions counted in every library's SASS.
+SASS_NEEDS = {"chained_matmul": ("HGMMA", "UBLKCP|UTMALDG"), "gin_local_model": ("HGMMA",)}
+SASS_OPS = ("HGMMA", "UBLKCP", "UTMALDG", "HMMA", "IMMA", "FFMA")
+# Phase 5f: row 8's cells, timed bf16 (wgmma MLP) and f32 (FMA MLP) in turns.
+ROW8_CELLS = [("gin", "hep10k", ELL), ("gin-vn", "hep10k", ELL), ("gin", "molhiv", ELL),
+              ("gin-vn", "molhiv", ELL)]
+
+
+def cuobjdump_path() -> str:
+    """``cuobjdump`` from ``$CUDA_HOME``, the default toolkit, PATH or the
+    ``triton`` package's copy."""
+    import os
+    import shutil
+
+    for home in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
+        if home and os.access(os.path.join(home, "bin", "cuobjdump"), os.X_OK):
+            return os.path.join(home, "bin", "cuobjdump")
+    found = shutil.which("cuobjdump")
+    if found:
+        return found
+    import importlib.util
+
+    spec = importlib.util.find_spec("triton")
+    if spec and spec.origin:
+        path = os.path.join(os.path.dirname(spec.origin), "backends", "nvidia", "bin", "cuobjdump")
+        if os.access(path, os.X_OK):
+            return path
+    raise RuntimeError("cuobjdump not found")
+
+
+def sass_counts(so) -> dict:
+    """Per instruction of ``SASS_OPS``, how many times it stands in the
+    library's SASS (``cuobjdump -sass``)."""
+    import re
+
+    sass = subprocess.run([cuobjdump_path(), "-sass", str(so)], capture_output=True, text=True,
+                          check=True).stdout
+    return {op: len(re.findall(rf"\b{op}\b", sass)) for op in SASS_OPS}
+
+
+def check_sass(libs) -> None:
+    """Phase 2's SASS check: each library's instruction counts printed; the
+    tensor-core kernels (``SASS_NEEDS``) must hold their instructions."""
+    for so in libs:
+        name = so.name.rsplit("-", 1)[0]
+        counts = sass_counts(so)
+        print(f"# sass {name}: " + ", ".join(f"{k} {v}" for k, v in counts.items()))
+        for need in SASS_NEEDS.get(name, ()):
+            check(sum(counts[op] for op in need.split("|")) > 0,
+                  f"{name}: no {need} instruction in its SASS")
 
 
 def check(cond: bool, msg: str) -> None:
@@ -1244,6 +1305,34 @@ def time_paths(streams: dict, device, keys) -> dict:
     return record
 
 
+def time_row8_turns(streams: dict, device) -> dict:
+    """Phase 5f: row 8 alone on each cell of ``ROW8_CELLS``, its bf16 form
+    (the wgmma MLP) and its f32 form (the FMA MLP) on the same stream in
+    turns, bf16, f32, f32, bf16 (``cuda_ms`` each). Returns per cell the two
+    forms' mean ms per stream."""
+    from flowgnn_tpu_torch.core.numerics import BF16, FLOAT32
+    from flowgnn_tpu_torch.params.loaders import params_from_numpy
+
+    kernel = kernel_fn("gin_local_model")
+    record = {}
+    for key in ROW8_CELLS:
+        name = key[0]
+        batches = streams[key][1]
+        params_np = synthetic_params(name, SEED)
+        calls = {prec: kernel_calls("gin_local_model", name,
+                                    params_from_numpy(params_np, prec, device), batches, prec)
+                 for prec in (BF16, FLOAT32)}
+        times = {BF16: [], FLOAT32: []}
+        for prec in (BF16, FLOAT32, FLOAT32, BF16):
+            times[prec].append(cuda_ms(lambda: [kernel(**o) for o in calls[prec]]))
+        record[key] = tuple(sum(times[p]) / 2 for p in (BF16, FLOAT32))
+        print(f"# time row 8 {' '.join(key)} in turns: bf16 (wgmma MLP) "
+              f"{times[BF16][0]:.4f} / {times[BF16][1]:.4f} ms, f32 (FMA MLP) "
+              f"{times[FLOAT32][0]:.4f} / {times[FLOAT32][1]:.4f} ms per stream "
+              f"({len(calls[BF16])} launches)")
+    return record
+
+
 def profile_path(key: tuple, streams: dict, device) -> None:
     """``--profile``: ``torch.profiler`` over ``PROFILE_PASSES`` bf16 passes
     of one path's whole stream, after 3 warm-up passes."""
@@ -1513,6 +1602,7 @@ def main() -> int:
         print(f"# {so.name}:")
         for line in so.with_suffix(".log").read_text().splitlines():
             print(f"#   {line}")
+    check_sass(libs)
 
     # The main paths' host half (phases 3, 3b and 3c run on real buckets' layouts).
     t0 = time.perf_counter()
@@ -1589,6 +1679,7 @@ def main() -> int:
     molhiv_ell_keys = [(name, "molhiv", ELL) for name in ELL_MODELS]
     record = time_paths(streams, dev, slot_keys + hep_keys + molhiv_ell_keys + spill_keys
                         + layer_keys + new_keys + block_keys)
+    time_row8_turns(streams, dev)
 
     # 6. The bench tools: checks, their main runs (counted), timings.
     check_chained_matmul(dev, max_err)

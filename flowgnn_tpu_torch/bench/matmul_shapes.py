@@ -5,7 +5,8 @@ The counterpart of ``flowgnn_tpu.bench.matmul_shapes``: per shape, ``grid``
 tiles of ``M`` rows of A run ``layers`` dependent products with one shared B
 (no gather, no masks, no kernel glue), bf16 and int8, at exactly the shapes
 of the JAX package's kernels plus a fat anchor. ``chained_matmul`` is the
-hand-written tensor-core kernel (``csrc/chained_matmul.cu``);
+hand-written ``wgmma`` kernel (``csrc/chained_matmul.cu``), which takes B
+packed K-major into its shared-memory layout (``ops.tiles``);
 ``chained_matmul_ref`` its plain version.
 
 Run on the card: ``python -m flowgnn_tpu_torch.bench.matmul_shapes [--reps
@@ -29,6 +30,7 @@ import time
 import torch
 
 from ..ops.build import load_library
+from ..ops.tiles import kmajor_tiles
 from .roofline import H100
 
 # (label, M, K, N, layers per step, grid, dtype): the JAX tool's shapes.
@@ -76,8 +78,8 @@ def _library() -> dict:
     fns = {}
     for name, args, res in (
         ("max_n", [], i32), ("smem_optin", [i32], ctypes.c_longlong),
-        ("smem_bytes", [i32] * 3, ctypes.c_longlong),
-        ("launch", [i32] + [ptr] * 3 + [i32] * 5 + [ptr], i32),
+        ("padded_n", [i32] * 3 + [ctypes.c_longlong, ctypes.POINTER(ctypes.c_longlong)], i32),
+        ("launch", [i32] + [ptr] * 3 + [i32] * 6 + [ptr], i32),
         ("empty_launch", [i32, ptr], i32), ("error_string", [i32], ctypes.c_char_p),
     ):
         f = getattr(lib, f"cmm_{name}")
@@ -114,13 +116,16 @@ def _launch(a: torch.Tensor, b: torch.Tensor, layers: int, grid: int) -> torch.T
     limit = lib["smem_optin"](dev.index)
     if limit < 0:
         raise RuntimeError(lib["error_string"](int(-limit)).decode())
-    smem = lib["smem_bytes"](code, k, n)
-    if smem > limit:
-        raise ValueError(f"K={k}, N={n} need {smem} B of shared memory per block; this "
-                         f"card allows {limit} B")
+    smem = ctypes.c_longlong(0)
+    np_ = lib["padded_n"](code, k, n, limit, ctypes.byref(smem))
+    if np_ == 0:
+        raise ValueError(f"K={k}, N={n}: no layout of the kernel fits this card's {limit} B "
+                         "of shared memory per block")
+    # B as the kernel's wgmma operand: Bᵀ K-major, N padded to its tile.
+    bt = kmajor_tiles(b.t(), np_, k)
     out = torch.empty(rows, n, dtype=torch.float32, device=dev)
-    rc = lib["launch"](code, a.data_ptr(), b.data_ptr(), out.data_ptr(), rows, k, n, layers,
-                       dev.index, torch.cuda.current_stream(dev).cuda_stream)
+    rc = lib["launch"](code, a.data_ptr(), bt.data_ptr(), out.data_ptr(), rows, k, n, np_,
+                       layers, dev.index, torch.cuda.current_stream(dev).cuda_stream)
     _raise_on(lib, rc, "chained_matmul launch")
     chained_matmul.launches += 1
     return out

@@ -21,7 +21,8 @@ rows:
 Over the k=1 ELL layout, one thread-block cluster per window of 128 to 1024
 rows (128 rows per block):
 
-- ``gin_local_model``: GIN / GIN-VN (``csrc/gin_local_model.cu``);
+- ``gin_local_model``: GIN / GIN-VN (``csrc/gin_local_model.cu``; its
+  bf16 update MLP on the tensor cores through ``wgmma``);
 - ``gcn_local_model``: GCN (``csrc/gcn_local_model.cu``).
 
 The per-layer slot kernels run one layer per launch, over a slot batch with
@@ -100,6 +101,7 @@ from typing import Optional
 import torch
 
 from .build import load_library
+from .tiles import kmajor_tiles
 
 # Every CUDA source of the port (``csrc/<name>.cu``), this module's kernels
 # and ``ops.spmm``'s.
@@ -1152,8 +1154,8 @@ def _library(name: str) -> dict:
             [_I32] + [_PTR] * 9 + [_I32] * 8 + [_INT_P, _I32, _I32, _PTR],
         ),
         "gin_local_model": (
-            "gin_ell", ell_getters, [_I32] * 4,
-            [_I32] + [_PTR] * 12 + [_I32] * 10 + [_I32, _PTR],
+            "gin_ell", ell_getters, [_I32] * 6,
+            [_I32] + [_PTR] * 14 + [_I32] * 10 + [_I32, _PTR],
         ),
         "gcn_local_model": (
             "gcn_ell", ell_getters, [_I32] * 4,
@@ -1225,6 +1227,10 @@ def _library(name: str) -> dict:
         f = getattr(lib, f"{prefix}_{suffix}")
         f.argtypes, f.restype = args, res
         fns[suffix] = f
+    if name == "gin_local_model":  # the bf16 form's weight tiles
+        f = lib.gin_ell_tiles
+        f.argtypes, f.restype = [_I32, _I32, _INT_P], None
+        fns["tiles"] = f
     return fns
 
 
@@ -1482,6 +1488,18 @@ def _ell_block(ell_meta: torch.Tensor, nw: int, dev) -> int:
     return lanes // nw
 
 
+def gin_mlp_tiles(w1_all: torch.Tensor, w2_all: torch.Tensor, num_layers: int, dims):
+    """The bf16 ``gin_local_model``'s weight tiles: per layer W1 [H, D] as
+    the wgmma B operand [D'/8, H', 8] and W2 [D, H] as [H'/8, N2, 8]
+    (``ops.tiles.kmajor_tiles``, zero-padded), ``dims`` = (D', H', N2) as
+    the kernel's ``gin_ell_tiles`` gives them."""
+    L = num_layers
+    hid, d = w1_all.shape[0] // L, w1_all.shape[1]
+    dp, hp, n2 = dims
+    return (kmajor_tiles(w1_all.view(L, hid, d), hp, dp),
+            kmajor_tiles(w2_all.view(L, d, hid), n2, hp))
+
+
 def _launch_gin_ell(ell_meta, h0, pool_gl, ee_tables, w1_all, b1_all, w2_all, b2_all,
                     eps_all, pred_w, window, num_layers, gmax, vn_col) -> torch.Tensor:
     code = _dtype_code(h0.dtype)
@@ -1494,7 +1512,12 @@ def _launch_gin_ell(ell_meta, h0, pool_gl, ee_tables, w1_all, b1_all, w2_all, b2
     block = _ell_block(ell_meta, nw, dev)
 
     lib = _library("gin_local_model")
-    _check_ell_geometry(lib, d, window, lib["smem_bytes"](d, vocab, gmax, t_out), dev)
+    _check_ell_geometry(lib, d, window, lib["smem_bytes"](code, d, hid, vocab, gmax, t_out), dev)
+    w1t = w2t = None
+    if code == 1:  # the wgmma MLP reads W1 and W2 as tiles, packed per launch
+        dims = (ctypes.c_int * 3)()
+        lib["tiles"](d, hid, dims)
+        w1t, w2t = gin_mlp_tiles(w1_all, w2_all, L, tuple(dims))
     out = torch.empty((nw * gmax, t_out), dtype=torch.float32, device=dev)
     rc = lib["launch"](
         code,
@@ -1502,6 +1525,7 @@ def _launch_gin_ell(ell_meta, h0, pool_gl, ee_tables, w1_all, b1_all, w2_all, b2
         ee_tables.data_ptr(), w1_all.data_ptr(), b1_all.data_ptr(),
         w2_all.data_ptr(), b2_all.data_ptr(), eps_all.data_ptr(),
         pred_w.data_ptr(), None if vn_col is None else vn_col.data_ptr(),
+        None if w1t is None else w1t.data_ptr(), None if w2t is None else w2t.data_ptr(),
         out.data_ptr(),
         nw, n, window, block, d, hid, L, vocab, gmax, t_out,
         dev.index, torch.cuda.current_stream(dev).cuda_stream,
@@ -1533,7 +1557,10 @@ def gin_local_model(
     Operands as in ``gin_local_model_ref``. A CPU tensor runs the plain
     version; a CUDA tensor launches the kernel (float32 or bfloat16
     activations and weights, int32 ``ell_meta`` / ``pool_gl``, float32
-    ``eps_all``) or raises. Each launch adds one to
+    ``eps_all``) or raises. In bfloat16 the kernel's update MLP runs on the
+    tensor cores (``wgmma``) from weight tiles packed here per launch
+    (``gin_mlp_tiles``); a width it cannot take (D > 112, or tiles past the
+    card's shared memory) raises. Each launch adds one to
     ``gin_local_model.launches``."""
     args = (ell_meta, h0, pool_gl, ee_tables, w1_all, b1_all, w2_all, b2_all,
             eps_all, pred_w, window, num_layers, gmax, vn_col)

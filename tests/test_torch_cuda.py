@@ -196,15 +196,16 @@ def _ell_batch(name: str, big: int, seed: int) -> dict:
     return base.as_batch(packed, blocked="local_ell", window=window, block=block)
 
 
-def _ell_operands(name: str, big: int, seed: int = 16) -> dict:
+def _ell_operands(name: str, big: int, seed: int = 16, d: int = D, hid: int = H) -> dict:
     """Operands of the GIN / GIN-VN (``gin_local_model``) or GCN
     (``gcn_local_model``) ELL kernel: the ELL layout of ``_ell_batch``, the
-    layout's own degree norms for GCN, seeded random h0 and weights, as
-    numpy arrays."""
+    layout's own degree norms for GCN, seeded random h0 and weights (width
+    ``d``, GIN's hidden width ``hid``), as numpy arrays."""
     batch = _ell_batch(name, big, seed)
     rng = np.random.default_rng(seed)
     f32 = lambda *s: rng.normal(0, 0.2, s).astype(np.float32)
     n = batch["node_feat"].shape[0]
+    D, H = d, hid
     common = dict(
         ell_meta=base.ell_meta(base.to_device(batch, "cpu")).numpy(), h0=f32(n, D),
         pool_gl=batch["pool_gl"], ee_tables=f32(L * 13, D), pred_w=f32(D, 1),
@@ -742,6 +743,53 @@ def test_ell_cuda_kernels_match_plain(name, big, dtype, tol, cuda_device):
     torch.testing.assert_close(got / scale, expect.float() / scale, rtol=tol, atol=tol)
 
 
+# Row 8's bf16 form runs its MLP on wgmma: widths whose D and H are not
+# multiples of 16 (D' = 48, H' = 96, N2 = 104) beside the models' own
+# (D' = 112, H' = 224, N2 = 104).
+GIN_WIDTHS = [(36, 72), (100, 200)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["gin", "gin-vn"])
+@pytest.mark.parametrize("big", ELL_BIG, ids=[f"W{w}" for w in (128, 256, 384, 512)])
+@pytest.mark.parametrize("d,hid", GIN_WIDTHS, ids=[f"D{d}-H{h}" for d, h in GIN_WIDTHS])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 5e-2)],
+                         ids=["f32", "bf16"])
+def test_gin_ell_cuda_kernel_widths_match_plain(name, big, d, hid, dtype, tol, cuda_device):
+    """Row 8 at every window and at two widths: bf16 through the wgmma
+    MLP (padded K, hidden chunks and output tile), f32 through the FMA MLP;
+    tolerances as in ``test_ell_cuda_kernels_match_plain``."""
+    ops = _port(_ell_operands(name, big, d=d, hid=hid), cuda_device, dtype)
+    before = local_layer.gin_local_model.launches
+    got = local_layer.gin_local_model(**ops)
+    torch.cuda.synchronize()
+    assert local_layer.gin_local_model.launches == before + 1
+    expect = local_layer.gin_local_model_ref(**ops)
+    assert expect.abs().max() > 1e-2
+    scale = max(1.0, expect.abs().max().item())
+    torch.testing.assert_close(got / scale, expect.float() / scale, rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+def test_gin_ell_cuda_kernel_rejects_bf16_outside_wgmma_plan(cuda_device):
+    """bf16 past the wgmma MLP's plan raises before launch: D = 120 (past
+    its K tile of 112) and H = 512 (W1 and W2 tiles past the card's shared
+    memory); the f32 FMA form takes H = 512."""
+    before = local_layer.gin_local_model.launches
+    for d, hid, match in ((120, 64, "tile"), (100, 512, "shared memory")):
+        ops = _port(_ell_operands("gin", 120, d=d, hid=hid), cuda_device, torch.bfloat16)
+        with pytest.raises(ValueError, match=match):
+            local_layer.gin_local_model(**ops)
+    assert local_layer.gin_local_model.launches == before
+    ops = _port(_ell_operands("gin", 120, d=100, hid=512), cuda_device, torch.float32)
+    got = local_layer.gin_local_model(**ops)
+    torch.cuda.synchronize()
+    assert local_layer.gin_local_model.launches == before + 1
+    expect = local_layer.gin_local_model_ref(**ops)
+    scale = max(1.0, expect.abs().max().item())
+    torch.testing.assert_close(got / scale, expect / scale, rtol=1e-4, atol=1e-4)
+
+
 _LAYER_CASES = [
     ("windowed_segment_sum", {}), ("pna_local_stats_ell", {}),
     ("dgn_local_layer_slots", {}), ("dgn_local_layer_slots", {"spill": True}),
@@ -1051,10 +1099,18 @@ def test_gat_layer_ell_cuda_kernel_overflowing_sentinel_lane_stays_finite(cuda_d
 
 
 # The chained matmul (row 26): (M, K, N, layers, grid, dtype), the CPU
-# test's shapes and two of SHAPES at full size.
+# test's shapes, two of SHAPES at full size, and the cases of the wgmma
+# layouts (the kernel's plan): K = 64 at N = 136 (rows mode, B resident),
+# K = 512 (rows mode, B streamed), K = 1024 (columns mode, B streamed), N
+# padded to the wgmma width (72 -> 128, 200 -> 256), int8 with N > 128
+# (columns mode), each at a row count that is not a multiple of the slab.
 _CHAIN_CASES = [(8, 64, 128, 1, 2, "bf16"), (64, 128, 136, 3, 2, "bf16"),
                 (8, 64, 136, 3, 2, "int8"), (64, 128, 128, 1, 2, "int8"),
-                matmul_shapes.SHAPES[0][1:], matmul_shapes.SHAPES[6][1:]]
+                matmul_shapes.SHAPES[0][1:], matmul_shapes.SHAPES[6][1:],
+                (40, 64, 136, 5, 3, "bf16"), (100, 512, 128, 3, 3, "bf16"),
+                (100, 1024, 256, 3, 3, "bf16"), (100, 1024, 256, 3, 3, "int8"),
+                (50, 256, 128, 5, 3, "int8"), (100, 128, 256, 5, 3, "bf16"),
+                (24, 96, 72, 2, 3, "bf16"), (24, 96, 200, 2, 3, "int8")]
 
 
 @pytest.mark.cuda
