@@ -2,18 +2,21 @@
 
     python3 chip_smoke.py            # the phases below
     python3 chip_smoke.py --profile  # profile the spill paths
+    python3 chip_smoke.py --profile --paths "gin hep10k,gin-vn hep10k"  # some of them
 
 ``--profile`` runs no phase: it builds the hep10k W=128 streams of PNA, DGN
 and GAT (slot spill tail) and of GIN, GIN-VN, GCN, DGN and GAT (ELL spill
 tail; GAT also with its fused layer), GIN's molhiv edge-block (plain and
 fused) and legacy local streams and PNA's molhiv edge-block stream beside
-the plain edge-list batches of the same packing, warms each path up, traces
-``PROFILE_PASSES`` bf16 passes over the whole stream with ``torch.profiler`` and prints per path the wall time and the
-device's busy time per pass (the sum of the device kernels' own times; one
-stream, so they do not overlap), the idle share 1 − busy / wall, the kernel
-launches per pass, the largest device items and the host operators with the
-most CPU time. The profiler adds host time, so the wall times and idle
-shares are upper bounds.
+the plain edge-list batches of the same packing (``--paths``: only the
+paths whose "model profile layout" starts with one of its comma-separated
+prefixes), warms each path up, traces ``PROFILE_PASSES`` bf16 passes over
+the whole stream with ``torch.profiler`` and prints per path the wall time
+and the device's busy time per pass (the sum of the device kernels' own
+times; one stream, so they do not overlap), the idle share 1 − busy / wall,
+the kernel launches per pass, the largest device items with their share of
+the busy time and the host operators with the most CPU time. The profiler
+adds host time, so the wall times and idle shares are upper bounds.
 
 Phases, each of which raises (non-zero exit) on failure:
 
@@ -21,18 +24,27 @@ Phases, each of which raises (non-zero exit) on failure:
 2. the twenty-four hand-written kernels built from the twenty-two sources of
    ``flowgnn_tpu_torch/csrc`` (rows 16 and 18 share one, rows 10 and 12 are
    one kernel, rows 27-30 one) and their headers (``hopper.cuh`` holds the
-   wgmma, mbarrier and bulk-copy blocks of rows 8 and 26), one ``nvcc`` per
-   source, all started together (build time and each compiler's register /
+   wgmma, mbarrier and bulk-copy blocks of rows 1, 8, 13 and 26,
+   ``gin_mlp.cuh`` the bf16 GIN MLP of rows 1, 8 and 13, ``gin_model.cuh``
+   the whole-model GIN kernel of rows 1 and 8), one ``nvcc`` per source, all
+   started together (build time and each compiler's register /
    shared-memory report); each library's count of tensor-core (HGMMA,
    HMMA, IMMA), bulk-copy / TMA (UBLKCP, UTMALDG) and FFMA instructions in
-   its SASS (``cuobjdump -sass``), rows 8 and 26 required to hold HGMMA and
-   row 26 a bulk copy or TMA load;
+   its SASS (``cuobjdump -sass``), rows 1, 8, 13 and 26 required to hold
+   HGMMA and a bulk copy (row 26: or a TMA load);
 3. each slot kernel against its plain torch version on the card, at the
    main path's shapes (a real bucket's slot layout at full width: GIN D=100,
    H=200, L=5, with and without the analytic-VN column; GCN D=100, L=5;
    PNA D=80, L=4, T=40; DGN D=100, L=4, T=50; GAT 4 heads × 16, L=5, T=1)
    with seeded random operands: f32 at rtol = atol = 1e-4 (summation order
-   only), bf16 at 5e-2 (tolerances as in ``agree``);
+   only), bf16 at 5e-2 (tolerances as in ``agree``); then the tensor-core
+   GIN kernels at each width of ``GIN_WIDTHS`` (D=36 / H=72, D=100 / H=200,
+   D=100 / H=512), f32 and bf16 (printing the bf16 launch's weight ring):
+   row 1 at W=128 (molhiv), W=256 (a synthetic bucket with 250-node graphs)
+   and W=512 (the hep10k slot bucket holding the largest graph), GIN and
+   GIN-VN; row 8 on the hep10k W=512 ELL bucket holding the largest graph;
+   row 13 on layer 0 of the hep10k W=128 ELL bucket with the longest spill
+   tail;
 3b. each ELL kernel (GIN with and without the VN column, GCN, full width)
    against its plain version the same way, on ELL buckets at W=128 (molhiv),
    W=256 and W=384 (synthetic, one large graph each) and W=512 (the hep10k
@@ -43,11 +55,11 @@ Phases, each of which raises (non-zero exit) on failure:
    layer 0's operands of the hep10k W=128 bucket with the longest spill
    tail, f32 and bf16;
 3d. each per-layer ELL kernel (``gin_local_layer_ell``, row 13, for GIN and
-   GIN-VN; ``gcn_local_message_ell``, row 14, and ``gcn_local_layer_ell``,
-   row 15, for GCN) and the spill scatter against its plain version on layer
-   0's operands of the hep10k W=128 ELL bucket with the longest spill tail
-   (rows 13, 14, 24) and of a molhiv W=128 ELL bucket (rows 13, 15), f32 and
-   bf16;
+   GIN-VN, in bf16 through the tensor-core MLP; ``gcn_local_message_ell``,
+   row 14, and ``gcn_local_layer_ell``, row 15, for GCN) and the spill
+   scatter against its plain version on layer 0's operands of the hep10k
+   W=128 ELL bucket with the longest spill tail (rows 13, 14, 24) and of a
+   molhiv W=128 ELL bucket (rows 13, 15), f32 and bf16;
 3e. rows 20 (``pna_local_layer``), 18 (``dgn_local_layer_ell``), 16
    (``dgn_local_message_ell``) and 17 (``gat_local_message_ell``) against
    their plain versions on layer 0's operands at full width, f32 and bf16:
@@ -74,7 +86,12 @@ Phases, each of which raises (non-zero exit) on failure:
 4b. the ELL path: GIN, GIN-VN and GCN over the 2048-graph synthetic hep10k
    stream at W=512 (``as_batches_uniform(local_ell)``, k=1, no spill), f32
    and bf16, counted and checked as in phase 4; then over the molhiv stream
-   at W=128, whose predictions must match the slot path's (f32 1e-4);
+   at W=128, whose predictions must match the slot path's (f32 1e-4). And
+   the hep10k slot path, the JAX bench's layout for GIN and GIN-VN there:
+   the same packing in ``local_slots`` at W=512 (``HEP_SLOT_WINDOW``; no
+   bucket spills), one row-1 launch per bucket and no other kernel, counted
+   and checked as in phase 4, its f32 predictions also against the ELL
+   W=512 path's (1e-4);
 4c. the spill path: PNA, DGN and GAT over the same hep10k sample at W=128
    (``as_batches_uniform(local_slots, window=128)``, the JAX bench's
    ``--ell-window 128``), whose window-crossing edges ride the spill tail:
@@ -121,9 +138,9 @@ Phases, each of which raises (non-zero exit) on failure:
 5d. the same for the paths of phase 4e;
 5e. the same for the paths of phase 4f; the windowed scatter on the
    edge-block layout beside ``index_add_`` of the same values;
-5f. row 8 alone on its four cells (GIN / GIN-VN over the hep10k ELL W=512
-   and the molhiv ELL streams), its bf16 form (the wgmma MLP) and its f32
-   form (the FMA MLP) in turns: bf16, f32, f32, bf16;
+5f. rows 8, 1 and 13 alone on their cells (``TURN_CELLS``), each kernel's
+   bf16 form (the wgmma MLP) and its f32 form (the FMA MLP) in turns: bf16,
+   f32, f32, bf16; launches, ms per stream, bound and share of the bound;
 6. the bench tools (``flowgnn_tpu_torch.bench``). 6a: row 26
    (``chained_matmul``) on every ``matmul_shapes.SHAPES`` row at full size
    in its dtype, equal to layers·K on all-ones operands and to its plain
@@ -158,6 +175,10 @@ NODE_CAP, GRAPH_CAP = 32768, 2048  # the JAX bench's bucket capacities
 STREAM_GRAPHS = 4113  # molhiv's graph count
 HEP_GRAPHS = 2048  # the JAX bench's default hep10k sample (bench.py)
 SPILL_WINDOW = 128  # the JAX bench's --ell-window 128 on hep10k
+# The JAX bench's slot window for GIN and GIN-VN on hep10k: every graph fits
+# its default ELL window, so they take local_slots there (bench.py:186-193).
+HEP_SLOT_WINDOW = 512
+HEP_SLOT_MODELS = ("gin", "gin-vn")
 MODELS = ("gin", "gin-vn", "gcn", "pna", "dgn", "gat")
 ELL_MODELS = ("gin", "gin-vn", "gcn")
 SPILL_MODELS = ("pna", "dgn", "gat")
@@ -297,14 +318,27 @@ ABLATION_RECORD = ("v3", "full")
 TOOL_REPS, TOOL_TRIALS = 20, 2
 
 
-# Phase 2: the libraries whose SASS must hold tensor-core (HGMMA) and, for
-# row 26, bulk-copy or TMA instructions (UBLKCP / UTMALDG), and the
-# instructions counted in every library's SASS.
-SASS_NEEDS = {"chained_matmul": ("HGMMA", "UBLKCP|UTMALDG"), "gin_local_model": ("HGMMA",)}
+# Phase 2: the libraries whose SASS must hold tensor-core (HGMMA) and
+# bulk-copy or TMA instructions (UBLKCP / UTMALDG), and the instructions
+# counted in every library's SASS.
+SASS_NEEDS = {"chained_matmul": ("HGMMA", "UBLKCP|UTMALDG"),
+              **{k: ("HGMMA", "UBLKCP") for k in ("gin_local_model", "gin_local_model_slots",
+                                                  "gin_local_layer_ell")}}
 SASS_OPS = ("HGMMA", "UBLKCP", "UTMALDG", "HMMA", "IMMA", "FFMA")
-# Phase 5f: row 8's cells, timed bf16 (wgmma MLP) and f32 (FMA MLP) in turns.
-ROW8_CELLS = [("gin", "hep10k", ELL), ("gin-vn", "hep10k", ELL), ("gin", "molhiv", ELL),
-              ("gin-vn", "molhiv", ELL)]
+# Phase 3: the (D, H) at which the tensor-core GIN kernels (rows 1, 8, 13)
+# are held to their plain versions: H' and D' padded, the models' own, and
+# H=512, whose 16 weight chunks a layer stream through a shorter ring.
+GIN_WIDTHS = ((36, 72), (100, 200), (100, 512))
+# Phase 5f: each tensor-core GIN kernel's cells, timed bf16 (wgmma MLP) and
+# f32 (FMA MLP) in turns.
+TURN_CELLS = {
+    "gin_local_model": [("gin", "hep10k", ELL), ("gin-vn", "hep10k", ELL),
+                        ("gin", "molhiv", ELL), ("gin-vn", "molhiv", ELL)],
+    "gin_local_model_slots": [("gin", "molhiv", SLOTS), ("gin-vn", "molhiv", SLOTS),
+                              ("gin", "hep10k", SLOTS)],
+    "gin_local_layer_ell": [("gin", "hep10k", ELL_LAYER), ("gin-vn", "hep10k", ELL_LAYER),
+                            ("gin", "molhiv", ELL_INTER)],
+}
 
 
 def cuobjdump_path() -> str:
@@ -610,9 +644,10 @@ def big_local_stream(name: str, device) -> tuple:
             [base.to_device(base.as_batch(packed), device)])
 
 
-def big_graph_bucket(name: str, big: int, device) -> dict:
-    """One ELL bucket of 200 molhiv-shaped graphs and four of ``big`` nodes
-    at the window ``choose_geometry`` gives them, on ``device``."""
+def big_graph_bucket(name: str, big: int, device, layout=ELL) -> dict:
+    """One ELL (or slot) bucket of 200 molhiv-shaped graphs and four of
+    ``big`` nodes at the window ``choose_geometry`` gives them, on
+    ``device``."""
     import numpy as np
 
     from flowgnn_tpu_torch.core.graphs import pack_graphs_aligned
@@ -627,18 +662,22 @@ def big_graph_bucket(name: str, big: int, device) -> dict:
     window, block = base.choose_geometry(name, max(g.num_nodes for g in graphs))
     packed = pack_graphs_aligned(graphs, node_capacity=8191, edge_capacity=32768,
                                  graph_capacity=256, window=window)
-    return base.to_device(base.as_batch(packed, blocked=ELL, window=window, block=block), device)
+    batch = base.as_batch(packed, blocked=layout, window=window, block=block)
+    check(layout != SLOTS or "slot_meta" in batch, f"{name}: the W={window} slot bucket spills")
+    return base.to_device(batch, device)
 
 
-def gin_random_operands(batch: dict, vn: bool, dtype, device, seed: int) -> dict:
-    """GIN kernel operands at full width on a real bucket's slot or ELL
-    layout, with seeded random h0 and weights."""
+def gin_random_operands(batch: dict, vn: bool, dtype, device, seed: int, d: int = 100,
+                        hid: int = 200) -> dict:
+    """GIN kernel operands on a real bucket's slot or ELL layout, with
+    seeded random h0 and weights, at full width or at width ``d`` and hidden
+    width ``hid``."""
     import numpy as np
     import torch
 
     from flowgnn_tpu_torch.models import base
 
-    L, D, H = 5, 100, 200
+    L, D, H = 5, d, hid
     rng = np.random.default_rng(seed)
     t = lambda *s: torch.from_numpy(rng.normal(0, 0.05, s).astype(np.float32)).to(device, dtype)
     n = batch["node_feat"].shape[0]
@@ -703,12 +742,15 @@ def compare(kname: str, ops: dict, what: str, tol: float) -> float:
     returns the max abs error."""
     import torch
 
-    got = kernel_fn(kname)(**ops)
+    kernel = kernel_fn(kname)
+    got = kernel(**ops)
+    ring = getattr(kernel, "stages", 0)  # the bf16 GIN MLP's weight ring, 0 in f32
     want = kernel_fn(kname, plain=True)(**ops)
     torch.cuda.synchronize()
     err = agree(got, want, tol)
+    ring = f", weight ring of {ring}" if ring else ""
     print(f"# kernel vs plain, {kname} {what}: max abs err {err:.3e} "
-          f"(max |out| {want.float().abs().max().item():.3e})")
+          f"(max |out| {want.float().abs().max().item():.3e}){ring}")
     return err
 
 
@@ -733,6 +775,58 @@ def check_kernels(streams: dict, device, max_err: dict) -> None:
         max_err[kname] = max(max_err[kname], err)
 
 
+def largest_bucket(streams: dict, key: tuple) -> tuple:
+    """(the bucket of a stream holding its largest graph, that graph's
+    nodes, the bucket's index)."""
+    buckets, batches, _ = streams[key]
+    sizes = [int(b.n_node[: b.num_graphs].max()) for b in buckets]
+    i = max(range(len(buckets)), key=sizes.__getitem__)
+    return batches[i], sizes[i], i
+
+
+def check_gin_kernels(streams: dict, device, max_err: dict) -> None:
+    """Phase 3, the tensor-core GIN kernels at each width of ``GIN_WIDTHS``,
+    f32 (1e-4) and bf16 (5e-2), seeded random operands: row 1 at W=128
+    (molhiv bucket 0), W=256 (a synthetic bucket with 250-node graphs) and
+    W=512 (the hep10k slot bucket holding the largest graph), GIN and
+    GIN-VN (the VN column); row 8 on the hep10k W=512 ELL bucket holding
+    the largest graph; row 13 on layer 0 of the hep10k W=128 ELL bucket
+    with the longest spill tail (seeded synthetic weights of the width)."""
+    from flowgnn_tpu_torch.core.numerics import BF16, FLOAT32
+    from flowgnn_tpu_torch.models import gin
+    from flowgnn_tpu_torch.params.loaders import params_from_numpy, synthetic_gin_params
+
+    precs = ((FLOAT32, 1e-4), (BF16, 5e-2))
+    for name in HEP_SLOT_MODELS:
+        vn = name == "gin-vn"
+        hep, big, i = largest_bucket(streams, (name, "hep10k", SLOTS))
+        ell, ell_big, j = largest_bucket(streams, (name, "hep10k", ELL))
+        cases = [("gin_local_model_slots", streams[name, "molhiv", SLOTS][1][0],
+                  "W=128 molhiv bucket 0"),
+                 ("gin_local_model_slots", big_graph_bucket(name, 250, device, SLOTS),
+                  "W=256 synthetic bucket, 250-node graphs"),
+                 ("gin_local_model_slots", hep, f"W=512 hep10k bucket {i}, a {big}-node graph"),
+                 ("gin_local_model", ell, f"W=512 hep10k ELL bucket {j}, a {ell_big}-node graph")]
+        for (kname, batch, what), (d, hid) in (
+                (c, w) for c in cases for w in GIN_WIDTHS):
+            for prec, tol in precs:
+                dt = prec.compute_dtype
+                err = compare(kname, gin_random_operands(batch, vn, dt, device, SEED + 1, d, hid),
+                              f"{name} {what} D={d} H={hid} {dt}", tol)
+                if prec is FLOAT32:
+                    max_err[kname] = max(max_err[kname], err)
+        batch, what = longest_ell_spill(streams, name)
+        for d, hid in GIN_WIDTHS:
+            for prec, tol in precs:
+                params = params_from_numpy(synthetic_gin_params(SEED + 1, dim=d, hidden=hid),
+                                           prec, device)
+                ops = gin.layer_kernel_operands(params, batch, prec)["gin_local_layer_ell"]
+                err = compare("gin_local_layer_ell", ops, f"{name} {what} layer 0 D={d} H={hid} "
+                              f"{prec.compute_dtype}", tol)
+                if prec is FLOAT32:
+                    max_err["gin_local_layer_ell"] = max(max_err["gin_local_layer_ell"], err)
+
+
 def check_ell_kernels(streams: dict, device, max_err: dict) -> None:
     """Phase 3b: each ELL kernel against its plain version at W=128, 256,
     384 and 512; the W=512 bucket holds the hep10k stream's largest graph."""
@@ -740,16 +834,13 @@ def check_ell_kernels(streams: dict, device, max_err: dict) -> None:
 
     for name in ELL_MODELS:
         kname = MODEL_KERNELS[name][1]
-        buckets, batches, _ = streams[name, "hep10k", ELL]
-        sizes = [int(b.n_node[: b.num_graphs].max()) for b in buckets]
-        i = max(range(len(buckets)), key=sizes.__getitem__)
-        largest = sizes[i]
+        batch, largest, i = largest_bucket(streams, (name, "hep10k", ELL))
         check(largest >= 385, f"{name}: the largest hep10k graph has {largest} nodes")
         cases = [
             (streams[name, "molhiv", ELL][1][0], "molhiv bucket"),
             (big_graph_bucket(name, 250, device), "synthetic bucket, 250-node graphs"),
             (big_graph_bucket(name, 380, device), "synthetic bucket, 380-node graphs"),
-            (batches[i], f"hep10k bucket {i}, a {largest}-node graph"),
+            (batch, f"hep10k bucket {i}, a {largest}-node graph"),
         ]
         for batch, what in cases:
             what = f"W={base.ell_geometry(batch)[0]} {what}"
@@ -1043,6 +1134,25 @@ def describe_ell(streams: dict) -> None:
                   f"{int(buckets[i].n_node[: buckets[i].num_graphs].max())} nodes")
 
 
+def describe_hep_slots(streams: dict) -> None:
+    """Phase 4b's slot geometry on hep10k: per GIN / GIN-VN bucket at
+    ``HEP_SLOT_WINDOW`` the windows, slots, prefix caps and lanes per window;
+    no bucket may spill."""
+    from flowgnn_tpu_torch.models import base
+
+    for name in HEP_SLOT_MODELS:
+        buckets, batches, _ = streams[name, "hep10k", SLOTS]
+        for i, b in enumerate(batches):
+            w, s = b["slot_geom"].shape
+            nw = -(-b["node_feat"].shape[0] // w)
+            check(w == HEP_SLOT_WINDOW and "slot_meta" in b and not bool(b["slot_spill_mask"].any()),
+                  f"{name} hep10k slot bucket {i}: W={w}, spills")
+            print(f"# slots {name} hep10k bucket {i}: {buckets[i].num_graphs} graphs, W={w}, "
+                  f"{nw} windows, S={s}, prefix caps {base.slot_prefix_caps(b, s)}, "
+                  f"{b['slot_meta'].shape[0] // nw} lanes per window, no spill, largest graph "
+                  f"{int(buckets[i].n_node[: buckets[i].num_graphs].max())} nodes")
+
+
 def describe_spill(streams: dict) -> None:
     """Phase 4c's geometry: per hep10k W=128 slot stream and bucket, the
     slots, the real spill lanes, the blocked lanes and the compact scatter
@@ -1144,6 +1254,41 @@ def check_ell_matches_slots(streams: dict, device) -> dict:
     return launches
 
 
+def check_hep_slots_match_ell(streams: dict, device) -> dict:
+    """Phase 4b, hep10k: the slot path's f32 predictions at W=512 against the
+    ELL W=512 path's on the same packing (both kernel paths, rows 1 and 8;
+    summation order only: 1e-4), GIN and GIN-VN. Returns row 1's launches,
+    counted as in ``run_main_path``."""
+    import torch
+
+    from flowgnn_tpu_torch.core.numerics import FLOAT32
+    from flowgnn_tpu_torch.models import registry
+    from flowgnn_tpu_torch.params.loaders import params_from_numpy
+
+    kernels = {k: kernel_fn(k) for k in KERNELS}
+    launches = dict.fromkeys(KERNELS, 0)
+    for name in HEP_SLOT_MODELS:
+        forward = registry.get(name).forward
+        params = params_from_numpy(synthetic_params(name, SEED), FLOAT32, device)
+        buckets, slot, _ = streams[name, "hep10k", SLOTS]
+        want = [forward(params, b, FLOAT32) for b in streams[name, "hep10k", ELL][1]]
+        for k in kernels.values():
+            k.launches = 0
+        outs = [forward(params, b, FLOAT32) for b in slot]
+        torch.cuda.synchronize()
+        counts = {k: f.launches for k, f in kernels.items()}
+        expect = {k: len(slot) if k == "gin_local_model_slots" else 0 for k in KERNELS}
+        check(counts == expect, f"{name} hep10k slots: launches {counts}, expected {expect}")
+        for k, c in counts.items():
+            launches[k] += c
+        for i, (packed, out, w) in enumerate(zip(buckets, outs, want)):
+            k = packed.num_graphs
+            err = agree(out[:k], w[:k], 1e-4)
+            print(f"# hep10k {name} f32 bucket {i}: slot path (W={HEP_SLOT_WINDOW}) vs ELL path "
+                  f"(W=512), max abs err {err:.3e}; max |out| {w[:k].abs().max().item():.3e}")
+    return launches
+
+
 def nbytes(t) -> int:
     return t.numel() * t.element_size()
 
@@ -1180,9 +1325,10 @@ def work(kname: str, ops: dict, out) -> tuple[float, float]:
     import torch
 
     e = valid_lanes(ops)
+    # mlp_tiles is the bf16 GIN kernels' packed copy of W1 and W2, counted once as those.
     byts = nbytes(out) + sum(
         e * nbytes(v[0]) if k in LANE_OPERANDS else nbytes(v)
-        for k, v in ops.items() if torch.is_tensor(v))
+        for k, v in ops.items() if torch.is_tensor(v) and k != "mlp_tiles")
     L = ops.get("num_layers", 1)
     h = ops["h0"] if "h0" in ops else ops.get("h", ops.get("values"))
     n, d = h.shape
@@ -1305,31 +1451,42 @@ def time_paths(streams: dict, device, keys) -> dict:
     return record
 
 
-def time_row8_turns(streams: dict, device) -> dict:
-    """Phase 5f: row 8 alone on each cell of ``ROW8_CELLS``, its bf16 form
-    (the wgmma MLP) and its f32 form (the FMA MLP) on the same stream in
-    turns, bf16, f32, f32, bf16 (``cuda_ms`` each). Returns per cell the two
+def time_turns(streams: dict, device) -> dict:
+    """Phase 5f: each tensor-core GIN kernel alone on each of its
+    ``TURN_CELLS``, its bf16 form (the wgmma MLP) and its f32 form (the FMA
+    MLP) on the same stream in turns, bf16, f32, f32, bf16 (``cuda_ms``
+    each), with its launches per stream, its bound in each dtype and the
+    share of the bound each form reaches. Returns per (kernel, cell) the two
     forms' mean ms per stream."""
     from flowgnn_tpu_torch.core.numerics import BF16, FLOAT32
     from flowgnn_tpu_torch.params.loaders import params_from_numpy
 
-    kernel = kernel_fn("gin_local_model")
     record = {}
-    for key in ROW8_CELLS:
-        name = key[0]
-        batches = streams[key][1]
-        params_np = synthetic_params(name, SEED)
-        calls = {prec: kernel_calls("gin_local_model", name,
-                                    params_from_numpy(params_np, prec, device), batches, prec)
-                 for prec in (BF16, FLOAT32)}
-        times = {BF16: [], FLOAT32: []}
-        for prec in (BF16, FLOAT32, FLOAT32, BF16):
-            times[prec].append(cuda_ms(lambda: [kernel(**o) for o in calls[prec]]))
-        record[key] = tuple(sum(times[p]) / 2 for p in (BF16, FLOAT32))
-        print(f"# time row 8 {' '.join(key)} in turns: bf16 (wgmma MLP) "
-              f"{times[BF16][0]:.4f} / {times[BF16][1]:.4f} ms, f32 (FMA MLP) "
-              f"{times[FLOAT32][0]:.4f} / {times[FLOAT32][1]:.4f} ms per stream "
-              f"({len(calls[BF16])} launches)")
+    for kname, cells in TURN_CELLS.items():
+        kernel = kernel_fn(kname)
+        for key in cells:
+            name = key[0]
+            batches = streams[key][1]
+            params_np = synthetic_params(name, SEED)
+            calls, bound = {}, {}
+            for prec in (BF16, FLOAT32):
+                dt = str(prec.compute_dtype).replace("torch.", "")
+                calls[prec] = kernel_calls(kname, name, params_from_numpy(params_np, prec, device),
+                                           batches, prec, key)
+                outs = [kernel(**o) for o in calls[prec]]
+                flops, byts = map(sum, zip(*(work(kname, o, out)
+                                             for o, out in zip(calls[prec], outs))))
+                bound[prec] = max(flops / PEAK_FLOPS[dt], byts / MEM_BYTES_PER_S) * 1e3
+            times = {BF16: [], FLOAT32: []}
+            for prec in (BF16, FLOAT32, FLOAT32, BF16):
+                times[prec].append(cuda_ms(lambda: [kernel(**o) for o in calls[prec]]))
+            mean = {p: sum(times[p]) / 2 for p in times}
+            record[(kname, key)] = (mean[BF16], mean[FLOAT32])
+            print(f"# time {kname} {' '.join(key)} in turns ({len(calls[BF16])} launches): bf16 "
+                  f"(wgmma MLP) {times[BF16][0]:.4f} / {times[BF16][1]:.4f} ms, f32 (FMA MLP) "
+                  f"{times[FLOAT32][0]:.4f} / {times[FLOAT32][1]:.4f} ms per stream; bound bf16 "
+                  f"{bound[BF16]:.4f} ms ({bound[BF16] / mean[BF16]:.1%} of it reached), f32 "
+                  f"{bound[FLOAT32]:.4f} ms ({bound[FLOAT32] / mean[FLOAT32]:.1%})")
     return record
 
 
@@ -1369,7 +1526,9 @@ def profile_path(key: tuple, streams: dict, device) -> None:
     print(f"# profile {' '.join(key)} bf16: wall {wall:.3f} ms/pass, device busy {busy:.3f} "
           f"ms/pass, idle share {1 - busy / wall:.1%}, {launches:.0f} device kernels per pass")
     for e in kernels[:8]:
-        print(f"#   device {dev_time(e) / 1e3 / passes:8.3f} ms/pass  {e.count // passes:5d}x  {e.key[:90]}")
+        ms = dev_time(e) / 1e3 / passes
+        print(f"#   device {ms:8.3f} ms/pass {ms / busy:6.1%} of busy  {e.count // passes:5d}x  "
+              f"{e.key[:90]}")
     host = sorted((e for e in events if e.key.startswith("aten::")),
                   key=lambda e: e.self_cpu_time_total, reverse=True)
     for e in host[:8]:
@@ -1554,6 +1713,9 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--profile", action="store_true",
                     help="profile the per-layer paths only")
+    ap.add_argument("--paths", default="",
+                    help="--profile: only the paths whose 'model profile layout' starts with one "
+                         "of these comma-separated prefixes")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1581,8 +1743,10 @@ def main() -> int:
                   (("gin", "molhiv", BLOCKED), mol(True)), (("gin", "molhiv", FUSED), mol(True)),
                   (("gin", "molhiv", LOCAL), mol(LOCAL)),
                   (("pna", "molhiv", BLOCKED), mol(True)), (("pna", "molhiv", PLAIN), mol(True))]
+        prefixes = [p.strip() for p in args.paths.split(",") if p.strip()]
         for key, stream in paths:
-            profile_path(key, {key: make_stream(key[0], *stream)}, dev)
+            if not prefixes or any(" ".join(key).startswith(p) for p in prefixes):
+                profile_path(key, {key: make_stream(key[0], *stream)}, dev)
         return 0
     kind = torch.cuda.get_device_name(0)
     print(f"# device: {kind}, count {torch.cuda.device_count()}, torch "
@@ -1618,6 +1782,10 @@ def main() -> int:
     for name in LAYER_MODELS:
         streams[name, "hep10k", ELL_LAYER] = make_stream(name, "hep10k", HEP_GRAPHS, ELL, dev,
                                                          window=SPILL_WINDOW)
+    # GIN / GIN-VN's hep10k slot stream: the ELL W=512 stream's packing.
+    for name in HEP_SLOT_MODELS:
+        streams[name, "hep10k", SLOTS] = make_stream(name, "hep10k", HEP_GRAPHS, SLOTS, dev,
+                                                     window=HEP_SLOT_WINDOW)
     for name in INTER_MODELS:  # the molhiv ELL stream, run with intermediates
         streams[name, "molhiv", ELL_INTER] = streams[name, "molhiv", ELL]
     # PNA's molhiv slot stream, run with intermediates (row 20).
@@ -1643,6 +1811,7 @@ def main() -> int:
                   f"graphs, window {w}, slots {s}, prefix lanes per window "
                   f"{batches[0]['slot_meta'].shape[0] // nw}")
     describe_ell(streams)
+    describe_hep_slots(streams)
     describe_spill(streams)
     describe_ell_spill(streams)
     describe_blocks(streams)
@@ -1652,6 +1821,7 @@ def main() -> int:
     # 3. Kernels against their plain versions; 4. the main paths; 5. timings.
     slot_keys = [(name, "molhiv", SLOTS) for name in MODELS]
     hep_keys = [(name, "hep10k", ELL) for name in ELL_MODELS]
+    hep_slot_keys = [(name, "hep10k", SLOTS) for name in HEP_SLOT_MODELS]
     spill_keys = [(name, "hep10k", SLOTS) for name in SPILL_MODELS]
     layer_keys = [(name, "hep10k", ELL_LAYER) for name in ELL_MODELS]
     layer_keys += [(name, "molhiv", ELL_INTER) for name in INTER_MODELS]
@@ -1667,19 +1837,22 @@ def main() -> int:
     big_keys = [(name, BIG, LOCAL) for name in ("gin", "gin-vn")]
     max_err = dict.fromkeys(KERNELS, 0.0)
     check_kernels(streams, dev, max_err)
+    check_gin_kernels(streams, dev, max_err)
     check_ell_kernels(streams, dev, max_err)
     check_layer_kernels(streams, dev, max_err)
     check_ell_layer_kernels(streams, dev, max_err)
     check_new_layer_kernels(streams, dev, max_err)
     check_block_layer_kernels(streams, dev, max_err)
-    launches = run_main_path(streams, dev, slot_keys + hep_keys + spill_keys + layer_keys
-                             + new_keys + block_keys + big_keys)
+    launches = run_main_path(streams, dev, slot_keys + hep_keys + hep_slot_keys + spill_keys
+                             + layer_keys + new_keys + block_keys + big_keys)
     for k, n in check_ell_matches_slots(streams, dev).items():
         launches[k] += n
+    for k, n in check_hep_slots_match_ell(streams, dev).items():
+        launches[k] += n
     molhiv_ell_keys = [(name, "molhiv", ELL) for name in ELL_MODELS]
-    record = time_paths(streams, dev, slot_keys + hep_keys + molhiv_ell_keys + spill_keys
-                        + layer_keys + new_keys + block_keys)
-    time_row8_turns(streams, dev)
+    record = time_paths(streams, dev, slot_keys + hep_keys + hep_slot_keys + molhiv_ell_keys
+                        + spill_keys + layer_keys + new_keys + block_keys)
+    time_turns(streams, dev)
 
     # 6. The bench tools: checks, their main runs (counted), timings.
     check_chained_matmul(dev, max_err)

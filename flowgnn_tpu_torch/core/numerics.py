@@ -3,7 +3,7 @@
 The counterpart of ``flowgnn_tpu.core.numerics.Precision`` for the float
 modes: f32, f64 (exactness tests) and bf16 (the bench default). The ap_fixed
 emulation mode (``FixedSpec`` and the stage-boundary quantizer ``q``) is not
-ported yet (ROADMAP queue 1 item 10): a ``Precision`` with ``fixed`` set
+ported yet (ROADMAP queue 1 item 6): a ``Precision`` with ``fixed`` set
 raises, and in the float modes ``q`` is the identity, so the port's models
 leave it out.
 """

@@ -55,7 +55,7 @@ import torch
 from ..core.numerics import FLOAT32, Precision
 from ..ops.fused_layer import gin_layer_fused
 from ..ops.local_layer import (
-    gin_local_layer, gin_local_layer_ell, gin_local_model, gin_local_model_slots,
+    gin_local_layer, gin_local_layer_ell, gin_local_model, gin_local_model_slots, mlp_tiles,
 )
 from ..ops.segment import segment_sum
 from . import base as _base
@@ -101,6 +101,18 @@ def eps1_all(params: dict, prec: Precision, fpga_eps: bool = True) -> torch.Tens
     return (1.0 + _eps(params, prec, fpga_eps)).to(acc_dtype(prec)).reshape(-1, 1)
 
 
+def weight_tiles(params: dict, prec: Precision) -> Optional[torch.Tensor]:
+    """The bf16 GIN kernels' weight chunks of every layer, [L, C, ...]
+    (``ops.local_layer.mlp_tiles``: packed once per weight set, whatever the
+    buckets and layers a forward runs, and again after an in-place update of
+    the weights); None outside bf16, where the kernels read W1 and W2 as
+    they are."""
+    if prec.compute_dtype != torch.bfloat16:
+        return None
+    L, hid, d = params["mlp1_w"].shape
+    return mlp_tiles(params["mlp1_w"].reshape(L * hid, d), params["mlp2_w"].reshape(L * d, hid), L)
+
+
 def _model_operands(params: dict, batch: dict, prec: Precision, fpga_eps: bool) -> dict:
     """The whole-model kernels' operands other than the layout's."""
     dt = prec.compute_dtype
@@ -117,6 +129,7 @@ def _model_operands(params: dict, batch: dict, prec: Precision, fpga_eps: bool) 
         pred_w=params["pred_w"].T.to(dt).contiguous(),
         num_layers=L, gmax=_base.POOL_GMAX,
         vn_col=batch["vn_mask"].to(dt) if "vn_mask" in batch else None,
+        mlp_tiles=weight_tiles(params, prec),
     )
 
 
@@ -150,9 +163,11 @@ def ell_layer_operands(params: dict, batch: dict, prec: Precision, l: int, h: to
     ``base.ell_meta(batch)``, ``spill`` is ``base.ell_spill(batch)``,
     ``eps_all`` the [L, 1] 1+ε as ``eps1_all`` gives it. ``m_spill`` is the
     spill tail's messages summed per node plus GIN-VN's VN messages, or None
-    when there are neither. With ``lane_ee`` the bond embedding goes in per
-    ELL lane (``ee``, from ``bond_embed``, rounded to the compute dtype) and
-    not as the layer's table, so the layer runs the per-lane kernel."""
+    when there are neither; ``mlp_tiles`` layer ``l``'s slice of
+    ``weight_tiles``. With ``lane_ee`` the bond embedding goes in per ELL
+    lane (``ee``, from ``bond_embed``, rounded to the compute dtype) and not
+    as the layer's table, so the layer runs the per-lane kernel, which reads
+    W1 and W2 as they are."""
     table = params["edge_embedding"][l]
     m_spill = None
     if spill is not None:
@@ -167,6 +182,9 @@ def ell_layer_operands(params: dict, batch: dict, prec: Precision, l: int, h: to
     if lane_ee:
         lanes = batch["loc_ulocal"].shape[0]
         ops.update(ee_table=None, ee=bond_embed(table, batch["edge_attr"][:lanes], prec))
+    else:
+        tiles = weight_tiles(params, prec)
+        ops["mlp_tiles"] = None if tiles is None else tiles[l]
     return ops
 
 

@@ -3,10 +3,15 @@
 Each wrapper here is the counterpart of one TPU kernel of
 ``flowgnn_tpu/ops/pallas/local_layer.py``. The whole-model kernels run a
 whole model (L layers plus the pooled prediction head) in one launch per
-bucket. Over the degree-sorted slot layout, one block per window of 128
-rows:
+bucket. Over the degree-sorted slot layout:
 
-- ``gin_local_model_slots``: GIN / GIN-VN (``csrc/gin_local_model_slots.cu``);
+- ``gin_local_model_slots``: GIN / GIN-VN (``csrc/gin_local_model_slots.cu``),
+  one thread-block cluster per window of 128 to 1024 rows, the kernel of
+  ``gin_local_model`` below with the slot message stage
+  (``csrc/gin_model.cuh``);
+
+and one block per window of 128 rows:
+
 - ``gcn_local_model_slots``: GCN (``csrc/gcn_local_model_slots.cu``);
 - ``pna_local_model``: PNA's conv stack and readout MLP-1
   (``csrc/pna_local_model.cu``);
@@ -21,8 +26,7 @@ rows:
 Over the k=1 ELL layout, one thread-block cluster per window of 128 to 1024
 rows (128 rows per block):
 
-- ``gin_local_model``: GIN / GIN-VN (``csrc/gin_local_model.cu``; its
-  bf16 update MLP on the tensor cores through ``wgmma``);
+- ``gin_local_model``: GIN / GIN-VN (``csrc/gin_local_model.cu``);
 - ``gcn_local_model``: GCN (``csrc/gcn_local_model.cu``).
 
 The per-layer slot kernels run one layer per launch, over a slot batch with
@@ -79,6 +83,13 @@ names each block's window):
 The spill tail's scatter is ``ops.spmm.windowed_segment_sum``; the fused
 edge-block layer ``gin_layer_fused`` is in ``ops.fused_layer``.
 
+The three GIN kernels of rows 1, 8 and 13 run their bf16 update MLP on the
+tensor cores through one routine (``csrc/gin_mlp.cuh``: ``wgmma``, the
+weights streamed in chunks of 32 hidden units through a ring of bulk copies)
+and their f32 MLP as FMA on the CUDA cores. Their weight chunks are packed on
+the host once per weight set (``mlp_tiles``); each wrapper picks the ring's
+depth by shape and records it as its ``stages``.
+
 On a CUDA tensor a wrapper launches its hand-written kernel, or raises; on a
 CPU tensor it runs its ``_ref``, the same function in plain torch, which the
 CPU tests hold against the JAX kernel. Each launch adds one to the wrapper's
@@ -94,6 +105,7 @@ here take int32 (u, v, three bond rows) per lane.
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import functools
 from typing import Optional
@@ -308,12 +320,14 @@ def gin_local_model_slots_ref(
     gmax: int,
     prefix_caps: tuple | None = None,
     vn_col: Optional[torch.Tensor] = None,  # [n] analytic-VN flag (GIN-VN)
+    mlp_tiles: Optional[torch.Tensor] = None,  # the kernel's packed weights; not read here
 ) -> torch.Tensor:
     """Plain-torch ``gin_local_model_slots``: [NW·GMAX, T] pool sums.
 
     Products and sums run in f32 (f64 when h0 is f64) and the activations
     are rounded to h0's dtype where the kernel rounds them. The result is
-    f32, or f64 for f64 inputs (the kernel has no f64 mode)."""
+    f32, or f64 for f64 inputs (the kernel has no f64 mode). ``mlp_tiles``,
+    the bf16 kernel's packed copy of W1 and W2, is not read."""
     caps, offs, _ = _slot_prefix_geom(prefix_caps, window, slots)
     lanes = _slot_lanes_of_meta(slot_meta, -(-h0.shape[0] // window), window,
                                 ee_tables.shape[0] // num_layers, caps, offs,
@@ -337,6 +351,7 @@ def gin_local_model_ref(
     num_layers: int,
     gmax: int,
     vn_col: Optional[torch.Tensor] = None,  # [n] analytic-VN flag (GIN-VN)
+    mlp_tiles: Optional[torch.Tensor] = None,  # the kernel's packed weights; not read here
 ) -> torch.Tensor:
     """Plain-torch ``gin_local_model`` (the k=1 ELL layout, B lanes per
     window): [NW·GMAX, T] pool sums. Numerics as in
@@ -804,6 +819,7 @@ def gin_local_layer_ell_ref(
     eps1: torch.Tensor,  # [1, 1] 1+ε, float32 (float64 for f64 h)
     window: int,
     final_relu: bool,
+    mlp_tiles: Optional[torch.Tensor] = None,  # the kernel's packed weights; not read here
 ) -> torch.Tensor:
     """Plain-torch ``gin_local_layer_ell``: the next h [n, D] in h's dtype.
 
@@ -814,7 +830,7 @@ def gin_local_layer_ell_ref(
     lies outside [0, W) reads a zero source and one whose v does lands
     nowhere, as the TPU kernel's one-hot gather and scatter give. ``rnd``
     rounds to h's dtype; products and sums run in f32 (f64 for f64 inputs).
-    ``m_spill=None`` adds nothing."""
+    ``m_spill=None`` adds nothing; ``mlp_tiles`` is not read."""
     cdt = h.dtype
     (gather, u_ok, _, accumulate), hf, ee, acc = _ell_layer_inputs(ell_meta, h, ee_table, window)
     agg = accumulate(_relu(hf[gather] * u_ok + ee).to(cdt).to(acc))
@@ -1128,14 +1144,17 @@ def _library(name: str) -> dict:
     ``_max_d`` and ``_max_slots``, a whole-model ELL library ``_max_d``,
     ``_rows_per_block`` and ``_max_cluster``, a per-layer ELL library
     ``_max_d``, ``_rows_per_block`` and ``_max_window_blocks`` (GAT's also
-    ``_max_heads``), as do the legacy local and fused edge-block layers."""
+    ``_max_heads``), as do the legacy local and fused edge-block layers. The
+    GIN slot library also exports ``_rows_per_block`` and ``_max_cluster``,
+    the three libraries of ``GIN_MLP_LIBRARIES`` ``_mlp_dims``, and row 13's
+    ``_smem_per_sm``."""
     slot_getters = ("max_d", "max_slots")
     ell_getters = ("max_d", "rows_per_block", "max_cluster")
     layer_getters = ("max_d", "rows_per_block", "max_window_blocks")
     prefix, getters, smem_args, launch_args = {
         "gin_local_model_slots": (
-            "gin_slots", slot_getters, [_I32] * 5 + [_INT_P, _I32],
-            [_I32] + [_PTR] * 12 + [_I32] * 10 + [_INT_P, _I32, _I32, _PTR],
+            "gin_slots", slot_getters + ("rows_per_block", "max_cluster"), [_I32] * 7,
+            [_I32] + [_PTR] * 13 + [_I32] * 10 + [_INT_P, _I32, _I32, _I32, _PTR],
         ),
         "gcn_local_model_slots": (
             "gcn_slots", slot_getters, [_I32] * 5 + [_INT_P, _I32],
@@ -1154,8 +1173,8 @@ def _library(name: str) -> dict:
             [_I32] + [_PTR] * 9 + [_I32] * 8 + [_INT_P, _I32, _I32, _PTR],
         ),
         "gin_local_model": (
-            "gin_ell", ell_getters, [_I32] * 6,
-            [_I32] + [_PTR] * 14 + [_I32] * 10 + [_I32, _PTR],
+            "gin_ell", ell_getters, [_I32] * 7,
+            [_I32] + [_PTR] * 13 + [_I32] * 11 + [_I32, _PTR],
         ),
         "gcn_local_model": (
             "gcn_ell", ell_getters, [_I32] * 4,
@@ -1178,8 +1197,8 @@ def _library(name: str) -> dict:
             [_I32] + [_PTR] * 4 + [_I32] * 5 + [_I32, _PTR],
         ),
         "gin_local_layer_ell": (
-            "gin_layer_ell", layer_getters, [_I32] * 2,
-            [_I32] + [_PTR] * 10 + [_I32] * 8 + [_I32, _PTR],
+            "gin_layer_ell", layer_getters, [_I32] * 5,
+            [_I32] + [_PTR] * 11 + [_I32] * 9 + [_I32, _PTR],
         ),
         "gcn_local_message_ell": (
             "gcn_msg_ell", layer_getters, [_I32] * 2,
@@ -1227,10 +1246,14 @@ def _library(name: str) -> dict:
         f = getattr(lib, f"{prefix}_{suffix}")
         f.argtypes, f.restype = args, res
         fns[suffix] = f
-    if name == "gin_local_model":  # the bf16 form's weight tiles
-        f = lib.gin_ell_tiles
+    if name in GIN_MLP_LIBRARIES:  # the bf16 form's weight chunks
+        f = getattr(lib, f"{prefix}_mlp_dims")
         f.argtypes, f.restype = [_I32, _I32, _INT_P], None
-        fns["tiles"] = f
+        fns["mlp_dims"] = f
+    if name == "gin_local_layer_ell":  # the ring's depth keeps two blocks an SM
+        f = lib.gin_layer_ell_smem_per_sm
+        f.argtypes, f.restype = [_I32], _I64
+        fns["smem_per_sm"] = f
     return fns
 
 
@@ -1269,9 +1292,13 @@ def _check_ell_geometry(lib, d: int, window: int, smem: int, dev) -> None:
     _check_smem(lib, d, window, smem, dev)
 
 
-def _check_smem(lib, d: int, window: int, smem: int, dev) -> None:
+def _check_tile(lib, d: int) -> None:
     if "max_d" in lib and d > lib["max_d"]():
         raise ValueError(f"D={d} exceeds the kernel's tile ({lib['max_d']()})")
+
+
+def _check_smem(lib, d: int, window: int, smem: int, dev) -> None:
+    _check_tile(lib, d)
     limit = lib["smem_optin"](dev.index)
     if limit < 0:
         raise RuntimeError(lib["error_string"](int(-limit)).decode())
@@ -1329,35 +1356,15 @@ def _check_gin(h0, pool_gl, ee_tables, w1_all, b1_all, w2_all, b2_all, eps_all,
 
 def _launch_gin(slot_meta, h0, pool_gl, ee_tables, w1_all, b1_all, w2_all, b2_all,
                 eps_all, pred_w, window, slots, num_layers, gmax, prefix_caps,
-                vn_col) -> torch.Tensor:
-    code = _dtype_code(h0.dtype)
+                vn_col, tiles) -> torch.Tensor:
     dev = h0.device
-    n, d = h0.shape
-    nw = -(-n // window)
+    nw = -(-h0.shape[0] // window)
     caps, _, sw = _slot_prefix_geom(prefix_caps, window, slots)
-    L = num_layers
-    vocab, hid, t_out = _check_gin(h0, pool_gl, ee_tables, w1_all, b1_all, w2_all,
-                                   b2_all, eps_all, pred_w, vn_col, window, L)
     _check("slot_meta", slot_meta, torch.int32, (nw * sw, 4), dev)
-
-    lib = _library("gin_local_model_slots")
-    caps_arr = (ctypes.c_int * len(caps))(*caps)
-    smem = lib["smem_bytes"](window, d, vocab, gmax, t_out, caps_arr, slots)
-    _check_geometry(lib, d, slots, caps, window, smem, dev)
-    out = torch.empty((nw * gmax, t_out), dtype=torch.float32, device=dev)
-    rc = lib["launch"](
-        code,
-        slot_meta.data_ptr(), h0.data_ptr(), pool_gl.data_ptr(),
-        ee_tables.data_ptr(), w1_all.data_ptr(), b1_all.data_ptr(),
-        w2_all.data_ptr(), b2_all.data_ptr(), eps_all.data_ptr(),
-        pred_w.data_ptr(), None if vn_col is None else vn_col.data_ptr(),
-        out.data_ptr(),
-        nw, n, window, _center(window), d, hid, L, vocab, gmax, t_out,
-        caps_arr, slots, dev.index, torch.cuda.current_stream(dev).cuda_stream,
-    )
-    _raise_on(lib, rc, "gin_local_model_slots")
-    gin_local_model_slots.launches += 1
-    return out
+    return _launch_gin_model(gin_local_model_slots, _library("gin_local_model_slots"), slot_meta,
+                             _center(window), h0, pool_gl, ee_tables, w1_all, b1_all, w2_all,
+                             b2_all, eps_all, pred_w, window, num_layers, gmax, vn_col, tiles,
+                             slot_geom=(caps, slots))
 
 
 def gin_local_model_slots(
@@ -1377,21 +1384,29 @@ def gin_local_model_slots(
     gmax: int,
     prefix_caps: tuple | None = None,
     vn_col: Optional[torch.Tensor] = None,
+    mlp_tiles: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """GIN whole-model slot megakernel: [NW·GMAX, T] f32 per-window pool
-    sums (``base.pool_finish`` divides by node counts and adds the bias).
+    sums (``base.pool_finish`` divides by node counts and adds the bias),
+    at windows of 128 up to 1024 rows (one thread-block cluster of W/128
+    blocks per window).
 
     Operands as in ``gin_local_model_slots_ref``. A CPU tensor runs the
     plain version; a CUDA tensor launches the kernel, which takes float32
     or bfloat16 activations and weights with int32 ``slot_meta`` /
-    ``pool_gl`` and float32 ``eps_all``, or raises. Each launch adds one to
+    ``pool_gl`` and float32 ``eps_all``, or raises. In bfloat16 its update
+    MLP runs on the tensor cores from ``mlp_tiles``, the weight chunks as
+    ``mlp_tiles()`` packs them (packed here, once per weight set, when not
+    given); ``gin_local_model_slots.stages`` records the launch's weight
+    ring (0 in float32). Each launch adds one to
     ``gin_local_model_slots.launches``."""
     args = (slot_meta, h0, pool_gl, ee_tables, w1_all, b1_all, w2_all, b2_all,
-            eps_all, pred_w, window, slots, num_layers, gmax, prefix_caps, vn_col)
+            eps_all, pred_w, window, slots, num_layers, gmax, prefix_caps, vn_col, mlp_tiles)
     return _dispatch(h0, gin_local_model_slots_ref, _launch_gin, args)
 
 
 gin_local_model_slots.launches = 0
+gin_local_model_slots.stages = 0
 
 
 def _check_gcn(h0, dis, pool_gl, ee_tables, roots, alphas, betas, wn_all, bn_all,
@@ -1488,20 +1503,126 @@ def _ell_block(ell_meta: torch.Tensor, nw: int, dev) -> int:
     return lanes // nw
 
 
-def gin_mlp_tiles(w1_all: torch.Tensor, w2_all: torch.Tensor, num_layers: int, dims):
-    """The bf16 ``gin_local_model``'s weight tiles: per layer W1 [H, D] as
-    the wgmma B operand [D'/8, H', 8] and W2 [D, H] as [H'/8, N2, 8]
-    (``ops.tiles.kmajor_tiles``, zero-padded), ``dims`` = (D', H', N2) as
-    the kernel's ``gin_ell_tiles`` gives them."""
+# The libraries of the three GIN kernels whose bf16 update MLP is
+# ``csrc/gin_mlp.cuh``'s: rows 1, 8 and 13.
+GIN_MLP_LIBRARIES = ("gin_local_model_slots", "gin_local_model", "gin_local_layer_ell")
+MLP_CHUNK = 32  # hidden units per weight chunk of the bf16 MLP
+
+
+def gin_mlp_geometry(d: int, hid: int) -> tuple[int, int, int, int, int]:
+    """The bf16 MLP's tile geometry (``csrc/gin_mlp.cuh``: ``geom``) at width
+    ``d`` and hidden width ``hid``: (D' = d padded to 16, H' = hid padded to
+    whole chunks of 32, N2 = the second product's width, 104 or 112, the
+    chunks per layer H'/32, the bf16 elements of one chunk (D' + N2)·32)."""
+    dp = -(-d // 16) * 16
+    hp = -(-hid // MLP_CHUNK) * MLP_CHUNK
+    n2 = 104 if d <= 104 else 112
+    return dp, hp, n2, hp // MLP_CHUNK, (dp + n2) * MLP_CHUNK
+
+
+def gin_mlp_tiles(w1_all: torch.Tensor, w2_all: torch.Tensor, num_layers: int) -> torch.Tensor:
+    """The bf16 MLP's weight chunks of every layer, [L, C, (D' + N2)·32] in
+    ``w1_all``'s dtype: chunk c of layer l is W1's rows 32c..32c+31 [32, D]
+    as the wgmma B operand [D'/8, 32, 8], then W2's columns 32c..32c+31
+    [D, 32] as [4, N2, 8] (``ops.tiles.kmajor_tiles``; pads zero), so that
+    one bulk copy brings a chunk into shared memory as the kernel reads it.
+    ``w1_all`` [L·H, D], ``w2_all`` [L·D, H] as the kernels take them."""
     L = num_layers
     hid, d = w1_all.shape[0] // L, w1_all.shape[1]
-    dp, hp, n2 = dims
-    return (kmajor_tiles(w1_all.view(L, hid, d), hp, dp),
-            kmajor_tiles(w2_all.view(L, d, hid), n2, hp))
+    dp, hp, n2, chunks, _ = gin_mlp_geometry(d, hid)
+    w1 = w1_all.new_zeros(L, hp, dp)
+    w1[:, :hid, :d] = w1_all.view(L, hid, d)
+    w2 = w2_all.new_zeros(L, n2, hp)
+    w2[:, :d, :hid] = w2_all.view(L, d, hid)
+    t1 = kmajor_tiles(w1.view(L, chunks, MLP_CHUNK, dp), MLP_CHUNK, dp)
+    t2 = kmajor_tiles(w2.view(L, n2, chunks, MLP_CHUNK).transpose(1, 2), n2, MLP_CHUNK)
+    return torch.cat([t1.reshape(L, chunks, -1), t2.reshape(L, chunks, -1)], dim=2).contiguous()
+
+
+# Packed weight chunks by weight set, newest last: (tiles, w1_all, w2_all).
+# Holding the weights keeps their storage, and so the key, from being reused.
+_MLP_TILES: collections.OrderedDict = collections.OrderedDict()
+MLP_TILE_SETS = 8  # weight sets kept
+
+
+def _weight_key(t: torch.Tensor) -> tuple:
+    return (t.untyped_storage().data_ptr(), t.storage_offset(), tuple(t.shape), tuple(t.stride()),
+            t.dtype, str(t.device), t._version)
+
+
+def mlp_tiles(w1_all: torch.Tensor, w2_all: torch.Tensor, num_layers: int) -> torch.Tensor:
+    """``gin_mlp_tiles`` of a weight set, packed once: later calls with the
+    same weights (the same storage, offset, shape, strides, dtype and
+    device, and the same version, so a weight changed in place is repacked)
+    return the same tensor. Inference tensors, which keep no version, are
+    packed on every call."""
+    if w1_all.is_inference() or w2_all.is_inference():
+        return gin_mlp_tiles(w1_all, w2_all, num_layers)
+    key = (num_layers, _weight_key(w1_all), _weight_key(w2_all))
+    hit = _MLP_TILES.get(key)
+    if hit is not None:
+        _MLP_TILES.move_to_end(key)
+        return hit[0]
+    tiles = gin_mlp_tiles(w1_all, w2_all, num_layers)
+    _MLP_TILES[key] = (tiles, w1_all, w2_all)
+    while len(_MLP_TILES) > MLP_TILE_SETS:
+        _MLP_TILES.popitem(last=False)
+    return tiles
+
+
+def _mlp_operand(lib, tiles, w1_all, w2_all, num_layers: int, per_layer: bool) -> torch.Tensor:
+    """The bf16 kernel's weight chunks: ``tiles`` as given (the whole stack,
+    or one layer's when ``per_layer``), checked, or packed here from the
+    weights (``mlp_tiles``). The kernel's geometry (``_mlp_dims``) must be
+    the host's."""
+    d, hid = w1_all.shape[1], w1_all.shape[0] // num_layers
+    dp, hp, n2, chunks, elems = gin_mlp_geometry(d, hid)
+    dims = (ctypes.c_int * 4)()
+    lib["mlp_dims"](d, hid, dims)
+    if tuple(dims) != (dp, hp, n2, elems * 2):
+        raise RuntimeError(f"the kernel's MLP geometry {tuple(dims)} is not the host's "
+                           f"{(dp, hp, n2, elems * 2)}")
+    if tiles is None:
+        tiles = mlp_tiles(w1_all, w2_all, num_layers)
+        tiles = tiles[0] if per_layer else tiles
+    shape = (chunks, elems) if per_layer else (num_layers, chunks, elems)
+    _check("mlp_tiles", tiles, torch.bfloat16, shape, w1_all.device)
+    return tiles
+
+
+def ring_stages(smem_of, chunks: int, budget: int) -> int:
+    """The bf16 MLP's weight ring: the most chunk buffers, up to the
+    ``chunks`` of a layer, whose block footprint ``smem_of(stages)`` fits
+    ``budget`` bytes, and at least two (one when a layer has one chunk):
+    chunk c + 1 is loaded into chunk c − 1's buffer after the MLP has waited
+    for chunk c, so one buffer would wait on itself. When none fits, the
+    least; the footprint check then raises."""
+    least = min(2, chunks)
+    for stages in range(chunks, least - 1, -1):
+        if smem_of(stages) <= budget:
+            return stages
+    return least
 
 
 def _launch_gin_ell(ell_meta, h0, pool_gl, ee_tables, w1_all, b1_all, w2_all, b2_all,
-                    eps_all, pred_w, window, num_layers, gmax, vn_col) -> torch.Tensor:
+                    eps_all, pred_w, window, num_layers, gmax, vn_col, tiles) -> torch.Tensor:
+    dev = h0.device
+    n = h0.shape[0]
+    nw = -(-n // window)
+    block = _ell_block(ell_meta, nw, dev)
+    lib = _library("gin_local_model")
+    return _launch_gin_model(gin_local_model, lib, ell_meta, block, h0, pool_gl, ee_tables,
+                             w1_all, b1_all, w2_all, b2_all, eps_all, pred_w, window, num_layers,
+                             gmax, vn_col, tiles)
+
+
+def _launch_gin_model(fn, lib, meta, layout_arg, h0, pool_gl, ee_tables, w1_all, b1_all, w2_all,
+                      b2_all, eps_all, pred_w, window, num_layers, gmax, vn_col, tiles,
+                      slot_geom=None) -> torch.Tensor:
+    """Launch row 8 (``layout_arg`` the ELL block) or row 1 (the slot
+    centre, ``slot_geom`` = (caps, slots)) of ``csrc/gin_model.cuh`` for the
+    wrapper ``fn``: in bf16 with the weight ring as deep as the card's
+    shared memory allows (``fn.stages``; 0 in f32)."""
     code = _dtype_code(h0.dtype)
     dev = h0.device
     n, d = h0.shape
@@ -1509,29 +1630,35 @@ def _launch_gin_ell(ell_meta, h0, pool_gl, ee_tables, w1_all, b1_all, w2_all, b2
     L = num_layers
     vocab, hid, t_out = _check_gin(h0, pool_gl, ee_tables, w1_all, b1_all, w2_all,
                                    b2_all, eps_all, pred_w, vn_col, window, L)
-    block = _ell_block(ell_meta, nw, dev)
-
-    lib = _library("gin_local_model")
-    _check_ell_geometry(lib, d, window, lib["smem_bytes"](code, d, hid, vocab, gmax, t_out), dev)
-    w1t = w2t = None
-    if code == 1:  # the wgmma MLP reads W1 and W2 as tiles, packed per launch
-        dims = (ctypes.c_int * 3)()
-        lib["tiles"](d, hid, dims)
-        w1t, w2t = gin_mlp_tiles(w1_all, w2_all, L, tuple(dims))
+    smem_of = lambda stages: lib["smem_bytes"](code, d, hid, vocab, gmax, t_out, stages)
+    _check_tile(lib, d)
+    stages = 0
+    if code == 1:  # the wgmma MLP reads W1 and W2 as packed chunks
+        tiles = _mlp_operand(lib, tiles, w1_all, w2_all, L, per_layer=False)
+        stages = ring_stages(smem_of, gin_mlp_geometry(d, hid)[3],
+                              lib["smem_optin"](dev.index))
+    if slot_geom is None:
+        _check_ell_geometry(lib, d, window, smem_of(stages), dev)
+        geom_args = ()
+    else:
+        caps, slots = slot_geom
+        _check_ell_geometry(lib, d, window, smem_of(stages), dev)
+        _check_geometry(lib, d, slots, caps, window, smem_of(stages), dev)
+        geom_args = ((ctypes.c_int * len(caps))(*caps), slots)
     out = torch.empty((nw * gmax, t_out), dtype=torch.float32, device=dev)
     rc = lib["launch"](
         code,
-        ell_meta.data_ptr(), h0.data_ptr(), pool_gl.data_ptr(),
+        meta.data_ptr(), h0.data_ptr(), pool_gl.data_ptr(),
         ee_tables.data_ptr(), w1_all.data_ptr(), b1_all.data_ptr(),
         w2_all.data_ptr(), b2_all.data_ptr(), eps_all.data_ptr(),
         pred_w.data_ptr(), None if vn_col is None else vn_col.data_ptr(),
-        None if w1t is None else w1t.data_ptr(), None if w2t is None else w2t.data_ptr(),
-        out.data_ptr(),
-        nw, n, window, block, d, hid, L, vocab, gmax, t_out,
+        None if code == 0 else tiles.data_ptr(), out.data_ptr(),
+        nw, n, window, layout_arg, d, hid, L, vocab, gmax, t_out, *geom_args, stages,
         dev.index, torch.cuda.current_stream(dev).cuda_stream,
     )
-    _raise_on(lib, rc, "gin_local_model")
-    gin_local_model.launches += 1
+    _raise_on(lib, rc, fn.__name__)
+    fn.launches += 1
+    fn.stages = stages
     return out
 
 
@@ -1550,6 +1677,7 @@ def gin_local_model(
     num_layers: int,
     gmax: int,
     vn_col: Optional[torch.Tensor] = None,
+    mlp_tiles: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """GIN / GIN-VN whole-model ELL kernel: [NW·GMAX, T] f32 per-window
     pool sums over the k=1 ELL layout, at windows of 128 up to 1024 rows.
@@ -1558,16 +1686,17 @@ def gin_local_model(
     version; a CUDA tensor launches the kernel (float32 or bfloat16
     activations and weights, int32 ``ell_meta`` / ``pool_gl``, float32
     ``eps_all``) or raises. In bfloat16 the kernel's update MLP runs on the
-    tensor cores (``wgmma``) from weight tiles packed here per launch
-    (``gin_mlp_tiles``); a width it cannot take (D > 112, or tiles past the
-    card's shared memory) raises. Each launch adds one to
+    tensor cores (``wgmma``) from ``mlp_tiles``, as in
+    ``gin_local_model_slots``; ``gin_local_model.stages`` records the weight
+    ring. A width it cannot take (D > 112) raises. Each launch adds one to
     ``gin_local_model.launches``."""
     args = (ell_meta, h0, pool_gl, ee_tables, w1_all, b1_all, w2_all, b2_all,
-            eps_all, pred_w, window, num_layers, gmax, vn_col)
+            eps_all, pred_w, window, num_layers, gmax, vn_col, mlp_tiles)
     return _dispatch(h0, gin_local_model_ref, _launch_gin_ell, args)
 
 
 gin_local_model.launches = 0
+gin_local_model.stages = 0
 
 
 def _launch_gcn_ell(ell_meta, h0, dis, pool_gl, ee_tables, roots, alphas, betas,
@@ -2070,23 +2199,43 @@ def _check_ell_lanes(ell_meta, h, window, library: str, smem_args):
 
 
 def _launch_gin_layer_ell(ell_meta, h, m_spill, ee_table, w1, b1, w2, b2, eps1, window,
-                          final_relu) -> torch.Tensor:
+                          final_relu, tiles) -> torch.Tensor:
     dt = h.dtype
     code = _dtype_code(dt)
     dev = h.device
     n, d = h.shape
     hid = check_gin_mlp(h, m_spill, w1, b1, w2, b2, eps1)
-    lib, lanes, nw, vocab = _check_ell_layer(ell_meta, h, ee_table, window, "gin_local_layer_ell")
+    vocab = ee_table.shape[0]
+    _check("ee_table", ee_table, dt, (vocab, d), dev)
+    for name, t in (("h", h), ("m_spill", m_spill)):
+        if t is not None and t.data_ptr() % (2 * t.element_size()):
+            raise ValueError(f"{name}: rows are read as pairs; its data must be "
+                             f"{2 * t.element_size()}-byte aligned")
+    lib = _library("gin_local_layer_ell")
+    smem_of = lambda stages: lib["smem_bytes"](code, d, hid, vocab, stages)
+    _check_tile(lib, d)
+    stages = 0
+    if code == 1:  # the wgmma MLP; the ring keeps two blocks an SM
+        tiles = _mlp_operand(lib, tiles, w1, w2, 1, per_layer=True)
+        per_sm = lib["smem_per_sm"](dev.index)
+        if per_sm < 0:
+            raise RuntimeError(lib["error_string"](int(-per_sm)).decode())
+        budget = min(lib["smem_optin"](dev.index), per_sm // 2 - 1024)
+        stages = ring_stages(smem_of, gin_mlp_geometry(d, hid)[3], budget)
+    _, lanes, nw = _check_ell_lanes(ell_meta, h, window, "gin_local_layer_ell", (code, d, hid, vocab,
+                                                                                  stages))
     out = torch.empty((n, d), dtype=dt, device=dev)
     rc = lib["launch"](
         code, ell_meta.data_ptr(), h.data_ptr(),
         None if m_spill is None else m_spill.data_ptr(), ee_table.data_ptr(),
         w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), b2.data_ptr(), eps1.data_ptr(),
-        out.data_ptr(), nw, n, window, lanes, d, hid, vocab, int(bool(final_relu)),
-        dev.index, torch.cuda.current_stream(dev).cuda_stream,
+        None if code == 0 else tiles.data_ptr(), out.data_ptr(), nw, n, window, lanes, d, hid,
+        vocab, int(bool(final_relu)), stages, dev.index,
+        torch.cuda.current_stream(dev).cuda_stream,
     )
     _raise_on(lib, rc, "gin_local_layer_ell")
     gin_local_layer_ell.launches += 1
+    gin_local_layer_ell.stages = stages
     return out
 
 
@@ -2103,27 +2252,33 @@ def gin_local_layer_ell(
     window: int,
     final_relu: bool,
     ee: Optional[torch.Tensor] = None,
+    mlp_tiles: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """One whole GIN / GIN-VN layer over the ELL layout: the next h [n, D]
     in h's dtype (``csrc/gin_local_layer_ell.cu``). Operands as in
     ``gin_local_layer_ell_ref``; a CPU tensor runs the plain version, a
     CUDA tensor launches the kernel (float32 or bfloat16 h, ``m_spill``,
-    table and weights, int32 ``ell_meta``, float32 ``eps1``) or raises. Each
-    launch adds one to ``gin_local_layer_ell.launches``. With ``ee`` [P, D],
-    each lane's bond embedding, ``ee_table`` is not read (pass None) and the
-    layer runs ``gin_local_layer_ell_lanes``, as the JAX function without
-    ``edge_attr`` runs ``local_scatter_apply_ell``; one of the two must be
-    given."""
+    table and weights, int32 ``ell_meta``, float32 ``eps1``) or raises. In
+    bfloat16 the update MLP runs on the tensor cores from ``mlp_tiles``,
+    this layer's [C, (D' + N2)·32] slice of ``mlp_tiles()`` (packed here,
+    once per weight set, when not given), through a weight ring as deep as
+    two blocks an SM allow (``gin_local_layer_ell.stages``; 0 in float32).
+    Each launch adds one to ``gin_local_layer_ell.launches``. With ``ee``
+    [P, D], each lane's bond embedding, ``ee_table`` is not read (pass None)
+    and the layer runs ``gin_local_layer_ell_lanes``, as the JAX function
+    without ``edge_attr`` runs ``local_scatter_apply_ell``; one of the two
+    must be given."""
     if ee is None and ee_table is None:
         raise ValueError("gin_local_layer_ell: neither ee_table nor ee given")
     if ee is not None:
         return gin_local_layer_ell_lanes(ee, ell_meta, h, m_spill, w1, b1, w2, b2, eps1, window,
                                          final_relu)
-    args = (ell_meta, h, m_spill, ee_table, w1, b1, w2, b2, eps1, window, final_relu)
+    args = (ell_meta, h, m_spill, ee_table, w1, b1, w2, b2, eps1, window, final_relu, mlp_tiles)
     return _dispatch(h, gin_local_layer_ell_ref, _launch_gin_layer_ell, args)
 
 
 gin_local_layer_ell.launches = 0
+gin_local_layer_ell.stages = 0
 
 
 def check_gin_mlp(h, m_spill, w1, b1, w2, b2, eps1) -> int:

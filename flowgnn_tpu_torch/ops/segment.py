@@ -2,7 +2,7 @@
 
 The counterparts of ``flowgnn_tpu.ops.segment`` on one device; the
 cross-device ``axis_name`` variants come with ``parallel/`` (ROADMAP queue 1
-item 13).
+item 11).
 """
 
 from __future__ import annotations

@@ -52,6 +52,41 @@ def _operands(vn: bool, seed: int = 11) -> dict:
     )
 
 
+def _slot_batch_big(name: str, big: int, seed: int) -> dict:
+    """Slot layout (numpy) of 6 synthetic graphs and one of ``big`` nodes
+    for model ``name``, at the window ``choose_geometry`` gives: 128, 256,
+    384 or 512 rows, whose row-1 clusters hold 1-4 blocks."""
+    spec = registry.get(name)
+    rng = np.random.default_rng(seed)
+    graphs = registry.apply_transforms(
+        spec, synthetic_molhiv(6, seed=seed) + [random_molecule_graph(rng, num_nodes=big)])
+    window = base.choose_geometry(name, max(g.num_nodes for g in graphs))[0]
+    packed = pack_graphs_aligned(graphs, window=window, node_capacity=4 * window - 1,
+                                 edge_capacity=4096, graph_capacity=16)
+    batch = base.as_batch(packed, blocked="local_slots", window=window)
+    assert "slot_meta" in batch  # no spill: row 1 takes it
+    return batch
+
+
+def _slot_operands(vn: bool, big: int, seed: int = 26, d: int = D, hid: int = H) -> dict:
+    """Row 1's operands on ``_slot_batch_big``'s layout at width ``d`` and
+    hidden width ``hid``, seeded random h0 and weights, as numpy arrays."""
+    batch = _slot_batch_big("gin-vn" if vn else "gin", big, seed)
+    rng = np.random.default_rng(seed)
+    f32 = lambda *s: rng.normal(0, 0.2, s).astype(np.float32)
+    n = batch["node_feat"].shape[0]
+    slots = batch["slot_geom"].shape[-1]
+    return dict(
+        slot_meta=batch["slot_meta"], h0=f32(n, d), pool_gl=batch["pool_gl"],
+        ee_tables=f32(L * 13, d), w1_all=f32(L * hid, d), b1_all=f32(L, hid),
+        w2_all=f32(L * d, hid), b2_all=f32(L, d),
+        eps_all=(1 + f32(L, 1)).astype(np.float32), pred_w=f32(d, 1),
+        window=batch["slot_geom"].shape[0], slots=slots, num_layers=L, gmax=base.POOL_GMAX,
+        prefix_caps=base.slot_prefix_caps(batch, slots),
+        vn_col=batch["vn_mask"].astype(np.float32) if vn else None,
+    )
+
+
 def _gcn_operands(seed: int = 12) -> dict:
     """GCN operands: slot layout of 8 synthetic graphs, the layout's own
     degree norms, seeded random h0 and weights, as numpy arrays."""
@@ -249,16 +284,19 @@ def _ell_layer_batch(geometry: str, seed: int) -> dict:
     return batch
 
 
-def _ell_layer_operands(kernel: str, geometry: str, final: bool = False, seed: int = 18) -> dict:
+def _ell_layer_operands(kernel: str, geometry: str, final: bool = False, seed: int = 18,
+                        d: int = D, hid: int = H) -> dict:
     """Seeded operands of one per-layer ELL kernel (``gin_local_layer_ell``
     with a nonzero ``m_spill``, ``gcn_local_message_ell``,
     ``gcn_local_layer_ell``) on the layout of ``_ell_layer_batch``, the
     layout's own degree norms for GCN, as numpy arrays; ``final`` takes the
-    last layer's form (no ReLU for GIN, no next conv for GCN)."""
+    last layer's form (no ReLU for GIN, no next conv for GCN); ``d`` and
+    ``hid`` GIN's widths."""
     batch = _ell_layer_batch(geometry, seed)
     rng = np.random.default_rng(seed)
     f32 = lambda *s: rng.normal(0, 0.2, s).astype(np.float32)
     n = batch["node_feat"].shape[0]
+    D, H = d, hid
     ops = dict(ell_meta=base.ell_meta(base.to_device(batch, "cpu")).numpy(), h=f32(n, D),
                ee_table=f32(13, D), window=base.ell_geometry(batch)[0])
     if kernel == "gin_local_layer_ell":
@@ -606,10 +644,10 @@ def test_slots_cuda_kernel_matches_plain(vn, dtype, tol, cuda_device):
 
 @pytest.mark.cuda
 def test_slots_cuda_kernel_rejects_oversized_window(cuda_device):
-    """A window whose state does not fit one block's shared memory raises
-    before launch instead of failing inside the kernel."""
+    """A window past what row 1's clusters span (8 blocks of 128 rows, W up
+    to 1024) raises before launch instead of failing inside the kernel."""
     d = 100
-    n, window = 256, 256
+    n, window = 1152, 1152
     rng = np.random.default_rng(0)
     t = lambda *s: torch.from_numpy(rng.normal(0, 0.1, s).astype(np.float32)).to(cuda_device)
     ops = dict(
@@ -621,7 +659,7 @@ def test_slots_cuda_kernel_rejects_oversized_window(cuda_device):
         prefix_caps=(window,),
     )
     before = local_layer.gin_local_model_slots.launches
-    with pytest.raises(ValueError, match="shared memory"):
+    with pytest.raises(ValueError, match="whole blocks of 128 rows"):
         local_layer.gin_local_model_slots(**ops)
     assert local_layer.gin_local_model_slots.launches == before
 
@@ -772,22 +810,84 @@ def test_gin_ell_cuda_kernel_widths_match_plain(name, big, d, hid, dtype, tol, c
 
 @pytest.mark.cuda
 def test_gin_ell_cuda_kernel_rejects_bf16_outside_wgmma_plan(cuda_device):
-    """bf16 past the wgmma MLP's plan raises before launch: D = 120 (past
-    its K tile of 112) and H = 512 (W1 and W2 tiles past the card's shared
-    memory); the f32 FMA form takes H = 512."""
+    """bf16 past the wgmma MLP's plan raises before launch, as the f32 FMA
+    form does: D = 120 (past the K tile of 112). H = 512, whose 16 weight
+    chunks do not fit shared memory at once, runs in both forms, bf16
+    through a ring of fewer buffers than chunks, and matches the plain
+    version (f32 1e-4, bf16 5e-2)."""
     before = local_layer.gin_local_model.launches
-    for d, hid, match in ((120, 64, "tile"), (100, 512, "shared memory")):
-        ops = _port(_ell_operands("gin", 120, d=d, hid=hid), cuda_device, torch.bfloat16)
-        with pytest.raises(ValueError, match=match):
+    for dtype in (torch.bfloat16, torch.float32):
+        ops = _port(_ell_operands("gin", 120, d=120, hid=64), cuda_device, dtype)
+        with pytest.raises(ValueError, match="tile"):
             local_layer.gin_local_model(**ops)
     assert local_layer.gin_local_model.launches == before
-    ops = _port(_ell_operands("gin", 120, d=100, hid=512), cuda_device, torch.float32)
-    got = local_layer.gin_local_model(**ops)
+    for dtype, tol in ((torch.float32, 1e-4), (torch.bfloat16, 5e-2)):
+        ops = _port(_ell_operands("gin", 120, d=100, hid=512), cuda_device, dtype)
+        got = local_layer.gin_local_model(**ops)
+        torch.cuda.synchronize()
+        assert local_layer.gin_local_model.stages == (0 if dtype == torch.float32 else 8)
+        expect = local_layer.gin_local_model_ref(**ops)
+        scale = max(1.0, expect.abs().max().item())
+        torch.testing.assert_close(got / scale, expect.float() / scale, rtol=tol, atol=tol)
+    assert local_layer.gin_local_model.launches == before + 2
+
+
+# Row 1 at every window its clusters take beside W=128 (the largest graph
+# 120, 250 and 400 nodes: clusters of 1, 2 and 4 blocks).
+SLOT_BIG = (120, 250, 400)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("vn", [False, True], ids=["gin", "gin-vn"])
+@pytest.mark.parametrize("big", SLOT_BIG, ids=[f"W{w}" for w in (128, 256, 512)])
+@pytest.mark.parametrize("d,hid", GIN_WIDTHS, ids=[f"D{d}-H{h}" for d, h in GIN_WIDTHS])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 5e-2)],
+                         ids=["f32", "bf16"])
+def test_slots_cuda_kernel_windows_match_plain(vn, big, d, hid, dtype, tol, cuda_device):
+    """Row 1 at W=128, 256 and 512 (one cluster of W/128 blocks per window,
+    the large graph's rows across all of them) and at two widths: bf16
+    through the wgmma MLP with its weight ring all of a layer's chunks deep,
+    f32 through the FMA MLP; tolerances as in
+    ``test_ell_cuda_kernels_match_plain``."""
+    ops = _port(_slot_operands(vn, big, d=d, hid=hid), cuda_device, dtype)
+    before = local_layer.gin_local_model_slots.launches
+    got = local_layer.gin_local_model_slots(**ops)
     torch.cuda.synchronize()
-    assert local_layer.gin_local_model.launches == before + 1
-    expect = local_layer.gin_local_model_ref(**ops)
+    assert local_layer.gin_local_model_slots.launches == before + 1
+    chunks = local_layer.gin_mlp_geometry(d, hid)[3]
+    assert local_layer.gin_local_model_slots.stages == (chunks if dtype == torch.bfloat16 else 0)
+    expect = local_layer.gin_local_model_slots_ref(**ops)
+    assert expect.abs().max() > 1e-2
     scale = max(1.0, expect.abs().max().item())
-    torch.testing.assert_close(got / scale, expect / scale, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(got / scale, expect.float() / scale, rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["gin_local_model_slots", "gin_local_model",
+                                    "gin_local_layer_ell"], ids=["row1", "row8", "row13"])
+@pytest.mark.parametrize("d,hid", [(100, 200), (100, 512)], ids=["H200", "H512"])
+def test_gin_bf16_kernels_stream_weights_at_any_hidden_width(kernel, d, hid, cuda_device):
+    """Rows 1, 8 and 13 in bf16 at D = 100 with H = 200 (7 weight chunks a
+    layer) and H = 512 (16): the ring's depth is chosen by shape (rows 1
+    and 8 all 7 chunks or the 8 that fit beside their windows; row 13 the 5
+    that keep two blocks an SM) and the result matches the plain version at
+    5e-2 of its scale."""
+    if kernel == "gin_local_model_slots":
+        ops = _slot_operands(True, 400, d=d, hid=hid)
+    elif kernel == "gin_local_model":
+        ops = _ell_operands("gin-vn", 400, d=d, hid=hid)
+    else:
+        ops = _ell_layer_operands(kernel, "W512", d=d, hid=hid)
+    ops = _port(ops, cuda_device, torch.bfloat16)
+    fn = getattr(local_layer, kernel)
+    got = fn(**ops)
+    torch.cuda.synchronize()
+    chunks = local_layer.gin_mlp_geometry(d, hid)[3]
+    assert fn.stages == (5 if kernel == "gin_local_layer_ell" else min(chunks, 8))
+    expect = getattr(local_layer, f"{kernel}_ref")(**ops)
+    assert expect.abs().max() > 1e-2
+    scale = max(1.0, expect.abs().max().item())
+    torch.testing.assert_close(got.float() / scale, expect.float() / scale, rtol=5e-2, atol=5e-2)
 
 
 _LAYER_CASES = [

@@ -1,6 +1,7 @@
 """The host packing of ``wgmma`` operands (``flowgnn_tpu_torch.ops.tiles``)
-and its two users: row 26's B (``bench.matmul_shapes``) and row 8's bf16
-weight tiles (``ops.local_layer.gin_mlp_tiles``).
+and its users: row 26's B (``bench.matmul_shapes``) and the bf16 GIN MLP's
+weight chunks of rows 1, 8 and 13 (``ops.local_layer.gin_mlp_tiles``), with
+the streamed ring that feeds them and the act operand they multiply.
 
 Besides the round trip and the zero pad, each packed tile is read back the
 way the kernels' shared-memory descriptors address it (``csrc/hopper.cuh``:
@@ -101,27 +102,147 @@ def test_chained_matmul_b_tiles_as_the_kernel_reads_them(dtype, k, n, np_, chunk
 @pytest.mark.parametrize("d,hid,dims", [(100, 200, (112, 224, 104)), (36, 72, (48, 96, 104)),
                                         (112, 64, (112, 64, 112))])
 def test_gin_mlp_tiles_as_the_kernel_reads_them(d, hid, dims):
-    """Row 8's bf16 tiles per layer: W1 chunk c (32 hidden units) of K step
-    ks at (2ks·H' + 32c)·16 with LBO = H'·16; W2 K step s of chunk c at
-    (4c + 2s)·N2·16 with LBO = N2·16; SBO = 128 for both. Pads zero."""
+    """The bf16 GIN MLP's weight chunks (``csrc/gin_mlp.cuh``) per layer:
+    chunk c is W1's rows 32c..32c+31 then W2's columns 32c..32c+31; in it,
+    W1's K step ks at ks·1024 bytes with LBO = 32·16, and W2's K step s at
+    D'·64 + s·N2·32 bytes with LBO = N2·16; SBO = 128 for both. Pads zero."""
     L = 3
     dp, hp, n2 = dims
+    assert local_layer.gin_mlp_geometry(d, hid) == (dp, hp, n2, hp // 32, (dp + n2) * 32)
     w1 = _draw((L * hid, d), torch.bfloat16, seed=1)
     w2 = _draw((L * d, hid), torch.bfloat16, seed=2)
-    w1t, w2t = local_layer.gin_mlp_tiles(w1, w2, L, dims)
-    assert w1t.shape == (L, dp // 8, hp, 8) and w2t.shape == (L, hp // 8, n2, 8)
+    tiles = local_layer.gin_mlp_tiles(w1, w2, L)
+    assert tiles.shape == (L, hp // 32, (dp + n2) * 32) and tiles.is_contiguous()
     for l in range(L):
-        w1p = torch.zeros(hp, dp, dtype=torch.bfloat16)
-        w1p[:hid, :d] = w1[l * hid : (l + 1) * hid]
-        w2p = torch.zeros(n2, hp, dtype=torch.bfloat16)
-        w2p[:d, :hid] = w2[l * d : (l + 1) * d]
-        assert torch.equal(kmajor_untile(w1t[l], hp, dp), w1p)
-        assert torch.equal(kmajor_untile(w2t[l], n2, hp), w2p)
+        w1p, w2p = _padded_weights(w1, w2, l, d, hid, dims)
         for c in range(hp // 32):
-            for ks in range(dp // 16):
-                got = _read(w1t[l], (2 * ks * hp + 32 * c) * 16, hp * 16, 128, 32, 32)
-                assert torch.equal(got, w1p[32 * c : 32 * c + 32, 16 * ks : 16 * ks + 16])
-            for s in range(2):
-                got = _read(w2t[l], (4 * c + 2 * s) * n2 * 16, n2 * 16, 128, n2, 32)
-                k0 = 32 * c + 16 * s
-                assert torch.equal(got, w2p[:, k0 : k0 + 16])
+            _check_chunk(tiles[l, c], w1p, w2p, c, dp, n2)
+
+
+def _padded_weights(w1, w2, l, d, hid, dims):
+    dp, hp, n2 = dims
+    w1p = torch.zeros(hp, dp, dtype=torch.bfloat16)
+    w1p[:hid, :d] = w1[l * hid : (l + 1) * hid]
+    w2p = torch.zeros(n2, hp, dtype=torch.bfloat16)
+    w2p[:d, :hid] = w2[l * d : (l + 1) * d]
+    return w1p, w2p
+
+
+def _check_chunk(chunk, w1p, w2p, c, dp, n2):
+    """Chunk c read through the MLP's descriptors: the z product's B (32
+    hidden units × 16 of K a step) and the out product's B (N2 × 16)."""
+    for ks in range(dp // 16):
+        got = _read(chunk, ks * 2 * 32 * 16, 32 * 16, 128, 32, 32)
+        assert torch.equal(got, w1p[32 * c : 32 * c + 32, 16 * ks : 16 * ks + 16])
+    for s in range(2):
+        got = _read(chunk, dp * 64 + 2 * s * n2 * 16, n2 * 16, 128, n2, 32)
+        k0 = 32 * c + 16 * s
+        assert torch.equal(got, w2p[:, k0 : k0 + 16])
+
+
+# The bf16 MLP's widths in the card tests and the models: D' = 48, H' = 96;
+# the registry's D = 100, H = 200; and H = 512 (16 chunks, past a resident
+# footprint).
+MLP_WIDTHS = [(36, 72), (100, 200), (100, 512)]
+
+
+def _ring_schedule(stages: int, total: int, chunks: int):
+    """The weight ring as ``gin_mlp.cuh``'s ``Ring`` and ``run`` drive it
+    over ``total`` chunks, ``chunks`` a layer: the first ``stages`` loads
+    before the first layer; per layer, after chunk c's first product
+    (c > 0) chunk c − 1's buffer is released, and after the layer's last
+    product its last chunk's; a release of chunk i loads chunk i + stages.
+    Yields ("load", i) and ("use", i) in order."""
+    for i in range(min(stages, total)):
+        yield "load", i
+    for first in range(0, total, chunks):
+        for c in range(chunks):
+            yield "use", first + c
+            if c > 0 and first + c - 1 + stages < total:
+                yield "load", first + c - 1 + stages
+        if first + chunks - 1 + stages < total:
+            yield "load", first + chunks - 1 + stages
+
+
+@pytest.mark.parametrize("d,hid", MLP_WIDTHS, ids=[f"D{d}-H{h}" for d, h in MLP_WIDTHS])
+@pytest.mark.parametrize("stages", [2, 5, 7, 16])
+@pytest.mark.parametrize("layers", [1, 3], ids=["row13", "rows1-8"])
+def test_gin_mlp_ring_streams_each_chunk_as_the_kernel_reads_it(d, hid, stages, layers):
+    """The streamed ring: chunk i of the sequence (layer i // C, chunk
+    i % C) lands in buffer i % S at byte (i % S)·chunk_bytes, its mbarrier
+    in phase i // S (the parity the consumers wait on), and a buffer is
+    refilled only after its chunk was used; every chunk, read back from its
+    buffer through the MLP's descriptors, is that layer's W1 / W2 slice.
+    Row 13 streams one layer's C chunks (``layers`` 1), rows 1 and 8 all
+    L·C of the model."""
+    dp, hp, n2, chunks, elems = local_layer.gin_mlp_geometry(d, hid)
+    stages = local_layer.ring_stages(lambda s: s, chunks, stages)
+    total = layers * chunks
+    w1 = _draw((layers * hid, d), torch.bfloat16, seed=3)
+    w2 = _draw((layers * d, hid), torch.bfloat16, seed=4)
+    src = local_layer.gin_mlp_tiles(w1, w2, layers).view(-1)
+    ring = torch.zeros(stages * elems, dtype=torch.bfloat16)
+    held = [None] * stages  # the chunk each buffer holds
+    phase = [0] * stages  # completed loads per buffer's mbarrier
+    used = set()
+    for what, i in _ring_schedule(stages, total, chunks):
+        b = i % stages
+        if what == "load":
+            assert held[b] is None or held[b] in used, f"buffer {b} refilled before use"
+            ring[b * elems : (b + 1) * elems] = src[i * elems : (i + 1) * elems]
+            held[b], phase[b] = i, phase[b] + 1
+            continue
+        assert held[b] == i and (phase[b] - 1) % 2 == (i // stages) % 2
+        used.add(i)
+        l, c = divmod(i, chunks)
+        w1p, w2p = _padded_weights(w1, w2, l, d, hid, (dp, hp, n2))
+        _check_chunk(ring[b * elems : (b + 1) * elems], w1p, w2p, c, dp, n2)
+    assert used == set(range(total))
+
+
+@pytest.mark.parametrize("d,hid", MLP_WIDTHS, ids=[f"D{d}-H{h}" for d, h in MLP_WIDTHS])
+def test_gin_mlp_act_layout_as_the_kernel_reads_it(d, hid):
+    """act in wgmma's A layout [D'/8][128][8] (``gin_mlp.cuh``:
+    ``act_index``), as rows 1 and 8 write it element by element and row 13
+    as bf16 pairs (columns c, c + 1 of an even c are adjacent, one 4-byte
+    store): warpgroup wg's K step ks, read through the descriptor at byte
+    (2ks·128 + 64wg)·16 with LBO = 128·16 and SBO = 128, is rows
+    64wg..64wg+63 and columns 16ks..16ks+15 of act, pad columns zero."""
+    dp = local_layer.gin_mlp_geometry(d, hid)[0]
+    act_index = lambda r, c: ((c >> 3) * 128 + r) * 8 + (c & 7)
+    act = _draw((128, d), torch.bfloat16, seed=5)
+    flat = torch.zeros(dp * 128, dtype=torch.bfloat16)
+    for r in range(128):
+        for c in range(0, d, 2):
+            at = act_index(r, c)
+            assert act_index(r, c + 1) == at + 1 and at % 2 == 0
+            flat[at] = act[r, c]
+            if c + 1 < d:
+                flat[at + 1] = act[r, c + 1]
+    padded = torch.zeros(128, dp, dtype=torch.bfloat16)
+    padded[:, :d] = act
+    for wg in range(2):
+        for ks in range(dp // 16):
+            got = _read(flat, (2 * ks * 128 + 64 * wg) * 16, 128 * 16, 128, 64, 32)
+            assert torch.equal(got, padded[64 * wg : 64 * wg + 64, 16 * ks : 16 * ks + 16])
+
+
+@pytest.mark.parametrize("chunks", [1, 3, 7, 16])
+def test_gin_mlp_ring_never_waits_on_itself(chunks):
+    """The wrapper's ring depth (``ring_stages``): the most buffers that fit,
+    at most a layer's chunks, and never one buffer for a layer of several
+    chunks, on which the ring would wait for its own refill; the schedule
+    then feeds every use from a loaded buffer (``_ring_schedule``)."""
+    for budget in range(0, 20):
+        stages = local_layer.ring_stages(lambda s: s, chunks, budget)
+        assert stages == max(min(2, chunks), min(budget, chunks))
+        held = {}
+        for what, i in _ring_schedule(stages, 3 * chunks, chunks):
+            if what == "load":
+                held[i % stages] = i
+            else:
+                assert held.get(i % stages) == i
+    # One buffer under a layer of two chunks: chunk 1 would be used before
+    # the release of chunk 0 loads it.
+    order = list(_ring_schedule(1, 2, 2))
+    assert order.index(("use", 1)) < order.index(("load", 1))
