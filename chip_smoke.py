@@ -5,10 +5,12 @@
     python3 chip_smoke.py --profile --paths "gin hep10k,gin-vn hep10k"  # some of them
 
 ``--profile`` runs no phase: it builds the hep10k W=128 streams of PNA, DGN
-and GAT (slot spill tail) and of GIN, GIN-VN, GCN, DGN and GAT (ELL spill
-tail; GAT also with its fused layer), GIN's molhiv edge-block (plain and
-fused) and legacy local streams and PNA's molhiv edge-block stream beside
-the plain edge-list batches of the same packing (``--paths``: only the
+and GAT (slot spill tail), PNA's hep10k slot stream at W=512 and GCN's
+hep10k ELL stream at W=512 beside them, and the hep10k W=128 streams of GIN,
+GIN-VN, GCN, DGN and GAT (ELL spill tail; GAT also with its fused layer),
+GIN's molhiv edge-block (plain and fused) and legacy local streams and
+PNA's molhiv edge-block stream beside the plain edge-list batches of the
+same packing (``--paths``: only the
 paths whose "model profile layout" starts with one of its comma-separated
 prefixes), warms each path up, traces ``PROFILE_PASSES`` bf16 passes over
 the whole stream with ``torch.profiler`` and prints per path the wall time
@@ -24,14 +26,15 @@ Phases, each of which raises (non-zero exit) on failure:
 2. the twenty-four hand-written kernels built from the twenty-two sources of
    ``flowgnn_tpu_torch/csrc`` (rows 16 and 18 share one, rows 10 and 12 are
    one kernel, rows 27-30 one) and their headers (``hopper.cuh`` holds the
-   wgmma, mbarrier and bulk-copy blocks of rows 1, 8, 13 and 26,
+   wgmma, mbarrier and bulk-copy blocks of rows 1, 3, 8, 9, 13 and 26,
    ``gin_mlp.cuh`` the bf16 GIN MLP of rows 1, 8 and 13, ``gin_model.cuh``
-   the whole-model GIN kernel of rows 1 and 8), one ``nvcc`` per source, all
+   the whole-model GIN kernel of rows 1 and 8, ``linear_wgmma.cuh`` the bf16
+   product of rows 9 and 3), one ``nvcc`` per source, all
    started together (build time and each compiler's register /
    shared-memory report); each library's count of tensor-core (HGMMA,
    HMMA, IMMA), bulk-copy / TMA (UBLKCP, UTMALDG) and FFMA instructions in
-   its SASS (``cuobjdump -sass``), rows 1, 8, 13 and 26 required to hold
-   HGMMA and a bulk copy (row 26: or a TMA load);
+   its SASS (``cuobjdump -sass``), rows 1, 3, 8, 9, 13 and 26 required to
+   hold HGMMA and a bulk copy (row 26: or a TMA load);
 3. each slot kernel against its plain torch version on the card, at the
    main path's shapes (a real bucket's slot layout at full width: GIN D=100,
    H=200, L=5, with and without the analytic-VN column; GCN D=100, L=5;
@@ -44,11 +47,16 @@ Phases, each of which raises (non-zero exit) on failure:
    and W=512 (the hep10k slot bucket holding the largest graph), GIN and
    GIN-VN; row 8 on the hep10k W=512 ELL bucket holding the largest graph;
    row 13 on layer 0 of the hep10k W=128 ELL bucket with the longest spill
-   tail;
-3b. each ELL kernel (GIN with and without the VN column, GCN, full width)
-   against its plain version the same way, on ELL buckets at W=128 (molhiv),
-   W=256 and W=384 (synthetic, one large graph each) and W=512 (the hep10k
-   bucket holding its largest graph, ≥ 385 nodes);
+   tail; then row 3 (PNA) above W=128, f32 and bf16 (printing the bf16
+   launch's weight ring): W=256 (a synthetic bucket of 250-node graphs) and
+   W=512 (the hep10k slot bucket holding the largest graph);
+3b. each ELL kernel (GIN with and without the VN column, GCN, full width;
+   row 9's bf16 next conv on wgmma) against its plain version the same way,
+   on ELL buckets at W=128 (molhiv), W=256 and W=384 (synthetic, one large
+   graph each) and W=512 (the hep10k bucket holding its largest graph, ≥ 385
+   nodes); then what the occupancy calculator says of row 9's bf16 and f32
+   forms at W=128 and W=512 (shared memory a block, blocks an SM, clusters
+   in flight);
 3c. each per-layer slot kernel (PNA's ``pna_local_stats_ell``, DGN's
    ``dgn_local_layer_slots``, GAT's ``gat_local_message_slots``) and the
    spill scatter ``windowed_segment_sum`` against its plain version on
@@ -87,11 +95,12 @@ Phases, each of which raises (non-zero exit) on failure:
    stream at W=512 (``as_batches_uniform(local_ell)``, k=1, no spill), f32
    and bf16, counted and checked as in phase 4; then over the molhiv stream
    at W=128, whose predictions must match the slot path's (f32 1e-4). And
-   the hep10k slot path, the JAX bench's layout for GIN and GIN-VN there:
-   the same packing in ``local_slots`` at W=512 (``HEP_SLOT_WINDOW``; no
-   bucket spills), one row-1 launch per bucket and no other kernel, counted
-   and checked as in phase 4, its f32 predictions also against the ELL
-   W=512 path's (1e-4);
+   the hep10k slot path, the JAX bench's layout for GIN, GIN-VN and PNA
+   there: ``local_slots`` at W=512 (``HEP_SLOT_WINDOW``; no bucket spills;
+   GIN's and GIN-VN's the ELL W=512 packing), one row-1 (PNA: row-3) launch
+   per bucket and no other kernel, counted and checked as in phase 4, its
+   f32 predictions also, graph by graph, against the ELL W=512 path's (PNA:
+   the W=128 spill path's of phase 4c) at 1e-4;
 4c. the spill path: PNA, DGN and GAT over the same hep10k sample at W=128
    (``as_batches_uniform(local_slots, window=128)``, the JAX bench's
    ``--ell-window 128``), whose window-crossing edges ride the spill tail:
@@ -138,9 +147,14 @@ Phases, each of which raises (non-zero exit) on failure:
 5d. the same for the paths of phase 4e;
 5e. the same for the paths of phase 4f; the windowed scatter on the
    edge-block layout beside ``index_add_`` of the same values;
-5f. rows 8, 1 and 13 alone on their cells (``TURN_CELLS``), each kernel's
-   bf16 form (the wgmma MLP) and its f32 form (the FMA MLP) in turns: bf16,
-   f32, f32, bf16; launches, ms per stream, bound and share of the bound;
+5f. rows 8, 1, 13, 9 and 3 alone on their cells (``TURN_CELLS``), each
+   kernel's bf16 form (its product on wgmma) and its f32 form (FMA) in
+   turns: bf16, f32, f32, bf16; launches, ms per stream, bound and share of
+   the bound;
+5g. rows 9 and 3 by stage on their cells (``SPLIT_CELLS``), bf16 and f32:
+   each kernel alone whole and with its product, its messages or stats, or
+   both knocked out (the wrappers' ``knockout``, which only this phase
+   passes), and the share of each;
 6. the bench tools (``flowgnn_tpu_torch.bench``). 6a: row 26
    (``chained_matmul``) on every ``matmul_shapes.SHAPES`` row at full size
    in its dtype, equal to layers·K on all-ones operands and to its plain
@@ -175,14 +189,16 @@ NODE_CAP, GRAPH_CAP = 32768, 2048  # the JAX bench's bucket capacities
 STREAM_GRAPHS = 4113  # molhiv's graph count
 HEP_GRAPHS = 2048  # the JAX bench's default hep10k sample (bench.py)
 SPILL_WINDOW = 128  # the JAX bench's --ell-window 128 on hep10k
-# The JAX bench's slot window for GIN and GIN-VN on hep10k: every graph fits
-# its default ELL window, so they take local_slots there (bench.py:186-193).
+# The JAX bench's slot window for GIN, GIN-VN and PNA on hep10k: every graph
+# fits its default ELL window, so they take local_slots there
+# (bench.py:186-193), in one whole-model launch per bucket (rows 1 and 3).
 HEP_SLOT_WINDOW = 512
-HEP_SLOT_MODELS = ("gin", "gin-vn")
+HEP_SLOT_MODELS = ("gin", "gin-vn", "pna")
 MODELS = ("gin", "gin-vn", "gcn", "pna", "dgn", "gat")
 ELL_MODELS = ("gin", "gin-vn", "gcn")
 SPILL_MODELS = ("pna", "dgn", "gat")
 SLOTS, ELL = "local_slots", "local_ell"
+HEP_SLOTS = "local_slots W=512"  # the hep10k slot stream at HEP_SLOT_WINDOW
 # The per-layer ELL paths' stream keys: hep10k at W=128 with an ELL spill
 # tail, and molhiv's ELL stream run with return_intermediates; and molhiv's
 # slot stream run with return_intermediates (PNA's row 20).
@@ -323,22 +339,32 @@ TOOL_REPS, TOOL_TRIALS = 20, 2
 # counted in every library's SASS.
 SASS_NEEDS = {"chained_matmul": ("HGMMA", "UBLKCP|UTMALDG"),
               **{k: ("HGMMA", "UBLKCP") for k in ("gin_local_model", "gin_local_model_slots",
-                                                  "gin_local_layer_ell")}}
+                                                  "gin_local_layer_ell", "gcn_local_model",
+                                                  "pna_local_model")}}
 SASS_OPS = ("HGMMA", "UBLKCP", "UTMALDG", "HMMA", "IMMA", "FFMA")
 # Phase 3: the (D, H) at which the tensor-core GIN kernels (rows 1, 8, 13)
 # are held to their plain versions: H' and D' padded, the models' own, and
 # H=512, whose 16 weight chunks a layer stream through a shorter ring.
 GIN_WIDTHS = ((36, 72), (100, 200), (100, 512))
-# Phase 5f: each tensor-core GIN kernel's cells, timed bf16 (wgmma MLP) and
-# f32 (FMA MLP) in turns.
+# Phase 5f: each tensor-core kernel's cells, timed bf16 (wgmma) and f32 (FMA)
+# in turns.
 TURN_CELLS = {
     "gin_local_model": [("gin", "hep10k", ELL), ("gin-vn", "hep10k", ELL),
                         ("gin", "molhiv", ELL), ("gin-vn", "molhiv", ELL)],
     "gin_local_model_slots": [("gin", "molhiv", SLOTS), ("gin-vn", "molhiv", SLOTS),
-                              ("gin", "hep10k", SLOTS)],
+                              ("gin", "hep10k", HEP_SLOTS)],
     "gin_local_layer_ell": [("gin", "hep10k", ELL_LAYER), ("gin-vn", "hep10k", ELL_LAYER),
                             ("gin", "molhiv", ELL_INTER)],
+    "gcn_local_model": [("gcn", "hep10k", ELL), ("gcn", "molhiv", ELL)],
+    "pna_local_model": [("pna", "molhiv", SLOTS), ("pna", "hep10k", HEP_SLOTS)],
 }
+# Phase 5g: the kernels split by stage, on these cells: each timed whole and
+# with its product (bit 0), its messages or stats (bit 1), or both knocked out.
+SPLIT_CELLS = {"gcn_local_model": [("gcn", "hep10k", ELL), ("gcn", "molhiv", ELL)],
+               "pna_local_model": [("pna", "molhiv", SLOTS), ("pna", "hep10k", HEP_SLOTS)]}
+# Phase 3: row 3's windows beside molhiv's W=128: a synthetic bucket of
+# 250-node graphs (W=256) and the hep10k slot bucket with the largest graph.
+PNA_BIG = 250
 
 
 def cuobjdump_path() -> str:
@@ -797,9 +823,9 @@ def check_gin_kernels(streams: dict, device, max_err: dict) -> None:
     from flowgnn_tpu_torch.params.loaders import params_from_numpy, synthetic_gin_params
 
     precs = ((FLOAT32, 1e-4), (BF16, 5e-2))
-    for name in HEP_SLOT_MODELS:
+    for name in ("gin", "gin-vn"):
         vn = name == "gin-vn"
-        hep, big, i = largest_bucket(streams, (name, "hep10k", SLOTS))
+        hep, big, i = largest_bucket(streams, (name, "hep10k", HEP_SLOTS))
         ell, ell_big, j = largest_bucket(streams, (name, "hep10k", ELL))
         cases = [("gin_local_model_slots", streams[name, "molhiv", SLOTS][1][0],
                   "W=128 molhiv bucket 0"),
@@ -827,9 +853,25 @@ def check_gin_kernels(streams: dict, device, max_err: dict) -> None:
                     max_err["gin_local_layer_ell"] = max(max_err["gin_local_layer_ell"], err)
 
 
+def check_pna_kernels(streams: dict, device, max_err: dict) -> None:
+    """Phase 3, row 3 above W=128 (``check_kernels`` holds it at W=128):
+    f32 (1e-4) and bf16 (5e-2) on W=256 (a synthetic bucket of 250-node
+    graphs) and W=512 (the hep10k slot bucket holding the largest graph),
+    seeded synthetic weights, printing the bf16 launch's weight ring."""
+    hep, big, i = largest_bucket(streams, ("pna", "hep10k", HEP_SLOTS))
+    for batch, what in ((big_graph_bucket("pna", PNA_BIG, device, SLOTS),
+                         f"W=256 synthetic bucket, {PNA_BIG}-node graphs"),
+                        (hep, f"W=512 hep10k bucket {i}, a {big}-node graph")):
+        err = check_kernel("pna", batch, device, what)
+        max_err["pna_local_model"] = max(max_err["pna_local_model"], err)
+
+
 def check_ell_kernels(streams: dict, device, max_err: dict) -> None:
     """Phase 3b: each ELL kernel against its plain version at W=128, 256,
-    384 and 512; the W=512 bucket holds the hep10k stream's largest graph."""
+    384 and 512; the W=512 bucket holds the hep10k stream's largest graph.
+    Then what the occupancy calculator says of row 9's two forms."""
+    import torch
+
     from flowgnn_tpu_torch.models import base
 
     for name in ELL_MODELS:
@@ -845,6 +887,15 @@ def check_ell_kernels(streams: dict, device, max_err: dict) -> None:
         for batch, what in cases:
             what = f"W={base.ell_geometry(batch)[0]} {what}"
             max_err[kname] = max(max_err[kname], check_kernel(name, batch, device, what))
+    # Row 9's forms on the card: the blocks an SM holds and the clusters in flight.
+    from flowgnn_tpu_torch.ops.local_layer import gcn_occupancy
+
+    for dt in (torch.bfloat16, torch.float32):
+        for window in (128, 512):
+            occ = gcn_occupancy(dt, window, 100, 13, base.POOL_GMAX, 1, device)
+            print(f"# occupancy gcn_local_model {dt} W={window}: {occ['smem']} B of shared memory "
+                  f"a block (ring {occ['stages']}), {occ['blocks_per_sm']} blocks an SM, "
+                  f"{occ['clusters']} clusters of {window // 128} at once")
 
 
 def check_layer_kernels(streams: dict, device, max_err: dict) -> None:
@@ -1135,13 +1186,13 @@ def describe_ell(streams: dict) -> None:
 
 
 def describe_hep_slots(streams: dict) -> None:
-    """Phase 4b's slot geometry on hep10k: per GIN / GIN-VN bucket at
+    """Phase 4b's slot geometry on hep10k: per GIN / GIN-VN / PNA bucket at
     ``HEP_SLOT_WINDOW`` the windows, slots, prefix caps and lanes per window;
     no bucket may spill."""
     from flowgnn_tpu_torch.models import base
 
     for name in HEP_SLOT_MODELS:
-        buckets, batches, _ = streams[name, "hep10k", SLOTS]
+        buckets, batches, _ = streams[name, "hep10k", HEP_SLOTS]
         for i, b in enumerate(batches):
             w, s = b["slot_geom"].shape
             nw = -(-b["node_feat"].shape[0] // w)
@@ -1255,10 +1306,12 @@ def check_ell_matches_slots(streams: dict, device) -> dict:
 
 
 def check_hep_slots_match_ell(streams: dict, device) -> dict:
-    """Phase 4b, hep10k: the slot path's f32 predictions at W=512 against the
-    ELL W=512 path's on the same packing (both kernel paths, rows 1 and 8;
-    summation order only: 1e-4), GIN and GIN-VN. Returns row 1's launches,
-    counted as in ``run_main_path``."""
+    """Phase 4b, hep10k: the slot path's f32 predictions at W=512 against
+    another kernel path's over the same graphs (summation order only:
+    1e-4): GIN's and GIN-VN's against the ELL W=512 path's on the same
+    packing (rows 1 and 8), PNA's against the W=128 spill path's (row 3
+    against rows 19 and 24), graph by graph over the stream. Returns the slot
+    kernels' launches, counted as in ``run_main_path``: one per bucket."""
     import torch
 
     from flowgnn_tpu_torch.core.numerics import FLOAT32
@@ -1270,22 +1323,28 @@ def check_hep_slots_match_ell(streams: dict, device) -> dict:
     for name in HEP_SLOT_MODELS:
         forward = registry.get(name).forward
         params = params_from_numpy(synthetic_params(name, SEED), FLOAT32, device)
-        buckets, slot, _ = streams[name, "hep10k", SLOTS]
-        want = [forward(params, b, FLOAT32) for b in streams[name, "hep10k", ELL][1]]
+        buckets, slot, _ = streams[name, "hep10k", HEP_SLOTS]
+        other, what = ((name, "hep10k", SLOTS), "W=128 spill path") if name == "pna" else (
+            (name, "hep10k", ELL), "ELL path (W=512)")
+        other_buckets, other_batches, _ = streams[other]
+        want = torch.cat([forward(params, b, FLOAT32)[: p.num_graphs]
+                          for p, b in zip(other_buckets, other_batches)])
         for k in kernels.values():
             k.launches = 0
         outs = [forward(params, b, FLOAT32) for b in slot]
         torch.cuda.synchronize()
         counts = {k: f.launches for k, f in kernels.items()}
-        expect = {k: len(slot) if k == "gin_local_model_slots" else 0 for k in KERNELS}
+        kname = MODEL_KERNELS[name][0]
+        expect = {k: len(slot) if k == kname else 0 for k in KERNELS}
         check(counts == expect, f"{name} hep10k slots: launches {counts}, expected {expect}")
         for k, c in counts.items():
             launches[k] += c
-        for i, (packed, out, w) in enumerate(zip(buckets, outs, want)):
-            k = packed.num_graphs
-            err = agree(out[:k], w[:k], 1e-4)
-            print(f"# hep10k {name} f32 bucket {i}: slot path (W={HEP_SLOT_WINDOW}) vs ELL path "
-                  f"(W=512), max abs err {err:.3e}; max |out| {w[:k].abs().max().item():.3e}")
+        got = torch.cat([out[: p.num_graphs] for p, out in zip(buckets, outs)])
+        check(got.shape == want.shape, f"{name} hep10k: {got.shape} vs {want.shape} graphs")
+        err = agree(got, want, 1e-4)
+        print(f"# hep10k {name} f32: slot path (W={HEP_SLOT_WINDOW}) vs {what}, "
+              f"{got.shape[0]} graphs, max abs err {err:.3e}; max |out| "
+              f"{want.abs().max().item():.3e}")
     return launches
 
 
@@ -1313,6 +1372,7 @@ def valid_lanes(ops: dict) -> int:
 # kernels stop at a run's last lane with an edge, so this data's work is
 # the rows of the lanes that carry one, not the padded tensor.
 LANE_OPERANDS = ("ee", "vals", "values", "u_local", "v_local", "ell_meta")
+PACKED_WEIGHTS = ("mlp_tiles", "conv_tiles", "tower_tiles")
 
 
 def work(kname: str, ops: dict, out) -> tuple[float, float]:
@@ -1325,10 +1385,10 @@ def work(kname: str, ops: dict, out) -> tuple[float, float]:
     import torch
 
     e = valid_lanes(ops)
-    # mlp_tiles is the bf16 GIN kernels' packed copy of W1 and W2, counted once as those.
+    # The bf16 kernels' packed weight chunks copy weights counted once as those.
     byts = nbytes(out) + sum(
         e * nbytes(v[0]) if k in LANE_OPERANDS else nbytes(v)
-        for k, v in ops.items() if torch.is_tensor(v) and k != "mlp_tiles")
+        for k, v in ops.items() if torch.is_tensor(v) and k not in PACKED_WEIGHTS)
     L = ops.get("num_layers", 1)
     h = ops["h0"] if "h0" in ops else ops.get("h", ops.get("values"))
     n, d = h.shape
@@ -1452,9 +1512,9 @@ def time_paths(streams: dict, device, keys) -> dict:
 
 
 def time_turns(streams: dict, device) -> dict:
-    """Phase 5f: each tensor-core GIN kernel alone on each of its
-    ``TURN_CELLS``, its bf16 form (the wgmma MLP) and its f32 form (the FMA
-    MLP) on the same stream in turns, bf16, f32, f32, bf16 (``cuda_ms``
+    """Phase 5f: each tensor-core kernel alone on each of its
+    ``TURN_CELLS``, its bf16 form (wgmma) and its f32 form (FMA) on the same
+    stream in turns, bf16, f32, f32, bf16 (``cuda_ms``
     each), with its launches per stream, its bound in each dtype and the
     share of the bound each form reaches. Returns per (kernel, cell) the two
     forms' mean ms per stream."""
@@ -1483,11 +1543,40 @@ def time_turns(streams: dict, device) -> dict:
             mean = {p: sum(times[p]) / 2 for p in times}
             record[(kname, key)] = (mean[BF16], mean[FLOAT32])
             print(f"# time {kname} {' '.join(key)} in turns ({len(calls[BF16])} launches): bf16 "
-                  f"(wgmma MLP) {times[BF16][0]:.4f} / {times[BF16][1]:.4f} ms, f32 (FMA MLP) "
+                  f"(wgmma) {times[BF16][0]:.4f} / {times[BF16][1]:.4f} ms, f32 (FMA) "
                   f"{times[FLOAT32][0]:.4f} / {times[FLOAT32][1]:.4f} ms per stream; bound bf16 "
                   f"{bound[BF16]:.4f} ms ({bound[BF16] / mean[BF16]:.1%} of it reached), f32 "
                   f"{bound[FLOAT32]:.4f} ms ({bound[FLOAT32] / mean[FLOAT32]:.1%})")
     return record
+
+
+def time_split(streams: dict, device) -> None:
+    """Phase 5g: rows 9 and 3 by stage on their ``SPLIT_CELLS``, bf16 and
+    f32: the kernel alone over the stream (``cuda_ms``) whole, with its
+    product knocked out (``knockout`` bit 0: the next conv or the tower),
+    with its messages or stats knocked out (bit 1) and with both; the share
+    of the whole each stage takes (whole − without it) and what is left with
+    both out (set-up, barriers, epilogues, the pooled head)."""
+    from flowgnn_tpu_torch.core.numerics import BF16, FLOAT32
+    from flowgnn_tpu_torch.params.loaders import params_from_numpy
+
+    stage = {"gcn_local_model": "messages", "pna_local_model": "stats"}
+    for kname, cells in SPLIT_CELLS.items():
+        kernel = kernel_fn(kname)
+        for key in cells:
+            name = key[0]
+            for prec in (BF16, FLOAT32):
+                calls = kernel_calls(kname, name, params_from_numpy(synthetic_params(name, SEED),
+                                                                    prec, device),
+                                     streams[key][1], prec, key)
+                ms = {k: cuda_ms(lambda: [kernel(**o, knockout=k) for o in calls])
+                      for k in (0, 1, 2, 3)}
+                whole = ms[0]
+                print(f"# split {kname} {' '.join(key)} {prec.compute_dtype} ({len(calls)} "
+                      f"launches): whole {whole:.4f} ms; without the product {ms[1]:.4f}, "
+                      f"without the {stage[kname]} {ms[2]:.4f}, without both {ms[3]:.4f}; "
+                      f"product {(whole - ms[1]) / whole:.1%}, {stage[kname]} "
+                      f"{(whole - ms[2]) / whole:.1%}, the rest {ms[3] / whole:.1%}")
 
 
 def profile_path(key: tuple, streams: dict, device) -> None:
@@ -1738,6 +1827,10 @@ def main() -> int:
         hep = lambda layout: ("hep10k", HEP_GRAPHS, layout, dev, SPILL_WINDOW)
         mol = lambda layout: ("molhiv", STREAM_GRAPHS, layout, dev)
         paths = [((name, "hep10k", SLOTS), hep(SLOTS)) for name in SPILL_MODELS]
+        # PNA's hep10k slot path at W=512 beside its spill path; GCN's hep10k ELL
+        # path at W=512 (row 9 once per bucket) beside its W=128 one.
+        paths += [(("pna", "hep10k", HEP_SLOTS), ("hep10k", HEP_GRAPHS, SLOTS, dev, HEP_SLOT_WINDOW)),
+                  (("gcn", "hep10k", ELL), ("hep10k", HEP_GRAPHS, ELL, dev))]
         paths += [((name, "hep10k", ELL_LAYER), hep(ELL)) for name in LAYER_MODELS]
         paths += [(("gat", "hep10k", ELL_LAYER_FUSED), hep(ELL)),
                   (("gin", "molhiv", BLOCKED), mol(True)), (("gin", "molhiv", FUSED), mol(True)),
@@ -1782,10 +1875,11 @@ def main() -> int:
     for name in LAYER_MODELS:
         streams[name, "hep10k", ELL_LAYER] = make_stream(name, "hep10k", HEP_GRAPHS, ELL, dev,
                                                          window=SPILL_WINDOW)
-    # GIN / GIN-VN's hep10k slot stream: the ELL W=512 stream's packing.
+    # GIN / GIN-VN / PNA's hep10k slot stream at W=512 (GIN's and GIN-VN's the
+    # ELL W=512 stream's packing).
     for name in HEP_SLOT_MODELS:
-        streams[name, "hep10k", SLOTS] = make_stream(name, "hep10k", HEP_GRAPHS, SLOTS, dev,
-                                                     window=HEP_SLOT_WINDOW)
+        streams[name, "hep10k", HEP_SLOTS] = make_stream(name, "hep10k", HEP_GRAPHS, SLOTS, dev,
+                                                         window=HEP_SLOT_WINDOW)
     for name in INTER_MODELS:  # the molhiv ELL stream, run with intermediates
         streams[name, "molhiv", ELL_INTER] = streams[name, "molhiv", ELL]
     # PNA's molhiv slot stream, run with intermediates (row 20).
@@ -1821,7 +1915,7 @@ def main() -> int:
     # 3. Kernels against their plain versions; 4. the main paths; 5. timings.
     slot_keys = [(name, "molhiv", SLOTS) for name in MODELS]
     hep_keys = [(name, "hep10k", ELL) for name in ELL_MODELS]
-    hep_slot_keys = [(name, "hep10k", SLOTS) for name in HEP_SLOT_MODELS]
+    hep_slot_keys = [(name, "hep10k", HEP_SLOTS) for name in HEP_SLOT_MODELS]
     spill_keys = [(name, "hep10k", SLOTS) for name in SPILL_MODELS]
     layer_keys = [(name, "hep10k", ELL_LAYER) for name in ELL_MODELS]
     layer_keys += [(name, "molhiv", ELL_INTER) for name in INTER_MODELS]
@@ -1838,6 +1932,7 @@ def main() -> int:
     max_err = dict.fromkeys(KERNELS, 0.0)
     check_kernels(streams, dev, max_err)
     check_gin_kernels(streams, dev, max_err)
+    check_pna_kernels(streams, dev, max_err)
     check_ell_kernels(streams, dev, max_err)
     check_layer_kernels(streams, dev, max_err)
     check_ell_layer_kernels(streams, dev, max_err)
@@ -1853,6 +1948,7 @@ def main() -> int:
     record = time_paths(streams, dev, slot_keys + hep_keys + hep_slot_keys + molhiv_ell_keys
                         + spill_keys + layer_keys + new_keys + block_keys)
     time_turns(streams, dev)
+    time_split(streams, dev)
 
     # 6. The bench tools: checks, their main runs (counted), timings.
     check_chained_matmul(dev, max_err)

@@ -1,4 +1,4 @@
-// PNA whole-model slot megakernel for Hopper (sm_90a).
+// PNA whole-model slot megakernel for Hopper (sm_90a): kernel table row 3.
 //
 // Replaces the TPU kernel flowgnn_tpu/ops/pallas/local_layer.py:
 // pna_local_model (with its helpers _slot_onehot and _pool_epilogue). Same
@@ -25,45 +25,86 @@
 // would leave a residual of ~1e-8 * x^2 where the plain version has exactly
 // 0 (one in-edge), which the sqrt turns into ~1e-4 * |x|.
 //
-// What bounds it on this card: per window and layer the tower is
-// W*4D*3D multiply-adds (9.8 M at W=128, D=80), against S*W*D gathered
-// values for the four aggregates; h is read once and GMAX*T floats written
-// per window, so the kernel is bound on chip (arithmetic, shared-memory
-// traffic and latency). Shared memory cannot hold a whole layer: h is
-// 40 KB in f32, the [W, 4D] stats 160 KB and one layer's f32 tower
-// 307 KB. So the design keeps h and the next h resident for all L layers
-// (the TPU kernel's VMEM residency), computes the stats and the tower over
-// row blocks of kRB = 64 rows (stats 82 KB), and streams the tower's
-// weights from L2 in chunks of kKC = 32 input channels (30 KB) into shared
-// memory; ~201 KB in all at W=128, one 256-thread block per SM. The stats
-// run one warp per destination row with the lanes over D (slot indices read
-// once per row, as a broadcast); the tower is register-tiled FMA, each
-// thread holding the three scaler outputs of its 4 rows x 5 columns. Every
-// sum has a fixed order and no atomics. wgmma and TMA are later work.
+// What bounds it on this card: per 128 rows and layer the tower is
+// 128*4D*3D multiply-adds (9.8 M at D=80), the largest dense product of any
+// model, against S*128*D gathered values for the four aggregates; h is read
+// once and GMAX*T floats written per window, so the kernel is bound on chip.
+// A window of W = 128..1024 rows runs on a thread-block cluster of W/128
+// blocks (1 to 8), each owning 128 rows of h and of the next h for all L
+// layers (the TPU kernel's VMEM residency). A slot source in another block's
+// rows is read from that block's shared memory (cluster.map_shared_rank);
+// the slot lanes are read from device memory through L1, once per row. The
+// stats run one warp per destination row with the lanes over D, in slot
+// order, with no atomics. Each layer reads h and writes the next h, the two
+// buffers swapping, so one cluster barrier per layer (after the next h is
+// in place everywhere, before any block gathers from it or overwrites the
+// buffer the others read) keeps the blocks in step. The readout pool of a
+// graph that spans blocks is a per-block partial reduced across the
+// cluster in rank order: deterministic, summed in another order than the
+// plain version (the f32 comparisons allow 1e-4 of the output's scale).
+//
+// The two forms run the tower differently:
+// - bfloat16 on the tensor cores through linear_wgmma.cuh: h stays bf16 (it
+//   is rounded every layer), the stats stage writes rnd(mean) | rnd(min) |
+//   rnd(max) | rnd(std) straight into wgmma's A layout [4D'/8][128][8], and
+//   one product [128, 4D] . [4D, 240] per layer (one m64n240k16 a K step,
+//   scaler p's outputs at columns 80p + c) runs over all 128 rows, its
+//   weights packed once on the host into chunks of 32 input channels and
+//   streamed through a ring of bulk copies, every layer one sequence: read
+//   from L2 once per layer and block, with no conversion and no block-wide
+//   barrier per chunk. The scalers, bias and residual run on the
+//   accumulators in registers. At D = 80: h and next h 41 KB, stats 82 KB,
+//   partials 10 KB, the ring S x 15.4 KB (the wrapper takes the deepest that
+//   fits), one block an SM;
+// - float32 keeps register-tiled FMA (TF32 would break the f32 gate of
+//   1e-4) over two row blocks of 64 rows, the weights staged in f32 chunks
+//   of 32 input channels: ~207 KB at D = 80.
+// The shared-memory carve-up (smem_layout) is computed once on the host and
+// passed as a kernel parameter.
+//
+// Dims::knockout is a timing knob, never set on the model path: bit 0 skips
+// the tower's product (and the weight ring), bit 1 skips the stats; the
+// phase split of chip_smoke.py times the kernel with each.
 //
 // Numerics follow the TPU kernel: activations, scalers and weights are float
 // or bfloat16 (T); every product and sum is float32; the stats and the new
 // h are rounded to T where the TPU kernel casts to its compute dtype.
 
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "linear_wgmma.cuh"
+
+namespace cg = cooperative_groups;
+
 namespace {
+
+using namespace hopper;
+namespace lw = linear_wgmma;
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr int kTR = 16;                // thread rows of the tower tile
-constexpr int kTC = 16;                // thread columns of the tower tile
-constexpr int kRowsPT = 4;             // rows per thread
-constexpr int kRB = kTR * kRowsPT;     // rows per stats / tower block (64)
-constexpr int kColsPT = 5;             // output columns per thread and scaler
-constexpr int kMaxD = kTC * kColsPT;   // widest D the tile covers (80)
+constexpr int kRows = 128;             // window rows per block of the cluster
+constexpr int kMaxCluster = 8;         // portable cluster size: W up to 1024
+constexpr int kMaxD = 80;              // widest D either form's tile covers
 constexpr int kLaneD = (kMaxD + 31) / 32;  // D columns per lane in the stats
-constexpr int kKC = 32;                // tower input channels per weight chunk
+constexpr int kPitch = kMaxD;          // bf16 tower: scaler p's outputs at 80p + c
+constexpr int kTowerN = 3 * kPitch;    // the bf16 tower's width (240)
+constexpr int kTR = 16;                // thread rows of the f32 tower tile
+constexpr int kTC = 16;                // thread columns of the f32 tower tile
+constexpr int kRowsPT = 4;             // rows per thread
+constexpr int kRB = kTR * kRowsPT;     // rows per f32 stats / tower block (64)
+constexpr int kColsPT = 5;             // output columns per thread and scaler
+constexpr int kKC = 32;                // f32 tower input channels per weight chunk
 constexpr int kMaxSlots = 8;
+constexpr int kNoProduct = 1, kNoStats = 2;  // Dims::knockout bits
+
+static_assert(kTC * kColsPT == kMaxD && kPitch % 8 == 0 && kTowerN <= 256, "tower tiles");
+static_assert(kRows == lw::kRows && kThreads == lw::kThreads, "the wgmma product's block shape");
 
 struct Dims {
-  int n, window, d, layers, gmax, tout, slots;
+  int n, window, d, layers, gmax, tout, slots, stages, knockout;
   float min_init, max_init;
 };
 
@@ -71,35 +112,43 @@ struct Caps {
   int caps[kMaxSlots];
 };
 
-// Shared-memory carve-up, in 4-byte words.
+// Shared-memory carve-up of one block, byte offsets. wg: the bf16 (wgmma)
+// form, whose h and stats are bf16 and which holds the weight ring (ring,
+// bars); the f32 form stages its weight chunks in wc.
 struct Smem {
-  size_t h, hn, st, wc, src, aux, gl, rows, gstart, total;
+  size_t h, hn, st, wc, aux, gl, rows, gstart, part, ring, bars, total;
 };
 
-__host__ __device__ inline Smem smem_layout(const Dims& dm) {
-  const size_t W = dm.window, D = dm.d;
-  size_t st = size_t(kRB) * (4 * D + 1);            // stats, row stride 4D+1
-  if (W * dm.tout > st) st = W * dm.tout;           // head outputs
-  if (size_t(dm.gmax) > st) st = dm.gmax;           // CSR cursor
+inline Smem smem_layout(bool wg, int d, int gmax, int tout, int stages) {
+  const size_t D = d;
+  const lw::Geom lg = lw::geom(4 * d, kTowerN);
+  size_t st = wg ? size_t(kRows) * lg.kp * 2 : size_t(kRB) * (4 * D + 1) * 4;  // stats
+  if (size_t(kRows) * tout * 4 > st) st = size_t(kRows) * tout * 4;             // head outputs
+  if (size_t(gmax) * 4 > st) st = size_t(gmax) * 4;                             // CSR cursor
   Smem s;
   size_t o = 0;
-  s.h = o; o += W * D;
-  s.hn = o; o += W * D;
-  s.st = o; o += st;
-  s.wc = o; o += size_t(kKC) * 3 * D;
-  s.src = o; o += W * dm.slots;
-  s.aux = o; o += 3 * W;
-  s.gl = o; o += W;
-  s.rows = o; o += W;
-  s.gstart = o; o += dm.gmax + 1;
+  auto take = [&o](size_t bytes) {
+    const size_t at = o;
+    o += (bytes + 15) / 16 * 16;
+    return at;
+  };
+  s.h = take(kRows * D * (wg ? 2 : 4));
+  s.hn = take(kRows * D * (wg ? 2 : 4));
+  s.st = take(st);
+  s.wc = take(wg ? 0 : size_t(kKC) * 3 * D * 4);
+  s.aux = take(3 * kRows * 4);
+  s.gl = take(kRows * 4);
+  s.rows = take(kRows * 4);
+  s.gstart = take((gmax + 1) * 4);
+  s.part = take(size_t(gmax) * tout * 4);
+  s.ring = take(wg ? size_t(stages) * lg.chunk_bytes : 0);
+  s.bars = take(wg ? size_t(stages) * 8 : 0);
   s.total = o;
   return s;
 }
 
 __device__ __forceinline__ float ld(const float* p) { return __ldg(p); }
-__device__ __forceinline__ float ld(const __nv_bfloat16* p) {
-  return __bfloat162float(*p);
-}
+__device__ __forceinline__ float ld(const __nv_bfloat16* p) { return __bfloat162float(*p); }
 
 template <typename T> __device__ __forceinline__ float rnd(float x);
 template <> __device__ __forceinline__ float rnd<float>(float x) { return x; }
@@ -107,41 +156,81 @@ template <> __device__ __forceinline__ float rnd<__nv_bfloat16>(float x) {
   return __bfloat162float(__float2bfloat16_rn(x));
 }
 
+// h and the stats in shared memory: float, or bf16 for the wgmma form.
+__device__ __forceinline__ float val(float x) { return x; }
+__device__ __forceinline__ float val(__nv_bfloat16 x) { return __bfloat162float(x); }
+template <typename S> __device__ __forceinline__ S store(float x);
+template <> __device__ __forceinline__ float store<float>(float x) { return x; }
+template <> __device__ __forceinline__ __nv_bfloat16 store<__nv_bfloat16>(float x) {
+  return __float2bfloat16_rn(x);
+}
+
+// a = y0 + t·y1 + scale·y2 + b, then rnd(h + relu(a)), in the plain
+// version's order.
 template <typename T>
+__device__ __forceinline__ float pna_update(float h, float y0, float y1, float y2, float t, float sc,
+                                            float b) {
+  float a = __fadd_rn(y0, __fmul_rn(t, y1));
+  a = __fadd_rn(a, __fmul_rn(sc, y2));
+  a = __fadd_rn(a, b);
+  return rnd<T>(__fadd_rn(h, fmaxf(a, 0.f)));
+}
+
+// kWg: the bf16 form with the wgmma tower; tiles its packed weight chunks
+// (linear_wgmma.cuh), all layers in order. lay: the shared-memory
+// carve-up, computed once on the host (smem_layout).
+template <typename T, bool kWg>
 __global__ void __launch_bounds__(kThreads)
 pna_model_kernel(const int* __restrict__ slot_src, const T* __restrict__ h0,
                  const T* __restrict__ invd, const T* __restrict__ tdeg,
                  const T* __restrict__ scale, const T* __restrict__ w_all,
                  const T* __restrict__ b_all, const int* __restrict__ pool_gl,
-                 const T* __restrict__ mlp1_w, float* __restrict__ out,
-                 Dims dm, Caps cp) {
-  extern __shared__ float smem[];
-  const Smem lay = smem_layout(dm);
-  const int W = dm.window, D = dm.d, S = dm.slots, tid = threadIdx.x;
+                 const T* __restrict__ mlp1_w, const unsigned char* __restrict__ tiles,
+                 float* __restrict__ out, Dims dm, Caps cp, Smem lay) {
+  using S = T;  // h in shared memory
+  extern __shared__ __align__(128) unsigned char smem[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int csize = int(cluster.num_blocks());
+  const int rank = int(cluster.block_rank());
+  const int win = blockIdx.x / csize;
+  const int W = dm.window, D = dm.d, NS = dm.slots, tid = threadIdx.x;
   const int K4 = 4 * D, N3 = 3 * D, SP = K4 + 1;
-  float* h_s = smem + lay.h;       // [W][D] current h
-  float* hn_s = smem + lay.hn;     // [W][D] next h
-  float* st_s = smem + lay.st;     // [kRB][SP] stats; head outputs; CSR cursor
-  float* wc_s = smem + lay.wc;     // [kKC][3D] a chunk of this layer's tower
-  int* src_s = reinterpret_cast<int*>(smem + lay.src);  // [W][S]
-  float* invd_s = smem + lay.aux;  // [W] 1/max(in_deg, 1), then t and scale
-  float* t_s = invd_s + W;
-  float* sc_s = t_s + W;
-  int* gl_s = reinterpret_cast<int*>(smem + lay.gl);          // [W]
-  int* rows_s = reinterpret_cast<int*>(smem + lay.rows);      // [W] rows by graph
+  S* h_s = reinterpret_cast<S*>(smem + lay.h);     // [kRows][D] this block's rows of h
+  S* hn_s = reinterpret_cast<S*>(smem + lay.hn);   // [kRows][D] the next h
+  unsigned char* st_raw = smem + lay.st;           // stats: bf16 [4D'/8][kRows][8], f32
+                                                   // [kRB][4D+1]; head outputs; CSR cursor
+  float* wc_s = reinterpret_cast<float*>(smem + lay.wc);      // f32: [kKC][3D] a weight chunk
+  float* invd_s = reinterpret_cast<float*>(smem + lay.aux);   // [kRows] 1/max(in_deg, 1),
+  float* t_s = invd_s + kRows;                                // then t and scale
+  float* sc_s = t_s + kRows;
+  int* gl_s = reinterpret_cast<int*>(smem + lay.gl);          // [kRows]
+  int* rows_s = reinterpret_cast<int*>(smem + lay.rows);      // [kRows] rows by graph
   int* gstart_s = reinterpret_cast<int*>(smem + lay.gstart);  // [gmax+1]
+  float* part_s = reinterpret_cast<float*>(smem + lay.part);  // [gmax][T] readout partials
+  const lw::Geom lg = lw::geom(K4, kTowerN);
+  const lw::Ring ring{smem + lay.ring, reinterpret_cast<uint64_t*>(smem + lay.bars), tiles,
+                      dm.stages, dm.layers * lg.chunks, lg.chunk_bytes};
+  const bool do_tower = !(dm.knockout & kNoProduct), do_stats = !(dm.knockout & kNoStats);
 
-  const long row0 = long(blockIdx.x) * W;
-  for (int i = tid; i < W * D; i += kThreads) {
+  const long wrow0 = long(win) * W;               // the window's first row
+  const long row0 = wrow0 + long(rank) * kRows;   // this block's first row
+  if constexpr (kWg) {
+    if (tid == 0 && do_tower) ring.init();
+    // The stats' pad columns stay zero; the stats stage writes columns < 4D.
+    __nv_bfloat16* st = reinterpret_cast<__nv_bfloat16*>(st_raw);
+    const int pad = lg.kp - K4;
+    for (int i = tid; i < kRows * pad; i += kThreads)
+      st[lw::a_index(i / pad, K4 + i % pad)] = __float2bfloat16_rn(0.f);
+  }
+  if (!do_stats) {  // timing only: the tower reads defined stats
+    const int words = int((kWg ? size_t(kRows) * lg.kp * 2 : size_t(kRB) * SP * 4) / 4);
+    for (int i = tid; i < words; i += kThreads) reinterpret_cast<float*>(st_raw)[i] = 0.f;
+  }
+  for (int i = tid; i < kRows * D; i += kThreads) {
     const int r = i / D;
-    h_s[i] = row0 + r < dm.n ? ld(h0 + (row0 + r) * D + (i - r * D)) : 0.f;
+    h_s[i] = store<S>(row0 + r < dm.n ? ld(h0 + (row0 + r) * D + (i - r * D)) : 0.f);
   }
-  for (int i = tid; i < W * S; i += kThreads) {
-    // A slot beyond its prefix cap counts for nothing: mark it empty.
-    const int r = i / S, k = i - r * S;
-    src_s[i] = r < cp.caps[k] ? slot_src[row0 * S + i] : W;
-  }
-  for (int r = tid; r < W; r += kThreads) {
+  for (int r = tid; r < kRows; r += kThreads) {
     const bool real = row0 + r < dm.n;
     invd_s[r] = real ? ld(invd + row0 + r) : 0.f;
     t_s[r] = real ? ld(tdeg + row0 + r) : 0.f;
@@ -149,153 +238,215 @@ pna_model_kernel(const int* __restrict__ slot_src, const T* __restrict__ h0,
     gl_s[r] = pool_gl[row0 + r];
   }
   __syncthreads();
+  if constexpr (kWg) {
+    if (tid == 0 && do_tower) ring.prefetch();  // the first S weight chunks, while the layers set up
+  }
   if (tid == 0) {
-    // Group the window's rows by graph (ascending row order within a
-    // graph): the finalize then sums each graph's rows in a fixed order.
-    int* cursor = reinterpret_cast<int*>(st_s);
+    // Group the block's rows by graph (ascending row order within a graph):
+    // the readout then sums each graph's rows in a fixed order.
+    int* cursor = reinterpret_cast<int*>(st_raw);
     for (int g = 0; g <= dm.gmax; ++g) gstart_s[g] = 0;
-    for (int r = 0; r < W; ++r)
+    for (int r = 0; r < kRows; ++r)
       if (unsigned(gl_s[r]) < unsigned(dm.gmax)) ++gstart_s[gl_s[r] + 1];
     for (int g = 0; g < dm.gmax; ++g) {
       gstart_s[g + 1] += gstart_s[g];
       cursor[g] = gstart_s[g];
     }
-    for (int r = 0; r < W; ++r)
+    for (int r = 0; r < kRows; ++r)
       if (unsigned(gl_s[r]) < unsigned(dm.gmax)) rows_s[cursor[gl_s[r]]++] = r;
   }
 
+  // The four aggregates of the block's row r (mean, min, max, std), rounded
+  // to T, handed to put(col, value) for col = part·D + c: one warp per row,
+  // lane j holding columns j, j + 32, ... of h.
   const int warp = tid / 32, lane = tid % 32;
-  const int tr = tid / kTC, tc = tid % kTC;
-  for (int l = 0; l < dm.layers; ++l) {
-    const T* w_l = w_all + long(l) * K4 * N3;
-    for (int rb = 0; rb < W; rb += kRB) {
-      __syncthreads();  // st_s and wc_s are free; last layer's h is complete
-
-      // Stats of rows rb..rb+kRB-1, one warp per row, lanes over D.
-      for (int rl = warp; rl < kRB; rl += kWarps) {
-        const int r = rb + rl;
-        float s[kLaneD], q[kLaneD], mn[kLaneD], mx[kLaneD];
+  auto stats_row = [&](int r, auto&& put) {
+    float s[kLaneD], q[kLaneD], mn[kLaneD], mx[kLaneD];
 #pragma unroll
-        for (int j = 0; j < kLaneD; ++j) {
-          s[j] = 0.f; q[j] = 0.f; mn[j] = dm.min_init; mx[j] = dm.max_init;
-        }
-        for (int k = 0; r < W && k < S; ++k) {
-          const int src = src_s[r * S + k];
-          if (unsigned(src) >= unsigned(W)) continue;  // empty slot
-          const float* hu = h_s + src * D;
+    for (int j = 0; j < kLaneD; ++j) {
+      s[j] = 0.f; q[j] = 0.f; mn[j] = dm.min_init; mx[j] = dm.max_init;
+    }
+    const int wr = rank * kRows + r;  // the window row
+    for (int k = 0; k < NS; ++k) {
+      if (wr >= cp.caps[k]) continue;  // a slot beyond its prefix cap counts for nothing
+      const int src = __ldg(slot_src + (wrow0 + wr) * NS + k);
+      if (unsigned(src) >= unsigned(W)) continue;  // empty slot
+      const int owner = src / kRows;
+      const S* base = owner == rank ? h_s : cluster.map_shared_rank(h_s, owner);
+      const S* hu = base + (src - owner * kRows) * D;
 #pragma unroll
-          for (int j = 0; j < kLaneD; ++j) {
-            const int d = lane + 32 * j;
-            if (d >= D) break;
-            const float x = hu[d];
-            s[j] = __fadd_rn(s[j], x);
-            q[j] = __fadd_rn(q[j], __fmul_rn(x, x));
-            mn[j] = fminf(mn[j], x);
-            mx[j] = fmaxf(mx[j], x);
-          }
-        }
-        const float inv = r < W ? invd_s[r] : 0.f;
-        float* st_r = st_s + rl * SP;
-#pragma unroll
-        for (int j = 0; j < kLaneD; ++j) {
-          const int d = lane + 32 * j;
-          if (d >= D) break;
-          const float mean = __fmul_rn(s[j], inv);
-          const float var = __fsub_rn(__fmul_rn(q[j], inv), __fmul_rn(mean, mean));
-          st_r[d] = rnd<T>(mean);
-          st_r[D + d] = rnd<T>(mn[j]);
-          st_r[2 * D + d] = rnd<T>(mx[j]);
-          st_r[3 * D + d] = rnd<T>(sqrtf(fmaxf(var, 0.f)));
-        }
+      for (int j = 0; j < kLaneD; ++j) {
+        const int d = lane + 32 * j;
+        if (d >= D) break;
+        const float x = val(hu[d]);
+        s[j] = __fadd_rn(s[j], x);
+        q[j] = __fadd_rn(q[j], __fmul_rn(x, x));
+        mn[j] = fminf(mn[j], x);
+        mx[j] = fmaxf(mx[j], x);
       }
+    }
+    const float inv = invd_s[r];
+#pragma unroll
+    for (int j = 0; j < kLaneD; ++j) {
+      const int d = lane + 32 * j;
+      if (d >= D) break;
+      const float mean = __fmul_rn(s[j], inv);
+      const float var = __fsub_rn(__fmul_rn(q[j], inv), __fmul_rn(mean, mean));
+      put(d, rnd<T>(mean));
+      put(D + d, rnd<T>(mn[j]));
+      put(2 * D + d, rnd<T>(mx[j]));
+      put(3 * D + d, rnd<T>(sqrtf(fmaxf(var, 0.f))));
+    }
+  };
 
-      // Tower: y[r][p*D + c] = sum_k st[r][k] . w_l[k][p*D + c], the weight
-      // streamed in chunks of kKC input channels.
-      float acc[kRowsPT][3][kColsPT];
+  for (int l = 0; l < dm.layers; ++l) {
+    // Every block's h is in place, and no block still reads the buffer this
+    // layer's next h overwrites.
+    cluster.sync();
+    const T* b_l = b_all + long(l) * D;
+    if constexpr (kWg) {
+      __nv_bfloat16* st = reinterpret_cast<__nv_bfloat16*>(st_raw);
+      for (int r = warp; do_stats && r < kRows; r += kWarps)
+        stats_row(r, [&](int col, float v) { st[lw::a_index(r, col)] = __float2bfloat16_rn(v); });
+      fence_proxy_async();  // the stats, written here, are read by wgmma
+      __syncthreads();
+      // Tower, scalers, bias and residual: y = stats · w_l on the tensor
+      // cores, the rest on the accumulators in registers.
+      float y[kTowerN / 2];
+      if (do_tower) {
+        lw::run<kTowerN>(y, st, ring, l * lg.chunks, lg.chunks, tid);
+      } else {
 #pragma unroll
-      for (int i = 0; i < kRowsPT; ++i)
+        for (int i = 0; i < kTowerN / 2; ++i) y[i] = 0.f;
+      }
 #pragma unroll
-        for (int p = 0; p < 3; ++p)
+      for (int j = 0; j < kPitch / 8; ++j)
 #pragma unroll
-          for (int m = 0; m < kColsPT; ++m) acc[i][p][m] = 0.f;
-      for (int kc = 0; kc < K4; kc += kKC) {
-        const int kn = K4 - kc < kKC ? K4 - kc : kKC;
-        __syncthreads();  // the stats are written; the last chunk is consumed
-        for (int i = tid; i < kn * N3; i += kThreads) wc_s[i] = ld(w_l + long(kc) * N3 + i);
-        __syncthreads();
-        for (int kk = 0; kk < kn; ++kk) {
-          float a[kRowsPT];
+        for (int e = 0; e < 4; ++e) {
+          const int r = lw::acc_row(tid, e), c = lw::acc_col(tid, j, e);
+          if (c >= D) continue;
+          constexpr int kNext = kPitch / 2;  // accumulators between scalers' columns
+          hn_s[r * D + c] = store<S>(pna_update<T>(val(h_s[r * D + c]), y[4 * j + e],
+                                                   y[4 * j + e + kNext], y[4 * j + e + 2 * kNext],
+                                                   t_s[r], sc_s[r], ld(b_l + c)));
+        }
+    } else {
+      const T* w_l = w_all + long(l) * K4 * N3;
+      float* st = reinterpret_cast<float*>(st_raw);
+      const int tr = tid / kTC, tc = tid % kTC;
+      for (int rb = 0; rb < kRows; rb += kRB) {
+        __syncthreads();  // st and wc are free
+        for (int rl = warp; do_stats && rl < kRB; rl += kWarps)
+          stats_row(rb + rl, [&](int col, float v) { st[rl * SP + col] = v; });
+
+        // Tower: y[r][p*D + c] = sum_k st[r][k] . w_l[k][p*D + c], the weight
+        // streamed in chunks of kKC input channels.
+        float acc[kRowsPT][3][kColsPT];
 #pragma unroll
-          for (int i = 0; i < kRowsPT; ++i) a[i] = st_s[(tr + kTR * i) * SP + kc + kk];
-          const float* wrow = wc_s + kk * N3;
+        for (int i = 0; i < kRowsPT; ++i)
 #pragma unroll
           for (int p = 0; p < 3; ++p)
 #pragma unroll
-            for (int m = 0; m < kColsPT; ++m) {
-              const int c = tc + kTC * m;
-              const float wv = c < D ? wrow[p * D + c] : 0.f;
+            for (int m = 0; m < kColsPT; ++m) acc[i][p][m] = 0.f;
+        for (int kc = 0; do_tower && kc < K4; kc += kKC) {
+          const int kn = K4 - kc < kKC ? K4 - kc : kKC;
+          __syncthreads();  // the stats are written; the last chunk is consumed
+          for (int i = tid; i < kn * N3; i += kThreads) wc_s[i] = ld(w_l + long(kc) * N3 + i);
+          __syncthreads();
+          for (int kk = 0; kk < kn; ++kk) {
+            float a[kRowsPT];
 #pragma unroll
-              for (int i = 0; i < kRowsPT; ++i) acc[i][p][m] = fmaf(a[i], wv, acc[i][p][m]);
-            }
+            for (int i = 0; i < kRowsPT; ++i) a[i] = st[(tr + kTR * i) * SP + kc + kk];
+            const float* wrow = wc_s + kk * N3;
+#pragma unroll
+            for (int p = 0; p < 3; ++p)
+#pragma unroll
+              for (int m = 0; m < kColsPT; ++m) {
+                const int c = tc + kTC * m;
+                const float wv = c < D ? wrow[p * D + c] : 0.f;
+#pragma unroll
+                for (int i = 0; i < kRowsPT; ++i) acc[i][p][m] = fmaf(a[i], wv, acc[i][p][m]);
+              }
+          }
         }
-      }
 
-      // Scalers, bias and residual into the next h.
+        // Scalers, bias and residual into the next h.
 #pragma unroll
-      for (int i = 0; i < kRowsPT; ++i) {
-        const int r = rb + tr + kTR * i;
-        if (r >= W) continue;
+        for (int i = 0; i < kRowsPT; ++i) {
+          const int r = rb + tr + kTR * i;
 #pragma unroll
-        for (int m = 0; m < kColsPT; ++m) {
-          const int c = tc + kTC * m;
-          if (c >= D) continue;
-          float a = __fadd_rn(acc[i][0][m], __fmul_rn(t_s[r], acc[i][1][m]));
-          a = __fadd_rn(a, __fmul_rn(sc_s[r], acc[i][2][m]));
-          a = __fadd_rn(a, ld(b_all + long(l) * D + c));
-          hn_s[r * D + c] = rnd<T>(__fadd_rn(h_s[r * D + c], fmaxf(a, 0.f)));
+          for (int m = 0; m < kColsPT; ++m) {
+            const int c = tc + kTC * m;
+            if (c >= D) continue;
+            hn_s[r * D + c] = store<S>(pna_update<T>(val(h_s[r * D + c]), acc[i][0][m],
+                                                     acc[i][1][m], acc[i][2][m], t_s[r], sc_s[r],
+                                                     ld(b_l + c)));
+          }
         }
       }
     }
-    float* tmp = h_s;
+    S* tmp = h_s;
     h_s = hn_s;
     hn_s = tmp;
   }
   __syncthreads();
 
-  // Finalize: per-row head p = h . mlp1_w, then per-graph sums of p.
-  float* p_s = st_s;  // [W][T]
-  for (int i = tid; i < W * dm.tout; i += kThreads) {
+  // Finalize: per-row head p = h . mlp1_w, this block's per-graph sums of p,
+  // then the cluster's sums, each block writing a share of the outputs.
+  float* p_s = reinterpret_cast<float*>(st_raw);  // [kRows][T]
+  for (int i = tid; i < kRows * dm.tout; i += kThreads) {
     const int r = i / dm.tout, t = i - r * dm.tout;
     float s = 0.f;
-    for (int d = 0; d < D; ++d) s = fmaf(h_s[r * D + d], ld(mlp1_w + d * dm.tout + t), s);
+    for (int d = 0; d < D; ++d) s = fmaf(val(h_s[r * D + d]), ld(mlp1_w + d * dm.tout + t), s);
     p_s[i] = s;
   }
   __syncthreads();
-  float* out_w = out + long(blockIdx.x) * dm.gmax * dm.tout;
   for (int i = tid; i < dm.gmax * dm.tout; i += kThreads) {
     const int g = i / dm.tout, t = i - g * dm.tout;
     float s = 0.f;
     for (int j = gstart_s[g]; j < gstart_s[g + 1]; ++j) s += p_s[rows_s[j] * dm.tout + t];
+    part_s[i] = s;
+  }
+  cluster.sync();
+  float* out_w = out + long(win) * dm.gmax * dm.tout;
+  for (int i = rank * kThreads + tid; i < dm.gmax * dm.tout; i += csize * kThreads) {
+    float s = 0.f;
+    for (int k = 0; k < csize; ++k) s += cluster.map_shared_rank(part_s, k)[i];
     out_w[i] = s;
   }
+  cluster.sync();  // keep this block's shared memory until the cluster has read it
 }
 
-template <typename T>
-cudaError_t launch(const void* slot_src, const void* h0, const void* invd,
-                   const void* tdeg, const void* scale, const void* w_all,
-                   const void* b_all, const void* pool_gl, const void* mlp1_w,
-                   void* out, int num_windows, const Dims& dm, const Caps& cp,
-                   cudaStream_t stream) {
-  const size_t bytes = smem_layout(dm).total * 4;
-  cudaError_t err = cudaFuncSetAttribute(
-      pna_model_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, int(bytes));
+template <typename T, bool kWg>
+cudaError_t launch_typed(const void* slot_src, const void* h0, const void* invd, const void* tdeg,
+                         const void* scale, const void* w_all, const void* b_all,
+                         const void* pool_gl, const void* mlp1_w, const void* tiles, void* out,
+                         int num_windows, const Dims& dm, const Caps& cp, cudaStream_t stream) {
+  const int csize = dm.window / kRows;
+  const Smem lay = smem_layout(kWg, dm.d, dm.gmax, dm.tout, dm.stages);
+  cudaError_t err = cudaFuncSetAttribute(pna_model_kernel<T, kWg>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         int(lay.total));
   if (err != cudaSuccess) return err;
-  pna_model_kernel<T><<<num_windows, kThreads, bytes, stream>>>(
-      static_cast<const int*>(slot_src), static_cast<const T*>(h0),
-      static_cast<const T*>(invd), static_cast<const T*>(tdeg),
-      static_cast<const T*>(scale), static_cast<const T*>(w_all),
-      static_cast<const T*>(b_all), static_cast<const int*>(pool_gl),
-      static_cast<const T*>(mlp1_w), static_cast<float*>(out), dm, cp);
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = csize;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(num_windows * csize);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = lay.total;
+  cfg.stream = stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(
+      &cfg, pna_model_kernel<T, kWg>, static_cast<const int*>(slot_src),
+      static_cast<const T*>(h0), static_cast<const T*>(invd), static_cast<const T*>(tdeg),
+      static_cast<const T*>(scale), static_cast<const T*>(w_all), static_cast<const T*>(b_all),
+      static_cast<const int*>(pool_gl), static_cast<const T*>(mlp1_w),
+      static_cast<const unsigned char*>(tiles), static_cast<float*>(out), dm, cp, lay);
+  if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }
 
@@ -305,6 +456,18 @@ extern "C" {
 
 int pna_model_max_d() { return kMaxD; }
 int pna_model_max_slots() { return kMaxSlots; }
+int pna_model_rows_per_block() { return kRows; }
+int pna_model_max_cluster() { return kMaxCluster; }
+
+// The bf16 form's weight chunks at width d: K' (4d padded to whole chunks
+// of 32), N (the tower's width, three scalers at a pitch of 80), the bytes of
+// a chunk.
+void pna_model_tower_dims(int d, int* dims) {
+  const lw::Geom g = lw::geom(4 * d, kTowerN);
+  dims[0] = g.kp;
+  dims[1] = kTowerN;
+  dims[2] = g.chunk_bytes;
+}
 
 // The largest dynamic shared memory (bytes) a block may opt in to, or a
 // negative cudaError_t.
@@ -315,37 +478,46 @@ long long pna_model_smem_optin(int device) {
   return err == cudaSuccess ? (long long)bytes : -(long long)err;
 }
 
-// Dynamic shared memory (bytes) one block needs for this geometry.
-long long pna_model_smem_bytes(int window, int d, int gmax, int tout, int slots) {
-  const Dims dm{0, window, d, 0, gmax, tout, slots, 0.f, 0.f};
-  return (long long)(smem_layout(dm).total * 4);
+// Dynamic shared memory (bytes) one block of the cluster needs; dtype as in
+// pna_model_launch, stages the bf16 form's weight ring. The window and the
+// slot geometry do not enter it: a block holds 128 rows, and the slot lanes
+// stay in device memory.
+long long pna_model_smem_bytes(int dtype, int d, int gmax, int tout, int stages) {
+  return (long long)smem_layout(dtype == 1, d, gmax, tout, stages).total;
 }
 
 // dtype: 0 = float32, 1 = bfloat16 (h0, invd, t, scale, w_all, b_all,
 // mlp1_w). slot_src [num_windows*window, slots], pool_gl: int32; out:
 // float32 [num_windows*gmax, tout]. min_init / max_init seed the running min
-// and max. Returns a cudaError_t.
-int pna_model_launch(int dtype, const void* slot_src, const void* h0,
-                     const void* invd, const void* tdeg, const void* scale,
-                     const void* w_all, const void* b_all, const void* pool_gl,
-                     const void* mlp1_w, void* out, int num_windows, int n,
-                     int window, int d, int layers, int gmax, int tout,
-                     float min_init, float max_init, const int* caps,
-                     int slots, int device, void* stream) {
-  if (slots < 1 || slots > kMaxSlots || d < 1 || d > kMaxD || num_windows < 1)
+// and max. bfloat16 also takes `tiles`, the L layers' tower chunks as
+// pna_model_tower_dims gives them, and a ring of `stages` chunk buffers, at
+// least two (float32: null and 0). window must be 1..kMaxCluster whole
+// blocks of kRows rows, every cap at most the window. knockout: 0 (see
+// Dims). Returns a cudaError_t.
+int pna_model_launch(int dtype, const void* slot_src, const void* h0, const void* invd,
+                     const void* tdeg, const void* scale, const void* w_all, const void* b_all,
+                     const void* pool_gl, const void* mlp1_w, const void* tiles, void* out,
+                     int num_windows, int n, int window, int d, int layers, int gmax, int tout,
+                     float min_init, float max_init, const int* caps, int slots, int stages,
+                     int knockout, int device, void* stream) {
+  if (slots < 1 || slots > kMaxSlots || d < 1 || d > kMaxD || num_windows < 1 || layers < 1 ||
+      window % kRows || window / kRows < 1 || window / kRows > kMaxCluster ||
+      (dtype == 1 && (tiles == nullptr || stages < lw::min_stages(lw::geom(4 * d, kTowerN).chunks))))
     return int(cudaErrorInvalidValue);
+  for (int k = 0; k < slots; ++k)
+    if (caps[k] < 0 || caps[k] > window) return int(cudaErrorInvalidValue);
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return int(err);
-  const Dims dm{n, window, d, layers, gmax, tout, slots, min_init, max_init};
+  const Dims dm{n, window, d, layers, gmax, tout, slots, stages, knockout, min_init, max_init};
   Caps cp{};
   for (int k = 0; k < slots; ++k) cp.caps[k] = caps[k];
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    err = launch<float>(slot_src, h0, invd, tdeg, scale, w_all, b_all, pool_gl,
-                        mlp1_w, out, num_windows, dm, cp, s);
+    err = launch_typed<float, false>(slot_src, h0, invd, tdeg, scale, w_all, b_all, pool_gl,
+                                     mlp1_w, nullptr, out, num_windows, dm, cp, s);
   else if (dtype == 1)
-    err = launch<__nv_bfloat16>(slot_src, h0, invd, tdeg, scale, w_all, b_all,
-                                pool_gl, mlp1_w, out, num_windows, dm, cp, s);
+    err = launch_typed<__nv_bfloat16, true>(slot_src, h0, invd, tdeg, scale, w_all, b_all,
+                                            pool_gl, mlp1_w, tiles, out, num_windows, dm, cp, s);
   else
     err = cudaErrorInvalidValue;
   return int(err);

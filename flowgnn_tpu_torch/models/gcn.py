@@ -30,11 +30,14 @@ norm-scaled messages, gathered by index and summed by the spill scatter
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 from ..core.numerics import FLOAT32, Precision
 from ..ops.local_layer import (
-    gcn_local_layer_ell, gcn_local_message_ell, gcn_local_model, gcn_local_model_slots,
+    gcn_conv_tiles, gcn_local_layer_ell, gcn_local_message_ell, gcn_local_model,
+    gcn_local_model_slots,
 )
 from . import base as _base
 from .base import (
@@ -97,12 +100,22 @@ def slot_kernel_operands(params: dict, batch: dict, prec: Precision = FLOAT32) -
     )
 
 
+def conv_tiles(params: dict, prec: Precision) -> Optional[torch.Tensor]:
+    """The bf16 ELL kernel's next-conv weight chunks, layers 1..L-1
+    (``ops.local_layer.gcn_conv_tiles``: packed once per weight set, and
+    again after an in-place update of the weights); None outside bf16, where
+    the kernel reads ``wn_all`` as it is."""
+    if prec.compute_dtype != torch.bfloat16:
+        return None
+    return gcn_conv_tiles(params["conv_w"][1:])
+
+
 def ell_kernel_operands(params: dict, batch: dict, prec: Precision = FLOAT32) -> dict:
     """The keyword operands the ELL branch hands ``gcn_local_model`` for an
     ELL batch (also used to time the kernel on its own)."""
     return dict(
         ell_meta=_base.ell_meta(batch), window=_base.ell_geometry(batch)[0],
-        **_model_operands(params, batch, prec),
+        conv_tiles=conv_tiles(params, prec), **_model_operands(params, batch, prec),
     )
 
 

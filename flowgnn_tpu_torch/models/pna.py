@@ -27,10 +27,14 @@ runs the plain loop, the port's own oracle.
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 from ..core.numerics import FLOAT32, Precision
-from ..ops.local_layer import pna_local_layer, pna_local_model, pna_local_stats_ell
+from ..ops.local_layer import (
+    pna_local_layer, pna_local_model, pna_local_stats_ell, pna_tower_tiles,
+)
 from ..ops.segment import segment_max, segment_min
 from . import base as _base
 from .base import edge_segment_sum, gather_sources, in_degree, linear, mean_pool, out_degree, relu
@@ -74,7 +78,19 @@ def slot_kernel_operands(params: dict, batch: dict, prec: Precision = FLOAT32) -
         # Kernel argument order: (min-accumulator seed, max-accumulator seed).
         min_init=MAX_INIT, max_init=MIN_INIT,
         prefix_caps=_base.slot_prefix_caps(batch, n_slots),
+        tower_tiles=tower_tiles(params, prec),
     )
+
+
+def tower_tiles(params: dict, prec: Precision) -> Optional[torch.Tensor]:
+    """The bf16 slot megakernel's tower weight chunks of every layer
+    (``ops.local_layer.pna_tower_tiles`` over ``conv_w`` [L, D_out, 3, 4,
+    D_in] viewed as [L, 3, D_out, 4D]: packed once per weight set, and again
+    after an in-place update of the weights); None outside bf16, where the
+    kernel reads ``w_all`` as it is."""
+    if prec.compute_dtype != torch.bfloat16:
+        return None
+    return pna_tower_tiles(params["conv_w"].flatten(3).permute(0, 2, 1, 3))
 
 
 def _readout_tail(z: torch.Tensor, params: dict, prec: Precision) -> torch.Tensor:

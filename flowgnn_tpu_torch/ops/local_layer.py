@@ -9,12 +9,12 @@ bucket. Over the degree-sorted slot layout:
   one thread-block cluster per window of 128 to 1024 rows, the kernel of
   ``gin_local_model`` below with the slot message stage
   (``csrc/gin_model.cuh``);
+- ``pna_local_model``: PNA's conv stack and readout MLP-1
+  (``csrc/pna_local_model.cu``), one cluster per window of 128 to 1024 rows;
 
 and one block per window of 128 rows:
 
 - ``gcn_local_model_slots``: GCN (``csrc/gcn_local_model_slots.cu``);
-- ``pna_local_model``: PNA's conv stack and readout MLP-1
-  (``csrc/pna_local_model.cu``);
 - ``dgn_local_model``: DGN's conv stack and readout MLP-1
   (``csrc/dgn_local_model.cu``);
 - ``gat_local_model_slots``: GAT (``csrc/gat_local_model_slots.cu``), the
@@ -86,9 +86,13 @@ edge-block layer ``gin_layer_fused`` is in ``ops.fused_layer``.
 The three GIN kernels of rows 1, 8 and 13 run their bf16 update MLP on the
 tensor cores through one routine (``csrc/gin_mlp.cuh``: ``wgmma``, the
 weights streamed in chunks of 32 hidden units through a ring of bulk copies)
-and their f32 MLP as FMA on the CUDA cores. Their weight chunks are packed on
-the host once per weight set (``mlp_tiles``); each wrapper picks the ring's
-depth by shape and records it as its ``stages``.
+and their f32 MLP as FMA on the CUDA cores. Rows 9 and 3 run their bf16
+product (GCN's next conv, PNA's tower) through another, one product of 128
+rows (``csrc/linear_wgmma.cuh``, the weights in chunks of 32 input channels
+through the same ring), and their f32 product as FMA. The weight chunks are
+packed on the host once per weight set (``mlp_tiles``, ``gcn_conv_tiles``,
+``pna_tower_tiles``); each wrapper picks the ring's depth by shape and
+records it as its ``stages``.
 
 On a CUDA tensor a wrapper launches its hand-written kernel, or raises; on a
 CPU tensor it runs its ``_ref``, the same function in plain torch, which the
@@ -443,6 +447,7 @@ def gcn_local_model_ref(
     window: int,
     num_layers: int,
     gmax: int,
+    conv_tiles: Optional[torch.Tensor] = None,  # the kernel's packed weights; not read here
 ) -> torch.Tensor:
     """Plain-torch ``gcn_local_model`` (the k=1 ELL layout): [NW·GMAX, T]
     pool sums. Numerics as in ``gcn_local_model_slots_ref``, with dis_u
@@ -470,6 +475,7 @@ def pna_local_model_ref(
     min_init: float,  # seed of the running min (the upper ap_fixed extreme)
     max_init: float,  # seed of the running max (the lower extreme)
     prefix_caps: tuple | None = None,
+    tower_tiles: Optional[torch.Tensor] = None,  # the kernel's packed weights; not read here
 ) -> torch.Tensor:
     """Plain-torch ``pna_local_model``: [NW·GMAX, T] pool sums of h·mlp1_w.
 
@@ -1145,9 +1151,11 @@ def _library(name: str) -> dict:
     ``_rows_per_block`` and ``_max_cluster``, a per-layer ELL library
     ``_max_d``, ``_rows_per_block`` and ``_max_window_blocks`` (GAT's also
     ``_max_heads``), as do the legacy local and fused edge-block layers. The
-    GIN slot library also exports ``_rows_per_block`` and ``_max_cluster``,
-    the three libraries of ``GIN_MLP_LIBRARIES`` ``_mlp_dims``, and row 13's
-    ``_smem_per_sm``."""
+    GIN and PNA slot libraries also export ``_rows_per_block`` and
+    ``_max_cluster``, the three libraries of ``GIN_MLP_LIBRARIES``
+    ``_mlp_dims``, rows 13 and 9 ``_smem_per_sm``, and the two users of
+    ``csrc/linear_wgmma.cuh`` the geometry of their weight chunks (row 9
+    ``_conv_dims``, with ``_occupancy``; row 3 ``_tower_dims``)."""
     slot_getters = ("max_d", "max_slots")
     ell_getters = ("max_d", "rows_per_block", "max_cluster")
     layer_getters = ("max_d", "rows_per_block", "max_window_blocks")
@@ -1161,8 +1169,8 @@ def _library(name: str) -> dict:
             [_I32] + [_PTR] * 12 + [_I32] * 9 + [_INT_P, _I32, _I32, _PTR],
         ),
         "pna_local_model": (
-            "pna_model", slot_getters, [_I32] * 5,
-            [_I32] + [_PTR] * 10 + [_I32] * 7 + [_F32, _F32, _INT_P, _I32, _I32, _PTR],
+            "pna_model", slot_getters + ("rows_per_block", "max_cluster"), [_I32] * 5,
+            [_I32] + [_PTR] * 11 + [_I32] * 7 + [_F32, _F32, _INT_P] + [_I32] * 4 + [_PTR],
         ),
         "dgn_local_model": (
             "dgn_model", slot_getters, [_I32] * 5,
@@ -1177,8 +1185,8 @@ def _library(name: str) -> dict:
             [_I32] + [_PTR] * 13 + [_I32] * 11 + [_I32, _PTR],
         ),
         "gcn_local_model": (
-            "gcn_ell", ell_getters, [_I32] * 4,
-            [_I32] + [_PTR] * 12 + [_I32] * 9 + [_I32, _PTR],
+            "gcn_ell", ell_getters, [_I32] * 6,
+            [_I32] + [_PTR] * 13 + [_I32] * 11 + [_I32, _PTR],
         ),
         "pna_local_stats_slots": (
             "pna_stats", slot_getters, [_I32] * 3,
@@ -1250,10 +1258,16 @@ def _library(name: str) -> dict:
         f = getattr(lib, f"{prefix}_mlp_dims")
         f.argtypes, f.restype = [_I32, _I32, _INT_P], None
         fns["mlp_dims"] = f
-    if name == "gin_local_layer_ell":  # the ring's depth keeps two blocks an SM
-        f = lib.gin_layer_ell_smem_per_sm
-        f.argtypes, f.restype = [_I32], _I64
-        fns["smem_per_sm"] = f
+    extras = {  # rows 13 and 9: the ring's depth keeps two blocks an SM
+        "gin_local_layer_ell": (("smem_per_sm", [_I32], _I64),),
+        "gcn_local_model": (("smem_per_sm", [_I32], _I64), ("conv_dims", [_I32, _INT_P], None),
+                            ("occupancy", [_I32] * 8 + [_INT_P], _I32)),
+        "pna_local_model": (("tower_dims", [_I32, _INT_P], None),),
+    }
+    for suffix, args, res in extras.get(name, ()):
+        f = getattr(lib, f"{prefix}_{suffix}")
+        f.argtypes, f.restype = args, res
+        fns[suffix] = f
     return fns
 
 
@@ -1539,8 +1553,9 @@ def gin_mlp_tiles(w1_all: torch.Tensor, w2_all: torch.Tensor, num_layers: int) -
     return torch.cat([t1.reshape(L, chunks, -1), t2.reshape(L, chunks, -1)], dim=2).contiguous()
 
 
-# Packed weight chunks by weight set, newest last: (tiles, w1_all, w2_all).
-# Holding the weights keeps their storage, and so the key, from being reused.
+# Packed weight chunks by weight set, newest last: (tiles, *the source
+# weights). Holding the weights keeps their storage, and so the key, from
+# being reused.
 _MLP_TILES: collections.OrderedDict = collections.OrderedDict()
 MLP_TILE_SETS = 8  # weight sets kept
 
@@ -1550,23 +1565,97 @@ def _weight_key(t: torch.Tensor) -> tuple:
             t.dtype, str(t.device), t._version)
 
 
-def mlp_tiles(w1_all: torch.Tensor, w2_all: torch.Tensor, num_layers: int) -> torch.Tensor:
-    """``gin_mlp_tiles`` of a weight set, packed once: later calls with the
-    same weights (the same storage, offset, shape, strides, dtype and
-    device, and the same version, so a weight changed in place is repacked)
-    return the same tensor. Inference tensors, which keep no version, are
-    packed on every call."""
-    if w1_all.is_inference() or w2_all.is_inference():
-        return gin_mlp_tiles(w1_all, w2_all, num_layers)
-    key = (num_layers, _weight_key(w1_all), _weight_key(w2_all))
+def _pack_once(kind: tuple, sources: tuple, pack) -> torch.Tensor:
+    """``pack()`` of a weight set, packed once: later calls of the same
+    ``kind`` with the same ``sources`` (the same storage, offset, shape,
+    strides, dtype and device, and the same version, so a weight changed in
+    place is repacked) return the same tensor. Inference tensors, which keep
+    no version, are packed on every call."""
+    if any(t.is_inference() for t in sources):
+        return pack()
+    key = kind + tuple(_weight_key(t) for t in sources)
     hit = _MLP_TILES.get(key)
     if hit is not None:
         _MLP_TILES.move_to_end(key)
         return hit[0]
-    tiles = gin_mlp_tiles(w1_all, w2_all, num_layers)
-    _MLP_TILES[key] = (tiles, w1_all, w2_all)
+    tiles = pack()
+    _MLP_TILES[key] = (tiles, *sources)
     while len(_MLP_TILES) > MLP_TILE_SETS:
         _MLP_TILES.popitem(last=False)
+    return tiles
+
+
+def mlp_tiles(w1_all: torch.Tensor, w2_all: torch.Tensor, num_layers: int) -> torch.Tensor:
+    """``gin_mlp_tiles`` of a weight set, packed once (``_pack_once``)."""
+    return _pack_once(("gin_mlp", num_layers), (w1_all, w2_all),
+                      lambda: gin_mlp_tiles(w1_all, w2_all, num_layers))
+
+
+# The bf16 product of rows 9 and 3 (``csrc/linear_wgmma.cuh``): B streamed
+# in chunks of 32 input channels.
+LINEAR_CHUNK = 32
+PNA_PITCH = 80  # row 3's bf16 tower: scaler p's outputs at columns 80p + c
+
+
+def linear_geometry(k: int, n: int) -> tuple[int, int, int]:
+    """The bf16 product's weight chunks (``csrc/linear_wgmma.cuh``: ``geom``)
+    for K = ``k`` input channels and width ``n``: (K' = k padded to whole
+    chunks of 32, the chunks, the bf16 elements of one chunk 32·n)."""
+    kp = -(-k // LINEAR_CHUNK) * LINEAR_CHUNK
+    return kp, kp // LINEAR_CHUNK, LINEAR_CHUNK * n
+
+
+def linear_tiles(wt: torch.Tensor, n: int) -> torch.Tensor:
+    """The weight chunks of a stack of products, [L, C, 32·n] in ``wt``'s
+    dtype: ``wt`` [L, N, K] holds each layer's Bᵀ (B [K, N], the product
+    x·B), N ≤ ``n``; chunk c of layer l is B's rows 32c..32c+31 as the wgmma
+    B operand [4, n, 8] (``ops.tiles.kmajor_tiles``; pads zero), so that one
+    bulk copy brings a chunk into shared memory as the kernel reads it."""
+    L, _, k = wt.shape
+    kp, chunks, elems = linear_geometry(k, n)
+    return kmajor_tiles(wt, n, kp).reshape(L, chunks, elems)
+
+
+def gcn_conv_n(d: int) -> int:
+    """Row 9's bf16 next-conv width at width ``d`` (``conv_n``)."""
+    return 104 if d <= 104 else 112
+
+
+def gcn_conv_tiles(wt: torch.Tensor) -> torch.Tensor:
+    """Row 9's next-conv weight chunks, packed once per weight set: ``wt``
+    [L−1, D, D] holds each next conv's weight as [out, in] (the model's
+    ``conv_w[1:]``; ``wn_all``'s blocks transposed)."""
+    return _pack_once(("gcn_conv",), (wt,), lambda: linear_tiles(wt, gcn_conv_n(wt.shape[1])))
+
+
+def pna_tower_tiles(w3: torch.Tensor) -> torch.Tensor:
+    """Row 3's tower weight chunks, packed once per weight set: ``w3`` [L, 3,
+    D, 4D] holds each layer's tower as [scaler, out, in] (the model's
+    ``conv_w`` with its scaler axis first); scaler p's D outputs become
+    columns 80p..80p+D−1 of the product's 240 (pads zero)."""
+    def pack():
+        L, p, d, k = w3.shape
+        wt = w3.new_zeros(L, p, PNA_PITCH, k)
+        wt[:, :, :d] = w3
+        return linear_tiles(wt.reshape(L, p * PNA_PITCH, k), p * PNA_PITCH)
+
+    return _pack_once(("pna_tower",), (w3,), pack)
+
+
+def _linear_operand(lib, dims_fn: str, d: int, tiles, k: int, n: int, layers: int, pack,
+                    dev) -> torch.Tensor:
+    """A bf16 product's weight chunks: ``tiles`` as given, checked, or packed
+    here (``pack()``). The kernel's geometry at width ``d`` (``dims_fn``:
+    K', N, the bytes of a chunk) must be the host's for K = ``k``."""
+    kp, chunks, elems = linear_geometry(k, n)
+    dims = (ctypes.c_int * 3)()
+    lib[dims_fn](d, dims)
+    if tuple(dims) != (kp, n, elems * 2):
+        raise RuntimeError(f"the kernel's product geometry {tuple(dims)} is not the host's "
+                           f"{(kp, n, elems * 2)}")
+    if tiles is None:
+        tiles = pack()
+    _check("weight tiles", tiles, torch.bfloat16, (layers, chunks, elems), dev)
     return tiles
 
 
@@ -1699,8 +1788,26 @@ gin_local_model.launches = 0
 gin_local_model.stages = 0
 
 
+def _two_blocks_budget(lib, dev) -> int:
+    """The shared memory a block may take for two blocks an SM (or the
+    opt-in limit, where that is less)."""
+    per_sm = lib["smem_per_sm"](dev.index)
+    if per_sm < 0:
+        raise RuntimeError(lib["error_string"](int(-per_sm)).decode())
+    return min(lib["smem_optin"](dev.index), per_sm // 2 - 1024)
+
+
+def _knocked_out(h0: torch.Tensor, knockout: int) -> bool:
+    """Whether a launch knocks a stage out (a timing knob the models never
+    set): only the CUDA kernel has stages to knock out."""
+    if knockout and h0.device.type != "cuda":
+        raise ValueError("knockout times the CUDA kernel; it has no plain version")
+    return bool(knockout)
+
+
 def _launch_gcn_ell(ell_meta, h0, dis, pool_gl, ee_tables, roots, alphas, betas,
-                    wn_all, bn_all, pred_w, window, num_layers, gmax) -> torch.Tensor:
+                    wn_all, bn_all, pred_w, window, num_layers, gmax, tiles,
+                    knockout=0) -> torch.Tensor:
     code = _dtype_code(h0.dtype)
     dev = h0.device
     n, d = h0.shape
@@ -1711,20 +1818,52 @@ def _launch_gcn_ell(ell_meta, h0, dis, pool_gl, ee_tables, roots, alphas, betas,
     block = _ell_block(ell_meta, nw, dev)
 
     lib = _library("gcn_local_model")
-    _check_ell_geometry(lib, d, window, lib["smem_bytes"](d, vocab, gmax, t_out), dev)
+    _check_tile(lib, d)
+    if d % 2:
+        raise ValueError(f"D={d}: the kernel reads column pairs, D must be even")
+    smem_of = lambda stages: lib["smem_bytes"](code, d, vocab, gmax, t_out, stages)
+    stages = 0
+    if code == 1:  # the wgmma conv reads the next convs' weights as packed chunks
+        n_conv = gcn_conv_n(d)
+        tiles = _linear_operand(
+            lib, "conv_dims", d, tiles, d, n_conv, L - 1,
+            lambda: gcn_conv_tiles(wn_all.view(L - 1, d, d).transpose(1, 2)), dev)
+        stages = ring_stages(smem_of, linear_geometry(d, n_conv)[1], _two_blocks_budget(lib, dev))
+    _check_ell_geometry(lib, d, window, smem_of(stages), dev)
     out = torch.empty((nw * gmax, t_out), dtype=torch.float32, device=dev)
     rc = lib["launch"](
         code,
         ell_meta.data_ptr(), h0.data_ptr(), dis.data_ptr(), pool_gl.data_ptr(),
         ee_tables.data_ptr(), roots.data_ptr(), alphas.data_ptr(),
         betas.data_ptr(), wn_all.data_ptr(), bn_all.data_ptr(),
-        pred_w.data_ptr(), out.data_ptr(),
-        nw, n, window, block, d, L, vocab, gmax, t_out,
+        pred_w.data_ptr(), None if code == 0 else tiles.data_ptr(), out.data_ptr(),
+        nw, n, window, block, d, L, vocab, gmax, t_out, stages, int(knockout),
         dev.index, torch.cuda.current_stream(dev).cuda_stream,
     )
     _raise_on(lib, rc, "gcn_local_model")
     gcn_local_model.launches += 1
+    gcn_local_model.stages = stages
     return out
+
+
+def gcn_occupancy(dtype: torch.dtype, window: int, d: int, vocab: int, gmax: int, t_out: int,
+                  device) -> dict:
+    """What the occupancy calculator says of row 9 in ``dtype`` at this
+    geometry on ``device`` (the launch's own ring depth): the block's shared
+    memory, the blocks of that form one SM holds, and the clusters of
+    W/128 blocks that run at once."""
+    code = _dtype_code(dtype)
+    dev = torch.device(device)
+    lib = _library("gcn_local_model")
+    smem_of = lambda stages: lib["smem_bytes"](code, d, vocab, gmax, t_out, stages)
+    stages = 0
+    if code == 1:
+        stages = ring_stages(smem_of, linear_geometry(d, gcn_conv_n(d))[1],
+                             _two_blocks_budget(lib, dev))
+    out = (ctypes.c_int * 2)()
+    rc = lib["occupancy"](code, window, d, vocab, gmax, t_out, stages, dev.index, out)
+    _raise_on(lib, rc, "gcn_local_model occupancy")
+    return dict(smem=smem_of(stages), stages=stages, blocks_per_sm=out[0], clusters=out[1])
 
 
 def gcn_local_model(
@@ -1742,24 +1881,35 @@ def gcn_local_model(
     window: int,
     num_layers: int,
     gmax: int,
+    conv_tiles: Optional[torch.Tensor] = None,
+    knockout: int = 0,
 ) -> torch.Tensor:
     """GCN whole-model ELL kernel (after conv 0): [NW·GMAX, T] f32
     per-window pool sums over the k=1 ELL layout, at windows of 128 up to
     1024 rows. Operands as in ``gcn_local_model_ref``; a CPU tensor runs the
     plain version, a CUDA tensor launches the kernel (float32 or bfloat16
-    activations, norms and weights, int32 ``ell_meta`` / ``pool_gl``) or
-    raises. Each launch adds one to ``gcn_local_model.launches``."""
+    activations, norms and weights, int32 ``ell_meta`` / ``pool_gl``; D even,
+    at most 112) or raises. In bfloat16 the next conv runs on the tensor
+    cores (``wgmma``) from ``conv_tiles``, the next convs' weight chunks as
+    ``gcn_conv_tiles`` packs them (packed here, once per weight set, when
+    not given); ``gcn_local_model.stages`` records the launch's weight ring
+    (0 in float32). ``knockout`` (timing only, CUDA only): bit 0 skips the
+    next conv, bit 1 the messages. Each launch adds one to
+    ``gcn_local_model.launches``."""
     args = (ell_meta, h0, dis, pool_gl, ee_tables, roots, alphas, betas,
-            wn_all, bn_all, pred_w, window, num_layers, gmax)
+            wn_all, bn_all, pred_w, window, num_layers, gmax, conv_tiles)
+    if _knocked_out(h0, knockout):
+        return _launch_gcn_ell(*args, knockout=knockout)
     return _dispatch(h0, gcn_local_model_ref, _launch_gcn_ell, args)
 
 
 gcn_local_model.launches = 0
+gcn_local_model.stages = 0
 
 
 def _launch_pna(slot_src, h0, inv_deg, t, scale, w_all, b_all, pool_gl, mlp1_w,
                 window, slots, num_layers, gmax, min_init, max_init,
-                prefix_caps) -> torch.Tensor:
+                prefix_caps, tiles, knockout=0) -> torch.Tensor:
     dt = h0.dtype
     code = _dtype_code(dt)
     dev = h0.device
@@ -1778,20 +1928,32 @@ def _launch_pna(slot_src, h0, inv_deg, t, scale, w_all, b_all, pool_gl, mlp1_w,
     _check("mlp1_w", mlp1_w, dt, (d, t_out), dev)
 
     lib = _library("pna_local_model")
-    smem = lib["smem_bytes"](window, d, gmax, t_out, slots)
-    _check_geometry(lib, d, slots, caps, window, smem, dev)
+    _check_tile(lib, d)
+    smem_of = lambda stages: lib["smem_bytes"](code, d, gmax, t_out, stages)
+    stages = 0
+    if code == 1:  # the wgmma tower reads the weights as packed chunks
+        n_tower = 3 * PNA_PITCH
+        tiles = _linear_operand(
+            lib, "tower_dims", d, tiles, 4 * d, n_tower, L,
+            lambda: pna_tower_tiles(w_all.view(L, 4 * d, 3, d).permute(0, 2, 3, 1)), dev)
+        stages = ring_stages(smem_of, linear_geometry(4 * d, n_tower)[1],
+                             lib["smem_optin"](dev.index))
+    _check_ell_geometry(lib, d, window, smem_of(stages), dev)
+    _check_geometry(lib, d, slots, caps, window, smem_of(stages), dev)
     caps_arr = (ctypes.c_int * len(caps))(*caps)
     out = torch.empty((nw * gmax, t_out), dtype=torch.float32, device=dev)
     rc = lib["launch"](
         code,
         slot_src.data_ptr(), h0.data_ptr(), inv_deg.data_ptr(), t.data_ptr(),
         scale.data_ptr(), w_all.data_ptr(), b_all.data_ptr(),
-        pool_gl.data_ptr(), mlp1_w.data_ptr(), out.data_ptr(),
-        nw, n, window, d, L, gmax, t_out, float(min_init), float(max_init),
-        caps_arr, slots, dev.index, torch.cuda.current_stream(dev).cuda_stream,
+        pool_gl.data_ptr(), mlp1_w.data_ptr(), None if code == 0 else tiles.data_ptr(),
+        out.data_ptr(), nw, n, window, d, L, gmax, t_out, float(min_init), float(max_init),
+        caps_arr, slots, stages, int(knockout), dev.index,
+        torch.cuda.current_stream(dev).cuda_stream,
     )
     _raise_on(lib, rc, "pna_local_model")
     pna_local_model.launches += 1
+    pna_local_model.stages = stages
     return out
 
 
@@ -1812,19 +1974,31 @@ def pna_local_model(
     min_init: float,
     max_init: float,
     prefix_caps: tuple | None = None,
+    tower_tiles: Optional[torch.Tensor] = None,
+    knockout: int = 0,
 ) -> torch.Tensor:
     """PNA whole-model slot megakernel (conv stack + readout MLP-1):
-    [NW·GMAX, T] f32 per-window pool sums. Operands as in
+    [NW·GMAX, T] f32 per-window pool sums, at windows of 128 up to 1024 rows
+    (one thread-block cluster of W/128 blocks per window). Operands as in
     ``pna_local_model_ref``; a CPU tensor runs the plain version, a CUDA
     tensor launches the kernel (float32 or bfloat16 activations, scalers
-    and weights, int32 ``slot_src`` / ``pool_gl``) or raises. Each launch
-    adds one to ``pna_local_model.launches``."""
+    and weights, int32 ``slot_src`` / ``pool_gl``; D at most 80) or raises.
+    In bfloat16 the tower runs on the tensor cores (``wgmma``) from
+    ``tower_tiles``, the weight chunks as ``pna_tower_tiles`` packs them
+    (packed here, once per weight set, when not given);
+    ``pna_local_model.stages`` records the launch's weight ring (0 in
+    float32). ``knockout`` (timing only, CUDA only): bit 0 skips the tower's
+    product, bit 1 the stats. Each launch adds one to
+    ``pna_local_model.launches``."""
     args = (slot_src, h0, inv_deg, t, scale, w_all, b_all, pool_gl, mlp1_w,
-            window, slots, num_layers, gmax, min_init, max_init, prefix_caps)
+            window, slots, num_layers, gmax, min_init, max_init, prefix_caps, tower_tiles)
+    if _knocked_out(h0, knockout):
+        return _launch_pna(*args, knockout=knockout)
     return _dispatch(h0, pna_local_model_ref, _launch_pna, args)
 
 
 pna_local_model.launches = 0
+pna_local_model.stages = 0
 
 
 def _launch_dgn(slot_src, h0, eig, inv_deg, eigw_sum, inv_abssum, w_all, b_all,
@@ -2217,11 +2391,7 @@ def _launch_gin_layer_ell(ell_meta, h, m_spill, ee_table, w1, b1, w2, b2, eps1, 
     stages = 0
     if code == 1:  # the wgmma MLP; the ring keeps two blocks an SM
         tiles = _mlp_operand(lib, tiles, w1, w2, 1, per_layer=True)
-        per_sm = lib["smem_per_sm"](dev.index)
-        if per_sm < 0:
-            raise RuntimeError(lib["error_string"](int(-per_sm)).decode())
-        budget = min(lib["smem_optin"](dev.index), per_sm // 2 - 1024)
-        stages = ring_stages(smem_of, gin_mlp_geometry(d, hid)[3], budget)
+        stages = ring_stages(smem_of, gin_mlp_geometry(d, hid)[3], _two_blocks_budget(lib, dev))
     _, lanes, nw = _check_ell_lanes(ell_meta, h, window, "gin_local_layer_ell", (code, d, hid, vocab,
                                                                                   stages))
     out = torch.empty((n, d), dtype=dt, device=dev)

@@ -130,6 +130,31 @@ def _pna_operands(seed: int = 13) -> dict:
     )
 
 
+def _pna_slot_operands(big: int, seed: int = 27, d: int = D) -> dict:
+    """Row 3's operands on ``_slot_batch_big``'s PNA layout (W = 128, 256 or
+    512 for a largest graph of ``big`` nodes) at width ``d``, the layout's
+    own degree scalers, seeded random h0 and weights, as numpy arrays."""
+    from flowgnn_tpu_torch.models.pna import MAX_INIT, MIN_INIT
+    from flowgnn_tpu_torch.params.loaders import PNA_AVG_DEG
+
+    batch = _slot_batch_big("pna", big, seed)
+    rng = np.random.default_rng(seed)
+    f32 = lambda *s: rng.normal(0, 0.1, s).astype(np.float32)
+    n = batch["node_feat"].shape[0]
+    slots = batch["slot_geom"].shape[-1]
+    log_deg = np.log(batch["out_deg"] + 1.0)
+    scale = np.where(log_deg > 0, PNA_AVG_DEG / np.where(log_deg > 0, log_deg, 1), 1.0)
+    return dict(
+        slot_src=batch["slot_src"], h0=f32(n, d),
+        inv_deg=(1 / np.maximum(batch["in_deg"], 1)).astype(np.float32),
+        t=(log_deg / PNA_AVG_DEG).astype(np.float32), scale=scale.astype(np.float32),
+        w_all=f32(L * 4 * d, 3 * d), b_all=f32(L, d), pool_gl=batch["pool_gl"],
+        mlp1_w=f32(d, T_PNA), window=batch["slot_geom"].shape[0], slots=slots, num_layers=L,
+        gmax=base.POOL_GMAX, min_init=MAX_INIT, max_init=MIN_INIT,
+        prefix_caps=base.slot_prefix_caps(batch, slots),
+    )
+
+
 def _dgn_operands(seed: int = 14) -> dict:
     """DGN operands: slot layout of 8 synthetic graphs, the layout's own
     eigenvector terms and out-degrees, seeded random h0 and weights, as
@@ -687,32 +712,121 @@ def test_gcn_pna_cuda_kernels_match_plain(kernel, operands, dtype, tol, cuda_dev
 
 @pytest.mark.cuda
 def test_gcn_pna_cuda_kernels_reject_oversized_window(cuda_device):
-    """W=256 at the published widths (GCN D=100, PNA D=80) does not fit one
-    block's shared memory: both wrappers raise before launch."""
-    window, n = 256, 256
+    """W=256 at GCN's published width (D=100) does not fit row 2's one
+    block's shared memory, and W=1152 is past what row 3's clusters span
+    (8 blocks of 128 rows, W up to 1024, at PNA's D=80): both wrappers raise
+    before launch."""
     rng = np.random.default_rng(0)
     t = lambda *s: torch.from_numpy(rng.normal(0, 0.1, s).astype(np.float32)).to(cuda_device)
     i32 = lambda *s, fill=0: torch.full(s, fill, dtype=torch.int32, device=cuda_device)
-    d = 100
+    window, d = 256, 100
     gcn = dict(
-        slot_meta=i32(window, 4, fill=-1), h0=t(n, d), dis=t(n), pool_gl=i32(window),
+        slot_meta=i32(window, 4, fill=-1), h0=t(window, d), dis=t(window), pool_gl=i32(window),
         ee_tables=t(L * 13, d), roots=t(L, d), alphas=t(L, d), betas=t(L, d),
         wn_all=t((L - 1) * d, d), bn_all=t(L - 1, d), pred_w=t(d, 1),
         window=window, slots=1, num_layers=L, gmax=base.POOL_GMAX, prefix_caps=(window,),
     )
-    d = 80
+    window, d = 1152, 80
     pna = dict(
-        slot_src=i32(window, 1, fill=window), h0=t(n, d), inv_deg=t(n), t=t(n),
-        scale=t(n), w_all=t(L * 4 * d, 3 * d), b_all=t(L, d), pool_gl=i32(window),
-        mlp1_w=t(d, 40), window=window, slots=1, num_layers=L, gmax=base.POOL_GMAX,
-        min_init=32.0, max_init=-32.0, prefix_caps=(window,),
+        slot_src=i32(window, 1, fill=window), h0=t(window, d), inv_deg=t(window),
+        t=t(window), scale=t(window), w_all=t(L * 4 * d, 3 * d), b_all=t(L, d),
+        pool_gl=i32(window), mlp1_w=t(d, 40), window=window, slots=1, num_layers=L,
+        gmax=base.POOL_GMAX, min_init=32.0, max_init=-32.0, prefix_caps=(window,),
     )
-    for kernel, ops in (("gcn_local_model_slots", gcn), ("pna_local_model", pna)):
+    for kernel, ops, match in (("gcn_local_model_slots", gcn, "shared memory"),
+                               ("pna_local_model", pna, "whole blocks of 128 rows")):
         fn = getattr(local_layer, kernel)
         before = fn.launches
-        with pytest.raises(ValueError, match="shared memory"):
+        with pytest.raises(ValueError, match=match):
             fn(**ops)
         assert fn.launches == before
+
+
+# Row 3 at every window its clusters take (the largest graph 120, 250 and
+# 400 nodes: clusters of 1, 2 and 4 blocks), at the small width and PNA's.
+PNA_BIG = (120, 250, 400)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("big", PNA_BIG, ids=[f"W{w}" for w in (128, 256, 512)])
+@pytest.mark.parametrize("d", [D, 80], ids=["D32", "D80"])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 5e-2)],
+                         ids=["f32", "bf16"])
+def test_pna_cuda_kernel_windows_match_plain(big, d, dtype, tol, cuda_device):
+    """Row 3 at W=128, 256 and 512 (one cluster of W/128 blocks per window,
+    the large graph's sources read across all of them): bf16 through the
+    wgmma tower with a weight ring of at least two chunks, f32 through the
+    FMA tower; tolerances as in ``test_ell_cuda_kernels_match_plain``."""
+    ops = _port(_pna_slot_operands(big, d=d), cuda_device, dtype)
+    before = local_layer.pna_local_model.launches
+    got = local_layer.pna_local_model(**ops)
+    torch.cuda.synchronize()
+    assert local_layer.pna_local_model.launches == before + 1
+    stages = local_layer.pna_local_model.stages
+    assert stages >= 2 if dtype == torch.bfloat16 else stages == 0
+    expect = local_layer.pna_local_model_ref(**ops)
+    assert expect.abs().max() > 1e-2
+    scale = max(1.0, expect.abs().max().item())
+    torch.testing.assert_close(got / scale, expect.float() / scale, rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("big", ELL_BIG, ids=[f"W{w}" for w in (128, 256, 384, 512)])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 5e-2)],
+                         ids=["f32", "bf16"])
+def test_gcn_ell_cuda_kernel_full_width_matches_plain(big, dtype, tol, cuda_device):
+    """Row 9 at GCN's width (D=100, the bf16 next conv 104 wide in 4 weight
+    chunks a layer) at every window: bf16 through the wgmma conv, its ring
+    as deep as two blocks an SM allow, f32 through the FMA conv; tolerances
+    as in ``test_ell_cuda_kernels_match_plain``."""
+    ops = _port(_ell_operands("gcn", big, d=100), cuda_device, dtype)
+    got = local_layer.gcn_local_model(**ops)
+    torch.cuda.synchronize()
+    stages = local_layer.gcn_local_model.stages
+    assert stages == (4 if dtype == torch.bfloat16 else 0)
+    expect = local_layer.gcn_local_model_ref(**ops)
+    assert expect.abs().max() > 1e-2
+    scale = max(1.0, expect.abs().max().item())
+    torch.testing.assert_close(got / scale, expect.float() / scale, rtol=tol, atol=tol)
+    occ = local_layer.gcn_occupancy(dtype, ops["window"], 100, 13, base.POOL_GMAX, 1, cuda_device)
+    assert occ["blocks_per_sm"] == (2 if dtype == torch.bfloat16 else 1) and occ["clusters"] > 0
+
+
+@pytest.mark.cuda
+def test_rows_3_9_cuda_kernels_reject_widths_outside_their_plan(cuda_device):
+    """Widths the kernels' tiles do not take raise before launch in both
+    dtypes: row 9 at D = 120 (past 112) and at an odd D (its messages read
+    column pairs), row 3 at D = 96 (past the tower's 80-column pitch)."""
+    cases = [("gcn_local_model", _ell_operands("gcn", 120, d=120), "tile"),
+             ("gcn_local_model", _ell_operands("gcn", 120, d=99), "even"),
+             ("pna_local_model", _pna_slot_operands(120, d=96), "tile")]
+    for kernel, ops, match in cases:
+        fn = getattr(local_layer, kernel)
+        before = fn.launches
+        for dtype in (torch.float32, torch.bfloat16):
+            with pytest.raises(ValueError, match=match):
+                fn(**_port(ops, cuda_device, dtype))
+        assert fn.launches == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["gcn_local_model", "pna_local_model"], ids=["row9", "row3"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_rows_3_9_knockouts_launch(kernel, dtype, cuda_device):
+    """The phase split's knockouts (bit 0: the product, bit 1: the messages
+    or stats) launch and leave a finite output; the whole kernel is
+    unchanged by having run them. On a CPU tensor a knockout raises."""
+    ops = (_ell_operands("gcn", 400, d=100) if kernel == "gcn_local_model"
+           else _pna_slot_operands(400, d=80))
+    ops = _port(ops, cuda_device, dtype)
+    fn = getattr(local_layer, kernel)
+    full = fn(**ops)
+    for knockout in (1, 2, 3):
+        assert bool(fn(**ops, knockout=knockout).isfinite().all())
+    torch.cuda.synchronize()
+    assert torch.equal(fn(**ops), full)
+    with pytest.raises(ValueError, match="knockout"):
+        fn(**{k: v.cpu() if torch.is_tensor(v) else v for k, v in ops.items()}, knockout=1)
 
 
 @pytest.mark.cuda

@@ -1,7 +1,10 @@
 """The host packing of ``wgmma`` operands (``flowgnn_tpu_torch.ops.tiles``)
-and its users: row 26's B (``bench.matmul_shapes``) and the bf16 GIN MLP's
+and its users: row 26's B (``bench.matmul_shapes``), the bf16 GIN MLP's
 weight chunks of rows 1, 8 and 13 (``ops.local_layer.gin_mlp_tiles``), with
-the streamed ring that feeds them and the act operand they multiply.
+the streamed ring that feeds them and the act operand they multiply, and the
+one-product weight chunks of rows 9 and 3 (``ops.local_layer.linear_tiles``:
+GCN's next conv, PNA's tower), with their ring and the x and stats operands
+they multiply.
 
 Besides the round trip and the zero pad, each packed tile is read back the
 way the kernels' shared-memory descriptors address it (``csrc/hopper.cuh``:
@@ -246,3 +249,185 @@ def test_gin_mlp_ring_never_waits_on_itself(chunks):
     # the release of chunk 0 loads it.
     order = list(_ring_schedule(1, 2, 2))
     assert order.index(("use", 1)) < order.index(("load", 1))
+
+
+# Rows 9 and 3 (``csrc/linear_wgmma.cuh``): (kernel, D, the product's K, N).
+LINEAR_CASES = [("gcn", 100, 100, 104), ("gcn", 32, 32, 104), ("gcn", 112, 112, 112),
+                ("pna", 80, 320, 240), ("pna", 32, 128, 240)]
+LINEAR_IDS = [f"{k}-D{d}" for k, d, _, _ in LINEAR_CASES]
+
+
+def _linear_weights(kind: str, d: int, layers: int, seed: int):
+    """(the packed chunks, each layer's Bᵀ [N, K'] zero-padded) of seeded
+    bf16 weights: GCN's next convs [L, out, in] (``gcn_conv_tiles``), PNA's
+    towers [L, scaler, out, 4D] (``pna_tower_tiles``, scaler p's outputs at
+    rows 80p..80p+D−1 of Bᵀ)."""
+    if kind == "gcn":
+        w = _draw((layers, d, d), torch.bfloat16, seed)
+        tiles = local_layer.gcn_conv_tiles(w)
+        n, k = local_layer.gcn_conv_n(d), d
+        bt = [w[l] for l in range(layers)]
+    else:
+        w = _draw((layers, 3, d, 4 * d), torch.bfloat16, seed)
+        tiles = local_layer.pna_tower_tiles(w)
+        n, k = 3 * local_layer.PNA_PITCH, 4 * d
+        bt = []
+        for l in range(layers):
+            b = torch.zeros(n, k, dtype=torch.bfloat16)
+            for p in range(3):
+                b[80 * p : 80 * p + d] = w[l, p]
+            bt.append(b)
+    kp = local_layer.linear_geometry(k, n)[0]
+    padded = []
+    for b in bt:
+        full = torch.zeros(n, kp, dtype=torch.bfloat16)
+        full[: b.shape[0], :k] = b
+        padded.append(full)
+    return tiles, padded
+
+
+def _check_linear_chunk(chunk, btp, c, n):
+    """Chunk c read through the product's descriptors (``linear_wgmma.cuh``:
+    ``run``): K step s at byte 2s·n·16 with LBO = n·16 and SBO = 128 is B's
+    rows 32c + 16s..32c + 16s + 15 as the [n, 16] B operand."""
+    for s in range(2):
+        got = _read(chunk, 2 * s * n * 16, n * 16, 128, n, 32)
+        assert torch.equal(got, btp[:, 32 * c + 16 * s : 32 * c + 16 * s + 16])
+
+
+@pytest.mark.parametrize("kind,d,k,n", LINEAR_CASES, ids=LINEAR_IDS)
+def test_linear_tiles_as_the_kernel_reads_them(kind, d, k, n):
+    """The weight chunks of rows 9 and 3, per layer [K'/32, 32·N] (K' = K
+    padded to 32: D = 100 → 128, 4D = 320 → 320), each chunk read back
+    through the descriptors is B's 32 rows, pads zero; and the product the
+    kernel computes from them (A [128, K'] in the A layout, 64 rows a
+    warpgroup, K steps of 16) is A·B."""
+    layers = 3
+    kp, chunks, elems = local_layer.linear_geometry(k, n)
+    assert kp % 32 == 0 and kp - k < 32 and elems == 32 * n
+    tiles, padded = _linear_weights(kind, d, layers, seed=d + n)
+    assert tiles.shape == (layers, chunks, elems) and tiles.is_contiguous()
+    for l in range(layers):
+        for c in range(chunks):
+            _check_linear_chunk(tiles[l, c], padded[l], c, n)
+    # The product of layer 1, as run() issues it.
+    a = torch.zeros(128, kp, dtype=torch.bfloat16)
+    a[:, :k] = _draw((128, k), torch.bfloat16, seed=7)
+    flat = _a_layout(a)
+    acc = torch.zeros(128, n, dtype=torch.float64)
+    for c in range(chunks):
+        for s in range(2):
+            ks = 2 * c + s
+            b = _read(tiles[1, c], 2 * s * n * 16, n * 16, 128, n, 32).double()
+            for wg in range(2):
+                aw = _read(flat, (2 * ks * 128 + 64 * wg) * 16, 128 * 16, 128, 64, 32).double()
+                acc[64 * wg : 64 * wg + 64] += aw @ b.t()
+    torch.testing.assert_close(acc, a.double() @ padded[1].double().t())
+
+
+def _a_layout(a: torch.Tensor) -> torch.Tensor:
+    """[128, K'] as the kernels write it into the A layout [K'/8][128][8]
+    (``linear_wgmma.cuh``: ``a_index``), flat."""
+    a_index = lambda r, c: ((c >> 3) * 128 + r) * 8 + (c & 7)
+    flat = torch.zeros(a.numel(), dtype=a.dtype)
+    r, c = torch.meshgrid(torch.arange(a.shape[0]), torch.arange(a.shape[1]), indexing="ij")
+    flat[a_index(r, c).reshape(-1)] = a.reshape(-1)
+    return flat
+
+
+def test_model_tiles_equal_the_wrappers_own_packing():
+    """What the models hand rows 9 and 3 (``gcn.conv_tiles`` from
+    ``conv_w[1:]``, ``pna.tower_tiles`` from ``conv_w``) is what the
+    wrappers pack from the operands they check (``wn_all``, ``w_all``) when
+    no chunks are given; f32 hands none."""
+    from flowgnn_tpu_torch.core.numerics import BF16, FLOAT32
+    from flowgnn_tpu_torch.models import gcn, pna
+    from flowgnn_tpu_torch.params import loaders
+
+    p = loaders.params_from_numpy(loaders.synthetic_gcn_params(3, dim=36, layers=3), BF16, "cpu")
+    L, d = p["conv_w"].shape[:2]
+    wn_all = p["conv_w"][1:].transpose(1, 2).reshape((L - 1) * d, d).contiguous()
+    assert torch.equal(gcn.conv_tiles(p, BF16), local_layer.gcn_conv_tiles(
+        wn_all.view(L - 1, d, d).transpose(1, 2)))
+    assert gcn.conv_tiles(p, FLOAT32) is None
+    p = loaders.params_from_numpy(loaders.synthetic_pna_params(3, dim=24, layers=2), BF16, "cpu")
+    w_all = p["conv_w"].reshape(2, 24, 3, 96).permute(0, 3, 2, 1).reshape(2 * 96, 72)
+    assert torch.equal(pna.tower_tiles(p, BF16), local_layer.pna_tower_tiles(
+        w_all.view(2, 96, 3, 24).permute(0, 2, 3, 1)))
+    assert pna.tower_tiles(p, FLOAT32) is None
+
+
+@pytest.mark.parametrize("kind,d,layers", [("gcn", 100, 4), ("pna", 80, 4), ("pna", 32, 2)],
+                         ids=["row9-D100", "row3-D80", "row3-D32"])
+@pytest.mark.parametrize("stages", [2, 3, 4, 6, 10])
+def test_linear_ring_streams_each_chunk_as_the_kernel_reads_it(kind, d, layers, stages):
+    """The ring of rows 9 and 3 (``gin_mlp.cuh``'s ``Ring``, driven by
+    ``linear_wgmma.cuh``'s ``run``: chunk c − 1's buffer is released once
+    chunk c's group is issued and c − 1's has completed, the last chunk's
+    after the product) over every layer's chunks, one sequence (row 9: the
+    L − 1 next convs, 4 chunks each at D = 100; row 3: the L towers, 10 at
+    D = 80, 4 at D = 32): no buffer is refilled before its chunk was used,
+    each use finds its chunk in buffer i % S in phase i // S, and the chunk
+    read back from the buffer is that layer's B."""
+    tiles, padded = _linear_weights(kind, d, layers, seed=3)
+    n = padded[0].shape[0]
+    chunks, elems = tiles.shape[1:]
+    stages = local_layer.ring_stages(lambda s: s, chunks, stages)
+    assert stages >= min(2, chunks)
+    total = layers * chunks
+    src = tiles.reshape(-1)
+    ring = torch.zeros(stages * elems, dtype=torch.bfloat16)
+    held, phase, used = [None] * stages, [0] * stages, set()
+    for what, i in _ring_schedule(stages, total, chunks):
+        b = i % stages
+        if what == "load":
+            assert held[b] is None or held[b] in used, f"buffer {b} refilled before use"
+            ring[b * elems : (b + 1) * elems] = src[i * elems : (i + 1) * elems]
+            held[b], phase[b] = i, phase[b] + 1
+            continue
+        assert held[b] == i and (phase[b] - 1) % 2 == (i // stages) % 2
+        used.add(i)
+        l, c = divmod(i, chunks)
+        _check_linear_chunk(ring[b * elems : (b + 1) * elems], padded[l], c, n)
+    assert used == set(range(total))
+
+
+@pytest.mark.parametrize("kind,d,k,n", LINEAR_CASES, ids=LINEAR_IDS)
+def test_linear_a_operands_as_the_kernel_reads_them(kind, d, k, n):
+    """The A operands of rows 9 and 3 in the A layout [K'/8][128][8]: row 9's
+    x written as bf16 pairs (columns c, c + 1 of an even c adjacent, one
+    4-byte store), row 3's stats element by element at column part·D + c of
+    [mean | min | max | std]; warpgroup wg's K step ks read through the
+    descriptor at byte (2ks·128 + 64wg)·16 with LBO = 128·16 and SBO = 128
+    is rows 64wg..64wg+63 and columns 16ks..16ks+15, the pad columns zero.
+    And row 3's epilogue finds scaler p's output for column c in accumulator
+    4j + e + 40p of the thread that holds column c (j = c // 8)."""
+    kp = local_layer.linear_geometry(k, n)[0]
+    a_index = lambda r, c: ((c >> 3) * 128 + r) * 8 + (c & 7)
+    vals = _draw((128, k), torch.bfloat16, seed=k)
+    flat = torch.zeros(kp * 128, dtype=torch.bfloat16)
+    for r in range(128):
+        if kind == "gcn":
+            for c in range(0, k, 2):
+                at = a_index(r, c)
+                assert at % 2 == 0 and a_index(r, c + 1) == at + 1
+                flat[at], flat[at + 1] = vals[r, c], vals[r, c + 1]
+        else:
+            for part in range(4):
+                for c in range(d):
+                    flat[a_index(r, part * d + c)] = vals[r, part * d + c]
+    padded = torch.zeros(128, kp, dtype=torch.bfloat16)
+    padded[:, :k] = vals
+    for wg in range(2):
+        for ks in range(kp // 16):
+            got = _read(flat, (2 * ks * 128 + 64 * wg) * 16, 128 * 16, 128, 64, 32)
+            assert torch.equal(got, padded[64 * wg : 64 * wg + 64, 16 * ks : 16 * ks + 16])
+    if kind == "pna":
+        # Thread t's accumulator 4j + e: row 64wg + 16w + g (+ 8), column 8j + 2q (+ 1).
+        col = lambda t, j, e: 8 * j + 2 * (t % 4) + (e & 1)
+        for t in range(256):
+            for j in range(local_layer.PNA_PITCH // 8):
+                for e in range(4):
+                    for p in range(3):
+                        assert col(t, j + 10 * p, e) == col(t, j, e) + 80 * p
+                        assert 4 * (j + 10 * p) + e == 4 * j + e + 40 * p
