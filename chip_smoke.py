@@ -5,7 +5,7 @@
     python3 chip_smoke.py --profile --paths "gin hep10k,gin-vn hep10k"  # some of them
 
 ``--profile`` runs no phase: it builds the hep10k W=128 streams of PNA, DGN
-and GAT (slot spill tail), PNA's hep10k slot stream at W=512 and GCN's
+and GAT (slot spill tail), their hep10k slot streams at W=512 and GCN's
 hep10k ELL stream at W=512 beside them, and the hep10k W=128 streams of GIN,
 GIN-VN, GCN, DGN and GAT (ELL spill tail; GAT also with its fused layer),
 GIN's molhiv edge-block (plain and fused) and legacy local streams and
@@ -26,15 +26,16 @@ Phases, each of which raises (non-zero exit) on failure:
 2. the twenty-four hand-written kernels built from the twenty-two sources of
    ``flowgnn_tpu_torch/csrc`` (rows 16 and 18 share one, rows 10 and 12 are
    one kernel, rows 27-30 one) and their headers (``hopper.cuh`` holds the
-   wgmma, mbarrier and bulk-copy blocks of rows 1, 3, 8, 9, 13 and 26,
+   wgmma, mbarrier and bulk-copy blocks of rows 1-5, 8, 9, 13 and 26,
    ``gin_mlp.cuh`` the bf16 GIN MLP of rows 1, 8 and 13, ``gin_model.cuh``
-   the whole-model GIN kernel of rows 1 and 8, ``linear_wgmma.cuh`` the bf16
-   product of rows 9 and 3), one ``nvcc`` per source, all
-   started together (build time and each compiler's register /
-   shared-memory report); each library's count of tensor-core (HGMMA,
-   HMMA, IMMA), bulk-copy / TMA (UBLKCP, UTMALDG) and FFMA instructions in
-   its SASS (``cuobjdump -sass``), rows 1, 3, 8, 9, 13 and 26 required to
-   hold HGMMA and a bulk copy (row 26: or a TMA load);
+   the whole-model GIN kernel of rows 1 and 8, ``gcn_model.cuh`` the GCN one
+   of rows 2 and 9, ``lanes.cuh`` their two lane walks,
+   ``linear_wgmma.cuh`` the bf16 product of rows 2-5 and 9), one ``nvcc``
+   per source, all started together (build time and each compiler's
+   register / shared-memory report); each library's count of tensor-core
+   (HGMMA, HMMA, IMMA), bulk-copy / TMA (UBLKCP, UTMALDG) and FFMA
+   instructions in its SASS (``cuobjdump -sass``), rows 1-5, 8, 9, 13 and
+   26 required to hold HGMMA and a bulk copy (row 26: or a TMA load);
 3. each slot kernel against its plain torch version on the card, at the
    main path's shapes (a real bucket's slot layout at full width: GIN D=100,
    H=200, L=5, with and without the analytic-VN column; GCN D=100, L=5;
@@ -47,9 +48,12 @@ Phases, each of which raises (non-zero exit) on failure:
    and W=512 (the hep10k slot bucket holding the largest graph), GIN and
    GIN-VN; row 8 on the hep10k W=512 ELL bucket holding the largest graph;
    row 13 on layer 0 of the hep10k W=128 ELL bucket with the longest spill
-   tail; then row 3 (PNA) above W=128, f32 and bf16 (printing the bf16
-   launch's weight ring): W=256 (a synthetic bucket of 250-node graphs) and
-   W=512 (the hep10k slot bucket holding the largest graph);
+   tail; then rows 2, 3, 4 and 5 (GCN, PNA, DGN, GAT) above W=128, f32 and
+   bf16 (printing the bf16 launch's weight ring): W=256 (a synthetic bucket
+   of 250-node graphs) and W=512 (the hep10k slot bucket holding the
+   largest graph); then what the occupancy calculator says of rows 2, 4
+   and 5's bf16 and f32 forms at W=128 and W=512 (shared memory a block,
+   blocks an SM, clusters in flight);
 3b. each ELL kernel (GIN with and without the VN column, GCN, full width;
    row 9's bf16 next conv on wgmma) against its plain version the same way,
    on ELL buckets at W=128 (molhiv), W=256 and W=384 (synthetic, one large
@@ -95,12 +99,13 @@ Phases, each of which raises (non-zero exit) on failure:
    stream at W=512 (``as_batches_uniform(local_ell)``, k=1, no spill), f32
    and bf16, counted and checked as in phase 4; then over the molhiv stream
    at W=128, whose predictions must match the slot path's (f32 1e-4). And
-   the hep10k slot path, the JAX bench's layout for GIN, GIN-VN and PNA
-   there: ``local_slots`` at W=512 (``HEP_SLOT_WINDOW``; no bucket spills;
-   GIN's and GIN-VN's the ELL W=512 packing), one row-1 (PNA: row-3) launch
-   per bucket and no other kernel, counted and checked as in phase 4, its
-   f32 predictions also, graph by graph, against the ELL W=512 path's (PNA:
-   the W=128 spill path's of phase 4c) at 1e-4;
+   the hep10k slot path, the JAX bench's layout for GIN, GIN-VN, PNA, DGN
+   and GAT there, and GCN's: ``local_slots`` at W=512 (``HEP_SLOT_WINDOW``;
+   no bucket spills; GIN's, GIN-VN's and GCN's the ELL W=512 packing), one
+   launch of the model's whole-model slot kernel (rows 1, 2, 3, 4, 5) per
+   bucket and no other kernel, counted and checked as in phase 4, its f32
+   predictions also, graph by graph, against the ELL W=512 path's (PNA,
+   DGN, GAT: the W=128 spill path's of phase 4c) at 1e-4;
 4c. the spill path: PNA, DGN and GAT over the same hep10k sample at W=128
    (``as_batches_uniform(local_slots, window=128)``, the JAX bench's
    ``--ell-window 128``), whose window-crossing edges ride the spill tail:
@@ -147,14 +152,14 @@ Phases, each of which raises (non-zero exit) on failure:
 5d. the same for the paths of phase 4e;
 5e. the same for the paths of phase 4f; the windowed scatter on the
    edge-block layout beside ``index_add_`` of the same values;
-5f. rows 8, 1, 13, 9 and 3 alone on their cells (``TURN_CELLS``), each
-   kernel's bf16 form (its product on wgmma) and its f32 form (FMA) in
+5f. rows 8, 1, 13, 9, 3, 2, 4 and 5 alone on their cells (``TURN_CELLS``),
+   each kernel's bf16 form (its product on wgmma) and its f32 form (FMA) in
    turns: bf16, f32, f32, bf16; launches, ms per stream, bound and share of
    the bound;
-5g. rows 9 and 3 by stage on their cells (``SPLIT_CELLS``), bf16 and f32:
-   each kernel alone whole and with its product, its messages or stats, or
-   both knocked out (the wrappers' ``knockout``, which only this phase
-   passes), and the share of each;
+5g. rows 9, 3, 4 and 5 by stage on their cells (``SPLIT_CELLS``), bf16 and
+   f32: each kernel alone whole and with its product, its messages, stats
+   or channels, or both knocked out (the wrappers' ``knockout``, which only
+   this phase passes), and the share of each;
 6. the bench tools (``flowgnn_tpu_torch.bench``). 6a: row 26
    (``chained_matmul``) on every ``matmul_shapes.SHAPES`` row at full size
    in its dtype, equal to layers·K on all-ones operands and to its plain
@@ -168,7 +173,7 @@ Phases, each of which raises (non-zero exit) on failure:
    kernel, its plain version and cuBLAS (TF/s, share of the peak), and the
    ablation record's kernel and plain times.
 
-No phase runs at a cut depth: the whole run takes about five minutes on an
+No phase runs at a cut depth: the whole run takes about six minutes on an
 H100. The line before the last is a JSON object with one record per
 kernel; the last line is ``{"ok": true, "device": {...}}``. Without a CUDA
 device, or outside the repository, it exits non-zero before printing
@@ -189,11 +194,12 @@ NODE_CAP, GRAPH_CAP = 32768, 2048  # the JAX bench's bucket capacities
 STREAM_GRAPHS = 4113  # molhiv's graph count
 HEP_GRAPHS = 2048  # the JAX bench's default hep10k sample (bench.py)
 SPILL_WINDOW = 128  # the JAX bench's --ell-window 128 on hep10k
-# The JAX bench's slot window for GIN, GIN-VN and PNA on hep10k: every graph
-# fits its default ELL window, so they take local_slots there
-# (bench.py:186-193), in one whole-model launch per bucket (rows 1 and 3).
+# The JAX bench's slot window on hep10k: every graph fits its default ELL
+# window, so GIN, GIN-VN, PNA, GAT and DGN take local_slots there
+# (bench.py:180-194), in one whole-model launch per bucket (rows 1, 3, 5 and
+# 4); GCN's slot path at that window runs row 2 once per bucket.
 HEP_SLOT_WINDOW = 512
-HEP_SLOT_MODELS = ("gin", "gin-vn", "pna")
+HEP_SLOT_MODELS = ("gin", "gin-vn", "gcn", "pna", "dgn", "gat")
 MODELS = ("gin", "gin-vn", "gcn", "pna", "dgn", "gat")
 ELL_MODELS = ("gin", "gin-vn", "gcn")
 SPILL_MODELS = ("pna", "dgn", "gat")
@@ -340,7 +346,8 @@ TOOL_REPS, TOOL_TRIALS = 20, 2
 SASS_NEEDS = {"chained_matmul": ("HGMMA", "UBLKCP|UTMALDG"),
               **{k: ("HGMMA", "UBLKCP") for k in ("gin_local_model", "gin_local_model_slots",
                                                   "gin_local_layer_ell", "gcn_local_model",
-                                                  "pna_local_model")}}
+                                                  "gcn_local_model_slots", "pna_local_model",
+                                                  "dgn_local_model", "gat_local_model_slots")}}
 SASS_OPS = ("HGMMA", "UBLKCP", "UTMALDG", "HMMA", "IMMA", "FFMA")
 # Phase 3: the (D, H) at which the tensor-core GIN kernels (rows 1, 8, 13)
 # are held to their plain versions: H' and D' padded, the models' own, and
@@ -357,14 +364,24 @@ TURN_CELLS = {
                             ("gin", "molhiv", ELL_INTER)],
     "gcn_local_model": [("gcn", "hep10k", ELL), ("gcn", "molhiv", ELL)],
     "pna_local_model": [("pna", "molhiv", SLOTS), ("pna", "hep10k", HEP_SLOTS)],
+    **{MODEL_KERNELS[name][0]: [(name, "molhiv", SLOTS), (name, "hep10k", HEP_SLOTS)]
+       for name in ("gcn", "dgn", "gat")},
 }
 # Phase 5g: the kernels split by stage, on these cells: each timed whole and
-# with its product (bit 0), its messages or stats (bit 1), or both knocked out.
+# with its product (bit 0), its messages, stats or channels (bit 1), or both
+# knocked out.
 SPLIT_CELLS = {"gcn_local_model": [("gcn", "hep10k", ELL), ("gcn", "molhiv", ELL)],
-               "pna_local_model": [("pna", "molhiv", SLOTS), ("pna", "hep10k", HEP_SLOTS)]}
-# Phase 3: row 3's windows beside molhiv's W=128: a synthetic bucket of
-# 250-node graphs (W=256) and the hep10k slot bucket with the largest graph.
-PNA_BIG = 250
+               **{MODEL_KERNELS[name][0]: [(name, "molhiv", SLOTS), (name, "hep10k", HEP_SLOTS)]
+                  for name in ("pna", "dgn", "gat")}}
+# Phase 3: the cluster slot kernels' windows beside molhiv's W=128 (rows 2,
+# 3, 4 and 5): a synthetic bucket of 250-node graphs (W=256) and the hep10k
+# slot bucket with the largest graph (W=512).
+CLUSTER_BIG = 250
+CLUSTER_MODELS = ("gcn", "pna", "dgn", "gat")
+# Phase 3: each two-blocks-an-SM kernel's occupancy geometry at the models'
+# widths (``local_layer.occupancy``): GCN (D, vocab), DGN (D,), GAT (H·D, heads).
+OCCUPANCY = {"gcn_local_model": (100, 13), "gcn_local_model_slots": (100, 13),
+             "dgn_local_model": (100,), "gat_local_model_slots": (64, 4)}
 
 
 def cuobjdump_path() -> str:
@@ -687,7 +704,8 @@ def big_graph_bucket(name: str, big: int, device, layout=ELL) -> dict:
     ))
     window, block = base.choose_geometry(name, max(g.num_nodes for g in graphs))
     packed = pack_graphs_aligned(graphs, node_capacity=8191, edge_capacity=32768,
-                                 graph_capacity=256, window=window)
+                                 graph_capacity=256, window=window,
+                                 with_eigen=registry.get(name).needs_eigen)
     batch = base.as_batch(packed, blocked=layout, window=window, block=block)
     check(layout != SLOTS or "slot_meta" in batch, f"{name}: the W={window} slot bucket spills")
     return base.to_device(batch, device)
@@ -853,25 +871,47 @@ def check_gin_kernels(streams: dict, device, max_err: dict) -> None:
                     max_err["gin_local_layer_ell"] = max(max_err["gin_local_layer_ell"], err)
 
 
-def check_pna_kernels(streams: dict, device, max_err: dict) -> None:
-    """Phase 3, row 3 above W=128 (``check_kernels`` holds it at W=128):
-    f32 (1e-4) and bf16 (5e-2) on W=256 (a synthetic bucket of 250-node
-    graphs) and W=512 (the hep10k slot bucket holding the largest graph),
-    seeded synthetic weights, printing the bf16 launch's weight ring."""
-    hep, big, i = largest_bucket(streams, ("pna", "hep10k", HEP_SLOTS))
-    for batch, what in ((big_graph_bucket("pna", PNA_BIG, device, SLOTS),
-                         f"W=256 synthetic bucket, {PNA_BIG}-node graphs"),
-                        (hep, f"W=512 hep10k bucket {i}, a {big}-node graph")):
-        err = check_kernel("pna", batch, device, what)
-        max_err["pna_local_model"] = max(max_err["pna_local_model"], err)
+def check_cluster_kernels(streams: dict, device, max_err: dict) -> None:
+    """Phase 3, rows 2, 3, 4 and 5 above W=128 (``check_kernels`` holds them
+    at W=128): f32 (1e-4) and bf16 (5e-2) on W=256 (a synthetic bucket of
+    250-node graphs) and W=512 (the hep10k slot bucket holding the largest
+    graph), seeded synthetic weights, printing the bf16 launch's weight
+    ring; then what the occupancy calculator says of rows 2, 4 and 5."""
+    for name in CLUSTER_MODELS:
+        kname = MODEL_KERNELS[name][0]
+        hep, big, i = largest_bucket(streams, (name, "hep10k", HEP_SLOTS))
+        for batch, what in ((big_graph_bucket(name, CLUSTER_BIG, device, SLOTS),
+                             f"W=256 synthetic bucket, {CLUSTER_BIG}-node graphs"),
+                            (hep, f"W=512 hep10k bucket {i}, a {big}-node graph")):
+            max_err[kname] = max(max_err[kname], check_kernel(name, batch, device, what))
+    print_occupancy(("gcn_local_model_slots", "dgn_local_model", "gat_local_model_slots"),
+                    device)
+
+
+def print_occupancy(knames, device) -> None:
+    """Each kernel's two forms on the card at W=128 and W=512: the shared
+    memory a block takes, the blocks an SM holds and the clusters in
+    flight (``local_layer.occupancy``, at the models' widths, T = 1, or
+    DGN's 50)."""
+    import torch
+
+    from flowgnn_tpu_torch.models import base
+    from flowgnn_tpu_torch.ops.local_layer import occupancy
+
+    for kname in knames:
+        t_out = 50 if kname == "dgn_local_model" else 1
+        for dt in (torch.bfloat16, torch.float32):
+            for window in (128, 512):
+                occ = occupancy(kname, dt, window, OCCUPANCY[kname], base.POOL_GMAX, t_out, device)
+                print(f"# occupancy {kname} {dt} W={window}: {occ['smem']} B of shared memory "
+                      f"a block (ring {occ['stages']}), {occ['blocks_per_sm']} blocks an SM, "
+                      f"{occ['clusters']} clusters of {window // 128} at once")
 
 
 def check_ell_kernels(streams: dict, device, max_err: dict) -> None:
     """Phase 3b: each ELL kernel against its plain version at W=128, 256,
     384 and 512; the W=512 bucket holds the hep10k stream's largest graph.
     Then what the occupancy calculator says of row 9's two forms."""
-    import torch
-
     from flowgnn_tpu_torch.models import base
 
     for name in ELL_MODELS:
@@ -888,14 +928,7 @@ def check_ell_kernels(streams: dict, device, max_err: dict) -> None:
             what = f"W={base.ell_geometry(batch)[0]} {what}"
             max_err[kname] = max(max_err[kname], check_kernel(name, batch, device, what))
     # Row 9's forms on the card: the blocks an SM holds and the clusters in flight.
-    from flowgnn_tpu_torch.ops.local_layer import gcn_occupancy
-
-    for dt in (torch.bfloat16, torch.float32):
-        for window in (128, 512):
-            occ = gcn_occupancy(dt, window, 100, 13, base.POOL_GMAX, 1, device)
-            print(f"# occupancy gcn_local_model {dt} W={window}: {occ['smem']} B of shared memory "
-                  f"a block (ring {occ['stages']}), {occ['blocks_per_sm']} blocks an SM, "
-                  f"{occ['clusters']} clusters of {window // 128} at once")
+    print_occupancy(("gcn_local_model",), device)
 
 
 def check_layer_kernels(streams: dict, device, max_err: dict) -> None:
@@ -1186,9 +1219,9 @@ def describe_ell(streams: dict) -> None:
 
 
 def describe_hep_slots(streams: dict) -> None:
-    """Phase 4b's slot geometry on hep10k: per GIN / GIN-VN / PNA bucket at
-    ``HEP_SLOT_WINDOW`` the windows, slots, prefix caps and lanes per window;
-    no bucket may spill."""
+    """Phase 4b's slot geometry on hep10k: per bucket of every model of
+    ``HEP_SLOT_MODELS`` at ``HEP_SLOT_WINDOW`` the windows, slots, prefix
+    caps and lanes per window; no bucket may spill."""
     from flowgnn_tpu_torch.models import base
 
     for name in HEP_SLOT_MODELS:
@@ -1308,9 +1341,10 @@ def check_ell_matches_slots(streams: dict, device) -> dict:
 def check_hep_slots_match_ell(streams: dict, device) -> dict:
     """Phase 4b, hep10k: the slot path's f32 predictions at W=512 against
     another kernel path's over the same graphs (summation order only:
-    1e-4): GIN's and GIN-VN's against the ELL W=512 path's on the same
-    packing (rows 1 and 8), PNA's against the W=128 spill path's (row 3
-    against rows 19 and 24), graph by graph over the stream. Returns the slot
+    1e-4): GIN's, GIN-VN's and GCN's against the ELL W=512 path's on the
+    same packing (rows 1 and 8, rows 2 and 9), PNA's, DGN's and GAT's
+    against the W=128 spill path's (rows 3, 4 and 5 against rows 19, 22 and
+    21 with row 24), graph by graph over the stream. Returns the slot
     kernels' launches, counted as in ``run_main_path``: one per bucket."""
     import torch
 
@@ -1324,7 +1358,7 @@ def check_hep_slots_match_ell(streams: dict, device) -> dict:
         forward = registry.get(name).forward
         params = params_from_numpy(synthetic_params(name, SEED), FLOAT32, device)
         buckets, slot, _ = streams[name, "hep10k", HEP_SLOTS]
-        other, what = ((name, "hep10k", SLOTS), "W=128 spill path") if name == "pna" else (
+        other, what = ((name, "hep10k", SLOTS), "W=128 spill path") if name in SPILL_MODELS else (
             (name, "hep10k", ELL), "ELL path (W=512)")
         other_buckets, other_batches, _ = streams[other]
         want = torch.cat([forward(params, b, FLOAT32)[: p.num_graphs]
@@ -1372,7 +1406,7 @@ def valid_lanes(ops: dict) -> int:
 # kernels stop at a run's last lane with an edge, so this data's work is
 # the rows of the lanes that carry one, not the padded tensor.
 LANE_OPERANDS = ("ee", "vals", "values", "u_local", "v_local", "ell_meta")
-PACKED_WEIGHTS = ("mlp_tiles", "conv_tiles", "tower_tiles")
+PACKED_WEIGHTS = ("mlp_tiles", "conv_tiles", "tower_tiles", "posttrans_tiles", "glue_tiles")
 
 
 def work(kname: str, ops: dict, out) -> tuple[float, float]:
@@ -1560,7 +1594,8 @@ def time_split(streams: dict, device) -> None:
     from flowgnn_tpu_torch.core.numerics import BF16, FLOAT32
     from flowgnn_tpu_torch.params.loaders import params_from_numpy
 
-    stage = {"gcn_local_model": "messages", "pna_local_model": "stats"}
+    stage = {"gcn_local_model": "messages", "pna_local_model": "stats",
+             "dgn_local_model": "channels", "gat_local_model_slots": "messages"}
     for kname, cells in SPLIT_CELLS.items():
         kernel = kernel_fn(kname)
         for key in cells:
@@ -1827,10 +1862,12 @@ def main() -> int:
         hep = lambda layout: ("hep10k", HEP_GRAPHS, layout, dev, SPILL_WINDOW)
         mol = lambda layout: ("molhiv", STREAM_GRAPHS, layout, dev)
         paths = [((name, "hep10k", SLOTS), hep(SLOTS)) for name in SPILL_MODELS]
-        # PNA's hep10k slot path at W=512 beside its spill path; GCN's hep10k ELL
-        # path at W=512 (row 9 once per bucket) beside its W=128 one.
-        paths += [(("pna", "hep10k", HEP_SLOTS), ("hep10k", HEP_GRAPHS, SLOTS, dev, HEP_SLOT_WINDOW)),
-                  (("gcn", "hep10k", ELL), ("hep10k", HEP_GRAPHS, ELL, dev))]
+        # PNA's, DGN's and GAT's hep10k slot paths at W=512 beside their spill
+        # paths; GCN's hep10k ELL path at W=512 (row 9 once per bucket) beside
+        # its W=128 one.
+        paths += [((name, "hep10k", HEP_SLOTS), ("hep10k", HEP_GRAPHS, SLOTS, dev, HEP_SLOT_WINDOW))
+                  for name in SPILL_MODELS]
+        paths += [(("gcn", "hep10k", ELL), ("hep10k", HEP_GRAPHS, ELL, dev))]
         paths += [((name, "hep10k", ELL_LAYER), hep(ELL)) for name in LAYER_MODELS]
         paths += [(("gat", "hep10k", ELL_LAYER_FUSED), hep(ELL)),
                   (("gin", "molhiv", BLOCKED), mol(True)), (("gin", "molhiv", FUSED), mol(True)),
@@ -1875,8 +1912,8 @@ def main() -> int:
     for name in LAYER_MODELS:
         streams[name, "hep10k", ELL_LAYER] = make_stream(name, "hep10k", HEP_GRAPHS, ELL, dev,
                                                          window=SPILL_WINDOW)
-    # GIN / GIN-VN / PNA's hep10k slot stream at W=512 (GIN's and GIN-VN's the
-    # ELL W=512 stream's packing).
+    # The hep10k slot stream at W=512 (GIN's, GIN-VN's and GCN's the ELL W=512
+    # stream's packing).
     for name in HEP_SLOT_MODELS:
         streams[name, "hep10k", HEP_SLOTS] = make_stream(name, "hep10k", HEP_GRAPHS, SLOTS, dev,
                                                          window=HEP_SLOT_WINDOW)
@@ -1932,7 +1969,7 @@ def main() -> int:
     max_err = dict.fromkeys(KERNELS, 0.0)
     check_kernels(streams, dev, max_err)
     check_gin_kernels(streams, dev, max_err)
-    check_pna_kernels(streams, dev, max_err)
+    check_cluster_kernels(streams, dev, max_err)
     check_ell_kernels(streams, dev, max_err)
     check_layer_kernels(streams, dev, max_err)
     check_ell_layer_kernels(streams, dev, max_err)

@@ -11,500 +11,60 @@
 // owning `block` lanes of `meta` = (u, v, three bond-table rows) per lane,
 // both endpoints window-local, sorted by v within the window (pad lanes,
 // u = v = W, last). pool_gl holds each row's window-local graph id, GMAX for
-// padding rows.
+// padding rows. A lane whose u lies outside the window has dis_u = 0 (no
+// message) and one whose v does lands nowhere.
 //
-// Per layer l, for window row v and its lanes u -> v:
-//   msg = rnd(dis_u * relu(h_u + ee_l))        ee_l: three bond-table rows
-//   acc = sum of msg over v's lanes, in lane order
-//   a   = acc * dis_v + relu(h_v + root_l) * dis_v^2
-//   x   = alpha_l * a + beta_l                 (BatchNorm folded on the host)
-// then h = rnd(rnd(relu(x)) . wn_l + bn_l) between layers, and after the last
-// layer the head pools rnd(x) . pred_w (no relu; _pool_epilogue).
+// The kernel is gcn_model.cuh's, which row 2 runs too: a cluster of W/128
+// blocks per window (W up to 1024), h and the conv input in shared memory
+// for all L layers, the bf16 next conv on the tensor cores
+// (linear_wgmma.cuh) with its weight chunks streamed through a ring of bulk
+// copies, two blocks an SM, the f32 conv register-tiled FMA. This file runs
+// it with the ELL message stage (lanes.cuh: Ell): each block finds its rows'
+// lane runs by binary search on v once, before the layers, and sums each
+// row's lanes in lane order.
 //
 // What bounds it on this card: per 128 rows and layer the next conv is
 // 128*D*D multiply-adds (1.28 M at D=100) against ~1.5 lanes per row of
 // D-wide gathers; device-memory traffic is small, so the kernel is bound on
-// chip (arithmetic, shared-memory traffic, barriers). A window of W = 128..1024
-// rows runs on a thread-block cluster of W/128 blocks, each owning 128 rows
-// (h and the conv input x). A source in another block's rows is read from
-// that block's shared memory (cluster.map_shared_rank); dis_u,
-// layer-invariant, is read from device memory (L1 / L2). Each block finds
-// its rows' lane runs by binary search on v and sums each row's lanes in
-// lane order, one warp per row and each lane a pair of adjacent columns,
-// with no atomics. The cluster synchronises per layer after the layer's h
-// is in place and again after the messages, before any block overwrites its
-// h. The readout pool of a graph that spans blocks is a per-block partial
-// reduced across the cluster in rank order through distributed shared
-// memory: deterministic, and summed in another order than the plain
-// version, which the f32 comparisons allow for at 1e-4 of the output's
-// scale.
-//
-// The two forms run the next conv differently:
-// - bfloat16 (N = 104 or 112, the product's width) on the tensor cores
-//   through linear_wgmma.cuh: h and x stay bf16 in shared memory (both are
-//   rounded to bf16 anyway), the messages write x straight into wgmma's A
-//   layout, and the (L-1) D x D weight sets, packed once on the host into
-//   chunks of 32 input channels, stream through a ring of bulk copies, all
-//   layers one sequence: the first S chunks are prefetched before the first
-//   layer and each buffer is refilled as soon as the product is done with
-//   it, so layer l+1's weights land during layer l. At D = 100 a block holds
-//   h 25.6 KB, x 32.8 KB, the bond table 5.2 KB, the ring S x 6.7 KB and
-//   ~4 KB of the rest: 94 KB at S = 4, two blocks an SM (__launch_bounds__
-//   keeps the registers at 128), so twice the clusters run at once;
-// - float32 keeps register-tiled FMA (TF32 would break the f32 gate of
-//   1e-4), wn_l staged per layer in f32: 151 KB, one block an SM.
-// The shared-memory carve-up (smem_layout) is computed once on the host and
-// passed as a kernel parameter (computed in the kernel, it cost row 8's f32
-// form 10-17%: PERF.md).
-//
-// Dims::knockout is a timing knob, never set on the model path: bit 0 skips
-// the next conv (and the weight ring), bit 1 skips the messages; the phase
-// split of chip_smoke.py times the kernel with each.
-//
-// Numerics follow the TPU kernel: activations, norms and weights are float
-// or bfloat16 (T); every product and sum is float32; messages, the next
-// conv's input, the new h and the head's input are rounded to T where the
-// TPU kernel casts to its compute dtype. A lane whose u lies outside the
-// window has dis_u = 0 (no message) and one whose v does lands nowhere.
+// chip: in bf16 by the messages, barriers and set-up beside the tensor-core
+// conv (PERF.md, phase 5g), in f32 by the FMA conv.
 
-#include <cooperative_groups.h>
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-
-#include "linear_wgmma.cuh"
-
-namespace cg = cooperative_groups;
-
-namespace {
-
-using namespace hopper;
-namespace lw = linear_wgmma;
-
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
-constexpr int kRows = 128;             // window rows per block of the cluster
-constexpr int kMaxCluster = 8;         // portable cluster size: W up to 1024
-constexpr int kTR = 16;                // thread rows of the f32 conv tile
-constexpr int kTC = 16;                // thread columns of the f32 conv tile
-constexpr int kRowsPT = kRows / kTR;   // rows per thread (8)
-constexpr int kColsPT = 7;             // output columns per thread
-constexpr int kMaxD = kTC * kColsPT;   // widest D the tile covers (112)
-constexpr int kLaneP = (kMaxD / 2 + 31) / 32;  // column pairs per lane in the messages
-constexpr int kMeta = 5;               // ints per lane: u, v, three bond rows
-constexpr int kNoProduct = 1, kNoMessages = 2;  // Dims::knockout bits
-
-static_assert(kRows == lw::kRows && kThreads == lw::kThreads, "the wgmma product's block shape");
-
-struct Dims {
-  int n, window, block, d, layers, vocab, gmax, tout, stages, knockout;
-};
-
-// The bf16 form's product width at width d.
-__host__ __device__ inline int conv_n(int d) { return d <= 104 ? 104 : 112; }
-
-// Shared-memory carve-up of one block, byte offsets. wg: the bf16 (wgmma)
-// form, whose h and x are bf16 and which holds the weight ring (ring, bars);
-// the f32 form stages wn_l in w.
-struct Smem {
-  size_t h, x, w, part, tab, vec, dis, gl, rows, gstart, lo, ring, bars, total;
-};
-
-inline Smem smem_layout(bool wg, int d, int vocab, int gmax, int tout, int stages) {
-  const size_t D = d;
-  const lw::Geom lg = lw::geom(d, conv_n(d));
-  size_t wbuf = wg ? 0 : D * D * 4;                                     // next-conv weights
-  if (size_t(kRows) * tout * 4 > wbuf) wbuf = size_t(kRows) * tout * 4;  // head outputs
-  if (size_t(gmax) * 4 > wbuf) wbuf = size_t(gmax) * 4;                  // CSR cursor
-  Smem s;
-  size_t o = 0;
-  auto take = [&o](size_t bytes) {
-    const size_t at = o;
-    o += (bytes + 15) / 16 * 16;
-    return at;
-  };
-  s.h = take(kRows * D * (wg ? 2 : 4));
-  s.x = take(wg ? size_t(kRows) * lg.kp * 2 : kRows * D * 4);
-  s.w = take(wbuf);
-  s.part = take(size_t(gmax) * tout * 4);
-  s.tab = take(size_t(vocab) * D * 4);
-  s.vec = take(3 * D * 4);
-  s.dis = take(kRows * 4);
-  s.gl = take(kRows * 4);
-  s.rows = take(kRows * 4);
-  s.gstart = take((gmax + 1) * 4);
-  s.lo = take((kRows + 1) * 4);
-  s.ring = take(wg ? size_t(stages) * lg.chunk_bytes : 0);
-  s.bars = take(wg ? size_t(stages) * 8 : 0);
-  s.total = o;
-  return s;
-}
-
-__device__ __forceinline__ float ld(const float* p) { return __ldg(p); }
-__device__ __forceinline__ float ld(const __nv_bfloat16* p) { return __bfloat162float(*p); }
-
-template <typename T> __device__ __forceinline__ float rnd(float x);
-template <> __device__ __forceinline__ float rnd<float>(float x) { return x; }
-template <> __device__ __forceinline__ float rnd<__nv_bfloat16>(float x) {
-  return __bfloat162float(__float2bfloat16_rn(x));
-}
-
-// h and x in shared memory: float, or bf16 for the wgmma form; columns c,
-// c + 1 (c even) read and written as one pair.
-__device__ __forceinline__ float val(float x) { return x; }
-__device__ __forceinline__ float val(__nv_bfloat16 x) { return __bfloat162float(x); }
-__device__ __forceinline__ float2 ld2(const float* p) { return *reinterpret_cast<const float2*>(p); }
-__device__ __forceinline__ float2 ld2(const __nv_bfloat16* p) {
-  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
-}
-template <typename S> __device__ __forceinline__ S store(float x);
-template <> __device__ __forceinline__ float store<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 store<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
-}
-__device__ __forceinline__ void st2(float* p, float a, float b) {
-  *reinterpret_cast<float2*>(p) = make_float2(a, b);
-}
-__device__ __forceinline__ void st2(__nv_bfloat16* p, float a, float b) {
-  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
-}
-
-// The bond-table row `a` in shared memory, or null outside the vocabulary.
-__device__ __forceinline__ const float* bond_row(const float* tab_s, int a, int vocab, int d) {
-  return unsigned(a) < unsigned(vocab) ? tab_s + a * d : nullptr;
-}
-
-// N = 0: the float32 form (FMA conv); N = 104 or 112: the bf16 form with the
-// wgmma conv of that width. tiles: the bf16 form's packed weight chunks
-// (linear_wgmma.cuh), layers 1..L-1 in order. lay: the shared-memory
-// carve-up, computed once on the host (smem_layout).
-template <typename T, int N>
-__global__ void __launch_bounds__(kThreads, N > 0 ? 2 : 1)
-gcn_ell_kernel(const int* __restrict__ meta, const T* __restrict__ h0,
-               const T* __restrict__ dis, const int* __restrict__ pool_gl,
-               const T* __restrict__ tab, const T* __restrict__ roots,
-               const T* __restrict__ alphas, const T* __restrict__ betas,
-               const T* __restrict__ wn, const T* __restrict__ bn,
-               const T* __restrict__ predw, const unsigned char* __restrict__ tiles,
-               float* __restrict__ out, Dims dm, Smem lay) {
-  constexpr bool kWg = N > 0;
-  using S = T;  // h and x in shared memory
-  extern __shared__ __align__(128) unsigned char smem[];
-  cg::cluster_group cluster = cg::this_cluster();
-  const int csize = int(cluster.num_blocks());
-  const int rank = int(cluster.block_rank());
-  const int win = blockIdx.x / csize;
-  const int D = dm.d, tid = threadIdx.x;
-  S* h_s = reinterpret_cast<S*>(smem + lay.h);        // [kRows][D] this block's rows of h
-  S* x_s = reinterpret_cast<S*>(smem + lay.x);        // the conv input: f32 [kRows][D],
-                                                      // bf16 [K'/8][kRows][8]
-  float* w_s = reinterpret_cast<float*>(smem + lay.w);        // f32 wn_l [in][out]; head; cursor
-  float* part_s = reinterpret_cast<float*>(smem + lay.part);  // [gmax][T] readout partials
-  float* tab_s = reinterpret_cast<float*>(smem + lay.tab);    // [vocab][D] this layer's bonds
-  float* root_s = reinterpret_cast<float*>(smem + lay.vec);   // [D] root_l, alpha_l, beta_l
-  float* alpha_s = root_s + D;
-  float* beta_s = alpha_s + D;
-  float* dis_s = reinterpret_cast<float*>(smem + lay.dis);    // [kRows]
-  int* gl_s = reinterpret_cast<int*>(smem + lay.gl);          // [kRows]
-  int* rows_s = reinterpret_cast<int*>(smem + lay.rows);      // [kRows] rows by graph
-  int* gstart_s = reinterpret_cast<int*>(smem + lay.gstart);  // [gmax+1]
-  int* lo_s = reinterpret_cast<int*>(smem + lay.lo);          // [kRows+1] lane runs
-  const lw::Geom lg = lw::geom(D, kWg ? N : 8);
-  const lw::Ring ring{smem + lay.ring, reinterpret_cast<uint64_t*>(smem + lay.bars), tiles,
-                      dm.stages, (dm.layers - 1) * lg.chunks, lg.chunk_bytes};
-  const bool do_conv = !(dm.knockout & kNoProduct), do_msg = !(dm.knockout & kNoMessages);
-  // x's element (r, c): row-major, or the wgmma A layout.
-  auto x_at = [&](int r, int c) { return kWg ? lw::a_index(r, c) : r * D + c; };
-
-  const long wrow0 = long(win) * dm.window;  // the window's first row
-  const long row0 = wrow0 + long(rank) * kRows;
-  const int* meta_w = meta + long(win) * dm.block * kMeta;
-
-  if constexpr (kWg) {
-    if (tid == 0 && do_conv) ring.init();
-    // x's pad columns stay zero; the messages write columns < D only.
-    const int pad = lg.kp - D;
-    for (int i = tid; i < kRows * pad; i += kThreads) x_s[x_at(i / pad, D + i % pad)] = store<S>(0.f);
-  }
-  if (!do_msg)  // timing only: the conv reads a defined x
-    for (int i = tid; i < kRows * D; i += kThreads) x_s[x_at(i / D, i % D)] = store<S>(0.f);
-  for (int i = tid; i < kRows * D; i += kThreads) {
-    const int r = i / D;
-    h_s[i] = store<S>(row0 + r < dm.n ? ld(h0 + (row0 + r) * D + (i - r * D)) : 0.f);
-  }
-  for (int r = tid; r < kRows; r += kThreads) {
-    gl_s[r] = pool_gl[row0 + r];
-    dis_s[r] = row0 + r < dm.n ? ld(dis + row0 + r) : 0.f;
-  }
-  // Row r's lanes are [lo_s[r], lo_s[r+1]): the first lane whose v is at
-  // least the row's window-local index, by binary search over v.
-  for (int r = tid; r <= kRows; r += kThreads) {
-    const int key = rank * kRows + r;
-    int lo = 0, hi = dm.block;
-    while (lo < hi) {
-      const int mid = (lo + hi) >> 1;
-      if (__ldg(meta_w + mid * kMeta + 1) < key) lo = mid + 1; else hi = mid;
-    }
-    lo_s[r] = lo;
-  }
-  __syncthreads();
-  if constexpr (kWg) {
-    if (tid == 0 && do_conv) ring.prefetch();  // the first S weight chunks, while the layers set up
-  }
-  if (tid == 0) {
-    // Group the block's rows by graph (ascending row order within a graph):
-    // the readout then sums each graph's rows in a fixed order.
-    int* cursor = reinterpret_cast<int*>(w_s);
-    for (int g = 0; g <= dm.gmax; ++g) gstart_s[g] = 0;
-    for (int r = 0; r < kRows; ++r)
-      if (unsigned(gl_s[r]) < unsigned(dm.gmax)) ++gstart_s[gl_s[r] + 1];
-    for (int g = 0; g < dm.gmax; ++g) {
-      gstart_s[g + 1] += gstart_s[g];
-      cursor[g] = gstart_s[g];
-    }
-    for (int r = 0; r < kRows; ++r)
-      if (unsigned(gl_s[r]) < unsigned(dm.gmax)) rows_s[cursor[gl_s[r]]++] = r;
-  }
-
-  const int warp = tid / 32, lane = tid % 32;
-  for (int l = 0; l < dm.layers; ++l) {
-    const bool last = l == dm.layers - 1;
-    // Every block's h is in place before any block gathers from it.
-    cluster.sync();
-    const T* tab_l = tab + long(l) * dm.vocab * D;
-    for (int i = tid; i < dm.vocab * D; i += kThreads) tab_s[i] = ld(tab_l + i);
-    for (int i = tid; i < D; i += kThreads) {
-      root_s[i] = ld(roots + long(l) * D + i);
-      alpha_s[i] = ld(alphas + long(l) * D + i);
-      beta_s[i] = ld(betas + long(l) * D + i);
-    }
-    if constexpr (!kWg) {
-      if (!last && do_conv) {
-        const T* wn_l = wn + long(l) * D * D;
-        for (int i = tid; i < D * D; i += kThreads) w_s[i] = ld(wn_l + i);
-      }
-    }
-    __syncthreads();
-
-    // Messages, one warp per destination row; lane j of the warp holds the
-    // column pairs (2j, 2j + 1), (2j + 64, 2j + 65), ... of the row.
-    for (int r = warp; do_msg && r < kRows; r += kWarps) {
-      float2 acc[kLaneP];
-#pragma unroll
-      for (int j = 0; j < kLaneP; ++j) acc[j] = make_float2(0.f, 0.f);
-      for (int e = lo_s[r]; e < lo_s[r + 1]; ++e) {
-        const int* m = meta_w + e * kMeta;
-        const int u = __ldg(m);
-        if (unsigned(u) >= unsigned(dm.window)) continue;  // dis_u = 0: no message
-        const float dis_u = wrow0 + u < dm.n ? ld(dis + wrow0 + u) : 0.f;
-        const int owner = u / kRows;
-        const S* base = owner == rank ? h_s : cluster.map_shared_rank(h_s, owner);
-        const S* hu = base + (u - owner * kRows) * D;
-        const float* e1 = bond_row(tab_s, __ldg(m + 2), dm.vocab, D);
-        const float* e2 = bond_row(tab_s, __ldg(m + 3), dm.vocab, D);
-        const float* e3 = bond_row(tab_s, __ldg(m + 4), dm.vocab, D);
-#pragma unroll
-        for (int j = 0; j < kLaneP; ++j) {
-          const int c = 2 * (lane + 32 * j);
-          if (c >= D) break;
-          float2 ee = make_float2(0.f, 0.f);
-          if (e1) { const float2 t = ld2(e1 + c); ee.x += t.x; ee.y += t.y; }
-          if (e2) { const float2 t = ld2(e2 + c); ee.x += t.x; ee.y += t.y; }
-          if (e3) { const float2 t = ld2(e3 + c); ee.x += t.x; ee.y += t.y; }
-          const float2 hv = ld2(hu + c);
-          acc[j].x += rnd<T>(__fmul_rn(dis_u, fmaxf(hv.x + ee.x, 0.f)));
-          acc[j].y += rnd<T>(__fmul_rn(dis_u, fmaxf(hv.y + ee.y, 0.f)));
-        }
-      }
-      const float dv = dis_s[r];
-#pragma unroll
-      for (int j = 0; j < kLaneP; ++j) {
-        const int c = 2 * (lane + 32 * j);
-        if (c >= D) break;
-        const float2 hv = ld2(h_s + r * D + c);
-        float xs[2];
-#pragma unroll
-        for (int k = 0; k < 2; ++k) {
-          const float root = fmaxf((k ? hv.y : hv.x) + root_s[c + k], 0.f);
-          const float a = __fadd_rn(__fmul_rn(k ? acc[j].y : acc[j].x, dv),
-                                    __fmul_rn(root, __fmul_rn(dv, dv)));
-          const float x = __fadd_rn(__fmul_rn(alpha_s[c + k], a), beta_s[c + k]);
-          xs[k] = last ? rnd<T>(x) : rnd<T>(fmaxf(x, 0.f));
-        }
-        st2(x_s + x_at(r, c), xs[0], xs[1]);
-      }
-    }
-    if (last) break;
-    if constexpr (kWg) fence_proxy_async();  // x, written here, is read by wgmma
-    // No block reads this block's h any more.
-    cluster.sync();
-    if (!do_conv) continue;
-
-    // Next conv over the block's rows: h = rnd(x . wn_l + bn_l).
-    const T* bn_l = bn + long(l) * D;
-    if constexpr (kWg) {
-      float o[N / 2];
-      lw::run<N>(o, reinterpret_cast<const __nv_bfloat16*>(x_s), ring, l * lg.chunks, lg.chunks, tid);
-      lw::for_each<N>(o, D, tid, [&](int r, int c, float v) { h_s[r * D + c] = store<S>(v + ld(bn_l + c)); });
-    } else {
-      // Each thread owns kRowsPT x kColsPT outputs in registers.
-      const int tr = tid / kTC, tc = tid % kTC;
-      float o[kRowsPT][kColsPT];
-#pragma unroll
-      for (int i = 0; i < kRowsPT; ++i)
-#pragma unroll
-        for (int m = 0; m < kColsPT; ++m) o[i][m] = 0.f;
-      for (int k = 0; k < D; ++k) {
-        float a[kRowsPT], wv[kColsPT];
-#pragma unroll
-        for (int i = 0; i < kRowsPT; ++i) a[i] = val(x_s[(tr + kTR * i) * D + k]);
-#pragma unroll
-        for (int m = 0; m < kColsPT; ++m) {
-          const int c = tc + kTC * m;
-          wv[m] = c < D ? w_s[k * D + c] : 0.f;
-        }
-#pragma unroll
-        for (int i = 0; i < kRowsPT; ++i)
-#pragma unroll
-          for (int m = 0; m < kColsPT; ++m) o[i][m] = fmaf(a[i], wv[m], o[i][m]);
-      }
-#pragma unroll
-      for (int i = 0; i < kRowsPT; ++i)
-#pragma unroll
-        for (int m = 0; m < kColsPT; ++m) {
-          const int r = tr + kTR * i, c = tc + kTC * m;
-          if (c < D) h_s[r * D + c] = store<S>(rnd<T>(o[i][m] + ld(bn_l + c)));
-        }
-    }
-  }
-  __syncthreads();
-
-  // Finalize: per-row head p = rnd(x) . pred_w, this block's per-graph sums
-  // of p, then the cluster's sums, each block writing a share of the outputs.
-  float* p_s = w_s;  // [kRows][T]
-  for (int i = tid; i < kRows * dm.tout; i += kThreads) {
-    const int r = i / dm.tout, t = i - r * dm.tout;
-    float s = 0.f;
-    for (int d = 0; d < D; ++d) s = fmaf(val(x_s[x_at(r, d)]), ld(predw + d * dm.tout + t), s);
-    p_s[i] = s;
-  }
-  __syncthreads();
-  for (int i = tid; i < dm.gmax * dm.tout; i += kThreads) {
-    const int g = i / dm.tout, t = i - g * dm.tout;
-    float s = 0.f;
-    for (int j = gstart_s[g]; j < gstart_s[g + 1]; ++j) s += p_s[rows_s[j] * dm.tout + t];
-    part_s[i] = s;
-  }
-  cluster.sync();
-  float* out_w = out + long(win) * dm.gmax * dm.tout;
-  for (int i = rank * kThreads + tid; i < dm.gmax * dm.tout; i += csize * kThreads) {
-    float s = 0.f;
-    for (int k = 0; k < csize; ++k) s += cluster.map_shared_rank(part_s, k)[i];
-    out_w[i] = s;
-  }
-  cluster.sync();  // keep this block's shared memory until the cluster has read it
-}
-
-// The launch configuration of one form: a cluster of W/128 blocks per window.
-struct Launch {
-  cudaLaunchConfig_t cfg;
-  cudaLaunchAttribute attr[1];
-};
-
-template <typename K>
-cudaError_t configure(K kernel, Launch& ln, int num_windows, const Dims& dm, size_t bytes,
-                      cudaStream_t stream) {
-  const int csize = dm.window / kRows;
-  cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(bytes));
-  if (err != cudaSuccess) return err;
-  ln.attr[0].id = cudaLaunchAttributeClusterDimension;
-  ln.attr[0].val.clusterDim.x = csize;
-  ln.attr[0].val.clusterDim.y = 1;
-  ln.attr[0].val.clusterDim.z = 1;
-  ln.cfg = {};
-  ln.cfg.gridDim = dim3(num_windows * csize);
-  ln.cfg.blockDim = dim3(kThreads);
-  ln.cfg.dynamicSmemBytes = bytes;
-  ln.cfg.stream = stream;
-  ln.cfg.attrs = ln.attr;
-  ln.cfg.numAttrs = 1;
-  return cudaSuccess;
-}
-
-// Each form's kernel, by dtype code (0 = float32, 1 = bfloat16) and width.
-template <typename F>
-cudaError_t with_kernel(int dtype, int d, F&& f) {
-  if (dtype == 0) return f(gcn_ell_kernel<float, 0>, float{});
-  if (dtype == 1 && conv_n(d) == 104) return f(gcn_ell_kernel<__nv_bfloat16, 104>, __nv_bfloat16{});
-  if (dtype == 1) return f(gcn_ell_kernel<__nv_bfloat16, 112>, __nv_bfloat16{});
-  return cudaErrorInvalidValue;
-}
-
-bool bad_geometry(int dtype, int window, int d, int layers, int stages) {
-  return window % kRows || window / kRows < 1 || window / kRows > kMaxCluster || d < 1 ||
-         d > kMaxD || d % 2 || layers < 1 ||
-         (dtype == 1 && stages < lw::min_stages(lw::geom(d, conv_n(d)).chunks));
-}
-
-}  // namespace
+#include "gcn_model.cuh"
 
 extern "C" {
 
-int gcn_ell_max_d() { return kMaxD; }
-int gcn_ell_rows_per_block() { return kRows; }
-int gcn_ell_max_cluster() { return kMaxCluster; }
+int gcn_ell_max_d() { return gcn_model::kMaxD; }
+int gcn_ell_rows_per_block() { return gcn_model::kRows; }
+int gcn_ell_max_cluster() { return gcn_model::kMaxCluster; }
 
 // The bf16 form's weight chunks at width d: K' (d padded to whole chunks of
 // 32), N (the product's width), the bytes of a chunk.
-void gcn_ell_conv_dims(int d, int* dims) {
-  const lw::Geom g = lw::geom(d, conv_n(d));
-  dims[0] = g.kp;
-  dims[1] = conv_n(d);
-  dims[2] = g.chunk_bytes;
-}
+void gcn_ell_conv_dims(int d, int* dims) { gcn_model::conv_dims(d, dims); }
 
 // The largest dynamic shared memory (bytes) a block may opt in to, or a
 // negative cudaError_t.
 long long gcn_ell_smem_optin(int device) {
-  int bytes = 0;
-  const cudaError_t err = cudaDeviceGetAttribute(
-      &bytes, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
-  return err == cudaSuccess ? (long long)bytes : -(long long)err;
+  return hopper::device_bytes(device, cudaDevAttrMaxSharedMemoryPerBlockOptin);
 }
 
 // Shared memory (bytes) of one SM, or a negative cudaError_t.
 long long gcn_ell_smem_per_sm(int device) {
-  int bytes = 0;
-  const cudaError_t err = cudaDeviceGetAttribute(
-      &bytes, cudaDevAttrMaxSharedMemoryPerMultiprocessor, device);
-  return err == cudaSuccess ? (long long)bytes : -(long long)err;
+  return hopper::device_bytes(device, cudaDevAttrMaxSharedMemoryPerMultiprocessor);
 }
 
 // Dynamic shared memory (bytes) one block of the cluster needs; dtype as in
 // gcn_ell_launch, stages the bf16 form's weight ring.
 long long gcn_ell_smem_bytes(int dtype, int d, int vocab, int gmax, int tout, int stages) {
-  return (long long)smem_layout(dtype == 1, d, vocab, gmax, tout, stages).total;
+  return (long long)gcn_model::smem_layout(dtype == 1, d, vocab, gmax, tout, stages).total;
 }
 
 // What the occupancy calculator says of a launch: out[0] the blocks of the
 // form that fit one SM, out[1] the clusters of W/128 blocks that run at
-// once (cudaOccupancyMaxActiveClusters). Returns a cudaError_t.
+// once. Returns a cudaError_t.
 int gcn_ell_occupancy(int dtype, int window, int d, int vocab, int gmax, int tout, int stages,
                       int device, int* out) {
-  const int layers = 2;
-  if (bad_geometry(dtype, window, d, layers, stages)) return int(cudaErrorInvalidValue);
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return int(err);
-  const size_t bytes = smem_layout(dtype == 1, d, vocab, gmax, tout, stages).total;
-  const Dims dm{0, window, 0, d, layers, vocab, gmax, tout, stages, 0};
-  return int(with_kernel(dtype, d, [&](auto kernel, auto) {
-    Launch ln;
-    cudaError_t e = configure(kernel, ln, 1, dm, bytes, nullptr);
-    if (e != cudaSuccess) return e;
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(out, kernel, kThreads, bytes);
-    if (e != cudaSuccess) return e;
-    return cudaOccupancyMaxActiveClusters(out + 1, kernel, &ln.cfg);
-  }));
+  return gcn_model::occupancy<lanes::Ell>(dtype, window, d, vocab, gmax, tout, stages, device,
+                                          out);
 }
 
 // dtype: 0 = float32, 1 = bfloat16 (h0, dis, tables, roots, alphas, betas,
@@ -513,37 +73,18 @@ int gcn_ell_occupancy(int dtype, int window, int d, int vocab, int gmax, int tou
 // layers' weight chunks as gcn_ell_conv_dims gives them, and a ring of
 // `stages` chunk buffers, at least two (float32: null and 0). window must be
 // 1..kMaxCluster whole blocks of kRows rows, d even. knockout: 0 (see
-// Dims). Returns a cudaError_t.
+// gcn_model::Dims). Returns a cudaError_t.
 int gcn_ell_launch(int dtype, const void* meta, const void* h0, const void* dis,
                    const void* pool_gl, const void* tab, const void* roots, const void* alphas,
                    const void* betas, const void* wn, const void* bn, const void* predw,
                    const void* tiles, void* out, int num_windows, int n, int window, int block,
                    int d, int layers, int vocab, int gmax, int tout, int stages, int knockout,
                    int device, void* stream) {
-  if (bad_geometry(dtype, window, d, layers, stages) || num_windows < 1 || block < 0 ||
-      (dtype == 1 && layers > 1 && tiles == nullptr))
-    return int(cudaErrorInvalidValue);
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return int(err);
-  const Dims dm{n, window, block, d, layers, vocab, gmax, tout, stages, knockout};
-  const Smem lay = smem_layout(dtype == 1, d, vocab, gmax, tout, stages);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return int(with_kernel(dtype, d, [&](auto kernel, auto tag) {
-    using T = decltype(tag);
-    Launch ln;
-    cudaError_t e = configure(kernel, ln, num_windows, dm, lay.total, s);
-    if (e != cudaSuccess) return e;
-    e = cudaLaunchKernelEx(&ln.cfg, kernel, static_cast<const int*>(meta),
-                           static_cast<const T*>(h0), static_cast<const T*>(dis),
-                           static_cast<const int*>(pool_gl), static_cast<const T*>(tab),
-                           static_cast<const T*>(roots), static_cast<const T*>(alphas),
-                           static_cast<const T*>(betas), static_cast<const T*>(wn),
-                           static_cast<const T*>(bn), static_cast<const T*>(predw),
-                           static_cast<const unsigned char*>(tiles), static_cast<float*>(out),
-                           dm, lay);
-    if (e != cudaSuccess) return e;
-    return cudaGetLastError();
-  }));
+  if (block < 0) return int(cudaErrorInvalidValue);
+  const gcn_model::Dims dm{n, window, d, layers, vocab, gmax, tout, stages, knockout};
+  return gcn_model::launch(dtype, lanes::Ell{static_cast<const int*>(meta), block}, h0, dis,
+                           pool_gl, tab, roots, alphas, betas, wn, bn, predw, tiles, out,
+                           num_windows, dm, device, stream);
 }
 
 const char* gcn_ell_error_string(int code) {

@@ -16,8 +16,8 @@
 // nowhere, as the TPU kernel's one-hot gather and scatter give.
 //
 // The kernel is gin_model.cuh's, a cluster of W/128 blocks per window with
-// its bf16 update MLP on the tensor cores (gin_mlp.cuh); this file is its
-// ELL message stage: each block finds its rows' lane runs by binary search
+// its bf16 update MLP on the tensor cores (gin_mlp.cuh); this file runs it
+// with the ELL message stage (lanes.cuh: Ell): each block finds its rows' lane runs by binary search
 // on v once, before the layers, and a row's lanes are read from device
 // memory through L1 in lane order.
 //
@@ -30,50 +30,15 @@
 // FMA MLP on the CUDA cores.
 
 #include "gin_model.cuh"
+#include "lanes.cuh"
 
-namespace {
-
-using gin_model::kRows;
-using gin_model::kThreads;
-
-constexpr int kMeta = 5;  // ints per lane: u, v, three bond rows
-
-// The k = 1 ELL message stage: `block` lanes per window of `meta`.
-struct EllLanes {
-  const int* meta;
-  int block;
-
-  // Row r's lanes are [lo_s[r], lo_s[r+1]): the first lane whose v is at
-  // least the row's window-local index, by binary search over v.
-  __device__ __forceinline__ void prepare(int win, int rank, int tid, int* lo_s) const {
-    const int* meta_w = meta + long(win) * block * kMeta;
-    for (int r = tid; r <= kRows; r += kThreads) {
-      const int key = rank * kRows + r;
-      int lo = 0, hi = block;
-      while (lo < hi) {
-        const int mid = (lo + hi) >> 1;
-        if (__ldg(meta_w + mid * kMeta + 1) < key) lo = mid + 1; else hi = mid;
-      }
-      lo_s[r] = lo;
-    }
-  }
-
-  template <typename F>
-  __device__ __forceinline__ void visit(int win, int, int r, const int* lo_s, int, F&& f) const {
-    const int* meta_w = meta + long(win) * block * kMeta;
-    for (int e = lo_s[r]; e < lo_s[r + 1]; ++e) {
-      const int* m = meta_w + e * kMeta;
-      f(__ldg(m), __ldg(m + 2), __ldg(m + 3), __ldg(m + 4));
-    }
-  }
-};
-
-}  // namespace
+static_assert(gin_model::kRows == lanes::kRows && gin_model::kThreads == lanes::kThreads,
+              "the lane walk's block shape");
 
 extern "C" {
 
 int gin_ell_max_d() { return gin_model::kMaxD; }
-int gin_ell_rows_per_block() { return kRows; }
+int gin_ell_rows_per_block() { return gin_model::kRows; }
 int gin_ell_max_cluster() { return gin_model::kMaxCluster; }
 
 // The bf16 form's weight chunks for width d and hidden width hid
@@ -81,7 +46,9 @@ int gin_ell_max_cluster() { return gin_model::kMaxCluster; }
 // bytes of one chunk.
 void gin_ell_mlp_dims(int d, int hid, int* dims) { gin_mlp::dims(d, hid, dims); }
 
-long long gin_ell_smem_optin(int device) { return gin_model::smem_optin(device); }
+long long gin_ell_smem_optin(int device) {
+  return hopper::device_bytes(device, cudaDevAttrMaxSharedMemoryPerBlockOptin);
+}
 
 // Dynamic shared memory (bytes) one block of the cluster needs; dtype as in
 // gin_ell_launch, stages the bf16 form's weight ring.
@@ -105,7 +72,7 @@ int gin_ell_launch(int dtype, const void* meta, const void* h0, const void* pool
                    int device, void* stream) {
   if (block < 0) return int(cudaErrorInvalidValue);
   const gin_model::Dims dm{n, window, d, hid, layers, vocab, gmax, tout, stages};
-  return gin_model::launch(dtype, EllLanes{static_cast<const int*>(meta), block}, h0, pool_gl,
+  return gin_model::launch(dtype, lanes::Ell{static_cast<const int*>(meta), block}, h0, pool_gl,
                            tab, w1, b1, w2, b2, eps, predw, vn_col, tiles, out, num_windows, dm,
                            device, stream);
 }

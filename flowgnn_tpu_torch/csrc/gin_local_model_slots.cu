@@ -19,8 +19,8 @@
 // to 1024 rows on a cluster of W/128 blocks, h and act in shared memory for
 // all L layers (the TPU kernel's VMEM residency), the bf16 update MLP on the
 // tensor cores (gin_mlp.cuh) with its weight chunks streamed through a ring
-// of bulk copies, the f32 MLP register-tiled FMA. This file is its slot
-// message stage: one warp per destination row reads the row's ≤ S lanes
+// of bulk copies, the f32 MLP register-tiled FMA. This file runs it with
+// the slot message stage (lanes.cuh: Slots): one warp per destination row reads the row's ≤ S lanes
 // (lane offs[k] + row for each slot k with row < caps[k]) from device memory
 // through L1, once per row, and its lanes walk D; the messages are summed in
 // slot order, as the TPU kernel and the plain version sum them, with no
@@ -35,67 +35,24 @@
 // the tensor-core MLP bound it, in f32 the FMA MLP.
 
 #include "gin_model.cuh"
+#include "lanes.cuh"
 
-namespace {
-
-using gin_model::kRows;
-
-constexpr int kMaxSlots = 8;
-
-// The degree-sorted prefix layout: `sw` = Σ caps lanes per window of
-// `meta` (4 ints each), slot k's lanes at offs[k]..offs[k]+caps[k].
-struct SlotLanes {
-  const int* meta;
-  int sw, half, slots;
-  int caps[kMaxSlots];
-  int offs[kMaxSlots];
-
-  __device__ __forceinline__ void prepare(int, int, int, int*) const {}
-
-  template <typename F>
-  __device__ __forceinline__ void visit(int win, int rank, int r, const int*, int window,
-                                        F&& f) const {
-    const int row = rank * kRows + r;  // the window row
-    const int* meta_w = meta + long(win) * sw * 4;
-#pragma unroll
-    for (int k = 0; k < kMaxSlots; ++k) {
-      if (k >= slots || row >= caps[k]) continue;
-      const int* m = meta_w + (offs[k] + row) * 4;
-      const int src = __ldg(m) + half;
-      if (unsigned(src) >= unsigned(window)) continue;  // empty lane
-      f(src, __ldg(m + 1), __ldg(m + 2), __ldg(m + 3));
-    }
-  }
-};
-
-SlotLanes make_lanes(const void* meta, int half, const int* caps, int slots) {
-  SlotLanes s{};
-  s.meta = static_cast<const int*>(meta);
-  s.half = half;
-  s.slots = slots;
-  int off = 0;
-  for (int k = 0; k < slots; ++k) {
-    s.caps[k] = caps[k];
-    s.offs[k] = off;
-    off += caps[k];
-  }
-  s.sw = off;
-  return s;
-}
-
-}  // namespace
+static_assert(gin_model::kRows == lanes::kRows && gin_model::kThreads == lanes::kThreads,
+              "the lane walk's block shape");
 
 extern "C" {
 
 int gin_slots_max_d() { return gin_model::kMaxD; }
-int gin_slots_max_slots() { return kMaxSlots; }
-int gin_slots_rows_per_block() { return kRows; }
+int gin_slots_max_slots() { return lanes::kMaxSlots; }
+int gin_slots_rows_per_block() { return gin_model::kRows; }
 int gin_slots_max_cluster() { return gin_model::kMaxCluster; }
 
 // The bf16 form's weight chunks, as gin_ell_mlp_dims gives them.
 void gin_slots_mlp_dims(int d, int hid, int* dims) { gin_mlp::dims(d, hid, dims); }
 
-long long gin_slots_smem_optin(int device) { return gin_model::smem_optin(device); }
+long long gin_slots_smem_optin(int device) {
+  return hopper::device_bytes(device, cudaDevAttrMaxSharedMemoryPerBlockOptin);
+}
 
 // Dynamic shared memory (bytes) one block of the cluster needs; dtype as in
 // gin_slots_launch, stages the bf16 form's weight ring. The slot geometry
@@ -118,11 +75,10 @@ int gin_slots_launch(int dtype, const void* meta, const void* h0, const void* po
                      const void* tiles, void* out, int num_windows, int n, int window, int half,
                      int d, int hid, int layers, int vocab, int gmax, int tout, const int* caps,
                      int slots, int stages, int device, void* stream) {
-  if (slots < 1 || slots > kMaxSlots) return int(cudaErrorInvalidValue);
-  for (int k = 0; k < slots; ++k)
-    if (caps[k] < 0 || caps[k] > window) return int(cudaErrorInvalidValue);
+  lanes::Slots walk;
+  if (!lanes::make_slots(walk, meta, half, caps, slots, window)) return int(cudaErrorInvalidValue);
   const gin_model::Dims dm{n, window, d, hid, layers, vocab, gmax, tout, stages};
-  return gin_model::launch(dtype, make_lanes(meta, half, caps, slots), h0, pool_gl, tab, w1, b1,
+  return gin_model::launch(dtype, walk, h0, pool_gl, tab, w1, b1,
                            w2, b2, eps, predw, vn_col, tiles, out, num_windows, dm, device,
                            stream);
 }

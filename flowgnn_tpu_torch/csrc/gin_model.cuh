@@ -20,14 +20,14 @@
 // running sum over the window's rows), which the f32 comparisons allow for
 // at 1e-4 of the output's scale.
 //
-// The message stage (the template parameter Msg) says which lanes a block
-// row has and in what order: Msg::prepare(win, rank, tid, lo_s) runs once
-// before the layers (lo_s: kRows + 1 ints of shared scratch), and
-// Msg::visit(win, rank, r, lo_s, window, f) calls f(u, a1, a2, a3) for each
-// lane of the block's row r in order: u the source's window row (outside
-// [0, W): a zero source, whose message is relu(ee) alone), a1..a3 the
-// lane's bond-table rows (outside the vocabulary: none). A lane the layout
-// drops is not visited.
+// The message stage (the template parameter Msg, one of lanes.cuh's walks)
+// says which lanes a block row has and in what order: Msg::prepare(win,
+// rank, tid, lo_s) runs once before the layers (lo_s: kRows + 1 ints of
+// shared scratch), and Msg::visit(win, rank, r, lo_s, window, f) calls f(u,
+// a1, a2, a3) for each lane of the block's row r in order: u the source's
+// window row (outside [0, W): a zero source, whose message is relu(ee)
+// alone), a1..a3 the lane's bond-table rows (outside the vocabulary: none).
+// A lane the layout drops is not visited.
 //
 // Numerics are the TPU kernels': activations and weights are float or
 // bfloat16 (T); every product and sum is float32; messages, act, the hidden
@@ -442,26 +442,13 @@ cudaError_t launch_typed(const Msg& msg, const void* h0, const void* pool_gl, co
                          const void* eps, const void* predw, const void* vn_col,
                          const void* tiles, void* out, int num_windows, const Dims& dm,
                          cudaStream_t stream) {
-  const int csize = dm.window / kRows;
   const Smem lay = smem_layout(N2 > 0, dm.d, dm.hid, dm.vocab, dm.gmax, dm.tout, dm.stages);
-  const size_t bytes = lay.total;
-  cudaError_t err = cudaFuncSetAttribute(gin_model_kernel<T, N2, Msg>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, int(bytes));
+  ClusterLaunch ln;
+  cudaError_t err = cluster_launch(gin_model_kernel<T, N2, Msg>, ln, num_windows,
+                                   dm.window / kRows, kThreads, lay.total, stream);
   if (err != cudaSuccess) return err;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = csize;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(num_windows * csize);
-  cfg.blockDim = dim3(kThreads);
-  cfg.dynamicSmemBytes = bytes;
-  cfg.stream = stream;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
   err = cudaLaunchKernelEx(
-      &cfg, gin_model_kernel<T, N2, Msg>, msg, static_cast<const T*>(h0),
+      &ln.cfg, gin_model_kernel<T, N2, Msg>, msg, static_cast<const T*>(h0),
       static_cast<const int*>(pool_gl), static_cast<const T*>(tab), static_cast<const T*>(w1),
       static_cast<const T*>(b1), static_cast<const T*>(w2), static_cast<const T*>(b2),
       static_cast<const float*>(eps), static_cast<const T*>(predw),
@@ -498,15 +485,6 @@ int launch(int dtype, const Msg& msg, const void* h0, const void* pool_gl, const
   else
     err = cudaErrorInvalidValue;
   return int(err);
-}
-
-// The largest dynamic shared memory (bytes) a block may opt in to, or a
-// negative cudaError_t.
-inline long long smem_optin(int device) {
-  int bytes = 0;
-  const cudaError_t err =
-      cudaDeviceGetAttribute(&bytes, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
-  return err == cudaSuccess ? (long long)bytes : -(long long)err;
 }
 
 }  // namespace gin_model

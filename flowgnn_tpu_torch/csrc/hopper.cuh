@@ -1,7 +1,9 @@
 // Hopper (sm_90a) building blocks shared by the tensor-core kernels
 // (chained_matmul.cu, gin_mlp.cuh, linear_wgmma.cuh): wgmma shared-memory descriptors,
 // the wgmma fences and instructions, mbarriers, bulk copies (the TMA unit's
-// 1-D form, cp.async.bulk) and 16-byte cp.async.
+// 1-D form, cp.async.bulk) and 16-byte cp.async; and, on the host, the launch
+// configuration of a grid of thread-block clusters that the whole-model
+// kernels share.
 //
 // Operand layout. Every wgmma operand read from shared memory here is
 // K-major without swizzle, the canonical layout of 8 x 16-byte "core
@@ -32,6 +34,7 @@
 #pragma once
 
 #include <cuda_bf16.h>
+#include <cuda_runtime.h>
 #include <cstdint>
 
 namespace hopper {
@@ -389,6 +392,54 @@ __device__ __forceinline__ void mma_bf16_rs<112>(float (&d)[56], const uint32_t 
         "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
         "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+}
+
+// The launch of `kernel` over `clusters` thread-block clusters of `cluster`
+// blocks in x (the blocks of a cluster run on neighbouring SMs and read each
+// other's shared memory), `threads` a block and `bytes` of dynamic shared
+// memory, opted in first. cfg points at attr, so it is filled in place.
+struct ClusterLaunch {
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr[1];
+};
+
+template <typename K>
+inline cudaError_t cluster_launch(K kernel, ClusterLaunch& ln, int clusters, int cluster,
+                                  int threads, size_t bytes, cudaStream_t stream) {
+  const cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(bytes));
+  if (err != cudaSuccess) return err;
+  ln.attr[0].id = cudaLaunchAttributeClusterDimension;
+  ln.attr[0].val.clusterDim.x = cluster;
+  ln.attr[0].val.clusterDim.y = 1;
+  ln.attr[0].val.clusterDim.z = 1;
+  ln.cfg = {};
+  ln.cfg.gridDim = dim3(clusters * cluster);
+  ln.cfg.blockDim = dim3(threads);
+  ln.cfg.dynamicSmemBytes = bytes;
+  ln.cfg.stream = stream;
+  ln.cfg.attrs = ln.attr;
+  ln.cfg.numAttrs = 1;
+  return cudaSuccess;
+}
+
+// What the occupancy calculator says of a cluster launch configured as
+// above: out[0] the blocks that fit one SM, out[1] the clusters that run at
+// once.
+template <typename K>
+inline cudaError_t cluster_occupancy(K kernel, ClusterLaunch& ln, int threads, size_t bytes,
+                                     int* out) {
+  const cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(out, kernel, threads, bytes);
+  if (err != cudaSuccess) return err;
+  return cudaOccupancyMaxActiveClusters(out + 1, kernel, &ln.cfg);
+}
+
+// A device attribute counted in bytes (the shared memory a block may opt in
+// to, or that one SM holds), or a negative cudaError_t.
+inline long long device_bytes(int device, cudaDeviceAttr attr) {
+  int bytes = 0;
+  const cudaError_t err = cudaDeviceGetAttribute(&bytes, attr, device);
+  return err == cudaSuccess ? (long long)bytes : -(long long)err;
 }
 
 }  // namespace hopper

@@ -422,26 +422,13 @@ cudaError_t launch_typed(const void* slot_src, const void* h0, const void* invd,
                          const void* scale, const void* w_all, const void* b_all,
                          const void* pool_gl, const void* mlp1_w, const void* tiles, void* out,
                          int num_windows, const Dims& dm, const Caps& cp, cudaStream_t stream) {
-  const int csize = dm.window / kRows;
   const Smem lay = smem_layout(kWg, dm.d, dm.gmax, dm.tout, dm.stages);
-  cudaError_t err = cudaFuncSetAttribute(pna_model_kernel<T, kWg>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         int(lay.total));
+  ClusterLaunch ln;
+  cudaError_t err = cluster_launch(pna_model_kernel<T, kWg>, ln, num_windows, dm.window / kRows,
+                                   kThreads, lay.total, stream);
   if (err != cudaSuccess) return err;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = csize;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(num_windows * csize);
-  cfg.blockDim = dim3(kThreads);
-  cfg.dynamicSmemBytes = lay.total;
-  cfg.stream = stream;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
   err = cudaLaunchKernelEx(
-      &cfg, pna_model_kernel<T, kWg>, static_cast<const int*>(slot_src),
+      &ln.cfg, pna_model_kernel<T, kWg>, static_cast<const int*>(slot_src),
       static_cast<const T*>(h0), static_cast<const T*>(invd), static_cast<const T*>(tdeg),
       static_cast<const T*>(scale), static_cast<const T*>(w_all), static_cast<const T*>(b_all),
       static_cast<const int*>(pool_gl), static_cast<const T*>(mlp1_w),
@@ -472,10 +459,7 @@ void pna_model_tower_dims(int d, int* dims) {
 // The largest dynamic shared memory (bytes) a block may opt in to, or a
 // negative cudaError_t.
 long long pna_model_smem_optin(int device) {
-  int bytes = 0;
-  const cudaError_t err = cudaDeviceGetAttribute(
-      &bytes, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
-  return err == cudaSuccess ? (long long)bytes : -(long long)err;
+  return hopper::device_bytes(device, cudaDevAttrMaxSharedMemoryPerBlockOptin);
 }
 
 // Dynamic shared memory (bytes) one block of the cluster needs; dtype as in

@@ -301,12 +301,12 @@ def as_batch(
 
     Without a window, the ELL layout takes the JAX package's (512, 1536)
     (``ELL_DEFAULT_GEOMETRY``), and the slot layout W=128, where the JAX
-    package takes 512. GIN's slot kernel (``gin_local_model_slots``, row 1)
+    package takes 512. Every whole-model slot kernel (rows 1-5:
+    ``gin_local_model_slots``, ``gcn_local_model_slots``,
+    ``pna_local_model``, ``dgn_local_model``, ``gat_local_model_slots``)
     takes windows of 128 up to 1024 rows, one thread-block cluster of W/128
-    blocks per window, so GIN and GIN-VN run the slot layout at W=512 as the
-    JAX bench does; the GCN, PNA, DGN and GAT slot kernels (rows 2-5) hold a
-    window in one block's shared memory and still refuse windows above 128
-    (ROADMAP queue 3).
+    blocks per window, each block holding 128 rows in its shared memory, so
+    every model runs the slot layout at W=512 as the JAX bench does.
     """
     batch = {
         "node_feat": packed.node_feat,

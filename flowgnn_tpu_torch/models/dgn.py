@@ -9,22 +9,25 @@ eigw_sum·h| / eig_abssum (zero → the ap_fixed<16,3> ulp); a [dim, 2, dim]
 posttrans linear; residual h + relu(acc) (DGN/src/node_embedding.cc:
 107-160); readout MLP dim → 50 → 25 → 1 (DGN/src/finalize.cc:35-52).
 
-Four branches: a slot batch with no spill tail runs the whole conv stack
-and readout MLP-1 in one ``dgn_local_model`` launch, then MLP-2/3 in plain
-torch; any other slot batch (a spill tail, ``return_intermediates``, no
-``pool_gl``) runs the per-layer slot path, as the JAX package does: per
-layer one ``dgn_local_layer_slots`` launch (kernel table row 22), which takes
-the spill tail's two channels pre-reduced through ``base.spill_segment_sum``
-(row 24), then ``mean_pool`` and the readout in plain torch; an ELL batch
-runs the per-layer ELL path (``flowgnn_tpu/models/dgn.py:166-214``): with no
-spill tail one ``dgn_local_layer_ell`` launch per layer (row 18), with one
-per layer ``dgn_local_message_ell`` (row 16) for the window-local channels,
-the tail's channels through ``base.ell_spill_segment_sum`` (row 24), and
-a1, a2, the posttrans and the residual in plain torch; a plain edge-list
-batch runs the plain loop, the port's own oracle.
+Four branches: a slot batch with no spill tail (at any window of 128 to 1024
+rows) runs the whole conv stack and readout MLP-1 in one ``dgn_local_model``
+launch, then MLP-2/3 in plain torch; any other slot batch (a spill tail,
+``return_intermediates``, no ``pool_gl``) runs the per-layer slot path, as
+the JAX package does: per layer one ``dgn_local_layer_slots`` launch (kernel
+table row 22), which takes the spill tail's two channels pre-reduced through
+``base.spill_segment_sum`` (row 24), then ``mean_pool`` and the readout in
+plain torch; an ELL batch runs the per-layer ELL path
+(``flowgnn_tpu/models/dgn.py:166-214``): with no spill tail one
+``dgn_local_layer_ell`` launch per layer (row 18), with one per layer
+``dgn_local_message_ell`` (row 16) for the window-local channels, the tail's
+channels through ``base.ell_spill_segment_sum`` (row 24), and a1, a2, the
+posttrans and the residual in plain torch; a plain edge-list batch runs the
+plain loop, the port's own oracle.
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
@@ -32,6 +35,7 @@ from ..core.features import ATOM_FEATURE_DIMS
 from ..core.numerics import FLOAT32, Precision
 from ..ops.local_layer import (
     dgn_local_layer_ell, dgn_local_layer_slots, dgn_local_message_ell, dgn_local_model,
+    dgn_posttrans_tiles,
 )
 from ..ops.segment import segment_sum
 from . import base as _base
@@ -93,7 +97,20 @@ def slot_kernel_operands(params: dict, batch: dict, prec: Precision = FLOAT32) -
         pool_gl=batch["pool_gl"], mlp1_w=params["mlp1_w"].T.to(dt).contiguous(),
         window=window, slots=n_slots, num_layers=L, gmax=_base.POOL_GMAX,
         prefix_caps=_base.slot_prefix_caps(batch, n_slots),
+        posttrans_tiles=posttrans_tiles(params, prec),
     )
+
+
+def posttrans_tiles(params: dict, prec: Precision) -> Optional[torch.Tensor]:
+    """The bf16 slot megakernel's posttrans weight chunks of every layer
+    (``ops.local_layer.dgn_posttrans_tiles`` over ``posttrans_w`` viewed as
+    [L, D_out, 2·D_in]: packed once per weight set, and again after an
+    in-place update of the weights); None outside bf16, where the kernel
+    reads ``w_all`` as it is."""
+    if prec.compute_dtype != torch.bfloat16:
+        return None
+    L, d = params["posttrans_w"].shape[:2]
+    return dgn_posttrans_tiles(params["posttrans_w"].reshape(L, d, 2 * d))
 
 
 def spill_values(h: torch.Tensor, batch: dict, eig: torch.Tensor, lanes) -> torch.Tensor:

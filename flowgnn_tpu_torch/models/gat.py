@@ -11,9 +11,9 @@ reference; skip projection and ELU between layers
 (GAT/src/finalize.cc:90-110). Self edges must already be in the batch
 (``core.graphs.add_self_loops``).
 
-Four branches: a slot batch with no spill tail runs the whole model in one
-``gat_local_model_slots`` launch, after the layer-0 projection and skip
-matmuls in plain torch; any other slot batch (a spill tail,
+Four branches: a slot batch with no spill tail (at any window of 128 to
+1024 rows) runs the whole model in one ``gat_local_model_slots`` launch,
+after the layer-0 projection and skip matmuls in plain torch; any other slot batch (a spill tail,
 ``return_intermediates``, no ``pool_gl``) runs the per-layer slot path, as
 the JAX package does: per layer one ``gat_local_message_slots`` launch
 (kernel table row 21) for the softmax over the slots, with the spill tail's
@@ -47,12 +47,14 @@ by that bf16 rounding only.
 from __future__ import annotations
 
 import os
+from typing import Optional
 
 import torch
 
 from ..core.numerics import FLOAT32, Precision
 from ..ops.local_layer import (
-    gat_local_layer_ell, gat_local_message_ell, gat_local_message_slots, gat_local_model_slots,
+    gat_glue_tiles, gat_local_layer_ell, gat_local_message_ell, gat_local_message_slots,
+    gat_local_model_slots,
 )
 from . import base as _base
 from .base import acc_dtype, edge_segment_sum, linear, mean_pool
@@ -115,7 +117,22 @@ def slot_kernel_operands(params: dict, batch: dict, prec: Precision = FLOAT32) -
         pred_hd=(params["pred_w"].T / H).repeat(H, 1).to(dt),
         window=window, slots=n_slots, num_heads=H, num_layers=L,
         gmax=_base.POOL_GMAX, prefix_caps=_base.slot_prefix_caps(batch, n_slots),
+        glue_tiles=glue_tiles(params, prec),
     )
+
+
+def glue_tiles(params: dict, prec: Precision) -> Optional[torch.Tensor]:
+    """The bf16 slot megakernel's glue weight chunks, layers 1..L-1
+    (``ops.local_layer.gat_glue_tiles`` over ``proj_w[1:]`` and
+    ``skip_w[1:]`` viewed as [L−1, H·D_out, H·D_in]: packed once per weight
+    set, and again after an in-place update of the weights); None outside
+    bf16, where the kernel reads ``proj_w`` and ``skip_w`` as they are."""
+    if prec.compute_dtype != torch.bfloat16:
+        return None
+    L, H, D = params["proj_w"].shape[:3]
+    hd = H * D
+    return gat_glue_tiles(params["proj_w"][1:].reshape(L - 1, hd, hd),
+                          params["skip_w"][1:].reshape(L - 1, hd, hd))
 
 
 def megakernel_operands(params: dict, prec: Precision = FLOAT32) -> dict:

@@ -9,9 +9,9 @@ into pooling; messages are norm-scaled relu(h_u + ee_l) with norm_uv =
 GCN/src/message_passing.cc:148-167). Like the JAX package, a node that is
 never a source gets 1/√(0+1) = 1, where the reference leaves 0.
 
-Four branches: a slot batch (``as_batch(blocked="local_slots")``) runs all
-L layers and the pooled head in one ``gcn_local_model_slots`` launch after
-the conv-0 matmul, an ELL batch (``blocked="local_ell"``) with one edge
+Four branches: a slot batch (``as_batch(blocked="local_slots")``, at any
+window of 128 to 1024 rows) runs all L layers and the pooled head in one
+``gcn_local_model_slots`` launch after the conv-0 matmul, an ELL batch (``blocked="local_ell"``) with one edge
 block per window, no spill tail and the pooling layout in one
 ``gcn_local_model`` launch, every other ELL batch the per-layer ELL path
 (``flowgnn_tpu/models/gcn.py:118-233``); every other batch, and a slot batch
@@ -96,12 +96,13 @@ def slot_kernel_operands(params: dict, batch: dict, prec: Precision = FLOAT32) -
     return dict(
         slot_meta=batch["slot_meta"], window=window, slots=n_slots,
         prefix_caps=_base.slot_prefix_caps(batch, n_slots),
-        **_model_operands(params, batch, prec),
+        conv_tiles=conv_tiles(params, prec), **_model_operands(params, batch, prec),
     )
 
 
 def conv_tiles(params: dict, prec: Precision) -> Optional[torch.Tensor]:
-    """The bf16 ELL kernel's next-conv weight chunks, layers 1..L-1
+    """The bf16 whole-model kernels' next-conv weight chunks (rows 9 and
+    2), layers 1..L-1
     (``ops.local_layer.gcn_conv_tiles``: packed once per weight set, and
     again after an in-place update of the weights); None outside bf16, where
     the kernel reads ``wn_all`` as it is."""

@@ -9,19 +9,22 @@ bucket. Over the degree-sorted slot layout:
   one thread-block cluster per window of 128 to 1024 rows, the kernel of
   ``gin_local_model`` below with the slot message stage
   (``csrc/gin_model.cuh``);
+- ``gcn_local_model_slots``: GCN (``csrc/gcn_local_model_slots.cu``), the
+  kernel of ``gcn_local_model`` below with the slot message stage
+  (``csrc/gcn_model.cuh``);
 - ``pna_local_model``: PNA's conv stack and readout MLP-1
-  (``csrc/pna_local_model.cu``), one cluster per window of 128 to 1024 rows;
-
-and one block per window of 128 rows:
-
-- ``gcn_local_model_slots``: GCN (``csrc/gcn_local_model_slots.cu``);
+  (``csrc/pna_local_model.cu``);
 - ``dgn_local_model``: DGN's conv stack and readout MLP-1
   (``csrc/dgn_local_model.cu``);
 - ``gat_local_model_slots``: GAT (``csrc/gat_local_model_slots.cu``), the
   one kernel behind the JAX package's three GAT megakernels
   (``gat_local_model_pairs``, ``gat_local_model_slots``,
   ``gat_local_model_dense``), which compute the same function; it follows
-  the numerics of the default, ``gat_local_model_pairs``.
+  the numerics of the default, ``gat_local_model_pairs``;
+
+each one thread-block cluster of W/128 blocks per window of 128 to 1024
+rows. The two GIN kernels share ``csrc/gin_model.cuh``, the two GCN kernels
+``csrc/gcn_model.cuh``, and both the lane walks of ``csrc/lanes.cuh``.
 
 Over the k=1 ELL layout, one thread-block cluster per window of 128 to 1024
 rows (128 rows per block):
@@ -86,13 +89,14 @@ edge-block layer ``gin_layer_fused`` is in ``ops.fused_layer``.
 The three GIN kernels of rows 1, 8 and 13 run their bf16 update MLP on the
 tensor cores through one routine (``csrc/gin_mlp.cuh``: ``wgmma``, the
 weights streamed in chunks of 32 hidden units through a ring of bulk copies)
-and their f32 MLP as FMA on the CUDA cores. Rows 9 and 3 run their bf16
-product (GCN's next conv, PNA's tower) through another, one product of 128
-rows (``csrc/linear_wgmma.cuh``, the weights in chunks of 32 input channels
-through the same ring), and their f32 product as FMA. The weight chunks are
-packed on the host once per weight set (``mlp_tiles``, ``gcn_conv_tiles``,
-``pna_tower_tiles``); each wrapper picks the ring's depth by shape and
-records it as its ``stages``.
+and their f32 MLP as FMA on the CUDA cores. Rows 9, 2, 3, 4 and 5 run their
+bf16 product (GCN's next conv, PNA's tower, DGN's posttrans, GAT's glue)
+through another, one product of 128 rows (``csrc/linear_wgmma.cuh``, the
+weights in chunks of 32 input channels through the same ring), and their
+f32 product as FMA. The weight chunks are packed on the host once per
+weight set (``mlp_tiles``, ``gcn_conv_tiles``, ``pna_tower_tiles``,
+``dgn_posttrans_tiles``, ``gat_glue_tiles``); each wrapper picks the ring's
+depth by shape and records it as its ``stages``.
 
 On a CUDA tensor a wrapper launches its hand-written kernel, or raises; on a
 CPU tensor it runs its ``_ref``, the same function in plain torch, which the
@@ -415,6 +419,7 @@ def gcn_local_model_slots_ref(
     num_layers: int,
     gmax: int,
     prefix_caps: tuple | None = None,
+    conv_tiles: Optional[torch.Tensor] = None,  # the kernel's packed weights; not read here
 ) -> torch.Tensor:
     """Plain-torch ``gcn_local_model_slots``: [NW·GMAX, T] pool sums.
 
@@ -545,6 +550,7 @@ def dgn_local_model_ref(
     num_layers: int,
     gmax: int,
     prefix_caps: tuple | None = None,
+    posttrans_tiles: Optional[torch.Tensor] = None,  # the kernel's packed weights; not read here
 ) -> torch.Tensor:
     """Plain-torch ``dgn_local_model``: [NW·GMAX, T] pool sums of h·mlp1_w.
 
@@ -597,6 +603,7 @@ def gat_local_model_slots_ref(
     num_layers: int,
     gmax: int,
     prefix_caps: tuple | None = None,
+    glue_tiles: Optional[torch.Tensor] = None,  # the kernel's packed weights; not read here
 ) -> torch.Tensor:
     """Plain-torch ``gat_local_model_slots``: [NW·GMAX, T] pool sums.
 
@@ -1152,10 +1159,12 @@ def _library(name: str) -> dict:
     ``_max_d``, ``_rows_per_block`` and ``_max_window_blocks`` (GAT's also
     ``_max_heads``), as do the legacy local and fused edge-block layers. The
     GIN and PNA slot libraries also export ``_rows_per_block`` and
-    ``_max_cluster``, the three libraries of ``GIN_MLP_LIBRARIES``
-    ``_mlp_dims``, rows 13 and 9 ``_smem_per_sm``, and the two users of
-    ``csrc/linear_wgmma.cuh`` the geometry of their weight chunks (row 9
-    ``_conv_dims``, with ``_occupancy``; row 3 ``_tower_dims``)."""
+    ``_max_cluster``, as do the GCN, DGN and GAT slot libraries; the three
+    libraries of ``GIN_MLP_LIBRARIES`` ``_mlp_dims``, row 13 ``_smem_per_sm``,
+    and the users of ``csrc/linear_wgmma.cuh`` the geometry of their weight
+    chunks (rows 9 and 2 ``_conv_dims``, row 3 ``_tower_dims``, row 4
+    ``_posttrans_dims``, row 5 ``_glue_dims``), those that keep two blocks an
+    SM (rows 9, 2, 4 and 5) also ``_smem_per_sm`` and ``_occupancy``."""
     slot_getters = ("max_d", "max_slots")
     ell_getters = ("max_d", "rows_per_block", "max_cluster")
     layer_getters = ("max_d", "rows_per_block", "max_window_blocks")
@@ -1165,20 +1174,20 @@ def _library(name: str) -> dict:
             [_I32] + [_PTR] * 13 + [_I32] * 10 + [_INT_P, _I32, _I32, _I32, _PTR],
         ),
         "gcn_local_model_slots": (
-            "gcn_slots", slot_getters, [_I32] * 5 + [_INT_P, _I32],
-            [_I32] + [_PTR] * 12 + [_I32] * 9 + [_INT_P, _I32, _I32, _PTR],
+            "gcn_slots", slot_getters + ("rows_per_block", "max_cluster"), [_I32] * 6,
+            [_I32] + [_PTR] * 13 + [_I32] * 9 + [_INT_P] + [_I32] * 4 + [_PTR],
         ),
         "pna_local_model": (
             "pna_model", slot_getters + ("rows_per_block", "max_cluster"), [_I32] * 5,
             [_I32] + [_PTR] * 11 + [_I32] * 7 + [_F32, _F32, _INT_P] + [_I32] * 4 + [_PTR],
         ),
         "dgn_local_model": (
-            "dgn_model", slot_getters, [_I32] * 5,
-            [_I32] + [_PTR] * 11 + [_I32] * 7 + [_INT_P, _I32, _I32, _PTR],
+            "dgn_model", slot_getters + ("rows_per_block", "max_cluster"), [_I32] * 5,
+            [_I32] + [_PTR] * 12 + [_I32] * 7 + [_INT_P] + [_I32] * 4 + [_PTR],
         ),
         "gat_local_model_slots": (
-            "gat_slots", slot_getters, [_I32] * 6,
-            [_I32] + [_PTR] * 9 + [_I32] * 8 + [_INT_P, _I32, _I32, _PTR],
+            "gat_slots", slot_getters + ("rows_per_block", "max_cluster"), [_I32] * 6,
+            [_I32] + [_PTR] * 10 + [_I32] * 8 + [_INT_P] + [_I32] * 4 + [_PTR],
         ),
         "gin_local_model": (
             "gin_ell", ell_getters, [_I32] * 7,
@@ -1258,11 +1267,18 @@ def _library(name: str) -> dict:
         f = getattr(lib, f"{prefix}_mlp_dims")
         f.argtypes, f.restype = [_I32, _I32, _INT_P], None
         fns["mlp_dims"] = f
-    extras = {  # rows 13 and 9: the ring's depth keeps two blocks an SM
-        "gin_local_layer_ell": (("smem_per_sm", [_I32], _I64),),
-        "gcn_local_model": (("smem_per_sm", [_I32], _I64), ("conv_dims", [_I32, _INT_P], None),
+    per_sm = ("smem_per_sm", [_I32], _I64)  # the ring's depth keeps two blocks an SM
+    extras = {
+        "gin_local_layer_ell": (per_sm,),
+        "gcn_local_model": (per_sm, ("conv_dims", [_I32, _INT_P], None),
                             ("occupancy", [_I32] * 8 + [_INT_P], _I32)),
+        "gcn_local_model_slots": (per_sm, ("conv_dims", [_I32, _INT_P], None),
+                                  ("occupancy", [_I32] * 8 + [_INT_P], _I32)),
         "pna_local_model": (("tower_dims", [_I32, _INT_P], None),),
+        "dgn_local_model": (per_sm, ("posttrans_dims", [_I32, _INT_P], None),
+                            ("occupancy", [_I32] * 7 + [_INT_P], _I32)),
+        "gat_local_model_slots": (per_sm, ("glue_dims", [_I32, _INT_P], None),
+                                  ("occupancy", [_I32] * 8 + [_INT_P], _I32)),
     }
     for suffix, args, res in extras.get(name, ()):
         f = getattr(lib, f"{prefix}_{suffix}")
@@ -1445,7 +1461,7 @@ def _check_gcn(h0, dis, pool_gl, ee_tables, roots, alphas, betas, wn_all, bn_all
 
 def _launch_gcn(slot_meta, h0, dis, pool_gl, ee_tables, roots, alphas, betas,
                 wn_all, bn_all, pred_w, window, slots, num_layers, gmax,
-                prefix_caps) -> torch.Tensor:
+                prefix_caps, tiles, knockout=0) -> torch.Tensor:
     code = _dtype_code(h0.dtype)
     dev = h0.device
     n, d = h0.shape
@@ -1457,21 +1473,24 @@ def _launch_gcn(slot_meta, h0, dis, pool_gl, ee_tables, roots, alphas, betas,
     _check("slot_meta", slot_meta, torch.int32, (nw * sw, 4), dev)
 
     lib = _library("gcn_local_model_slots")
-    caps_arr = (ctypes.c_int * len(caps))(*caps)
-    smem = lib["smem_bytes"](window, d, vocab, gmax, t_out, caps_arr, slots)
+    tiles, stages, smem = _gcn_conv_operand(lib, code, d, vocab, gmax, t_out, L, wn_all, tiles, dev)
+    _check_ell_geometry(lib, d, window, smem, dev)
     _check_geometry(lib, d, slots, caps, window, smem, dev)
+    caps_arr = (ctypes.c_int * len(caps))(*caps)
     out = torch.empty((nw * gmax, t_out), dtype=torch.float32, device=dev)
     rc = lib["launch"](
         code,
         slot_meta.data_ptr(), h0.data_ptr(), dis.data_ptr(), pool_gl.data_ptr(),
         ee_tables.data_ptr(), roots.data_ptr(), alphas.data_ptr(),
         betas.data_ptr(), wn_all.data_ptr(), bn_all.data_ptr(),
-        pred_w.data_ptr(), out.data_ptr(),
+        pred_w.data_ptr(), None if code == 0 else tiles.data_ptr(), out.data_ptr(),
         nw, n, window, _center(window), d, L, vocab, gmax, t_out,
-        caps_arr, slots, dev.index, torch.cuda.current_stream(dev).cuda_stream,
+        caps_arr, slots, stages, int(knockout), dev.index,
+        torch.cuda.current_stream(dev).cuda_stream,
     )
     _raise_on(lib, rc, "gcn_local_model_slots")
     gcn_local_model_slots.launches += 1
+    gcn_local_model_slots.stages = stages
     return out
 
 
@@ -1492,19 +1511,31 @@ def gcn_local_model_slots(
     num_layers: int,
     gmax: int,
     prefix_caps: tuple | None = None,
+    conv_tiles: Optional[torch.Tensor] = None,
+    knockout: int = 0,
 ) -> torch.Tensor:
-    """GCN whole-model slot megakernel: [NW·GMAX, T] f32 per-window pool
-    sums. Operands as in ``gcn_local_model_slots_ref``; a CPU tensor runs
-    the plain version, a CUDA tensor launches the kernel (float32 or
-    bfloat16 activations, norms and weights, int32 ``slot_meta`` /
-    ``pool_gl``) or raises. Each launch adds one to
-    ``gcn_local_model_slots.launches``."""
+    """GCN whole-model slot megakernel (after conv 0): [NW·GMAX, T] f32
+    per-window pool sums, at windows of 128 up to 1024 rows (one
+    thread-block cluster of W/128 blocks per window; ``gcn_local_model``'s
+    kernel with the slot message stage). Operands as in
+    ``gcn_local_model_slots_ref``; a CPU tensor runs the plain version, a
+    CUDA tensor launches the kernel (float32 or bfloat16 activations, norms
+    and weights, int32 ``slot_meta`` / ``pool_gl``; D even, at most 112) or
+    raises. In bfloat16 the next conv runs on the tensor cores (``wgmma``)
+    from ``conv_tiles`` as ``gcn_conv_tiles`` packs them (packed here, once
+    per weight set, when not given); ``gcn_local_model_slots.stages``
+    records the launch's weight ring (0 in float32). ``knockout`` (timing
+    only, CUDA only): bit 0 skips the next conv, bit 1 the messages. Each
+    launch adds one to ``gcn_local_model_slots.launches``."""
     args = (slot_meta, h0, dis, pool_gl, ee_tables, roots, alphas, betas,
-            wn_all, bn_all, pred_w, window, slots, num_layers, gmax, prefix_caps)
+            wn_all, bn_all, pred_w, window, slots, num_layers, gmax, prefix_caps, conv_tiles)
+    if _knocked_out(h0, knockout):
+        return _launch_gcn(*args, knockout=knockout)
     return _dispatch(h0, gcn_local_model_slots_ref, _launch_gcn, args)
 
 
 gcn_local_model_slots.launches = 0
+gcn_local_model_slots.stages = 0
 
 
 def _ell_block(ell_meta: torch.Tensor, nw: int, dev) -> int:
@@ -1595,6 +1626,7 @@ def mlp_tiles(w1_all: torch.Tensor, w2_all: torch.Tensor, num_layers: int) -> to
 # in chunks of 32 input channels.
 LINEAR_CHUNK = 32
 PNA_PITCH = 80  # row 3's bf16 tower: scaler p's outputs at columns 80p + c
+GAT_PITCH = 64  # row 5's bf16 glue: proj's outputs at columns c, skip's at 64 + c
 
 
 def linear_geometry(k: int, n: int) -> tuple[int, int, int]:
@@ -1640,6 +1672,30 @@ def pna_tower_tiles(w3: torch.Tensor) -> torch.Tensor:
         return linear_tiles(wt.reshape(L, p * PNA_PITCH, k), p * PNA_PITCH)
 
     return _pack_once(("pna_tower",), (w3,), pack)
+
+
+def dgn_posttrans_tiles(wt: torch.Tensor) -> torch.Tensor:
+    """Row 4's posttrans weight chunks, packed once per weight set: ``wt``
+    [L, D, 2D] holds each layer's posttrans as [out, in] (the model's
+    ``posttrans_w``; ``w_all``'s blocks transposed); the product's width is
+    row 9's rule (``gcn_conv_n``), the pads zero."""
+    return _pack_once(("dgn_posttrans",), (wt,), lambda: linear_tiles(wt, gcn_conv_n(wt.shape[1])))
+
+
+def gat_glue_tiles(proj_t: torch.Tensor, skip_t: torch.Tensor) -> torch.Tensor:
+    """Row 5's glue weight chunks, packed once per weight set: ``proj_t`` and
+    ``skip_t`` [L−1, H·D, H·D] hold layers 1..L−1's projection and skip
+    weights as [out, in] (the model's ``proj_w[1:]`` and ``skip_w[1:]``);
+    one product feat·[proj ‖ skip] 128 wide, proj's H·D outputs at columns
+    0.., skip's at 64.. (pads zero)."""
+    def pack():
+        layers, hd, _ = proj_t.shape
+        wt = proj_t.new_zeros(layers, 2 * GAT_PITCH, hd)
+        wt[:, :hd] = proj_t
+        wt[:, GAT_PITCH : GAT_PITCH + hd] = skip_t
+        return linear_tiles(wt, 2 * GAT_PITCH)
+
+    return _pack_once(("gat_glue",), (proj_t, skip_t), pack)
 
 
 def _linear_operand(lib, dims_fn: str, d: int, tiles, k: int, n: int, layers: int, pack,
@@ -1818,18 +1874,8 @@ def _launch_gcn_ell(ell_meta, h0, dis, pool_gl, ee_tables, roots, alphas, betas,
     block = _ell_block(ell_meta, nw, dev)
 
     lib = _library("gcn_local_model")
-    _check_tile(lib, d)
-    if d % 2:
-        raise ValueError(f"D={d}: the kernel reads column pairs, D must be even")
-    smem_of = lambda stages: lib["smem_bytes"](code, d, vocab, gmax, t_out, stages)
-    stages = 0
-    if code == 1:  # the wgmma conv reads the next convs' weights as packed chunks
-        n_conv = gcn_conv_n(d)
-        tiles = _linear_operand(
-            lib, "conv_dims", d, tiles, d, n_conv, L - 1,
-            lambda: gcn_conv_tiles(wn_all.view(L - 1, d, d).transpose(1, 2)), dev)
-        stages = ring_stages(smem_of, linear_geometry(d, n_conv)[1], _two_blocks_budget(lib, dev))
-    _check_ell_geometry(lib, d, window, smem_of(stages), dev)
+    tiles, stages, smem = _gcn_conv_operand(lib, code, d, vocab, gmax, t_out, L, wn_all, tiles, dev)
+    _check_ell_geometry(lib, d, window, smem, dev)
     out = torch.empty((nw * gmax, t_out), dtype=torch.float32, device=dev)
     rc = lib["launch"](
         code,
@@ -1846,24 +1892,63 @@ def _launch_gcn_ell(ell_meta, h0, dis, pool_gl, ee_tables, roots, alphas, betas,
     return out
 
 
-def gcn_occupancy(dtype: torch.dtype, window: int, d: int, vocab: int, gmax: int, t_out: int,
-                  device) -> dict:
-    """What the occupancy calculator says of row 9 in ``dtype`` at this
-    geometry on ``device`` (the launch's own ring depth): the block's shared
-    memory, the blocks of that form one SM holds, and the clusters of
-    W/128 blocks that run at once."""
+def _gcn_conv_operand(lib, code: int, d: int, vocab: int, gmax: int, t_out: int, L: int,
+                      wn_all: torch.Tensor, tiles, dev):
+    """Rows 9 and 2's next-conv operand: (the bf16 weight chunks, checked or
+    packed here; None in f32), the weight ring's depth (0 in f32) and the
+    block's shared memory. Raises on a D the kernel's tiles do not take."""
+    _check_tile(lib, d)
+    if d % 2:
+        raise ValueError(f"D={d}: the kernel reads column pairs, D must be even")
+    if code == 1:  # the wgmma conv reads the next convs' weights as packed chunks
+        tiles = _linear_operand(
+            lib, "conv_dims", d, tiles, d, gcn_conv_n(d), L - 1,
+            lambda: gcn_conv_tiles(wn_all.view(L - 1, d, d).transpose(1, 2)), dev)
+    stages = _two_block_stages("gcn_local_model", lib, code, (d, vocab), gmax, t_out, dev)
+    return tiles, stages, lib["smem_bytes"](code, d, vocab, gmax, t_out, stages)
+
+
+def _product_kn(kernel: str, d: int) -> tuple[int, int]:
+    """(K, N) of the bf16 product of a kernel that keeps two blocks an SM,
+    at width ``d``: rows 9 and 2's next conv, row 4's posttrans, row 5's
+    glue."""
+    if kernel.startswith("gcn_local_model"):
+        return d, gcn_conv_n(d)
+    if kernel == "dgn_local_model":
+        return 2 * d, gcn_conv_n(d)
+    return d, 2 * GAT_PITCH
+
+
+def _two_block_stages(kernel: str, lib, code: int, geometry: tuple, gmax: int, t_out: int,
+                      dev) -> int:
+    """The weight ring of a bf16 kernel that keeps two blocks an SM: the
+    deepest whose block fits half the SM's shared memory (``ring_stages``;
+    0 in f32). ``geometry`` are the library's ``_smem_bytes`` arguments
+    before (gmax, T, stages)."""
+    if code == 0:
+        return 0
+    k, n = _product_kn(kernel, geometry[0])
+    return ring_stages(lambda stages: lib["smem_bytes"](code, *geometry, gmax, t_out, stages),
+                       linear_geometry(k, n)[1], _two_blocks_budget(lib, dev))
+
+
+def occupancy(kernel: str, dtype: torch.dtype, window: int, geometry: tuple, gmax: int,
+              t_out: int, device) -> dict:
+    """What the occupancy calculator says of the whole-model kernel
+    ``kernel`` (rows 9, 2, 4 and 5) in ``dtype`` at this geometry on
+    ``device`` (the launch's own ring depth): the block's shared memory,
+    the blocks of that form one SM holds, and the clusters of W/128 blocks
+    that run at once. ``geometry``: (D, vocab) for GCN, (D,) for DGN, (H·D,
+    heads) for GAT."""
     code = _dtype_code(dtype)
     dev = torch.device(device)
-    lib = _library("gcn_local_model")
-    smem_of = lambda stages: lib["smem_bytes"](code, d, vocab, gmax, t_out, stages)
-    stages = 0
-    if code == 1:
-        stages = ring_stages(smem_of, linear_geometry(d, gcn_conv_n(d))[1],
-                             _two_blocks_budget(lib, dev))
+    lib = _library(kernel)
+    stages = _two_block_stages(kernel, lib, code, geometry, gmax, t_out, dev)
     out = (ctypes.c_int * 2)()
-    rc = lib["occupancy"](code, window, d, vocab, gmax, t_out, stages, dev.index, out)
-    _raise_on(lib, rc, "gcn_local_model occupancy")
-    return dict(smem=smem_of(stages), stages=stages, blocks_per_sm=out[0], clusters=out[1])
+    rc = lib["occupancy"](code, window, *geometry, gmax, t_out, stages, dev.index, out)
+    _raise_on(lib, rc, f"{kernel} occupancy")
+    return dict(smem=lib["smem_bytes"](code, *geometry, gmax, t_out, stages), stages=stages,
+                blocks_per_sm=out[0], clusters=out[1])
 
 
 def gcn_local_model(
@@ -2003,7 +2088,7 @@ pna_local_model.stages = 0
 
 def _launch_dgn(slot_src, h0, eig, inv_deg, eigw_sum, inv_abssum, w_all, b_all,
                 pool_gl, mlp1_w, window, slots, num_layers, gmax,
-                prefix_caps) -> torch.Tensor:
+                prefix_caps, tiles, knockout=0) -> torch.Tensor:
     dt = h0.dtype
     code = _dtype_code(dt)
     dev = h0.device
@@ -2023,7 +2108,14 @@ def _launch_dgn(slot_src, h0, eig, inv_deg, eigw_sum, inv_abssum, w_all, b_all,
     _check("mlp1_w", mlp1_w, dt, (d, t_out), dev)
 
     lib = _library("dgn_local_model")
-    smem = lib["smem_bytes"](window, d, gmax, t_out, slots)
+    _check_tile(lib, d)
+    if code == 1:  # the wgmma posttrans reads the weights as packed chunks
+        tiles = _linear_operand(
+            lib, "posttrans_dims", d, tiles, 2 * d, gcn_conv_n(d), L,
+            lambda: dgn_posttrans_tiles(w_all.view(L, 2 * d, d).transpose(1, 2)), dev)
+    stages = _two_block_stages("dgn_local_model", lib, code, (d,), gmax, t_out, dev)
+    smem = lib["smem_bytes"](code, d, gmax, t_out, stages)
+    _check_ell_geometry(lib, d, window, smem, dev)
     _check_geometry(lib, d, slots, caps, window, smem, dev)
     caps_arr = (ctypes.c_int * len(caps))(*caps)
     out = torch.empty((nw * gmax, t_out), dtype=torch.float32, device=dev)
@@ -2031,12 +2123,15 @@ def _launch_dgn(slot_src, h0, eig, inv_deg, eigw_sum, inv_abssum, w_all, b_all,
         code,
         slot_src.data_ptr(), h0.data_ptr(), eig.data_ptr(), inv_deg.data_ptr(),
         eigw_sum.data_ptr(), inv_abssum.data_ptr(), w_all.data_ptr(),
-        b_all.data_ptr(), pool_gl.data_ptr(), mlp1_w.data_ptr(), out.data_ptr(),
+        b_all.data_ptr(), pool_gl.data_ptr(), mlp1_w.data_ptr(),
+        None if code == 0 else tiles.data_ptr(), out.data_ptr(),
         nw, n, window, d, L, gmax, t_out,
-        caps_arr, slots, dev.index, torch.cuda.current_stream(dev).cuda_stream,
+        caps_arr, slots, stages, int(knockout), dev.index,
+        torch.cuda.current_stream(dev).cuda_stream,
     )
     _raise_on(lib, rc, "dgn_local_model")
     dgn_local_model.launches += 1
+    dgn_local_model.stages = stages
     return out
 
 
@@ -2056,24 +2151,35 @@ def dgn_local_model(
     num_layers: int,
     gmax: int,
     prefix_caps: tuple | None = None,
+    posttrans_tiles: Optional[torch.Tensor] = None,
+    knockout: int = 0,
 ) -> torch.Tensor:
     """DGN whole-model slot megakernel (conv stack + readout MLP-1):
-    [NW·GMAX, T] f32 per-window pool sums. Operands as in
+    [NW·GMAX, T] f32 per-window pool sums, at windows of 128 up to 1024 rows
+    (one thread-block cluster of W/128 blocks per window). Operands as in
     ``dgn_local_model_ref``; a CPU tensor runs the plain version, a CUDA
     tensor launches the kernel (float32 or bfloat16 activations, per-node
-    terms and weights, int32 ``slot_src`` / ``pool_gl``) or raises. Each
-    launch adds one to ``dgn_local_model.launches``."""
+    terms and weights, int32 ``slot_src`` / ``pool_gl``; D at most 112) or
+    raises. In bfloat16 the posttrans runs on the tensor cores (``wgmma``)
+    from ``posttrans_tiles`` as ``dgn_posttrans_tiles`` packs them (packed
+    here, once per weight set, when not given); ``dgn_local_model.stages``
+    records the launch's weight ring (0 in float32). ``knockout`` (timing
+    only, CUDA only): bit 0 skips the posttrans product, bit 1 the channels.
+    Each launch adds one to ``dgn_local_model.launches``."""
     args = (slot_src, h0, eig, inv_deg, eigw_sum, inv_abssum, w_all, b_all,
-            pool_gl, mlp1_w, window, slots, num_layers, gmax, prefix_caps)
+            pool_gl, mlp1_w, window, slots, num_layers, gmax, prefix_caps, posttrans_tiles)
+    if _knocked_out(h0, knockout):
+        return _launch_dgn(*args, knockout=knockout)
     return _dispatch(h0, dgn_local_model_ref, _launch_dgn, args)
 
 
 dgn_local_model.launches = 0
+dgn_local_model.stages = 0
 
 
 def _launch_gat(slot_pstack, h0, skip0, proj_w, skip_w, a_all, pool_gl, pred_hd,
                 window, slots, num_heads, num_layers, gmax,
-                prefix_caps) -> torch.Tensor:
+                prefix_caps, tiles, knockout=0) -> torch.Tensor:
     dt = h0.dtype
     code = _dtype_code(dt)
     dev = h0.device
@@ -2094,7 +2200,15 @@ def _launch_gat(slot_pstack, h0, skip0, proj_w, skip_w, a_all, pool_gl, pred_hd,
     _check("pred_hd", pred_hd, dt, (hd, t_out), dev)
 
     lib = _library("gat_local_model_slots")
-    smem = lib["smem_bytes"](window, hd, nh, gmax, t_out, sw)
+    _check_tile(lib, hd)
+    if code == 1:  # the wgmma glue reads the next layers' weights as packed chunks
+        right_t = lambda w: w.view(L - 1, hd, hd).transpose(1, 2)
+        tiles = _linear_operand(
+            lib, "glue_dims", hd, tiles, hd, 2 * GAT_PITCH, L - 1,
+            lambda: gat_glue_tiles(right_t(proj_w), right_t(skip_w)), dev)
+    stages = _two_block_stages("gat_local_model_slots", lib, code, (hd, nh), gmax, t_out, dev)
+    smem = lib["smem_bytes"](code, hd, nh, gmax, t_out, stages)
+    _check_ell_geometry(lib, hd, window, smem, dev)
     _check_geometry(lib, hd, slots, caps, window, smem, dev)
     caps_arr = (ctypes.c_int * len(caps))(*caps)
     out = torch.empty((nw * gmax, t_out), dtype=torch.float32, device=dev)
@@ -2102,12 +2216,14 @@ def _launch_gat(slot_pstack, h0, skip0, proj_w, skip_w, a_all, pool_gl, pred_hd,
         code,
         slot_pstack.data_ptr(), h0.data_ptr(), skip0.data_ptr(), proj_w.data_ptr(),
         skip_w.data_ptr(), a_all.data_ptr(), pool_gl.data_ptr(),
-        pred_hd.data_ptr(), out.data_ptr(),
+        pred_hd.data_ptr(), None if code == 0 else tiles.data_ptr(), out.data_ptr(),
         nw, n, window, hd, nh, L, gmax, t_out,
-        caps_arr, slots, dev.index, torch.cuda.current_stream(dev).cuda_stream,
+        caps_arr, slots, stages, int(knockout), dev.index,
+        torch.cuda.current_stream(dev).cuda_stream,
     )
     _raise_on(lib, rc, "gat_local_model_slots")
     gat_local_model_slots.launches += 1
+    gat_local_model_slots.stages = stages
     return out
 
 
@@ -2126,18 +2242,30 @@ def gat_local_model_slots(
     num_layers: int,
     gmax: int,
     prefix_caps: tuple | None = None,
+    glue_tiles: Optional[torch.Tensor] = None,
+    knockout: int = 0,
 ) -> torch.Tensor:
     """GAT whole-model slot megakernel: [NW·GMAX, T] f32 per-window pool
-    sums. Operands as in ``gat_local_model_slots_ref``; a CPU tensor runs
-    the plain version, a CUDA tensor launches the kernel (float32 or
-    bfloat16 activations and weights, int32 ``slot_pstack`` / ``pool_gl``)
-    or raises. Each launch adds one to ``gat_local_model_slots.launches``."""
+    sums, at windows of 128 up to 1024 rows (one thread-block cluster of
+    W/128 blocks per window). Operands as in ``gat_local_model_slots_ref``;
+    a CPU tensor runs the plain version, a CUDA tensor launches the kernel
+    (float32 or bfloat16 activations and weights, int32 ``slot_pstack`` /
+    ``pool_gl``; H·D at most 64) or raises. In bfloat16 the glue
+    feat·[proj ‖ skip] runs on the tensor cores (``wgmma``) from
+    ``glue_tiles`` as ``gat_glue_tiles`` packs them (packed here, once per
+    weight set, when not given); ``gat_local_model_slots.stages`` records
+    the launch's weight ring (0 in float32). ``knockout`` (timing only, CUDA
+    only): bit 0 skips the glue's product, bit 1 the messages. Each launch
+    adds one to ``gat_local_model_slots.launches``."""
     args = (slot_pstack, h0, skip0, proj_w, skip_w, a_all, pool_gl, pred_hd,
-            window, slots, num_heads, num_layers, gmax, prefix_caps)
+            window, slots, num_heads, num_layers, gmax, prefix_caps, glue_tiles)
+    if _knocked_out(h0, knockout):
+        return _launch_gat(*args, knockout=knockout)
     return _dispatch(h0, gat_local_model_slots_ref, _launch_gat, args)
 
 
 gat_local_model_slots.launches = 0
+gat_local_model_slots.stages = 0
 
 
 def _launch_pna_stats(slot_src, h, window, slots, min_init, max_init) -> torch.Tensor:

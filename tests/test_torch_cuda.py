@@ -712,14 +712,13 @@ def test_gcn_pna_cuda_kernels_match_plain(kernel, operands, dtype, tol, cuda_dev
 
 @pytest.mark.cuda
 def test_gcn_pna_cuda_kernels_reject_oversized_window(cuda_device):
-    """W=256 at GCN's published width (D=100) does not fit row 2's one
-    block's shared memory, and W=1152 is past what row 3's clusters span
-    (8 blocks of 128 rows, W up to 1024, at PNA's D=80): both wrappers raise
-    before launch."""
+    """W=1152 is past what the clusters of rows 2 and 3 span (8 blocks of
+    128 rows, W up to 1024), at GCN's published width (D=100) and PNA's
+    (D=80): both wrappers raise before launch."""
     rng = np.random.default_rng(0)
     t = lambda *s: torch.from_numpy(rng.normal(0, 0.1, s).astype(np.float32)).to(cuda_device)
     i32 = lambda *s, fill=0: torch.full(s, fill, dtype=torch.int32, device=cuda_device)
-    window, d = 256, 100
+    window, d = 1152, 100
     gcn = dict(
         slot_meta=i32(window, 4, fill=-1), h0=t(window, d), dis=t(window), pool_gl=i32(window),
         ee_tables=t(L * 13, d), roots=t(L, d), alphas=t(L, d), betas=t(L, d),
@@ -733,11 +732,10 @@ def test_gcn_pna_cuda_kernels_reject_oversized_window(cuda_device):
         pool_gl=i32(window), mlp1_w=t(d, 40), window=window, slots=1, num_layers=L,
         gmax=base.POOL_GMAX, min_init=32.0, max_init=-32.0, prefix_caps=(window,),
     )
-    for kernel, ops, match in (("gcn_local_model_slots", gcn, "shared memory"),
-                               ("pna_local_model", pna, "whole blocks of 128 rows")):
+    for kernel, ops in (("gcn_local_model_slots", gcn), ("pna_local_model", pna)):
         fn = getattr(local_layer, kernel)
         before = fn.launches
-        with pytest.raises(ValueError, match=match):
+        with pytest.raises(ValueError, match="whole blocks of 128 rows"):
             fn(**ops)
         assert fn.launches == before
 
@@ -788,7 +786,8 @@ def test_gcn_ell_cuda_kernel_full_width_matches_plain(big, dtype, tol, cuda_devi
     assert expect.abs().max() > 1e-2
     scale = max(1.0, expect.abs().max().item())
     torch.testing.assert_close(got / scale, expect.float() / scale, rtol=tol, atol=tol)
-    occ = local_layer.gcn_occupancy(dtype, ops["window"], 100, 13, base.POOL_GMAX, 1, cuda_device)
+    occ = local_layer.occupancy("gcn_local_model", dtype, ops["window"], (100, 13), base.POOL_GMAX, 1,
+                                cuda_device)
     assert occ["blocks_per_sm"] == (2 if dtype == torch.bfloat16 else 1) and occ["clusters"] > 0
 
 
@@ -831,10 +830,10 @@ def test_rows_3_9_knockouts_launch(kernel, dtype, cuda_device):
 
 @pytest.mark.cuda
 def test_dgn_gat_cuda_kernels_reject_oversized_window(cuda_device):
-    """W=256 at the published widths (DGN D=100, GAT 4 × 16 with 7 full
-    slots) does not fit one block's shared memory: both wrappers raise
-    before launch."""
-    window, n = 256, 256
+    """W=1152 is past what the clusters of rows 4 and 5 span (8 blocks of
+    128 rows, W up to 1024), at the published widths (DGN D=100, GAT 4 × 16
+    with 7 full slots): both wrappers raise before launch."""
+    window, n = 1152, 1152
     rng = np.random.default_rng(0)
     t = lambda *s: torch.from_numpy(rng.normal(0, 0.1, s).astype(np.float32)).to(cuda_device)
     i32 = lambda *s, fill=0: torch.full(s, fill, dtype=torch.int32, device=cuda_device)
@@ -855,7 +854,7 @@ def test_dgn_gat_cuda_kernels_reject_oversized_window(cuda_device):
     for kernel, ops in (("dgn_local_model", dgn), ("gat_local_model_slots", gat)):
         fn = getattr(local_layer, kernel)
         before = fn.launches
-        with pytest.raises(ValueError, match="shared memory"):
+        with pytest.raises(ValueError, match="whole blocks of 128 rows"):
             fn(**ops)
         assert fn.launches == before
 
@@ -869,6 +868,100 @@ def test_gat_cuda_kernel_overflowing_non_edge_stays_finite(cuda_device):
     torch.cuda.synchronize()
     assert bool(hot.isfinite().all())
     torch.testing.assert_close(hot, cold, rtol=1e-6, atol=1e-6)
+
+
+# Rows 2, 4 and 5 at every window their clusters take: (the largest graph's
+# nodes, the window), clusters of 1, 2, 4 and 8 blocks of 128 rows.
+CLUSTER_WINDOWS = ((120, 128), (250, 256), (400, 512), (900, 1024))
+CLUSTER_KERNELS = {"gcn": "gcn_local_model_slots", "dgn": "dgn_local_model",
+                   "gat": "gat_local_model_slots"}
+# Each kernel's occupancy geometry at the models' published widths.
+CLUSTER_GEOMETRY = {"gcn": (100, 13), "dgn": (100,), "gat": (64, 4)}
+
+
+def _slot_batch_at(name: str, big: int, window: int, seed: int) -> dict:
+    """Slot layout (numpy) of 6 synthetic graphs and one of ``big`` nodes
+    for model ``name`` at ``window``, with no spill tail."""
+    spec = registry.get(name)
+    rng = np.random.default_rng(seed)
+    graphs = registry.apply_transforms(
+        spec, synthetic_molhiv(6, seed=seed) + [random_molecule_graph(rng, num_nodes=big)])
+    packed = pack_graphs_aligned(graphs, window=window, node_capacity=4 * window - 1,
+                                 edge_capacity=8192, graph_capacity=16,
+                                 with_eigen=spec.needs_eigen)
+    batch = base.as_batch(packed, blocked="local_slots", window=window)
+    assert "slot_meta" in batch and batch["slot_geom"].shape[0] == window  # no spill
+    return batch
+
+
+def _model_slot_operands(name: str, big: int, window: int, dtype, device, seed: int = 31) -> dict:
+    """The whole-model slot kernel's operands as the model's forward hands
+    them over (``slot_kernel_operands``: the layout's own degree and
+    eigenvector terms, the bf16 weight chunks), at the published widths with
+    seeded synthetic weights, on ``device``."""
+    from flowgnn_tpu_torch.core.numerics import BF16, FLOAT32
+    from flowgnn_tpu_torch.models import dgn, gat, gcn
+    from flowgnn_tpu_torch.params import loaders
+
+    prec = BF16 if dtype == torch.bfloat16 else FLOAT32
+    make = {"gcn": loaders.synthetic_gcn_params, "dgn": loaders.synthetic_dgn_params,
+            "gat": loaders.synthetic_gat_params}[name]
+    params = loaders.params_from_numpy(make(seed), prec, device)
+    batch = base.to_device(_slot_batch_at(name, big, window, seed), device)
+    model = {"gcn": gcn, "dgn": dgn, "gat": gat}[name]
+    return model.slot_kernel_operands(params, batch, prec)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(CLUSTER_KERNELS), ids=["row2", "row4", "row5"])
+@pytest.mark.parametrize("big,window", CLUSTER_WINDOWS,
+                         ids=[f"W{w}" for _, w in CLUSTER_WINDOWS])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 5e-2)],
+                         ids=["f32", "bf16"])
+def test_rows_2_4_5_cuda_kernels_windows_match_plain(name, big, window, dtype, tol, cuda_device):
+    """Rows 2 (GCN), 4 (DGN) and 5 (GAT) at W = 128, 256, 512 and 1024 (one
+    cluster of W/128 blocks per window, the large graph's sources read
+    across all of them), at the models' published widths: bf16 through the
+    wgmma product with a weight ring of at least two chunks and two blocks
+    an SM, f32 through FMA; tolerances as in
+    ``test_ell_cuda_kernels_match_plain``, of the output's scale (the pools
+    of a graph that spans blocks sum in another order)."""
+    kernel = CLUSTER_KERNELS[name]
+    fn = getattr(local_layer, kernel)
+    ops = _model_slot_operands(name, big, window, dtype, cuda_device)
+    assert ops["window"] == window
+    before = fn.launches
+    got = fn(**ops)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 1
+    assert fn.stages >= 2 if dtype == torch.bfloat16 else fn.stages == 0
+    expect = getattr(local_layer, f"{kernel}_ref")(**ops)
+    assert expect.abs().max() > 1e-2
+    scale = max(1.0, expect.abs().max().item())
+    torch.testing.assert_close(got / scale, expect.float() / scale, rtol=tol, atol=tol)
+    occ = local_layer.occupancy(kernel, dtype, window, CLUSTER_GEOMETRY[name], base.POOL_GMAX,
+                                ops["pred_w" if name == "gcn" else "mlp1_w" if name == "dgn"
+                                    else "pred_hd"].shape[1], cuda_device)
+    assert occ["blocks_per_sm"] == (2 if dtype == torch.bfloat16 else 1) and occ["clusters"] > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(CLUSTER_KERNELS), ids=["row2", "row4", "row5"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_rows_2_4_5_knockouts_launch(name, dtype, cuda_device):
+    """The phase split's knockouts of rows 2, 4 and 5 (bit 0: the product,
+    bit 1: the messages or channels) launch at W=512 and leave a finite
+    output; the whole kernel is unchanged by having run them. On a CPU
+    tensor a knockout raises."""
+    fn = getattr(local_layer, CLUSTER_KERNELS[name])
+    ops = _model_slot_operands(name, 400, 512, dtype, cuda_device)
+    full = fn(**ops)
+    for knockout in (1, 2, 3):
+        assert bool(fn(**ops, knockout=knockout).isfinite().all())
+    torch.cuda.synchronize()
+    assert torch.equal(fn(**ops), full)
+    with pytest.raises(ValueError, match="knockout"):
+        fn(**{k: v.cpu() if torch.is_tensor(v) else v for k, v in ops.items()}, knockout=1)
 
 
 @pytest.mark.cuda

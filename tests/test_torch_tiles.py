@@ -2,9 +2,10 @@
 and its users: row 26's B (``bench.matmul_shapes``), the bf16 GIN MLP's
 weight chunks of rows 1, 8 and 13 (``ops.local_layer.gin_mlp_tiles``), with
 the streamed ring that feeds them and the act operand they multiply, and the
-one-product weight chunks of rows 9 and 3 (``ops.local_layer.linear_tiles``:
-GCN's next conv, PNA's tower), with their ring and the x and stats operands
-they multiply.
+one-product weight chunks of rows 9, 2, 3, 4 and 5
+(``ops.local_layer.linear_tiles``: GCN's next conv, PNA's tower, DGN's
+posttrans, GAT's glue), with their ring and the x, stats, channel and feat
+operands they multiply.
 
 Besides the round trip and the zero pad, each packed tile is read back the
 way the kernels' shared-memory descriptors address it (``csrc/hopper.cuh``:
@@ -253,7 +254,9 @@ def test_gin_mlp_ring_never_waits_on_itself(chunks):
 
 # Rows 9 and 3 (``csrc/linear_wgmma.cuh``): (kernel, D, the product's K, N).
 LINEAR_CASES = [("gcn", 100, 100, 104), ("gcn", 32, 32, 104), ("gcn", 112, 112, 112),
-                ("pna", 80, 320, 240), ("pna", 32, 128, 240)]
+                ("pna", 80, 320, 240), ("pna", 32, 128, 240),
+                ("dgn", 100, 200, 104), ("dgn", 32, 64, 104), ("dgn", 112, 224, 112),
+                ("gat", 64, 64, 128), ("gat", 32, 32, 128), ("gat", 16, 16, 128)]
 LINEAR_IDS = [f"{k}-D{d}" for k, d, _, _ in LINEAR_CASES]
 
 
@@ -261,12 +264,29 @@ def _linear_weights(kind: str, d: int, layers: int, seed: int):
     """(the packed chunks, each layer's Bᵀ [N, K'] zero-padded) of seeded
     bf16 weights: GCN's next convs [L, out, in] (``gcn_conv_tiles``), PNA's
     towers [L, scaler, out, 4D] (``pna_tower_tiles``, scaler p's outputs at
-    rows 80p..80p+D−1 of Bᵀ)."""
+    rows 80p..80p+D−1 of Bᵀ), DGN's posttrans [L, out, 2D]
+    (``dgn_posttrans_tiles``), GAT's glue [L, out, H·D] twice
+    (``gat_glue_tiles``: proj's outputs at rows 0.., skip's at 64..)."""
     if kind == "gcn":
         w = _draw((layers, d, d), torch.bfloat16, seed)
         tiles = local_layer.gcn_conv_tiles(w)
         n, k = local_layer.gcn_conv_n(d), d
         bt = [w[l] for l in range(layers)]
+    elif kind == "dgn":
+        w = _draw((layers, d, 2 * d), torch.bfloat16, seed)
+        tiles = local_layer.dgn_posttrans_tiles(w)
+        n, k = local_layer.gcn_conv_n(d), 2 * d
+        bt = [w[l] for l in range(layers)]
+    elif kind == "gat":
+        proj = _draw((layers, d, d), torch.bfloat16, seed)
+        skip = _draw((layers, d, d), torch.bfloat16, seed + 1)
+        tiles = local_layer.gat_glue_tiles(proj, skip)
+        n, k = 2 * local_layer.GAT_PITCH, d
+        bt = []
+        for l in range(layers):
+            b = torch.zeros(n, k, dtype=torch.bfloat16)
+            b[:d], b[local_layer.GAT_PITCH : local_layer.GAT_PITCH + d] = proj[l], skip[l]
+            bt.append(b)
     else:
         w = _draw((layers, 3, d, 4 * d), torch.bfloat16, seed)
         tiles = local_layer.pna_tower_tiles(w)
@@ -357,8 +377,35 @@ def test_model_tiles_equal_the_wrappers_own_packing():
     assert pna.tower_tiles(p, FLOAT32) is None
 
 
-@pytest.mark.parametrize("kind,d,layers", [("gcn", 100, 4), ("pna", 80, 4), ("pna", 32, 2)],
-                         ids=["row9-D100", "row3-D80", "row3-D32"])
+def test_dgn_gat_model_tiles_equal_the_wrappers_own_packing():
+    """What the models hand rows 4 and 5 (``dgn.posttrans_tiles`` from
+    ``posttrans_w``, ``gat.glue_tiles`` from ``proj_w[1:]`` and
+    ``skip_w[1:]``) is what the wrappers pack from the operands they check
+    (``w_all``; ``proj_w`` and ``skip_w`` right-multiplied) when no chunks
+    are given; f32 hands none."""
+    from flowgnn_tpu_torch.core.numerics import BF16, FLOAT32
+    from flowgnn_tpu_torch.models import dgn, gat
+    from flowgnn_tpu_torch.params import loaders
+
+    p = loaders.params_from_numpy(loaders.synthetic_dgn_params(3, dim=36, layers=3), BF16, "cpu")
+    L, d = p["posttrans_w"].shape[:2]
+    w_all = p["posttrans_w"].reshape(L, d, 2 * d).transpose(1, 2).reshape(L * 2 * d, d)
+    assert torch.equal(dgn.posttrans_tiles(p, BF16), local_layer.dgn_posttrans_tiles(
+        w_all.contiguous().view(L, 2 * d, d).transpose(1, 2)))
+    assert dgn.posttrans_tiles(p, FLOAT32) is None
+    p = loaders.params_from_numpy(loaders.synthetic_gat_params(3, dim=16, heads=3, layers=3),
+                                  BF16, "cpu")
+    hd = 48
+    right = lambda w: w.reshape(-1, hd, hd).transpose(1, 2).reshape(-1, hd).contiguous()
+    right_t = lambda w: w.view(2, hd, hd).transpose(1, 2)
+    assert torch.equal(gat.glue_tiles(p, BF16), local_layer.gat_glue_tiles(
+        right_t(right(p["proj_w"][1:])), right_t(right(p["skip_w"][1:]))))
+    assert gat.glue_tiles(p, FLOAT32) is None
+
+
+@pytest.mark.parametrize("kind,d,layers", [("gcn", 100, 4), ("pna", 80, 4), ("pna", 32, 2),
+                                           ("dgn", 100, 4), ("gat", 64, 4)],
+                         ids=["row9-D100", "row3-D80", "row3-D32", "row4-D100", "row5-HD64"])
 @pytest.mark.parametrize("stages", [2, 3, 4, 6, 10])
 def test_linear_ring_streams_each_chunk_as_the_kernel_reads_it(kind, d, layers, stages):
     """The ring of rows 9 and 3 (``gin_mlp.cuh``'s ``Ring``, driven by
@@ -368,7 +415,9 @@ def test_linear_ring_streams_each_chunk_as_the_kernel_reads_it(kind, d, layers, 
     L − 1 next convs, 4 chunks each at D = 100; row 3: the L towers, 10 at
     D = 80, 4 at D = 32): no buffer is refilled before its chunk was used,
     each use finds its chunk in buffer i % S in phase i // S, and the chunk
-    read back from the buffer is that layer's B."""
+    read back from the buffer is that layer's B. Row 2 runs row 9's ring;
+    row 4's posttrans streams 7 chunks a layer at D = 100, row 5's glue the
+    L − 1 next layers' 2 chunks at H·D = 64."""
     tiles, padded = _linear_weights(kind, d, layers, seed=3)
     n = padded[0].shape[0]
     chunks, elems = tiles.shape[1:]
@@ -394,14 +443,16 @@ def test_linear_ring_streams_each_chunk_as_the_kernel_reads_it(kind, d, layers, 
 
 @pytest.mark.parametrize("kind,d,k,n", LINEAR_CASES, ids=LINEAR_IDS)
 def test_linear_a_operands_as_the_kernel_reads_them(kind, d, k, n):
-    """The A operands of rows 9 and 3 in the A layout [K'/8][128][8]: row 9's
-    x written as bf16 pairs (columns c, c + 1 of an even c adjacent, one
-    4-byte store), row 3's stats element by element at column part·D + c of
-    [mean | min | max | std]; warpgroup wg's K step ks read through the
-    descriptor at byte (2ks·128 + 64wg)·16 with LBO = 128·16 and SBO = 128
-    is rows 64wg..64wg+63 and columns 16ks..16ks+15, the pad columns zero.
-    And row 3's epilogue finds scaler p's output for column c in accumulator
-    4j + e + 40p of the thread that holds column c (j = c // 8)."""
+    """The A operands of rows 9, 3, 4 and 5 in the A layout [K'/8][128][8]:
+    row 9's x written as bf16 pairs (columns c, c + 1 of an even c adjacent,
+    one 4-byte store), row 3's stats, row 4's channels and row 5's feat
+    element by element at column part·D + c of [mean | min | max | std],
+    [a1 | a2] or feat; warpgroup wg's K step ks read through the descriptor
+    at byte (2ks·128 + 64wg)·16 with LBO = 128·16 and SBO = 128 is rows
+    64wg..64wg+63 and columns 16ks..16ks+15, the pad columns zero. And row
+    3's epilogue finds scaler p's output for column c in accumulator 4j + e
+    + 40p of the thread that holds column c (j = c // 8), row 5's finds
+    skip's in accumulator 4j + e + 32."""
     kp = local_layer.linear_geometry(k, n)[0]
     a_index = lambda r, c: ((c >> 3) * 128 + r) * 8 + (c & 7)
     vals = _draw((128, k), torch.bfloat16, seed=k)
@@ -413,7 +464,7 @@ def test_linear_a_operands_as_the_kernel_reads_them(kind, d, k, n):
                 assert at % 2 == 0 and a_index(r, c + 1) == at + 1
                 flat[at], flat[at + 1] = vals[r, c], vals[r, c + 1]
         else:
-            for part in range(4):
+            for part in range(k // d):
                 for c in range(d):
                     flat[a_index(r, part * d + c)] = vals[r, part * d + c]
     padded = torch.zeros(128, kp, dtype=torch.bfloat16)
@@ -431,3 +482,10 @@ def test_linear_a_operands_as_the_kernel_reads_them(kind, d, k, n):
                     for p in range(3):
                         assert col(t, j + 10 * p, e) == col(t, j, e) + 80 * p
                         assert 4 * (j + 10 * p) + e == 4 * j + e + 40 * p
+    if kind == "gat":
+        col = lambda t, j, e: 8 * j + 2 * (t % 4) + (e & 1)
+        for t in range(256):
+            for j in range(local_layer.GAT_PITCH // 8):
+                for e in range(4):
+                    assert col(t, j + 8, e) == col(t, j, e) + local_layer.GAT_PITCH
+                    assert 4 * (j + 8) + e == 4 * j + e + 32
