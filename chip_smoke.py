@@ -5,8 +5,9 @@
     python3 chip_smoke.py --profile --paths "gin hep10k,gin-vn hep10k"  # some of them
 
 ``--profile`` runs no phase: it builds the hep10k W=128 streams of PNA, DGN
-and GAT (slot spill tail), their hep10k slot streams at W=512 and GCN's
-hep10k ELL stream at W=512 beside them, and the hep10k W=128 streams of GIN,
+and GAT (slot spill tail), their hep10k slot streams at W=512 (PNA's and
+DGN's also run with intermediates: rows 20 and 22) and GCN's hep10k ELL
+stream at W=512 beside them, and the hep10k W=128 streams of GIN,
 GIN-VN, GCN, DGN and GAT (ELL spill tail; GAT also with its fused layer),
 GIN's molhiv edge-block (plain and fused) and legacy local streams and
 PNA's molhiv edge-block stream beside the plain edge-list batches of the
@@ -26,16 +27,19 @@ Phases, each of which raises (non-zero exit) on failure:
 2. the twenty-four hand-written kernels built from the twenty-two sources of
    ``flowgnn_tpu_torch/csrc`` (rows 16 and 18 share one, rows 10 and 12 are
    one kernel, rows 27-30 one) and their headers (``hopper.cuh`` holds the
-   wgmma, mbarrier and bulk-copy blocks of rows 1-5, 8, 9, 13 and 26,
-   ``gin_mlp.cuh`` the bf16 GIN MLP of rows 1, 8 and 13, ``gin_model.cuh``
-   the whole-model GIN kernel of rows 1 and 8, ``gcn_model.cuh`` the GCN one
-   of rows 2 and 9, ``lanes.cuh`` their two lane walks,
-   ``linear_wgmma.cuh`` the bf16 product of rows 2-5 and 9), one ``nvcc``
-   per source, all started together (build time and each compiler's
-   register / shared-memory report); each library's count of tensor-core
-   (HGMMA, HMMA, IMMA), bulk-copy / TMA (UBLKCP, UTMALDG) and FFMA
-   instructions in its SASS (``cuobjdump -sass``), rows 1-5, 8, 9, 13 and
-   26 required to hold HGMMA and a bulk copy (row 26: or a TMA load);
+   wgmma, mbarrier and bulk-copy blocks of rows 1-5, 8, 9, 13, 20, 22 and
+   26, ``gin_mlp.cuh`` the bf16 GIN MLP of rows 1, 8 and 13,
+   ``gin_model.cuh`` the whole-model GIN kernel of rows 1 and 8,
+   ``gcn_model.cuh`` the GCN one of rows 2 and 9, ``pna_model.cuh`` the PNA
+   one of rows 3 and 20 (whole model, one layer), ``dgn_model.cuh`` the DGN
+   one of rows 4 and 22, ``lanes.cuh`` GCN's two lane walks,
+   ``linear_wgmma.cuh`` the bf16 product of rows 2-5, 9, 20 and 22), one
+   ``nvcc`` per source, all started together (build time and each
+   compiler's register / shared-memory report); each library's count of
+   tensor-core (HGMMA, HMMA, IMMA), bulk-copy / TMA (UBLKCP, UTMALDG) and
+   FFMA instructions in its SASS (``cuobjdump -sass``), rows 1-5, 8, 9, 13,
+   20, 22 and 26 required to hold HGMMA and a bulk copy (row 26: or a TMA
+   load);
 3. each slot kernel against its plain torch version on the card, at the
    main path's shapes (a real bucket's slot layout at full width: GIN D=100,
    H=200, L=5, with and without the analytic-VN column; GCN D=100, L=5;
@@ -78,7 +82,18 @@ Phases, each of which raises (non-zero exit) on failure:
    row 20 on a PNA molhiv slot bucket, row 18 on a DGN molhiv ELL bucket
    (W=128, block 512), rows 16 and 24 on the DGN hep10k W=128 ELL bucket with
    the longest spill tail, row 17 on a GAT molhiv ELL bucket and on the GAT
-   hep10k W=128 ELL bucket with the longest tail (with row 24);
+   hep10k W=128 ELL bucket with the longest tail (with row 24); then rows
+   20 and 22 (the one-layer forms of rows 3 and 4, on clusters of W/128
+   blocks) on layer 0's operands at W=128 (molhiv bucket 0), W=256 (a
+   synthetic bucket of 250-node graphs), W=512 (the hep10k slot bucket
+   holding the largest graph) and W=1024 (a synthetic bucket of 900-node
+   graphs), f32 and bf16, row 22 with and without a seeded ``m_spill``,
+   printing the bf16 launch's weight ring and what the occupancy calculator
+   says of both rows' forms at W=128 and W=512; and DGN over a W=256 bucket
+   whose hub nodes have an in-window in-degree of 12 (past the 8 slots), so
+   that it spills: row 22 and row 24 on its layer 0 against their plain
+   versions, and ``dgn.forward`` over it, counted (row 22 and row 24 once a
+   layer) and checked against the plain edge-list path as in phase 4;
 3f. rows 10 (``gin_local_layer``), 12 (``gin_local_layer_ell_lanes``) and 25
    (``gin_layer_fused``) on layer 0's operands of a GIN molhiv bucket in the
    legacy local, ELL and edge-block layout, row 23 (``gat_local_layer_ell``)
@@ -120,7 +135,11 @@ Phases, each of which raises (non-zero exit) on failure:
    of real nodes);
 4e. PNA over the molhiv slot stream with ``return_intermediates``: per
    layer row 20, every intermediate checked (the slot layout's rows mapped
-   back to the plain batch's); DGN and GAT over the molhiv ELL stream at
+   back to the plain batch's); PNA and DGN over the hep10k slot stream at
+   W=512 with ``return_intermediates``: per layer and bucket row 20 or row
+   22 and no other kernel, every intermediate checked, and their f32
+   predictions graph by graph against the whole-model W=512 path's of
+   phase 4b (rows 3 and 4) at 1e-4; DGN and GAT over the molhiv ELL stream at
    W=128 / block 512: per layer row 18 or row 17, and their predictions
    against the slot path's too (f32 1e-4); DGN and GAT over the hep10k
    sample in ``local_ell`` at W=128 / block 512 with the ELL spill tail: per
@@ -152,11 +171,11 @@ Phases, each of which raises (non-zero exit) on failure:
 5d. the same for the paths of phase 4e;
 5e. the same for the paths of phase 4f; the windowed scatter on the
    edge-block layout beside ``index_add_`` of the same values;
-5f. rows 8, 1, 13, 9, 3, 2, 4 and 5 alone on their cells (``TURN_CELLS``),
+5f. rows 8, 1, 13, 9, 3, 2, 4, 5, 20 and 22 alone on their cells (``TURN_CELLS``),
    each kernel's bf16 form (its product on wgmma) and its f32 form (FMA) in
    turns: bf16, f32, f32, bf16; launches, ms per stream, bound and share of
    the bound;
-5g. rows 9, 3, 4 and 5 by stage on their cells (``SPLIT_CELLS``), bf16 and
+5g. rows 9, 3, 4, 5, 20 and 22 by stage on their cells (``SPLIT_CELLS``), bf16 and
    f32: each kernel alone whole and with its product, its messages, stats
    or channels, or both knocked out (the wrappers' ``knockout``, which only
    this phase passes), and the share of each;
@@ -210,6 +229,11 @@ HEP_SLOTS = "local_slots W=512"  # the hep10k slot stream at HEP_SLOT_WINDOW
 # slot stream run with return_intermediates (PNA's row 20).
 ELL_LAYER, ELL_INTER = "local_ell W=128", "local_ell intermediates"
 SLOT_INTER = "local_slots intermediates"
+# The hep10k slot stream at W=512 run with return_intermediates: PNA's row 20
+# and DGN's row 22 once per layer and bucket, where rows 3 and 4 run once per
+# bucket without intermediates.
+HEP_SLOT_INTER = "local_slots W=512 intermediates"
+HEP_INTER_MODELS = ("pna", "dgn")
 # The edge-block layout (as_batch(blocked=True), unaligned packing), the
 # same with GIN's fused layer, the legacy local layout, GIN's ELL stream
 # driven layer by layer with per-lane bond embeddings (row 12), and GAT's
@@ -251,8 +275,15 @@ SCATTER = "windowed_segment_sum"  # the spill tail's, beside every per-layer ker
 # m2 = Σ eig_u·h_u − eig_v·Σ h_u, which cancels, and |m2 − ews·h|·inva
 # multiplies the residual by up to 8192. In bf16 their gate also takes 1.5×
 # what the path needs with every kernel replaced by its plain version, and
-# the kernel path is held to that path at 5e-2 (``run_main_path``).
-KERNEL_ROUNDING = {("dgn", "molhiv", ELL), ("dgn", "hep10k", ELL_LAYER)}
+# the kernel path is held to that path at 5e-2 (``run_main_path``). So is
+# DGN's per-layer slot path with intermediates on hep10k at W=512: row 22
+# rounds the two channels to bf16 (its m2 the factored one in f32), the plain
+# path each lane's (eig_u − eig_v)·h_u and its bf16 sums, and a few entries
+# of each layer's h, whose |m2 − ews·h| cancels and is multiplied by up to
+# 8192, land apart on the two; there every intermediate's gate takes 1.5×
+# what the path with its kernels' plain versions needs.
+KERNEL_ROUNDING = {("dgn", "molhiv", ELL), ("dgn", "hep10k", ELL_LAYER),
+                   ("dgn", "hep10k", HEP_SLOT_INTER)}
 PROFILE_PASSES = 3  # traced passes per path (--profile)
 PER_LAYER = {"pna_local_stats_ell", "dgn_local_layer_slots", "gat_local_message_slots", SCATTER,
              "gin_local_layer_ell", "gcn_local_message_ell", "gcn_local_layer_ell",
@@ -347,7 +378,9 @@ SASS_NEEDS = {"chained_matmul": ("HGMMA", "UBLKCP|UTMALDG"),
               **{k: ("HGMMA", "UBLKCP") for k in ("gin_local_model", "gin_local_model_slots",
                                                   "gin_local_layer_ell", "gcn_local_model",
                                                   "gcn_local_model_slots", "pna_local_model",
-                                                  "dgn_local_model", "gat_local_model_slots")}}
+                                                  "dgn_local_model", "gat_local_model_slots",
+                                                  "pna_local_layer_slots",
+                                                  "dgn_local_layer_slots")}}
 SASS_OPS = ("HGMMA", "UBLKCP", "UTMALDG", "HMMA", "IMMA", "FFMA")
 # Phase 3: the (D, H) at which the tensor-core GIN kernels (rows 1, 8, 13)
 # are held to their plain versions: H' and D' padded, the models' own, and
@@ -366,13 +399,17 @@ TURN_CELLS = {
     "pna_local_model": [("pna", "molhiv", SLOTS), ("pna", "hep10k", HEP_SLOTS)],
     **{MODEL_KERNELS[name][0]: [(name, "molhiv", SLOTS), (name, "hep10k", HEP_SLOTS)]
        for name in ("gcn", "dgn", "gat")},
+    # Rows 20 and 22 on their record cells and on the hep10k W=512 stream.
+    "pna_local_layer": [("pna", "molhiv", SLOT_INTER), ("pna", "hep10k", HEP_SLOT_INTER)],
+    "dgn_local_layer_slots": [("dgn", "hep10k", SLOTS), ("dgn", "hep10k", HEP_SLOT_INTER)],
 }
 # Phase 5g: the kernels split by stage, on these cells: each timed whole and
 # with its product (bit 0), its messages, stats or channels (bit 1), or both
 # knocked out.
 SPLIT_CELLS = {"gcn_local_model": [("gcn", "hep10k", ELL), ("gcn", "molhiv", ELL)],
                **{MODEL_KERNELS[name][0]: [(name, "molhiv", SLOTS), (name, "hep10k", HEP_SLOTS)]
-                  for name in ("pna", "dgn", "gat")}}
+                  for name in ("pna", "dgn", "gat")},
+               **{k: TURN_CELLS[k] for k in ("pna_local_layer", "dgn_local_layer_slots")}}
 # Phase 3: the cluster slot kernels' windows beside molhiv's W=128 (rows 2,
 # 3, 4 and 5): a synthetic bucket of 250-node graphs (W=256) and the hep10k
 # slot bucket with the largest graph (W=512).
@@ -381,7 +418,15 @@ CLUSTER_MODELS = ("gcn", "pna", "dgn", "gat")
 # Phase 3: each two-blocks-an-SM kernel's occupancy geometry at the models'
 # widths (``local_layer.occupancy``): GCN (D, vocab), DGN (D,), GAT (H·D, heads).
 OCCUPANCY = {"gcn_local_model": (100, 13), "gcn_local_model_slots": (100, 13),
-             "dgn_local_model": (100,), "gat_local_model_slots": (64, 4)}
+             "dgn_local_model": (100,), "gat_local_model_slots": (64, 4),
+             "pna_local_layer_slots": (80,), "dgn_local_layer_slots": (100,)}
+# Phase 3e: rows 20 and 22 at every window their clusters take, beside
+# molhiv's W=128 and the hep10k bucket's W=512: (the large graphs' nodes,
+# the window) of the synthetic buckets.
+LAYER_WINDOWS = ((250, 256), (900, 1024))
+# Phase 3e: DGN's spilling W=256 bucket, its hub nodes' in-window in-degree
+# past the 8 slots.
+HUB_DEGREE = 12
 
 
 def cuobjdump_path() -> str:
@@ -490,9 +535,9 @@ def num_layers(name: str) -> int:
 
 def forward_kw(key: tuple) -> dict:
     """The forward's keyword arguments on a path: intermediates on ELL_INTER,
-    SLOT_INTER and ELL_EE (whose layer loop returns them), GIN's fused layer on
-    FUSED, GAT's on ELL_FUSED and ELL_LAYER_FUSED."""
-    if key[2] in (ELL_INTER, SLOT_INTER, ELL_EE):
+    SLOT_INTER, HEP_SLOT_INTER and ELL_EE (whose layer loop returns them),
+    GIN's fused layer on FUSED, GAT's on ELL_FUSED and ELL_LAYER_FUSED."""
+    if key[2] in (ELL_INTER, SLOT_INTER, HEP_SLOT_INTER, ELL_EE):
         return dict(return_intermediates=True)
     if key[2] == FUSED:
         return dict(fused=True)
@@ -687,28 +732,65 @@ def big_local_stream(name: str, device) -> tuple:
             [base.to_device(base.as_batch(packed), device)])
 
 
-def big_graph_bucket(name: str, big: int, device, layout=ELL) -> dict:
-    """One ELL (or slot) bucket of 200 molhiv-shaped graphs and four of
-    ``big`` nodes at the window ``choose_geometry`` gives them, on
-    ``device``."""
+def big_graph_stream(name: str, big: int, device, layout=ELL, window: int | None = None,
+                     hub: int = 0) -> tuple:
+    """A one-bucket stream of 200 molhiv-shaped graphs and four of ``big``
+    nodes (with ``hub``, each large graph's first three nodes bonded to
+    ``hub`` more nodes, so that their in-window in-degree passes the 8 slots
+    and the extra edges ride the spill tail) in ``layout``, at ``window`` or
+    the window ``choose_geometry`` gives them: (packed buckets, batches,
+    plain batches) as ``make_stream`` gives them, on ``device``. A slot
+    bucket spills exactly when ``hub`` is set."""
     import numpy as np
 
     from flowgnn_tpu_torch.core.graphs import pack_graphs_aligned
     from flowgnn_tpu_torch.core.synthetic import random_molecule_graph, synthetic_dataset
     from flowgnn_tpu_torch.models import base, registry
 
-    rng = np.random.default_rng(SEED + big)
-    graphs = registry.apply_transforms(registry.get(name), (
-        synthetic_dataset("molhiv", seed=SEED, num_graphs=200)
-        + [random_molecule_graph(rng, num_nodes=big) for _ in range(4)]
-    ))
-    window, block = base.choose_geometry(name, max(g.num_nodes for g in graphs))
-    packed = pack_graphs_aligned(graphs, node_capacity=8191, edge_capacity=32768,
-                                 graph_capacity=256, window=window,
-                                 with_eigen=registry.get(name).needs_eigen)
+    rng = np.random.default_rng(SEED + big + hub)
+    bigs = [random_molecule_graph(rng, num_nodes=big) for _ in range(4)]
+    if hub:
+        bigs = [with_hubs(g, hub, rng) for g in bigs]
+    spec = registry.get(name)
+    graphs = registry.apply_transforms(
+        spec, synthetic_dataset("molhiv", seed=SEED, num_graphs=200) + bigs)
+    block = None  # the ELL block: choose_geometry's, scaled to its window
+    if window is None:
+        window, block = base.choose_geometry(name, max(g.num_nodes for g in graphs))
+    packed = pack_graphs_aligned(graphs, node_capacity=max(8191, 16 * window - 1),
+                                 edge_capacity=32768, graph_capacity=256, window=window,
+                                 with_eigen=spec.needs_eigen)
     batch = base.as_batch(packed, blocked=layout, window=window, block=block)
-    check(layout != SLOTS or "slot_meta" in batch, f"{name}: the W={window} slot bucket spills")
-    return base.to_device(batch, device)
+    check(layout != SLOTS or ("slot_meta" in batch) != bool(hub),
+          f"{name}: the W={window} slot bucket {'does not spill' if hub else 'spills'}")
+    return ([packed], [base.to_device(batch, device)],
+            [base.to_device(base.as_batch(packed), device)])
+
+
+def big_graph_bucket(name: str, big: int, device, layout=ELL) -> dict:
+    """``big_graph_stream``'s bucket at the window ``choose_geometry`` gives
+    it."""
+    return big_graph_stream(name, big, device, layout)[1][0]
+
+
+def with_hubs(g, degree: int, rng):
+    """``g`` with its first three nodes each bonded to ``degree`` more of its
+    nodes (both directions, random bond attributes): an in-degree past the
+    slot layout's 8 slots."""
+    import numpy as np
+
+    from flowgnn_tpu_torch.core.features import BOND_FEATURE_DIMS
+    from flowgnn_tpu_torch.core.graphs import Graph
+
+    have = set(map(tuple, g.edge_index.tolist()))
+    new = []
+    for hub in range(3):
+        free = [v for v in range(3, g.num_nodes) if (hub, v) not in have]
+        for v in rng.choice(free, degree, replace=False):
+            new += [(hub, int(v)), (int(v), hub)]
+    attr = np.stack([rng.integers(0, d, len(new) // 2) for d in BOND_FEATURE_DIMS], axis=1)
+    return Graph(g.node_feat, np.concatenate([g.edge_index, np.asarray(new, np.int32)]),
+                 np.concatenate([g.edge_attr, np.repeat(attr.astype(np.int32), 2, axis=0)]))
 
 
 def gin_random_operands(batch: dict, vn: bool, dtype, device, seed: int, d: int = 100,
@@ -1015,6 +1097,65 @@ def check_new_layer_kernels(streams: dict, device, max_err: dict) -> None:
     ], device, max_err)
 
 
+def check_layer_windows(streams: dict, device, max_err: dict) -> None:
+    """Phase 3e, rows 20 and 22 (the one-layer forms of rows 3 and 4) at
+    every window their clusters take: layer 0's operands (seeded synthetic
+    weights, the bucket's own degree and eigenvector terms) at W=128 (molhiv
+    bucket 0), W=256 and W=1024 (synthetic buckets, ``LAYER_WINDOWS``) and
+    W=512 (the hep10k slot bucket holding the largest graph), f32 (1e-4) and
+    bf16 (5e-2), row 22 also with a seeded ``m_spill``; then what the
+    occupancy calculator says of both rows; then DGN's spilling W=256
+    bucket (``check_hub_spill``)."""
+    import numpy as np
+    import torch
+
+    from flowgnn_tpu_torch.core.numerics import BF16, FLOAT32
+    from flowgnn_tpu_torch.params.loaders import params_from_numpy
+
+    for name in HEP_INTER_MODELS:
+        kname = MODEL_KERNELS[name][3]
+        hep, big, i = largest_bucket(streams, (name, "hep10k", HEP_SLOTS))
+        cases = [(streams[name, "molhiv", SLOTS][1][0], "W=128 molhiv bucket 0"),
+                 (hep, f"W=512 hep10k bucket {i}, a {big}-node graph")]
+        cases += [(big_graph_stream(name, n, device, SLOTS, window=w)[1][0],
+                   f"W={w} synthetic bucket, {n}-node graphs") for n, w in LAYER_WINDOWS]
+        for batch, what in cases:
+            for prec, tol in ((FLOAT32, 1e-4), (BF16, 5e-2)):
+                dt = prec.compute_dtype
+                params = params_from_numpy(synthetic_params(name, SEED + 1), prec, device)
+                ops = model_module(name).layer_kernel_operands(params, batch, prec)[kname]
+                variants = [("", ops)]
+                if name == "dgn":
+                    rng = np.random.default_rng(SEED + 2)
+                    spill = rng.normal(0, 0.5, (ops["h"].shape[0], 2 * ops["h"].shape[1]))
+                    variants.append((" with m_spill", dict(
+                        ops, m_spill=torch.from_numpy(spill.astype(np.float32)).to(device, dt))))
+                for label, v in variants:
+                    err = compare(kname, v, f"{name} {what} layer 0{label} {dt}", tol)
+                    if prec is FLOAT32:
+                        max_err[kname] = max(max_err[kname], err)
+    print_occupancy(("pna_local_layer_slots", "dgn_local_layer_slots"), device)
+    check_hub_spill(device, max_err)
+
+
+def check_hub_spill(device, max_err: dict) -> None:
+    """Phase 3e: DGN over a W=256 bucket whose hub nodes have an in-window
+    in-degree of ``HUB_DEGREE``, past the 8 slots, so that the bucket
+    spills: rows 22 and 24 on its layer 0 against their plain versions, and
+    ``dgn.forward`` over it (row 22 with the tail's channels and row 24 once
+    a layer), counted and checked as in phase 4."""
+    key = ("dgn", f"W=256 hubs of in-degree {HUB_DEGREE}", SLOTS)
+    stream = big_graph_stream("dgn", 200, device, SLOTS, window=256, hub=HUB_DEGREE)
+    batch = stream[1][0]
+    real = int(batch["slot_spill_mask"].sum())
+    check(real > 0, f"{key}: no spill tail")
+    print(f"# spill {' '.join(key)}: W={batch['slot_geom'].shape[0]}, "
+          f"S={batch['slot_geom'].shape[1]}, spill lanes {real} of {batch['senders'].shape[0]} "
+          f"edges")
+    check_layer_cases([("dgn", batch, " ".join(key[1:]))], device, max_err)
+    run_main_path({key: stream}, device, [key])
+
+
 def check_block_layer_kernels(streams: dict, device, max_err: dict) -> None:
     """Phase 3f: rows 10, 12 and 25 on layer 0 of the first GIN molhiv bucket
     in the legacy local, ELL and edge-block layout; row 23 on the first GAT
@@ -1061,10 +1202,11 @@ def check_outputs(key: tuple, i: int, packed, out, want, tol: float, plain=None,
     where that is larger: bf16 GIN errs by up to ~5% of the largest
     prediction on either path (PERF.md §2). ``rounded``, the bf16 output of
     the path with its kernels replaced by their plain versions
-    (``KERNEL_ROUNDING``), widens the predictions' tol the same way. Returns
-    (the predictions' max abs error, their tol)."""
+    (``KERNEL_ROUNDING``), widens the predictions' tol the same way, and on
+    an intermediates path every layer's and the pooled h's. Returns (the
+    predictions' max abs error, their tol)."""
     k = packed.num_graphs
-    pairs = [(out, want, plain)]
+    wide = [None]
     if isinstance(out, tuple):
         import torch
 
@@ -1079,15 +1221,20 @@ def check_outputs(key: tuple, i: int, packed, out, want, tol: float, plain=None,
                           None if plain is None else plain_inter["layers"][j][ref_rows]))
         pairs.append((inter["h_graph"][:k], want_inter["h_graph"][:k],
                       None if plain is None else plain_inter["h_graph"][:k]))
+        if rounded is not None:
+            wide = ([rounded[0][:k]] + [x[real] for x in rounded[1]["layers"]]
+                    + [rounded[1]["h_graph"][:k]])
     else:
         pairs = [(out[:k], want[:k], None if plain is None else plain[:k])]
+        if rounded is not None:
+            wide = [rounded[:k]]
     check(tuple(out.shape) == (packed.n_node.shape[0], 1), f"{key}: shape {tuple(out.shape)}")
     check(bool(out[:k].isfinite().all()), f"{key}: non-finite output")
     errs, tols = [], []
     for j, (got, ref, pl) in enumerate(pairs):
         t = tol if pl is None else max(tol, 1.5 * needed_tol(pl, ref))
-        if j == 0 and rounded is not None:
-            t = max(t, 1.5 * needed_tol(rounded[:k], ref))
+        if j < len(wide) and wide[j] is not None:
+            t = max(t, 1.5 * needed_tol(wide[j], ref))
         errs.append(agree(got, ref, t))
         tols.append(t)
     if len(pairs) > 1:
@@ -1178,7 +1325,8 @@ def run_main_path(streams: dict, device, keys) -> dict:
                 if pl is not None and key in KERNEL_ROUNDING:
                     with plain_versions():
                         rounded = forward(params, batches[i], prec, **kw)
-                    held = agree(out[:k], rounded[:k], tol)
+                    r_out = rounded[0] if inter else rounded
+                    held = agree((out[0] if inter else out)[:k], r_out[:k], tol)
                 err, t = check_outputs(key, i, packed, out, w, tol, pl, rows, rounded)
                 sibling = check_sibling(key, packed, out, params, batches[i], prec, tol)
                 w, pl = (w[0], pl[0] if pl is not None else None) if inter else (w, pl)
@@ -1189,7 +1337,7 @@ def run_main_path(streams: dict, device, keys) -> dict:
                     plain_err = (pl[:k].float() - w[:k]).abs().max().item()
                     line += f" (bf16 plain path: {plain_err:.3e}"
                     if rounded is not None:
-                        r_err = (rounded[:k].float() - w[:k]).abs().max().item()
+                        r_err = (r_out[:k].float() - w[:k]).abs().max().item()
                         line += (f"; bf16 plain versions' path: {r_err:.3e}, the kernel path "
                                  f"against it {held:.3e}")
                     line += f"; tol {t:.3e})"
@@ -1336,6 +1484,31 @@ def check_ell_matches_slots(streams: dict, device) -> dict:
             print(f"# molhiv {name} f32 bucket {i}: ELL path (W=128) vs slot path, max abs err "
                   f"{err:.3e}; max |out| {w[:k].abs().max().item():.3e}")
     return launches
+
+
+def check_hep_inter_matches_model(streams: dict, device) -> None:
+    """Phase 4e, hep10k at W=512: PNA's and DGN's f32 predictions with
+    ``return_intermediates`` (rows 20 and 22 once per layer) against the
+    whole-model path's on the same batches (rows 3 and 4 once per bucket),
+    graph by graph over the stream (summation order only: 1e-4)."""
+    import torch
+
+    from flowgnn_tpu_torch.core.numerics import FLOAT32
+    from flowgnn_tpu_torch.models import registry
+    from flowgnn_tpu_torch.params.loaders import params_from_numpy
+
+    for name in HEP_INTER_MODELS:
+        forward = registry.get(name).forward
+        params = params_from_numpy(synthetic_params(name, SEED), FLOAT32, device)
+        buckets, batches, _ = streams[name, "hep10k", HEP_SLOTS]
+        cut = lambda outs: torch.cat([o[: p.num_graphs] for p, o in zip(buckets, outs)])
+        whole = cut([forward(params, b, FLOAT32) for b in batches])
+        layer = cut([forward(params, b, FLOAT32, return_intermediates=True)[0] for b in batches])
+        err = agree(layer, whole, 1e-4)
+        print(f"# hep10k {name} f32: per-layer slot path (W={HEP_SLOT_WINDOW}, "
+              f"{MODEL_KERNELS[name][3]}) vs whole-model slot path ({MODEL_KERNELS[name][0]}), "
+              f"{layer.shape[0]} graphs, max abs err {err:.3e}; max |out| "
+              f"{whole.abs().max().item():.3e}")
 
 
 def check_hep_slots_match_ell(streams: dict, device) -> dict:
@@ -1585,7 +1758,7 @@ def time_turns(streams: dict, device) -> dict:
 
 
 def time_split(streams: dict, device) -> None:
-    """Phase 5g: rows 9 and 3 by stage on their ``SPLIT_CELLS``, bf16 and
+    """Phase 5g: rows 9, 3, 4, 5, 20 and 22 by stage on their ``SPLIT_CELLS``, bf16 and
     f32: the kernel alone over the stream (``cuda_ms``) whole, with its
     product knocked out (``knockout`` bit 0: the next conv or the tower),
     with its messages or stats knocked out (bit 1) and with both; the share
@@ -1595,7 +1768,8 @@ def time_split(streams: dict, device) -> None:
     from flowgnn_tpu_torch.params.loaders import params_from_numpy
 
     stage = {"gcn_local_model": "messages", "pna_local_model": "stats",
-             "dgn_local_model": "channels", "gat_local_model_slots": "messages"}
+             "dgn_local_model": "channels", "gat_local_model_slots": "messages",
+             "pna_local_layer": "stats", "dgn_local_layer_slots": "channels"}
     for kname, cells in SPLIT_CELLS.items():
         kernel = kernel_fn(kname)
         for key in cells:
@@ -1867,6 +2041,9 @@ def main() -> int:
         # its W=128 one.
         paths += [((name, "hep10k", HEP_SLOTS), ("hep10k", HEP_GRAPHS, SLOTS, dev, HEP_SLOT_WINDOW))
                   for name in SPILL_MODELS]
+        paths += [((name, "hep10k", HEP_SLOT_INTER), ("hep10k", HEP_GRAPHS, SLOTS, dev,
+                                                      HEP_SLOT_WINDOW))
+                  for name in HEP_INTER_MODELS]
         paths += [(("gcn", "hep10k", ELL), ("hep10k", HEP_GRAPHS, ELL, dev))]
         paths += [((name, "hep10k", ELL_LAYER), hep(ELL)) for name in LAYER_MODELS]
         paths += [(("gat", "hep10k", ELL_LAYER_FUSED), hep(ELL)),
@@ -1919,8 +2096,11 @@ def main() -> int:
                                                          window=HEP_SLOT_WINDOW)
     for name in INTER_MODELS:  # the molhiv ELL stream, run with intermediates
         streams[name, "molhiv", ELL_INTER] = streams[name, "molhiv", ELL]
-    # PNA's molhiv slot stream, run with intermediates (row 20).
+    # PNA's molhiv slot stream, run with intermediates (row 20); PNA's and
+    # DGN's hep10k slot stream at W=512, run with intermediates (rows 20, 22).
     streams["pna", "molhiv", SLOT_INTER] = streams["pna", "molhiv", SLOTS]
+    for name in HEP_INTER_MODELS:
+        streams[name, "hep10k", HEP_SLOT_INTER] = streams[name, "hep10k", HEP_SLOTS]
     # The edge-block layout for every model, GIN's also with its fused layer.
     for name in MODELS:
         streams[name, "molhiv", BLOCKED] = make_stream(name, "molhiv", STREAM_GRAPHS, True, dev)
@@ -1956,9 +2136,11 @@ def main() -> int:
     spill_keys = [(name, "hep10k", SLOTS) for name in SPILL_MODELS]
     layer_keys = [(name, "hep10k", ELL_LAYER) for name in ELL_MODELS]
     layer_keys += [(name, "molhiv", ELL_INTER) for name in INTER_MODELS]
-    # Phase 4e's paths: PNA's row 20, DGN's and GAT's ELL paths.
+    # Phase 4e's paths: PNA's row 20, DGN's and GAT's ELL paths, PNA's row 20
+    # and DGN's row 22 on hep10k at W=512.
     new_keys = [("pna", "molhiv", SLOT_INTER), ("dgn", "molhiv", ELL), ("gat", "molhiv", ELL),
                 ("dgn", "hep10k", ELL_LAYER), ("gat", "hep10k", ELL_LAYER)]
+    new_keys += [(name, "hep10k", HEP_SLOT_INTER) for name in HEP_INTER_MODELS]
     # Phase 4f's paths: the edge-block and legacy local layouts, row 12's
     # layer loop, GAT's fused layer. The one-bucket local streams are not timed.
     block_keys = [(name, "molhiv", BLOCKED) for name in MODELS] + [("gin", "molhiv", FUSED)]
@@ -1974,6 +2156,7 @@ def main() -> int:
     check_layer_kernels(streams, dev, max_err)
     check_ell_layer_kernels(streams, dev, max_err)
     check_new_layer_kernels(streams, dev, max_err)
+    check_layer_windows(streams, dev, max_err)
     check_block_layer_kernels(streams, dev, max_err)
     launches = run_main_path(streams, dev, slot_keys + hep_keys + hep_slot_keys + spill_keys
                              + layer_keys + new_keys + block_keys + big_keys)
@@ -1981,6 +2164,7 @@ def main() -> int:
         launches[k] += n
     for k, n in check_hep_slots_match_ell(streams, dev).items():
         launches[k] += n
+    check_hep_inter_matches_model(streams, dev)
     molhiv_ell_keys = [(name, "molhiv", ELL) for name in ELL_MODELS]
     record = time_paths(streams, dev, slot_keys + hep_keys + hep_slot_keys + molhiv_ell_keys
                         + spill_keys + layer_keys + new_keys + block_keys)

@@ -14,9 +14,11 @@ rows) runs the whole conv stack and readout MLP-1 in one ``dgn_local_model``
 launch, then MLP-2/3 in plain torch; any other slot batch (a spill tail,
 ``return_intermediates``, no ``pool_gl``) runs the per-layer slot path, as
 the JAX package does: per layer one ``dgn_local_layer_slots`` launch (kernel
-table row 22), which takes the spill tail's two channels pre-reduced through
-``base.spill_segment_sum`` (row 24), then ``mean_pool`` and the readout in
-plain torch; an ELL batch runs the per-layer ELL path
+table row 22: one layer of row 4's kernel, at any window of 128 to 1024
+rows, its bf16 posttrans chunks packed once per weight set for all layers
+and handed out layer by layer), which takes the spill tail's two channels
+pre-reduced through ``base.spill_segment_sum`` (row 24), then ``mean_pool``
+and the readout in plain torch; an ELL batch runs the per-layer ELL path
 (``flowgnn_tpu/models/dgn.py:166-214``): with no spill tail one
 ``dgn_local_layer_ell`` launch per layer (row 18), with one per layer
 ``dgn_local_message_ell`` (row 16) for the window-local channels, the tail's
@@ -134,17 +136,21 @@ def _layer_terms(params: dict, l: int, d: int, terms) -> dict:
     )
 
 
-def layer_operands(params: dict, batch: dict, l: int, h: torch.Tensor, terms, lanes) -> dict:
+def layer_operands(params: dict, batch: dict, l: int, h: torch.Tensor, terms, lanes,
+                   tiles: Optional[torch.Tensor] = None) -> dict:
     """The keyword operands the per-layer slot path hands
     ``dgn_local_layer_slots`` for layer ``l`` and its input ``h``
     (``terms`` as ``_node_terms`` gives them); with a spill tail (``lanes``
     as ``base.spill_lanes`` gives them, else None), ``m_spill`` is the
-    tail's two channels summed per node (``base.spill_segment_sum``)."""
+    tail's two channels summed per node (``base.spill_segment_sum``).
+    ``tiles``: every layer's bf16 posttrans chunks as ``posttrans_tiles``
+    gives them, of which layer ``l``'s are handed over, or None."""
     window, n_slots = (int(x) for x in batch["slot_geom"].shape[-2:])
     m_spill = None
     if lanes is not None:
         m_spill = _base.spill_segment_sum(spill_values(h, batch, terms[0], lanes), batch)
     return dict(slot_src=batch["slot_src"], h=h, window=window, slots=n_slots, m_spill=m_spill,
+                posttrans_tiles=None if tiles is None else tiles[l],
                 **_layer_terms(params, l, h.shape[1], terms))
 
 
@@ -186,7 +192,8 @@ def layer_kernel_operands(params: dict, batch: dict, prec: Precision = FLOAT32) 
                 spill_values(h, batch, terms[0], spill[:2]), batch)
         return out
     lanes = _base.spill_lanes(batch) if batch["slot_spill"].shape[-1] else None
-    out = {"dgn_local_layer_slots": layer_operands(params, batch, 0, h, terms, lanes)}
+    out = {"dgn_local_layer_slots": layer_operands(params, batch, 0, h, terms, lanes,
+                                                   posttrans_tiles(params, prec))}
     if lanes is not None:
         out["windowed_segment_sum"] = _base.spill_segment_operands(
             spill_values(h, batch, terms[0], lanes), batch)
@@ -221,13 +228,14 @@ def forward(
     eig, eig_w, eigw_sum, eig_abssum, deg = terms
     h = _atom_embed_dgn(params["atom_tables"], batch["node_feat"], prec)
     lanes = _base.spill_lanes(batch) if slots and batch["slot_spill"].shape[-1] else None
+    tiles = posttrans_tiles(params, prec) if slots else None
     ell = "loc_ell" in batch
     if ell:
         meta, spill = _base.ell_meta(batch), _base.ell_spill(batch)
     inter = [h]
     for l in range(L):
         if slots:
-            h = dgn_local_layer_slots(**layer_operands(params, batch, l, h, terms, lanes))
+            h = dgn_local_layer_slots(**layer_operands(params, batch, l, h, terms, lanes, tiles))
             inter.append(h)
             continue
         d = h.shape[1]

@@ -13,9 +13,11 @@ Four branches: a slot batch with no spill tail runs the whole conv stack
 and readout MLP-1 in one ``pna_local_model`` launch, then MLP-2/3 in plain
 torch; a slot batch with no spill tail that the megakernel does not take
 (``return_intermediates``, or no ``pool_gl``) runs one ``pna_local_layer``
-launch per layer (kernel table row 20: aggregates, tower and residual), as
-the JAX package does (``flowgnn_tpu/models/pna.py:113-136``), then
-``mean_pool`` and the readout in plain torch; a slot batch with a spill tail
+launch per layer (kernel table row 20: aggregates, tower and residual; one
+layer of row 3's kernel, at any window of 128 to 1024 rows, its bf16 tower
+chunks packed once per weight set for all layers and handed out layer by
+layer), as the JAX package does (``flowgnn_tpu/models/pna.py:113-136``),
+then ``mean_pool`` and the readout in plain torch; a slot batch with a spill tail
 runs the per-layer slot path: per layer ``pna_local_stats_ell`` (row 19)
 gives the slot aggregates, the spill tail adds its sums through
 ``base.spill_segment_sum`` (row 24) and its min / max through
@@ -141,10 +143,13 @@ def _slot_aggregates(h: torch.Tensor, batch: dict, lanes):
     )
 
 
-def layer_operands(params: dict, batch: dict, l: int, h: torch.Tensor, terms) -> dict:
+def layer_operands(params: dict, batch: dict, l: int, h: torch.Tensor, terms,
+                   tiles: Optional[torch.Tensor] = None) -> dict:
     """The keyword operands the per-layer path of a slot batch with no spill
     tail hands ``pna_local_layer`` for layer ``l`` and its input ``h``
-    (``terms`` as ``_degree_terms`` gives them)."""
+    (``terms`` as ``_degree_terms`` gives them; ``tiles``: every layer's
+    bf16 tower chunks as ``tower_tiles`` gives them, of which layer ``l``'s
+    are handed over, or None)."""
     in_deg, t, scale = terms
     d = h.shape[1]
     window, n_slots = (int(x) for x in batch["slot_geom"].shape[-2:])
@@ -156,6 +161,7 @@ def layer_operands(params: dict, batch: dict, l: int, h: torch.Tensor, terms) ->
         window=window, slots=n_slots,
         # Kernel argument order: (min-accumulator seed, max-accumulator seed).
         min_init=MAX_INIT, max_init=MIN_INIT,
+        tower_tiles=None if tiles is None else tiles[l],
     )
 
 
@@ -173,7 +179,8 @@ def layer_kernel_operands(params: dict, batch: dict, prec: Precision = FLOAT32) 
             torch.cat([x, x * x], dim=1), batch)}
     if not batch["slot_spill"].shape[-1]:
         return {"pna_local_layer": layer_operands(params, batch, 0, h,
-                                                  _degree_terms(params, batch, prec))}
+                                                  _degree_terms(params, batch, prec),
+                                                  tower_tiles(params, prec))}
     sums = spill_values(h, batch, _base.spill_lanes(batch))[1]
     return {
         "pna_local_stats_ell": stats_operands(h, batch),
@@ -201,10 +208,11 @@ def forward(
     in_deg, t, scale = terms
     h = _base.atom_embed(params["node_embedding"], batch["node_feat"], prec)
     lanes = _base.spill_lanes(batch) if slots and not no_spill else None
+    tiles = tower_tiles(params, prec) if no_spill else None
     inter = [h]
     for l in range(L):
         if no_spill:
-            h = pna_local_layer(**layer_operands(params, batch, l, h, terms))
+            h = pna_local_layer(**layer_operands(params, batch, l, h, terms, tiles))
             inter.append(h)
             continue
         s, s2, mn, mx = _slot_aggregates(h, batch, lanes) if slots else _aggregates(h, batch)

@@ -33,17 +33,21 @@ rows (128 rows per block):
 - ``gcn_local_model``: GCN (``csrc/gcn_local_model.cu``).
 
 The per-layer slot kernels run one layer per launch, over a slot batch with
-a spill tail (or one the whole-model kernel does not take), one block per
-window of 128 rows:
+a spill tail (or one the whole-model kernel does not take):
 
 - ``pna_local_stats_ell``: PNA's four aggregates
-  (``csrc/pna_local_stats_slots.cu``);
+  (``csrc/pna_local_stats_slots.cu``), one block per window of 128 rows;
 - ``dgn_local_layer_slots``: a whole DGN layer, with the spill tail's
-  pre-reduced channels (``csrc/dgn_local_layer_slots.cu``);
+  pre-reduced channels (``csrc/dgn_local_layer_slots.cu``), the one-layer
+  form of ``dgn_local_model``'s kernel (``csrc/dgn_model.cuh``);
 - ``gat_local_message_slots``: GAT's softmax sums or messages
-  (``csrc/gat_local_message_slots.cu``);
+  (``csrc/gat_local_message_slots.cu``), one block per window of 128 rows;
 - ``pna_local_layer``: a whole PNA layer over a slot batch with no spill
-  tail (``csrc/pna_local_layer_slots.cu``).
+  tail (``csrc/pna_local_layer_slots.cu``), the one-layer form of
+  ``pna_local_model``'s kernel (``csrc/pna_model.cuh``);
+
+the last two one thread-block cluster of W/128 blocks per window of 128 to
+1024 rows, as the whole-model kernels.
 
 The per-layer ELL kernels run one layer per launch over the ELL layout with
 any number k of edge blocks per window (the k·B lanes of a window are one
@@ -89,14 +93,14 @@ edge-block layer ``gin_layer_fused`` is in ``ops.fused_layer``.
 The three GIN kernels of rows 1, 8 and 13 run their bf16 update MLP on the
 tensor cores through one routine (``csrc/gin_mlp.cuh``: ``wgmma``, the
 weights streamed in chunks of 32 hidden units through a ring of bulk copies)
-and their f32 MLP as FMA on the CUDA cores. Rows 9, 2, 3, 4 and 5 run their
-bf16 product (GCN's next conv, PNA's tower, DGN's posttrans, GAT's glue)
-through another, one product of 128 rows (``csrc/linear_wgmma.cuh``, the
-weights in chunks of 32 input channels through the same ring), and their
-f32 product as FMA. The weight chunks are packed on the host once per
-weight set (``mlp_tiles``, ``gcn_conv_tiles``, ``pna_tower_tiles``,
-``dgn_posttrans_tiles``, ``gat_glue_tiles``); each wrapper picks the ring's
-depth by shape and records it as its ``stages``.
+and their f32 MLP as FMA on the CUDA cores. Rows 9, 2, 3, 4, 5, 20 and 22
+run their bf16 product (GCN's next conv, PNA's tower, DGN's posttrans,
+GAT's glue) through another, one product of 128 rows
+(``csrc/linear_wgmma.cuh``, the weights in chunks of 32 input channels
+through the same ring), and their f32 product as FMA. The weight chunks are
+packed on the host once per weight set (``mlp_tiles``, ``gcn_conv_tiles``,
+``pna_tower_tiles``, ``dgn_posttrans_tiles``, ``gat_glue_tiles``); each
+wrapper picks the ring's depth by shape and records it as its ``stages``.
 
 On a CUDA tensor a wrapper launches its hand-written kernel, or raises; on a
 CPU tensor it runs its ``_ref``, the same function in plain torch, which the
@@ -693,6 +697,7 @@ def pna_local_layer_ref(
     slots: int,
     min_init: float,  # seed of the running min (the upper ap_fixed extreme)
     max_init: float,  # seed of the running max (the lower extreme)
+    tower_tiles: Optional[torch.Tensor] = None,  # the kernel's packed weights; not read here
 ) -> torch.Tensor:
     """Plain-torch ``pna_local_layer``: one whole PNA layer over the slot
     layout, the next h [n, D] in h's dtype. One layer of
@@ -725,6 +730,7 @@ def dgn_local_layer_slots_ref(
     window: int,
     slots: int,
     m_spill: Optional[torch.Tensor] = None,  # [n, 2D] spill tail's [m1 ‖ m2]
+    posttrans_tiles: Optional[torch.Tensor] = None,  # the kernel's packed weights; not read here
 ) -> torch.Tensor:
     """Plain-torch ``dgn_local_layer_slots``: the next h [n, D] in h's dtype.
 
@@ -1159,12 +1165,14 @@ def _library(name: str) -> dict:
     ``_max_d``, ``_rows_per_block`` and ``_max_window_blocks`` (GAT's also
     ``_max_heads``), as do the legacy local and fused edge-block layers. The
     GIN and PNA slot libraries also export ``_rows_per_block`` and
-    ``_max_cluster``, as do the GCN, DGN and GAT slot libraries; the three
+    ``_max_cluster``, as do the GCN, DGN and GAT slot libraries and the
+    per-layer PNA and DGN slot libraries (rows 20 and 22); the three
     libraries of ``GIN_MLP_LIBRARIES`` ``_mlp_dims``, row 13 ``_smem_per_sm``,
     and the users of ``csrc/linear_wgmma.cuh`` the geometry of their weight
-    chunks (rows 9 and 2 ``_conv_dims``, row 3 ``_tower_dims``, row 4
-    ``_posttrans_dims``, row 5 ``_glue_dims``), those that keep two blocks an
-    SM (rows 9, 2, 4 and 5) also ``_smem_per_sm`` and ``_occupancy``."""
+    chunks (rows 9 and 2 ``_conv_dims``, rows 3 and 20 ``_tower_dims``, rows
+    4 and 22 ``_posttrans_dims``, row 5 ``_glue_dims``), those that keep two
+    blocks an SM (rows 9, 2, 4, 5 and 22) and row 20 also ``_smem_per_sm``
+    and ``_occupancy``."""
     slot_getters = ("max_d", "max_slots")
     ell_getters = ("max_d", "rows_per_block", "max_cluster")
     layer_getters = ("max_d", "rows_per_block", "max_window_blocks")
@@ -1202,8 +1210,8 @@ def _library(name: str) -> dict:
             [_I32] + [_PTR] * 3 + [_I32] * 5 + [_F32, _F32, _I32, _PTR],
         ),
         "dgn_local_layer_slots": (
-            "dgn_layer", slot_getters, [_I32] * 3,
-            [_I32] + [_PTR] * 10 + [_I32] * 5 + [_I32, _PTR],
+            "dgn_layer", slot_getters + ("rows_per_block", "max_cluster"), [_I32] * 3,
+            [_I32] + [_PTR] * 11 + [_I32] * 8 + [_PTR],
         ),
         "gat_local_message_slots": (
             "gat_msg", slot_getters, [_I32] * 4,
@@ -1226,8 +1234,8 @@ def _library(name: str) -> dict:
             [_I32] + [_PTR] * 10 + [_I32] * 6 + [_I32, _PTR],
         ),
         "pna_local_layer_slots": (
-            "pna_layer", slot_getters, [_I32] * 3,
-            [_I32] + [_PTR] * 8 + [_I32] * 5 + [_F32, _F32, _I32, _PTR],
+            "pna_layer", slot_getters + ("rows_per_block", "max_cluster"), [_I32] * 3,
+            [_I32] + [_PTR] * 9 + [_I32] * 5 + [_F32, _F32] + [_I32] * 3 + [_PTR],
         ),
         # One library, two kernels: the whole layer and the message channels.
         "dgn_local_layer_ell": (
@@ -1277,6 +1285,10 @@ def _library(name: str) -> dict:
         "pna_local_model": (("tower_dims", [_I32, _INT_P], None),),
         "dgn_local_model": (per_sm, ("posttrans_dims", [_I32, _INT_P], None),
                             ("occupancy", [_I32] * 7 + [_INT_P], _I32)),
+        "pna_local_layer_slots": (per_sm, ("tower_dims", [_I32, _INT_P], None),
+                                  ("occupancy", [_I32] * 5 + [_INT_P], _I32)),
+        "dgn_local_layer_slots": (per_sm, ("posttrans_dims", [_I32, _INT_P], None),
+                                  ("occupancy", [_I32] * 5 + [_INT_P], _I32)),
         "gat_local_model_slots": (per_sm, ("glue_dims", [_I32, _INT_P], None),
                                   ("occupancy", [_I32] * 8 + [_INT_P], _I32)),
     }
@@ -1682,6 +1694,24 @@ def dgn_posttrans_tiles(wt: torch.Tensor) -> torch.Tensor:
     return _pack_once(("dgn_posttrans",), (wt,), lambda: linear_tiles(wt, gcn_conv_n(wt.shape[1])))
 
 
+def pna_layer_tiles(w_cat: torch.Tensor) -> torch.Tensor:
+    """Row 20's tower chunks of one layer, [C, 32·240], packed once per
+    weight set: ``pna_tower_tiles`` of the layer's ``w_cat`` [4D, 3D] (= [in,
+    scaler·out]) as a one-layer stack. The models hand over their slice of
+    every layer's chunks instead (``pna.tower_tiles``)."""
+    d = w_cat.shape[1] // 3
+    return pna_tower_tiles(w_cat.view(1, 4 * d, 3, d).permute(0, 2, 3, 1))[0]
+
+
+def dgn_layer_tiles(w_post: torch.Tensor) -> torch.Tensor:
+    """Row 22's posttrans chunks of one layer, [C, 32·N], packed once per
+    weight set: ``dgn_posttrans_tiles`` of the layer's right-multiplied
+    ``w_post`` [2D, D] as a one-layer stack. The models hand over their
+    slice of every layer's chunks instead (``dgn.posttrans_tiles``)."""
+    d = w_post.shape[1]
+    return dgn_posttrans_tiles(w_post.view(1, 2 * d, d).transpose(1, 2))[0]
+
+
 def gat_glue_tiles(proj_t: torch.Tensor, skip_t: torch.Tensor) -> torch.Tensor:
     """Row 5's glue weight chunks, packed once per weight set: ``proj_t`` and
     ``skip_t`` [L−1, H·D, H·D] hold layers 1..L−1's projection and skip
@@ -1703,16 +1733,24 @@ def _linear_operand(lib, dims_fn: str, d: int, tiles, k: int, n: int, layers: in
     """A bf16 product's weight chunks: ``tiles`` as given, checked, or packed
     here (``pack()``). The kernel's geometry at width ``d`` (``dims_fn``:
     K', N, the bytes of a chunk) must be the host's for K = ``k``."""
-    kp, chunks, elems = linear_geometry(k, n)
+    _check_linear_dims(lib, dims_fn, d, k, n)
+    _, chunks, elems = linear_geometry(k, n)
+    if tiles is None:
+        tiles = pack()
+    _check("weight tiles", tiles, torch.bfloat16, (layers, chunks, elems), dev)
+    return tiles
+
+
+def _check_linear_dims(lib, dims_fn: str, d: int, k: int, n: int) -> None:
+    """Raise unless the kernel's bf16 product geometry at width ``d``
+    (``dims_fn``: K', N, the bytes of a chunk) is the host's for K = ``k``
+    and width ``n`` (``linear_geometry``)."""
+    kp, _, elems = linear_geometry(k, n)
     dims = (ctypes.c_int * 3)()
     lib[dims_fn](d, dims)
     if tuple(dims) != (kp, n, elems * 2):
         raise RuntimeError(f"the kernel's product geometry {tuple(dims)} is not the host's "
                            f"{(kp, n, elems * 2)}")
-    if tiles is None:
-        tiles = pack()
-    _check("weight tiles", tiles, torch.bfloat16, (layers, chunks, elems), dev)
-    return tiles
 
 
 def _mlp_operand(lib, tiles, w1_all, w2_all, num_layers: int, per_layer: bool) -> torch.Tensor:
@@ -1934,21 +1972,27 @@ def _two_block_stages(kernel: str, lib, code: int, geometry: tuple, gmax: int, t
 
 def occupancy(kernel: str, dtype: torch.dtype, window: int, geometry: tuple, gmax: int,
               t_out: int, device) -> dict:
-    """What the occupancy calculator says of the whole-model kernel
-    ``kernel`` (rows 9, 2, 4 and 5) in ``dtype`` at this geometry on
-    ``device`` (the launch's own ring depth): the block's shared memory,
-    the blocks of that form one SM holds, and the clusters of W/128 blocks
-    that run at once. ``geometry``: (D, vocab) for GCN, (D,) for DGN, (H·D,
-    heads) for GAT."""
+    """What the occupancy calculator says of the cluster kernel ``kernel``
+    (the libraries of rows 9, 2, 4 and 5, and of rows 20 and 22) in
+    ``dtype`` at this geometry on ``device`` (the launch's own ring depth):
+    the block's shared memory, the blocks of that form one SM holds, and the
+    clusters of W/128 blocks that run at once. ``geometry``: (D, vocab) for
+    GCN, (D,) for DGN and rows 20 and 22, (H·D, heads) for GAT; rows 20 and
+    22 have no pool head and ignore ``gmax`` and ``t_out``."""
     code = _dtype_code(dtype)
     dev = torch.device(device)
     lib = _library(kernel)
-    stages = _two_block_stages(kernel, lib, code, geometry, gmax, t_out, dev)
     out = (ctypes.c_int * 2)()
-    rc = lib["occupancy"](code, window, *geometry, gmax, t_out, stages, dev.index, out)
+    if kernel in ("pna_local_layer_slots", "dgn_local_layer_slots"):
+        stages = _layer_ring(kernel, lib, code, geometry[0], dev)
+        smem = lib["smem_bytes"](code, geometry[0], stages)
+        rc = lib["occupancy"](code, window, geometry[0], stages, dev.index, out)
+    else:
+        stages = _two_block_stages(kernel, lib, code, geometry, gmax, t_out, dev)
+        smem = lib["smem_bytes"](code, *geometry, gmax, t_out, stages)
+        rc = lib["occupancy"](code, window, *geometry, gmax, t_out, stages, dev.index, out)
     _raise_on(lib, rc, f"{kernel} occupancy")
-    return dict(smem=lib["smem_bytes"](code, *geometry, gmax, t_out, stages), stages=stages,
-                blocks_per_sm=out[0], clusters=out[1])
+    return dict(smem=smem, stages=stages, blocks_per_sm=out[0], clusters=out[1])
 
 
 def gcn_local_model(
@@ -2312,8 +2356,61 @@ def pna_local_stats_ell(
 pna_local_stats_ell.launches = 0
 
 
+# Rows 20 and 22's bf16 product, by library: the getter of its chunk
+# geometry, and its (K, N) at width D.
+_LAYER_PRODUCTS = {
+    "pna_local_layer_slots": ("tower_dims", lambda d: (4 * d, 3 * PNA_PITCH)),
+    "dgn_local_layer_slots": ("posttrans_dims", lambda d: (2 * d, gcn_conv_n(d))),
+}
+
+
+def _layer_ring(name: str, lib, code: int, d: int, dev) -> int:
+    """The bf16 weight ring of the one-layer slot kernels (0 in f32): row 22
+    (``dgn_local_layer_slots``) the deepest that keeps two blocks an SM, as
+    row 4; row 20 (``pna_local_layer_slots``) the deepest that fits a block,
+    as row 3 (its stats alone take 80 KB at D = 80: one block an SM)."""
+    if code == 0:
+        return 0
+    chunks = linear_geometry(*_LAYER_PRODUCTS[name][1](d))[1]
+    budget = (lib["smem_optin"](dev.index) if name == "pna_local_layer_slots"
+              else _two_blocks_budget(lib, dev))
+    return ring_stages(lambda stages: lib["smem_bytes"](code, d, stages), chunks, budget)
+
+
+@functools.cache
+def _layer_plan(name: str, code: int, d: int, slots: int, window: int, device: int) -> tuple:
+    """Rows 20 and 22's launch plan at this geometry on CUDA device
+    ``device``, worked out once per geometry (a launch is tens of µs, and
+    these checks take the library's getters): (the weight ring, the block's
+    shared memory). Raises before launch on what the clusters (whole blocks
+    of 128 rows, at most 8), the tile, the slot depth or the card's shared
+    memory do not take, or a product geometry the host does not share; a
+    refusal is not cached."""
+    lib = _library(name)
+    dev = torch.device("cuda", device)
+    _check_tile(lib, d)
+    if code == 1:
+        dims_fn, kn = _LAYER_PRODUCTS[name]
+        _check_linear_dims(lib, dims_fn, d, *kn(d))
+    stages = _layer_ring(name, lib, code, d, dev)
+    smem = lib["smem_bytes"](code, d, stages)
+    _check_ell_geometry(lib, d, window, smem, dev)
+    _check_geometry(lib, d, slots, (window,), window, smem, dev)
+    return stages, smem
+
+
+def _layer_tiles(name: str, d: int, tiles, pack, dev) -> torch.Tensor:
+    """Rows 20 and 22's bf16 weight chunks of one layer: ``tiles`` as given,
+    or packed here (``pack()``), checked as [C, 32·N]."""
+    _, chunks, elems = linear_geometry(*_LAYER_PRODUCTS[name][1](d))
+    if tiles is None:
+        tiles = pack()
+    _check("weight tiles", tiles, torch.bfloat16, (chunks, elems), dev)
+    return tiles
+
+
 def _launch_dgn_layer(slot_src, h, eig, inv_deg, eigw_sum, inv_abssum, w_post, b_post,
-                      window, slots, m_spill) -> torch.Tensor:
+                      window, slots, m_spill, tiles, knockout=0) -> torch.Tensor:
     dt = h.dtype
     code = _dtype_code(dt)
     dev = h.device
@@ -2329,17 +2426,22 @@ def _launch_dgn_layer(slot_src, h, eig, inv_deg, eigw_sum, inv_abssum, w_post, b
     if m_spill is not None:
         _check("m_spill", m_spill, dt, (n, 2 * d), dev)
 
-    lib = _library("dgn_local_layer_slots")
-    _check_geometry(lib, d, slots, (window,), window, lib["smem_bytes"](window, d, slots), dev)
+    name = "dgn_local_layer_slots"
+    lib = _library(name)
+    stages, _ = _layer_plan(name, code, d, slots, window, dev.index)
+    if code == 1:  # the wgmma posttrans reads the layer's weights as packed chunks
+        tiles = _layer_tiles(name, d, tiles, lambda: dgn_layer_tiles(w_post), dev)
     out = torch.empty((n, d), dtype=dt, device=dev)
     rc = lib["launch"](
         code, slot_src.data_ptr(), h.data_ptr(), eig.data_ptr(), inv_deg.data_ptr(),
         eigw_sum.data_ptr(), inv_abssum.data_ptr(), w_post.data_ptr(), b_post.data_ptr(),
-        None if m_spill is None else m_spill.data_ptr(), out.data_ptr(),
-        nw, n, window, d, slots, dev.index, torch.cuda.current_stream(dev).cuda_stream,
+        None if m_spill is None else m_spill.data_ptr(), None if code == 0 else tiles.data_ptr(),
+        out.data_ptr(), nw, n, window, d, slots, stages, int(knockout), dev.index,
+        torch.cuda.current_stream(dev).cuda_stream,
     )
     _raise_on(lib, rc, "dgn_local_layer_slots")
     dgn_local_layer_slots.launches += 1
+    dgn_local_layer_slots.stages = stages
     return out
 
 
@@ -2355,19 +2457,31 @@ def dgn_local_layer_slots(
     window: int,
     slots: int,
     m_spill: Optional[torch.Tensor] = None,
+    posttrans_tiles: Optional[torch.Tensor] = None,
+    knockout: int = 0,
 ) -> torch.Tensor:
     """One whole DGN layer over the slot layout: the next h [n, D] in h's
-    dtype (``csrc/dgn_local_layer_slots.cu``). Operands as in
+    dtype, at windows of 128 up to 1024 rows (``csrc/dgn_local_layer_slots.cu``,
+    one layer of row 4's cluster kernel). Operands as in
     ``dgn_local_layer_slots_ref``; a CPU tensor runs the plain version, a
     CUDA tensor launches the kernel (float32 or bfloat16 h, node terms,
-    weights and ``m_spill``, int32 ``slot_src``) or raises. Each launch adds
-    one to ``dgn_local_layer_slots.launches``."""
+    weights and ``m_spill``, int32 ``slot_src``; D at most 112) or raises.
+    In bfloat16 the posttrans runs on the tensor cores (``wgmma``) from
+    ``posttrans_tiles``, this layer's [C, 32·N] chunks of
+    ``dgn_posttrans_tiles`` (packed here by ``dgn_layer_tiles``, once per
+    weight set, when not given); ``dgn_local_layer_slots.stages`` records the launch's weight ring
+    (0 in float32). ``knockout`` (timing only, CUDA only): bit 0 skips the
+    posttrans product, bit 1 the channels. Each launch adds one to
+    ``dgn_local_layer_slots.launches``."""
     args = (slot_src, h, eig, inv_deg, eigw_sum, inv_abssum, w_post, b_post,
-            window, slots, m_spill)
+            window, slots, m_spill, posttrans_tiles)
+    if _knocked_out(h, knockout):
+        return _launch_dgn_layer(*args, knockout=knockout)
     return _dispatch(h, dgn_local_layer_slots_ref, _launch_dgn_layer, args)
 
 
 dgn_local_layer_slots.launches = 0
+dgn_local_layer_slots.stages = 0
 
 
 def _launch_gat_message(slot_stack, h, s_src, s_tgt, window, slots, num_heads,
@@ -2423,7 +2537,7 @@ gat_local_message_slots.launches = 0
 
 
 def _launch_pna_layer(slot_src, h, inv_deg, t, scale, w_cat, b, window, slots, min_init,
-                      max_init) -> torch.Tensor:
+                      max_init, tiles, knockout=0) -> torch.Tensor:
     dt = h.dtype
     code = _dtype_code(dt)
     dev = h.device
@@ -2436,17 +2550,21 @@ def _launch_pna_layer(slot_src, h, inv_deg, t, scale, w_cat, b, window, slots, m
     _check("w_cat", w_cat, dt, (4 * d, 3 * d), dev)
     _check("b", b, dt, (1, d), dev)
 
-    lib = _library("pna_local_layer_slots")
-    _check_geometry(lib, d, slots, (window,), window, lib["smem_bytes"](window, d, slots), dev)
+    name = "pna_local_layer_slots"
+    lib = _library(name)
+    stages, _ = _layer_plan(name, code, d, slots, window, dev.index)
+    if code == 1:  # the wgmma tower reads the layer's weights as packed chunks
+        tiles = _layer_tiles(name, d, tiles, lambda: pna_layer_tiles(w_cat), dev)
     out = torch.empty((n, d), dtype=dt, device=dev)
     rc = lib["launch"](
         code, slot_src.data_ptr(), h.data_ptr(), inv_deg.data_ptr(), t.data_ptr(),
-        scale.data_ptr(), w_cat.data_ptr(), b.data_ptr(), out.data_ptr(),
-        nw, n, window, d, slots, float(min_init), float(max_init),
-        dev.index, torch.cuda.current_stream(dev).cuda_stream,
+        scale.data_ptr(), w_cat.data_ptr(), b.data_ptr(), None if code == 0 else tiles.data_ptr(),
+        out.data_ptr(), nw, n, window, d, slots, float(min_init), float(max_init), stages,
+        int(knockout), dev.index, torch.cuda.current_stream(dev).cuda_stream,
     )
     _raise_on(lib, rc, "pna_local_layer")
     pna_local_layer.launches += 1
+    pna_local_layer.stages = stages
     return out
 
 
@@ -2462,19 +2580,33 @@ def pna_local_layer(
     slots: int,
     min_init: float,
     max_init: float,
+    tower_tiles: Optional[torch.Tensor] = None,
+    knockout: int = 0,
 ) -> torch.Tensor:
     """One whole PNA layer over a slot batch with no spill tail: the next h
-    [n, D] in h's dtype (``csrc/pna_local_layer_slots.cu``). Operands as in
-    ``pna_local_layer_ref``; the seeds in the order of
-    ``pna_local_stats_ell`` (the min's first). A CPU tensor runs the plain
-    version; a CUDA tensor launches the kernel (float32 or bfloat16 h,
-    scalers and weights, int32 ``slot_src``) or raises. Each launch adds one
-    to ``pna_local_layer.launches``."""
-    args = (slot_src, h, inv_deg, t, scale, w_cat, b, window, slots, min_init, max_init)
+    [n, D] in h's dtype, at windows of 128 up to 1024 rows
+    (``csrc/pna_local_layer_slots.cu``, one layer of row 3's cluster
+    kernel). Operands as in ``pna_local_layer_ref``; the seeds in the order
+    of ``pna_local_stats_ell`` (the min's first). A CPU tensor runs the
+    plain version; a CUDA tensor launches the kernel (float32 or bfloat16 h,
+    scalers and weights, int32 ``slot_src``; D at most 80) or raises. In
+    bfloat16 the tower runs on the tensor cores (``wgmma``) from
+    ``tower_tiles``, this layer's [C, 32·240] chunks of ``pna_tower_tiles``
+    (packed here by ``pna_layer_tiles``, once per weight set, when not
+    given);
+    ``pna_local_layer.stages`` records the launch's weight ring (0 in
+    float32). ``knockout`` (timing only, CUDA only): bit 0 skips the tower's
+    product, bit 1 the stats. Each launch adds one to
+    ``pna_local_layer.launches``."""
+    args = (slot_src, h, inv_deg, t, scale, w_cat, b, window, slots, min_init, max_init,
+            tower_tiles)
+    if _knocked_out(h, knockout):
+        return _launch_pna_layer(*args, knockout=knockout)
     return _dispatch(h, pna_local_layer_ref, _launch_pna_layer, args)
 
 
 pna_local_layer.launches = 0
+pna_local_layer.stages = 0
 
 
 def _check_ell_layer(ell_meta, h, ee_table, window, library: str):

@@ -964,6 +964,119 @@ def test_rows_2_4_5_knockouts_launch(name, dtype, cuda_device):
         fn(**{k: v.cpu() if torch.is_tensor(v) else v for k, v in ops.items()}, knockout=1)
 
 
+# Rows 20 and 22, the one-layer forms of rows 3 and 4: the case's model, the
+# wrapper, and whether the layer takes a seeded m_spill (row 22 only).
+LAYER_ROWS = [("pna", "pna_local_layer", False), ("dgn", "dgn_local_layer_slots", False),
+              ("dgn", "dgn_local_layer_slots", True)]
+LAYER_ROW_IDS = ["row20", "row22", "row22-spill"]
+
+
+def _model_layer_operands(name: str, big: int, window: int, dtype, device, spill: bool = False,
+                          seed: int = 32) -> dict:
+    """Layer 0's operands of row 20 or 22 as the model's per-layer slot path
+    hands them over (``layer_kernel_operands``: the layout's own degree and
+    eigenvector terms, layer 0's slice of the bf16 chunks), at the published
+    widths (PNA D=80, DGN D=100) with seeded synthetic weights, on
+    ``device``; ``spill`` adds a seeded m_spill [n, 2D]."""
+    from flowgnn_tpu_torch.core.numerics import BF16, FLOAT32
+    from flowgnn_tpu_torch.models import dgn, pna
+    from flowgnn_tpu_torch.params import loaders
+
+    prec = BF16 if dtype == torch.bfloat16 else FLOAT32
+    make = {"pna": loaders.synthetic_pna_params, "dgn": loaders.synthetic_dgn_params}[name]
+    params = loaders.params_from_numpy(make(seed), prec, device)
+    batch = base.to_device(_slot_batch_at(name, big, window, seed), device)
+    kernel = {"pna": "pna_local_layer", "dgn": "dgn_local_layer_slots"}[name]
+    ops = {"pna": pna, "dgn": dgn}[name].layer_kernel_operands(params, batch, prec)[kernel]
+    if spill:
+        rng = np.random.default_rng(seed)
+        n, d = ops["h"].shape
+        ops["m_spill"] = torch.from_numpy(
+            rng.normal(0, 0.5, (n, 2 * d)).astype(np.float32)).to(device, dtype)
+    return ops
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,kernel,spill", LAYER_ROWS, ids=LAYER_ROW_IDS)
+@pytest.mark.parametrize("big,window", CLUSTER_WINDOWS,
+                         ids=[f"W{w}" for _, w in CLUSTER_WINDOWS])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 5e-2)],
+                         ids=["f32", "bf16"])
+def test_rows_20_22_cuda_kernels_windows_match_plain(name, kernel, spill, big, window, dtype, tol,
+                                                      cuda_device):
+    """Rows 20 (PNA) and 22 (DGN, with and without m_spill) at W = 128, 256,
+    512 and 1024 (one cluster of W/128 blocks per window, the large graph's
+    sources read across all of them), at the published widths, one launch
+    per call: bf16 through the wgmma product with a weight ring of at least
+    two chunks (row 22 two blocks an SM, row 20 one), f32 through FMA.
+    f32: summation order only; bf16: the output rounds to bf16, and a
+    rounding flip of a stat or a channel moves it by a few bf16 ulps of its
+    scale."""
+    fn = getattr(local_layer, kernel)
+    ops = _model_layer_operands(name, big, window, dtype, cuda_device, spill)
+    assert ops["window"] == window
+    before = fn.launches
+    got = fn(**ops)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 1
+    assert fn.stages >= 2 if dtype == torch.bfloat16 else fn.stages == 0
+    expect = getattr(local_layer, f"{kernel}_ref")(**ops)
+    assert got.dtype == dtype and got.shape == expect.shape
+    assert expect.abs().max() > 1e-2
+    scale = max(1.0, expect.abs().max().item())
+    torch.testing.assert_close(got.float() / scale, expect.float() / scale, rtol=tol, atol=tol)
+    lib = {"pna": "pna_local_layer_slots", "dgn": "dgn_local_layer_slots"}[name]
+    occ = local_layer.occupancy(lib, dtype, window, (ops["h"].shape[1],), 0, 0, cuda_device)
+    two = dtype == torch.bfloat16 and name == "dgn"
+    assert occ["blocks_per_sm"] == (2 if two else 1) and occ["clusters"] > 0
+
+
+@pytest.mark.cuda
+def test_rows_20_22_cuda_kernels_reject_oversized_window(cuda_device):
+    """W=1152 is past what the clusters of rows 20 and 22 span (8 blocks of
+    128 rows, W up to 1024), at the published widths (PNA D=80, DGN D=100),
+    in both dtypes: both wrappers raise before launch."""
+    window = n = 1152
+    rng = np.random.default_rng(0)
+    for dtype in (torch.float32, torch.bfloat16):
+        t = lambda *s: torch.from_numpy(rng.normal(0, 0.1, s).astype(np.float32)).to(
+            cuda_device, dtype)
+        src = torch.full((window, 1), window, dtype=torch.int32, device=cuda_device)
+        d = 80
+        pna = dict(slot_src=src, h=t(n, d), inv_deg=t(n), t=t(n), scale=t(n),
+                   w_cat=t(4 * d, 3 * d), b=t(1, d), window=window, slots=1,
+                   min_init=32.0, max_init=-32.0)
+        d = 100
+        dgn = dict(slot_src=src, h=t(n, d), eig=t(n), inv_deg=t(n), eigw_sum=t(n),
+                   inv_abssum=t(n), w_post=t(2 * d, d), b_post=t(1, d), window=window, slots=1,
+                   m_spill=t(n, 2 * d))
+        for kernel, ops in (("pna_local_layer", pna), ("dgn_local_layer_slots", dgn)):
+            fn = getattr(local_layer, kernel)
+            before = fn.launches
+            with pytest.raises(ValueError, match="whole blocks of 128 rows"):
+                fn(**ops)
+            assert fn.launches == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,kernel,spill", LAYER_ROWS, ids=LAYER_ROW_IDS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_rows_20_22_knockouts_launch(name, kernel, spill, dtype, cuda_device):
+    """The phase split's knockouts of rows 20 and 22 (bit 0: the product,
+    bit 1: the stats or channels) launch at W=512 and leave a finite
+    output; the whole kernel is unchanged by having run them. On a CPU
+    tensor a knockout raises."""
+    fn = getattr(local_layer, kernel)
+    ops = _model_layer_operands(name, 400, 512, dtype, cuda_device, spill)
+    full = fn(**ops)
+    for knockout in (1, 2, 3):
+        assert bool(fn(**ops, knockout=knockout).isfinite().all())
+    torch.cuda.synchronize()
+    assert torch.equal(fn(**ops), full)
+    with pytest.raises(ValueError, match="knockout"):
+        fn(**{k: v.cpu() if torch.is_tensor(v) else v for k, v in ops.items()}, knockout=1)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("name", ["gin", "gin-vn", "gcn"])
 @pytest.mark.parametrize("big", ELL_BIG, ids=[f"W{w}" for w in (128, 256, 384, 512)])
@@ -1239,8 +1352,8 @@ def test_rows_16_to_20_cuda_kernels_reject_geometry(cuda_device):
     """Each new wrapper raises before launch on what its kernel cannot take:
     rows 16, 17 and 18 a window that is not whole 128-row tiles (192) or
     spans more than 8 (1152), row 18 a D past its tile (128 > 112), row 17
-    more than 32 heads; row 20 a window whose state does not fit one block's
-    shared memory (W=512 at D=80)."""
+    more than 32 heads; row 20 a window past its clusters (W=1152 at D=80:
+    W=512, which its one-block form refused, runs on a cluster of four)."""
     rng = np.random.default_rng(0)
     t = lambda *s: torch.from_numpy(rng.normal(0, 0.1, s).astype(np.float32)).to(cuda_device)
     cases = []
@@ -1265,9 +1378,9 @@ def test_rows_16_to_20_cuda_kernels_reject_geometry(cuda_device):
         ("gat_local_message_ell", dict(ell_meta=lanes, window=128, h=t(n, 128), s_src=t(n, 64),
                                        s_tgt=t(n, 64), num_heads=64), "num_heads"),
         ("pna_local_layer", dict(
-            slot_src=torch.full((512, 1), 512, dtype=torch.int32, device=cuda_device),
-            h=t(512, 80), inv_deg=t(512), t=t(512), scale=t(512), w_cat=t(320, 240),
-            b=t(1, 80), window=512, slots=1, min_init=32.0, max_init=-32.0), "shared memory"),
+            slot_src=torch.full((1152, 1), 1152, dtype=torch.int32, device=cuda_device),
+            h=t(1152, 80), inv_deg=t(1152), t=t(1152), scale=t(1152), w_cat=t(320, 240),
+            b=t(1, 80), window=1152, slots=1, min_init=32.0, max_init=-32.0), "whole blocks"),
     ]
     for kernel, kw, match in cases:
         fn = getattr(local_layer, kernel)

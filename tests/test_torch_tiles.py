@@ -2,10 +2,10 @@
 and its users: row 26's B (``bench.matmul_shapes``), the bf16 GIN MLP's
 weight chunks of rows 1, 8 and 13 (``ops.local_layer.gin_mlp_tiles``), with
 the streamed ring that feeds them and the act operand they multiply, and the
-one-product weight chunks of rows 9, 2, 3, 4 and 5
+one-product weight chunks of rows 9, 2, 3, 4, 5, 20 and 22
 (``ops.local_layer.linear_tiles``: GCN's next conv, PNA's tower, DGN's
-posttrans, GAT's glue), with their ring and the x, stats, channel and feat
-operands they multiply.
+posttrans, GAT's glue; rows 20 and 22 one layer's of rows 3 and 4), with
+their ring and the x, stats, channel and feat operands they multiply.
 
 Besides the round trip and the zero pad, each packed tile is read back the
 way the kernels' shared-memory descriptors address it (``csrc/hopper.cuh``:
@@ -401,6 +401,64 @@ def test_dgn_gat_model_tiles_equal_the_wrappers_own_packing():
     assert torch.equal(gat.glue_tiles(p, BF16), local_layer.gat_glue_tiles(
         right_t(right(p["proj_w"][1:])), right_t(right(p["skip_w"][1:]))))
     assert gat.glue_tiles(p, FLOAT32) is None
+
+
+@pytest.mark.parametrize("name", ["pna", "dgn"], ids=["row20", "row22"])
+def test_rows_20_22_layer_tiles_equal_the_model_slices(name):
+    """What the per-layer slot paths hand rows 20 and 22 for layer l (layer
+    l's slice of ``pna.tower_tiles`` / ``dgn.posttrans_tiles``, packed once
+    for all layers) is what the wrappers pack from that layer's ``w_cat`` /
+    ``w_post`` when no chunks are given (``pna_layer_tiles``,
+    ``dgn_layer_tiles``): the same chunks, which read back through the
+    product's descriptors as the layer's Bᵀ; f32 hands none."""
+    from flowgnn_tpu_torch.core.numerics import BF16, FLOAT32
+    from flowgnn_tpu_torch.models import dgn, pna
+    from flowgnn_tpu_torch.params import loaders
+
+    d, L = (24, 3) if name == "pna" else (36, 3)
+    if name == "pna":
+        p = loaders.params_from_numpy(loaders.synthetic_pna_params(3, dim=d, layers=L), BF16, "cpu")
+        all_tiles, pack = pna.tower_tiles(p, BF16), local_layer.pna_layer_tiles
+        k, n, key = 4 * d, 3 * local_layer.PNA_PITCH, "w_cat"
+    else:
+        p = loaders.params_from_numpy(loaders.synthetic_dgn_params(3, dim=d, layers=L), BF16, "cpu")
+        all_tiles, pack = dgn.posttrans_tiles(p, BF16), local_layer.dgn_layer_tiles
+        k, n, key = 2 * d, local_layer.gcn_conv_n(d), "w_post"
+    kp, chunks, elems = local_layer.linear_geometry(k, n)
+    h = torch.zeros(8, d, dtype=torch.bfloat16)
+    for l in range(L):
+        if name == "pna":
+            w = pna.layer_operands(p, _slot_geom_batch(), l, h, (h[:, :1],) * 3, all_tiles)
+            tiles = w["tower_tiles"]
+        else:
+            terms = (h[:, 0], None, h[:, 0], h[:, 0], h[:, :1])  # eig, eig_w, sums, degree
+            w = dgn.layer_operands(p, _slot_geom_batch(), l, h, terms, None, all_tiles)
+            tiles = w["posttrans_tiles"]
+        assert tiles.shape == (chunks, elems)
+        assert tiles.data_ptr() == all_tiles[l].data_ptr()  # a slice, not a copy
+        assert torch.equal(tiles, pack(w[key]))
+        bt = torch.zeros(n, kp, dtype=torch.bfloat16)
+        for c in range(chunks):
+            for s in range(2):
+                bt[:, 32 * c + 16 * s : 32 * c + 16 * s + 16] = _read(
+                    tiles[c], 2 * s * n * 16, n * 16, 128, n, 32)
+        # Bᵀ's row 80j + c is output column c of scaler j (PNA), row c column c (DGN).
+        w_right = w[key].float()  # [K, outputs]
+        if name == "pna":
+            for j in range(3):
+                assert torch.equal(bt[80 * j : 80 * j + d, :k].float(),
+                                   w_right[:, j * d : (j + 1) * d].t())
+        else:
+            assert torch.equal(bt[:d, :k].float(), w_right.t())
+        assert not bt[:, k:].any()
+    with_f32 = (pna.tower_tiles if name == "pna" else dgn.posttrans_tiles)(p, FLOAT32)
+    assert with_f32 is None
+
+
+def _slot_geom_batch() -> dict:
+    """The slot-geometry keys the per-layer operand functions read."""
+    return {"slot_src": torch.zeros(8, 1, dtype=torch.int32),
+            "slot_geom": torch.zeros(8, 1, dtype=torch.int32)}
 
 
 @pytest.mark.parametrize("kind,d,layers", [("gcn", 100, 4), ("pna", 80, 4), ("pna", 32, 2),
