@@ -27,19 +27,21 @@ Phases, each of which raises (non-zero exit) on failure:
 2. the twenty-four hand-written kernels built from the twenty-two sources of
    ``flowgnn_tpu_torch/csrc`` (rows 16 and 18 share one, rows 10 and 12 are
    one kernel, rows 27-30 one) and their headers (``hopper.cuh`` holds the
-   wgmma, mbarrier and bulk-copy blocks of rows 1-5, 8, 9, 13, 20, 22 and
-   26, ``gin_mlp.cuh`` the bf16 GIN MLP of rows 1, 8 and 13,
-   ``gin_model.cuh`` the whole-model GIN kernel of rows 1 and 8,
+   wgmma, mbarrier and bulk-copy blocks of rows 1-5, 8, 9, 10, 12, 13, 20,
+   22, 23, 25 and 26, ``gin_mlp.cuh`` the bf16 GIN MLP of rows 1, 8, 10, 12,
+   13 and 25, ``gin_layer.cuh`` the per-layer GIN kernel of rows 10, 12, 13
+   and 25 (three lane walks), ``gin_model.cuh`` the whole-model GIN kernel
+   of rows 1 and 8,
    ``gcn_model.cuh`` the GCN one of rows 2 and 9, ``pna_model.cuh`` the PNA
    one of rows 3 and 20 (whole model, one layer), ``dgn_model.cuh`` the DGN
    one of rows 4 and 22, ``lanes.cuh`` GCN's two lane walks,
-   ``linear_wgmma.cuh`` the bf16 product of rows 2-5, 9, 20 and 22), one
+   ``linear_wgmma.cuh`` the bf16 product of rows 2-5, 9, 20, 22 and 23), one
    ``nvcc`` per source, all started together (build time and each
    compiler's register / shared-memory report); each library's count of
    tensor-core (HGMMA, HMMA, IMMA), bulk-copy / TMA (UBLKCP, UTMALDG) and
-   FFMA instructions in its SASS (``cuobjdump -sass``), rows 1-5, 8, 9, 13,
-   20, 22 and 26 required to hold HGMMA and a bulk copy (row 26: or a TMA
-   load);
+   FFMA instructions in its SASS (``cuobjdump -sass``), rows 1-5, 8, 9, 10,
+   12, 13, 20, 22, 23, 25 and 26 required to hold HGMMA and a bulk copy (row
+   26: or a TMA load);
 3. each slot kernel against its plain torch version on the card, at the
    main path's shapes (a real bucket's slot layout at full width: GIN D=100,
    H=200, L=5, with and without the analytic-VN column; GCN D=100, L=5;
@@ -100,6 +102,13 @@ Phases, each of which raises (non-zero exit) on failure:
    on a GAT molhiv ELL bucket and on the GAT hep10k W=128 ELL bucket with the
    longest spill tail (with row 24), and row 24 on an edge-block bucket at
    each reduction width (GAT 68, GIN 100, PNA 160, DGN 200), f32 and bf16;
+   then rows 10, 12 and 25 at each width of ``GIN_WIDTHS`` and row 23 at
+   each head geometry of ``GAT_WIDTHS`` (4 × 16 and 3 × 16), on the lanes of
+   a molhiv ELL bucket (W=128) and of a synthetic one of 900-node graphs
+   (W=1024), with and without the spill operand (``m_spill``, row 23's
+   ``spill_both``), seeded random operands, printing the bf16 launch's weight
+   ring, and what the occupancy calculator says of rows 13, 10 / 12, 25 and
+   23 (``LAYER_OCCUPANCY``);
 4. the main path: GIN, GIN-VN, GCN, PNA, DGN and GAT, each over the
    4113-graph synthetic molhiv stream at full width with seeded synthetic
    weights, f32 and bf16, through ``registry`` → ``pack_dataset`` →
@@ -171,14 +180,17 @@ Phases, each of which raises (non-zero exit) on failure:
 5d. the same for the paths of phase 4e;
 5e. the same for the paths of phase 4f; the windowed scatter on the
    edge-block layout beside ``index_add_`` of the same values;
-5f. rows 8, 1, 13, 9, 3, 2, 4, 5, 20 and 22 alone on their cells (``TURN_CELLS``),
+5f. rows 8, 1, 13, 9, 3, 2, 4, 5, 20, 22, 23, 10, 12 and 25 alone on their cells (``TURN_CELLS``),
    each kernel's bf16 form (its product on wgmma) and its f32 form (FMA) in
    turns: bf16, f32, f32, bf16; launches, ms per stream, bound and share of
    the bound;
-5g. rows 9, 3, 4, 5, 20 and 22 by stage on their cells (``SPLIT_CELLS``), bf16 and
-   f32: each kernel alone whole and with its product, its messages, stats
-   or channels, or both knocked out (the wrappers' ``knockout``, which only
-   this phase passes), and the share of each;
+5g. rows 9, 3, 4, 5, 20, 22, 23, 10, 12 and 25 by stage on their cells
+   (``SPLIT_CELLS``), bf16 and f32: each kernel alone whole and with its
+   product (row 23 both products, rows 10, 12, 25 the MLP), its messages,
+   stats or channels, or both knocked out (the wrappers' ``knockout``, which
+   only this phase passes), each the device time of the stream's launches
+   replayed from a CUDA graph (the wrappers' host work left out), and the
+   share of each;
 6. the bench tools (``flowgnn_tpu_torch.bench``). 6a: row 26
    (``chained_matmul``) on every ``matmul_shapes.SHAPES`` row at full size
    in its dtype, equal to layers·K on all-ones operands and to its plain
@@ -380,12 +392,27 @@ SASS_NEEDS = {"chained_matmul": ("HGMMA", "UBLKCP|UTMALDG"),
                                                   "gcn_local_model_slots", "pna_local_model",
                                                   "dgn_local_model", "gat_local_model_slots",
                                                   "pna_local_layer_slots",
-                                                  "dgn_local_layer_slots")}}
+                                                  "dgn_local_layer_slots",
+                                                  "gin_local_layer_blocks", "gin_layer_fused",
+                                                  "gat_local_layer_ell")}}
 SASS_OPS = ("HGMMA", "UBLKCP", "UTMALDG", "HMMA", "IMMA", "FFMA")
 # Phase 3: the (D, H) at which the tensor-core GIN kernels (rows 1, 8, 13)
 # are held to their plain versions: H' and D' padded, the models' own, and
 # H=512, whose 16 weight chunks a layer stream through a shorter ring.
 GIN_WIDTHS = ((36, 72), (100, 200), (100, 512))
+# Phase 3f: row 23's (H·D, heads) beside GIN_WIDTHS for rows 10, 12 and 25:
+# the model's 4 × 16, and 3 × 16, whose K' pads 48 to 64.
+GAT_WIDTHS = ((64, 4), (48, 3))
+# Phase 3f: rows 10, 12, 23 and 25 at W=128 (molhiv) and at W=1024, a
+# synthetic ELL bucket of graphs of this many nodes.
+BLOCK_BIG = 900
+# Phase 3f: the per-layer kernels' occupancy geometry (``local_layer.
+# layer_occupancy``): GIN (D, H) (row 13 (D, H, vocab)) at the models' H
+# and at H=512, GAT (H·D, heads).
+LAYER_OCCUPANCY = {"gin_local_layer_ell": ((100, 200, 13), (100, 512, 13)),
+                   "gin_local_layer_blocks": ((100, 200), (100, 512)),
+                   "gin_layer_fused": ((100, 200), (100, 512)),
+                   "gat_local_layer_ell": ((64, 4), (48, 3))}
 # Phase 5f: each tensor-core kernel's cells, timed bf16 (wgmma) and f32 (FMA)
 # in turns.
 TURN_CELLS = {
@@ -402,6 +429,11 @@ TURN_CELLS = {
     # Rows 20 and 22 on their record cells and on the hep10k W=512 stream.
     "pna_local_layer": [("pna", "molhiv", SLOT_INTER), ("pna", "hep10k", HEP_SLOT_INTER)],
     "dgn_local_layer_slots": [("dgn", "hep10k", SLOTS), ("dgn", "hep10k", HEP_SLOT_INTER)],
+    # Rows 23, 10, 12 and 25 on their cells.
+    "gat_local_layer_ell": [("gat", "hep10k", ELL_LAYER_FUSED), ("gat", "molhiv", ELL_FUSED)],
+    "gin_local_layer": [("gin", "molhiv", LOCAL), ("gin-vn", "molhiv", LOCAL)],
+    ROW12: [("gin", "molhiv", ELL_EE)],
+    "gin_layer_fused": [("gin", "molhiv", FUSED)],
 }
 # Phase 5g: the kernels split by stage, on these cells: each timed whole and
 # with its product (bit 0), its messages, stats or channels (bit 1), or both
@@ -409,7 +441,9 @@ TURN_CELLS = {
 SPLIT_CELLS = {"gcn_local_model": [("gcn", "hep10k", ELL), ("gcn", "molhiv", ELL)],
                **{MODEL_KERNELS[name][0]: [(name, "molhiv", SLOTS), (name, "hep10k", HEP_SLOTS)]
                   for name in ("pna", "dgn", "gat")},
-               **{k: TURN_CELLS[k] for k in ("pna_local_layer", "dgn_local_layer_slots")}}
+               **{k: TURN_CELLS[k] for k in ("pna_local_layer", "dgn_local_layer_slots",
+                                             "gat_local_layer_ell", "gin_local_layer", ROW12,
+                                             "gin_layer_fused")}}
 # Phase 3: the cluster slot kernels' windows beside molhiv's W=128 (rows 2,
 # 3, 4 and 5): a synthetic bucket of 250-node graphs (W=256) and the hep10k
 # slot bucket with the largest graph (W=512).
@@ -493,6 +527,23 @@ def cuda_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def graph_ms(fn, reps: int = 20) -> float:
+    """Mean device milliseconds per call of ``fn``: its launches captured
+    once in a CUDA graph (after a warm-up call, so plans, weight packs and
+    the shared-memory opt-ins are made outside the capture) and the graph
+    replayed (``cuda_ms``). The wrappers' host work, which ``cuda_ms`` over
+    a Python loop also times once a launch takes less device time than its
+    wrapper's host work, drops out."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, capture_error_mode="relaxed"):
+        fn()
+    return cuda_ms(graph.replay, reps)
 
 
 @contextlib.contextmanager
@@ -1175,6 +1226,112 @@ def check_block_layer_kernels(streams: dict, device, max_err: dict) -> None:
     ], device, max_err)
 
 
+def block_operands(kname: str, batch: dict, d: int, hid: int, spill: bool, dtype, device,
+                   seed: int) -> dict:
+    """Seeded random operands of rows 10, 12 and 25 on an ELL bucket's lanes
+    at width ``d`` and hidden width ``hid``: row 12 (``gin_local_layer_ell_
+    lanes``) on the ELL grid as it is, rows 10 (``gin_local_layer``) and 25
+    (``gin_layer_fused``) on the same lanes as one block a window named by
+    ``block_window``, so their binary search over it runs; with ``spill`` a
+    seeded ``m_spill`` (rows 10 and 12; row 25 has none)."""
+    import numpy as np
+    import torch
+
+    from flowgnn_tpu_torch.models import base
+
+    rng = np.random.default_rng(seed)
+    t = lambda *s: torch.from_numpy(rng.normal(0, 0.2, s).astype(np.float32)).to(device, dtype)
+    meta, window = base.ell_meta(batch), base.ell_geometry(batch)[0]
+    n, p = batch["node_feat"].shape[0], meta.shape[0]
+    ops = dict(h=t(n, d), window=window, w1=t(hid, d), b1=t(hid), w2=t(d, hid), b2=t(d),
+               eps1=(1 + t(1, 1)).float(), final_relu=True)
+    m_spill = t(n, d) if spill else None
+    if kname == ROW12:
+        return dict(ops, ee=t(p, d), ell_meta=meta, m_spill=m_spill)
+    ops.update(v_local=meta[:, 1].contiguous(),
+               block_window=torch.arange(-(-n // window), dtype=torch.int32, device=device))
+    if kname == "gin_local_layer":
+        return dict(ops, ee=t(p, d), u_local=meta[:, 0].contiguous(), m_spill=m_spill)
+    return dict(ops, vals=t(p, d).relu())
+
+
+def gat_layer_operands(batch: dict, hd: int, heads: int, spill: bool, prec, device,
+                       seed: int) -> dict:
+    """Row 23's operands on a GAT ELL bucket at H·D = ``hd`` (``heads`` ×
+    16): layer 0 of seeded synthetic weights of that width over the bucket's
+    own features and scores, ``spill_both`` None, or with ``spill`` seeded
+    sums [Σ score·h_u ‖ Σ score] (the score sums at least 0.5, as a tail's
+    positive scores give: no row's denominator is near zero)."""
+    import numpy as np
+    import torch
+
+    from flowgnn_tpu_torch.models import gat
+    from flowgnn_tpu_torch.params import loaders
+
+    params = loaders.params_from_numpy(
+        loaders.synthetic_gat_params(seed, dim=hd // heads, heads=heads), prec, device)
+    ops = gat.layer_kernel_operands(params, batch, prec, fuse_layers=True)["gat_local_layer_ell"]
+    sums = None
+    if spill:
+        rng = np.random.default_rng(seed)
+        x = rng.normal(0, 0.5, (ops["h"].shape[0], hd + heads)).astype(np.float32)
+        x[:, hd:] = np.abs(x[:, hd:]) + 0.5
+        sums = torch.from_numpy(x).to(device, prec.compute_dtype)
+    return dict(ops, spill_both=sums)
+
+
+def check_block_layer_widths(streams: dict, device, max_err: dict) -> None:
+    """Phase 3f: rows 10, 12 and 25 at each (D, H) of ``GIN_WIDTHS`` and row
+    23 at each (H·D, heads) of ``GAT_WIDTHS``, at W=128 (molhiv's first ELL
+    bucket) and W=1024 (a synthetic ELL bucket of ``BLOCK_BIG``-node
+    graphs), each with and without its spill operand (``m_spill``; row 23
+    ``spill_both``; row 25 has none), f32 (1e-4) and bf16 (5e-2), seeded
+    random operands, printing the bf16 launch's weight ring; then what the
+    occupancy calculator says of rows 13, 10 / 12, 25 and 23."""
+    from flowgnn_tpu_torch.core.numerics import BF16, FLOAT32
+
+    precs = ((FLOAT32, 1e-4), (BF16, 5e-2))
+    for name, kernels in (("gin", ("gin_local_layer", ROW12, "gin_layer_fused")),
+                          ("gat", ("gat_local_layer_ell",))):
+        buckets = [(streams[name, "molhiv", ELL][1][0], "W=128 molhiv ELL bucket 0"),
+                   (big_graph_stream(name, BLOCK_BIG, device, ELL, window=1024)[1][0],
+                    f"W=1024 synthetic ELL bucket, {BLOCK_BIG}-node graphs")]
+        for batch, what in buckets:
+            for kname in kernels:
+                spills = (False,) if kname == "gin_layer_fused" else (False, True)
+                widths = GAT_WIDTHS if name == "gat" else GIN_WIDTHS
+                for (a, b), spill, (prec, tol) in (
+                        (w, sp, pt) for w in widths for sp in spills for pt in precs):
+                    dt = prec.compute_dtype
+                    if name == "gat":
+                        ops = gat_layer_operands(batch, a, b, spill, prec, device, SEED + 3)
+                        label = f"H·D={a} ({b} heads)"
+                    else:
+                        ops = block_operands(kname, batch, a, b, spill, dt, device, SEED + 3)
+                        label = f"D={a} H={b}"
+                    err = compare(kname, ops, f"{what} {label}{' with spill' if spill else ''} "
+                                  f"{dt}", tol)
+                    if prec is FLOAT32:
+                        max_err[kname] = max(max_err[kname], err)
+    print_layer_occupancy(device)
+
+
+def print_layer_occupancy(device) -> None:
+    """Each per-layer kernel of ``LAYER_OCCUPANCY`` in both forms on the
+    card: the shared memory a block takes (with its bf16 weight ring) and
+    the blocks an SM holds (``local_layer.layer_occupancy``)."""
+    import torch
+
+    from flowgnn_tpu_torch.ops.local_layer import layer_occupancy
+
+    for kname, geometries in LAYER_OCCUPANCY.items():
+        for geometry in geometries:
+            for dt in (torch.bfloat16, torch.float32):
+                occ = layer_occupancy(kname, dt, 128, geometry, device)
+                print(f"# occupancy {kname} {dt} at {geometry}: {occ['smem']} B of shared memory "
+                      f"a block (ring {occ['stages']}), {occ['blocks_per_sm']} blocks an SM")
+
+
 def plain_rows(batch: dict, packed):
     """Each node row of a kernel batch's row in the plain batch of the same
     bucket: the slot layout sorts each window's rows by in-degree
@@ -1579,7 +1736,8 @@ def valid_lanes(ops: dict) -> int:
 # kernels stop at a run's last lane with an edge, so this data's work is
 # the rows of the lanes that carry one, not the padded tensor.
 LANE_OPERANDS = ("ee", "vals", "values", "u_local", "v_local", "ell_meta")
-PACKED_WEIGHTS = ("mlp_tiles", "conv_tiles", "tower_tiles", "posttrans_tiles", "glue_tiles")
+PACKED_WEIGHTS = ("mlp_tiles", "conv_tiles", "tower_tiles", "posttrans_tiles", "glue_tiles",
+                  "layer_tiles")
 
 
 def work(kname: str, ops: dict, out) -> tuple[float, float]:
@@ -1758,18 +1916,26 @@ def time_turns(streams: dict, device) -> dict:
 
 
 def time_split(streams: dict, device) -> None:
-    """Phase 5g: rows 9, 3, 4, 5, 20 and 22 by stage on their ``SPLIT_CELLS``, bf16 and
-    f32: the kernel alone over the stream (``cuda_ms``) whole, with its
-    product knocked out (``knockout`` bit 0: the next conv or the tower),
-    with its messages or stats knocked out (bit 1) and with both; the share
-    of the whole each stage takes (whole − without it) and what is left with
-    both out (set-up, barriers, epilogues, the pooled head)."""
+    """Phase 5g: rows 9, 3, 4, 5, 20, 22, 23, 10, 12 and 25 by stage on their
+    ``SPLIT_CELLS``, bf16 and f32: the kernel alone over the stream whole,
+    with its product knocked out (``knockout`` bit 0: the next conv, the
+    tower, the posttrans, the glue, row 23's two products or the GIN MLP),
+    with its messages or stats knocked out (bit 1) and with both, each as
+    the device time of the stream's launches replayed from a CUDA graph
+    (``graph_ms``; beside it the whole as the Python loop's ``cuda_ms``,
+    which a knocked-out launch brings down only to its wrapper's host
+    work); the share of the whole each stage takes (whole − without it) and
+    what is left with both out (set-up, barriers, epilogues, the pooled
+    head). A kernel whose launches a graph does not capture is split by the
+    loop's times, and says so."""
     from flowgnn_tpu_torch.core.numerics import BF16, FLOAT32
     from flowgnn_tpu_torch.params.loaders import params_from_numpy
 
     stage = {"gcn_local_model": "messages", "pna_local_model": "stats",
              "dgn_local_model": "channels", "gat_local_model_slots": "messages",
-             "pna_local_layer": "stats", "dgn_local_layer_slots": "channels"}
+             "pna_local_layer": "stats", "dgn_local_layer_slots": "channels",
+             "gat_local_layer_ell": "messages", "gin_local_layer": "messages", ROW12: "messages",
+             "gin_layer_fused": "message sums"}
     for kname, cells in SPLIT_CELLS.items():
         kernel = kernel_fn(kname)
         for key in cells:
@@ -1778,11 +1944,18 @@ def time_split(streams: dict, device) -> None:
                 calls = kernel_calls(kname, name, params_from_numpy(synthetic_params(name, SEED),
                                                                     prec, device),
                                      streams[key][1], prec, key)
-                ms = {k: cuda_ms(lambda: [kernel(**o, knockout=k) for o in calls])
-                      for k in (0, 1, 2, 3)}
+                loop = {k: cuda_ms(lambda: [kernel(**o, knockout=k) for o in calls])
+                        for k in (0, 1, 2, 3)}
+                try:
+                    ms = {k: graph_ms(lambda: [kernel(**o, knockout=k) for o in calls])
+                          for k in (0, 1, 2, 3)}
+                    how = (f"device, graph replay; the loop {loop[0]:.4f}, without both "
+                           f"{loop[3]:.4f}")
+                except RuntimeError as e:
+                    ms, how = loop, f"the loop: a graph does not capture it ({str(e)[:80]})"
                 whole = ms[0]
                 print(f"# split {kname} {' '.join(key)} {prec.compute_dtype} ({len(calls)} "
-                      f"launches): whole {whole:.4f} ms; without the product {ms[1]:.4f}, "
+                      f"launches): whole {whole:.4f} ms ({how}); without the product {ms[1]:.4f}, "
                       f"without the {stage[kname]} {ms[2]:.4f}, without both {ms[3]:.4f}; "
                       f"product {(whole - ms[1]) / whole:.1%}, {stage[kname]} "
                       f"{(whole - ms[2]) / whole:.1%}, the rest {ms[3] / whole:.1%}")
@@ -2158,6 +2331,7 @@ def main() -> int:
     check_new_layer_kernels(streams, dev, max_err)
     check_layer_windows(streams, dev, max_err)
     check_block_layer_kernels(streams, dev, max_err)
+    check_block_layer_widths(streams, dev, max_err)
     launches = run_main_path(streams, dev, slot_keys + hep_keys + hep_slot_keys + spill_keys
                              + layer_keys + new_keys + block_keys + big_keys)
     for k, n in check_ell_matches_slots(streams, dev).items():

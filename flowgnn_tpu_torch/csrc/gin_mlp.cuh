@@ -1,6 +1,8 @@
 // The GIN update MLP on Hopper's tensor cores, shared by the bf16 forms of
-// rows 1, 8 and 13 (gin_local_model_slots.cu, gin_local_model.cu through
-// gin_model.cuh, and gin_local_layer_ell.cu).
+// rows 1 and 8 (gin_local_model_slots.cu, gin_local_model.cu through
+// gin_model.cuh) and of the per-layer rows 13, 10 / 12 and 25
+// (gin_local_layer_ell.cu, gin_local_layer_blocks.cu, gin_layer_fused.cu
+// through gin_layer.cuh).
 //
 // One block of 128 rows (two warpgroups of 64) computes
 //   out = z · W2ᵀ + b2 (relu but on the last layer),  z = bf16(relu(act · W1ᵀ + b1)),
@@ -23,7 +25,7 @@
 // A Ring of S chunk buffers in shared memory is fed by one bulk copy per
 // chunk against a "full" mbarrier per buffer: the caller prefetches the
 // first S chunks of its sequence (all layers' chunks in order for the
-// whole-model kernels, one layer's for row 13) as early as it can, and the
+// whole-model kernels, one layer's for the per-layer ones) as early as it can, and the
 // MLP refills a buffer with the chunk S further on as soon as every warp's
 // wgmma has finished reading it (a named barrier, then one thread issues the
 // copy). With S = C (all of a layer's chunks: 97 KB at D = 100, H = 200) the

@@ -53,8 +53,8 @@ import torch
 
 from ..core.numerics import FLOAT32, Precision
 from ..ops.local_layer import (
-    gat_glue_tiles, gat_local_layer_ell, gat_local_message_ell, gat_local_message_slots,
-    gat_local_model_slots,
+    gat_glue_tiles, gat_layer_tiles, gat_local_layer_ell, gat_local_message_ell,
+    gat_local_message_slots, gat_local_model_slots,
 )
 from . import base as _base
 from .base import acc_dtype, edge_segment_sum, linear, mean_pool
@@ -133,6 +133,21 @@ def glue_tiles(params: dict, prec: Precision) -> Optional[torch.Tensor]:
     hd = H * D
     return gat_glue_tiles(params["proj_w"][1:].reshape(L - 1, hd, hd),
                           params["skip_w"][1:].reshape(L - 1, hd, hd))
+
+
+def layer_tiles(params: dict, prec: Precision) -> Optional[torch.Tensor]:
+    """The fused ELL layer's (kernel table row 23) packed weights of layers
+    0..L−2, layer l's slice its skip weight and the next layer's projection
+    (``ops.local_layer.gat_layer_tiles`` over ``skip_w[:L−1]`` and
+    ``proj_w[1:]`` viewed as [L−1, H·D_out, H·D_in]: packed once per weight
+    set, and again after an in-place update of the weights); None outside
+    float32 and bf16, which the kernel does not take."""
+    if prec.compute_dtype not in (torch.float32, torch.bfloat16):
+        return None
+    L, H, D = params["proj_w"].shape[:3]
+    hd = H * D
+    return gat_layer_tiles(params["skip_w"][: L - 1].reshape(L - 1, hd, hd),
+                           params["proj_w"][1:].reshape(L - 1, hd, hd))
 
 
 def megakernel_operands(params: dict, prec: Precision = FLOAT32) -> dict:
@@ -274,11 +289,13 @@ def _ell_message(h: torch.Tensor, s_src: torch.Tensor, s_tgt: torch.Tensor, batc
 
 def fused_layer_operands(params: dict, batch: dict, l: int, h: torch.Tensor,
                          s_src: torch.Tensor, s_tgt: torch.Tensor, prev: torch.Tensor,
-                         meta: torch.Tensor, spill, a_all: torch.Tensor) -> dict:
+                         meta: torch.Tensor, spill, a_all: torch.Tensor,
+                         tiles: Optional[torch.Tensor] = None) -> dict:
     """The keyword operands the fused ELL path hands ``gat_local_layer_ell``
     for the non-final layer ``l``: h, ``prev`` [n, H, D] and the scores of
     this layer, ``meta`` and ``spill`` as in ``_ell_message``, ``a_all`` as
-    ``_score_maps`` gives it. ``spill_both`` is the spill tail's [Σ score·h_u
+    ``_score_maps`` gives it, ``tiles`` as ``layer_tiles`` gives them (None:
+    the wrapper packs them). ``spill_both`` is the spill tail's [Σ score·h_u
     ‖ Σ score] per node, or None without a tail."""
     n = h.shape[0]
     hd = h.shape[1] * h.shape[2]
@@ -290,6 +307,7 @@ def fused_layer_operands(params: dict, batch: dict, l: int, h: torch.Tensor,
         prev=prev.reshape(n, hd), spill_both=sp_both,
         w_skip=params["skip_w"][l].reshape(hd, hd), w_proj=params["proj_w"][l + 1].reshape(hd, hd),
         a_mat=a_all[l + 1], window=_base.ell_geometry(batch)[0], num_heads=s_src.shape[1],
+        layer_tiles=None if tiles is None else tiles[l],
     )
 
 
@@ -313,7 +331,7 @@ def layer_kernel_operands(params: dict, batch: dict, prec: Precision = FLOAT32,
         if fuse_layers:
             out = {"gat_local_layer_ell": fused_layer_operands(
                 params, batch, 0, h, s_src, s_tgt, prev, meta, spill,
-                _score_maps(params, prec.compute_dtype))}
+                _score_maps(params, prec.compute_dtype), layer_tiles(params, prec))}
         else:
             out = {"gat_local_message_ell": ell_message_operands(h, s_src, s_tgt, batch, meta)}
     else:
@@ -360,6 +378,7 @@ def forward(
         meta, spill = _base.ell_meta(batch), ell_spill_lanes(batch)
     if fuse:
         a_all = _score_maps(params, prec.compute_dtype)
+        tiles = layer_tiles(params, prec)
     u, v = batch["senders"].long(), batch["receivers"].long()
     inter = [h]
     scores = None  # the fused layer's scores of the next layer
@@ -370,7 +389,7 @@ def forward(
         if fuse and l != L - 1:
             n = h.shape[0]
             out = gat_local_layer_ell(**fused_layer_operands(
-                params, batch, l, h, s_src, s_tgt, prev, meta, spill, a_all))
+                params, batch, l, h, s_src, s_tgt, prev, meta, spill, a_all, tiles))
             h = out[:, :hd].contiguous().reshape(n, H, D)
             prev = out[:, hd : 2 * hd].contiguous().reshape(n, H, D)
             scores = out[:, 2 * hd : 2 * hd + H].contiguous(), out[:, 2 * hd + H :].contiguous()

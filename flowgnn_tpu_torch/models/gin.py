@@ -166,8 +166,7 @@ def ell_layer_operands(params: dict, batch: dict, prec: Precision, l: int, h: to
     when there are neither; ``mlp_tiles`` layer ``l``'s slice of
     ``weight_tiles``. With ``lane_ee`` the bond embedding goes in per ELL
     lane (``ee``, from ``bond_embed``, rounded to the compute dtype) and not
-    as the layer's table, so the layer runs the per-lane kernel, which reads
-    W1 and W2 as they are."""
+    as the layer's table, so the layer runs the per-lane kernel (row 12)."""
     table = params["edge_embedding"][l]
     m_spill = None
     if spill is not None:
@@ -177,23 +176,24 @@ def ell_layer_operands(params: dict, batch: dict, prec: Precision, l: int, h: to
         m_spill = vn if m_spill is None else (m_spill + vn).to(h.dtype)
     ops = dict(
         ell_meta=meta, h=h, m_spill=m_spill, ee_table=table.to(prec.compute_dtype),
-        window=_base.ell_geometry(batch)[0], **_mlp_operands(params, l, eps_all),
+        window=_base.ell_geometry(batch)[0], **_mlp_operands(params, prec, l, eps_all),
     )
     if lane_ee:
         lanes = batch["loc_ulocal"].shape[0]
         ops.update(ee_table=None, ee=bond_embed(table, batch["edge_attr"][:lanes], prec))
-    else:
-        tiles = weight_tiles(params, prec)
-        ops["mlp_tiles"] = None if tiles is None else tiles[l]
     return ops
 
 
-def _mlp_operands(params: dict, l: int, eps_all: torch.Tensor) -> dict:
-    """Layer ``l``'s MLP operands of the per-layer GIN kernels."""
+def _mlp_operands(params: dict, prec: Precision, l: int, eps_all: torch.Tensor) -> dict:
+    """Layer ``l``'s MLP operands of the per-layer GIN kernels (rows 13, 10,
+    12 and 25): ``mlp_tiles`` is layer ``l``'s slice of ``weight_tiles``
+    (None outside bf16)."""
+    tiles = weight_tiles(params, prec)
     return dict(
         w1=params["mlp1_w"][l], b1=params["mlp1_b"][l], w2=params["mlp2_w"][l],
         b2=params["mlp2_b"][l], eps1=eps_all[l : l + 1],
         final_relu=l != params["mlp1_w"].shape[0] - 1,
+        mlp_tiles=None if tiles is None else tiles[l],
     )
 
 
@@ -212,18 +212,18 @@ def _local_layer_operands(params: dict, batch: dict, prec: Precision, l: int, h:
     return dict(
         ee=ee[:p], u_local=batch["loc_ulocal"], v_local=batch["loc_vlocal"],
         block_window=batch["loc_window"], h=h, m_spill=m_spill, window=_base.PALLAS_WINDOW,
-        **_mlp_operands(params, l, eps_all),
+        **_mlp_operands(params, prec, l, eps_all),
     )
 
 
-def _fused_layer_operands(params: dict, batch: dict, l: int, h: torch.Tensor, msg: torch.Tensor,
-                          eps_all: torch.Tensor) -> dict:
+def _fused_layer_operands(params: dict, batch: dict, prec: Precision, l: int, h: torch.Tensor,
+                          msg: torch.Tensor, eps_all: torch.Tensor) -> dict:
     """The keyword operands the fused edge-block path hands
     ``gin_layer_fused`` for layer ``l``: ``msg`` is relu(h_u + ee) per lane
     of the blocked edge order."""
     return dict(
         vals=msg, v_local=batch["blk_vlocal"], block_window=batch["blk_window"], h=h,
-        window=_base.PALLAS_WINDOW, **_mlp_operands(params, l, eps_all),
+        window=_base.PALLAS_WINDOW, **_mlp_operands(params, prec, l, eps_all),
     )
 
 
@@ -245,7 +245,8 @@ def layer_kernel_operands(params: dict, batch: dict, prec: Precision = FLOAT32,
                                                              eps_all)}
         msg = relu(gather_sources(h, batch) + ee)
         if fused and "vn_mask" not in batch:
-            return {"gin_layer_fused": _fused_layer_operands(params, batch, 0, h, msg, eps_all)}
+            return {"gin_layer_fused": _fused_layer_operands(params, batch, prec, 0, h, msg,
+                                                             eps_all)}
         return {"windowed_segment_sum": _base.blocked_segment_operands(msg, batch)}
     spill = _base.ell_spill(batch)
     out = {"gin_local_layer_ell": ell_layer_operands(
@@ -301,7 +302,7 @@ def forward(
             continue
         msg = relu(gather_sources(h, batch) + ee)
         if fused:
-            h = gin_layer_fused(**_fused_layer_operands(params, batch, l, h, msg, eps_all))
+            h = gin_layer_fused(**_fused_layer_operands(params, batch, prec, l, h, msg, eps_all))
             inter.append(h)
             continue
         agg = edge_segment_sum(msg, batch)

@@ -13,11 +13,14 @@ Each launch adds one to ``gin_layer_fused.launches``.
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 from .local_layer import (
-    _acc_dtype, _check, _check_ell_geometry, _dispatch, _dtype_code, _library, _padded, _raise_on,
-    block_lane_windows, check_gin_mlp, gin_epilogue, lane_rows,
+    _acc_dtype, _check, _check_pairs, _dispatch, _dtype_code, _gin_layer_plan, _knocked_out,
+    _library, _mlp_operand, _padded, _raise_on, block_lane_windows, check_gin_mlp, gin_epilogue,
+    lane_rows,
 )
 
 
@@ -33,6 +36,7 @@ def gin_layer_fused_ref(
     eps1: torch.Tensor,  # [1, 1] 1+ε, float32 (float64 for f64 h)
     window: int,
     final_relu: bool,
+    mlp_tiles: Optional[torch.Tensor] = None,  # the kernel's packed weights; not read here
 ) -> torch.Tensor:
     """Plain-torch ``gin_layer_fused``: the next h [n, D] in h's dtype. Per
     window row v over its lanes in lane order acc = Σ vals in f32 (sentinel
@@ -51,7 +55,7 @@ def gin_layer_fused_ref(
 
 
 def _launch_gin_fused(vals, v_local, block_window, h, w1, b1, w2, b2, eps1, window,
-                      final_relu) -> torch.Tensor:
+                      final_relu, tiles, knockout=0) -> torch.Tensor:
     dt = h.dtype
     code = _dtype_code(dt)
     dev = h.device
@@ -64,18 +68,24 @@ def _launch_gin_fused(vals, v_local, block_window, h, w1, b1, w2, b2, eps1, wind
     _check("vals", vals, dt, (p, d), dev)
     _check("v_local", v_local, torch.int32, (p,), dev)
     _check("block_window", block_window, torch.int32, (nb,), dev)
+    _check_pairs(("vals", vals), ("h", h))
+    name = "gin_layer_fused"
+    lib = _library(name)
+    stages, _ = _gin_layer_plan(name, code, d, hid, 0, window, dev.index)
+    if code == 1:  # the wgmma MLP reads the layer's weights as packed chunks
+        tiles = _mlp_operand(None, tiles, w1, w2, 1, per_layer=True)
     nw = -(-n // window)
-    lib = _library("gin_layer_fused")
-    _check_ell_geometry(lib, d, window, lib["smem_bytes"](d), dev)
     out = torch.empty((n, d), dtype=dt, device=dev)
     rc = lib["launch"](
         code, vals.data_ptr(), v_local.data_ptr(), block_window.data_ptr(), h.data_ptr(),
         w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), b2.data_ptr(), eps1.data_ptr(),
-        out.data_ptr(), nw, n, window, nb, p // nb, d, hid, int(bool(final_relu)),
-        dev.index, torch.cuda.current_stream(dev).cuda_stream,
+        None if code == 0 else tiles.data_ptr(), out.data_ptr(), nw, n, window, nb, p // nb, d,
+        hid, int(bool(final_relu)), stages, int(knockout), dev.index,
+        torch.cuda.current_stream(dev).cuda_stream,
     )
-    _raise_on(lib, rc, "gin_layer_fused")
+    _raise_on(lib, rc, name)
     gin_layer_fused.launches += 1
+    gin_layer_fused.stages = stages
     return out
 
 
@@ -91,15 +101,24 @@ def gin_layer_fused(
     eps1: torch.Tensor,
     window: int,
     final_relu: bool,
+    mlp_tiles: Optional[torch.Tensor] = None,
+    knockout: int = 0,
 ) -> torch.Tensor:
     """One whole GIN layer over an edge-block batch, messages already
     formed: the next h [n, D] in h's dtype (``csrc/gin_layer_fused.cu``).
     Operands as in ``gin_layer_fused_ref``; a CPU tensor runs the plain
     version, a CUDA tensor launches the kernel (float32 or bfloat16 ``vals``,
     h and weights, int32 ``v_local`` / ``block_window``, float32 ``eps1``)
-    or raises."""
-    args = (vals, v_local, block_window, h, w1, b1, w2, b2, eps1, window, final_relu)
+    or raises. In bfloat16 the update MLP runs on the tensor cores from
+    ``mlp_tiles``, this layer's slice of ``local_layer.mlp_tiles()`` (packed
+    here, once per weight set, when not given; ``gin_layer_fused.stages``
+    the weight ring). ``knockout`` times the CUDA kernel without a stage
+    (bit 0 the MLP, bit 1 the message sums; the models never set it)."""
+    args = (vals, v_local, block_window, h, w1, b1, w2, b2, eps1, window, final_relu, mlp_tiles)
+    if _knocked_out(h, knockout):
+        return _launch_gin_fused(*args, knockout=knockout)
     return _dispatch(h, gin_layer_fused_ref, _launch_gin_fused, args)
 
 
 gin_layer_fused.launches = 0
+gin_layer_fused.stages = 0

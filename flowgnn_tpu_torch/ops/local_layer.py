@@ -920,6 +920,7 @@ def gin_local_layer_ref(
     eps1: torch.Tensor,  # [1, 1] 1+ε, float32 (float64 for f64 h)
     window: int,
     final_relu: bool,
+    mlp_tiles: Optional[torch.Tensor] = None,  # the kernel's packed weights; not read here
 ) -> torch.Tensor:
     """Plain-torch ``gin_local_layer``: one whole GIN / GIN-VN layer over the
     legacy dynamic-window local layout, the next h [n, D] in h's dtype. As
@@ -943,6 +944,7 @@ def gin_local_layer_ell_lanes_ref(
     eps1: torch.Tensor,
     window: int,
     final_relu: bool,
+    mlp_tiles: Optional[torch.Tensor] = None,  # the kernel's packed weights; not read here
 ) -> torch.Tensor:
     """Plain-torch ``gin_local_layer_ell_lanes``: ``gin_local_layer_ell_ref``
     with each lane's bond embedding given in h's dtype instead of summed
@@ -1123,6 +1125,7 @@ def gat_local_layer_ell_ref(
     a_mat: torch.Tensor,  # [H·D, 2H] block-diagonal (a_src ‖ a_tgt) of the next layer
     window: int,
     num_heads: int,
+    layer_tiles: Optional[torch.Tensor] = None,  # the kernel's packed weights; not read here
 ) -> torch.Tensor:
     """Plain-torch ``gat_local_layer_ell``: one whole non-final GAT layer
     over the ELL layout, [n, 2·H·D + 2H] = (h_next ‖ feat ‖ s_src' ‖ s_tgt')
@@ -1166,11 +1169,14 @@ def _library(name: str) -> dict:
     ``_max_heads``), as do the legacy local and fused edge-block layers. The
     GIN and PNA slot libraries also export ``_rows_per_block`` and
     ``_max_cluster``, as do the GCN, DGN and GAT slot libraries and the
-    per-layer PNA and DGN slot libraries (rows 20 and 22); the three
-    libraries of ``GIN_MLP_LIBRARIES`` ``_mlp_dims``, row 13 ``_smem_per_sm``,
-    and the users of ``csrc/linear_wgmma.cuh`` the geometry of their weight
-    chunks (rows 9 and 2 ``_conv_dims``, rows 3 and 20 ``_tower_dims``, rows
-    4 and 22 ``_posttrans_dims``, row 5 ``_glue_dims``), those that keep two
+    per-layer PNA and DGN slot libraries (rows 20 and 22); the libraries
+    of ``GIN_MLP_LIBRARIES`` ``_mlp_dims``, the per-layer GIN libraries
+    (``GIN_LAYER_LIBRARIES``: rows 13, 10 / 12 and 25) and row 23
+    ``_smem_per_sm``, ``_prepare`` and ``_occupancy`` (row 23 also
+    ``_tile_dims``), and the users of ``csrc/linear_wgmma.cuh`` the geometry
+    of their weight chunks (rows 9 and 2 ``_conv_dims``, rows 3 and 20
+    ``_tower_dims``, rows 4 and 22 ``_posttrans_dims``, row 5
+    ``_glue_dims``), those that keep two
     blocks an SM (rows 9, 2, 4, 5 and 22) and row 20 also ``_smem_per_sm``
     and ``_occupancy``."""
     slot_getters = ("max_d", "max_slots")
@@ -1223,7 +1229,7 @@ def _library(name: str) -> dict:
         ),
         "gin_local_layer_ell": (
             "gin_layer_ell", layer_getters, [_I32] * 5,
-            [_I32] + [_PTR] * 11 + [_I32] * 9 + [_I32, _PTR],
+            [_I32] + [_PTR] * 11 + [_I32] * 10 + [_I32, _PTR],
         ),
         "gcn_local_message_ell": (
             "gcn_msg_ell", layer_getters, [_I32] * 2,
@@ -1249,16 +1255,16 @@ def _library(name: str) -> dict:
         # One kernel behind two wrappers: the legacy local layer and the ELL
         # layer with per-lane bond embeddings.
         "gin_local_layer_blocks": (
-            "gin_layer_blocks", layer_getters, [_I32],
-            [_I32] + [_PTR] * 12 + [_I32] * 9 + [_I32, _PTR],
+            "gin_layer_blocks", layer_getters, [_I32] * 4,
+            [_I32] + [_PTR] * 13 + [_I32] * 11 + [_I32, _PTR],
         ),
         "gin_layer_fused": (
-            "gin_fused", layer_getters, [_I32],
-            [_I32] + [_PTR] * 10 + [_I32] * 8 + [_I32, _PTR],
+            "gin_fused", layer_getters, [_I32] * 4,
+            [_I32] + [_PTR] * 11 + [_I32] * 10 + [_I32, _PTR],
         ),
         "gat_local_layer_ell": (
-            "gat_layer_ell", layer_getters + ("max_heads",), [_I32] * 2,
-            [_I32] + [_PTR] * 10 + [_I32] * 6 + [_I32, _PTR],
+            "gat_layer_ell", layer_getters + ("max_heads",), [_I32] * 4,
+            [_I32] + [_PTR] * 9 + [_I32] * 8 + [_I32, _PTR],
         ),
     }[name]
     lib = load_library(name)
@@ -1276,8 +1282,14 @@ def _library(name: str) -> dict:
         f.argtypes, f.restype = [_I32, _I32, _INT_P], None
         fns["mlp_dims"] = f
     per_sm = ("smem_per_sm", [_I32], _I64)  # the ring's depth keeps two blocks an SM
+    # The per-layer kernels whose launch plan is cached (_gin_layer_plan,
+    # _gat_layer_plan).
+    prepare = ("prepare", [_I64, _I32], _I32)
+    gin_occupancy = ("occupancy", [_I32, _I32, _I32, _I64, _INT_P], _I32)
     extras = {
-        "gin_local_layer_ell": (per_sm,),
+        **{k: (per_sm, prepare, gin_occupancy) for k in GIN_LAYER_LIBRARIES},
+        "gat_local_layer_ell": (per_sm, prepare, ("tile_dims", [_I32, _INT_P], None),
+                                ("occupancy", [_I32, _I64, _INT_P], _I32)),
         "gcn_local_model": (per_sm, ("conv_dims", [_I32, _INT_P], None),
                             ("occupancy", [_I32] * 8 + [_INT_P], _I32)),
         "gcn_local_model_slots": (per_sm, ("conv_dims", [_I32, _INT_P], None),
@@ -1560,9 +1572,11 @@ def _ell_block(ell_meta: torch.Tensor, nw: int, dev) -> int:
     return lanes // nw
 
 
-# The libraries of the three GIN kernels whose bf16 update MLP is
-# ``csrc/gin_mlp.cuh``'s: rows 1, 8 and 13.
-GIN_MLP_LIBRARIES = ("gin_local_model_slots", "gin_local_model", "gin_local_layer_ell")
+# The libraries of the per-layer GIN kernels (``csrc/gin_layer.cuh``'s one
+# body: rows 13, 10 / 12 and 25), and of every GIN kernel whose bf16 update
+# MLP is ``csrc/gin_mlp.cuh``'s: those and rows 1 and 8.
+GIN_LAYER_LIBRARIES = ("gin_local_layer_ell", "gin_local_layer_blocks", "gin_layer_fused")
+GIN_MLP_LIBRARIES = ("gin_local_model_slots", "gin_local_model", *GIN_LAYER_LIBRARIES)
 MLP_CHUNK = 32  # hidden units per weight chunk of the bf16 MLP
 
 
@@ -1728,6 +1742,46 @@ def gat_glue_tiles(proj_t: torch.Tensor, skip_t: torch.Tensor) -> torch.Tensor:
     return _pack_once(("gat_glue",), (proj_t, skip_t), pack)
 
 
+GAT_LAYER_N = 64  # row 23's products' width: the widest H·D
+
+
+def gat_layer_geometry(hd: int) -> tuple[int, int, int, int]:
+    """Row 23's bf16 weight chunks at H·D = ``hd`` (``csrc/gat_local_layer_ell.cu``:
+    ``geom``): (K' = hd padded to whole chunks of 32, the skip product's
+    chunks K'/32, the projection's 2K'/32, the bf16 elements of one chunk
+    32·64)."""
+    kp, chunks, elems = linear_geometry(hd, GAT_LAYER_N)
+    return kp, chunks, 2 * chunks, elems
+
+
+def gat_layer_pack(w_skip: torch.Tensor, w_proj: torch.Tensor) -> torch.Tensor:
+    """Row 23's weights of a stack of layers as its kernel reads them:
+    ``w_skip`` and ``w_proj`` [L', H·D, H·D] as [out, in], each layer's skip
+    weight and the next layer's projection. bfloat16: [L', C, 32·64], the
+    skip product's K'/32 chunks of w_skipᵀ [K', 64], then the projection's
+    2K'/32 chunks of [w_projᵀ; w_projᵀ] [2K', 64] (the hi and the lo half
+    of feat meet the same weights; ``linear_tiles``); float32: [L', 2, H·D,
+    64], w_skipᵀ then w_projᵀ. Pads zero."""
+    layers, hd, _ = w_skip.shape
+    if w_skip.dtype != torch.bfloat16:
+        out = w_skip.new_zeros(layers, 2, hd, GAT_LAYER_N)
+        out[:, 0, :, :hd] = w_skip.transpose(1, 2)
+        out[:, 1, :, :hd] = w_proj.transpose(1, 2)
+        return out
+    kp = gat_layer_geometry(hd)[0]
+    proj = w_proj.new_zeros(layers, hd, 2 * kp)
+    proj[:, :, :hd] = w_proj
+    proj[:, :, kp : kp + hd] = w_proj
+    return torch.cat([linear_tiles(w_skip, GAT_LAYER_N), linear_tiles(proj, GAT_LAYER_N)], dim=1)
+
+
+def gat_layer_tiles(w_skip: torch.Tensor, w_proj: torch.Tensor) -> torch.Tensor:
+    """``gat_layer_pack`` of a weight set, packed once (``_pack_once``):
+    the models pass ``skip_w[:L−1]`` and ``proj_w[1:]`` viewed as [L−1,
+    H·D, H·D] and hand layer l its slice (``gat.layer_tiles``)."""
+    return _pack_once(("gat_layer",), (w_skip, w_proj), lambda: gat_layer_pack(w_skip, w_proj))
+
+
 def _linear_operand(lib, dims_fn: str, d: int, tiles, k: int, n: int, layers: int, pack,
                     dev) -> torch.Tensor:
     """A bf16 product's weight chunks: ``tiles`` as given, checked, or packed
@@ -1753,18 +1807,26 @@ def _check_linear_dims(lib, dims_fn: str, d: int, k: int, n: int) -> None:
                            f"{(kp, n, elems * 2)}")
 
 
-def _mlp_operand(lib, tiles, w1_all, w2_all, num_layers: int, per_layer: bool) -> torch.Tensor:
-    """The bf16 kernel's weight chunks: ``tiles`` as given (the whole stack,
-    or one layer's when ``per_layer``), checked, or packed here from the
-    weights (``mlp_tiles``). The kernel's geometry (``_mlp_dims``) must be
-    the host's."""
-    d, hid = w1_all.shape[1], w1_all.shape[0] // num_layers
-    dp, hp, n2, chunks, elems = gin_mlp_geometry(d, hid)
+def _check_mlp_dims(lib, d: int, hid: int) -> None:
+    """Raise unless the kernel's bf16 MLP geometry (``_mlp_dims``) at width
+    ``d`` and hidden width ``hid`` is the host's (``gin_mlp_geometry``)."""
+    dp, hp, n2, _, elems = gin_mlp_geometry(d, hid)
     dims = (ctypes.c_int * 4)()
     lib["mlp_dims"](d, hid, dims)
     if tuple(dims) != (dp, hp, n2, elems * 2):
         raise RuntimeError(f"the kernel's MLP geometry {tuple(dims)} is not the host's "
                            f"{(dp, hp, n2, elems * 2)}")
+
+
+def _mlp_operand(lib, tiles, w1_all, w2_all, num_layers: int, per_layer: bool) -> torch.Tensor:
+    """The bf16 kernel's weight chunks: ``tiles`` as given (the whole stack,
+    or one layer's when ``per_layer``), checked, or packed here from the
+    weights (``mlp_tiles``). The kernel's geometry (``_mlp_dims``) must be
+    the host's; ``lib`` None: the caller's launch plan checked it."""
+    d, hid = w1_all.shape[1], w1_all.shape[0] // num_layers
+    _, _, _, chunks, elems = gin_mlp_geometry(d, hid)
+    if lib is not None:
+        _check_mlp_dims(lib, d, hid)
     if tiles is None:
         tiles = mlp_tiles(w1_all, w2_all, num_layers)
         tiles = tiles[0] if per_layer else tiles
@@ -1993,6 +2055,30 @@ def occupancy(kernel: str, dtype: torch.dtype, window: int, geometry: tuple, gma
         rc = lib["occupancy"](code, window, *geometry, gmax, t_out, stages, dev.index, out)
     _raise_on(lib, rc, f"{kernel} occupancy")
     return dict(smem=smem, stages=stages, blocks_per_sm=out[0], clusters=out[1])
+
+
+def layer_occupancy(kernel: str, dtype: torch.dtype, window: int, geometry: tuple,
+                    device) -> dict:
+    """What the occupancy calculator says of a per-layer kernel whose launch
+    plan is cached (``GIN_LAYER_LIBRARIES``, ``gat_local_layer_ell``) in
+    ``dtype`` at this geometry on ``device`` (the launch's own plan): the
+    block's shared memory, the weight ring, the blocks of that form one SM
+    holds. ``geometry``: (D, H) for GIN (row 13: (D, H, vocab)), (H·D,
+    heads) for GAT."""
+    code = _dtype_code(dtype)
+    dev = torch.device(device)
+    lib = _library(kernel)
+    if kernel == "gat_local_layer_ell":
+        stages, smem = _gat_layer_plan(code, *geometry, window, dev.index)
+        args = (code, smem)
+    else:
+        d, hid, *vocab = geometry
+        stages, smem = _gin_layer_plan(kernel, code, d, hid, vocab[0] if vocab else 0, window,
+                                       dev.index)
+        args = (code, d, hid, smem)
+    out = (ctypes.c_int * 1)()
+    _raise_on(lib, lib["occupancy"](*args, out), f"{kernel} occupancy")
+    return dict(smem=smem, stages=stages, blocks_per_sm=out[0])
 
 
 def gcn_local_model(
@@ -2409,6 +2495,56 @@ def _layer_tiles(name: str, d: int, tiles, pack, dev) -> torch.Tensor:
     return tiles
 
 
+# The largest dynamic shared memory each per-layer library's kernels were
+# opted in to, by (library, device): the limit only rises, so every launch
+# plan made before stays valid.
+_PREPARED: dict = {}
+
+
+def _prepare(name: str, lib, smem: int, device: int) -> None:
+    """Opt library ``name``'s kernels in to ``smem`` bytes of dynamic shared
+    memory on CUDA device ``device``, unless an earlier plan did already."""
+    if _PREPARED.get((name, device), -1) >= smem:
+        return
+    _raise_on(lib, lib["prepare"](smem, device), f"{name} prepare")
+    _PREPARED[name, device] = smem
+
+
+@functools.cache
+def _gin_layer_plan(name: str, code: int, d: int, hid: int, vocab: int, window: int,
+                    device: int) -> tuple:
+    """The launch plan of the per-layer GIN kernels (``GIN_LAYER_LIBRARIES``:
+    rows 13, 10 / 12 and 25) at this geometry on CUDA device ``device``,
+    worked out once per geometry: (the bf16 weight ring, the block's shared
+    memory). The ring is the deepest that keeps two blocks an SM (0 in f32);
+    ``vocab`` is row 13's bond table (0 for the others). Raises before
+    launch on what the window (whole blocks of 128 rows, at most 8), the tile
+    or the card's shared memory do not take, or an MLP geometry the host does
+    not share; a refusal is not cached."""
+    lib = _library(name)
+    dev = torch.device("cuda", device)
+    _check_tile(lib, d)
+    table = (vocab,) if name == "gin_local_layer_ell" else ()
+    smem_of = lambda stages: lib["smem_bytes"](code, d, hid, *table, stages)
+    stages = 0
+    if code == 1:  # the wgmma MLP
+        _check_mlp_dims(lib, d, hid)
+        stages = ring_stages(smem_of, gin_mlp_geometry(d, hid)[3], _two_blocks_budget(lib, dev))
+    smem = smem_of(stages)
+    _check_ell_geometry(lib, d, window, smem, dev)
+    _prepare(name, lib, smem, device)
+    return stages, smem
+
+
+def _check_pairs(*named) -> None:
+    """The kernels read these rows as column pairs: raise unless each
+    (name, tensor or None) starts on a pair."""
+    for name, t in named:
+        if t is not None and t.data_ptr() % (2 * t.element_size()):
+            raise ValueError(f"{name}: rows are read as pairs; its data must be "
+                             f"{2 * t.element_size()}-byte aligned")
+
+
 def _launch_dgn_layer(slot_src, h, eig, inv_deg, eigw_sum, inv_abssum, w_post, b_post,
                       window, slots, m_spill, tiles, knockout=0) -> torch.Tensor:
     dt = h.dtype
@@ -2633,7 +2769,7 @@ def _check_ell_lanes(ell_meta, h, window, library: str, smem_args):
 
 
 def _launch_gin_layer_ell(ell_meta, h, m_spill, ee_table, w1, b1, w2, b2, eps1, window,
-                          final_relu, tiles) -> torch.Tensor:
+                          final_relu, tiles, knockout=0) -> torch.Tensor:
     dt = h.dtype
     code = _dtype_code(dt)
     dev = h.device
@@ -2641,26 +2777,21 @@ def _launch_gin_layer_ell(ell_meta, h, m_spill, ee_table, w1, b1, w2, b2, eps1, 
     hid = check_gin_mlp(h, m_spill, w1, b1, w2, b2, eps1)
     vocab = ee_table.shape[0]
     _check("ee_table", ee_table, dt, (vocab, d), dev)
-    for name, t in (("h", h), ("m_spill", m_spill)):
-        if t is not None and t.data_ptr() % (2 * t.element_size()):
-            raise ValueError(f"{name}: rows are read as pairs; its data must be "
-                             f"{2 * t.element_size()}-byte aligned")
-    lib = _library("gin_local_layer_ell")
-    smem_of = lambda stages: lib["smem_bytes"](code, d, hid, vocab, stages)
-    _check_tile(lib, d)
-    stages = 0
-    if code == 1:  # the wgmma MLP; the ring keeps two blocks an SM
-        tiles = _mlp_operand(lib, tiles, w1, w2, 1, per_layer=True)
-        stages = ring_stages(smem_of, gin_mlp_geometry(d, hid)[3], _two_blocks_budget(lib, dev))
-    _, lanes, nw = _check_ell_lanes(ell_meta, h, window, "gin_local_layer_ell", (code, d, hid, vocab,
-                                                                                  stages))
+    _check_pairs(("h", h), ("m_spill", m_spill))
+    name = "gin_local_layer_ell"
+    lib = _library(name)
+    stages, _ = _gin_layer_plan(name, code, d, hid, vocab, window, dev.index)
+    if code == 1:  # the wgmma MLP reads the layer's weights as packed chunks
+        tiles = _mlp_operand(None, tiles, w1, w2, 1, per_layer=True)
+    nw = -(-n // window)
+    lanes = _ell_block(ell_meta, nw, dev)
     out = torch.empty((n, d), dtype=dt, device=dev)
     rc = lib["launch"](
         code, ell_meta.data_ptr(), h.data_ptr(),
         None if m_spill is None else m_spill.data_ptr(), ee_table.data_ptr(),
         w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), b2.data_ptr(), eps1.data_ptr(),
         None if code == 0 else tiles.data_ptr(), out.data_ptr(), nw, n, window, lanes, d, hid,
-        vocab, int(bool(final_relu)), stages, dev.index,
+        vocab, int(bool(final_relu)), stages, int(knockout), dev.index,
         torch.cuda.current_stream(dev).cuda_stream,
     )
     _raise_on(lib, rc, "gin_local_layer_ell")
@@ -2683,6 +2814,7 @@ def gin_local_layer_ell(
     final_relu: bool,
     ee: Optional[torch.Tensor] = None,
     mlp_tiles: Optional[torch.Tensor] = None,
+    knockout: int = 0,
 ) -> torch.Tensor:
     """One whole GIN / GIN-VN layer over the ELL layout: the next h [n, D]
     in h's dtype (``csrc/gin_local_layer_ell.cu``). Operands as in
@@ -2697,13 +2829,16 @@ def gin_local_layer_ell(
     [P, D], each lane's bond embedding, ``ee_table`` is not read (pass None)
     and the layer runs ``gin_local_layer_ell_lanes``, as the JAX function
     without ``edge_attr`` runs ``local_scatter_apply_ell``; one of the two
-    must be given."""
+    must be given. ``knockout`` times the CUDA kernel without a stage (bit
+    0 the MLP, bit 1 the messages; the models never set it)."""
     if ee is None and ee_table is None:
         raise ValueError("gin_local_layer_ell: neither ee_table nor ee given")
     if ee is not None:
         return gin_local_layer_ell_lanes(ee, ell_meta, h, m_spill, w1, b1, w2, b2, eps1, window,
-                                         final_relu)
+                                         final_relu, mlp_tiles, knockout)
     args = (ell_meta, h, m_spill, ee_table, w1, b1, w2, b2, eps1, window, final_relu, mlp_tiles)
+    if _knocked_out(h, knockout):
+        return _launch_gin_layer_ell(*args, knockout=knockout)
     return _dispatch(h, gin_local_layer_ell_ref, _launch_gin_layer_ell, args)
 
 
@@ -2729,11 +2864,13 @@ def check_gin_mlp(h, m_spill, w1, b1, w2, b2, eps1) -> int:
 
 
 def _launch_gin_layer_blocks(counted, ee, u_local, v_local, block_window, blocks, h, m_spill,
-                             w1, b1, w2, b2, eps1, window, final_relu) -> torch.Tensor:
+                             w1, b1, w2, b2, eps1, window, final_relu, tiles,
+                             knockout=0) -> torch.Tensor:
     """Launch ``csrc/gin_local_layer_blocks.cu`` for the wrapper ``counted``:
     ``u_local`` / ``v_local`` may be strided columns (int32, ``stride``
     elements apart); ``block_window`` None means ``blocks`` equal windows'
-    worth of lanes in window order."""
+    worth of lanes in window order; ``tiles`` the bf16 MLP's chunks of this
+    layer, or None to pack them here (once per weight set)."""
     dt = h.dtype
     code = _dtype_code(dt)
     dev = h.device
@@ -2751,28 +2888,34 @@ def _launch_gin_layer_blocks(counted, ee, u_local, v_local, block_window, blocks
         raise ValueError("u_local and v_local: different strides")
     if block_window is not None:
         _check("block_window", block_window, torch.int32, (blocks,), dev)
+    _check_pairs(("ee", ee), ("h", h), ("m_spill", m_spill))
+    name = "gin_local_layer_blocks"
+    lib = _library(name)
+    stages, _ = _gin_layer_plan(name, code, d, hid, 0, window, dev.index)
+    if code == 1:  # the wgmma MLP reads the layer's weights as packed chunks
+        tiles = _mlp_operand(None, tiles, w1, w2, 1, per_layer=True)
     nw = -(-n // window)
-    lib = _library("gin_local_layer_blocks")
-    _check_ell_geometry(lib, d, window, lib["smem_bytes"](d), dev)
     out = torch.empty((n, d), dtype=dt, device=dev)
     rc = lib["launch"](
         code, ee.data_ptr(), u_local.data_ptr(), v_local.data_ptr(),
         None if block_window is None else block_window.data_ptr(), h.data_ptr(),
         None if m_spill is None else m_spill.data_ptr(),
         w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), b2.data_ptr(), eps1.data_ptr(),
-        out.data_ptr(), nw, n, window, blocks, p // blocks, stride, d, hid,
-        int(bool(final_relu)), dev.index, torch.cuda.current_stream(dev).cuda_stream,
+        None if code == 0 else tiles.data_ptr(), out.data_ptr(), nw, n, window, blocks,
+        p // blocks, stride, d, hid, int(bool(final_relu)), stages, int(knockout), dev.index,
+        torch.cuda.current_stream(dev).cuda_stream,
     )
     _raise_on(lib, rc, counted.__name__)
     counted.launches += 1
+    counted.stages = stages
     return out
 
 
 def _launch_gin_local_layer(ee, u_local, v_local, block_window, h, m_spill, w1, b1, w2, b2,
-                            eps1, window, final_relu) -> torch.Tensor:
+                            eps1, window, final_relu, tiles, knockout=0) -> torch.Tensor:
     return _launch_gin_layer_blocks(gin_local_layer, ee, u_local, v_local, block_window,
                                     block_window.shape[0], h, m_spill, w1, b1, w2, b2, eps1,
-                                    window, final_relu)
+                                    window, final_relu, tiles, knockout)
 
 
 def gin_local_layer(
@@ -2789,28 +2932,36 @@ def gin_local_layer(
     eps1: torch.Tensor,
     window: int,
     final_relu: bool,
+    mlp_tiles: Optional[torch.Tensor] = None,
+    knockout: int = 0,
 ) -> torch.Tensor:
     """One whole GIN / GIN-VN layer over the legacy dynamic-window local
     layout: the next h [n, D] in h's dtype (``csrc/gin_local_layer_blocks.cu``).
     Operands as in ``gin_local_layer_ref``; a CPU tensor runs the plain
     version, a CUDA tensor launches the kernel (float32 or bfloat16 ``ee``,
     h, ``m_spill`` and weights, int32 lanes and ``block_window``, float32
-    ``eps1``) or raises. Each launch adds one to ``gin_local_layer.launches``."""
+    ``eps1``) or raises. In bfloat16 the update MLP runs on the tensor cores
+    from ``mlp_tiles``, as in ``gin_local_layer_ell`` (``.stages`` the
+    weight ring). ``knockout`` as there. Each launch adds one to
+    ``gin_local_layer.launches``."""
     args = (ee, u_local, v_local, block_window, h, m_spill, w1, b1, w2, b2, eps1, window,
-            final_relu)
+            final_relu, mlp_tiles)
+    if _knocked_out(h, knockout):
+        return _launch_gin_local_layer(*args, knockout=knockout)
     return _dispatch(h, gin_local_layer_ref, _launch_gin_local_layer, args)
 
 
 gin_local_layer.launches = 0
+gin_local_layer.stages = 0
 
 
 def _launch_gin_layer_ell_lanes(ee, ell_meta, h, m_spill, w1, b1, w2, b2, eps1, window,
-                                final_relu) -> torch.Tensor:
+                                final_relu, tiles, knockout=0) -> torch.Tensor:
     nw = -(-h.shape[0] // window)
     _ell_block(ell_meta, nw, h.device)
     return _launch_gin_layer_blocks(gin_local_layer_ell_lanes, ee, ell_meta[:, 0], ell_meta[:, 1],
                                     None, nw, h, m_spill, w1, b1, w2, b2, eps1, window,
-                                    final_relu)
+                                    final_relu, tiles, knockout)
 
 
 def gin_local_layer_ell_lanes(
@@ -2825,18 +2976,24 @@ def gin_local_layer_ell_lanes(
     eps1: torch.Tensor,
     window: int,
     final_relu: bool,
+    mlp_tiles: Optional[torch.Tensor] = None,
+    knockout: int = 0,
 ) -> torch.Tensor:
     """One whole GIN / GIN-VN layer over the ELL layout with each lane's
     bond embedding given: the next h [n, D] in h's dtype (the kernel of
     ``csrc/gin_local_layer_blocks.cu`` on its static grid). Operands as in
     ``gin_local_layer_ell_lanes_ref``; a CPU tensor runs the plain version,
-    a CUDA tensor launches the kernel or raises. Each launch adds one to
+    a CUDA tensor launches the kernel or raises. ``mlp_tiles`` and
+    ``knockout`` as in ``gin_local_layer``. Each launch adds one to
     ``gin_local_layer_ell_lanes.launches``."""
-    args = (ee, ell_meta, h, m_spill, w1, b1, w2, b2, eps1, window, final_relu)
+    args = (ee, ell_meta, h, m_spill, w1, b1, w2, b2, eps1, window, final_relu, mlp_tiles)
+    if _knocked_out(h, knockout):
+        return _launch_gin_layer_ell_lanes(*args, knockout=knockout)
     return _dispatch(h, gin_local_layer_ell_lanes_ref, _launch_gin_layer_ell_lanes, args)
 
 
 gin_local_layer_ell_lanes.launches = 0
+gin_local_layer_ell_lanes.stages = 0
 
 
 def _launch_gcn_message_ell(ell_meta, h, dis, ee_table, window) -> torch.Tensor:
@@ -3056,14 +3213,59 @@ def gat_local_message_ell(
 gat_local_message_ell.launches = 0
 
 
+@functools.cache
+def _gat_layer_plan(code: int, hd: int, heads: int, window: int, device: int) -> tuple:
+    """Row 23's launch plan at this geometry on CUDA device ``device``,
+    worked out once per geometry: (the bf16 weight ring, the deepest that
+    keeps two blocks an SM, 0 in f32; the block's shared memory). Raises
+    before launch on what the window, the tile, the heads or the card's
+    shared memory do not take, or a chunk geometry the host does not share;
+    a refusal is not cached."""
+    name = "gat_local_layer_ell"
+    lib = _library(name)
+    dev = torch.device("cuda", device)
+    _check_tile(lib, hd)
+    if not 1 <= heads <= lib["max_heads"]():
+        raise ValueError(f"num_heads={heads} outside 1..{lib['max_heads']()}")
+    smem_of = lambda stages: lib["smem_bytes"](code, hd, heads, stages)
+    stages = 0
+    if code == 1:  # the wgmma products stream their chunks through a ring
+        kp, skip_c, proj_c, elems = gat_layer_geometry(hd)
+        dims = (ctypes.c_int * 4)()
+        lib["tile_dims"](hd, dims)
+        if tuple(dims) != (kp, skip_c, proj_c, elems * 2):
+            raise RuntimeError(f"the kernel's chunk geometry {tuple(dims)} is not the host's "
+                               f"{(kp, skip_c, proj_c, elems * 2)}")
+        stages = ring_stages(smem_of, skip_c + proj_c, _two_blocks_budget(lib, dev))
+    smem = smem_of(stages)
+    _check_ell_geometry(lib, hd, window, smem, dev)
+    _prepare(name, lib, smem, device)
+    return stages, smem
+
+
+def _gat_layer_operand(tiles, w_skip: torch.Tensor, w_proj: torch.Tensor) -> torch.Tensor:
+    """Row 23's packed weights of one layer: ``tiles`` as given, or packed
+    here once per weight set (``gat_layer_tiles``), checked."""
+    hd = w_skip.shape[0]
+    if tiles is None:
+        tiles = gat_layer_tiles(w_skip[None], w_proj[None])[0]
+    if w_skip.dtype == torch.bfloat16:
+        _, skip_c, proj_c, elems = gat_layer_geometry(hd)
+        _check("layer_tiles", tiles, torch.bfloat16, (skip_c + proj_c, elems), w_skip.device)
+    else:
+        _check("layer_tiles", tiles, w_skip.dtype, (2, hd, GAT_LAYER_N), w_skip.device)
+    return tiles
+
+
 def _launch_gat_layer_ell(ell_meta, h, s_src, s_tgt, prev, spill_both, w_skip, w_proj, a_mat,
-                          window, num_heads) -> torch.Tensor:
+                          window, num_heads, tiles, knockout=0) -> torch.Tensor:
     dt = h.dtype
     code = _dtype_code(dt)
     dev = h.device
     n, hd = h.shape
     if hd % num_heads:
         raise ValueError(f"H·D={hd} is not a multiple of the {num_heads} heads")
+    _check("h", h, dt, (n, hd), dev)
     _check("s_src", s_src, dt, (n, num_heads), dev)
     _check("s_tgt", s_tgt, dt, (n, num_heads), dev)
     _check("prev", prev, dt, (n, hd), dev)
@@ -3072,20 +3274,26 @@ def _launch_gat_layer_ell(ell_meta, h, s_src, s_tgt, prev, spill_both, w_skip, w
     _check("w_skip", w_skip, dt, (hd, hd), dev)
     _check("w_proj", w_proj, dt, (hd, hd), dev)
     _check("a_mat", a_mat, dt, (hd, 2 * num_heads), dev)
-    lib, lanes, nw = _check_ell_lanes(ell_meta, h, window, "gat_local_layer_ell",
-                                      (hd, num_heads))
-    if not 1 <= num_heads <= lib["max_heads"]():
-        raise ValueError(f"num_heads={num_heads} outside 1..{lib['max_heads']()}")
+    if prev.data_ptr() % 16:
+        raise ValueError("prev: its rows are copied 16 bytes at a time; its data must be "
+                         "16-byte aligned")
+    name = "gat_local_layer_ell"
+    lib = _library(name)
+    stages, _ = _gat_layer_plan(code, hd, num_heads, window, dev.index)
+    tiles = _gat_layer_operand(tiles, w_skip, w_proj)
+    nw = -(-n // window)
+    lanes = _ell_block(ell_meta, nw, dev)
     out = torch.empty((n, 2 * hd + 2 * num_heads), dtype=dt, device=dev)
     rc = lib["launch"](
         code, ell_meta.data_ptr(), h.data_ptr(), s_src.data_ptr(), s_tgt.data_ptr(),
         prev.data_ptr(), None if spill_both is None else spill_both.data_ptr(),
-        w_skip.data_ptr(), w_proj.data_ptr(), a_mat.data_ptr(), out.data_ptr(),
-        nw, n, window, lanes, hd, num_heads,
+        a_mat.data_ptr(), tiles.data_ptr(), out.data_ptr(),
+        nw, n, window, lanes, hd, num_heads, stages, int(knockout),
         dev.index, torch.cuda.current_stream(dev).cuda_stream,
     )
-    _raise_on(lib, rc, "gat_local_layer_ell")
+    _raise_on(lib, rc, name)
     gat_local_layer_ell.launches += 1
+    gat_local_layer_ell.stages = stages
     return out
 
 
@@ -3101,17 +3309,29 @@ def gat_local_layer_ell(
     a_mat: torch.Tensor,
     window: int,
     num_heads: int,
+    layer_tiles: Optional[torch.Tensor] = None,
+    knockout: int = 0,
 ) -> torch.Tensor:
     """One whole non-final GAT layer over the ELL layout: [n, 2·H·D + 2H]
     (h_next ‖ feat ‖ s_src' ‖ s_tgt') in h's dtype
     (``csrc/gat_local_layer_ell.cu``). Operands as in
     ``gat_local_layer_ell_ref``; a CPU tensor runs the plain version, a CUDA
     tensor launches the kernel (float32 or bfloat16 h, scores, ``prev``,
-    ``spill_both`` and weights, int32 ``ell_meta``) or raises. Each launch
-    adds one to ``gat_local_layer_ell.launches``."""
+    ``spill_both`` and weights, int32 ``ell_meta``) or raises. The kernel
+    reads w_skip and w_proj from ``layer_tiles``, this layer's slice of
+    ``gat_layer_tiles()`` (packed here, once per weight set, when not
+    given); in bfloat16 both products run on the tensor cores, their chunks
+    through a weight ring as deep as two blocks an SM allow
+    (``gat_local_layer_ell.stages``; 0 in float32). ``knockout`` times the
+    CUDA kernel without a stage (bit 0 both products, bit 1 the messages;
+    the models never set it). Each launch adds one to
+    ``gat_local_layer_ell.launches``."""
     args = (ell_meta, h, s_src, s_tgt, prev, spill_both, w_skip, w_proj, a_mat, window,
-            num_heads)
+            num_heads, layer_tiles)
+    if _knocked_out(h, knockout):
+        return _launch_gat_layer_ell(*args, knockout=knockout)
     return _dispatch(h, gat_local_layer_ell_ref, _launch_gat_layer_ell, args)
 
 
 gat_local_layer_ell.launches = 0
+gat_local_layer_ell.stages = 0

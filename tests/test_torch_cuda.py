@@ -553,6 +553,59 @@ def _gat_layer_operands(geometry: str, spill: bool = True, seed: int = 24) -> di
     )
 
 
+def _wide_ell_batch(name: str, window: int, seed: int) -> dict:
+    """ELL layout (numpy) of 6 synthetic graphs and one that fills most of a
+    ``window`` of 128 or 1024 rows, for model ``name``, at the default block
+    (a W=1024 window takes k > 1 blocks of lanes)."""
+    spec = registry.get(name)
+    rng = np.random.default_rng(seed)
+    graphs = registry.apply_transforms(spec, synthetic_molhiv(6, seed=seed) + [
+        random_molecule_graph(rng, num_nodes=window * 7 // 8)])
+    packed = pack_graphs_aligned(graphs, window=window, node_capacity=4 * window - 1,
+                                 edge_capacity=8192, graph_capacity=16)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")  # the k > 1 note
+        return base.as_batch(packed, blocked="local_ell", window=window)
+
+
+def _width_operands(kernel: str, geometry: str, spill: bool, seed: int = 27) -> dict:
+    """Seeded operands (numpy) of one case of ``_WIDTH_CASES``: ``geometry``
+    is "W:AxB", the window and (D, H) for rows 10, 12 and 25 or (H·D,
+    heads) for row 23, on ``_wide_ell_batch``'s lanes. Row 12 takes the ELL
+    grid as it is; rows 10 and 25 the same lanes as one block a window named
+    by ``block_window``; ``spill`` adds ``m_spill`` (row 23: a
+    ``spill_both`` whose score sums are at least 0.5)."""
+    window, widths = geometry.split(":")
+    window, (a, b) = int(window), map(int, widths.split("x"))
+    gat = kernel == "gat_local_layer_ell"
+    batch = _wide_ell_batch("gat" if gat else "gin", window, seed)
+    meta = base.ell_meta(base.to_device(batch, "cpu")).numpy()
+    rng = np.random.default_rng(seed)
+    f32 = lambda *s, sd=0.2: rng.normal(0, sd, s).astype(np.float32)
+    n, p = batch["node_feat"].shape[0], meta.shape[0]
+    if gat:
+        hd, heads = a, b
+        spill_both = None
+        if spill:
+            spill_both = f32(n, hd + heads, sd=0.5)
+            spill_both[:, hd:] = np.abs(spill_both[:, hd:]) + 0.5
+        return dict(ell_meta=meta, h=f32(n, hd, sd=1.0), s_src=f32(n, heads, sd=0.5),
+                    s_tgt=f32(n, heads, sd=0.5), prev=f32(n, hd, sd=0.5), spill_both=spill_both,
+                    w_skip=f32(hd, hd), w_proj=f32(hd, hd),
+                    a_mat=_gat_score_maps(f32(1, heads, hd // heads), f32(1, heads, hd // heads)),
+                    window=window, num_heads=heads)
+    d, hid = a, b
+    ops = dict(h=f32(n, d), window=window, w1=f32(hid, d), b1=f32(hid), w2=f32(d, hid), b2=f32(d),
+               eps1=(1 + f32(1, 1)).astype(np.float32), final_relu=True)
+    m_spill = f32(n, d) if spill else None
+    if kernel == "gin_local_layer_ell_lanes":
+        return dict(ops, ee=f32(p, d), ell_meta=meta, m_spill=m_spill)
+    ops.update(v_local=meta[:, 1].copy(), block_window=np.arange(-(-n // window), dtype=np.int32))
+    if kernel == "gin_local_layer":
+        return dict(ops, ee=f32(p, d), u_local=meta[:, 0].copy(), m_spill=m_spill)
+    return dict(ops, vals=np.maximum(f32(p, d), 0))
+
+
 def _gat_layer_overflow_operands(hot: bool) -> dict:
     """Row 23's operands over ``_gat_ell_overflow_operands``'s window: the
     sentinel lane from row 20, whose score overflows exp when ``hot``, must
@@ -1401,6 +1454,19 @@ def test_gat_ell_cuda_kernel_overflowing_sentinel_lane_stays_finite(cuda_device)
     torch.testing.assert_close(outs[1], outs[0], rtol=0, atol=0)
 
 
+# Rows 10, 12 and 25 at the widths of chip_smoke.py's phase 3f (D' and H'
+# padded, the models' 100 / 200, H=512) and row 23 at its head geometries
+# (4 × 16, and 3 × 16, whose K' pads 48 to 64), at W=128 and W=1024, with
+# and without the spill operand (row 25 has none): "W:AxB" as
+# ``_width_operands`` reads it.
+_WIDTH_CASES = [
+    *((k, f"{w}:{d}x{h}", sp) for k in ("gin_local_layer", "gin_local_layer_ell_lanes",
+                                        "gin_layer_fused")
+      for w in (128, 1024) for d, h in ((36, 72), (100, 200), (100, 512))
+      for sp in ((False,) if k == "gin_layer_fused" else (False, True))),
+    *(("gat_local_layer_ell", f"{w}:{hd}x{heads}", sp) for w in (128, 1024)
+      for hd, heads in ((64, 4), (48, 3)) for sp in (False, True)),
+]
 _BLOCK_LAYER_CASES = [
     ("gin_local_layer", "W128", False), ("gin_local_layer", "spill", False),
     ("gin_local_layer", "W128", True),
@@ -1408,13 +1474,19 @@ _BLOCK_LAYER_CASES = [
     ("gin_layer_fused", "W128", False), ("gin_layer_fused", "W128", True),
     *(("gat_local_layer_ell", g, sp) for g in ELL_LAYER_GEOMETRY for sp in (True, False)),
     *(("windowed_segment_sum", w, False) for w in (68, 100, 160, 200)),
+    *_WIDTH_CASES,
 ]
 
 
 def _block_layer_case(kernel: str, geometry, flag: bool):
     """(the wrapper, its plain version, numpy operands) of one case of
     ``_BLOCK_LAYER_CASES``; ``flag`` is the last layer's form for the GIN
-    kernels and ``spill_both`` for GAT's."""
+    kernels and ``spill_both`` for GAT's, or for a case of ``_WIDTH_CASES``
+    (a geometry "W:AxB") the spill operand."""
+    if isinstance(geometry, str) and ":" in geometry:
+        mod = fused_layer if kernel == "gin_layer_fused" else local_layer
+        return (getattr(mod, kernel), getattr(mod, f"{kernel}_ref"),
+                _width_operands(kernel, geometry, flag))
     if kernel == "gat_local_layer_ell":
         return (local_layer.gat_local_layer_ell, local_layer.gat_local_layer_ell_ref,
                 _gat_layer_operands(geometry, spill=flag))
@@ -1437,8 +1509,10 @@ def test_rows_10_12_23_25_cuda_kernels_match_plain(kernel, geometry, flag, dtype
     (edge-block layout, unaligned packing, empty trailing windows) and 23
     (ELL at the same geometries, with and without ``spill_both``), and row 24
     on the edge-block layout at the four reduction widths, against their plain
-    versions, one launch per call. f32: summation order only; bf16: the
-    output rounds to bf16."""
+    versions, one launch per call; then rows 10, 12, 25 and 23 at the widths
+    and windows of ``_WIDTH_CASES`` (both forms: the bf16 products on
+    ``wgmma``, H=512 through a shorter weight ring). f32: summation order
+    only; bf16: the output rounds to bf16."""
     fn, ref, ops = _block_layer_case(kernel, geometry, flag)
     ops = _port(ops, cuda_device, dtype)
     before = fn.launches
@@ -1472,8 +1546,11 @@ def test_gin_layer_ell_ee_keyword_runs_row_12(cuda_device):
 @pytest.mark.cuda
 def test_rows_10_23_25_cuda_kernels_reject_geometry(cuda_device):
     """Each new wrapper raises before launch on what its kernel cannot take:
-    a window that is not whole 128-row tiles, row 23 an H·D past its tile
-    (128 > 64), rows 10 and 25 a D past theirs (128 > 112)."""
+    a window that is not whole 128-row tiles or past 1024 rows, row 23 an
+    H·D past its products' width (128 > 64) or more heads than a warp's
+    lanes (64 > 32), rows 10 and 25 a D past their tile (128 > 112), a row
+    read as column pairs that does not start on a pair, and a ``prev`` that
+    row 23 copies 16 bytes at a time off 16-byte alignment."""
     rng = np.random.default_rng(0)
     t = lambda *s: torch.from_numpy(rng.normal(0, 0.1, s).astype(np.float32)).to(cuda_device)
     i32 = lambda *s: torch.full(s, 128, dtype=torch.int32, device=cuda_device)
@@ -1490,19 +1567,58 @@ def test_rows_10_23_25_cuda_kernels_reject_geometry(cuda_device):
                                    block_window=torch.zeros(2, dtype=torch.int32,
                                                             device=cuda_device),
                                    h=t(256, d), window=window, **mlp(d))
+    odd = lambda d: t(256 * d + 1)[1:].view(256, d)  # rows one element past a pair
     cases = [
         (local_layer.gat_local_layer_ell, gat(64, 192), "whole blocks"),
+        (local_layer.gat_local_layer_ell, gat(64, 1152), "whole blocks"),
         (local_layer.gat_local_layer_ell, gat(128, 128), "tile"),
+        (local_layer.gat_local_layer_ell,
+         dict(gat(64, 128), s_src=t(256, 64), s_tgt=t(256, 64), a_mat=t(64, 128), num_heads=64),
+         "num_heads"),
+        (local_layer.gat_local_layer_ell, dict(gat(64, 128), prev=odd(64)), "16-byte"),
         (local_layer.gin_local_layer, local(32, 192), "whole blocks"),
+        (local_layer.gin_local_layer, local(32, 1152), "whole blocks"),
         (local_layer.gin_local_layer, local(128, 128), "tile"),
+        (local_layer.gin_local_layer, dict(local(32, 128), ee=odd(32)), "pairs"),
         (fused_layer.gin_layer_fused, fused(32, 192), "whole blocks"),
         (fused_layer.gin_layer_fused, fused(128, 128), "tile"),
+        (fused_layer.gin_layer_fused, dict(fused(32, 128), vals=odd(32)), "pairs"),
     ]
     for fn, kw, match in cases:
         before = fn.launches
         with pytest.raises(ValueError, match=match):
             fn(**kw)
         assert fn.launches == before
+
+
+# Rows 10, 12, 25 and 23 in the phase split of chip_smoke.py: the W=1024
+# cases of ``_WIDTH_CASES`` at the models' widths, with the spill operand.
+_KNOCKOUT_CASES = [("gin_local_layer", "1024:100x200", True),
+                   ("gin_local_layer_ell_lanes", "1024:100x200", True),
+                   ("gin_layer_fused", "1024:100x200", False),
+                   ("gat_local_layer_ell", "1024:64x4", True)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel,geometry,spill", _KNOCKOUT_CASES,
+                         ids=[c[0] for c in _KNOCKOUT_CASES])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_rows_10_12_23_25_knockouts_launch(kernel, geometry, spill, dtype, cuda_device):
+    """The phase split's knockouts of rows 10, 12, 25 and 23 (bit 0: the MLP
+    or both products, bit 1: the messages) launch and count; the whole
+    kernel is unchanged by having run them. On a CPU tensor a knockout
+    raises."""
+    fn, _, ops = _block_layer_case(kernel, geometry, spill)
+    ops = _port(ops, cuda_device, dtype)
+    full = fn(**ops)
+    before = fn.launches
+    for knockout in (1, 2, 3):
+        fn(**ops, knockout=knockout)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 3
+    assert torch.equal(fn(**ops), full)
+    with pytest.raises(ValueError, match="knockout"):
+        fn(**{k: v.cpu() if torch.is_tensor(v) else v for k, v in ops.items()}, knockout=1)
 
 
 @pytest.mark.cuda
