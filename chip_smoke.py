@@ -24,24 +24,26 @@ adds host time, so the wall times and idle shares are upper bounds.
 Phases, each of which raises (non-zero exit) on failure:
 
 1. the device and ``nvidia-smi``'s name and power limit;
-2. the twenty-four hand-written kernels built from the twenty-two sources of
-   ``flowgnn_tpu_torch/csrc`` (rows 16 and 18 share one, rows 10 and 12 are
-   one kernel, rows 27-30 one) and their headers (``hopper.cuh`` holds the
-   wgmma, mbarrier and bulk-copy blocks of rows 1-5, 8, 9, 10, 12, 13, 20,
-   22, 23, 25 and 26, ``gin_mlp.cuh`` the bf16 GIN MLP of rows 1, 8, 10, 12,
-   13 and 25, ``gin_layer.cuh`` the per-layer GIN kernel of rows 10, 12, 13
-   and 25 (three lane walks), ``gin_model.cuh`` the whole-model GIN kernel
-   of rows 1 and 8,
+2. the twenty-four hand-written kernels built from the twenty-three sources
+   of ``flowgnn_tpu_torch/csrc`` (rows 10 and 12 are one kernel, rows 27-30
+   one) and their headers (``hopper.cuh`` holds the
+   wgmma, mbarrier and bulk-copy blocks of rows 1-5, 8, 9, 10, 12, 13, 18,
+   20, 22, 23, 25 and 26, ``gin_mlp.cuh`` the bf16 GIN MLP of rows 1, 8, 10,
+   12, 13 and 25, ``gin_layer.cuh`` the per-layer GIN kernel of rows 10, 12,
+   13 and 25 (three lane walks), ``gin_model.cuh`` the whole-model GIN
+   kernel of rows 1 and 8,
    ``gcn_model.cuh`` the GCN one of rows 2 and 9, ``pna_model.cuh`` the PNA
    one of rows 3 and 20 (whole model, one layer), ``dgn_model.cuh`` the DGN
-   one of rows 4 and 22, ``lanes.cuh`` GCN's two lane walks,
-   ``linear_wgmma.cuh`` the bf16 product of rows 2-5, 9, 20, 22 and 23), one
+   one of rows 4, 22 (slots) and 18 (ELL), ``lanes.cuh`` the lane walks of
+   GCN and GIN and the ELL runs of rows 17, 18 and 23, ``gat_messages.cuh``
+   the GAT message walk of rows 17 and 23, ``linear_wgmma.cuh`` the bf16
+   product of rows 2-5, 9, 18, 20, 22 and 23), one
    ``nvcc`` per source, all started together (build time and each
    compiler's register / shared-memory report); each library's count of
    tensor-core (HGMMA, HMMA, IMMA), bulk-copy / TMA (UBLKCP, UTMALDG) and
    FFMA instructions in its SASS (``cuobjdump -sass``), rows 1-5, 8, 9, 10,
-   12, 13, 20, 22, 23, 25 and 26 required to hold HGMMA and a bulk copy (row
-   26: or a TMA load);
+   12, 13, 18, 20, 22, 23, 25 and 26 required to hold HGMMA and a bulk copy
+   (row 26: or a TMA load);
 3. each slot kernel against its plain torch version on the card, at the
    main path's shapes (a real bucket's slot layout at full width: GIN D=100,
    H=200, L=5, with and without the analytic-VN column; GCN D=100, L=5;
@@ -89,9 +91,11 @@ Phases, each of which raises (non-zero exit) on failure:
    blocks) on layer 0's operands at W=128 (molhiv bucket 0), W=256 (a
    synthetic bucket of 250-node graphs), W=512 (the hep10k slot bucket
    holding the largest graph) and W=1024 (a synthetic bucket of 900-node
-   graphs), f32 and bf16, row 22 with and without a seeded ``m_spill``,
-   printing the bf16 launch's weight ring and what the occupancy calculator
-   says of both rows' forms at W=128 and W=512; and DGN over a W=256 bucket
+   graphs), f32 and bf16, row 22 with and without a seeded ``m_spill``;
+   row 18 (row 4's one-layer form over ELL) on synthetic ELL buckets at
+   W=256, 512 and 1024 (k=2); printing the bf16 launch's weight ring and
+   what the occupancy calculator says of the three rows' forms at W=128
+   and W=512; and DGN over a W=256 bucket
    whose hub nodes have an in-window in-degree of 12 (past the 8 slots), so
    that it spills: row 22 and row 24 on its layer 0 against their plain
    versions, and ``dgn.forward`` over it, counted (row 22 and row 24 once a
@@ -173,21 +177,24 @@ Phases, each of which raises (non-zero exit) on failure:
    its bound (the larger of its FLOPs over the card's peak for the dtype and
    its bytes over the memory rate; the rows of a pad lane, which no kernel
    reads, are not counted) and, for the spill scatter, PyTorch's
-   ``index_add_`` of the same values;
+   ``index_add_`` of the same values; the kernels still in their first
+   design (rows 14, 15, 16, 19, 21, 24) and rows 17 and 18 also as the device
+   time of the stream's launches replayed from a CUDA graph (``REPLAYED``);
 5b. the same for the hep10k ELL path, the molhiv stream through the ELL
    kernels at W=128, and the hep10k spill path;
 5c. the same for the per-layer ELL paths of phase 4d;
 5d. the same for the paths of phase 4e;
 5e. the same for the paths of phase 4f; the windowed scatter on the
    edge-block layout beside ``index_add_`` of the same values;
-5f. rows 8, 1, 13, 9, 3, 2, 4, 5, 20, 22, 23, 10, 12 and 25 alone on their cells (``TURN_CELLS``),
+5f. rows 8, 1, 13, 9, 3, 2, 4, 5, 20, 22, 23, 10, 12, 25 and 18 alone on their cells (``TURN_CELLS``),
    each kernel's bf16 form (its product on wgmma) and its f32 form (FMA) in
    turns: bf16, f32, f32, bf16; launches, ms per stream, bound and share of
    the bound;
-5g. rows 9, 3, 4, 5, 20, 22, 23, 10, 12 and 25 by stage on their cells
-   (``SPLIT_CELLS``), bf16 and f32: each kernel alone whole and with its
-   product (row 23 both products, rows 10, 12, 25 the MLP), its messages,
-   stats or channels, or both knocked out (the wrappers' ``knockout``, which
+5g. rows 9, 3, 4, 5, 20, 22, 23, 10, 12, 25, 18 and 17 by stage on their
+   cells (``SPLIT_CELLS``), bf16 and f32: each kernel alone whole and with
+   its product (row 23 both products, rows 10, 12, 25 the MLP; row 17 has
+   none), its messages, stats or channels, or both knocked out (the
+   wrappers' ``knockout``, which
    only this phase passes), each the device time of the stream's launches
    replayed from a CUDA graph (the wrappers' host work left out), and the
    share of each;
@@ -219,6 +226,8 @@ import json
 import subprocess
 import sys
 import time
+
+from flowgnn_tpu_torch.bench.timing import cuda_ms, graph_ms
 
 SEED = 0
 NODE_CAP, GRAPH_CAP = 32768, 2048  # the JAX bench's bucket capacities
@@ -348,8 +357,7 @@ KERNELS = {
                             f"{LL}:1417", ("gcn", "molhiv", ELL_INTER)),
     "pna_local_layer": ("local_layer", "flowgnn_tpu_torch/csrc/pna_local_layer_slots.cu",
                         f"{LL}:1968", ("pna", "molhiv", SLOT_INTER)),
-    # Rows 18 and 16: two kernels of one source.
-    "dgn_local_layer_ell": ("local_layer", "flowgnn_tpu_torch/csrc/dgn_local_layer_ell.cu",
+    "dgn_local_layer_ell": ("local_layer", "flowgnn_tpu_torch/csrc/dgn_local_layer_ell_model.cu",
                             f"{LL}:1737", ("dgn", "molhiv", ELL)),
     "dgn_local_message_ell": ("local_layer", "flowgnn_tpu_torch/csrc/dgn_local_layer_ell.cu",
                               f"{LL}:1539", ("dgn", "hep10k", ELL_LAYER)),
@@ -393,6 +401,7 @@ SASS_NEEDS = {"chained_matmul": ("HGMMA", "UBLKCP|UTMALDG"),
                                                   "dgn_local_model", "gat_local_model_slots",
                                                   "pna_local_layer_slots",
                                                   "dgn_local_layer_slots",
+                                                  "dgn_local_layer_ell_model",
                                                   "gin_local_layer_blocks", "gin_layer_fused",
                                                   "gat_local_layer_ell")}}
 SASS_OPS = ("HGMMA", "UBLKCP", "UTMALDG", "HMMA", "IMMA", "FFMA")
@@ -429,21 +438,29 @@ TURN_CELLS = {
     # Rows 20 and 22 on their record cells and on the hep10k W=512 stream.
     "pna_local_layer": [("pna", "molhiv", SLOT_INTER), ("pna", "hep10k", HEP_SLOT_INTER)],
     "dgn_local_layer_slots": [("dgn", "hep10k", SLOTS), ("dgn", "hep10k", HEP_SLOT_INTER)],
-    # Rows 23, 10, 12 and 25 on their cells.
+    # Rows 23, 10, 12 and 25 on their cells; row 18 on DGN's molhiv ELL stream.
     "gat_local_layer_ell": [("gat", "hep10k", ELL_LAYER_FUSED), ("gat", "molhiv", ELL_FUSED)],
+    "dgn_local_layer_ell": [("dgn", "molhiv", ELL)],
     "gin_local_layer": [("gin", "molhiv", LOCAL), ("gin-vn", "molhiv", LOCAL)],
     ROW12: [("gin", "molhiv", ELL_EE)],
     "gin_layer_fused": [("gin", "molhiv", FUSED)],
 }
 # Phase 5g: the kernels split by stage, on these cells: each timed whole and
 # with its product (bit 0), its messages, stats or channels (bit 1), or both
-# knocked out.
+# knocked out; row 17, which has no product, with its messages out.
 SPLIT_CELLS = {"gcn_local_model": [("gcn", "hep10k", ELL), ("gcn", "molhiv", ELL)],
                **{MODEL_KERNELS[name][0]: [(name, "molhiv", SLOTS), (name, "hep10k", HEP_SLOTS)]
                   for name in ("pna", "dgn", "gat")},
                **{k: TURN_CELLS[k] for k in ("pna_local_layer", "dgn_local_layer_slots",
                                              "gat_local_layer_ell", "gin_local_layer", ROW12,
-                                             "gin_layer_fused")}}
+                                             "gin_layer_fused", "dgn_local_layer_ell")},
+               "gat_local_message_ell": [("gat", "hep10k", ELL_LAYER), ("gat", "molhiv", ELL)]}
+# Phases 5 to 5e: the per-layer kernels whose loop of wrapper calls can time
+# the wrappers' host work, also timed by graph replay: rows 14, 15, 16, 19,
+# 21 and 24, which run their first design, and rows 17 and 18.
+REPLAYED = ("gcn_local_message_ell", "gcn_local_layer_ell", "dgn_local_message_ell",
+            "gat_local_message_ell", "dgn_local_layer_ell", "pna_local_stats_ell",
+            "gat_local_message_slots", SCATTER)
 # Phase 3: the cluster slot kernels' windows beside molhiv's W=128 (rows 2,
 # 3, 4 and 5): a synthetic bucket of 250-node graphs (W=256) and the hep10k
 # slot bucket with the largest graph (W=512).
@@ -453,11 +470,14 @@ CLUSTER_MODELS = ("gcn", "pna", "dgn", "gat")
 # widths (``local_layer.occupancy``): GCN (D, vocab), DGN (D,), GAT (H·D, heads).
 OCCUPANCY = {"gcn_local_model": (100, 13), "gcn_local_model_slots": (100, 13),
              "dgn_local_model": (100,), "gat_local_model_slots": (64, 4),
-             "pna_local_layer_slots": (80,), "dgn_local_layer_slots": (100,)}
+             "pna_local_layer_slots": (80,), "dgn_local_layer_slots": (100,),
+             "dgn_local_layer_ell_model": (100,)}
 # Phase 3e: rows 20 and 22 at every window their clusters take, beside
 # molhiv's W=128 and the hep10k bucket's W=512: (the large graphs' nodes,
-# the window) of the synthetic buckets.
+# the window) of the synthetic buckets; row 18 on such ELL buckets at W =
+# 256, 512 and 1024 (k = 2 there).
 LAYER_WINDOWS = ((250, 256), (900, 1024))
+ELL_LAYER_WINDOWS = ((250, 256), (400, 512), (900, 1024))
 # Phase 3e: DGN's spilling W=256 bucket, its hub nodes' in-window in-degree
 # past the 8 slots.
 HUB_DEGREE = 12
@@ -510,40 +530,6 @@ def check_sass(libs) -> None:
 def check(cond: bool, msg: str) -> None:
     if not cond:
         raise RuntimeError(msg)
-
-
-def cuda_ms(fn, reps: int = 20, warmup: int = 3) -> float:
-    """Mean milliseconds per call of ``fn`` on the current stream."""
-    import torch
-
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / reps
-
-
-def graph_ms(fn, reps: int = 20) -> float:
-    """Mean device milliseconds per call of ``fn``: its launches captured
-    once in a CUDA graph (after a warm-up call, so plans, weight packs and
-    the shared-memory opt-ins are made outside the capture) and the graph
-    replayed (``cuda_ms``). The wrappers' host work, which ``cuda_ms`` over
-    a Python loop also times once a launch takes less device time than its
-    wrapper's host work, drops out."""
-    import torch
-
-    fn()
-    torch.cuda.synchronize()
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph, capture_error_mode="relaxed"):
-        fn()
-    return cuda_ms(graph.replay, reps)
 
 
 @contextlib.contextmanager
@@ -1156,11 +1142,15 @@ def check_layer_windows(streams: dict, device, max_err: dict) -> None:
     W=512 (the hep10k slot bucket holding the largest graph), f32 (1e-4) and
     bf16 (5e-2), row 22 also with a seeded ``m_spill``; then what the
     occupancy calculator says of both rows; then DGN's spilling W=256
-    bucket (``check_hub_spill``)."""
+    bucket (``check_hub_spill``). Row 18 (the one-layer form of row 4 over
+    the ELL layout) the same way on synthetic ELL buckets at W=256, 512 and
+    1024 (``ELL_LAYER_WINDOWS``; two edge blocks a window at W=1024), and
+    its occupancy."""
     import numpy as np
     import torch
 
     from flowgnn_tpu_torch.core.numerics import BF16, FLOAT32
+    from flowgnn_tpu_torch.models import base
     from flowgnn_tpu_torch.params.loaders import params_from_numpy
 
     for name in HEP_INTER_MODELS:
@@ -1185,7 +1175,18 @@ def check_layer_windows(streams: dict, device, max_err: dict) -> None:
                     err = compare(kname, v, f"{name} {what} layer 0{label} {dt}", tol)
                     if prec is FLOAT32:
                         max_err[kname] = max(max_err[kname], err)
-    print_occupancy(("pna_local_layer_slots", "dgn_local_layer_slots"), device)
+    kname = "dgn_local_layer_ell"
+    for n, w in ELL_LAYER_WINDOWS:
+        batch = big_graph_stream("dgn", n, device, ELL, window=w)[1][0]
+        what = f"W={w} k={base.ell_geometry(batch)[1]} synthetic ELL bucket, {n}-node graphs"
+        for prec, tol in ((FLOAT32, 1e-4), (BF16, 5e-2)):
+            params = params_from_numpy(synthetic_params("dgn", SEED + 1), prec, device)
+            ops = model_module("dgn").layer_kernel_operands(params, batch, prec)[kname]
+            err = compare(kname, ops, f"dgn {what} layer 0 {prec.compute_dtype}", tol)
+            if prec is FLOAT32:
+                max_err[kname] = max(max_err[kname], err)
+    print_occupancy(("pna_local_layer_slots", "dgn_local_layer_slots",
+                     "dgn_local_layer_ell_model"), device)
     check_hub_spill(device, max_err)
 
 
@@ -1819,7 +1820,8 @@ def time_paths(streams: dict, device, keys) -> dict:
     the end-to-end µs/graph of the kernel path and of the plain edge-list
     path, and per kernel of the path its ms per stream alone, its plain
     version's, its bound, and for the spill scatter PyTorch's
-    ``index_add_`` into [n, D'] of the same values. Returns those per
+    ``index_add_`` into [n, D'] of the same values; the kernels of
+    ``REPLAYED`` also by graph replay (``graph_ms``). Returns those per
     (kernel, key, dtype)."""
     import torch
 
@@ -1858,6 +1860,10 @@ def time_paths(streams: dict, device, keys) -> dict:
                     bound_by="operations" if t_ops > t_bytes else "bytes", library_ms=None,
                 )
                 line = ""
+                if kname in REPLAYED:
+                    # The device time of the same launches, the wrappers' host work left out.
+                    rec["graph_ms"] = graph_ms(lambda: [kernel(**o) for o in calls])
+                    line = f", by graph replay {rec['graph_ms']:.4f} ms"
                 if kname == SCATTER:
                     # The same sums as one PyTorch call: the lane values
                     # index-added at their receivers into [n, D'].
@@ -1867,7 +1873,7 @@ def time_paths(streams: dict, device, keys) -> dict:
                     rec["library_ms"] = cuda_ms(lambda: [
                         torch.zeros(n, v.shape[1], dtype=v.dtype, device=device).index_add_(0, r, v)
                         for n, r, v in lib])
-                    line = f", index_add_ {rec['library_ms']:.4f} ms"
+                    line += f", index_add_ {rec['library_ms']:.4f} ms"
                 print(f"# time {tag}: {kname} alone {rec['ms']:.4f} ms/stream ({len(calls)} "
                       f"launches), its plain version {rec['plain_ms']:.4f} ms{line}; bound "
                       f"{rec['bound_ms']:.4f} ms by {rec['bound_by']} ({flops:.4g} operations, "
@@ -1916,11 +1922,12 @@ def time_turns(streams: dict, device) -> dict:
 
 
 def time_split(streams: dict, device) -> None:
-    """Phase 5g: rows 9, 3, 4, 5, 20, 22, 23, 10, 12 and 25 by stage on their
-    ``SPLIT_CELLS``, bf16 and f32: the kernel alone over the stream whole,
-    with its product knocked out (``knockout`` bit 0: the next conv, the
-    tower, the posttrans, the glue, row 23's two products or the GIN MLP),
-    with its messages or stats knocked out (bit 1) and with both, each as
+    """Phase 5g: rows 9, 3, 4, 5, 20, 22, 23, 10, 12, 25, 18 and 17 by stage
+    on their ``SPLIT_CELLS``, bf16 and f32: the kernel alone over the stream
+    whole, with its product knocked out (``knockout`` bit 0: the next conv,
+    the tower, the posttrans, the glue, row 23's two products or the GIN
+    MLP; row 17 has none), with its messages, stats or channels knocked out
+    (bit 1) and with both, each as
     the device time of the stream's launches replayed from a CUDA graph
     (``graph_ms``; beside it the whole as the Python loop's ``cuda_ms``,
     which a knocked-out launch brings down only to its wrapper's host
@@ -1935,7 +1942,8 @@ def time_split(streams: dict, device) -> None:
              "dgn_local_model": "channels", "gat_local_model_slots": "messages",
              "pna_local_layer": "stats", "dgn_local_layer_slots": "channels",
              "gat_local_layer_ell": "messages", "gin_local_layer": "messages", ROW12: "messages",
-             "gin_layer_fused": "message sums"}
+             "gin_layer_fused": "message sums", "dgn_local_layer_ell": "channels",
+             "gat_local_message_ell": "messages"}
     for kname, cells in SPLIT_CELLS.items():
         kernel = kernel_fn(kname)
         for key in cells:
@@ -1944,16 +1952,23 @@ def time_split(streams: dict, device) -> None:
                 calls = kernel_calls(kname, name, params_from_numpy(synthetic_params(name, SEED),
                                                                     prec, device),
                                      streams[key][1], prec, key)
-                loop = {k: cuda_ms(lambda: [kernel(**o, knockout=k) for o in calls])
-                        for k in (0, 1, 2, 3)}
+                # Row 17 has no product: bit 0 knocks nothing out.
+                bits = (0, 2) if kname == "gat_local_message_ell" else (0, 1, 2, 3)
+                loop = {k: cuda_ms(lambda: [kernel(**o, knockout=k) for o in calls]) for k in bits}
                 try:
                     ms = {k: graph_ms(lambda: [kernel(**o, knockout=k) for o in calls])
-                          for k in (0, 1, 2, 3)}
-                    how = (f"device, graph replay; the loop {loop[0]:.4f}, without both "
-                           f"{loop[3]:.4f}")
+                          for k in bits}
+                    how = (f"device, graph replay; the loop {loop[0]:.4f}, without "
+                           f"{'both' if 3 in loop else 'them'} {loop[max(bits)]:.4f}")
                 except RuntimeError as e:
                     ms, how = loop, f"the loop: a graph does not capture it ({str(e)[:80]})"
                 whole = ms[0]
+                if len(bits) == 2:
+                    print(f"# split {kname} {' '.join(key)} {prec.compute_dtype} ({len(calls)} "
+                          f"launches): whole {whole:.4f} ms ({how}); "
+                          f"without the {stage[kname]} {ms[2]:.4f}; {stage[kname]} "
+                          f"{(whole - ms[2]) / whole:.1%}, the rest {ms[2] / whole:.1%}")
+                    continue
                 print(f"# split {kname} {' '.join(key)} {prec.compute_dtype} ({len(calls)} "
                       f"launches): whole {whole:.4f} ms ({how}); without the product {ms[1]:.4f}, "
                       f"without the {stage[kname]} {ms[2]:.4f}, without both {ms[3]:.4f}; "

@@ -31,6 +31,8 @@ import subprocess
 import sys
 from pathlib import Path
 
+from .timing import cuda_ms
+
 NODE_CAP, GRAPH_CAP = 32768, 2048  # the JAX bench's bucket capacities
 CELLS = (("hep10k", 2048), ("molhiv", 4113))
 _P, _I = ctypes.c_void_p, ctypes.c_int
@@ -128,21 +130,6 @@ def stream_operands(profile: str, graphs: int, device) -> list:
     batches = base.as_batches_uniform(buckets, blocked="local_ell", window=window, block=block)
     params = params_from_numpy(synthetic_gin_params(0), FLOAT32, device)
     return [gin.ell_kernel_operands(params, base.to_device(b, device), FLOAT32) for b in batches]
-
-
-def cuda_ms(fn, reps: int, warmup: int = 3) -> float:
-    import torch
-
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / reps
 
 
 def main(argv=None) -> int:

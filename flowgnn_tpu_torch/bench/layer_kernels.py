@@ -1,7 +1,9 @@
-"""The per-layer GIN and GAT kernels on their cells: rows 13
+"""The per-layer GIN, GAT and DGN kernels on their cells: rows 13
 (``gin_local_layer_ell``), 10 (``gin_local_layer``), 12
-(``gin_local_layer_ell_lanes``), 25 (``gin_layer_fused``) and 23
-(``gat_local_layer_ell``), each alone in ms per stream, bf16 and f32.
+(``gin_local_layer_ell_lanes``), 25 (``gin_layer_fused``), 23
+(``gat_local_layer_ell``), 17 (``gat_local_message_ell``), 18
+(``dgn_local_layer_ell``) and 16 (``dgn_local_message_ell``), each alone in
+ms per stream, bf16 and f32.
 
     python -m flowgnn_tpu_torch.bench.layer_kernels --label change
 
@@ -11,15 +13,22 @@ sample in ELL at W=128 (block 384, a spill tail) and on the 4113-graph
 synthetic molhiv stream in ELL (the intermediates cell); row 10 on molhiv in
 the legacy local layout (GIN and GIN-VN); row 12 on molhiv in ELL with each
 lane's bond embedding given; row 25 on molhiv in the edge-block layout
-(unaligned packing); row 23 on the hep10k sample and on molhiv in ELL (W=128,
-block 512). Each launch runs a bucket's layer-0 operands, once per layer (row
-23: every layer but the last), as ``chip_smoke.py`` times them. Each
-(kernel, cell, dtype) is timed with CUDA events (3 warm-up passes, the mean
-of ``--reps``) and printed with the launches per stream. It uses only the
-models' operand functions and the wrappers, so it times another revision of
-the package as well: run it from that revision's checkout, in turns with
-this one, to compare the two on one card. The card's name and power limit
-are printed first. Needs a CUDA card.
+(unaligned packing); rows 23 and 17 on the hep10k sample and on molhiv in
+ELL (W=128, block 512); row 18 on molhiv in ELL (W=128, block 512); row 16
+on the hep10k sample in ELL at W=128 (block 512, a spill tail). Each
+launch runs a bucket's layer-0 operands, once per layer (row 23: every layer
+but the last), as ``chip_smoke.py`` times them. Each (kernel, cell, dtype) is
+timed with CUDA events (3 warm-up passes, the mean of ``--reps``) twice: as a
+Python loop of wrapper calls, which times the wrappers' host work once a
+launch needs less device time than that, and as the same launches replayed
+from a CUDA graph, their device time (``bench.timing``); printed with the
+launches per stream. ``--kernels`` keeps the cells of the kernels it
+names. It uses
+only the models' operand functions and the wrappers, so it times another
+revision of the package as well (with this package's ``bench/timing.py``
+beside it): run it from that revision's checkout, in turns with this one, to
+compare the two on one card. The card's name and power limit are printed
+first. Needs a CUDA card.
 """
 
 from __future__ import annotations
@@ -27,6 +36,8 @@ from __future__ import annotations
 import argparse
 import subprocess
 import sys
+
+from .timing import cuda_ms, graph_ms
 
 NODE_CAP, GRAPH_CAP = 32768, 2048  # the JAX bench's bucket capacities
 # (kernel, model, profile, graphs, layout, window; None: choose_geometry's).
@@ -39,9 +50,11 @@ CELLS = (
     ("gin_layer_fused", "gin", "molhiv", 4113, True, None),
     ("gat_local_layer_ell", "gat", "hep10k", 2048, "local_ell", 128),
     ("gat_local_layer_ell", "gat", "molhiv", 4113, "local_ell", None),
+    ("gat_local_message_ell", "gat", "hep10k", 2048, "local_ell", 128),
+    ("gat_local_message_ell", "gat", "molhiv", 4113, "local_ell", None),
+    ("dgn_local_layer_ell", "dgn", "molhiv", 4113, "local_ell", None),
+    ("dgn_local_message_ell", "dgn", "hep10k", 2048, "local_ell", 128),
 )
-LIBRARIES = ("gin_local_layer_ell", "gin_local_layer_blocks", "gin_layer_fused",
-             "gat_local_layer_ell")
 
 
 def stream(name: str, profile: str, graphs: int, layout, window, device) -> list:
@@ -66,15 +79,21 @@ def stream(name: str, profile: str, graphs: int, layout, window, device) -> list
 
 def calls(kernel: str, name: str, batches: list, prec, device) -> list:
     """The keyword operands of every launch of ``kernel`` over the stream:
-    each bucket's layer-0 operands, once per layer that runs the kernel."""
-    from flowgnn_tpu_torch.models import base, gat, gin
+    each bucket's layer-0 operands, once per layer that runs the kernel (row
+    17 on GAT's unfused path: every layer)."""
+    from flowgnn_tpu_torch.models import base, dgn, gat, gin
     from flowgnn_tpu_torch.params import loaders
 
     if name == "gat":
         params = loaders.params_from_numpy(loaders.synthetic_gat_params(0), prec, device)
-        layers = params["proj_w"].shape[0] - 1
-        ops = [gat.layer_kernel_operands(params, b, prec, fuse_layers=True)[kernel]
+        fuse = kernel == "gat_local_layer_ell"
+        layers = params["proj_w"].shape[0] - fuse
+        ops = [gat.layer_kernel_operands(params, b, prec, fuse_layers=fuse)[kernel]
                for b in batches]
+    elif name == "dgn":
+        params = loaders.params_from_numpy(loaders.synthetic_dgn_params(0), prec, device)
+        layers = params["posttrans_w"].shape[0]
+        ops = [dgn.layer_kernel_operands(params, b, prec)[kernel] for b in batches]
     else:
         params = loaders.params_from_numpy(loaders.synthetic_gin_params(0), prec, device)
         layers = params["mlp1_w"].shape[0]
@@ -92,21 +111,6 @@ def calls(kernel: str, name: str, batches: list, prec, device) -> list:
     return [o for o in ops for _ in range(layers)]
 
 
-def cuda_ms(fn, reps: int, warmup: int = 3) -> float:
-    import torch
-
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / reps
-
-
 def main(argv=None) -> int:
     import torch
 
@@ -116,6 +120,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--label", default="current", help="the revision's name in the output")
     ap.add_argument("--reps", type=int, default=20)
+    ap.add_argument("--kernels", default="",
+                    help="only these comma-separated kernels (default: every cell's)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("layer_kernels: no CUDA device", file=sys.stderr)
@@ -124,9 +130,11 @@ def main(argv=None) -> int:
                           "-i", "0"], capture_output=True, text=True, check=True).stdout.strip())
     dev = torch.device("cuda", 0)
     torch.backends.cuda.matmul.allow_tf32 = False
-    build.build_libraries(LIBRARIES)  # in parallel, before the first launch
+    build.build_libraries(local_layer.LIBRARIES)  # in parallel, before the first launch
+    only = {k for k in args.kernels.split(",") if k}
+    cells = [c for c in CELLS if not only or c[0] in only]
     streams = {}
-    for kernel, name, profile, graphs, layout, window in CELLS:
+    for kernel, name, profile, graphs, layout, window in cells:
         key = (name, profile, graphs, layout, window)
         if key not in streams:
             streams[key] = stream(name, profile, graphs, layout, window, dev)
@@ -134,9 +142,11 @@ def main(argv=None) -> int:
         fn = getattr(fused_layer if kernel == "gin_layer_fused" else local_layer, kernel)
         for prec in (BF16, FLOAT32):
             ops = calls(kernel, name, batches, prec, dev)
-            ms = cuda_ms(lambda: [fn(**o) for o in ops], args.reps)
+            loop = cuda_ms(lambda: [fn(**o) for o in ops], args.reps)
+            replay = graph_ms(lambda: [fn(**o) for o in ops], args.reps)
             print(f"# {args.label} {kernel} {name} {profile} {layout} {prec.compute_dtype}: "
-                  f"{ms:.4f} ms per stream ({len(ops)} launches)")
+                  f"{replay:.4f} ms per stream by graph replay, {loop:.4f} by the loop "
+                  f"({len(ops)} launches)")
     return 0
 
 

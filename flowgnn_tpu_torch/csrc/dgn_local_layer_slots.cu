@@ -71,14 +71,15 @@ long long dgn_layer_smem_per_sm(int device) {
 // dgn_layer_launch, stages the bf16 form's weight ring. Neither the window
 // nor the slot geometry enters it.
 long long dgn_layer_smem_bytes(int dtype, int d, int stages) {
-  return (long long)dgn_model::smem_layout(dtype == 1, false, d, 0, 0, stages).total;
+  return (long long)dgn_model::smem_bytes<true, dgn_model::SlotWalk>(dtype, d, 0, 0, stages);
 }
 
 // What the occupancy calculator says of a launch: out[0] the blocks of the
 // form that fit one SM, out[1] the clusters of W/128 blocks that run at
 // once. Returns a cudaError_t.
 int dgn_layer_occupancy(int dtype, int window, int d, int stages, int device, int* out) {
-  return dgn_model::occupancy<true>(dtype, window, d, 0, 0, stages, device, out);
+  return dgn_model::occupancy<true, dgn_model::SlotWalk>(dtype, window, d, 0, 0, stages, device,
+                                                         out);
 }
 
 // dtype: 0 = float32, 1 = bfloat16 (h, eig, invd, ews, inva, w_post, b_post,
@@ -96,10 +97,13 @@ int dgn_layer_launch(int dtype, const void* slot_src, const void* h, const void*
   if (slots < 1 || slots > dgn_model::kMaxSlots) return int(cudaErrorInvalidValue);
   int caps[dgn_model::kMaxSlots];
   for (int k = 0; k < slots; ++k) caps[k] = window;  // every slot counts for every row
-  const dgn_model::Dims dm{n, window, d, 1, 0, 0, slots, stages, knockout};
-  return dgn_model::launch<true>(dtype, slot_src, h, eig, invd, ews, inva, w_post, b_post,
-                                 nullptr, nullptr, m_spill, tiles, nullptr, out, num_windows, dm,
-                                 caps, device, stream);
+  dgn_model::SlotWalk walk;
+  if (!dgn_model::make_slot_walk(walk, slot_src, caps, slots, window))
+    return int(cudaErrorInvalidValue);
+  const dgn_model::Dims dm{n, window, d, 1, 0, 0, stages, knockout};
+  return dgn_model::launch<true>(dtype, walk, h, eig, invd, ews, inva, w_post, b_post, nullptr,
+                                 nullptr, m_spill, tiles, nullptr, out, num_windows, dm, device,
+                                 stream);
 }
 
 const char* dgn_layer_error_string(int code) {

@@ -52,7 +52,7 @@ long long dgn_model_smem_per_sm(int device) {
 // slot geometry do not enter it: a block holds 128 rows, and the slot lanes
 // stay in device memory.
 long long dgn_model_smem_bytes(int dtype, int d, int gmax, int tout, int stages) {
-  return (long long)dgn_model::smem_layout(dtype == 1, true, d, gmax, tout, stages).total;
+  return (long long)dgn_model::smem_bytes<false, dgn_model::SlotWalk>(dtype, d, gmax, tout, stages);
 }
 
 // What the occupancy calculator says of a launch: out[0] the blocks of the
@@ -60,7 +60,8 @@ long long dgn_model_smem_bytes(int dtype, int d, int gmax, int tout, int stages)
 // once (cudaOccupancyMaxActiveClusters). Returns a cudaError_t.
 int dgn_model_occupancy(int dtype, int window, int d, int gmax, int tout, int stages, int device,
                         int* out) {
-  return dgn_model::occupancy<false>(dtype, window, d, gmax, tout, stages, device, out);
+  return dgn_model::occupancy<false, dgn_model::SlotWalk>(dtype, window, d, gmax, tout, stages,
+                                                          device, out);
 }
 
 // dtype: 0 = float32, 1 = bfloat16 (h0, eig, invd, ews, inva, w_all, b_all,
@@ -76,10 +77,13 @@ int dgn_model_launch(int dtype, const void* slot_src, const void* h0, const void
                      const void* tiles, void* out, int num_windows, int n, int window, int d,
                      int layers, int gmax, int tout, const int* caps, int slots, int stages,
                      int knockout, int device, void* stream) {
-  const dgn_model::Dims dm{n, window, d, layers, gmax, tout, slots, stages, knockout};
-  return dgn_model::launch<false>(dtype, slot_src, h0, eig, invd, ews, inva, w_all, b_all,
-                                  pool_gl, mlp1_w, nullptr, tiles, out, nullptr, num_windows, dm,
-                                  caps, device, stream);
+  dgn_model::SlotWalk walk;
+  if (!dgn_model::make_slot_walk(walk, slot_src, caps, slots, window))
+    return int(cudaErrorInvalidValue);
+  const dgn_model::Dims dm{n, window, d, layers, gmax, tout, stages, knockout};
+  return dgn_model::launch<false>(dtype, walk, h0, eig, invd, ews, inva, w_all, b_all, pool_gl,
+                                  mlp1_w, nullptr, tiles, out, nullptr, num_windows, dm, device,
+                                  stream);
 }
 
 const char* dgn_model_error_string(int code) {

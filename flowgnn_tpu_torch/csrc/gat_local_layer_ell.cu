@@ -39,13 +39,15 @@
 // f32 on every launch held the block to 103 KB. What the design does:
 // - the messages: one block of 256 threads per 128 rows of a window (grid
 //   NW*W/128, W up to 1024, no cluster: the sources' h sits in device
-//   memory, so each block is independent), each row's run of lanes by binary
-//   search on v, one warp per row; a row's lane sources are loaded 32 at a
-//   time with one warp-wide load and walked by shuffle, four lanes' h_u rows
-//   and scores in flight before their sums, which stay in lane order; a
-//   row's s_src and spill sums are loaded one row ahead, and prev comes into
-//   shared memory by 16-byte cp.async issued before the messages and
-//   waited for after them (its rows must start 16-byte aligned);
+//   memory, so each block is independent), the walk row 17 runs too
+//   (gat_messages.cuh: a half-warp a row where H <= 16, two rows' chains a
+//   warp, else a warp a row; four or two consecutive columns a thread; a
+//   row's lane sources loaded 16 or 32 at a time and walked by shuffle, four
+//   lanes' h_u rows and scores in flight, a row's s_src, spill sums and
+//   first sources one row ahead), its f32 sums into shared memory; prev
+//   comes into shared memory by 16-byte cp.async issued before the
+//   messages and waited for after them (its rows must start 16-byte
+//   aligned);
 // - bf16: both products on the tensor cores through linear_wgmma.cuh, N =
 //   64: x_skip = prev . w_skip^T (A: prev [128, K'] bf16, K' = H*D padded to
 //   32; its values and w_skip's are bf16, so the products are exact and
@@ -74,26 +76,29 @@
 // messages (tot = spill_both); the phase split of chip_smoke.py times the
 // kernel with each.
 
+#include <initializer_list>
+
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "gat_messages.cuh"
 #include "linear_wgmma.cuh"
 
 namespace {
 
 using namespace hopper;
+namespace gm = gat_messages;
 namespace lw = linear_wgmma;
+using gm::cvt;
+using gm::ld;
 
 constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
 constexpr int kRows = 128;             // window rows per block
 constexpr int kMaxWindowBlocks = 8;    // W up to 1024
 constexpr int kN = 64;                 // the products' width: the widest H*D
 constexpr int kMaxHD = kN;
-constexpr int kLaneD = kMaxHD / 32;    // H*D columns per lane in the messages
-constexpr int kMaxHeads = 32;          // one head's score per lane
-constexpr int kMeta = 5;               // ints per lane: u, v, three bond rows
-constexpr int kBatch = 4;              // lanes whose sources are in flight at once
+constexpr int kMaxHeads = 32;          // one head's score per lane of a row's group
+constexpr int kHalfHeads = 16;         // the half-warp walk: H <= 16
 constexpr int kTR = 16;                // thread rows of the f32 product tile
 constexpr int kTC = 16;                // thread columns of the f32 product tile
 constexpr int kRowsPT = kRows / kTR;   // rows per thread (8)
@@ -154,27 +159,6 @@ inline Smem smem_layout(bool wg, int hd, int heads, int stages) {
   return s;
 }
 
-__device__ __forceinline__ float ld(const float* p) { return __ldg(p); }
-__device__ __forceinline__ float ld(const __nv_bfloat16* p) {
-  return __bfloat162float(*p);
-}
-
-template <typename T> __device__ __forceinline__ T cvt(float x);
-template <> __device__ __forceinline__ float cvt<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 cvt<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
-}
-
-template <typename T> __device__ __forceinline__ float rnd(float x);
-template <> __device__ __forceinline__ float rnd<float>(float x) { return x; }
-template <> __device__ __forceinline__ float rnd<__nv_bfloat16>(float x) {
-  return __bfloat162float(__float2bfloat16_rn(x));
-}
-
-__device__ __forceinline__ float leaky_exp(float raw) {
-  return expf(raw < 0.f ? __fmul_rn(raw, 0.2f) : raw);
-}
-
 __device__ __forceinline__ float elu(float x) {
   return x > 0.f ? x : __fsub_rn(expf(fminf(x, 0.f)), 1.f);
 }
@@ -196,110 +180,6 @@ __device__ __forceinline__ void tile_product(const float* x_s, int ldx, const fl
     for (int i = 0; i < kRowsPT; ++i)
 #pragma unroll
       for (int m = 0; m < kColsPT; ++m) acc[i][m] = fmaf(a[i], wv[m], acc[i][m]);
-  }
-}
-
-// The sums of the block's 128 rows into tot_s [128][HD+H] (+ spill_both):
-// one warp a row, lane j holding columns j, j + 32 and head j's score sum.
-template <typename T>
-__device__ __forceinline__ void messages(const int* __restrict__ meta_w, const T* __restrict__ h,
-                                         const T* __restrict__ s_src, const T* __restrict__ s_tgt,
-                                         const T* __restrict__ spill, const int* lo_s,
-                                         float* tot_s, long wrow0, long row0, const Dims& dm,
-                                         bool gather, int tid) {
-  const int HD = dm.hd, H = dm.heads, dh = dm.hd / dm.heads, TW = HD + H;
-  const int warp = tid / 32, lane = tid % 32;
-  // Lane j's columns' head, the source lane of its score shuffle.
-  int head[kLaneD];
-#pragma unroll
-  for (int j = 0; j < kLaneD; ++j) head[j] = lane + 32 * j < HD ? (lane + 32 * j) / dh : 0;
-  // A row's s_src and spill sums, loaded one row ahead of their use.
-  struct RowIn {
-    float ss, sp[kLaneD], sd;
-  };
-  auto row_in = [&](int r) {
-    RowIn in{0.f, {}, 0.f};
-    const long row = row0 + r;
-    if (r >= kRows || row >= dm.n) return in;
-    if (lane < H) in.ss = ld(s_src + row * H + lane);
-    if (spill == nullptr) return in;
-    const T* sp = spill + row * TW;
-#pragma unroll
-    for (int j = 0; j < kLaneD; ++j)
-      if (lane + 32 * j < HD) in.sp[j] = ld(sp + lane + 32 * j);
-    if (lane < H) in.sd = ld(sp + HD + lane);
-    return in;
-  };
-  RowIn next = row_in(warp);
-  for (int r = warp; r < kRows; r += kWarps) {
-    const long row = row0 + r;
-    const bool real = row < dm.n;
-    const RowIn in = next;
-    next = row_in(r + kWarps);
-    const float ss = in.ss;
-    float num[kLaneD];
-#pragma unroll
-    for (int j = 0; j < kLaneD; ++j) num[j] = 0.f;
-    float den = 0.f;  // lane k < H: head k's
-    const int e0 = lo_s[r], e1 = real && gather ? lo_s[r + 1] : e0;
-    for (int base = e0; base < e1; base += 32) {
-      const int cnt = min(32, e1 - base);
-      // Each lane loads one source of the next 32 lanes; a source outside
-      // the window, or a padding row, reads as zero (u = -1).
-      int my_u = lane < cnt ? __ldg(meta_w + (base + lane) * kMeta) : -1;
-      if (!(unsigned(my_u) < unsigned(dm.window) && wrow0 + my_u < dm.n)) my_u = -1;
-      for (int i0 = 0; i0 < cnt; i0 += kBatch) {
-        float x[kBatch][kLaneD], st[kBatch];
-        bool ok[kBatch];
-#pragma unroll
-        for (int b = 0; b < kBatch; ++b) {
-          const int u = __shfl_sync(0xffffffffu, my_u, (i0 + b) & 31);
-          ok[b] = i0 + b < cnt && u >= 0;
-          const T* hu = h + (wrow0 + (ok[b] ? u : 0)) * HD;
-          st[b] = ok[b] && lane < H ? ld(s_tgt + (wrow0 + u) * H + lane) : 0.f;
-#pragma unroll
-          for (int j = 0; j < kLaneD; ++j) {
-            const int c = lane + 32 * j;
-            x[b][j] = ok[b] && c < HD ? ld(hu + c) : 0.f;
-          }
-        }
-#pragma unroll
-        for (int b = 0; b < kBatch; ++b) {
-          if (i0 + b >= cnt) break;
-          float sc = 0.f;
-          if (lane < H) {
-            sc = leaky_exp(__fadd_rn(ss, st[b]));
-            den = __fadd_rn(den, rnd<T>(sc));
-          }
-#pragma unroll
-          for (int j = 0; j < kLaneD; ++j) {
-            const float sc_c = __shfl_sync(0xffffffffu, sc, head[j]);
-            if (lane + 32 * j < HD) num[j] = __fadd_rn(num[j], rnd<T>(__fmul_rn(sc_c, x[b][j])));
-          }
-        }
-      }
-    }
-#pragma unroll
-    for (int j = 0; j < kLaneD; ++j) {
-      const int c = lane + 32 * j;
-      if (c < HD) tot_s[r * TW + c] = __fadd_rn(num[j], in.sp[j]);
-    }
-    if (lane < H) tot_s[r * TW + HD + lane] = __fadd_rn(den, in.sd);
-  }
-}
-
-// The first lane of each of the block's rows (and one past the last), by
-// binary search over v.
-__device__ __forceinline__ void lane_runs(const int* __restrict__ meta_w, int lanes, int part,
-                                          int* lo_s, int tid) {
-  for (int r = tid; r <= kRows; r += kThreads) {
-    const int key = part * kRows + r;
-    int lo = 0, hi = lanes;
-    while (lo < hi) {
-      const int mid = (lo + hi) >> 1;
-      if (__ldg(meta_w + mid * kMeta + 1) < key) lo = mid + 1; else hi = mid;
-    }
-    lo_s[r] = lo;
   }
 }
 
@@ -347,11 +227,12 @@ __device__ __forceinline__ void store_pair(__nv_bfloat16* p, float a, float b, b
   if (both) p[1] = __float2bfloat16_rn(b);
 }
 
-// kWg: the bf16 form with both products on wgmma; else f32 with FMA.
-// tiles: the layer's packed weights (bf16: the skip then the projection
-// chunks; f32: w_skip^T then w_proj^T as [HD][64]). lay: the shared-memory
-// carve-up, computed once on the host (smem_layout).
-template <typename T, bool kWg>
+// kWg: the bf16 form with both products on wgmma; else f32 with FMA. G:
+// the message walk's threads a row (16 where H <= 16, else 32). tiles: the
+// layer's packed weights (bf16: the skip then the projection chunks; f32:
+// w_skip^T then w_proj^T as [HD][64]). lay: the shared-memory carve-up,
+// computed once on the host (smem_layout).
+template <typename T, bool kWg, int G>
 __global__ void __launch_bounds__(kThreads, 2)
 gat_layer_ell_kernel(const int* __restrict__ meta, const T* __restrict__ h,
                      const T* __restrict__ s_src, const T* __restrict__ s_tgt,
@@ -373,7 +254,7 @@ gat_layer_ell_kernel(const int* __restrict__ meta, const T* __restrict__ h,
   uint64_t* bars = reinterpret_cast<uint64_t*>(smem + lay.bars);
   const long wrow0 = long(win) * dm.window;
   const long row0 = wrow0 + long(part) * kRows;
-  const int* meta_w = meta + long(win) * dm.lanes * kMeta;
+  const int* meta_w = meta + long(win) * dm.lanes * gm::kMeta;
   const lw::Ring ring{smem + lay.ring, bars, tiles, dm.stages, g.skip_chunks + g.proj_chunks,
                       g.chunk_bytes};
 
@@ -433,7 +314,8 @@ gat_layer_ell_kernel(const int* __restrict__ meta, const T* __restrict__ h,
       }
     }
   }
-  if (gather) lane_runs(meta_w, dm.lanes, part, lo_s, tid);
+  if (gather)
+    lanes::ell_runs<kRows>(meta_w, dm.lanes, part * kRows, lo_s, tid, kThreads);
   __syncthreads();
   if (tid == 0 && product) {
     if constexpr (kWg) {
@@ -445,7 +327,9 @@ gat_layer_ell_kernel(const int* __restrict__ meta, const T* __restrict__ h,
     }
   }
 
-  messages<T>(meta_w, h, s_src, s_tgt, spill, lo_s, tot_s, wrow0, row0, dm, gather, tid);
+  gm::messages<T, float, G, kMaxHD / G, kRows, false>(
+      meta_w, h, s_src, s_tgt, spill, lo_s, tot_s, 0, wrow0, row0, dm.n, dm.window, dm.lanes, dm.hd,
+      dm.heads, gather, tid, kThreads);
 
   if constexpr (kWg) {
     __nv_bfloat16* a_s = reinterpret_cast<__nv_bfloat16*>(smem + lay.a);
@@ -546,12 +430,18 @@ gat_layer_ell_kernel(const int* __restrict__ meta, const T* __restrict__ h,
   score_pass<T>(hn_s, ldh, amat_s, out, row0, dm, tid);
 }
 
+// The form's kernel for `heads` heads: the half-warp walk where H <= 16.
+template <typename T, bool kWg>
+auto kernel_of(int heads) {
+  return heads <= kHalfHeads ? gat_layer_ell_kernel<T, kWg, 16> : gat_layer_ell_kernel<T, kWg, 32>;
+}
+
 template <typename T, bool kWg>
 cudaError_t launch_form(const void* meta, const void* h, const void* s_src, const void* s_tgt,
                         const void* prev, const void* spill, const void* a_mat,
                         const void* tiles, void* out, int num_windows, const Dims& dm,
                         const Smem& lay, cudaStream_t stream) {
-  gat_layer_ell_kernel<T, kWg><<<num_windows * (dm.window / kRows), kThreads, lay.total, stream>>>(
+  kernel_of<T, kWg>(dm.heads)<<<num_windows * (dm.window / kRows), kThreads, lay.total, stream>>>(
       static_cast<const int*>(meta), static_cast<const T*>(h), static_cast<const T*>(s_src),
       static_cast<const T*>(s_tgt), static_cast<const T*>(prev), static_cast<const T*>(spill),
       static_cast<const T*>(a_mat), static_cast<const unsigned char*>(tiles),
@@ -595,27 +485,29 @@ long long gat_layer_ell_smem_bytes(int dtype, int hd, int heads, int stages) {
   return (long long)smem_layout(dtype == 1, hd, heads, stages).total;
 }
 
-// Opt both forms in to `bytes` of dynamic shared memory on `device` (once
+// Opt every form in to `bytes` of dynamic shared memory on `device` (once
 // per launch plan). Returns a cudaError_t.
 int gat_layer_ell_prepare(long long bytes, int device) {
   cudaError_t err = cudaSetDevice(device);
-  if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(gat_layer_ell_kernel<float, false>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, int(bytes));
-  if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(gat_layer_ell_kernel<__nv_bfloat16, true>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, int(bytes));
+  for (int heads : {kHalfHeads, kMaxHeads}) {
+    if (err == cudaSuccess)
+      err = cudaFuncSetAttribute(kernel_of<float, false>(heads),
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize, int(bytes));
+    if (err == cudaSuccess)
+      err = cudaFuncSetAttribute(kernel_of<__nv_bfloat16, true>(heads),
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize, int(bytes));
+  }
   return int(err);
 }
 
-// The blocks of the form of `dtype` with `bytes` of dynamic shared memory
-// that fit one SM, in out[0]. Returns a cudaError_t.
-int gat_layer_ell_occupancy(int dtype, long long bytes, int* out) {
+// The blocks of the form of `dtype` at `heads` heads with `bytes` of
+// dynamic shared memory that fit one SM, in out[0]. Returns a cudaError_t.
+int gat_layer_ell_occupancy(int dtype, int heads, long long bytes, int* out) {
   if (dtype == 0)
     return int(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        out, gat_layer_ell_kernel<float, false>, kThreads, size_t(bytes)));
+        out, kernel_of<float, false>(heads), kThreads, size_t(bytes)));
   return int(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      out, gat_layer_ell_kernel<__nv_bfloat16, true>, kThreads, size_t(bytes)));
+      out, kernel_of<__nv_bfloat16, true>(heads), kThreads, size_t(bytes)));
 }
 
 // dtype: 0 = float32, 1 = bfloat16 (h, s_src, s_tgt, prev, spill, a_mat,

@@ -20,8 +20,8 @@
 // (linear_wgmma.cuh) with its weight chunks streamed through a ring of bulk
 // copies, two blocks an SM, the f32 conv register-tiled FMA. This file runs
 // it with the ELL message stage (lanes.cuh: Ell): each block finds its rows'
-// lane runs by binary search on v once, before the layers, and sums each
-// row's lanes in lane order.
+// lane runs once, before the layers, by one pass over the window's lanes
+// that marks where v changes, and sums each row's lanes in lane order.
 //
 // What bounds it on this card: per 128 rows and layer the next conv is
 // 128*D*D multiply-adds (1.28 M at D=100) against ~1.5 lanes per row of

@@ -17,8 +17,9 @@
 //
 // The kernel is gin_model.cuh's, a cluster of W/128 blocks per window with
 // its bf16 update MLP on the tensor cores (gin_mlp.cuh); this file runs it
-// with the ELL message stage (lanes.cuh: Ell): each block finds its rows' lane runs by binary search
-// on v once, before the layers, and a row's lanes are read from device
+// with the ELL message stage (lanes.cuh: Ell): each block finds its rows'
+// lane runs once, before the layers, by one pass over the window's lanes
+// that marks where v changes, and a row's lanes are read from device
 // memory through L1 in lane order.
 //
 // What bounds it on this card: the MLP is 4·n·D·H operations a layer

@@ -1,7 +1,9 @@
 // The lane walks of the whole-model kernels' message stages, shared by
 // gin_model.cuh (rows 8 and 1) and gcn_model.cuh (rows 9 and 2): the k = 1
 // ELL layout and the degree-sorted slot layout that
-// flowgnn_tpu_torch/models/base.py:as_batch builds.
+// flowgnn_tpu_torch/models/base.py:as_batch builds. The ELL runs (ell_runs)
+// also serve dgn_model.cuh's ELL walk (row 18), gat_messages.cuh (rows 17
+// and 23) and row 16 (dgn_local_layer_ell.cu).
 //
 // A walk serves a block of kRows window rows (one block of a cluster of
 // W/128): prepare(win, rank, tid, lo_s) runs once before the layers (lo_s:
@@ -13,6 +15,8 @@
 
 #pragma once
 
+#include <climits>
+
 #include <cuda_runtime.h>
 
 namespace lanes {
@@ -22,6 +26,23 @@ constexpr int kThreads = 256;  // threads per block
 constexpr int kEllMeta = 5;    // ints per ELL lane: u, v, three bond rows
 constexpr int kMaxSlots = 8;   // deepest slot axis
 
+// lo_s[r] for r = 0..R: the first of the window's `lanes` lanes whose v is
+// at least key0 + r, so row r's lanes are [lo_s[r], lo_s[r+1]). One pass
+// over the lanes marks where v changes: lane e writes every key in
+// (v[e-1], v[e]], the last lane's successor every key past the last v. The
+// layout keeps v ascending within a window, which this needs; it takes no
+// dependent load, where a binary search per row takes about log2(lanes).
+template <int R>
+__device__ __forceinline__ void ell_runs(const int* __restrict__ meta_w, int lanes, int key0,
+                                         int* lo_s, int tid, int nthreads) {
+  for (int e = tid; e <= lanes; e += nthreads) {
+    const int prev = e == 0 ? INT_MIN : __ldg(meta_w + (e - 1) * kEllMeta + 1);
+    const int cur = e == lanes ? INT_MAX : __ldg(meta_w + e * kEllMeta + 1);
+    const int hi = cur < key0 + R ? cur : key0 + R;
+    for (int k = prev < key0 ? key0 : prev + 1; k <= hi; ++k) lo_s[k - key0] = e;
+  }
+}
+
 // The k = 1 ELL layout: `block` lanes per window of `meta`, sorted by v
 // within the window (a stable sort by receiver), so each destination row's
 // lanes are one contiguous run; pad lanes carry u = v = W and come last.
@@ -30,18 +51,9 @@ struct Ell {
   int block;
 
   // Row r's lanes are [lo_s[r], lo_s[r+1]): the first lane whose v is at
-  // least the row's window-local index, by binary search over v.
+  // least the row's window-local index (ell_runs).
   __device__ __forceinline__ void prepare(int win, int rank, int tid, int* lo_s) const {
-    const int* meta_w = meta + long(win) * block * kEllMeta;
-    for (int r = tid; r <= kRows; r += kThreads) {
-      const int key = rank * kRows + r;
-      int lo = 0, hi = block;
-      while (lo < hi) {
-        const int mid = (lo + hi) >> 1;
-        if (__ldg(meta_w + mid * kEllMeta + 1) < key) lo = mid + 1; else hi = mid;
-      }
-      lo_s[r] = lo;
-    }
+    ell_runs<kRows>(meta + long(win) * block * kEllMeta, block, rank * kRows, lo_s, tid, kThreads);
   }
 
   template <typename F>

@@ -46,10 +46,13 @@ from ..ops.spmm import segment_sum_blocked, windowed_segment_sum
 
 # Window and ELL block per model. The slot megakernels read only the window;
 # the block is the ELL lanes per window and feeds only the ELL layout. The
-# windows are the port's own: W=128 keeps a window's f32 state inside one
-# Hopper block's shared memory (the JAX package's v5e table puts GIN-VN at
-# W=256 and GAT at W=384, figures of that chip's 128-lane tiles); the ELL
-# kernels span larger windows with 128-row blocks. DGN and GAT take the block
+# windows are the port's own: W=128 for every model, where the JAX package's
+# v5e table puts GIN-VN at W=256 and GAT at W=384 (figures of that chip's
+# 128-lane tiles). Every kernel of the port takes a window of 128 to 1024
+# rows (the whole-model and one-layer kernels as a thread-block cluster of
+# W/128 blocks, whose shared memory holds the window's state), so the window
+# is a choice of speed, not of fit; GIN-VN at W=256 and GAT at W=384 have not
+# been measured against W=128 on the card yet. DGN and GAT take the block
 # the JAX bench derives at --ell-window 128 (bench.py:147-158 over its
 # ELL_GEOMETRY_DEFAULTS): 512. GAT needs it: its self loops add up to 128
 # lanes to a window whose fullest holds 286 on molhiv, which would push a

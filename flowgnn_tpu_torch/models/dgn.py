@@ -155,16 +155,19 @@ def layer_operands(params: dict, batch: dict, l: int, h: torch.Tensor, terms, la
 
 
 def ell_layer_operands(params: dict, batch: dict, l: int, h: torch.Tensor, terms, meta,
-                       spill) -> dict:
+                       spill, tiles: Optional[torch.Tensor] = None) -> dict:
     """The keyword operands the per-layer ELL path hands
     ``dgn_local_layer_ell`` (no spill tail: ``spill`` None) or
     ``dgn_local_message_ell`` (a spill tail) for layer ``l`` and its input
-    ``h``; ``meta`` is ``base.ell_meta(batch)``."""
+    ``h``; ``meta`` is ``base.ell_meta(batch)``. ``tiles``: every layer's
+    bf16 posttrans chunks as ``posttrans_tiles`` gives them (row 22's), of
+    which ``dgn_local_layer_ell`` is handed layer ``l``'s, or None."""
     ops = dict(ell_meta=meta, h=h, eig=terms[0].contiguous(),
                window=_base.ell_geometry(batch)[0])
     if spill is not None:
         return ops
-    return dict(ops, **_layer_terms(params, l, h.shape[1], terms))
+    return dict(ops, posttrans_tiles=None if tiles is None else tiles[l],
+                **_layer_terms(params, l, h.shape[1], terms))
 
 
 def layer_kernel_operands(params: dict, batch: dict, prec: Precision = FLOAT32) -> dict:
@@ -183,7 +186,8 @@ def layer_kernel_operands(params: dict, batch: dict, prec: Precision = FLOAT32) 
             torch.cat([x, terms[1][:, None] * x], dim=1), batch)}
     if "loc_ell" in batch:
         spill = _base.ell_spill(batch)
-        ops = ell_layer_operands(params, batch, 0, h, terms, _base.ell_meta(batch), spill)
+        ops = ell_layer_operands(params, batch, 0, h, terms, _base.ell_meta(batch), spill,
+                                 posttrans_tiles(params, prec))
         if spill is None:
             return {"dgn_local_layer_ell": ops}
         out = {"dgn_local_message_ell": ops}
@@ -228,10 +232,11 @@ def forward(
     eig, eig_w, eigw_sum, eig_abssum, deg = terms
     h = _atom_embed_dgn(params["atom_tables"], batch["node_feat"], prec)
     lanes = _base.spill_lanes(batch) if slots and batch["slot_spill"].shape[-1] else None
-    tiles = posttrans_tiles(params, prec) if slots else None
     ell = "loc_ell" in batch
     if ell:
         meta, spill = _base.ell_meta(batch), _base.ell_spill(batch)
+    # Rows 22 and 18 (an ELL batch with no spill tail) take the bf16 chunks.
+    tiles = posttrans_tiles(params, prec) if slots or (ell and spill is None) else None
     inter = [h]
     for l in range(L):
         if slots:
@@ -240,7 +245,7 @@ def forward(
             continue
         d = h.shape[1]
         if ell:
-            ops = ell_layer_operands(params, batch, l, h, terms, meta, spill)
+            ops = ell_layer_operands(params, batch, l, h, terms, meta, spill, tiles)
             if spill is None:
                 h = dgn_local_layer_ell(**ops)
                 inter.append(h)

@@ -52,7 +52,8 @@ the last two one thread-block cluster of W/128 blocks per window of 128 to
 The per-layer ELL kernels run one layer per launch over the ELL layout with
 any number k of edge blocks per window (the k·B lanes of a window are one
 run sorted by destination row), at windows of 128 up to 1024 rows, one block
-per 128 rows; h stays in device memory between layers:
+per 128 rows (row 18: a thread-block cluster of W/128 blocks per window);
+h stays in device memory between layers:
 
 - ``gin_local_layer_ell``: a whole GIN / GIN-VN layer, messages, the spill
   tail's pre-summed ``m_spill`` and the MLP (``csrc/gin_local_layer_ell.cu``,
@@ -63,11 +64,14 @@ per 128 rows; h stays in device memory between layers:
   (``csrc/gcn_local_message_ell.cu``);
 - ``gcn_local_layer_ell``: a whole GCN layer after its conv, up to the next
   conv's output (``csrc/gcn_local_layer_ell.cu``);
-- ``dgn_local_layer_ell``: a whole DGN layer with no spill tail, and
-  ``dgn_local_message_ell``: DGN's two message channels, for the caller to
-  merge a spill tail (two kernels of ``csrc/dgn_local_layer_ell.cu``);
+- ``dgn_local_layer_ell``: a whole DGN layer with no spill tail
+  (``csrc/dgn_local_layer_ell_model.cu``: the one-layer form of
+  ``dgn_local_model``'s kernel, ``csrc/dgn_model.cuh``, with the ELL lane
+  walk), and ``dgn_local_message_ell``: DGN's two message channels, for
+  the caller to merge a spill tail (``csrc/dgn_local_layer_ell.cu``);
 - ``gat_local_message_ell``: GAT's softmax sums, for the caller to merge a
-  spill tail and divide (``csrc/gat_local_message_ell.cu``);
+  spill tail and divide (``csrc/gat_local_message_ell.cu``: the message walk
+  of ``gat_local_layer_ell``, ``csrc/gat_messages.cuh``);
 - ``gat_local_layer_ell``: a whole non-final GAT layer, the softmax sums,
   the spill tail's pre-reduced ``spill_both``, the divide, skip projection,
   ELU and the next layer's projection and scores
@@ -93,9 +97,10 @@ edge-block layer ``gin_layer_fused`` is in ``ops.fused_layer``.
 The three GIN kernels of rows 1, 8 and 13 run their bf16 update MLP on the
 tensor cores through one routine (``csrc/gin_mlp.cuh``: ``wgmma``, the
 weights streamed in chunks of 32 hidden units through a ring of bulk copies)
-and their f32 MLP as FMA on the CUDA cores. Rows 9, 2, 3, 4, 5, 20 and 22
-run their bf16 product (GCN's next conv, PNA's tower, DGN's posttrans,
-GAT's glue) through another, one product of 128 rows
+and their f32 MLP as FMA on the CUDA cores. Rows 9, 2, 3, 4, 5, 20, 22, 18
+and 23 run their bf16 products (GCN's next conv, PNA's tower, DGN's
+posttrans, GAT's glue and its fused layer's skip and projection) through
+another, one product of 128 rows
 (``csrc/linear_wgmma.cuh``, the weights in chunks of 32 input channels
 through the same ring), and their f32 product as FMA. The weight chunks are
 packed on the host once per weight set (``mlp_tiles``, ``gcn_conv_tiles``,
@@ -136,7 +141,7 @@ LIBRARIES = (
     "gat_local_message_slots", "windowed_segment_sum", "gin_local_layer_ell",
     "gcn_local_message_ell", "gcn_local_layer_ell", "pna_local_layer_slots",
     "dgn_local_layer_ell", "gat_local_message_ell", "gin_local_layer_blocks",
-    "gin_layer_fused", "gat_local_layer_ell",
+    "gin_layer_fused", "gat_local_layer_ell", "dgn_local_layer_ell_model",
 )
 
 
@@ -1054,6 +1059,7 @@ def dgn_local_layer_ell_ref(
     w_post: torch.Tensor,  # [2D, D] posttrans, right-multiplied
     b_post: torch.Tensor,  # [1, D]
     window: int,
+    posttrans_tiles: Optional[torch.Tensor] = None,  # the kernel's packed weights; not read here
 ) -> torch.Tensor:
     """Plain-torch ``dgn_local_layer_ell``: one whole DGN layer over the
     ELL layout with no spill tail, the next h [n, D] in h's dtype. The
@@ -1175,10 +1181,10 @@ def _library(name: str) -> dict:
     ``_smem_per_sm``, ``_prepare`` and ``_occupancy`` (row 23 also
     ``_tile_dims``), and the users of ``csrc/linear_wgmma.cuh`` the geometry
     of their weight chunks (rows 9 and 2 ``_conv_dims``, rows 3 and 20
-    ``_tower_dims``, rows 4 and 22 ``_posttrans_dims``, row 5
+    ``_tower_dims``, rows 4, 22 and 18 ``_posttrans_dims``, row 5
     ``_glue_dims``), those that keep two
-    blocks an SM (rows 9, 2, 4, 5 and 22) and row 20 also ``_smem_per_sm``
-    and ``_occupancy``."""
+    blocks an SM (rows 9, 2, 4, 5, 22 and 18) and row 20 also
+    ``_smem_per_sm`` and ``_occupancy``."""
     slot_getters = ("max_d", "max_slots")
     ell_getters = ("max_d", "rows_per_block", "max_cluster")
     layer_getters = ("max_d", "rows_per_block", "max_window_blocks")
@@ -1243,14 +1249,17 @@ def _library(name: str) -> dict:
             "pna_layer", slot_getters + ("rows_per_block", "max_cluster"), [_I32] * 3,
             [_I32] + [_PTR] * 9 + [_I32] * 5 + [_F32, _F32] + [_I32] * 3 + [_PTR],
         ),
-        # One library, two kernels: the whole layer and the message channels.
         "dgn_local_layer_ell": (
-            "dgn_layer_ell", layer_getters, [_I32] * 2,
-            [_I32] * 2 + [_PTR] * 9 + [_I32] * 5 + [_I32, _PTR],
+            "dgn_msg_ell", layer_getters, [_I32],
+            [_I32] + [_PTR] * 4 + [_I32] * 5 + [_I32, _PTR],
+        ),
+        "dgn_local_layer_ell_model": (
+            "dgn_layer_ell", layer_getters, [_I32] * 3,
+            [_I32] + [_PTR] * 10 + [_I32] * 7 + [_I32, _PTR],
         ),
         "gat_local_message_ell": (
             "gat_msg_ell", layer_getters + ("max_heads",), [_I32] * 2,
-            [_I32] + [_PTR] * 5 + [_I32] * 6 + [_I32, _PTR],
+            [_I32] + [_PTR] * 5 + [_I32] * 7 + [_I32, _PTR],
         ),
         # One kernel behind two wrappers: the legacy local layer and the ELL
         # layer with per-lane bond embeddings.
@@ -1289,7 +1298,7 @@ def _library(name: str) -> dict:
     extras = {
         **{k: (per_sm, prepare, gin_occupancy) for k in GIN_LAYER_LIBRARIES},
         "gat_local_layer_ell": (per_sm, prepare, ("tile_dims", [_I32, _INT_P], None),
-                                ("occupancy", [_I32, _I64, _INT_P], _I32)),
+                                ("occupancy", [_I32, _I32, _I64, _INT_P], _I32)),
         "gcn_local_model": (per_sm, ("conv_dims", [_I32, _INT_P], None),
                             ("occupancy", [_I32] * 8 + [_INT_P], _I32)),
         "gcn_local_model_slots": (per_sm, ("conv_dims", [_I32, _INT_P], None),
@@ -1301,6 +1310,8 @@ def _library(name: str) -> dict:
                                   ("occupancy", [_I32] * 5 + [_INT_P], _I32)),
         "dgn_local_layer_slots": (per_sm, ("posttrans_dims", [_I32, _INT_P], None),
                                   ("occupancy", [_I32] * 5 + [_INT_P], _I32)),
+        "dgn_local_layer_ell_model": (per_sm, ("posttrans_dims", [_I32, _INT_P], None),
+                                      ("occupancy", [_I32] * 5 + [_INT_P], _I32)),
         "gat_local_model_slots": (per_sm, ("glue_dims", [_I32, _INT_P], None),
                                   ("occupancy", [_I32] * 8 + [_INT_P], _I32)),
     }
@@ -2035,17 +2046,17 @@ def _two_block_stages(kernel: str, lib, code: int, geometry: tuple, gmax: int, t
 def occupancy(kernel: str, dtype: torch.dtype, window: int, geometry: tuple, gmax: int,
               t_out: int, device) -> dict:
     """What the occupancy calculator says of the cluster kernel ``kernel``
-    (the libraries of rows 9, 2, 4 and 5, and of rows 20 and 22) in
+    (the libraries of rows 9, 2, 4 and 5, and of rows 20, 22 and 18) in
     ``dtype`` at this geometry on ``device`` (the launch's own ring depth):
     the block's shared memory, the blocks of that form one SM holds, and the
     clusters of W/128 blocks that run at once. ``geometry``: (D, vocab) for
-    GCN, (D,) for DGN and rows 20 and 22, (H·D, heads) for GAT; rows 20 and
-    22 have no pool head and ignore ``gmax`` and ``t_out``."""
+    GCN, (D,) for DGN and rows 20, 22 and 18, (H·D, heads) for GAT; rows
+    20, 22 and 18 have no pool head and ignore ``gmax`` and ``t_out``."""
     code = _dtype_code(dtype)
     dev = torch.device(device)
     lib = _library(kernel)
     out = (ctypes.c_int * 2)()
-    if kernel in ("pna_local_layer_slots", "dgn_local_layer_slots"):
+    if kernel in _LAYER_PRODUCTS:
         stages = _layer_ring(kernel, lib, code, geometry[0], dev)
         smem = lib["smem_bytes"](code, geometry[0], stages)
         rc = lib["occupancy"](code, window, geometry[0], stages, dev.index, out)
@@ -2070,7 +2081,7 @@ def layer_occupancy(kernel: str, dtype: torch.dtype, window: int, geometry: tupl
     lib = _library(kernel)
     if kernel == "gat_local_layer_ell":
         stages, smem = _gat_layer_plan(code, *geometry, window, dev.index)
-        args = (code, smem)
+        args = (code, geometry[1], smem)
     else:
         d, hid, *vocab = geometry
         stages, smem = _gin_layer_plan(kernel, code, d, hid, vocab[0] if vocab else 0, window,
@@ -2442,19 +2453,22 @@ def pna_local_stats_ell(
 pna_local_stats_ell.launches = 0
 
 
-# Rows 20 and 22's bf16 product, by library: the getter of its chunk
+# The bf16 product of rows 20, 22 and 18 (the one-layer forms of rows 3 and
+# 4, row 18 over the ELL layout), by library: the getter of its chunk
 # geometry, and its (K, N) at width D.
 _LAYER_PRODUCTS = {
     "pna_local_layer_slots": ("tower_dims", lambda d: (4 * d, 3 * PNA_PITCH)),
     "dgn_local_layer_slots": ("posttrans_dims", lambda d: (2 * d, gcn_conv_n(d))),
+    "dgn_local_layer_ell_model": ("posttrans_dims", lambda d: (2 * d, gcn_conv_n(d))),
 }
 
 
 def _layer_ring(name: str, lib, code: int, d: int, dev) -> int:
-    """The bf16 weight ring of the one-layer slot kernels (0 in f32): row 22
-    (``dgn_local_layer_slots``) the deepest that keeps two blocks an SM, as
-    row 4; row 20 (``pna_local_layer_slots``) the deepest that fits a block,
-    as row 3 (its stats alone take 80 KB at D = 80: one block an SM)."""
+    """The bf16 weight ring of the one-layer kernels (0 in f32): rows 22
+    and 18 (``dgn_local_layer_slots``, ``dgn_local_layer_ell_model``) the
+    deepest that keeps two blocks an SM, as row 4; row 20
+    (``pna_local_layer_slots``) the deepest that fits a block, as row 3
+    (its stats alone take 80 KB at D = 80: one block an SM)."""
     if code == 0:
         return 0
     chunks = linear_geometry(*_LAYER_PRODUCTS[name][1](d))[1]
@@ -2465,13 +2479,13 @@ def _layer_ring(name: str, lib, code: int, d: int, dev) -> int:
 
 @functools.cache
 def _layer_plan(name: str, code: int, d: int, slots: int, window: int, device: int) -> tuple:
-    """Rows 20 and 22's launch plan at this geometry on CUDA device
-    ``device``, worked out once per geometry (a launch is tens of µs, and
-    these checks take the library's getters): (the weight ring, the block's
-    shared memory). Raises before launch on what the clusters (whole blocks
-    of 128 rows, at most 8), the tile, the slot depth or the card's shared
-    memory do not take, or a product geometry the host does not share; a
-    refusal is not cached."""
+    """The launch plan of rows 20, 22 and 18 (``slots`` 0: row 18's ELL
+    lanes) at this geometry on CUDA device ``device``, worked out once per
+    geometry (a launch is tens of µs, and these checks take the library's
+    getters): (the weight ring, the block's shared memory). Raises before
+    launch on what the clusters (whole blocks of 128 rows, at most 8), the
+    tile, the slot depth or the card's shared memory do not take, or a
+    product geometry the host does not share; a refusal is not cached."""
     lib = _library(name)
     dev = torch.device("cuda", device)
     _check_tile(lib, d)
@@ -2481,13 +2495,14 @@ def _layer_plan(name: str, code: int, d: int, slots: int, window: int, device: i
     stages = _layer_ring(name, lib, code, d, dev)
     smem = lib["smem_bytes"](code, d, stages)
     _check_ell_geometry(lib, d, window, smem, dev)
-    _check_geometry(lib, d, slots, (window,), window, smem, dev)
+    if slots:
+        _check_geometry(lib, d, slots, (window,), window, smem, dev)
     return stages, smem
 
 
 def _layer_tiles(name: str, d: int, tiles, pack, dev) -> torch.Tensor:
-    """Rows 20 and 22's bf16 weight chunks of one layer: ``tiles`` as given,
-    or packed here (``pack()``), checked as [C, 32·N]."""
+    """Rows 20, 22 and 18's bf16 weight chunks of one layer: ``tiles`` as
+    given, or packed here (``pack()``), checked as [C, 32·N]."""
     _, chunks, elems = linear_geometry(*_LAYER_PRODUCTS[name][1](d))
     if tiles is None:
         tiles = pack()
@@ -3087,36 +3102,36 @@ def gcn_local_layer_ell(
 gcn_local_layer_ell.launches = 0
 
 
-def _launch_dgn_ell(full: bool, ell_meta, h, eig, inv_deg, eigw_sum, inv_abssum, w_post,
-                    b_post, window) -> torch.Tensor:
+def _launch_dgn_layer_ell(ell_meta, h, eig, inv_deg, eigw_sum, inv_abssum, w_post, b_post,
+                          window, tiles, knockout=0) -> torch.Tensor:
     dt = h.dtype
     code = _dtype_code(dt)
     dev = h.device
     n, d = h.shape
-    _check("eig", eig, dt, (n,), dev)
-    if full:
-        for name, x in (("inv_deg", inv_deg), ("eigw_sum", eigw_sum), ("inv_abssum", inv_abssum)):
-            _check(name, x, dt, (n,), dev)
-        _check("w_post", w_post, dt, (2 * d, d), dev)
-        _check("b_post", b_post, dt, (1, d), dev)
-    lib, lanes, nw = _check_ell_lanes(ell_meta, h, window, "dgn_local_layer_ell", (d, int(full)))
-    out = torch.empty((n, d if full else 2 * d), dtype=dt, device=dev)
-    ptr = lambda x: None if x is None else x.data_ptr()
+    _check("h", h, dt, (n, d), dev)
+    for name, x in (("eig", eig), ("inv_deg", inv_deg), ("eigw_sum", eigw_sum),
+                    ("inv_abssum", inv_abssum)):
+        _check(name, x, dt, (n,), dev)
+    _check("w_post", w_post, dt, (2 * d, d), dev)
+    _check("b_post", b_post, dt, (1, d), dev)
+    name = "dgn_local_layer_ell_model"
+    lib = _library(name)
+    stages, _ = _layer_plan(name, code, d, 0, window, dev.index)
+    if code == 1:  # the wgmma posttrans reads the layer's weights as packed chunks
+        tiles = _layer_tiles(name, d, tiles, lambda: dgn_layer_tiles(w_post), dev)
+    nw = -(-n // window)
+    lanes = _ell_block(ell_meta, nw, dev)
+    out = torch.empty((n, d), dtype=dt, device=dev)
     rc = lib["launch"](
-        code, int(full), ell_meta.data_ptr(), h.data_ptr(), eig.data_ptr(), ptr(inv_deg),
-        ptr(eigw_sum), ptr(inv_abssum), ptr(w_post), ptr(b_post), out.data_ptr(),
-        nw, n, window, lanes, d, dev.index, torch.cuda.current_stream(dev).cuda_stream,
+        code, ell_meta.data_ptr(), h.data_ptr(), eig.data_ptr(), inv_deg.data_ptr(),
+        eigw_sum.data_ptr(), inv_abssum.data_ptr(), w_post.data_ptr(), b_post.data_ptr(),
+        None if code == 0 else tiles.data_ptr(), out.data_ptr(), nw, n, window, lanes, d, stages,
+        int(knockout), dev.index, torch.cuda.current_stream(dev).cuda_stream,
     )
-    kernel = dgn_local_layer_ell if full else dgn_local_message_ell
-    _raise_on(lib, rc, kernel.__name__)
-    kernel.launches += 1
+    _raise_on(lib, rc, "dgn_local_layer_ell")
+    dgn_local_layer_ell.launches += 1
+    dgn_local_layer_ell.stages = stages
     return out
-
-
-def _launch_dgn_layer_ell(ell_meta, h, eig, inv_deg, eigw_sum, inv_abssum, w_post, b_post,
-                          window) -> torch.Tensor:
-    return _launch_dgn_ell(True, ell_meta, h, eig, inv_deg, eigw_sum, inv_abssum, w_post,
-                           b_post, window)
 
 
 def dgn_local_layer_ell(
@@ -3129,22 +3144,49 @@ def dgn_local_layer_ell(
     w_post: torch.Tensor,
     b_post: torch.Tensor,
     window: int,
+    posttrans_tiles: Optional[torch.Tensor] = None,
+    knockout: int = 0,
 ) -> torch.Tensor:
     """One whole DGN layer over an ELL batch with no spill tail: the next h
-    [n, D] in h's dtype (``csrc/dgn_local_layer_ell.cu``). Operands as in
-    ``dgn_local_layer_ell_ref``; a CPU tensor runs the plain version, a CUDA
-    tensor launches the kernel (float32 or bfloat16 h, node terms and
-    weights, int32 ``ell_meta``) or raises. Each launch adds one to
-    ``dgn_local_layer_ell.launches``."""
-    args = (ell_meta, h, eig, inv_deg, eigw_sum, inv_abssum, w_post, b_post, window)
+    [n, D] in h's dtype (``csrc/dgn_local_layer_ell_model.cu``: the one-layer form
+    of row 4's cluster kernel with the ELL lane walk, a cluster of W/128
+    blocks per window of 128 to 1024 rows, any k edge blocks a window).
+    Operands as in ``dgn_local_layer_ell_ref``; a CPU tensor runs the plain
+    version, a CUDA tensor launches the kernel (float32 or bfloat16 h, node
+    terms and weights, int32 ``ell_meta``; D at most 112) or raises. In
+    bfloat16 the posttrans runs on the tensor cores (``wgmma``) from
+    ``posttrans_tiles``, this layer's [C, 32·N] chunks of
+    ``dgn_posttrans_tiles`` (row 22's; packed here by ``dgn_layer_tiles``,
+    once per weight set, when not given); ``dgn_local_layer_ell.stages``
+    records the launch's weight ring (0 in float32). ``knockout`` (timing
+    only, CUDA only): bit 0 skips the posttrans product, bit 1 the channels.
+    Each launch adds one to ``dgn_local_layer_ell.launches``."""
+    args = (ell_meta, h, eig, inv_deg, eigw_sum, inv_abssum, w_post, b_post, window,
+            posttrans_tiles)
+    if _knocked_out(h, knockout):
+        return _launch_dgn_layer_ell(*args, knockout=knockout)
     return _dispatch(h, dgn_local_layer_ell_ref, _launch_dgn_layer_ell, args)
 
 
 dgn_local_layer_ell.launches = 0
+dgn_local_layer_ell.stages = 0
 
 
 def _launch_dgn_message_ell(ell_meta, h, eig, window) -> torch.Tensor:
-    return _launch_dgn_ell(False, ell_meta, h, eig, None, None, None, None, None, window)
+    dt = h.dtype
+    code = _dtype_code(dt)
+    dev = h.device
+    n, d = h.shape
+    _check("eig", eig, dt, (n,), dev)
+    lib, lanes, nw = _check_ell_lanes(ell_meta, h, window, "dgn_local_layer_ell", (d,))
+    out = torch.empty((n, 2 * d), dtype=dt, device=dev)
+    rc = lib["launch"](
+        code, ell_meta.data_ptr(), h.data_ptr(), eig.data_ptr(), out.data_ptr(), nw, n, window,
+        lanes, d, dev.index, torch.cuda.current_stream(dev).cuda_stream,
+    )
+    _raise_on(lib, rc, "dgn_local_message_ell")
+    dgn_local_message_ell.launches += 1
+    return out
 
 
 def dgn_local_message_ell(
@@ -3154,7 +3196,7 @@ def dgn_local_message_ell(
     window: int,
 ) -> torch.Tensor:
     """DGN's two message channels over the ELL layout: [n, 2D] [m1 ‖ m2] in
-    h's dtype (``csrc/dgn_local_layer_ell.cu``, its message kernel), for the
+    h's dtype (``csrc/dgn_local_layer_ell.cu``), for the
     caller to merge a spill tail. Operands as in
     ``dgn_local_message_ell_ref``; a CPU tensor runs the plain version, a
     CUDA tensor launches the kernel (float32 or bfloat16 h and eig, int32
@@ -3167,7 +3209,8 @@ def dgn_local_message_ell(
 dgn_local_message_ell.launches = 0
 
 
-def _launch_gat_message_ell(ell_meta, h, s_src, s_tgt, window, num_heads) -> torch.Tensor:
+def _launch_gat_message_ell(ell_meta, h, s_src, s_tgt, window, num_heads,
+                            knockout=0) -> torch.Tensor:
     dt = h.dtype
     code = _dtype_code(dt)
     dev = h.device
@@ -3183,8 +3226,8 @@ def _launch_gat_message_ell(ell_meta, h, s_src, s_tgt, window, num_heads) -> tor
     out = torch.empty((n, hd + num_heads), dtype=dt, device=dev)
     rc = lib["launch"](
         code, ell_meta.data_ptr(), h.data_ptr(), s_src.data_ptr(), s_tgt.data_ptr(),
-        out.data_ptr(), nw, n, window, lanes, hd, num_heads,
-        dev.index, torch.cuda.current_stream(dev).cuda_stream,
+        out.data_ptr(), nw, n, window, lanes, hd, num_heads, int(knockout), dev.index,
+        torch.cuda.current_stream(dev).cuda_stream,
     )
     _raise_on(lib, rc, "gat_local_message_ell")
     gat_local_message_ell.launches += 1
@@ -3198,15 +3241,20 @@ def gat_local_message_ell(
     s_tgt: torch.Tensor,
     window: int,
     num_heads: int,
+    knockout: int = 0,
 ) -> torch.Tensor:
     """GAT's edge-softmax sums of one layer over the ELL layout: [n, H·D +
-    H] [Σ score·h_u ‖ Σ score] in h's dtype (``csrc/gat_local_message_ell.cu``),
-    for the caller to merge a spill tail and divide. Operands as in
+    H] [Σ score·h_u ‖ Σ score] in h's dtype (``csrc/gat_local_message_ell.cu``,
+    row 23's message walk, ``csrc/gat_messages.cuh``), for the caller to
+    merge a spill tail and divide. Operands as in
     ``gat_local_message_ell_ref``; a CPU tensor runs the plain version, a
     CUDA tensor launches the kernel (float32 or bfloat16 h and scores, int32
-    ``ell_meta``) or raises. Each launch adds one to
-    ``gat_local_message_ell.launches``."""
+    ``ell_meta``; H·D at most 128, at most 32 heads) or raises.
+    ``knockout`` (timing only, CUDA only): bit 1 skips the messages. Each
+    launch adds one to ``gat_local_message_ell.launches``."""
     args = (ell_meta, h, s_src, s_tgt, window, num_heads)
+    if _knocked_out(h, knockout):
+        return _launch_gat_message_ell(*args, knockout=knockout)
     return _dispatch(h, gat_local_message_ell_ref, _launch_gat_message_ell, args)
 
 

@@ -338,25 +338,42 @@ def _dgn_gat_ell_operands(kernel: str, geometry: str, seed: int = 19) -> dict:
     """Seeded operands at full width of row 16 (``dgn_local_message_ell``,
     D=100), row 18 (``dgn_local_layer_ell``) or row 17
     (``gat_local_message_ell``, 4 heads × 16) on the layout of
-    ``_ell_layer_batch``, as numpy arrays. DGN's eigenvector entries are
-    random; its node terms are the layout's own sums of them over every
-    lane (a zero absolute sum → 1/EIG_EPS = 8192, as the model guards it)."""
-    from flowgnn_tpu_torch.models.dgn import EIG_EPS
-
+    ``_ell_layer_batch``, as numpy arrays (``_dgn_ell_batch_operands``,
+    ``_gat_ell_batch_operands``)."""
     batch = _ell_layer_batch(geometry, seed)
     rng = np.random.default_rng(seed)
+    if kernel == "gat_local_message_ell":
+        return _gat_ell_batch_operands(batch, rng, 64, 4)
+    return _dgn_ell_batch_operands(batch, rng, 100, kernel == "dgn_local_layer_ell")
+
+
+def _ell_lane_operands(batch: dict) -> dict:
+    return dict(ell_meta=base.ell_meta(base.to_device(batch, "cpu")).numpy(),
+                window=base.ell_geometry(batch)[0])
+
+
+def _gat_ell_batch_operands(batch: dict, rng, hd: int, heads: int) -> dict:
+    """Row 17's seeded operands (H·D = ``hd``, ``heads`` heads) on an ELL
+    batch, as numpy arrays."""
     f32 = lambda *s, sd=0.5: rng.normal(0, sd, s).astype(np.float32)
     n = batch["node_feat"].shape[0]
-    ops = dict(ell_meta=base.ell_meta(base.to_device(batch, "cpu")).numpy(),
-               window=base.ell_geometry(batch)[0])
-    if kernel == "gat_local_message_ell":
-        heads = 4
-        return dict(ops, h=f32(n, heads * 16), s_src=f32(n, heads, sd=2.0),
-                    s_tgt=f32(n, heads, sd=2.0), num_heads=heads)
-    d = 100
+    return dict(_ell_lane_operands(batch), h=f32(n, hd), s_src=f32(n, heads, sd=2.0),
+                s_tgt=f32(n, heads, sd=2.0), num_heads=heads)
+
+
+def _dgn_ell_batch_operands(batch: dict, rng, d: int, full: bool) -> dict:
+    """Row 16's (``full`` False) or row 18's seeded operands at width ``d``
+    on an ELL batch, as numpy arrays. The eigenvector entries are random;
+    the node terms are the layout's own sums of them over every lane (a
+    zero absolute sum → 1/EIG_EPS = 8192, as the model guards it)."""
+    from flowgnn_tpu_torch.models.dgn import EIG_EPS
+
+    f32 = lambda *s, sd=0.5: rng.normal(0, sd, s).astype(np.float32)
+    n = batch["node_feat"].shape[0]
+    ops = _ell_lane_operands(batch)
     eig = f32(n, sd=0.3)
     ops.update(h=f32(n, d), eig=eig)
-    if kernel == "dgn_local_message_ell":
+    if not full:
         return ops
     u, v = batch["senders"], batch["receivers"]
     ew = eig[u] - eig[v]
@@ -1441,6 +1458,173 @@ def test_rows_16_to_20_cuda_kernels_reject_geometry(cuda_device):
         with pytest.raises(ValueError, match=match):
             fn(**kw)
         assert fn.launches == before
+
+
+# Row 18's buckets (one cluster of W/128 blocks a window): by window, the
+# large graph's nodes and the ELL blocks that give k = 1 and k = 2 edge
+# blocks a window with no spill tail.
+ROW18_GEOMETRY = {128: (120, 512, 192), 256: (250, 1024, 384), 512: (400, 2048, 768),
+                  1024: (900, 2048, 1280)}
+
+
+def _ell_window_batch(name: str, window: int, k: int, seed: int) -> dict:
+    """ELL layout (numpy) of 6 synthetic graphs and one of ``ROW18_GEOMETRY``'s
+    large ones for model ``name`` at ``window``, k edge blocks a window, no
+    spill tail (GAT, whose self loops add a lane a row: k = 1, blocks of 4W
+    lanes)."""
+    big, block1, block2 = ROW18_GEOMETRY[window]
+    if name == "gat":
+        block1 = 4 * window
+    spec = registry.get(name)
+    rng = np.random.default_rng(seed)
+    graphs = registry.apply_transforms(
+        spec, synthetic_molhiv(6, seed=seed) + [random_molecule_graph(rng, num_nodes=big)])
+    packed = pack_graphs_aligned(graphs, window=window, node_capacity=4 * window - 1,
+                                 edge_capacity=8192, graph_capacity=16,
+                                 with_eigen=spec.needs_eigen)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")  # the k > 1 note
+        batch = base.as_batch(packed, blocked="local_ell", window=window,
+                              block=block1 if k == 1 else block2)
+    assert base.ell_geometry(batch) == (window, k) and not base.ell_spill_lanes(batch)
+    return batch
+
+
+_ROW18_CASES = [(w, k, d) for w in ROW18_GEOMETRY for k in (1, 2) for d in (100, 112)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("window,k,d", _ROW18_CASES,
+                         ids=[f"W{w}-k{k}-D{d}" for w, k, d in _ROW18_CASES])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 5e-2)],
+                         ids=["f32", "bf16"])
+def test_row18_cuda_kernel_windows_match_plain(window, k, d, dtype, tol, cuda_device):
+    """Row 18, the one-layer form of row 4's cluster kernel with the ELL lane
+    walk, at W = 128, 256, 512 and 1024 (a cluster of W/128 blocks, the
+    large graph's sources read across all of them), k = 1 and 2 edge blocks
+    a window, D = 100 and 112 (its two wgmma widths), one launch per call:
+    bf16 through the wgmma posttrans with a ring of at least two chunks and
+    two blocks an SM, f32 through FMA, one block an SM. f32: summation order
+    only; bf16: the output rounds to bf16, and a rounding flip of a channel
+    moves it by a few bf16 ulps of its scale."""
+    fn = local_layer.dgn_local_layer_ell
+    batch = _ell_window_batch("dgn", window, k, 27)
+    ops = _port(_dgn_ell_batch_operands(batch, np.random.default_rng(27), d, True), cuda_device,
+                dtype)
+    before = fn.launches
+    got = fn(**ops)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 1
+    assert fn.stages >= 2 if dtype == torch.bfloat16 else fn.stages == 0
+    expect = local_layer.dgn_local_layer_ell_ref(**ops)
+    assert got.dtype == dtype and got.shape == expect.shape
+    assert expect.abs().max() > 1e-2
+    scale = max(1.0, expect.abs().max().item())
+    torch.testing.assert_close(got.float() / scale, expect.float() / scale, rtol=tol, atol=tol)
+    occ = local_layer.occupancy("dgn_local_layer_ell_model", dtype, window, (d,), 0, 0,
+                                cuda_device)
+    assert occ["blocks_per_sm"] == (2 if dtype == torch.bfloat16 else 1) and occ["clusters"] > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_row18_knockouts_launch(dtype, cuda_device):
+    """The phase split's knockouts of row 18 (bit 0: the posttrans, bit 1:
+    the channels) launch and count at W=512; the whole kernel is unchanged
+    by having run them. On a CPU tensor a knockout raises."""
+    fn = local_layer.dgn_local_layer_ell
+    batch = _ell_window_batch("dgn", 512, 1, 27)
+    ops = _port(_dgn_ell_batch_operands(batch, np.random.default_rng(27), 100, True),
+                cuda_device, dtype)
+    full = fn(**ops)
+    before = fn.launches
+    for knockout in (1, 2, 3):
+        assert bool(fn(**ops, knockout=knockout).isfinite().all())
+    torch.cuda.synchronize()
+    assert fn.launches == before + 3
+    assert torch.equal(fn(**ops), full)
+    with pytest.raises(ValueError, match="knockout"):
+        fn(**{k: v.cpu() if torch.is_tensor(v) else v for k, v in ops.items()}, knockout=1)
+
+
+def _hot_sentinels(ops: dict, hot: bool) -> dict:
+    """Row 17's operands with, in every window, its pad lanes (v = W) turned
+    into sentinel lanes from a row that no lane touches, whose scores are
+    100 when ``hot``: past float32 exp's overflow, which they must keep out
+    of every row."""
+    ops = dict(ops)
+    meta, w = ops["ell_meta"].copy(), ops["window"]
+    n = ops["h"].shape[0]
+    lanes = meta.shape[0] // (-(-n // w))
+    s_src, s_tgt = ops["s_src"].copy(), ops["s_tgt"].copy()
+    for win in range(-(-n // w)):
+        m = meta[win * lanes:(win + 1) * lanes]
+        real = m[:, 1] < w
+        used = set(m[real, 0].tolist()) | set(m[real, 1].tolist())
+        free = [r for r in range(w - 1, -1, -1) if r not in used and win * w + r < n]
+        pad = np.nonzero(~real)[0]
+        if not free or not len(pad):
+            continue
+        m[pad, 0] = free[0]
+        s_src[win * w + free[0]] = s_tgt[win * w + free[0]] = 100.0 if hot else 0.0
+    return dict(ops, ell_meta=meta, s_src=s_src, s_tgt=s_tgt)
+
+
+# Row 17's cases: (H·D, heads) at its edges (H·D 64 and 128, 1, 4 and 32
+# heads), at W = 128 and 1024.
+_ROW17_CASES = [(w, hd, heads) for w in (128, 1024) for hd in (64, 128) for heads in (1, 4, 32)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("window,hd,heads", _ROW17_CASES,
+                         ids=[f"W{w}-{hd}x{h}" for w, hd, h in _ROW17_CASES])
+@pytest.mark.parametrize("sentinels", [False, True], ids=["lanes", "hot-sentinels"])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 5e-2)],
+                         ids=["f32", "bf16"])
+def test_row17_cuda_kernel_widths_match_plain(window, hd, heads, sentinels, dtype, tol,
+                                              cuda_device):
+    """Row 17 at H·D = 64 and 128 with 1, 4 and 32 heads, W = 128 and 1024,
+    against its plain version, in each of its walk shapes (a half-warp a row
+    at 4 columns a thread: H·D = 64 up to 16 heads; at 8: H·D = 128 up to
+    16 heads; a warp a row: 32 heads); with sentinel lanes whose scores
+    overflow exp the output stays finite and equals the run with cold ones,
+    bit for bit."""
+    fn = local_layer.gat_local_message_ell
+    batch = _ell_window_batch("gat", window, 1, 28)
+    ops = _gat_ell_batch_operands(batch, np.random.default_rng(28), hd, heads)
+    if sentinels:
+        ops = _hot_sentinels(ops, False)
+    got = fn(**_port(ops, cuda_device, dtype))
+    torch.cuda.synchronize()
+    expect = local_layer.gat_local_message_ell_ref(**_port(ops, cuda_device, dtype))
+    assert got.dtype == dtype and got.shape == expect.shape
+    scale = max(1.0, expect.abs().max().item())
+    torch.testing.assert_close(got.float() / scale, expect.float() / scale, rtol=tol, atol=tol)
+    if sentinels:
+        hot = fn(**_port(_hot_sentinels(ops, True), cuda_device, dtype))
+        torch.cuda.synchronize()
+        assert bool(hot.isfinite().all())
+        torch.testing.assert_close(hot, got, rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_row17_knockout_launches(dtype, cuda_device):
+    """The phase split's knockout of row 17 (bit 1: the messages) launches,
+    counts and writes zero sums; the whole kernel is unchanged by having run
+    it. On a CPU tensor a knockout raises."""
+    fn = local_layer.gat_local_message_ell
+    batch = _ell_window_batch("gat", 128, 1, 28)
+    ops = _port(_gat_ell_batch_operands(batch, np.random.default_rng(28), 64, 4), cuda_device,
+                dtype)
+    full = fn(**ops)
+    before = fn.launches
+    out = fn(**ops, knockout=2)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 1 and not bool(out.any())
+    assert torch.equal(fn(**ops), full)
+    with pytest.raises(ValueError, match="knockout"):
+        fn(**{k: v.cpu() if torch.is_tensor(v) else v for k, v in ops.items()}, knockout=2)
 
 
 @pytest.mark.cuda

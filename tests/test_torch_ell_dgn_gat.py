@@ -20,8 +20,8 @@ from flowgnn_tpu_torch.models import registry as tr
 from flowgnn_tpu_torch.ops import local_layer
 from flowgnn_tpu_torch.params import loaders
 from test_torch_cuda import (
-    ELL_LAYER_GEOMETRY, _dgn_gat_ell_operands, _gat_ell_overflow_operands, _pna_layer_operands,
-    _port,
+    ELL_LAYER_GEOMETRY, _dgn_gat_ell_operands, _ell_layer_batch, _gat_ell_batch_operands,
+    _gat_ell_overflow_operands, _pna_layer_operands, _port,
 )
 from test_torch_ell_layer import CASES, G, SMALL, _close, case_batches, check_forward_matches_jax
 from test_torch_local_layer import _jax_kernel
@@ -87,6 +87,35 @@ def test_new_rows_ref_match_jax_bf16(kernel, geometry, monkeypatch):
     got = getattr(local_layer, kernel)(**port)
     expect = _jax_row(kernel, ops, geometry, bf16=True)
     assert got.dtype == torch.bfloat16 and got.shape == expect.shape
+    got = got.float().numpy()
+    assert (got == expect).mean() > 0.99
+    np.testing.assert_allclose(got, expect, rtol=2 ** -7, atol=2 ** -7 * np.abs(expect).max())
+
+
+@pytest.mark.parametrize("geometry", ["W128", "k2"])
+@pytest.mark.parametrize("heads", [1, 32])
+@pytest.mark.parametrize("bf16", [False, True], ids=["f32", "bf16"])
+def test_gat_ell_ref_matches_jax_at_row17_edges(geometry, heads, bf16, monkeypatch):
+    """Row 17's plain version at the edges of what its kernel takes, H·D =
+    128 with 1 head (D = 128) and 32 heads (D = 4), against the Pallas
+    kernel in interpret mode: f32 to 1e-5 of the output's scale; bf16 h with
+    f32 scores, > 99% bit-equal, the rest one bf16 ulp apart."""
+    monkeypatch.setenv("FLOWGNN_PALLAS_INTERPRET", "1")
+    kernel = "gat_local_message_ell"
+    ops = _gat_ell_batch_operands(_ell_layer_batch(geometry, 19), np.random.default_rng(19),
+                                  128, heads)
+    if bf16:
+        port = dict(_port(ops, "cpu", torch.bfloat16),
+                    **_port({k: v for k, v in ops.items() if k in KEEP_F32}, "cpu"))
+    else:
+        port = _port(ops, "cpu")
+    got = getattr(local_layer, kernel)(**port)
+    expect = _jax_row(kernel, ops, geometry, bf16=bf16)
+    assert got.shape == expect.shape == (ops["h"].shape[0], 128 + heads)
+    assert np.abs(expect).max() > 1e-2
+    if not bf16:
+        _close(got.numpy(), expect, 1e-5)
+        return
     got = got.float().numpy()
     assert (got == expect).mean() > 0.99
     np.testing.assert_allclose(got, expect, rtol=2 ** -7, atol=2 ** -7 * np.abs(expect).max())
@@ -243,3 +272,28 @@ def test_new_rows_operands_meet_the_kernel_contract(name, case, prec):
         assert ops["w_post"].shape == (2 * d, d) and ops["inv_abssum"].shape == (n,)
     if name == "gat":
         assert ops["s_src"].shape == (n, ops["num_heads"]) and d % ops["num_heads"] == 0
+
+
+@pytest.mark.parametrize("kernel,name,profile,window", [
+    ("gat_local_message_ell", "gat", "molhiv", None),
+    ("gat_local_message_ell", "gat", "hep10k", 128),
+    ("dgn_local_layer_ell", "dgn", "molhiv", None),
+    ("dgn_local_message_ell", "dgn", "hep10k", 128)])
+def test_layer_kernels_tool_launches_what_the_paths_launch(kernel, name, profile, window):
+    """``bench.layer_kernels`` times rows 17, 18 and 16 on the launches their
+    paths make: each bucket's layer-0 operands once per layer (row 17 on
+    GAT's unfused ELL path, every layer, with a spill tail on hep10k at
+    W=128; row 18 on DGN's molhiv ELL stream, no tail, with bf16 posttrans
+    chunks; row 16 on DGN's hep10k W=128 stream, with a tail); every
+    launch's operands are ones the kernel's plain version takes."""
+    from flowgnn_tpu_torch.bench import layer_kernels
+
+    batches = layer_kernels.stream(name, profile, 60, "local_ell", window, "cpu")
+    prec = tn.BF16 if kernel == "dgn_local_layer_ell" else tn.FLOAT32
+    ops = layer_kernels.calls(kernel, name, batches, prec, "cpu")
+    assert len(ops) == tr.get(name).num_layers * len(batches)
+    assert all((tb.ell_spill(b) is not None) == (window == 128) for b in batches)
+    if kernel == "dgn_local_layer_ell":
+        assert all(o["posttrans_tiles"] is not None for o in ops)
+    out = getattr(local_layer, f"{kernel}_ref")(**ops[-1])
+    assert bool(out.float().isfinite().all())

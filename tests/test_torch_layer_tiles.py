@@ -1,10 +1,12 @@
-"""The per-layer GIN kernels (rows 10, 12 and 25, ``csrc/gin_layer.cuh``) and
-GAT's fused ELL layer (row 23, ``csrc/gat_local_layer_ell.cu``) on the host:
-row 23's packed skip and projection weights read back as its kernel reads
-them, a plain mirror of its bf16 hi / lo projection against the plain version
-and the JAX kernel in interpret mode, the model's row-23 weights and the GIN
-layers' slice of ``mlp_tiles`` packed once per weight set, and the launch
-plans of rows 10, 12, 13, 23 and 25 worked out once per geometry."""
+"""The per-layer GIN kernels (rows 10, 12 and 25, ``csrc/gin_layer.cuh``),
+GAT's fused ELL layer (row 23, ``csrc/gat_local_layer_ell.cu``) and DGN's ELL
+layer (row 18, ``csrc/dgn_local_layer_ell_model.cu``) on the host: row 23's
+packed skip and projection weights read back as its kernel reads them, a plain
+mirror of its bf16 hi / lo projection and of row 18's bf16 channels and
+posttrans on the packed chunks against the plain versions and the JAX
+kernels in interpret mode, the model's row-23 weights and the GIN layers'
+slice of ``mlp_tiles`` packed once per weight set, and the launch plans of
+rows 10, 12, 13, 23 and 25 worked out once per geometry."""
 
 import collections
 
@@ -19,10 +21,12 @@ from flowgnn_tpu_torch.ops import local_layer
 from flowgnn_tpu_torch.params.loaders import (
     params_from_numpy, synthetic_gat_params, synthetic_gin_params,
 )
-from test_torch_cuda import _gat_layer_operands, _port
+from test_torch_cuda import _dgn_gat_ell_operands, _gat_layer_operands, _port
+from test_torch_ell_dgn_gat import KEEP_F32
+from test_torch_ell_dgn_gat import _jax_row as _jax_ell_row
 from test_torch_gat_fused import ROW_CASES, ROW_IDS, _jax_row
 from test_torch_gin_slots import _bf16_stream
-from test_torch_tiles import _check_linear_chunk
+from test_torch_tiles import _check_linear_chunk, _read
 
 N = local_layer.GAT_LAYER_N
 
@@ -114,6 +118,72 @@ def test_gat_layer_hilo_projection_moves_no_rounding_point(geometry, spill, monk
     jax = _jax_row(ops, geometry, bf16=True)
     assert got.dtype == ref.dtype == torch.bfloat16 and got.shape == ref.shape == jax.shape
     got, ref = got.float().numpy(), ref.float().numpy()
+    for want in (ref, jax):
+        assert (got == want).mean() > 0.99
+        np.testing.assert_allclose(got, want, rtol=2 ** -7, atol=2 ** -7 * np.abs(want).max())
+
+
+def _row18_mirror(ops: dict) -> torch.Tensor:
+    """Row 18 as its bf16 kernel computes it, in plain torch: per window
+    row, its lanes' [h_u | rnd(e_u·h_u)] summed in f32 in lane order (a lane
+    whose u lies outside the window adds nothing), m2 = Σ − e_v·m1, the
+    channels a = rnd([m1·invd | |m2 − ews·h|·inva]) padded to K' columns,
+    the posttrans y = a·B with B read from ``dgn_layer_tiles``' chunks
+    through the product's descriptors, chunk by chunk and K step by K step
+    (each product of two bf16 values exact in f32), then rnd(h + relu(y +
+    b)). Returns the next h in bf16."""
+    h, meta, w = ops["h"], ops["ell_meta"].long(), ops["window"]
+    n, d = h.shape
+    nw = -(-n // w)
+    rows = nw * w
+    rnd = lambda x: x.bfloat16().float()
+    col = lambda v: local_layer._padded(rnd(v.float())[:, None], rows)
+    hf = local_layer._padded(h, rows).float()
+    eig, invd, ews, inva = (col(ops[k]) for k in ("eig", "inv_deg", "eigw_sum", "inv_abssum"))
+    lanes = meta.reshape(nw, -1, 5)
+    m1 = torch.zeros(rows, d)
+    m2 = torch.zeros(rows, d)
+    base = torch.arange(nw) * w
+    for j in range(lanes.shape[1]):  # lane j of every window, in lane order
+        u, v = lanes[:, j, 0], lanes[:, j, 1]
+        ok = (u >= 0) & (u < w) & (v >= 0) & (v < w)
+        src, dst = (base + u)[ok], (base + v)[ok]
+        x = hf[src]
+        m1[dst] += x
+        m2[dst] += rnd(eig[src] * x)
+    m2 = m2 - eig * m1
+    n_out = local_layer.gcn_conv_n(d)
+    kp, chunks, _ = local_layer.linear_geometry(2 * d, n_out)
+    a = torch.zeros(rows, kp)
+    a[:, :2 * d] = rnd(torch.cat([m1 * invd, (m2 - ews * hf).abs() * inva], dim=1))
+    tiles = local_layer.dgn_layer_tiles(ops["w_post"])
+    y = torch.zeros(rows, n_out)
+    for c in range(chunks):
+        for s in range(2):
+            bt = _read(tiles[c], 2 * s * n_out * 16, n_out * 16, 128, n_out, 32).float()
+            y += a[:, 32 * c + 16 * s : 32 * c + 16 * s + 16] @ bt.T
+    y = y[:, :d] + ops["b_post"].float()
+    return (hf + torch.clamp_min(y, 0.0)).bfloat16()[:n]
+
+
+@pytest.mark.parametrize("geometry", ["W128", "k2"])
+def test_dgn_layer_ell_bf16_product_moves_no_rounding_point(geometry, monkeypatch):
+    """Row 18's bf16 kernel (channels summed in lane order with each lane's
+    e_u·h_u rounded, the posttrans on the packed chunks) mirrored in plain
+    torch equals the plain version and the Pallas kernel (interpret mode)
+    where their f32 values round alike: > 99% bit-equal, the rest one bf16
+    ulp apart (rtol 2⁻⁷), as the plain version and the Pallas kernel are to
+    each other (``test_new_rows_ref_match_jax_bf16``)."""
+    monkeypatch.setenv("FLOWGNN_PALLAS_INTERPRET", "1")
+    ops = _dgn_gat_ell_operands("dgn_local_layer_ell", geometry)
+    port = dict(_port(ops, "cpu", torch.bfloat16),
+                **_port({k: v for k, v in ops.items() if k in KEEP_F32}, "cpu"))
+    got = _row18_mirror(port)
+    ref = local_layer.dgn_local_layer_ell(**port)
+    jax = _jax_ell_row("dgn_local_layer_ell", ops, geometry, bf16=True)
+    assert got.dtype == ref.dtype == torch.bfloat16 and got.shape == ref.shape == jax.shape
+    got, ref = got.float().numpy(), ref.float().numpy()
+    assert np.abs(ref).max() > 1e-2
     for want in (ref, jax):
         assert (got == want).mean() > 0.99
         np.testing.assert_allclose(got, want, rtol=2 ** -7, atol=2 ** -7 * np.abs(want).max())

@@ -39,9 +39,11 @@ HUB = 12  # in-window in-degree of the hub nodes: past the 8 slots
 CASES = [("pna", 256, 250, False), ("pna", 512, 400, False),
          ("dgn", 256, 300, True), ("dgn", 512, 400, False)]
 IDS = ["pna-W256", "pna-W512", "dgn-W256-spill", "dgn-W512"]
-# Each model's per-layer slot kernel (row 20 or 22).
+# Each model's per-layer slot kernel (row 20 or 22), and DGN's per-layer
+# ELL kernel (row 18), which takes row 22's posttrans chunks.
 ROWS = {"pna": (pna, "pna_local_layer", "tower_tiles", "conv_w"),
-        "dgn": (dgn, "dgn_local_layer_slots", "posttrans_tiles", "posttrans_w")}
+        "dgn": (dgn, "dgn_local_layer_slots", "posttrans_tiles", "posttrans_w"),
+        "dgn-ell": (dgn, "dgn_local_layer_ell", "posttrans_tiles", "posttrans_w")}
 
 
 def _hub_arrays(big: int):
@@ -172,25 +174,27 @@ def test_layer_slot_path_routes_to_rows_20_22(name, window, big, spill, monkeypa
         assert calls == [(window, slots, True, True)] * L
 
 
-def _stream(name: str, window: int) -> list:
-    """Three buckets of molhiv-shaped graphs in the slot layout at
-    ``window``, on the CPU."""
+def _stream(name: str, window: int, layout: str = "local_slots") -> list:
+    """Three buckets of molhiv-shaped graphs in the slot layout (or ELL,
+    blocks of 4W lanes: no spill tail) at ``window``, on the CPU."""
     graphs = tr.apply_transforms(tr.get(name), ts.synthetic_molhiv(30, seed=9))
     buckets = list(tg.pack_dataset(graphs, node_capacity=255, edge_capacity=1024,
                                    graph_capacity=12, align_window=window,
                                    with_eigen=name == "dgn"))
     assert len(buckets) >= 3
+    block = 4 * window if layout == "local_ell" else None
     return [tb.to_device(b, "cpu") for b in tb.as_batches_uniform(
-        buckets, blocked="local_slots", window=window)]
+        buckets, blocked=layout, window=window, block=block)]
 
 
-@pytest.mark.parametrize("name", ["pna", "dgn"], ids=["row20", "row22"])
+@pytest.mark.parametrize("name", ["pna", "dgn", "dgn-ell"], ids=["row20", "row22", "row18"])
 def test_rows_20_22_tiles_packed_once_per_weight_set(name, monkeypatch):
-    """The bf16 weight chunks of rows 20 and 22 over a forward with
-    intermediates across several buckets: one pack of every layer's chunks
-    for the whole stream, each launch handed its layer's slice of them (a
-    view, not a copy); an in-place update of the weights packs again, and
-    only the updated layer's chunks move."""
+    """The bf16 weight chunks of rows 20, 22 and 18 (DGN's ELL path) over a
+    forward with intermediates across several buckets: one pack of every
+    layer's chunks for the whole stream, each launch handed its layer's
+    slice of them (a view, not a copy); an in-place update of the weights
+    packs again, and only the updated layer's chunks move. Row 18 takes row
+    22's chunks: the slot path on the same weights packs nothing more."""
     packs = []
     real = local_layer.linear_tiles
 
@@ -211,7 +215,10 @@ def test_rows_20_22_tiles_packed_once_per_weight_set(name, monkeypatch):
     make = tl.synthetic_pna_params if name == "pna" else tl.synthetic_dgn_params
     params = tl.params_from_numpy(make(6, dim=D, layers=3), tn.BF16, "cpu")
     tiles_of = lambda: (pna.tower_tiles if name == "pna" else dgn.posttrans_tiles)(params, tn.BF16)
-    batches = _stream(name, 128)
+    ell = name == "dgn-ell"
+    batches = _stream("dgn" if ell else name, 128, "local_ell" if ell else "local_slots")
+    if ell:
+        assert all(tb.ell_spill(b) is None for b in batches)  # row 18, not rows 16 + 24
     forward_all = lambda: [mod.forward(params, b, tn.BF16, return_intermediates=True)[0]
                            for b in batches]
     first = forward_all()
@@ -221,6 +228,10 @@ def test_rows_20_22_tiles_packed_once_per_weight_set(name, monkeypatch):
     for i, t in enumerate(handed):
         assert t.data_ptr() == tiles[i % 3].data_ptr() and torch.equal(t, tiles[i % 3])
     assert len(packs) == 1
+    if ell:  # row 22 on the same weights takes the same chunks
+        slot_ops = dgn.layer_kernel_operands(params, _stream("dgn", 128)[0], tn.BF16)
+        got = slot_ops["dgn_local_layer_slots"]["posttrans_tiles"]
+        assert got.data_ptr() == tiles[0].data_ptr() and len(packs) == 1
 
     with torch.no_grad():
         params[weight][-1].mul_(2)
@@ -237,19 +248,22 @@ def test_rows_20_22_tiles_packed_once_per_weight_set(name, monkeypatch):
 
 @pytest.mark.parametrize("kernel,name", [("pna_local_model", "pna"), ("pna_local_layer", "pna"),
                                          ("dgn_local_model", "dgn"),
-                                         ("dgn_local_layer_slots", "dgn")])
+                                         ("dgn_local_layer_slots", "dgn"),
+                                         ("gin_local_model", "gin"), ("gcn_local_model", "gcn")])
 def test_slot_kernels_tool_launches_what_the_paths_launch(kernel, name):
     """``bench.slot_kernels`` times each kernel on the launches its path
-    makes: a whole-model kernel once per bucket, rows 20 and 22 on each
-    bucket's layer-0 operands once per layer (the spilling W=128 stream's
-    with the tail's channels); every launch's operands are ones the kernel's
-    plain version takes."""
+    makes: a whole-model kernel once per bucket (rows 8 and 9 over ELL),
+    rows 20 and 22 on each bucket's layer-0 operands once per layer (the
+    spilling W=128 stream's with the tail's channels); every launch's
+    operands are ones the kernel's plain version takes."""
     from flowgnn_tpu_torch.bench import slot_kernels
 
     window = 128 if kernel == "dgn_local_layer_slots" else None
     profile = "hep10k" if window else "molhiv"
-    batches = slot_kernels.stream(name, profile, 60, window, "cpu")
-    ops = slot_kernels.calls(kernel, name, batches, tn.FLOAT32, "cpu")
+    layout = slot_kernels.ELL if name in ("gin", "gcn") else slot_kernels.SLOTS
+    assert (kernel, name, layout) in {c[:2] + (c[4],) for c in slot_kernels.CELLS}
+    batches = slot_kernels.stream(name, profile, 60, layout, window, "cpu")
+    ops = slot_kernels.calls(kernel, name, batches, layout, tn.FLOAT32, "cpu")
     per_bucket = 1 if kernel.endswith("model") else 4
     assert len(ops) == per_bucket * len(batches)
     if window:
