@@ -27,22 +27,24 @@ Phases, each of which raises (non-zero exit) on failure:
 2. the twenty-four hand-written kernels built from the twenty-three sources
    of ``flowgnn_tpu_torch/csrc`` (rows 10 and 12 are one kernel, rows 27-30
    one) and their headers (``hopper.cuh`` holds the
-   wgmma, mbarrier and bulk-copy blocks of rows 1-5, 8, 9, 10, 12, 13, 18,
-   20, 22, 23, 25 and 26, ``gin_mlp.cuh`` the bf16 GIN MLP of rows 1, 8, 10,
+   wgmma, mbarrier and bulk-copy blocks of rows 1-5, 8, 9, 10, 12, 13, 15,
+   18, 20, 22, 23, 25 and 26, ``gin_mlp.cuh`` the bf16 GIN MLP of rows 1, 8, 10,
    12, 13 and 25, ``gin_layer.cuh`` the per-layer GIN kernel of rows 10, 12,
    13 and 25 (three lane walks), ``gin_model.cuh`` the whole-model GIN
    kernel of rows 1 and 8,
-   ``gcn_model.cuh`` the GCN one of rows 2 and 9, ``pna_model.cuh`` the PNA
+   ``gcn_model.cuh`` the GCN one of rows 2, 9 and 15 (whole model, one
+   layer), ``pna_model.cuh`` the PNA
    one of rows 3 and 20 (whole model, one layer), ``dgn_model.cuh`` the DGN
    one of rows 4, 22 (slots) and 18 (ELL), ``lanes.cuh`` the lane walks of
-   GCN and GIN and the ELL runs of rows 17, 18 and 23, ``gat_messages.cuh``
-   the GAT message walk of rows 17 and 23, ``linear_wgmma.cuh`` the bf16
-   product of rows 2-5, 9, 18, 20, 22 and 23), one
+   GCN and GIN and the ELL runs of rows 15, 17, 18 and 23,
+   ``gat_messages.cuh`` the GAT message walk of rows 17, 23 (ELL runs) and
+   21 (slot rows), ``linear_wgmma.cuh`` the bf16 product of rows 2-5, 9,
+   15, 18, 20, 22 and 23), one
    ``nvcc`` per source, all started together (build time and each
    compiler's register / shared-memory report); each library's count of
    tensor-core (HGMMA, HMMA, IMMA), bulk-copy / TMA (UBLKCP, UTMALDG) and
    FFMA instructions in its SASS (``cuobjdump -sass``), rows 1-5, 8, 9, 10,
-   12, 13, 18, 20, 22, 23, 25 and 26 required to hold HGMMA and a bulk copy
+   12, 13, 15, 18, 20, 22, 23, 25 and 26 required to hold HGMMA and a bulk copy
    (row 26: or a TMA load);
 3. each slot kernel against its plain torch version on the card, at the
    main path's shapes (a real bucket's slot layout at full width: GIN D=100,
@@ -92,10 +94,12 @@ Phases, each of which raises (non-zero exit) on failure:
    synthetic bucket of 250-node graphs), W=512 (the hep10k slot bucket
    holding the largest graph) and W=1024 (a synthetic bucket of 900-node
    graphs), f32 and bf16, row 22 with and without a seeded ``m_spill``;
-   row 18 (row 4's one-layer form over ELL) on synthetic ELL buckets at
-   W=256, 512 and 1024 (k=2); printing the bf16 launch's weight ring and
-   what the occupancy calculator says of the three rows' forms at W=128
-   and W=512; and DGN over a W=256 bucket
+   rows 18 and 15 (rows 4's and 9's one-layer forms over ELL; row 15 on a
+   non-final and on the last layer) on synthetic ELL buckets at W=256, 512
+   and 1024 (k=2); row 21 on the GAT hep10k slot bucket at W=512 holding
+   the largest graph, divided and as raw sums; printing the bf16 launch's
+   weight ring and what the occupancy calculator says of the four rows'
+   forms at W=128 and W=512; and DGN over a W=256 bucket
    whose hub nodes have an in-window in-degree of 12 (past the 8 slots), so
    that it spills: row 22 and row 24 on its layer 0 against their plain
    versions, and ``dgn.forward`` over it, counted (row 22 and row 24 once a
@@ -156,7 +160,9 @@ Phases, each of which raises (non-zero exit) on failure:
    W=128 / block 512: per layer row 18 or row 17, and their predictions
    against the slot path's too (f32 1e-4); DGN and GAT over the hep10k
    sample in ``local_ell`` at W=128 / block 512 with the ELL spill tail: per
-   layer rows 16 + 24 or 17 + 24. Counted and checked as in phase 4;
+   layer rows 16 + 24 or 17 + 24; GAT over the molhiv slot stream with
+   ``return_intermediates``: per layer row 21, divided in the kernel, every
+   intermediate checked. Counted and checked as in phase 4;
 4f. the edge-block layout (``--layout blocked``): all six models over the
    molhiv stream in unaligned packing through ``as_batches_uniform(
    blocked=True)``: per layer the windowed scatter (row 24) over every
@@ -177,23 +183,25 @@ Phases, each of which raises (non-zero exit) on failure:
    its bound (the larger of its FLOPs over the card's peak for the dtype and
    its bytes over the memory rate; the rows of a pad lane, which no kernel
    reads, are not counted) and, for the spill scatter, PyTorch's
-   ``index_add_`` of the same values; the kernels still in their first
-   design (rows 14, 15, 16, 19, 21, 24) and rows 17 and 18 also as the device
-   time of the stream's launches replayed from a CUDA graph (``REPLAYED``);
+   ``index_add_`` of the same values; the per-layer kernels whose loop of
+   wrapper calls can time their host work (rows 14-19, 21 and 24) also as
+   the device time of the stream's launches replayed from a CUDA graph
+   (``REPLAYED``);
 5b. the same for the hep10k ELL path, the molhiv stream through the ELL
    kernels at W=128, and the hep10k spill path;
 5c. the same for the per-layer ELL paths of phase 4d;
 5d. the same for the paths of phase 4e;
 5e. the same for the paths of phase 4f; the windowed scatter on the
    edge-block layout beside ``index_add_`` of the same values;
-5f. rows 8, 1, 13, 9, 3, 2, 4, 5, 20, 22, 23, 10, 12, 25 and 18 alone on their cells (``TURN_CELLS``),
+5f. rows 8, 1, 13, 9, 3, 2, 4, 5, 20, 22, 23, 10, 12, 25, 18 and 15 alone on
+   their cells (``TURN_CELLS``),
    each kernel's bf16 form (its product on wgmma) and its f32 form (FMA) in
    turns: bf16, f32, f32, bf16; launches, ms per stream, bound and share of
    the bound;
-5g. rows 9, 3, 4, 5, 20, 22, 23, 10, 12, 25, 18 and 17 by stage on their
-   cells (``SPLIT_CELLS``), bf16 and f32: each kernel alone whole and with
-   its product (row 23 both products, rows 10, 12, 25 the MLP; row 17 has
-   none), its messages, stats or channels, or both knocked out (the
+5g. rows 9, 3, 4, 5, 20, 22, 23, 10, 12, 25, 18, 15, 17 and 21 by stage on
+   their cells (``SPLIT_CELLS``), bf16 and f32: each kernel alone whole and
+   with its product (row 23 both products, rows 10, 12, 25 the MLP; rows 17
+   and 21 have none), its messages, stats or channels, or both knocked out (the
    wrappers' ``knockout``, which
    only this phase passes), each the device time of the stream's launches
    replayed from a CUDA graph (the wrappers' host work left out), and the
@@ -402,6 +410,7 @@ SASS_NEEDS = {"chained_matmul": ("HGMMA", "UBLKCP|UTMALDG"),
                                                   "pna_local_layer_slots",
                                                   "dgn_local_layer_slots",
                                                   "dgn_local_layer_ell_model",
+                                                  "gcn_local_layer_ell",
                                                   "gin_local_layer_blocks", "gin_layer_fused",
                                                   "gat_local_layer_ell")}}
 SASS_OPS = ("HGMMA", "UBLKCP", "UTMALDG", "HMMA", "IMMA", "FFMA")
@@ -438,26 +447,32 @@ TURN_CELLS = {
     # Rows 20 and 22 on their record cells and on the hep10k W=512 stream.
     "pna_local_layer": [("pna", "molhiv", SLOT_INTER), ("pna", "hep10k", HEP_SLOT_INTER)],
     "dgn_local_layer_slots": [("dgn", "hep10k", SLOTS), ("dgn", "hep10k", HEP_SLOT_INTER)],
-    # Rows 23, 10, 12 and 25 on their cells; row 18 on DGN's molhiv ELL stream.
+    # Rows 23, 10, 12 and 25 on their cells; row 18 on DGN's molhiv ELL stream,
+    # row 15 on GCN's, run with intermediates.
     "gat_local_layer_ell": [("gat", "hep10k", ELL_LAYER_FUSED), ("gat", "molhiv", ELL_FUSED)],
     "dgn_local_layer_ell": [("dgn", "molhiv", ELL)],
+    "gcn_local_layer_ell": [("gcn", "molhiv", ELL_INTER)],
     "gin_local_layer": [("gin", "molhiv", LOCAL), ("gin-vn", "molhiv", LOCAL)],
     ROW12: [("gin", "molhiv", ELL_EE)],
     "gin_layer_fused": [("gin", "molhiv", FUSED)],
 }
 # Phase 5g: the kernels split by stage, on these cells: each timed whole and
 # with its product (bit 0), its messages, stats or channels (bit 1), or both
-# knocked out; row 17, which has no product, with its messages out.
+# knocked out; rows 17 and 21, which have no product (MESSAGES_ONLY), with
+# their messages out.
 SPLIT_CELLS = {"gcn_local_model": [("gcn", "hep10k", ELL), ("gcn", "molhiv", ELL)],
                **{MODEL_KERNELS[name][0]: [(name, "molhiv", SLOTS), (name, "hep10k", HEP_SLOTS)]
                   for name in ("pna", "dgn", "gat")},
                **{k: TURN_CELLS[k] for k in ("pna_local_layer", "dgn_local_layer_slots",
                                              "gat_local_layer_ell", "gin_local_layer", ROW12,
-                                             "gin_layer_fused", "dgn_local_layer_ell")},
-               "gat_local_message_ell": [("gat", "hep10k", ELL_LAYER), ("gat", "molhiv", ELL)]}
+                                             "gin_layer_fused", "dgn_local_layer_ell",
+                                             "gcn_local_layer_ell")},
+               "gat_local_message_ell": [("gat", "hep10k", ELL_LAYER), ("gat", "molhiv", ELL)],
+               "gat_local_message_slots": [("gat", "hep10k", SLOTS), ("gat", "molhiv", SLOT_INTER)]}
+MESSAGES_ONLY = ("gat_local_message_ell", "gat_local_message_slots")
 # Phases 5 to 5e: the per-layer kernels whose loop of wrapper calls can time
-# the wrappers' host work, also timed by graph replay: rows 14, 15, 16, 19,
-# 21 and 24, which run their first design, and rows 17 and 18.
+# the wrappers' host work, also timed by graph replay: rows 14, 15, 16, 17,
+# 18, 19, 21 and 24.
 REPLAYED = ("gcn_local_message_ell", "gcn_local_layer_ell", "dgn_local_message_ell",
             "gat_local_message_ell", "dgn_local_layer_ell", "pna_local_stats_ell",
             "gat_local_message_slots", SCATTER)
@@ -471,11 +486,11 @@ CLUSTER_MODELS = ("gcn", "pna", "dgn", "gat")
 OCCUPANCY = {"gcn_local_model": (100, 13), "gcn_local_model_slots": (100, 13),
              "dgn_local_model": (100,), "gat_local_model_slots": (64, 4),
              "pna_local_layer_slots": (80,), "dgn_local_layer_slots": (100,),
-             "dgn_local_layer_ell_model": (100,)}
+             "dgn_local_layer_ell_model": (100,), "gcn_local_layer_ell": (100, 13)}
 # Phase 3e: rows 20 and 22 at every window their clusters take, beside
 # molhiv's W=128 and the hep10k bucket's W=512: (the large graphs' nodes,
-# the window) of the synthetic buckets; row 18 on such ELL buckets at W =
-# 256, 512 and 1024 (k = 2 there).
+# the window) of the synthetic buckets; rows 18 and 15 on such ELL buckets
+# at W = 256, 512 and 1024 (k = 2 there).
 LAYER_WINDOWS = ((250, 256), (900, 1024))
 ELL_LAYER_WINDOWS = ((250, 256), (400, 512), (900, 1024))
 # Phase 3e: DGN's spilling W=256 bucket, its hub nodes' in-window in-degree
@@ -1142,10 +1157,12 @@ def check_layer_windows(streams: dict, device, max_err: dict) -> None:
     W=512 (the hep10k slot bucket holding the largest graph), f32 (1e-4) and
     bf16 (5e-2), row 22 also with a seeded ``m_spill``; then what the
     occupancy calculator says of both rows; then DGN's spilling W=256
-    bucket (``check_hub_spill``). Row 18 (the one-layer form of row 4 over
-    the ELL layout) the same way on synthetic ELL buckets at W=256, 512 and
-    1024 (``ELL_LAYER_WINDOWS``; two edge blocks a window at W=1024), and
-    its occupancy."""
+    bucket (``check_hub_spill``). Rows 18 and 15 (the one-layer forms of
+    rows 4 and 9 over the ELL layout; row 15 on a non-final layer and on the
+    last) the same way on synthetic ELL buckets at W=256, 512 and 1024
+    (``ELL_LAYER_WINDOWS``; two edge blocks a window at W=1024), and their
+    occupancy. Row 21 on the GAT hep10k slot bucket at W=512 holding the
+    largest graph (no spill tail), divided and as raw sums."""
     import numpy as np
     import torch
 
@@ -1175,18 +1192,36 @@ def check_layer_windows(streams: dict, device, max_err: dict) -> None:
                     err = compare(kname, v, f"{name} {what} layer 0{label} {dt}", tol)
                     if prec is FLOAT32:
                         max_err[kname] = max(max_err[kname], err)
-    kname = "dgn_local_layer_ell"
-    for n, w in ELL_LAYER_WINDOWS:
-        batch = big_graph_stream("dgn", n, device, ELL, window=w)[1][0]
-        what = f"W={w} k={base.ell_geometry(batch)[1]} synthetic ELL bucket, {n}-node graphs"
-        for prec, tol in ((FLOAT32, 1e-4), (BF16, 5e-2)):
-            params = params_from_numpy(synthetic_params("dgn", SEED + 1), prec, device)
-            ops = model_module("dgn").layer_kernel_operands(params, batch, prec)[kname]
-            err = compare(kname, ops, f"dgn {what} layer 0 {prec.compute_dtype}", tol)
+    for name, kname in (("dgn", "dgn_local_layer_ell"), ("gcn", "gcn_local_layer_ell")):
+        for n, w in ELL_LAYER_WINDOWS:
+            batch = big_graph_stream(name, n, device, ELL, window=w)[1][0]
+            what = f"W={w} k={base.ell_geometry(batch)[1]} synthetic ELL bucket, {n}-node graphs"
+            for prec, tol in ((FLOAT32, 1e-4), (BF16, 5e-2)):
+                params = params_from_numpy(synthetic_params(name, SEED + 1), prec, device)
+                kernels = model_module(name).layer_kernel_operands(params, batch, prec)
+                check(kname in kernels, f"{name} {what}: no {kname} launch ({sorted(kernels)})")
+                ops = kernels[kname]
+                variants = [("layer 0", ops)]
+                if name == "gcn":  # the last layer's form: no next conv
+                    variants.append(("a last layer", dict(ops, w_next=None, b_next=None,
+                                                          conv_tiles=None)))
+                for label, v in variants:
+                    err = compare(kname, v, f"{name} {what} {label} {prec.compute_dtype}", tol)
+                    if prec is FLOAT32:
+                        max_err[kname] = max(max_err[kname], err)
+    kname = "gat_local_message_slots"
+    hep, big, i = largest_bucket(streams, ("gat", "hep10k", HEP_SLOTS))
+    for prec, tol in ((FLOAT32, 1e-4), (BF16, 5e-2)):
+        params = params_from_numpy(synthetic_params("gat", SEED + 1), prec, device)
+        ops = model_module("gat").layer_kernel_operands(params, hep, prec)[kname]
+        for v in (ops, dict(ops, divide=not ops["divide"])):
+            err = compare(kname, v, f"gat W=512 hep10k slot bucket {i}, a {big}-node graph, "
+                          f"layer 0 {'divided' if v['divide'] else 'sums'} "
+                          f"{prec.compute_dtype}", tol)
             if prec is FLOAT32:
                 max_err[kname] = max(max_err[kname], err)
     print_occupancy(("pna_local_layer_slots", "dgn_local_layer_slots",
-                     "dgn_local_layer_ell_model"), device)
+                     "dgn_local_layer_ell_model", "gcn_local_layer_ell"), device)
     check_hub_spill(device, max_err)
 
 
@@ -1922,11 +1957,11 @@ def time_turns(streams: dict, device) -> dict:
 
 
 def time_split(streams: dict, device) -> None:
-    """Phase 5g: rows 9, 3, 4, 5, 20, 22, 23, 10, 12, 25, 18 and 17 by stage
-    on their ``SPLIT_CELLS``, bf16 and f32: the kernel alone over the stream
-    whole, with its product knocked out (``knockout`` bit 0: the next conv,
-    the tower, the posttrans, the glue, row 23's two products or the GIN
-    MLP; row 17 has none), with its messages, stats or channels knocked out
+    """Phase 5g: rows 9, 3, 4, 5, 20, 22, 23, 10, 12, 25, 18, 15, 17 and 21 by
+    stage on their ``SPLIT_CELLS``, bf16 and f32: the kernel alone over the
+    stream whole, with its product knocked out (``knockout`` bit 0: the next
+    conv, the tower, the posttrans, the glue, row 23's two products or the
+    GIN MLP; rows 17 and 21 have none), with its messages, stats or channels knocked out
     (bit 1) and with both, each as
     the device time of the stream's launches replayed from a CUDA graph
     (``graph_ms``; beside it the whole as the Python loop's ``cuda_ms``,
@@ -1943,7 +1978,8 @@ def time_split(streams: dict, device) -> None:
              "pna_local_layer": "stats", "dgn_local_layer_slots": "channels",
              "gat_local_layer_ell": "messages", "gin_local_layer": "messages", ROW12: "messages",
              "gin_layer_fused": "message sums", "dgn_local_layer_ell": "channels",
-             "gat_local_message_ell": "messages"}
+             "gcn_local_layer_ell": "messages", "gat_local_message_ell": "messages",
+             "gat_local_message_slots": "messages"}
     for kname, cells in SPLIT_CELLS.items():
         kernel = kernel_fn(kname)
         for key in cells:
@@ -1952,8 +1988,8 @@ def time_split(streams: dict, device) -> None:
                 calls = kernel_calls(kname, name, params_from_numpy(synthetic_params(name, SEED),
                                                                     prec, device),
                                      streams[key][1], prec, key)
-                # Row 17 has no product: bit 0 knocks nothing out.
-                bits = (0, 2) if kname == "gat_local_message_ell" else (0, 1, 2, 3)
+                # Rows 17 and 21 have no product: bit 0 knocks nothing out.
+                bits = (0, 2) if kname in MESSAGES_ONLY else (0, 1, 2, 3)
                 loop = {k: cuda_ms(lambda: [kernel(**o, knockout=k) for o in calls]) for k in bits}
                 try:
                     ms = {k: graph_ms(lambda: [kernel(**o, knockout=k) for o in calls])
@@ -2287,6 +2323,8 @@ def main() -> int:
     # PNA's molhiv slot stream, run with intermediates (row 20); PNA's and
     # DGN's hep10k slot stream at W=512, run with intermediates (rows 20, 22).
     streams["pna", "molhiv", SLOT_INTER] = streams["pna", "molhiv", SLOTS]
+    # GAT's molhiv slot stream, run with intermediates (row 21, divided).
+    streams["gat", "molhiv", SLOT_INTER] = streams["gat", "molhiv", SLOTS]
     for name in HEP_INTER_MODELS:
         streams[name, "hep10k", HEP_SLOT_INTER] = streams[name, "hep10k", HEP_SLOTS]
     # The edge-block layout for every model, GIN's also with its fused layer.
@@ -2325,10 +2363,11 @@ def main() -> int:
     layer_keys = [(name, "hep10k", ELL_LAYER) for name in ELL_MODELS]
     layer_keys += [(name, "molhiv", ELL_INTER) for name in INTER_MODELS]
     # Phase 4e's paths: PNA's row 20, DGN's and GAT's ELL paths, PNA's row 20
-    # and DGN's row 22 on hep10k at W=512.
+    # and DGN's row 22 on hep10k at W=512, GAT's row 21 on molhiv slots.
     new_keys = [("pna", "molhiv", SLOT_INTER), ("dgn", "molhiv", ELL), ("gat", "molhiv", ELL),
                 ("dgn", "hep10k", ELL_LAYER), ("gat", "hep10k", ELL_LAYER)]
     new_keys += [(name, "hep10k", HEP_SLOT_INTER) for name in HEP_INTER_MODELS]
+    new_keys += [("gat", "molhiv", SLOT_INTER)]
     # Phase 4f's paths: the edge-block and legacy local layouts, row 12's
     # layer loop, GAT's fused layer. The one-bucket local streams are not timed.
     block_keys = [(name, "molhiv", BLOCKED) for name in MODELS] + [("gin", "molhiv", FUSED)]

@@ -1,9 +1,9 @@
-"""The per-layer GIN, GAT and DGN kernels on their cells: rows 13
+"""The per-layer GIN, GAT, DGN and GCN kernels on their cells: rows 13
 (``gin_local_layer_ell``), 10 (``gin_local_layer``), 12
 (``gin_local_layer_ell_lanes``), 25 (``gin_layer_fused``), 23
 (``gat_local_layer_ell``), 17 (``gat_local_message_ell``), 18
-(``dgn_local_layer_ell``) and 16 (``dgn_local_message_ell``), each alone in
-ms per stream, bf16 and f32.
+(``dgn_local_layer_ell``), 16 (``dgn_local_message_ell``) and 15
+(``gcn_local_layer_ell``), each alone in ms per stream, bf16 and f32.
 
     python -m flowgnn_tpu_torch.bench.layer_kernels --label change
 
@@ -15,7 +15,8 @@ the legacy local layout (GIN and GIN-VN); row 12 on molhiv in ELL with each
 lane's bond embedding given; row 25 on molhiv in the edge-block layout
 (unaligned packing); rows 23 and 17 on the hep10k sample and on molhiv in
 ELL (W=128, block 512); row 18 on molhiv in ELL (W=128, block 512); row 16
-on the hep10k sample in ELL at W=128 (block 512, a spill tail). Each
+on the hep10k sample in ELL at W=128 (block 512, a spill tail); row 15 on
+molhiv in ELL (the intermediates cell: no spill tail). Each
 launch runs a bucket's layer-0 operands, once per layer (row 23: every layer
 but the last), as ``chip_smoke.py`` times them. Each (kernel, cell, dtype) is
 timed with CUDA events (3 warm-up passes, the mean of ``--reps``) twice: as a
@@ -54,6 +55,7 @@ CELLS = (
     ("gat_local_message_ell", "gat", "molhiv", 4113, "local_ell", None),
     ("dgn_local_layer_ell", "dgn", "molhiv", 4113, "local_ell", None),
     ("dgn_local_message_ell", "dgn", "hep10k", 2048, "local_ell", 128),
+    ("gcn_local_layer_ell", "gcn", "molhiv", 4113, "local_ell", None),
 )
 
 
@@ -81,7 +83,7 @@ def calls(kernel: str, name: str, batches: list, prec, device) -> list:
     """The keyword operands of every launch of ``kernel`` over the stream:
     each bucket's layer-0 operands, once per layer that runs the kernel (row
     17 on GAT's unfused path: every layer)."""
-    from flowgnn_tpu_torch.models import base, dgn, gat, gin
+    from flowgnn_tpu_torch.models import base, dgn, gat, gcn, gin
     from flowgnn_tpu_torch.params import loaders
 
     if name == "gat":
@@ -94,6 +96,10 @@ def calls(kernel: str, name: str, batches: list, prec, device) -> list:
         params = loaders.params_from_numpy(loaders.synthetic_dgn_params(0), prec, device)
         layers = params["posttrans_w"].shape[0]
         ops = [dgn.layer_kernel_operands(params, b, prec)[kernel] for b in batches]
+    elif name == "gcn":
+        params = loaders.params_from_numpy(loaders.synthetic_gcn_params(0), prec, device)
+        layers = params["conv_w"].shape[0]
+        ops = [gcn.layer_kernel_operands(params, b, prec)[kernel] for b in batches]
     else:
         params = loaders.params_from_numpy(loaders.synthetic_gin_params(0), prec, device)
         layers = params["mlp1_w"].shape[0]

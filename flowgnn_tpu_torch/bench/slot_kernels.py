@@ -1,24 +1,27 @@
-"""The whole-model kernels and their one-layer forms on their cells: rows 3
-(``pna_local_model``) and 4 (``dgn_local_model``) over slots, rows 8
-(``gin_local_model``) and 9 (``gcn_local_model``) over ELL, and rows 20
-(``pna_local_layer``) and 22 (``dgn_local_layer_slots``), the one-layer
-forms of rows 3 and 4, alone in ms per stream and as the model's forward
-over the stream in µs per graph, bf16 and f32.
+"""The whole-model kernels, their one-layer forms and GAT's per-layer slot
+kernel on their cells: rows 3 (``pna_local_model``), 4 (``dgn_local_model``)
+and 2 (``gcn_local_model_slots``) over slots, rows 8 (``gin_local_model``)
+and 9 (``gcn_local_model``) over ELL, rows 20 (``pna_local_layer``) and 22
+(``dgn_local_layer_slots``), the one-layer forms of rows 3 and 4, and row 21
+(``gat_local_message_slots``), alone in ms per stream and as the model's
+forward over the stream in µs per graph, bf16 and f32.
 
     python -m flowgnn_tpu_torch.bench.slot_kernels --label change
 
 The cells are the streams ``chip_smoke.py`` times them on: the 4113-graph
-synthetic molhiv stream in slots (W=128; rows 3 and 4 once per bucket, row
+synthetic molhiv stream in slots (W=128; rows 3, 4 and 2 once per bucket, row
 20 once per layer and bucket, the stream run with intermediates), the
-2048-graph hep10k sample in slots at W=512 (rows 3 and 4 once per bucket,
+2048-graph hep10k sample in slots at W=512 (rows 3, 4 and 2 once per bucket,
 rows 20 and 22 once per layer and bucket) and at W=128, where it spills
 (row 22 once per layer and bucket, with the tail's channels); rows 8 and 9
 on the hep10k sample and the molhiv stream in ELL at the window
-``choose_geometry`` gives (once per bucket); with seeded synthetic
-weights. A per-layer kernel is timed on each bucket's layer-0
+``choose_geometry`` gives (once per bucket); row 21 on the hep10k sample in
+slots at W=128, where it spills (the raw sums, once per layer and bucket),
+and on the molhiv stream in slots run with intermediates (divided in the
+kernel, once per layer and bucket); with seeded synthetic weights. A per-layer kernel is timed on each bucket's layer-0
 operands, once per layer, as ``chip_smoke.py`` does; the forward is the
-path that runs the kernel (``return_intermediates`` on the cells of rows 20
-and 22 with no spill tail). Each (kernel, cell, dtype) is timed with CUDA
+path that runs the kernel (``return_intermediates`` on the cells of rows 20,
+22 and 21 with no spill tail). Each (kernel, cell, dtype) is timed with CUDA
 events (3 warm-up passes, the mean of ``--reps``) and printed with the
 launches per stream, and the kernel also as its launches replayed from a
 CUDA graph (``bench.timing``: the device time, the wrappers' host work left
@@ -54,8 +57,14 @@ CELLS = (
     ("gin_local_model", "gin", "molhiv", 4113, ELL, None),
     ("gcn_local_model", "gcn", "hep10k", 2048, ELL, None),
     ("gcn_local_model", "gcn", "molhiv", 4113, ELL, None),
+    ("gcn_local_model_slots", "gcn", "molhiv", 4113, SLOTS, None),
+    ("gcn_local_model_slots", "gcn", "hep10k", 2048, SLOTS, 512),
+    ("gat_local_message_slots", "gat", "hep10k", 2048, SLOTS, 128),
+    ("gat_local_message_slots", "gat", "molhiv", 4113, SLOTS, None),
 )
-LAYER_KERNELS = ("pna_local_layer", "dgn_local_layer_slots")
+LAYER_KERNELS = ("pna_local_layer", "dgn_local_layer_slots", "gat_local_message_slots")
+# Each model's weight whose leading axis counts its layers.
+LAYER_WEIGHT = {"pna": "conv_w", "dgn": "posttrans_w", "gat": "proj_w"}
 
 
 def params_of(name: str, prec, device) -> dict:
@@ -70,15 +79,15 @@ def calls(kernel: str, name: str, batches: list, layout: str, prec, device) -> l
     """The keyword operands of every launch of ``kernel`` over the stream:
     a whole-model kernel's per bucket, a per-layer kernel's layer-0 operands
     per bucket, once per layer."""
-    from flowgnn_tpu_torch.models import dgn, gcn, gin, pna
+    from flowgnn_tpu_torch.models import dgn, gat, gcn, gin, pna
 
-    mod = {"pna": pna, "dgn": dgn, "gin": gin, "gcn": gcn}[name]
+    mod = {"pna": pna, "dgn": dgn, "gin": gin, "gcn": gcn, "gat": gat}[name]
     params = params_of(name, prec, device)
     if layout == ELL:
         return [mod.ell_kernel_operands(params, b, prec) for b in batches]
     if kernel not in LAYER_KERNELS:
         return [mod.slot_kernel_operands(params, b, prec) for b in batches]
-    layers = params["conv_w" if name == "pna" else "posttrans_w"].shape[0]
+    layers = params[LAYER_WEIGHT[name]].shape[0]
     return [mod.layer_kernel_operands(params, b, prec)[kernel] for b in batches
             for _ in range(layers)]
 
@@ -118,8 +127,8 @@ def main(argv=None) -> int:
         w = (base.ell_geometry(batches[0])[0] if layout == ELL
              else int(batches[0]["slot_geom"].shape[0]))
         fn = getattr(local_layer, kernel)
-        # The forward that runs the kernel: a no-spill bucket reaches rows 20
-        # and 22 with intermediates only.
+        # The forward that runs the kernel: a no-spill bucket reaches rows 20,
+        # 22 and 21 with intermediates only.
         inter = kernel in LAYER_KERNELS and not batches[0]["slot_spill"].shape[-1]
         forward = registry.get(name).forward
         for prec in (BF16, FLOAT32):

@@ -328,8 +328,8 @@ gat_layer_ell_kernel(const int* __restrict__ meta, const T* __restrict__ h,
   }
 
   gm::messages<T, float, G, kMaxHD / G, kRows, false>(
-      meta_w, h, s_src, s_tgt, spill, lo_s, tot_s, 0, wrow0, row0, dm.n, dm.window, dm.lanes, dm.hd,
-      dm.heads, gather, tid, kThreads);
+      gm::EllRuns{meta_w, lo_s, dm.lanes}, h, s_src, s_tgt, spill, tot_s, 0, wrow0, row0, dm.n,
+      dm.window, dm.hd, dm.heads, gather, tid, kThreads);
 
   if constexpr (kWg) {
     __nv_bfloat16* a_s = reinterpret_cast<__nv_bfloat16*>(smem + lay.a);

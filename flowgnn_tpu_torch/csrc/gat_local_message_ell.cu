@@ -78,9 +78,9 @@ gat_msg_ell_kernel(const int* __restrict__ meta, const T* __restrict__ h,
   const bool gather = !(dm.knockout & kNoMessages);
   if (gather) lanes::ell_runs<kRows>(meta_w, dm.lanes, part * kRows, lo_s, threadIdx.x, kThreads);
   __syncthreads();
-  gm::messages<T, T, G, C, kRows, true>(meta_w, h, s_src, s_tgt, nullptr, lo_s, out, row0, wrow0,
-                                        row0, dm.n, dm.window, dm.lanes, dm.hd, dm.heads, gather,
-                                        threadIdx.x, kThreads);
+  gm::messages<T, T, G, C, kRows, true>(gm::EllRuns{meta_w, lo_s, dm.lanes}, h, s_src, s_tgt,
+                                        nullptr, out, row0, wrow0, row0, dm.n, dm.window, dm.hd,
+                                        dm.heads, gather, threadIdx.x, kThreads);
 }
 
 template <typename T, int G, int C>

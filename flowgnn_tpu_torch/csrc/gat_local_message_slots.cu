@@ -1,4 +1,5 @@
-// GAT per-layer edge softmax over the slot layout for Hopper (sm_90a).
+// GAT's per-layer edge softmax over the slot layout for Hopper (sm_90a):
+// kernel table row 21.
 //
 // Replaces the TPU kernel flowgnn_tpu/ops/pallas/local_layer.py:
 // gat_local_message_slots. Same operands, same output: slot_stack [NW*S*W]
@@ -8,10 +9,11 @@
 // source u, in slot order:
 //   score = exp(leaky_0.2(s_src[v][k] + s_tgt[u][k]))      (raw exp, no max)
 //   num[k*D:(k+1)*D] += score * h_u[k*D:(k+1)*D],  den[k] += score
-// With divide, out [n, H*D] = num / den (a zero den taken as 1); else out
-// [n, H*D + H] = [num | den], for the caller to merge the spill tail's sums.
-// Both in h's type. s_tgt comes in h's type: the TPU kernel rounds it to it
-// (it rides h's gather tile).
+// in f32, unrounded. With divide, out [n, H*D] = num / den (a zero den taken
+// as 1); else out [n, H*D + H] = [num | den], for the caller to merge the
+// spill tail's sums. Both in h's type, rounded once. s_tgt comes in h's type:
+// the TPU kernel rounds it to it (it rides h's gather tile). A source on a
+// padding row reads as zero; its score counts.
 //
 // An empty slot is skipped, not multiplied by a mask: the TPU kernel computes
 // exp(raw) * valid on every slot, and an empty slot's raw is the row's own
@@ -19,119 +21,95 @@
 // NaN (ROADMAP queue 3). Here an empty slot adds nothing, whatever its score.
 //
 // The TPU kernel gathers every slot's [h | s_tgt] with one stacked [S*W, W]
-// one-hot matmul. Here a block owns one window: it stages the window's h, s_tgt
-// and s_src in shared memory as f32 (41 KB at W=128, H*D=64, S=8 with the slot
-// table), and one warp per destination row, lanes over H*D, reads the sources
-// by index; lane k (< H) also keeps head k's denominator, which the divide
-// reads by a warp shuffle.
+// one-hot matmul per window. Here the sources' h stays in device memory (L1
+// / L2), so a block of 256 threads owns 128 rows of a window (grid NW*W/128,
+// W a whole number of 128-row tiles up to 1024) and needs no shared memory:
+// the walk of rows 17 and 23 (gat_messages.cuh) with the slot rows
+// (SlotRows): a row's S slots loaded by its group's first S threads at once
+// and the valid ones packed by one ballot, kBatch sources' h_u rows and
+// scores in flight, one exp a head and valid slot, formed by the head's
+// thread and handed to its columns by shuffle, a row's inputs one row
+// ahead. The walk's shape follows the heads and H*D alone, as row 17's: a
+// half-warp a row, two rows' chains a warp, where H <= 16 (4 columns a
+// thread where H*D <= 64, else 8), else a warp a row at 4 columns a thread.
 //
-// What bounds it on this card: the bytes. h and the scores are read once and
-// one row of H*D (+H) values written per node; the arithmetic is a few
-// operations and one exp per valid slot and column.
+// What bounds it on this card: the latency of the dependent gathers, not the
+// bytes (per valid slot an H*D-wide source row, mostly from L2, and H source
+// scores; per row S slot indices and s_src once and H*D (+ H) values
+// written): the work in flight (rows a warp, warps an SM) sets its speed.
+//
+// Dims::knockout is a timing knob, never set on the model path: bit 1 skips
+// the messages (every row's sums are zero, and so its quotients); the phase
+// split of chip_smoke.py times the kernel with it.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "gat_messages.cuh"
+#include "hopper.cuh"  // device_bytes
+
 namespace {
 
+namespace gm = gat_messages;
+
 constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
-constexpr int kMaxHD = 128;  // widest H*D: kLaneD columns per lane
-constexpr int kLaneD = kMaxHD / 32;
-constexpr int kMaxHeads = 32;  // one denominator per lane
-constexpr int kMaxSlots = 8;
+constexpr int kRows = 128;             // window rows per block
+constexpr int kMaxWindowBlocks = 8;    // W up to 1024
+constexpr int kMaxHD = 128;            // widest H*D
+constexpr int kMaxHeads = 32;          // one head's score per thread of a row's group
+constexpr int kHalfHeads = 16;         // a half-warp a row up to 16 heads
+constexpr int kNarrowHD = 64;          // a half-warp's 4 columns a thread cover H*D <= 64
+constexpr int kNoMessages = 2;         // Dims::knockout bit
 
-__device__ __forceinline__ float ld(const float* p) { return __ldg(p); }
-__device__ __forceinline__ float ld(const __nv_bfloat16* p) {
-  return __bfloat162float(*p);
-}
+struct Dims {
+  int n, window, hd, heads, slots, knockout;
+};
 
-template <typename T> __device__ __forceinline__ T cvt(float x);
-template <> __device__ __forceinline__ float cvt<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 cvt<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
-}
-
-__host__ __device__ inline size_t smem_words(int window, int hd, int heads, int slots) {
-  return size_t(window) * (hd + 2 * heads + slots);
-}
-
-__device__ __forceinline__ float leaky_exp(float raw) {
-  return expf(raw < 0.f ? __fmul_rn(raw, 0.2f) : raw);
-}
-
-template <typename T>
+// G threads a row, C columns a thread.
+template <typename T, int G, int C, bool kDivide>
 __global__ void __launch_bounds__(kThreads)
 gat_msg_kernel(const int* __restrict__ slot_stack, const T* __restrict__ h,
-               const T* __restrict__ s_src, const T* __restrict__ s_tgt,
-               T* __restrict__ out, int n, int window, int hd, int heads, int slots,
-               int divide) {
-  extern __shared__ float smem[];
-  const int W = window, H = heads, S = slots, dh = hd / heads, tid = threadIdx.x;
-  float* h_s = smem;                       // [W][HD]
-  float* st_s = h_s + size_t(W) * hd;      // [W][H] s_tgt
-  float* ss_s = st_s + size_t(W) * H;      // [W][H] s_src
-  int* src_s = reinterpret_cast<int*>(ss_s + size_t(W) * H);  // [S][W]
-  const long row0 = long(blockIdx.x) * W;
-  for (int i = tid; i < W * hd; i += kThreads) {
-    const int r = i / hd;
-    h_s[i] = row0 + r < n ? ld(h + (row0 + r) * hd + (i - r * hd)) : 0.f;
-  }
-  for (int i = tid; i < W * H; i += kThreads) {
-    const int r = i / H;
-    const bool real = row0 + r < n;
-    st_s[i] = real ? ld(s_tgt + (row0 + r) * H + (i - r * H)) : 0.f;
-    ss_s[i] = real ? ld(s_src + (row0 + r) * H + (i - r * H)) : 0.f;
-  }
-  for (int i = tid; i < S * W; i += kThreads) src_s[i] = slot_stack[row0 * S + i];
-  __syncthreads();
-
-  const int warp = tid / 32, lane = tid % 32;
-  const int width = divide ? hd : hd + H;
-  for (int r = warp; r < W && row0 + r < n; r += kWarps) {
-    float num[kLaneD];
-#pragma unroll
-    for (int j = 0; j < kLaneD; ++j) num[j] = 0.f;
-    float den = 0.f;  // lane k < H: head k's
-    for (int k = 0; k < S; ++k) {
-      const int src = src_s[k * W + r];
-      if (unsigned(src) >= unsigned(W)) continue;  // empty slot: adds nothing
-#pragma unroll
-      for (int j = 0; j < kLaneD; ++j) {
-        const int c = lane + 32 * j;
-        if (c >= hd) break;
-        const int head = c / dh;
-        const float sc = leaky_exp(__fadd_rn(ss_s[r * H + head], st_s[src * H + head]));
-        num[j] = __fadd_rn(num[j], __fmul_rn(sc, h_s[src * hd + c]));
-      }
-      if (lane < H)
-        den = __fadd_rn(den, leaky_exp(__fadd_rn(ss_s[r * H + lane], st_s[src * H + lane])));
-    }
-    T* o = out + (row0 + r) * width;
-#pragma unroll
-    for (int j = 0; j < kLaneD; ++j) {
-      const int c = lane + 32 * j;
-      const float dv = __shfl_sync(0xffffffffu, den, c < hd ? c / dh : 0);
-      if (c >= hd) continue;
-      o[c] = cvt<T>(divide ? num[j] / (dv == 0.f ? 1.f : dv) : num[j]);
-    }
-    if (!divide && lane < H) o[hd + lane] = cvt<T>(den);
-  }
+               const T* __restrict__ s_src, const T* __restrict__ s_tgt, T* __restrict__ out,
+               Dims dm) {
+  const int per_win = dm.window / kRows;
+  const int win = blockIdx.x / per_win, part = blockIdx.x % per_win;
+  const long wrow0 = long(win) * dm.window;
+  const long row0 = wrow0 + long(part) * kRows;
+  if (row0 >= dm.n) return;  // padding rows only
+  const gm::SlotRows walk{slot_stack + wrow0 * dm.slots, part * kRows, dm.slots};
+  const bool gather = !(dm.knockout & kNoMessages);
+  gm::messages<T, T, G, C, kRows, true, kDivide>(walk, h, s_src, s_tgt, nullptr, out, row0, wrow0,
+                                                 row0, dm.n, dm.window, dm.hd, dm.heads, gather,
+                                                 threadIdx.x, kThreads);
 }
 
-template <typename T>
-cudaError_t launch(const void* slot_stack, const void* h, const void* s_src,
-                   const void* s_tgt, void* out, int num_windows, int n, int window,
-                   int hd, int heads, int slots, int divide, cudaStream_t stream) {
-  const size_t bytes = smem_words(window, hd, heads, slots) * 4;
-  cudaError_t err = cudaFuncSetAttribute(
-      gat_msg_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, int(bytes));
-  if (err != cudaSuccess) return err;
-  gat_msg_kernel<T><<<num_windows, kThreads, bytes, stream>>>(
-      static_cast<const int*>(slot_stack), static_cast<const T*>(h),
-      static_cast<const T*>(s_src), static_cast<const T*>(s_tgt),
-      static_cast<T*>(out), n, window, hd, heads, slots, divide);
+template <typename T, int G, int C>
+cudaError_t launch(const void* slot_stack, const void* h, const void* s_src, const void* s_tgt,
+                   void* out, int num_windows, bool divide, const Dims& dm, cudaStream_t stream) {
+  const dim3 grid(num_windows * (dm.window / kRows));
+  const int* ss = static_cast<const int*>(slot_stack);
+  const T *hh = static_cast<const T*>(h), *sa = static_cast<const T*>(s_src),
+          *sb = static_cast<const T*>(s_tgt);
+  T* o = static_cast<T*>(out);
+  if (divide)
+    gat_msg_kernel<T, G, C, true><<<grid, kThreads, 0, stream>>>(ss, hh, sa, sb, o, dm);
+  else
+    gat_msg_kernel<T, G, C, false><<<grid, kThreads, 0, stream>>>(ss, hh, sa, sb, o, dm);
   return cudaGetLastError();
+}
+
+// The walk's shape for this launch's heads and H*D.
+template <typename T>
+cudaError_t launch_shape(const void* slot_stack, const void* h, const void* s_src,
+                         const void* s_tgt, void* out, int num_windows, bool divide,
+                         const Dims& dm, cudaStream_t s) {
+  if (dm.heads > kHalfHeads)
+    return launch<T, 32, kMaxHD / 32>(slot_stack, h, s_src, s_tgt, out, num_windows, divide, dm,
+                                      s);
+  if (dm.hd <= kNarrowHD)
+    return launch<T, 16, kNarrowHD / 16>(slot_stack, h, s_src, s_tgt, out, num_windows, divide,
+                                         dm, s);
+  return launch<T, 16, kMaxHD / 16>(slot_stack, h, s_src, s_tgt, out, num_windows, divide, dm, s);
 }
 
 }  // namespace
@@ -139,40 +117,45 @@ cudaError_t launch(const void* slot_stack, const void* h, const void* s_src,
 extern "C" {
 
 int gat_msg_max_d() { return kMaxHD; }
-int gat_msg_max_slots() { return kMaxSlots; }
+int gat_msg_max_heads() { return kMaxHeads; }
+int gat_msg_max_slots() { return lanes::kMaxSlots; }
+int gat_msg_rows_per_block() { return kRows; }
+int gat_msg_max_window_blocks() { return kMaxWindowBlocks; }
 
 // The largest dynamic shared memory (bytes) a block may opt in to, or a
 // negative cudaError_t.
 long long gat_msg_smem_optin(int device) {
-  int bytes = 0;
-  const cudaError_t err = cudaDeviceGetAttribute(
-      &bytes, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
-  return err == cudaSuccess ? (long long)bytes : -(long long)err;
+  return hopper::device_bytes(device, cudaDevAttrMaxSharedMemoryPerBlockOptin);
 }
 
-// Dynamic shared memory (bytes) one block needs for this geometry.
-long long gat_msg_smem_bytes(int window, int hd, int heads, int slots) {
-  return (long long)(smem_words(window, hd, heads, slots) * 4);
+// Dynamic shared memory (bytes) one block needs: none.
+long long gat_msg_smem_bytes(int hd, int heads) {
+  (void)hd;
+  (void)heads;
+  return 0;
 }
 
 // dtype: 0 = float32, 1 = bfloat16 (h, s_src, s_tgt, out). slot_stack
 // [num_windows*slots*window]: int32; out [n, hd] (divide) or [n, hd + heads].
-// Returns a cudaError_t.
+// window must be 1..kMaxWindowBlocks whole blocks of kRows rows. knockout: 0
+// (see Dims). Returns a cudaError_t.
 int gat_msg_launch(int dtype, const void* slot_stack, const void* h, const void* s_src,
-                   const void* s_tgt, void* out, int num_windows, int n, int window,
-                   int hd, int heads, int slots, int divide, int device, void* stream) {
-  if (slots < 1 || slots > kMaxSlots || hd < 1 || hd > kMaxHD || heads < 1 ||
+                   const void* s_tgt, void* out, int num_windows, int n, int window, int hd,
+                   int heads, int slots, int divide, int knockout, int device, void* stream) {
+  if (window % kRows || window / kRows < 1 || window / kRows > kMaxWindowBlocks ||
+      slots < 1 || slots > lanes::kMaxSlots || hd < 1 || hd > kMaxHD || heads < 1 ||
       heads > kMaxHeads || hd % heads || num_windows < 1)
     return int(cudaErrorInvalidValue);
-  cudaError_t err = cudaSetDevice(device);
+  int current = -1;
+  cudaError_t err = cudaGetDevice(&current);
+  if (err == cudaSuccess && current != device) err = cudaSetDevice(device);
   if (err != cudaSuccess) return int(err);
+  const Dims dm{n, window, hd, heads, slots, knockout};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    err = launch<float>(slot_stack, h, s_src, s_tgt, out, num_windows, n, window, hd,
-                        heads, slots, divide, s);
+    err = launch_shape<float>(slot_stack, h, s_src, s_tgt, out, num_windows, divide, dm, s);
   else if (dtype == 1)
-    err = launch<__nv_bfloat16>(slot_stack, h, s_src, s_tgt, out, num_windows, n,
-                                window, hd, heads, slots, divide, s);
+    err = launch_shape<__nv_bfloat16>(slot_stack, h, s_src, s_tgt, out, num_windows, divide, dm, s);
   else
     err = cudaErrorInvalidValue;
   return int(err);

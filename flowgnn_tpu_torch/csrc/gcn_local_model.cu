@@ -63,8 +63,8 @@ long long gcn_ell_smem_bytes(int dtype, int d, int vocab, int gmax, int tout, in
 // once. Returns a cudaError_t.
 int gcn_ell_occupancy(int dtype, int window, int d, int vocab, int gmax, int tout, int stages,
                       int device, int* out) {
-  return gcn_model::occupancy<lanes::Ell>(dtype, window, d, vocab, gmax, tout, stages, device,
-                                          out);
+  return gcn_model::occupancy<false, lanes::Ell>(dtype, window, d, vocab, gmax, tout, stages,
+                                                 device, out);
 }
 
 // dtype: 0 = float32, 1 = bfloat16 (h0, dis, tables, roots, alphas, betas,
@@ -82,9 +82,9 @@ int gcn_ell_launch(int dtype, const void* meta, const void* h0, const void* dis,
                    int device, void* stream) {
   if (block < 0) return int(cudaErrorInvalidValue);
   const gcn_model::Dims dm{n, window, d, layers, vocab, gmax, tout, stages, knockout};
-  return gcn_model::launch(dtype, lanes::Ell{static_cast<const int*>(meta), block}, h0, dis,
-                           pool_gl, tab, roots, alphas, betas, wn, bn, predw, tiles, out,
-                           num_windows, dm, device, stream);
+  return gcn_model::launch<false>(dtype, lanes::Ell{static_cast<const int*>(meta), block}, h0,
+                                  dis, pool_gl, tab, roots, alphas, betas, wn, bn, predw, tiles,
+                                  out, nullptr, num_windows, dm, device, stream);
 }
 
 const char* gcn_ell_error_string(int code) {

@@ -64,8 +64,8 @@ long long gcn_slots_smem_bytes(int dtype, int d, int vocab, int gmax, int tout, 
 // What the occupancy calculator says of a launch, as gcn_ell_occupancy.
 int gcn_slots_occupancy(int dtype, int window, int d, int vocab, int gmax, int tout, int stages,
                         int device, int* out) {
-  return gcn_model::occupancy<lanes::Slots>(dtype, window, d, vocab, gmax, tout, stages, device,
-                                            out);
+  return gcn_model::occupancy<false, lanes::Slots>(dtype, window, d, vocab, gmax, tout, stages,
+                                                   device, out);
 }
 
 // dtype: 0 = float32, 1 = bfloat16 (h0, dis, tables, roots, alphas, betas,
@@ -84,8 +84,8 @@ int gcn_slots_launch(int dtype, const void* meta, const void* h0, const void* di
   lanes::Slots walk;
   if (!lanes::make_slots(walk, meta, half, caps, slots, window)) return int(cudaErrorInvalidValue);
   const gcn_model::Dims dm{n, window, d, layers, vocab, gmax, tout, stages, knockout};
-  return gcn_model::launch(dtype, walk, h0, dis, pool_gl, tab, roots, alphas, betas, wn, bn,
-                           predw, tiles, out, num_windows, dm, device, stream);
+  return gcn_model::launch<false>(dtype, walk, h0, dis, pool_gl, tab, roots, alphas, betas, wn,
+                                  bn, predw, tiles, out, nullptr, num_windows, dm, device, stream);
 }
 
 const char* gcn_slots_error_string(int code) {

@@ -1,9 +1,13 @@
-// The GCN whole-model kernel for Hopper (sm_90a), templated on its message
-// stage: row 9 (gcn_local_model.cu, the k = 1 ELL layout) and row 2
-// (gcn_local_model_slots.cu, the degree-sorted slot layout) are its two
-// instantiations. Output: [NW*GMAX, T] float32 per-window pool sums of the
-// prediction head, for all L GCN layers after the conv-0 matmul plus the
-// finalize, in one launch.
+// The GCN kernel for Hopper (sm_90a), templated on its output and on its
+// message stage: row 9 (gcn_local_model.cu, the k = 1 ELL layout) and row 2
+// (gcn_local_model_slots.cu, the degree-sorted slot layout) are its
+// whole-model instantiations, with output [NW*GMAX, T] float32 per-window
+// pool sums of the prediction head, for all L GCN layers after the conv-0
+// matmul plus the finalize, in one launch; row 15 (gcn_local_layer_ell.cu,
+// the ELL layout with any k edge blocks a window, no spill tail) is its
+// one-layer form, with output h' [n, D] in h's type: the next conv's output
+// rnd(rnd(relu(x)) . w_next + b_next), or on the last layer (no w_next)
+// rnd(x).
 //
 // Per layer l, for window row v and its lanes u -> v:
 //   msg = rnd(dis_u * relu(h_u + ee_l))        ee_l: three bond-table rows
@@ -11,7 +15,8 @@
 //   a   = acc * dis_v + relu(h_v + root_l) * dis_v^2
 //   x   = alpha_l * a + beta_l                 (BatchNorm folded on the host)
 // then h = rnd(rnd(relu(x)) . wn_l + bn_l) between layers, and after the last
-// layer the head pools rnd(x) . pred_w (no relu; _pool_epilogue).
+// layer the head pools rnd(x) . pred_w (no relu; _pool_epilogue). The
+// one-layer form runs layer l = 0 of its operands and writes h' out.
 //
 // The message stage (the template parameter Msg, one of lanes.cuh's walks)
 // calls f(u, a1, a2, a3) for each lane of a block row in the layout's order;
@@ -33,7 +38,13 @@
 // graph that spans blocks is a per-block partial reduced across the cluster
 // in rank order through distributed shared memory: deterministic, and
 // summed in another order than the plain version, which the f32
-// comparisons allow for at 1e-4 of the output's scale.
+// comparisons allow for at 1e-4 of the output's scale. The one-layer form
+// keeps h as it is: it stages h' in the conv input's buffer once the conv
+// has read it and writes it out as the block's contiguous run of rows (the
+// last layer writes rnd(x) straight from the messages), so its two cluster
+// barriers are the layer's first (h is in place before any gather) and one
+// before a block exits (no block's shared memory may end while another
+// still reads its h).
 //
 // The two forms run the next conv differently:
 // - bfloat16 (N = 104 or 112, the product's width) on the tensor cores
@@ -49,6 +60,11 @@
 //   keeps the registers at 128), so twice the clusters run at once;
 // - float32 keeps register-tiled FMA (TF32 would break the f32 gate of
 //   1e-4), wn_l staged per layer in f32: 151 KB, one block an SM.
+// The one-layer form streams its one layer's chunks (the model's slice of
+// every layer's, ops.local_layer.gcn_conv_tiles) through the same ring and
+// has no pool head: 92 KB at D = 100 and S = 4 in bf16, two blocks an SM;
+// in f32 it streams w_next through shared memory in chunks of kWC input
+// channels, 113 KB at D = 100, two blocks an SM too (one at D = 112).
 // The shared-memory carve-up (smem_layout) is computed once on the host and
 // passed as a kernel parameter (computed in the kernel, it cost row 8's f32
 // form 10-17%: PERF.md).
@@ -87,6 +103,7 @@ constexpr int kRowsPT = kRows / kTR;   // rows per thread (8)
 constexpr int kColsPT = 7;             // output columns per thread
 constexpr int kMaxD = kTC * kColsPT;   // widest D the tile covers (112)
 constexpr int kLaneP = (kMaxD / 2 + 31) / 32;  // column pairs per lane in the messages
+constexpr int kWC = 8;                 // f32 one-layer form: input channels per weight chunk
 constexpr int kNoProduct = 1, kNoMessages = 2;  // Dims::knockout bits
 
 static_assert(kRows == lw::kRows && kThreads == lw::kThreads, "the wgmma product's block shape");
@@ -102,14 +119,18 @@ __host__ __device__ inline int conv_n(int d) { return d <= 104 ? 104 : 112; }
 // Shared-memory carve-up of one block, byte offsets. wg: the bf16 (wgmma)
 // form, whose h and x are bf16 and which holds the weight ring (ring, bars);
 // the f32 form stages wn_l in w.
+// head: the whole-model form's pool head (part, gl, rows, gstart, and the
+// head's outputs and CSR cursor in w); the one-layer form has none.
 struct Smem {
   size_t h, x, w, part, tab, vec, dis, gl, rows, gstart, lo, ring, bars, total;
 };
 
-inline Smem smem_layout(bool wg, int d, int vocab, int gmax, int tout, int stages) {
+inline Smem smem_layout(bool wg, int d, int vocab, int gmax, int tout, int stages,
+                        bool head = true) {
   const size_t D = d;
   const lw::Geom lg = lw::geom(d, conv_n(d));
-  size_t wbuf = wg ? 0 : D * D * 4;                                     // next-conv weights
+  if (!head) gmax = tout = 0;
+  size_t wbuf = wg ? 0 : (head ? D : size_t(kWC)) * D * 4;               // next-conv weights
   if (size_t(kRows) * tout * 4 > wbuf) wbuf = size_t(kRows) * tout * 4;  // head outputs
   if (size_t(gmax) * 4 > wbuf) wbuf = size_t(gmax) * 4;                  // CSR cursor
   Smem s;
@@ -126,9 +147,9 @@ inline Smem smem_layout(bool wg, int d, int vocab, int gmax, int tout, int stage
   s.tab = take(size_t(vocab) * D * 4);
   s.vec = take(3 * D * 4);
   s.dis = take(kRows * 4);
-  s.gl = take(kRows * 4);
-  s.rows = take(kRows * 4);
-  s.gstart = take((gmax + 1) * 4);
+  s.gl = take(head ? kRows * 4 : 0);
+  s.rows = take(head ? kRows * 4 : 0);
+  s.gstart = take(head ? (gmax + 1) * 4 : 0);
   s.lo = take((kRows + 1) * 4);
   s.ring = take(wg ? size_t(stages) * lg.chunk_bytes : 0);
   s.bars = take(wg ? size_t(stages) * 8 : 0);
@@ -172,18 +193,22 @@ __device__ __forceinline__ const float* bond_row(const float* tab_s, int a, int 
 
 // N = 0: the float32 form (FMA conv); N = 104 or 112: the bf16 form with the
 // wgmma conv of that width. tiles: the bf16 form's packed weight chunks
-// (linear_wgmma.cuh), layers 1..L-1 in order. lay: the shared-memory
-// carve-up, computed once on the host (smem_layout).
-template <typename T, int N, typename Msg>
-__global__ void __launch_bounds__(kThreads, N > 0 ? 2 : 1)
+// (linear_wgmma.cuh), layers 1..L-1 in order (the one-layer form: its next
+// conv's). kLayer: the one-layer form (dm.layers = 1), which writes h' to
+// h_out (pool_gl, predw and out unused; wn null: the last layer, no conv);
+// otherwise the whole model with its pool head into out. lay: the
+// shared-memory carve-up, computed once on the host (smem_layout).
+template <typename T, int N, bool kLayer, typename Msg>
+__global__ void __launch_bounds__(kThreads, N > 0 || kLayer ? 2 : 1)
 gcn_model_kernel(Msg msg, const T* __restrict__ h0, const T* __restrict__ dis,
                  const int* __restrict__ pool_gl, const T* __restrict__ tab,
                  const T* __restrict__ roots, const T* __restrict__ alphas,
                  const T* __restrict__ betas, const T* __restrict__ wn,
                  const T* __restrict__ bn, const T* __restrict__ predw,
-                 const unsigned char* __restrict__ tiles, float* __restrict__ out, Dims dm,
-                 Smem lay) {
+                 const unsigned char* __restrict__ tiles, float* __restrict__ out,
+                 T* __restrict__ h_out, Dims dm, Smem lay) {
   constexpr bool kWg = N > 0;
+  const bool final_layer = kLayer && wn == nullptr;  // the one-layer form's last layer
   using S = T;  // h and x in shared memory
   extern __shared__ __align__(128) unsigned char smem[];
   cg::cluster_group cluster = cg::this_cluster();
@@ -207,8 +232,9 @@ gcn_model_kernel(Msg msg, const T* __restrict__ h0, const T* __restrict__ dis,
   int* lo_s = reinterpret_cast<int*>(smem + lay.lo);          // [kRows+1] the message stage's
   const lw::Geom lg = lw::geom(D, kWg ? N : 8);
   const lw::Ring ring{smem + lay.ring, reinterpret_cast<uint64_t*>(smem + lay.bars), tiles,
-                      dm.stages, (dm.layers - 1) * lg.chunks, lg.chunk_bytes};
-  const bool do_conv = !(dm.knockout & kNoProduct), do_msg = !(dm.knockout & kNoMessages);
+                      dm.stages, (kLayer ? 1 : dm.layers - 1) * lg.chunks, lg.chunk_bytes};
+  const bool do_conv = !(dm.knockout & kNoProduct) && !final_layer;
+  const bool do_msg = !(dm.knockout & kNoMessages);
   // x's element (r, c): row-major, or the wgmma A layout.
   auto x_at = [&](int r, int c) { return kWg ? lw::a_index(r, c) : r * D + c; };
 
@@ -228,7 +254,7 @@ gcn_model_kernel(Msg msg, const T* __restrict__ h0, const T* __restrict__ dis,
     h_s[i] = store<S>(row0 + r < dm.n ? ld(h0 + (row0 + r) * D + (i - r * D)) : 0.f);
   }
   for (int r = tid; r < kRows; r += kThreads) {
-    gl_s[r] = pool_gl[row0 + r];
+    if constexpr (!kLayer) gl_s[r] = pool_gl[row0 + r];
     dis_s[r] = row0 + r < dm.n ? ld(dis + row0 + r) : 0.f;
   }
   msg.prepare(win, rank, tid, lo_s);
@@ -236,7 +262,7 @@ gcn_model_kernel(Msg msg, const T* __restrict__ h0, const T* __restrict__ dis,
   if constexpr (kWg) {
     if (tid == 0 && do_conv) ring.prefetch();  // the first S weight chunks, while the layers set up
   }
-  if (tid == 0) {
+  if (!kLayer && tid == 0) {
     // Group the block's rows by graph (ascending row order within a graph):
     // the readout then sums each graph's rows in a fixed order.
     int* cursor = reinterpret_cast<int*>(w_s);
@@ -253,7 +279,7 @@ gcn_model_kernel(Msg msg, const T* __restrict__ h0, const T* __restrict__ dis,
 
   const int warp = tid / 32, lane = tid % 32;
   for (int l = 0; l < dm.layers; ++l) {
-    const bool last = l == dm.layers - 1;
+    const bool last = kLayer ? final_layer : l == dm.layers - 1;
     // Every block's h is in place before any block gathers from it.
     cluster.sync();
     const T* tab_l = tab + long(l) * dm.vocab * D;
@@ -263,7 +289,7 @@ gcn_model_kernel(Msg msg, const T* __restrict__ h0, const T* __restrict__ dis,
       alpha_s[i] = ld(alphas + long(l) * D + i);
       beta_s[i] = ld(betas + long(l) * D + i);
     }
-    if constexpr (!kWg) {
+    if constexpr (!kWg && !kLayer) {
       if (!last && do_conv) {
         const T* wn_l = wn + long(l) * D * D;
         for (int i = tid; i < D * D; i += kThreads) w_s[i] = ld(wn_l + i);
@@ -314,21 +340,37 @@ gcn_model_kernel(Msg msg, const T* __restrict__ h0, const T* __restrict__ dis,
           const float x = __fadd_rn(__fmul_rn(alpha_s[c + k], a), beta_s[c + k]);
           xs[k] = last ? rnd<T>(x) : rnd<T>(fmaxf(x, 0.f));
         }
-        st2(x_s + x_at(r, c), xs[0], xs[1]);
+        if (kLayer && last) {  // the one-layer form's last layer: rnd(x) out
+          if (row0 + r < dm.n) st2(h_out + (row0 + r) * D + c, xs[0], xs[1]);
+        } else {
+          st2(x_s + x_at(r, c), xs[0], xs[1]);
+        }
       }
+    }
+    if (kLayer && last && !do_msg) {  // timing only: a defined output
+      const long rows = dm.n - row0 < kRows ? dm.n - row0 : kRows;
+      for (long i = tid; i < rows * D; i += kThreads) h_out[row0 * D + i] = store<T>(0.f);
     }
     if (last) break;
     if constexpr (kWg) fence_proxy_async();  // x, written here, is read by wgmma
-    // No block reads this block's h any more.
-    cluster.sync();
+    if constexpr (kLayer) {
+      __syncthreads();  // x is complete; h stays as it is
+    } else {
+      cluster.sync();  // no block reads this block's h any more
+    }
     if (!do_conv) continue;
 
-    // Next conv over the block's rows: h = rnd(x . wn_l + bn_l).
+    // Next conv over the block's rows: h = rnd(x . wn_l + bn_l), in place, or
+    // h' staged over x once every thread has read it (the one-layer form).
     const T* bn_l = bn + long(l) * D;
+    S* hn_s = kLayer ? x_s : h_s;  // [kRows][D]
     if constexpr (kWg) {
       float o[N / 2];
       lw::run<N>(o, reinterpret_cast<const __nv_bfloat16*>(x_s), ring, l * lg.chunks, lg.chunks, tid);
-      lw::for_each<N>(o, D, tid, [&](int r, int c, float v) { h_s[r * D + c] = store<S>(v + ld(bn_l + c)); });
+      if constexpr (kLayer) __syncthreads();  // both warpgroups' products have read x
+      lw::for_each<N>(o, D, tid, [&](int r, int c, float v) {
+        hn_s[r * D + c] = store<S>(v + ld(bn_l + c));
+      });
     } else {
       // Each thread owns kRowsPT x kColsPT outputs in registers.
       const int tr = tid / kTC, tc = tid % kTC;
@@ -337,30 +379,58 @@ gcn_model_kernel(Msg msg, const T* __restrict__ h0, const T* __restrict__ dis,
       for (int i = 0; i < kRowsPT; ++i)
 #pragma unroll
         for (int m = 0; m < kColsPT; ++m) o[i][m] = 0.f;
-      for (int k = 0; k < D; ++k) {
-        float a[kRowsPT], wv[kColsPT];
+      // o += x[:, k0 .. k0+kn) . w_c, w_c the weights' rows k0 .. k0+kn.
+      auto fma_rows = [&](const float* w_c, int k0, int kn) {
+        for (int kk = 0; kk < kn; ++kk) {
+          float a[kRowsPT], wv[kColsPT];
 #pragma unroll
-        for (int i = 0; i < kRowsPT; ++i) a[i] = val(x_s[(tr + kTR * i) * D + k]);
+          for (int i = 0; i < kRowsPT; ++i) a[i] = val(x_s[(tr + kTR * i) * D + k0 + kk]);
 #pragma unroll
-        for (int m = 0; m < kColsPT; ++m) {
-          const int c = tc + kTC * m;
-          wv[m] = c < D ? w_s[k * D + c] : 0.f;
+          for (int m = 0; m < kColsPT; ++m) {
+            const int c = tc + kTC * m;
+            wv[m] = c < D ? w_c[kk * D + c] : 0.f;
+          }
+#pragma unroll
+          for (int i = 0; i < kRowsPT; ++i)
+#pragma unroll
+            for (int m = 0; m < kColsPT; ++m) o[i][m] = fmaf(a[i], wv[m], o[i][m]);
         }
-#pragma unroll
-        for (int i = 0; i < kRowsPT; ++i)
-#pragma unroll
-          for (int m = 0; m < kColsPT; ++m) o[i][m] = fmaf(a[i], wv[m], o[i][m]);
+      };
+      if constexpr (kLayer) {
+        // w_next streamed in chunks of kWC input channels: h and x alone
+        // take 102 KB at D = 100, and so two blocks fit an SM.
+        for (int kc = 0; kc < D; kc += kWC) {
+          const int kn = D - kc < kWC ? D - kc : kWC;
+          __syncthreads();  // the last chunk is consumed
+          for (int i = tid; i < kn * D; i += kThreads) w_s[i] = ld(wn + long(kc) * D + i);
+          __syncthreads();
+          fma_rows(w_s, kc, kn);
+        }
+      } else {
+        fma_rows(w_s, 0, D);  // wn_l, staged whole with the layer's tables
       }
+      if constexpr (kLayer) __syncthreads();  // every thread has read x
 #pragma unroll
       for (int i = 0; i < kRowsPT; ++i)
 #pragma unroll
         for (int m = 0; m < kColsPT; ++m) {
           const int r = tr + kTR * i, c = tc + kTC * m;
-          if (c < D) h_s[r * D + c] = store<S>(rnd<T>(o[i][m] + ld(bn_l + c)));
+          if (c < D) hn_s[r * D + c] = store<S>(rnd<T>(o[i][m] + ld(bn_l + c)));
         }
     }
   }
   __syncthreads();
+
+  if constexpr (kLayer) {
+    // h' out: the block's real rows, one contiguous run of h_out (the last
+    // layer wrote its rows from the messages).
+    if (!final_layer) {
+      const long rows = dm.n - row0 < kRows ? dm.n - row0 : kRows;
+      for (long i = tid; i < rows * D; i += kThreads) h_out[row0 * D + i] = x_s[i];
+    }
+    cluster.sync();  // keep this block's h until no block of the cluster reads it
+    return;
+  }
 
   // Finalize: per-row head p = rnd(x) . pred_w, this block's per-graph sums
   // of p, then the cluster's sums, each block writing a share of the outputs.
@@ -389,12 +459,12 @@ gcn_model_kernel(Msg msg, const T* __restrict__ h0, const T* __restrict__ dis,
 }
 
 // Each form's kernel, by dtype code (0 = float32, 1 = bfloat16) and width.
-template <typename Msg, typename F>
+template <bool kLayer, typename Msg, typename F>
 cudaError_t with_kernel(int dtype, int d, F&& f) {
-  if (dtype == 0) return f(gcn_model_kernel<float, 0, Msg>, float{});
+  if (dtype == 0) return f(gcn_model_kernel<float, 0, kLayer, Msg>, float{});
   if (dtype == 1 && conv_n(d) == 104)
-    return f(gcn_model_kernel<__nv_bfloat16, 104, Msg>, __nv_bfloat16{});
-  if (dtype == 1) return f(gcn_model_kernel<__nv_bfloat16, 112, Msg>, __nv_bfloat16{});
+    return f(gcn_model_kernel<__nv_bfloat16, 104, kLayer, Msg>, __nv_bfloat16{});
+  if (dtype == 1) return f(gcn_model_kernel<__nv_bfloat16, 112, kLayer, Msg>, __nv_bfloat16{});
   return cudaErrorInvalidValue;
 }
 
@@ -416,15 +486,15 @@ inline void conv_dims(int d, int* dims) {
 // What the occupancy calculator says of a launch: out[0] the blocks of the
 // form that fit one SM, out[1] the clusters of W/128 blocks that run at
 // once (cudaOccupancyMaxActiveClusters). Returns a cudaError_t.
-template <typename Msg>
+template <bool kLayer, typename Msg>
 int occupancy(int dtype, int window, int d, int vocab, int gmax, int tout, int stages,
               int device, int* out) {
   const int layers = 2;
   if (bad_geometry(dtype, window, d, layers, stages)) return int(cudaErrorInvalidValue);
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return int(err);
-  const size_t bytes = smem_layout(dtype == 1, d, vocab, gmax, tout, stages).total;
-  return int(with_kernel<Msg>(dtype, d, [&](auto kernel, auto) {
+  const size_t bytes = smem_layout(dtype == 1, d, vocab, gmax, tout, stages, !kLayer).total;
+  return int(with_kernel<kLayer, Msg>(dtype, d, [&](auto kernel, auto) {
     ClusterLaunch ln;
     const cudaError_t e = cluster_launch(kernel, ln, 1, window / kRows, kThreads, bytes, nullptr);
     return e != cudaSuccess ? e : cluster_occupancy(kernel, ln, kThreads, bytes, out);
@@ -433,21 +503,24 @@ int occupancy(int dtype, int window, int d, int vocab, int gmax, int tout, int s
 
 // Checks the geometry and launches the form `dtype` names (0 = float32 with
 // the FMA conv, 1 = bfloat16 with the wgmma conv, which needs `tiles`, the
-// (L-1) layers' weight chunks as conv_dims gives them, and a ring of at
-// least two chunk buffers); returns a cudaError_t.
-template <typename Msg>
+// (L-1) layers' weight chunks as conv_dims gives them (the one-layer form:
+// its next conv's, unless wn is null), and a ring of at least two chunk
+// buffers); the whole model writes `out`, the one-layer form (kLayer,
+// layers = 1) `h_out`. Returns a cudaError_t.
+template <bool kLayer, typename Msg>
 int launch(int dtype, const Msg& msg, const void* h0, const void* dis, const void* pool_gl,
            const void* tab, const void* roots, const void* alphas, const void* betas,
            const void* wn, const void* bn, const void* predw, const void* tiles, void* out,
-           int num_windows, const Dims& dm, int device, void* stream) {
+           void* h_out, int num_windows, const Dims& dm, int device, void* stream) {
+  const bool conv = kLayer ? wn != nullptr : dm.layers > 1;
   if (bad_geometry(dtype, dm.window, dm.d, dm.layers, dm.stages) || num_windows < 1 ||
-      (dtype == 1 && dm.layers > 1 && tiles == nullptr))
+      (dtype == 1 && conv && tiles == nullptr) || (kLayer && (dm.layers != 1 || !h_out)))
     return int(cudaErrorInvalidValue);
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return int(err);
-  const Smem lay = smem_layout(dtype == 1, dm.d, dm.vocab, dm.gmax, dm.tout, dm.stages);
+  const Smem lay = smem_layout(dtype == 1, dm.d, dm.vocab, dm.gmax, dm.tout, dm.stages, !kLayer);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return int(with_kernel<Msg>(dtype, dm.d, [&](auto kernel, auto tag) {
+  return int(with_kernel<kLayer, Msg>(dtype, dm.d, [&](auto kernel, auto tag) {
     using T = decltype(tag);
     ClusterLaunch ln;
     cudaError_t e =
@@ -459,7 +532,7 @@ int launch(int dtype, const Msg& msg, const void* h0, const void* dis, const voi
                            static_cast<const T*>(alphas), static_cast<const T*>(betas),
                            static_cast<const T*>(wn), static_cast<const T*>(bn),
                            static_cast<const T*>(predw), static_cast<const unsigned char*>(tiles),
-                           static_cast<float*>(out), dm, lay);
+                           static_cast<float*>(out), static_cast<T*>(h_out), dm, lay);
     if (e != cudaSuccess) return e;
     return cudaGetLastError();
   }));

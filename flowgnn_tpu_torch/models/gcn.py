@@ -21,8 +21,9 @@ falls through to it.
 
 The per-layer ELL path has two forms. With no spill tail, after the conv-0
 ``linear`` each layer is one ``gcn_local_layer_ell`` launch (kernel table
-row 15: messages, root-embedding tail, folded BatchNorm, ReLU and the next
-conv). With one, each layer runs its conv ``linear``, the window-local
+row 15, the one-layer form of row 9's kernel: messages, root-embedding tail,
+folded BatchNorm, ReLU and the next conv, in bf16 from its slice of
+``conv_tiles``). With one, each layer runs its conv ``linear``, the window-local
 messages through ``gcn_local_message_ell`` (row 14) and the spill tail's
 norm-scaled messages, gathered by index and summed by the spill scatter
 (row 24); the tail is plain torch.
@@ -101,11 +102,11 @@ def slot_kernel_operands(params: dict, batch: dict, prec: Precision = FLOAT32) -
 
 
 def conv_tiles(params: dict, prec: Precision) -> Optional[torch.Tensor]:
-    """The bf16 whole-model kernels' next-conv weight chunks (rows 9 and
-    2), layers 1..L-1
+    """The bf16 next-conv weight chunks of rows 9 and 2 and, a layer's slice
+    each, of row 15: layers 1..L-1
     (``ops.local_layer.gcn_conv_tiles``: packed once per weight set, and
     again after an in-place update of the weights); None outside bf16, where
-    the kernel reads ``wn_all`` as it is."""
+    the kernels read the weights as they are."""
     if prec.compute_dtype != torch.bfloat16:
         return None
     return gcn_conv_tiles(params["conv_w"][1:])
@@ -132,8 +133,8 @@ def _ell_terms(params: dict, batch: dict, prec: Precision) -> dict:
     """What the per-layer ELL path computes once per forward: the lanes
     (``base.ell_meta``), the spill tail (``base.ell_spill``), out-degrees,
     degree norms and the spill lanes' norms dis_u·dis_v in the compute
-    dtype, the folded BatchNorm, and the next convs' weights as [L-1, in,
-    out]."""
+    dtype, the folded BatchNorm, the next convs' weights as [L-1, in, out]
+    and, with no spill tail, their bf16 chunks (``conv_tiles``)."""
     deg = out_degree(batch).to(prec.compute_dtype)
     dis = 1.0 / torch.sqrt(deg + 1)
     spill = _base.ell_spill(batch)
@@ -141,14 +142,16 @@ def _ell_terms(params: dict, batch: dict, prec: Precision) -> dict:
         meta=_base.ell_meta(batch), spill=spill, deg=deg, dis=dis,
         norm=None if spill is None else (dis[spill[0]] * dis[spill[1]])[:, None],
         folded=_folded_bn(params, prec), wn=params["conv_w"][1:].transpose(1, 2).contiguous(),
+        tiles=conv_tiles(params, prec) if spill is None else None,
     )
 
 
 def _layer_operands(params: dict, batch: dict, prec: Precision, l: int, h: torch.Tensor,
                     terms: dict) -> dict:
     """The keyword operands the per-layer ELL path hands
-    ``gcn_local_layer_ell`` (no spill tail) or ``gcn_local_message_ell``
-    (a spill tail) for layer ``l`` and its conv output ``h``."""
+    ``gcn_local_layer_ell`` (no spill tail; in bf16 with layer ``l``'s slice
+    of the next convs' chunks) or ``gcn_local_message_ell`` (a spill tail)
+    for layer ``l`` and its conv output ``h``."""
     ops = dict(ell_meta=terms["meta"], h=h, dis=terms["dis"],
                ee_table=params["edge_embedding"][l].to(prec.compute_dtype),
                window=_base.ell_geometry(batch)[0])
@@ -156,9 +159,11 @@ def _layer_operands(params: dict, batch: dict, prec: Precision, l: int, h: torch
         return ops
     alphas, betas = terms["folded"]
     last = l == params["conv_w"].shape[0] - 1
+    tiles = terms["tiles"]
     return dict(ops, root=params["root_emb"][l], alpha=alphas[l], beta=betas[l],
                 w_next=None if last else terms["wn"][l],
-                b_next=None if last else params["conv_b"][l + 1])
+                b_next=None if last else params["conv_b"][l + 1],
+                conv_tiles=None if last or tiles is None else tiles[l])
 
 
 def _spill_messages(params: dict, prec: Precision, l: int, h: torch.Tensor,

@@ -41,7 +41,9 @@ a spill tail (or one the whole-model kernel does not take):
   pre-reduced channels (``csrc/dgn_local_layer_slots.cu``), the one-layer
   form of ``dgn_local_model``'s kernel (``csrc/dgn_model.cuh``);
 - ``gat_local_message_slots``: GAT's softmax sums or messages
-  (``csrc/gat_local_message_slots.cu``), one block per window of 128 rows;
+  (``csrc/gat_local_message_slots.cu``: the message walk of
+  ``gat_local_message_ell``, ``csrc/gat_messages.cuh``, over the slot
+  rows), one block per 128 rows of a window of 128 to 1024 rows;
 - ``pna_local_layer``: a whole PNA layer over a slot batch with no spill
   tail (``csrc/pna_local_layer_slots.cu``), the one-layer form of
   ``pna_local_model``'s kernel (``csrc/pna_model.cuh``);
@@ -52,8 +54,8 @@ the last two one thread-block cluster of W/128 blocks per window of 128 to
 The per-layer ELL kernels run one layer per launch over the ELL layout with
 any number k of edge blocks per window (the k·B lanes of a window are one
 run sorted by destination row), at windows of 128 up to 1024 rows, one block
-per 128 rows (row 18: a thread-block cluster of W/128 blocks per window);
-h stays in device memory between layers:
+per 128 rows (rows 18 and 15: a thread-block cluster of W/128 blocks per
+window); h stays in device memory between layers:
 
 - ``gin_local_layer_ell``: a whole GIN / GIN-VN layer, messages, the spill
   tail's pre-summed ``m_spill`` and the MLP (``csrc/gin_local_layer_ell.cu``,
@@ -63,7 +65,8 @@ h stays in device memory between layers:
 - ``gcn_local_message_ell``: GCN's norm-scaled message sum
   (``csrc/gcn_local_message_ell.cu``);
 - ``gcn_local_layer_ell``: a whole GCN layer after its conv, up to the next
-  conv's output (``csrc/gcn_local_layer_ell.cu``);
+  conv's output (``csrc/gcn_local_layer_ell.cu``: the one-layer form of
+  ``gcn_local_model``'s kernel, ``csrc/gcn_model.cuh``);
 - ``dgn_local_layer_ell``: a whole DGN layer with no spill tail
   (``csrc/dgn_local_layer_ell_model.cu``: the one-layer form of
   ``dgn_local_model``'s kernel, ``csrc/dgn_model.cuh``, with the ELL lane
@@ -97,8 +100,8 @@ edge-block layer ``gin_layer_fused`` is in ``ops.fused_layer``.
 The three GIN kernels of rows 1, 8 and 13 run their bf16 update MLP on the
 tensor cores through one routine (``csrc/gin_mlp.cuh``: ``wgmma``, the
 weights streamed in chunks of 32 hidden units through a ring of bulk copies)
-and their f32 MLP as FMA on the CUDA cores. Rows 9, 2, 3, 4, 5, 20, 22, 18
-and 23 run their bf16 products (GCN's next conv, PNA's tower, DGN's
+and their f32 MLP as FMA on the CUDA cores. Rows 9, 2, 15, 3, 4, 5, 20, 22,
+18 and 23 run their bf16 products (GCN's next conv, PNA's tower, DGN's
 posttrans, GAT's glue and its fused layer's skip and projection) through
 another, one product of 128 rows
 (``csrc/linear_wgmma.cuh``, the weights in chunks of 32 input channels
@@ -999,6 +1002,7 @@ def gcn_local_layer_ell_ref(
     w_next: Optional[torch.Tensor],  # [D, D] next conv weight as [in, out], None on the last layer
     b_next: Optional[torch.Tensor],  # [D] next conv bias, None on the last layer
     window: int,
+    conv_tiles: Optional[torch.Tensor] = None,  # the kernel's packed weights; not read here
 ) -> torch.Tensor:
     """Plain-torch ``gcn_local_layer_ell``: [n, D] in h's dtype. Per window
     row v: a = dis_v·Σ rnd(dis_u·relu(h_u + ee)) + relu(h_v + root)·dis_v²
@@ -1172,7 +1176,8 @@ def _library(name: str) -> dict:
     ``_max_d`` and ``_max_slots``, a whole-model ELL library ``_max_d``,
     ``_rows_per_block`` and ``_max_cluster``, a per-layer ELL library
     ``_max_d``, ``_rows_per_block`` and ``_max_window_blocks`` (GAT's also
-    ``_max_heads``), as do the legacy local and fused edge-block layers. The
+    ``_max_heads``), as do the legacy local and fused edge-block layers and
+    GAT's per-layer slot library (row 21; also ``_max_slots``). The
     GIN and PNA slot libraries also export ``_rows_per_block`` and
     ``_max_cluster``, as do the GCN, DGN and GAT slot libraries and the
     per-layer PNA and DGN slot libraries (rows 20 and 22); the libraries
@@ -1180,10 +1185,10 @@ def _library(name: str) -> dict:
     (``GIN_LAYER_LIBRARIES``: rows 13, 10 / 12 and 25) and row 23
     ``_smem_per_sm``, ``_prepare`` and ``_occupancy`` (row 23 also
     ``_tile_dims``), and the users of ``csrc/linear_wgmma.cuh`` the geometry
-    of their weight chunks (rows 9 and 2 ``_conv_dims``, rows 3 and 20
+    of their weight chunks (rows 9, 2 and 15 ``_conv_dims``, rows 3 and 20
     ``_tower_dims``, rows 4, 22 and 18 ``_posttrans_dims``, row 5
     ``_glue_dims``), those that keep two
-    blocks an SM (rows 9, 2, 4, 5, 22 and 18) and row 20 also
+    blocks an SM (rows 9, 2, 15, 4, 5, 22 and 18) and row 20 also
     ``_smem_per_sm`` and ``_occupancy``."""
     slot_getters = ("max_d", "max_slots")
     ell_getters = ("max_d", "rows_per_block", "max_cluster")
@@ -1226,8 +1231,8 @@ def _library(name: str) -> dict:
             [_I32] + [_PTR] * 11 + [_I32] * 8 + [_PTR],
         ),
         "gat_local_message_slots": (
-            "gat_msg", slot_getters, [_I32] * 4,
-            [_I32] + [_PTR] * 5 + [_I32] * 7 + [_I32, _PTR],
+            "gat_msg", layer_getters + ("max_slots", "max_heads"), [_I32] * 2,
+            [_I32] + [_PTR] * 5 + [_I32] * 8 + [_I32, _PTR],
         ),
         "windowed_segment_sum": (
             "wss", (), [_I32],
@@ -1242,8 +1247,8 @@ def _library(name: str) -> dict:
             [_I32] + [_PTR] * 5 + [_I32] * 6 + [_I32, _PTR],
         ),
         "gcn_local_layer_ell": (
-            "gcn_layer_ell", layer_getters, [_I32] * 2,
-            [_I32] + [_PTR] * 10 + [_I32] * 6 + [_I32, _PTR],
+            "gcn_layer_ell", layer_getters, [_I32] * 4,
+            [_I32] + [_PTR] * 11 + [_I32] * 8 + [_I32, _PTR],
         ),
         "pna_local_layer_slots": (
             "pna_layer", slot_getters + ("rows_per_block", "max_cluster"), [_I32] * 3,
@@ -1312,6 +1317,8 @@ def _library(name: str) -> dict:
                                   ("occupancy", [_I32] * 5 + [_INT_P], _I32)),
         "dgn_local_layer_ell_model": (per_sm, ("posttrans_dims", [_I32, _INT_P], None),
                                       ("occupancy", [_I32] * 5 + [_INT_P], _I32)),
+        "gcn_local_layer_ell": (per_sm, ("conv_dims", [_I32, _INT_P], None),
+                                ("occupancy", [_I32] * 6 + [_INT_P], _I32)),
         "gat_local_model_slots": (per_sm, ("glue_dims", [_I32, _INT_P], None),
                                   ("occupancy", [_I32] * 8 + [_INT_P], _I32)),
     }
@@ -1728,6 +1735,15 @@ def pna_layer_tiles(w_cat: torch.Tensor) -> torch.Tensor:
     return pna_tower_tiles(w_cat.view(1, 4 * d, 3, d).permute(0, 2, 3, 1))[0]
 
 
+def gcn_layer_tiles(w_next: torch.Tensor) -> torch.Tensor:
+    """Row 15's next-conv chunks of one layer, [C, 32·N], packed once per
+    weight set: ``gcn_conv_tiles`` of the layer's right-multiplied ``w_next``
+    [D, D] (= [in, out]) as a one-layer stack. The model hands over its
+    slice of every layer's chunks instead (``gcn.conv_tiles``)."""
+    d = w_next.shape[0]
+    return gcn_conv_tiles(w_next.view(1, d, d).transpose(1, 2))[0]
+
+
 def dgn_layer_tiles(w_post: torch.Tensor) -> torch.Tensor:
     """Row 22's posttrans chunks of one layer, [C, 32·N], packed once per
     weight set: ``dgn_posttrans_tiles`` of the layer's right-multiplied
@@ -2046,20 +2062,21 @@ def _two_block_stages(kernel: str, lib, code: int, geometry: tuple, gmax: int, t
 def occupancy(kernel: str, dtype: torch.dtype, window: int, geometry: tuple, gmax: int,
               t_out: int, device) -> dict:
     """What the occupancy calculator says of the cluster kernel ``kernel``
-    (the libraries of rows 9, 2, 4 and 5, and of rows 20, 22 and 18) in
+    (the libraries of rows 9, 2, 4 and 5, and of rows 20, 22, 18 and 15) in
     ``dtype`` at this geometry on ``device`` (the launch's own ring depth):
     the block's shared memory, the blocks of that form one SM holds, and the
     clusters of W/128 blocks that run at once. ``geometry``: (D, vocab) for
-    GCN, (D,) for DGN and rows 20, 22 and 18, (H·D, heads) for GAT; rows
-    20, 22 and 18 have no pool head and ignore ``gmax`` and ``t_out``."""
+    GCN and row 15, (D,) for DGN and rows 20, 22 and 18, (H·D, heads) for
+    GAT; rows 20, 22, 18 and 15 have no pool head and ignore ``gmax`` and
+    ``t_out``."""
     code = _dtype_code(dtype)
     dev = torch.device(device)
     lib = _library(kernel)
     out = (ctypes.c_int * 2)()
     if kernel in _LAYER_PRODUCTS:
-        stages = _layer_ring(kernel, lib, code, geometry[0], dev)
-        smem = lib["smem_bytes"](code, geometry[0], stages)
-        rc = lib["occupancy"](code, window, geometry[0], stages, dev.index, out)
+        stages = _layer_ring(kernel, lib, code, geometry, dev)
+        smem = lib["smem_bytes"](code, *geometry, stages)
+        rc = lib["occupancy"](code, window, *geometry, stages, dev.index, out)
     else:
         stages = _two_block_stages(kernel, lib, code, geometry, gmax, t_out, dev)
         smem = lib["smem_bytes"](code, *geometry, gmax, t_out, stages)
@@ -2460,40 +2477,48 @@ _LAYER_PRODUCTS = {
     "pna_local_layer_slots": ("tower_dims", lambda d: (4 * d, 3 * PNA_PITCH)),
     "dgn_local_layer_slots": ("posttrans_dims", lambda d: (2 * d, gcn_conv_n(d))),
     "dgn_local_layer_ell_model": ("posttrans_dims", lambda d: (2 * d, gcn_conv_n(d))),
+    "gcn_local_layer_ell": ("conv_dims", lambda d: (d, gcn_conv_n(d))),
 }
 
 
-def _layer_ring(name: str, lib, code: int, d: int, dev) -> int:
-    """The bf16 weight ring of the one-layer kernels (0 in f32): rows 22
-    and 18 (``dgn_local_layer_slots``, ``dgn_local_layer_ell_model``) the
-    deepest that keeps two blocks an SM, as row 4; row 20
-    (``pna_local_layer_slots``) the deepest that fits a block, as row 3
-    (its stats alone take 80 KB at D = 80: one block an SM)."""
+def _layer_ring(name: str, lib, code: int, geometry: tuple, dev) -> int:
+    """The bf16 weight ring of the one-layer kernels (0 in f32) at
+    ``geometry`` ((D,), or row 15's (D, vocab)): rows 22, 18 and 15
+    (``dgn_local_layer_slots``, ``dgn_local_layer_ell_model``,
+    ``gcn_local_layer_ell``) the deepest that keeps two blocks an SM, as
+    rows 4 and 9; row 20 (``pna_local_layer_slots``) the deepest that fits a
+    block, as row 3 (its stats alone take 80 KB at D = 80: one block an
+    SM)."""
     if code == 0:
         return 0
-    chunks = linear_geometry(*_LAYER_PRODUCTS[name][1](d))[1]
+    chunks = linear_geometry(*_LAYER_PRODUCTS[name][1](geometry[0]))[1]
     budget = (lib["smem_optin"](dev.index) if name == "pna_local_layer_slots"
               else _two_blocks_budget(lib, dev))
-    return ring_stages(lambda stages: lib["smem_bytes"](code, d, stages), chunks, budget)
+    return ring_stages(lambda stages: lib["smem_bytes"](code, *geometry, stages), chunks, budget)
 
 
 @functools.cache
-def _layer_plan(name: str, code: int, d: int, slots: int, window: int, device: int) -> tuple:
-    """The launch plan of rows 20, 22 and 18 (``slots`` 0: row 18's ELL
-    lanes) at this geometry on CUDA device ``device``, worked out once per
-    geometry (a launch is tens of µs, and these checks take the library's
-    getters): (the weight ring, the block's shared memory). Raises before
-    launch on what the clusters (whole blocks of 128 rows, at most 8), the
-    tile, the slot depth or the card's shared memory do not take, or a
-    product geometry the host does not share; a refusal is not cached."""
+def _layer_plan(name: str, code: int, d: int, slots: int, window: int, device: int,
+                vocab: int = 0) -> tuple:
+    """The launch plan of rows 20, 22, 18 and 15 (``slots`` 0: rows 18 and
+    15's ELL lanes; ``vocab``: row 15's bond table) at this geometry on CUDA
+    device ``device``, worked out once per geometry (a launch is tens of µs,
+    and these checks take the library's getters): (the weight ring, the
+    block's shared memory). Raises before launch on what the clusters (whole
+    blocks of 128 rows, at most 8), the tile (row 15: an even D), the slot
+    depth or the card's shared memory do not take, or a product geometry the
+    host does not share; a refusal is not cached."""
     lib = _library(name)
     dev = torch.device("cuda", device)
     _check_tile(lib, d)
+    geometry = (d, vocab) if name == "gcn_local_layer_ell" else (d,)
+    if name == "gcn_local_layer_ell" and d % 2:
+        raise ValueError(f"D={d}: the kernel's tile takes an even D")
     if code == 1:
         dims_fn, kn = _LAYER_PRODUCTS[name]
         _check_linear_dims(lib, dims_fn, d, *kn(d))
-    stages = _layer_ring(name, lib, code, d, dev)
-    smem = lib["smem_bytes"](code, d, stages)
+    stages = _layer_ring(name, lib, code, geometry, dev)
+    smem = lib["smem_bytes"](code, *geometry, stages)
     _check_ell_geometry(lib, d, window, smem, dev)
     if slots:
         _check_geometry(lib, d, slots, (window,), window, smem, dev)
@@ -2501,7 +2526,7 @@ def _layer_plan(name: str, code: int, d: int, slots: int, window: int, device: i
 
 
 def _layer_tiles(name: str, d: int, tiles, pack, dev) -> torch.Tensor:
-    """Rows 20, 22 and 18's bf16 weight chunks of one layer: ``tiles`` as
+    """Rows 20, 22, 18 and 15's bf16 weight chunks of one layer: ``tiles`` as
     given, or packed here (``pack()``), checked as [C, 32·N]."""
     _, chunks, elems = linear_geometry(*_LAYER_PRODUCTS[name][1](d))
     if tiles is None:
@@ -2635,8 +2660,25 @@ dgn_local_layer_slots.launches = 0
 dgn_local_layer_slots.stages = 0
 
 
-def _launch_gat_message(slot_stack, h, s_src, s_tgt, window, slots, num_heads,
-                        divide) -> torch.Tensor:
+@functools.cache
+def _gat_message_plan(hd: int, heads: int, slots: int, window: int, device: int) -> int:
+    """Row 21's launch plan at this geometry on CUDA device ``device``,
+    worked out once per geometry: the block's shared memory (none). Raises
+    before launch on what the window (whole blocks of 128 rows, at most 8),
+    the tile, the heads, the slot depth or the card's shared memory do not
+    take; a refusal is not cached."""
+    lib = _library("gat_local_message_slots")
+    dev = torch.device("cuda", device)
+    if not 1 <= heads <= lib["max_heads"]():
+        raise ValueError(f"num_heads={heads} outside 1..{lib['max_heads']()}")
+    smem = lib["smem_bytes"](hd, heads)
+    _check_ell_geometry(lib, hd, window, smem, dev)
+    _check_geometry(lib, hd, slots, (window,), window, smem, dev)
+    return smem
+
+
+def _launch_gat_message(slot_stack, h, s_src, s_tgt, window, slots, num_heads, divide,
+                        knockout=0) -> torch.Tensor:
     dt = h.dtype
     code = _dtype_code(dt)
     dev = h.device
@@ -2648,14 +2690,12 @@ def _launch_gat_message(slot_stack, h, s_src, s_tgt, window, slots, num_heads,
     _check("h", h, dt, (n, hd), dev)
     _check("s_src", s_src, dt, (n, num_heads), dev)
     _check("s_tgt", s_tgt, dt, (n, num_heads), dev)
-
+    _gat_message_plan(hd, num_heads, slots, window, dev.index)
     lib = _library("gat_local_message_slots")
-    smem = lib["smem_bytes"](window, hd, num_heads, slots)
-    _check_geometry(lib, hd, slots, (window,), window, smem, dev)
     out = torch.empty((n, hd if divide else hd + num_heads), dtype=dt, device=dev)
     rc = lib["launch"](
         code, slot_stack.data_ptr(), h.data_ptr(), s_src.data_ptr(), s_tgt.data_ptr(),
-        out.data_ptr(), nw, n, window, hd, num_heads, slots, int(bool(divide)),
+        out.data_ptr(), nw, n, window, hd, num_heads, slots, int(bool(divide)), int(knockout),
         dev.index, torch.cuda.current_stream(dev).cuda_stream,
     )
     _raise_on(lib, rc, "gat_local_message_slots")
@@ -2672,15 +2712,21 @@ def gat_local_message_slots(
     slots: int,
     num_heads: int,
     divide: bool = True,
+    knockout: int = 0,
 ) -> torch.Tensor:
     """GAT's edge softmax of one layer over the slot layout: [n, H·D]
     (``divide``) or [n, H·D + H] in h's dtype
-    (``csrc/gat_local_message_slots.cu``). Operands as in
+    (``csrc/gat_local_message_slots.cu``: the message walk of rows 17 and 23,
+    ``csrc/gat_messages.cuh``, over the slot rows). Operands as in
     ``gat_local_message_slots_ref``; a CPU tensor runs the plain version, a
     CUDA tensor launches the kernel (float32 or bfloat16 h and scores, int32
-    ``slot_stack``) or raises. Each launch adds one to
+    ``slot_stack``; H·D at most 128, at most 32 heads, W up to 1024 in whole
+    blocks of 128 rows) or raises. ``knockout`` (timing only, CUDA only): bit
+    1 skips the messages. Each launch adds one to
     ``gat_local_message_slots.launches``."""
     args = (slot_stack, h, s_src, s_tgt, window, slots, num_heads, divide)
+    if _knocked_out(h, knockout):
+        return _launch_gat_message(*args, knockout=knockout)
     return _dispatch(h, gat_local_message_slots_ref, _launch_gat_message, args)
 
 
@@ -3049,12 +3095,15 @@ gcn_local_message_ell.launches = 0
 
 
 def _launch_gcn_layer_ell(ell_meta, h, dis, ee_table, root, alpha, beta, w_next, b_next,
-                          window) -> torch.Tensor:
+                          window, tiles, knockout=0) -> torch.Tensor:
     dt = h.dtype
     code = _dtype_code(dt)
     dev = h.device
     n, d = h.shape
+    _check("h", h, dt, (n, d), dev)
     _check("dis", dis, dt, (n,), dev)
+    vocab = ee_table.shape[0]
+    _check("ee_table", ee_table, dt, (vocab, d), dev)
     for name, x in (("root", root), ("alpha", alpha), ("beta", beta)):
         _check(name, x, dt, (d,), dev)
     if (w_next is None) != (b_next is None):
@@ -3062,17 +3111,26 @@ def _launch_gcn_layer_ell(ell_meta, h, dis, ee_table, root, alpha, beta, w_next,
     if w_next is not None:
         _check("w_next", w_next, dt, (d, d), dev)
         _check("b_next", b_next, dt, (d,), dev)
-    lib, lanes, nw, vocab = _check_ell_layer(ell_meta, h, ee_table, window, "gcn_local_layer_ell")
+    name = "gcn_local_layer_ell"
+    lib = _library(name)
+    stages, _ = _layer_plan(name, code, d, 0, window, dev.index, vocab)
+    conv = code == 1 and w_next is not None
+    if conv:  # the wgmma next conv reads the layer's weights as packed chunks
+        tiles = _layer_tiles(name, d, tiles, lambda: gcn_layer_tiles(w_next), dev)
+    nw = -(-n // window)
+    lanes = _ell_block(ell_meta, nw, dev)
     out = torch.empty((n, d), dtype=dt, device=dev)
     rc = lib["launch"](
         code, ell_meta.data_ptr(), h.data_ptr(), dis.data_ptr(), ee_table.data_ptr(),
         root.data_ptr(), alpha.data_ptr(), beta.data_ptr(),
         None if w_next is None else w_next.data_ptr(),
-        None if b_next is None else b_next.data_ptr(), out.data_ptr(),
-        nw, n, window, lanes, d, vocab, dev.index, torch.cuda.current_stream(dev).cuda_stream,
+        None if b_next is None else b_next.data_ptr(), tiles.data_ptr() if conv else None,
+        out.data_ptr(), nw, n, window, lanes, d, vocab, stages, int(knockout), dev.index,
+        torch.cuda.current_stream(dev).cuda_stream,
     )
     _raise_on(lib, rc, "gcn_local_layer_ell")
     gcn_local_layer_ell.launches += 1
+    gcn_local_layer_ell.stages = stages
     return out
 
 
@@ -3087,19 +3145,32 @@ def gcn_local_layer_ell(
     w_next: Optional[torch.Tensor],
     b_next: Optional[torch.Tensor],
     window: int,
+    conv_tiles: Optional[torch.Tensor] = None,
+    knockout: int = 0,
 ) -> torch.Tensor:
-    """One whole GCN layer over the ELL layout after its conv: the next
-    conv's output, or on the last layer (``w_next`` None) the pre-pool
-    tail, [n, D] in h's dtype (``csrc/gcn_local_layer_ell.cu``). Operands
-    as in ``gcn_local_layer_ell_ref``; a CPU tensor runs the plain version,
-    a CUDA tensor launches the kernel (float32 or bfloat16 h, dis, table,
-    root / alpha / beta and weights, int32 ``ell_meta``) or raises. Each
-    launch adds one to ``gcn_local_layer_ell.launches``."""
-    args = (ell_meta, h, dis, ee_table, root, alpha, beta, w_next, b_next, window)
+    """One whole GCN layer over an ELL batch with no spill tail after its
+    conv: the next conv's output, or on the last layer (``w_next`` None) the
+    pre-pool tail, [n, D] in h's dtype (``csrc/gcn_local_layer_ell.cu``: the
+    one-layer form of row 9's cluster kernel, a cluster of W/128 blocks per
+    window of 128 to 1024 rows, any k edge blocks a window). Operands as in
+    ``gcn_local_layer_ell_ref``; a CPU tensor runs the plain version, a CUDA
+    tensor launches the kernel (float32 or bfloat16 h, dis, table, root /
+    alpha / beta and weights, int32 ``ell_meta``; an even D at most 112) or
+    raises. In bfloat16 the next conv runs on the tensor cores (``wgmma``)
+    from ``conv_tiles``, this layer's [C, 32·N] chunks of ``gcn_conv_tiles``
+    (row 9's; packed here by ``gcn_layer_tiles``, once per weight set, when
+    not given); ``gcn_local_layer_ell.stages`` records the launch's weight
+    ring (0 in float32). ``knockout`` (timing only, CUDA only): bit 0 skips
+    the next conv, bit 1 the messages. Each launch adds one to
+    ``gcn_local_layer_ell.launches``."""
+    args = (ell_meta, h, dis, ee_table, root, alpha, beta, w_next, b_next, window, conv_tiles)
+    if _knocked_out(h, knockout):
+        return _launch_gcn_layer_ell(*args, knockout=knockout)
     return _dispatch(h, gcn_local_layer_ell_ref, _launch_gcn_layer_ell, args)
 
 
 gcn_local_layer_ell.launches = 0
+gcn_local_layer_ell.stages = 0
 
 
 def _launch_dgn_layer_ell(ell_meta, h, eig, inv_deg, eigw_sum, inv_abssum, w_post, b_post,

@@ -1638,6 +1638,224 @@ def test_gat_ell_cuda_kernel_overflowing_sentinel_lane_stays_finite(cuda_device)
     torch.testing.assert_close(outs[1], outs[0], rtol=0, atol=0)
 
 
+def _gcn_ell_batch_operands(batch: dict, rng, d: int, final: bool) -> dict:
+    """Row 15's seeded operands at width ``d`` on an ELL batch, as numpy
+    arrays: the layout's own degree norms, a bond table of 13 rows, and on
+    every layer but the last (``final``) the next conv."""
+    f32 = lambda *s, sd=0.3: rng.normal(0, sd, s).astype(np.float32)
+    n = batch["node_feat"].shape[0]
+    return dict(_ell_lane_operands(batch), h=f32(n, d),
+                dis=(1 / np.sqrt(batch["out_deg"] + 1.0)).astype(np.float32),
+                ee_table=f32(13, d), root=f32(d), alpha=(1 + f32(d)).astype(np.float32),
+                beta=f32(d), w_next=None if final else f32(d, d, sd=0.1),
+                b_next=None if final else f32(d))
+
+
+_ROW15_CASES = [(w, k, d, final) for w in ROW18_GEOMETRY for k in (1, 2) for d in (100, 112)
+                for final in (False, True)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("window,k,d,final", _ROW15_CASES,
+                         ids=[f"W{w}-k{k}-D{d}{'-final' if f else ''}"
+                              for w, k, d, f in _ROW15_CASES])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 5e-2)],
+                         ids=["f32", "bf16"])
+def test_row15_cuda_kernel_windows_match_plain(window, k, d, final, dtype, tol, cuda_device):
+    """Row 15, the one-layer form of row 9's cluster kernel with the ELL lane
+    walk, at W = 128, 256, 512 and 1024 (a cluster of W/128 blocks, the
+    large graph's sources read across all of them), k = 1 and 2 edge blocks
+    a window, D = 100 and 112 (its two wgmma widths), on a non-final layer
+    (bf16: the next conv through wgmma with a ring of at least two chunks;
+    f32: FMA on weights streamed in chunks; two blocks an SM but for f32 at
+    D=112) and on the last (no conv), one launch per call. f32: summation order only; bf16: the output
+    rounds to bf16, and a rounding flip of a message or of the conv's input
+    moves it by a few bf16 ulps of its scale."""
+    fn = local_layer.gcn_local_layer_ell
+    batch = _ell_window_batch("gcn", window, k, 27)
+    ops = _port(_gcn_ell_batch_operands(batch, np.random.default_rng(29), d, final), cuda_device,
+                dtype)
+    before = fn.launches
+    got = fn(**ops)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 1
+    assert fn.stages >= 2 if dtype == torch.bfloat16 else fn.stages == 0
+    expect = local_layer.gcn_local_layer_ell_ref(**ops)
+    assert got.dtype == dtype and got.shape == expect.shape
+    assert expect.abs().max() > 1e-2
+    scale = max(1.0, expect.abs().max().item())
+    torch.testing.assert_close(got.float() / scale, expect.float() / scale, rtol=tol, atol=tol)
+    occ = local_layer.occupancy("gcn_local_layer_ell", dtype, window, (d, 13), 0, 0, cuda_device)
+    # f32 at D=112: h and x alone take 114.7 KB a block, one block an SM.
+    assert occ["blocks_per_sm"] == (1 if dtype == torch.float32 and d == 112 else 2)
+    assert occ["clusters"] > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_row15_knockouts_launch(dtype, cuda_device):
+    """The phase split's knockouts of row 15 (bit 0: the next conv, bit 1:
+    the messages) launch and count at W=512, on a non-final layer and on
+    the last, and leave a finite output; the whole kernel is unchanged by
+    having run them. On a CPU tensor a knockout raises."""
+    fn = local_layer.gcn_local_layer_ell
+    batch = _ell_window_batch("gcn", 512, 1, 27)
+    for final in (False, True):
+        ops = _port(_gcn_ell_batch_operands(batch, np.random.default_rng(29), 100, final),
+                    cuda_device, dtype)
+        full = fn(**ops)
+        before = fn.launches
+        for knockout in (1, 2, 3):
+            assert bool(fn(**ops, knockout=knockout).isfinite().all())
+        torch.cuda.synchronize()
+        assert fn.launches == before + 3
+        assert torch.equal(fn(**ops), full)
+    with pytest.raises(ValueError, match="knockout"):
+        fn(**{k: v.cpu() if torch.is_tensor(v) else v for k, v in ops.items()}, knockout=1)
+
+
+def _row21_operands(window: int, hd: int, heads: int, slots: int, hot: bool,
+                    seed: int = 30) -> dict:
+    """Row 21's seeded operands over three windows of ``window`` rows, the
+    last two-thirds real (its other rows padding), ``slots`` slots a row:
+    each slot a random in-window source or empty (sentinel W), some sources
+    on the last window's padding rows. Two rows of each window have no
+    source and feed none; ``hot`` gives them scores of 100, past float32
+    exp's overflow at 88.7, which their empty slots must keep out of their
+    sums: the hot run equals the cold one."""
+    rng = np.random.default_rng(seed + window + slots)
+    nw = 3
+    n = nw * window - window // 3
+    stack = rng.integers(0, window, size=(nw, slots, window)).astype(np.int32)
+    stack[rng.random(stack.shape) < 0.4] = window
+    quiet = (window // 4, window // 2 + 1)  # rows with no source, read by none
+    for q in quiet:
+        stack[:, :, q] = window
+        stack[stack == q] = window
+    s_src = rng.normal(0, 1.0, (n, heads)).astype(np.float32)
+    s_tgt = rng.normal(0, 1.0, (n, heads)).astype(np.float32)
+    for w in range(nw):
+        for q in quiet:
+            if w * window + q < n:
+                s_src[w * window + q] = s_tgt[w * window + q] = 100.0 if hot else 0.0
+    return dict(slot_stack=stack.reshape(-1), h=rng.normal(0, 0.5, (n, hd)).astype(np.float32),
+                s_src=s_src, s_tgt=s_tgt, window=window, slots=slots, num_heads=heads)
+
+
+# Row 21's cases: W = 128, 512 and 1024 at (H·D, heads) on row 17's edges,
+# the slot depth running through 1..8.
+_ROW21_SHAPES = [(w, hd, heads) for w in (128, 512, 1024) for hd in (64, 128)
+                 for heads in (1, 4, 32)]
+_ROW21_CASES = [(w, hd, heads, 1 + i % 8) for i, (w, hd, heads) in enumerate(_ROW21_SHAPES)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("window,hd,heads,slots", _ROW21_CASES,
+                         ids=[f"W{w}-{hd}x{h}-S{s}" for w, hd, h, s in _ROW21_CASES])
+@pytest.mark.parametrize("divide", [True, False], ids=["divide", "sums"])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 5e-2)],
+                         ids=["f32", "bf16"])
+def test_row21_cuda_kernel_windows_match_plain(window, hd, heads, slots, divide, dtype, tol,
+                                               cuda_device):
+    """Row 21, row 17's message walk over slot rows, at W = 128, 512 and
+    1024 (W/128 independent blocks a window), H·D = 64 and 128 with 1, 4
+    and 32 heads (each of its walk shapes), 1 to 8 slots, divided and as
+    raw sums, against its plain version; the rows whose empty slots hold
+    overflowing scores stay finite and equal the cold run bit for bit.
+    f32: summation order only; bf16: the output rounds once to bf16."""
+    fn = local_layer.gat_local_message_slots
+    before = fn.launches
+    got = fn(**_port(_row21_operands(window, hd, heads, slots, False), cuda_device, dtype),
+             divide=divide)
+    hot = fn(**_port(_row21_operands(window, hd, heads, slots, True), cuda_device, dtype),
+             divide=divide)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 2
+    expect = local_layer.gat_local_message_slots_ref(
+        **_port(_row21_operands(window, hd, heads, slots, False), cuda_device, dtype),
+        divide=divide)
+    assert got.dtype == dtype and got.shape == expect.shape
+    assert expect.abs().max() > 1e-2
+    scale = max(1.0, expect.abs().max().item())
+    torch.testing.assert_close(got.float() / scale, expect.float() / scale, rtol=tol, atol=tol)
+    assert bool(hot.isfinite().all())
+    torch.testing.assert_close(hot, got, rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("big,window", CLUSTER_WINDOWS, ids=[f"W{w}" for _, w in CLUSTER_WINDOWS])
+@pytest.mark.parametrize("divide", [True, False], ids=["divide", "sums"])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 5e-2)],
+                         ids=["f32", "bf16"])
+def test_row21_cuda_kernel_slot_layouts_match_plain(big, window, divide, dtype, tol, cuda_device):
+    """Row 21 on GAT's own slot layouts at W = 128, 256, 512 and 1024 (the
+    large graph's sources across the whole window), 4 heads × 16, against
+    its plain version."""
+    batch = _slot_batch_at("gat", big, window, 33)
+    rng = np.random.default_rng(33)
+    n = batch["node_feat"].shape[0]
+    ops = _port(dict(slot_stack=batch["slot_stack"], h=rng.normal(0, 0.5, (n, 64)).astype(
+        np.float32), s_src=rng.normal(0, 2.0, (n, 4)).astype(np.float32),
+        s_tgt=rng.normal(0, 2.0, (n, 4)).astype(np.float32), window=window,
+        slots=batch["slot_geom"].shape[-1], num_heads=4, divide=divide), cuda_device, dtype)
+    got = local_layer.gat_local_message_slots(**ops)
+    torch.cuda.synchronize()
+    expect = local_layer.gat_local_message_slots_ref(**ops)
+    assert got.dtype == dtype and got.shape == expect.shape
+    scale = max(1.0, expect.abs().max().item())
+    torch.testing.assert_close(got.float() / scale, expect.float() / scale, rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_row21_knockout_launches(dtype, cuda_device):
+    """The phase split's knockout of row 21 (bit 1: the messages) launches,
+    counts and writes zero sums and quotients; the whole kernel is unchanged
+    by having run it. On a CPU tensor a knockout raises."""
+    fn = local_layer.gat_local_message_slots
+    for divide in (True, False):
+        ops = _port(_row21_operands(512, 64, 4, 6, False), cuda_device, dtype)
+        full = fn(**ops, divide=divide)
+        before = fn.launches
+        out = fn(**ops, divide=divide, knockout=2)
+        torch.cuda.synchronize()
+        assert fn.launches == before + 1 and not bool(out.any())
+        assert torch.equal(fn(**ops, divide=divide), full)
+    with pytest.raises(ValueError, match="knockout"):
+        fn(**{k: v.cpu() if torch.is_tensor(v) else v for k, v in ops.items()}, knockout=2)
+
+
+@pytest.mark.cuda
+def test_rows_15_21_cuda_kernels_reject_geometry(cuda_device):
+    """Rows 15 and 21 raise before launch on what their kernels cannot
+    take: a window that is not whole 128-row tiles (192) or spans more than
+    8 (1152), row 15 an odd D or one past its tile (114 > 112), row 21 more
+    than 32 heads or more than 8 slots."""
+    rng = np.random.default_rng(0)
+    t = lambda *s: torch.from_numpy(rng.normal(0, 0.1, s).astype(np.float32)).to(cuda_device)
+    cases = []
+    for window, d, match in ((192, 100, "whole blocks"), (1152, 100, "whole blocks"),
+                             (128, 99, "even"), (128, 114, "tile")):
+        n = 2 * window
+        lanes = torch.full((2 * 8, 5), window, dtype=torch.int32, device=cuda_device)
+        cases.append(("gcn_local_layer_ell", dict(
+            ell_meta=lanes, h=t(n, d), dis=t(n), ee_table=t(13, d), root=t(d), alpha=t(d),
+            beta=t(d), w_next=t(d, d), b_next=t(d), window=window), match))
+    for window, heads, slots, match in ((192, 4, 4, "whole blocks"), (1152, 4, 4, "whole blocks"),
+                                        (128, 64, 4, "num_heads"), (128, 4, 9, "slots")):
+        n = 2 * window
+        stack = torch.full((2 * slots * window,), window, dtype=torch.int32, device=cuda_device)
+        cases.append(("gat_local_message_slots", dict(
+            slot_stack=stack, h=t(n, 128), s_src=t(n, heads), s_tgt=t(n, heads), window=window,
+            slots=slots, num_heads=heads), match))
+    for kernel, kw, match in cases:
+        fn = getattr(local_layer, kernel)
+        before = fn.launches
+        with pytest.raises(ValueError, match=match):
+            fn(**kw)
+        assert fn.launches == before
+
+
 # Rows 10, 12 and 25 at the widths of chip_smoke.py's phase 3f (D' and H'
 # padded, the models' 100 / 200, H=512) and row 23 at its head geometries
 # (4 × 16, and 3 × 16, whose K' pads 48 to 64), at W=128 and W=1024, with

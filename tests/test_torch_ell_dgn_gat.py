@@ -278,22 +278,26 @@ def test_new_rows_operands_meet_the_kernel_contract(name, case, prec):
     ("gat_local_message_ell", "gat", "molhiv", None),
     ("gat_local_message_ell", "gat", "hep10k", 128),
     ("dgn_local_layer_ell", "dgn", "molhiv", None),
-    ("dgn_local_message_ell", "dgn", "hep10k", 128)])
+    ("dgn_local_message_ell", "dgn", "hep10k", 128),
+    ("gcn_local_layer_ell", "gcn", "molhiv", None)])
 def test_layer_kernels_tool_launches_what_the_paths_launch(kernel, name, profile, window):
-    """``bench.layer_kernels`` times rows 17, 18 and 16 on the launches their
-    paths make: each bucket's layer-0 operands once per layer (row 17 on
-    GAT's unfused ELL path, every layer, with a spill tail on hep10k at
-    W=128; row 18 on DGN's molhiv ELL stream, no tail, with bf16 posttrans
-    chunks; row 16 on DGN's hep10k W=128 stream, with a tail); every
-    launch's operands are ones the kernel's plain version takes."""
+    """``bench.layer_kernels`` times rows 17, 18, 16 and 15 on the launches
+    their paths make: each bucket's layer-0 operands once per layer (row 17
+    on GAT's unfused ELL path, every layer, with a spill tail on hep10k at
+    W=128; rows 18 and 15 on DGN's and GCN's molhiv ELL streams, no tail,
+    with bf16 posttrans or next-conv chunks; row 16 on DGN's hep10k W=128
+    stream, with a tail); every launch's operands are ones the kernel's
+    plain version takes."""
     from flowgnn_tpu_torch.bench import layer_kernels
 
+    assert (kernel, name, profile, window) in {c[:3] + c[5:] for c in layer_kernels.CELLS}
     batches = layer_kernels.stream(name, profile, 60, "local_ell", window, "cpu")
-    prec = tn.BF16 if kernel == "dgn_local_layer_ell" else tn.FLOAT32
+    tiles = {"dgn_local_layer_ell": "posttrans_tiles", "gcn_local_layer_ell": "conv_tiles"}
+    prec = tn.BF16 if kernel in tiles else tn.FLOAT32
     ops = layer_kernels.calls(kernel, name, batches, prec, "cpu")
     assert len(ops) == tr.get(name).num_layers * len(batches)
     assert all((tb.ell_spill(b) is not None) == (window == 128) for b in batches)
-    if kernel == "dgn_local_layer_ell":
-        assert all(o["posttrans_tiles"] is not None for o in ops)
+    if kernel in tiles:
+        assert all(o[tiles[kernel]] is not None for o in ops)
     out = getattr(local_layer, f"{kernel}_ref")(**ops[-1])
     assert bool(out.float().isfinite().all())

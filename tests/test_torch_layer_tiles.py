@@ -1,15 +1,18 @@
 """The per-layer GIN kernels (rows 10, 12 and 25, ``csrc/gin_layer.cuh``),
-GAT's fused ELL layer (row 23, ``csrc/gat_local_layer_ell.cu``) and DGN's ELL
-layer (row 18, ``csrc/dgn_local_layer_ell_model.cu``) on the host: row 23's
-packed skip and projection weights read back as its kernel reads them, a plain
-mirror of its bf16 hi / lo projection and of row 18's bf16 channels and
-posttrans on the packed chunks against the plain versions and the JAX
-kernels in interpret mode, the model's row-23 weights and the GIN layers'
-slice of ``mlp_tiles`` packed once per weight set, and the launch plans of
-rows 10, 12, 13, 23 and 25 worked out once per geometry."""
+GAT's fused ELL layer (row 23, ``csrc/gat_local_layer_ell.cu``), DGN's and
+GCN's ELL layers (rows 18 and 15, the one-layer forms of
+``csrc/dgn_model.cuh`` and ``csrc/gcn_model.cuh``) and GAT's slot messages
+(row 21) on the host: row 23's packed skip and projection weights read back
+as its kernel reads them, a plain mirror of its bf16 hi / lo projection, of
+row 18's bf16 channels and posttrans and of row 15's bf16 messages and next
+conv on the packed chunks against the plain versions and the JAX kernels in
+interpret mode, the model's row-23 weights and the GIN layers' slice of
+``mlp_tiles`` packed once per weight set, and the launch plans of rows 10,
+12, 13, 15, 21, 23 and 25 worked out once per geometry."""
 
 import collections
 
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -21,11 +24,15 @@ from flowgnn_tpu_torch.ops import local_layer
 from flowgnn_tpu_torch.params.loaders import (
     params_from_numpy, synthetic_gat_params, synthetic_gin_params,
 )
-from test_torch_cuda import _dgn_gat_ell_operands, _gat_layer_operands, _port
+from test_torch_cuda import (
+    ELL_LAYER_GEOMETRY, _dgn_gat_ell_operands, _ell_layer_operands, _gat_layer_operands, _port,
+)
 from test_torch_ell_dgn_gat import KEEP_F32
 from test_torch_ell_dgn_gat import _jax_row as _jax_ell_row
 from test_torch_gat_fused import ROW_CASES, ROW_IDS, _jax_row
+from test_torch_ell_layer import _jax_operands
 from test_torch_gin_slots import _bf16_stream
+from test_torch_local_layer import _jax_kernel
 from test_torch_tiles import _check_linear_chunk, _read
 
 N = local_layer.GAT_LAYER_N
@@ -189,6 +196,76 @@ def test_dgn_layer_ell_bf16_product_moves_no_rounding_point(geometry, monkeypatc
         np.testing.assert_allclose(got, want, rtol=2 ** -7, atol=2 ** -7 * np.abs(want).max())
 
 
+def _row15_mirror(ops: dict) -> torch.Tensor:
+    """Row 15 as its bf16 kernel computes it on a non-final layer, in plain
+    torch: per window row, its lanes' rnd(dis_u·relu(h_u + ee)) summed in
+    f32 in lane order (ee the lane's table rows summed in order; a lane
+    whose u lies outside the window or on a padding row has dis_u = 0), the
+    tail a = acc·dis_v + relu(h_v + root)·dis_v², x = alpha·a + beta, the
+    conv input rnd(relu(x)) padded to K' columns, the next conv y = x·B with
+    B read from ``gcn_layer_tiles``' chunks through the product's
+    descriptors, chunk by chunk and K step by K step (each product of two
+    bf16 values exact in f32), then rnd(y + b_next). Returns h' in bf16."""
+    h, meta, w = ops["h"], ops["ell_meta"].long(), ops["window"]
+    n, d = h.shape
+    nw = -(-n // w)
+    rows = nw * w
+    rnd = lambda x: x.bfloat16().float()
+    hf = local_layer._padded(h, rows).float()
+    dis = local_layer._padded(ops["dis"].float()[:, None], rows)
+    tab = ops["ee_table"].float()
+    lanes = meta.reshape(nw, -1, 5)
+    acc = torch.zeros(rows, d)
+    base = torch.arange(nw) * w
+    for j in range(lanes.shape[1]):  # lane j of every window, in lane order
+        u, v = lanes[:, j, 0], lanes[:, j, 1]
+        ok = (u >= 0) & (u < w) & (v >= 0) & (v < w)
+        src, dst = (base + u)[ok], (base + v)[ok]
+        ee = torch.zeros(len(src), d)
+        for a in lanes[:, j, 2:][ok].T:  # the three bond rows, in order
+            ee = ee + torch.where(((a >= 0) & (a < tab.shape[0]))[:, None],
+                                  tab[a.clamp(0, tab.shape[0] - 1)], 0.0)
+        acc[dst] += rnd(dis[src] * torch.clamp_min(hf[src] + ee, 0.0))
+    root = torch.clamp_min(hf + ops["root"].float(), 0.0)
+    a = acc * dis + root * (dis * dis)
+    x = ops["alpha"].float() * a + ops["beta"].float()
+    n_out = local_layer.gcn_conv_n(d)
+    kp, chunks, _ = local_layer.linear_geometry(d, n_out)
+    xin = torch.zeros(rows, kp)
+    xin[:, :d] = rnd(torch.clamp_min(x, 0.0))
+    tiles = local_layer.gcn_layer_tiles(ops["w_next"])
+    y = torch.zeros(rows, n_out)
+    for c in range(chunks):
+        for s in range(2):
+            bt = _read(tiles[c], 2 * s * n_out * 16, n_out * 16, 128, n_out, 32).float()
+            y += xin[:, 32 * c + 16 * s : 32 * c + 16 * s + 16] @ bt.T
+    return (y[:, :d] + ops["b_next"].float()).bfloat16()[:n]
+
+
+@pytest.mark.parametrize("geometry", ["W128", "k2"])
+def test_gcn_layer_ell_bf16_conv_moves_no_rounding_point(geometry, monkeypatch):
+    """Row 15's bf16 kernel (messages rounded a lane and summed in lane
+    order, the tail, the next conv on the packed chunks) mirrored in plain
+    torch equals the plain version and the Pallas kernel (interpret mode)
+    where their f32 values round alike: > 99% bit-equal, the rest one bf16
+    ulp apart (rtol 2⁻⁷)."""
+    monkeypatch.setenv("FLOWGNN_PALLAS_INTERPRET", "1")
+    ops = _ell_layer_operands("gcn_local_layer_ell", geometry)
+    port = _port(ops, "cpu", torch.bfloat16)
+    got = _row15_mirror(port)
+    ref = local_layer.gcn_local_layer_ell(**port)
+    jops = {k: jnp.asarray(v, jnp.bfloat16) if isinstance(v, np.ndarray) and v.dtype == np.float32
+            else v for k, v in _jax_operands("gcn_local_layer_ell", ops,
+                                             ELL_LAYER_GEOMETRY[geometry][2]).items()}
+    jax = np.asarray(_jax_kernel("gcn_local_layer_ell", jops), np.float32)
+    assert got.dtype == ref.dtype == torch.bfloat16 and got.shape == ref.shape == jax.shape
+    got, ref = got.float().numpy(), ref.float().numpy()
+    assert np.abs(ref).max() > 1e-2
+    for want in (ref, jax):
+        assert (got == want).mean() > 0.99
+        np.testing.assert_allclose(got, want, rtol=2 ** -7, atol=2 ** -7 * np.abs(want).max())
+
+
 def test_gat_layer_tiles_are_the_model_slices_packed_once(monkeypatch):
     """Row 23's weights (``gat.layer_tiles``): one pack of layers 0..L−2 for
     a fused forward over several buckets, in f32 and in bf16; layer l's
@@ -312,6 +389,11 @@ class _FakeLibrary(dict):
             kp, skip_c, proj_c, elems = local_layer.gat_layer_geometry(hd)
             dims[0:4] = (kp, skip_c, proj_c, 2 * elems)
 
+        def conv_dims(d, dims):
+            n = local_layer.gcn_conv_n(d)
+            kp, _, elems = local_layer.linear_geometry(d, n)
+            dims[0:3] = (kp, n, 2 * elems)
+
         def prepare(smem, device):
             prepared.append(smem)
             return 0
@@ -319,6 +401,7 @@ class _FakeLibrary(dict):
         super().__init__(
             max_d=getter("max_d", 112), rows_per_block=getter("rows_per_block", 128),
             max_window_blocks=getter("max_window_blocks", 8), max_heads=getter("max_heads", 32),
+            max_slots=getter("max_slots", 8), conv_dims=getter("conv_dims", conv_dims),
             smem_optin=getter("smem_optin", 232448), smem_per_sm=getter("smem_per_sm", 233472),
             smem_bytes=getter("smem_bytes", lambda *a: 50000 + 1000 * a[-1]),
             mlp_dims=getter("mlp_dims", mlp_dims), tile_dims=getter("tile_dims", tile_dims),
@@ -327,18 +410,21 @@ class _FakeLibrary(dict):
 
 
 def test_layer_launch_plans_are_worked_out_once_per_geometry(monkeypatch):
-    """The launch plans of rows 13, 10 / 12, 25 (``_gin_layer_plan``) and 23
-    (``_gat_layer_plan``) read the library's getters once per (dtype,
+    """The launch plans of rows 13, 10 / 12, 25 (``_gin_layer_plan``), 23
+    (``_gat_layer_plan``), 15 (``_layer_plan``) and 21
+    (``_gat_message_plan``) read the library's getters once per (dtype,
     widths, window, device), not once per launch, and opt the kernels in to
     their shared memory only when a plan needs more than any before (so
     every cached plan stays valid); a geometry the kernel refuses raises
     each time and is not cached."""
     calls, prepared = collections.Counter(), []
     libs = {name: _FakeLibrary(calls, prepared)
-            for name in (*local_layer.GIN_LAYER_LIBRARIES, "gat_local_layer_ell")}
+            for name in (*local_layer.GIN_LAYER_LIBRARIES, "gat_local_layer_ell",
+                         "gcn_local_layer_ell", "gat_local_message_slots")}
     monkeypatch.setattr(local_layer, "_library", libs.__getitem__)
     monkeypatch.setattr(local_layer, "_PREPARED", {})
-    plans = (local_layer._gin_layer_plan, local_layer._gat_layer_plan)
+    plans = (local_layer._gin_layer_plan, local_layer._gat_layer_plan, local_layer._layer_plan,
+             local_layer._gat_message_plan)
     for plan in plans:
         plan.cache_clear()
     try:
@@ -372,6 +458,40 @@ def test_layer_launch_plans_are_worked_out_once_per_geometry(monkeypatch):
         assert sum(calls.values()) == reads
         with pytest.raises(ValueError, match="num_heads"):
             local_layer._gat_layer_plan(1, 64, 64, 128, 0)
+
+        # Row 15: the bf16 ring takes all 4 chunks of D=100 within two blocks an SM.
+        calls.clear()
+        prepared.clear()
+        row15 = lambda code, d, window: local_layer._layer_plan("gcn_local_layer_ell", code, d, 0,
+                                                                window, 0, 13)
+        assert row15(1, 100, 512) == (4, 54000)
+        reads = sum(calls.values())
+        assert reads > 0 and calls["conv_dims"] == 1
+        for _ in range(3):
+            assert row15(1, 100, 512) == (4, 54000)
+        assert sum(calls.values()) == reads
+        assert row15(0, 100, 512) == (0, 50000)  # f32: no ring
+        for _ in range(2):
+            with pytest.raises(ValueError, match="whole blocks"):
+                row15(1, 100, 1152)
+            with pytest.raises(ValueError, match="even"):
+                row15(0, 99, 128)
+        # Row 21: no shared memory beyond the fake's; refusals each time.
+        calls.clear()
+        row21 = lambda heads, slots, window: local_layer._gat_message_plan(64, heads, slots, window,
+                                                                           0)
+        first = row21(4, 8, 1024)
+        reads = sum(calls.values())
+        assert reads > 0 and calls["max_slots"] == 1
+        for _ in range(3):
+            assert row21(4, 8, 1024) == first
+        assert sum(calls.values()) == reads
+        for _ in range(2):
+            with pytest.raises(ValueError, match="slots"):
+                row21(4, 9, 128)
+            with pytest.raises(ValueError, match="num_heads"):
+                row21(64, 4, 128)
+        assert prepared == []  # neither opts in: rows 15 and 21 need no prepare
     finally:
         for plan in plans:
             plan.cache_clear()

@@ -25,7 +25,7 @@ from flowgnn_tpu_torch.core import numerics as tn
 from flowgnn_tpu_torch.core import synthetic as ts
 from flowgnn_tpu_torch.core.features import BOND_FEATURE_DIMS
 from flowgnn_tpu_torch.models import base as tb
-from flowgnn_tpu_torch.models import dgn, pna
+from flowgnn_tpu_torch.models import dgn, gcn, pna
 from flowgnn_tpu_torch.models import registry as tr
 from flowgnn_tpu_torch.ops import local_layer
 from flowgnn_tpu_torch.params import loaders as tl
@@ -39,11 +39,13 @@ HUB = 12  # in-window in-degree of the hub nodes: past the 8 slots
 CASES = [("pna", 256, 250, False), ("pna", 512, 400, False),
          ("dgn", 256, 300, True), ("dgn", 512, 400, False)]
 IDS = ["pna-W256", "pna-W512", "dgn-W256-spill", "dgn-W512"]
-# Each model's per-layer slot kernel (row 20 or 22), and DGN's per-layer
-# ELL kernel (row 18), which takes row 22's posttrans chunks.
+# Each model's per-layer slot kernel (row 20 or 22), DGN's per-layer ELL
+# kernel (row 18), which takes row 22's posttrans chunks, and GCN's (row
+# 15), which takes row 9's next-conv chunks.
 ROWS = {"pna": (pna, "pna_local_layer", "tower_tiles", "conv_w"),
         "dgn": (dgn, "dgn_local_layer_slots", "posttrans_tiles", "posttrans_w"),
-        "dgn-ell": (dgn, "dgn_local_layer_ell", "posttrans_tiles", "posttrans_w")}
+        "dgn-ell": (dgn, "dgn_local_layer_ell", "posttrans_tiles", "posttrans_w"),
+        "gcn-ell": (gcn, "gcn_local_layer_ell", "conv_tiles", "conv_w")}
 
 
 def _hub_arrays(big: int):
@@ -187,14 +189,19 @@ def _stream(name: str, window: int, layout: str = "local_slots") -> list:
         buckets, blocked=layout, window=window, block=block)]
 
 
-@pytest.mark.parametrize("name", ["pna", "dgn", "dgn-ell"], ids=["row20", "row22", "row18"])
+@pytest.mark.parametrize("name", ["pna", "dgn", "dgn-ell", "gcn-ell"],
+                         ids=["row20", "row22", "row18", "row15"])
 def test_rows_20_22_tiles_packed_once_per_weight_set(name, monkeypatch):
-    """The bf16 weight chunks of rows 20, 22 and 18 (DGN's ELL path) over a
-    forward with intermediates across several buckets: one pack of every
-    layer's chunks for the whole stream, each launch handed its layer's
-    slice of them (a view, not a copy); an in-place update of the weights
-    packs again, and only the updated layer's chunks move. Row 18 takes row
-    22's chunks: the slot path on the same weights packs nothing more."""
+    """The bf16 weight chunks of rows 20, 22, 18 (DGN's ELL path) and 15
+    (GCN's) over a forward with intermediates across several buckets: one
+    pack of every layer's chunks for the whole stream, each launch handed
+    its layer's slice of them (a view, not a copy); an in-place update of
+    the weights packs again, and only the updated layer's chunks move. Row
+    18 takes row 22's chunks: the slot path on the same weights packs
+    nothing more. Row 15 takes row 9's: the next convs of layers 1..L-1,
+    layer l's launch handed the slice of conv l + 1 (the last layer, which
+    has none, nothing), and row 9's operands on the same weights pack
+    nothing more."""
     packs = []
     real = local_layer.linear_tiles
 
@@ -212,26 +219,37 @@ def test_rows_20_22_tiles_packed_once_per_weight_set(name, monkeypatch):
     monkeypatch.setattr(local_layer, "linear_tiles", counted_pack)
     monkeypatch.setattr(mod, kernel, counted)
     local_layer._MLP_TILES.clear()
-    make = tl.synthetic_pna_params if name == "pna" else tl.synthetic_dgn_params
+    gcn_ell = name == "gcn-ell"
+    make = {"pna": tl.synthetic_pna_params, "gcn-ell": tl.synthetic_gcn_params}.get(
+        name, tl.synthetic_dgn_params)
     params = tl.params_from_numpy(make(6, dim=D, layers=3), tn.BF16, "cpu")
-    tiles_of = lambda: (pna.tower_tiles if name == "pna" else dgn.posttrans_tiles)(params, tn.BF16)
-    ell = name == "dgn-ell"
-    batches = _stream("dgn" if ell else name, 128, "local_ell" if ell else "local_slots")
+    tiles_of = lambda: {"pna": pna.tower_tiles, "gcn-ell": gcn.conv_tiles}.get(
+        name, dgn.posttrans_tiles)(params, tn.BF16)
+    ell = name.endswith("-ell")
+    model = name.split("-")[0]
+    batches = _stream(model, 128, "local_ell" if ell else "local_slots")
     if ell:
-        assert all(tb.ell_spill(b) is None for b in batches)  # row 18, not rows 16 + 24
+        assert all(tb.ell_spill(b) is None for b in batches)  # rows 18 / 15, not 16 / 14 + 24
     forward_all = lambda: [mod.forward(params, b, tn.BF16, return_intermediates=True)[0]
                            for b in batches]
+    # Layer l's launch takes chunk set l (GCN: the next conv's, none on the last layer).
+    slice_of = lambda i, tiles: None if gcn_ell and i % 3 == 2 else tiles[i % 3]
     first = forward_all()
-    assert len(packs) == 1 and packs[0][0] == 3  # all three layers at once
+    assert len(packs) == 1 and packs[0][0] == (2 if gcn_ell else 3)  # all layers at once
     tiles = tiles_of()
     assert len(handed) == 3 * len(batches)
     for i, t in enumerate(handed):
-        assert t.data_ptr() == tiles[i % 3].data_ptr() and torch.equal(t, tiles[i % 3])
+        want = slice_of(i, tiles)
+        assert t is None if want is None else (t.data_ptr() == want.data_ptr()
+                                               and torch.equal(t, want))
     assert len(packs) == 1
-    if ell:  # row 22 on the same weights takes the same chunks
+    if name == "dgn-ell":  # row 22 on the same weights takes the same chunks
         slot_ops = dgn.layer_kernel_operands(params, _stream("dgn", 128)[0], tn.BF16)
         got = slot_ops["dgn_local_layer_slots"]["posttrans_tiles"]
         assert got.data_ptr() == tiles[0].data_ptr() and len(packs) == 1
+    if gcn_ell:  # row 9 on the same weights takes the same chunks
+        got = gcn.ell_kernel_operands(params, batches[0], tn.BF16)["conv_tiles"]
+        assert got.data_ptr() == tiles.data_ptr() and len(packs) == 1
 
     with torch.no_grad():
         params[weight][-1].mul_(2)
@@ -241,33 +259,41 @@ def test_rows_20_22_tiles_packed_once_per_weight_set(name, monkeypatch):
     new = tiles_of()
     assert new is not tiles and not torch.equal(new, tiles)
     assert torch.equal(new[:-1], tiles[:-1])  # only the last layer's chunks moved
-    assert all(t.data_ptr() == new[i % 3].data_ptr() for i, t in enumerate(handed))
+    assert all(t is None if slice_of(i, new) is None else t.data_ptr() == slice_of(i, new).data_ptr()
+               for i, t in enumerate(handed))
     assert any(not torch.equal(a, b) for a, b in zip(first, again))
     assert len(packs) == 2
 
 
-@pytest.mark.parametrize("kernel,name", [("pna_local_model", "pna"), ("pna_local_layer", "pna"),
-                                         ("dgn_local_model", "dgn"),
-                                         ("dgn_local_layer_slots", "dgn"),
-                                         ("gin_local_model", "gin"), ("gcn_local_model", "gcn")])
-def test_slot_kernels_tool_launches_what_the_paths_launch(kernel, name):
+@pytest.mark.parametrize("kernel,name,window", [
+    ("pna_local_model", "pna", None), ("pna_local_layer", "pna", None),
+    ("dgn_local_model", "dgn", None), ("dgn_local_layer_slots", "dgn", 128),
+    ("gin_local_model", "gin", None), ("gcn_local_model", "gcn", None),
+    ("gcn_local_model_slots", "gcn", None), ("gat_local_message_slots", "gat", None),
+    ("gat_local_message_slots", "gat", 128)])
+def test_slot_kernels_tool_launches_what_the_paths_launch(kernel, name, window):
     """``bench.slot_kernels`` times each kernel on the launches its path
-    makes: a whole-model kernel once per bucket (rows 8 and 9 over ELL),
-    rows 20 and 22 on each bucket's layer-0 operands once per layer (the
-    spilling W=128 stream's with the tail's channels); every launch's
-    operands are ones the kernel's plain version takes."""
+    makes: a whole-model kernel once per bucket (rows 8 and 9 over ELL, row 2
+    over slots),
+    rows 20, 22 and 21 on each bucket's layer-0 operands once per layer (the
+    spilling W=128 stream's with the tail's channels, row 21's as raw sums;
+    row 21's molhiv stream's divided in the kernel); every launch's operands
+    are ones the kernel's plain version takes."""
     from flowgnn_tpu_torch.bench import slot_kernels
 
-    window = 128 if kernel == "dgn_local_layer_slots" else None
     profile = "hep10k" if window else "molhiv"
-    layout = slot_kernels.ELL if name in ("gin", "gcn") else slot_kernels.SLOTS
-    assert (kernel, name, layout) in {c[:2] + (c[4],) for c in slot_kernels.CELLS}
+    layout = (slot_kernels.ELL if kernel in ("gin_local_model", "gcn_local_model")
+              else slot_kernels.SLOTS)
+    assert (kernel, name, profile, layout, window) in {c[:3] + c[4:] for c in slot_kernels.CELLS}
     batches = slot_kernels.stream(name, profile, 60, layout, window, "cpu")
     ops = slot_kernels.calls(kernel, name, batches, layout, tn.FLOAT32, "cpu")
-    per_bucket = 1 if kernel.endswith("model") else 4
+    per_bucket = tr.get(name).num_layers if kernel in slot_kernels.LAYER_KERNELS else 1
     assert len(ops) == per_bucket * len(batches)
     if window:
         assert all(bool(b["slot_spill_mask"].any()) for b in batches)
-        assert all(o["m_spill"] is not None for o in ops)
+        assert all(o["m_spill"] is not None for o in ops) if name == "dgn" else all(
+            not o["divide"] for o in ops)
+    elif name == "gat":
+        assert all(o["divide"] for o in ops)
     out = getattr(local_layer, f"{kernel}_ref")(**ops[-1])
     assert bool(out.isfinite().all())
