@@ -32,11 +32,11 @@ Phases, each of which raises (non-zero exit) on failure:
    12, 13 and 25, ``gin_layer.cuh`` the per-layer GIN kernel of rows 10, 12,
    13 and 25 (three lane walks), ``gin_model.cuh`` the whole-model GIN
    kernel of rows 1 and 8,
-   ``gcn_model.cuh`` the GCN one of rows 2, 9 and 15 (whole model, one
-   layer), ``pna_model.cuh`` the PNA
+   ``gcn_model.cuh`` the GCN one of rows 2, 9, 15 and 14 (whole model, one
+   layer, messages only), ``pna_model.cuh`` the PNA
    one of rows 3 and 20 (whole model, one layer), ``dgn_model.cuh`` the DGN
    one of rows 4, 22 (slots) and 18 (ELL), ``lanes.cuh`` the lane walks of
-   GCN and GIN and the ELL runs of rows 15, 17, 18 and 23,
+   GCN and GIN and the ELL runs of rows 14, 15, 17, 18 and 23,
    ``gat_messages.cuh`` the GAT message walk of rows 17, 23 (ELL runs) and
    21 (slot rows), ``linear_wgmma.cuh`` the bf16 product of rows 2-5, 9,
    15, 18, 20, 22 and 23), one
@@ -81,7 +81,10 @@ Phases, each of which raises (non-zero exit) on failure:
    row 14, and ``gcn_local_layer_ell``, row 15, for GCN) and the spill
    scatter against its plain version on layer 0's operands of the hep10k
    W=128 ELL bucket with the longest spill tail (rows 13, 14, 24) and of a
-   molhiv W=128 ELL bucket (rows 13, 15), f32 and bf16;
+   molhiv W=128 ELL bucket (rows 13, 15), f32 and bf16; then row 14 (the
+   messages-only form of row 9's cluster kernel) on layer 0's operands of
+   the synthetic ELL buckets of phase 3e's row 15 (W = 256, 512 and 1024;
+   k = 2 at W=1024), and what the occupancy calculator says of its forms;
 3e. rows 20 (``pna_local_layer``), 18 (``dgn_local_layer_ell``), 16
    (``dgn_local_message_ell``) and 17 (``gat_local_message_ell``) against
    their plain versions on layer 0's operands at full width, f32 and bf16:
@@ -110,6 +113,10 @@ Phases, each of which raises (non-zero exit) on failure:
    on a GAT molhiv ELL bucket and on the GAT hep10k W=128 ELL bucket with the
    longest spill tail (with row 24), and row 24 on an edge-block bucket at
    each reduction width (GAT 68, GIN 100, PNA 160, DGN 200), f32 and bf16;
+   row 24 also on seeded operands with a window whose run is longer than
+   its list (``LONG_RUN``: a hub row of more lanes than the list, the other
+   rows in groups, lanes in random order), at W=128 and W=512, two launches
+   equal bit for bit;
    then rows 10, 12 and 25 at each width of ``GIN_WIDTHS`` and row 23 at
    each head geometry of ``GAT_WIDTHS`` (4 × 16 and 3 × 16), on the lanes of
    a molhiv ELL bucket (W=128) and of a synthetic one of 900-node graphs
@@ -198,11 +205,11 @@ Phases, each of which raises (non-zero exit) on failure:
    each kernel's bf16 form (its product on wgmma) and its f32 form (FMA) in
    turns: bf16, f32, f32, bf16; launches, ms per stream, bound and share of
    the bound;
-5g. rows 9, 3, 4, 5, 20, 22, 23, 10, 12, 25, 18, 15, 17 and 21 by stage on
-   their cells (``SPLIT_CELLS``), bf16 and f32: each kernel alone whole and
-   with its product (row 23 both products, rows 10, 12, 25 the MLP; rows 17
-   and 21 have none), its messages, stats or channels, or both knocked out (the
-   wrappers' ``knockout``, which
+5g. rows 9, 3, 4, 5, 20, 22, 23, 10, 12, 25, 18, 15, 17, 21, 14 and 24 by
+   stage on their cells (``SPLIT_CELLS``), bf16 and f32: each kernel alone
+   whole and with its product (row 23 both products, rows 10, 12, 25 the MLP;
+   rows 17, 21, 14 and 24 have none), its messages, stats, channels or sums,
+   or both knocked out (the wrappers' ``knockout``, which
    only this phase passes), each the device time of the stream's launches
    replayed from a CUDA graph (the wrappers' host work left out), and the
    share of each;
@@ -468,8 +475,12 @@ SPLIT_CELLS = {"gcn_local_model": [("gcn", "hep10k", ELL), ("gcn", "molhiv", ELL
                                              "gin_layer_fused", "dgn_local_layer_ell",
                                              "gcn_local_layer_ell")},
                "gat_local_message_ell": [("gat", "hep10k", ELL_LAYER), ("gat", "molhiv", ELL)],
-               "gat_local_message_slots": [("gat", "hep10k", SLOTS), ("gat", "molhiv", SLOT_INTER)]}
-MESSAGES_ONLY = ("gat_local_message_ell", "gat_local_message_slots")
+               "gat_local_message_slots": [("gat", "hep10k", SLOTS), ("gat", "molhiv", SLOT_INTER)],
+               "gcn_local_message_ell": [("gcn", "hep10k", ELL_LAYER)],
+               SCATTER: [("pna", "hep10k", SLOTS), ("gcn", "hep10k", ELL_LAYER),
+                         ("gin", "molhiv", BLOCKED)]}
+MESSAGES_ONLY = ("gat_local_message_ell", "gat_local_message_slots", "gcn_local_message_ell",
+                 SCATTER)
 # Phases 5 to 5e: the per-layer kernels whose loop of wrapper calls can time
 # the wrappers' host work, also timed by graph replay: rows 14, 15, 16, 17,
 # 18, 19, 21 and 24.
@@ -486,7 +497,8 @@ CLUSTER_MODELS = ("gcn", "pna", "dgn", "gat")
 OCCUPANCY = {"gcn_local_model": (100, 13), "gcn_local_model_slots": (100, 13),
              "dgn_local_model": (100,), "gat_local_model_slots": (64, 4),
              "pna_local_layer_slots": (80,), "dgn_local_layer_slots": (100,),
-             "dgn_local_layer_ell_model": (100,), "gcn_local_layer_ell": (100, 13)}
+             "dgn_local_layer_ell_model": (100,), "gcn_local_layer_ell": (100, 13),
+             "gcn_local_message_ell": (100, 13)}
 # Phase 3e: rows 20 and 22 at every window their clusters take, beside
 # molhiv's W=128 and the hep10k bucket's W=512: (the large graphs' nodes,
 # the window) of the synthetic buckets; rows 18 and 15 on such ELL buckets
@@ -496,6 +508,10 @@ ELL_LAYER_WINDOWS = ((250, 256), (400, 512), (900, 1024))
 # Phase 3e: DGN's spilling W=256 bucket, its hub nodes' in-window in-degree
 # past the 8 slots.
 HUB_DEGREE = 12
+# Phase 3f: row 24's long run, in lists of the kernel's chunk: (the hub row's
+# lanes, the other rows' lanes, the sentinel lanes), as multiples of it, and
+# the windows it runs at.
+LONG_RUN = ((1.25, 3, 0.3), (128, 512))
 
 
 def cuobjdump_path() -> str:
@@ -1103,6 +1119,34 @@ def check_ell_layer_kernels(streams: dict, device, max_err: dict) -> None:
         cases += [(name, *longest_ell_spill(streams, name)),
                   (name, streams[name, "molhiv", ELL][1][0], "molhiv W=128 bucket 0")]
     check_layer_cases(cases, device, max_err)
+    check_row14_windows(device, max_err)
+
+
+def check_row14_windows(device, max_err: dict) -> None:
+    """Phase 3d, row 14 (the messages-only form of row 9's cluster kernel)
+    at every window its clusters take past W=128: layer 0's operands (seeded
+    synthetic weights, the bucket's own degree norms) of the synthetic GCN
+    ELL buckets of ``ELL_LAYER_WINDOWS`` (W = 256, 512 and 1024; k = 2 at
+    W=1024), which have no spill tail, so the operands are row 15's messages
+    part; f32 (1e-4) and bf16 (5e-2); then what the occupancy calculator says
+    of its two forms."""
+    from flowgnn_tpu_torch.core.numerics import BF16, FLOAT32
+    from flowgnn_tpu_torch.models import base
+    from flowgnn_tpu_torch.params.loaders import params_from_numpy
+
+    kname = "gcn_local_message_ell"
+    for n, w in ELL_LAYER_WINDOWS:
+        batch = big_graph_stream("gcn", n, device, ELL, window=w)[1][0]
+        what = f"W={w} k={base.ell_geometry(batch)[1]} synthetic ELL bucket, {n}-node graphs"
+        for prec, tol in ((FLOAT32, 1e-4), (BF16, 5e-2)):
+            params = params_from_numpy(synthetic_params("gcn", SEED + 1), prec, device)
+            kernels = model_module("gcn").layer_kernel_operands(params, batch, prec)
+            ops = kernels.get(kname) or {k: kernels["gcn_local_layer_ell"][k]
+                                         for k in ("ell_meta", "h", "dis", "ee_table", "window")}
+            err = compare(kname, ops, f"gcn {what} layer 0 {prec.compute_dtype}", tol)
+            if prec is FLOAT32:
+                max_err[kname] = max(max_err[kname], err)
+    print_occupancy((kname,), device)
 
 
 def longest_ell_spill(streams: dict, name: str) -> tuple:
@@ -1260,6 +1304,57 @@ def check_block_layer_kernels(streams: dict, device, max_err: dict) -> None:
         *((name, first(name, BLOCKED), "molhiv edge-block bucket 0")
           for name in ("gat", "gin", "pna", "dgn")),
     ], device, max_err)
+    check_long_run(device, max_err)
+
+
+def long_run_operands(window: int, chunk: int, seed: int) -> dict:
+    """Row 24's seeded operands (numpy, D'=100) with one window whose run is
+    longer than the kernel's list of ``chunk`` lanes: four windows of
+    ``window`` rows in blocks of 128 lanes; window 0 two blocks; window 1 a
+    hub row (v = 7), lanes on random rows and sentinel lanes in the numbers
+    ``LONG_RUN`` gives, in random order; window 2 one block and blocks of
+    sentinels parked on it; window 3 no block. Every lane carries a value."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    block = 128
+    hub, rest, sentinels = (int(f * chunk) for f in LONG_RUN[0])
+    v1 = rng.permutation(np.concatenate([np.full(hub, 7), rng.integers(0, window, rest),
+                                         np.full(sentinels, window)]))
+    v1 = np.concatenate([v1, np.full(-len(v1) % block, window)])
+    v0 = rng.integers(0, window, 2 * block)
+    v2 = np.concatenate([rng.integers(0, window, block), np.full(40 * block, window)])
+    v = np.concatenate([v0, v1, v2]).astype(np.int32)
+    bw = np.repeat(np.arange(3), [len(x) // block for x in (v0, v1, v2)]).astype(np.int32)
+    return dict(values=rng.normal(0, 0.5, (len(v), 100)).astype(np.float32), v_local=v[:, None],
+                block_window=bw, window=window, num_windows=4)
+
+
+def check_long_run(device, max_err: dict) -> None:
+    """Phase 3f, row 24 on ``long_run_operands`` at each window of
+    ``LONG_RUN``: against its plain version, f32 (1e-4) and bf16 (5e-2); two
+    launches equal bit for bit; the window with no block zero."""
+    import torch
+
+    from flowgnn_tpu_torch.ops import spmm
+
+    chunk = spmm._library(SCATTER)["chunk"]()
+    for window in LONG_RUN[1]:
+        ops_np = long_run_operands(window, chunk, SEED + window)
+        for dtype, tol in ((torch.float32, 1e-4), (torch.bfloat16, 5e-2)):
+            ops = {k: torch.from_numpy(v).to(device) if hasattr(v, "shape") else v
+                   for k, v in ops_np.items()}
+            ops["values"] = ops["values"].to(dtype)
+            what = (f"W={window}, a run of {ops['v_local'].shape[0]} lanes past the {chunk}-lane "
+                    f"list {dtype}")
+            err = compare(SCATTER, ops, what, tol)
+            again = spmm.windowed_segment_sum(**ops)
+            first = spmm.windowed_segment_sum(**ops)
+            torch.cuda.synchronize()
+            check(torch.equal(first, again), f"{SCATTER} {what}: two launches differ")
+            check(not first.reshape(4, -1)[3].any(), f"{SCATTER} {what}: window 3 not zero")
+            if dtype == torch.float32:
+                max_err[SCATTER] = max(max_err[SCATTER], err)
 
 
 def block_operands(kname: str, batch: dict, d: int, hid: int, spill: bool, dtype, device,
@@ -1957,12 +2052,12 @@ def time_turns(streams: dict, device) -> dict:
 
 
 def time_split(streams: dict, device) -> None:
-    """Phase 5g: rows 9, 3, 4, 5, 20, 22, 23, 10, 12, 25, 18, 15, 17 and 21 by
-    stage on their ``SPLIT_CELLS``, bf16 and f32: the kernel alone over the
-    stream whole, with its product knocked out (``knockout`` bit 0: the next
-    conv, the tower, the posttrans, the glue, row 23's two products or the
-    GIN MLP; rows 17 and 21 have none), with its messages, stats or channels knocked out
-    (bit 1) and with both, each as
+    """Phase 5g: rows 9, 3, 4, 5, 20, 22, 23, 10, 12, 25, 18, 15, 17, 21, 14
+    and 24 by stage on their ``SPLIT_CELLS``, bf16 and f32: the kernel alone
+    over the stream whole, with its product knocked out (``knockout`` bit 0:
+    the next conv, the tower, the posttrans, the glue, row 23's two products
+    or the GIN MLP; rows 17, 21, 14 and 24 have none), with its messages,
+    stats, channels or sums knocked out (bit 1) and with both, each as
     the device time of the stream's launches replayed from a CUDA graph
     (``graph_ms``; beside it the whole as the Python loop's ``cuda_ms``,
     which a knocked-out launch brings down only to its wrapper's host
@@ -1979,7 +2074,8 @@ def time_split(streams: dict, device) -> None:
              "gat_local_layer_ell": "messages", "gin_local_layer": "messages", ROW12: "messages",
              "gin_layer_fused": "message sums", "dgn_local_layer_ell": "channels",
              "gcn_local_layer_ell": "messages", "gat_local_message_ell": "messages",
-             "gat_local_message_slots": "messages"}
+             "gat_local_message_slots": "messages", "gcn_local_message_ell": "messages",
+             SCATTER: "sums"}
     for kname, cells in SPLIT_CELLS.items():
         kernel = kernel_fn(kname)
         for key in cells:
@@ -1988,7 +2084,7 @@ def time_split(streams: dict, device) -> None:
                 calls = kernel_calls(kname, name, params_from_numpy(synthetic_params(name, SEED),
                                                                     prec, device),
                                      streams[key][1], prec, key)
-                # Rows 17 and 21 have no product: bit 0 knocks nothing out.
+                # Rows 17, 21, 14 and 24 have no product: bit 0 knocks nothing out.
                 bits = (0, 2) if kname in MESSAGES_ONLY else (0, 1, 2, 3)
                 loop = {k: cuda_ms(lambda: [kernel(**o, knockout=k) for o in calls]) for k in bits}
                 try:

@@ -1,9 +1,10 @@
-"""The per-layer GIN, GAT, DGN and GCN kernels on their cells: rows 13
-(``gin_local_layer_ell``), 10 (``gin_local_layer``), 12
+"""The per-layer GIN, GAT, DGN and GCN kernels and the windowed scatter on
+their cells: rows 13 (``gin_local_layer_ell``), 10 (``gin_local_layer``), 12
 (``gin_local_layer_ell_lanes``), 25 (``gin_layer_fused``), 23
 (``gat_local_layer_ell``), 17 (``gat_local_message_ell``), 18
-(``dgn_local_layer_ell``), 16 (``dgn_local_message_ell``) and 15
-(``gcn_local_layer_ell``), each alone in ms per stream, bf16 and f32.
+(``dgn_local_layer_ell``), 16 (``dgn_local_message_ell``), 15
+(``gcn_local_layer_ell``), 14 (``gcn_local_message_ell``) and 24
+(``windowed_segment_sum``), each alone in ms per stream, bf16 and f32.
 
     python -m flowgnn_tpu_torch.bench.layer_kernels --label change
 
@@ -16,7 +17,11 @@ lane's bond embedding given; row 25 on molhiv in the edge-block layout
 (unaligned packing); rows 23 and 17 on the hep10k sample and on molhiv in
 ELL (W=128, block 512); row 18 on molhiv in ELL (W=128, block 512); row 16
 on the hep10k sample in ELL at W=128 (block 512, a spill tail); row 15 on
-molhiv in ELL (the intermediates cell: no spill tail). Each
+molhiv in ELL (the intermediates cell: no spill tail); row 14 on GCN's hep10k
+sample in ELL at W=128 (block 384, a spill tail); row 24 on each path that
+runs it: the slot spill tails of PNA and GAT (hep10k at W=128), the ELL spill
+tails of GCN, GAT and DGN (hep10k at W=128) and the edge-block layout of GIN,
+GAT, PNA and DGN on molhiv (widths 100, 68, 160, 200). Each
 launch runs a bucket's layer-0 operands, once per layer (row 23: every layer
 but the last), as ``chip_smoke.py`` times them. Each (kernel, cell, dtype) is
 timed with CUDA events (3 warm-up passes, the mean of ``--reps``) twice: as a
@@ -56,7 +61,20 @@ CELLS = (
     ("dgn_local_layer_ell", "dgn", "molhiv", 4113, "local_ell", None),
     ("dgn_local_message_ell", "dgn", "hep10k", 2048, "local_ell", 128),
     ("gcn_local_layer_ell", "gcn", "molhiv", 4113, "local_ell", None),
+    ("gcn_local_message_ell", "gcn", "hep10k", 2048, "local_ell", 128),
+    ("windowed_segment_sum", "pna", "hep10k", 2048, "local_slots", 128),
+    ("windowed_segment_sum", "gcn", "hep10k", 2048, "local_ell", 128),
+    ("windowed_segment_sum", "gin", "molhiv", 4113, True, None),
+    ("windowed_segment_sum", "gat", "hep10k", 2048, "local_ell", 128),
+    ("windowed_segment_sum", "dgn", "hep10k", 2048, "local_ell", 128),
+    ("windowed_segment_sum", "gat", "hep10k", 2048, "local_slots", 128),
+    ("windowed_segment_sum", "gat", "molhiv", 4113, True, None),
+    ("windowed_segment_sum", "pna", "molhiv", 4113, True, None),
+    ("windowed_segment_sum", "dgn", "molhiv", 4113, True, None),
 )
+# Each model's weight whose leading axis counts its layers.
+LAYER_WEIGHT = {"gin": "mlp1_w", "gcn": "conv_w", "pna": "conv_w", "dgn": "posttrans_w",
+                "gat": "proj_w"}
 
 
 def stream(name: str, profile: str, graphs: int, layout, window, device) -> list:
@@ -82,27 +100,23 @@ def stream(name: str, profile: str, graphs: int, layout, window, device) -> list
 def calls(kernel: str, name: str, batches: list, prec, device) -> list:
     """The keyword operands of every launch of ``kernel`` over the stream:
     each bucket's layer-0 operands, once per layer that runs the kernel (row
-    17 on GAT's unfused path: every layer)."""
-    from flowgnn_tpu_torch.models import base, dgn, gat, gcn, gin
+    17 on GAT's unfused path: every layer; row 24 on every layer of a path
+    with a spill tail or of the edge-block layout)."""
+    from flowgnn_tpu_torch.models import base, dgn, gat, gcn, gin, pna
     from flowgnn_tpu_torch.params import loaders
 
+    make = getattr(loaders, f"synthetic_{name}_params")
+    params = loaders.params_from_numpy(make(0), prec, device)
+    layers = params[LAYER_WEIGHT[name]].shape[0]
     if name == "gat":
-        params = loaders.params_from_numpy(loaders.synthetic_gat_params(0), prec, device)
         fuse = kernel == "gat_local_layer_ell"
-        layers = params["proj_w"].shape[0] - fuse
+        layers -= fuse
         ops = [gat.layer_kernel_operands(params, b, prec, fuse_layers=fuse)[kernel]
                for b in batches]
-    elif name == "dgn":
-        params = loaders.params_from_numpy(loaders.synthetic_dgn_params(0), prec, device)
-        layers = params["posttrans_w"].shape[0]
-        ops = [dgn.layer_kernel_operands(params, b, prec)[kernel] for b in batches]
-    elif name == "gcn":
-        params = loaders.params_from_numpy(loaders.synthetic_gcn_params(0), prec, device)
-        layers = params["conv_w"].shape[0]
-        ops = [gcn.layer_kernel_operands(params, b, prec)[kernel] for b in batches]
+    elif name in ("dgn", "gcn", "pna"):
+        mod = {"dgn": dgn, "gcn": gcn, "pna": pna}[name]
+        ops = [mod.layer_kernel_operands(params, b, prec)[kernel] for b in batches]
     else:
-        params = loaders.params_from_numpy(loaders.synthetic_gin_params(0), prec, device)
-        layers = params["mlp1_w"].shape[0]
         if kernel == "gin_local_layer_ell_lanes":
             ops = []
             for b in batches:
@@ -121,7 +135,7 @@ def main(argv=None) -> int:
     import torch
 
     from flowgnn_tpu_torch.core.numerics import BF16, FLOAT32
-    from flowgnn_tpu_torch.ops import build, fused_layer, local_layer
+    from flowgnn_tpu_torch.ops import build, fused_layer, local_layer, spmm
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--label", default="current", help="the revision's name in the output")
@@ -145,7 +159,9 @@ def main(argv=None) -> int:
         if key not in streams:
             streams[key] = stream(name, profile, graphs, layout, window, dev)
         batches = streams[key]
-        fn = getattr(fused_layer if kernel == "gin_layer_fused" else local_layer, kernel)
+        mod = {"gin_layer_fused": fused_layer, "windowed_segment_sum": spmm}.get(kernel,
+                                                                                local_layer)
+        fn = getattr(mod, kernel)
         for prec in (BF16, FLOAT32):
             ops = calls(kernel, name, batches, prec, dev)
             loop = cuda_ms(lambda: [fn(**o) for o in ops], args.reps)

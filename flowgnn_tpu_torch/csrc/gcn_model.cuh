@@ -7,7 +7,10 @@
 // the ELL layout with any k edge blocks a window, no spill tail) is its
 // one-layer form, with output h' [n, D] in h's type: the next conv's output
 // rnd(rnd(relu(x)) . w_next + b_next), or on the last layer (no w_next)
-// rnd(x).
+// rnd(x); row 14 (gcn_local_message_ell.cu, the ELL layout, any k) is its
+// messages-only form, a kernel of its own (gcn_messages_kernel, at the end of
+// this file) on the same message arithmetic (add_message): m = rnd(acc *
+// dis_v) in h's type, any D from 1 to 128.
 //
 // Per layer l, for window row v and its lanes u -> v:
 //   msg = rnd(dis_u * relu(h_u + ee_l))        ee_l: three bond-table rows
@@ -191,6 +194,30 @@ __device__ __forceinline__ const float* bond_row(const float* tab_s, int a, int 
   return unsigned(a) < unsigned(vocab) ? tab_s + a * d : nullptr;
 }
 
+// One lane's message into a row's sums: thread j of the row's kGroup
+// threads adds rnd(dis_u * relu(h_u + ee)) at its column pairs (2j, 2j + 1),
+// (2j + 2 kGroup, 2j + 2 kGroup + 1), ... below d. hu and the bond rows
+// e1..e3 (null: none) are read as column pairs, so their rows start at an
+// even column; a pair that ends at column d reads one column past the row,
+// which the caller pads.
+template <typename T, int kGroup = 32, typename S, int kPairs>
+__device__ __forceinline__ void add_message(float2 (&acc)[kPairs], const S* hu, float dis_u,
+                                            const float* e1, const float* e2, const float* e3,
+                                            int lane, int d) {
+#pragma unroll
+  for (int j = 0; j < kPairs; ++j) {
+    const int c = 2 * (lane + kGroup * j);
+    if (c >= d) break;
+    float2 ee = make_float2(0.f, 0.f);
+    if (e1) { const float2 t = ld2(e1 + c); ee.x += t.x; ee.y += t.y; }
+    if (e2) { const float2 t = ld2(e2 + c); ee.x += t.x; ee.y += t.y; }
+    if (e3) { const float2 t = ld2(e3 + c); ee.x += t.x; ee.y += t.y; }
+    const float2 hv = ld2(hu + c);
+    acc[j].x += rnd<T>(__fmul_rn(dis_u, fmaxf(hv.x + ee.x, 0.f)));
+    acc[j].y += rnd<T>(__fmul_rn(dis_u, fmaxf(hv.y + ee.y, 0.f)));
+  }
+}
+
 // N = 0: the float32 form (FMA conv); N = 104 or 112: the bf16 form with the
 // wgmma conv of that width. tiles: the bf16 form's packed weight chunks
 // (linear_wgmma.cuh), layers 1..L-1 in order (the one-layer form: its next
@@ -309,21 +336,9 @@ gcn_model_kernel(Msg msg, const T* __restrict__ h0, const T* __restrict__ dis,
         const int owner = u / kRows;
         const S* base = owner == rank ? h_s : cluster.map_shared_rank(h_s, owner);
         const S* hu = base + (u - owner * kRows) * D;
-        const float* e1 = bond_row(tab_s, a1, dm.vocab, D);
-        const float* e2 = bond_row(tab_s, a2, dm.vocab, D);
-        const float* e3 = bond_row(tab_s, a3, dm.vocab, D);
-#pragma unroll
-        for (int j = 0; j < kLaneP; ++j) {
-          const int c = 2 * (lane + 32 * j);
-          if (c >= D) break;
-          float2 ee = make_float2(0.f, 0.f);
-          if (e1) { const float2 t = ld2(e1 + c); ee.x += t.x; ee.y += t.y; }
-          if (e2) { const float2 t = ld2(e2 + c); ee.x += t.x; ee.y += t.y; }
-          if (e3) { const float2 t = ld2(e3 + c); ee.x += t.x; ee.y += t.y; }
-          const float2 hv = ld2(hu + c);
-          acc[j].x += rnd<T>(__fmul_rn(dis_u, fmaxf(hv.x + ee.x, 0.f)));
-          acc[j].y += rnd<T>(__fmul_rn(dis_u, fmaxf(hv.y + ee.y, 0.f)));
-        }
+        add_message<T>(acc, hu, dis_u, bond_row(tab_s, a1, dm.vocab, D),
+                       bond_row(tab_s, a2, dm.vocab, D), bond_row(tab_s, a3, dm.vocab, D), lane,
+                       D);
       });
       const float dv = dis_s[r];
 #pragma unroll
@@ -533,6 +548,251 @@ int launch(int dtype, const Msg& msg, const void* h0, const void* dis, const voi
                            static_cast<const T*>(wn), static_cast<const T*>(bn),
                            static_cast<const T*>(predw), static_cast<const unsigned char*>(tiles),
                            static_cast<float*>(out), static_cast<T*>(h_out), dm, lay);
+    if (e != cudaSuccess) return e;
+    return cudaGetLastError();
+  }));
+}
+
+// ---------------------------------------------------------------------------
+// The messages-only form (row 14, gcn_local_message_ell.cu): the message stage
+// of the layer above with rnd(acc * dis_v) written out in place of the tail.
+// Per window row v, over its lanes u -> v in lane order,
+//   m[v] = rnd(dis_v * sum rnd(dis_u * relu(h_u + ee)))
+// with the ELL lane runs of lanes::Ell (any k edge blocks a window). A window
+// of W = 128..1024 rows runs on a cluster of W/128 blocks; each block stages
+// its 128 rows of h (in h's type) and of dis, and the bond table, in shared
+// memory (h as one contiguous run of 16-byte loads, kStageAhead in flight a
+// thread); a source in another block's rows (h_u and dis_u) is read through
+// cluster.map_shared_rank. It has no tail, no conv, no weight ring and no
+// pool head, so it takes any D from 1 to 128: h and the table are kept at an
+// even row stride (an odd D pads one zero column), so every column pair is
+// one aligned load. A half-warp takes a row (two rows a warp at once), each
+// thread kMsgPairs column pairs; the row's lanes (u and the three table
+// rows) are loaded 16 at a time, one lane a thread, and handed round by
+// shuffles, so the lanes' loads from device memory are not a chain. Its
+// blocks have 512 threads (the other forms 256): a window's 128 rows are all
+// a block's work, and at the models' shapes a launch has about two blocks an
+// SM, so the messages' arithmetic needs the warps of a block that size to
+// keep an SM issuing. At D = 100 in bf16 a block holds h 25.6 KB, the table
+// 5.2 KB and ~1 KB of the rest.
+// ---------------------------------------------------------------------------
+
+constexpr int kMsgMaxD = 2 * 32 * kLaneP;  // widest D of the messages-only form (128)
+constexpr int kMsgThreads = 512;           // threads a block of the messages-only form
+constexpr int kMsgWarps = kMsgThreads / 32;
+constexpr int kMsgGroup = 16;              // threads a row
+constexpr int kMsgPairs = kMsgMaxD / (2 * kMsgGroup);  // column pairs a thread (4)
+constexpr int kStageAhead = 8;             // 16-byte loads of h a thread keeps in flight
+
+struct MsgDims {
+  int n, window, d, vocab, knockout;
+};
+
+// The messages-only form's shared-memory carve-up, byte offsets, and the
+// row stride (elements) of h and of the table.
+struct MsgSmem {
+  size_t h, dis, tab, lo, total;
+  int stride;
+};
+
+inline MsgSmem msg_smem_layout(bool bf16, int d, int vocab) {
+  MsgSmem s;
+  s.stride = d + (d & 1);
+  size_t o = 0;
+  auto take = [&o](size_t bytes) {
+    const size_t at = o;
+    o += (bytes + 15) / 16 * 16;
+    return at;
+  };
+  s.h = take(size_t(kRows) * s.stride * (bf16 ? 2 : 4));
+  s.dis = take(kRows * 4);
+  s.tab = take(size_t(vocab) * s.stride * 4);
+  s.lo = take((kRows + 1) * 4);
+  s.total = o;
+  return s;
+}
+
+template <typename T>
+__device__ __forceinline__ void st1(T* p, float x) { *p = store<T>(x); }
+
+// out [n, D]: m for every real row. Dims::knockout bit 1 (kNoMessages) skips
+// the messages and writes zeros (timing only).
+template <typename T>
+__global__ void __launch_bounds__(kMsgThreads, 2)
+gcn_messages_kernel(lanes::Ell msg, const T* __restrict__ h, const T* __restrict__ dis,
+                    const T* __restrict__ tab, T* __restrict__ out, MsgDims dm, MsgSmem lay) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = int(cluster.block_rank());
+  const int win = blockIdx.x / int(cluster.num_blocks());
+  const int D = dm.d, P = lay.stride, tid = threadIdx.x;
+  T* h_s = reinterpret_cast<T*>(smem + lay.h);                  // [kRows][P] this block's rows
+  float* dis_s = reinterpret_cast<float*>(smem + lay.dis);      // [kRows]
+  float* tab_s = reinterpret_cast<float*>(smem + lay.tab);      // [vocab][P]
+  int* lo_s = reinterpret_cast<int*>(smem + lay.lo);            // [kRows+1] the rows' lane runs
+  const long wrow0 = long(win) * dm.window;
+  const long row0 = wrow0 + long(rank) * kRows;
+  const int rows = dm.n - row0 < kRows ? int(dm.n - row0) : kRows;  // real rows (may be <= 0)
+  const bool do_msg = !(dm.knockout & kNoMessages);
+
+  // h: the block's real rows are one contiguous run of device memory. At an
+  // even D with h 16-byte aligned it goes as 16-byte pieces, kStageAhead
+  // loads in flight a thread before their stores, the last few bytes as
+  // 4-byte words, and the rows past it as zeros; otherwise element by element.
+  if (P == D && rows > 0 && (reinterpret_cast<size_t>(h) & 15) == 0) {
+    const int bytes = rows * D * int(sizeof(T)), n16 = bytes / 16;
+    const int4* s16 = reinterpret_cast<const int4*>(h + row0 * D);
+    int4* d16 = reinterpret_cast<int4*>(h_s);
+    for (int i0 = 0; i0 < n16; i0 += kMsgThreads * kStageAhead) {
+      int4 x[kStageAhead];
+#pragma unroll
+      for (int u = 0; u < kStageAhead; ++u) {
+        const int i = i0 + u * kMsgThreads + tid;
+        if (i < n16) x[u] = __ldg(s16 + i);
+      }
+#pragma unroll
+      for (int u = 0; u < kStageAhead; ++u) {
+        const int i = i0 + u * kMsgThreads + tid;
+        if (i < n16) d16[i] = x[u];
+      }
+    }
+    const unsigned* s4 = reinterpret_cast<const unsigned*>(h + row0 * D);
+    unsigned* d4 = reinterpret_cast<unsigned*>(h_s);
+    for (int i = n16 * 4 + tid; i < kRows * P * int(sizeof(T)) / 4; i += kMsgThreads)
+      d4[i] = i < bytes / 4 ? __ldg(s4 + i) : 0u;
+  } else {
+    for (int i = tid; i < kRows * P; i += kMsgThreads) {
+      const int r = i / P, c = i - r * P;
+      h_s[i] = store<T>(r < rows && c < D ? ld(h + (row0 + r) * D + c) : 0.f);
+    }
+  }
+  for (int r = tid; r < kRows; r += kMsgThreads) dis_s[r] = r < rows ? ld(dis + row0 + r) : 0.f;
+  for (int i0 = 0; i0 < dm.vocab * P; i0 += kMsgThreads * kStageAhead) {
+    float x[kStageAhead];
+#pragma unroll
+    for (int u = 0; u < kStageAhead; ++u) {
+      const int i = i0 + u * kMsgThreads + tid, a = i / P, c = i - a * P;
+      x[u] = i < dm.vocab * P && c < D ? ld(tab + a * D + c) : 0.f;
+    }
+#pragma unroll
+    for (int u = 0; u < kStageAhead; ++u) {
+      const int i = i0 + u * kMsgThreads + tid;
+      if (i < dm.vocab * P) tab_s[i] = x[u];
+    }
+  }
+  lanes::ell_runs<kRows>(msg.meta + long(win) * msg.block * lanes::kEllMeta, msg.block,
+                         rank * kRows, lo_s, tid, kMsgThreads);
+  // Every block's h and dis are in place before any block gathers from them.
+  cluster.sync();
+
+  // A half-warp a row: rows r and r + 1 of a step go to the warp's two halves.
+  const int lane = tid % 32, hl = lane % kMsgGroup, half = lane / kMsgGroup;
+  const int* meta_w = msg.meta + long(win) * msg.block * lanes::kEllMeta;
+  for (int rb = 2 * (tid / 32); rb < rows; rb += 2 * kMsgWarps) {
+    const int r = rb + half;
+    const bool live = r < rows;
+    float2 acc[kMsgPairs];
+#pragma unroll
+    for (int j = 0; j < kMsgPairs; ++j) acc[j] = make_float2(0.f, 0.f);
+    const int lo = live ? lo_s[r] : 0, n = live && do_msg ? lo_s[r + 1] - lo : 0;
+    // The two halves walk max(n) lanes together (shuffles need the whole warp).
+    const int most = max(n, __shfl_xor_sync(0xffffffffu, n, kMsgGroup));
+    for (int e0 = 0; e0 < most; e0 += kMsgGroup) {
+      // This half's next kMsgGroup lanes: one a thread.
+      int mu = dm.window, m1 = -1, m2 = -1, m3 = -1;
+      if (e0 + hl < n) {
+        const int* m = meta_w + (lo + e0 + hl) * lanes::kEllMeta;
+        mu = __ldg(m);
+        m1 = __ldg(m + 2);
+        m2 = __ldg(m + 3);
+        m3 = __ldg(m + 4);
+      }
+      const int steps = min(kMsgGroup, most - e0);
+      for (int k = 0; k < steps; ++k) {
+        const int src = half * kMsgGroup + k;
+        const int u = __shfl_sync(0xffffffffu, mu, src);
+        const int a1 = __shfl_sync(0xffffffffu, m1, src);
+        const int a2 = __shfl_sync(0xffffffffu, m2, src);
+        const int a3 = __shfl_sync(0xffffffffu, m3, src);
+        // Past the row, outside the window or a padding row: no message.
+        if (e0 + k >= n || unsigned(u) >= unsigned(dm.window) || wrow0 + u >= dm.n) continue;
+        const int owner = u / kRows, ur = u - owner * kRows;
+        const T* hb = owner == rank ? h_s : cluster.map_shared_rank(h_s, owner);
+        const float* db = owner == rank ? dis_s : cluster.map_shared_rank(dis_s, owner);
+        add_message<T, kMsgGroup>(acc, hb + ur * P, db[ur], bond_row(tab_s, a1, dm.vocab, P),
+                                  bond_row(tab_s, a2, dm.vocab, P),
+                                  bond_row(tab_s, a3, dm.vocab, P), hl, D);
+      }
+    }
+    if (!live) continue;
+    const float dv = dis_s[r];
+    T* o = out + (row0 + r) * D;
+#pragma unroll
+    for (int j = 0; j < kMsgPairs; ++j) {
+      const int c = 2 * (hl + kMsgGroup * j);
+      if (c >= D) break;
+      const float x = __fmul_rn(acc[j].x, dv), y = __fmul_rn(acc[j].y, dv);
+      if (P == D) {
+        st2(o + c, x, y);  // an even D: the pair is one aligned store
+      } else {
+        st1(o + c, x);
+        if (c + 1 < D) st1(o + c + 1, y);
+      }
+    }
+  }
+  cluster.sync();  // keep this block's h until no block of the cluster reads it
+}
+
+inline bool bad_msg_geometry(int window, int d, int vocab) {
+  return window % kRows || window / kRows < 1 || window / kRows > kMaxCluster || d < 1 ||
+         d > kMsgMaxD || vocab < 0;
+}
+
+// The messages-only form's kernel by dtype code (0 = float32, 1 = bfloat16).
+template <typename F>
+cudaError_t with_msg_kernel(int dtype, F&& f) {
+  if (dtype == 0) return f(gcn_messages_kernel<float>, float{});
+  if (dtype == 1) return f(gcn_messages_kernel<__nv_bfloat16>, __nv_bfloat16{});
+  return cudaErrorInvalidValue;
+}
+
+// What the occupancy calculator says of the messages-only form: out[0] the
+// blocks that fit one SM, out[1] the clusters of W/128 blocks that run at
+// once. Returns a cudaError_t.
+inline int msg_occupancy(int dtype, int window, int d, int vocab, int device, int* out) {
+  if (bad_msg_geometry(window, d, vocab)) return int(cudaErrorInvalidValue);
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return int(err);
+  const size_t bytes = msg_smem_layout(dtype == 1, d, vocab).total;
+  return int(with_msg_kernel(dtype, [&](auto kernel, auto) {
+    ClusterLaunch ln;
+    const cudaError_t e =
+        cluster_launch(kernel, ln, 1, window / kRows, kMsgThreads, bytes, nullptr);
+    return e != cudaSuccess ? e : cluster_occupancy(kernel, ln, kMsgThreads, bytes, out);
+  }));
+}
+
+// Checks the geometry and launches the messages-only form over `lanes`
+// lanes a window of meta. Returns a cudaError_t.
+inline int launch_messages(int dtype, const void* meta, int lanes, const void* h, const void* dis,
+                           const void* tab, void* out, int num_windows, const MsgDims& dm,
+                           int device, void* stream) {
+  if (bad_msg_geometry(dm.window, dm.d, dm.vocab) || num_windows < 1 || lanes < 0)
+    return int(cudaErrorInvalidValue);
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return int(err);
+  const MsgSmem lay = msg_smem_layout(dtype == 1, dm.d, dm.vocab);
+  const lanes::Ell walk{static_cast<const int*>(meta), lanes};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return int(with_msg_kernel(dtype, [&](auto kernel, auto tag) {
+    using T = decltype(tag);
+    ClusterLaunch ln;
+    cudaError_t e =
+        cluster_launch(kernel, ln, num_windows, dm.window / kRows, kMsgThreads, lay.total, s);
+    if (e != cudaSuccess) return e;
+    e = cudaLaunchKernelEx(&ln.cfg, kernel, walk, static_cast<const T*>(h),
+                           static_cast<const T*>(dis), static_cast<const T*>(tab),
+                           static_cast<T*>(out), dm, lay);
     if (e != cudaSuccess) return e;
     return cudaGetLastError();
   }));

@@ -1,6 +1,6 @@
 // The lane walks of the whole-model kernels' message stages, shared by
-// gin_model.cuh (rows 8 and 1) and gcn_model.cuh (rows 9 and 2): the k = 1
-// ELL layout and the degree-sorted slot layout that
+// gin_model.cuh (rows 8 and 1) and gcn_model.cuh (rows 9 and 2; the ELL walk
+// also rows 15 and 14): the k = 1 ELL layout and the degree-sorted slot layout that
 // flowgnn_tpu_torch/models/base.py:as_batch builds. The ELL runs (ell_runs)
 // also serve dgn_model.cuh's ELL walk (row 18), gat_messages.cuh (rows 17
 // and 23) and row 16 (dgn_local_layer_ell.cu).

@@ -54,7 +54,7 @@ the last two one thread-block cluster of W/128 blocks per window of 128 to
 The per-layer ELL kernels run one layer per launch over the ELL layout with
 any number k of edge blocks per window (the k·B lanes of a window are one
 run sorted by destination row), at windows of 128 up to 1024 rows, one block
-per 128 rows (rows 18 and 15: a thread-block cluster of W/128 blocks per
+per 128 rows (rows 18, 15 and 14: a thread-block cluster of W/128 blocks per
 window); h stays in device memory between layers:
 
 - ``gin_local_layer_ell``: a whole GIN / GIN-VN layer, messages, the spill
@@ -63,7 +63,8 @@ window); h stays in device memory between layers:
   epilogue; ``_local_scatter_apply_ell_wps``, its ``wps`` > 1 form, computes
   the same function and is merged into it);
 - ``gcn_local_message_ell``: GCN's norm-scaled message sum
-  (``csrc/gcn_local_message_ell.cu``);
+  (``csrc/gcn_local_message_ell.cu``: the messages-only form of
+  ``gcn_local_model``'s kernel, ``csrc/gcn_model.cuh``);
 - ``gcn_local_layer_ell``: a whole GCN layer after its conv, up to the next
   conv's output (``csrc/gcn_local_layer_ell.cu``: the one-layer form of
   ``gcn_local_model``'s kernel, ``csrc/gcn_model.cuh``);
@@ -1189,7 +1190,8 @@ def _library(name: str) -> dict:
     ``_tower_dims``, rows 4, 22 and 18 ``_posttrans_dims``, row 5
     ``_glue_dims``), those that keep two
     blocks an SM (rows 9, 2, 15, 4, 5, 22 and 18) and row 20 also
-    ``_smem_per_sm`` and ``_occupancy``."""
+    ``_smem_per_sm`` and ``_occupancy``, row 14 ``_occupancy``; row 24
+    (``windowed_segment_sum``) ``_chunk``, its list's lanes."""
     slot_getters = ("max_d", "max_slots")
     ell_getters = ("max_d", "rows_per_block", "max_cluster")
     layer_getters = ("max_d", "rows_per_block", "max_window_blocks")
@@ -1235,16 +1237,16 @@ def _library(name: str) -> dict:
             [_I32] + [_PTR] * 5 + [_I32] * 8 + [_I32, _PTR],
         ),
         "windowed_segment_sum": (
-            "wss", (), [_I32],
-            [_I32] + [_PTR] * 4 + [_I32] * 5 + [_I32, _PTR],
+            "wss", ("chunk",), [],
+            [_I32] + [_PTR] * 4 + [_I32] * 8 + [_I32, _PTR],
         ),
         "gin_local_layer_ell": (
             "gin_layer_ell", layer_getters, [_I32] * 5,
             [_I32] + [_PTR] * 11 + [_I32] * 10 + [_I32, _PTR],
         ),
         "gcn_local_message_ell": (
-            "gcn_msg_ell", layer_getters, [_I32] * 2,
-            [_I32] + [_PTR] * 5 + [_I32] * 6 + [_I32, _PTR],
+            "gcn_msg_ell", layer_getters, [_I32] * 3,
+            [_I32] + [_PTR] * 5 + [_I32] * 7 + [_I32, _PTR],
         ),
         "gcn_local_layer_ell": (
             "gcn_layer_ell", layer_getters, [_I32] * 4,
@@ -1319,6 +1321,7 @@ def _library(name: str) -> dict:
                                       ("occupancy", [_I32] * 5 + [_INT_P], _I32)),
         "gcn_local_layer_ell": (per_sm, ("conv_dims", [_I32, _INT_P], None),
                                 ("occupancy", [_I32] * 6 + [_INT_P], _I32)),
+        "gcn_local_message_ell": (("occupancy", [_I32] * 5 + [_INT_P], _I32),),
         "gat_local_model_slots": (per_sm, ("glue_dims", [_I32, _INT_P], None),
                                   ("occupancy", [_I32] * 8 + [_INT_P], _I32)),
     }
@@ -2062,18 +2065,21 @@ def _two_block_stages(kernel: str, lib, code: int, geometry: tuple, gmax: int, t
 def occupancy(kernel: str, dtype: torch.dtype, window: int, geometry: tuple, gmax: int,
               t_out: int, device) -> dict:
     """What the occupancy calculator says of the cluster kernel ``kernel``
-    (the libraries of rows 9, 2, 4 and 5, and of rows 20, 22, 18 and 15) in
-    ``dtype`` at this geometry on ``device`` (the launch's own ring depth):
-    the block's shared memory, the blocks of that form one SM holds, and the
-    clusters of W/128 blocks that run at once. ``geometry``: (D, vocab) for
-    GCN and row 15, (D,) for DGN and rows 20, 22 and 18, (H·D, heads) for
-    GAT; rows 20, 22, 18 and 15 have no pool head and ignore ``gmax`` and
-    ``t_out``."""
+    (the libraries of rows 9, 2, 4 and 5, and of rows 20, 22, 18, 15 and 14)
+    in ``dtype`` at this geometry on ``device`` (the launch's own ring
+    depth): the block's shared memory, the blocks of that form one SM holds,
+    and the clusters of W/128 blocks that run at once. ``geometry``: (D,
+    vocab) for GCN and rows 15 and 14, (D,) for DGN and rows 20, 22 and 18,
+    (H·D, heads) for GAT; rows 20, 22, 18, 15 and 14 have no pool head and
+    ignore ``gmax`` and ``t_out``."""
     code = _dtype_code(dtype)
     dev = torch.device(device)
     lib = _library(kernel)
     out = (ctypes.c_int * 2)()
-    if kernel in _LAYER_PRODUCTS:
+    if kernel == "gcn_local_message_ell":  # row 14: no product, no ring
+        stages, smem = _layer_plan(kernel, code, geometry[0], 0, window, dev.index, geometry[1])
+        rc = lib["occupancy"](code, window, *geometry, dev.index, out)
+    elif kernel in _LAYER_PRODUCTS:
         stages = _layer_ring(kernel, lib, code, geometry, dev)
         smem = lib["smem_bytes"](code, *geometry, stages)
         rc = lib["occupancy"](code, window, *geometry, stages, dev.index, out)
@@ -2500,20 +2506,25 @@ def _layer_ring(name: str, lib, code: int, geometry: tuple, dev) -> int:
 @functools.cache
 def _layer_plan(name: str, code: int, d: int, slots: int, window: int, device: int,
                 vocab: int = 0) -> tuple:
-    """The launch plan of rows 20, 22, 18 and 15 (``slots`` 0: rows 18 and
-    15's ELL lanes; ``vocab``: row 15's bond table) at this geometry on CUDA
-    device ``device``, worked out once per geometry (a launch is tens of µs,
-    and these checks take the library's getters): (the weight ring, the
-    block's shared memory). Raises before launch on what the clusters (whole
-    blocks of 128 rows, at most 8), the tile (row 15: an even D), the slot
-    depth or the card's shared memory do not take, or a product geometry the
-    host does not share; a refusal is not cached."""
+    """The launch plan of rows 20, 22, 18, 15 and 14 (``slots`` 0: rows 18,
+    15 and 14's ELL lanes; ``vocab``: rows 15 and 14's bond table) at this
+    geometry on CUDA device ``device``, worked out once per geometry (a
+    launch is tens of µs, and these checks take the library's getters): (the
+    weight ring, the block's shared memory; row 14 has no product and no
+    ring). Raises before launch on what the clusters (whole blocks of 128
+    rows, at most 8), the tile (row 15: an even D; row 14: D at most 128),
+    the slot depth or the card's shared memory do not take, or a product
+    geometry the host does not share; a refusal is not cached."""
     lib = _library(name)
     dev = torch.device("cuda", device)
     _check_tile(lib, d)
-    geometry = (d, vocab) if name == "gcn_local_layer_ell" else (d,)
+    geometry = (d, vocab) if name.startswith("gcn_local") else (d,)
     if name == "gcn_local_layer_ell" and d % 2:
         raise ValueError(f"D={d}: the kernel's tile takes an even D")
+    if name not in _LAYER_PRODUCTS:  # row 14: messages only
+        smem = lib["smem_bytes"](code, *geometry)
+        _check_ell_geometry(lib, d, window, smem, dev)
+        return 0, smem
     if code == 1:
         dims_fn, kn = _LAYER_PRODUCTS[name]
         _check_linear_dims(lib, dims_fn, d, *kn(d))
@@ -2806,15 +2817,6 @@ pna_local_layer.launches = 0
 pna_local_layer.stages = 0
 
 
-def _check_ell_layer(ell_meta, h, ee_table, window, library: str):
-    """Check the per-layer ELL kernels' common operands and geometry;
-    returns (the library, lanes per window, NW, vocab)."""
-    vocab = ee_table.shape[0]
-    _check("ee_table", ee_table, h.dtype, (vocab, h.shape[1]), h.device)
-    lib, lanes, nw = _check_ell_lanes(ell_meta, h, window, library, (h.shape[1], vocab))
-    return lib, lanes, nw, vocab
-
-
 def _check_ell_lanes(ell_meta, h, window, library: str, smem_args):
     """Check h, the lanes and the geometry of a per-layer ELL kernel whose
     shared memory ``smem_bytes(*smem_args)`` gives; returns (the library,
@@ -3057,19 +3059,26 @@ gin_local_layer_ell_lanes.launches = 0
 gin_local_layer_ell_lanes.stages = 0
 
 
-def _launch_gcn_message_ell(ell_meta, h, dis, ee_table, window) -> torch.Tensor:
+def _launch_gcn_message_ell(ell_meta, h, dis, ee_table, window, knockout=0) -> torch.Tensor:
     code = _dtype_code(h.dtype)
     dev = h.device
     n, d = h.shape
+    _check("h", h, h.dtype, (n, d), dev)
     _check("dis", dis, h.dtype, (n,), dev)
-    lib, lanes, nw, vocab = _check_ell_layer(ell_meta, h, ee_table, window, "gcn_local_message_ell")
+    vocab = ee_table.shape[0]
+    _check("ee_table", ee_table, h.dtype, (vocab, d), dev)
+    name = "gcn_local_message_ell"
+    lib = _library(name)
+    _layer_plan(name, code, d, 0, window, dev.index, vocab)
+    nw = -(-n // window)
+    lanes = _ell_block(ell_meta, nw, dev)
     out = torch.empty((n, d), dtype=h.dtype, device=dev)
     rc = lib["launch"](
         code, ell_meta.data_ptr(), h.data_ptr(), dis.data_ptr(), ee_table.data_ptr(),
-        out.data_ptr(), nw, n, window, lanes, d, vocab,
+        out.data_ptr(), nw, n, window, lanes, d, vocab, int(knockout),
         dev.index, torch.cuda.current_stream(dev).cuda_stream,
     )
-    _raise_on(lib, rc, "gcn_local_message_ell")
+    _raise_on(lib, rc, name)
     gcn_local_message_ell.launches += 1
     return out
 
@@ -3080,14 +3089,20 @@ def gcn_local_message_ell(
     dis: torch.Tensor,
     ee_table: torch.Tensor,
     window: int,
+    knockout: int = 0,
 ) -> torch.Tensor:
     """GCN's message sum over the ELL layout: [n, D] in h's dtype
-    (``csrc/gcn_local_message_ell.cu``). Operands as in
+    (``csrc/gcn_local_message_ell.cu``: the messages-only form of row 9's
+    cluster kernel, a cluster of W/128 blocks per window of 128 to 1024
+    rows, any k edge blocks a window, any D from 1 to 128). Operands as in
     ``gcn_local_message_ell_ref``; a CPU tensor runs the plain version, a
     CUDA tensor launches the kernel (float32 or bfloat16 h, dis and table,
-    int32 ``ell_meta``) or raises. Each launch adds one to
-    ``gcn_local_message_ell.launches``."""
+    int32 ``ell_meta``; its plan from ``_layer_plan``) or raises.
+    ``knockout`` (timing only, CUDA only): bit 1 skips the messages (zeros
+    are written). Each launch adds one to ``gcn_local_message_ell.launches``."""
     args = (ell_meta, h, dis, ee_table, window)
+    if _knocked_out(h, knockout):
+        return _launch_gcn_message_ell(*args, knockout=knockout)
     return _dispatch(h, gcn_local_message_ell_ref, _launch_gcn_message_ell, args)
 
 

@@ -18,9 +18,12 @@ adds one to ``windowed_segment_sum.launches``.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
-from .local_layer import _acc_dtype, _check, _check_smem, _dispatch, _dtype_code, _library, _raise_on
+from .local_layer import (_acc_dtype, _check, _check_smem, _dispatch, _dtype_code, _knocked_out,
+                          _library, _raise_on)
 
 
 def windowed_segment_sum_ref(
@@ -45,7 +48,35 @@ def windowed_segment_sum_ref(
     return out.to(values.dtype)
 
 
-def _launch_wss(values, v_local, block_window, window, num_windows) -> torch.Tensor:
+# The vectors a thread of row 24 may move at once, widest first (bytes).
+WSS_VECTOR_BYTES = (16, 8, 4, 2)
+
+
+@functools.cache
+def _wss_plan(code: int, d: int, window: int, align: int, device: int) -> tuple:
+    """Row 24's launch plan at this geometry on CUDA device ``device``,
+    worked out once per (dtype, D', window, alignment): (the bytes a thread
+    moves at once: the widest of 16, 8, 4 and, in bf16, 2 that divides a
+    row's bytes and ``align``, the pointers' common alignment; the threads a
+    row: 16 where a row is at most 16 such vectors, else 32). Raises before
+    launch on what the card cannot take (the block's shared memory); a
+    refusal is not cached."""
+    esz = 4 if code == 0 else 2
+    vb = next(b for b in WSS_VECTOR_BYTES if b >= esz and (d * esz) % b == 0 and align % b == 0)
+    lib = _library("windowed_segment_sum")
+    _check_smem(lib, d, window, lib["smem_bytes"](), torch.device("cuda", device))
+    return vb, 16 if d * esz // vb <= 16 else 32
+
+
+def _alignment(*ts: torch.Tensor) -> int:
+    """The largest power of two up to 16 that divides every tensor's address."""
+    addr = 0
+    for t in ts:
+        addr |= t.data_ptr()
+    return 16 if addr % 16 == 0 else addr & -addr
+
+
+def _launch_wss(values, v_local, block_window, window, num_windows, knockout=0) -> torch.Tensor:
     code = _dtype_code(values.dtype)
     dev = values.device
     p, d = values.shape
@@ -57,11 +88,11 @@ def _launch_wss(values, v_local, block_window, window, num_windows) -> torch.Ten
     _check("block_window", block_window, torch.int32, (nb,), dev)
 
     lib = _library("windowed_segment_sum")
-    _check_smem(lib, d, window, lib["smem_bytes"](window), dev)
     out = torch.empty((num_windows * window, d), dtype=values.dtype, device=dev)
+    vb, group = _wss_plan(code, d, window, _alignment(values, out), dev.index)
     rc = lib["launch"](
         code, values.data_ptr(), v_local.data_ptr(), block_window.data_ptr(), out.data_ptr(),
-        nb, p // nb, d, window, num_windows,
+        nb, p // nb, d, window, num_windows, vb, group, int(knockout),
         dev.index, torch.cuda.current_stream(dev).cuda_stream,
     )
     _raise_on(lib, rc, "windowed_segment_sum")
@@ -75,12 +106,17 @@ def windowed_segment_sum(
     block_window: torch.Tensor,
     window: int,
     num_windows: int,
+    knockout: int = 0,
 ) -> torch.Tensor:
     """[num_windows·window, D] windowed sums in the values' dtype. Operands
     as in ``windowed_segment_sum_ref``; a CPU tensor runs the plain version,
     a CUDA tensor launches the kernel (float32 or bfloat16 values, int32
-    ``v_local`` / ``block_window``) or raises."""
+    ``v_local`` / ``block_window``; one block per window and 128-row slice,
+    its plan from ``_wss_plan``) or raises. ``knockout`` (timing only, CUDA
+    only): bit 1 skips the sums (the index pass runs, zeros are written)."""
     args = (values, v_local, block_window, window, num_windows)
+    if _knocked_out(values, knockout):
+        return _launch_wss(*args, knockout=knockout)
     return _dispatch(values, windowed_segment_sum_ref, _launch_wss, args)
 
 

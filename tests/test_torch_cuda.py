@@ -1714,6 +1714,234 @@ def test_row15_knockouts_launch(dtype, cuda_device):
         fn(**{k: v.cpu() if torch.is_tensor(v) else v for k, v in ops.items()}, knockout=1)
 
 
+# Row 14's cases: every window its clusters take (``ROW18_GEOMETRY``'s
+# buckets), k = 1 and 2 edge blocks a window, D at its edges: odd (37), the
+# model's (100) and the widest (128).
+_ROW14_CASES = [(w, k, d) for w in ROW18_GEOMETRY for k in (1, 2) for d in (37, 100, 128)]
+
+
+def _row14_operands(window: int, k: int, d: int, seed: int = 33) -> dict:
+    """Row 14's seeded operands at width ``d`` on a ``ROW18_GEOMETRY`` bucket,
+    as numpy arrays: the layout's own degree norms, a 13-row bond table, h
+    and dis cut 5 rows short of the last window (its padding rows), and lanes
+    turned so that each kind of lane that gives no message is there: in every
+    window a real lane's u set outside [0, W) (past it, and negative) and the
+    pad lanes (v = W) given a live source, which must land nowhere; in the
+    last window, which holds no edge, a lane from a padding row to row 0 and
+    one from row 0 to a padding row."""
+    batch = _ell_window_batch("gcn", window, k, 27)
+    rng = np.random.default_rng(seed)
+    n = batch["node_feat"].shape[0] - 5
+    f32 = lambda *s, sd=0.3: rng.normal(0, sd, s).astype(np.float32)
+    ops = dict(_ell_lane_operands(batch), h=f32(n, d),
+               dis=(1 / np.sqrt(batch["out_deg"][:n] + 1.0)).astype(np.float32),
+               ee_table=f32(13, d))
+    meta = ops["ell_meta"].copy()
+    nw = -(-n // window)
+    lanes = meta.shape[0] // nw
+    for win in range(nw):
+        m = meta[win * lanes:(win + 1) * lanes]
+        real = np.nonzero(m[:, 1] < window)[0]
+        if len(real) >= 2:
+            m[real[0], 0], m[real[1], 0] = window + 3, -2
+        m[m[:, 1] >= window, 0] = 0
+    last = meta[(nw - 1) * lanes:]
+    assert not (last[:, 1] < window).any()
+    last[0, :2] = window - 2, 0
+    last[1, :2] = 0, window - 1
+    return dict(ops, ell_meta=meta)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("window,k,d", _ROW14_CASES,
+                         ids=[f"W{w}-k{k}-D{d}" for w, k, d in _ROW14_CASES])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 5e-2)],
+                         ids=["f32", "bf16"])
+def test_row14_cuda_kernel_windows_match_plain(window, k, d, dtype, tol, cuda_device):
+    """Row 14, the messages-only form of row 9's cluster kernel with the ELL
+    lane walk, at W = 128, 256, 512 and 1024 (a cluster of W/128 blocks,
+    the large graph's sources read across all of them), k = 1 and 2 edge
+    blocks a window, D = 37 (odd: a padded row stride in shared memory),
+    100 and 128, with sentinel, out-of-window and padding-row lanes, one
+    launch per call. f32: summation order only; bf16: the output rounds to
+    bf16 (a rounding flip of a message moves it by a bf16 ulp or so of its
+    scale)."""
+    fn = local_layer.gcn_local_message_ell
+    ops = _port(_row14_operands(window, k, d), cuda_device, dtype)
+    before = fn.launches
+    got = fn(**ops)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 1
+    expect = local_layer.gcn_local_message_ell_ref(**ops)
+    assert got.dtype == dtype and got.shape == expect.shape
+    assert expect.abs().max() > 1e-2
+    scale = max(1.0, expect.abs().max().item())
+    torch.testing.assert_close(got.float() / scale, expect.float() / scale, rtol=tol, atol=tol)
+    occ = local_layer.occupancy("gcn_local_message_ell", dtype, window, (d, 13), 0, 0,
+                                cuda_device)
+    # Blocks of 512 threads at up to 64 registers: two an SM.
+    assert occ["stages"] == 0 and occ["blocks_per_sm"] == 2 and occ["clusters"] > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_row14_knockout_launches(dtype, cuda_device):
+    """The phase split's knockout of row 14 (bit 1: the messages) launches,
+    counts and writes zeros at W=512; the whole kernel is unchanged by having
+    run it. On a CPU tensor a knockout raises."""
+    fn = local_layer.gcn_local_message_ell
+    ops = _port(_row14_operands(512, 1, 100), cuda_device, dtype)
+    full = fn(**ops)
+    before = fn.launches
+    out = fn(**ops, knockout=2)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 1
+    assert not out.any()
+    assert torch.equal(fn(**ops), full)
+    with pytest.raises(ValueError, match="knockout"):
+        fn(**{k: v.cpu() if torch.is_tensor(v) else v for k, v in ops.items()}, knockout=2)
+
+
+@pytest.mark.cuda
+def test_row14_cuda_kernel_rejects_geometry(cuda_device):
+    """Row 14 raises before launch on a D past its 128 columns and on a
+    window that is not whole 128-row blocks."""
+    fn = local_layer.gcn_local_message_ell
+    before = fn.launches
+    ops = _port(_row14_operands(128, 1, 128), cuda_device)
+    rng = np.random.default_rng(0)
+    wide = dict(ops, h=torch.from_numpy(rng.normal(size=(ops["h"].shape[0], 129)).astype(
+        np.float32)).to(cuda_device), ee_table=torch.zeros(13, 129, device=cuda_device))
+    with pytest.raises(ValueError, match="tile"):
+        fn(**wide)
+    with pytest.raises(ValueError, match="whole blocks"):
+        fn(**dict(ops, window=192))
+    assert fn.launches == before
+
+
+def _long_run_operands(window: int, d: int, seed: int = 34) -> dict:
+    """Row 24's operands with one window whose run is longer than the index
+    pass's list (``windowed_segment_sum``'s chunk, 4096 lanes): four
+    windows of ``window`` rows in blocks of 128 lanes; window 0 two blocks of
+    lanes, window 1 a run of three lists' worth and more (a hub row at v = 7
+    with 5,000 lanes, the rest on random rows, and a tenth sentinels), its
+    lanes in random order, window 2 one block, then blocks of sentinels parked
+    on window 2; window 3 has no block. Values carry a value on every lane,
+    sentinels too, which must add nothing."""
+    rng = np.random.default_rng(seed)
+    block, chunk = 128, 4096
+    hub = np.full(5000, 7)
+    rest = rng.integers(0, window, 3 * chunk)
+    v1 = np.concatenate([hub, rest, np.full(1300, window)])
+    v1 = rng.permutation(v1)
+    v1 = np.concatenate([v1, np.full(-len(v1) % block, window)])
+    v0 = rng.integers(0, window, 2 * block)
+    v2 = np.concatenate([rng.integers(0, window, block), np.full(40 * block, window)])
+    v = np.concatenate([v0, v1, v2]).astype(np.int32)
+    bw = np.repeat(np.arange(3), [len(v0) // block, len(v1) // block, len(v2) // block])
+    return dict(values=rng.normal(0, 0.5, (len(v), d)).astype(np.float32), v_local=v[:, None],
+                block_window=bw.astype(np.int32), window=window, num_windows=4)
+
+
+def _shuffled_spill_operands(width: int) -> dict:
+    """Row 24's operands on the spill layout (``_layer_operands``: windows of
+    512 rows, the T compact windows) at width ``width``, each window's lanes
+    shuffled within its run: the kernel takes v in no order."""
+    ops = _layer_operands("windowed_segment_sum")
+    rng = np.random.default_rng(35)
+    v, bw = ops["v_local"][:, 0].copy(), ops["block_window"]
+    block = v.shape[0] // bw.shape[0]
+    lane_window = np.repeat(bw, block)
+    for t in np.unique(bw):
+        at = np.nonzero(lane_window == t)[0]
+        v[at] = v[rng.permutation(at)]
+    return dict(ops, v_local=v[:, None],
+                values=rng.normal(0, 0.5, (v.shape[0], width)).astype(np.float32))
+
+
+# Row 24's cases: (layout, width). The spill layout (W=512, compact windows,
+# shuffled within each window) at D' = 200 and odd 37; the edge-block layout
+# (W=128, parked sentinel blocks) at each model's width and odd 37; a window
+# whose run passes the list, at W = 128 and 512.
+_ROW24_CASES = [("spill", 200), ("spill", 37), *(("blocks", w) for w in (68, 100, 160, 200, 37)),
+                ("long128", 100), ("long512", 100), ("long128", 37)]
+
+
+def _row24_operands(layout: str, width: int) -> dict:
+    if layout == "spill":
+        return _shuffled_spill_operands(width)
+    if layout == "blocks":
+        return _blocked_wss_operands(width)
+    return _long_run_operands(int(layout[4:]), width)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout,width", _ROW24_CASES,
+                         ids=[f"{l}-D{w}" for l, w in _ROW24_CASES])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 5e-2)],
+                         ids=["f32", "bf16"])
+def test_row24_cuda_kernel_layouts_match_plain(layout, width, dtype, tol, cuda_device):
+    """Row 24, one block per output window and 128-row slice over per-row
+    lane lists, against its plain version: the spill layout with its lanes
+    in no order, the edge-block layout with its parked sentinel blocks, a
+    window whose run is longer than the list (a hub row past it, the other
+    rows in groups) and a window with no block (zeros), at widths whose row
+    bytes take 16-, 8-, 4- and 2-byte vectors; two launches give equal bits.
+    f32: summation order only; bf16: the output rounds to bf16 once."""
+    fn = spmm.windowed_segment_sum
+    ops = _port(_row24_operands(layout, width), cuda_device, dtype)
+    before = fn.launches
+    got = fn(**ops)
+    again = fn(**ops)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 2
+    assert torch.equal(got, again)
+    expect = spmm.windowed_segment_sum_ref(**ops)
+    assert got.dtype == dtype and got.shape == expect.shape
+    assert expect.abs().max() > 1e-2
+    scale = max(1.0, expect.abs().max().item())
+    torch.testing.assert_close(got.float() / scale, expect.float() / scale, rtol=tol, atol=tol)
+    if layout.startswith("long"):
+        assert not got.reshape(4, -1)[3].any()  # window 3 has no block
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_row24_cuda_kernel_takes_unaligned_values(dtype, cuda_device):
+    """Values that start off a 16-byte boundary (a view one element in) take
+    narrower vectors: the plan follows the pointers' alignment, and the sums
+    are the aligned launch's, bit for bit."""
+    fn = spmm.windowed_segment_sum
+    ops = _port(_blocked_wss_operands(200), cuda_device, dtype)
+    vals = ops["values"]
+    flat = torch.empty(vals.numel() + 1, dtype=dtype, device=cuda_device)
+    shifted = flat[1:].view(vals.shape)
+    shifted.copy_(vals)
+    assert shifted.data_ptr() % 16 != 0
+    torch.testing.assert_close(fn(**dict(ops, values=shifted)), fn(**ops), rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_row24_knockout_launches(dtype, cuda_device):
+    """The phase split's knockout of row 24 (bit 1: the sums; the index pass
+    runs) launches, counts and writes zeros, on the long-run operands too;
+    the whole kernel is unchanged by having run it. On a CPU tensor a
+    knockout raises."""
+    fn = spmm.windowed_segment_sum
+    for ops in (_blocked_wss_operands(100), _long_run_operands(128, 100)):
+        ops = _port(ops, cuda_device, dtype)
+        full = fn(**ops)
+        before = fn.launches
+        out = fn(**ops, knockout=2)
+        torch.cuda.synchronize()
+        assert fn.launches == before + 1
+        assert not out.any()
+        assert torch.equal(fn(**ops), full)
+    with pytest.raises(ValueError, match="knockout"):
+        fn(**{k: v.cpu() if torch.is_tensor(v) else v for k, v in ops.items()}, knockout=2)
+
+
 def _row21_operands(window: int, hd: int, heads: int, slots: int, hot: bool,
                     seed: int = 30) -> dict:
     """Row 21's seeded operands over three windows of ``window`` rows, the

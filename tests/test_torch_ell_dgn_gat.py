@@ -279,15 +279,16 @@ def test_new_rows_operands_meet_the_kernel_contract(name, case, prec):
     ("gat_local_message_ell", "gat", "hep10k", 128),
     ("dgn_local_layer_ell", "dgn", "molhiv", None),
     ("dgn_local_message_ell", "dgn", "hep10k", 128),
-    ("gcn_local_layer_ell", "gcn", "molhiv", None)])
+    ("gcn_local_layer_ell", "gcn", "molhiv", None),
+    ("gcn_local_message_ell", "gcn", "hep10k", 128)])
 def test_layer_kernels_tool_launches_what_the_paths_launch(kernel, name, profile, window):
-    """``bench.layer_kernels`` times rows 17, 18, 16 and 15 on the launches
-    their paths make: each bucket's layer-0 operands once per layer (row 17
-    on GAT's unfused ELL path, every layer, with a spill tail on hep10k at
-    W=128; rows 18 and 15 on DGN's and GCN's molhiv ELL streams, no tail,
-    with bf16 posttrans or next-conv chunks; row 16 on DGN's hep10k W=128
-    stream, with a tail); every launch's operands are ones the kernel's
-    plain version takes."""
+    """``bench.layer_kernels`` times rows 17, 18, 16, 15 and 14 on the
+    launches their paths make: each bucket's layer-0 operands once per layer
+    (row 17 on GAT's unfused ELL path, every layer, with a spill tail on
+    hep10k at W=128; rows 18 and 15 on DGN's and GCN's molhiv ELL streams, no
+    tail, with bf16 posttrans or next-conv chunks; rows 16 and 14 on DGN's
+    and GCN's hep10k W=128 streams, with a tail); every launch's operands are
+    ones the kernel's plain version takes."""
     from flowgnn_tpu_torch.bench import layer_kernels
 
     assert (kernel, name, profile, window) in {c[:3] + c[5:] for c in layer_kernels.CELLS}
@@ -301,3 +302,34 @@ def test_layer_kernels_tool_launches_what_the_paths_launch(kernel, name, profile
         assert all(o[tiles[kernel]] is not None for o in ops)
     out = getattr(local_layer, f"{kernel}_ref")(**ops[-1])
     assert bool(out.float().isfinite().all())
+
+
+# Row 24's width on each of its tool cells: the values the path scatters.
+ROW24_WIDTHS = {("pna", "local_slots"): 160, ("gat", "local_slots"): 68,
+                ("gcn", "local_ell"): 100, ("gat", "local_ell"): 68, ("dgn", "local_ell"): 200,
+                ("gin", True): 100, ("gat", True): 68, ("pna", True): 160, ("dgn", True): 200}
+
+
+@pytest.mark.parametrize("name,layout", list(ROW24_WIDTHS),
+                         ids=[f"{n}-{'blocked' if l is True else l}" for n, l in ROW24_WIDTHS])
+def test_layer_kernels_tool_times_row24_on_its_paths(name, layout):
+    """``bench.layer_kernels`` times row 24 (``windowed_segment_sum``) on the
+    launches each of its paths makes: the slot spill tails of PNA and GAT and
+    the ELL spill tails of GCN, GAT and DGN (hep10k at W=128), and the
+    edge-block layout of GIN, GAT, PNA and DGN (molhiv), each bucket's
+    layer-0 scatter once per layer at the path's width; every launch's
+    operands are ones the plain version takes."""
+    from flowgnn_tpu_torch.bench import layer_kernels
+    from flowgnn_tpu_torch.ops import spmm
+
+    kernel = "windowed_segment_sum"
+    profile, window = ("molhiv", None) if layout is True else ("hep10k", 128)
+    graphs = 4113 if layout is True else 2048
+    assert (kernel, name, profile, graphs, layout, window) in layer_kernels.CELLS
+    batches = layer_kernels.stream(name, profile, 60, layout, window, "cpu")
+    ops = layer_kernels.calls(kernel, name, batches, tn.FLOAT32, "cpu")
+    assert len(ops) == tr.get(name).num_layers * len(batches)
+    assert all(o["values"].shape[1] == ROW24_WIDTHS[name, layout] for o in ops)
+    assert all(o["window"] == (512 if layout != True else 128) for o in ops)
+    out = spmm.windowed_segment_sum_ref(**ops[-1])
+    assert bool(out.isfinite().all()) and bool(out.any())

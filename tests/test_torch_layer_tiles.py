@@ -8,7 +8,7 @@ row 18's bf16 channels and posttrans and of row 15's bf16 messages and next
 conv on the packed chunks against the plain versions and the JAX kernels in
 interpret mode, the model's row-23 weights and the GIN layers' slice of
 ``mlp_tiles`` packed once per weight set, and the launch plans of rows 10,
-12, 13, 15, 21, 23 and 25 worked out once per geometry."""
+12, 13, 15, 21, 23, 25, 14 and 24 worked out once per geometry."""
 
 import collections
 
@@ -20,7 +20,7 @@ import torch
 from flowgnn_tpu_torch.core import numerics as tn
 from flowgnn_tpu_torch.models import base as tb
 from flowgnn_tpu_torch.models import gat, gin
-from flowgnn_tpu_torch.ops import local_layer
+from flowgnn_tpu_torch.ops import local_layer, spmm
 from flowgnn_tpu_torch.params.loaders import (
     params_from_numpy, synthetic_gat_params, synthetic_gin_params,
 )
@@ -492,6 +492,76 @@ def test_layer_launch_plans_are_worked_out_once_per_geometry(monkeypatch):
             with pytest.raises(ValueError, match="num_heads"):
                 row21(64, 4, 128)
         assert prepared == []  # neither opts in: rows 15 and 21 need no prepare
+    finally:
+        for plan in plans:
+            plan.cache_clear()
+
+
+def test_row14_row24_launch_plans_are_worked_out_once_per_geometry(monkeypatch):
+    """Row 14's plan (``_layer_plan``: messages only, no product and no
+    ring) and row 24's (``spmm._wss_plan``: the vector a thread moves and
+    the threads a row) read the library's getters once per geometry, not
+    once per launch. Row 24's
+    vector is the widest of 16, 8, 4 and (bf16) 2 bytes that divides a row's
+    bytes and the pointers' alignment, and a row of at most 16 vectors takes
+    a half-warp. A geometry a kernel refuses raises each time and is not
+    cached."""
+    calls, prepared = collections.Counter(), []
+    row14, wss = _FakeLibrary(calls, prepared), _FakeLibrary(calls, prepared)
+
+    def counted(key, value):
+        def f(*args):
+            calls[key] += 1
+            return value
+        return f
+
+    row14["max_d"] = counted("max_d", 128)
+    del wss["max_d"]  # row 24 takes any width
+    wss["smem_bytes"] = counted("smem_bytes", 33868)
+    monkeypatch.setattr(local_layer, "_library", {"gcn_local_message_ell": row14}.__getitem__)
+    monkeypatch.setattr(spmm, "_library", {"windowed_segment_sum": wss}.__getitem__)
+    plans = (local_layer._layer_plan, spmm._wss_plan)
+    for plan in plans:
+        plan.cache_clear()
+    try:
+        row14_plan = lambda code, d, window: local_layer._layer_plan(
+            "gcn_local_message_ell", code, d, 0, window, 0, 13)
+        assert row14_plan(1, 100, 128) == (0, 63000)  # the fake's 50 KB + 1 KB a table row
+        reads = sum(calls.values())
+        assert reads > 0 and calls["max_d"] >= 1
+        for _ in range(3):
+            assert row14_plan(1, 100, 128) == (0, 63000)
+        assert sum(calls.values()) == reads
+        assert row14_plan(0, 37, 1024) == (0, 63000)  # an odd D: no even-D tile here
+        for _ in range(2):
+            with pytest.raises(ValueError, match="tile"):
+                row14_plan(1, 129, 128)
+            with pytest.raises(ValueError, match="whole blocks"):
+                row14_plan(1, 100, 1152)
+        assert prepared == []  # row 14 needs no prepare
+
+        calls.clear()
+        row24_plan = lambda code, d, window, align=16: spmm._wss_plan(code, d, window, align, 0)
+        assert row24_plan(1, 100, 128) == (8, 32)  # bf16 D'=100: 200-byte rows, 25 vectors
+        reads = sum(calls.values())
+        assert reads > 0
+        for _ in range(3):
+            assert row24_plan(1, 100, 128) == (8, 32)
+        assert sum(calls.values()) == reads
+        for code, d, window, align, want in (
+            (1, 200, 128, 16, (16, 32)), (0, 200, 512, 16, (16, 32)), (1, 68, 128, 16, (8, 32)),
+            (1, 160, 128, 16, (16, 32)), (0, 40, 512, 16, (16, 16)), (1, 37, 128, 16, (2, 32)),
+            (0, 37, 300, 16, (4, 32)), (0, 200, 128, 4, (4, 32)), (1, 200, 128, 2, (2, 32)),
+            (1, 1, 1, 16, (2, 16)),
+        ):
+            assert row24_plan(code, d, window, align) == want, (code, d, window, align)
+        wss["smem_optin"] = counted("smem_optin", 1000)
+        for _ in range(2):
+            with pytest.raises(ValueError, match="shared memory"):
+                row24_plan(0, 100, 256)
+        base = torch.zeros(64, dtype=torch.bfloat16)
+        assert spmm._alignment(base) == 16
+        assert spmm._alignment(base[1:]) == 2 and spmm._alignment(base[2:], base) == 4
     finally:
         for plan in plans:
             plan.cache_clear()

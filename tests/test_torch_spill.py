@@ -195,6 +195,91 @@ def test_layer_kernel_matches_jax(case, batches, monkeypatch):
     np.testing.assert_allclose(got.numpy() / scale, expect / scale, rtol=1e-5, atol=1e-5)
 
 
+WSS_ROWS = 128  # the output rows of one block of row 24's kernel: a slice of a window
+
+
+def _wss_lists_mirror(values, v_local, block_window, window, num_windows, chunk=4096):
+    """Row 24's CUDA algorithm (``csrc/windowed_segment_sum.cu``) in plain
+    torch: per output window and 128-row slice, the window's run of blocks,
+    the run's lanes whose v falls in the slice (sentinels fall in none), a
+    list per row in lane order (counts, an exclusive scan, a stable fill),
+    the rows in groups whose lists fit ``chunk`` lanes together and a row
+    past it alone, its list ``chunk`` lanes at a time; each row's f32 sum
+    runs over its list in order and is written once in the values' dtype."""
+    p, d = values.shape
+    block = p // block_window.shape[0]
+    bw, v = block_window.long(), v_local.reshape(-1).long()
+    out = torch.zeros(num_windows * window, d, dtype=torch.float32)
+    for t in range(num_windows):
+        p0 = int(torch.searchsorted(bw, t)) * block
+        p1 = int(torch.searchsorted(bw, t, right=True)) * block
+        for s0 in range(0, window, WSS_ROWS):
+            rows = min(WSS_ROWS, window - s0)
+            r = v[p0:p1] - s0
+            lanes = torch.nonzero((r >= 0) & (r < rows)).flatten()
+            total = torch.bincount(r[lanes], minlength=rows)
+            start = torch.cat([torch.zeros(1, dtype=torch.long), total.cumsum(0)])
+            lists = p0 + lanes[torch.argsort(r[lanes], stable=True)]
+            acc = torch.zeros(rows, d, dtype=torch.float32)
+            r0 = 0
+            while r0 < rows:
+                r1 = r0 + 1
+                if total[r0] <= chunk:
+                    while r1 < rows and start[r1 + 1] - start[r0] <= chunk:
+                        r1 += 1
+                most = int(total[r0:r1].max())
+                for k0 in range(0, most, chunk):
+                    for k in range(k0, min(k0 + chunk, most)):
+                        live = torch.nonzero(total[r0:r1] > k).flatten() + r0
+                        acc[live] += values[lists[start[live] + k]].float()
+                r0 = r1
+            out[t * window + s0:t * window + s0 + rows] = acc
+    return out.to(values.dtype)
+
+
+@pytest.mark.parametrize("layout,chunk", [("spill", 4096), ("spill", 16), ("blocks", 4096),
+                                          ("blocks", 16)])
+def test_segment_sum_lists_mirror_matches_jax(layout, chunk, batches, monkeypatch):
+    """Row 24's algorithm on the card (one block per window and 128-row slice,
+    per-row lane lists in lane order; ``_wss_lists_mirror``) equals the
+    plain version and the Pallas kernel in interpret mode, f32 to 1e-6 and
+    1e-5 of the output's scale, on the spill layout (W=512, the compact
+    windows, each window's lanes shuffled within its run: the kernel takes v
+    in no order) and on the edge-block layout (W=128, parked sentinel
+    blocks); with a 16-lane list the rows go in groups and past it in
+    chunks, and the sums are the same bits."""
+    from test_torch_cuda import _blocked_wss_operands
+
+    monkeypatch.setenv("FLOWGNN_PALLAS_INTERPRET", "1")
+    rng = np.random.default_rng(9)
+    if layout == "spill":
+        jbatch = batches["pna"][0]
+        vloc = np.asarray(jbatch["spill_blk_vlocal"]).copy()
+        bw = np.asarray(jbatch["spill_blk_window"])
+        block = vloc.shape[0] // bw.shape[0]
+        lane_window = np.repeat(bw, block)
+        for t in np.unique(bw):
+            at = np.nonzero(lane_window == t)[0]
+            vloc[at] = vloc[rng.permutation(at)]
+        ops = dict(values=rng.normal(0, 0.5, (vloc.shape[0], 40)).astype(np.float32),
+                   v_local=vloc[:, None], block_window=bw, window=512,
+                   num_windows=int(bw.max()) + 1)
+    else:
+        ops = _blocked_wss_operands(100)
+    t = {k: torch.from_numpy(np.asarray(v)) if isinstance(v, np.ndarray) else v
+         for k, v in ops.items()}
+    got = _wss_lists_mirror(**t, chunk=chunk)
+    plain = spmm.windowed_segment_sum_ref(**t)
+    expect = _jax_kernel("spmm", "windowed_segment_sum", ops["values"], ops["v_local"],
+                         ops["block_window"], window=ops["window"],
+                         num_windows=ops["num_windows"])
+    scale = max(1.0, float(np.abs(expect).max()))
+    assert got.shape == plain.shape == expect.shape and np.abs(expect).max() > 1e-2
+    np.testing.assert_allclose(got.numpy() / scale, plain.numpy() / scale, rtol=1e-6, atol=1e-6)
+    np.testing.assert_allclose(got.numpy() / scale, expect / scale, rtol=1e-5, atol=1e-5)
+    assert torch.equal(got, _wss_lists_mirror(**t, chunk=4096 if chunk == 16 else 16))
+
+
 def test_segment_sum_bound_of_windows_reads_zero():
     """Output windows that no block names come out zero: past the last
     block's window, and between blocks."""
