@@ -96,13 +96,15 @@ Phases, each of which raises (non-zero exit) on failure:
    blocks) on layer 0's operands at W=128 (molhiv bucket 0), W=256 (a
    synthetic bucket of 250-node graphs), W=512 (the hep10k slot bucket
    holding the largest graph) and W=1024 (a synthetic bucket of 900-node
-   graphs), f32 and bf16, row 22 with and without a seeded ``m_spill``;
+   graphs), f32 and bf16, row 22 with and without a seeded ``m_spill``, row
+   19 (row 3's stats-only form) on row 20's operands there;
    rows 18 and 15 (rows 4's and 9's one-layer forms over ELL; row 15 on a
-   non-final and on the last layer) on synthetic ELL buckets at W=256, 512
-   and 1024 (k=2); row 21 on the GAT hep10k slot bucket at W=512 holding
-   the largest graph, divided and as raw sums; printing the bf16 launch's
-   weight ring and what the occupancy calculator says of the four rows'
-   forms at W=128 and W=512; and DGN over a W=256 bucket
+   non-final and on the last layer) and row 16 (row 4's channels-only form,
+   on row 18's operands) on synthetic ELL buckets at W=256, 512 and 1024
+   (k=2); row 21 on the GAT hep10k slot bucket at W=512 holding the largest
+   graph, divided and as raw sums; printing the bf16 launch's weight ring
+   and what the occupancy calculator says of the six rows' forms at W=128
+   and W=512; and DGN over a W=256 bucket
    whose hub nodes have an in-window in-degree of 12 (past the 8 slots), so
    that it spills: row 22 and row 24 on its layer 0 against their plain
    versions, and ``dgn.forward`` over it, counted (row 22 and row 24 once a
@@ -465,8 +467,8 @@ TURN_CELLS = {
 }
 # Phase 5g: the kernels split by stage, on these cells: each timed whole and
 # with its product (bit 0), its messages, stats or channels (bit 1), or both
-# knocked out; rows 17 and 21, which have no product (MESSAGES_ONLY), with
-# their messages out.
+# knocked out; rows 17, 21, 14, 16, 19 and 24, which have no product
+# (MESSAGES_ONLY), with their messages, channels, stats or sums out.
 SPLIT_CELLS = {"gcn_local_model": [("gcn", "hep10k", ELL), ("gcn", "molhiv", ELL)],
                **{MODEL_KERNELS[name][0]: [(name, "molhiv", SLOTS), (name, "hep10k", HEP_SLOTS)]
                   for name in ("pna", "dgn", "gat")},
@@ -477,10 +479,12 @@ SPLIT_CELLS = {"gcn_local_model": [("gcn", "hep10k", ELL), ("gcn", "molhiv", ELL
                "gat_local_message_ell": [("gat", "hep10k", ELL_LAYER), ("gat", "molhiv", ELL)],
                "gat_local_message_slots": [("gat", "hep10k", SLOTS), ("gat", "molhiv", SLOT_INTER)],
                "gcn_local_message_ell": [("gcn", "hep10k", ELL_LAYER)],
+               "dgn_local_message_ell": [("dgn", "hep10k", ELL_LAYER)],
+               "pna_local_stats_ell": [("pna", "hep10k", SLOTS)],
                SCATTER: [("pna", "hep10k", SLOTS), ("gcn", "hep10k", ELL_LAYER),
                          ("gin", "molhiv", BLOCKED)]}
 MESSAGES_ONLY = ("gat_local_message_ell", "gat_local_message_slots", "gcn_local_message_ell",
-                 SCATTER)
+                 "dgn_local_message_ell", "pna_local_stats_ell", SCATTER)
 # Phases 5 to 5e: the per-layer kernels whose loop of wrapper calls can time
 # the wrappers' host work, also timed by graph replay: rows 14, 15, 16, 17,
 # 18, 19, 21 and 24.
@@ -492,19 +496,24 @@ REPLAYED = ("gcn_local_message_ell", "gcn_local_layer_ell", "dgn_local_message_e
 # slot bucket with the largest graph (W=512).
 CLUSTER_BIG = 250
 CLUSTER_MODELS = ("gcn", "pna", "dgn", "gat")
-# Phase 3: each two-blocks-an-SM kernel's occupancy geometry at the models'
-# widths (``local_layer.occupancy``): GCN (D, vocab), DGN (D,), GAT (H·D, heads).
+# Phase 3: each cluster kernel's occupancy geometry at the models' widths
+# (``local_layer.occupancy``, keyed by library): GCN (D, vocab), DGN (D,),
+# GAT (H·D, heads), PNA's rows 20 and 19 (D,) (row 19 at 8 slots).
 OCCUPANCY = {"gcn_local_model": (100, 13), "gcn_local_model_slots": (100, 13),
              "dgn_local_model": (100,), "gat_local_model_slots": (64, 4),
              "pna_local_layer_slots": (80,), "dgn_local_layer_slots": (100,),
              "dgn_local_layer_ell_model": (100,), "gcn_local_layer_ell": (100, 13),
-             "gcn_local_message_ell": (100, 13)}
-# Phase 3e: rows 20 and 22 at every window their clusters take, beside
+             "gcn_local_message_ell": (100, 13), "dgn_local_layer_ell": (100,),
+             "pna_local_stats_slots": (80,)}
+# Phase 3e: rows 20, 22 and 19 at every window their clusters take, beside
 # molhiv's W=128 and the hep10k bucket's W=512: (the large graphs' nodes,
-# the window) of the synthetic buckets; rows 18 and 15 on such ELL buckets
-# at W = 256, 512 and 1024 (k = 2 there).
+# the window) of the synthetic buckets; rows 18, 15 and 16 on such ELL
+# buckets at W = 256, 512 and 1024 (k = 2 there).
 LAYER_WINDOWS = ((250, 256), (900, 1024))
 ELL_LAYER_WINDOWS = ((250, 256), (400, 512), (900, 1024))
+# Rows 19 and 16's operands, the part of rows 20 and 18's that they take.
+STATS_KEYS = ("slot_src", "h", "window", "slots", "min_init", "max_init")
+CHANNEL_KEYS = ("ell_meta", "h", "eig", "window")
 # Phase 3e: DGN's spilling W=256 bucket, its hub nodes' in-window in-degree
 # past the 8 slots.
 HUB_DEGREE = 12
@@ -1199,12 +1208,14 @@ def check_layer_windows(streams: dict, device, max_err: dict) -> None:
     weights, the bucket's own degree and eigenvector terms) at W=128 (molhiv
     bucket 0), W=256 and W=1024 (synthetic buckets, ``LAYER_WINDOWS``) and
     W=512 (the hep10k slot bucket holding the largest graph), f32 (1e-4) and
-    bf16 (5e-2), row 22 also with a seeded ``m_spill``; then what the
-    occupancy calculator says of both rows; then DGN's spilling W=256
-    bucket (``check_hub_spill``). Rows 18 and 15 (the one-layer forms of
-    rows 4 and 9 over the ELL layout; row 15 on a non-final layer and on the
-    last) the same way on synthetic ELL buckets at W=256, 512 and 1024
-    (``ELL_LAYER_WINDOWS``; two edge blocks a window at W=1024), and their
+    bf16 (5e-2), row 22 also with a seeded ``m_spill``, row 19 (row 3's
+    stats-only form) on row 20's ``STATS_KEYS``; then what the occupancy
+    calculator says of the rows; then DGN's spilling W=256 bucket
+    (``check_hub_spill``). Rows 18 and 15 (the one-layer forms of rows 4 and
+    9 over the ELL layout; row 15 on a non-final layer and on the last) the
+    same way on synthetic ELL buckets at W=256, 512 and 1024
+    (``ELL_LAYER_WINDOWS``; two edge blocks a window at W=1024), row 16 (row
+    4's channels-only form) on row 18's ``CHANNEL_KEYS``, and their
     occupancy. Row 21 on the GAT hep10k slot bucket at W=512 holding the
     largest graph (no spill tail), divided and as raw sums."""
     import numpy as np
@@ -1226,16 +1237,19 @@ def check_layer_windows(streams: dict, device, max_err: dict) -> None:
                 dt = prec.compute_dtype
                 params = params_from_numpy(synthetic_params(name, SEED + 1), prec, device)
                 ops = model_module(name).layer_kernel_operands(params, batch, prec)[kname]
-                variants = [("", ops)]
+                variants = [("", kname, ops)]
                 if name == "dgn":
                     rng = np.random.default_rng(SEED + 2)
                     spill = rng.normal(0, 0.5, (ops["h"].shape[0], 2 * ops["h"].shape[1]))
-                    variants.append((" with m_spill", dict(
+                    variants.append((" with m_spill", kname, dict(
                         ops, m_spill=torch.from_numpy(spill.astype(np.float32)).to(device, dt))))
-                for label, v in variants:
-                    err = compare(kname, v, f"{name} {what} layer 0{label} {dt}", tol)
+                else:  # row 19, the stats-only form, on row 20's operands
+                    variants.append((" stats only", "pna_local_stats_ell",
+                                     {k: ops[k] for k in STATS_KEYS}))
+                for label, kn, v in variants:
+                    err = compare(kn, v, f"{name} {what} layer 0{label} {dt}", tol)
                     if prec is FLOAT32:
-                        max_err[kname] = max(max_err[kname], err)
+                        max_err[kn] = max(max_err[kn], err)
     for name, kname in (("dgn", "dgn_local_layer_ell"), ("gcn", "gcn_local_layer_ell")):
         for n, w in ELL_LAYER_WINDOWS:
             batch = big_graph_stream(name, n, device, ELL, window=w)[1][0]
@@ -1245,14 +1259,17 @@ def check_layer_windows(streams: dict, device, max_err: dict) -> None:
                 kernels = model_module(name).layer_kernel_operands(params, batch, prec)
                 check(kname in kernels, f"{name} {what}: no {kname} launch ({sorted(kernels)})")
                 ops = kernels[kname]
-                variants = [("layer 0", ops)]
+                variants = [("layer 0", kname, ops)]
                 if name == "gcn":  # the last layer's form: no next conv
-                    variants.append(("a last layer", dict(ops, w_next=None, b_next=None,
-                                                          conv_tiles=None)))
-                for label, v in variants:
-                    err = compare(kname, v, f"{name} {what} {label} {prec.compute_dtype}", tol)
+                    variants.append(("a last layer", kname, dict(ops, w_next=None, b_next=None,
+                                                                 conv_tiles=None)))
+                else:  # row 16, the channels-only form, on row 18's operands
+                    variants.append(("channels only", "dgn_local_message_ell",
+                                     {k: ops[k] for k in CHANNEL_KEYS}))
+                for label, kn, v in variants:
+                    err = compare(kn, v, f"{name} {what} {label} {prec.compute_dtype}", tol)
                     if prec is FLOAT32:
-                        max_err[kname] = max(max_err[kname], err)
+                        max_err[kn] = max(max_err[kn], err)
     kname = "gat_local_message_slots"
     hep, big, i = largest_bucket(streams, ("gat", "hep10k", HEP_SLOTS))
     for prec, tol in ((FLOAT32, 1e-4), (BF16, 5e-2)):
@@ -1265,7 +1282,8 @@ def check_layer_windows(streams: dict, device, max_err: dict) -> None:
             if prec is FLOAT32:
                 max_err[kname] = max(max_err[kname], err)
     print_occupancy(("pna_local_layer_slots", "dgn_local_layer_slots",
-                     "dgn_local_layer_ell_model", "gcn_local_layer_ell"), device)
+                     "dgn_local_layer_ell_model", "gcn_local_layer_ell", "pna_local_stats_slots",
+                     "dgn_local_layer_ell"), device)
     check_hub_spill(device, max_err)
 
 
@@ -2052,11 +2070,12 @@ def time_turns(streams: dict, device) -> dict:
 
 
 def time_split(streams: dict, device) -> None:
-    """Phase 5g: rows 9, 3, 4, 5, 20, 22, 23, 10, 12, 25, 18, 15, 17, 21, 14
-    and 24 by stage on their ``SPLIT_CELLS``, bf16 and f32: the kernel alone
-    over the stream whole, with its product knocked out (``knockout`` bit 0:
-    the next conv, the tower, the posttrans, the glue, row 23's two products
-    or the GIN MLP; rows 17, 21, 14 and 24 have none), with its messages,
+    """Phase 5g: rows 9, 3, 4, 5, 20, 22, 23, 10, 12, 25, 18, 15, 17, 21, 14,
+    16, 19 and 24 by stage on their ``SPLIT_CELLS``, bf16 and f32: the kernel
+    alone over the stream whole, with its product knocked out (``knockout``
+    bit 0: the next conv, the tower, the posttrans, the glue, row 23's two
+    products or the GIN MLP; rows 17, 21, 14, 16, 19 and 24 have none), with
+    its messages,
     stats, channels or sums knocked out (bit 1) and with both, each as
     the device time of the stream's launches replayed from a CUDA graph
     (``graph_ms``; beside it the whole as the Python loop's ``cuda_ms``,
@@ -2075,6 +2094,7 @@ def time_split(streams: dict, device) -> None:
              "gin_layer_fused": "message sums", "dgn_local_layer_ell": "channels",
              "gcn_local_layer_ell": "messages", "gat_local_message_ell": "messages",
              "gat_local_message_slots": "messages", "gcn_local_message_ell": "messages",
+             "dgn_local_message_ell": "channels", "pna_local_stats_ell": "stats",
              SCATTER: "sums"}
     for kname, cells in SPLIT_CELLS.items():
         kernel = kernel_fn(kname)
@@ -2084,7 +2104,8 @@ def time_split(streams: dict, device) -> None:
                 calls = kernel_calls(kname, name, params_from_numpy(synthetic_params(name, SEED),
                                                                     prec, device),
                                      streams[key][1], prec, key)
-                # Rows 17, 21, 14 and 24 have no product: bit 0 knocks nothing out.
+                # Rows 17, 21, 14, 16, 19 and 24 have no product: bit 0 knocks
+                # nothing out.
                 bits = (0, 2) if kname in MESSAGES_ONLY else (0, 1, 2, 3)
                 loop = {k: cuda_ms(lambda: [kernel(**o, knockout=k) for o in calls]) for k in bits}
                 try:

@@ -1,10 +1,11 @@
-"""The whole-model kernels, their one-layer forms and GAT's per-layer slot
-kernel on their cells: rows 3 (``pna_local_model``), 4 (``dgn_local_model``)
-and 2 (``gcn_local_model_slots``) over slots, rows 8 (``gin_local_model``)
-and 9 (``gcn_local_model``) over ELL, rows 20 (``pna_local_layer``) and 22
-(``dgn_local_layer_slots``), the one-layer forms of rows 3 and 4, and row 21
-(``gat_local_message_slots``), alone in ms per stream and as the model's
-forward over the stream in µs per graph, bf16 and f32.
+"""The whole-model kernels, their one-layer forms and the per-layer slot
+kernels of PNA and GAT on their cells: rows 3 (``pna_local_model``), 4
+(``dgn_local_model``) and 2 (``gcn_local_model_slots``) over slots, rows 8
+(``gin_local_model``) and 9 (``gcn_local_model``) over ELL, rows 20
+(``pna_local_layer``) and 22 (``dgn_local_layer_slots``), the one-layer forms
+of rows 3 and 4, row 19 (``pna_local_stats_ell``, row 3's stats-only form)
+and row 21 (``gat_local_message_slots``), alone in ms per stream and as the
+model's forward over the stream in µs per graph, bf16 and f32.
 
     python -m flowgnn_tpu_torch.bench.slot_kernels --label change
 
@@ -13,7 +14,8 @@ synthetic molhiv stream in slots (W=128; rows 3, 4 and 2 once per bucket, row
 20 once per layer and bucket, the stream run with intermediates), the
 2048-graph hep10k sample in slots at W=512 (rows 3, 4 and 2 once per bucket,
 rows 20 and 22 once per layer and bucket) and at W=128, where it spills
-(row 22 once per layer and bucket, with the tail's channels); rows 8 and 9
+(row 22 once per layer and bucket, with the tail's channels; row 19 once
+per layer and bucket, PNA's spill path); rows 8 and 9
 on the hep10k sample and the molhiv stream in ELL at the window
 ``choose_geometry`` gives (once per bucket); row 21 on the hep10k sample in
 slots at W=128, where it spills (the raw sums, once per layer and bucket),
@@ -61,8 +63,10 @@ CELLS = (
     ("gcn_local_model_slots", "gcn", "hep10k", 2048, SLOTS, 512),
     ("gat_local_message_slots", "gat", "hep10k", 2048, SLOTS, 128),
     ("gat_local_message_slots", "gat", "molhiv", 4113, SLOTS, None),
+    ("pna_local_stats_ell", "pna", "hep10k", 2048, SLOTS, 128),
 )
-LAYER_KERNELS = ("pna_local_layer", "dgn_local_layer_slots", "gat_local_message_slots")
+LAYER_KERNELS = ("pna_local_layer", "dgn_local_layer_slots", "gat_local_message_slots",
+                 "pna_local_stats_ell")
 # Each model's weight whose leading axis counts its layers.
 LAYER_WEIGHT = {"pna": "conv_w", "dgn": "posttrans_w", "gat": "proj_w"}
 
@@ -128,7 +132,7 @@ def main(argv=None) -> int:
              else int(batches[0]["slot_geom"].shape[0]))
         fn = getattr(local_layer, kernel)
         # The forward that runs the kernel: a no-spill bucket reaches rows 20,
-        # 22 and 21 with intermediates only.
+        # 22 and 21 with intermediates only (row 19 a spilling one only).
         inter = kernel in LAYER_KERNELS and not batches[0]["slot_spill"].shape[-1]
         forward = registry.get(name).forward
         for prec in (BF16, FLOAT32):

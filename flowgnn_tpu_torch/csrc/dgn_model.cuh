@@ -2,9 +2,13 @@
 // lane walk: row 4 (dgn_local_model.cu, all L layers and the pool head in
 // one launch over the slot layout), row 22 (dgn_local_layer_slots.cu, one
 // layer over the slot layout that writes the next h to device memory, with
-// the spill tail's pre-reduced channels) and row 18 (dgn_local_layer_ell.cu,
-// the one-layer form over the ELL layout, no spill tail) are its three
-// instantiations.
+// the spill tail's pre-reduced channels) and row 18
+// (dgn_local_layer_ell_model.cu, the one-layer form over the ELL layout, no
+// spill tail) are its three instantiations; row 16 (dgn_local_layer_ell.cu,
+// the ELL layout, any k) is its channels-only form, a kernel of its own
+// (dgn_channels_kernel, at the end of this file) on the same per-lane
+// arithmetic (add_channels): [rnd(m1) | rnd(m2)] in h's type, any D from 1
+// to 128.
 //
 // Layouts (built by flowgnn_tpu_torch/models/base.py:as_batch). Slots
 // (SlotWalk): node windows of W rows sorted by in-degree; slot_src [NW*W, S]
@@ -322,6 +326,17 @@ __device__ __forceinline__ float dgn_update(float h, float y, float b) {
   return rnd<T>(__fadd_rn(h, fmaxf(__fadd_rn(y, b), 0.f)));
 }
 
+// One source's value x of a column into the row's two channels, in the plain
+// version's order: m1 += x, m2 += e_u * x, the product rounded to T first
+// where kRound (the ELL TPU kernel's rounding point). Rows 4, 22, 18 and 16
+// share it.
+template <typename T, bool kRound>
+__device__ __forceinline__ void add_channels(float& m1, float& m2, float eu, float x) {
+  const float e = __fmul_rn(eu, x);
+  m1 = __fadd_rn(m1, x);
+  m2 = __fadd_rn(m2, kRound ? rnd<T>(e) : e);
+}
+
 // N = 0: the float32 form (FMA posttrans); N = 104 or 112: the bf16 form
 // with the wgmma posttrans of that width. tiles: the bf16 form's packed
 // weight chunks (linear_wgmma.cuh), all layers in order. kLayer: the
@@ -446,9 +461,7 @@ dgn_model_kernel(Walk walk, const T* __restrict__ h0,
 #pragma unroll
         for (int j = 0; j < kLaneD; ++j) {
           if (lane + 32 * j >= D) break;
-          const float e = __fmul_rn(eu[b], x[b][j]);
-          m1[j] = __fadd_rn(m1[j], x[b][j]);
-          m2[j] = __fadd_rn(m2[j], Walk::kRoundLane ? rnd<T>(e) : e);
+          add_channels<T, Walk::kRoundLane>(m1[j], m2[j], eu[b], x[b][j]);
         }
       }
     });
@@ -678,6 +691,199 @@ int launch(int dtype, const Walk& walk, const void* h0, const void* eig, const v
                            static_cast<const T*>(m_spill),
                            static_cast<const unsigned char*>(tiles), static_cast<float*>(out),
                            static_cast<T*>(h_out), dm, lay);
+    if (e != cudaSuccess) return e;
+    return cudaGetLastError();
+  }));
+}
+
+// ---------------------------------------------------------------------------
+// The channels-only form (row 16, dgn_local_layer_ell.cu): the channel stage
+// of row 18's layer over the ELL layout with [rnd(m1) | rnd(m2)] written out
+// in place of a1 / a2 and the posttrans, for the caller to merge a spill
+// tail. Per window row v, over its lanes u -> v in lane order,
+//   acc = sum [h_u | rnd(e_u * h_u)]          (f32 sums, add_channels)
+//   m1 = acc1,  m2 = acc2 - e_v * m1
+// with the ELL lane runs of lanes::Ell (any k edge blocks a window); e comes
+// in h's type. A window of W = 128..1024 rows runs on a cluster of W/128
+// blocks of kChanThreads threads; each block stages its 128 rows of h (in h's
+// type, as one contiguous run of 16-byte cp.async copies, in flight while it
+// loads e and finds the runs) and of e in shared memory, and
+// a source in another block's rows (h_u and e_u) is read through
+// cluster.map_shared_rank. It has no product, so it takes any D from 1 to 128:
+// h is kept at an even row stride (an odd D pads one zero column), so every
+// column pair is one aligned load. A half-warp takes a row (two rows a warp
+// at once), each thread kChanPairs column pairs; the row's lanes are loaded
+// 16 at a time, one a thread, and handed round by shuffles, so their loads
+// from device memory are not a chain. At D = 100 in bf16 a block holds h
+// 25.6 KB and ~1 KB of the rest. The carve-up (chan_smem_layout) is computed
+// on the host and passed in.
+// ---------------------------------------------------------------------------
+
+constexpr int kChanThreads = 512;  // threads a block of the channels-only form
+constexpr int kChanWarps = kChanThreads / 32;
+constexpr int kChanGroup = 16;     // threads a row
+constexpr int kChanPairs = 4;      // column pairs a thread
+constexpr int kChanMaxD = 2 * kChanGroup * kChanPairs;  // widest D (128)
+
+struct ChanDims {
+  int n, window, d, knockout;
+};
+
+// The channels-only form's shared-memory carve-up, byte offsets, and the row
+// stride (elements) of h.
+struct ChanSmem {
+  size_t h, eig, lo, total;
+  int stride;
+};
+
+inline ChanSmem chan_smem_layout(bool bf16, int d) {
+  ChanSmem s;
+  s.stride = d + (d & 1);
+  size_t o = 0;
+  auto take = [&o](size_t bytes) {
+    const size_t at = o;
+    o += (bytes + 15) / 16 * 16;
+    return at;
+  };
+  s.h = take(size_t(kRows) * s.stride * (bf16 ? 2 : 4));
+  s.eig = take(kRows * 4);
+  s.lo = take((kRows + 1) * 4);
+  s.total = o;
+  return s;
+}
+
+// out [n, 2D]: [rnd(m1) | rnd(m2)] for every real row. ChanDims::knockout
+// bit 1 (kNoChannels) skips the channels and writes zeros (timing only).
+template <typename T>
+__global__ void __launch_bounds__(kChanThreads, 2)
+dgn_channels_kernel(lanes::Ell walk, const T* __restrict__ h, const T* __restrict__ eig,
+                    T* __restrict__ out, ChanDims dm, ChanSmem lay) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = int(cluster.block_rank());
+  const int win = blockIdx.x / int(cluster.num_blocks());
+  const int D = dm.d, P = lay.stride, tid = threadIdx.x;
+  T* h_s = reinterpret_cast<T*>(smem + lay.h);              // [kRows][P] this block's rows
+  float* eig_s = reinterpret_cast<float*>(smem + lay.eig);  // [kRows]
+  int* lo_s = reinterpret_cast<int*>(smem + lay.lo);        // [kRows+1] the rows' lane runs
+  const long wrow0 = long(win) * dm.window;
+  const long row0 = wrow0 + long(rank) * kRows;
+  const int rows = dm.n - row0 < kRows ? int(dm.n - row0) : kRows;  // real rows (may be <= 0)
+  const bool do_chan = !(dm.knockout & kNoChannels);
+
+  // h's copies stay in flight while e and the runs load.
+  stage_rows<kChanThreads>(h_s, h + row0 * D, rows, kRows, D, P, tid);
+  for (int r = tid; r < kRows; r += kChanThreads) eig_s[r] = r < rows ? ld(eig + row0 + r) : 0.f;
+  const int* meta_w = walk.meta + long(win) * walk.block * lanes::kEllMeta;
+  lanes::ell_runs<kRows>(meta_w, walk.block, rank * kRows, lo_s, tid, kChanThreads);
+  cp_async_wait_all();
+  // Every block's h and e are in place before any block gathers from them.
+  cluster.sync();
+
+  // A half-warp a row: rows r and r + 1 of a step go to the warp's two halves.
+  const int lane = tid % 32, hl = lane % kChanGroup, half = lane / kChanGroup;
+  for (int rb = 2 * (tid / 32); rb < rows; rb += 2 * kChanWarps) {
+    const int r = rb + half;
+    const bool live = r < rows;
+    float2 m1[kChanPairs], m2[kChanPairs];
+#pragma unroll
+    for (int j = 0; j < kChanPairs; ++j) {
+      m1[j] = make_float2(0.f, 0.f);
+      m2[j] = make_float2(0.f, 0.f);
+    }
+    const int lo = live ? lo_s[r] : 0, n = live && do_chan ? lo_s[r + 1] - lo : 0;
+    // The two halves walk max(n) lanes together (shuffles need the whole warp).
+    const int most = max(n, __shfl_xor_sync(0xffffffffu, n, kChanGroup));
+    for (int e0 = 0; e0 < most; e0 += kChanGroup) {
+      // This half's next kChanGroup lanes' sources: one a thread.
+      int mu = dm.window;
+      if (e0 + hl < n) mu = __ldg(meta_w + (lo + e0 + hl) * lanes::kEllMeta);
+      const int steps = min(kChanGroup, most - e0);
+      for (int k = 0; k < steps; ++k) {
+        const int u = __shfl_sync(0xffffffffu, mu, half * kChanGroup + k);
+        // Past the row, outside the window or a padding row: adds nothing.
+        if (e0 + k >= n || unsigned(u) >= unsigned(dm.window) || wrow0 + u >= dm.n) continue;
+        const int owner = u / kRows, ur = u - owner * kRows;
+        const T* hb = owner == rank ? h_s : cluster.map_shared_rank(h_s, owner);
+        const float* eb = owner == rank ? eig_s : cluster.map_shared_rank(eig_s, owner);
+        const T* hu = hb + ur * P;
+        const float eu = eb[ur];
+#pragma unroll
+        for (int j = 0; j < kChanPairs; ++j) {
+          const int c = 2 * (hl + kChanGroup * j);
+          if (c >= D) break;
+          const float2 x = ld2(hu + c);
+          add_channels<T, true>(m1[j].x, m2[j].x, eu, x.x);
+          add_channels<T, true>(m1[j].y, m2[j].y, eu, x.y);
+        }
+      }
+    }
+    if (!live) continue;
+    const float ev = eig_s[r];
+    T* o = out + (row0 + r) * 2 * D;
+#pragma unroll
+    for (int j = 0; j < kChanPairs; ++j) {
+      const int c = 2 * (hl + kChanGroup * j);
+      if (c >= D) break;
+      const float2 a = m1[j];
+      const float2 b = make_float2(__fsub_rn(m2[j].x, __fmul_rn(ev, a.x)),
+                                   __fsub_rn(m2[j].y, __fmul_rn(ev, a.y)));
+      st_pair(o, c, D, a.x, a.y);
+      st_pair(o + D, c, D, b.x, b.y);
+    }
+  }
+  cluster.sync();  // keep this block's h until no block of the cluster reads it
+}
+
+inline bool bad_chan_geometry(int window, int d) {
+  return window % kRows || window / kRows < 1 || window / kRows > kMaxCluster || d < 1 ||
+         d > kChanMaxD;
+}
+
+// The channels-only form's kernel by dtype code (0 = float32, 1 = bfloat16).
+template <typename F>
+cudaError_t with_chan_kernel(int dtype, F&& f) {
+  if (dtype == 0) return f(dgn_channels_kernel<float>, float{});
+  if (dtype == 1) return f(dgn_channels_kernel<__nv_bfloat16>, __nv_bfloat16{});
+  return cudaErrorInvalidValue;
+}
+
+// What the occupancy calculator says of the channels-only form: out[0] the
+// blocks that fit one SM, out[1] the clusters of W/128 blocks that run at
+// once. Returns a cudaError_t.
+inline int chan_occupancy(int dtype, int window, int d, int device, int* out) {
+  if (bad_chan_geometry(window, d)) return int(cudaErrorInvalidValue);
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return int(err);
+  const size_t bytes = chan_smem_layout(dtype == 1, d).total;
+  return int(with_chan_kernel(dtype, [&](auto kernel, auto) {
+    ClusterLaunch ln;
+    const cudaError_t e =
+        cluster_launch(kernel, ln, 1, window / kRows, kChanThreads, bytes, nullptr);
+    return e != cudaSuccess ? e : cluster_occupancy(kernel, ln, kChanThreads, bytes, out);
+  }));
+}
+
+// Checks the geometry and launches the channels-only form over `lanes` lanes
+// a window of meta. Returns a cudaError_t.
+inline int launch_channels(int dtype, const void* meta, int lanes, const void* h, const void* eig,
+                           void* out, int num_windows, const ChanDims& dm, int device,
+                           void* stream) {
+  if (bad_chan_geometry(dm.window, dm.d) || num_windows < 1 || lanes < 0)
+    return int(cudaErrorInvalidValue);
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return int(err);
+  const ChanSmem lay = chan_smem_layout(dtype == 1, dm.d);
+  const lanes::Ell walk{static_cast<const int*>(meta), lanes};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return int(with_chan_kernel(dtype, [&](auto kernel, auto tag) {
+    using T = decltype(tag);
+    ClusterLaunch ln;
+    cudaError_t e =
+        cluster_launch(kernel, ln, num_windows, dm.window / kRows, kChanThreads, lay.total, s);
+    if (e != cudaSuccess) return e;
+    e = cudaLaunchKernelEx(&ln.cfg, kernel, walk, static_cast<const T*>(h),
+                           static_cast<const T*>(eig), static_cast<T*>(out), dm, lay);
     if (e != cudaSuccess) return e;
     return cudaGetLastError();
   }));

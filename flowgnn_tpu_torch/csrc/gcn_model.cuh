@@ -169,24 +169,14 @@ template <> __device__ __forceinline__ float rnd<__nv_bfloat16>(float x) {
   return __bfloat162float(__float2bfloat16_rn(x));
 }
 
-// h and x in shared memory: float, or bf16 for the wgmma form; columns c,
-// c + 1 (c even) read and written as one pair.
+// h and x in shared memory: float, or bf16 for the wgmma form (columns c,
+// c + 1 read and written as one pair by hopper.cuh's ld2 / st2).
 __device__ __forceinline__ float val(float x) { return x; }
 __device__ __forceinline__ float val(__nv_bfloat16 x) { return __bfloat162float(x); }
-__device__ __forceinline__ float2 ld2(const float* p) { return *reinterpret_cast<const float2*>(p); }
-__device__ __forceinline__ float2 ld2(const __nv_bfloat16* p) {
-  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
-}
 template <typename S> __device__ __forceinline__ S store(float x);
 template <> __device__ __forceinline__ float store<float>(float x) { return x; }
 template <> __device__ __forceinline__ __nv_bfloat16 store<__nv_bfloat16>(float x) {
   return __float2bfloat16_rn(x);
-}
-__device__ __forceinline__ void st2(float* p, float a, float b) {
-  *reinterpret_cast<float2*>(p) = make_float2(a, b);
-}
-__device__ __forceinline__ void st2(__nv_bfloat16* p, float a, float b) {
-  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
 }
 
 // The bond-table row `a` in shared memory, or null outside the vocabulary.
@@ -561,9 +551,9 @@ int launch(int dtype, const Msg& msg, const void* h0, const void* dis, const voi
 // with the ELL lane runs of lanes::Ell (any k edge blocks a window). A window
 // of W = 128..1024 rows runs on a cluster of W/128 blocks; each block stages
 // its 128 rows of h (in h's type) and of dis, and the bond table, in shared
-// memory (h as one contiguous run of 16-byte loads, kStageAhead in flight a
-// thread); a source in another block's rows (h_u and dis_u) is read through
-// cluster.map_shared_rank. It has no tail, no conv, no weight ring and no
+// memory (h as one contiguous run of 16-byte cp.async copies, in flight while
+// the block loads the rest); a source in another block's rows (h_u and
+// dis_u) is read through cluster.map_shared_rank. It has no tail, no conv, no weight ring and no
 // pool head, so it takes any D from 1 to 128: h and the table are kept at an
 // even row stride (an odd D pads one zero column), so every column pair is
 // one aligned load. A half-warp takes a row (two rows a warp at once), each
@@ -582,7 +572,7 @@ constexpr int kMsgThreads = 512;           // threads a block of the messages-on
 constexpr int kMsgWarps = kMsgThreads / 32;
 constexpr int kMsgGroup = 16;              // threads a row
 constexpr int kMsgPairs = kMsgMaxD / (2 * kMsgGroup);  // column pairs a thread (4)
-constexpr int kStageAhead = 8;             // 16-byte loads of h a thread keeps in flight
+constexpr int kStageAhead = 8;             // table loads a thread keeps in flight
 
 struct MsgDims {
   int n, window, d, vocab, knockout;
@@ -612,9 +602,6 @@ inline MsgSmem msg_smem_layout(bool bf16, int d, int vocab) {
   return s;
 }
 
-template <typename T>
-__device__ __forceinline__ void st1(T* p, float x) { *p = store<T>(x); }
-
 // out [n, D]: m for every real row. Dims::knockout bit 1 (kNoMessages) skips
 // the messages and writes zeros (timing only).
 template <typename T>
@@ -635,37 +622,9 @@ gcn_messages_kernel(lanes::Ell msg, const T* __restrict__ h, const T* __restrict
   const int rows = dm.n - row0 < kRows ? int(dm.n - row0) : kRows;  // real rows (may be <= 0)
   const bool do_msg = !(dm.knockout & kNoMessages);
 
-  // h: the block's real rows are one contiguous run of device memory. At an
-  // even D with h 16-byte aligned it goes as 16-byte pieces, kStageAhead
-  // loads in flight a thread before their stores, the last few bytes as
-  // 4-byte words, and the rows past it as zeros; otherwise element by element.
-  if (P == D && rows > 0 && (reinterpret_cast<size_t>(h) & 15) == 0) {
-    const int bytes = rows * D * int(sizeof(T)), n16 = bytes / 16;
-    const int4* s16 = reinterpret_cast<const int4*>(h + row0 * D);
-    int4* d16 = reinterpret_cast<int4*>(h_s);
-    for (int i0 = 0; i0 < n16; i0 += kMsgThreads * kStageAhead) {
-      int4 x[kStageAhead];
-#pragma unroll
-      for (int u = 0; u < kStageAhead; ++u) {
-        const int i = i0 + u * kMsgThreads + tid;
-        if (i < n16) x[u] = __ldg(s16 + i);
-      }
-#pragma unroll
-      for (int u = 0; u < kStageAhead; ++u) {
-        const int i = i0 + u * kMsgThreads + tid;
-        if (i < n16) d16[i] = x[u];
-      }
-    }
-    const unsigned* s4 = reinterpret_cast<const unsigned*>(h + row0 * D);
-    unsigned* d4 = reinterpret_cast<unsigned*>(h_s);
-    for (int i = n16 * 4 + tid; i < kRows * P * int(sizeof(T)) / 4; i += kMsgThreads)
-      d4[i] = i < bytes / 4 ? __ldg(s4 + i) : 0u;
-  } else {
-    for (int i = tid; i < kRows * P; i += kMsgThreads) {
-      const int r = i / P, c = i - r * P;
-      h_s[i] = store<T>(r < rows && c < D ? ld(h + (row0 + r) * D + c) : 0.f);
-    }
-  }
+  // h: the block's real rows, one contiguous run of device memory, and zeros
+  // past them (stage_rows: 16-byte copies in flight at an even D).
+  stage_rows<kMsgThreads>(h_s, h + row0 * D, rows, kRows, D, P, tid);
   for (int r = tid; r < kRows; r += kMsgThreads) dis_s[r] = r < rows ? ld(dis + row0 + r) : 0.f;
   for (int i0 = 0; i0 < dm.vocab * P; i0 += kMsgThreads * kStageAhead) {
     float x[kStageAhead];
@@ -682,6 +641,7 @@ gcn_messages_kernel(lanes::Ell msg, const T* __restrict__ h, const T* __restrict
   }
   lanes::ell_runs<kRows>(msg.meta + long(win) * msg.block * lanes::kEllMeta, msg.block,
                          rank * kRows, lo_s, tid, kMsgThreads);
+  cp_async_wait_all();
   // Every block's h and dis are in place before any block gathers from them.
   cluster.sync();
 
@@ -732,12 +692,7 @@ gcn_messages_kernel(lanes::Ell msg, const T* __restrict__ h, const T* __restrict
       const int c = 2 * (hl + kMsgGroup * j);
       if (c >= D) break;
       const float x = __fmul_rn(acc[j].x, dv), y = __fmul_rn(acc[j].y, dv);
-      if (P == D) {
-        st2(o + c, x, y);  // an even D: the pair is one aligned store
-      } else {
-        st1(o + c, x);
-        if (c + 1 < D) st1(o + c + 1, y);
-      }
+      st_pair(o, c, D, x, y);
     }
   }
   cluster.sync();  // keep this block's h until no block of the cluster reads it

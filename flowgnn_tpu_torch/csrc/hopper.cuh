@@ -1,7 +1,9 @@
 // Hopper (sm_90a) building blocks shared by the tensor-core kernels
 // (chained_matmul.cu, gin_mlp.cuh, linear_wgmma.cuh): wgmma shared-memory descriptors,
 // the wgmma fences and instructions, mbarriers, bulk copies (the TMA unit's
-// 1-D form, cp.async.bulk) and 16-byte cp.async; and, on the host, the launch
+// 1-D form, cp.async.bulk) and 16-byte cp.async; column-pair loads and stores
+// and the staging of a block's rows in shared memory that the messages-only
+// forms (rows 14, 16 and 19) share; and, on the host, the launch
 // configuration of a grid of thread-block clusters that the whole-model
 // kernels share.
 //
@@ -36,6 +38,7 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <cstdint>
+#include <type_traits>
 
 namespace hopper {
 
@@ -154,6 +157,67 @@ __device__ __forceinline__ void cp_async_wait_all() {
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// Columns c, c + 1 (c even, the row on an even column) of a float or bf16
+// row, read or written as one pair in f32.
+__device__ __forceinline__ float2 ld2(const float* p) { return *reinterpret_cast<const float2*>(p); }
+__device__ __forceinline__ float2 ld2(const __nv_bfloat16* p) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+}
+__device__ __forceinline__ void st2(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+__device__ __forceinline__ void st2(__nv_bfloat16* p, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+}
+__device__ __forceinline__ void st1(float* p, float a) { *p = a; }
+__device__ __forceinline__ void st1(__nv_bfloat16* p, float a) { *p = __float2bfloat16_rn(a); }
+// Columns c, c + 1 (c even) of a row of d columns that starts on an even
+// column: one aligned pair at an even d, else one at a time (c + 1 only if
+// below d).
+template <typename T>
+__device__ __forceinline__ void st_pair(T* row, int c, int d, float a, float b) {
+  if (d % 2 == 0) {
+    st2(row + c, a, b);
+  } else {
+    st1(row + c, a);
+    if (c + 1 < d) st1(row + c + 1, b);
+  }
+}
+
+// A block's rows of a row-major [*, d] array of 2- or 4-byte elements into
+// shared memory at a row stride of `stride` (d, or more to keep rows on an
+// even column): the `rows` real rows, one contiguous run at `src`, then zeros
+// up to `all` rows. Where the rows need no padding, are whole 4-byte words
+// and src and dst are 16-byte aligned, the run goes as 16-byte cp.async
+// copies, still in flight when it returns (the caller goes on with its other
+// loads and waits with cp_async_wait_all before the barrier that publishes
+// the rows), its last bytes as 4-byte words; otherwise element by element.
+// kThreads threads call it, tid their index.
+template <int kThreads, typename T>
+__device__ __forceinline__ void stage_rows(T* dst, const T* __restrict__ src, int rows, int all,
+                                           int d, int stride, int tid) {
+  static_assert(sizeof(T) == 2 || sizeof(T) == 4, "2- or 4-byte elements");
+  if (rows > 0 && stride == d && d * int(sizeof(T)) % 4 == 0 &&
+      ((reinterpret_cast<size_t>(src) | reinterpret_cast<size_t>(dst)) & 15) == 0) {
+    const int bytes = rows * d * int(sizeof(T)), n16 = bytes / 16;
+    const int4* s16 = reinterpret_cast<const int4*>(src);
+    int4* d16 = reinterpret_cast<int4*>(dst);
+    for (int i = tid; i < n16; i += kThreads) cp_async16(d16 + i, s16 + i, 16);
+    const unsigned* s4 = reinterpret_cast<const unsigned*>(src);
+    unsigned* d4 = reinterpret_cast<unsigned*>(dst);
+    for (int i = n16 * 4 + tid; i < all * d * int(sizeof(T)) / 4; i += kThreads)
+      d4[i] = i < bytes / 4 ? __ldg(s4 + i) : 0u;
+  } else {
+    using B = typename std::conditional<sizeof(T) == 2, unsigned short, unsigned>::type;
+    const B* s = reinterpret_cast<const B*>(src);
+    B* t = reinterpret_cast<B*>(dst);
+    for (int i = tid; i < all * stride; i += kThreads) {
+      const int r = i / stride, c = i - r * stride;
+      t[i] = r < rows && c < d ? s[r * d + c] : B(0);
+    }
+  }
 }
 
 // --- wgmma ----------------------------------------------------------------

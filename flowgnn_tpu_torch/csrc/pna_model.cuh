@@ -1,7 +1,10 @@
 // The PNA slot kernel for Hopper (sm_90a), templated on its output: row 3
 // (pna_local_model.cu, all L layers and the pool head in one launch) and
 // row 20 (pna_local_layer_slots.cu, one layer that writes the next h to
-// device memory) are its two instantiations.
+// device memory) are its two instantiations; row 19
+// (pna_local_stats_slots.cu) is its stats-only form, a kernel of its own
+// (pna_stats_kernel, at the end of this file) on the same per-slot update
+// (add_stats): the raw [s | q | mn | mx] in h's type, any D from 1 to 128.
 //
 // Layout (built by flowgnn_tpu_torch/models/base.py:as_batch): node windows
 // of W rows sorted by in-degree; slot_src [NW*W, S] holds each row's
@@ -177,6 +180,16 @@ template <> __device__ __forceinline__ __nv_bfloat16 store<__nv_bfloat16>(float 
   return __float2bfloat16_rn(x);
 }
 
+// One source's value x of a column into the row's running stats, in the
+// plain version's order: s += x, q += x·x, mn = min(mn, x), mx = max(mx, x).
+// Rows 3, 20 and 19 share it.
+__device__ __forceinline__ void add_stats(float& s, float& q, float& mn, float& mx, float x) {
+  s = __fadd_rn(s, x);
+  q = __fadd_rn(q, __fmul_rn(x, x));
+  mn = fminf(mn, x);
+  mx = fmaxf(mx, x);
+}
+
 // a = y0 + t·y1 + scale·y2 + b, then rnd(h + relu(a)), in the plain
 // version's order.
 template <typename T>
@@ -294,11 +307,7 @@ pna_model_kernel(const int* __restrict__ slot_src, const T* __restrict__ h0,
       for (int j = 0; j < kLaneD; ++j) {
         const int d = lane + 32 * j;
         if (d >= D) break;
-        const float x = val(hu[d]);
-        s[j] = __fadd_rn(s[j], x);
-        q[j] = __fadd_rn(q[j], __fmul_rn(x, x));
-        mn[j] = fminf(mn[j], x);
-        mx[j] = fmaxf(mx[j], x);
+        add_stats(s[j], q[j], mn[j], mx[j], val(hu[d]));
       }
     }
     const float inv = invd_s[r];
@@ -517,6 +526,204 @@ int launch(int dtype, const void* slot_src, const void* h0, const void* invd, co
                            static_cast<const int*>(pool_gl), static_cast<const T*>(mlp1_w),
                            static_cast<const unsigned char*>(tiles), static_cast<float*>(out),
                            static_cast<T*>(h_out), dm, cp, lay);
+    if (e != cudaSuccess) return e;
+    return cudaGetLastError();
+  }));
+}
+
+// ---------------------------------------------------------------------------
+// The stats-only form (row 19, pna_local_stats_slots.cu): the stats stage of
+// row 20's layer with the raw running stats written out in place of the mean
+// / std epilogue and the tower, for the caller to merge a spill tail. Per
+// window row v, over its valid slots (every slot counted, caps = W) in slot
+// order,
+//   s, q, mn, mx = sum, sum of squares, min and max of h_u   (f32, add_stats)
+// mn seeded at min_init and mx at max_init; out [n, 4D] = [s | q | mn | mx]
+// in h's type. An empty slot (sentinel W) changes nothing, so a row with no
+// source keeps the seeds; a source on a padding row reads zeros. A window of
+// W = 128..1024 rows runs on a cluster of W/128 blocks of kStatsThreads
+// threads; each block stages its 128 rows of h (in h's type, as one
+// contiguous run of 16-byte cp.async copies) and of slot_src in shared
+// memory, and a source in another block's rows is read through
+// cluster.map_shared_rank. It has no product, so it takes any D from 1 to
+// 128: h is kept at an even row stride (an odd D pads one zero column), so
+// every column pair is one aligned load. A half-warp takes a row (two rows a
+// warp at once), each thread kStatsPairs column pairs; a row's <= 8 slots
+// are loaded at once, one a thread, packed by one ballot and handed round by
+// shuffles. At D = 80 in bf16 a block holds h 20.5 KB and its slot table
+// 4 KB (S = 8). The carve-up (stats_smem_layout) is computed on the host and
+// passed in.
+//
+// What bounds it: the writes. At D = 80 in bf16 a row reads 160 B of h and
+// 32 B of slot table once and writes 640 B of stats; the arithmetic is 5
+// operations a valid slot and column. The stats leave as column pairs
+// straight from the registers: staging 32 rows at a time in shared memory to
+// write them as one run of 16-byte stores took 16-18% longer on an H100 80GB
+// HBM3 at 700 W (PERF.md).
+// ---------------------------------------------------------------------------
+
+constexpr int kStatsThreads = 512;  // threads a block of the stats-only form
+constexpr int kStatsWarps = kStatsThreads / 32;
+constexpr int kStatsGroup = 16;     // threads a row
+constexpr int kStatsPairs = 4;      // column pairs a thread
+constexpr int kStatsMaxD = 2 * kStatsGroup * kStatsPairs;  // widest D (128)
+
+struct StatsDims {
+  int n, window, d, slots, knockout;
+  float min_init, max_init;
+};
+
+// The stats-only form's shared-memory carve-up, byte offsets, and the row
+// stride (elements) of h.
+struct StatsSmem {
+  size_t h, src, total;
+  int stride;
+};
+
+inline StatsSmem stats_smem_layout(bool bf16, int d, int slots) {
+  StatsSmem s;
+  s.stride = d + (d & 1);
+  size_t o = 0;
+  auto take = [&o](size_t bytes) {
+    const size_t at = o;
+    o += (bytes + 15) / 16 * 16;
+    return at;
+  };
+  s.h = take(size_t(kRows) * s.stride * (bf16 ? 2 : 4));
+  s.src = take(size_t(kRows) * slots * 4);
+  s.total = o;
+  return s;
+}
+
+// out [n, 4D]: the stats for every real row. StatsDims::knockout bit 1
+// (kNoStats) skips the stats and writes zeros (timing only).
+template <typename T>
+__global__ void __launch_bounds__(kStatsThreads, 2)
+pna_stats_kernel(const int* __restrict__ slot_src, const T* __restrict__ h, T* __restrict__ out,
+                 StatsDims dm, StatsSmem lay) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = int(cluster.block_rank());
+  const int win = blockIdx.x / int(cluster.num_blocks());
+  const int W = dm.window, D = dm.d, S = dm.slots, P = lay.stride, tid = threadIdx.x;
+  T* h_s = reinterpret_cast<T*>(smem + lay.h);          // [kRows][P] this block's rows
+  int* src_s = reinterpret_cast<int*>(smem + lay.src);  // [kRows][S] their slots
+  const long wrow0 = long(win) * W;
+  const long row0 = wrow0 + long(rank) * kRows;
+  const int rows = dm.n - row0 < kRows ? int(dm.n - row0) : kRows;  // real rows (may be <= 0)
+  const bool do_stats = !(dm.knockout & kNoStats);
+
+  stage_rows<kStatsThreads>(h_s, h + row0 * D, rows, kRows, D, P, tid);
+  stage_rows<kStatsThreads>(src_s, slot_src + row0 * S, kRows, kRows, S, S, tid);
+  cp_async_wait_all();
+  // Every block's h is in place before any block gathers from it.
+  cluster.sync();
+
+  // A half-warp a row: rows r and r + 1 of a step go to the warp's two halves.
+  const int lane = tid % 32, hl = lane % kStatsGroup, half = lane / kStatsGroup;
+  const int base = half * kStatsGroup;
+  const float mn0 = do_stats ? dm.min_init : 0.f, mx0 = do_stats ? dm.max_init : 0.f;
+  for (int rb = 2 * (tid / 32); rb < rows; rb += 2 * kStatsWarps) {
+    const int r = rb + half;
+    const bool live = r < rows;
+    float2 st[4][kStatsPairs];  // s, q, mn, mx
+#pragma unroll
+    for (int j = 0; j < kStatsPairs; ++j) {
+      st[0][j] = make_float2(0.f, 0.f);
+      st[1][j] = make_float2(0.f, 0.f);
+      st[2][j] = make_float2(mn0, mn0);
+      st[3][j] = make_float2(mx0, mx0);
+    }
+    // The row's slots, one a thread of the first S; one ballot over the warp
+    // finds each half's valid ones, and thread t keeps the t-th of them.
+    int u = W;
+    if (live && do_stats && hl < S) u = src_s[r * S + hl];
+    const unsigned valid =
+        (__ballot_sync(0xffffffffu, unsigned(u) < unsigned(W)) >> base) & 0xffffu;
+    unsigned m = valid;  // drop the hl lowest: the hl-th valid slot is the lowest left
+#pragma unroll
+    for (int i = 0; i < kMaxSlots; ++i)
+      if (i < hl) m &= m - 1;
+    const int mine = __shfl_sync(0xffffffffu, u, base + (m ? __ffs(m) - 1 : 0));
+    const int count = __popc(valid);
+    // The two halves walk max(count) slots together (shuffles need the whole warp).
+    const int most = max(count, __shfl_xor_sync(0xffffffffu, count, kStatsGroup));
+    for (int k = 0; k < most; ++k) {
+      const int v = __shfl_sync(0xffffffffu, mine, base + k);
+      if (k >= count) continue;
+      const int owner = v / kRows, vr = v - owner * kRows;
+      const T* hb = owner == rank ? h_s : cluster.map_shared_rank(h_s, owner);
+      const T* hv = hb + vr * P;
+#pragma unroll
+      for (int j = 0; j < kStatsPairs; ++j) {
+        const int c = 2 * (hl + kStatsGroup * j);
+        if (c >= D) break;
+        const float2 x = ld2(hv + c);
+        add_stats(st[0][j].x, st[1][j].x, st[2][j].x, st[3][j].x, x.x);
+        add_stats(st[0][j].y, st[1][j].y, st[2][j].y, st[3][j].y, x.y);
+      }
+    }
+    if (!live) continue;
+    T* o = out + (row0 + r) * 4 * D;  // the row's four parts as column pairs
+#pragma unroll
+    for (int j = 0; j < kStatsPairs; ++j) {
+      const int c = 2 * (hl + kStatsGroup * j);
+      if (c >= D) break;
+#pragma unroll
+      for (int part = 0; part < 4; ++part)
+        st_pair(o + part * D, c, D, st[part][j].x, st[part][j].y);
+    }
+  }
+  cluster.sync();  // keep this block's h until no block of the cluster reads it
+}
+
+inline bool bad_stats_geometry(int window, int d, int slots) {
+  return window % kRows || window / kRows < 1 || window / kRows > kMaxCluster || d < 1 ||
+         d > kStatsMaxD || slots < 1 || slots > kMaxSlots;
+}
+
+// The stats-only form's kernel by dtype code (0 = float32, 1 = bfloat16).
+template <typename F>
+cudaError_t with_stats_kernel(int dtype, F&& f) {
+  if (dtype == 0) return f(pna_stats_kernel<float>, float{});
+  if (dtype == 1) return f(pna_stats_kernel<__nv_bfloat16>, __nv_bfloat16{});
+  return cudaErrorInvalidValue;
+}
+
+// What the occupancy calculator says of the stats-only form: out[0] the
+// blocks that fit one SM, out[1] the clusters of W/128 blocks that run at
+// once. Returns a cudaError_t.
+inline int stats_occupancy(int dtype, int window, int d, int slots, int device, int* out) {
+  if (bad_stats_geometry(window, d, slots)) return int(cudaErrorInvalidValue);
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return int(err);
+  const size_t bytes = stats_smem_layout(dtype == 1, d, slots).total;
+  return int(with_stats_kernel(dtype, [&](auto kernel, auto) {
+    ClusterLaunch ln;
+    const cudaError_t e =
+        cluster_launch(kernel, ln, 1, window / kRows, kStatsThreads, bytes, nullptr);
+    return e != cudaSuccess ? e : cluster_occupancy(kernel, ln, kStatsThreads, bytes, out);
+  }));
+}
+
+// Checks the geometry and launches the stats-only form. Returns a
+// cudaError_t.
+inline int launch_stats(int dtype, const void* slot_src, const void* h, void* out,
+                        int num_windows, const StatsDims& dm, int device, void* stream) {
+  if (bad_stats_geometry(dm.window, dm.d, dm.slots) || num_windows < 1)
+    return int(cudaErrorInvalidValue);
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return int(err);
+  const StatsSmem lay = stats_smem_layout(dtype == 1, dm.d, dm.slots);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return int(with_stats_kernel(dtype, [&](auto kernel, auto tag) {
+    using T = decltype(tag);
+    ClusterLaunch ln;
+    cudaError_t e =
+        cluster_launch(kernel, ln, num_windows, dm.window / kRows, kStatsThreads, lay.total, s);
+    if (e != cudaSuccess) return e;
+    e = cudaLaunchKernelEx(&ln.cfg, kernel, static_cast<const int*>(slot_src),
+                           static_cast<const T*>(h), static_cast<T*>(out), dm, lay);
     if (e != cudaSuccess) return e;
     return cudaGetLastError();
   }));

@@ -36,7 +36,8 @@ The per-layer slot kernels run one layer per launch, over a slot batch with
 a spill tail (or one the whole-model kernel does not take):
 
 - ``pna_local_stats_ell``: PNA's four aggregates
-  (``csrc/pna_local_stats_slots.cu``), one block per window of 128 rows;
+  (``csrc/pna_local_stats_slots.cu``: the stats-only form of
+  ``pna_local_model``'s kernel, ``csrc/pna_model.cuh``);
 - ``dgn_local_layer_slots``: a whole DGN layer, with the spill tail's
   pre-reduced channels (``csrc/dgn_local_layer_slots.cu``), the one-layer
   form of ``dgn_local_model``'s kernel (``csrc/dgn_model.cuh``);
@@ -48,14 +49,14 @@ a spill tail (or one the whole-model kernel does not take):
   tail (``csrc/pna_local_layer_slots.cu``), the one-layer form of
   ``pna_local_model``'s kernel (``csrc/pna_model.cuh``);
 
-the last two one thread-block cluster of W/128 blocks per window of 128 to
+all but row 21 one thread-block cluster of W/128 blocks per window of 128 to
 1024 rows, as the whole-model kernels.
 
 The per-layer ELL kernels run one layer per launch over the ELL layout with
 any number k of edge blocks per window (the k·B lanes of a window are one
 run sorted by destination row), at windows of 128 up to 1024 rows, one block
-per 128 rows (rows 18, 15 and 14: a thread-block cluster of W/128 blocks per
-window); h stays in device memory between layers:
+per 128 rows (rows 18, 15, 14 and 16: a thread-block cluster of W/128 blocks
+per window); h stays in device memory between layers:
 
 - ``gin_local_layer_ell``: a whole GIN / GIN-VN layer, messages, the spill
   tail's pre-summed ``m_spill`` and the MLP (``csrc/gin_local_layer_ell.cu``,
@@ -72,7 +73,8 @@ window); h stays in device memory between layers:
   (``csrc/dgn_local_layer_ell_model.cu``: the one-layer form of
   ``dgn_local_model``'s kernel, ``csrc/dgn_model.cuh``, with the ELL lane
   walk), and ``dgn_local_message_ell``: DGN's two message channels, for
-  the caller to merge a spill tail (``csrc/dgn_local_layer_ell.cu``);
+  the caller to merge a spill tail (``csrc/dgn_local_layer_ell.cu``: the
+  channels-only form of the same kernel);
 - ``gat_local_message_ell``: GAT's softmax sums, for the caller to merge a
   spill tail and divide (``csrc/gat_local_message_ell.cu``: the message walk
   of ``gat_local_layer_ell``, ``csrc/gat_messages.cuh``);
@@ -1190,7 +1192,9 @@ def _library(name: str) -> dict:
     ``_tower_dims``, rows 4, 22 and 18 ``_posttrans_dims``, row 5
     ``_glue_dims``), those that keep two
     blocks an SM (rows 9, 2, 15, 4, 5, 22 and 18) and row 20 also
-    ``_smem_per_sm`` and ``_occupancy``, row 14 ``_occupancy``; row 24
+    ``_smem_per_sm`` and ``_occupancy``, rows 14, 16 and 19 (the
+    messages-, channels- and stats-only forms; row 19's slot library also
+    ``_rows_per_block`` and ``_max_cluster``) ``_occupancy``; row 24
     (``windowed_segment_sum``) ``_chunk``, its list's lanes."""
     slot_getters = ("max_d", "max_slots")
     ell_getters = ("max_d", "rows_per_block", "max_cluster")
@@ -1225,8 +1229,8 @@ def _library(name: str) -> dict:
             [_I32] + [_PTR] * 13 + [_I32] * 11 + [_I32, _PTR],
         ),
         "pna_local_stats_slots": (
-            "pna_stats", slot_getters, [_I32] * 3,
-            [_I32] + [_PTR] * 3 + [_I32] * 5 + [_F32, _F32, _I32, _PTR],
+            "pna_stats", slot_getters + ("rows_per_block", "max_cluster"), [_I32] * 3,
+            [_I32] + [_PTR] * 3 + [_I32] * 5 + [_F32, _F32, _I32, _I32, _PTR],
         ),
         "dgn_local_layer_slots": (
             "dgn_layer", slot_getters + ("rows_per_block", "max_cluster"), [_I32] * 3,
@@ -1257,8 +1261,8 @@ def _library(name: str) -> dict:
             [_I32] + [_PTR] * 9 + [_I32] * 5 + [_F32, _F32] + [_I32] * 3 + [_PTR],
         ),
         "dgn_local_layer_ell": (
-            "dgn_msg_ell", layer_getters, [_I32],
-            [_I32] + [_PTR] * 4 + [_I32] * 5 + [_I32, _PTR],
+            "dgn_msg_ell", layer_getters, [_I32] * 2,
+            [_I32] + [_PTR] * 4 + [_I32] * 6 + [_I32, _PTR],
         ),
         "dgn_local_layer_ell_model": (
             "dgn_layer_ell", layer_getters, [_I32] * 3,
@@ -1322,6 +1326,8 @@ def _library(name: str) -> dict:
         "gcn_local_layer_ell": (per_sm, ("conv_dims", [_I32, _INT_P], None),
                                 ("occupancy", [_I32] * 6 + [_INT_P], _I32)),
         "gcn_local_message_ell": (("occupancy", [_I32] * 5 + [_INT_P], _I32),),
+        "dgn_local_layer_ell": (("occupancy", [_I32] * 4 + [_INT_P], _I32),),
+        "pna_local_stats_slots": (("occupancy", [_I32] * 5 + [_INT_P], _I32),),
         "gat_local_model_slots": (per_sm, ("glue_dims", [_I32, _INT_P], None),
                                   ("occupancy", [_I32] * 8 + [_INT_P], _I32)),
     }
@@ -2065,19 +2071,24 @@ def _two_block_stages(kernel: str, lib, code: int, geometry: tuple, gmax: int, t
 def occupancy(kernel: str, dtype: torch.dtype, window: int, geometry: tuple, gmax: int,
               t_out: int, device) -> dict:
     """What the occupancy calculator says of the cluster kernel ``kernel``
-    (the libraries of rows 9, 2, 4 and 5, and of rows 20, 22, 18, 15 and 14)
-    in ``dtype`` at this geometry on ``device`` (the launch's own ring
-    depth): the block's shared memory, the blocks of that form one SM holds,
-    and the clusters of W/128 blocks that run at once. ``geometry``: (D,
-    vocab) for GCN and rows 15 and 14, (D,) for DGN and rows 20, 22 and 18,
-    (H·D, heads) for GAT; rows 20, 22, 18, 15 and 14 have no pool head and
-    ignore ``gmax`` and ``t_out``."""
+    (the libraries of rows 9, 2, 4 and 5, and of rows 20, 22, 18, 15, 14, 16
+    and 19) in ``dtype`` at this geometry on ``device`` (the launch's own
+    ring depth): the block's shared memory, the blocks of that form one SM
+    holds, and the clusters of W/128 blocks that run at once. ``geometry``:
+    (D, vocab) for GCN and rows 15 and 14, (D,) for DGN and rows 20, 22, 18
+    and 16, (D,) for row 19 at its deepest slot table (8 slots), (H·D, heads)
+    for GAT; rows 20, 22, 18, 15, 14, 16 and 19 have no pool head and ignore
+    ``gmax`` and ``t_out``."""
     code = _dtype_code(dtype)
     dev = torch.device(device)
     lib = _library(kernel)
     out = (ctypes.c_int * 2)()
-    if kernel == "gcn_local_message_ell":  # row 14: no product, no ring
-        stages, smem = _layer_plan(kernel, code, geometry[0], 0, window, dev.index, geometry[1])
+    if kernel == "pna_local_stats_slots":  # row 19 at its deepest slot table
+        geometry = (geometry[0], lib["max_slots"]())
+        stages, smem = _layer_plan(kernel, code, *geometry, window, dev.index)
+        rc = lib["occupancy"](code, window, *geometry, dev.index, out)
+    elif kernel in _NO_PRODUCT:  # rows 14 and 16: no product, no ring
+        stages, smem = _layer_plan(kernel, code, geometry[0], 0, window, dev.index, *geometry[1:])
         rc = lib["occupancy"](code, window, *geometry, dev.index, out)
     elif kernel in _LAYER_PRODUCTS:
         stages = _layer_ring(kernel, lib, code, geometry, dev)
@@ -2432,20 +2443,21 @@ gat_local_model_slots.launches = 0
 gat_local_model_slots.stages = 0
 
 
-def _launch_pna_stats(slot_src, h, window, slots, min_init, max_init) -> torch.Tensor:
+def _launch_pna_stats(slot_src, h, window, slots, min_init, max_init,
+                      knockout=0) -> torch.Tensor:
     code = _dtype_code(h.dtype)
     dev = h.device
     n, d = h.shape
+    name = "pna_local_stats_slots"
+    lib = _library(name)
+    _layer_plan(name, code, d, slots, window, dev.index)
     nw = -(-n // window)
     _check("slot_src", slot_src, torch.int32, (nw * window, slots), dev)
     _check("h", h, h.dtype, (n, d), dev)
-
-    lib = _library("pna_local_stats_slots")
-    _check_geometry(lib, d, slots, (window,), window, lib["smem_bytes"](window, d, slots), dev)
     out = torch.empty((n, 4 * d), dtype=h.dtype, device=dev)
     rc = lib["launch"](
         code, slot_src.data_ptr(), h.data_ptr(), out.data_ptr(),
-        nw, n, window, d, slots, float(min_init), float(max_init),
+        nw, n, window, d, slots, float(min_init), float(max_init), int(knockout),
         dev.index, torch.cuda.current_stream(dev).cuda_stream,
     )
     _raise_on(lib, rc, "pna_local_stats_ell")
@@ -2460,16 +2472,23 @@ def pna_local_stats_ell(
     slots: int,
     min_init: float,
     max_init: float,
+    knockout: int = 0,
 ) -> torch.Tensor:
     """PNA's four slot aggregates of one layer: [n, 4D] [sum ‖ sum² ‖ min ‖
     max] in h's dtype (``csrc/pna_local_stats_slots.cu``, the counterpart of
     the TPU kernel ``pna_local_stats_ell``, which also runs over the slot
-    layout). Operands as in ``pna_local_stats_ell_ref``; note the order of
+    layout: the stats-only form of row 3's cluster kernel, a cluster of
+    W/128 blocks per window of 128 to 1024 rows, any D from 1 to 128, 1 to 8
+    slots). Operands as in ``pna_local_stats_ell_ref``; note the order of
     the seeds: the PNA model passes (MAX_INIT, MIN_INIT), the min's seed
     first. A CPU tensor runs the plain version; a CUDA tensor launches the
-    kernel (float32 or bfloat16 h, int32 ``slot_src``) or raises. Each
-    launch adds one to ``pna_local_stats_ell.launches``."""
+    kernel (float32 or bfloat16 h, int32 ``slot_src``; its plan from
+    ``_layer_plan``) or raises. ``knockout`` (timing only, CUDA only): bit 1
+    skips the stats (zeros are written). Each launch adds one to
+    ``pna_local_stats_ell.launches``."""
     args = (slot_src, h, window, slots, min_init, max_init)
+    if _knocked_out(h, knockout):
+        return _launch_pna_stats(*args, knockout=knockout)
     return _dispatch(h, pna_local_stats_ell_ref, _launch_pna_stats, args)
 
 
@@ -2503,27 +2522,40 @@ def _layer_ring(name: str, lib, code: int, geometry: tuple, dev) -> int:
     return ring_stages(lambda stages: lib["smem_bytes"](code, *geometry, stages), chunks, budget)
 
 
+# The messages-, channels- and stats-only forms of rows 9, 4 and 3 (rows 14,
+# 16 and 19), by library: no product, no ring.
+_NO_PRODUCT = ("gcn_local_message_ell", "dgn_local_layer_ell", "pna_local_stats_slots")
+
+
 @functools.cache
 def _layer_plan(name: str, code: int, d: int, slots: int, window: int, device: int,
                 vocab: int = 0) -> tuple:
-    """The launch plan of rows 20, 22, 18, 15 and 14 (``slots`` 0: rows 18,
-    15 and 14's ELL lanes; ``vocab``: rows 15 and 14's bond table) at this
-    geometry on CUDA device ``device``, worked out once per geometry (a
-    launch is tens of µs, and these checks take the library's getters): (the
-    weight ring, the block's shared memory; row 14 has no product and no
-    ring). Raises before launch on what the clusters (whole blocks of 128
-    rows, at most 8), the tile (row 15: an even D; row 14: D at most 128),
-    the slot depth or the card's shared memory do not take, or a product
-    geometry the host does not share; a refusal is not cached."""
+    """The launch plan of rows 20, 22, 18, 15, 14, 16 and 19 (``slots`` 0:
+    rows 18, 15, 14 and 16's ELL lanes; ``vocab``: rows 15 and 14's bond
+    table) at this geometry on CUDA device ``device``, worked out once per
+    geometry (a launch is tens of µs, and these checks take the library's
+    getters): (the weight ring, the block's shared memory; rows 14, 16 and 19
+    have no product and no ring). Raises before launch on what the clusters
+    (whole blocks of 128 rows, at most 8), the tile (row 15: an even D; rows
+    14, 16 and 19: D at most 128), the slot depth or the card's shared
+    memory do not take, or a product geometry the host does not share; a
+    refusal is not cached."""
     lib = _library(name)
     dev = torch.device("cuda", device)
     _check_tile(lib, d)
-    geometry = (d, vocab) if name.startswith("gcn_local") else (d,)
+    if name.startswith("gcn_local"):
+        geometry = (d, vocab)
+    elif name == "pna_local_stats_slots":
+        geometry = (d, slots)
+    else:
+        geometry = (d,)
     if name == "gcn_local_layer_ell" and d % 2:
         raise ValueError(f"D={d}: the kernel's tile takes an even D")
-    if name not in _LAYER_PRODUCTS:  # row 14: messages only
+    if name in _NO_PRODUCT:
         smem = lib["smem_bytes"](code, *geometry)
         _check_ell_geometry(lib, d, window, smem, dev)
+        if slots:
+            _check_geometry(lib, d, slots, (window,), window, smem, dev)
         return 0, smem
     if code == 1:
         dims_fn, kn = _LAYER_PRODUCTS[name]
@@ -3258,17 +3290,22 @@ dgn_local_layer_ell.launches = 0
 dgn_local_layer_ell.stages = 0
 
 
-def _launch_dgn_message_ell(ell_meta, h, eig, window) -> torch.Tensor:
+def _launch_dgn_message_ell(ell_meta, h, eig, window, knockout=0) -> torch.Tensor:
     dt = h.dtype
     code = _dtype_code(dt)
     dev = h.device
     n, d = h.shape
+    _check("h", h, dt, (n, d), dev)
     _check("eig", eig, dt, (n,), dev)
-    lib, lanes, nw = _check_ell_lanes(ell_meta, h, window, "dgn_local_layer_ell", (d,))
+    name = "dgn_local_layer_ell"
+    lib = _library(name)
+    _layer_plan(name, code, d, 0, window, dev.index)
+    nw = -(-n // window)
+    lanes = _ell_block(ell_meta, nw, dev)
     out = torch.empty((n, 2 * d), dtype=dt, device=dev)
     rc = lib["launch"](
         code, ell_meta.data_ptr(), h.data_ptr(), eig.data_ptr(), out.data_ptr(), nw, n, window,
-        lanes, d, dev.index, torch.cuda.current_stream(dev).cuda_stream,
+        lanes, d, int(knockout), dev.index, torch.cuda.current_stream(dev).cuda_stream,
     )
     _raise_on(lib, rc, "dgn_local_message_ell")
     dgn_local_message_ell.launches += 1
@@ -3280,15 +3317,21 @@ def dgn_local_message_ell(
     h: torch.Tensor,
     eig: torch.Tensor,
     window: int,
+    knockout: int = 0,
 ) -> torch.Tensor:
     """DGN's two message channels over the ELL layout: [n, 2D] [m1 ‖ m2] in
-    h's dtype (``csrc/dgn_local_layer_ell.cu``), for the
+    h's dtype (``csrc/dgn_local_layer_ell.cu``: the channels-only form of
+    row 4's cluster kernel, a cluster of W/128 blocks per window of 128 to
+    1024 rows, any k edge blocks a window, any D from 1 to 128), for the
     caller to merge a spill tail. Operands as in
     ``dgn_local_message_ell_ref``; a CPU tensor runs the plain version, a
     CUDA tensor launches the kernel (float32 or bfloat16 h and eig, int32
-    ``ell_meta``) or raises. Each launch adds one to
-    ``dgn_local_message_ell.launches``."""
+    ``ell_meta``; its plan from ``_layer_plan``) or raises. ``knockout``
+    (timing only, CUDA only): bit 1 skips the channels (zeros are written).
+    Each launch adds one to ``dgn_local_message_ell.launches``."""
     args = (ell_meta, h, eig, window)
+    if _knocked_out(h, knockout):
+        return _launch_dgn_message_ell(*args, knockout=knockout)
     return _dispatch(h, dgn_local_message_ell_ref, _launch_dgn_message_ell, args)
 
 

@@ -1465,6 +1465,8 @@ def test_rows_16_to_20_cuda_kernels_reject_geometry(cuda_device):
 # blocks a window with no spill tail.
 ROW18_GEOMETRY = {128: (120, 512, 192), 256: (250, 1024, 384), 512: (400, 2048, 768),
                   1024: (900, 2048, 1280)}
+# The same at W=384, a cluster of three (rows 16 and 19 run it too).
+WINDOW_GEOMETRY = {**ROW18_GEOMETRY, 384: (350, 1536, 512)}
 
 
 def _ell_window_batch(name: str, window: int, k: int, seed: int) -> dict:
@@ -1472,7 +1474,7 @@ def _ell_window_batch(name: str, window: int, k: int, seed: int) -> dict:
     large ones for model ``name`` at ``window``, k edge blocks a window, no
     spill tail (GAT, whose self loops add a lane a row: k = 1, blocks of 4W
     lanes)."""
-    big, block1, block2 = ROW18_GEOMETRY[window]
+    big, block1, block2 = WINDOW_GEOMETRY[window]
     if name == "gat":
         block1 = 4 * window
     spec = registry.get(name)
@@ -1736,7 +1738,16 @@ def _row14_operands(window: int, k: int, d: int, seed: int = 33) -> dict:
     ops = dict(_ell_lane_operands(batch), h=f32(n, d),
                dis=(1 / np.sqrt(batch["out_deg"][:n] + 1.0)).astype(np.float32),
                ee_table=f32(13, d))
-    meta = ops["ell_meta"].copy()
+    return dict(ops, ell_meta=_turned_lanes(ops["ell_meta"], n, window))
+
+
+def _turned_lanes(ell_meta: np.ndarray, n: int, window: int) -> np.ndarray:
+    """``ell_meta`` with each kind of lane that adds nothing: in every window
+    a real lane's u set outside [0, W) (past it, and negative) and the pad
+    lanes (v = W) given a live source, which must land nowhere; in the last
+    window, which must hold no edge, a lane from a padding row (n rows of
+    the windows' are real) to row 0 and one from row 0 to a padding row."""
+    meta = ell_meta.copy()
     nw = -(-n // window)
     lanes = meta.shape[0] // nw
     for win in range(nw):
@@ -1749,7 +1760,7 @@ def _row14_operands(window: int, k: int, d: int, seed: int = 33) -> dict:
     assert not (last[:, 1] < window).any()
     last[0, :2] = window - 2, 0
     last[1, :2] = 0, window - 1
-    return dict(ops, ell_meta=meta)
+    return meta
 
 
 @pytest.mark.cuda
@@ -1817,6 +1828,153 @@ def test_row14_cuda_kernel_rejects_geometry(cuda_device):
     with pytest.raises(ValueError, match="whole blocks"):
         fn(**dict(ops, window=192))
     assert fn.launches == before
+
+
+_ROW16_CASES = [(w, k, d) for w in sorted(WINDOW_GEOMETRY) for k in (1, 2)
+                for d in (1, 37, 100, 128)]
+
+
+def _row16_operands(window: int, k: int, d: int, seed: int = 35) -> dict:
+    """Row 16's seeded operands at width ``d`` on a ``WINDOW_GEOMETRY`` ELL
+    bucket, as numpy arrays: h and random eigenvector entries cut 5 rows
+    short of the last window (its padding rows), the lanes turned by
+    ``_turned_lanes``."""
+    batch = _ell_window_batch("gcn", window, k, 27)
+    rng = np.random.default_rng(seed)
+    n = batch["node_feat"].shape[0] - 5
+    lanes = _ell_lane_operands(batch)
+    return dict(lanes, ell_meta=_turned_lanes(lanes["ell_meta"], n, window),
+                h=rng.normal(0, 0.5, (n, d)).astype(np.float32),
+                eig=rng.normal(0, 0.3, n).astype(np.float32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("window,k,d", _ROW16_CASES,
+                         ids=[f"W{w}-k{k}-D{d}" for w, k, d in _ROW16_CASES])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 5e-2)],
+                         ids=["f32", "bf16"])
+def test_row16_cuda_kernel_windows_match_plain(window, k, d, dtype, tol, cuda_device):
+    """Row 16, the channels-only form of row 4's cluster kernel with the ELL
+    runs, at W = 128, 256, 384, 512 and 1024 (a cluster of W/128 blocks, the
+    large graph's sources read across all of them), k = 1 and 2 edge blocks
+    a window, D = 1, 37 (odd: a padded row stride in shared memory), 100 (the
+    model's) and 128, with sentinel, out-of-window and padding-row lanes, one
+    launch per call; then what the occupancy calculator says of it. f32:
+    summation order only; bf16: the output rounds to bf16, and a rounding
+    flip of a lane's e_u·h_u moves m2 by a few bf16 ulps of its scale."""
+    fn = local_layer.dgn_local_message_ell
+    ops = _port(_row16_operands(window, k, d), cuda_device, dtype)
+    before = fn.launches
+    got = fn(**ops)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 1
+    expect = local_layer.dgn_local_message_ell_ref(**ops)
+    assert got.dtype == dtype and got.shape == expect.shape
+    assert expect.abs().max() > 1e-2
+    scale = max(1.0, expect.abs().max().item())
+    torch.testing.assert_close(got.float() / scale, expect.float() / scale, rtol=tol, atol=tol)
+    occ = local_layer.occupancy("dgn_local_layer_ell", dtype, window, (d,), 0, 0, cuda_device)
+    assert occ["stages"] == 0 and occ["blocks_per_sm"] >= 1 and occ["clusters"] > 0
+
+
+def _row19_operands(window: int, d: int, slots: int, seed: int = 36) -> dict:
+    """Row 19's seeded operands at width ``d`` and ``slots`` slots over three
+    windows of ``window`` rows, 5 of them padding rows, as numpy arrays:
+    each row's slots drawn from the whole window (sources in every block of
+    its cluster, padding rows among them), a quarter of them the sentinel W,
+    and every eleventh row with no source at all (it keeps the seeds)."""
+    from flowgnn_tpu_torch.models.pna import MAX_INIT, MIN_INIT
+
+    rng = np.random.default_rng(seed)
+    rows = 3 * window
+    src = rng.integers(0, window, (rows, slots)).astype(np.int32)
+    src[rng.random((rows, slots)) < 0.25] = window
+    src[::11] = window
+    return dict(slot_src=src, h=rng.normal(0, 2.0, (rows - 5, d)).astype(np.float32),
+                window=window, slots=slots, min_init=MAX_INIT, max_init=MIN_INIT)
+
+
+_ROW19_CASES = [(w, d, s) for w in sorted(WINDOW_GEOMETRY) for d in (1, 37, 80, 128)
+                for s in (1, 8)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("window,d,slots", _ROW19_CASES,
+                         ids=[f"W{w}-D{d}-S{s}" for w, d, s in _ROW19_CASES])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 5e-2)],
+                         ids=["f32", "bf16"])
+def test_row19_cuda_kernel_windows_match_plain(window, d, slots, dtype, tol, cuda_device):
+    """Row 19, the stats-only form of row 3's cluster kernel, at W = 128,
+    256, 384, 512 and 1024 (a cluster of W/128 blocks; each row's sources
+    anywhere in its window), D = 1, 37 (odd: a padded row stride in shared
+    memory), 80 (the model's) and 128, 1 and 8 slots, with sentinel slots,
+    padding-row sources and rows with no source, one launch per call; then
+    what the occupancy calculator says of it. f32: summation order is the
+    plain version's, so the sums agree to its rounding; bf16: the output
+    rounds to bf16 (a flip is one bf16 ulp of the output)."""
+    fn = local_layer.pna_local_stats_ell
+    ops = _port(_row19_operands(window, d, slots), cuda_device, dtype)
+    before = fn.launches
+    got = fn(**ops)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 1
+    expect = local_layer.pna_local_stats_ell_ref(**ops)
+    assert got.dtype == dtype and got.shape == expect.shape
+    scale = max(1.0, expect.abs().max().item())
+    torch.testing.assert_close(got.float() / scale, expect.float() / scale, rtol=tol, atol=tol)
+    assert torch.equal(got[::11], expect[::11])  # no source: the seeds
+    occ = local_layer.occupancy("pna_local_stats_slots", dtype, window, (d,), 0, 0, cuda_device)
+    assert occ["stages"] == 0 and occ["blocks_per_sm"] >= 1 and occ["clusters"] > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_rows_16_19_knockouts_launch(dtype, cuda_device):
+    """The phase split's knockout of rows 16 and 19 (bit 1: the channels, the
+    stats) launches, counts and writes zeros at W=512; the whole kernel is
+    unchanged by having run it. On a CPU tensor a knockout raises."""
+    for fn, ops in ((local_layer.dgn_local_message_ell, _row16_operands(512, 1, 100)),
+                    (local_layer.pna_local_stats_ell, _row19_operands(512, 80, 8))):
+        ops = _port(ops, cuda_device, dtype)
+        full = fn(**ops)
+        before = fn.launches
+        out = fn(**ops, knockout=2)
+        torch.cuda.synchronize()
+        assert fn.launches == before + 1
+        assert out.shape == full.shape and not out.any()
+        assert torch.equal(fn(**ops), full)
+        with pytest.raises(ValueError, match="knockout"):
+            fn(**{k: v.cpu() if torch.is_tensor(v) else v for k, v in ops.items()}, knockout=2)
+
+
+@pytest.mark.cuda
+def test_rows_16_19_cuda_kernels_reject_geometry(cuda_device):
+    """Rows 16 and 19 raise before launch on a D past their 128 columns, on a
+    window that is not whole 128-row blocks or spans more than 8, and row 19
+    on more than 8 slots; W=1024 at D=128 and 8 slots runs (row 19's old
+    one-block form ran out of shared memory there)."""
+    rng = np.random.default_rng(0)
+    for fn, ops in ((local_layer.dgn_local_message_ell, _row16_operands(128, 1, 100)),
+                    (local_layer.pna_local_stats_ell, _row19_operands(128, 80, 8))):
+        ops = _port(ops, cuda_device)
+        n = ops["h"].shape[0]
+        wide = torch.from_numpy(rng.normal(size=(n, 129)).astype(np.float32)).to(cuda_device)
+        before = fn.launches
+        with pytest.raises(ValueError, match="tile"):
+            fn(**dict(ops, h=wide))
+        for window in (192, 1152):
+            with pytest.raises(ValueError, match="whole blocks"):
+                fn(**dict(ops, window=window))
+        assert fn.launches == before
+    ops = _port(_row19_operands(128, 80, 8), cuda_device)
+    with pytest.raises(ValueError, match="slots"):
+        local_layer.pna_local_stats_ell(**dict(ops, slot_src=ops["slot_src"].repeat(1, 2)[:, :9],
+                                               slots=9))
+    ops = _port(_row19_operands(1024, 128, 8), cuda_device)
+    got = local_layer.pna_local_stats_ell(**ops)
+    expect = local_layer.pna_local_stats_ell_ref(**ops)
+    scale = expect.abs().max().item()
+    torch.testing.assert_close(got / scale, expect / scale, rtol=1e-4, atol=1e-4)
 
 
 def _long_run_operands(window: int, d: int, seed: int = 34) -> dict:

@@ -8,7 +8,7 @@ row 18's bf16 channels and posttrans and of row 15's bf16 messages and next
 conv on the packed chunks against the plain versions and the JAX kernels in
 interpret mode, the model's row-23 weights and the GIN layers' slice of
 ``mlp_tiles`` packed once per weight set, and the launch plans of rows 10,
-12, 13, 15, 21, 23, 25, 14 and 24 worked out once per geometry."""
+12, 13, 15, 21, 23, 25, 14, 24, 16 and 19 worked out once per geometry."""
 
 import collections
 
@@ -565,3 +565,67 @@ def test_row14_row24_launch_plans_are_worked_out_once_per_geometry(monkeypatch):
     finally:
         for plan in plans:
             plan.cache_clear()
+
+
+def test_row16_row19_launch_plans_are_worked_out_once_per_geometry(monkeypatch):
+    """Rows 16 and 19's plans (``_layer_plan``: the channels- and stats-only
+    forms, no product and no ring; row 19's keyed by its slots too) read the
+    library's getters once per geometry, not once per launch: the carve-up
+    is the library's ``_smem_bytes`` at the launch's dtype, width (and row
+    19's slots), and ``occupancy`` hands the calculator that geometry (row
+    19 at its deepest slot table). A geometry a kernel refuses (a D past 128,
+    a window past 8 blocks, more than 8 slots) raises each time and is not
+    cached; neither kernel opts in through ``_prepare``."""
+    calls, prepared, asked = collections.Counter(), [], []
+    libs = {"dgn_local_layer_ell": _FakeLibrary(calls, prepared),
+            "pna_local_stats_slots": _FakeLibrary(calls, prepared)}
+
+    def counted(key, value):
+        def f(*args):
+            calls[key] += 1
+            return value(*args)
+        return f
+
+    def occupancy(*args):
+        asked.append(args[:-2])
+        args[-1][0], args[-1][1] = 2, 33
+        return 0
+
+    for lib in libs.values():
+        lib["max_d"] = counted("max_d", lambda: 128)
+        lib["smem_bytes"] = counted("smem_bytes", lambda code, d, *slots: 1000 * (code + 1) + d
+                                    + 10000 * sum(slots))
+        lib["occupancy"] = occupancy
+    monkeypatch.setattr(local_layer, "_library", libs.__getitem__)
+    local_layer._layer_plan.cache_clear()
+    try:
+        row16 = lambda code, d, window: local_layer._layer_plan("dgn_local_layer_ell", code, d, 0,
+                                                                window, 0)
+        row19 = lambda code, d, slots, window: local_layer._layer_plan(
+            "pna_local_stats_slots", code, d, slots, window, 0)
+        assert row16(1, 100, 128) == (0, 2100)
+        assert row19(1, 80, 8, 128) == (0, 82080)
+        reads = sum(calls.values())
+        assert calls["max_d"] >= 2 and calls["smem_bytes"] == 2
+        for _ in range(3):
+            assert row16(1, 100, 128) == (0, 2100)
+            assert row19(1, 80, 8, 128) == (0, 82080)
+        assert sum(calls.values()) == reads
+        assert row16(0, 37, 1024) == (0, 1037)  # f32, an odd D
+        assert row19(0, 80, 1, 384) == (0, 11080)  # one slot: a plan of its own
+        for _ in range(2):
+            with pytest.raises(ValueError, match="tile"):
+                row16(1, 129, 128)
+            with pytest.raises(ValueError, match="whole blocks"):
+                row19(1, 80, 8, 1152)
+            with pytest.raises(ValueError, match="slots"):
+                row19(1, 80, 9, 128)
+        occ = local_layer.occupancy("pna_local_stats_slots", torch.bfloat16, 512, (80,), 0, 0,
+                                    torch.device("cuda", 0))
+        assert occ == dict(smem=82080, stages=0, blocks_per_sm=2, clusters=33)
+        local_layer.occupancy("dgn_local_layer_ell", torch.float32, 256, (100,), 0, 0,
+                              torch.device("cuda", 0))
+        assert asked == [(1, 512, 80, 8), (0, 256, 100)]
+        assert prepared == []
+    finally:
+        local_layer._layer_plan.cache_clear()
