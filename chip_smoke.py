@@ -219,14 +219,17 @@ Phases, each of which raises (non-zero exit) on failure:
    (``chained_matmul``) on every ``matmul_shapes.SHAPES`` row at full size
    in its dtype, equal to layers·K on all-ones operands and to its plain
    version on seeded ones (int8 exactly, bf16 at 1e-4). 6b: rows 27-30
-   (``gat_mega_ablate``) on the 1028-graph molhiv GAT bucket at full width,
-   every (form, variant) against its plain version (f32 1e-4, bf16 5e-2, or
-   1.5× what the plain version needs against its f64 run), each form's
-   ``full`` against row 5's kernel (f32 1e-4). Then each tool's ``main`` as
-   a user runs it, counted (``run_bench_tools``): ``matmul_shapes``'s table
-   and the ablation table over every variant in bf16; then per shape the
-   kernel, its plain version and cuBLAS (TF/s, share of the peak), and the
-   ablation record's kernel and plain times.
+   (``gat_mega_ablate``, row 5's body in four forms) on the 1028-graph
+   molhiv GAT bucket at full width, every (form, variant) against its plain
+   version at W=128 (f32 1e-4, bf16 5e-2, or 1.5× what the plain version
+   needs against its f64 run), each form's full, nogather, noglue and
+   nopool at W=512 (clusters of four) the same way, each form's ``full``
+   against row 5's kernel at both (f32 1e-4), each form's occupancy. Then
+   each tool's ``main`` as a user runs it, counted (``run_bench_tools``):
+   ``matmul_shapes``'s table and the ablation table over every variant in
+   bf16 at W=128 and at W=512 (by graph replay); then per shape the kernel,
+   its plain version and cuBLAS (TF/s, share of the peak), and the
+   ablation record's kernel (loop and graph replay) and plain times.
 
 No phase runs at a cut depth: the whole run takes about six minutes on an
 H100. The line before the last is a JSON object with one record per
@@ -405,6 +408,10 @@ KERNELS = {
 CHAIN_RECORD = 0  # "gin gather/scatter [896,384]@[384,128]", bf16
 ABLATION_GRAPHS = 1028  # the JAX tool's default bucket
 ABLATION_RECORD = ("v3", "full")
+# Phase 6b's cluster window: every form's full, nogather, noglue and nopool
+# there (those it has), and the tool's main run once more at it.
+ABLATION_WIDE = 512
+ABLATION_WIDE_VARIANTS = ("full", "nogather", "noglue", "nopool")
 TOOL_REPS, TOOL_TRIALS = 20, 2
 
 
@@ -421,7 +428,7 @@ SASS_NEEDS = {"chained_matmul": ("HGMMA", "UBLKCP|UTMALDG"),
                                                   "dgn_local_layer_ell_model",
                                                   "gcn_local_layer_ell",
                                                   "gin_local_layer_blocks", "gin_layer_fused",
-                                                  "gat_local_layer_ell")}}
+                                                  "gat_local_layer_ell", "gat_mega_ablate")}}
 SASS_OPS = ("HGMMA", "UBLKCP", "UTMALDG", "HMMA", "IMMA", "FFMA")
 # Phase 3: the (D, H) at which the tensor-core GIN kernels (rows 1, 8, 13)
 # are held to their plain versions: H' and D' padded, the models' own, and
@@ -2213,12 +2220,14 @@ def check_chained_matmul(device, max_err: dict) -> None:
 
 def check_ablation(device, max_err: dict):
     """Phase 6b's checks on the 1028-graph molhiv GAT bucket at full width
-    (seeded synthetic weights): every (form, variant) of rows 27-30 against
-    its plain version, f32 at 1e-4 and bf16 at 5e-2 (``agree``), or 1.5×
-    what the plain version itself needs against its f64 run where that is
-    more (``noexp`` divides by sums of signed raw scores that can cancel);
-    each form's ``full`` against row 5's kernel in f32 at 1e-4. Returns the
-    bucket."""
+    (seeded synthetic weights): at W=128 every (form, variant) of rows 27-30
+    against its plain version, f32 at 1e-4 and bf16 at 5e-2 (``agree``), or
+    1.5× what the plain version itself needs against its f64 run where that
+    is more (``noexp`` divides by sums of signed raw scores that can
+    cancel); at W=512 (clusters of four) each form's full, nogather, noglue
+    and nopool the same way; at both windows each form's ``full`` against
+    row 5's kernel in f32 at 1e-4. Prints each form's occupancy. Returns the
+    W=128 bucket."""
     import torch
 
     from flowgnn_tpu_torch.bench import ablate_gat_mega as abl
@@ -2227,52 +2236,64 @@ def check_ablation(device, max_err: dict):
     from flowgnn_tpu_torch.ops.local_layer import gat_local_model_slots
     from flowgnn_tpu_torch.params.loaders import params_from_numpy, synthetic_gat_params
 
-    batch = abl.molhiv_bucket(ABLATION_GRAPHS, None, device)
-    w, s = batch["slot_geom"].shape
-    print(f"# ablation bucket: {ABLATION_GRAPHS} graphs, {batch['node_feat'].shape[0]} rows, "
-          f"W={w}, S={s}, prefix caps {base.slot_prefix_caps(batch, s)}")
-    for prec, tol in ((FLOAT32, 1e-4), (BF16, 5e-2)):
-        params = params_from_numpy(synthetic_gat_params(SEED), prec, device)
-        c = abl.ablation_operands(params, batch, prec)
-        for form, (names, _) in abl.FORMS.items():
-            ops = abl.form_operands(form, c)
-            f64 = {k: v.double() if torch.is_tensor(v) and v.is_floating_point() else v
-                   for k, v in ops.items()}
-            for v in names:
-                got = abl.gat_mega_ablate(form, v, **ops)
-                want = abl.gat_mega_ablate_ref(form, v, **ops)
-                exact = abl.gat_mega_ablate_ref(form, v, **f64)
-                torch.cuda.synchronize()
-                # A knockout can overflow (nodivide: the numerators grow layer
-                # by layer past exp's range), as on the TPU: the kernel must
-                # overflow where the plain version does, and agree elsewhere.
-                fin = want.isfinite()
-                kind = lambda x: x[~fin].nan_to_num(nan=0.0, posinf=1.0, neginf=-1.0)
-                check(torch.equal(got.isfinite(), fin) and torch.equal(kind(got), kind(want)),
-                      f"{form} {v}: non-finite outputs differ from the plain version's")
-                both = fin & exact.isfinite()
-                t = max(tol, 1.5 * needed_tol(want[both], exact[both]))
-                err = agree(got[fin], want[fin], t)
+    first = None
+    for window in (None, ABLATION_WIDE):
+        batch = abl.molhiv_bucket(ABLATION_GRAPHS, window, device)
+        first = first or batch
+        w, s = batch["slot_geom"].shape
+        print(f"# ablation bucket: {ABLATION_GRAPHS} graphs, {batch['node_feat'].shape[0]} rows, "
+              f"W={w}, S={s}, prefix caps {base.slot_prefix_caps(batch, s)}")
+        for prec, tol in ((FLOAT32, 1e-4), (BF16, 5e-2)):
+            params = params_from_numpy(synthetic_gat_params(SEED), prec, device)
+            c = abl.ablation_operands(params, batch, prec)
+            for form, (names, _) in abl.FORMS.items():
+                ops = abl.form_operands(form, c)
+                occ = abl.occupancy(form, prec.compute_dtype, w, ops["h0"].shape[1],
+                                    ops["num_heads"], ops["gmax"], ops["pred_hd"].shape[1],
+                                    device)
+                print(f"# gat_mega_ablate {form} {prec.compute_dtype} W={w}: {occ['smem']} B of "
+                      f"shared memory, ring {occ['stages']}, {occ['blocks_per_sm']} blocks an "
+                      f"SM, {occ['clusters']} clusters in flight")
+                f64 = {k: v.double() if torch.is_tensor(v) and v.is_floating_point() else v
+                       for k, v in ops.items()}
+                for v in names if window is None else [
+                        v for v in ABLATION_WIDE_VARIANTS if v in names]:
+                    got = abl.gat_mega_ablate(form, v, **ops)
+                    want = abl.gat_mega_ablate_ref(form, v, **ops)
+                    exact = abl.gat_mega_ablate_ref(form, v, **f64)
+                    torch.cuda.synchronize()
+                    # A knockout can overflow (nodivide: the numerators grow
+                    # layer by layer past exp's range), as on the TPU: the
+                    # kernel must overflow where the plain version does, and
+                    # agree elsewhere.
+                    fin = want.isfinite()
+                    kind = lambda x: x[~fin].nan_to_num(nan=0.0, posinf=1.0, neginf=-1.0)
+                    check(torch.equal(got.isfinite(), fin) and torch.equal(kind(got), kind(want)),
+                          f"{form} {v} W={w}: non-finite outputs differ from the plain version's")
+                    both = fin & exact.isfinite()
+                    t = max(tol, 1.5 * needed_tol(want[both], exact[both]))
+                    err = agree(got[fin], want[fin], t)
+                    if prec is FLOAT32:
+                        max_err["gat_mega_ablate"] = max(max_err["gat_mega_ablate"], err)
+                    print(f"# kernel vs plain, gat_mega_ablate {form} {v} W={w} "
+                          f"{prec.compute_dtype}: max abs err {err:.3e}, tol {t:.1e} (the plain "
+                          f"version vs its f64 run {needed_tol(want[both], exact[both]):.1e}), "
+                          f"{int((~fin).sum())} of {fin.numel()} outputs not finite; max finite "
+                          f"|out| {want[fin].abs().max().item():.3e}")
                 if prec is FLOAT32:
-                    max_err["gat_mega_ablate"] = max(max_err["gat_mega_ablate"], err)
-                print(f"# kernel vs plain, gat_mega_ablate {form} {v} {prec.compute_dtype}: max "
-                      f"abs err {err:.3e}, tol {t:.1e} (the plain version vs its f64 run "
-                      f"{needed_tol(want[both], exact[both]):.1e}), {int((~fin).sum())} of "
-                      f"{fin.numel()} outputs not finite; max finite |out| "
-                      f"{want[fin].abs().max().item():.3e}")
-            if prec is FLOAT32:
-                row5 = gat_local_model_slots(**gat.slot_kernel_operands(params, batch, prec))
-                err = agree(abl.gat_mega_ablate(form, "full", **ops), row5, 1e-4)
-                print(f"# gat_mega_ablate {form} full vs row 5's kernel, float32: max abs err "
-                      f"{err:.3e}")
-    return batch
+                    row5 = gat_local_model_slots(**gat.slot_kernel_operands(params, batch, prec))
+                    err = agree(abl.gat_mega_ablate(form, "full", **ops), row5, 1e-4)
+                    print(f"# gat_mega_ablate {form} full vs row 5's kernel, float32, W={w}: max "
+                          f"abs err {err:.3e}")
+    return first
 
 
 def run_bench_tools(device) -> dict:
     """Phase 6's main path: the two tools' ``main`` as a user runs them,
     ``matmul_shapes`` over every SHAPES row and ``ablate_gat_mega`` over
-    noop, slots, dense and every (form, variant), bf16, with every launch
-    count set to 0 before and read after. Returns the counts."""
+    noop, slots, dense and every (form, variant), bf16, at its default
+    window and at ``ABLATION_WIDE``, with every launch count set to 0
+    before and read after. Returns the counts."""
     import torch
 
     from flowgnn_tpu_torch.bench import ablate_gat_mega as abl
@@ -2285,7 +2306,9 @@ def run_bench_tools(device) -> dict:
     for f in kernels.values():
         f.launches = 0
     ms.main(reps)
-    abl.main(reps + ["--graphs", str(ABLATION_GRAPHS), "--variants", ",".join(names)])
+    for window in ([], ["--ell-window", str(ABLATION_WIDE)]):
+        abl.main(reps + ["--graphs", str(ABLATION_GRAPHS), "--variants", ",".join(names)]
+                 + window)
     torch.cuda.synchronize()
     counts = {k: f.launches for k, f in kernels.items()}
     expect = {"chained_matmul", "gat_mega_ablate", "gat_local_model_slots"}
@@ -2300,7 +2323,8 @@ def time_bench_kernels(device, batch: dict) -> dict:
     cuBLAS (``layers`` products of the same operands: bf16 ``torch.matmul``,
     int8 ``torch._int_mm``; timed here, used nowhere in the port), TF/s and
     the share of the dtype's peak; the ablation's record (``ABLATION_RECORD``,
-    bf16) alone and its plain version. Returns the two records."""
+    bf16) alone, by the loop and by graph replay, and its plain version.
+    Returns the two records."""
     import torch
 
     from flowgnn_tpu_torch.bench import ablate_gat_mega as abl
@@ -2336,13 +2360,14 @@ def time_bench_kernels(device, batch: dict) -> dict:
     t_ops, t_bytes = flops / PEAK_FLOPS["bfloat16"] * 1e3, byts / MEM_BYTES_PER_S * 1e3
     record["gat_mega_ablate"] = dict(
         ms=cuda_ms(lambda: abl.gat_mega_ablate(form, variant, **ops)),
+        graph_ms=graph_ms(lambda: abl.gat_mega_ablate(form, variant, **ops)),
         plain_ms=cuda_ms(lambda: abl.gat_mega_ablate_ref(form, variant, **ops), reps=5),
         bound_ms=max(t_ops, t_bytes), bound_by="operations" if t_ops > t_bytes else "bytes",
         library_ms=None)
     r = record["gat_mega_ablate"]
-    print(f"# time gat_mega_ablate {form} {variant} bfloat16: {r['ms']:.4f} ms, its plain version "
-          f"{r['plain_ms']:.4f} ms; bound {r['bound_ms']:.4f} ms by {r['bound_by']} "
-          f"({flops:.4g} operations, {byts:.4g} bytes)")
+    print(f"# time gat_mega_ablate {form} {variant} bfloat16: {r['ms']:.4f} ms, by graph replay "
+          f"{r['graph_ms']:.4f} ms, its plain version {r['plain_ms']:.4f} ms; bound "
+          f"{r['bound_ms']:.4f} ms by {r['bound_by']} ({flops:.4g} operations, {byts:.4g} bytes)")
     return record
 
 

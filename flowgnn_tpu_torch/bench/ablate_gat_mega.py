@@ -28,19 +28,26 @@ running the kernel with that stage knocked out and timing each variant:
   v5[:x]    — v3 with each head's score expanded to H·D columns; x: split
               (v5 ``full``'s function), nogather
 
-Every variant of a form runs one CUDA kernel (``csrc/gat_mega_ablate.cu``,
-wrapper ``gat_mega_ablate``), whose knockouts are runtime flags; the plain
-version ``gat_mega_ablate_ref`` copies the JAX variant factories' arithmetic and
-rounding points. Subtract noop; (full − variant) is then the stage's device
-time per pass.
+Every form runs row 5's kernel body (``csrc/gat_model.cuh``, the kernel
+of ``ops.local_layer.gat_local_model_slots``) with that form's operands and
+rounding points, through one wrapper, ``gat_mega_ablate``, whose knockouts
+are runtime flags: a cluster of W/128 blocks a window for W = 128..1024,
+the bf16 glue products on the tensor cores (``wgmma``; v4's one-hot gather
+too), the weights packed once per weight set (``glue_tiles``). The plain
+version ``gat_mega_ablate_ref`` copies the JAX variant factories'
+arithmetic and rounding points. Subtract noop; (full − variant) is then
+the stage's device time per pass in row 5's design.
 
 Run on the card: ``python -m flowgnn_tpu_torch.bench.ablate_gat_mega [--reps
 100] [--trials 3] [--graphs 1028] [--ell-window W] [--variants
-full,noexp,...]``. The JAX tool loads the reference GAT weights; the port
-uses seeded synthetic weights at full width (4 heads × 16, L=5) in bf16. The
-port's slot kernels take windows up to 128 rows, so ``--ell-window`` above
-128 raises. ``--device cpu`` runs the plain versions with a host clock, for
-a check of the control flow only.
+full,noexp,...]``; ``--ell-window`` takes 128..1024 in whole blocks of 128
+rows (default ``choose_geometry``'s, 128 on molhiv). Each row is timed on
+the card by CUDA-graph replay (``bench.timing.graph_ms``: the launches'
+device time, without the wrapper's host work), the best of ``--trials``
+means of ``--reps`` replays. The JAX tool loads the reference GAT weights;
+the port uses seeded synthetic weights at full width (4 heads × 16, L=5)
+in bf16. ``--device cpu`` runs the plain versions with a host clock, for a
+check of the control flow only.
 """
 
 from __future__ import annotations
@@ -52,10 +59,12 @@ import functools
 import torch
 
 from ..ops.build import load_library
-from ..ops.local_layer import _padded, _pool_sums
+from ..ops.local_layer import (
+    GAT_PITCH, _pack_once, _padded, _pool_sums, _two_blocks_budget, linear_geometry,
+    linear_tiles, ring_stages,
+)
 
 LIBRARIES = ("gat_mega_ablate",)
-MAX_WINDOW = 128  # the port's slot kernels hold a window of at most 128 rows
 # Each form's variants, in the JAX tool's order; the second tuple: variants
 # that compute the form's ``full`` function (TPU layout experiments), which
 # run the ``full`` path under their own name.
@@ -70,6 +79,10 @@ FORMS = {
 FLAGS = {"noexp": 1, "nogather": 2, "noexpand": 4, "noglue": 8, "nopool": 16,
          "nodivide": 32, "nocast": 64, "staticcat": 128, "addcat": 256, "noelu": 512}
 FORM_CODES = {"v1": 1, "v3": 3, "v4": 4, "v5": 5}
+# Each form's bf16 glue width N (``csrc/gat_model.cuh``: the forms' kGlueN),
+# which the host packs the weights for; the launch checks it against the
+# library's ``gma_glue_dims``.
+GLUE_N = {"v1": 2 * GAT_PITCH, "v3": 136, "v4": 136, "v5": 256}
 
 
 def _flags(form: str, variant: str) -> int:
@@ -200,23 +213,124 @@ def gat_mega_ablate_ref(form: str, variant: str, stack, h0, x0, s0, w, pool_gl, 
 # ---------------------------------------------------------------------------
 
 
+def _glue_matrix(form: str, w: torch.Tensor, proj_w, hd: int, num_heads: int) -> torch.Tensor:
+    """Each layer's glue product B [H·D, N] of ``form`` (feat · B, the
+    columns its kernel writes; ``csrc/gat_model.cuh``), [layers, H·D, N] in
+    ``w``'s dtype, pads zero: v1 [proj_l ‖ skip_{l+1}] with skip at column
+    64, after layer 0's skip_w[0] (columns < H·D); v3 / v4 glue_w's used
+    columns [h ‖ s_tgt ‖ skip ‖ s_src] (its zero pad dropped); v5 glue_wx.
+    ``w``: v1's skip_w, v3 / v4's glue_w, v5's glue_wx; ``proj_w`` v1's."""
+    n = GLUE_N[form]
+    layers = w.shape[0] // hd
+    b = w.new_zeros(layers, hd, n)
+    w3 = w.view(layers, hd, -1)
+    if form == "v1":
+        b[0, :, :hd] = w3[0]
+        b[1:, :, :hd] = proj_w.view(layers - 1, hd, hd)
+        b[1:, :, GAT_PITCH : GAT_PITCH + hd] = w3[1:]
+    elif form == "v5":
+        b[..., : 4 * hd] = w3
+    else:
+        cols = hd + num_heads
+        pay = w.shape[1] - cols
+        b[..., :cols] = w3[..., :cols]
+        b[..., cols : 2 * cols] = w3[..., pay:]
+    return b
+
+
+def glue_tiles(form: str, w: torch.Tensor, proj_w, hd: int, num_heads: int) -> torch.Tensor:
+    """``form``'s bf16 glue chunks as its kernel streams them, packed once per
+    weight set (``ops.local_layer._pack_once``: again after an in-place
+    update): [layers, C, 32·N], layer l's ``_glue_matrix`` as the wgmma B
+    operand in chunks of 32 input channels (``linear_tiles``); v1's layer 0
+    (its N = 64 skip product) in the first half of each chunk."""
+    def pack():
+        b = _glue_matrix(form, w, proj_w, hd, num_heads).transpose(1, 2)
+        n = GLUE_N[form]
+        if form != "v1":
+            return linear_tiles(b, n)
+        first = linear_tiles(b[:1, :GAT_PITCH], GAT_PITCH)
+        first = torch.cat([first, torch.zeros_like(first)], dim=2)
+        return torch.cat([first, linear_tiles(b[1:], n)])
+
+    sources = (w, proj_w) if form == "v1" else (w,)
+    return _pack_once(("gat_mega_ablate", form, hd, num_heads), sources, pack)
+
+
 @functools.cache
 def _library() -> dict:
     lib = load_library("gat_mega_ablate")
-    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    int_p = ctypes.POINTER(ctypes.c_int)
     fns = {}
     for name, args, res in (
         ("max_d", [], i32), ("max_heads", [], i32), ("max_slots", [], i32),
-        ("max_window", [], i32), ("smem_optin", [i32], ctypes.c_longlong),
-        ("smem_bytes", [i32] * 8, ctypes.c_longlong),
-        ("launch", [i32] * 2 + [ptr] * 10 + [i32] * 8
-         + [ctypes.POINTER(ctypes.c_int), i32, i32, i32, i32, ptr], i32),
+        ("rows_per_block", [], i32), ("max_cluster", [], i32), ("max_window", [], i32),
+        ("blocks_per_sm", [i32], i32),
+        ("glue_dims", [i32, i32, int_p], None), ("smem_optin", [i32], i64),
+        ("smem_per_sm", [i32], i64), ("smem_bytes", [i32] * 9, i64),
+        ("occupancy", [i32] * 10 + [int_p], i32),
+        ("launch", [i32] * 2 + [ptr] * 11 + [i32] * 8 + [int_p] + [i32] * 5 + [ptr], i32),
         ("error_string", [i32], ctypes.c_char_p),
     ):
         f = getattr(lib, f"gma_{name}")
         f.argtypes, f.restype = args, res
         fns[name] = f
     return fns
+
+
+def _error(lib, code: int) -> str:
+    return lib["error_string"](int(code)).decode()
+
+
+@functools.cache
+def _plan(form: str, code: int, window: int, hd: int, nh: int, gmax: int, t_out: int, flags: int,
+          device: int) -> tuple[int, int]:
+    """The launch plan of ``form`` at this geometry, worked out once: (the
+    bf16 weight ring's depth, the block's shared memory). The ring is the
+    deepest that keeps the blocks an SM the form's bf16 kernel is built
+    for (``gma_blocks_per_sm``: two for v1 and v3, as row 5); raises
+    where the card's shared memory or the kernel's geometry refuses it."""
+    lib = _library()
+    fc = FORM_CODES[form]
+    limit = lib["smem_optin"](device)
+    if limit < 0:
+        raise RuntimeError(_error(lib, -limit))
+    smem_of = lambda stages: lib["smem_bytes"](fc, code, window, hd, nh, gmax, t_out, stages, flags)
+    stages = 0
+    if code == 1:
+        kp, chunks, elems = linear_geometry(hd, GLUE_N[form])
+        dims = (ctypes.c_int * 3)()
+        lib["glue_dims"](fc, hd, dims)
+        if tuple(dims) != (kp, GLUE_N[form], elems * 2):
+            raise RuntimeError(f"the kernel's glue geometry {tuple(dims)} is not the host's "
+                               f"{(kp, GLUE_N[form], elems * 2)}")
+        two = lib["blocks_per_sm"](fc) == 2
+        budget = _two_blocks_budget(lib, torch.device("cuda", device)) if two else limit
+        stages = ring_stages(smem_of, chunks, budget)
+    smem = smem_of(stages)
+    if smem > limit:
+        raise ValueError(f"{form} at window {window} × H·D {hd} needs {smem} B of shared memory "
+                         f"per block; this card allows {limit} B")
+    return stages, smem
+
+
+def occupancy(form: str, dtype: torch.dtype, window: int, hd: int, num_heads: int, gmax: int,
+              t_out: int, device, flags: int = 0) -> dict:
+    """What the occupancy calculator says of ``form``'s kernel in ``dtype``
+    at this geometry on ``device`` (the launch's own plan): the block's
+    shared memory, the weight ring, the blocks one SM holds and the clusters
+    of W/128 blocks that run at once."""
+    code = 0 if dtype == torch.float32 else 1
+    dev = torch.device(device)
+    stages, smem = _plan(form, code, window, hd, num_heads, gmax, t_out, flags, dev.index)
+    lib = _library()
+    out = (ctypes.c_int * 2)()
+    rc = lib["occupancy"](FORM_CODES[form], code, window, hd, num_heads, gmax, t_out, stages,
+                          flags, dev.index, out)
+    if rc != 0:
+        raise RuntimeError(f"gat_mega_ablate occupancy: {_error(lib, rc)}")
+    return dict(smem=smem, stages=stages, blocks_per_sm=out[0], clusters=out[1])
 
 
 def _check(name: str, t, dtype, shape, device) -> None:
@@ -243,11 +357,15 @@ def _launch(form, variant, stack, h0, x0, s0, w, pool_gl, pred_hd, window, slots
     nh, L = num_heads, num_layers
     t_out = pred_hd.shape[1]
     lib = _library()
-    if window > lib["max_window"]():
-        raise ValueError(f"window {window} exceeds the kernel's {lib['max_window']()} rows")
+    rows, most = lib["rows_per_block"](), lib["max_cluster"]()
+    if window % rows or not 1 <= window // rows <= most:
+        raise ValueError(f"window {window} is not 1..{most} whole blocks of {rows} rows")
     if hd % nh or hd > lib["max_d"]() or nh > lib["max_heads"]():
         raise ValueError(f"H·D={hd} over {nh} heads: the kernel takes H·D up to "
                          f"{lib['max_d']()} in up to {lib['max_heads']()} whole heads")
+    if form in ("v3", "v4") and 2 * (hd + nh) > GLUE_N[form]:
+        raise ValueError(f"{form}'s glue [h ‖ s_tgt ‖ skip ‖ s_src] at H·D={hd}, {nh} heads "
+                         f"exceeds its {GLUE_N[form]} columns")
     if not 1 <= slots <= lib["max_slots"]():
         raise ValueError(f"slots={slots} outside 1..{lib['max_slots']()}")
     caps, _, sw = _geometry(form, window, slots, prefix_caps)
@@ -264,34 +382,29 @@ def _launch(form, variant, stack, h0, x0, s0, w, pool_gl, pred_hd, window, slots
     _check("x0", x0, dt, (n, hd), dev)
     _check("s0", s0, dt, (n, 2 * hd if form == "v5" else 2 * nh), dev)
     if form == "v1":
-        ldg = hd
+        ldw = hd
         _check("skip_w", w, dt, (L * hd, hd), dev)
         _check("proj_w", proj_w, dt, ((L - 1) * hd, hd), dev)
         _check("a_next", a_next, dt, ((L - 1) * hd, 2 * nh), dev)
     else:
-        ldg = 4 * hd if form == "v5" else max(128, hd + nh) + hd + nh
-        _check("glue_w", w, dt, ((L - 1) * hd, ldg), dev)
+        ldw = 4 * hd if form == "v5" else max(128, hd + nh) + hd + nh
+        _check("glue_w", w, dt, ((L - 1) * hd, ldw), dev)
     _check("pool_gl", pool_gl, torch.int32, (nw * window,), dev)
     _check("pred_hd", pred_hd, dt, (hd, t_out), dev)
-    code = FORM_CODES[form]
-    limit = lib["smem_optin"](dev.index)
-    if limit < 0:
-        raise RuntimeError(lib["error_string"](int(-limit)).decode())
-    smem = lib["smem_bytes"](code, window, hd, nh, gmax, t_out, sw, flags)
-    if smem > limit:
-        raise ValueError(f"window {window} × H·D {hd} needs {smem} B of shared memory per "
-                         f"block; this card allows {limit} B")
+    code = 0 if dt == torch.float32 else 1
+    stages, _ = _plan(form, code, window, hd, nh, gmax, t_out, flags, dev.index)
+    tiles = glue_tiles(form, w, proj_w, hd, nh) if code == 1 else None
     out = torch.empty(nw * gmax, t_out, dtype=torch.float32, device=dev)
-    ptr = lambda t: 0 if t is None else t.data_ptr()
+    ptr = lambda t: None if t is None else t.data_ptr()
     rc = lib["launch"](
-        code, 0 if dt == torch.float32 else 1, stack.data_ptr(), h0.data_ptr(), x0.data_ptr(),
-        s0.data_ptr(), ptr(w), ptr(proj_w), ptr(a_next), pool_gl.data_ptr(), pred_hd.data_ptr(),
-        out.data_ptr(), nw, n, window, hd, nh, L, gmax, t_out,
-        (ctypes.c_int * len(caps))(*caps), slots, ldg, flags, dev.index,
+        FORM_CODES[form], code, stack.data_ptr(), h0.data_ptr(), x0.data_ptr(), s0.data_ptr(),
+        w.data_ptr(), ptr(proj_w), ptr(a_next), pool_gl.data_ptr(), pred_hd.data_ptr(),
+        ptr(tiles), out.data_ptr(), nw, n, window, hd, nh, L, gmax, t_out,
+        (ctypes.c_int * len(caps))(*caps), slots, ldw, stages, flags, dev.index,
         torch.cuda.current_stream(dev).cuda_stream,
     )
     if rc != 0:
-        raise RuntimeError(f"gat_mega_ablate launch failed: {lib['error_string'](rc).decode()}")
+        raise RuntimeError(f"gat_mega_ablate launch failed: {_error(lib, rc)}")
     gat_mega_ablate.launches += 1
     return out
 
@@ -490,9 +603,6 @@ def molhiv_bucket(graphs: int, window: int | None, device):
     spec = registry.get("gat")
     gs = registry.apply_transforms(spec, synthetic_dataset("molhiv", seed=0, num_graphs=graphs))
     window = window or base.choose_geometry("gat", max(g.num_nodes for g in gs))[0]
-    if window > MAX_WINDOW:
-        raise ValueError(f"--ell-window {window}: the port's slot kernels take windows up to "
-                         f"{MAX_WINDOW} rows")
     (bucket,) = pack_dataset(gs, node_capacity=32768, edge_capacity=auto_edge_capacity(gs, 32768),
                              graph_capacity=2048, align_window=window)
     return base.to_device(base.as_batch(bucket, blocked="local_slots", window=window), device)
@@ -503,15 +613,19 @@ def main(argv=None) -> None:
     from ..models.gat import slot_kernel_operands
     from ..params.loaders import params_from_numpy, synthetic_gat_params
     from .matmul_shapes import best_seconds, tool_device
+    from .timing import graph_ms
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--reps", type=int, default=100)
     ap.add_argument("--trials", type=int, default=3)
     ap.add_argument("--graphs", type=int, default=1028)
-    ap.add_argument("--ell-window", type=int, default=None)
+    ap.add_argument("--ell-window", type=int, default=None,
+                    help="the slot window: 128..1024 rows in whole blocks of 128")
     ap.add_argument("--variants", default="slots,dense,full,noexp,nogather,noexpand,noglue,nopool")
     ap.add_argument("--device", default="cuda", help="cuda (the default) or cpu")
     args = ap.parse_args(argv)
+    print("# every form runs row 5's kernel body (csrc/gat_model.cuh) with that form's "
+          "operands and rounding points")
     device = tool_device(args.device)
     batch = molhiv_bucket(args.graphs, args.ell_window, device)
     params = params_from_numpy(synthetic_gat_params(0), BF16, device)
@@ -521,8 +635,11 @@ def main(argv=None) -> None:
         c["row5"] = slot_kernel_operands(params, batch, BF16)
         print("# slots and dense both run row 5's kernel (gat_local_model_slots): the JAX "
               "package's slot and dense megakernels compute its function")
-    rows = [(name, best_seconds(row_fn(name, c), args.reps, args.trials, device))
-            for name in ["noop"] + names]
+    if device.type == "cuda":  # device time: the launches replayed from a CUDA graph
+        seconds = lambda fn: min(graph_ms(fn, args.reps) for _ in range(args.trials)) / 1e3
+    else:
+        seconds = lambda fn: best_seconds(fn, args.reps, args.trials, device)
+    rows = [(name, seconds(row_fn(name, c))) for name in ["noop"] + names]
     print_table(rows, c["window"], c["slots"], args.graphs, args.reps)
 
 

@@ -4,8 +4,11 @@ kernels of PNA and GAT on their cells: rows 3 (``pna_local_model``), 4
 (``gin_local_model``) and 9 (``gcn_local_model``) over ELL, rows 20
 (``pna_local_layer``) and 22 (``dgn_local_layer_slots``), the one-layer forms
 of rows 3 and 4, row 19 (``pna_local_stats_ell``, row 3's stats-only form)
-and row 21 (``gat_local_message_slots``), alone in ms per stream and as the
-model's forward over the stream in µs per graph, bf16 and f32.
+row 21 (``gat_local_message_slots``) and row 5 (``gat_local_model_slots``),
+alone in ms per stream and as the model's forward over the stream in µs per
+graph, bf16 and f32; and each form's ``full`` of the GAT megakernel
+ablation (rows 27-30, ``bench.ablate_gat_mega.gat_mega_ablate``: row 5's
+body in four forms) on the ablation tool's bucket, alone.
 
     python -m flowgnn_tpu_torch.bench.slot_kernels --label change
 
@@ -20,10 +23,14 @@ on the hep10k sample and the molhiv stream in ELL at the window
 ``choose_geometry`` gives (once per bucket); row 21 on the hep10k sample in
 slots at W=128, where it spills (the raw sums, once per layer and bucket),
 and on the molhiv stream in slots run with intermediates (divided in the
-kernel, once per layer and bucket); with seeded synthetic weights. A per-layer kernel is timed on each bucket's layer-0
-operands, once per layer, as ``chip_smoke.py`` does; the forward is the
-path that runs the kernel (``return_intermediates`` on the cells of rows 20,
-22 and 21 with no spill tail). Each (kernel, cell, dtype) is timed with CUDA
+kernel, once per layer and bucket); row 5 on the molhiv stream in slots
+(W=128) and the hep10k sample in slots at W=512, once per bucket; rows
+27-30 on the ablation tool's 1028-graph molhiv bucket at its default window
+(W=128), one launch; with seeded synthetic weights. A per-layer kernel is
+timed on each bucket's layer-0 operands, once per layer, as
+``chip_smoke.py`` does; the forward is the path that runs the kernel
+(``return_intermediates`` on the cells of rows 20, 22 and 21 with no spill
+tail). Each (kernel, cell, dtype) is timed with CUDA
 events (3 warm-up passes, the mean of ``--reps``) and printed with the
 launches per stream, and the kernel also as its launches replayed from a
 CUDA graph (``bench.timing``: the device time, the wrappers' host work left
@@ -38,11 +45,12 @@ power limit are printed first. Needs a CUDA card.
 from __future__ import annotations
 
 import argparse
+import statistics
 import subprocess
 import sys
 
 from .layer_kernels import stream
-from .timing import cuda_ms, graph_ms
+from .timing import cuda_ms, graph_ms, replay_ms
 
 SLOTS, ELL = "local_slots", "local_ell"
 # (kernel, model, profile, graphs, layout, window; None: choose_geometry's).
@@ -64,7 +72,11 @@ CELLS = (
     ("gat_local_message_slots", "gat", "hep10k", 2048, SLOTS, 128),
     ("gat_local_message_slots", "gat", "molhiv", 4113, SLOTS, None),
     ("pna_local_stats_ell", "pna", "hep10k", 2048, SLOTS, 128),
+    ("gat_local_model_slots", "gat", "molhiv", 4113, SLOTS, None),
+    ("gat_local_model_slots", "gat", "hep10k", 2048, SLOTS, 512),
 )
+ABLATION = "gat_mega_ablate"  # rows 27-30: each form's full on the tool's bucket
+ABLATION_GRAPHS = 1028
 LAYER_KERNELS = ("pna_local_layer", "dgn_local_layer_slots", "gat_local_message_slots",
                  "pna_local_stats_ell")
 # Each model's weight whose leading axis counts its layers.
@@ -107,7 +119,8 @@ def main(argv=None) -> int:
     ap.add_argument("--label", default="current", help="the revision's name in the output")
     ap.add_argument("--reps", type=int, default=20)
     ap.add_argument("--kernels", default="",
-                    help="only these comma-separated kernels (default: every cell's)")
+                    help="only these comma-separated kernels (default: every cell's and "
+                         f"{ABLATION})")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("slot_kernels: no CUDA device", file=sys.stderr)
@@ -151,7 +164,43 @@ def main(argv=None) -> int:
                                     for b in batches], args.reps)
             print(f"{tag}: {replay:.4f} ms per stream by graph replay, {ms:.4f} by the loop "
                   f"({len(ops)} launches); its path {path * 1e3 / graphs:.4f} us/graph")
+    if not only or ABLATION in only:
+        refused += time_ablation(args.label, args.reps, dev)
     return 1 if refused else 0
+
+
+def time_ablation(label: str, reps: int, dev) -> int:
+    """Each form's ``full`` of rows 27-30 on the ablation tool's bucket, bf16
+    and f32, by graph replay, by the loop and one replay at a time (the
+    spread, and the first and last of ``reps`` replays, for drift); returns
+    the forms refused."""
+    from flowgnn_tpu_torch.bench import ablate_gat_mega as abl
+    from flowgnn_tpu_torch.core.numerics import BF16, FLOAT32
+    from flowgnn_tpu_torch.ops import build
+
+    build.build_libraries(abl.LIBRARIES)
+    batch = abl.molhiv_bucket(ABLATION_GRAPHS, None, dev)
+    w = int(batch["slot_geom"].shape[0])
+    refused = 0
+    for prec in (BF16, FLOAT32):
+        c = abl.ablation_operands(params_of("gat", prec, dev), batch, prec)
+        for form in abl.FORMS:
+            ops = abl.form_operands(form, c)
+            tag = (f"# {label} {ABLATION} {form} full gat molhiv-{ABLATION_GRAPHS} W={w} "
+                   f"{prec.compute_dtype}")
+            fn = lambda: abl.gat_mega_ablate(form, "full", **ops)
+            try:
+                fn()
+            except ValueError as e:
+                refused += 1
+                print(f"{tag}: refused ({e})")
+                continue
+            replay, loop, one = graph_ms(fn, reps), cuda_ms(fn, reps), replay_ms(fn, reps)
+            low, mid, high = min(one), statistics.median(one), max(one)
+            print(f"{tag}: {replay:.4f} ms by graph replay, {loop:.4f} by the loop (1 launch); "
+                  f"one replay at a time {low:.4f} / {mid:.4f} / {high:.4f} (min / median / max "
+                  f"of {reps}), first {one[0]:.4f}, last {one[-1]:.4f}")
+    return refused
 
 
 if __name__ == "__main__":

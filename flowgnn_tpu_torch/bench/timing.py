@@ -4,8 +4,9 @@ and the A/B tools of this package.
 ``cuda_ms`` times a Python callable with CUDA events: once a launch needs
 less device time than its wrapper's host work, a loop of wrapper calls
 times the host. ``graph_ms`` captures the callable's launches once in a CUDA
-graph and replays it, so only the device time of those launches is left.
-Both need a CUDA card; neither is meaningful on the CPU.
+graph and replays it, so only the device time of those launches is left;
+``replay_ms`` times each replay of such a graph alone, for the spread.
+All need a CUDA card; neither is meaningful on the CPU.
 """
 
 from __future__ import annotations
@@ -37,6 +38,31 @@ def graph_ms(fn, reps: int = 20) -> float:
     a Python loop also times once a launch takes less device time than its
     wrapper's host work, drops out. Raises ``RuntimeError`` where the
     launches cannot be captured."""
+    return cuda_ms(_captured(fn).replay, reps)
+
+
+def replay_ms(fn, reps: int = 20) -> list[float]:
+    """Device milliseconds of each of ``reps`` replays, in order, of ``fn``'s
+    launches captured as ``graph_ms`` captures them, each replay timed alone
+    with CUDA events and waited for: how a launch's time spreads and drifts
+    where ``graph_ms`` gives the mean."""
+    import torch
+
+    replay = _captured(fn).replay
+    replay()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        replay()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return times
+
+
+def _captured(fn):
     import torch
 
     fn()
@@ -44,4 +70,4 @@ def graph_ms(fn, reps: int = 20) -> float:
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph, capture_error_mode="relaxed"):
         fn()
-    return cuda_ms(graph.replay, reps)
+    return graph

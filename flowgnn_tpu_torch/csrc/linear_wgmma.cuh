@@ -2,7 +2,8 @@
 // rows 9 (gcn_local_model.cu: the next conv, x · wn_l) and 3
 // (pna_local_model.cu: the tower, [mean | min | max | std] · w_l), and of
 // rows 2, 4, 5, 20, 22 and 23 (GAT's fused ELL layer: its skip and its
-// projection, N = 64).
+// projection, N = 64), and of rows 27-30 (gat_model.cuh's ablation forms:
+// N = 64, 128, 136 and 256).
 //
 // One block of 128 rows (two warpgroups of 64) computes acc = A · B, A
 // [128, K'] bf16 in shared memory in wgmma's K-major A layout

@@ -24,7 +24,9 @@ bucket. Over the degree-sorted slot layout:
 
 each one thread-block cluster of W/128 blocks per window of 128 to 1024
 rows. The two GIN kernels share ``csrc/gin_model.cuh``, the two GCN kernels
-``csrc/gcn_model.cuh``, and both the lane walks of ``csrc/lanes.cuh``.
+``csrc/gcn_model.cuh``, and both the lane walks of ``csrc/lanes.cuh``; GAT's
+body is ``csrc/gat_model.cuh``, whose four other forms are the megakernel
+ablation's (``bench.ablate_gat_mega``).
 
 Over the k=1 ELL layout, one thread-block cluster per window of 128 to 1024
 rows (128 rows per block):

@@ -19,7 +19,7 @@ from flowgnn_tpu_torch.ops import local_layer
 from flowgnn_tpu_torch.params import loaders
 from test_torch_cuda import (
     ABL_CAPS as CAPS, ABL_HEADS as HEADS, ABL_L as L, ABL_N as N, ABL_NW as NW, ABL_T as T,
-    ABL_W as W, _ablation_operands,
+    ABL_W as W, ABL_WINDOW_CAPS, _ablation_operands,
 )
 
 S = len(CAPS)
@@ -118,12 +118,17 @@ def test_matmul_shapes_main_cpu(monkeypatch, capsys):
 # --------------------------------------------------------------------------
 
 PAIRS = [(form, v) for form, (names, _) in abl.FORMS.items() for v in names]
+# The same at W=256, a cluster of two blocks on the card: each form's full
+# and nogather (lane i mod W in the second block).
+WIDE = 256
+WIDE_PAIRS = [(form, v) for form in abl.FORMS for v in ("full", "nogather")]
 
 
-def _jax_form(form: str, variant: str, ops: dict, dtype=jnp.float32) -> np.ndarray:
+def _jax_form(form: str, variant: str, ops: dict, dtype=jnp.float32, window: int = W) -> np.ndarray:
     from flowgnn_tpu.bench import ablate_gat_mega as jabl
 
-    geom = (W, S, HEADS, L, base.POOL_GMAX)
+    caps = ABL_WINDOW_CAPS[window]
+    geom = (window, len(caps), HEADS, L, base.POOL_GMAX)
     j = {k: jnp.asarray(v, jnp.int32 if v.dtype == np.int32 else dtype) for k, v in ops.items()}
     if form == "v1":
         args = [j[k] for k in ("slot_stack", "h0", "prev0", "s0", "skip_w", "proj_w", "a_next",
@@ -133,14 +138,17 @@ def _jax_form(form: str, variant: str, ops: dict, dtype=jnp.float32) -> np.ndarr
                "v5": jabl._variant_model_v5}[form]
     stack = j["onehot_tiles"] if form == "v4" else j["slot_pstack"]
     s0, w = (j["s0x"], j["glue_wx"]) if form == "v5" else (j["s0"], j["glue_w"])
-    return np.asarray(factory(variant, *geom, CAPS)(stack, j["h0"], j["skip0"], s0, w,
+    return np.asarray(factory(variant, *geom, caps)(stack, j["h0"], j["skip0"], s0, w,
                                                     j["pool_gl"], j["pred_hd"]))
 
 
-def _port_form(form: str, variant: str, ops: dict, dtype=torch.float32) -> torch.Tensor:
+def _port_form(form: str, variant: str, ops: dict, dtype=torch.float32,
+               window: int = W) -> torch.Tensor:
     t = {k: torch.from_numpy(v.copy()) if v.dtype == np.int32 else torch.from_numpy(v.copy()).to(
         dtype) for k, v in ops.items()}
-    geom = dict(window=W, slots=S, num_heads=HEADS, num_layers=L, gmax=base.POOL_GMAX)
+    caps = ABL_WINDOW_CAPS[window]
+    geom = dict(window=window, slots=len(caps), num_heads=HEADS, num_layers=L,
+                gmax=base.POOL_GMAX)
     if form == "v1":
         return abl._variant_model(variant, **geom)(
             *(t[k] for k in ("slot_stack", "h0", "prev0", "s0", "skip_w", "proj_w", "a_next",
@@ -149,7 +157,7 @@ def _port_form(form: str, variant: str, ops: dict, dtype=torch.float32) -> torch
                "v5": abl._variant_model_v5}[form]
     stack = t["onehot_tiles"] if form == "v4" else t["slot_pstack"]
     s0, w = (t["s0x"], t["glue_wx"]) if form == "v5" else (t["s0"], t["glue_w"])
-    return factory(variant, prefix_caps=CAPS, **geom)(stack, t["h0"], t["skip0"], s0, w,
+    return factory(variant, prefix_caps=caps, **geom)(stack, t["h0"], t["skip0"], s0, w,
                                                       t["pool_gl"], t["pred_hd"])
 
 
@@ -163,17 +171,26 @@ def positive_ops():
     return _ablation_operands(positive=True)
 
 
-@pytest.mark.parametrize("form,variant", PAIRS, ids=[f"{f}-{v}" for f, v in PAIRS])
-def test_ablation_plain_matches_jax(form, variant, ablation_ops, positive_ops, monkeypatch):
+@pytest.fixture(scope="module")
+def wide_ops():
+    return _ablation_operands(window=WIDE)
+
+
+@pytest.mark.parametrize("form,variant,window", [
+    *(pytest.param(f, v, W, id=f"{f}-{v}") for f, v in PAIRS),
+    *(pytest.param(f, v, WIDE, id=f"w{WIDE}-{f}-{v}") for f, v in WIDE_PAIRS),
+])
+def test_ablation_plain_matches_jax(form, variant, window, ablation_ops, positive_ops, wide_ops,
+                                    monkeypatch):
     """Each (form, variant)'s plain version against the JAX variant factory in
     interpret mode, f32 at 1e-5 of the largest output (summation order);
-    ``noexp`` on nonnegative operands (``_ablation_operands``)."""
+    ``noexp`` on nonnegative operands (``_ablation_operands``). At W=256
+    each form's full and nogather."""
     monkeypatch.setenv("FLOWGNN_PALLAS_INTERPRET", "1")
-    if variant == "noexp":
-        ablation_ops = positive_ops
-    want = _jax_form(form, variant, ablation_ops)
+    ops = wide_ops if window == WIDE else positive_ops if variant == "noexp" else ablation_ops
+    want = _jax_form(form, variant, ops, window=window)
     before = abl.gat_mega_ablate.launches
-    got = _port_form(form, variant, ablation_ops).numpy()
+    got = _port_form(form, variant, ops, window=window).numpy()
     assert abl.gat_mega_ablate.launches == before
     assert got.shape == want.shape == (NW * base.POOL_GMAX, T)
     assert np.isfinite(want).all() and np.abs(want).max() > 1e-2
@@ -250,18 +267,77 @@ def test_expand_score_operands_match_jax(ablation_ops):
     np.testing.assert_array_equal(ablation_ops["s0x"], np.asarray(sx))
 
 
+def _table(capsys) -> list:
+    """The tool's printed table, its ``#`` comment lines left out."""
+    return [ln for ln in capsys.readouterr().out.splitlines() if not ln.startswith("#")]
+
+
 def test_ablate_main_cpu_prints_table(capsys):
     abl.main(["--device", "cpu", "--graphs", "24", "--reps", "1", "--trials", "1",
               "--variants", "full,v3,v4,v5"])
-    lines = capsys.readouterr().out.splitlines()
+    lines = _table(capsys)
     assert lines[0].startswith("window=128 slots=")
     assert [ln.split()[0] for ln in lines[1:]] == ["noop", "full", "v3", "v4", "v5"]
     assert all(" dev " in ln for ln in lines[1:])
 
 
-def test_ablate_window_above_128_raises():
-    with pytest.raises(ValueError, match="up to 128"):
-        abl.main(["--device", "cpu", "--graphs", "24", "--ell-window", "256"])
+@pytest.mark.parametrize("window", [256, 384])
+def test_ablate_main_cpu_window(window, capsys):
+    """``--ell-window`` past 128 (the JAX tool's GAT default is 384) runs the
+    plain versions on that window's slot layout."""
+    abl.main(["--device", "cpu", "--graphs", "24", "--reps", "1", "--trials", "1",
+              "--ell-window", str(window), "--variants", "full"])
+    lines = _table(capsys)
+    assert lines[0].startswith(f"window={window} slots=")
+    assert [ln.split()[0] for ln in lines[1:]] == ["noop", "full"]
+
+
+def _unpack(tiles: torch.Tensor, n: int) -> torch.Tensor:
+    """The product's B [K', n] of each layer from its chunks [L, C, 32·n]
+    (the wgmma B operand [4, n, 8] a chunk of 32 input channels)."""
+    layers, chunks = tiles.shape[:2]
+    return tiles.view(layers, chunks, 4, n, 8).permute(0, 1, 2, 4, 3).reshape(
+        layers, chunks * 32, n)
+
+
+@pytest.mark.parametrize("form", list(abl.FORMS))
+def test_ablation_glue_tiles_unpack(form, ablation_ops):
+    """The forms' bf16 glue chunks, read back, are the products the kernel
+    runs: glue_w's used columns [h ‖ s_tgt ‖ skip ‖ s_src] (v3 / v4),
+    glue_wx (v5), [proj_l ‖ skip_{l+1}] with skip at column 64 after
+    layer 0's skip_w[0] in the first half of each chunk (v1); zero-padded.
+    Packed once per weight set."""
+    bf = lambda k: torch.from_numpy(ablation_ops[k]).to(torch.bfloat16)
+    w = bf("skip_w" if form == "v1" else "glue_wx" if form == "v5" else "glue_w")
+    proj = bf("proj_w")
+    tiles = abl.glue_tiles(form, w, proj if form == "v1" else None, HD, HEADS)
+    assert tiles is abl.glue_tiles(form, w, proj if form == "v1" else None, HD, HEADS)
+    n = abl.GLUE_N[form]
+    kp, chunks, elems = local_layer.linear_geometry(HD, n)
+    layers = L if form == "v1" else L - 1
+    assert tiles.shape == (layers, chunks, elems) and tiles.dtype == torch.bfloat16
+    want = torch.zeros(layers, kp, n, dtype=torch.bfloat16)
+    rows = lambda x, l: x[l * HD : (l + 1) * HD]
+    if form == "v1":
+        half = tiles.view(layers, chunks, 2, elems // 2)
+        assert not half[0, :, 1].any()
+        np.testing.assert_array_equal(_unpack(half[:1, :, 0], n // 2)[0, :HD, :HD].float(),
+                                      rows(w, 0).float())
+        assert not _unpack(half[:1, :, 0], n // 2)[0, HD:].any()
+        for l in range(1, L):
+            want[l, :HD, :HD] = rows(proj, l - 1)
+            want[l, :HD, local_layer.GAT_PITCH : local_layer.GAT_PITCH + HD] = rows(w, l)
+        got = _unpack(tiles[1:], n)
+        np.testing.assert_array_equal(got.float(), want[1:].float())
+        return
+    for l in range(layers):
+        if form == "v5":
+            want[l, :HD, : 4 * HD] = rows(w, l)
+        else:
+            pay = w.shape[1] - HD - HEADS
+            want[l, :HD, : HD + HEADS] = rows(w, l)[:, : HD + HEADS]
+            want[l, :HD, HD + HEADS : 2 * (HD + HEADS)] = rows(w, l)[:, pay:]
+    np.testing.assert_array_equal(_unpack(tiles, n).float(), want.float())
 
 
 def test_ablation_unknown_variant_raises():

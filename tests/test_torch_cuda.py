@@ -650,30 +650,36 @@ def _blocked_wss_operands(width: int, seed: int = 25) -> dict:
 
 
 # The GAT megakernel ablation's small operands: two windows of 128 rows (the
-# last padded), 2 heads × 8, 2 layers, prefix caps (128, 64, 32).
+# last padded), 2 heads × 8, 2 layers, prefix caps (128, 64, 32). At W = 256
+# and 512 (clusters of two and four blocks) two windows of 2W − 6 rows, caps
+# whose lanes i mod W and random sources reach every block.
 ABL_W, ABL_NW, ABL_N = 128, 2, 250
 ABL_HEADS, ABL_L, ABL_T = 2, 2, 1
 ABL_CAPS = (128, 64, 32)
+ABL_WINDOW_CAPS = {128: ABL_CAPS, 256: (256, 160, 96), 512: (512, 320, 192)}
 
 
-def _ablation_operands(seed: int = 0, positive: bool = False) -> dict:
-    """Seeded numpy operands of every ablation form: random sources (a
-    quarter of the lanes empty), prefix stacks with ``ABL_CAPS``, graph ids
-    per row, v4's one-hot tiles and v5's expanded scores. With ``positive``
-    every float operand is |N(0, sd)|: then every score, h and feat stays
-    nonnegative, which ``noexp`` needs to be well conditioned (it divides by
-    the sum of the raw, signed scores, which otherwise cancels towards zero
-    and multiplies the f32 rounding of the glue products by up to ~1e3)."""
-    w, nw, n, heads, layers = ABL_W, ABL_NW, ABL_N, ABL_HEADS, ABL_L
+def _ablation_operands(seed: int = 0, positive: bool = False, window: int = ABL_W) -> dict:
+    """Seeded numpy operands of every ablation form at ``window``: random
+    sources (a quarter of the lanes empty), prefix stacks with the window's
+    caps (``ABL_WINDOW_CAPS``), graph ids per row, v4's one-hot tiles and
+    v5's expanded scores. With ``positive`` every float operand is |N(0,
+    sd)|: then every score, h and feat stays nonnegative, which ``noexp``
+    needs to be well conditioned (it divides by the sum of the raw, signed
+    scores, which otherwise cancels towards zero and multiplies the f32
+    rounding of the glue products by up to ~1e3)."""
+    w, nw, heads, layers = window, ABL_NW, ABL_HEADS, ABL_L
+    n = ABL_N if window == ABL_W else 2 * window - 6
+    caps = ABL_WINDOW_CAPS[window]
     hd = heads * 8
     pay = max(128, hd + heads)
     rng = np.random.default_rng(seed)
     sign = np.abs if positive else (lambda x: x)
     f = lambda *s, sd=0.5: sign(rng.normal(0, sd, s)).astype(np.float32)
     src = lambda *s: np.where(rng.random(s) < 0.75, rng.integers(0, w, s), w).astype(np.int32)
-    pstack = np.full((nw, sum(ABL_CAPS)), w, np.int32)
+    pstack = np.full((nw, sum(caps)), w, np.int32)
     off = 0
-    for c in ABL_CAPS:
+    for c in caps:
         pstack[:, off : off + c] = src(nw, c)
         off += c
     glue_w = f((layers - 1) * hd, pay + hd + heads, sd=0.3)
@@ -681,23 +687,25 @@ def _ablation_operands(seed: int = 0, positive: bool = False) -> dict:
     gl = np.full(nw * w, base.POOL_GMAX, np.int32)
     gl[:n] = np.sort(rng.integers(0, 20, n))
     ops = dict(
-        slot_stack=src(nw * len(ABL_CAPS) * w), slot_pstack=pstack.reshape(-1), h0=f(n, hd),
+        slot_stack=src(nw * len(caps) * w), slot_pstack=pstack.reshape(-1), h0=f(n, hd),
         prev0=f(n, hd), skip0=f(n, hd), s0=f(n, 2 * heads), skip_w=f(layers * hd, hd, sd=0.3),
         proj_w=f((layers - 1) * hd, hd, sd=0.3), a_next=f((layers - 1) * hd, 2 * heads, sd=0.3),
         glue_w=glue_w, pool_gl=gl, pred_hd=f(hd, ABL_T),
     )
     ops["onehot_tiles"] = ablate_gat_mega.onehot_tiles(
-        torch.from_numpy(ops["slot_pstack"]), w, sum(ABL_CAPS), torch.float32).numpy()
+        torch.from_numpy(ops["slot_pstack"]), w, sum(caps), torch.float32).numpy()
     gx, sx = ablate_gat_mega.expand_score_operands(torch.from_numpy(glue_w),
                                                    torch.from_numpy(ops["s0"]), hd, heads)
     ops["glue_wx"], ops["s0x"] = gx.numpy(), sx.numpy()
     return ops
 
 
-def _ablation_call(form: str, ops: dict) -> dict:
-    """``gat_mega_ablate``'s keyword operands of ``form`` (numpy)."""
-    c = dict(ops, window=ABL_W, slots=len(ABL_CAPS), num_heads=ABL_HEADS, num_layers=ABL_L,
-             gmax=base.POOL_GMAX, prefix_caps=ABL_CAPS, caps_v4=ABL_CAPS)
+def _ablation_call(form: str, ops: dict, window: int = ABL_W) -> dict:
+    """``gat_mega_ablate``'s keyword operands of ``form`` (numpy) at
+    ``window``."""
+    caps = ABL_WINDOW_CAPS[window]
+    c = dict(ops, window=window, slots=len(caps), num_heads=ABL_HEADS, num_layers=ABL_L,
+             gmax=base.POOL_GMAX, prefix_caps=caps, caps_v4=caps)
     return ablate_gat_mega.form_operands(form, c)
 
 
@@ -2488,19 +2496,15 @@ def test_chained_matmul_cuda_kernel_rejects(cuda_device):
 
 
 _ABL_PAIRS = [(f, v) for f, (names, _) in ablate_gat_mega.FORMS.items() for v in names]
+# The cluster cases: each form's full, nogather and noglue (where it has it)
+# at W = 256 and 512.
+_ABL_WIDE = [(w, f, v) for w in (256, 512) for f, (names, _) in ablate_gat_mega.FORMS.items()
+             for v in ("full", "nogather", "noglue") if v in names]
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("form,variant", _ABL_PAIRS, ids=[f"{f}-{v}" for f, v in _ABL_PAIRS])
-@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 5e-2)],
-                         ids=["f32", "bf16"])
-def test_gat_mega_ablate_cuda_kernel_matches_plain(form, variant, dtype, tol, cuda_device):
-    """Every (form, variant) of rows 27-30 against its plain version, one
-    launch each. f32: summation order only; bf16: a rounding flip at one
-    stage propagates through the later layer. ``noexp`` on nonnegative
-    operands (``_ablation_operands``)."""
-    ops = _port(_ablation_call(form, _ablation_operands(positive=variant == "noexp")),
-                cuda_device, dtype)
+def _ablation_against_plain(form, variant, dtype, tol, window, device):
+    ops = _port(_ablation_call(form, _ablation_operands(positive=variant == "noexp",
+                                                        window=window), window), device, dtype)
     before = ablate_gat_mega.gat_mega_ablate.launches
     got = ablate_gat_mega.gat_mega_ablate(form, variant, **ops)
     torch.cuda.synchronize()
@@ -2512,16 +2516,45 @@ def test_gat_mega_ablate_cuda_kernel_matches_plain(form, variant, dtype, tol, cu
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("form", list(ablate_gat_mega.FORMS))
-def test_gat_mega_ablate_cuda_full_width(form, cuda_device):
+@pytest.mark.parametrize("form,variant", _ABL_PAIRS, ids=[f"{f}-{v}" for f, v in _ABL_PAIRS])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 5e-2)],
+                         ids=["f32", "bf16"])
+def test_gat_mega_ablate_cuda_kernel_matches_plain(form, variant, dtype, tol, cuda_device):
+    """Every (form, variant) of rows 27-30 against its plain version, one
+    launch each. f32: summation order only; bf16: a rounding flip at one
+    stage propagates through the later layer. ``noexp`` on nonnegative
+    operands (``_ablation_operands``)."""
+    _ablation_against_plain(form, variant, dtype, tol, ABL_W, cuda_device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("window,form,variant", _ABL_WIDE,
+                         ids=[f"w{w}-{f}-{v}" for w, f, v in _ABL_WIDE])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 5e-2)],
+                         ids=["f32", "bf16"])
+def test_gat_mega_ablate_cuda_cluster_matches_plain(window, form, variant, dtype, tol,
+                                                    cuda_device):
+    """Each form's full, nogather and noglue on clusters of W/128 blocks
+    (remote sources, v4's remote payload chunks, nogather's lanes i mod W in
+    another block) against the plain version, as at W=128."""
+    _ablation_against_plain(form, variant, dtype, tol, window, cuda_device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form,window", [
+    *(pytest.param(f, None, id=f) for f in ablate_gat_mega.FORMS),
+    *(pytest.param(f, 512, id=f"w512-{f}") for f in ablate_gat_mega.FORMS),
+])
+def test_gat_mega_ablate_cuda_full_width(form, window, cuda_device):
     """Each form's ``full`` at full width (4 heads × 16, L=5) on a 256-graph
-    molhiv bucket, f32: against its plain version and against row 5's
-    kernel, 1e-4 (summation order, and v3-v5's composed score maps)."""
+    molhiv bucket (at W=128, and on clusters of four at W=512), f32: against
+    its plain version and against row 5's kernel, 1e-4 (summation order, and
+    v3-v5's composed score maps)."""
     from flowgnn_tpu_torch.core.numerics import FLOAT32
     from flowgnn_tpu_torch.models import gat
     from flowgnn_tpu_torch.params import loaders
 
-    batch = ablate_gat_mega.molhiv_bucket(256, None, cuda_device)
+    batch = ablate_gat_mega.molhiv_bucket(256, window, cuda_device)
     params = loaders.params_from_numpy(loaders.synthetic_gat_params(0), FLOAT32, cuda_device)
     ops = ablate_gat_mega.form_operands(
         form, ablate_gat_mega.ablation_operands(params, batch, FLOAT32))
@@ -2535,16 +2568,34 @@ def test_gat_mega_ablate_cuda_full_width(form, cuda_device):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("form", list(ablate_gat_mega.FORMS))
+def test_gat_mega_ablate_cuda_occupancy(form, cuda_device):
+    """At full width (H·D = 64, 4 heads) each bf16 form keeps the blocks an
+    SM it is built for (``gma_blocks_per_sm``: two for v1 and v3, as row 5),
+    at W = 128 and on clusters of eight at W = 1024."""
+    built = ablate_gat_mega._library()["blocks_per_sm"](ablate_gat_mega.FORM_CODES[form])
+    assert built == {"v1": 2, "v3": 2, "v4": 1, "v5": 1}[form]
+    for window in (128, 1024):
+        occ = ablate_gat_mega.occupancy(form, torch.bfloat16, window, 64, 4, base.POOL_GMAX, 1,
+                                        cuda_device)
+        assert occ["stages"] >= 2 and occ["clusters"] >= 1
+        assert occ["blocks_per_sm"] == built, occ
+
+
+@pytest.mark.cuda
 def test_gat_mega_ablate_cuda_kernel_rejects(cuda_device):
-    """A wrong dtype, a non-contiguous operand, W > 128, nopool past the
-    window's rows: raises before launch."""
+    """A wrong dtype, a non-contiguous operand, a window that is not whole
+    blocks of 128 rows or is past 1024, nopool past the window's rows:
+    raises before launch."""
     fn = ablate_gat_mega.gat_mega_ablate
     ops = _port(_ablation_call("v3", _ablation_operands()), cuda_device)
-    wide = dict(ops, window=256, h0=ops["h0"])
+    most = ablate_gat_mega._library()["max_window"]()
+    assert most == 1024
     cases = [
         (dict(ops, h0=ops["h0"].double()), "full", TypeError),
         (dict(ops, x0=ops["x0"].T.contiguous().T), "full", ValueError),
-        (wide, "full", ValueError),
+        (dict(ops, window=192), "full", ValueError),
+        (dict(ops, window=most + 128), "full", ValueError),
         (dict(ops, gmax=ABL_W + 1), "nopool", ValueError),
         (dict(ops, stack=ops["stack"].float()), "full", TypeError),
     ]
