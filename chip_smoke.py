@@ -24,13 +24,15 @@ adds host time, so the wall times and idle shares are upper bounds.
 Phases, each of which raises (non-zero exit) on failure:
 
 1. the device and ``nvidia-smi``'s name and power limit;
-2. the twenty-four hand-written kernels built from the twenty-three sources
+2. the twenty-six hand-written kernels built from the twenty-five sources
    of ``flowgnn_tpu_torch/csrc`` (rows 10 and 12 are one kernel, rows 27-30
-   one) and their headers (``hopper.cuh`` holds the
+   one; row 31 and row 12's pass-through are the messages-only forms of
+   rows 13 and 10 / 12) and their headers (``hopper.cuh`` holds the
    wgmma, mbarrier and bulk-copy blocks of rows 1-5, 8, 9, 10, 12, 13, 15,
    18, 20, 22, 23, 25 and 26, ``gin_mlp.cuh`` the bf16 GIN MLP of rows 1, 8, 10,
    12, 13 and 25, ``gin_layer.cuh`` the per-layer GIN kernel of rows 10, 12,
-   13 and 25 (three lane walks), ``gin_model.cuh`` the whole-model GIN
+   13 and 25 (three lane walks) and its messages-only form (row 31, row 12's
+   pass-through), ``gin_model.cuh`` the whole-model GIN
    kernel of rows 1 and 8,
    ``gcn_model.cuh`` the GCN one of rows 2, 9, 15 and 14 (whole model, one
    layer, messages only), ``pna_model.cuh`` the PNA
@@ -229,9 +231,27 @@ Phases, each of which raises (non-zero exit) on failure:
    ``matmul_shapes``'s table and the ablation table over every variant in
    bf16 at W=128 and at W=512 (by graph replay); then per shape the kernel,
    its plain version and cuBLAS (TF/s, share of the peak), and the
-   ablation record's kernel (loop and graph replay) and plain times.
+   ablation record's kernel (loop and graph replay) and plain times;
+7. the bench entry and the messages-only forms of rows 13 and 12. 7a: row
+   31 (``gin_local_message_ell``) and row 12's pass-through
+   (``gin_local_message_ell_lanes``) against their plain versions on layer
+   0's operands of GIN's first molhiv ELL bucket and of its hep10k W=128 ELL
+   bucket with the longest spill tail, f32 (1e-4) and bf16 (5e-2), and what
+   the occupancy calculator says of them beside row 13. Then GIN over the
+   hep10k W=128 ELL stream layer by layer with its messages from row 31 and
+   the rest of row 13's layer in plain torch (``row31_forward``, as the JAX
+   halo branch runs it): counted (row 31 and the spill scatter once a layer
+   and bucket), checked as in phase 4 and against the row-13 path, timed as
+   in phase 5. 7c: row 12's pass-through alone on the same stream (loop,
+   graph replay, plain version, bound). 7b: the bench entry's ``main``
+   (``python -m flowgnn_tpu_torch.bench.bench``) in-process over
+   ``ENTRY_RUNS`` (all six models on molhiv, molpcba and hep10k at their
+   default streams, and GIN on hep10k at W=128, whose slot stream falls back
+   to ELL), ``ENTRY_REPS`` passes a trial: each record parsed, its figures
+   finite and positive, the geometric-mean line last; the stage benches
+   counted (row 19 and row 12's pass-through); the phase's seconds.
 
-No phase runs at a cut depth: the whole run takes about six minutes on an
+No phase runs at a cut depth: the whole run takes about eight minutes on an
 H100. The line before the last is a JSON object with one record per
 kernel; the last line is ``{"ok": true, "device": {...}}``. Without a CUDA
 device, or outside the repository, it exits non-zero before printing
@@ -242,7 +262,9 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import io
 import json
+import math
 import subprocess
 import sys
 import time
@@ -281,6 +303,11 @@ HEP_INTER_MODELS = ("pna", "dgn")
 # ELL streams with its fused layer (row 23).
 BLOCKED, FUSED, LOCAL = "blocked", "blocked fused", "local"
 ELL_EE = "local_ell ee"
+# Phase 7: GIN's ELL stream driven layer by layer with its messages from row
+# 31 (the messages-only form of row 13) and row 13's epilogue in plain torch.
+ELL_MSG = "local_ell messages"
+ROW31 = "gin_local_message_ell"  # row 13's messages-only form
+PASS = "gin_local_message_ell_lanes"  # row 12's messages-only form: the ELL stage bench's
 ELL_FUSED, ELL_LAYER_FUSED = "local_ell fused", "local_ell W=128 fused"
 PLAIN = "plain edge list"  # --profile: a stream's plain batches, beside its layout's
 BIG = "molhiv + 300-node graphs"  # one bucket whose large graphs cross windows
@@ -322,15 +349,18 @@ SCATTER = "windowed_segment_sum"  # the spill tail's, beside every per-layer ker
 # path each lane's (eig_u − eig_v)·h_u and its bf16 sums, and a few entries
 # of each layer's h, whose |m2 − ews·h| cancels and is multiplied by up to
 # 8192, land apart on the two; there every intermediate's gate takes 1.5×
-# what the path with its kernels' plain versions needs.
+# what the path with its kernels' plain versions needs. So is row 31's layer
+# loop (ELL_MSG): row 31 rounds each row's message sum to bf16 before the
+# spill tail's messages are added, as the JAX halo branch does, where row 13
+# and the plain path add them unrounded.
 KERNEL_ROUNDING = {("dgn", "molhiv", ELL), ("dgn", "hep10k", ELL_LAYER),
-                   ("dgn", "hep10k", HEP_SLOT_INTER)}
+                   ("dgn", "hep10k", HEP_SLOT_INTER), ("gin", "hep10k", ELL_MSG)}
 PROFILE_PASSES = 3  # traced passes per path (--profile)
 PER_LAYER = {"pna_local_stats_ell", "dgn_local_layer_slots", "gat_local_message_slots", SCATTER,
              "gin_local_layer_ell", "gcn_local_message_ell", "gcn_local_layer_ell",
              "pna_local_layer", "dgn_local_layer_ell", "dgn_local_message_ell",
              "gat_local_message_ell", "gin_local_layer", "gin_local_layer_ell_lanes",
-             "gin_layer_fused", "gat_local_layer_ell"}
+             "gin_layer_fused", "gat_local_layer_ell", ROW31}
 ROW12 = "gin_local_layer_ell_lanes"
 LL = "flowgnn_tpu/ops/pallas/local_layer.py"
 BENCH = "flowgnn_tpu_torch.bench"
@@ -397,6 +427,15 @@ KERNELS = {
         "flowgnn_tpu/ops/pallas/fused_layer.py:26 (windowed_scatter_apply, gin_layer_fused "
         "epilogue :97)", ("gin", "molhiv", FUSED),
     ),
+    # Phase 7: the messages-only forms of rows 13 and 12; row 31 on GIN's
+    # hep10k W=128 ELL stream driven through it, row 12's pass-through on the
+    # bench entry's ELL stage (its record on the same stream).
+    ROW31: ("local_layer", "flowgnn_tpu_torch/csrc/gin_local_message_ell.cu",
+            f"{LL}:479 (gin_local_message_ell, row 13's pallas_call :456)",
+            ("gin", "hep10k", ELL_MSG)),
+    PASS: ("local_layer", "flowgnn_tpu_torch/csrc/gin_local_message_lanes.cu",
+           f"{LL}:305 (local_scatter_apply_ell, with the pass-through epilogue of "
+           "flowgnn_tpu/bench/spmm_stage.py:84)", None),
     # The bench tools' kernels (phase 6): a module path, and no model path.
     "chained_matmul": (f"{BENCH}.matmul_shapes", "flowgnn_tpu_torch/csrc/chained_matmul.cu",
                        "flowgnn_tpu/bench/matmul_shapes.py:49", None),
@@ -413,6 +452,17 @@ ABLATION_RECORD = ("v3", "full")
 ABLATION_WIDE = 512
 ABLATION_WIDE_VARIANTS = ("full", "nogather", "noglue", "nopool")
 TOOL_REPS, TOOL_TRIALS = 20, 2
+# Phase 7b: the bench entry's runs, in-process, each with these reps and
+# trials: all six models on each dataset profile's default stream, and GIN
+# on hep10k at W=128, whose slot stream spills and falls back to ELL (the
+# ELL stage bench: row 12's pass-through).
+ENTRY_RUNS = (["--dataset", "molhiv"], ["--dataset", "molpcba"], ["--dataset", "hep10k"],
+              ["--dataset", "hep10k", "--model", "gin", "--ell-window", "128"])
+ENTRY_REPS, ENTRY_TRIALS = 2, 3  # few reps: phases 1-7a take ~7.5 min of the run
+# Phase 7a: the messages-only forms' libraries and their occupancy geometry
+# (row 31: (D, vocab); the pass-through: (D,)), beside row 13's.
+MESSAGE_OCCUPANCY = {"gin_local_message_ell": (100, 13), "gin_local_message_lanes": (100,),
+                     "gin_local_layer_ell": (100, 200, 13)}
 
 
 # Phase 2: the libraries whose SASS must hold tensor-core (HGMMA) and
@@ -497,7 +547,7 @@ MESSAGES_ONLY = ("gat_local_message_ell", "gat_local_message_slots", "gcn_local_
 # 18, 19, 21 and 24.
 REPLAYED = ("gcn_local_message_ell", "gcn_local_layer_ell", "dgn_local_message_ell",
             "gat_local_message_ell", "dgn_local_layer_ell", "pna_local_stats_ell",
-            "gat_local_message_slots", SCATTER)
+            "gat_local_message_slots", SCATTER, ROW31)
 # Phase 3: the cluster slot kernels' windows beside molhiv's W=128 (rows 2,
 # 3, 4 and 5): a synthetic bucket of 250-node graphs (W=256) and the hep10k
 # slot bucket with the largest graph (W=512).
@@ -581,11 +631,13 @@ def check(cond: bool, msg: str) -> None:
 
 @contextlib.contextmanager
 def plain_versions():
-    """Every kernel wrapper the models call replaced by its plain version,
-    which runs on the card as plain torch (no launch is counted)."""
+    """Every kernel wrapper the models (and ``row31_forward``, through
+    ``ops.local_layer``) call replaced by its plain version, which runs on
+    the card as plain torch (no launch is counted)."""
     from flowgnn_tpu_torch.models import base, dgn, gat, gcn, gin, pna
+    from flowgnn_tpu_torch.ops import local_layer
 
-    saved = [(mod, k, getattr(mod, k)) for mod in (base, dgn, gat, gcn, gin, pna)
+    saved = [(mod, k, getattr(mod, k)) for mod in (base, dgn, gat, gcn, gin, pna, local_layer)
              for k in KERNELS if hasattr(mod, k)]
     for mod, k, _ in saved:
         setattr(mod, k, kernel_fn(k, plain=True))
@@ -619,9 +671,10 @@ def num_layers(name: str) -> int:
 
 def forward_kw(key: tuple) -> dict:
     """The forward's keyword arguments on a path: intermediates on ELL_INTER,
-    SLOT_INTER, HEP_SLOT_INTER and ELL_EE (whose layer loop returns them),
-    GIN's fused layer on FUSED, GAT's on ELL_FUSED and ELL_LAYER_FUSED."""
-    if key[2] in (ELL_INTER, SLOT_INTER, HEP_SLOT_INTER, ELL_EE):
+    SLOT_INTER, HEP_SLOT_INTER, ELL_EE and ELL_MSG (whose layer loops return
+    them), GIN's fused layer on FUSED, GAT's on ELL_FUSED and
+    ELL_LAYER_FUSED."""
+    if key[2] in (ELL_INTER, SLOT_INTER, HEP_SLOT_INTER, ELL_EE, ELL_MSG):
         return dict(return_intermediates=True)
     if key[2] == FUSED:
         return dict(fused=True)
@@ -629,11 +682,12 @@ def forward_kw(key: tuple) -> dict:
 
 
 def path_forward(key: tuple):
-    """The entry a path drives: the model's ``forward``, or on ELL_EE the
-    layer-by-layer loop over row 12."""
+    """The entry a path drives: the model's ``forward``, or on ELL_EE and
+    ELL_MSG the layer-by-layer loops over row 12 and row 31."""
     from flowgnn_tpu_torch.models import registry
 
-    return row12_forward if key[2] == ELL_EE else registry.get(key[0]).forward
+    return {ELL_EE: row12_forward, ELL_MSG: row31_forward}.get(key[2],
+                                                              registry.get(key[0]).forward)
 
 
 def row12_forward(params: dict, batch: dict, prec, return_intermediates: bool = True):
@@ -652,6 +706,33 @@ def row12_forward(params: dict, batch: dict, prec, return_intermediates: bool = 
     for l in range(params["mlp1_w"].shape[0]):
         h = gin_local_layer_ell(**gin.ell_layer_operands(params, batch, prec, l, h, meta, spill,
                                                          eps_all, lane_ee=True))
+        inter.append(h)
+    h_graph = base.mean_pool(h, batch)
+    out = base.linear(h_graph, params["pred_w"], params["pred_b"], prec)
+    return out, {"layers": inter, "h_graph": h_graph}
+
+
+def row31_forward(params: dict, batch: dict, prec, return_intermediates: bool = True):
+    """GIN over an ELL batch, layer by layer, each layer's messages from
+    ``gin_local_message_ell`` (row 31) and the rest of row 13's layer in
+    plain torch (``local_layer.gin_epilogue``: the spill tail's and VN's
+    messages, (1+ε)·h and the MLP), as the JAX GIN's halo branch runs row
+    31 beside its boundary exchange; returns the predictions and the
+    intermediates, as ``gin.forward`` does."""
+    from flowgnn_tpu_torch.models import base, gin
+    from flowgnn_tpu_torch.ops import local_layer
+
+    eps_all = gin.eps1_all(params, prec)
+    meta, spill = base.ell_meta(batch), base.ell_spill(batch)
+    h = base.atom_embed(params["node_embedding"], batch["node_feat"], prec)
+    inter = [h]
+    for l in range(params["mlp1_w"].shape[0]):
+        ops = gin.ell_layer_operands(params, batch, prec, l, h, meta, spill, eps_all)
+        m = local_layer.gin_local_message_ell(meta, ops["ee_table"], h, ops["window"])
+        acc = base.acc_dtype(prec)
+        h = local_layer.gin_epilogue(m.to(acc), h.to(acc), ops["m_spill"],
+                         *(ops[k] for k in ("w1", "b1", "w2", "b2", "eps1", "final_relu")),
+                         prec.compute_dtype)
         inter.append(h)
     h_graph = base.mean_pool(h, batch)
     out = base.linear(h_graph, params["pred_w"], params["pred_b"], prec)
@@ -708,11 +789,15 @@ def layer_operands(kname: str, name: str, params: dict, batch: dict, prec, kw: d
     row 13's with the bond embedding per lane and no table."""
     from flowgnn_tpu_torch.models import base, gin
 
-    if kname == ROW12:
+    if kname in (ROW12, ROW31, PASS):
         h = base.atom_embed(params["node_embedding"], batch["node_feat"], prec)
         ops = gin.ell_layer_operands(params, batch, prec, 0, h, base.ell_meta(batch),
                                      base.ell_spill(batch), gin.eps1_all(params, prec),
-                                     lane_ee=True)
+                                     lane_ee=kname != ROW31)
+        if kname == ROW31:
+            return {k: ops[k] for k in ("ell_meta", "ee_table", "h", "window")}
+        if kname == PASS:
+            return {k: ops[k] for k in ("ee", "ell_meta", "h", "m_spill", "window")}
         return {k: v for k, v in ops.items() if k != "ee_table"}
     mod = model_module(name)
     op_kw = {k: v for k, v in kw.items() if k in ("fused", "fuse_layers")}
@@ -722,9 +807,13 @@ def layer_operands(kname: str, name: str, params: dict, batch: dict, prec, kw: d
 
 def path_launches(key: tuple, batch: dict) -> dict:
     """``bucket_launches`` of one bucket on a path; ELL_EE's layer loop launches
-    row 12 once per layer."""
+    row 12 once per layer, ELL_MSG's row 31 once per layer (and the spill
+    scatter, as row 13's path does)."""
     if key[2] == ELL_EE:
         return {ROW12: num_layers(key[0])}
+    if key[2] == ELL_MSG:
+        out = bucket_launches(key[0], batch, {"return_intermediates": True})
+        return {ROW31 if k == "gin_local_layer_ell" else k: n for k, n in out.items()}
     return bucket_launches(key[0], batch, forward_kw(key))
 
 
@@ -1561,9 +1650,10 @@ def check_sibling(key: tuple, packed, out, params: dict, batch: dict, prec, tol:
     """A path held to the kernel path it is a variant of, on the same bucket
     and dtype, at the path's own tol (``agree``): GAT's fused ELL path
     against its unfused one (predictions; the two round at different
-    points), row 12's layer loop against the row-13 path (predictions and every
-    layer's h; row 12's bond embeddings arrive rounded to the compute
-    dtype). Returns what to print, or nothing for a path with no sibling."""
+    points), row 12's and row 31's layer loops against the row-13 path
+    (predictions and every layer's h; row 12's bond embeddings arrive
+    rounded to the compute dtype, row 31's messages rounded before the
+    epilogue adds the spill tail's). Returns what to print, or nothing for a path with no sibling."""
     from flowgnn_tpu_torch.models import registry
 
     k = packed.num_graphs
@@ -1571,7 +1661,7 @@ def check_sibling(key: tuple, packed, out, params: dict, batch: dict, prec, tol:
     if key[2] in (ELL_FUSED, ELL_LAYER_FUSED):
         err = agree(out[:k], forward(params, batch, prec)[:k], tol)
         return f", vs the unfused ELL path {err:.3e}"
-    if key[2] != ELL_EE:
+    if key[2] not in (ELL_EE, ELL_MSG):
         return ""
     ref, ref_inter = forward(params, batch, prec, return_intermediates=True)
     errs = [agree(out[0][:k], ref[:k], tol)]
@@ -1948,6 +2038,10 @@ def work(kname: str, ops: dict, out) -> tuple[float, float]:
         ops_ = e * (2 * d + 4 * ops["num_heads"])
     elif kname in ("gin_local_layer", ROW12):
         ops_ = 2 * e * d + 4 * n * d * ops["w1"].shape[0]
+    elif kname == ROW31:  # row 13's message term: the bond rows' sum, + h_u, the row sum
+        ops_ = 4 * e * d
+    elif kname == PASS:  # rows 10 / 12's: + h_u, the row sum
+        ops_ = 2 * e * d
     elif kname == "gin_layer_fused":
         ops_ = e * d + 4 * n * d * ops["w1"].shape[0]
     elif kname == "gat_local_layer_ell":
@@ -2371,6 +2465,121 @@ def time_bench_kernels(device, batch: dict) -> dict:
     return record
 
 
+def check_message_forms(streams: dict, device, max_err: dict) -> None:
+    """Phase 7a: row 31 and row 12's pass-through (the messages-only forms
+    of ``csrc/gin_layer.cuh``) against their plain versions on layer 0's
+    operands of GIN's first molhiv ELL bucket and of its hep10k W=128 ELL
+    bucket with the longest spill tail (row 31: the ELL lanes, h and the
+    layer's table; the pass-through: each lane's bond embedding and the
+    spill tail's messages as ``m_spill``), f32 (1e-4) and bf16 (5e-2),
+    seeded synthetic weights; then what the occupancy calculator says of
+    the two forms and of row 13 at W=128."""
+    import torch
+
+    from flowgnn_tpu_torch.core.numerics import BF16, FLOAT32
+    from flowgnn_tpu_torch.ops import local_layer
+    from flowgnn_tpu_torch.params.loaders import params_from_numpy
+
+    cases = [(streams["gin", "molhiv", ELL][1][0], "molhiv W=128 bucket 0"),
+             longest_ell_spill(streams, "gin")]
+    for batch, what in cases:
+        for prec, tol in ((FLOAT32, 1e-4), (BF16, 5e-2)):
+            params = params_from_numpy(synthetic_params("gin", SEED + 1), prec, device)
+            for kname in (ROW31, PASS):
+                ops = layer_operands(kname, "gin", params, batch, prec, {})
+                err = compare(kname, ops, f"gin {what} layer 0 {prec.compute_dtype}", tol)
+                if prec is FLOAT32:
+                    max_err[kname] = max(max_err[kname], err)
+    for lib, geometry in MESSAGE_OCCUPANCY.items():
+        for dt in (torch.bfloat16, torch.float32):
+            occ = local_layer.layer_occupancy(lib, dt, 128, geometry, device)
+            print(f"# occupancy {lib} {dt} W=128 {geometry}: {occ['smem']} B of shared memory a "
+                  f"block, weight ring {occ['stages']}, {occ['blocks_per_sm']} blocks an SM")
+
+
+def time_pass_through(streams: dict, device) -> dict:
+    """Phase 7c: row 12's pass-through alone on GIN's hep10k W=128 ELL
+    stream (the bench entry's ELL stage cell), each bucket's layer-0
+    operands once per layer (row 13's cell), bf16 and f32: the loop of
+    wrapper calls, its launches replayed from a CUDA graph, the plain
+    version, the bound. Returns the bf16 record."""
+    from flowgnn_tpu_torch.core.numerics import BF16, FLOAT32
+    from flowgnn_tpu_torch.params.loaders import params_from_numpy
+
+    batches = streams["gin", "hep10k", ELL_LAYER][1]
+    kernel, ref = kernel_fn(PASS), kernel_fn(PASS, plain=True)
+    record = None
+    for prec in (BF16, FLOAT32):
+        dt = str(prec.compute_dtype).replace("torch.", "")
+        params = params_from_numpy(synthetic_params("gin", SEED), prec, device)
+        calls = [o for b in batches for o in [layer_operands(PASS, "gin", params, b, prec, {})]
+                 for _ in range(num_layers("gin"))]
+        outs = [kernel(**o) for o in calls]
+        flops, byts = map(sum, zip(*(work(PASS, o, out) for o, out in zip(calls, outs))))
+        t_ops, t_bytes = flops / PEAK_FLOPS[dt] * 1e3, byts / MEM_BYTES_PER_S * 1e3
+        rec = dict(ms=cuda_ms(lambda: [kernel(**o) for o in calls]),
+                   graph_ms=graph_ms(lambda: [kernel(**o) for o in calls]),
+                   plain_ms=cuda_ms(lambda: [ref(**o) for o in calls]),
+                   bound_ms=max(t_ops, t_bytes),
+                   bound_by="operations" if t_ops > t_bytes else "bytes", library_ms=None)
+        print(f"# time gin hep10k {ELL_LAYER} {dt}: {PASS} alone {rec['ms']:.4f} ms/stream "
+              f"({len(calls)} launches), by graph replay {rec['graph_ms']:.4f} ms, its plain "
+              f"version {rec['plain_ms']:.4f} ms; bound {rec['bound_ms']:.4f} ms by "
+              f"{rec['bound_by']} ({flops:.4g} operations, {byts:.4g} bytes)")
+        record = record or rec
+    return record
+
+
+# The figures of an entry record's ``detail`` that must be finite and
+# positive on the card.
+ENTRY_FIGURES = ("us_per_graph_avg", "graphs_per_s", "edges_per_s", "buckets", "roofline_frac",
+                 "achieved_tflops", "dispatch_floor_ms", "dispatch_share", "spmm_time_us",
+                 "spmm_roofline_frac", "graph_us_per_graph", "device_share", "h2d_ms",
+                 "sm_clock_mhz", "window")
+
+
+def run_entry(device) -> dict:
+    """Phase 7b: the bench entry's ``main`` (``flowgnn_tpu_torch.bench.
+    bench``) in-process over ``ENTRY_RUNS``, each record parsed and its
+    figures finite and positive, the last line of a run of all six models
+    the geometric mean; every launch count set to 0 before and read after:
+    the stage benches must have launched row 19 (the slot stage) and row
+    12's pass-through (the ELL stage). Returns the counts."""
+    import torch
+
+    from flowgnn_tpu_torch.bench import bench
+
+    kernels = {k: kernel_fn(k) for k in KERNELS}
+    for f in kernels.values():
+        f.launches = 0
+    t0 = time.perf_counter()
+    for run in ENTRY_RUNS:
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            rc = bench.main(run + ["--reps", str(ENTRY_REPS), "--trials", str(ENTRY_TRIALS)])
+        recs = [json.loads(ln) for ln in out.getvalue().splitlines() if ln.strip()]
+        args = bench.parse_args(run)
+        names = list(bench.BASELINES_US[args.dataset]) if args.model == "all" else [args.model]
+        check(rc == 0 and len(recs) == len(names) + (len(names) > 1), f"entry {run}: {recs}")
+        positive = lambda x: isinstance(x, (int, float)) and math.isfinite(x) and x > 0
+        for name, rec in zip(names, recs):
+            figures = [rec["value"], rec["vs_baseline"]] + [rec["detail"][k] for k in ENTRY_FIGURES]
+            check(rec["metric"] == f"{name}_{args.dataset}_synth_us_per_graph"
+                  and all(positive(x) for x in figures), f"entry {run}: {rec}")
+        if len(names) > 1:
+            check(recs[-1]["metric"] == f"all_{args.dataset}_synth_geomean_speedup"
+                  and positive(recs[-1]["value"]), f"entry {run}: {recs[-1]}")
+        for rec in recs:
+            print("# entry " + json.dumps(rec))
+    torch.cuda.synchronize()
+    counts = {k: f.launches for k, f in kernels.items()}
+    check(counts["pna_local_stats_ell"] > 0 and counts[PASS] > 0,
+          f"phase 7b: the stage benches launched {counts}")
+    print(f"# phase 7b: {len(ENTRY_RUNS)} entry runs in {time.perf_counter() - t0:.1f} s, "
+          f"launches {dict((k, c) for k, c in counts.items() if c)}")
+    return counts
+
+
 def main() -> int:
     import torch
 
@@ -2548,6 +2757,21 @@ def main() -> int:
         launches[k] += n
     for kname, rec in time_bench_kernels(dev, batch).items():
         record[(kname, None, BF16)] = rec
+
+    # 7. The messages-only forms of rows 13 and 12; row 31's layer loop over
+    # GIN's hep10k W=128 ELL stream (counted, checked, timed as in phases 4
+    # and 5); the bench entry's runs (counted).
+    t0 = time.perf_counter()
+    msg_key = ("gin", "hep10k", ELL_MSG)
+    streams[msg_key] = streams["gin", "hep10k", ELL_LAYER]
+    check_message_forms(streams, dev, max_err)
+    for k, n in run_main_path(streams, dev, [msg_key]).items():
+        launches[k] += n
+    record.update(time_paths(streams, dev, [msg_key]))
+    record[(PASS, None, BF16)] = time_pass_through(streams, dev)
+    for k, n in run_entry(dev).items():
+        launches[k] += n
+    print(f"# phase 7: {time.perf_counter() - t0:.1f} s")
 
     print(smi)
     kernels = []

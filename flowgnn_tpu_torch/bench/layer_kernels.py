@@ -105,9 +105,10 @@ def calls(kernel: str, name: str, batches: list, prec, device) -> list:
     from flowgnn_tpu_torch.models import base, dgn, gat, gcn, gin, pna
     from flowgnn_tpu_torch.params import loaders
 
-    make = getattr(loaders, f"synthetic_{name}_params")
+    family = name.split("-")[0]  # GIN-VN runs GIN's weights
+    make = getattr(loaders, f"synthetic_{family}_params")
     params = loaders.params_from_numpy(make(0), prec, device)
-    layers = params[LAYER_WEIGHT[name]].shape[0]
+    layers = params[LAYER_WEIGHT[family]].shape[0]
     if name == "gat":
         fuse = kernel == "gat_local_layer_ell"
         layers -= fuse

@@ -193,10 +193,10 @@ def measure(m, k, n, layers, grid, dtype, reps, trials=3, device="cuda") -> floa
     return best_seconds(lambda: chained_matmul(a, b, layers, grid), reps, trials, device)
 
 
-def tool_device(name: str) -> torch.device:
+def tool_device(name: str, file=None) -> torch.device:
     """A bench tool's ``--device``: the CPU only when asked for; a card must
-    be there, and its name and power limit are printed, as ``nvidia-smi``
-    gives them, beside the times."""
+    be there, and its name and power limit are printed (to ``file``, stdout
+    by default), as ``nvidia-smi`` gives them, beside the times."""
     device = torch.device(name)
     if device.type == "cpu":
         return device
@@ -205,7 +205,8 @@ def tool_device(name: str) -> torch.device:
     device = torch.device("cuda", device.index or 0)
     print("# " + subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader",
-         "-i", str(device.index)], capture_output=True, text=True, check=True).stdout.strip())
+         "-i", str(device.index)], capture_output=True, text=True, check=True).stdout.strip(),
+        file=file or sys.stdout)
     return device
 
 

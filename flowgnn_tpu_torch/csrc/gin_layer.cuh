@@ -57,6 +57,19 @@
 // the MLP (and the weight ring; out is not written), bit 1 skips the
 // messages (act = rnd(m_spill + (1+eps) h)); the phase split of
 // chip_smoke.py times the kernel with each.
+//
+// The messages-only form (kMessages, a template parameter, compiled out of
+// rows 10, 12, 13 and 25 by `if constexpr`): the same lane walk and the same
+// per-row f32 sums in lane order, written straight to device memory as
+//   out_v = rnd(sum rnd(relu(h_u + ee)) + m_spill_v)
+// with no (1+eps) h_v term, no MLP and no weight ring: the TPU kernels'
+// pass-through epilogue (gin_local_message_ell, and local_scatter_apply_ell
+// as the ELL stage bench drives it). Its block's shared memory holds the
+// walk's own bytes and the row runs only (msg_smem_layout: 5.7 KB with row
+// 13's table at D = 100, 0.5 KB with per-lane ee), so registers and threads,
+// not shared memory, set its blocks an SM. What bounds it: bytes; per lane a
+// D-wide source row (and ee) read, per row h's and m_spill's rows read and
+// out written once; two operations a lane and column.
 
 #pragma once
 
@@ -97,6 +110,15 @@ struct Dims {
 struct Smem {
   size_t act, ext, lo, hid, w1c, w2c, b1c, ring, bars, total;
 };
+
+// The messages-only form's carve-up: the walk's own bytes and the row runs.
+inline Smem msg_smem_layout(size_t ext) {
+  Smem s{};
+  s.ext = 0;
+  s.lo = (ext + 15) / 16 * 16;
+  s.total = s.lo + ((kRows + 1) * 4 + 15) / 16 * 16;
+  return s;
+}
 
 inline Smem smem_layout(bool wg, int d, int hid, size_t ext, int stages) {
   const size_t D = d;
@@ -347,9 +369,11 @@ __device__ __forceinline__ void fma_mlp(const float* act_f, unsigned char* smem,
 // N2 = 0: the float32 form (FMA MLP); N2 = 104 or 112: the bf16 form with
 // the wgmma MLP, N2 its second product's width. tiles: the bf16 form's
 // packed weight chunks of this layer (gin_mlp.cuh). lay: the shared-memory
-// carve-up, computed once on the host (smem_layout).
-template <typename T, int N2, typename Walk>
-__global__ void __launch_bounds__(kThreads, N2 > 0 ? 2 : 1)
+// carve-up, computed once on the host (smem_layout). kMessages: the
+// messages-only form (N2 = 0 in both types; w1 .. tiles and eps1 unread,
+// lay from msg_smem_layout).
+template <typename T, int N2, typename Walk, bool kMessages = false>
+__global__ void __launch_bounds__(kThreads, kMessages ? 4 : (N2 > 0 ? 2 : 1))
 layer_kernel(Walk walk, const T* __restrict__ h, const T* __restrict__ m_spill,
              const T* __restrict__ w1, const T* __restrict__ b1, const T* __restrict__ w2,
              const T* __restrict__ b2, const float* __restrict__ eps1,
@@ -402,7 +426,7 @@ layer_kernel(Walk walk, const T* __restrict__ h, const T* __restrict__ m_spill,
 
   // Messages, one warp per destination row; lane j of the warp holds the
   // column pairs p = j, j + 32, ... (columns 2p and 2p + 1) of the row.
-  const float eps = __ldg(eps1);
+  const float eps = kMessages ? 0.f : __ldg(eps1);
   const int warp = tid / 32, lane = tid % 32;
   for (int r = warp; r < kRows; r += kWarps) {
     float2 acc[kLaneP];
@@ -421,27 +445,41 @@ layer_kernel(Walk walk, const T* __restrict__ h, const T* __restrict__ m_spill,
     }
     const long row = row0 + r;
     const bool real = row < dm.n;
+    if constexpr (kMessages) {
+      if (real) {
 #pragma unroll
-    for (int j = 0; j < kLaneP; ++j) {
-      const int c = 2 * (lane + 32 * j);
-      if (c >= D) break;
-      const float2 hv = real ? ld_pair(h + row * D, c, D) : make_float2(0.f, 0.f);
-      const float2 sp = real && m_spill != nullptr ? ld_pair(m_spill + row * D, c, D)
-                                                   : make_float2(0.f, 0.f);
-      const float a0 = rnd<T>(__fadd_rn(__fadd_rn(acc[j].x, sp.x), __fmul_rn(eps, hv.x)));
-      const float a1 = rnd<T>(__fadd_rn(__fadd_rn(acc[j].y, sp.y), __fmul_rn(eps, hv.y)));
-      if constexpr (kWg) {
-        // Columns c, c + 1 share a core-matrix row: one 4-byte store (a
-        // pad column c + 1 = D, for an odd D, stores zero).
-        *reinterpret_cast<__nv_bfloat162*>(act_b + gin_mlp::act_index(r, c)) =
-            __floats2bfloat162_rn(a0, c + 1 < D ? a1 : 0.f);
-      } else {
-        act_f[r * D + c] = a0;
-        if (c + 1 < D) act_f[r * D + c + 1] = a1;
+        for (int j = 0; j < kLaneP; ++j) {
+          const int c = 2 * (lane + 32 * j);
+          if (c >= D) break;
+          const float2 sp = m_spill != nullptr ? ld_pair(m_spill + row * D, c, D)
+                                               : make_float2(0.f, 0.f);
+          out[row * D + c] = cvt<T>(__fadd_rn(acc[j].x, sp.x));
+          if (c + 1 < D) out[row * D + c + 1] = cvt<T>(__fadd_rn(acc[j].y, sp.y));
+        }
+      }
+    } else {
+#pragma unroll
+      for (int j = 0; j < kLaneP; ++j) {
+        const int c = 2 * (lane + 32 * j);
+        if (c >= D) break;
+        const float2 hv = real ? ld_pair(h + row * D, c, D) : make_float2(0.f, 0.f);
+        const float2 sp = real && m_spill != nullptr ? ld_pair(m_spill + row * D, c, D)
+                                                     : make_float2(0.f, 0.f);
+        const float a0 = rnd<T>(__fadd_rn(__fadd_rn(acc[j].x, sp.x), __fmul_rn(eps, hv.x)));
+        const float a1 = rnd<T>(__fadd_rn(__fadd_rn(acc[j].y, sp.y), __fmul_rn(eps, hv.y)));
+        if constexpr (kWg) {
+          // Columns c, c + 1 share a core-matrix row: one 4-byte store (a
+          // pad column c + 1 = D, for an odd D, stores zero).
+          *reinterpret_cast<__nv_bfloat162*>(act_b + gin_mlp::act_index(r, c)) =
+              __floats2bfloat162_rn(a0, c + 1 < D ? a1 : 0.f);
+        } else {
+          act_f[r * D + c] = a0;
+          if (c + 1 < D) act_f[r * D + c + 1] = a1;
+        }
       }
     }
   }
-  if (!mlp) return;
+  if (kMessages || !mlp) return;
 
   if constexpr (kWg) {
     fence_proxy_async();  // act, written here, is read by wgmma
@@ -523,6 +561,50 @@ int launch(int dtype, const Walk32& walk32, const Walk16& walk16, size_t ext, co
   else
     err = cudaErrorInvalidValue;
   return int(err);
+}
+
+// The messages-only form: the widest D its lanes' column pairs cover.
+constexpr int kMsgMaxD = 64 * kLaneP;
+
+// Check the geometry, then launch the messages-only form of `dtype` (0 =
+// float32, 1 = bfloat16) with the lane walks walk32 / walk16; ext: the
+// walk's shared bytes; m_spill may be null. Returns a cudaError_t.
+template <typename Walk32, typename Walk16>
+int launch_messages(int dtype, const Walk32& walk32, const Walk16& walk16, size_t ext,
+                    const void* h, const void* m_spill, void* out, int num_windows, int n,
+                    int window, int d, int device, void* stream) {
+  if (window % kRows || window / kRows < 1 || window / kRows > kMaxWindowBlocks || d < 1 ||
+      d > kMsgMaxD || num_windows < 1 || (dtype != 0 && dtype != 1))
+    return int(cudaErrorInvalidValue);
+  int current = -1;
+  cudaError_t err = cudaGetDevice(&current);
+  if (err == cudaSuccess && current != device) err = cudaSetDevice(device);
+  if (err != cudaSuccess) return int(err);
+  const Dims dm{n, window, d, 0, 0, 0, 0};
+  const Smem lay = msg_smem_layout(ext);
+  const int grid = num_windows * (window / kRows);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    layer_kernel<float, 0, Walk32, true><<<grid, kThreads, lay.total, s>>>(
+        walk32, static_cast<const float*>(h), static_cast<const float*>(m_spill), nullptr,
+        nullptr, nullptr, nullptr, nullptr, nullptr, static_cast<float*>(out), dm, lay);
+  else
+    layer_kernel<__nv_bfloat16, 0, Walk16, true><<<grid, kThreads, lay.total, s>>>(
+        walk16, static_cast<const __nv_bfloat16*>(h),
+        static_cast<const __nv_bfloat16*>(m_spill), nullptr, nullptr, nullptr, nullptr,
+        nullptr, nullptr, static_cast<__nv_bfloat16*>(out), dm, lay);
+  return int(cudaGetLastError());
+}
+
+// What the occupancy calculator says of the messages-only form of `dtype`
+// with `bytes` of dynamic shared memory: the blocks that fit one SM.
+template <template <typename> class Walk>
+int msg_occupancy(int dtype, long long bytes, int* out) {
+  if (dtype == 0)
+    return int(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        out, layer_kernel<float, 0, Walk<float>, true>, kThreads, size_t(bytes)));
+  return int(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      out, layer_kernel<__nv_bfloat16, 0, Walk<__nv_bfloat16>, true>, kThreads, size_t(bytes)));
 }
 
 // What the occupancy calculator says of the form of `dtype` with `bytes` of

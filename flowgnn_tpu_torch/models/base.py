@@ -31,6 +31,7 @@ shapes of the marker arrays ``slot_pcap_k``, ``slot_geom``,
 
 from __future__ import annotations
 
+import functools
 import itertools
 import warnings
 from typing import Optional
@@ -38,7 +39,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from ..core.features import BOND_FEATURE_OFFSETS
+from ..core.features import ATOM_FEATURE_OFFSETS, BOND_FEATURE_OFFSETS
 from ..core.graphs import PackedGraphs
 from ..core.numerics import Precision
 from ..ops.segment import segment_sum
@@ -561,10 +562,9 @@ def ell_meta(batch: dict) -> torch.Tensor:
     """[P, 5] int32 per ELL lane: (u_local, v_local, the three bond attrs
     with their vocabulary offsets), the lane operand of the ELL kernels."""
     p = batch["loc_ulocal"].shape[0]
-    offs = torch.as_tensor(BOND_FEATURE_OFFSETS, device=batch["edge_attr"].device)
     return torch.cat([
         batch["loc_ulocal"][:, None].int(), batch["loc_vlocal"][:, None].int(),
-        (batch["edge_attr"][:p] + offs).int(),
+        (batch["edge_attr"][:p] + feature_offsets("bond", batch["edge_attr"].device)).int(),
     ], dim=1)
 
 
@@ -645,17 +645,23 @@ def _embed_sum(table: torch.Tensor, rows: torch.Tensor, prec: Precision) -> torc
     return table.to(acc_dtype(prec))[rows].sum(dim=1).to(prec.compute_dtype)
 
 
+@functools.cache
+def feature_offsets(kind: str, device: torch.device) -> torch.Tensor:
+    """The atom (``kind`` "atom") or bond ("bond") features' vocabulary
+    offsets on ``device``, copied there once: a forward then copies nothing
+    from the host, so a CUDA graph can capture it (``bench.timing``)."""
+    return torch.as_tensor({"atom": ATOM_FEATURE_OFFSETS, "bond": BOND_FEATURE_OFFSETS}[kind],
+                           device=device)
+
+
 def atom_embed(table: torch.Tensor, node_feat: torch.Tensor, prec: Precision) -> torch.Tensor:
     """h0[v] = Σ_f AtomTable[offset_f + feat_f[v]] (GIN/src/load_inputs.cc:174-220)."""
-    from ..core.features import ATOM_FEATURE_OFFSETS
-
-    offs = torch.as_tensor(ATOM_FEATURE_OFFSETS, device=node_feat.device)
-    return _embed_sum(table, node_feat.long() + offs, prec)
+    return _embed_sum(table, node_feat.long() + feature_offsets("atom", node_feat.device), prec)
 
 
 def bond_rows(edge_attr: torch.Tensor) -> torch.Tensor:
     """[E, 3] bond-table rows: the attrs with their vocabulary offsets."""
-    return edge_attr.long() + torch.as_tensor(BOND_FEATURE_OFFSETS, device=edge_attr.device)
+    return edge_attr.long() + feature_offsets("bond", edge_attr.device)
 
 
 def bond_embed(table_l: torch.Tensor, edge_attr: torch.Tensor, prec: Precision) -> torch.Tensor:

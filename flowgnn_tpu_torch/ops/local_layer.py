@@ -87,7 +87,15 @@ per window); h stays in device memory between layers:
 - ``gin_local_layer_ell_lanes``: ``gin_local_layer_ell`` with each lane's
   bond embedding given from outside instead of summed from the table in the
   kernel (TPU ``local_scatter_apply_ell``; ``gin_local_layer_ell(ee=...)``
-  reaches it).
+  reaches it);
+- ``gin_local_message_ell``: GIN's message sum alone, the bond embedding
+  summed in the kernel (TPU ``gin_local_message_ell``, the JAX halo branch's;
+  ``csrc/gin_local_message_ell.cu``), and ``gin_local_message_ell_lanes``:
+  the same with each lane's bond embedding given and ``m_spill`` added (TPU
+  ``local_scatter_apply_ell`` with the ELL stage bench's pass-through
+  epilogue; ``csrc/gin_local_message_lanes.cu``): the messages-only forms
+  of ``gin_local_layer_ell``'s and ``gin_local_layer_ell_lanes``'s kernel
+  (``csrc/gin_layer.cuh``).
 
 Over the legacy dynamic-window local layout (``as_batch(blocked="local")``:
 a window owns as many 128-lane blocks as its edges need, ``block_window``
@@ -150,6 +158,7 @@ LIBRARIES = (
     "gcn_local_message_ell", "gcn_local_layer_ell", "pna_local_layer_slots",
     "dgn_local_layer_ell", "gat_local_message_ell", "gin_local_layer_blocks",
     "gin_layer_fused", "gat_local_layer_ell", "dgn_local_layer_ell_model",
+    "gin_local_message_ell", "gin_local_message_lanes",
 )
 
 
@@ -894,13 +903,12 @@ def lane_rows(local: torch.Tensor, lane_window: torch.Tensor, window: int):
     return lane_window * window + local.clamp(0, window - 1), ok
 
 
-def _gin_layer_lanes(ee, u_local, v_local, lane_window, h, m_spill, w1, b1, w2, b2, eps1,
-                     window, final_relu) -> torch.Tensor:
-    """One GIN layer over lanes that carry their bond embedding ``ee`` [P,
-    D], their in-window endpoints and their window ``lane_window`` [P]: per
-    window row v over its lanes u → v in lane order, acc = Σ rnd(relu(h_u +
-    ee)) in f32, then ``gin_epilogue``. A lane whose u lies outside [0, W)
-    reads a zero source and one whose v does lands nowhere."""
+def _gin_lane_sums(ee, u_local, v_local, lane_window, h, window):
+    """(per window row v over its lanes u → v in lane order, Σ rnd(relu(h_u
+    + ee)) in the accumulation dtype [NW·W, D]; h padded to NW·W rows in it)
+    for lanes that carry their bond embedding ``ee`` [P, D], their in-window
+    endpoints and their window ``lane_window`` [P]. A lane whose u lies
+    outside [0, W) reads a zero source and one whose v does lands nowhere."""
     cdt = h.dtype
     acc = _acc_dtype(cdt)
     rows = -(-h.shape[0] // window) * window
@@ -909,8 +917,16 @@ def _gin_layer_lanes(ee, u_local, v_local, lane_window, h, m_spill, w1, b1, w2, 
     dest, v_ok = lane_rows(v_local, lane_window, window)
     msg = _relu(hf[gather] * u_ok[:, None].to(acc) + ee.to(acc)).to(cdt).to(acc)
     agg = torch.zeros(rows, h.shape[1], dtype=acc, device=h.device)
-    agg.index_add_(0, dest[v_ok], msg[v_ok])
-    return gin_epilogue(agg, hf, m_spill, w1, b1, w2, b2, eps1, final_relu, cdt)[: h.shape[0]]
+    return agg.index_add_(0, dest[v_ok], msg[v_ok]), hf
+
+
+def _gin_layer_lanes(ee, u_local, v_local, lane_window, h, m_spill, w1, b1, w2, b2, eps1,
+                     window, final_relu) -> torch.Tensor:
+    """One GIN layer over lanes that carry their bond embedding (see
+    ``_gin_lane_sums``): the message sums, then ``gin_epilogue``."""
+    agg, hf = _gin_lane_sums(ee, u_local, v_local, lane_window, h, window)
+    return gin_epilogue(agg, hf, m_spill, w1, b1, w2, b2, eps1, final_relu,
+                        h.dtype)[: h.shape[0]]
 
 
 def block_lane_windows(block_window: torch.Tensor, lanes: int) -> torch.Tensor:
@@ -967,6 +983,43 @@ def gin_local_layer_ell_lanes_ref(
     lane_window = block_lane_windows(torch.arange(nw, device=h.device), ee.shape[0])
     return _gin_layer_lanes(ee, ell_meta[:, 0], ell_meta[:, 1], lane_window, h, m_spill, w1, b1,
                             w2, b2, eps1, window, final_relu)
+
+
+def gin_local_message_ell_ref(
+    ell_meta: torch.Tensor,  # [NW·k·B, 5] int (u_local, v_local, attrs+offsets)
+    ee_table: torch.Tensor,  # [13, D] this layer's bond-embedding table
+    h: torch.Tensor,  # [n, D] layer input
+    window: int,
+) -> torch.Tensor:
+    """Plain-torch ``gin_local_message_ell``: m [n, D] in h's dtype, per
+    window row v over its lanes u → v in lane order m[v] = rnd(Σ rnd(relu(
+    h_u + ee))), ee the sum of the lane's three table rows. A lane whose u
+    lies outside [0, W) reads a zero source and one whose v does lands
+    nowhere. Sums run in f32 (f64 for f64 inputs)."""
+    (gather, u_ok, _, accumulate), hf, ee, acc = _ell_layer_inputs(ell_meta, h, ee_table, window)
+    agg = accumulate(_relu(hf[gather] * u_ok + ee).to(h.dtype).to(acc))
+    return agg[: h.shape[0]].to(h.dtype)
+
+
+def gin_local_message_ell_lanes_ref(
+    ee: torch.Tensor,  # [NW·k·B, D] per-lane bond embeddings
+    ell_meta: torch.Tensor,  # [NW·k·B, 5] int (u_local, v_local, three unused)
+    h: torch.Tensor,  # [n, D] layer input
+    m_spill: Optional[torch.Tensor],  # [n, D] messages added per row, or None
+    window: int,
+) -> torch.Tensor:
+    """Plain-torch ``gin_local_message_ell_lanes``: m [n, D] in h's dtype,
+    per window row v over its lanes u → v in lane order m[v] = rnd(Σ rnd(
+    relu(h_u + ee)) + m_spill_v), each lane's bond embedding given in h's
+    dtype (the JAX ``local_scatter_apply_ell`` with the ELL stage bench's
+    pass-through epilogue). Every window owns the same number of lanes;
+    ``m_spill=None`` adds nothing."""
+    nw = -(-h.shape[0] // window)
+    lane_window = block_lane_windows(torch.arange(nw, device=h.device), ee.shape[0])
+    agg, hf = _gin_lane_sums(ee, ell_meta[:, 0], ell_meta[:, 1], lane_window, h, window)
+    if m_spill is not None:
+        agg = agg + _padded(m_spill.to(agg.dtype), hf.shape[0])
+    return agg[: h.shape[0]].to(h.dtype)
 
 
 def _gcn_ell_message(ell_meta, h, dis, ee_table, window):
@@ -1288,6 +1341,16 @@ def _library(name: str) -> dict:
             "gat_layer_ell", layer_getters + ("max_heads",), [_I32] * 4,
             [_I32] + [_PTR] * 9 + [_I32] * 8 + [_I32, _PTR],
         ),
+        # The messages-only forms of rows 13 and 12 (row 31 and row 12's
+        # pass-through).
+        "gin_local_message_ell": (
+            "gin_msg_ell", layer_getters, [_I32] * 3,
+            [_I32] + [_PTR] * 4 + [_I32] * 6 + [_I32, _PTR],
+        ),
+        "gin_local_message_lanes": (
+            "gin_msg_lanes", layer_getters, [_I32] * 2,
+            [_I32] + [_PTR] * 6 + [_I32] * 6 + [_I32, _PTR],
+        ),
     }[name]
     lib = load_library(name)
     fns = {}
@@ -1330,6 +1393,7 @@ def _library(name: str) -> dict:
         "gcn_local_message_ell": (("occupancy", [_I32] * 5 + [_INT_P], _I32),),
         "dgn_local_layer_ell": (("occupancy", [_I32] * 4 + [_INT_P], _I32),),
         "pna_local_stats_slots": (("occupancy", [_I32] * 5 + [_INT_P], _I32),),
+        **{k: (("occupancy", [_I32, _I64, _INT_P], _I32),) for k in GIN_MESSAGE_LIBRARIES},
         "gat_local_model_slots": (per_sm, ("glue_dims", [_I32, _INT_P], None),
                                   ("occupancy", [_I32] * 8 + [_INT_P], _I32)),
     }
@@ -2107,17 +2171,21 @@ def occupancy(kernel: str, dtype: torch.dtype, window: int, geometry: tuple, gma
 def layer_occupancy(kernel: str, dtype: torch.dtype, window: int, geometry: tuple,
                     device) -> dict:
     """What the occupancy calculator says of a per-layer kernel whose launch
-    plan is cached (``GIN_LAYER_LIBRARIES``, ``gat_local_layer_ell``) in
-    ``dtype`` at this geometry on ``device`` (the launch's own plan): the
-    block's shared memory, the weight ring, the blocks of that form one SM
-    holds. ``geometry``: (D, H) for GIN (row 13: (D, H, vocab)), (H·D,
-    heads) for GAT."""
+    plan is cached (``GIN_LAYER_LIBRARIES``, ``gat_local_layer_ell``,
+    ``GIN_MESSAGE_LIBRARIES``) in ``dtype`` at this geometry on ``device``
+    (the launch's own plan): the block's shared memory, the weight ring, the
+    blocks of that form one SM holds. ``geometry``: (D, H) for GIN (row 13:
+    (D, H, vocab)), (H·D, heads) for GAT, (D, vocab) for row 31, (D,) for row
+    12's pass-through."""
     code = _dtype_code(dtype)
     dev = torch.device(device)
     lib = _library(kernel)
     if kernel == "gat_local_layer_ell":
         stages, smem = _gat_layer_plan(code, *geometry, window, dev.index)
         args = (code, geometry[1], smem)
+    elif kernel in GIN_MESSAGE_LIBRARIES:
+        stages, smem = _layer_plan(kernel, code, geometry[0], 0, window, dev.index, *geometry[1:])
+        args = (code, smem)
     else:
         d, hid, *vocab = geometry
         stages, smem = _gin_layer_plan(kernel, code, d, hid, vocab[0] if vocab else 0, window,
@@ -2524,28 +2592,34 @@ def _layer_ring(name: str, lib, code: int, geometry: tuple, dev) -> int:
     return ring_stages(lambda stages: lib["smem_bytes"](code, *geometry, stages), chunks, budget)
 
 
-# The messages-, channels- and stats-only forms of rows 9, 4 and 3 (rows 14,
-# 16 and 19), by library: no product, no ring.
-_NO_PRODUCT = ("gcn_local_message_ell", "dgn_local_layer_ell", "pna_local_stats_slots")
+# The messages-only forms of rows 13 and 12 (row 31 and row 12's
+# pass-through).
+GIN_MESSAGE_LIBRARIES = ("gin_local_message_ell", "gin_local_message_lanes")
+# The messages-, channels- and stats-only forms of rows 9, 4, 3, 13 and 12
+# (rows 14, 16, 19, 31 and row 12's pass-through), by library: no product, no
+# ring.
+_NO_PRODUCT = ("gcn_local_message_ell", "dgn_local_layer_ell", "pna_local_stats_slots",
+               *GIN_MESSAGE_LIBRARIES)
 
 
 @functools.cache
 def _layer_plan(name: str, code: int, d: int, slots: int, window: int, device: int,
                 vocab: int = 0) -> tuple:
-    """The launch plan of rows 20, 22, 18, 15, 14, 16 and 19 (``slots`` 0:
-    rows 18, 15, 14 and 16's ELL lanes; ``vocab``: rows 15 and 14's bond
-    table) at this geometry on CUDA device ``device``, worked out once per
-    geometry (a launch is tens of µs, and these checks take the library's
-    getters): (the weight ring, the block's shared memory; rows 14, 16 and 19
-    have no product and no ring). Raises before launch on what the clusters
-    (whole blocks of 128 rows, at most 8), the tile (row 15: an even D; rows
-    14, 16 and 19: D at most 128), the slot depth or the card's shared
-    memory do not take, or a product geometry the host does not share; a
-    refusal is not cached."""
+    """The launch plan of rows 20, 22, 18, 15, 14, 16, 19, 31 and row 12's
+    pass-through (``slots`` 0: the ELL lanes of rows 18, 15, 14, 16, 31 and
+    the pass-through; ``vocab``: rows 15, 14 and 31's bond table) at this
+    geometry on CUDA device ``device``, worked out once per geometry (a
+    launch is tens of µs, and these checks take the library's getters): (the
+    weight ring, the block's shared memory; rows 14, 16, 19, 31 and the
+    pass-through have no product and no ring). Raises before launch on what
+    the clusters or windows (whole blocks of 128 rows, at most 8), the tile
+    (row 15: an even D; rows 14, 16, 19, 31 and the pass-through: D at most
+    128), the slot depth or the card's shared memory do not take, or a
+    product geometry the host does not share; a refusal is not cached."""
     lib = _library(name)
     dev = torch.device("cuda", device)
     _check_tile(lib, d)
-    if name.startswith("gcn_local"):
+    if name.startswith("gcn_local") or name == "gin_local_message_ell":
         geometry = (d, vocab)
     elif name == "pna_local_stats_slots":
         geometry = (d, slots)
@@ -3091,6 +3165,104 @@ def gin_local_layer_ell_lanes(
 
 gin_local_layer_ell_lanes.launches = 0
 gin_local_layer_ell_lanes.stages = 0
+
+
+def _launch_gin_message_ell(ell_meta, ee_table, h, window) -> torch.Tensor:
+    code = _dtype_code(h.dtype)
+    dev = h.device
+    n, d = h.shape
+    _check("h", h, h.dtype, (n, d), dev)
+    vocab = ee_table.shape[0]
+    _check("ee_table", ee_table, h.dtype, (vocab, d), dev)
+    _check_pairs(("h", h))
+    name = "gin_local_message_ell"
+    lib = _library(name)
+    _layer_plan(name, code, d, 0, window, dev.index, vocab)
+    nw = -(-n // window)
+    lanes = _ell_block(ell_meta, nw, dev)
+    out = torch.empty((n, d), dtype=h.dtype, device=dev)
+    rc = lib["launch"](
+        code, ell_meta.data_ptr(), h.data_ptr(), ee_table.data_ptr(), out.data_ptr(), nw, n,
+        window, lanes, d, vocab, dev.index, torch.cuda.current_stream(dev).cuda_stream,
+    )
+    _raise_on(lib, rc, name)
+    gin_local_message_ell.launches += 1
+    return out
+
+
+def gin_local_message_ell(
+    ell_meta: torch.Tensor,
+    ee_table: torch.Tensor,
+    h: torch.Tensor,
+    window: int,
+) -> torch.Tensor:
+    """GIN's message sum over the ELL layout, the bond embedding summed from
+    the layer's table in the kernel: [n, D] in h's dtype
+    (``csrc/gin_local_message_ell.cu``: the messages-only form of row 13's
+    kernel, W of 128 to 1024 rows, any k edge blocks a window, any D from 1
+    to 128). The JAX function's ``edge_attr``, ``u_local`` and ``v_local`` are
+    ``ell_meta``'s columns; its ``k_blocks`` is ``ell_meta``'s lanes a window
+    and its ``wps`` is not carried over, as in ``gin_local_layer_ell``.
+    Operands as in ``gin_local_message_ell_ref``; a CPU tensor runs the plain
+    version, a CUDA tensor launches the kernel (float32 or bfloat16 h and
+    table, int32 ``ell_meta``; its plan from ``_layer_plan``) or raises.
+    Each launch adds one to ``gin_local_message_ell.launches``."""
+    return _dispatch(h, gin_local_message_ell_ref, _launch_gin_message_ell,
+                     (ell_meta, ee_table, h, window))
+
+
+gin_local_message_ell.launches = 0
+
+
+def _launch_gin_message_ell_lanes(ee, ell_meta, h, m_spill, window) -> torch.Tensor:
+    dt = h.dtype
+    code = _dtype_code(dt)
+    dev = h.device
+    n, d = h.shape
+    _check("h", h, dt, (n, d), dev)
+    if m_spill is not None:
+        _check("m_spill", m_spill, dt, (n, d), dev)
+    nw = -(-n // window)
+    lanes = _ell_block(ell_meta, nw, dev)
+    _check("ee", ee, dt, (ell_meta.shape[0], d), dev)
+    _check_pairs(("ee", ee), ("h", h), ("m_spill", m_spill))
+    name = "gin_local_message_lanes"
+    lib = _library(name)
+    _layer_plan(name, code, d, 0, window, dev.index)
+    out = torch.empty((n, d), dtype=dt, device=dev)
+    rc = lib["launch"](
+        code, ee.data_ptr(), ell_meta[:, 0].data_ptr(), ell_meta[:, 1].data_ptr(), h.data_ptr(),
+        None if m_spill is None else m_spill.data_ptr(), out.data_ptr(), nw, n, window, lanes,
+        ell_meta.stride(0), d, dev.index, torch.cuda.current_stream(dev).cuda_stream,
+    )
+    _raise_on(lib, rc, "gin_local_message_ell_lanes")
+    gin_local_message_ell_lanes.launches += 1
+    return out
+
+
+def gin_local_message_ell_lanes(
+    ee: torch.Tensor,
+    ell_meta: torch.Tensor,
+    h: torch.Tensor,
+    m_spill: Optional[torch.Tensor],
+    window: int,
+) -> torch.Tensor:
+    """GIN's message sum over the ELL layout with each lane's bond embedding
+    given, plus ``m_spill``: [n, D] in h's dtype
+    (``csrc/gin_local_message_lanes.cu``: the messages-only form of rows 10
+    / 12's kernel on the static ELL grid, W of 128 to 1024 rows, any D from 1
+    to 128), the JAX ``local_scatter_apply_ell`` with the ELL stage bench's
+    pass-through epilogue. Operands as in ``gin_local_message_ell_lanes_ref``
+    (row 12's, as ``gin_local_layer_ell_lanes`` takes them, without the
+    MLP); a CPU tensor runs the plain version, a CUDA tensor launches the
+    kernel (float32 or bfloat16 ``ee``, h and ``m_spill``, int32
+    ``ell_meta``) or raises. Each launch adds one to
+    ``gin_local_message_ell_lanes.launches``."""
+    return _dispatch(h, gin_local_message_ell_lanes_ref, _launch_gin_message_ell_lanes,
+                     (ee, ell_meta, h, m_spill, window))
+
+
+gin_local_message_ell_lanes.launches = 0
 
 
 def _launch_gcn_message_ell(ell_meta, h, dis, ee_table, window, knockout=0) -> torch.Tensor:

@@ -2604,3 +2604,70 @@ def test_gat_mega_ablate_cuda_kernel_rejects(cuda_device):
         with pytest.raises(err):
             fn("v3", variant, **kw)
     assert fn.launches == before
+
+
+def _gin_message_operands(kernel: str, geometry: str, d: int, spill: bool = True) -> dict:
+    """Row 31's (``gin_local_message_ell``) or row 12's pass-through
+    (``gin_local_message_ell_lanes``: seeded per-lane ``ee``, and
+    ``m_spill`` unless ``spill`` is False) operands at width ``d`` on the
+    layout of ``_ell_layer_batch``, as numpy arrays."""
+    ops = _ell_layer_operands("gin_local_layer_ell", geometry, d=d)
+    if kernel == "gin_local_message_ell":
+        return {k: ops[k] for k in ("ell_meta", "ee_table", "h", "window")}
+    rng = np.random.default_rng(23)
+    ee = rng.normal(0, 0.2, (ops["ell_meta"].shape[0], d)).astype(np.float32)
+    return dict(ee=ee, ell_meta=ops["ell_meta"], h=ops["h"],
+                m_spill=ops["m_spill"] if spill else None, window=ops["window"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["gin_local_message_ell", "gin_local_message_ell_lanes"],
+                         ids=["row31", "row12-pass-through"])
+@pytest.mark.parametrize("geometry", list(ELL_LAYER_GEOMETRY))
+@pytest.mark.parametrize("d", [100, 37])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 5e-2)],
+                         ids=["f32", "bf16"])
+def test_gin_message_cuda_kernels_match_plain(kernel, geometry, d, dtype, tol, cuda_device):
+    """Row 31 and row 12's pass-through (the messages-only forms of
+    ``csrc/gin_layer.cuh``) against their plain versions at W=128, W=512 and
+    k=2, at the stage bench's D=100 and at an odd D, one launch per call;
+    the pass-through with and without ``m_spill``. f32: summation order
+    only; bf16: the output rounds once, so a sum near a rounding boundary
+    lands one bf16 ulp of its scale apart."""
+    fn = getattr(local_layer, kernel)
+    for spill in ((True, False) if kernel.endswith("lanes") else (True,)):
+        ops = _port(_gin_message_operands(kernel, geometry, d, spill), cuda_device, dtype)
+        before = fn.launches
+        got = fn(**ops)
+        torch.cuda.synchronize()
+        assert fn.launches == before + 1
+        expect = getattr(local_layer, f"{kernel}_ref")(**ops)
+        assert got.dtype == dtype and got.shape == expect.shape
+        scale = max(1e-2, expect.abs().max().item())
+        torch.testing.assert_close(got.float() / scale, expect.float() / scale, rtol=tol,
+                                   atol=tol)
+
+
+@pytest.mark.cuda
+def test_gin_message_cuda_kernels_occupancy_and_rejects(cuda_device):
+    """The messages-only forms' blocks hold no act tile and no ring (under 6
+    KB at D=100), so more of them fit an SM than row 13's; a window that is
+    not whole 128-row tiles, a D past 128 or a wrong dtype raises before
+    launch."""
+    row13 = local_layer.layer_occupancy("gin_local_layer_ell", torch.bfloat16, W,
+                                        (100, 200, 13), cuda_device)
+    for kernel, geometry in (("gin_local_message_ell", (100, 13)),
+                             ("gin_local_message_lanes", (100,))):
+        for dtype in (torch.float32, torch.bfloat16):
+            occ = local_layer.layer_occupancy(kernel, dtype, W, geometry, cuda_device)
+            assert occ["smem"] < 6 * 1024 and occ["stages"] == 0
+            assert occ["blocks_per_sm"] > row13["blocks_per_sm"], (occ, row13)
+    ops = _port(_gin_message_operands("gin_local_message_ell", "W128", 100), cuda_device)
+    fn = local_layer.gin_local_message_ell
+    before = fn.launches
+    for kw, err in ((dict(window=192), ValueError), (dict(h=ops["h"].double()), TypeError),
+                    (dict(h=torch.zeros(ops["h"].shape[0], 130, device=cuda_device),
+                          ee_table=torch.zeros(13, 130, device=cuda_device)), ValueError)):
+        with pytest.raises(err):
+            fn(**dict(ops, **kw))
+    assert fn.launches == before

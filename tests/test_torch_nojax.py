@@ -86,6 +86,12 @@ with contextlib.redirect_stdout(io.StringIO()) as table:
                           "--variants", "full,v3,v4,v5"])
 assert len([ln for ln in table.getvalue().splitlines() if not ln.startswith("#")]) == 6, \
     table.getvalue()
+import json
+from flowgnn_tpu_torch.bench import bench
+with contextlib.redirect_stdout(io.StringIO()) as rec, contextlib.redirect_stderr(io.StringIO()):
+    bench.main(["--device", "cpu", "--model", "gin", "--graphs", "8", "--node-cap", "1023",
+                "--trials", "1", "--reps", "1"])
+assert json.loads(rec.getvalue().splitlines()[-1])["metric"] == "gin_molhiv_synth_us_per_graph"
 print("ok", len(mods))
 """
 
@@ -98,4 +104,4 @@ def test_port_runs_without_jax():
     )
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.startswith("ok "), proc.stdout
-    assert int(proc.stdout.split()[1]) >= 21  # every module was walked, bench's too
+    assert int(proc.stdout.split()[1]) >= 24  # every module was walked, bench's too
