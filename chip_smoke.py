@@ -249,10 +249,23 @@ Phases, each of which raises (non-zero exit) on failure:
    default streams, and GIN on hep10k at W=128, whose slot stream falls back
    to ELL), ``ENTRY_REPS`` passes a trial: each record parsed, its figures
    finite and positive, the geometric-mean line last; the stage benches
-   counted (row 19 and row 12's pass-through); the phase's seconds.
+   counted (row 19 and row 12's pass-through); the phase's seconds;
+8. the streaming runtime and the host application. 8a: ``runtime.stream.
+   InferenceStream`` for all six models over the molhiv stream at full
+   width, weight sets flipped halfway, f32 and bf16: one CUDA graph per
+   (signature, weight set), counted (the whole-model kernel, rows 1-5, at
+   the captures only: an eager pass and the capture each), some graph
+   replayed for buckets of other content; ``run`` and ``run_pipelined``
+   agree, each bucket's replayed predictions are held to its eager forward
+   and to the f32 plain path as in phase 4, the two weight sets differ;
+   GIN over more weight sets than the weight-chunk cache keeps, run twice
+   (``check_stream``). 8b: ``bench.host_app``'s ``main`` in-process for each
+   model (``run_host_app``), its record parsed and its figures finite and
+   positive, counted; the phase's seconds.
 
-No phase runs at a cut depth: the whole run takes about eight minutes on an
-H100. The line before the last is a JSON object with one record per
+No phase runs at a cut depth, and phase 8b runs the host application on
+8192 graphs at one trial (its defaults are 16384 and three: cut to keep the
+phase near 90 s): the whole run takes about nine minutes on an H100. The line before the last is a JSON object with one record per
 kernel; the last line is ``{"ok": true, "device": {...}}``. Without a CUDA
 device, or outside the repository, it exits non-zero before printing
 either.
@@ -463,6 +476,19 @@ ENTRY_REPS, ENTRY_TRIALS = 2, 3  # few reps: phases 1-7a take ~7.5 min of the ru
 # (row 31: (D, vocab); the pass-through: (D,)), beside row 13's.
 MESSAGE_OCCUPANCY = {"gin_local_message_ell": (100, 13), "gin_local_message_lanes": (100,),
                      "gin_local_layer_ell": (100, 200, 13)}
+
+
+# Phase 8: the streaming runtime over the molhiv stream with two weight sets
+# (synthetic seeds SEED and SEED + 1) flipped halfway; GIN's stream also over
+# MANY_SETS weight sets, one 64-graph bucket each, more than the weight-chunk
+# cache keeps (ops.local_layer.MLP_TILE_SETS); and the host application's main
+# on HOST_APP_GRAPHS graphs, its weight sets flipped halfway, one trial (its
+# defaults are 16384 graphs and 3 trials: cut to keep the phase near 90 s).
+MANY_SETS, MANY_GRAPHS = 10, 64
+HOST_APP_GRAPHS = 8192
+HOST_APP_FIGURES = ("value", "sequential_us_per_graph", "pipeline_speedup", "buckets",
+                    "dispatches", "dispatch_floor_ms", "pack_ms_per_bucket",
+                    "replay_ms_per_bucket", "device_share", "captured_graphs")
 
 
 # Phase 2: the libraries whose SASS must hold tensor-core (HGMMA) and
@@ -2580,6 +2606,172 @@ def run_entry(device) -> dict:
     return counts
 
 
+def stream_checks(stream, buckets, preds, sets: list, prec, tol: float, device) -> tuple:
+    """Each bucket's predictions from the stream's replays against the same
+    bucket's eager forward (``agree`` at ``tol``) and against the plain
+    edge-list path in f32 on the same packing (``tol``; in bf16 the gate
+    widens to 1.5× what the bf16 plain path needs, as ``check_outputs``).
+    Returns the largest errors against the two."""
+    import torch
+
+    from flowgnn_tpu_torch.core.graphs import pack_graphs_aligned
+    from flowgnn_tpu_torch.core.numerics import BF16, FLOAT32
+    from flowgnn_tpu_torch.models import base
+    from flowgnn_tpu_torch.params.loaders import params_from_numpy
+
+    spec = stream.spec
+    params = [params_from_numpy(p, prec, device) for p in sets]
+    p32 = [params_from_numpy(p, FLOAT32, device) for p in sets]
+    off, e_eager, e_plain = 0, 0.0, 0.0
+    for bucket, sid in buckets:
+        batch, n = stream._make_batch(bucket)
+        got = torch.as_tensor(preds[off:off + n])
+        off += n
+        eager = spec.forward(params[sid], base.to_device(batch, device), prec)[:n, 0].float().cpu()
+        window, _ = base.choose_geometry(spec.name, max(g.num_nodes for g in bucket))
+        packed = pack_graphs_aligned(bucket, *stream.caps, window=window,
+                                     with_eigen=spec.needs_eigen)
+        plain_batch = base.to_device(base.as_batch(packed), device)
+        plain = spec.forward(p32[sid], plain_batch, FLOAT32)[:n, 0].float().cpu()
+        t = tol
+        if prec is BF16:
+            pl = spec.forward(params[sid], plain_batch, prec)[:n, 0].float().cpu()
+            t = max(tol, 1.5 * needed_tol(pl, plain))
+        e_eager = max(e_eager, agree(got, eager, tol))
+        e_plain = max(e_plain, agree(got, plain, t))
+    check(off == len(preds), f"{spec.name}: {len(preds)} predictions, {off} in the buckets")
+    return e_eager, e_plain
+
+
+def check_stream(device) -> dict:
+    """Phase 8a: ``runtime.stream.InferenceStream`` for each model over the
+    molhiv stream at full width, weight sets SEED and SEED + 1 flipped
+    halfway, f32 (1e-4) and bf16 (5e-2): a pin pass over every bucket, then
+    ``run`` and ``run_pipelined`` (depth 2, chain 4, three workers), which
+    must agree (1e-5). Every launch count is set to 0 just before ``run``
+    and read just after: the model's whole-model kernel (rows 1-5) must have
+    launched twice per captured (signature, weight set), for its eager pass
+    and its capture, and nothing else; ``run_pipelined`` must launch nothing
+    (it only replays). Some signature and weight set must serve more than
+    one bucket, so that a graph is replayed on content other than what it
+    was captured from. Each bucket's replayed predictions are held to its
+    eager forward and to the plain path (``stream_checks``), and bucket 0
+    under the other weight set must differ. Then GIN's bf16 stream over
+    MANY_SETS weight sets, one bucket each, run twice: the second run
+    replays graphs whose weight chunks the cache has evicted, and must
+    equal the first and each bucket's eager forward. Returns the launches
+    of the ``run`` calls."""
+    import collections
+
+    import numpy as np
+
+    from flowgnn_tpu_torch.bench.host_app import edge_capacity
+    from flowgnn_tpu_torch.core.graphs import laplacian_eigenvectors
+    from flowgnn_tpu_torch.core.numerics import BF16, FLOAT32
+    from flowgnn_tpu_torch.core.synthetic import synthetic_dataset
+    from flowgnn_tpu_torch.models import base, registry
+    from flowgnn_tpu_torch.ops import local_layer
+    from flowgnn_tpu_torch.params.loaders import params_from_numpy
+    from flowgnn_tpu_torch.runtime.stream import InferenceStream
+
+    kernels = {k: kernel_fn(k) for k in KERNELS}
+    launches = dict.fromkeys(KERNELS, 0)
+    raw = synthetic_dataset("molhiv", seed=SEED, num_graphs=STREAM_GRAPHS)
+    edge_cap = edge_capacity(raw, NODE_CAP)
+    for name in MODELS:
+        spec = registry.get(name)
+        graphs = [laplacian_eigenvectors(g) for g in raw] if spec.needs_eigen else raw
+        sets = [synthetic_params(name, SEED), synthetic_params(name, SEED + 1)]
+        items = [(g, int(i >= len(graphs) // 2)) for i, g in enumerate(graphs)]
+        for prec, tol in ((FLOAT32, 1e-4), (BF16, 5e-2)):
+            t0 = time.perf_counter()
+            stream = InferenceStream(name, sets, prec, NODE_CAP, edge_cap, GRAPH_CAP,
+                                     device=device)
+            buckets = list(stream._bucketize(items))
+            for bucket, _ in buckets:
+                stream._make_batch(bucket)
+            for f in kernels.values():
+                f.launches = 0
+            seq = np.array(list(stream.run(items)))
+            counts = {k: f.launches for k, f in kernels.items() if f.launches}
+            captured = stream.captured()
+            whole = MODEL_KERNELS[name][0]
+            check(counts == {whole: 2 * len(captured)},
+                  f"stream {name} {prec.compute_dtype}: launches {counts}, {len(captured)} "
+                  f"graphs captured")
+            for k, c in counts.items():
+                launches[k] += c
+            served = collections.Counter(stream.last_buckets)
+            check(len(stream.last_buckets) == len(buckets) and max(served.values()) > 1,
+                  f"stream {name}: no captured graph served two buckets ({dict(served)})")
+            pipe = np.array(list(stream.run_pipelined(items, depth=2, chain=4, workers=3)))
+            check({k: f.launches for k, f in kernels.items() if f.launches} == counts,
+                  f"stream {name}: run_pipelined launched kernels")
+            check(seq.shape == pipe.shape == (len(graphs),) and np.isfinite(seq).all(),
+                  f"stream {name}: {seq.shape} / {pipe.shape} predictions")
+            np.testing.assert_allclose(pipe, seq, rtol=1e-5, atol=1e-5)
+            dispatches = stream.last_dispatches
+            e_eager, e_plain = stream_checks(stream, buckets, seq, sets, prec, tol, device)
+            batch, n = stream._make_batch(buckets[0][0])
+            other = registry.get(name).forward(
+                params_from_numpy(sets[1 - buckets[0][1]], prec, device),
+                base.to_device(batch, device), prec)[:n, 0].float().cpu().numpy()
+            flip = float(np.abs(other - seq[:n]).max())
+            check(flip > 1e-3 * max(1.0, float(np.abs(seq[:n]).max())),
+                  f"stream {name}: the two weight sets agree on bucket 0 ({flip:.3e})")
+            print(f"# stream {name} {prec.compute_dtype}: {len(graphs)} graphs, {len(buckets)} "
+                  f"buckets, {len(captured)} graphs captured (buckets served "
+                  f"{sorted(served.values())}), launches {counts}, pipelined in {dispatches} "
+                  f"dispatches; replay vs eager {e_eager:.3e}, vs f32 plain path {e_plain:.3e}; "
+                  f"the other weight set moves bucket 0 by {flip:.3e}; "
+                  f"{time.perf_counter() - t0:.1f} s")
+    # More weight sets than the chunk cache keeps, one bucket each.
+    sets = [synthetic_params("gin", SEED + k) for k in range(MANY_SETS)]
+    items = [(g, i // MANY_GRAPHS) for i, g in enumerate(raw[:MANY_SETS * MANY_GRAPHS])]
+    stream = InferenceStream("gin", sets, BF16, NODE_CAP, edge_cap, GRAPH_CAP, device=device)
+    first = np.array(list(stream.run(items)))
+    again = np.array(list(stream.run(items)))
+    buckets = list(stream._bucketize(items))
+    check(len(buckets) == MANY_SETS > local_layer.MLP_TILE_SETS
+          and np.array_equal(first, again), "stream gin: many weight sets' second run differs")
+    e_eager, _ = stream_checks(stream, buckets, again, sets, BF16, 5e-2, device)
+    print(f"# stream gin bf16 over {MANY_SETS} weight sets (the chunk cache keeps "
+          f"{local_layer.MLP_TILE_SETS}): {len(stream.captured())} graphs captured, the second "
+          f"run equal to the first, replay vs eager {e_eager:.3e}")
+    return launches
+
+
+def run_host_app(device) -> dict:
+    """Phase 8b: ``bench.host_app.main`` in-process for each model on
+    HOST_APP_GRAPHS graphs (weight sets flipped halfway) at one trial, its
+    record parsed and its figures finite and positive, every launch count
+    set to 0 before and read after: the model's whole-model kernel must
+    have launched (at its captures). Returns the counts."""
+    from flowgnn_tpu_torch.bench import host_app
+
+    kernels = {k: kernel_fn(k) for k in KERNELS}
+    launches = dict.fromkeys(KERNELS, 0)
+    positive = lambda x: isinstance(x, (int, float)) and math.isfinite(x) and x > 0
+    for name in MODELS:
+        for f in kernels.values():
+            f.launches = 0
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            rc = host_app.main(["--model", name, "--graphs", str(HOST_APP_GRAPHS), "--flip",
+                                str(HOST_APP_GRAPHS // 2), "--trials", "1"])
+        recs = [json.loads(ln) for ln in out.getvalue().splitlines() if ln.startswith("{")]
+        check(rc == 0 and len(recs) == 1, f"host_app {name}: {out.getvalue()}")
+        rec = recs[0]
+        check(rec["metric"] == f"{name}_host_app_sustained_us_per_graph"
+              and all(positive(rec[k]) for k in HOST_APP_FIGURES), f"host_app {name}: {rec}")
+        counts = {k: f.launches for k, f in kernels.items() if f.launches}
+        check(counts.get(MODEL_KERNELS[name][0], 0) > 0, f"host_app {name}: launches {counts}")
+        for k, c in counts.items():
+            launches[k] += c
+        print("# host_app " + json.dumps(rec))
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -2772,6 +2964,14 @@ def main() -> int:
     for k, n in run_entry(dev).items():
         launches[k] += n
     print(f"# phase 7: {time.perf_counter() - t0:.1f} s")
+
+    # 8. The streaming runtime (counted, checked) and the host application.
+    t0 = time.perf_counter()
+    for k, n in check_stream(dev).items():
+        launches[k] += n
+    for k, n in run_host_app(dev).items():
+        launches[k] += n
+    print(f"# phase 8: {time.perf_counter() - t0:.1f} s")
 
     print(smi)
     kernels = []

@@ -5,9 +5,10 @@ Copies of ``flowgnn_tpu.core.blocking``: the edge-block layout of
 ``build_edge_blocks``, ``apply_blocking`` and its numpy oracle
 ``segment_sum_blocked_reference``), the legacy dynamic-window local layout
 (``build_local_blocks``), the ELL layout (``build_local_blocks_ell``) and
-the slot layout (``build_local_slots``). ``build_local_blocks_ell`` is the
-JAX package's numpy loop, which is also the oracle of its native packer
-(``runtime/packer.cc``, not ported): the same lanes.
+the slot layout (``build_local_slots``). ``build_local_blocks_ell`` takes
+its lanes from the port's native packer (``runtime/packer.cc``); the JAX
+package's numpy loop (``_local_ell_lanes``) stays as its oracle in the
+tests: the same lanes.
 
 The edge-block layout: edges stably sorted by receiver, receivers cut into
 node windows of ``window`` rows, each window's edge list padded to whole
@@ -237,9 +238,36 @@ def build_local_blocks_ell(
     the 95th percentile of per-window local-edge counts (at most 4);
     ``spill_capacity=None`` sizes the tail to the spill count rounded up to
     1024, zero when nothing spills. Row ``num_nodes − 1`` is the pad node:
-    edges into it are dropped."""
+    edges into it are dropped.
+
+    The lanes come from the native packer (``runtime.native.
+    build_local_ell_native``, ``runtime/packer.cc``); a native packer that
+    cannot be built raises. The numpy loop ``_local_ell_lanes`` is its
+    oracle: the same lanes."""
+    from ..runtime import native
+
     senders = np.asarray(senders)
     receivers = np.asarray(receivers)
+    num_windows = -(-num_nodes // window)
+    u_local, v_local, edge_perm, valid, spill_idx, k_blocks = native.build_local_ell_native(
+        senders, receivers, num_nodes, window, block, k_blocks)
+    if spill_capacity is None:
+        spill_capacity = _auto_spill_capacity(spill_idx.size)
+    if spill_idx.size > spill_capacity:
+        raise ValueError(f"spill capacity {spill_capacity} < {spill_idx.size}")
+    spill = np.zeros(spill_capacity, np.int32)
+    spill[: spill_idx.size] = spill_idx
+    block_window = (np.arange(num_windows * k_blocks) // k_blocks).astype(np.int32)
+    return LocalBlocks(
+        u_local, v_local, block_window, edge_perm, valid, spill, window, block,
+        spill_count=int(spill_idx.size), k_blocks=k_blocks,
+    )
+
+
+def _local_ell_lanes(senders: np.ndarray, receivers: np.ndarray, num_nodes: int, window: int,
+                     block: int, k_blocks: int | None):
+    """``build_local_blocks_ell``'s lanes in numpy: (u_local, v_local,
+    edge_perm, valid, the spill's edge indices, k_blocks)."""
     real = receivers < num_nodes - 1
     local_mask = real & (senders // window == receivers // window)
 
@@ -275,19 +303,7 @@ def build_local_blocks_ell(
         if j - i > take:  # overflow → spill
             spill_parts.append(order[i + take : j].astype(np.int32))
         i = j
-
-    spill_idx = np.concatenate(spill_parts)
-    if spill_capacity is None:
-        spill_capacity = _auto_spill_capacity(spill_idx.size)
-    if spill_idx.size > spill_capacity:
-        raise ValueError(f"spill capacity {spill_capacity} < {spill_idx.size}")
-    spill = np.zeros(spill_capacity, np.int32)
-    spill[: spill_idx.size] = spill_idx
-    block_window = (np.arange(num_windows * k_blocks) // k_blocks).astype(np.int32)
-    return LocalBlocks(
-        u_local, v_local, block_window, edge_perm, valid, spill, window, block,
-        spill_count=int(spill_idx.size), k_blocks=k_blocks,
-    )
+    return u_local, v_local, edge_perm, valid, np.concatenate(spill_parts), k_blocks
 
 
 def build_local_slots(

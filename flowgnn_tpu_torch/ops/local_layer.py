@@ -139,6 +139,7 @@ here take int32 (u, v, three bond rows) per lane.
 from __future__ import annotations
 
 import collections
+import contextlib
 import ctypes
 import functools
 from typing import Optional
@@ -1708,6 +1709,21 @@ def gin_mlp_tiles(w1_all: torch.Tensor, w2_all: torch.Tensor, num_layers: int) -
 # being reused.
 _MLP_TILES: collections.OrderedDict = collections.OrderedDict()
 MLP_TILE_SETS = 8  # weight sets kept
+_HELD: list = []  # the lists ``hold_packs`` collects into, innermost last
+
+
+@contextlib.contextmanager
+def hold_packs(into: list):
+    """Inside the block, every tensor ``_pack_once`` hands out is appended
+    to ``into`` too. A CUDA graph captured in the block reads its weight
+    chunks at fixed addresses; whoever keeps the graph keeps ``into``, so
+    that the cache's eviction of an older weight set cannot free chunks the
+    graph still reads (``runtime.stream``)."""
+    _HELD.append(into)
+    try:
+        yield into
+    finally:
+        _HELD.remove(into)
 
 
 def _weight_key(t: torch.Tensor) -> tuple:
@@ -1722,16 +1738,20 @@ def _pack_once(kind: tuple, sources: tuple, pack) -> torch.Tensor:
     place is repacked) return the same tensor. Inference tensors, which keep
     no version, are packed on every call."""
     if any(t.is_inference() for t in sources):
-        return pack()
-    key = kind + tuple(_weight_key(t) for t in sources)
-    hit = _MLP_TILES.get(key)
-    if hit is not None:
-        _MLP_TILES.move_to_end(key)
-        return hit[0]
-    tiles = pack()
-    _MLP_TILES[key] = (tiles, *sources)
-    while len(_MLP_TILES) > MLP_TILE_SETS:
-        _MLP_TILES.popitem(last=False)
+        tiles = pack()
+    else:
+        key = kind + tuple(_weight_key(t) for t in sources)
+        hit = _MLP_TILES.get(key)
+        if hit is not None:
+            _MLP_TILES.move_to_end(key)
+            tiles = hit[0]
+        else:
+            tiles = pack()
+            _MLP_TILES[key] = (tiles, *sources)
+            while len(_MLP_TILES) > MLP_TILE_SETS:
+                _MLP_TILES.popitem(last=False)
+    for into in _HELD:
+        into.append(tiles)
     return tiles
 
 

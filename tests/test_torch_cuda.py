@@ -2671,3 +2671,113 @@ def test_gin_message_cuda_kernels_occupancy_and_rejects(cuda_device):
         with pytest.raises(err):
             fn(**dict(ops, **kw))
     assert fn.launches == before
+
+
+def _stream_params(name: str, seed: int) -> dict:
+    """Small seeded weights for the stream's card tests (D=32, H=64, L=2;
+    GAT 2 heads × 16)."""
+    from flowgnn_tpu_torch.params import loaders
+
+    kind = name.split("-")[0]
+    kw = dict(dim=D, layers=L)
+    if kind == "gin":
+        kw["hidden"] = H
+    if kind == "gat":
+        kw = dict(dim=GAT_D, heads=GAT_HEADS, layers=L)
+    return getattr(loaders, f"synthetic_{kind}_params")(seed, **kw)
+
+
+def _stream_eager(stream, items) -> np.ndarray:
+    """Each bucket's eager forward on the card, in submission order."""
+    out = []
+    for bucket, sid in stream._bucketize(items):
+        batch, n = stream._make_batch(bucket)
+        pred = stream.spec.forward(stream.params[sid], base.to_device(batch, stream.device),
+                                   stream.prec)
+        out.append(pred[:n, 0].float().cpu().numpy())
+    return np.concatenate(out)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["gin", "gin-vn", "gcn", "pna", "dgn", "gat"])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 5e-2)],
+                         ids=["f32", "bf16"])
+def test_stream_cuda_replays_match_eager(name, dtype, tol, cuda_device):
+    """``runtime.stream.InferenceStream`` on the card: 48 graphs in buckets
+    of 8, weight sets flipped halfway; one CUDA graph per (signature, weight
+    set), each replayed for buckets of other content, their predictions
+    against each bucket's eager forward; the whole-model kernel launched
+    only at the captures (an eager pass and the capture each), none by
+    ``run_pipelined``, which equals ``run``."""
+    from flowgnn_tpu_torch.core.numerics import Precision
+    from flowgnn_tpu_torch.runtime.stream import InferenceStream
+
+    prec = Precision(compute_dtype=dtype)
+    stream = InferenceStream(name, [_stream_params(name, 0), _stream_params(name, 1)], prec,
+                             node_capacity=511, edge_capacity=2048, graph_capacity=8,
+                             device=cuda_device)
+    items = [(g, i // 24) for i, g in enumerate(synthetic_molhiv(48, seed=4))]
+    for bucket, _ in stream._bucketize(items):
+        stream._make_batch(bucket)
+    kernel = {"gin": "gin_local_model_slots", "gin-vn": "gin_local_model_slots",
+              "gcn": "gcn_local_model_slots", "pna": "pna_local_model",
+              "dgn": "dgn_local_model", "gat": "gat_local_model_slots"}[name]
+    fn = getattr(local_layer, kernel)
+    before = fn.launches
+    got = np.array(list(stream.run(items)))
+    assert fn.launches - before == 2 * len(stream.captured())
+    assert len(stream.last_buckets) == 6 > len(set(stream.last_buckets))
+    before = fn.launches
+    pipe = np.array(list(stream.run_pipelined(items, depth=2, chain=3, workers=3)))
+    assert fn.launches == before
+    np.testing.assert_array_equal(pipe, got)
+    want = _stream_eager(stream, items)
+    scale = max(1.0, float(np.abs(want).max()))
+    np.testing.assert_allclose(got / scale, want / scale, rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+def test_stream_cuda_more_weight_sets_than_the_chunk_cache(cuda_device):
+    """GIN in bf16 over ``MLP_TILE_SETS`` + 2 weight sets, one bucket each,
+    run twice: the cache has evicted the first sets' weight chunks by the
+    second run, whose replays still read them (the stream holds them) and
+    equal the first run and each bucket's eager forward."""
+    from flowgnn_tpu_torch.core.numerics import BF16
+    from flowgnn_tpu_torch.runtime.stream import InferenceStream
+
+    n_sets = local_layer.MLP_TILE_SETS + 2
+    stream = InferenceStream("gin", [_stream_params("gin", s) for s in range(n_sets)], BF16,
+                             node_capacity=511, edge_capacity=2048, graph_capacity=8,
+                             device=cuda_device)
+    items = [(g, i // 8) for i, g in enumerate(synthetic_molhiv(8 * n_sets, seed=6))]
+    first = np.array(list(stream.run(items)))
+    assert len({s for _, s in stream.captured()}) == n_sets
+    torch.cuda.empty_cache()
+    again = np.array(list(stream.run(items)))
+    np.testing.assert_array_equal(again, first)
+    want = _stream_eager(stream, items)
+    scale = max(1.0, float(np.abs(want).max()))
+    np.testing.assert_allclose(again / scale, want / scale, rtol=5e-2, atol=5e-2)
+
+
+@pytest.mark.cuda
+def test_stream_cuda_capture_failure_raises(cuda_device):
+    """A forward that cannot be captured (here: it reads a value back to the
+    host) raises, naming the model and the signature; no eager fallback."""
+    import dataclasses
+
+    from flowgnn_tpu_torch.core.numerics import FLOAT32
+    from flowgnn_tpu_torch.runtime.stream import InferenceStream
+
+    stream = InferenceStream("gcn", [_stream_params("gcn", 0)], FLOAT32, node_capacity=511,
+                             edge_capacity=2048, graph_capacity=8, device=cuda_device)
+    forward = stream.spec.forward
+
+    def syncing(params, batch, prec):
+        if batch["n_node"].sum().item() < 0:
+            raise AssertionError
+        return forward(params, batch, prec)
+
+    stream.spec = dataclasses.replace(stream.spec, forward=syncing)
+    with pytest.raises(RuntimeError, match="gcn local_slots W=128.*cannot be captured"):
+        list(stream.run([(g, 0) for g in synthetic_molhiv(4, seed=1)]))

@@ -7,7 +7,8 @@ path; PNA's plain loop), an edge-block batch (the windowed scatter; GIN's
 fused layer), a legacy local batch whose 200-node graph crosses windows
 (GIN's and GIN-VN's row 10, the other models' plain loop) and GAT's fused
 ELL layer; the bench tools (``bench.matmul_shapes``, ``bench.ablate_gat_mega``)
-run their plain versions."""
+run their plain versions; the native packer packs a bucket and GIN's
+inference stream (``runtime.stream``) runs, sequential and pipelined."""
 
 import os
 import subprocess
@@ -92,6 +93,16 @@ with contextlib.redirect_stdout(io.StringIO()) as rec, contextlib.redirect_stder
     bench.main(["--device", "cpu", "--model", "gin", "--graphs", "8", "--node-cap", "1023",
                 "--trials", "1", "--reps", "1"])
 assert json.loads(rec.getvalue().splitlines()[-1])["metric"] == "gin_molhiv_synth_us_per_graph"
+from flowgnn_tpu_torch.runtime import native, stream
+stream_graphs = synthetic_dataset("molhiv", seed=0, num_graphs=24)
+packed, consumed = native.pack_bucket_native(stream_graphs, 1023, 4096, 32, window=128)
+assert consumed == 24 and packed.num_graphs == 24
+s = stream.InferenceStream("gin", [small["gin"](), small["gin"]()], FLOAT32, node_capacity=255,
+                           edge_capacity=1536, graph_capacity=8, device="cpu")
+items = [(g, i // 12) for i, g in enumerate(stream_graphs)]
+preds = np.array(list(s.run_pipelined(items, workers=2)))
+assert preds.shape == (24,) and np.isfinite(preds).all(), preds
+assert np.array_equal(preds, np.array(list(s.run(items))))
 print("ok", len(mods))
 """
 
