@@ -261,11 +261,30 @@ Phases, each of which raises (non-zero exit) on failure:
    GIN over more weight sets than the weight-chunk cache keeps, run twice
    (``check_stream``). 8b: ``bench.host_app``'s ``main`` in-process for each
    model (``run_host_app``), its record parsed and its figures finite and
-   positive, counted; the phase's seconds.
+   positive, counted; the phase's seconds;
+9. the experiment CLI (``python -m flowgnn_tpu_torch.cli``) in-process, every
+   launch count set to 0 before each command and read after (``run_cli``).
+   9a: ``run --model all`` over the 4113-graph molhiv stream (its ``synth``
+   dataset), bf16, three trials: each model's whole-model slot kernel (rows
+   1-5) launched once a bucket and pass and nothing else, each
+   ``<model>_output.txt`` 4113 lines in order and held to the f32 plain path
+   as in phase 4, ``results.json`` and each ``summary.<model>.csv`` parsed,
+   their figures finite and positive, each model's µs/graph printed. 9b: GIN
+   on the 2048-graph hep10k sample (slots at W=512: row 1 counted) and GCN
+   on 1028 graphs with ``--layout blocked`` (row 24 once a layer, bucket and
+   pass). 9c: GIN with ``--trace``: the Chrome trace names row 1's kernel
+   once a bucket among its device events. 9d: ``tune`` for GIN (ELL, W =
+   128, 256) and GAT (slots, W = 128, 384), each record ranked, finite and
+   positive. 9e: 1028 seeded molhiv graphs written as OGB raw CSVs (binary
+   labels; two tasks with blanks, gzipped), ``convert`` with and without
+   ``--eigen``, read back equal; ``accuracy`` for GIN and DGN (ROC-AUC) and
+   GIN's AP on the two-task set: each metric finite, the model's kernel
+   counted, its scores held to the f32 plain path; the phase's seconds.
 
 No phase runs at a cut depth, and phase 8b runs the host application on
 8192 graphs at one trial (its defaults are 16384 and three: cut to keep the
-phase near 90 s): the whole run takes about nine minutes on an H100. The line before the last is a JSON object with one record per
+phase near 90 s): the whole run takes about nine minutes on an H100, phase
+9 about 40 s of it. The line before the last is a JSON object with one record per
 kernel; the last line is ``{"ok": true, "device": {...}}``. Without a CUDA
 device, or outside the repository, it exits non-zero before printing
 either.
@@ -489,6 +508,17 @@ HOST_APP_GRAPHS = 8192
 HOST_APP_FIGURES = ("value", "sequential_us_per_graph", "pipeline_speedup", "buckets",
                     "dispatches", "dispatch_floor_ms", "pack_ms_per_bucket",
                     "replay_ms_per_bucket", "device_share", "captured_graphs")
+# Phase 9: the experiment CLI (flowgnn_tpu_torch.cli) in-process. 9a: run over
+# all six models on the 4113-graph molhiv stream (its synth dataset), CLI_TRIALS
+# trials; 9b: GIN on the hep10k sample at W=512 and GCN's edge-block layout;
+# 9c: a traced run; 9d: tune; 9e: convert and accuracy on CLI_OGB_GRAPHS
+# graphs written as OGB raw CSVs. CLI_SMALL: the graphs of 9b's blocked run,
+# 9c and 9d.
+CLI_TRIALS = 3
+CLI_SMALL = 1028
+CLI_OGB_GRAPHS = 1028
+CLI_TUNES = (("gin", "128,256"), ("gat", "128,384"))
+ROW1_SYMBOL = "gin_model_kernel"  # row 1's (and row 8's) CUDA kernel, csrc/gin_model.cuh
 
 
 # Phase 2: the libraries whose SASS must hold tensor-core (HGMMA) and
@@ -2772,6 +2802,245 @@ def run_host_app(device) -> dict:
     return launches
 
 
+def cli_main(argv: list) -> str:
+    """``flowgnn_tpu_torch.cli.main(argv)`` in-process; returns its stdout
+    (its stderr goes through)."""
+    from flowgnn_tpu_torch import cli
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        cli.main(argv)
+    return out.getvalue()
+
+
+def cli_counted(argv: list, kernels: dict) -> tuple:
+    """``cli_main`` with every launch count set to 0 just before and read
+    just after: (stdout, the counts that moved)."""
+    import torch
+
+    for f in kernels.values():
+        f.launches = 0
+    out = cli_main(argv)
+    torch.cuda.synchronize()
+    return out, {k: f.launches for k, f in kernels.items() if f.launches}
+
+
+def plain_predictions(name: str, graphs, device) -> dict:
+    """The plain edge-list path's per-graph predictions of ``graphs``
+    (transformed) on the card, f32 and bf16, in order: {dtype: [graphs]}."""
+    import torch
+
+    from flowgnn_tpu_torch.core.graphs import auto_edge_capacity, pack_dataset
+    from flowgnn_tpu_torch.core.numerics import BF16, FLOAT32
+    from flowgnn_tpu_torch.models import base, registry
+    from flowgnn_tpu_torch.params.loaders import params_from_numpy
+
+    spec = registry.get(name)
+    buckets = list(pack_dataset(graphs, NODE_CAP, auto_edge_capacity(graphs, NODE_CAP),
+                                GRAPH_CAP, with_eigen=spec.needs_eigen))
+    batches = [base.to_device(base.as_batch(b), device) for b in buckets]
+    out = {}
+    for prec in (FLOAT32, BF16):
+        params = params_from_numpy(synthetic_params(name, SEED), prec, device)
+        out[prec.compute_dtype] = torch.cat([
+            spec.forward(params, b, prec)[: p.num_graphs, 0].float()
+            for p, b in zip(buckets, batches)])
+    return out
+
+
+def held_to_plain(what: str, got, plain: dict) -> str:
+    """bf16 predictions against the f32 plain path as ``check_outputs`` holds
+    them (5e-2, or 1.5× what the bf16 plain path needs where larger);
+    returns what to print."""
+    import torch
+
+    want = plain[torch.float32]
+    got = torch.as_tensor(got, dtype=torch.float32, device=want.device)
+    check(got.shape == want.shape and bool(got.isfinite().all()),
+          f"{what}: {tuple(got.shape)} predictions, {tuple(want.shape)} graphs")
+    tol = max(5e-2, 1.5 * needed_tol(plain[torch.bfloat16], want))
+    err = agree(got, want, tol)
+    return f"max abs err vs f32 plain path {err:.3e} (tol {tol:.3e})"
+
+
+def read_outputs(path, count: int) -> list:
+    """A ``<model>_output.txt``: ``count`` lines ``g1..g<count>`` in order."""
+    lines = open(path).read().splitlines()
+    keys = [ln.split(": ")[0] for ln in lines]
+    check(keys == [f"g{i}" for i in range(1, count + 1)], f"{path}: {len(lines)} lines")
+    return [float(ln.split(": ")[1]) for ln in lines]
+
+
+def check_run_files(out_dir, records: list, trials: int) -> None:
+    """``results.json``'s records and each ``summary.<model>.csv`` parse,
+    their figures finite and positive."""
+    positive = lambda x: isinstance(x, (int, float)) and math.isfinite(x) and x > 0
+    for rec in records:
+        check(all(positive(rec[k]) for k in ("num_graphs", "avg_ms", "ms_per_graph",
+                                              "graphs_per_s")), f"cli run: {rec}")
+        lines = open(f"{out_dir}/summary.{rec['model']}.csv").read().splitlines()
+        row = lines[2].split(",")
+        check(lines[0] == "Kernel Execution" and row[0] == f"{rec['model']}_compute_graphs"
+              and int(row[1]) == trials and all(positive(float(x)) for x in row[2:]),
+              f"summary.{rec['model']}.csv: {lines}")
+
+
+def run_cli(device) -> dict:
+    """Phase 9: the experiment CLI (``python -m flowgnn_tpu_torch.cli``)
+    in-process on the card. Every launch count is set to 0 just before each
+    command and read just after. 9a: ``run --model all`` over the 4113-graph
+    molhiv stream, bf16, CLI_TRIALS trials: each model's whole-model slot
+    kernel (rows 1-5) launched once a bucket and pass (the warm pass and the
+    trials) and nothing else, each ``<model>_output.txt`` 4113 lines in order
+    and held to the f32 plain path (``held_to_plain``), results.json and
+    each summary CSV parsed. 9b: GIN on the 2048-graph hep10k sample (slots
+    at W=512: row 1 counted) and GCN on CLI_SMALL graphs in the edge-block
+    layout (row 24 once a layer, bucket and pass). 9c: GIN with ``--trace``:
+    the Chrome trace names row 1's kernel among its device events. 9d:
+    ``tune`` for GIN (ELL) and GAT (slots), each record ranked, finite and
+    positive. 9e: CLI_OGB_GRAPHS seeded molhiv graphs written as OGB raw
+    CSVs (binary labels; two tasks with blanks), ``convert`` (and
+    ``--eigen`` for DGN), read back equal, ``accuracy`` for GIN, DGN and
+    GIN's AP on the two-task set: each metric finite, each model's scores
+    held to the f32 plain path. Returns the launches."""
+    import collections
+    import os
+    import tempfile
+
+    import numpy as np
+
+    from flowgnn_tpu_torch import cli
+    from flowgnn_tpu_torch.core import io as gio
+    from flowgnn_tpu_torch.core import ogb
+    from flowgnn_tpu_torch.core.synthetic import synthetic_molhiv
+    from flowgnn_tpu_torch.models import registry
+
+    t0 = time.perf_counter()
+    kernels = {k: kernel_fn(k) for k in KERNELS}
+    launches = collections.Counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        # 9a: all six models on the molhiv stream.
+        t = time.perf_counter()
+        _, counts = cli_counted(["run", "--model", "all", "--dataset", "synth", "--num-graphs",
+                                 str(STREAM_GRAPHS), "--trials", str(CLI_TRIALS), "--out",
+                                 f"{tmp}/all"], kernels)
+        records = json.load(open(f"{tmp}/all/results.json"))
+        check([r["model"] for r in records] == list(cli.MODELS), f"cli run: {records}")
+        expect = collections.Counter()
+        for r in records:
+            check(r["layout"] == SLOTS and r["num_graphs"] == STREAM_GRAPHS, f"cli run: {r}")
+            expect[MODEL_KERNELS[r["model"]][0]] += r["buckets"] * (1 + CLI_TRIALS)
+        check(counts == dict(expect), f"cli run all: launches {counts}, expected {dict(expect)}")
+        launches.update(counts)
+        check_run_files(f"{tmp}/all", records, CLI_TRIALS)
+        raw = synthetic_molhiv(STREAM_GRAPHS, seed=0)
+        for r in records:
+            name = r["model"]
+            got = read_outputs(f"{tmp}/all/{name}_output.txt", STREAM_GRAPHS)
+            graphs = registry.apply_transforms(registry.get(name), raw)
+            held = held_to_plain(f"cli run {name}", got, plain_predictions(name, graphs, device))
+            print(f"# cli run {name} molhiv: {r['ms_per_graph'] * 1e3:.3f} us/graph "
+                  f"({r['graphs_per_s']:.0f} graphs/s, avg of {CLI_TRIALS} trials), "
+                  f"{r['buckets']} buckets, W={r['window']}, {held}")
+        print(f"# phase 9a: {time.perf_counter() - t:.1f} s, launches {counts}")
+
+        # 9b: hep10k slots at W=512; GCN's edge-block layout.
+        _, counts = cli_counted(["run", "--model", "gin", "--dataset", "hep10k", "--num-graphs",
+                                 str(HEP_GRAPHS), "--trials", "2", "--out", f"{tmp}/hep"],
+                                kernels)
+        (r,) = json.load(open(f"{tmp}/hep/results.json"))
+        got = read_outputs(f"{tmp}/hep/gin_output.txt", HEP_GRAPHS)
+        check((r["layout"], r["window"]) == (SLOTS, HEP_SLOT_WINDOW) and np.isfinite(got).all()
+              and counts == {"gin_local_model_slots": 3 * r["buckets"]},
+              f"cli run gin hep10k: {r}, launches {counts}")
+        launches.update(counts)
+        print(f"# cli run gin hep10k: {r['ms_per_graph'] * 1e3:.3f} us/graph, {r['buckets']} "
+              f"buckets, W={r['window']}, launches {counts}")
+        _, counts = cli_counted(["run", "--model", "gcn", "--layout", "blocked", "--num-graphs",
+                                 str(CLI_SMALL), "--trials", "1", "--out", f"{tmp}/blk"], kernels)
+        (r,) = json.load(open(f"{tmp}/blk/results.json"))
+        check(r["layout"] == BLOCKED
+              and counts == {SCATTER: 2 * r["buckets"] * num_layers("gcn")},
+              f"cli run gcn blocked: {r}, launches {counts}")
+        launches.update(counts)
+        print(f"# cli run gcn blocked: {r['ms_per_graph'] * 1e3:.3f} us/graph, launches {counts}")
+
+        # 9c: a traced run.
+        _, counts = cli_counted(["run", "--model", "gin", "--num-graphs", str(CLI_SMALL),
+                                 "--trials", "1", "--trace", f"{tmp}/trace", "--out",
+                                 f"{tmp}/traced"], kernels)
+        (r,) = json.load(open(f"{tmp}/traced/results.json"))
+        check(counts == {"gin_local_model_slots": 2 * r["buckets"]}, f"cli trace: {counts}")
+        launches.update(counts)
+        (trace,) = os.listdir(f"{tmp}/trace")
+        events = json.load(open(f"{tmp}/trace/{trace}"))["traceEvents"]
+        device_kernels = [e for e in events if e.get("cat") == "kernel"]
+        row1 = [e for e in device_kernels if ROW1_SYMBOL in e.get("name", "")]
+        check(len(row1) == r["buckets"], f"cli trace: {len(row1)} {ROW1_SYMBOL} events of "
+              f"{len(device_kernels)} device kernels, {r['buckets']} buckets")
+        print(f"# cli trace: {trace}, {len(events)} events, {len(device_kernels)} device kernels, "
+              f"{len(row1)} of row 1 ({sum(e.get('dur', 0) for e in row1):.1f} us)")
+
+        # 9d: tune.
+        for name, windows in CLI_TUNES:
+            out, counts = cli_counted(["tune", "--model", name, "--windows", windows,
+                                       "--num-graphs", str(CLI_SMALL), "--reps", "5",
+                                       "--trials", "1"], kernels)
+            rec = json.loads(out.splitlines()[-1])
+            us = [x["us_per_graph"] for x in rec["results"]]
+            check(rec["model"] == name and us and us == sorted(us)
+                  and all(math.isfinite(x) and x > 0 for x in us)
+                  and {x["window"] for x in rec["results"]} == {int(w) for w in windows.split(",")},
+                  f"cli tune {name}: {rec}")
+            launches.update(counts)
+            print(f"# cli tune {name}: " + json.dumps(rec))
+
+        # 9e: OGB raw CSVs -> convert -> accuracy.
+        rng = np.random.default_rng(SEED)
+        graphs = synthetic_molhiv(CLI_OGB_GRAPHS, seed=SEED + 9)
+        binary = rng.integers(0, 2, (CLI_OGB_GRAPHS, 1)).astype(np.float64)
+        two = rng.integers(0, 2, (CLI_OGB_GRAPHS, 2)).astype(np.float64)
+        two[rng.random(two.shape) < 0.2] = np.nan
+        ogb.write_ogb_raw(f"{tmp}/raw", graphs, binary)
+        ogb.write_ogb_raw(f"{tmp}/raw2", graphs, two, gz=True)
+        for eigen in (False, True):
+            ds = f"{tmp}/ds{'_eig' * eigen}"
+            cli_main(["convert", "--raw", f"{tmp}/raw", "--out", ds] + ["--eigen"] * eigen)
+            back = list(gio.read_dataset(ds, with_eigen=eigen))
+            check(len(back) == CLI_OGB_GRAPHS and all(
+                np.array_equal(a.node_feat, b.node_feat) and np.array_equal(a.edge_index,
+                                                                            b.edge_index)
+                and np.array_equal(a.edge_attr, b.edge_attr) for a, b in zip(back, graphs))
+                and np.array_equal(ogb.load_labels(ds), binary), f"cli convert {ds}")
+        scored = []
+        original = cli.accuracy_scores
+        cli.accuracy_scores = lambda *a, **k: scored.append(original(*a, **k)) or scored[-1]
+        try:
+            for name, ds, metric in (("gin", "ds", "auto"), ("dgn", "ds_eig", "auto"),
+                                     ("gin", "raw2", "ap")):
+                out, counts = cli_counted(["accuracy", "--model", name, "--dataset",
+                                           f"{tmp}/{ds}", "--metric", metric], kernels)
+                rec = json.loads(out.splitlines()[-1])
+                check(rec["metric"] == ("ap" if ds == "raw2" else "rocauc")
+                      and math.isfinite(rec["value"]) and rec["num_graphs"] == CLI_OGB_GRAPHS
+                      and counts.get(MODEL_KERNELS[name][0], 0) > 0
+                      and set(counts) == {MODEL_KERNELS[name][0]},
+                      f"cli accuracy {name} {ds}: {rec}, launches {counts}")
+                launches.update(counts)
+                spec = registry.get(name)
+                ref = (ogb.load_ogb_raw(f"{tmp}/{ds}")[0] if ds == "raw2" else
+                       list(gio.read_dataset(f"{tmp}/{ds}", with_eigen=spec.needs_eigen)))
+                held = held_to_plain(f"cli accuracy {name} {ds}", scored[-1][0],
+                                     plain_predictions(name, registry.apply_transforms(spec, ref),
+                                                       device))
+                print(f"# cli accuracy {name} {ds}: {rec['metric']} {rec['value']:.6f}, "
+                      f"launches {counts}, {held}")
+        finally:
+            cli.accuracy_scores = original
+    print(f"# phase 9: {time.perf_counter() - t0:.1f} s")
+    return dict(launches)
+
+
 def main() -> int:
     import torch
 
@@ -2972,6 +3241,10 @@ def main() -> int:
     for k, n in run_host_app(dev).items():
         launches[k] += n
     print(f"# phase 8: {time.perf_counter() - t0:.1f} s")
+
+    # 9. The experiment CLI (counted, checked).
+    for k, n in run_cli(dev).items():
+        launches[k] += n
 
     print(smi)
     kernels = []

@@ -129,28 +129,40 @@ def geometry(name: str, max_nodes: int, ell_window=None, ell_block=None) -> tupl
 
 def stream(name: str, args) -> dict:
     """The host half of ``name``'s stream (``bench.py:125-209``): the
-    transformed synthetic graphs, packed (window-aligned for the local
-    layouts) and laid out by the layout policy. Returns the buckets, the
-    numpy batches, the window, the block and the layout (``as_batch``'s
-    ``blocked``)."""
-    from ..core.graphs import auto_edge_capacity, pack_dataset
+    transformed synthetic graphs of ``args.dataset``, through
+    ``pack_stream`` at ``args``' window, block, layout and capacities."""
+    from ..core.graphs import auto_edge_capacity
     from ..core.synthetic import synthetic_dataset
     from ..models import registry
-    from ..models.base import as_batches_uniform
 
     spec = registry.get(name)
     num_graphs = args.graphs if args.graphs is not None else DEFAULT_GRAPHS[args.dataset]
     graphs = registry.apply_transforms(
         spec, synthetic_dataset(args.dataset, seed=0, num_graphs=num_graphs))
-    layout = args.layout or "local"
-    max_nodes = max(g.num_nodes for g in graphs)
-    window, block = geometry(name, max_nodes, args.ell_window, args.ell_block)
+    window, block = geometry(name, max(g.num_nodes for g in graphs), args.ell_window,
+                             args.ell_block)
+    return pack_stream(name, graphs, args.layout or "local", window, block, args.node_cap,
+                       args.edge_cap or auto_edge_capacity(graphs, args.node_cap), args.graph_cap)
+
+
+def pack_stream(name: str, graphs, layout: str, window: int, block: int, node_cap: int,
+                edge_cap: int, graph_cap: int) -> dict:
+    """``graphs`` (transformed) packed at the capacities (window-aligned for
+    the local layouts) and laid out by the layout policy (``bench.py:180-
+    209``, the JAX CLI's too): slots where the stream fits the window, and
+    for PNA, GAT and DGN always; ELL for a GIN, GIN-VN or GCN stream that
+    does not fit, or whose slot stream spills. Returns the buckets, the
+    numpy batches, the window, the block and the layout (``as_batch``'s
+    ``blocked``)."""
+    from ..core.graphs import pack_dataset
+    from ..models import registry
+    from ..models.base import as_batches_uniform
+
+    spec = registry.get(name)
     buckets = list(pack_dataset(
-        graphs, node_capacity=args.node_cap,
-        edge_capacity=args.edge_cap or auto_edge_capacity(graphs, args.node_cap),
-        graph_capacity=args.graph_cap, with_eigen=spec.needs_eigen,
-        align_window=window if layout in LOCAL_LAYOUTS else None))
-    slot_fits = max_nodes <= window
+        graphs, node_capacity=node_cap, edge_capacity=edge_cap, graph_capacity=graph_cap,
+        with_eigen=spec.needs_eigen, align_window=window if layout in LOCAL_LAYOUTS else None))
+    slot_fits = max(g.num_nodes for g in graphs) <= window
     blocked = {
         "plain": False, "blocked": True, "local-ell": "local_ell", "local-slots": "local_slots",
         "local": "local_slots" if (name in SLOT_MODELS or slot_fits) else "local_ell",

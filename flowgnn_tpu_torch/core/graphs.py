@@ -3,8 +3,9 @@
 A copy of the parts of ``flowgnn_tpu.core.graphs`` that the slot main path
 runs. The JAX package's module cannot be imported here: importing anything
 under ``flowgnn_tpu`` imports ``jax``. ``tests/test_torch_host.py`` holds the
-two copies' outputs equal. The materialized virtual node
-(``add_virtual_node``) is not copied: the port runs GIN-VN's analytic one.
+two copies' outputs equal. The models run GIN-VN's analytic virtual node
+(``add_virtual_node_analytic``); the materialized one (``add_virtual_node``)
+is there for datasets that want the star's edges written out.
 
 ``PackedGraphs`` is the jraph-style flat packing: all nodes of all graphs on
 one axis of capacity ``node_capacity`` plus one trailing pad node, all edges
@@ -39,6 +40,29 @@ class Graph:
     @property
     def num_edges(self) -> int:
         return int(self.edge_index.shape[0])
+
+
+def add_virtual_node(g: Graph) -> Graph:
+    """GIN-VN augmentation, materialized: one zero-feature node appended and
+    connected to all (GIN-VN/src/host_load.cc:129,137-141,149-153): for every
+    original node ``nd`` the two zero-attr edges ``(nd, N)`` and ``(N, nd)``,
+    appended after the original edges."""
+    n = g.num_nodes
+    node_feat = np.concatenate(
+        [g.node_feat, np.zeros((1, g.node_feat.shape[1]), dtype=g.node_feat.dtype)]
+    )
+    star = np.empty((2 * n, 2), dtype=g.edge_index.dtype)
+    star[0::2, 0] = np.arange(n)
+    star[0::2, 1] = n
+    star[1::2, 0] = n
+    star[1::2, 1] = np.arange(n)
+    edge_index = np.concatenate([g.edge_index, star])
+    edge_attr = None
+    if g.edge_attr is not None:
+        edge_attr = np.concatenate(
+            [g.edge_attr, np.zeros((2 * n, g.edge_attr.shape[1]), g.edge_attr.dtype)]
+        )
+    return Graph(node_feat, edge_index, edge_attr, g.node_eigen)
 
 
 def add_virtual_node_analytic(g: Graph) -> Graph:

@@ -26,6 +26,19 @@ def segment_sum(
     return out.index_add_(0, segment_ids.long(), data.to(acc)).to(data.dtype)
 
 
+def segment_mean(
+    data: torch.Tensor, segment_ids: torch.Tensor, num_segments: int
+) -> torch.Tensor:
+    """out[s] = the mean of data[i] over segment s (``segment_sum`` of the
+    rows over ``segment_sum`` of ones, the count at least 1: an empty
+    segment is 0)."""
+    total = segment_sum(data, segment_ids, num_segments)
+    count = segment_sum(
+        torch.ones(data.shape[:1], dtype=data.dtype, device=data.device), segment_ids,
+        num_segments)
+    return total / count.clamp_min(1).reshape((-1,) + (1,) * (data.dim() - 1))
+
+
 def _segment_reduce(data, segment_ids, num_segments, init, reduce):
     out = torch.full(
         (num_segments,) + tuple(data.shape[1:]), init, dtype=data.dtype,

@@ -2781,3 +2781,65 @@ def test_stream_cuda_capture_failure_raises(cuda_device):
     stream.spec = dataclasses.replace(stream.spec, forward=syncing)
     with pytest.raises(RuntimeError, match="gcn local_slots W=128.*cannot be captured"):
         list(stream.run([(g, 0) for g in synthetic_molhiv(4, seed=1)]))
+
+
+_WHOLE_MODEL = {"gin": "gin_local_model_slots", "gin-vn": "gin_local_model_slots",
+                "gcn": "gcn_local_model_slots", "pna": "pna_local_model",
+                "dgn": "dgn_local_model", "gat": "gat_local_model_slots"}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["gin", "gin-vn", "gcn", "gat", "pna", "dgn"])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 5e-2)],
+                         ids=["f32", "bf16"])
+def test_cli_run_case_cuda(name, dtype, tol, cuda_device, tmp_path):
+    """``cli.run_case`` on the card over a 257-graph molhiv stream (the
+    default layout policy: slots, W=128): the whole-model kernel launched
+    once a bucket and pass (the warm pass and two trials) and no other
+    kernel counted; each written prediction held to the plain edge-list path
+    in f32 on the card (bf16: 1.5x what the bf16 plain path needs where
+    larger, as ``chip_smoke.py`` gates it)."""
+    from flowgnn_tpu_torch import cli
+    from flowgnn_tpu_torch.core.graphs import pack_dataset
+    from flowgnn_tpu_torch.core.numerics import FLOAT32, Precision
+
+    prec = Precision(compute_dtype=dtype)
+    fn = getattr(local_layer, _WHOLE_MODEL[name])
+    before = fn.launches
+    r = cli.run_case(name, "synth", 2, str(tmp_path), prec, num_graphs=257, caps=(2047, 8192, 64),
+                     device=cuda_device)
+    assert r["layout"] == "local_slots" and fn.launches - before == 3 * r["buckets"] > 3
+    lines = (tmp_path / f"{name}_output.txt").read_text().splitlines()
+    got = np.array([float(ln.split(": ")[1]) for ln in lines])
+    assert [ln.split(":")[0] for ln in lines] == [f"g{i}" for i in range(1, 258)]
+    spec = registry.get(name)
+    graphs = registry.apply_transforms(spec, synthetic_molhiv(257, seed=0))
+    buckets = list(pack_dataset(graphs, 2047, 8192, 64, with_eigen=spec.needs_eigen))
+    outs = {}
+    for pr in (FLOAT32, prec):
+        p = cli._params(name, pr, cuda_device, "synthetic", None, 0)
+        outs[pr.compute_dtype] = np.concatenate([
+            spec.forward(p, base.to_device(base.as_batch(b), cuda_device), pr)[
+                : b.num_graphs, 0].float().cpu().numpy() for b in buckets])
+    want = outs[torch.float32]
+    scale = max(1.0, float(np.abs(want).max()))
+    need = float((np.abs(outs[dtype] - want) / (scale + np.abs(want))).max())
+    t = max(tol, 1.5 * need) if dtype == torch.bfloat16 else tol
+    np.testing.assert_allclose(got / scale, want / scale, rtol=t, atol=t)
+
+
+@pytest.mark.cuda
+def test_profiling_trace_cuda(cuda_device, tmp_path):
+    """``profiling.trace`` on the card writes a Chrome trace that holds the
+    region's CUDA kernel among its device events."""
+    import json
+    import os
+
+    from flowgnn_tpu_torch.bench import profiling
+
+    x = torch.ones(256, 256, device=cuda_device)
+    with profiling.trace(str(tmp_path), cuda_device):
+        (x @ x).sum().item()
+    (name,) = os.listdir(tmp_path)
+    events = json.load(open(tmp_path / name))["traceEvents"]
+    assert any(e.get("cat") == "kernel" for e in events), {e.get("cat") for e in events}

@@ -8,7 +8,9 @@ fused layer), a legacy local batch whose 200-node graph crosses windows
 (GIN's and GIN-VN's row 10, the other models' plain loop) and GAT's fused
 ELL layer; the bench tools (``bench.matmul_shapes``, ``bench.ablate_gat_mega``)
 run their plain versions; the native packer packs a bucket and GIN's
-inference stream (``runtime.stream``) runs, sequential and pipelined."""
+inference stream (``runtime.stream``) runs, sequential and pipelined; the
+experiment CLI's ``run`` (GIN, ``--device cpu``) and ``convert`` (an OGB
+raw/ directory, gzipped, with eigenvectors) run."""
 
 import os
 import subprocess
@@ -103,6 +105,21 @@ items = [(g, i // 12) for i, g in enumerate(stream_graphs)]
 preds = np.array(list(s.run_pipelined(items, workers=2)))
 assert preds.shape == (24,) and np.isfinite(preds).all(), preds
 assert np.array_equal(preds, np.array(list(s.run(items))))
+import tempfile
+from flowgnn_tpu_torch import cli
+from flowgnn_tpu_torch.core import io as gio, ogb
+with tempfile.TemporaryDirectory() as tmp, contextlib.redirect_stderr(io.StringIO()):
+    cli.main(["run", "--model", "gin", "--device", "cpu", "--num-graphs", "8", "--trials", "1",
+              "--out", tmp + "/run"])
+    assert len(open(tmp + "/run/gin_output.txt").read().splitlines()) == 8
+    raw = tmp + "/raw"
+    ogb.write_ogb_raw(raw, stream_graphs[:5], np.arange(5.0)[:, None] % 2, gz=True)
+    cli.main(["convert", "--raw", raw, "--out", tmp + "/ds", "--eigen"])
+    back = list(gio.read_dataset(tmp + "/ds", with_eigen=True))
+    assert len(back) == 5 and all(np.array_equal(a.edge_index, b.edge_index)
+                                  for a, b in zip(back, stream_graphs))
+    assert ogb.load_labels(tmp + "/ds").shape == (5, 1)
+assert not any(k == "flowgnn_tpu" or k.startswith("flowgnn_tpu.") for k in sys.modules)
 print("ok", len(mods))
 """
 
