@@ -279,12 +279,31 @@ Phases, each of which raises (non-zero exit) on failure:
    labels; two tasks with blanks, gzipped), ``convert`` with and without
    ``--eigen``, read back equal; ``accuracy`` for GIN and DGN (ROC-AUC) and
    GIN's AP on the two-task set: each metric finite, the model's kernel
-   counted, its scores held to the f32 plain path; the phase's seconds.
+   counted, its scores held to the f32 plain path; the phase's seconds;
+10. the fixed mode (the ap_fixed emulation, ``Precision(fixed=...)``, each
+   model at its registry grid: DGN ap_fixed<16,3>, the rest <16,6>; f32),
+   every launch count set to 0 before each pass and read after. 10a: all
+   six models over the 4113-graph molhiv stream in the edge-block layout:
+   row 24 launched once per layer and bucket and no other kernel, the
+   predictions finite, on the grid, in range, equal bits in a second pass,
+   within ``FIXED_ULPS`` grid ulps of the same pass with row 24's plain
+   version on the card (GIN and GIN-VN bit-equal), and their envelope max
+   |fixed − float| / max(1, |float|) against the f32 plain path printed
+   beside the JAX test's 0.15 (DGN 0.6), gated for ``FIXED_ENVELOPE``'s
+   models (``run_fixed``). 10b: the same stream in the slot layout, where
+   no kernel launches (the plain loop), each graph within ``FIXED_ULPS`` of
+   10a's. Each pass timed (µs/graph, CUDA events, eager) beside the f32
+   plain path and the f32 edge-block kernel path, with the card's name and
+   power limit. 10c: ``InferenceStream`` in the fixed mode for GIN and DGN
+   over 8192 molhiv graphs, two weight sets flipped halfway: one CUDA graph
+   captured per (signature, weight set), no launch, ``run`` and
+   ``run_pipelined`` and each bucket's eager forward within ``FIXED_ULPS``
+   (``check_fixed_stream``); the phase's seconds.
 
 No phase runs at a cut depth, and phase 8b runs the host application on
 8192 graphs at one trial (its defaults are 16384 and three: cut to keep the
 phase near 90 s): the whole run takes about nine minutes on an H100, phase
-9 about 40 s of it. The line before the last is a JSON object with one record per
+9 about 40 s of it, phase 10 about 15 s. The line before the last is a JSON object with one record per
 kernel; the last line is ``{"ok": true, "device": {...}}``. Without a CUDA
 device, or outside the repository, it exits non-zero before printing
 either.
@@ -519,6 +538,26 @@ CLI_SMALL = 1028
 CLI_OGB_GRAPHS = 1028
 CLI_TUNES = (("gin", "128,256"), ("gat", "128,384"))
 ROW1_SYMBOL = "gin_model_kernel"  # row 1's (and row 8's) CUDA kernel, csrc/gin_model.cuh
+# Phase 10: the fixed mode (the ap_fixed emulation, each model at its
+# registry grid, f32 compute). FIXED_ULPS: the largest difference, in grid
+# ulps, that 10a's predictions may show against the same pass with row 24's
+# plain version on the card (which sums with index_add_'s atomics in any
+# order, where row 24 sums each row in lane order), and that 10b's and 10c's
+# may show against 10a's and the stream's eager forward: GIN's and GIN-VN's
+# messages are grid values whose sums are exact in f32 in any order, so 0;
+# the other models' messages are products, whose f32 sums round by order,
+# and a floor that moves carries into later layers.
+FIXED_ULPS = {"gin": 0, "gin-vn": 0, "gcn": 4, "pna": 4, "dgn": 32, "gat": 4}
+# The JAX test's envelope, max |fixed − float| / max(1, |float|), fixed
+# against the f32 plain path (tests/test_fixed_point.py:50-53), gated where
+# the CPU tests show the seeded weights inside it (tests/test_torch_fixed.py):
+# GIN's and GIN-VN's leave it (their float predictions reach 9 and 3319 on
+# molhiv, GIN-VN's virtual-node sums saturate), and are printed only.
+FIXED_ENVELOPE = {"gcn": 0.15, "pna": 0.15, "dgn": 0.6, "gat": 0.15}
+# Phase 10c: the stream in the fixed mode over this many molhiv graphs, two
+# weight sets flipped halfway, for these models.
+FIXED_STREAM_GRAPHS = 8192
+FIXED_STREAM_MODELS = ("gin", "dgn")
 
 
 # Phase 2: the libraries whose SASS must hold tensor-core (HGMMA) and
@@ -688,12 +727,14 @@ def check(cond: bool, msg: str) -> None:
 @contextlib.contextmanager
 def plain_versions():
     """Every kernel wrapper the models (and ``row31_forward``, through
-    ``ops.local_layer``) call replaced by its plain version, which runs on
-    the card as plain torch (no launch is counted)."""
+    ``ops.local_layer``, and ``segment_sum_blocked``, through ``ops.spmm``)
+    call replaced by its plain version, which runs on the card as plain
+    torch (no launch is counted)."""
     from flowgnn_tpu_torch.models import base, dgn, gat, gcn, gin, pna
-    from flowgnn_tpu_torch.ops import local_layer
+    from flowgnn_tpu_torch.ops import local_layer, spmm
 
-    saved = [(mod, k, getattr(mod, k)) for mod in (base, dgn, gat, gcn, gin, pna, local_layer)
+    saved = [(mod, k, getattr(mod, k)) for mod in (base, dgn, gat, gcn, gin, pna, local_layer,
+                                                    spmm)
              for k in KERNELS if hasattr(mod, k)]
     for mod, k, _ in saved:
         setattr(mod, k, kernel_fn(k, plain=True))
@@ -763,7 +804,7 @@ def row12_forward(params: dict, batch: dict, prec, return_intermediates: bool = 
         h = gin_local_layer_ell(**gin.ell_layer_operands(params, batch, prec, l, h, meta, spill,
                                                          eps_all, lane_ee=True))
         inter.append(h)
-    h_graph = base.mean_pool(h, batch)
+    h_graph = base.mean_pool(h, batch, prec)
     out = base.linear(h_graph, params["pred_w"], params["pred_b"], prec)
     return out, {"layers": inter, "h_graph": h_graph}
 
@@ -790,7 +831,7 @@ def row31_forward(params: dict, batch: dict, prec, return_intermediates: bool = 
                          *(ops[k] for k in ("w1", "b1", "w2", "b2", "eps1", "final_relu")),
                          prec.compute_dtype)
         inter.append(h)
-    h_graph = base.mean_pool(h, batch)
+    h_graph = base.mean_pool(h, batch, prec)
     out = base.linear(h_graph, params["pred_w"], params["pred_b"], prec)
     return out, {"layers": inter, "h_graph": h_graph}
 
@@ -2813,16 +2854,23 @@ def cli_main(argv: list) -> str:
     return out.getvalue()
 
 
-def cli_counted(argv: list, kernels: dict) -> tuple:
-    """``cli_main`` with every launch count set to 0 just before and read
-    just after: (stdout, the counts that moved)."""
+def counted_pass(fn, kernels: dict) -> tuple:
+    """``fn()`` with every launch count set to 0 just before and read just
+    after: (its result, the counts)."""
     import torch
 
     for f in kernels.values():
         f.launches = 0
-    out = cli_main(argv)
+    out = fn()
     torch.cuda.synchronize()
-    return out, {k: f.launches for k, f in kernels.items() if f.launches}
+    return out, {k: f.launches for k, f in kernels.items()}
+
+
+def cli_counted(argv: list, kernels: dict) -> tuple:
+    """``cli_main`` counted (``counted_pass``): (stdout, the counts that
+    moved)."""
+    out, counts = counted_pass(lambda: cli_main(argv), kernels)
+    return out, {k: c for k, c in counts.items() if c}
 
 
 def plain_predictions(name: str, graphs, device) -> dict:
@@ -3041,6 +3089,163 @@ def run_cli(device) -> dict:
     return dict(launches)
 
 
+def grid_ulps(got, want, spec) -> float:
+    """The largest |got − want| in ulps of the ap_fixed grid ``spec``."""
+    import torch
+
+    got, want = torch.as_tensor(got).double(), torch.as_tensor(want).double()
+    return (got - want).abs().max().item() * spec.scale
+
+
+def check_on_grid(what: str, x, spec) -> None:
+    """``x`` finite, exactly on the grid of ``spec`` and within its range."""
+    import torch
+
+    x = torch.as_tensor(x).double()
+    s = x * spec.scale
+    check(bool(s.isfinite().all()) and torch.equal(s, s.round())
+          and spec.min_val <= x.min().item() and x.max().item() <= spec.max_val,
+          f"{what}: off the ap_fixed<{spec.width},{spec.int_bits}> grid or out of range")
+
+
+def run_fixed(streams: dict, device, smi: str) -> dict:
+    """Phases 10a and 10b: every model in the fixed mode (its registry grid,
+    f32) over the 4113-graph molhiv stream. 10a, the edge-block layout: row
+    24 launched once per layer and bucket and no other kernel; the
+    predictions on the grid, in range, equal bits in a second pass, within
+    FIXED_ULPS of the same pass with row 24's plain version
+    (``plain_versions``), and their envelope against the f32 plain path on the
+    same packing printed beside the JAX test's limit (gated on
+    FIXED_ENVELOPE's models). 10b, the slot layout: no kernel launched (the
+    plain loop), each graph's prediction within FIXED_ULPS of 10a's. Each
+    pass timed (CUDA events, eager) beside the f32 float plain path and the
+    f32 float kernel path of the edge-block layout. Returns row 24's
+    launches of the 10a passes."""
+    import torch
+
+    from flowgnn_tpu_torch.core.numerics import FLOAT32, Precision
+    from flowgnn_tpu_torch.models import registry
+    from flowgnn_tpu_torch.params.loaders import params_from_numpy
+
+    kernels = {k: kernel_fn(k) for k in KERNELS}
+    launches = dict.fromkeys(KERNELS, 0)
+    for name in MODELS:
+        spec = registry.get(name)
+        prec = Precision(fixed=spec.fixed_spec)
+        fx = prec.fixed
+        params_np = synthetic_params(name, SEED)
+        pf = params_from_numpy(params_np, prec, device)
+        p32 = params_from_numpy(params_np, FLOAT32, device)
+        buckets, batches, plain = streams[name, "molhiv", BLOCKED]
+        s_buckets, s_batches, _ = streams[name, "molhiv", SLOTS]
+
+        def preds(params, bs, bks, p=prec):
+            return torch.cat([spec.forward(params, b, p)[:k.num_graphs, 0]
+                              for b, k in zip(bs, bks)])
+
+        a, counts = counted_pass(lambda: preds(pf, batches, buckets), kernels)
+        expect = {SCATTER: num_layers(name) * len(batches)}
+        check(counts == {k: expect.get(k, 0) for k in KERNELS},
+              f"phase 10a {name}: launches {dict((k, c) for k, c in counts.items() if c)}, "
+              f"expected {expect}")
+        launches[SCATTER] += counts[SCATTER]
+        check(a.numel() == STREAM_GRAPHS and torch.equal(a, preds(pf, batches, buckets)),
+              f"phase 10a {name}: two passes differ")
+        check_on_grid(f"phase 10a {name}", a, fx)
+        with plain_versions():
+            ref, counts = counted_pass(lambda: preds(pf, batches, buckets), kernels)
+        check(not any(counts.values()), f"phase 10a {name}: the plain version launched")
+        e_plain = grid_ulps(a, ref, fx)
+        f32 = preds(p32, plain, buckets, FLOAT32)
+        env = ((a - f32).abs() / f32.abs().clamp_min(1)).max().item()
+        b, counts = counted_pass(lambda: preds(pf, s_batches, s_buckets), kernels)
+        check(not any(counts.values()),
+              f"phase 10b {name}: launches {dict((k, c) for k, c in counts.items() if c)}")
+        check_on_grid(f"phase 10b {name}", b, fx)
+        e_slots = grid_ulps(b, a, fx)
+        times = {
+            "fixed edge-block": cuda_ms(lambda: preds(pf, batches, buckets), reps=3, warmup=1),
+            "fixed slots": cuda_ms(lambda: preds(pf, s_batches, s_buckets), reps=3, warmup=1),
+            "f32 plain": cuda_ms(lambda: preds(p32, plain, buckets, FLOAT32), reps=3, warmup=1),
+            "f32 edge-block kernel path": cuda_ms(
+                lambda: preds(p32, batches, buckets, FLOAT32), reps=3, warmup=1),
+        }
+        limit = FIXED_ENVELOPE.get(name)
+        print(f"# phase 10 {name} ap_fixed<{fx.width},{fx.int_bits}> over {a.numel()} molhiv "
+              f"graphs: 10a edge-block: row 24 x{expect[SCATTER]} ({len(batches)} buckets), on "
+              f"the grid, two passes equal; vs row 24's plain version {e_plain:g} ulps (tol "
+              f"{FIXED_ULPS[name]}); envelope vs f32 plain path {env:.4f} (JAX test limit "
+              f"{0.6 if name == 'dgn' else 0.15}, {'gated' if limit else 'not gated'}); "
+              f"10b slots: no launch, vs 10a {e_slots:g} ulps; us/graph: "
+              + ", ".join(f"{k} {1e3 * t / a.numel():.4f}" for k, t in times.items())
+              + f" ({smi})")
+        check(e_plain <= FIXED_ULPS[name] and e_slots <= FIXED_ULPS[name],
+              f"phase 10 {name}: {e_plain:g} / {e_slots:g} grid ulps past {FIXED_ULPS[name]}")
+        check(limit is None or env < limit, f"phase 10a {name}: envelope {env:.4f} > {limit}")
+    return launches
+
+
+def check_fixed_stream(device) -> None:
+    """Phase 10c: ``runtime.stream.InferenceStream`` in the fixed mode for
+    FIXED_STREAM_MODELS (each at its grid) over FIXED_STREAM_GRAPHS molhiv
+    graphs, weight sets SEED and SEED + 1 flipped halfway: after a pin pass,
+    ``run`` with every launch count set to 0 just before and read just
+    after launches no kernel (the plain loop) and captures one CUDA graph
+    per (signature, weight set) of its buckets; ``run_pipelined`` captures
+    none more; the two agree within FIXED_ULPS, lie on the grid, and each
+    bucket's replayed predictions are within FIXED_ULPS of its eager fixed
+    forward."""
+    import numpy as np
+
+    from flowgnn_tpu_torch.bench.host_app import edge_capacity
+    from flowgnn_tpu_torch.core.graphs import laplacian_eigenvectors
+    from flowgnn_tpu_torch.core.numerics import Precision
+    from flowgnn_tpu_torch.core.synthetic import synthetic_dataset
+    from flowgnn_tpu_torch.models import base, registry
+    from flowgnn_tpu_torch.params.loaders import params_from_numpy
+    from flowgnn_tpu_torch.runtime.stream import InferenceStream
+
+    kernels = {k: kernel_fn(k) for k in KERNELS}
+    raw = synthetic_dataset("molhiv", seed=SEED, num_graphs=FIXED_STREAM_GRAPHS)
+    edge_cap = edge_capacity(raw, NODE_CAP)
+    for name in FIXED_STREAM_MODELS:
+        t0 = time.perf_counter()
+        spec = registry.get(name)
+        prec = Precision(fixed=spec.fixed_spec)
+        graphs = [laplacian_eigenvectors(g) for g in raw] if spec.needs_eigen else raw
+        sets = [synthetic_params(name, SEED), synthetic_params(name, SEED + 1)]
+        items = [(g, int(i >= len(graphs) // 2)) for i, g in enumerate(graphs)]
+        stream = InferenceStream(name, sets, prec, NODE_CAP, edge_cap, GRAPH_CAP, device=device)
+        buckets = list(stream._bucketize(items))
+        for bucket, _ in buckets:
+            stream._make_batch(bucket)
+        seq, counts = counted_pass(lambda: np.array(list(stream.run(items))), kernels)
+        check(not any(counts.values()),
+              f"phase 10c {name}: launches {dict((k, c) for k, c in counts.items() if c)}")
+        captured = len(stream.captured())
+        check(captured == len(set(stream.last_buckets)),
+              f"phase 10c {name}: {captured} graphs captured for "
+              f"{len(set(stream.last_buckets))} (signature, weight set) pairs")
+        pipe = np.array(list(stream.run_pipelined(items, depth=2, chain=4, workers=3)))
+        check(len(stream.captured()) == captured, f"phase 10c {name}: run_pipelined captured")
+        check(seq.shape == pipe.shape == (len(graphs),), f"phase 10c {name}: {seq.shape}")
+        check_on_grid(f"phase 10c {name}", seq, prec.fixed)
+        e_pipe = grid_ulps(pipe, seq, prec.fixed)
+        params = [params_from_numpy(p, prec, device) for p in sets]
+        off, e_eager = 0, 0.0
+        for bucket, sid in buckets:
+            batch, n = stream._make_batch(bucket)
+            eager = spec.forward(params[sid], base.to_device(batch, device), prec)[:n, 0].cpu()
+            e_eager = max(e_eager, grid_ulps(seq[off:off + n], eager, prec.fixed))
+            off += n
+        print(f"# phase 10c stream {name} ap_fixed<{prec.fixed.width},{prec.fixed.int_bits}>: "
+              f"{len(graphs)} graphs, {len(buckets)} buckets, {captured} graphs captured, no "
+              f"launch; run_pipelined vs run {e_pipe:g} ulps, replay vs eager {e_eager:g} ulps "
+              f"(tol {FIXED_ULPS[name]}); {time.perf_counter() - t0:.1f} s")
+        check(off == len(graphs) and max(e_pipe, e_eager) <= FIXED_ULPS[name],
+              f"phase 10c {name}: {e_pipe:g} / {e_eager:g} ulps past {FIXED_ULPS[name]}")
+
+
 def main() -> int:
     import torch
 
@@ -3245,6 +3450,14 @@ def main() -> int:
     # 9. The experiment CLI (counted, checked).
     for k, n in run_cli(dev).items():
         launches[k] += n
+
+    # 10. The fixed mode: every model on the edge-block (counted: row 24) and
+    # slot layouts, checked and timed; the stream's CUDA graphs of it.
+    t0 = time.perf_counter()
+    for k, n in run_fixed(streams, dev, smi).items():
+        launches[k] += n
+    check_fixed_stream(dev)
+    print(f"# phase 10: {time.perf_counter() - t0:.1f} s")
 
     print(smi)
     kernels = []

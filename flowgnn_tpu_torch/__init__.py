@@ -7,3 +7,5 @@ first use, never at import.
 """
 
 __version__ = "0.1.0"
+
+from .core.numerics import FIXED_16_3, FIXED_16_6, FLOAT32, Precision  # noqa: F401,E402

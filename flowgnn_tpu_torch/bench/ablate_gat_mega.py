@@ -525,7 +525,8 @@ def ablation_operands(params: dict, batch: dict, prec) -> dict:
     prev = _raw_features(params, batch, prec)
     n = prev.shape[0]
     h = _project(params["proj_w"][0], prev, prec)
-    s0 = torch.cat([_scores(h, params["a_src"][0]), _scores(h, params["a_tgt"][0])], 1).to(cdt)
+    s0 = torch.cat([_scores(h, params["a_src"][0], prec),
+                    _scores(h, params["a_tgt"][0], prec)], 1).to(cdt)
     ops = megakernel_operands(params, prec)
     acc = torch.float64 if cdt == torch.float64 else torch.float32
     pcaps = base.slot_prefix_caps(batch, n_slots)

@@ -656,7 +656,8 @@ def feature_offsets(kind: str, device: torch.device) -> torch.Tensor:
 
 def atom_embed(table: torch.Tensor, node_feat: torch.Tensor, prec: Precision) -> torch.Tensor:
     """h0[v] = Σ_f AtomTable[offset_f + feat_f[v]] (GIN/src/load_inputs.cc:174-220)."""
-    return _embed_sum(table, node_feat.long() + feature_offsets("atom", node_feat.device), prec)
+    rows = node_feat.long() + feature_offsets("atom", node_feat.device)
+    return prec.q(_embed_sum(table, rows, prec))
 
 
 def bond_rows(edge_attr: torch.Tensor) -> torch.Tensor:
@@ -666,7 +667,7 @@ def bond_rows(edge_attr: torch.Tensor) -> torch.Tensor:
 
 def bond_embed(table_l: torch.Tensor, edge_attr: torch.Tensor, prec: Precision) -> torch.Tensor:
     """ee[e] = Σ_f BondTable_l[offset_f + attr_f[e]] (GIN/src/message_passing.cc:136-146)."""
-    return _embed_sum(table_l, bond_rows(edge_attr), prec)
+    return prec.q(_embed_sum(table_l, bond_rows(edge_attr), prec))
 
 
 def ell_spill(batch: dict) -> Optional[tuple]:
@@ -794,12 +795,12 @@ def in_degree(batch: dict) -> torch.Tensor:
     return segment_sum(ones, batch["receivers"], num_nodes_static(batch))
 
 
-def mean_pool(h: torch.Tensor, batch: dict) -> torch.Tensor:
+def mean_pool(h: torch.Tensor, batch: dict, prec: Precision) -> torch.Tensor:
     """Per-graph mean over nodes (GIN/src/finalize.cc:38-115): the segment
     sum divided by the graph's node count. Pad graph rows are garbage."""
     total = segment_sum(h, batch["node_graph"], num_graphs_static(batch))
     count = batch["n_node"].clamp(min=1).to(h.dtype)
-    return total / count[:, None]
+    return prec.q(total / count[:, None])
 
 
 def pool_finish(
@@ -812,18 +813,21 @@ def pool_finish(
     out = (sums / count[:, None]).to(prec.compute_dtype)
     if b is not None:
         out = out + b
-    return out
+    return prec.q(out)
 
 
 def linear(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor], prec: Precision) -> torch.Tensor:
     """Row-major matvec y = x @ w.T + b (GIN/src/linear.cc:5-161): the
     product in the accumulation dtype, rounded to the compute dtype, then
-    the bias added in the compute dtype."""
+    the bias added in the compute dtype, then quantized (``prec.q``). Both
+    operands are cast to the accumulation dtype first, as the JAX package's
+    ``jnp.dot`` promotes the f32 activations of the fixed mode against f64
+    or bf16 weights."""
     acc = acc_dtype(prec)
     y = (x.to(acc) @ w.to(acc).T).to(prec.compute_dtype)
     if b is not None:
         y = y + b
-    return y
+    return prec.q(y)
 
 
 def relu(x: torch.Tensor) -> torch.Tensor:

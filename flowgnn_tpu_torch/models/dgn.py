@@ -58,20 +58,22 @@ def _node_terms(batch: dict, prec: Precision):
     """(eig, eig_w, eigw_sum, eig_abssum, deg) in the compute dtype: eig
     [n], eig_w = eig_u − eig_v per edge, the per-node sums of eig_w and
     |eig_w| over in-edges (host-precomputed in f32 on slot batches, as the
-    JAX package does), the abssum's zero replaced by EIG_EPS, and the
-    out-degree clamped to 1 as [n, 1]."""
+    JAX package does, except in the fixed mode, which sums the quantized
+    eig_w), the abssum's zero replaced by EIG_EPS, and the out-degree
+    clamped to 1 as [n, 1]. eig_w, eigw_sum and eig_abssum are quantized
+    (``prec.q``)."""
     dt = prec.compute_dtype
     u, v = batch["senders"].long(), batch["receivers"].long()
     n = _base.num_nodes_static(batch)
     eig = batch["node_eigen"][:, 1].to(dt)
-    eig_w = eig[u] - eig[v]
-    if "eigw_sum" in batch:
+    eig_w = prec.q(eig[u] - eig[v])
+    if "eigw_sum" in batch and prec.fixed is None:
         eigw_sum = batch["eigw_sum"].to(dt)
         eig_abssum = batch["eig_abssum"].to(dt)
     else:
         eig_abssum = segment_sum(eig_w.abs(), v, n)
-        eigw_sum = segment_sum(eig_w, v, n)
-    eig_abssum = torch.where(eig_abssum == 0, EIG_EPS, eig_abssum)
+        eigw_sum = prec.q(segment_sum(eig_w, v, n))
+    eig_abssum = prec.q(torch.where(eig_abssum == 0, EIG_EPS, eig_abssum))
     # The device divides by the raw out-degree with no zero guard
     # (DGN/src/node_embedding.cc:145), a reference quirk kept here; the
     # clamp covers isolated nodes, whose message is 0.
@@ -218,8 +220,11 @@ def forward(
 ):
     """[G+1, 1] predictions (the last row is the pad graph's). ``params``
     as made by ``params.loaders.params_from_numpy``; ``batch`` as made by
-    ``models.base.to_device`` from a packing with ``with_eigen=True``."""
-    slots = "slot_src" in batch
+    ``models.base.to_device`` from a packing with ``with_eigen=True``. In
+    the fixed mode (``prec.fixed``) every batch runs the plain loop, with
+    ``prec.q`` at the JAX package's stage boundaries."""
+    kernels = prec.fixed is None
+    slots = "slot_src" in batch and kernels
     if (
         slots and not batch["slot_spill"].shape[-1] and not return_intermediates
         and "pool_gl" in batch
@@ -232,7 +237,7 @@ def forward(
     eig, eig_w, eigw_sum, eig_abssum, deg = terms
     h = _atom_embed_dgn(params["atom_tables"], batch["node_feat"], prec)
     lanes = _base.spill_lanes(batch) if slots and batch["slot_spill"].shape[-1] else None
-    ell = "loc_ell" in batch
+    ell = "loc_ell" in batch and kernels
     if ell:
         meta, spill = _base.ell_meta(batch), _base.ell_spill(batch)
     # Rows 22 and 18 (an ELL batch with no spill tail) take the bf16 chunks.
@@ -257,14 +262,15 @@ def forward(
             x = gather_sources(h, batch)
             mm = edge_segment_sum(torch.cat([x, eig_w[:, None] * x], dim=1), batch)
             m1, m2 = mm[:, :d], mm[:, d:]
-        a1 = m1 / deg
-        a2 = (m2 - eigw_sum[:, None] * h).abs() / eig_abssum[:, None]
+        m1, m2 = prec.q(m1), prec.q(m2)
+        a1 = prec.q(m1 / deg)
+        a2 = prec.q((m2 - eigw_sum[:, None] * h).abs() / eig_abssum[:, None])
         # One linear over both channels: the [dim_out, 2·dim_in] posttrans.
         w = params["posttrans_w"][l].reshape(d, 2 * d)
         acc = linear(torch.cat([a1, a2], dim=1), w, params["posttrans_b"][l], prec)
-        h = h + relu(acc)
+        h = prec.q(h + relu(acc))
         inter.append(h)
-    h_graph = mean_pool(h, batch)
+    h_graph = mean_pool(h, batch, prec)
     out = _readout_tail(linear(h_graph, params["mlp1_w"], params["mlp1_b"], prec), params, prec)
     if return_intermediates:
         return out, {"layers": inter, "h_graph": h_graph}

@@ -80,7 +80,7 @@ def _vn_message(h: torch.Tensor, table_l: torch.Tensor, batch: dict,
     zero_attr = torch.zeros((1, 3), dtype=torch.int32, device=h.device)
     ee0 = bond_embed(table_l, zero_attr, prec)  # [1, D]
     vn = batch["vn_mask"].to(h.dtype)[:, None]
-    r = relu(h + ee0).to(h.dtype)
+    r = prec.q(relu(h + ee0)).to(h.dtype)
     rcat = torch.cat([r * (1 - vn), r * vn], dim=1)
     sums = segment_sum(rcat, batch["node_graph"], _base.num_graphs_static(batch))
     back = sums[batch["node_graph"].long()]
@@ -269,14 +269,18 @@ def forward(
     as made by ``params.loaders.params_from_numpy``; ``batch`` as made by
     ``models.base.to_device``. ``fused`` runs each layer's message sum and
     MLP in one kernel on an edge-block batch without a virtual node (the JAX
-    package's predicate; any other batch ignores it)."""
-    ell = "loc_ell" in batch
-    local = "loc_ulocal" in batch and not ell
-    fused = fused and "blk_vlocal" in batch and "vn_mask" not in batch
+    package's predicate; any other batch ignores it). In the fixed mode
+    (``prec.fixed``) every batch runs the plain loop, with ``prec.q`` at the
+    JAX package's stage boundaries."""
+    kernels = prec.fixed is None
+    ell = "loc_ell" in batch and kernels
+    local = "loc_ulocal" in batch and "loc_ell" not in batch and kernels
+    fused = fused and "blk_vlocal" in batch and "vn_mask" not in batch and kernels
     if ell and _base.ell_megakernel(batch, return_intermediates):
         pool = gin_local_model(**ell_kernel_operands(params, batch, prec, fpga_eps))
         return _base.pool_finish(pool, batch, params["pred_b"], prec)
-    if "slot_meta" in batch and "pool_gl" in batch and not return_intermediates:
+    if ("slot_meta" in batch and "pool_gl" in batch and not return_intermediates
+            and kernels):
         pool = gin_local_model_slots(**slot_kernel_operands(params, batch, prec, fpga_eps))
         return _base.pool_finish(pool, batch, params["pred_b"], prec)
 
@@ -308,12 +312,15 @@ def forward(
         agg = edge_segment_sum(msg, batch)
         if vn:
             agg = agg + _vn_message(h, params["edge_embedding"][l], batch, prec)
-        act = agg + (1 + eps[l]) * h
+        # eps[l : l + 1], not the 0-d eps[l]: a 0-d tensor does not promote
+        # f32 to f64 in torch, where JAX's (1 + eps[l]) does (the fixed mode's
+        # f32 activations against f64 weights).
+        act = prec.q(prec.q(agg) + (1 + eps[l : l + 1]) * h)
         z = relu(linear(act, params["mlp1_w"][l], params["mlp1_b"][l], prec))
         z = linear(z, params["mlp2_w"][l], params["mlp2_b"][l], prec)
         h = relu(z) if l != L - 1 else z
         inter.append(h)
-    h_graph = mean_pool(h, batch)
+    h_graph = mean_pool(h, batch, prec)
     out = linear(h_graph, params["pred_w"], params["pred_b"], prec)
     if return_intermediates:
         return out, {"layers": inter, "h_graph": h_graph}

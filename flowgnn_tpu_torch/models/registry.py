@@ -12,6 +12,7 @@ import dataclasses
 from typing import Callable, Sequence
 
 from ..core import graphs as G
+from ..core.numerics import AP_FIXED_16_3, AP_FIXED_16_6, FixedSpec
 from ..params import loaders
 from . import dgn, gat, gcn, gin, pna
 
@@ -25,6 +26,9 @@ class ModelSpec:
     num_layers: int
     transforms: tuple[Callable, ...] = ()
     needs_eigen: bool = False
+    # The reference's ap_fixed grid for the fixed mode (GIN/src/dcl.h:58-59,
+    # DGN/src/dcl.h:54-55): Precision(fixed=spec.fixed_spec).
+    fixed_spec: FixedSpec = AP_FIXED_16_6
     reference_dir: str = ""  # subdirectory name in the reference tree
 
 
@@ -52,7 +56,7 @@ MODELS: dict[str, ModelSpec] = {
     ),
     "dgn": ModelSpec(
         "dgn", dgn.forward, loaders.load_dgn, dim=100, num_layers=4,
-        needs_eigen=True, reference_dir="DGN",
+        needs_eigen=True, fixed_spec=AP_FIXED_16_3, reference_dir="DGN",
     ),
 }
 

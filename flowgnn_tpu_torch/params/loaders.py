@@ -304,15 +304,20 @@ def synthetic_dgn_params(seed: int, dim: int = 100, layers: int = 4) -> dict:
 
 
 def params_from_numpy(params: dict, prec: Precision, device) -> dict:
-    """Numpy parameter dict → tensors of ``prec.compute_dtype`` on ``device``
-    (a 0-d array, PNA's ``avg_deg``, becomes a 0-d tensor).
+    """Numpy parameter dict → tensors on ``device``: every floating array of
+    ``prec.compute_dtype`` (a 0-d array, PNA's ``avg_deg``, becomes a 0-d
+    tensor), integer arrays as they are.
 
-    The counterpart of ``flowgnn_tpu.models.base.prepare_params`` in the
-    float modes: weights pass through float32 first, exactly as the JAX
-    package does, so both packages compute from identical values."""
-    return {
-        k: torch.as_tensor(
-            np.asarray(v, np.float32), dtype=prec.compute_dtype, device=device
-        )
-        for k, v in params.items()
-    }
+    The counterpart of ``flowgnn_tpu.models.base.prepare_params``: a
+    floating array passes through ``prec.q_np`` first, float32 in the float
+    modes and snapped to the ap_fixed grid in the fixed mode, as the hosts'
+    float → ap_fixed casts do (GIN/src/host_load.cc:60-98), so both
+    packages compute from identical values."""
+
+    def cvt(x):
+        x = np.asarray(x)
+        if np.issubdtype(x.dtype, np.floating):
+            return torch.as_tensor(prec.q_np(x), dtype=prec.compute_dtype, device=device)
+        return torch.as_tensor(x, device=device)
+
+    return {k: cvt(v) for k, v in params.items()}

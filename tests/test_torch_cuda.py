@@ -2071,6 +2071,58 @@ def test_row24_cuda_kernel_layouts_match_plain(layout, width, dtype, tol, cuda_d
         assert not got.reshape(4, -1)[3].any()  # window 3 has no block
 
 
+def _fixed_messages(name: str) -> tuple:
+    """Layer 0's fixed-mode messages on ``_edge_block_batch(name)``, the
+    model's seeded weights at full width snapped to its grid (CPU tensors):
+    GIN's relu(h_u + ee), on the 2^-10 grid; DGN's [h_u ‖ eig_w·h_u], whose
+    products lie on a finer grid. Returns (values, the batch, the spec)."""
+    from flowgnn_tpu_torch.core.numerics import Precision
+    from flowgnn_tpu_torch.models import dgn
+    from flowgnn_tpu_torch.params import loaders
+
+    spec = registry.get(name).fixed_spec
+    prec = Precision(fixed=spec)
+    batch = base.to_device(_edge_block_batch(name), "cpu")
+    u = batch["senders"].long()
+    if name == "gin":
+        p = loaders.params_from_numpy(loaders.synthetic_gin_params(0), prec, "cpu")
+        h = base.atom_embed(p["node_embedding"], batch["node_feat"], prec)
+        ee = base.bond_embed(p["edge_embedding"][0], batch["edge_attr"], prec)
+        return base.relu(h[u] + ee), batch, spec
+    p = loaders.params_from_numpy(loaders.synthetic_dgn_params(0), prec, "cpu")
+    h = dgn._atom_embed_dgn(p["atom_tables"], batch["node_feat"], prec)
+    eig_w = dgn._node_terms(batch, prec)[1]
+    return torch.cat([h[u], eig_w[:, None] * h[u]], dim=1), batch, spec
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["gin", "dgn"])
+def test_row24_fixed_mode_messages_match_plain(name, cuda_device):
+    """Row 24's f32 form on the fixed mode's messages (``segment_sum_blocked``,
+    every model's message sum on an edge-block batch) against its plain
+    version on the card. GIN's messages are grid values whose partial sums
+    stay below 2^14, exact in f32 in any order: bit-equal. DGN's products
+    are not: its sums agree to f32 rounding (1e-6 of the largest), and
+    quantized to ap_fixed<16,3> within one grid ulp."""
+    vals, batch, spec = _fixed_messages(name)
+    n = base.num_nodes_static(batch)
+    ops = [t.to(cuda_device) for t in (vals, batch["blk_vlocal"], batch["blk_window"])]
+    before = spmm.windowed_segment_sum.launches
+    got = spmm.segment_sum_blocked(*ops, n, base.PALLAS_WINDOW)
+    torch.cuda.synchronize()
+    assert spmm.windowed_segment_sum.launches == before + 1
+    expect = spmm.windowed_segment_sum_ref(ops[0], ops[1][:, None], ops[2], base.PALLAS_WINDOW,
+                                           -(-n // base.PALLAS_WINDOW))[:n]
+    assert got.dtype == torch.float32 and expect.abs().max() > 1
+    if name == "gin":
+        assert torch.equal(got, expect)
+        return
+    scale = expect.abs().max().item()
+    assert (got - expect).abs().max().item() <= 1e-6 * scale
+    ulps = (spec.quantize(got) - spec.quantize(expect)).abs().max().item() * spec.scale
+    assert ulps <= 1
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 def test_row24_cuda_kernel_takes_unaligned_values(dtype, cuda_device):

@@ -114,7 +114,9 @@ def test_dgn_unported_cases_raise(setup):
     per-layer ELL kernels were ported and now runs ``dgn_local_layer_ell``
     (row 18); the legacy dynamic-window and edge-block layouts, which raised
     before they were ported, run the plain loop (the latter through the
-    windowed scatter, row 24); the port has no fixed-point mode."""
+    windowed scatter, row 24); the fixed-point mode, which raised before it
+    was ported, runs the plain loop on the slot batch, with or without
+    ``pool_gl``, its predictions on ap_fixed<16,3>'s grid."""
     fwd, _, params, b = setup
     p = tl.params_from_numpy(params, tn.FLOAT32, "cpu")
     whole = fwd(p, b["slot"], tn.FLOAT32)
@@ -133,8 +135,11 @@ def test_dgn_unported_cases_raise(setup):
         assert key in batch
         np.testing.assert_allclose(fwd(p, batch, tn.FLOAT32)[:G].numpy(), whole[:G].numpy(),
                                    rtol=1e-5, atol=1e-5)
-    with pytest.raises(NotImplementedError, match="ap_fixed"):
-        tn.Precision(fixed=object())
+    pf = tl.params_from_numpy(params, tn.FIXED_16_3, "cpu")
+    fixed = fwd(pf, b["slot"], tn.FIXED_16_3)
+    assert torch.equal(fixed, fwd(pf, no_pool, tn.FIXED_16_3))
+    scaled = fixed[:G].double() * tn.AP_FIXED_16_3.scale
+    assert torch.equal(scaled, scaled.round()) and not torch.equal(fixed, whole)
     out, inter = fwd(p, b["plain"], tn.FLOAT32, return_intermediates=True)
     assert len(inter["layers"]) == 3 and out.shape == (CAPS["graph_capacity"] + 1, 1)
 

@@ -85,8 +85,9 @@ def test_unported_cases_raise():
     ``return_intermediates``) runs the plain loop on its own edge list, as
     the JAX package's dispatch does, and gives the kernel's predictions;
     the legacy local and edge-block layouts, which raised before they were
-    ported, run (rows 10 and 24) and give them too; the fixed-point mode
-    raises."""
+    ported, run (rows 10 and 24) and give them too; the fixed-point mode,
+    which raised before it was ported, runs the plain loop on the slot
+    batch, with or without ``pool_gl``, its predictions on the grid."""
     fwd, _, params, b = _setup("gin")
     p = params_from_numpy(params, tn.FLOAT32, "cpu")
     kernel = fwd(p, b["slot"], tn.FLOAT32)
@@ -103,5 +104,8 @@ def test_unported_cases_raise():
         for kw in ({}, dict(fused=True)):
             np.testing.assert_allclose(fwd(p, batch, tn.FLOAT32, **kw)[:G].numpy(),
                                        kernel[:G].numpy(), rtol=1e-5, atol=1e-5)
-    with pytest.raises(NotImplementedError, match="ap_fixed"):
-        tn.Precision(fixed=object())
+    pf = params_from_numpy(params, tn.FIXED_16_6, "cpu")
+    fixed = fwd(pf, b["slot"], tn.FIXED_16_6)
+    assert torch.equal(fixed, fwd(pf, no_pool, tn.FIXED_16_6))
+    scaled = fixed[:G].double() * tn.AP_FIXED_16_6.scale
+    assert torch.equal(scaled, scaled.round()) and not torch.equal(fixed, kernel)
