@@ -209,14 +209,17 @@ Phases, each of which raises (non-zero exit) on failure:
    each kernel's bf16 form (its product on wgmma) and its f32 form (FMA) in
    turns: bf16, f32, f32, bf16; launches, ms per stream, bound and share of
    the bound;
-5g. rows 9, 3, 4, 5, 20, 22, 23, 10, 12, 25, 18, 15, 17, 21, 14 and 24 by
-   stage on their cells (``SPLIT_CELLS``), bf16 and f32: each kernel alone
-   whole and with its product (row 23 both products, rows 10, 12, 25 the MLP;
-   rows 17, 21, 14 and 24 have none), its messages, stats, channels or sums,
+5g. rows 9, 2, 3, 4, 5, 8, 1, 13, 20, 22, 23, 10, 12, 25, 18, 15, 17, 21,
+   14 and 24 by stage on their cells (``SPLIT_CELLS``), bf16 and f32: each
+   kernel alone whole and with its product (row 23 both products, rows 1, 8,
+   13, 10, 12, 25 the MLP; rows 17, 21, 14 and 24 have none), its messages,
+   stats, channels or sums,
    or both knocked out (the wrappers' ``knockout``, which
    only this phase passes), each the device time of the stream's launches
    replayed from a CUDA graph (the wrappers' host work left out), and the
-   share of each;
+   share of each; rows 1 and 8 split the kernel that reads the knockouts,
+   each of its launches held once against its plain version on the cell's
+   first bucket;
 6. the bench tools (``flowgnn_tpu_torch.bench``). 6a: row 26
    (``chained_matmul``) on every ``matmul_shapes.SHAPES`` row at full size
    in its dtype, equal to layers·K on all-ones operands and to its plain
@@ -231,7 +234,14 @@ Phases, each of which raises (non-zero exit) on failure:
    ``matmul_shapes``'s table and the ablation table over every variant in
    bf16 at W=128 and at W=512 (by graph replay); then per shape the kernel,
    its plain version and cuBLAS (TF/s, share of the peak), and the
-   ablation record's kernel (loop and graph replay) and plain times;
+   ablation record's kernel (loop and graph replay) and plain times. 6c:
+   the stage-split tools (``SPLIT_TOOLS``: ``ablate_gin_slots`` over rows
+   1's knockouts, ``ablate_gat_pairs`` over the ablation library's row-5
+   form, ``ablate_model`` for GIN and GIN-VN, ``ablate_slots`` for GAT and
+   DGN, ``ablate_gat``), each tool's ``main`` in-process in bf16 at its
+   default bucket with ``--check`` (each knocked-out launch held to its
+   plain version once), its record parsed, its times finite and positive,
+   counted (``run_split_tools``); the phase's seconds;
 7. the bench entry and the messages-only forms of rows 13 and 12. 7a: row
    31 (``gin_local_message_ell``) and row 12's pass-through
    (``gin_local_message_ell_lanes``) against their plain versions on layer
@@ -302,9 +312,12 @@ Phases, each of which raises (non-zero exit) on failure:
 
 No phase runs at a cut depth, and phase 8b runs the host application on
 8192 graphs at one trial (its defaults are 16384 and three: cut to keep the
-phase near 90 s): the whole run takes about nine minutes on an H100, phase
-9 about 40 s of it, phase 10 about 15 s. The line before the last is a JSON object with one record per
-kernel; the last line is ``{"ok": true, "device": {...}}``. Without a CUDA
+phase near 90 s); phase 5g replays each timing ``SPLIT_REPS`` times (rows 1
+and 8: ``SPLIT_TRIALS`` timings of each, in turns, and their spread). The
+whole run takes about eleven minutes on an H100 with the builds (~50 s),
+phase 6c about 5 s of it, phase 9 about 60 s, phase 10 about 12 s. The line
+before the last is a JSON object with one record per kernel; the last line
+is ``{"ok": true, "device": {...}}``. Without a CUDA
 device, or outside the repository, it exits non-zero before printing
 either.
 """
@@ -623,7 +636,11 @@ TURN_CELLS = {
 # (MESSAGES_ONLY), with their messages, channels, stats or sums out.
 SPLIT_CELLS = {"gcn_local_model": [("gcn", "hep10k", ELL), ("gcn", "molhiv", ELL)],
                **{MODEL_KERNELS[name][0]: [(name, "molhiv", SLOTS), (name, "hep10k", HEP_SLOTS)]
-                  for name in ("pna", "dgn", "gat")},
+                  for name in ("gcn", "pna", "dgn", "gat")},
+               # Rows 1, 8 and 13 on their kernel-table cells.
+               "gin_local_model_slots": TURN_CELLS["gin_local_model_slots"],
+               "gin_local_model": TURN_CELLS["gin_local_model"][:2],
+               "gin_local_layer_ell": TURN_CELLS["gin_local_layer_ell"][:1],
                **{k: TURN_CELLS[k] for k in ("pna_local_layer", "dgn_local_layer_slots",
                                              "gat_local_layer_ell", "gin_local_layer", ROW12,
                                              "gin_layer_fused", "dgn_local_layer_ell",
@@ -635,6 +652,16 @@ SPLIT_CELLS = {"gcn_local_model": [("gcn", "hep10k", ELL), ("gcn", "molhiv", ELL
                "pna_local_stats_ell": [("pna", "hep10k", SLOTS)],
                SCATTER: [("pna", "hep10k", SLOTS), ("gcn", "hep10k", ELL_LAYER),
                          ("gin", "molhiv", BLOCKED)]}
+# Phase 5g's replays a timing: one replay's device time spreads < 1% on the
+# card (``replay_ms``), so 10 keep the splits and the run's length.
+SPLIT_REPS = 10
+# Rows 1 and 8's split: timings of each run, in turns, whose shares' spread
+# the line prints.
+SPLIT_TRIALS = 3
+# Rows 1 and 8 compile their knockouts out of the production kernel (knockout
+# 0): their split runs the kernel that reads them, whole with this bit
+# (``local_layer.GIN_KNOCKOUTS["ablation"]``).
+ABLATE_KERNEL = {"gin_local_model": 32, "gin_local_model_slots": 32}
 MESSAGES_ONLY = ("gat_local_message_ell", "gat_local_message_slots", "gcn_local_message_ell",
                  "dgn_local_message_ell", "pna_local_stats_ell", SCATTER)
 # Phases 5 to 5e: the per-layer kernels whose loop of wrapper calls can time
@@ -2268,11 +2295,12 @@ def time_turns(streams: dict, device) -> dict:
 
 
 def time_split(streams: dict, device) -> None:
-    """Phase 5g: rows 9, 3, 4, 5, 20, 22, 23, 10, 12, 25, 18, 15, 17, 21, 14,
-    16, 19 and 24 by stage on their ``SPLIT_CELLS``, bf16 and f32: the kernel
-    alone over the stream whole, with its product knocked out (``knockout``
-    bit 0: the next conv, the tower, the posttrans, the glue, row 23's two
-    products or the GIN MLP; rows 17, 21, 14, 16, 19 and 24 have none), with
+    """Phase 5g: rows 9, 2, 3, 4, 5, 8, 1, 13, 20, 22, 23, 10, 12, 25, 18, 15,
+    17, 21, 14, 16, 19 and 24 by stage on their ``SPLIT_CELLS``, bf16 and
+    f32: the kernel alone over the stream whole, with its product knocked out
+    (``knockout`` bit 0: the next conv, the tower, the posttrans, the glue,
+    row 23's two products or the GIN MLP; rows 17, 21, 14, 16, 19 and 24 have
+    none), with
     its messages,
     stats, channels or sums knocked out (bit 1) and with both, each as
     the device time of the stream's launches replayed from a CUDA graph
@@ -2281,11 +2309,15 @@ def time_split(streams: dict, device) -> None:
     work); the share of the whole each stage takes (whole − without it) and
     what is left with both out (set-up, barriers, epilogues, the pooled
     head). A kernel whose launches a graph does not capture is split by the
-    loop's times, and says so."""
+    loop's times, and says so. Rows 1 and 8 split the kernel that reads the
+    knockouts; each of its launches is held once against its plain version
+    on the cell's first bucket (f32 1e-4, bf16 5e-2)."""
     from flowgnn_tpu_torch.core.numerics import BF16, FLOAT32
     from flowgnn_tpu_torch.params.loaders import params_from_numpy
 
-    stage = {"gcn_local_model": "messages", "pna_local_model": "stats",
+    stage = {"gcn_local_model": "messages", "gcn_local_model_slots": "messages",
+             "gin_local_model": "messages", "gin_local_model_slots": "messages",
+             "gin_local_layer_ell": "messages", "pna_local_model": "stats",
              "dgn_local_model": "channels", "gat_local_model_slots": "messages",
              "pna_local_layer": "stats", "dgn_local_layer_slots": "channels",
              "gat_local_layer_ell": "messages", "gin_local_layer": "messages", ROW12: "messages",
@@ -2303,16 +2335,39 @@ def time_split(streams: dict, device) -> None:
                                                                     prec, device),
                                      streams[key][1], prec, key)
                 # Rows 17, 21, 14, 16, 19 and 24 have no product: bit 0 knocks
-                # nothing out.
+                # nothing out. Rows 1 and 8 compile their knockouts out of the
+                # production kernel: their whole is the kernel that reads them
+                # (``ABLATE_KERNEL``), the production kernel's time beside it.
                 bits = (0, 2) if kname in MESSAGES_ONLY else (0, 1, 2, 3)
-                loop = {k: cuda_ms(lambda: [kernel(**o, knockout=k) for o in calls]) for k in bits}
+                own = ABLATE_KERNEL.get(kname, 0)
+                runs = tuple(k | own for k in bits) + ((0,) if own else ())
+                run = lambda k: [kernel(**o, knockout=k) for o in calls]
+                for k in runs[:-1] if own else ():
+                    # Each launch of the kernel that reads the knockouts, once
+                    # against its plain version on the cell's first bucket.
+                    compare(kname, dict(calls[0], knockout=k), f"{' '.join(key)} knockout {k}",
+                            1e-4 if prec is FLOAT32 else 5e-2)
                 try:
-                    ms = {k: graph_ms(lambda: [kernel(**o, knockout=k) for o in calls])
-                          for k in bits}
-                    how = (f"device, graph replay; the loop {loop[0]:.4f}, without "
-                           f"{'both' if 3 in loop else 'them'} {loop[max(bits)]:.4f}")
+                    # Rows 1 and 8: SPLIT_TRIALS timings of each run in turns,
+                    # their mean and the spread of the shares across them.
+                    trials = [{k: graph_ms(lambda: run(k), SPLIT_REPS) for k in runs}
+                              for _ in range(SPLIT_TRIALS if own else 1)]
+                    ms = {k: sum(t[k] for t in trials) / len(trials) for k in runs}
+                    how = (f"device, graph replay; the loop {cuda_ms(lambda: run(own)):.4f}, "
+                           f"without {'both' if 3 in bits else 'them'} "
+                           f"{cuda_ms(lambda: run(max(bits) | own)):.4f}")
                 except RuntimeError as e:
-                    ms, how = loop, f"the loop: a graph does not capture it ({str(e)[:80]})"
+                    trials = []
+                    ms = {k: cuda_ms(lambda: run(k)) for k in runs}
+                    how = f"the loop: a graph does not capture it ({str(e)[:80]})"
+                if own:
+                    how += f"; the production kernel {ms[0]:.4f}"
+                    spans = {"product": [1 - t[1 | own] / t[own] for t in trials],
+                             stage[kname]: [1 - t[2 | own] / t[own] for t in trials],
+                             "the rest": [t[3 | own] / t[own] for t in trials]}
+                    how += f"; over {len(trials)} trials " + ", ".join(
+                        f"{n} {min(x):.1%} to {max(x):.1%}" for n, x in spans.items() if x)
+                ms = {k: ms[k | own] for k in bits}
                 whole = ms[0]
                 if len(bits) == 2:
                     print(f"# split {kname} {' '.join(key)} {prec.compute_dtype} ({len(calls)} "
@@ -2507,6 +2562,63 @@ def run_bench_tools(device) -> dict:
         c for k, c in counts.items() if k not in expect), f"phase 6 launches {counts}")
     print(f"# phase 6 launches: {dict((k, counts[k]) for k in sorted(expect))}")
     return counts
+
+
+# Phase 6c: the stage-split tools' runs, in-process, bf16 at their default
+# buckets with TOOL_REPS and TOOL_TRIALS and --check: (module, its options,
+# the kernels its run must launch).
+SPLIT_TOOLS = (
+    ("ablate_gin_slots", [], ("gin_local_model_slots",)),
+    ("ablate_gat_pairs", [], ("gat_mega_ablate", "chained_matmul")),
+    ("ablate_model", ["--model", "gin"], ("gin_local_model",)),
+    ("ablate_model", ["--model", "gin-vn"], ("gin_local_model",)),
+    ("ablate_slots", ["--model", "gat"], ("gat_local_model_slots", "gat_local_message_slots")),
+    ("ablate_slots", ["--model", "dgn"], ("dgn_local_model", "dgn_local_layer_slots")),
+    ("ablate_gat", [], ("gat_local_message_ell",)),
+)
+
+
+def run_split_tools(device) -> dict:
+    """Phase 6c: each stage-split tool's ``main`` (``SPLIT_TOOLS``) as a user
+    runs it, with ``--check`` (each knocked-out launch, or the kernel stage's
+    launch, held to its plain version once), its JSON record parsed from
+    its output and equal to the one it returns, its times finite and
+    positive (an attribution, full − variant, finite); every launch count
+    set to 0 before each run and read after: the run must have launched its
+    kernels. Returns the counts summed over the runs."""
+    import importlib
+
+    import torch
+
+    positive = lambda x: isinstance(x, (int, float)) and math.isfinite(x) and x > 0
+    kernels = {k: kernel_fn(k) for k in KERNELS}
+    total = dict.fromkeys(KERNELS, 0)
+    t0 = time.perf_counter()
+    for module, opts, expect in SPLIT_TOOLS:
+        tool = importlib.import_module(f"flowgnn_tpu_torch.bench.{module}")
+        for f in kernels.values():
+            f.launches = 0
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            rec = tool.main(opts + ["--reps", str(TOOL_REPS), "--trials", str(TOOL_TRIALS),
+                                    "--check"])
+        torch.cuda.synchronize()
+        lines = out.getvalue().splitlines()
+        printed = json.loads(lines[-1])
+        times = rec.get("variants_us") or rec.get("stages_ms") or {}
+        attrib = [v for k, v in rec.items() if k.startswith("attrib_")]
+        check(printed == rec and times and all(positive(x) for x in times.values())
+              and all(math.isfinite(x) for x in attrib)
+              and positive(rec.get("production_us", 1.0)), f"{module} {opts}: {rec}")
+        counts = {k: f.launches for k, f in kernels.items()}
+        check(all(counts[k] > 0 for k in expect), f"{module} {opts}: launches {counts}")
+        for ln in lines:
+            print(f"# 6c {module} {' '.join(opts)}: {ln}")
+        for k, n in counts.items():
+            total[k] += n
+    print(f"# phase 6c: {len(SPLIT_TOOLS)} tool runs in {time.perf_counter() - t0:.1f} s, "
+          f"launches {dict((k, c) for k, c in total.items() if c)}")
+    return total
 
 
 def time_bench_kernels(device, batch: dict) -> dict:
@@ -3423,6 +3535,8 @@ def main() -> int:
         launches[k] += n
     for kname, rec in time_bench_kernels(dev, batch).items():
         record[(kname, None, BF16)] = rec
+    for k, n in run_split_tools(dev).items():
+        launches[k] += n
 
     # 7. The messages-only forms of rows 13 and 12; row 31's layer loop over
     # GIN's hep10k W=128 ELL stream (counted, checked, timed as in phases 4

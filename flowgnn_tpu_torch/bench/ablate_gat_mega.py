@@ -27,6 +27,13 @@ running the kernel with that stage knocked out and timing each variant:
   v4[:x]    — v3 with the gather one-hot as an operand; x: nogather
   v5[:x]    — v3 with each head's score expanded to H·D columns; x: split
               (v5 ``full``'s function), nogather
+  r5[:x]    — row 5's own form (prefix caps, scores mapped from h each
+              layer, the glue [proj ‖ skip]) with row 5's TPU stage stubs
+              (``gat_local_model_pairs(_ablate=...)``); x one of, or a
+              comma set of, nogather (as v1's), noscore (every valid lane's
+              score 1, no score map), noglue (h = feat, skip kept) and noacc
+              (row r takes the window's lane r alone, its denominator
+              score + 1); ``bench.ablate_gat_pairs`` drives it
 
 Every form runs row 5's kernel body (``csrc/gat_model.cuh``, the kernel
 of ``ops.local_layer.gat_local_model_slots``) with that form's operands and
@@ -76,20 +83,29 @@ FORMS = {
     "v4": (("full", "nogather"), ()),
     "v5": (("full", "split", "nogather"), ("split",)),
 }
+# Row 5's own form (code 0): its TPU stage stubs, any comma set of them
+# (``bench.ablate_gat_pairs``); not one of the JAX tool's forms.
+ROW5_VARIANTS = ("full", "nogather", "noscore", "noglue", "noacc")
 FLAGS = {"noexp": 1, "nogather": 2, "noexpand": 4, "noglue": 8, "nopool": 16,
-         "nodivide": 32, "nocast": 64, "staticcat": 128, "addcat": 256, "noelu": 512}
-FORM_CODES = {"v1": 1, "v3": 3, "v4": 4, "v5": 5}
+         "nodivide": 32, "nocast": 64, "staticcat": 128, "addcat": 256, "noelu": 512,
+         "noscore": 1024, "noacc": 2048}
+FORM_CODES = {"r5": 0, "v1": 1, "v3": 3, "v4": 4, "v5": 5}
 # Each form's bf16 glue width N (``csrc/gat_model.cuh``: the forms' kGlueN),
 # which the host packs the weights for; the launch checks it against the
 # library's ``gma_glue_dims``.
-GLUE_N = {"v1": 2 * GAT_PITCH, "v3": 136, "v4": 136, "v5": 256}
+GLUE_N = {"r5": 2 * GAT_PITCH, "v1": 2 * GAT_PITCH, "v3": 136, "v4": 136, "v5": 256}
 
 
 def _flags(form: str, variant: str) -> int:
-    names, same = FORMS[form]
-    if variant not in names:
-        raise ValueError(f"{form} has no variant {variant!r} (it has {', '.join(names)})")
-    return 0 if variant == "full" or variant in same else FLAGS[variant]
+    """The knockout flags of ``variant`` (r5: a comma set of its stubs)."""
+    names, same = (ROW5_VARIANTS, ()) if form == "r5" else FORMS[form]
+    parts = variant.split(",") if form == "r5" else [variant]
+    flags = 0
+    for part in parts:
+        if part not in names or (part == "full" and len(parts) > 1):
+            raise ValueError(f"{form} has no variant {variant!r} (it has {', '.join(names)})")
+        flags |= 0 if part == "full" or part in same else FLAGS[part]
+    return flags
 
 
 def _geometry(form: str, window: int, slots: int, prefix_caps):
@@ -109,9 +125,15 @@ def gat_mega_ablate_ref(form: str, variant: str, stack, h0, x0, s0, w, pool_gl, 
     [NW·Σc, W]; ``h0`` [n, HD]; ``x0`` v1's ``prev0``, else ``skip0`` [n,
     HD]; ``s0`` [n, 2H] [s_src ‖ s_tgt] (v5: ``s0x`` [n, 2HD]); ``w`` v1's
     ``skip_w`` [L·HD, HD], v3 / v4's ``glue_w``, v5's ``glue_wx``; v1 also
-    ``proj_w`` and ``a_next``. Products and sums in f32, rounding to h0's
-    dtype where the JAX kernels cast."""
+    ``proj_w`` and ``a_next``; r5 (row 5's form) ``stack`` the
+    ``slot_pstack``, ``x0`` skip0, ``w`` and ``proj_w`` row 5's skip_w and
+    proj_w (layers 1..L−1), ``a_next`` its a_all (every layer), no ``s0``.
+    Products and sums in f32, rounding to h0's dtype where the JAX kernels
+    cast."""
     flags = _flags(form, variant)
+    if form == "r5":
+        return _row5_ref(flags, stack, h0, x0, w, proj_w, a_next, pool_gl, pred_hd, window,
+                         slots, num_heads, num_layers, gmax, prefix_caps)
     on = lambda name: bool(flags & FLAGS[name])
     cdt = h0.dtype
     acc = torch.float64 if cdt == torch.float64 else torch.float32
@@ -208,6 +230,68 @@ def gat_mega_ablate_ref(form: str, variant: str, stack, h0, x0, s0, w, pool_gl, 
     return _pool_sums(rnd(final) @ pred_hd.to(acc), pool_gl, nw, window, gmax).float()
 
 
+def _row5_ref(flags: int, stack, h0, skip0, skip_w, proj_w, a_all, pool_gl, pred_hd,
+              window: int, slots: int, num_heads: int, num_layers: int, gmax: int,
+              prefix_caps) -> torch.Tensor:
+    """Row 5's function (``ops.local_layer.gat_local_model_slots_ref``) with
+    the ``flags`` of its stage stubs: nogather (lane i's source is row i
+    mod W), noscore (score 1 on every valid lane, no score map), noacc (row
+    r takes the window's lane r alone, its denominator score + 1) and
+    noglue (h = feat, skip kept)."""
+    on = lambda name: bool(flags & FLAGS[name])
+    cdt = h0.dtype
+    acc = torch.float64 if cdt == torch.float64 else torch.float32
+    rnd = lambda x: x.to(cdt).to(acc)
+    dev = h0.device
+    n, hd = h0.shape
+    nh = num_heads
+    nw = -(-n // window)
+    rows = nw * window
+    caps, offs, sw = _geometry("r5", window, slots, prefix_caps)
+    per_head = lambda x: x.repeat_interleave(hd // nh, dim=-1)
+    u = stack.long().reshape(nw, sw)
+    lane = torch.arange(sw, device=dev)
+    src = lane.expand(nw, sw) % window if on("nogather") else u.clamp(0, window - 1)
+    valid = (u < window).to(acc)[..., None]
+    win = torch.arange(nw, device=dev)[:, None]
+    if on("noacc"):  # row r: the window's lane r
+        m = min(sw, window)
+        dest = torch.arange(m, device=dev)
+        src, valid, lanes = src[:, :m], valid[:, :m], [(slice(0, m), m)]
+    else:
+        dest = torch.cat([torch.arange(c, device=dev) for c in caps])
+        lanes = [(slice(offs[k], offs[k] + c), c) for k, c in enumerate(caps)]
+    h = _padded(h0, rows).to(acc)
+    skip = _padded(skip0, rows).to(acc)
+    for l in range(num_layers):
+        h3 = h.reshape(nw, window, hd)
+        hu = h3[win, src]
+        if on("noscore"):
+            score = valid.expand(-1, -1, nh)
+        else:
+            s = (h @ a_all[l * hd : (l + 1) * hd].to(acc)).reshape(nw, window, 2 * nh)
+            raw = s[:, dest, :nh] + s[win, src, nh:]
+            score = torch.where(valid > 0, torch.exp(torch.where(raw < 0, raw * 0.2, raw)), 0.0)
+        num = torch.zeros(nw, window, hd, dtype=acc, device=dev)
+        den = torch.zeros(nw, window, nh, dtype=acc, device=dev)
+        for sl, c in lanes:
+            num[:, :c] += per_head(score[:, sl]) * hu[:, sl]
+            den[:, :c] += score[:, sl]
+        if on("noacc"):
+            den = den + 1
+        msg = rnd((num / per_head(torch.where(den == 0, 1.0, den))).reshape(rows, hd))
+        if l == num_layers - 1:
+            break
+        x = msg + skip
+        feat = rnd(torch.where(x <= 0, torch.exp(x) - 1, x))
+        if on("noglue"):
+            h = feat
+            continue
+        h = rnd(feat @ proj_w[l * hd : (l + 1) * hd].to(acc))
+        skip = feat @ skip_w[l * hd : (l + 1) * hd].to(acc)
+    return _pool_sums(rnd(msg + skip) @ pred_hd.to(acc), pool_gl, nw, window, gmax).float()
+
+
 # ---------------------------------------------------------------------------
 # The kernel: build, bind, check, launch.
 # ---------------------------------------------------------------------------
@@ -216,7 +300,8 @@ def gat_mega_ablate_ref(form: str, variant: str, stack, h0, x0, s0, w, pool_gl, 
 def _glue_matrix(form: str, w: torch.Tensor, proj_w, hd: int, num_heads: int) -> torch.Tensor:
     """Each layer's glue product B [H·D, N] of ``form`` (feat · B, the
     columns its kernel writes; ``csrc/gat_model.cuh``), [layers, H·D, N] in
-    ``w``'s dtype, pads zero: v1 [proj_l ‖ skip_{l+1}] with skip at column
+    ``w``'s dtype, pads zero: r5 [proj_{l+1} ‖ skip_{l+1}] with skip at
+    column 64 (row 5's ``gat_glue_tiles``); v1 [proj_l ‖ skip_{l+1}] with skip at column
     64, after layer 0's skip_w[0] (columns < H·D); v3 / v4 glue_w's used
     columns [h ‖ s_tgt ‖ skip ‖ s_src] (its zero pad dropped); v5 glue_wx.
     ``w``: v1's skip_w, v3 / v4's glue_w, v5's glue_wx; ``proj_w`` v1's."""
@@ -224,7 +309,10 @@ def _glue_matrix(form: str, w: torch.Tensor, proj_w, hd: int, num_heads: int) ->
     layers = w.shape[0] // hd
     b = w.new_zeros(layers, hd, n)
     w3 = w.view(layers, hd, -1)
-    if form == "v1":
+    if form == "r5":
+        b[..., :hd] = proj_w.view(layers, hd, hd)
+        b[..., GAT_PITCH : GAT_PITCH + hd] = w3
+    elif form == "v1":
         b[0, :, :hd] = w3[0]
         b[1:, :, :hd] = proj_w.view(layers - 1, hd, hd)
         b[1:, :, GAT_PITCH : GAT_PITCH + hd] = w3[1:]
@@ -253,7 +341,7 @@ def glue_tiles(form: str, w: torch.Tensor, proj_w, hd: int, num_heads: int) -> t
         first = torch.cat([first, torch.zeros_like(first)], dim=2)
         return torch.cat([first, linear_tiles(b[1:], n)])
 
-    sources = (w, proj_w) if form == "v1" else (w,)
+    sources = (w, proj_w) if form in ("v1", "r5") else (w,)
     return _pack_once(("gat_mega_ablate", form, hd, num_heads), sources, pack)
 
 
@@ -380,8 +468,17 @@ def _launch(form, variant, stack, h0, x0, s0, w, pool_gl, pred_hd, window, slots
         _check("stack", stack, torch.int32, (nw * sw,), dev)
     _check("h0", h0, dt, (n, hd), dev)
     _check("x0", x0, dt, (n, hd), dev)
-    _check("s0", s0, dt, (n, 2 * hd if form == "v5" else 2 * nh), dev)
-    if form == "v1":
+    if form == "r5":  # row 5 maps layer 0's scores itself
+        if s0 is not None:
+            raise ValueError("s0: r5 maps its scores from h0; pass None")
+    else:
+        _check("s0", s0, dt, (n, 2 * hd if form == "v5" else 2 * nh), dev)
+    if form == "r5":
+        ldw = hd
+        _check("skip_w", w, dt, ((L - 1) * hd, hd), dev)
+        _check("proj_w", proj_w, dt, ((L - 1) * hd, hd), dev)
+        _check("a_all", a_next, dt, (L * hd, 2 * nh), dev)
+    elif form == "v1":
         ldw = hd
         _check("skip_w", w, dt, (L * hd, hd), dev)
         _check("proj_w", proj_w, dt, ((L - 1) * hd, hd), dev)
@@ -397,7 +494,7 @@ def _launch(form, variant, stack, h0, x0, s0, w, pool_gl, pred_hd, window, slots
     out = torch.empty(nw * gmax, t_out, dtype=torch.float32, device=dev)
     ptr = lambda t: None if t is None else t.data_ptr()
     rc = lib["launch"](
-        FORM_CODES[form], code, stack.data_ptr(), h0.data_ptr(), x0.data_ptr(), s0.data_ptr(),
+        FORM_CODES[form], code, stack.data_ptr(), h0.data_ptr(), x0.data_ptr(), ptr(s0),
         w.data_ptr(), ptr(proj_w), ptr(a_next), pool_gl.data_ptr(), pred_hd.data_ptr(),
         ptr(tiles), out.data_ptr(), nw, n, window, hd, nh, L, gmax, t_out,
         (ctypes.c_int * len(caps))(*caps), slots, ldw, stages, flags, dev.index,
@@ -544,9 +641,21 @@ def ablation_operands(params: dict, batch: dict, prec) -> dict:
     )
 
 
+def row5_operands(k: dict) -> dict:
+    """``gat_mega_ablate``'s r5 operands from row 5's own
+    (``models.gat.slot_kernel_operands``, ``gat_local_model_slots``'
+    keywords)."""
+    geom = {n: k[n] for n in ("window", "slots", "num_heads", "num_layers", "gmax",
+                               "prefix_caps", "pool_gl", "pred_hd", "h0", "proj_w")}
+    return dict(geom, stack=k["slot_pstack"], x0=k["skip0"], s0=None, w=k["skip_w"],
+                a_next=k["a_all"])
+
+
 def form_operands(form: str, c: dict) -> dict:
     """``gat_mega_ablate``'s keyword operands of ``form`` from
-    ``ablation_operands``' dict ``c``."""
+    ``ablation_operands``' dict ``c`` (r5: from ``c["row5"]``, row 5's)."""
+    if form == "r5":
+        return row5_operands(c["row5"])
     geom = {k: c[k] for k in ("window", "slots", "num_heads", "num_layers", "gmax")}
     common = dict(h0=c["h0"], pool_gl=c["pool_gl"], pred_hd=c["pred_hd"], **geom)
     if form == "v1":
@@ -563,7 +672,7 @@ def form_operands(form: str, c: dict) -> dict:
 def parse_row(name: str) -> tuple:
     """A ``--variants`` entry → (form, variant): ``full`` … ``addcat`` are
     v1's, ``v3`` / ``v3:<stage>`` and so on the other forms'."""
-    if name.split(":")[0] in ("v3", "v4", "v5"):
+    if name.split(":")[0] in ("v3", "v4", "v5", "r5"):
         form, _, stage = name.partition(":")
         return form, stage or "full"
     return "v1", name
@@ -594,9 +703,10 @@ def print_table(rows: list, window: int, slots: int, graphs: int, reps: int) -> 
         print(f"  {name:9s} {t * 1e6:9.1f}  dev {(t - noop) * 1e6:9.1f}{delta}")
 
 
-def molhiv_bucket(graphs: int, window: int | None, device):
+def molhiv_bucket(graphs: int, window: int | None, device, node_capacity: int = 32768):
     """The GAT molhiv bucket of ``graphs`` synthetic graphs in the slot
-    layout at ``window`` (default ``choose_geometry``'s), on ``device``."""
+    layout at ``window`` (default ``choose_geometry``'s), on ``device``: one
+    bucket of ``node_capacity`` nodes holds them all."""
     from ..core.graphs import auto_edge_capacity, pack_dataset
     from ..core.synthetic import synthetic_dataset
     from ..models import base, registry
@@ -604,7 +714,8 @@ def molhiv_bucket(graphs: int, window: int | None, device):
     spec = registry.get("gat")
     gs = registry.apply_transforms(spec, synthetic_dataset("molhiv", seed=0, num_graphs=graphs))
     window = window or base.choose_geometry("gat", max(g.num_nodes for g in gs))[0]
-    (bucket,) = pack_dataset(gs, node_capacity=32768, edge_capacity=auto_edge_capacity(gs, 32768),
+    (bucket,) = pack_dataset(gs, node_capacity=node_capacity,
+                             edge_capacity=auto_edge_capacity(gs, node_capacity),
                              graph_capacity=2048, align_window=window)
     return base.to_device(base.as_batch(bucket, blocked="local_slots", window=window), device)
 
@@ -632,7 +743,7 @@ def main(argv=None) -> None:
     params = params_from_numpy(synthetic_gat_params(0), BF16, device)
     c = ablation_operands(params, batch, BF16)
     names = args.variants.split(",")
-    if {"slots", "dense"} & set(names):
+    if {"slots", "dense"} & set(names) or any(n.startswith("r5") for n in names):
         c["row5"] = slot_kernel_operands(params, batch, BF16)
         print("# slots and dense both run row 5's kernel (gat_local_model_slots): the JAX "
               "package's slot and dense megakernels compute its function")

@@ -1,7 +1,8 @@
 """The whole-model kernels, their one-layer forms and the per-layer slot
 kernels of PNA and GAT on their cells: rows 3 (``pna_local_model``), 4
-(``dgn_local_model``) and 2 (``gcn_local_model_slots``) over slots, rows 8
-(``gin_local_model``) and 9 (``gcn_local_model``) over ELL, rows 20
+(``dgn_local_model``), 2 (``gcn_local_model_slots``) and 1
+(``gin_local_model_slots``) over slots, rows 8 (``gin_local_model``) and 9
+(``gcn_local_model``) over ELL, rows 20
 (``pna_local_layer``) and 22 (``dgn_local_layer_slots``), the one-layer forms
 of rows 3 and 4, row 19 (``pna_local_stats_ell``, row 3's stats-only form)
 row 21 (``gat_local_message_slots``) and row 5 (``gat_local_model_slots``),
@@ -18,8 +19,10 @@ synthetic molhiv stream in slots (W=128; rows 3, 4 and 2 once per bucket, row
 2048-graph hep10k sample in slots at W=512 (rows 3, 4 and 2 once per bucket,
 rows 20 and 22 once per layer and bucket) and at W=128, where it spills
 (row 22 once per layer and bucket, with the tail's channels; row 19 once
-per layer and bucket, PNA's spill path); rows 8 and 9
-on the hep10k sample and the molhiv stream in ELL at the window
+per layer and bucket, PNA's spill path); row 1 on GIN's and GIN-VN's molhiv
+stream in slots and GIN's hep10k sample in slots at W=512 (once per
+bucket); rows 8 and 9 on the hep10k sample (row 8 also GIN-VN's) and the
+molhiv stream in ELL at the window
 ``choose_geometry`` gives (once per bucket); row 21 on the hep10k sample in
 slots at W=128, where it spills (the raw sums, once per layer and bucket),
 and on the molhiv stream in slots run with intermediates (divided in the
@@ -64,7 +67,11 @@ CELLS = (
     ("dgn_local_layer_slots", "dgn", "hep10k", 2048, SLOTS, 128),
     ("dgn_local_layer_slots", "dgn", "hep10k", 2048, SLOTS, 512),
     ("gin_local_model", "gin", "hep10k", 2048, ELL, None),
+    ("gin_local_model", "gin-vn", "hep10k", 2048, ELL, None),
     ("gin_local_model", "gin", "molhiv", 4113, ELL, None),
+    ("gin_local_model_slots", "gin", "molhiv", 4113, SLOTS, None),
+    ("gin_local_model_slots", "gin-vn", "molhiv", 4113, SLOTS, None),
+    ("gin_local_model_slots", "gin", "hep10k", 2048, SLOTS, 512),
     ("gcn_local_model", "gcn", "hep10k", 2048, ELL, None),
     ("gcn_local_model", "gcn", "molhiv", 4113, ELL, None),
     ("gcn_local_model_slots", "gcn", "molhiv", 4113, SLOTS, None),
@@ -87,7 +94,7 @@ def params_of(name: str, prec, device) -> dict:
     """``name``'s seeded synthetic weights in ``prec`` on ``device``."""
     from flowgnn_tpu_torch.params import loaders
 
-    make = getattr(loaders, f"synthetic_{name}_params")
+    make = getattr(loaders, f"synthetic_{name.split('-')[0]}_params")  # GIN-VN: GIN's
     return loaders.params_from_numpy(make(0), prec, device)
 
 
@@ -97,7 +104,7 @@ def calls(kernel: str, name: str, batches: list, layout: str, prec, device) -> l
     per bucket, once per layer."""
     from flowgnn_tpu_torch.models import dgn, gat, gcn, gin, pna
 
-    mod = {"pna": pna, "dgn": dgn, "gin": gin, "gcn": gcn, "gat": gat}[name]
+    mod = {"pna": pna, "dgn": dgn, "gin": gin, "gin-vn": gin, "gcn": gcn, "gat": gat}[name]
     params = params_of(name, prec, device)
     if layout == ELL:
         return [mod.ell_kernel_operands(params, b, prec) for b in batches]

@@ -1,7 +1,8 @@
 // GAT megakernel ablation for Hopper (sm_90a): kernel table rows 27-30, the
 // forms V1, V3, V4 and V5 of csrc/gat_model.cuh, row 5's kernel (which holds
 // the design and each form's operands and rounding points), each with one
-// stage knocked out by a runtime flag.
+// stage knocked out by a runtime flag; and form 0, Row5Ablate, row 5's own
+// form with the flags read (row 5's stage stubs, bench/ablate_gat_pairs.py).
 //
 // Replaces the TPU kernels of flowgnn_tpu/bench/ablate_gat_mega.py:
 // _variant_model (v1, :50, pallas_call :198), _variant_model_v3 (:224 /
@@ -19,6 +20,7 @@ using namespace gat_model;
 template <typename Fn>
 cudaError_t by_form(int form, Fn&& f) {
   switch (form) {
+    case 0: return f(Row5Ablate{});
     case 1: return f(V1{});
     case 3: return f(V3{});
     case 4: return f(V4{});
@@ -27,7 +29,9 @@ cudaError_t by_form(int form, Fn&& f) {
   }
 }
 
-bool known_form(int form) { return form == 1 || form == 3 || form == 4 || form == 5; }
+bool known_form(int form) {
+  return form == 0 || form == 1 || form == 3 || form == 4 || form == 5;
+}
 
 }  // namespace
 
@@ -44,6 +48,7 @@ int gma_max_window() { return kRows * kMaxCluster; }
 // __launch_bounds__; float32 takes what its shared memory allows), or -1.
 int gma_blocks_per_sm(int form) {
   switch (form) {
+    case 0: return Row5Ablate::kBlocksWg;
     case 1: return V1::kBlocksWg;
     case 3: return V3::kBlocksWg;
     case 4: return V4::kBlocksWg;
@@ -98,12 +103,14 @@ int gma_occupancy(int form, int dtype, int window, int hd, int heads, int gmax, 
   }));
 }
 
-// form: 1, 3, 4 or 5; dtype: 0 = float32, 1 = bfloat16 (h0, x0, s0, the
-// weights, pred_hd and v4's one-hot tiles). stack: int32 sources (v1, v3,
-// v5) or the one-hot tiles (v4), num_windows * lanes rows (v1 S*W lanes a
-// window, else sum(caps)); x0: v1's prev0, else skip0; s0 [n, 2*SW] the
-// layer-0 scores [s_src | s_tgt]; w: v1's skip_w, else the glue weight with
-// row stride ldw; proj_w, a_next: v1's (null otherwise). bfloat16 also takes
+// form: 0 (row 5's), 1, 3, 4 or 5; dtype: 0 = float32, 1 = bfloat16 (h0,
+// x0, s0, the weights, pred_hd and v4's one-hot tiles). stack: int32
+// sources (row 5, v1, v3, v5) or the one-hot tiles (v4), num_windows * lanes
+// rows (v1 S*W lanes a window, else sum(caps)); x0: v1's prev0, else skip0;
+// s0 [n, 2*SW] the layer-0 scores [s_src | s_tgt] (row 5: null, it maps
+// them); w: v1's skip_w, row 5's skip_w of layers 1..L-1, else the glue
+// weight with row stride ldw; proj_w: v1's and row 5's (layers 1..L-1);
+// a_next: v1's, row 5's a_all (every layer); null otherwise. bfloat16 also takes
 // `tiles`, the glue chunks as gma_glue_dims gives them, and a ring of
 // `stages` chunk buffers (float32: null and 0). window: 1..kMaxCluster whole
 // blocks of kRows rows; nopool needs gmax <= window and tout <= hd. out:

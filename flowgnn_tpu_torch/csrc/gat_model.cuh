@@ -114,6 +114,14 @@
 // the glue's product (and the weight ring), bit 1 skips the messages; the
 // phase split of chip_smoke.py times row 5 with each.
 //
+// Row5Ablate is row 5's form with the ablation flags read: the TPU stage
+// stubs of gat_local_model_pairs(_ablate=...) as the Hopper kernel has
+// them (bench/ablate_gat_pairs.py): kNoGlue (h = feat, skip kept), kNoScore
+// (no score map, every valid lane's score 1), kNoAcc (row r takes the
+// window's lane r alone, its denominator score + 1) and kNoGather (lane i
+// takes row i mod W). Only the ablation library (gat_mega_ablate.cu)
+// instantiates it; row 5's library keeps Row5, which compiles them out.
+//
 // Numerics: activations and weights are float or bfloat16 (T); every
 // product and sum is float32; msg, feat, h and the final msg + skip round
 // to T where the TPU kernel casts to its compute dtype; row 5's scores and
@@ -155,6 +163,7 @@ constexpr int kNoProduct = 1, kNoMessages = 2;  // Dims::knockout bits
 enum Flag : int {
   kNoExp = 1, kNoGather = 2, kNoExpand = 4, kNoGlue = 8, kNoPool = 16,
   kNoDivide = 32, kNoCast = 64, kStaticCat = 128, kAddCat = 256, kNoElu = 512,
+  kNoScore = 1024, kNoAcc = 2048,
 };
 
 static_assert(kRows == lw::kRows && kThreads == lw::kThreads, "the wgmma product's block shape");
@@ -165,6 +174,10 @@ static_assert(kRows == lw::kRows && kThreads == lw::kThreads, "the wgmma product
 struct Row5 {
   static constexpr int kForm = 0, kGlueN = 128, kBlocksWg = 2;
   static constexpr bool kAblate = false;
+};
+struct Row5Ablate {
+  static constexpr int kForm = 0, kGlueN = 128, kBlocksWg = 2;
+  static constexpr bool kAblate = true;
 };
 struct V1 {
   static constexpr int kForm = 1, kGlueN = 128, kBlocksWg = 2;
@@ -513,6 +526,7 @@ gat_model_kernel(const Operands<T> op, const Dims dm, const Caps cp, const Smem 
   // s_tgt s2 (v4: times the lane's valid vf).
   auto score_col = [&](int c) { return kForm == 5 ? c : (on(kNoExpand) ? 0 : c / DH); };
   auto score_of = [&](int r, int sc, float s2, float vf) {
+    if (on(kNoScore)) return kForm == 4 ? vf : 1.f;
     const float raw = __fadd_rn(sc_s[r * S2 + sc], s2);
     const float score = on(kNoExp) ? raw : expf(raw < 0.f ? __fmul_rn(raw, 0.2f) : raw);
     return kForm == 4 ? __fmul_rn(score, vf) : score;
@@ -546,7 +560,7 @@ gat_model_kernel(const Operands<T> op, const Dims dm, const Caps cp, const Smem 
   for (int l = 0; l < dm.layers; ++l) {
     const bool last = l == dm.layers - 1;
     // Row 5 maps every layer's scores from h; v1 layer l >= 1's, rounded.
-    const bool score_map = kForm == 0 || (kForm == 1 && l > 0 && !no_glue);
+    const bool score_map = !on(kNoScore) && (kForm == 0 || (kForm == 1 && l > 0 && !no_glue));
     __syncthreads();  // h is complete; a_s and w_s are consumed
     if (score_map) {
       const T* a_l = op.a + long(kForm == 0 ? l : l - 1) * HD * H2;
@@ -687,9 +701,10 @@ gat_model_kernel(const Operands<T> op, const Dims dm, const Caps cp, const Smem 
 #pragma unroll
       for (int j = 0; j < kLaneHD; ++j) { num[j] = 0.f; den[j] = 0.f; }
       const int row = rank * kRows + r;  // the window row
-      for (int k = 0; k < dm.slots; ++k) {
-        if (row >= cp.caps[k]) continue;
-        const int li = cp.offs[k] + row;  // the lane in the window's stack
+      const bool one_lane = on(kNoAcc);    // the window's lane `row` alone
+      for (int k = 0; k < (one_lane ? 1 : dm.slots); ++k) {
+        if (row >= (one_lane ? dm.lanes : cp.caps[k])) continue;
+        const int li = one_lane ? row : cp.offs[k] + row;  // the lane in the window's stack
         float vf = 1.f;
         int src;
         bool zero = false;
@@ -735,6 +750,9 @@ gat_model_kernel(const Operands<T> op, const Dims dm, const Caps cp, const Smem 
           den[j] = __fadd_rn(den[j], score);
         }
       }
+      if (one_lane)
+#pragma unroll
+        for (int j = 0; j < kLaneHD; ++j) den[j] = __fadd_rn(den[j], 1.f);
       finish_row(num, den, r, last);
     }
     if (last) break;

@@ -64,15 +64,16 @@ long long gin_ell_smem_bytes(int dtype, int d, int hid, int vocab, int gmax, int
 // takes `tiles`, the L·C weight chunks packed as gin_ell_mlp_dims gives
 // them, and a ring of `stages` chunk buffers, at least gin_mlp::min_stages
 // (float32: null and 0). window must be 1..kMaxCluster whole blocks of kRows
-// rows. Returns a cudaError_t.
+// rows. knockout: 0, or the timing knockouts of gin_model.cuh's Dims. Returns
+// a cudaError_t.
 int gin_ell_launch(int dtype, const void* meta, const void* h0, const void* pool_gl,
                    const void* tab, const void* w1, const void* b1, const void* w2,
                    const void* b2, const void* eps, const void* predw, const void* vn_col,
                    const void* tiles, void* out, int num_windows, int n, int window, int block,
                    int d, int hid, int layers, int vocab, int gmax, int tout, int stages,
-                   int device, void* stream) {
+                   int knockout, int device, void* stream) {
   if (block < 0) return int(cudaErrorInvalidValue);
-  const gin_model::Dims dm{n, window, d, hid, layers, vocab, gmax, tout, stages};
+  const gin_model::Dims dm{n, window, d, hid, layers, vocab, gmax, tout, stages, knockout};
   return gin_model::launch(dtype, lanes::Ell{static_cast<const int*>(meta), block}, h0, pool_gl,
                            tab, w1, b1, w2, b2, eps, predw, vn_col, tiles, out, num_windows, dm,
                            device, stream);

@@ -68,16 +68,17 @@ long long gin_slots_smem_bytes(int dtype, int d, int hid, int vocab, int gmax, i
 // takes `tiles` (the L·C weight chunks) and a ring of `stages` chunk
 // buffers, at least gin_mlp::min_stages (float32: null and 0). window must be
 // 1..kMaxCluster whole blocks of kRows rows, every cap at most the window.
-// Returns a cudaError_t.
+// knockout: 0, or the timing knockouts of gin_model.cuh's Dims. Returns a
+// cudaError_t.
 int gin_slots_launch(int dtype, const void* meta, const void* h0, const void* pool_gl,
                      const void* tab, const void* w1, const void* b1, const void* w2,
                      const void* b2, const void* eps, const void* predw, const void* vn_col,
                      const void* tiles, void* out, int num_windows, int n, int window, int half,
                      int d, int hid, int layers, int vocab, int gmax, int tout, const int* caps,
-                     int slots, int stages, int device, void* stream) {
+                     int slots, int stages, int knockout, int device, void* stream) {
   lanes::Slots walk;
   if (!lanes::make_slots(walk, meta, half, caps, slots, window)) return int(cudaErrorInvalidValue);
-  const gin_model::Dims dm{n, window, d, hid, layers, vocab, gmax, tout, stages};
+  const gin_model::Dims dm{n, window, d, hid, layers, vocab, gmax, tout, stages, knockout};
   return gin_model::launch(dtype, walk, h0, pool_gl, tab, w1, b1,
                            w2, b2, eps, predw, vn_col, tiles, out, num_windows, dm, device,
                            stream);

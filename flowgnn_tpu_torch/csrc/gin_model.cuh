@@ -61,6 +61,24 @@
 // passed as a kernel parameter. Computed in the kernel from the runtime
 // widths, its offsets' arithmetic stayed live in the f32 form's FMA loops,
 // next to ~170 registers of tiles, and cost that form 10-17% (PERF.md).
+//
+// Dims::knockout is a timing knob, never set on the model path (the stage
+// splits of chip_smoke.py and bench/ablate_gin_slots.py):
+//   bit 0 kNoMlp       no update MLP and no weight ring: h = act;
+//   bit 1 kNoMessages  no lane messages (GIN-VN's pooled terms stay);
+//   bit 2 kNoGather    a lane's source is h[u] only for u < 8, else zero;
+//   bit 3 kNoBond      a lane's ee is the layer's table row 0 times the
+//                      count of its bond rows that are 0;
+//   bit 4 kNoAcc       row r takes the message of the window's lane r alone
+//                      (no sum over its lanes; none past the window's lanes,
+//                      an empty slot lane or an ELL pad lane);
+//   bit 5 kAblateOnly  nothing knocked out: the kernel that reads the bits,
+//                      whole (the stage splits' reference).
+// Bits 0 and 2-4 port the TPU kernel's stage stubs (gin_local_model_slots'
+// _ablate: nomlp, nogather, nobond, noacc). The knockouts are read by a
+// kernel of their own (kAblate); the launch with knockout 0 runs the
+// production kernel, which compiles them out, so that arithmetic does not
+// touch its registers (the note above).
 
 #pragma once
 
@@ -70,6 +88,7 @@
 
 #include "gin_mlp.cuh"
 #include "hopper.cuh"
+#include "lanes.cuh"
 
 namespace gin_model {
 
@@ -91,12 +110,16 @@ constexpr int kHcPT = kHC / kTC;       // hidden units per thread per chunk
 // Bond vocabulary rows of the (0, 0, 0) attr that every analytic VN star
 // edge carries: the feature offsets {0, 5, 11}.
 constexpr int kE0Row0 = 0, kE0Row1 = 5, kE0Row2 = 11;
+// Dims::knockout bits (see the top).
+constexpr int kNoMlp = 1, kNoMessages = 2, kNoGather = 4, kNoBond = 8, kNoAcc = 16,
+              kAblateOnly = 32;
+constexpr int kNearRows = 8;  // kNoGather's sources: the window's first rows
 
 static_assert(kMaxD == gin_mlp::kMaxD && kRows == gin_mlp::kRows && kThreads == gin_mlp::kThreads,
               "the bf16 MLP's block shape");
 
 struct Dims {
-  int n, window, d, hid, layers, vocab, gmax, tout, stages;
+  int n, window, d, hid, layers, vocab, gmax, tout, stages, knockout;
 };
 
 // Shared-memory carve-up of one block, byte offsets. wg: the bf16 (wgmma)
@@ -161,11 +184,34 @@ __device__ __forceinline__ const float* bond_row(const float* tab_s, int a, int 
   return unsigned(a) < unsigned(vocab) ? tab_s + a * d : nullptr;
 }
 
+// kNoAcc's one lane for window row `row`: the window's lane `row` of the
+// walk's lane list, handed to f as visit hands a lane on; nothing past the
+// window's lanes, for an empty slot lane, or for an ELL pad lane (v outside
+// the window), which visit drops too.
+template <typename F>
+__device__ __forceinline__ void window_lane(const lanes::Slots& s, int win, int row, int window,
+                                            F&& f) {
+  if (row >= s.sw) return;
+  const int* m = s.meta + (long(win) * s.sw + row) * 4;
+  const int src = __ldg(m) + s.half;
+  if (unsigned(src) >= unsigned(window)) return;
+  f(src, __ldg(m + 1), __ldg(m + 2), __ldg(m + 3));
+}
+template <typename F>
+__device__ __forceinline__ void window_lane(const lanes::Ell& e, int win, int row, int window,
+                                            F&& f) {
+  if (row >= e.block) return;
+  const int* m = e.meta + (long(win) * e.block + row) * lanes::kEllMeta;
+  if (unsigned(__ldg(m + 1)) >= unsigned(window)) return;
+  f(__ldg(m), __ldg(m + 2), __ldg(m + 3), __ldg(m + 4));
+}
+
 // N2 = 0: the float32 form (FMA MLP); N2 = 104 or 112: the bf16 form with
 // the wgmma MLP, N2 its second product's width. tiles: the bf16 form's
 // packed weight chunks (gin_mlp.cuh), all layers in order. lay: the
-// shared-memory carve-up, computed once on the host (smem_layout).
-template <typename T, int N2, typename Msg>
+// shared-memory carve-up, computed once on the host (smem_layout). kAblate:
+// the kernel reads Dims::knockout (timing only).
+template <typename T, int N2, typename Msg, bool kAblate>
 __global__ void __launch_bounds__(kThreads)
 gin_model_kernel(Msg msg, const T* __restrict__ h0, const int* __restrict__ pool_gl,
                  const T* __restrict__ tab, const T* __restrict__ w1, const T* __restrict__ b1,
@@ -202,9 +248,11 @@ gin_model_kernel(Msg msg, const T* __restrict__ h0, const int* __restrict__ pool
   };
   const bool has_vn = vn_col != nullptr;
   const long row0 = long(win) * dm.window + long(rank) * kRows;
+  auto off = [&](int bit) { return kAblate && (dm.knockout & bit) != 0; };
+  const bool mlp = !off(kNoMlp);
 
   if constexpr (kWg) {
-    if (tid == 0) ring.init();
+    if (tid == 0 && mlp) ring.init();
     // act's pad columns stay zero; the messages write columns < D only.
     const int pad = gm.dp - D;
     for (int i = tid; i < kRows * pad; i += kThreads) act_at(i / pad, D + i % pad) = store<S>(0.f);
@@ -220,7 +268,7 @@ gin_model_kernel(Msg msg, const T* __restrict__ h0, const int* __restrict__ pool
   msg.prepare(win, rank, tid, lo_s);
   __syncthreads();
   if constexpr (kWg) {
-    if (tid == 0) ring.prefetch();  // the first S weight chunks, while the layers set up
+    if (tid == 0 && mlp) ring.prefetch();  // the first S weight chunks, while the layers set up
   }
   if (tid == 0) {
     // Group the block's rows by graph (ascending row order within a graph):
@@ -274,9 +322,9 @@ gin_model_kernel(Msg msg, const T* __restrict__ h0, const int* __restrict__ pool
       float acc[kLaneD];
 #pragma unroll
       for (int j = 0; j < kLaneD; ++j) acc[j] = 0.f;
-      msg.visit(win, rank, r, lo_s, dm.window, [&](int u, int a1, int a2, int a3) {
+      auto add_lane = [&](int u, int a1, int a2, int a3) {
         const S* hu = nullptr;
-        if (unsigned(u) < unsigned(dm.window)) {
+        if (unsigned(u) < unsigned(off(kNoGather) ? kNearRows : dm.window)) {
           const int owner = u / kRows;
           const S* base = owner == rank ? h_s : cluster.map_shared_rank(h_s, owner);
           hu = base + (u - owner * kRows) * D;
@@ -284,17 +332,28 @@ gin_model_kernel(Msg msg, const T* __restrict__ h0, const int* __restrict__ pool
         const float* e1 = bond_row(tab_s, a1, dm.vocab, D);
         const float* e2 = bond_row(tab_s, a2, dm.vocab, D);
         const float* e3 = bond_row(tab_s, a3, dm.vocab, D);
+        const float zeros = float((a1 == 0) + (a2 == 0) + (a3 == 0));  // kNoBond's count
 #pragma unroll
         for (int j = 0; j < kLaneD; ++j) {
           const int c = lane + 32 * j;
           if (c >= D) break;
           float ee = 0.f;
-          if (e1) ee += e1[c];
-          if (e2) ee += e2[c];
-          if (e3) ee += e3[c];
+          if (off(kNoBond)) {
+            ee = zeros * tab_s[c];
+          } else {
+            if (e1) ee += e1[c];
+            if (e2) ee += e2[c];
+            if (e3) ee += e3[c];
+          }
           acc[j] += rnd<T>(fmaxf((hu ? val(hu[c]) : 0.f) + ee, 0.f));
         }
-      });
+      };
+      if (!off(kNoMessages)) {
+        if (off(kNoAcc))
+          window_lane(msg, win, rank * kRows + r, dm.window, add_lane);
+        else
+          msg.visit(win, rank, r, lo_s, dm.window, add_lane);
+      }
       const int g = gl_s[r];
       const bool vn_in = has_vn && unsigned(g) < unsigned(dm.gmax);
       const int vn_off = g * 2 * D + (vn_s[r] != 0.f ? 0 : D);
@@ -315,6 +374,10 @@ gin_model_kernel(Msg msg, const T* __restrict__ h0, const int* __restrict__ pool
     // No block reads this block's h or VN partials any more.
     cluster.sync();
 
+    if (!mlp) {  // kNoMlp: h = act
+      for (int i = tid; i < kRows * D; i += kThreads) h_s[i] = act_at(i / D, i % D);
+      continue;
+    }
     if constexpr (kWg) {
       // Update MLP on the tensor cores; h_s is not read during it, so its
       // rows can be replaced after it.
@@ -436,7 +499,7 @@ gin_model_kernel(Msg msg, const T* __restrict__ h0, const int* __restrict__ pool
   cluster.sync();  // keep this block's shared memory until the cluster has read it
 }
 
-template <typename T, int N2, typename Msg>
+template <typename T, int N2, typename Msg, bool kAblate>
 cudaError_t launch_typed(const Msg& msg, const void* h0, const void* pool_gl, const void* tab,
                          const void* w1, const void* b1, const void* w2, const void* b2,
                          const void* eps, const void* predw, const void* vn_col,
@@ -444,11 +507,11 @@ cudaError_t launch_typed(const Msg& msg, const void* h0, const void* pool_gl, co
                          cudaStream_t stream) {
   const Smem lay = smem_layout(N2 > 0, dm.d, dm.hid, dm.vocab, dm.gmax, dm.tout, dm.stages);
   ClusterLaunch ln;
-  cudaError_t err = cluster_launch(gin_model_kernel<T, N2, Msg>, ln, num_windows,
+  cudaError_t err = cluster_launch(gin_model_kernel<T, N2, Msg, kAblate>, ln, num_windows,
                                    dm.window / kRows, kThreads, lay.total, stream);
   if (err != cudaSuccess) return err;
   err = cudaLaunchKernelEx(
-      &ln.cfg, gin_model_kernel<T, N2, Msg>, msg, static_cast<const T*>(h0),
+      &ln.cfg, gin_model_kernel<T, N2, Msg, kAblate>, msg, static_cast<const T*>(h0),
       static_cast<const int*>(pool_gl), static_cast<const T*>(tab), static_cast<const T*>(w1),
       static_cast<const T*>(b1), static_cast<const T*>(w2), static_cast<const T*>(b2),
       static_cast<const float*>(eps), static_cast<const T*>(predw),
@@ -458,32 +521,52 @@ cudaError_t launch_typed(const Msg& msg, const void* h0, const void* pool_gl, co
   return cudaGetLastError();
 }
 
+// The form `dtype` names (0 = float32 with the FMA MLP, 1 = bfloat16 with
+// the wgmma MLP), production (kAblate false) or the one that reads the
+// knockouts.
+template <bool kAblate, typename Msg>
+cudaError_t launch_form(int dtype, const Msg& msg, const void* h0, const void* pool_gl,
+                        const void* tab, const void* w1, const void* b1, const void* w2,
+                        const void* b2, const void* eps, const void* predw, const void* vn_col,
+                        const void* tiles, void* out, int num_windows, const Dims& dm,
+                        cudaStream_t s) {
+  if (dtype == 0)
+    return launch_typed<float, 0, Msg, kAblate>(msg, h0, pool_gl, tab, w1, b1, w2, b2, eps, predw,
+                                                vn_col, nullptr, out, num_windows, dm, s);
+  if (dtype == 1 && gin_mlp::geom(dm.d, dm.hid).n2 == 104)
+    return launch_typed<__nv_bfloat16, 104, Msg, kAblate>(msg, h0, pool_gl, tab, w1, b1, w2, b2,
+                                                          eps, predw, vn_col, tiles, out,
+                                                          num_windows, dm, s);
+  if (dtype == 1)
+    return launch_typed<__nv_bfloat16, 112, Msg, kAblate>(msg, h0, pool_gl, tab, w1, b1, w2, b2,
+                                                          eps, predw, vn_col, tiles, out,
+                                                          num_windows, dm, s);
+  return cudaErrorInvalidValue;
+}
+
 // Checks the geometry and launches the form `dtype` names (0 = float32 with
 // the FMA MLP, 1 = bfloat16 with the wgmma MLP, which needs `tiles` and a
-// ring of at least gin_mlp::min_stages buffers); returns a cudaError_t.
+// ring of at least gin_mlp::min_stages buffers unless kNoMlp); knockout 0
+// runs the production kernel. Returns a cudaError_t.
 template <typename Msg>
 int launch(int dtype, const Msg& msg, const void* h0, const void* pool_gl, const void* tab,
            const void* w1, const void* b1, const void* w2, const void* b2, const void* eps,
            const void* predw, const void* vn_col, const void* tiles, void* out, int num_windows,
            const Dims& dm, int device, void* stream) {
   if (dm.window % kRows || dm.window / kRows < 1 || dm.window / kRows > kMaxCluster ||
-      dm.d < 1 || dm.d > kMaxD || dm.hid < 1 || num_windows < 1 ||
-      (dtype == 1 && (tiles == nullptr || dm.stages < gin_mlp::min_stages(dm.d, dm.hid))))
+      dm.d < 1 || dm.d > kMaxD || dm.hid < 1 || num_windows < 1 || dm.knockout < 0 ||
+      dm.knockout > (kNoMlp | kNoMessages | kNoGather | kNoBond | kNoAcc | kAblateOnly) ||
+      (dtype == 1 && !(dm.knockout & kNoMlp) &&
+       (tiles == nullptr || dm.stages < gin_mlp::min_stages(dm.d, dm.hid))))
     return int(cudaErrorInvalidValue);
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return int(err);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    err = launch_typed<float, 0>(msg, h0, pool_gl, tab, w1, b1, w2, b2, eps, predw, vn_col,
-                                 nullptr, out, num_windows, dm, s);
-  else if (dtype == 1 && gin_mlp::geom(dm.d, dm.hid).n2 == 104)
-    err = launch_typed<__nv_bfloat16, 104>(msg, h0, pool_gl, tab, w1, b1, w2, b2, eps, predw,
-                                           vn_col, tiles, out, num_windows, dm, s);
-  else if (dtype == 1)
-    err = launch_typed<__nv_bfloat16, 112>(msg, h0, pool_gl, tab, w1, b1, w2, b2, eps, predw,
-                                           vn_col, tiles, out, num_windows, dm, s);
-  else
-    err = cudaErrorInvalidValue;
+  err = dm.knockout == 0
+            ? launch_form<false>(dtype, msg, h0, pool_gl, tab, w1, b1, w2, b2, eps, predw,
+                                 vn_col, tiles, out, num_windows, dm, s)
+            : launch_form<true>(dtype, msg, h0, pool_gl, tab, w1, b1, w2, b2, eps, predw, vn_col,
+                                tiles, out, num_windows, dm, s);
   return int(err);
 }
 

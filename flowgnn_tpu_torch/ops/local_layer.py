@@ -128,12 +128,16 @@ CPU tensor it runs its ``_ref``, the same function in plain torch, which the
 CPU tests hold against the JAX kernel. Each launch adds one to the wrapper's
 ``launches`` count.
 
-The TPU kernels' ``wps`` (windows per grid step), ``_pad_slot_operands`` and
-``_ablate`` stage stubs are not carried over: they batch TPU grid steps to
-amortize MXU weight loads, or attribute TPU time, and the Hopper kernels run
-one block, or one cluster, per window. Nor is ``_ell_meta``'s recentred
-bfloat16 lane metadata: it halves the TPU's index tiles, and the ELL kernels
-here take int32 (u, v, three bond rows) per lane.
+The TPU kernels' ``wps`` (windows per grid step) and ``_pad_slot_operands``
+are not carried over: they batch TPU grid steps to amortize MXU weight
+loads, and the Hopper kernels run one block, or one cluster, per window. Nor
+is ``_ell_meta``'s recentred bfloat16 lane metadata: it halves the TPU's
+index tiles, and the ELL kernels here take int32 (u, v, three bond rows) per
+lane. The ``_ablate`` stage stubs of ``gin_local_model_slots`` are rows 1
+and 8's ``knockout`` bits (``GIN_KNOCKOUTS``, each with its plain version,
+timed by ``bench.ablate_gin_slots``); those of ``gat_local_model_pairs``
+are a form of the GAT ablation library (``bench.ablate_gat_mega``'s ``r5``,
+timed by ``bench.ablate_gat_pairs``).
 """
 
 from __future__ import annotations
@@ -262,7 +266,25 @@ def _slot_lanes_of_meta(slot_meta, nw: int, window: int, vocab: int, caps, offs,
     dropped; row r of slot k is lane offs[k] + r."""
     gather, valid, attr_rows = _meta_lanes(slot_meta, nw, sum(caps), window, vocab)
     valid = valid.to(acc)
-    return gather, valid, attr_rows, lambda msg: _accumulate(msg * valid, caps, offs, nw, window)
+
+    def accumulate(msg: torch.Tensor, first: bool = False) -> torch.Tensor:
+        if first:
+            return _window_lanes(msg * valid, nw, window)
+        return _accumulate(msg * valid, caps, offs, nw, window)
+
+    return gather, valid, attr_rows, accumulate
+
+
+def _window_lanes(msg: torch.Tensor, nw: int, window: int) -> torch.Tensor:
+    """Per-lane messages [NW·lanes, D] → [NW·W, D], row r the window's lane
+    r (zero past the window's lanes): the GIN kernel's ``kNoAcc`` and the
+    TPU stub's ``msg[:window]``."""
+    d = msg.shape[-1]
+    msg = msg.reshape(nw, -1, d)
+    out = torch.zeros(nw, window, d, dtype=msg.dtype, device=msg.device)
+    m = min(window, msg.shape[1])
+    out[:, :m] = msg[:, :m]
+    return out.reshape(nw * window, d)
 
 
 def _ell_lanes(ell_meta, nw: int, window: int, vocab: int, acc):
@@ -281,20 +303,38 @@ def _ell_lanes(ell_meta, nw: int, window: int, vocab: int, acc):
     attrs = meta[..., 2:].reshape(-1, 3)
     attrs = torch.where((attrs >= 0) & (attrs < vocab), attrs, vocab)
 
-    def accumulate(msg: torch.Tensor) -> torch.Tensor:
+    def accumulate(msg: torch.Tensor, first: bool = False) -> torch.Tensor:
+        if first:  # a pad lane (v outside the window) lands nowhere
+            return _window_lanes(msg * v_ok[:, None].to(msg.dtype), nw, window)
         out = torch.zeros(nw * window, msg.shape[1], dtype=msg.dtype, device=msg.device)
         return out.index_add_(0, dest, msg[v_ok])
 
     return gather, u_ok, attrs, accumulate
 
 
+# ``csrc/gin_model.cuh``'s Dims::knockout bits (timing knockouts of rows 1
+# and 8), by the TPU stub names (``gin_local_model_slots(_ablate=...)``);
+# "ablation" knocks nothing out and selects the kernel that reads the bits
+# (the stage splits' whole: that kernel's branches cost it time of its own).
+GIN_KNOCKOUTS = {"nomlp": 1, "nomessages": 2, "nogather": 4, "nobond": 8, "noacc": 16,
+                 "ablation": 32}
+GIN_NEAR_ROWS = 8  # nogather's sources: the window's first rows
+
+
 def _gin_model_ref(lanes, h0, pool_gl, ee_tables, w1_all, b1_all, w2_all, b2_all,
-                   eps_all, pred_w, window, num_layers, gmax, vn_col) -> torch.Tensor:
+                   eps_all, pred_w, window, num_layers, gmax, vn_col,
+                   knockout: int = 0) -> torch.Tensor:
     """GIN / GIN-VN over a layout's ``lanes`` = (per lane: the source's row
     over the padded node axis, the source's validity [lanes, 1], the three
     bond-table rows with the zero row ``vocab`` for none; and the function
-    that sums per-lane messages into per-row sums [NW·W, D])."""
+    that sums per-lane messages into per-row sums [NW·W, D], or with
+    ``first=True`` gives row r the window's lane r). ``knockout``: the
+    ``GIN_KNOCKOUTS`` bits, each stage's stand-in as the kernel computes it
+    (``csrc/gin_model.cuh``)."""
     gather, u_ok, attr_rows, accumulate = lanes
+    off = lambda name: bool(knockout & GIN_KNOCKOUTS[name])
+    if off("nogather"):
+        u_ok = u_ok * (gather % window < GIN_NEAR_ROWS)[:, None].to(u_ok.dtype)
     cdt = h0.dtype
     acc = _acc_dtype(cdt)
     dev = h0.device
@@ -315,8 +355,15 @@ def _gin_model_ref(lanes, h0, pool_gl, ee_tables, w1_all, b1_all, w2_all, b2_all
             torch.zeros(1, d, dtype=acc, device=dev),
         ])
         hf = h.to(acc)
-        ee = tab[attr_rows[:, 0]] + tab[attr_rows[:, 1]] + tab[attr_rows[:, 2]]
-        agg = accumulate(_relu(hf[gather] * u_ok + ee).to(cdt).to(acc))
+        if off("nobond"):
+            ee = (attr_rows == 0).sum(1, keepdim=True).to(acc) * tab[0]
+        else:
+            ee = tab[attr_rows[:, 0]] + tab[attr_rows[:, 1]] + tab[attr_rows[:, 2]]
+        msg = _relu(hf[gather] * u_ok + ee).to(cdt).to(acc)
+        if off("nomessages"):
+            agg = torch.zeros_like(hf)
+        else:
+            agg = accumulate(msg, first=off("noacc"))
         if vnc is not None:
             e0 = tab[0] + tab[5] + tab[11]  # the (0, 0, 0)-attr bond embedding
             r = _relu(hf + e0).to(cdt).to(acc)
@@ -327,6 +374,9 @@ def _gin_model_ref(lanes, h0, pool_gl, ee_tables, w1_all, b1_all, w2_all, b2_all
             back = pooled[pool_idx]
             agg = agg + back[:, d:] * (1 - vnc) + back[:, :d] * vnc
         act = (agg + eps_all[l, 0].to(acc) * hf).to(cdt)
+        if off("nomlp"):
+            h = act
+            continue
         w1 = w1_all[l * hid : (l + 1) * hid].to(acc)
         w2 = w2_all[l * d : (l + 1) * d].to(acc)
         z = _relu(act.to(acc) @ w1.T + b1_all[l].to(acc)).to(cdt)
@@ -356,19 +406,23 @@ def gin_local_model_slots_ref(
     prefix_caps: tuple | None = None,
     vn_col: Optional[torch.Tensor] = None,  # [n] analytic-VN flag (GIN-VN)
     mlp_tiles: Optional[torch.Tensor] = None,  # the kernel's packed weights; not read here
+    knockout: int = 0,  # GIN_KNOCKOUTS bits (timing stand-ins)
 ) -> torch.Tensor:
     """Plain-torch ``gin_local_model_slots``: [NW·GMAX, T] pool sums.
 
     Products and sums run in f32 (f64 when h0 is f64) and the activations
     are rounded to h0's dtype where the kernel rounds them. The result is
     f32, or f64 for f64 inputs (the kernel has no f64 mode). ``mlp_tiles``,
-    the bf16 kernel's packed copy of W1 and W2, is not read."""
+    the bf16 kernel's packed copy of W1 and W2, is not read. ``knockout``
+    computes the stage stand-ins of ``GIN_KNOCKOUTS``: nogather, nobond,
+    noacc and nomlp are the TPU kernel's ``_ablate`` stubs
+    (``msg[:window]`` for noacc), nomessages drops the lane messages."""
     caps, offs, _ = _slot_prefix_geom(prefix_caps, window, slots)
     lanes = _slot_lanes_of_meta(slot_meta, -(-h0.shape[0] // window), window,
                                 ee_tables.shape[0] // num_layers, caps, offs,
                                 _acc_dtype(h0.dtype))
     return _gin_model_ref(lanes, h0, pool_gl, ee_tables, w1_all, b1_all, w2_all,
-                          b2_all, eps_all, pred_w, window, num_layers, gmax, vn_col)
+                          b2_all, eps_all, pred_w, window, num_layers, gmax, vn_col, knockout)
 
 
 def gin_local_model_ref(
@@ -387,15 +441,17 @@ def gin_local_model_ref(
     gmax: int,
     vn_col: Optional[torch.Tensor] = None,  # [n] analytic-VN flag (GIN-VN)
     mlp_tiles: Optional[torch.Tensor] = None,  # the kernel's packed weights; not read here
+    knockout: int = 0,  # GIN_KNOCKOUTS bits (timing stand-ins)
 ) -> torch.Tensor:
     """Plain-torch ``gin_local_model`` (the k=1 ELL layout, B lanes per
-    window): [NW·GMAX, T] pool sums. Numerics as in
-    ``gin_local_model_slots_ref``; messages are summed per destination row
-    in lane order."""
+    window): [NW·GMAX, T] pool sums. Numerics and ``knockout`` as in
+    ``gin_local_model_slots_ref`` (noacc: row r takes the window's lane r, a
+    pad lane nothing); messages are summed per destination row in lane
+    order."""
     lanes = _ell_lanes(ell_meta, -(-h0.shape[0] // window), window,
                        ee_tables.shape[0] // num_layers, _acc_dtype(h0.dtype))
     return _gin_model_ref(lanes, h0, pool_gl, ee_tables, w1_all, b1_all, w2_all,
-                          b2_all, eps_all, pred_w, window, num_layers, gmax, vn_col)
+                          b2_all, eps_all, pred_w, window, num_layers, gmax, vn_col, knockout)
 
 
 def _gcn_model_ref(lanes, h0, dis, pool_gl, ee_tables, roots, alphas, betas,
@@ -1258,7 +1314,7 @@ def _library(name: str) -> dict:
     prefix, getters, smem_args, launch_args = {
         "gin_local_model_slots": (
             "gin_slots", slot_getters + ("rows_per_block", "max_cluster"), [_I32] * 7,
-            [_I32] + [_PTR] * 13 + [_I32] * 10 + [_INT_P, _I32, _I32, _I32, _PTR],
+            [_I32] + [_PTR] * 13 + [_I32] * 10 + [_INT_P] + [_I32] * 4 + [_PTR],
         ),
         "gcn_local_model_slots": (
             "gcn_slots", slot_getters + ("rows_per_block", "max_cluster"), [_I32] * 6,
@@ -1278,7 +1334,7 @@ def _library(name: str) -> dict:
         ),
         "gin_local_model": (
             "gin_ell", ell_getters, [_I32] * 7,
-            [_I32] + [_PTR] * 13 + [_I32] * 11 + [_I32, _PTR],
+            [_I32] + [_PTR] * 13 + [_I32] * 12 + [_I32, _PTR],
         ),
         "gcn_local_model": (
             "gcn_ell", ell_getters, [_I32] * 6,
@@ -1504,7 +1560,7 @@ def _check_gin(h0, pool_gl, ee_tables, w1_all, b1_all, w2_all, b2_all, eps_all,
 
 def _launch_gin(slot_meta, h0, pool_gl, ee_tables, w1_all, b1_all, w2_all, b2_all,
                 eps_all, pred_w, window, slots, num_layers, gmax, prefix_caps,
-                vn_col, tiles) -> torch.Tensor:
+                vn_col, tiles, knockout=0) -> torch.Tensor:
     dev = h0.device
     nw = -(-h0.shape[0] // window)
     caps, _, sw = _slot_prefix_geom(prefix_caps, window, slots)
@@ -1512,7 +1568,7 @@ def _launch_gin(slot_meta, h0, pool_gl, ee_tables, w1_all, b1_all, w2_all, b2_al
     return _launch_gin_model(gin_local_model_slots, _library("gin_local_model_slots"), slot_meta,
                              _center(window), h0, pool_gl, ee_tables, w1_all, b1_all, w2_all,
                              b2_all, eps_all, pred_w, window, num_layers, gmax, vn_col, tiles,
-                             slot_geom=(caps, slots))
+                             slot_geom=(caps, slots), knockout=knockout)
 
 
 def gin_local_model_slots(
@@ -1533,6 +1589,7 @@ def gin_local_model_slots(
     prefix_caps: tuple | None = None,
     vn_col: Optional[torch.Tensor] = None,
     mlp_tiles: Optional[torch.Tensor] = None,
+    knockout: int = 0,
 ) -> torch.Tensor:
     """GIN whole-model slot megakernel: [NW·GMAX, T] f32 per-window pool
     sums (``base.pool_finish`` divides by node counts and adds the bias),
@@ -1546,10 +1603,13 @@ def gin_local_model_slots(
     MLP runs on the tensor cores from ``mlp_tiles``, the weight chunks as
     ``mlp_tiles()`` packs them (packed here, once per weight set, when not
     given); ``gin_local_model_slots.stages`` records the launch's weight
-    ring (0 in float32). Each launch adds one to
-    ``gin_local_model_slots.launches``."""
+    ring (0 in float32). ``knockout`` (timing only): the ``GIN_KNOCKOUTS``
+    bits, which the plain version computes too; 0 launches the production
+    kernel, any other value the kernel that reads them. Each launch adds one
+    to ``gin_local_model_slots.launches``."""
     args = (slot_meta, h0, pool_gl, ee_tables, w1_all, b1_all, w2_all, b2_all,
-            eps_all, pred_w, window, slots, num_layers, gmax, prefix_caps, vn_col, mlp_tiles)
+            eps_all, pred_w, window, slots, num_layers, gmax, prefix_caps, vn_col, mlp_tiles,
+            knockout)
     return _dispatch(h0, gin_local_model_slots_ref, _launch_gin, args)
 
 
@@ -1972,7 +2032,8 @@ def ring_stages(smem_of, chunks: int, budget: int) -> int:
 
 
 def _launch_gin_ell(ell_meta, h0, pool_gl, ee_tables, w1_all, b1_all, w2_all, b2_all,
-                    eps_all, pred_w, window, num_layers, gmax, vn_col, tiles) -> torch.Tensor:
+                    eps_all, pred_w, window, num_layers, gmax, vn_col, tiles,
+                    knockout=0) -> torch.Tensor:
     dev = h0.device
     n = h0.shape[0]
     nw = -(-n // window)
@@ -1980,16 +2041,19 @@ def _launch_gin_ell(ell_meta, h0, pool_gl, ee_tables, w1_all, b1_all, w2_all, b2
     lib = _library("gin_local_model")
     return _launch_gin_model(gin_local_model, lib, ell_meta, block, h0, pool_gl, ee_tables,
                              w1_all, b1_all, w2_all, b2_all, eps_all, pred_w, window, num_layers,
-                             gmax, vn_col, tiles)
+                             gmax, vn_col, tiles, knockout=knockout)
 
 
 def _launch_gin_model(fn, lib, meta, layout_arg, h0, pool_gl, ee_tables, w1_all, b1_all, w2_all,
                       b2_all, eps_all, pred_w, window, num_layers, gmax, vn_col, tiles,
-                      slot_geom=None) -> torch.Tensor:
+                      slot_geom=None, knockout=0) -> torch.Tensor:
     """Launch row 8 (``layout_arg`` the ELL block) or row 1 (the slot
     centre, ``slot_geom`` = (caps, slots)) of ``csrc/gin_model.cuh`` for the
     wrapper ``fn``: in bf16 with the weight ring as deep as the card's
-    shared memory allows (``fn.stages``; 0 in f32)."""
+    shared memory allows (``fn.stages``; 0 in f32), with ``knockout``'s
+    ``GIN_KNOCKOUTS`` bits."""
+    if not 0 <= knockout <= sum(GIN_KNOCKOUTS.values()):
+        raise ValueError(f"knockout {knockout}: the bits of {GIN_KNOCKOUTS}")
     code = _dtype_code(h0.dtype)
     dev = h0.device
     n, d = h0.shape
@@ -2021,7 +2085,7 @@ def _launch_gin_model(fn, lib, meta, layout_arg, h0, pool_gl, ee_tables, w1_all,
         pred_w.data_ptr(), None if vn_col is None else vn_col.data_ptr(),
         None if code == 0 else tiles.data_ptr(), out.data_ptr(),
         nw, n, window, layout_arg, d, hid, L, vocab, gmax, t_out, *geom_args, stages,
-        dev.index, torch.cuda.current_stream(dev).cuda_stream,
+        int(knockout), dev.index, torch.cuda.current_stream(dev).cuda_stream,
     )
     _raise_on(lib, rc, fn.__name__)
     fn.launches += 1
@@ -2045,6 +2109,7 @@ def gin_local_model(
     gmax: int,
     vn_col: Optional[torch.Tensor] = None,
     mlp_tiles: Optional[torch.Tensor] = None,
+    knockout: int = 0,
 ) -> torch.Tensor:
     """GIN / GIN-VN whole-model ELL kernel: [NW·GMAX, T] f32 per-window
     pool sums over the k=1 ELL layout, at windows of 128 up to 1024 rows.
@@ -2055,10 +2120,11 @@ def gin_local_model(
     ``eps_all``) or raises. In bfloat16 the kernel's update MLP runs on the
     tensor cores (``wgmma``) from ``mlp_tiles``, as in
     ``gin_local_model_slots``; ``gin_local_model.stages`` records the weight
-    ring. A width it cannot take (D > 112) raises. Each launch adds one to
+    ring. A width it cannot take (D > 112) raises. ``knockout`` as in
+    ``gin_local_model_slots``. Each launch adds one to
     ``gin_local_model.launches``."""
     args = (ell_meta, h0, pool_gl, ee_tables, w1_all, b1_all, w2_all, b2_all,
-            eps_all, pred_w, window, num_layers, gmax, vn_col, mlp_tiles)
+            eps_all, pred_w, window, num_layers, gmax, vn_col, mlp_tiles, knockout)
     return _dispatch(h0, gin_local_model_ref, _launch_gin_ell, args)
 
 
@@ -2077,7 +2143,8 @@ def _two_blocks_budget(lib, dev) -> int:
 
 def _knocked_out(h0: torch.Tensor, knockout: int) -> bool:
     """Whether a launch knocks a stage out (a timing knob the models never
-    set): only the CUDA kernel has stages to knock out."""
+    set) in a kernel whose knockouts have no plain version (rows 1 and 8's
+    have one, ``GIN_KNOCKOUTS``): only the CUDA kernel has them."""
     if knockout and h0.device.type != "cuda":
         raise ValueError("knockout times the CUDA kernel; it has no plain version")
     return bool(knockout)

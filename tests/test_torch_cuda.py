@@ -68,12 +68,15 @@ def _slot_batch_big(name: str, big: int, seed: int) -> dict:
     return batch
 
 
-def _slot_operands(vn: bool, big: int, seed: int = 26, d: int = D, hid: int = H) -> dict:
-    """Row 1's operands on ``_slot_batch_big``'s layout at width ``d`` and
-    hidden width ``hid``, seeded random h0 and weights, as numpy arrays."""
+def _slot_operands(vn: bool, big: int, seed: int = 26, d: int = D, hid: int = H,
+                   layers: int = L, std: float = 0.2) -> dict:
+    """Row 1's operands on ``_slot_batch_big``'s layout at width ``d``,
+    hidden width ``hid`` and depth ``layers``, seeded random h0 and weights
+    of deviation ``std``, as numpy arrays."""
+    L = layers
     batch = _slot_batch_big("gin-vn" if vn else "gin", big, seed)
     rng = np.random.default_rng(seed)
-    f32 = lambda *s: rng.normal(0, 0.2, s).astype(np.float32)
+    f32 = lambda *s: rng.normal(0, std, s).astype(np.float32)
     n = batch["node_feat"].shape[0]
     slots = batch["slot_geom"].shape[-1]
     return dict(
@@ -256,16 +259,93 @@ def _ell_batch(name: str, big: int, seed: int) -> dict:
     return base.as_batch(packed, blocked="local_ell", window=window, block=block)
 
 
-def _ell_operands(name: str, big: int, seed: int = 16, d: int = D, hid: int = H) -> dict:
+# Rows 1 and 8's knockouts (``local_layer.GIN_KNOCKOUTS``): each bit (32:
+# nothing out, the kernel that reads them), the phase split's bits 0 and 1
+# together, and the TPU stubs' combination (nogather:nobond:noacc:nomlp).
+GIN_KNOCKOUT_CASES = (1, 2, 4, 8, 16, 32, 3, 29)
+
+
+def _gin_model_operands(kernel: str, vn: bool, big: int, d: int = D, hid: int = H,
+                        layers: int = L, std: float = 0.2) -> dict:
+    name = "gin-vn" if vn else "gin"
+    if kernel == "gin_local_model_slots":
+        return _slot_operands(vn, big, d=d, hid=hid, layers=layers, std=std)
+    return _ell_operands(name, big, d=d, hid=hid, layers=layers, std=std)
+
+
+# The knockout tests' operands (width, hidden width, depth, deviation): the
+# module's small ones and GIN's full width and depth (D=100, H=200, L=5). At
+# full depth the weights are drawn at 0.05, as chip_smoke.py's
+# ``gin_random_operands`` draws them: at 0.2, five layers over the 250-node
+# GIN-VN graph leave a prediction that f32-sized noise in the operands moves
+# by more than the f32 tolerance (tests/test_torch_ablate.py checks both).
+GIN_KNOCKOUT_WIDTHS = ((D, H, L, 0.2), (100, 200, 5, 0.05))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["gin_local_model_slots", "gin_local_model"],
+                         ids=["row1", "row8"])
+@pytest.mark.parametrize("vn", [False, True], ids=["gin", "gin-vn"])
+@pytest.mark.parametrize("big", (120, 250), ids=["W128", "W256"])
+@pytest.mark.parametrize("knockout", GIN_KNOCKOUT_CASES)
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 5e-2)],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("d,hid,layers,std", GIN_KNOCKOUT_WIDTHS,
+                         ids=[f"D{d}-H{h}-L{n}" for d, h, n, _ in GIN_KNOCKOUT_WIDTHS])
+def test_gin_model_cuda_knockouts_match_plain(kernel, vn, big, knockout, dtype, tol, d, hid,
+                                              layers, std, cuda_device):
+    """Rows 1 and 8 under each knockout (the kernel that reads them) against
+    their plain versions, one launch each, at W=128 and on clusters of two
+    (nogather's sources and noacc's lanes in the first block, the pools
+    across blocks), at the small width and at full width and depth;
+    tolerances as in ``test_ell_cuda_kernels_match_plain``."""
+    ops = _port(_gin_model_operands(kernel, vn, big, d=d, hid=hid, layers=layers, std=std),
+                cuda_device, dtype)
+    fn = getattr(local_layer, kernel)
+    before = fn.launches
+    got = fn(**ops, knockout=knockout)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 1
+    expect = getattr(local_layer, f"{kernel}_ref")(**ops, knockout=knockout)
+    assert bool(got.isfinite().all()) and expect.abs().max() > 1e-3
+    scale = max(1.0, expect.abs().max().item())
+    torch.testing.assert_close(got / scale, expect.float() / scale, rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["gin_local_model_slots", "gin_local_model"],
+                         ids=["row1", "row8"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_gin_model_cuda_knockout_zero_unchanged(kernel, dtype, cuda_device):
+    """Knockout 0 is the production kernel: bit-equal to a call without the
+    keyword, before and after the knockout kernel has run, and to the kernel
+    that reads the knockouts with none set (bit 5), so that no knockout
+    leaks into the production kernel's arithmetic; at full width and depth
+    (D=100, H=200, L=5) on a cluster of two."""
+    ops = _port(_gin_model_operands(kernel, True, 250, d=100, hid=200, layers=5), cuda_device,
+                dtype)
+    fn = getattr(local_layer, kernel)
+    full = fn(**ops)
+    assert torch.equal(fn(**ops, knockout=0), full)
+    assert torch.equal(fn(**ops, knockout=32), full)
+    fn(**ops, knockout=29)
+    assert torch.equal(fn(**ops, knockout=0), full)
+    with pytest.raises(ValueError, match="knockout"):
+        fn(**ops, knockout=64)
+
+
+def _ell_operands(name: str, big: int, seed: int = 16, d: int = D, hid: int = H,
+                  layers: int = L, std: float = 0.2) -> dict:
     """Operands of the GIN / GIN-VN (``gin_local_model``) or GCN
     (``gcn_local_model``) ELL kernel: the ELL layout of ``_ell_batch``, the
     layout's own degree norms for GCN, seeded random h0 and weights (width
-    ``d``, GIN's hidden width ``hid``), as numpy arrays."""
+    ``d``, GIN's hidden width ``hid``, depth ``layers``, deviation ``std``),
+    as numpy arrays."""
     batch = _ell_batch(name, big, seed)
     rng = np.random.default_rng(seed)
-    f32 = lambda *s: rng.normal(0, 0.2, s).astype(np.float32)
+    f32 = lambda *s: rng.normal(0, std, s).astype(np.float32)
     n = batch["node_feat"].shape[0]
-    D, H = d, hid
+    D, H, L = d, hid, layers
     common = dict(
         ell_meta=base.ell_meta(base.to_device(batch, "cpu")).numpy(), h0=f32(n, D),
         pool_gl=batch["pool_gl"], ee_tables=f32(L * 13, D), pred_w=f32(D, 1),
@@ -2617,6 +2697,51 @@ def test_gat_mega_ablate_cuda_full_width(form, window, cuda_device):
     scale = max(1.0, want.abs().max().item())
     for ref in (want, row5):
         torch.testing.assert_close(got / scale, ref / scale, rtol=1e-4, atol=1e-4)
+
+
+# The row-5 form's stubs, alone and in the JAX pairs tool's combination.
+_R5_VARIANTS = [*ablate_gat_mega.ROW5_VARIANTS, "nogather,noscore,noglue"]
+
+
+def _row5_ablation_operands(window: int, seed: int = 5) -> dict:
+    """Row 5's operands (``gat_local_model_slots``' keywords) from the
+    ablation's seeded sources at ``window``: its prefix stack, h0, skip0,
+    layers 1..L−1's skip and projection weights, a seeded a_all."""
+    ops = _ablation_operands(window=window)
+    caps = ABL_WINDOW_CAPS[window]
+    hd = ABL_HEADS * 8
+    rng = np.random.default_rng(seed)
+    return dict(
+        slot_pstack=ops["slot_pstack"], h0=ops["h0"], skip0=ops["skip0"],
+        proj_w=ops["proj_w"], skip_w=ops["skip_w"][hd:],
+        a_all=rng.normal(0, 0.3, (ABL_L * hd, 2 * ABL_HEADS)).astype(np.float32),
+        pool_gl=ops["pool_gl"], pred_hd=ops["pred_hd"], window=window, slots=len(caps),
+        num_heads=ABL_HEADS, num_layers=ABL_L, gmax=base.POOL_GMAX, prefix_caps=caps,
+    )
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", _R5_VARIANTS)
+@pytest.mark.parametrize("window", (128, 256))
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 5e-2)],
+                         ids=["f32", "bf16"])
+def test_gat_mega_ablate_cuda_row5_form_matches_plain(variant, window, dtype, tol, cuda_device):
+    """The ablation library's row-5 form (``r5``: row 5's body with its
+    stage stubs read) against ``gat_mega_ablate_ref``, one launch each; its
+    ``full`` also against row 5's own kernel, which compiles the stubs out."""
+    k = _port(_row5_ablation_operands(window), cuda_device, dtype)
+    ops = ablate_gat_mega.row5_operands(k)
+    before = ablate_gat_mega.gat_mega_ablate.launches
+    got = ablate_gat_mega.gat_mega_ablate("r5", variant, **ops)
+    torch.cuda.synchronize()
+    assert ablate_gat_mega.gat_mega_ablate.launches == before + 1
+    want = ablate_gat_mega.gat_mega_ablate_ref("r5", variant, **ops)
+    assert bool(got.isfinite().all()) and want.abs().max() > 1e-2
+    scale = max(1.0, want.abs().max().item())
+    torch.testing.assert_close(got / scale, want / scale, rtol=tol, atol=tol)
+    if variant == "full":
+        row5 = local_layer.gat_local_model_slots(**k)
+        torch.testing.assert_close(got / scale, row5 / scale, rtol=tol, atol=tol)
 
 
 @pytest.mark.cuda

@@ -6,8 +6,10 @@ batch, with and without a spill tail (the whole-model or per-layer ELL
 path; PNA's plain loop), an edge-block batch (the windowed scatter; GIN's
 fused layer), a legacy local batch whose 200-node graph crosses windows
 (GIN's and GIN-VN's row 10, the other models' plain loop) and GAT's fused
-ELL layer; the bench tools (``bench.matmul_shapes``, ``bench.ablate_gat_mega``)
-run their plain versions; the native packer packs a bucket and GIN's
+ELL layer; the bench tools (``bench.matmul_shapes``, ``bench.ablate_gat_mega``,
+the stage-split tools ``bench.ablate_gin_slots``, ``ablate_gat_pairs``,
+``ablate_model``, ``ablate_slots`` and ``ablate_gat``) run their plain
+versions; the native packer packs a bucket and GIN's
 inference stream (``runtime.stream``) runs, sequential and pipelined; the
 experiment CLI's ``run`` (GIN, ``--device cpu``) and ``convert`` (an OGB
 raw/ directory, gzipped, with eigenvectors) run."""
@@ -89,6 +91,16 @@ with contextlib.redirect_stdout(io.StringIO()) as table:
                           "--variants", "full,v3,v4,v5"])
 assert len([ln for ln in table.getvalue().splitlines() if not ln.startswith("#")]) == 6, \
     table.getvalue()
+from flowgnn_tpu_torch.bench import (ablate_gat, ablate_gat_pairs, ablate_gin_slots,
+                                     ablate_model, ablate_slots)
+tool = ["--device", "cpu", "--graphs", "6", "--node-cap", "1023", "--reps", "1", "--trials", "1",
+        "--dtype", "f32", "--check"]
+with contextlib.redirect_stdout(io.StringIO()):
+    recs = [ablate_gin_slots.main(tool + ["--variants", "full,nomlp"]),
+            ablate_gat_pairs.main(tool + ["--variants", "full,noscore"]),
+            ablate_model.main(tool), ablate_slots.main(tool + ["--model", "dgn"]),
+            ablate_gat.main(tool)]
+assert all(r["metric"].endswith("_per_pass") for r in recs), recs
 import json
 from flowgnn_tpu_torch.bench import bench
 with contextlib.redirect_stdout(io.StringIO()) as rec, contextlib.redirect_stderr(io.StringIO()):
