@@ -308,15 +308,50 @@ Phases, each of which raises (non-zero exit) on failure:
    over 8192 molhiv graphs, two weight sets flipped halfway: one CUDA graph
    captured per (signature, weight set), no launch, ``run`` and
    ``run_pipelined`` and each bucket's eager forward within ``FIXED_ULPS``
-   (``check_fixed_stream``); the phase's seconds.
+   (``check_fixed_stream``); the phase's seconds;
+11. the multi-device slice (``flowgnn_tpu_torch.parallel``) on the one card,
+   each rank a spawned process on cuda:0 (one set of four, spawned once, runs
+   11a-11c, each mesh on its first ranks: ``parallel_rank``): gloo, the
+   transport rule's choice for ranks that share a GPU, every collective
+   staged through host memory (``run_parallel``). Its stream: the first ``HALO_GRAPHS`` molhiv graphs
+   at the CLI's capacities (8192 nodes, 512 graphs), packed window-aligned at
+   W=512 and unaligned. 11a: ``halo_forward`` for all six models at full
+   width at k = 2 and 4 ranks on each of ``HALO_LAYOUTS``: aligned
+   ``local_slots`` (rows 3, 4, 5 per shard), unaligned ``local_slots`` (PNA:
+   row 19 with the halo spill), aligned ``local_ell`` (rows 8, 9, 18, 17),
+   unaligned ``local_ell`` with graphs that straddle windows and shards
+   (rows 31, 14, 16, 17 with the halo spill tail) and the plain halo layout;
+   f32 and bf16, every launch count set to 0 just before each pass and read
+   just after on every rank, held to the kernels the JAX package's gates
+   pick for each shard (``halo_expected``), each bucket's predictions held
+   to the single-device kernel path of the same packing and to the f32 plain
+   path (phase 4's tolerances, ``hold_halo``), bf16 µs/graph beside the
+   single-device kernel path's and the exchange's bytes a layer and rank
+   (``parallel.halo.exchange_bytes_per_layer``). At k = 2 also one pass a
+   dtype with intermediates on the aligned shards (``HALO_INTER``: rows 20,
+   22, 21 on slots, 13 and 15 on ELL, GAT's fused row 23), counted and held
+   the same way, and one more bf16 pass of GIN's ELL-spill step traced on
+   rank 0 (``HALO_TRACED``): the device's busy time against the host's time
+   in the collectives (``trace_split``). 11b: ``sharded_forward`` (the replicated-node path) at data × edge =
+   2 × 2 in the k = 4 processes, no launch, held the same way. 11c: one rank
+   over NCCL (the rule's choice for a rank with a GPU of its own),
+   ``halo_forward`` at k = 1 on the slot and ELL-spill layouts, counted,
+   held to the same references. 11d: ``cli run --multihost --edge-shards 2``
+   as two host processes (``run_multihost_cli``), every graph in order,
+   held to the f32 plain path. 11e: ``python -m
+   flowgnn_tpu_torch.bench.scaling`` in-process at k = 1, 2, 4 on both axes,
+   its records parsed (``run_scaling_bench``). Every time it prints stands
+   beside the card's name and power limit; the phase's seconds.
 
-No phase runs at a cut depth, and phase 8b runs the host application on
-8192 graphs at one trial (its defaults are 16384 and three: cut to keep the
-phase near 90 s); phase 5g replays each timing ``SPLIT_REPS`` times (rows 1
+Phase 8b runs the host application on 8192 graphs at one trial (its
+defaults are 16384 and three: cut to keep the phase near 90 s), phase 11 a
+514-graph stream (cut from the CLI's 4113, two buckets a packing, and
+``bench.scaling`` at 32 graphs a rank and two trials); no other phase runs
+at a cut depth. Phase 5g replays each timing ``SPLIT_REPS`` times (rows 1
 and 8: ``SPLIT_TRIALS`` timings of each, in turns, and their spread). The
-whole run takes about eleven minutes on an H100 with the builds (~50 s),
-phase 6c about 5 s of it, phase 9 about 60 s, phase 10 about 12 s. The line
-before the last is a JSON object with one record per kernel; the last line
+whole run takes about fourteen minutes on an H100 with the builds (~50 s),
+phase 6c about 5 s of it, phase 9 about 60 s, phase 10 about 12 s, phase 11
+about 2-3 min. The line before the last is a JSON object with one record per kernel; the last line
 is ``{"ok": true, "device": {...}}``. Without a CUDA
 device, or outside the repository, it exits non-zero before printing
 either.
@@ -700,6 +735,44 @@ HUB_DEGREE = 12
 # lanes, the other rows' lanes, the sentinel lanes), as multiples of it, and
 # the windows it runs at.
 LONG_RUN = ((1.25, 3, 0.3), (128, 512))
+
+
+# Phase 11: the multi-device slice (flowgnn_tpu_torch.parallel: the halo
+# layout, the sharded steps, the multi-host CLI, the scaling bench) on the one
+# card, each rank a spawned process on cuda:0 (gloo, the transport rule's
+# choice for ranks that share a GPU; 11c's one rank over NCCL). Its stream:
+# the first HALO_GRAPHS molhiv graphs at the CLI's bucket capacities, packed
+# window-aligned at the halo layouts' window (slots, ELL) and unaligned (ELL
+# with the halo spill tail, the plain halo layout): HALO_LAYOUTS, name →
+# (build_halo_batch's blocked, aligned packing).
+HALO_GRAPHS = 514  # two buckets a packing (cut from the CLI stream's 4113 to keep the phase short)
+HALO_CAPS = (8192, 24576, 512)
+HALO_WINDOW = 512  # the halo local layouts' window (models.base.ELL_DEFAULT_GEOMETRY)
+HALO_K = (2, 4)
+HALO_SLACK = 2.0  # build_halo_batch's edge_slack
+HALO_LAYOUTS = {"slots": (SLOTS, True), "slots spill": (SLOTS, False), "ell": (ELL, True),
+                "ell spill": (ELL, False), "plain": (None, False)}
+# The slot layout with the halo spill launches a kernel for PNA alone (row
+# 19); the other models run their plain loop there, as on the plain layout.
+# 11a's passes with intermediates at k = HALO_K[0] on the aligned packing
+# (not timed): a shard with no spill tail then runs its per-layer kernels
+# (rows 20-22 on slots, 13 and 15 on ELL; GAT's fused row 23), where a pass
+# without them runs the whole-model kernels. Name → (the shards' layout of
+# HALO_LAYOUTS, the forward's options).
+HALO_INTER = {"slots inter": ("slots", {"return_intermediates": True}),
+              "ell inter": ("ell", {"return_intermediates": True}),
+              "ell fused": ("ell", {"return_intermediates": True, "fuse_layers": True})}
+HALO_ONLY = {"slots spill": ("pna",), "slots inter": ("pna", "dgn", "gat"),
+             "ell inter": ("gin", "gin-vn", "gcn"), "ell fused": ("gat",)}
+HALO_REPS = 2  # timed bf16 passes of each halo run; the best is printed
+# The halo job (model, layout, k) whose bf16 step rank 0 traces once more
+# after its timed passes (torch.profiler): the device's busy time against
+# the host's time in the collectives (``parallel.mesh``'s spans).
+HALO_TRACED = ("gin", "ell spill", 2)
+NCCL_LAYOUTS = ("slots", "ell spill")  # 11c's layouts at k = 1
+MULTIHOST_GRAPHS = 257  # 11d: cli run --multihost, two hosts of 1 × 2 ranks, graph-cap 64
+SCALING_ARGV = ["--counts", "1,2,4", "--axis", "data,edge", "--graphs-per-device", "32",
+                "--trials", "2"]
 
 
 def cuobjdump_path() -> str:
@@ -2966,15 +3039,13 @@ def cli_main(argv: list) -> str:
     return out.getvalue()
 
 
-def counted_pass(fn, kernels: dict) -> tuple:
+def counted_pass(fn, kernels: dict, device="cuda") -> tuple:
     """``fn()`` with every launch count set to 0 just before and read just
     after: (its result, the counts)."""
-    import torch
-
     for f in kernels.values():
         f.launches = 0
     out = fn()
-    torch.cuda.synchronize()
+    _sync(device)
     return out, {k: f.launches for k, f in kernels.items()}
 
 
@@ -3358,6 +3429,504 @@ def check_fixed_stream(device) -> None:
               f"phase 10c {name}: {e_pipe:g} / {e_eager:g} ulps past {FIXED_ULPS[name]}")
 
 
+def halo_packing(name: str, aligned: bool) -> list:
+    """Phase 11's buckets of ``name``'s stream, window-aligned or not."""
+    from flowgnn_tpu_torch.core.graphs import auto_edge_capacity, pack_dataset
+    from flowgnn_tpu_torch.core.synthetic import synthetic_dataset
+    from flowgnn_tpu_torch.models import registry
+
+    spec = registry.get(name)
+    graphs = registry.apply_transforms(spec, synthetic_dataset("molhiv", seed=SEED,
+                                                               num_graphs=HALO_GRAPHS))
+    edges = -(-max(HALO_CAPS[1], auto_edge_capacity(graphs, HALO_CAPS[0])) // 8) * 8
+    return list(pack_dataset(graphs, HALO_CAPS[0], edges, HALO_CAPS[2],
+                             with_eigen=spec.needs_eigen,
+                             align_window=HALO_WINDOW if aligned else None))
+
+
+def halo_layout(layout: str) -> tuple:
+    """(the shards' layout of HALO_LAYOUTS, the forward's options) of one of
+    phase 11's layouts."""
+    return HALO_INTER.get(layout, (layout, {}))
+
+
+def halo_expected(name: str, hb: dict, opts: dict) -> dict:
+    """The kernels one rank launches on the halo shard ``hb`` in one pass
+    with the forward's options ``opts`` (the kernel table's halo column, by
+    the JAX package's gates): a slot shard with no spill tail row 3, 4 or 5
+    with the pooling layout and no intermediates, else row 20, 22 or 21 a
+    layer; with a tail row 19 (PNA) a layer; an ELL shard with no tail rows
+    8, 9 (one edge block a window, the pooling layout, no intermediates;
+    else 13, 15 a layer), 18, 17 a layer; with a tail rows 31, 14, 16, 17 a
+    layer; GAT with ``fuse_layers`` row 23 on every layer but the last, row
+    17 on the last; nothing on the plain halo layout, nor rows 1, 2 and 24
+    anywhere."""
+    model, L = name.split("-")[0], num_layers(name)
+    whole = not opts.get("return_intermediates")
+    if "slot_src" in hb:
+        if hb["slot_spill"].shape[-1]:
+            return {"pna": {"pna_local_stats_ell": L}}.get(model, {})
+        if "pool_gl" in hb and whole:
+            return {"pna": {"pna_local_model": 1}, "dgn": {"dgn_local_model": 1},
+                    "gat": {"gat_local_model_slots": 1}}.get(model, {})
+        return {"pna": {"pna_local_layer": L}, "dgn": {"dgn_local_layer_slots": L},
+                "gat": {"gat_local_message_slots": L}}.get(model, {})
+    if "loc_ell" not in hb:
+        return {}
+    if model == "gat" and opts.get("fuse_layers"):
+        return {"gat_local_layer_ell": L - 1, "gat_local_message_ell": 1}
+    per_layer = {"dgn": {"dgn_local_layer_ell": L}, "gat": {"gat_local_message_ell": L}}
+    if hb["senders"].shape[-1] > hb["loc_ulocal"].shape[-1]:
+        return {"gin": {ROW31: L}, "gcn": {"gcn_local_message_ell": L},
+                "dgn": {"dgn_local_message_ell": L}, "gat": {"gat_local_message_ell": L}
+                }.get(model, {})
+    if hb["loc_ell"].shape[-1] == 1 and "pool_gl" in hb and whole:
+        return {"gin": {"gin_local_model": 1}, "gcn": {"gcn_local_model": 1},
+                **per_layer}.get(model, {})
+    return {"gin": {"gin_local_layer_ell": L}, "gcn": {"gcn_local_layer_ell": L},
+            **per_layer}.get(model, {})
+
+
+def halo_case(name: str, layout: str, hbs: list) -> bool:
+    """Whether a stream's halo batches hold the case ``layout`` stands for in
+    some bucket: a slot shard with no spill tail and the pooling layout
+    (rows 3-5), one with the halo spill (row 19), an ELL shard with no spill
+    tail (rows 18, 17; for GIN and GCN also one edge block a window and the
+    pooling layout: rows 8, 9), one with the halo spill (rows 31, 14, 16,
+    17)."""
+    if layout == "slots":
+        return any(not hb["slot_spill"].shape[-1] and "pool_gl" in hb for hb in hbs)
+    if layout == "slots spill":
+        return any(hb["slot_spill"].shape[-1] for hb in hbs)
+    if layout == "plain":
+        return True
+    spill = [hb["senders"].shape[-1] > hb["loc_ulocal"].shape[-1] for hb in hbs]
+    if layout == "ell spill":
+        return any(spill)
+    whole = name.split("-")[0] in ("gin", "gcn")
+    return any(not sp and (not whole or "pool_gl" in hb and hb["loc_ell"].shape[-1] == 1)
+               for sp, hb in zip(spill, hbs))
+
+
+def _sync(device) -> None:
+    import torch
+
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def forward_with(forward, opts: dict):
+    """``forward`` called with the options ``opts``, giving its predictions
+    alone (with ``return_intermediates`` it gives them and the
+    intermediates)."""
+    if not opts:
+        return forward
+
+    def run(params, batch, prec, **kw):
+        out = forward(params, batch, prec, **opts, **kw)
+        return out[0] if opts.get("return_intermediates") else out
+
+    return run
+
+
+def trace_split(prof, wall: float) -> dict:
+    """The split of one traced pass of ``wall`` seconds (host clock) from its
+    ``torch.profiler`` record, in ms: the device's busy time (kernels, and
+    copies and sets), the host's time inside each collective's span
+    (``parallel.mesh``: staging copies, and their waits on the device,
+    included), and the pass's own wall."""
+    import collections
+
+    split = collections.Counter(wall=wall * 1e3)
+    for e in prof.key_averages():
+        dev_us = getattr(e, "self_device_time_total", None)
+        if dev_us is None:
+            dev_us = getattr(e, "self_cuda_time_total", 0)
+        if dev_us:
+            copy = e.key.startswith(("Memcpy", "Memset"))
+            split["device copies" if copy else "device kernels"] += dev_us / 1e3
+        if e.key.startswith(("edge.", "data.")):
+            split[e.key] += e.cpu_time_total / 1e3
+    return dict(split)
+
+
+def parallel_rank(rank: int, store, device: str, plans: list) -> list:
+    """One rank of phases 11a-11c, a process on cuda:0; the ranks of every
+    plan's mesh are the first ranks of one set of processes, the others skip
+    it. A plan: (kind, mesh shape, the precisions, jobs, timed passes), kind
+    "halo" (``halo_forward``; 11a, 11c) or "sharded" (``sharded_forward``;
+    11b), a job (model, layout, the stacked batch of each step, the
+    forward's options). Each job: one pass a precision over its steps, every
+    launch count set to 0 just before the pass and read just after, then,
+    when bf16 is among them, the best of the plan's timed bf16 passes
+    (barrier, sync, the host clock; the step's host slicing and copy
+    included), and for HALO_TRACED one more, traced on rank 0
+    (``trace_split``). Returns, for each plan, None when this rank is not in
+    it, else the mesh's transport and a record a job (the predictions and
+    the trace from rank 0)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from flowgnn_tpu_torch.core.numerics import BF16, FLOAT32
+    from flowgnn_tpu_torch.models import registry
+    from flowgnn_tpu_torch.parallel import inference
+    from flowgnn_tpu_torch.parallel import mesh as pmesh
+    from flowgnn_tpu_torch.params.loaders import params_from_numpy
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device(device)
+    kernels = {kname: kernel_fn(kname) for kname in KERNELS}
+    out = []
+    for i, (kind, shape, precs, jobs, reps) in enumerate(plans):
+        world = shape[0] * shape[1]
+        if rank >= world:
+            out.append(None)
+            continue
+        mesh = pmesh.make_mesh(*shape, rank=rank, store=store, devices=[dev] * world,
+                               name=f"plan{i}")
+        build = inference.halo_forward if kind == "halo" else inference.sharded_forward
+        records = []
+        for name, layout, stacks, opts in jobs:
+            rec = {"name": name, "layout": layout}
+            params_np = synthetic_params(name, SEED)
+            forward = forward_with(registry.get(name).forward, opts)
+            for prec in precs:
+                params = params_from_numpy(params_np, prec, dev)
+                step = build(forward, mesh, prec)
+                preds, counts = counted_pass(lambda: [step(params, s) for s in stacks],
+                                             kernels, dev)
+                rec[str(prec.compute_dtype)] = dict(
+                    preds=[p.float().cpu().numpy() for p in preds] if rank == 0 else None,
+                    launches={kn: c for kn, c in counts.items() if c})
+            if BF16 in precs and reps:
+                params = params_from_numpy(params_np, BF16, dev)
+                step = build(forward, mesh, BF16)
+
+                def timed(traced: bool = False) -> float:
+                    # The barrier stays outside the trace: its all-reduces
+                    # are no part of a step.
+                    mesh.barrier()
+                    _sync(dev)
+                    with (profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+                          if traced else contextlib.nullcontext()) as prof:
+                        t0 = time.perf_counter()
+                        for s in stacks:
+                            step(params, s)
+                        _sync(dev)
+                        wall = time.perf_counter() - t0
+                    if traced:
+                        rec["trace"] = trace_split(prof, wall)
+                    return wall
+
+                rec["seconds"] = min(timed() for _ in range(reps))
+                if (name, layout, world) == HALO_TRACED and kind == "halo":
+                    timed(traced=rank == 0)
+            records.append(rec)
+        out.append({"transport": mesh.transport, "records": records})
+    return out
+
+
+_HALO_PLAIN: dict = {}  # (model, aligned) -> the plain path's predictions by dtype
+
+
+def halo_references(name: str, layout: str, buckets: list, device) -> dict:
+    """The single-device forwards of phase 11's buckets on the card, f32 and
+    bf16: the plain edge-list path and the kernel path of the same packing
+    (``as_batches_uniform`` at the halo window, without the pooling layout
+    on the unaligned packing; the plain path for the plain layout), each
+    bucket's predictions, and the kernel path's best bf16 pass
+    over the buckets in seconds (the host copy of each batch included)."""
+    import time
+
+    import torch
+
+    from flowgnn_tpu_torch.core.numerics import BF16, FLOAT32
+    from flowgnn_tpu_torch.models import base, registry
+    from flowgnn_tpu_torch.params.loaders import params_from_numpy
+
+    spec = registry.get(name)
+    blocked, aligned = HALO_LAYOUTS[layout]
+    plain = [base.as_batch(b) for b in buckets]
+    with contextlib.redirect_stderr(io.StringIO()):
+        kern = (base.as_batches_uniform(buckets, blocked=blocked, window=HALO_WINDOW,
+                                        block=base.ELL_DEFAULT_GEOMETRY[1])
+                if blocked else plain)
+    if blocked and not aligned:
+        # The in-kernel pooling layout assumes every graph in one window;
+        # without it the unaligned packing's kernel path pools in torch.
+        kern = [{k: v for k, v in b.items() if k not in ("pool_gl", "pool_row")}
+                for b in kern]
+    ref = {}
+    for prec in (FLOAT32, BF16):
+        params = params_from_numpy(synthetic_params(name, SEED), prec, device)
+        run = lambda batches: [spec.forward(params, base.to_device(b, device), prec)
+                               for b in batches]
+        key = (name, aligned, prec.compute_dtype)
+        if key not in _HALO_PLAIN:
+            _HALO_PLAIN[key] = run(plain)
+        ref["plain", prec.compute_dtype] = _HALO_PLAIN[key]
+        ref["kernel", prec.compute_dtype] = run(kern) if blocked else _HALO_PLAIN[key]
+    best = float("inf")
+    for _ in range(HALO_REPS):  # params: the bf16 set
+        _sync(device)
+        t0 = time.perf_counter()
+        for b in kern:
+            spec.forward(params, base.to_device(b, device), BF16)
+        _sync(device)
+        best = min(best, time.perf_counter() - t0)
+    ref["seconds"] = best
+    return ref
+
+
+def hold_halo(what: str, buckets: list, preds: list, ref: dict, dtype, row=0) -> str:
+    """Each bucket's sharded predictions (``preds[i][row]``) against the f32
+    plain path (f32 1e-4; bf16 5e-2, or 1.5× what the bf16 plain path or the
+    bf16 single-device kernel path needs where larger, as ``check_outputs``
+    and ``KERNEL_ROUNDING`` widen phase 4's gates) and against the
+    single-device kernel path of the same packing in the same dtype (the
+    same tol); returns what to print."""
+    import torch
+
+    errs, kerrs, tols = [], [], []
+    for i, packed in enumerate(buckets):
+        k = packed.num_graphs
+        want = ref["plain", torch.float32][i][:k]
+        got = torch.as_tensor(preds[i][row][:k], device=want.device)
+        check(got.shape == want.shape and bool(got.isfinite().all()),
+              f"{what} bucket {i}: shape {tuple(got.shape)} or non-finite")
+        tol = 1e-4
+        if dtype == torch.bfloat16:
+            tol = max(5e-2, 1.5 * needed_tol(ref["plain", dtype][i][:k], want),
+                      1.5 * needed_tol(ref["kernel", dtype][i][:k], want))
+        errs.append(agree(got, want, tol))
+        kerrs.append(agree(got, ref["kernel", dtype][i][:k].float(), tol))
+        tols.append(tol)
+    return (f"max abs err vs f32 plain path {max(errs):.3e}, vs the single-device kernel path "
+            f"{max(kerrs):.3e} (tol {max(tols):.3e})")
+
+
+def run_multihost_cli(device, smi: str) -> None:
+    """Phase 11d: ``python -m flowgnn_tpu_torch.cli run --multihost
+    --edge-shards 2`` as two host processes (FLOWGNN_* environment), each
+    with two rank processes on the card, GIN on MULTIHOST_GRAPHS graphs at
+    graph-cap 64 (five buckets dealt to two hosts), f32: host 0's output
+    file holds every graph in order, held to the f32 plain path at 1e-4
+    (the CPU test runs 2 × 2 ranks a host, a padded group)."""
+    import os
+    import socket
+    import tempfile
+
+    import torch
+
+    from flowgnn_tpu_torch.core.graphs import auto_edge_capacity, pack_dataset
+    from flowgnn_tpu_torch.core.numerics import FLOAT32
+    from flowgnn_tpu_torch.core.synthetic import synthetic_molhiv
+    from flowgnn_tpu_torch.models import base, registry
+    from flowgnn_tpu_torch.params.loaders import params_from_numpy
+
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        port = sk.getsockname()[1]
+    spec = registry.get("gin")
+    graphs = registry.apply_transforms(spec, synthetic_molhiv(MULTIHOST_GRAPHS, seed=0))
+    params = params_from_numpy(synthetic_params("gin", SEED), FLOAT32, device)
+    want = []
+    edges = max(HALO_CAPS[1], auto_edge_capacity(graphs, HALO_CAPS[0]))
+    for b in pack_dataset(graphs, node_capacity=HALO_CAPS[0], edge_capacity=edges,
+                          graph_capacity=64):
+        want.append(spec.forward(params, base.to_device(base.as_batch(b), device),
+                                 FLOAT32)[: b.num_graphs, 0])
+    want = torch.cat(want)
+    with tempfile.TemporaryDirectory() as tmp:
+        cmd = [sys.executable, "-m", "flowgnn_tpu_torch.cli", "run", "--model", "gin",
+               "--num-graphs", str(MULTIHOST_GRAPHS), "--multihost", "--edge-shards", "2",
+               "--graph-cap", "64", "--out", tmp, "--f32"]
+        env = dict(os.environ, FLOWGNN_COORDINATOR=f"127.0.0.1:{port}",
+                   FLOWGNN_NUM_PROCESSES="2")
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen(cmd, env=dict(env, FLOWGNN_PROCESS_ID=str(i)),
+                                  stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+                 for i in range(2)]
+        try:
+            logs = [p.communicate(timeout=600)[0] for p in procs]
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+        wall = time.perf_counter() - t0
+        for i, (p, log) in enumerate(zip(procs, logs)):
+            check(p.returncode == 0, f"cli run --multihost host {i}: rc {p.returncode}\n{log}")
+        rec = json.loads(logs[0].strip().splitlines()[-1])
+        check(rec["hosts"] == 2 and rec["num_graphs"] == MULTIHOST_GRAPHS, f"multihost: {rec}")
+        got = read_outputs(f"{tmp}/gin_output.txt", MULTIHOST_GRAPHS)
+    err = agree(torch.tensor(got, device=device), want, 1e-4)
+    print(f"# 11d cli run --multihost: 2 hosts x (1 data x 2 edge) ranks, {rec['buckets']} "
+          f"buckets, {MULTIHOST_GRAPHS} graphs in order, max abs err vs f32 plain path "
+          f"{err:.3e}; wall {wall:.1f} s (process starts included) ({smi})")
+
+
+def run_scaling_bench(smi: str) -> None:
+    """Phase 11e: ``python -m flowgnn_tpu_torch.bench.scaling`` in-process
+    (its ranks spawned processes) at SCALING_ARGV: every record parsed, its
+    figures finite and positive, its predictions finite."""
+    from flowgnn_tpu_torch.bench import scaling
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        scaling.main(SCALING_ARGV)
+    recs = [json.loads(ln) for ln in out.getvalue().splitlines() if ln.startswith("{")]
+    check(len(recs) == 6, f"scaling: {len(recs)} records")
+    for r in recs:
+        check(r["finite"] and all(math.isfinite(r[k]) and r[k] > 0
+                                  for k in ("edges_per_s", "time_s", "efficiency")),
+              f"scaling: {r}")
+        print(f"# 11e scaling {r['axis']} k={r['devices']}: {r['edges_per_s']:.4g} edges/s, "
+              f"step {r['time_s'] * 1e3:.3f} ms, efficiency {r['efficiency']:.3f}, "
+              f"{r['gpus']} GPU(s), shared card {r['shared_card']} ({smi})")
+
+
+def run_parallel(device, smi: str) -> dict:
+    """Phase 11 (11a-11e, see the module's docstring); returns each kernel's
+    launches counted in the sharded runs, every rank's passes summed."""
+    import collections
+
+    import torch
+
+    from flowgnn_tpu_torch.parallel import halo, inference
+    from flowgnn_tpu_torch.parallel import mesh as pmesh
+
+    t0 = time.perf_counter()
+    launches = dict.fromkeys(KERNELS, 0)
+    print(f"# phase 11 on {smi}; the transport rule for ranks on cuda:0: "
+          f"{pmesh.transport([device] * 2)}, for one rank: {pmesh.transport([device])}")
+    packings = {(name, aligned): halo_packing(name, aligned) for name in MODELS
+                for aligned in (True, False)}
+    refs = {(name, layout): halo_references(name, layout, packings[name, aligned], device)
+            for name in MODELS for layout, (_, aligned) in HALO_LAYOUTS.items()
+            if name in HALO_ONLY.get(layout, MODELS)}
+    print(f"# 11 host set-up (packing, halo layouts, single-device references): "
+          f"{time.perf_counter() - t0:.1f} s")
+
+    def halo_jobs(k: int, layouts) -> tuple:
+        """Each (model, layout)'s halo batches, one a bucket (each its own
+        step), with the forward's options, and the launches a rank makes
+        over them in one pass."""
+        jobs, expect = [], {}
+        for name in MODELS:
+            for layout in layouts:
+                if name not in HALO_ONLY.get(layout, MODELS):
+                    continue
+                shards, opts = halo_layout(layout)
+                blocked, aligned = HALO_LAYOUTS[shards]
+                with contextlib.redirect_stderr(io.StringIO()):
+                    hbs = [halo.build_halo_batch(b, k=k, blocked=blocked, edge_slack=HALO_SLACK)
+                           for b in packings[name, aligned]]
+                check(halo_case(name, shards, hbs),
+                      f"11 {name} {layout} k={k}: no bucket of its case")
+                jobs.append((name, layout, [inference.stack_halo_buckets([hb]) for hb in hbs],
+                             opts))
+                total = collections.Counter()
+                for hb in hbs:
+                    total.update(halo_expected(name, hb, opts))
+                expect[name, layout] = dict(total)
+        return jobs, expect
+
+    from flowgnn_tpu_torch.core.numerics import BF16, FLOAT32
+
+    # One set of max(HALO_K) rank processes runs 11a at each k (the first k
+    # ranks), its passes with intermediates at HALO_K[0], 11b (2 × 2) and 11c
+    # (rank 0 alone, over NCCL).
+    t1 = time.perf_counter()
+    plans, expects = [], []
+    for k in HALO_K:
+        jobs, expect = halo_jobs(k, HALO_LAYOUTS)
+        plans.append(("halo", (1, k), (FLOAT32, BF16), jobs, HALO_REPS))
+        expects.append(expect)
+    jobs, expect = halo_jobs(HALO_K[0], HALO_INTER)
+    plans.append(("halo", (1, HALO_K[0]), (FLOAT32, BF16), jobs, 0))
+    expects.append(expect)
+    sharded = []
+    for name in MODELS:
+        bs = packings[name, False]
+        pairs = [bs[i : i + 2] + bs[i : i + 1] * (i + 2 > len(bs)) for i in range(0, len(bs), 2)]
+        sharded.append((name, "plain", [inference.stack_buckets(p) for p in pairs], {}))
+    plans.append(("sharded", (2, 2), (FLOAT32, BF16), sharded, HALO_REPS))
+    expects.append({})  # 11b: the plain loop, no launch
+    jobs, expect = halo_jobs(1, NCCL_LAYOUTS)
+    plans.append(("halo", (1, 1), (FLOAT32,), jobs, HALO_REPS))
+    expects.append(expect)
+    world = max(HALO_K)
+    ranks = pmesh.run_processes(parallel_rank, world, str(device), plans)
+    print(f"# 11a-11c: {world} rank processes on {device}, spawned once; "
+          f"{time.perf_counter() - t1:.1f} s")
+    for (kind, shape, precs, _, _), expect, res0, i in zip(plans, expects, ranks[0],
+                                                           range(len(plans))):
+        k = shape[0] * shape[1]
+        sub = "c" if k == 1 else "a" if kind == "halo" else "b"
+        what = f"k={k}" if kind == "halo" else "2x2"
+        check(res0["transport"] == ("nccl" if k == 1 else "gloo"),
+              f"11{sub} {what}: transport {res0['transport']}")
+        print(f"# 11{sub} {kind} {what}: {k} rank(s), transport {res0['transport']}")
+        for j, rec0 in enumerate(res0["records"]):
+            name, layout = rec0["name"], rec0["layout"]
+            want = expect.get((name, layout), {})
+            shards = halo_layout(layout)[0]
+            buckets = packings[name, HALO_LAYOUTS[shards][1]]
+            for r, res in enumerate(ranks[:k]):
+                for prec in precs:
+                    got = res[i]["records"][j][str(prec.compute_dtype)]["launches"]
+                    check(got == want, f"11{sub} {kind} {name} {layout} {what} rank {r} "
+                                       f"{prec.compute_dtype}: launches {got}, expected {want}")
+                    for kn, c in got.items():
+                        launches[kn] += c
+            for prec in precs:
+                dt = prec.compute_dtype
+                preds = rec0[str(dt)]["preds"]
+                if kind == "sharded":  # [2, G+1, T] a step: the buckets in order
+                    preds = [p[None] for step in preds for p in step][: len(buckets)]
+                held = hold_halo(f"11{sub} {kind} {name} {layout} {what} {dt}", buckets, preds,
+                                 refs[name, shards], dt)
+                line = (f"# 11{sub} {kind} {name} {layout} {what}"
+                        + (" over nccl" if k == 1 else "")
+                        + f" {dt}: {held}; launches per rank and pass {want or 'none'}")
+                if dt == torch.bfloat16 and "seconds" in rec0:
+                    graphs = sum(b.num_graphs for b in buckets)
+                    ref_s = refs[name, shards]["seconds"]
+                    line += (f"; bf16 {rec0['seconds'] * 1e6 / graphs:.3f} us/graph (one card, "
+                             f"the single-device kernel path {ref_s * 1e6 / graphs:.3f})")
+                    if kind == "halo":
+                        moved = halo.exchange_bytes_per_layer(halo.halo_shape(
+                            HALO_CAPS[0], buckets[0].edge_capacity, k), name, BF16)
+                        line += f", exchange {moved} B per layer and rank"
+                    line += f" ({smi})"
+                print(line)
+            if "trace" in rec0:
+                tr = rec0["trace"]
+                spans = sum(v for key, v in tr.items() if key.startswith(("edge.", "data.")))
+                busy = tr.get("device kernels", 0.0) + tr.get("device copies", 0.0)
+                check(tr.get("device kernels", 0.0) > 0,
+                      f"11{sub} trace {name} {layout}: no device time in the trace {tr}")
+                print(f"# 11{sub} trace {name} {layout} {what} rank 0 bf16, one pass traced "
+                      f"(torch.profiler): wall {tr['wall']:.3f} ms, device busy {busy:.3f} ms "
+                      f"({100 * busy / tr['wall']:.1f}%: kernels "
+                      f"{tr.get('device kernels', 0.0):.3f}, copies "
+                      f"{tr.get('device copies', 0.0):.3f}), host in collective spans "
+                      f"{spans:.3f} ms ({100 * spans / tr['wall']:.1f}%: "
+                      + ", ".join(f"{key} {v:.3f}" for key, v in sorted(tr.items())
+                                  if key.startswith(("edge.", "data.")))
+                      + f"), the rest of the host {tr['wall'] - spans:.3f} ms ({smi})")
+    print(f"# 11a-11c: {time.perf_counter() - t1:.1f} s")
+    t1 = time.perf_counter()
+    run_multihost_cli(device, smi)
+    print(f"# 11d: {time.perf_counter() - t1:.1f} s")
+    t1 = time.perf_counter()
+    run_scaling_bench(smi)
+    print(f"# 11e: {time.perf_counter() - t1:.1f} s")
+    print(f"# phase 11: {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
+
 def main() -> int:
     import torch
 
@@ -3572,6 +4141,12 @@ def main() -> int:
         launches[k] += n
     check_fixed_stream(dev)
     print(f"# phase 10: {time.perf_counter() - t0:.1f} s")
+
+    # 11. The multi-device slice: the halo and replicated-node steps (counted
+    # per rank, checked, timed), one rank over NCCL, the multi-host CLI and
+    # the scaling bench.
+    for k, n in run_parallel(dev, smi).items():
+        launches[k] += n
 
     print(smi)
     kernels = []

@@ -5,6 +5,7 @@ Usage:
                                       [--trials N] [--out DIR] [--f32] [--layout plain|blocked|local]
                                       [--trace DIR] [--device cuda|cpu]
                                       [--weights synthetic|reference] [--reference DIR] [--seed S]
+                                      [--multihost [--edge-shards K] [--local-data D]]
   python -m flowgnn_tpu_torch.cli accuracy --model M --dataset DIR [--metric auto|rocauc|ap]
   python -m flowgnn_tpu_torch.cli convert --raw <ogb>/raw --out DIR [--eigen] [--limit N]
   python -m flowgnn_tpu_torch.cli tune --model M [--dataset molhiv] [--windows 128,256,512]
@@ -30,9 +31,20 @@ power limit on stderr). ``--device cpu`` runs the kernels' plain versions:
 for tests, not for figures. ``convert`` runs no model. ``--weights
 synthetic`` (the default) draws each model's weights from ``--seed``;
 ``--weights reference`` loads the reference's binaries from ``--reference``
-and raises ``FileNotFoundError`` where a model's directory is missing. Multi-
-host (``--multihost``, ``--edge-shards``, ``--local-data`` other than 1)
-exits with a parser error: it waits for the port of ``parallel/``.
+and raises ``FileNotFoundError`` where a model's directory is missing.
+
+``run --multihost`` runs the stream over many hosts (``run_multihost``, the
+counterpart of ``flowgnn_tpu/cli.py:171-266``): every host runs the same
+command, joined by FLOWGNN_COORDINATOR (host:port) / FLOWGNN_NUM_PROCESSES
+/ FLOWGNN_PROCESS_ID or torchrun's environment (``parallel.multihost.
+initialize``; one process alone runs as one host). Each host starts
+``--local-data`` × ``--edge-shards`` rank processes, its local data × edge
+mesh (``parallel.mesh``; on one card the ranks share it over gloo), deals
+the buckets round-robin across hosts, runs each group of ``--local-data``
+buckets through ``parallel.inference.halo_forward`` with each bucket's nodes
+split over ``--edge-shards`` ranks, gathers every host's predictions and
+writes ``<model>_output.txt`` on host 0, every graph in submission order.
+``--edge-shards`` and ``--local-data`` apply only with ``--multihost``.
 
 Stated departures from the JAX CLI:
   * ``run`` warms up with one pass over every bucket, where the JAX CLI runs
@@ -59,7 +71,6 @@ import numpy as np
 
 MODELS = ("gin", "gin-vn", "gcn", "gat", "pna", "dgn")
 CAPS = (8192, 24576, 512)  # node, edge (at least), graph capacity of a bucket
-MULTIHOST = "multi-host waits for the port of parallel/ (ROADMAP queue 1, item 11)"
 
 
 def _load_graphs(dataset: str, spec, num_graphs: int | None):
@@ -270,6 +281,113 @@ def run_accuracy(
             "value": float(value), "num_graphs": int(len(scores)), "weights": weights}
 
 
+def _multihost_rank(rank: int, store, name: str, prec, devices: list, local_data: int,
+                    edge_shards: int, source: dict, stacks: list):
+    """One rank of a host's local mesh in ``run_multihost``: the halo step
+    over every group's stacked halo batch; rank 0 returns the predictions
+    [local_data, G+1, T] of each group (every rank holds them)."""
+    from .models import registry
+    from .parallel.inference import halo_forward
+    from .parallel.mesh import cpu_threads, make_mesh
+
+    if devices[rank].type == "cpu":
+        cpu_threads(len(devices))
+    mesh = make_mesh(local_data, edge_shards, rank=rank, store=store, devices=devices)
+    params = _params(name, prec, mesh.device, source["weights"], source["reference_root"],
+                     source["seed"])
+    fwd = halo_forward(registry.get(name).forward, mesh, prec)
+    outs = [fwd(params, stacked).float().cpu().numpy() for stacked in stacks]
+    return outs if rank == 0 else None
+
+
+def run_multihost(
+    name: str,
+    dataset: str,
+    out_dir: str,
+    prec,
+    reference_root: str | None = None,
+    num_graphs: int | None = None,
+    edge_shards: int = 1,
+    local_data: int = 1,
+    caps=CAPS,
+    *,
+    device="cuda",
+    weights: str = "synthetic",
+    seed: int = 0,
+) -> dict:
+    """``run --multihost`` (``flowgnn_tpu/cli.py:171-266``): join the
+    cluster (``multihost.initialize``; a no-op for one process), pack the
+    stream as ``run`` does with the JAX CLI's unaligned ``pack_dataset``,
+    deal the buckets round-robin across hosts (``shard_stream``; a trailing
+    partial group padded and its copies dropped), run each group on this
+    host's ``local_data`` × ``edge_shards`` mesh of spawned rank processes
+    (``halo_forward`` over ``build_halo_batch(k=edge_shards)``), all-gather
+    every host's predictions (``gather_results``) and, on host 0, write
+    ``<name>_output.txt`` with every graph in submission order. Returns the
+    JAX CLI's record, with the transport's device and the ranks a host."""
+    import math
+
+    import torch
+
+    from .core.graphs import auto_edge_capacity, pack_dataset
+    from .models import registry
+    from .parallel import multihost
+    from .parallel.halo import build_halo_batch
+    from .parallel.inference import stack_halo_buckets
+    from .parallel.mesh import rank_devices, run_processes
+
+    multihost.initialize()
+    spec = registry.get(name)
+    graphs = registry.apply_transforms(spec, _load_graphs(dataset, spec, num_graphs))
+    buckets = list(pack_dataset(
+        graphs, node_capacity=caps[0],
+        edge_capacity=max(caps[1], auto_edge_capacity(graphs, caps[0])),
+        graph_capacity=caps[2], with_eigen=spec.needs_eigen,
+    ))
+    counts = [b.num_graphs for b in buckets]
+    ranks = local_data * edge_shards
+    multihost.global_mesh(edge_shards, ranks)  # raises where edge does not divide the ranks
+    groups, real = multihost.shard_stream(buckets, local_data)
+    stacks = [stack_halo_buckets([build_halo_batch(b, k=edge_shards,
+                                                   edge_slack=4.0 * edge_shards)
+                                  for b in group])
+              for group in groups]
+    source = dict(weights=weights, reference_root=reference_root, seed=seed)
+    outs = []
+    if stacks:
+        outs = run_processes(_multihost_rank, ranks, name, prec,
+                             rank_devices(ranks, torch.device(device)), local_data,
+                             edge_shards, source, stacks)[0]
+    rows = [row for out, nreal in zip(outs, real) for row in out[:nreal]]
+    # An all-gather of equal shapes: every host pads to the most rows a host holds.
+    n_proc = multihost.process_count()
+    max_rows = math.ceil(len(buckets) / n_proc)
+    t_out = rows[0].shape[-1] if rows else 1
+    local = np.zeros((max_rows, buckets[0].n_node.shape[0], t_out), np.float32)
+    if rows:
+        local[: len(rows)] = np.stack(rows)
+    gathered = multihost.gather_results(local)
+    if n_proc == 1:
+        gathered = gathered[None]
+    os.makedirs(out_dir, exist_ok=True)
+    if multihost.process_index() == 0:
+        with open(os.path.join(out_dir, f"{name}_output.txt"), "w") as f:
+            g = 1
+            for i, k in enumerate(counts):  # the global submission order
+                for val in gathered[i % n_proc, i // n_proc][:k, 0]:
+                    f.write(f"g{g}: {float(val):.8f}\n")
+                    g += 1
+    return {
+        "model": name,
+        "dataset": dataset,
+        "num_graphs": sum(counts),
+        "buckets": len(buckets),
+        "hosts": int(n_proc),
+        "mesh": {"data": local_data, "edge": edge_shards},
+        "device": str(torch.device(device)),
+    }
+
+
 def _device_options(p: argparse.ArgumentParser) -> None:
     """The options the port adds to each subcommand that runs a model."""
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
@@ -328,9 +446,15 @@ def build_parser() -> argparse.ArgumentParser:
     run.add_argument("--trials", type=int, default=5)
     run.add_argument("--out", default="results")
     run.add_argument("--f32", action="store_true")
-    run.add_argument("--multihost", action="store_true", help=f"not supported: {MULTIHOST}")
-    run.add_argument("--edge-shards", type=int, default=1, help=f"1 only: {MULTIHOST}")
-    run.add_argument("--local-data", type=int, default=1, help=f"1 only: {MULTIHOST}")
+    run.add_argument("--multihost", action="store_true",
+                     help="run over many hosts: join the cluster (FLOWGNN_COORDINATOR / "
+                          "NUM_PROCESSES / PROCESS_ID or torchrun's environment), deal "
+                          "buckets across hosts, run each group on the host's local "
+                          "data x edge mesh of rank processes, gather the predictions")
+    run.add_argument("--edge-shards", type=int, default=1,
+                     help="--multihost: edge-axis width of each host's mesh (halo sharding)")
+    run.add_argument("--local-data", type=int, default=1,
+                     help="--multihost: data-axis width of each host's mesh (buckets a step)")
     run.add_argument("--node-cap", type=int, default=CAPS[0])
     run.add_argument("--edge-cap", type=int, default=CAPS[1])
     run.add_argument("--graph-cap", type=int, default=CAPS[2])
@@ -348,8 +472,11 @@ def main(argv=None) -> None:
         n = convert_ogb(args.raw, args.out, with_eigen=args.eigen, limit=args.limit)
         print(f"converted {n} graphs -> {args.out}", file=sys.stderr)
         return
-    if args.cmd == "run" and (args.multihost or args.edge_shards != 1 or args.local_data != 1):
-        ap.error(f"--multihost, --edge-shards, --local-data: {MULTIHOST}")
+    if args.cmd == "run" and not args.multihost and (args.edge_shards != 1
+                                                      or args.local_data != 1):
+        ap.error("--edge-shards and --local-data apply to --multihost")
+    if args.cmd == "run" and min(args.edge_shards, args.local_data) < 1:
+        ap.error("--edge-shards and --local-data take at least 1 rank")
     if args.weights == "reference" and not args.reference:
         ap.error("--weights reference needs --reference")
 
@@ -381,6 +508,16 @@ def main(argv=None) -> None:
                          args.metric, **source)
         print(f"{r['model']} {r['metric']} = {r['value']:.4f} "
               f"({r['num_graphs']} graphs)", file=sys.stderr)
+        print(json.dumps(r))
+        return
+
+    if args.multihost:
+        r = run_multihost(
+            "gin" if args.model == "all" else args.model, args.dataset, args.out, prec,
+            args.reference, args.num_graphs, edge_shards=args.edge_shards,
+            local_data=args.local_data, caps=(args.node_cap, args.edge_cap, args.graph_cap),
+            **source,
+        )
         print(json.dumps(r))
         return
 

@@ -52,8 +52,13 @@ from ..ops.spmm import segment_sum_blocked, windowed_segment_sum
 # 128-lane tiles). Every kernel of the port takes a window of 128 to 1024
 # rows (the whole-model and one-layer kernels as a thread-block cluster of
 # W/128 blocks, whose shared memory holds the window's state), so the window
-# is a choice of speed, not of fit; GIN-VN at W=256 and GAT at W=384 have not
-# been measured against W=128 on the card yet. DGN and GAT take the block
+# is a choice of speed, not of fit. On an H100 80GB HBM3 at 700 W, molhiv,
+# bf16 (PERF.md §6): in four pairs GIN-VN at W=256 ran 7.5% faster than at
+# W=128 end to end and by replay; GAT at W=384 16% faster eager but 60%
+# slower by replay (its W=128 pass is host-bound); ``cli tune`` read GAT at
+# W=256 32% faster than W=128 in one eager run. Too few pairs to move a
+# default: the benchmark that sets the port's cells decides the windows, in
+# ten pairs or more a choice. DGN and GAT take the block
 # the JAX bench derives at --ell-window 128 (bench.py:147-158 over its
 # ELL_GEOMETRY_DEFAULTS): 512. GAT needs it: its self loops add up to 128
 # lanes to a window whose fullest holds 286 on molhiv, which would push a
@@ -688,21 +693,86 @@ def spill_messages(h: torch.Tensor, table_l: torch.Tensor, spill: tuple,
     return relu(spill_gather(h, spill[0]) + _embed_sum(table_l, spill[2], prec))
 
 
-def gather_sources(h: torch.Tensor, batch: dict) -> torch.Tensor:
-    """h_u per edge."""
-    return h[batch["senders"].long()]
+def halo_mode(batch: dict, axis) -> bool:
+    """Whether ``batch`` is one rank's shard of the halo layout
+    (``parallel.halo``) run over the mesh axis ``axis``: node arrays are the
+    rank's rows, receivers are local (trash row S), senders index the
+    extended node space."""
+    return axis is not None and "halo_send_idx" in batch
 
 
-def edge_segment_sum(vals: torch.Tensor, batch: dict) -> torch.Tensor:
+def halo_exchange(h: torch.Tensor, batch: dict, axis, wait: bool = True):
+    """Ship this rank's boundary rows to every peer and return the extended
+    node array [S + k·H, D] = [local rows ‖ halo rows] that the re-indexed
+    senders index: one all-to-all of the [k, H, D] rows over ``axis``. With
+    ``wait=False`` the exchange is issued and a callable returned that waits
+    for it and gives the extended array, so that work which does not read
+    the halo rows can run meanwhile."""
+    send_idx = batch["halo_send_idx"]  # [k, H]: this rank's rows per peer
+    k, cap = send_idx.shape
+    send = h[send_idx.reshape(-1).long()].reshape(k, cap, -1)
+    recv = axis.all_to_all(send, wait=False)
+
+    def finish() -> torch.Tensor:
+        return torch.cat([h, recv().reshape(k * cap, h.shape[1])])
+
+    return finish() if wait else finish
+
+
+def sender_rows(h: torch.Tensor, batch: dict, axis=None, wait: bool = True):
+    """The rows that ``batch``'s senders index: on a halo shard ``h``
+    extended by the exchanged boundary rows (``halo_exchange``; with
+    ``wait=False`` a callable that waits for the exchange, issued now), else
+    ``h`` itself (with ``wait=False`` a callable that gives it)."""
+    if halo_mode(batch, axis):
+        return halo_exchange(h, batch, axis, wait)
+    return h if wait else (lambda: h)
+
+
+def receiver_rows(x: torch.Tensor, batch: dict, axis=None) -> torch.Tensor:
+    """The rows that ``batch``'s receivers index: on a halo shard ``x`` [n,
+    ...] with one zero row appended, the trash row S that pad lanes name as
+    their receiver (the JAX package reads past the array there, which its
+    gather fills), else ``x`` itself."""
+    if halo_mode(batch, axis):
+        return torch.cat([x, x.new_zeros((1,) + tuple(x.shape[1:]))])
+    return x
+
+
+def dead_row(batch: dict, axis=None) -> int:
+    """The row a pad lane names as its receiver: the trash row S of a halo
+    shard, the pad node otherwise."""
+    n = num_nodes_static(batch)
+    return n if halo_mode(batch, axis) else n - 1
+
+
+def receiver_space(batch: dict, axis=None) -> tuple:
+    """(rows, reduction axis) of a per-receiver reduction whose first n rows
+    are kept: on a halo shard n + 1 rows, the last the trash row, and no
+    collective (the exchange happened on the gather side); else n rows,
+    completed over ``axis`` on the path whose edges are split over it
+    (``parallel.inference.sharded_forward``)."""
+    n = num_nodes_static(batch)
+    return (n + 1, None) if halo_mode(batch, axis) else (n, axis)
+
+
+def gather_sources(h: torch.Tensor, batch: dict, axis=None) -> torch.Tensor:
+    """h_u per edge (``sender_rows``: on a halo shard from the extended node
+    space)."""
+    return sender_rows(h, batch, axis)[batch["senders"].long()]
+
+
+def edge_segment_sum(vals: torch.Tensor, batch: dict, axis=None) -> torch.Tensor:
     """Per-receiver message sum [n, D'] of the per-edge values [E, D']: the
     windowed scatter (kernel table row 24) when the batch carries the
     edge-block layout, whose edge axis is already in block order; a plain
-    segment sum otherwise."""
+    segment sum over ``receiver_space`` otherwise."""
     n = num_nodes_static(batch)
-    if "blk_vlocal" in batch:
+    if axis is None and "blk_vlocal" in batch:
         return segment_sum_blocked(vals, batch["blk_vlocal"], batch["blk_window"], n,
                                    PALLAS_WINDOW)
-    return segment_sum(vals, batch["receivers"], n)
+    rows, red = receiver_space(batch, axis)
+    return segment_sum(vals, batch["receivers"], rows, red)[:n]
 
 
 def blocked_segment_operands(vals: torch.Tensor, batch: dict) -> dict:
@@ -716,10 +786,11 @@ def blocked_segment_operands(vals: torch.Tensor, batch: dict) -> dict:
     )
 
 
-def spill_lanes(batch: dict) -> tuple[torch.Tensor, torch.Tensor]:
+def spill_lanes(batch: dict, axis=None) -> tuple[torch.Tensor, torch.Tensor]:
     """(sender, receiver) of each lane of a slot batch's spill tail, both
-    the pad node on masked lanes, whose results nothing reads."""
-    pad = num_nodes_static(batch) - 1
+    ``dead_row`` on masked lanes, whose results nothing reads (on a halo
+    shard the sender then reads an extended row)."""
+    pad = dead_row(batch, axis)
     sp = batch["slot_spill"].long()
     mask = batch["slot_spill_mask"]
     return (
@@ -749,14 +820,20 @@ def spill_segment_operands(vals: torch.Tensor, batch: dict) -> dict:
     )
 
 
-def spill_segment_sum(vals: torch.Tensor, batch: dict) -> torch.Tensor:
-    """Per-node sum [n, D'] of the spill lane values [P, D'] of a batch
-    whose spill tail is blocked (a slot or an ELL batch): the windowed
-    segment sum (kernel table row 24) over
-    the compact windows of the blocked layout, each window then taken to
-    its rows by ``spill_blk_winmap`` (windows with no spill lane read a zero
-    window)."""
+def spill_segment_sum(vals: torch.Tensor, batch: dict, receivers: torch.Tensor) -> torch.Tensor:
+    """Per-node sum [n, D'] of the spill lane values [P, D'] of a slot or an
+    ELL batch, ``receivers`` each lane's receiver. Where the tail is blocked:
+    the windowed segment sum (kernel table row 24) over the compact windows
+    of the blocked layout, each window then taken to its rows by
+    ``spill_blk_winmap`` (windows with no spill lane read a zero window).
+    Else a plain sum by receiver over n + 1 rows, the last a halo shard's
+    trash row: a halo shard's tail has no blocked layout (the JAX package
+    sums it into the trash row), nor has a tail of pad lanes only (a pinned
+    ``spill_capacity`` on a bucket that spills nothing; the JAX package's
+    ``spill_segment_sum`` falls back to its XLA segment sum there)."""
     n = num_nodes_static(batch)
+    if "spill_blk_vlocal" not in batch:
+        return segment_sum(vals, receivers, n + 1)[:n]
     ops = spill_segment_operands(vals, batch)
     w, t, d = ops["window"], ops["num_windows"], vals.shape[1]
     compact = windowed_segment_sum(**ops).reshape(t, w, d)
@@ -766,41 +843,56 @@ def spill_segment_sum(vals: torch.Tensor, batch: dict) -> torch.Tensor:
 
 def ell_spill_segment_sum(vals: torch.Tensor, batch: dict) -> torch.Tensor:
     """Per-node sum [n, D'] of the values [S, D'] of an ELL batch's spill
-    lanes: ``spill_segment_sum`` (row 24) over the tail's blocked layout. A
-    tail of pad lanes only (a pinned ``spill_capacity`` on a bucket that
-    spills nothing) has no blocked layout and sums by receiver in plain
-    torch, as the JAX package's ``spill_segment_sum`` falls back to its XLA
-    segment sum."""
-    if "spill_blk_vlocal" in batch:
-        return spill_segment_sum(vals, batch)
-    p = batch["loc_ulocal"].shape[0]
-    return segment_sum(vals, batch["receivers"][p:], num_nodes_static(batch))
+    lanes (``spill_segment_sum``)."""
+    return spill_segment_sum(vals, batch, batch["receivers"][batch["loc_ulocal"].shape[0]:])
 
 
-def out_degree(batch: dict) -> torch.Tensor:
+def out_degree(batch: dict, axis=None) -> torch.Tensor:
     """Edges-with-source-u count per node (degree_table[u]++,
-    GIN/src/load_inputs.cc:130), pad node included. Slot batches carry it
-    precomputed on the host (``_attach_degrees``)."""
+    GIN/src/load_inputs.cc:130), pad node included. Slot, ELL and halo
+    batches carry it precomputed on the host (``_attach_degrees``,
+    ``parallel.halo``); otherwise it is counted, and completed over
+    ``axis`` when the edges are split over it."""
     if "out_deg" in batch:
         return batch["out_deg"]
     ones = torch.ones_like(batch["senders"], dtype=torch.int32)
-    return segment_sum(ones, batch["senders"], num_nodes_static(batch))
+    return segment_sum(ones, batch["senders"], num_nodes_static(batch), axis)
 
 
-def in_degree(batch: dict) -> torch.Tensor:
-    """Edges-with-dest-v count per node, pad node included."""
+def in_degree(batch: dict, axis=None) -> torch.Tensor:
+    """Edges-with-dest-v count per node, pad node included (as
+    ``out_degree``)."""
     if "in_deg" in batch:
         return batch["in_deg"]
     ones = torch.ones_like(batch["receivers"], dtype=torch.int32)
-    return segment_sum(ones, batch["receivers"], num_nodes_static(batch))
+    return segment_sum(ones, batch["receivers"], num_nodes_static(batch), axis)
 
 
-def mean_pool(h: torch.Tensor, batch: dict, prec: Precision) -> torch.Tensor:
+def mean_pool(h: torch.Tensor, batch: dict, prec: Precision, axis=None) -> torch.Tensor:
     """Per-graph mean over nodes (GIN/src/finalize.cc:38-115): the segment
-    sum divided by the graph's node count. Pad graph rows are garbage."""
-    total = segment_sum(h, batch["node_graph"], num_graphs_static(batch))
+    sum divided by the graph's node count. Pad graph rows are garbage. On a
+    halo shard each rank holds some of the nodes: the [G+1, D] graph sums
+    are completed by one all-reduce over ``axis`` (``graph_axis``)."""
+    total = segment_sum(h, batch["node_graph"], num_graphs_static(batch),
+                        graph_axis(batch, axis))
     count = batch["n_node"].clamp(min=1).to(h.dtype)
     return prec.q(total / count[:, None])
+
+
+def graph_axis(batch: dict, axis):
+    """The axis over which per-graph sums of node rows are completed:
+    ``axis`` on a halo shard, whose ranks hold some of the nodes; None
+    otherwise (on the replicated-node path every rank holds them all)."""
+    return axis if halo_mode(batch, axis) else None
+
+
+def pool_gather(partials: torch.Tensor, axis) -> torch.Tensor:
+    """The per-shard in-kernel pool partials [NW_shard·GMAX, T] completed
+    across the edge axis: ranks own contiguous ranges of windows
+    (``parallel.halo``), so one tiled all-gather gives the global [NW·GMAX,
+    T] table that the replicated ``pool_row`` indexes. No-op without an
+    axis."""
+    return partials if axis is None else axis.all_gather(partials)
 
 
 def pool_finish(

@@ -25,6 +25,18 @@ and the readout in plain torch; an ELL batch runs the per-layer ELL path
 channels through ``base.ell_spill_segment_sum`` (row 24), and a1, a2, the
 posttrans and the residual in plain torch; a plain edge-list batch runs the
 plain loop, the port's own oracle.
+
+Sharded (``edge_axis``, ``parallel.inference``), with the JAX package's
+gates (``flowgnn_tpu/models/dgn.py:56-232``): on a halo shard eig is
+exchanged once for all layers and the two per-node eig sums reduce
+rank-locally into the trash row; a slot shard with no spill tail runs the
+slot branches above per shard (row 4, its pool partials completed by
+``base.pool_gather``, or row 22 per layer), an ELL shard rows 18 or 16 per
+layer, its spill tail's channels gathered from the layer's exchanged rows
+(issued before row 16, waited on after it) and summed into the trash row,
+not through row 24; a slot shard with a spill tail, and every other sharded
+batch, runs the plain loop, its gathers through the halo exchange or its
+sums completed over the axis.
 """
 
 from __future__ import annotations
@@ -54,42 +66,48 @@ def _atom_embed_dgn(tables: torch.Tensor, node_feat: torch.Tensor, prec: Precisi
     return _base.atom_embed(compact, node_feat, prec)
 
 
-def _node_terms(batch: dict, prec: Precision):
+def _node_terms(batch: dict, prec: Precision, axis=None):
     """(eig, eig_w, eigw_sum, eig_abssum, deg) in the compute dtype: eig
     [n], eig_w = eig_u − eig_v per edge, the per-node sums of eig_w and
     |eig_w| over in-edges (host-precomputed in f32 on slot batches, as the
     JAX package does, except in the fixed mode, which sums the quantized
     eig_w), the abssum's zero replaced by EIG_EPS, and the out-degree
     clamped to 1 as [n, 1]. eig_w, eigw_sum and eig_abssum are quantized
-    (``prec.q``)."""
+    (``prec.q``). On a halo shard (``axis``) eig_u comes from the extended
+    rows (one exchange), a pad lane's eig_v from the trash row, and the sums
+    run over the shard's n + 1 rows; with the edges split over ``axis`` the
+    sums and degrees are completed over it."""
     dt = prec.compute_dtype
     u, v = batch["senders"].long(), batch["receivers"].long()
     n = _base.num_nodes_static(batch)
     eig = batch["node_eigen"][:, 1].to(dt)
-    eig_w = prec.q(eig[u] - eig[v])
-    if "eigw_sum" in batch and prec.fixed is None:
+    eig_u = _base.sender_rows(eig[:, None], batch, axis)[:, 0]
+    eig_w = prec.q(eig_u[u] - _base.receiver_rows(eig, batch, axis)[v])
+    if "eigw_sum" in batch and prec.fixed is None and axis is None:
         eigw_sum = batch["eigw_sum"].to(dt)
         eig_abssum = batch["eig_abssum"].to(dt)
     else:
-        eig_abssum = segment_sum(eig_w.abs(), v, n)
-        eigw_sum = prec.q(segment_sum(eig_w, v, n))
+        rows, red = _base.receiver_space(batch, axis)
+        eig_abssum = segment_sum(eig_w.abs(), v, rows, red)[:n]
+        eigw_sum = prec.q(segment_sum(eig_w, v, rows, red)[:n])
     eig_abssum = prec.q(torch.where(eig_abssum == 0, EIG_EPS, eig_abssum))
     # The device divides by the raw out-degree with no zero guard
     # (DGN/src/node_embedding.cc:145), a reference quirk kept here; the
     # clamp covers isolated nodes, whose message is 0.
-    deg = torch.clamp_min(out_degree(batch), 1).to(dt)[:, None]
+    deg = torch.clamp_min(out_degree(batch, axis), 1).to(dt)[:, None]
     return eig, eig_w, eigw_sum, eig_abssum, deg
 
 
-def slot_kernel_operands(params: dict, batch: dict, prec: Precision = FLOAT32) -> dict:
+def slot_kernel_operands(params: dict, batch: dict, prec: Precision = FLOAT32,
+                         axis=None) -> dict:
     """The keyword operands the slot branch hands ``dgn_local_model`` for a
     slot batch (also used to time the kernel on its own). The per-node terms
     are in the compute dtype, as the TPU kernel's feature tile carries
-    them."""
+    them; ``axis``: the edge axis of a halo shard."""
     dt = prec.compute_dtype
     L, d = params["posttrans_w"].shape[:2]
     window, n_slots = (int(x) for x in batch["slot_geom"].shape[-2:])
-    eig, _, eigw_sum, eig_abssum, deg = _node_terms(batch, prec)
+    eig, _, eigw_sum, eig_abssum, deg = _node_terms(batch, prec, axis)
     # Per layer [2D, D]: the [dim_out, 2·dim_in] posttrans, right-multiplied.
     w_all = params["posttrans_w"].reshape(L, d, 2 * d).transpose(1, 2).reshape(L * 2 * d, d)
     w_all = w_all.contiguous()
@@ -117,12 +135,17 @@ def posttrans_tiles(params: dict, prec: Precision) -> Optional[torch.Tensor]:
     return dgn_posttrans_tiles(params["posttrans_w"].reshape(L, d, 2 * d))
 
 
+def _channels(x: torch.Tensor, eig_w: torch.Tensor) -> torch.Tensor:
+    """The two message channels [x ‖ eig_w·x] of the lanes' h_u ``x`` and
+    eig_u − eig_v ``eig_w``."""
+    return torch.cat([x, eig_w[:, None] * x], dim=1)
+
+
 def spill_values(h: torch.Tensor, batch: dict, eig: torch.Tensor, lanes) -> torch.Tensor:
     """The spill lanes' two channels [h_u ‖ (eig_u − eig_v)·h_u] (pad lanes
     weigh 0: both their ends are the pad node)."""
     sp_u, sp_v = lanes
-    x = _base.spill_gather(h, sp_u)
-    return torch.cat([x, (eig[sp_u] - eig[sp_v])[:, None] * x], dim=1)
+    return _channels(_base.spill_gather(h, sp_u), eig[sp_u] - eig[sp_v])
 
 
 def _layer_terms(params: dict, l: int, d: int, terms) -> dict:
@@ -150,7 +173,8 @@ def layer_operands(params: dict, batch: dict, l: int, h: torch.Tensor, terms, la
     window, n_slots = (int(x) for x in batch["slot_geom"].shape[-2:])
     m_spill = None
     if lanes is not None:
-        m_spill = _base.spill_segment_sum(spill_values(h, batch, terms[0], lanes), batch)
+        m_spill = _base.spill_segment_sum(spill_values(h, batch, terms[0], lanes), batch,
+                                          lanes[1])
     return dict(slot_src=batch["slot_src"], h=h, window=window, slots=n_slots, m_spill=m_spill,
                 posttrans_tiles=None if tiles is None else tiles[l],
                 **_layer_terms(params, l, h.shape[1], terms))
@@ -185,7 +209,7 @@ def layer_kernel_operands(params: dict, batch: dict, prec: Precision = FLOAT32) 
     if "blk_vlocal" in batch:
         x = gather_sources(h, batch)
         return {"windowed_segment_sum": _base.blocked_segment_operands(
-            torch.cat([x, terms[1][:, None] * x], dim=1), batch)}
+            _channels(x, terms[1]), batch)}
     if "loc_ell" in batch:
         spill = _base.ell_spill(batch)
         ops = ell_layer_operands(params, batch, 0, h, terms, _base.ell_meta(batch), spill,
@@ -217,27 +241,34 @@ def forward(
     batch: dict,
     prec: Precision = FLOAT32,
     return_intermediates: bool = False,
+    edge_axis=None,
 ):
     """[G+1, 1] predictions (the last row is the pad graph's). ``params``
     as made by ``params.loaders.params_from_numpy``; ``batch`` as made by
     ``models.base.to_device`` from a packing with ``with_eigen=True``. In
     the fixed mode (``prec.fixed``) every batch runs the plain loop, with
-    ``prec.q`` at the JAX package's stage boundaries."""
+    ``prec.q`` at the JAX package's stage boundaries. ``edge_axis``: the
+    mesh axis over which the batch is sharded (``parallel.inference``);
+    None on one device."""
     kernels = prec.fixed is None
-    slots = "slot_src" in batch and kernels
+    halo = _base.halo_mode(batch, edge_axis)
+    single = edge_axis is None
+    slots = "slot_src" in batch and kernels and (
+        single or (halo and not batch["slot_spill"].shape[-1]))
     if (
         slots and not batch["slot_spill"].shape[-1] and not return_intermediates
         and "pool_gl" in batch
     ):
-        pool = dgn_local_model(**slot_kernel_operands(params, batch, prec))
+        pool = dgn_local_model(**slot_kernel_operands(params, batch, prec, edge_axis))
+        pool = _base.pool_gather(pool, edge_axis)
         return _readout_tail(_base.pool_finish(pool, batch, params["mlp1_b"], prec), params, prec)
 
     L = params["posttrans_w"].shape[0]
-    terms = _node_terms(batch, prec)
+    terms = _node_terms(batch, prec, edge_axis)
     eig, eig_w, eigw_sum, eig_abssum, deg = terms
     h = _atom_embed_dgn(params["atom_tables"], batch["node_feat"], prec)
     lanes = _base.spill_lanes(batch) if slots and batch["slot_spill"].shape[-1] else None
-    ell = "loc_ell" in batch and kernels
+    ell = "loc_ell" in batch and kernels and (single or halo)
     if ell:
         meta, spill = _base.ell_meta(batch), _base.ell_spill(batch)
     # Rows 22 and 18 (an ELL batch with no spill tail) take the bf16 chunks.
@@ -255,12 +286,16 @@ def forward(
                 h = dgn_local_layer_ell(**ops)
                 inter.append(h)
                 continue
+            # The spill lanes are the edges past the P local lanes.
+            src = _base.sender_rows(h, batch, edge_axis, wait=False)
             m_loc = dgn_local_message_ell(**ops)
-            m_spill = _base.ell_spill_segment_sum(spill_values(h, batch, eig, spill[:2]), batch)
+            tail = _channels(_base.spill_gather(src(), spill[0]),
+                             eig_w[batch["loc_ulocal"].shape[0]:])
+            m_spill = _base.ell_spill_segment_sum(tail, batch)
             m1, m2 = m_loc[:, :d] + m_spill[:, :d], m_loc[:, d:] + m_spill[:, d:]
         else:
-            x = gather_sources(h, batch)
-            mm = edge_segment_sum(torch.cat([x, eig_w[:, None] * x], dim=1), batch)
+            x = gather_sources(h, batch, edge_axis)
+            mm = edge_segment_sum(_channels(x, eig_w), batch, edge_axis)
             m1, m2 = mm[:, :d], mm[:, d:]
         m1, m2 = prec.q(m1), prec.q(m2)
         a1 = prec.q(m1 / deg)
@@ -270,7 +305,7 @@ def forward(
         acc = linear(torch.cat([a1, a2], dim=1), w, params["posttrans_b"][l], prec)
         h = prec.q(h + relu(acc))
         inter.append(h)
-    h_graph = mean_pool(h, batch, prec)
+    h_graph = mean_pool(h, batch, prec, edge_axis)
     out = _readout_tail(linear(h_graph, params["mlp1_w"], params["mlp1_b"], prec), params, prec)
     if return_intermediates:
         return out, {"layers": inter, "h_graph": h_graph}

@@ -42,6 +42,18 @@ row 17. The port does not read ``FLOWGNN_GAT_RAWSCORES``, which hands the
 JAX row 17 per-lane logits computed outside the kernel and rounded to the
 compute dtype; the port computes the scores in the kernel, so the two differ
 by that bf16 rounding only.
+
+Sharded (``edge_axis``, ``parallel.inference``), with the JAX package's
+gates (``flowgnn_tpu/models/gat.py:202-472``): a halo shard of the slot
+layout with no spill tail runs the slot branches above per shard (row 5 on
+the shard's slot stack, which has no prefix layout, its pool partials
+completed by ``base.pool_gather``; row 21 per layer); an ELL shard runs row
+17 per layer (row 23 where ``fuse_layers`` takes the layer), its spill
+tail's [score·h_u ‖ score] from one exchange of the [h ‖ s_tgt] rows
+(issued before row 17 and waited on after it) and summed into the trash
+row; every other sharded batch runs the plain loop, on a halo shard with
+one exchange of [h ‖ s_tgt] a layer, on the replicated-node path its sums
+completed over the axis.
 """
 
 from __future__ import annotations
@@ -110,7 +122,8 @@ def slot_kernel_operands(params: dict, batch: dict, prec: Precision = FLOAT32) -
     skip0 = prev.reshape(n, hd).to(acc_dtype(prec)) @ right(params["skip_w"][0]).to(acc_dtype(prec))
     a_all = _score_maps(params, dt)
     return dict(
-        slot_pstack=batch["slot_pstack"],
+        # A halo shard's slot layout has no prefix layout: its slot stack.
+        slot_pstack=batch["slot_pstack"] if "slot_pstack" in batch else batch["slot_stack"],
         h0=_project(params["proj_w"][0], prev, prec).reshape(n, hd),
         skip0=skip0.to(dt),
         proj_w=right(params["proj_w"][1:]),
@@ -246,13 +259,14 @@ def spill_values(h: torch.Tensor, s_src: torch.Tensor, s_tgt: torch.Tensor, lane
     return _scored(_base.spill_gather(h.reshape(h.shape[0], -1), sp_u), score)
 
 
-def ell_spill_lanes(batch: dict):
-    """(the tail's (senders, receivers), its lanes that carry an edge) of an
-    ELL batch's spill tail, or None without one."""
+def ell_spill_lanes(batch: dict, axis=None):
+    """(the tail's (senders, receivers), its lanes that carry an edge: those
+    whose receiver is not ``base.dead_row``) of an ELL batch's spill tail,
+    or None without one."""
     spill = _base.ell_spill(batch)
     if spill is None:
         return None
-    return spill[:2], spill[1] < _base.num_nodes_static(batch) - 1
+    return spill[:2], spill[1] < _base.dead_row(batch, axis)
 
 
 def _slot_message(h: torch.Tensor, s_src: torch.Tensor, s_tgt: torch.Tensor, batch: dict,
@@ -266,7 +280,8 @@ def _slot_message(h: torch.Tensor, s_src: torch.Tensor, s_tgt: torch.Tensor, bat
     if ops["divide"]:
         return out.reshape(h.shape)
     vals = spill_values(h, s_src, s_tgt, lanes, batch["slot_spill_mask"])
-    return _softmax_message(out + _base.spill_segment_sum(vals, batch), s_src.shape[1])
+    out = out + _base.spill_segment_sum(vals, batch, lanes[1])
+    return _softmax_message(out, s_src.shape[1])
 
 
 def ell_message_operands(h: torch.Tensor, s_src: torch.Tensor, s_tgt: torch.Tensor,
@@ -279,33 +294,66 @@ def ell_message_operands(h: torch.Tensor, s_src: torch.Tensor, s_tgt: torch.Tens
                 num_heads=s_src.shape[1])
 
 
+def _sender_rows(h: torch.Tensor, s_tgt: torch.Tensor, batch: dict, axis=None,
+                 wait: bool = True):
+    """(h [rows, H·D], s_tgt) as the senders index them: on a halo shard
+    both from one exchange of this layer's [h ‖ s_tgt] rows [n, H·D + H]
+    (``base.sender_rows``; s_src is read at the receiver, which is local),
+    else as given. With ``wait=False`` a callable that gives them, the
+    exchange issued now."""
+    n, hd = h.shape[0], h.shape[1] * h.shape[2]
+    if not _base.halo_mode(batch, axis):
+        rows = h.reshape(n, hd), s_tgt
+        return rows if wait else (lambda: rows)
+    ext = _base.sender_rows(torch.cat([h.reshape(n, hd), s_tgt], dim=1), batch, axis, False)
+
+    def finish():
+        e = ext()
+        return e[:, :hd], e[:, hd:]
+
+    return finish() if wait else finish
+
+
+def _spill_sums(rows: tuple, s_src: torch.Tensor, batch: dict, spill, axis=None):
+    """An ELL batch's spill tail (``spill`` as ``ell_spill_lanes`` gives it)
+    summed per node, [n, H·D + H]: [Σ score·h_u ‖ Σ score], h_u and s_tgt[u]
+    from ``rows`` (``_sender_rows``), s_src[v] from ``base.receiver_rows``
+    (``base.ell_spill_segment_sum``)."""
+    h_src, s_tgt_src = rows
+    vals = spill_values(h_src, _base.receiver_rows(s_src, batch, axis), s_tgt_src, *spill)
+    return _base.ell_spill_segment_sum(vals, batch)
+
+
 def _ell_message(h: torch.Tensor, s_src: torch.Tensor, s_tgt: torch.Tensor, batch: dict,
-                 meta: torch.Tensor, spill) -> torch.Tensor:
+                 meta: torch.Tensor, spill, axis=None) -> torch.Tensor:
     """One layer's messages [n, H, D] over an ELL batch: the window-local
     sums of ``gat_local_message_ell``, with a spill tail (``spill`` as
-    ``ell_spill_lanes`` gives it) merged with the tail's
-    (``base.ell_spill_segment_sum``), then divided."""
+    ``ell_spill_lanes`` gives it) merged with the tail's (``_spill_sums``;
+    on a halo shard, ``axis``, from the [h ‖ s_tgt] rows exchanged while
+    the kernel runs), then divided."""
+    rows = _sender_rows(h, s_tgt, batch, axis, wait=False) if spill is not None else None
     both = gat_local_message_ell(**ell_message_operands(h, s_src, s_tgt, batch, meta))
     if spill is not None:
-        both = both + _base.ell_spill_segment_sum(spill_values(h, s_src, s_tgt, *spill), batch)
+        both = both + _spill_sums(rows(), s_src, batch, spill, axis)
     return _softmax_message(both, s_src.shape[1])
 
 
 def fused_layer_operands(params: dict, batch: dict, l: int, h: torch.Tensor,
                          s_src: torch.Tensor, s_tgt: torch.Tensor, prev: torch.Tensor,
                          meta: torch.Tensor, spill, a_all: torch.Tensor,
-                         tiles: Optional[torch.Tensor] = None) -> dict:
+                         tiles: Optional[torch.Tensor] = None, axis=None) -> dict:
     """The keyword operands the fused ELL path hands ``gat_local_layer_ell``
     for the non-final layer ``l``: h, ``prev`` [n, H, D] and the scores of
     this layer, ``meta`` and ``spill`` as in ``_ell_message``, ``a_all`` as
     ``_score_maps`` gives it, ``tiles`` as ``layer_tiles`` gives them (None:
     the wrapper packs them). ``spill_both`` is the spill tail's [Σ score·h_u
-    ‖ Σ score] per node, or None without a tail."""
+    ‖ Σ score] per node (``_spill_sums``; on a halo shard, ``axis``, from
+    the layer's exchanged [h ‖ s_tgt] rows), or None without a tail."""
     n = h.shape[0]
     hd = h.shape[1] * h.shape[2]
     sp_both = None
     if spill is not None:
-        sp_both = _base.ell_spill_segment_sum(spill_values(h, s_src, s_tgt, *spill), batch)
+        sp_both = _spill_sums(_sender_rows(h, s_tgt, batch, axis), s_src, batch, spill, axis)
     return dict(
         ell_meta=meta, h=h.reshape(n, hd), s_src=s_src.contiguous(), s_tgt=s_tgt.contiguous(),
         prev=prev.reshape(n, hd), spill_both=sp_both,
@@ -355,6 +403,7 @@ def forward(
     prec: Precision = FLOAT32,
     return_intermediates: bool = False,
     fuse_layers: bool | None = None,
+    edge_axis=None,
 ):
     """[G+1, 1] predictions (the last row is the pad graph's). ``params``
     as made by ``params.loaders.params_from_numpy``; ``batch`` as made by
@@ -362,16 +411,21 @@ def forward(
     ``FUSE_LAYERS``) runs every layer but the last of an ELL batch through
     ``gat_local_layer_ell``; any other batch ignores it. In the fixed mode
     (``prec.fixed``) every batch runs the plain loop, with ``prec.q`` at the
-    JAX package's stage boundaries."""
+    JAX package's stage boundaries. ``edge_axis``: the mesh axis over which
+    the batch is sharded (``parallel.inference``); None on one device."""
     if fuse_layers is None:
         fuse_layers = FUSE_LAYERS
     kernels = prec.fixed is None
-    slots = "slot_src" in batch and kernels
+    halo = _base.halo_mode(batch, edge_axis)
+    single = edge_axis is None
+    slots = "slot_src" in batch and kernels and (
+        single or (halo and not batch["slot_spill"].shape[-1]))
     if (
         slots and not batch["slot_spill"].shape[-1] and not return_intermediates
         and "pool_gl" in batch
     ):
         pool = gat_local_model_slots(**slot_kernel_operands(params, batch, prec))
+        pool = _base.pool_gather(pool, edge_axis)
         return _base.pool_finish(pool, batch, params["pred_b"], prec)
 
     L, H, D = params["proj_w"].shape[:3]
@@ -379,10 +433,10 @@ def forward(
     prev = _raw_features(params, batch, prec)
     h = _project(params["proj_w"][0], prev, prec)  # [n, head, dim]
     lanes = _base.spill_lanes(batch) if slots and batch["slot_spill"].shape[-1] else None
-    ell = "loc_ell" in batch and kernels
+    ell = "loc_ell" in batch and kernels and (single or halo)
     fuse = ell and fuse_layers
     if ell:
-        meta, spill = _base.ell_meta(batch), ell_spill_lanes(batch)
+        meta, spill = _base.ell_meta(batch), ell_spill_lanes(batch, edge_axis)
     if fuse:
         a_all = _score_maps(params, prec.compute_dtype)
         tiles = layer_tiles(params, prec)
@@ -396,7 +450,7 @@ def forward(
         if fuse and l != L - 1:
             n = h.shape[0]
             out = gat_local_layer_ell(**fused_layer_operands(
-                params, batch, l, h, s_src, s_tgt, prev, meta, spill, a_all, tiles))
+                params, batch, l, h, s_src, s_tgt, prev, meta, spill, a_all, tiles, edge_axis))
             h = out[:, :hd].contiguous().reshape(n, H, D)
             prev = out[:, hd : 2 * hd].contiguous().reshape(n, H, D)
             scores = out[:, 2 * hd : 2 * hd + H].contiguous(), out[:, 2 * hd + H :].contiguous()
@@ -405,11 +459,12 @@ def forward(
         if slots:
             msg = _slot_message(h, s_src, s_tgt, batch, lanes)
         elif ell:
-            msg = _ell_message(h, s_src, s_tgt, batch, meta, spill)
+            msg = _ell_message(h, s_src, s_tgt, batch, meta, spill, edge_axis)
         else:
-            score = prec.q(_leaky_exp(s_src[v] + s_tgt[u]))  # [E, H]
-            both = edge_segment_sum(_scored(h.reshape(h.shape[0], -1)[u], score), batch)
-            msg = _softmax_message(both, H)
+            h_u, s_tgt_u = _sender_rows(h, s_tgt, batch, edge_axis)
+            raw = _base.receiver_rows(s_src, batch, edge_axis)[v] + s_tgt_u[u]
+            score = prec.q(_leaky_exp(raw))  # [E, H]
+            msg = _softmax_message(edge_segment_sum(_scored(h_u[u], score), batch, edge_axis), H)
         msg = prec.q(msg)
         skip = _project(params["skip_w"][l], prev, prec)
         if l != L - 1:
@@ -419,7 +474,7 @@ def forward(
             inter.append(h)
         else:
             out_feat = prec.q((msg + skip).sum(dim=1) / H)  # head average
-    h_graph = mean_pool(out_feat, batch, prec)
+    h_graph = mean_pool(out_feat, batch, prec, edge_axis)
     out = linear(h_graph, params["pred_w"], params["pred_b"], prec)
     if return_intermediates:
         return out, {"layers": inter, "h_graph": h_graph}

@@ -27,6 +27,17 @@ folded BatchNorm, ReLU and the next conv, in bf16 from its slice of
 messages through ``gcn_local_message_ell`` (row 14) and the spill tail's
 norm-scaled messages, gathered by index and summed by the spill scatter
 (row 24); the tail is plain torch.
+
+Sharded (``edge_axis``, ``parallel.inference``), with the JAX package's
+gates (``flowgnn_tpu/models/gcn.py:44-236``): on a halo shard the source
+norms dis_u are exchanged once for all layers; an ELL shard runs the ELL
+branches above per shard (row 9 when nothing spills, its pool partials
+completed by ``base.pool_gather``; row 15 per layer otherwise), and one with
+a spill tail runs row 14 for the window-local messages while the layer's
+boundary rows are exchanged, then the spill messages from the extended rows,
+summed into the trash row. The slot megakernel (row 2) does not run under an
+axis. Every other sharded batch runs the plain loop, its gathers through the
+halo exchange or its sums completed over the axis.
 """
 
 from __future__ import annotations
@@ -132,18 +143,30 @@ def _tail(params: dict, m: torch.Tensor, h: torch.Tensor, deg: torch.Tensor, l: 
                   + params["bn_bias"][l])
 
 
-def _ell_terms(params: dict, batch: dict, prec: Precision) -> dict:
+def _norms(dis: torch.Tensor, batch: dict, axis, u: torch.Tensor, v: torch.Tensor):
+    """dis_u·dis_v [E', 1] for the lanes (u, v): on a halo shard dis_u from
+    one exchange of the rows (``base.sender_rows``) and a pad lane's dis_v
+    from the trash row (``base.receiver_rows``)."""
+    dis_u = _base.sender_rows(dis[:, None], batch, axis)[:, 0]
+    return (dis_u[u] * _base.receiver_rows(dis, batch, axis)[v])[:, None]
+
+
+def _ell_terms(params: dict, batch: dict, prec: Precision, axis=None) -> dict:
     """What the per-layer ELL path computes once per forward: the lanes
     (``base.ell_meta``), the spill tail (``base.ell_spill``), out-degrees,
     degree norms and the spill lanes' norms dis_u·dis_v in the compute
     dtype, the folded BatchNorm, the next convs' weights as [L-1, in, out]
-    and, with no spill tail, their bf16 chunks (``conv_tiles``)."""
+    and, with no spill tail, their bf16 chunks (``conv_tiles``). On a halo
+    shard (``axis``) the senders' norms come from the extended rows and a
+    pad lane's receiver is the trash row."""
     deg = out_degree(batch).to(prec.compute_dtype)
     dis = 1.0 / torch.sqrt(deg + 1)
     spill = _base.ell_spill(batch)
+    norm = None
+    if spill is not None:
+        norm = _norms(dis, batch, axis, spill[0], spill[1])
     return dict(
-        meta=_base.ell_meta(batch), spill=spill, deg=deg, dis=dis,
-        norm=None if spill is None else (dis[spill[0]] * dis[spill[1]])[:, None],
+        meta=_base.ell_meta(batch), spill=spill, deg=deg, dis=dis, norm=norm,
         folded=_folded_bn(params, prec), wn=params["conv_w"][1:].transpose(1, 2).contiguous(),
         tiles=conv_tiles(params, prec) if spill is None else None,
     )
@@ -202,11 +225,15 @@ def layer_kernel_operands(params: dict, batch: dict, prec: Precision = FLOAT32) 
     return out
 
 
-def _ell_layers(params: dict, batch: dict, prec: Precision, h: torch.Tensor, inter: list):
+def _ell_layers(params: dict, batch: dict, prec: Precision, h: torch.Tensor, inter: list,
+                axis=None):
     """The per-layer ELL path from the embedded input ``h`` to the pre-pool
-    tail; appends each conv's output to ``inter``."""
+    tail; appends each conv's output to ``inter``. On a halo shard
+    (``axis``) with a spill tail, each layer's boundary rows are exchanged
+    while row 14 sums the window-local messages, and the spill messages are
+    gathered from the extended rows and summed into the trash row."""
     L = params["conv_w"].shape[0]
-    terms = _ell_terms(params, batch, prec)
+    terms = _ell_terms(params, batch, prec, axis)
     h = linear(h, params["conv_w"][0], params["conv_b"][0], prec)
     inter.append(h)
     if terms["spill"] is None:
@@ -220,8 +247,9 @@ def _ell_layers(params: dict, batch: dict, prec: Precision, h: torch.Tensor, int
             a = relu(_tail(params, m, h, terms["deg"], l - 1, prec))
             h = linear(a, params["conv_w"][l], params["conv_b"][l], prec)
             inter.append(h)
-        m_spill = _base.ell_spill_segment_sum(_spill_messages(params, prec, l, h, terms), batch)
-        m = gcn_local_message_ell(**_layer_operands(params, batch, prec, l, h, terms)) + m_spill
+        src = _base.sender_rows(h, batch, axis, wait=False)
+        m = gcn_local_message_ell(**_layer_operands(params, batch, prec, l, h, terms))
+        m = m + _base.ell_spill_segment_sum(_spill_messages(params, prec, l, src(), terms), batch)
     return _tail(params, m, h, terms["deg"], L - 1, prec)
 
 
@@ -230,42 +258,49 @@ def forward(
     batch: dict,
     prec: Precision = FLOAT32,
     return_intermediates: bool = False,
+    edge_axis=None,
 ):
     """[G+1, 1] predictions (the last row is the pad graph's). ``params``
     as made by ``params.loaders.params_from_numpy``; ``batch`` as made by
     ``models.base.to_device``. In the fixed mode (``prec.fixed``) every
     batch runs the plain loop, with ``prec.q`` at the JAX package's stage
-    boundaries."""
+    boundaries. ``edge_axis``: the mesh axis over which the batch is
+    sharded (``parallel.inference``); None on one device."""
     kernels = prec.fixed is None
-    ell = "loc_ell" in batch and kernels
+    halo = _base.halo_mode(batch, edge_axis)
+    single = edge_axis is None
+    ell = "loc_ell" in batch and kernels and (single or halo)
     if ell and _base.ell_megakernel(batch, return_intermediates):
         pool = gcn_local_model(**ell_kernel_operands(params, batch, prec))
+        pool = _base.pool_gather(pool, edge_axis)
         return _base.pool_finish(pool, batch, params["pred_b"], prec)
     if ("slot_meta" in batch and "pool_gl" in batch and not return_intermediates
-            and kernels):
+            and kernels and single):
         pool = gcn_local_model_slots(**slot_kernel_operands(params, batch, prec))
         return _base.pool_finish(pool, batch, params["pred_b"], prec)
 
     h = atom_embed(params["node_embedding"], batch["node_feat"], prec)
     inter = [h]
     if ell:
-        a = _ell_layers(params, batch, prec, h, inter)
+        a = _ell_layers(params, batch, prec, h, inter, edge_axis)
     else:
         L = params["conv_w"].shape[0]
         u, v = batch["senders"].long(), batch["receivers"].long()
-        deg = out_degree(batch).to(prec.compute_dtype)
+        deg = out_degree(batch, edge_axis).to(prec.compute_dtype)
         dis = 1.0 / torch.sqrt(deg + 1)
-        norm = prec.q((dis[u] * dis[v])[:, None])
+        # dis is the same every layer: on a halo shard one exchange covers them all.
+        norm = prec.q(_norms(dis, batch, edge_axis, u, v))
         m = torch.zeros_like(h)
         for l in range(L):
             a = h if l == 0 else relu(_tail(params, m, h, deg, l - 1, prec))
             h = linear(a, params["conv_w"][l], params["conv_b"][l], prec)
             ee = bond_embed(params["edge_embedding"][l], batch["edge_attr"], prec)
-            m = prec.q(edge_segment_sum(norm * relu(gather_sources(h, batch) + ee), batch))
+            msg = norm * relu(gather_sources(h, batch, edge_axis) + ee)
+            m = prec.q(edge_segment_sum(msg, batch, edge_axis))
             inter.append(h)
         # The final tail has no ReLU (GCN/src/finalize.cc:88-96).
         a = _tail(params, m, h, deg, L - 1, prec)
-    h_graph = mean_pool(a, batch, prec)
+    h_graph = mean_pool(a, batch, prec, edge_axis)
     out = linear(h_graph, params["pred_w"], params["pred_b"], prec)
     if return_intermediates:
         return out, {"layers": inter, "h_graph": h_graph}

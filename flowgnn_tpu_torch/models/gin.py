@@ -34,13 +34,27 @@ the un-blocked spill tail's messages summed per node by a plain
 that sum, and one ``gin_local_layer`` launch for the window-local messages
 and the MLP.
 
-The per-layer ELL path (``flowgnn_tpu/models/gin.py:192-268``, without its
-halo branch): per layer the spill tail's messages relu(h_u + ee) are
-gathered by index (``base.spill_gather``) and summed per node by the spill
-scatter (``base.ell_spill_segment_sum``, kernel table row 24), GIN-VN adds
-its VN messages, and one ``gin_local_layer_ell`` launch (row 13) runs the
+The per-layer ELL path (``flowgnn_tpu/models/gin.py:192-268``): per layer
+the spill tail's messages relu(h_u + ee) are gathered by index
+(``base.spill_gather``) and summed per node by the spill scatter
+(``base.ell_spill_segment_sum``, kernel table row 24), GIN-VN adds its VN
+messages, and one ``gin_local_layer_ell`` launch (row 13) runs the
 window-local messages and the MLP; ``mean_pool`` and the readout are plain
 torch.
+
+Sharded (``edge_axis``, ``parallel.inference``), with the JAX package's
+gates (``flowgnn_tpu/models/gin.py:63-68``, ``:93-101``, ``:154-160``,
+``:196-234``): on a halo shard of the ELL layout the branches above run per
+shard (row 8 when nothing spills, its pool partials completed by
+``base.pool_gather``; row 13 per layer otherwise), except a shard with a
+spill tail, whose layers run row 31 (``gin_local_message_ell``) for the
+window-local messages while the boundary rows are exchanged (the exchange
+is issued before row 31 and waited on after it: row 31 reads no halo row),
+then the spill messages from the extended rows, summed into the trash row,
+and the MLP in plain torch. Every other sharded batch runs the plain loop,
+its gathers through the halo exchange or its sums completed over the axis.
+GIN-VN's per-graph VN sums are completed by an all-reduce on a halo shard.
+No slot megakernel (row 1) and no fused layer (row 25) run under an axis.
 
 The FPGA drops ε (GIN/src/host.cc:185-200), so ``fpga_eps=True`` (default)
 zeroes it for device parity; ``False`` uses the trained value.
@@ -55,7 +69,8 @@ import torch
 from ..core.numerics import FLOAT32, Precision
 from ..ops.fused_layer import gin_layer_fused
 from ..ops.local_layer import (
-    gin_local_layer, gin_local_layer_ell, gin_local_model, gin_local_model_slots, mlp_tiles,
+    gin_local_layer, gin_local_layer_ell, gin_local_message_ell, gin_local_model,
+    gin_local_model_slots, mlp_tiles,
 )
 from ..ops.segment import segment_sum
 from . import base as _base
@@ -72,17 +87,20 @@ from .base import (
 
 
 def _vn_message(h: torch.Tensor, table_l: torch.Tensor, batch: dict,
-                prec: Precision) -> torch.Tensor:
+                prec: Precision, axis=None) -> torch.Tensor:
     """Analytic VN star messages: one segment pool over graph ids and one
     row broadcast back. e0 is the (0,0,0)-attr bond embedding every star
     edge shares (GIN-VN/src/host_load.cc:137-153); pad rows belong to the
-    pad graph, whose row nothing reads."""
+    pad graph, whose row nothing reads. On a halo shard (``axis``) a graph
+    may straddle ranks, so the [G+1, 2D] per-graph sums are completed by one
+    all-reduce over it."""
     zero_attr = torch.zeros((1, 3), dtype=torch.int32, device=h.device)
     ee0 = bond_embed(table_l, zero_attr, prec)  # [1, D]
     vn = batch["vn_mask"].to(h.dtype)[:, None]
     r = prec.q(relu(h + ee0)).to(h.dtype)
     rcat = torch.cat([r * (1 - vn), r * vn], dim=1)
-    sums = segment_sum(rcat, batch["node_graph"], _base.num_graphs_static(batch))
+    sums = segment_sum(rcat, batch["node_graph"], _base.num_graphs_static(batch),
+                       _base.graph_axis(batch, axis))
     back = sums[batch["node_graph"].long()]
     d = h.shape[1]
     return (back[:, d:] * (1 - vn) + back[:, :d] * vn).to(h.dtype)
@@ -157,7 +175,7 @@ def ell_kernel_operands(params: dict, batch: dict, prec: Precision = FLOAT32,
 
 def ell_layer_operands(params: dict, batch: dict, prec: Precision, l: int, h: torch.Tensor,
                        meta: torch.Tensor, spill: Optional[tuple],
-                       eps_all: torch.Tensor, lane_ee: bool = False) -> dict:
+                       eps_all: torch.Tensor, lane_ee: bool = False, axis=None) -> dict:
     """The keyword operands the per-layer ELL path hands
     ``gin_local_layer_ell`` for layer ``l`` and its input ``h``: ``meta`` is
     ``base.ell_meta(batch)``, ``spill`` is ``base.ell_spill(batch)``,
@@ -166,16 +184,12 @@ def ell_layer_operands(params: dict, batch: dict, prec: Precision, l: int, h: to
     when there are neither; ``mlp_tiles`` layer ``l``'s slice of
     ``weight_tiles``. With ``lane_ee`` the bond embedding goes in per ELL
     lane (``ee``, from ``bond_embed``, rounded to the compute dtype) and not
-    as the layer's table, so the layer runs the per-lane kernel (row 12)."""
+    as the layer's table, so the layer runs the per-lane kernel (row 12).
+    ``axis``: the edge axis of a halo shard (GIN-VN's VN sums)."""
     table = params["edge_embedding"][l]
-    m_spill = None
-    if spill is not None:
-        m_spill = _base.ell_spill_segment_sum(_base.spill_messages(h, table, spill, prec), batch)
-    if "vn_mask" in batch:
-        vn = _vn_message(h, table, batch, prec)
-        m_spill = vn if m_spill is None else (m_spill + vn).to(h.dtype)
     ops = dict(
-        ell_meta=meta, h=h, m_spill=m_spill, ee_table=table.to(prec.compute_dtype),
+        ell_meta=meta, h=h, m_spill=_tail_messages(h, h, table, batch, prec, spill, axis),
+        ee_table=table.to(prec.compute_dtype),
         window=_base.ell_geometry(batch)[0], **_mlp_operands(params, prec, l, eps_all),
     )
     if lane_ee:
@@ -195,6 +209,52 @@ def _mlp_operands(params: dict, prec: Precision, l: int, eps_all: torch.Tensor) 
         final_relu=l != params["mlp1_w"].shape[0] - 1,
         mlp_tiles=None if tiles is None else tiles[l],
     )
+
+
+def _mlp_update(params: dict, prec: Precision, eps: torch.Tensor, l: int, agg: torch.Tensor,
+                h: torch.Tensor) -> torch.Tensor:
+    """Layer ``l``'s update of the plain loop from its message sum ``agg``:
+    MLP((1+ε)h + m), ReLU after it but on the last layer."""
+    # eps[l : l + 1], not the 0-d eps[l]: a 0-d tensor does not promote
+    # f32 to f64 in torch, where JAX's (1 + eps[l]) does (the fixed mode's
+    # f32 activations against f64 weights).
+    act = prec.q(prec.q(agg) + (1 + eps[l : l + 1]) * h)
+    z = relu(linear(act, params["mlp1_w"][l], params["mlp1_b"][l], prec))
+    z = linear(z, params["mlp2_w"][l], params["mlp2_b"][l], prec)
+    return relu(z) if l != params["mlp1_w"].shape[0] - 1 else z
+
+
+def _tail_messages(h: torch.Tensor, src: torch.Tensor, table: torch.Tensor, batch: dict,
+                   prec: Precision, spill: Optional[tuple], axis=None):
+    """What an ELL layer adds to its window-local message sums: the spill
+    tail's messages relu(h_u + ee) gathered from ``src`` (the rows the
+    senders index, ``base.sender_rows``) and summed per node
+    (``base.ell_spill_segment_sum``), plus GIN-VN's VN messages; None when
+    there are neither."""
+    m = None
+    if spill is not None:
+        m = _base.ell_spill_segment_sum(_base.spill_messages(src, table, spill, prec), batch)
+    if "vn_mask" in batch:
+        vn = _vn_message(h, table, batch, prec, axis)
+        m = vn if m is None else (m + vn).to(h.dtype)
+    return m
+
+
+def _halo_spill_layer(params: dict, batch: dict, prec: Precision, l: int, h: torch.Tensor,
+                      meta: torch.Tensor, spill: tuple, eps: torch.Tensor,
+                      axis) -> torch.Tensor:
+    """Layer ``l`` of a halo shard's ELL batch with a spill tail
+    (``flowgnn_tpu/models/gin.py:196-234``): the boundary rows' exchange is
+    issued, row 31 sums the window-local messages meanwhile (over the rank's
+    own rows, never the exchanged ones), the tail's messages from the
+    extended rows and the VN messages are added (``_tail_messages``), and
+    the MLP runs in plain torch."""
+    table = params["edge_embedding"][l]
+    src = _base.sender_rows(h, batch, axis, wait=False)
+    m_loc = gin_local_message_ell(ell_meta=meta, ee_table=table.to(prec.compute_dtype), h=h,
+                                  window=_base.ell_geometry(batch)[0])
+    agg = m_loc + _tail_messages(h, src(), table, batch, prec, spill, axis)
+    return _mlp_update(params, prec, eps, l, agg, h)
 
 
 def _local_layer_operands(params: dict, batch: dict, prec: Precision, l: int, h: torch.Tensor,
@@ -264,6 +324,7 @@ def forward(
     fpga_eps: bool = True,
     return_intermediates: bool = False,
     fused: bool = False,
+    edge_axis=None,
 ):
     """[G+1, T] predictions (the last row is the pad graph's). ``params``
     as made by ``params.loaders.params_from_numpy``; ``batch`` as made by
@@ -271,16 +332,22 @@ def forward(
     MLP in one kernel on an edge-block batch without a virtual node (the JAX
     package's predicate; any other batch ignores it). In the fixed mode
     (``prec.fixed``) every batch runs the plain loop, with ``prec.q`` at the
-    JAX package's stage boundaries."""
+    JAX package's stage boundaries. ``edge_axis``: the mesh axis
+    (``parallel.mesh.Axis``) over which the batch is sharded, a halo shard
+    or a 1/k slice of the edges (``parallel.inference``); None on one
+    device."""
     kernels = prec.fixed is None
-    ell = "loc_ell" in batch and kernels
-    local = "loc_ulocal" in batch and "loc_ell" not in batch and kernels
-    fused = fused and "blk_vlocal" in batch and "vn_mask" not in batch and kernels
+    halo = _base.halo_mode(batch, edge_axis)
+    single = edge_axis is None
+    ell = "loc_ell" in batch and kernels and (single or halo)
+    local = "loc_ulocal" in batch and "loc_ell" not in batch and kernels and single
+    fused = fused and "blk_vlocal" in batch and "vn_mask" not in batch and kernels and single
     if ell and _base.ell_megakernel(batch, return_intermediates):
         pool = gin_local_model(**ell_kernel_operands(params, batch, prec, fpga_eps))
+        pool = _base.pool_gather(pool, edge_axis)
         return _base.pool_finish(pool, batch, params["pred_b"], prec)
     if ("slot_meta" in batch and "pool_gl" in batch and not return_intermediates
-            and kernels):
+            and kernels and single):
         pool = gin_local_model_slots(**slot_kernel_operands(params, batch, prec, fpga_eps))
         return _base.pool_finish(pool, batch, params["pred_b"], prec)
 
@@ -294,9 +361,13 @@ def forward(
     if ell:
         meta, spill = _base.ell_meta(batch), _base.ell_spill(batch)
     for l in range(L):
+        if ell and halo and spill is not None:
+            h = _halo_spill_layer(params, batch, prec, l, h, meta, spill, eps, edge_axis)
+            inter.append(h)
+            continue
         if ell:
             h = gin_local_layer_ell(**ell_layer_operands(params, batch, prec, l, h, meta,
-                                                         spill, eps_all))
+                                                         spill, eps_all, axis=edge_axis))
             inter.append(h)
             continue
         ee = bond_embed(params["edge_embedding"][l], batch["edge_attr"], prec)
@@ -304,23 +375,17 @@ def forward(
             h = gin_local_layer(**_local_layer_operands(params, batch, prec, l, h, ee, eps_all))
             inter.append(h)
             continue
-        msg = relu(gather_sources(h, batch) + ee)
+        msg = relu(gather_sources(h, batch, edge_axis) + ee)
         if fused:
             h = gin_layer_fused(**_fused_layer_operands(params, batch, prec, l, h, msg, eps_all))
             inter.append(h)
             continue
-        agg = edge_segment_sum(msg, batch)
+        agg = edge_segment_sum(msg, batch, edge_axis)
         if vn:
-            agg = agg + _vn_message(h, params["edge_embedding"][l], batch, prec)
-        # eps[l : l + 1], not the 0-d eps[l]: a 0-d tensor does not promote
-        # f32 to f64 in torch, where JAX's (1 + eps[l]) does (the fixed mode's
-        # f32 activations against f64 weights).
-        act = prec.q(prec.q(agg) + (1 + eps[l : l + 1]) * h)
-        z = relu(linear(act, params["mlp1_w"][l], params["mlp1_b"][l], prec))
-        z = linear(z, params["mlp2_w"][l], params["mlp2_b"][l], prec)
-        h = relu(z) if l != L - 1 else z
+            agg = agg + _vn_message(h, params["edge_embedding"][l], batch, prec, edge_axis)
+        h = _mlp_update(params, prec, eps, l, agg, h)
         inter.append(h)
-    h_graph = mean_pool(h, batch, prec)
+    h_graph = mean_pool(h, batch, prec, edge_axis)
     out = linear(h_graph, params["pred_w"], params["pred_b"], prec)
     if return_intermediates:
         return out, {"layers": inter, "h_graph": h_graph}

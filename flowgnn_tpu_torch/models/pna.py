@@ -25,6 +25,18 @@ gives the slot aggregates, the spill tail adds its sums through
 readout are plain torch; a plain edge-list batch, and an ELL batch (spill
 tail included: PNA has no ELL kernel, ``flowgnn_tpu/models/pna.py:56-58``),
 runs the plain loop, the port's own oracle.
+
+Sharded (``edge_axis``, ``parallel.inference``), with the JAX package's
+gates (``flowgnn_tpu/models/pna.py:55-67``, ``:119-190``): a halo shard of
+the slot layout runs the slot branches above per shard (row 3 with its pool
+partials completed by ``base.pool_gather``, or row 20 per layer, when
+nothing spills; with a spill tail row 19, the layer's boundary rows
+exchanged meanwhile, and the tail's sums, mins and maxes merged over the
+shard's n + 1 rows, its pad lanes in the trash row, with no collective).
+Every other sharded batch runs the plain loop: on a halo shard its gathers
+through the exchange and its sums, mins and maxes rank-local; on the
+replicated-node path its reductions completed by all-reduces (SUM, MIN,
+MAX).
 """
 
 from __future__ import annotations
@@ -47,14 +59,14 @@ MIN_INIT = -32.0
 MAX_INIT = 32767 / 1024
 
 
-def _degree_terms(params: dict, batch: dict, prec: Precision):
+def _degree_terms(params: dict, batch: dict, prec: Precision, axis=None):
     """(in_deg, t, scale), each [n, 1] in the compute dtype (the scalers
     quantized by ``prec.q``). The reference's asymmetry is kept: the mean
     divides by in-degree (0 → 1), the scalers use log(out_degree + 1)
     (PNA/src/load_inputs.cc:87-105)."""
     dt = prec.compute_dtype
-    in_deg = torch.clamp_min(in_degree(batch), 1).to(dt)[:, None]
-    log_deg = torch.log(out_degree(batch).to(dt) + 1)[:, None]
+    in_deg = torch.clamp_min(in_degree(batch, axis), 1).to(dt)[:, None]
+    log_deg = torch.log(out_degree(batch, axis).to(dt) + 1)[:, None]
     avg_deg = params["avg_deg"]
     t = prec.q(log_deg / avg_deg)
     pos = log_deg > 0
@@ -102,14 +114,18 @@ def _readout_tail(z: torch.Tensor, params: dict, prec: Precision) -> torch.Tenso
     return linear(z, params["mlp3_w"], params["mlp3_b"], prec)
 
 
-def _aggregates(h: torch.Tensor, batch: dict):
+def _aggregates(h: torch.Tensor, batch: dict, axis=None):
     """(sum, sum², min, max) of the in-neighbours' h over the plain edge
-    list."""
+    list: on a halo shard over the extended rows, rank-local, the pad lanes
+    in the trash row; with the edges split over ``axis`` completed by
+    all-reduces."""
     n, d = h.shape
     v = batch["receivers"]
-    x = gather_sources(h, batch)
-    ss = edge_segment_sum(torch.cat([x, x * x], dim=1), batch)
-    return ss[:, :d], ss[:, d:], segment_min(x, v, n, MAX_INIT), segment_max(x, v, n, MIN_INIT)
+    x = gather_sources(h, batch, axis)
+    ss = edge_segment_sum(torch.cat([x, x * x], dim=1), batch, axis)
+    rows, red = _base.receiver_space(batch, axis)
+    return (ss[:, :d], ss[:, d:], segment_min(x, v, rows, MAX_INIT, red)[:n],
+            segment_max(x, v, rows, MIN_INIT, red)[:n])
 
 
 def stats_operands(h: torch.Tensor, batch: dict) -> dict:
@@ -127,20 +143,24 @@ def spill_values(h: torch.Tensor, batch: dict, lanes) -> tuple[torch.Tensor, tor
     return x, torch.cat([x, x * x], dim=1)
 
 
-def _slot_aggregates(h: torch.Tensor, batch: dict, lanes):
-    """(sum, sum², min, max) over a slot batch with a spill tail: the slot
-    aggregates of ``pna_local_stats_ell``, rounded to h's dtype as the
-    kernel gives them, then the spill tail's sums, mins and maxes merged
-    in."""
+def _slot_aggregates(h: torch.Tensor, batch: dict, lanes, axis=None):
+    """(sum, sum², min, max) over a slot batch with a spill tail (``lanes``
+    as ``base.spill_lanes`` gives them): the slot aggregates of
+    ``pna_local_stats_ell``, rounded to h's dtype as the kernel gives them,
+    then the spill tail's sums (``base.spill_segment_sum``), mins and maxes
+    merged in over n + 1 rows. On a halo shard (``axis``) the boundary rows'
+    exchange is issued before row 19 and the tail read from the extended
+    rows after it, its pad lanes in the trash row (no collective)."""
     n, d = h.shape
+    src = _base.sender_rows(h, batch, axis, wait=False)
     st = pna_local_stats_ell(**stats_operands(h, batch))
     sp_v = lanes[1]
-    x, sums = spill_values(h, batch, lanes)
-    ss = _base.spill_segment_sum(sums, batch)
+    x, sums = spill_values(src(), batch, lanes)
+    ss = _base.spill_segment_sum(sums, batch, sp_v)
     return (
         st[:, :d] + ss[:, :d], st[:, d : 2 * d] + ss[:, d:],
-        torch.minimum(st[:, 2 * d : 3 * d], segment_min(x, sp_v, n, MAX_INIT)),
-        torch.maximum(st[:, 3 * d :], segment_max(x, sp_v, n, MIN_INIT)),
+        torch.minimum(st[:, 2 * d : 3 * d], segment_min(x, sp_v, n + 1, MAX_INIT)[:n]),
+        torch.maximum(st[:, 3 * d :], segment_max(x, sp_v, n + 1, MIN_INIT)[:n]),
     )
 
 
@@ -194,23 +214,27 @@ def forward(
     batch: dict,
     prec: Precision = FLOAT32,
     return_intermediates: bool = False,
+    edge_axis=None,
 ):
     """[G+1, 1] predictions (the last row is the pad graph's). ``params``
     as made by ``params.loaders.params_from_numpy``; ``batch`` as made by
     ``models.base.to_device``. In the fixed mode (``prec.fixed``) every
     batch runs the plain loop, with ``prec.q`` at the JAX package's stage
-    boundaries."""
-    slots = "slot_src" in batch and prec.fixed is None
+    boundaries. ``edge_axis``: the mesh axis over which the batch is
+    sharded (``parallel.inference``); None on one device."""
+    halo = _base.halo_mode(batch, edge_axis)
+    slots = "slot_src" in batch and prec.fixed is None and (edge_axis is None or halo)
     no_spill = slots and not batch["slot_spill"].shape[-1]
     if no_spill and not return_intermediates and "pool_gl" in batch:
         pool = pna_local_model(**slot_kernel_operands(params, batch, prec))
+        pool = _base.pool_gather(pool, edge_axis)
         return _readout_tail(_base.pool_finish(pool, batch, params["mlp1_b"], prec), params, prec)
 
     L = params["conv_w"].shape[0]
-    terms = _degree_terms(params, batch, prec)
+    terms = _degree_terms(params, batch, prec, edge_axis)
     in_deg, t, scale = terms
     h = _base.atom_embed(params["node_embedding"], batch["node_feat"], prec)
-    lanes = _base.spill_lanes(batch) if slots and not no_spill else None
+    lanes = _base.spill_lanes(batch, edge_axis) if slots and not no_spill else None
     tiles = tower_tiles(params, prec) if no_spill else None
     inter = [h]
     for l in range(L):
@@ -218,7 +242,10 @@ def forward(
             h = pna_local_layer(**layer_operands(params, batch, l, h, terms, tiles))
             inter.append(h)
             continue
-        s, s2, mn, mx = _slot_aggregates(h, batch, lanes) if slots else _aggregates(h, batch)
+        if slots:
+            s, s2, mn, mx = _slot_aggregates(h, batch, lanes, edge_axis)
+        else:
+            s, s2, mn, mx = _aggregates(h, batch, edge_axis)
         mean = prec.q(s / in_deg)
         std = prec.q(torch.sqrt(relu(prec.q(s2 / in_deg) - mean * mean)))
         # [n, 4·dim] in enum order (mean, min, max, std), PNA/src/dcl.h:29-35.
@@ -234,7 +261,7 @@ def forward(
         )
         h = prec.q(h + relu(prec.q(acc)))
         inter.append(h)
-    h_graph = mean_pool(h, batch, prec)
+    h_graph = mean_pool(h, batch, prec, edge_axis)
     out = _readout_tail(linear(h_graph, params["mlp1_w"], params["mlp1_b"], prec), params, prec)
     if return_intermediates:
         return out, {"layers": inter, "h_graph": h_graph}

@@ -203,15 +203,20 @@ def test_parser_has_every_jax_option(cmd):
     assert got - want == (set() if cmd == "convert" else {"--device", "--weights", "--seed"})
 
 
-@pytest.mark.parametrize("flags", [["--multihost"], ["--edge-shards", "2"], ["--local-data", "4"]],
+@pytest.mark.parametrize("flags", [["--multihost", "--edge-shards", "0"], ["--edge-shards", "2"],
+                                   ["--local-data", "4"]],
                          ids=["multihost", "edge-shards", "local-data"])
 def test_multihost_is_a_parser_error(tmp_path, flags):
-    """Multi-host exits with a parser error naming the missing port; it
-    does not fall back to one device."""
+    """The multi-host options exit with a parser error where they cannot
+    apply (``--edge-shards`` or ``--local-data`` without ``--multihost``, a
+    mesh axis of no ranks); nothing runs, nothing falls back to one device.
+    ``tests/test_torch_multihost.py`` runs ``--multihost`` itself."""
     err = io.StringIO()
     with contextlib.redirect_stderr(err), pytest.raises(SystemExit) as e:
         cli.main(["run", "--device", "cpu", "--model", "gin", "--out", str(tmp_path), *flags])
-    assert e.value.code == 2 and "parallel/" in err.getvalue()
+    assert e.value.code == 2
+    assert ("apply to --multihost" if flags[0] != "--multihost" else "at least 1 rank") \
+        in err.getvalue()
     assert not os.listdir(tmp_path)
 
 

@@ -12,7 +12,10 @@ the stage-split tools ``bench.ablate_gin_slots``, ``ablate_gat_pairs``,
 versions; the native packer packs a bucket and GIN's
 inference stream (``runtime.stream``) runs, sequential and pipelined; the
 experiment CLI's ``run`` (GIN, ``--device cpu``) and ``convert`` (an OGB
-raw/ directory, gzipped, with eigenvectors) run."""
+raw/ directory, gzipped, with eigenvectors) run; the sharded steps of
+``parallel`` (``halo_forward`` on all three halo layouts and
+``sharded_forward``, two ranks as threads) run all six models, equal to the
+single-device forward."""
 
 import os
 import subprocess
@@ -131,6 +134,28 @@ with tempfile.TemporaryDirectory() as tmp, contextlib.redirect_stderr(io.StringI
     assert len(back) == 5 and all(np.array_equal(a.edge_index, b.edge_index)
                                   for a, b in zip(back, stream_graphs))
     assert ogb.load_labels(tmp + "/ds").shape == (5, 1)
+from flowgnn_tpu_torch.parallel import halo, inference, multihost
+from flowgnn_tpu_torch.parallel import mesh as pmesh
+def rank_step(r, store, name, stacked, raw, step):
+    m = pmesh.make_mesh(1, 2, rank=r, store=store, log=False)
+    p = loaders.params_from_numpy(raw, FLOAT32, "cpu")
+    return getattr(inference, step)(registry.get(name).forward, m, FLOAT32)(p, stacked)
+for name in ("gin", "gin-vn", "gcn", "gat", "pna", "dgn"):
+    spec = registry.get(name)
+    graphs = registry.apply_transforms(spec, synthetic_dataset("molhiv", seed=0, num_graphs=24))
+    packed = next(pack_dataset(graphs, node_capacity=1023, edge_capacity=4096, graph_capacity=32,
+                               with_eigen=spec.needs_eigen))
+    raw, g = small[name.split("-")[0]](), packed.num_graphs
+    plain = spec.forward(loaders.params_from_numpy(raw, FLOAT32, "cpu"),
+                         base.to_device(base.as_batch(packed), "cpu"), FLOAT32)
+    cases = [(inference.stack_halo_buckets([halo.build_halo_batch(
+        packed, k=2, edge_slack=4.0, blocked=blocked)]), "halo_forward")
+        for blocked in (None, "local_ell", "local_slots")]
+    cases.append((inference.stack_buckets([packed]), "sharded_forward"))
+    for stacked, step in cases:
+        for out in pmesh.run_threads(rank_step, 2, name, stacked, raw, step):
+            assert torch.allclose(out[0, :g], plain[:g], atol=1e-5), (name, step)
+assert multihost.shard_stream(list(range(3)), 2) == ([[0, 1], [2, 2]], [2, 1])
 assert not any(k == "flowgnn_tpu" or k.startswith("flowgnn_tpu.") for k in sys.modules)
 print("ok", len(mods))
 """
